@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on an NVIDIA H100.
+"""Drive the PyTorch/CUDA port's main paths once on an NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -8,14 +8,16 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card of compute capability 9.0 and exits non-zero,
 printing no result, without one (or when run from a directory that holds
 this script and nothing else of the repository). It imports torch and the
-port (``mlops_tpu_torch``), never JAX or the JAX package. Phases, each of
-which fails the run loudly:
+port (``mlops_tpu_torch``), never JAX or the JAX package. Two main paths:
+quant-tier serving (``POST /predict``) and long-context doc scoring
+(``predict-file`` on a ``doc`` bundle). Phases, each of which fails the
+run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
    compute capability;
-2. build the fused quant-predict kernel from ``mlops_tpu_torch/csrc``
-   with nvcc, printing the build time and ptxas' register/shared-memory
-   summary;
+2. build both kernels from ``mlops_tpu_torch/csrc`` (one nvcc per source,
+   started together), printing the build times and ptxas'
+   register/spill/shared-memory summary;
 3. a full-width quant bundle without JAX: 20,000 synthetic rows, the
    preprocessor and monitor fits (R=2048), seeded int8/bf16 student
    weights (E=4, H=32), written in the bundle format;
@@ -31,7 +33,26 @@ which fails the run loudly:
    count rose, and SIGTERM drains the server;
 6. timing with CUDA events at bucket 1, bucket 256 and groups 64x1 and
    64x8: kernel, plain version, whole dispatch -> fetch, and the bound
-   from bytes and operations.
+   from bytes and operations;
+7. the flash-attention kernel against its plain version on the card: the
+   doc model's full width (256, 508, 8, 32) bf16 as views of one qkv
+   projection, doc_records 3 (4, 140, 2, 16), ragged (2, 200, 4, 64) in
+   f32 and bf16, cross-length q 45 / kv 70 in f32; f32 out 2e-5 and lse
+   1e-5, bf16 out 2e-2 and lse 1e-3; one launch per call;
+8. the doc path at full width: a bundle of the ``long_context_job.toml``
+   model (bert, doc_records 11, token_dim 256, depth 4, heads 8, bf16)
+   with seeded weights, preprocessor and monitor fitted on 20,000
+   synthetic rows; ``python -m mlops_tpu_torch predict-file`` on a
+   300*11 + 7-row history CSV at ``serve.max_batch=128`` in a
+   subprocess, then the same function in this process (equal output,
+   flash launches = depth x chunks = 12), checked against the same
+   forward with dense attention on the card and against the port on the
+   CPU for the first 16 documents (1e-2 on probabilities);
+9. flash timing at full width: the kernel's launch on preallocated
+   outputs, the wrapper, the plain version, SDPA as the
+   library yardstick, the bound (bytes, tensor-core FLOPs, exponentials),
+   and end to end: documents/s of doc scoring at ``max_batch=256`` over
+   1,024 documents, forward ms per chunk and the kernel's share of it.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -54,10 +75,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32
-# outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32
+# outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz), dense
+# bf16 on the tensor cores. Exponentials: 16 per SM per clock on the
+# special-function units, at the same 1.98 GHz maximum boost clock as
+# the f32 peak.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_TC_FLOPS = 989e12
+EXP_OPS_PER_S = 16 * 132 * 1.98e9
+
+FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 1e-3)}
+DOC_PRED_ATOL = 1e-2  # bf16 model: flash vs dense attention, card vs CPU
+DOC_DEPTH = 4
 
 PRED_ATOL = 1e-6  # f32 MLP in another summation order + sigmoid
 DRIFT_ATOL = 1e-5  # chi2/K-S p-values computed on two devices
@@ -103,18 +133,28 @@ def phase_card():
 
 # ------------------------------------------------------------------ phase 2
 def phase_build():
-    from mlops_tpu_torch.ops import quant_kernel
+    from concurrent.futures import ThreadPoolExecutor
+
+    from mlops_tpu_torch.ops import attention, quant_kernel
     from mlops_tpu_torch.ops.cuda_build import build_shared_library
 
-    result = build_shared_library(quant_kernel.KERNEL_SOURCE, "quant_fused")
-    log(
-        f"build: {result.path.name} in {result.seconds:.2f} s"
-        + (" (reused)" if result.reused else "")
-    )
-    for line in result.log.splitlines():
-        if "registers" in line or "Compiling entry" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
-    quant_kernel.load_library()
+    kernels = {"quant_fused": quant_kernel, "flash_attention": attention}
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        futures = {
+            name: pool.submit(build_shared_library, mod.KERNEL_SOURCE, name)
+            for name, mod in kernels.items()
+        }
+        results = {name: f.result() for name, f in futures.items()}
+    for name, result in results.items():
+        log(
+            f"build {name}: {result.path.name} in {result.seconds:.2f} s"
+            + (" (reused)" if result.reused else "")
+        )
+        for line in result.log.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+    for mod in kernels.values():
+        mod.load_library()
 
 
 # ------------------------------------------------------------------ phase 3
@@ -542,6 +582,259 @@ def phase_timing(bundle_dir: Path, engine) -> list[dict]:
     return rows
 
 
+# ------------------------------------------------------------------ phase 7
+def _qkv_views(b: int, s_q: int, s_kv: int, h: int, d: int, dtype, seed: int):
+    """q, k and v as the doc model hands them to the kernel: strided views
+    of one [B, S, 3, H, D] projection (separate tensors when q and kv
+    differ in length)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            "cuda", dtype
+        )
+
+    if s_q == s_kv:
+        qkv = normal(b, s_q, 3, h, d)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    return normal(b, s_q, h, d), normal(b, s_kv, h, d), normal(b, s_kv, h, d)
+
+
+def phase_flash_parity() -> dict:
+    import torch
+
+    from mlops_tpu_torch.ops import attention
+
+    cases = [
+        ("full width", (256, 508, 508, 8, 32), torch.bfloat16),
+        ("doc_records 3", (4, 140, 140, 2, 16), torch.bfloat16),
+        ("doc_records 3", (4, 140, 140, 2, 16), torch.float32),
+        ("ragged", (2, 200, 200, 4, 64), torch.float32),
+        ("ragged", (2, 200, 200, 4, 64), torch.bfloat16),
+        ("cross-length", (2, 45, 70, 2, 32), torch.float32),
+    ]
+    rows = []
+    for k, (what, shape, dtype) in enumerate(cases):
+        q, k_, v = _qkv_views(*shape, dtype, seed=40 + k)
+        before = attention.flash_kernel_launches.value
+        out, lse = attention.flash_forward_cuda(q, k_, v)
+        torch.cuda.synchronize()
+        launched = attention.flash_kernel_launches.value - before
+        ref_out, ref_lse = attention.flash_forward_reference(q, k_, v)
+        out_err = (out.float() - ref_out.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs().max().item()
+        name = str(dtype).split(".")[-1]
+        out_tol, lse_tol = FLASH_TOL[name]
+        row = {
+            "case": what, "shape": list(shape), "dtype": name,
+            "out_err": out_err, "lse_err": lse_err,
+        }
+        log(f"flash parity {json.dumps(row)}")
+        check(launched == 1, f"flash {what}: launch counter rose by {launched}")
+        check(
+            math.isfinite(out_err) and out_err <= out_tol and lse_err <= lse_tol,
+            f"flash kernel disagrees with its plain version: {row}",
+        )
+        rows.append(row)
+        del q, k_, v, out, lse, ref_out, ref_lse
+    torch.cuda.empty_cache()
+    return {"max_abs_err": rows[0]["out_err"], "cases": rows}
+
+
+# ------------------------------------------------------------------ phase 8
+def _doc_config():
+    from mlops_tpu_torch.config import ModelConfig
+
+    # configs/long_context_job.toml's model, on one card (dense attention).
+    return ModelConfig(
+        family="bert", doc_records=11, token_dim=256, depth=DOC_DEPTH,
+        heads=8, precision="bf16", dropout=0.0,
+    )
+
+
+def phase_doc_bundle(seed: int = 0) -> tuple[Path, Path]:
+    from mlops_tpu_torch.bundle import save_doc_bundle
+    from mlops_tpu_torch.data import (
+        Preprocessor,
+        generate_synthetic,
+        write_csv_columns,
+    )
+    from mlops_tpu_torch.models.bert import init_doc_params
+    from mlops_tpu_torch.monitor.state import fit_monitor
+    from mlops_tpu_torch.train.long_context import build_doc_model
+
+    columns, _ = generate_synthetic(20000, seed=seed)
+    prep = Preprocessor.fit(columns)
+    config = _doc_config()
+    model = init_doc_params(build_doc_model(config), seed)
+    directory = WORK / "doc_bundle"
+    shutil.rmtree(directory, ignore_errors=True)
+    save_doc_bundle(
+        directory, config, model, prep, fit_monitor(prep.encode(columns)),
+        tags={"source": "chip_smoke.py", "note": "seeded weights, not trained"},
+    )
+    history = WORK / "history.csv"
+    rows, _ = generate_synthetic(300 * 11 + 7, seed=seed + 1)
+    write_csv_columns(history, rows)
+    log(f"doc bundle: {directory}; history: {history} ({300 * 11 + 7} rows)")
+    return directory, history
+
+
+def phase_doc_path(bundle_dir: Path, history: Path, device: str = "cuda") -> dict:
+    """The doc path's main run: predict-file in a subprocess and the same
+    function here, then the checks against dense attention and the CPU.
+    ``device="cpu"`` rehearses it without a card (the kernel then never
+    launches); the smoke run itself uses the card."""
+    import numpy as np
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.commands import predict_documents, predict_file
+    from mlops_tpu_torch.config import load_config
+    from mlops_tpu_torch.data import load_csv_columns
+    from mlops_tpu_torch.models.layers import MultiHeadSelfAttention
+    from mlops_tpu_torch.ops.attention import flash_kernel_launches
+
+    overrides = [
+        f"data.train_path={history}", f"serve.model_directory={bundle_dir}",
+        "serve.max_batch=128", f"serve.device={device}",
+    ]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlops_tpu_torch", "predict-file", *overrides],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=600,
+    )
+    check(proc.returncode == 0,
+          f"predict-file exited {proc.returncode}: {proc.stderr[-2000:]}")
+    sub = json.loads(proc.stdout.strip().splitlines()[-1])
+    preds = np.asarray(sub["predictions"])
+    log(
+        f"predict-file subprocess: {time.perf_counter() - t0:.1f} s, "
+        f"documents={sub['documents']} records_per_document="
+        f"{sub['records_per_document']} rows_dropped={sub['rows_dropped']}"
+    )
+    check(
+        (sub["documents"], sub["records_per_document"], sub["rows_dropped"])
+        == (300, 11, 7),
+        f"predict-file counts {sub['documents']}/{sub['records_per_document']}"
+        f"/{sub['rows_dropped']}, expected 300/11/7",
+    )
+    check(
+        preds.shape == (300,) and np.isfinite(preds).all()
+        and (preds >= 0).all() and (preds <= 1).all(),
+        "predict-file predictions are not 300 finite probabilities",
+    )
+
+    flash_kernel_launches.reset()
+    here = predict_file(load_config(overrides))
+    launches = flash_kernel_launches.value
+    gap = float(np.abs(np.asarray(here["predictions"]) - preds).max())
+    log(f"predict-file in process: flash launches={launches}, "
+        f"max |gap| to the subprocess={gap:.3g}")
+    check(here == sub, "in-process predict-file differs from the subprocess's")
+    expected = DOC_DEPTH * math.ceil(300 / 128) if device == "cuda" else 0
+    check(launches == expected,
+          f"flash launched {launches} times, expected {expected}")
+
+    dense = load_bundle(bundle_dir)
+    for mod in dense.model.modules():
+        if isinstance(mod, MultiHeadSelfAttention):
+            mod.use_flash = False  # the dense reference at S = 508
+    ds = dense.preprocessor.encode(load_csv_columns(history)[0])
+    flash_kernel_launches.reset()
+    plain = predict_documents(dense, ds, 128, device)
+    check(flash_kernel_launches.value == 0, "dense run launched the kernel")
+    dense_gap = float(np.abs(np.asarray(plain["predictions"]) - preds).max())
+
+    cpu = load_bundle(bundle_dir)
+    n = 16 * 11
+    head = type(ds)(cat_ids=ds.cat_ids[:n], numeric=ds.numeric[:n])
+    on_cpu = predict_documents(cpu, head, 128, "cpu")
+    cpu_gap = float(np.abs(np.asarray(on_cpu["predictions"]) - preds[:16]).max())
+    log(f"doc predictions vs dense attention on the card: max |gap| "
+        f"{dense_gap:.3g}; vs the port on the CPU (16 documents): {cpu_gap:.3g}")
+    check(dense_gap <= DOC_PRED_ATOL and cpu_gap <= DOC_PRED_ATOL,
+          f"doc predictions disagree: dense {dense_gap}, cpu {cpu_gap}")
+    return {"launches": launches, "dense_gap": dense_gap, "cpu_gap": cpu_gap}
+
+
+# ------------------------------------------------------------------ phase 9
+def _flash_bound(q, out, lse, s_kv: int):
+    """Least time for one forward: q, k, v read once and out, lse written
+    once at the HBM rate; 4*B*H*Sq*Skv*D FLOPs of products at the bf16
+    tensor-core peak; B*H*Sq*Skv exponentials at the special-function
+    rate. The largest decides (bytes, or operations)."""
+    b, s_q, h, d = q.shape
+    nbytes = (b * s_q * h * d + 2 * b * s_kv * h * d) * q.element_size()
+    nbytes += out.numel() * out.element_size() + lse.numel() * lse.element_size()
+    terms = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "tensor_flops": 4 * b * h * s_q * s_kv * d / BF16_TC_FLOPS * 1e3,
+        "exponentials": b * h * s_q * s_kv / EXP_OPS_PER_S * 1e3,
+    }
+    bound = max(terms.values())
+    return bound, ("bytes" if terms["bytes"] == bound else "operations"), terms
+
+
+def phase_flash_timing(bundle_dir: Path) -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.commands import predict_documents
+    from mlops_tpu_torch.data import generate_synthetic
+    from mlops_tpu_torch.ops import attention
+
+    q, k, v = _qkv_views(256, 508, 508, 8, 32, torch.bfloat16, seed=90)
+    out, lse = attention.flash_forward_cuda(q, k, v)
+    # The kernel alone: the wrapper's own launch on preallocated outputs.
+    kernel_ms = _event_ms(lambda: attention.launch(q, k, v, out, lse), 50)
+    wrapper_ms = _event_ms(lambda: attention.flash_forward_cuda(q, k, v), 50)
+    plain_ms = _event_ms(lambda: attention.flash_forward_reference(q, k, v), 5)
+    # SDPA's layout, [B,H,S,D], copied outside the timed calls.
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    library_ms = _event_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt), 50
+    )
+    bound_ms, bound_by, terms = _flash_bound(q, out, lse, k.shape[1])
+    del q, k, v, out, lse, qt, kt, vt
+    torch.cuda.empty_cache()
+
+    bundle = load_bundle(bundle_dir)
+    columns, _ = generate_synthetic(1024 * 11, seed=7)
+    ds = bundle.preprocessor.encode(columns)
+    predict_documents(bundle, ds, 256, "cuda")  # warm-up
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        predict_documents(bundle, ds, 256, "cuda")
+        walls.append(time.perf_counter() - t0)
+    docs_per_s = 1024 / float(np.median(walls))
+    cat = torch.from_numpy(ds.cat_ids[: 256 * 11].reshape(256, 11, -1)).cuda()
+    num = torch.from_numpy(ds.numeric[: 256 * 11].reshape(256, 11, -1)).cuda()
+    with torch.inference_mode():
+        chunk_ms = _event_ms(lambda: bundle.model(cat, num), 10)
+    row = {
+        "shape": "256x508x8x32 bf16",
+        "ms": kernel_ms,
+        "wrapper_ms": wrapper_ms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "bound_terms_ms": terms,
+        "docs_per_s": docs_per_s,
+        "chunk_forward_ms": chunk_ms,
+        "kernel_share_of_chunk": DOC_DEPTH * kernel_ms / chunk_ms,
+    }
+    log(f"flash timing {json.dumps(row)}")
+    return row
+
+
 def main() -> int:
     if not (ROOT / "mlops_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -557,11 +850,16 @@ def main() -> int:
         parity = phase_parity(bundle_dir)
         served = phase_serve(bundle_dir)
         timing = phase_timing(bundle_dir, served["engine"])
+        flash = phase_flash_parity()
+        doc_dir, history = phase_doc_bundle()
+        doc = phase_doc_path(doc_dir, history)
+        flash_timing = phase_flash_timing(doc_dir)
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
     import torch
 
+    from mlops_tpu_torch.ops import attention
     from mlops_tpu_torch.ops.quant_kernel import REPLACES
 
     check_launches = served["launches"]
@@ -585,6 +883,22 @@ def main() -> int:
             "library_ms": None,
             "shape": head["shape"],
             "timings": timing,
+        }, {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "mlops_tpu_torch/csrc/flash_attention.cu",
+            "replaces": attention.REPLACES,
+            "launches": doc["launches"],
+            "max_abs_err": flash["max_abs_err"],
+            "ms": flash_timing["ms"],
+            "plain_ms": flash_timing["plain_ms"],
+            "bound_ms": flash_timing["bound_ms"],
+            "bound_by": flash_timing["bound_by"],
+            "library_ms": flash_timing["library_ms"],
+            "shape": flash_timing["shape"],
+            "timing": flash_timing,
+            "parity": flash["cases"],
+            "doc_path": doc,
         }],
     }
     log(f"total {time.perf_counter() - t0:.1f} s")

@@ -1,14 +1,22 @@
-"""Command-line entry point: ``python -m mlops_tpu_torch serve [key=value ...]``.
+"""Command-line entry point: ``python -m mlops_tpu_torch <command> [key=value ...]``.
+
+- ``serve``: serve a quant-tier bundle over HTTP;
+- ``predict-file``: score a record-history CSV with a ``doc`` bundle and
+  print one JSON line (``data.train_path=<csv>
+  serve.model_directory=<bundle> [serve.max_batch=N]``).
 
 Overrides are positional ``section.field=value`` pairs, as in the JAX
 package's CLI (``serve.model_directory=<bundle> serve.port=5001
-serve.device=cpu``). ``MODEL_DIRECTORY`` and ``SERVICE_NAME`` in the
-environment take precedence over the config, as in the reference.
+serve.device=cpu``). Both commands run on the card unless
+``serve.device=cpu``. For ``serve``, ``MODEL_DIRECTORY`` and
+``SERVICE_NAME`` in the environment take precedence over the config, as
+in the reference.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import sys
@@ -23,6 +31,14 @@ def build_parser() -> argparse.ArgumentParser:
     serve = sub.add_parser("serve", help="serve a quant-tier bundle over HTTP")
     serve.add_argument(
         "overrides", nargs="*", help="config overrides, e.g. serve.port=5001"
+    )
+    predict = sub.add_parser(
+        "predict-file", help="score a record-history CSV with a doc bundle"
+    )
+    predict.add_argument(
+        "overrides", nargs="*",
+        help="config overrides, e.g. data.train_path=<csv> "
+        "serve.model_directory=<bundle>",
     )
     return parser
 
@@ -48,10 +64,20 @@ def _serve(overrides: list[str]) -> int:
     return 0
 
 
+def _predict_file(overrides: list[str]) -> int:
+    from mlops_tpu_torch.commands import predict_file
+    from mlops_tpu_torch.config import load_config
+
+    print(json.dumps(predict_file(load_config(overrides))), flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "serve":
         return _serve(args.overrides)
+    if args.command == "predict-file":
+        return _predict_file(args.overrides)
     build_parser().print_help()
     return 1
 

@@ -4,18 +4,25 @@ The kernels have a plain C interface and are loaded with ``ctypes``, so a
 build is one ``nvcc`` call of a few seconds. Libraries land in
 ``build/kernels/`` at the root of the checkout, named by a hash of the
 source and the flags, and a later call (or another process) reuses a
-library that is already there. Nothing here runs at import time.
+library that is already there. Nothing here builds at import time.
+
+Beside ``build_shared_library``: ``KernelLibrary`` (one source's
+library, built and bound at first use) and ``LaunchCounter`` (the count
+each kernel wrapper bumps where it launches).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
+from typing import Callable
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
@@ -79,3 +86,44 @@ def build_shared_library(source: Path, name: str) -> BuildResult:
     log_path.write_text(log)
     os.replace(tmp, out)
     return BuildResult(out, seconds, log, reused=False)
+
+
+class KernelLibrary:
+    """One kernel source's shared library: built (first use only), loaded
+    with ``ctypes`` and given its C signatures by ``bind``, once per
+    process."""
+
+    def __init__(
+        self, source: Path, name: str, bind: Callable[[ctypes.CDLL], None]
+    ) -> None:
+        self.source = Path(source)
+        self.name = name
+        self._bind = bind
+        self._lock = threading.Lock()
+        self._lib: ctypes.CDLL | None = None
+
+    def load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                path = build_shared_library(self.source, self.name).path
+                lib = ctypes.CDLL(str(path))
+                self._bind(lib)
+                self._lib = lib
+            return self._lib
+
+
+class LaunchCounter:
+    """How many times a kernel was launched: a plain integer the wrapper
+    bumps at each launch (thread-safe; the server scores from a pool)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.value = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self.value += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.value = 0

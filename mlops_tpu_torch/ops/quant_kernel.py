@@ -19,7 +19,6 @@ slot — so a grouped dispatch is still a single launch.
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Any, Callable
 
 import torch
@@ -30,7 +29,11 @@ from mlops_tpu_torch.monitor.state import (
     fold_accumulator,
     fold_accumulator_grouped,
 )
-from mlops_tpu_torch.ops.cuda_build import PACKAGE_DIR, build_shared_library
+from mlops_tpu_torch.ops.cuda_build import (
+    PACKAGE_DIR,
+    KernelLibrary,
+    LaunchCounter,
+)
 from mlops_tpu_torch.ops.drift import (
     _kolmogorov_sf,
     chi2_two_sample,
@@ -61,44 +64,20 @@ _E = QUANT_EMBED_DIM
 _H = QUANT_HIDDEN
 
 
-class LaunchCounter:
-    """How many times a kernel was launched: a plain integer the wrapper
-    bumps at each launch (thread-safe; the server scores from a pool)."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self.value = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self.value += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self.value = 0
-
-
 quant_kernel_launches = LaunchCounter()
 
-_library: ctypes.CDLL | None = None
-_library_lock = threading.Lock()
+
+def _bind(lib: ctypes.CDLL) -> None:
+    ptr = ctypes.c_void_p
+    lib.quant_fused_launch.argtypes = [ptr] * 20 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr,
+    ]
+    lib.quant_fused_launch.restype = ctypes.c_int
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (first use only) and load the kernel's shared library."""
-    global _library
-    with _library_lock:
-        if _library is None:
-            lib = ctypes.CDLL(
-                str(build_shared_library(KERNEL_SOURCE, "quant_fused").path)
-            )
-            ptr = ctypes.c_void_p
-            lib.quant_fused_launch.argtypes = [ptr] * 20 + [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr,
-            ]
-            lib.quant_fused_launch.restype = ctypes.c_int
-            _library = lib
-        return _library
+_LIBRARY = KernelLibrary(KERNEL_SOURCE, "quant_fused", _bind)
+# Build (first use only) and load the kernel's shared library.
+load_library = _LIBRARY.load
 
 
 def max_rows(r: int) -> int:

@@ -1,6 +1,7 @@
 """The port stands alone: ``mlops_tpu_torch`` imports neither JAX nor
-anything of the JAX package, and its entry points run on the card unless
-the caller asks for the CPU."""
+anything of the JAX package (nor the msgpack package, which the card
+machine lacks: the port has its own codec), and its entry points run on
+the card unless the caller asks for the CPU."""
 
 import ast
 import json
@@ -14,7 +15,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "mlops_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "mlops_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "mlops_tpu")
 
 
 def _forbidden(module: str) -> bool:
