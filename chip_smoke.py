@@ -8,15 +8,16 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card of compute capability 9.0 and exits non-zero,
 printing no result, without one (or when run from a directory that holds
 this script and nothing else of the repository). It imports torch and the
-port (``mlops_tpu_torch``), never JAX or the JAX package. Two main paths:
-quant-tier serving (``POST /predict``) and long-context doc scoring
-(``predict-file`` on a ``doc`` bundle). Phases, each of which fails the
-run loudly:
+port (``mlops_tpu_torch``), never JAX or the JAX package. Three main
+paths: quant-tier serving (``POST /predict``), long-context doc scoring
+(``predict-file`` on a ``doc`` bundle) and doc-model training (``train
+--config configs/long_context_job.toml model.seq_parallel=false``).
+Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
    compute capability;
-2. build both kernels from ``mlops_tpu_torch/csrc`` (one nvcc per source,
-   started together), printing the build times and ptxas'
+2. build every kernel source of ``mlops_tpu_torch/csrc`` (one nvcc per
+   source, all started together), printing the build times and ptxas'
    register/spill/shared-memory summary;
 3. a full-width quant bundle without JAX: 20,000 synthetic rows, the
    preprocessor and monitor fits (R=2048), seeded int8/bf16 student
@@ -52,7 +53,34 @@ run loudly:
    outputs, the wrapper, the plain version, SDPA as the
    library yardstick, the bound (bytes, tensor-core FLOPs, exponentials),
    and end to end: documents/s of doc scoring at ``max_batch=256`` over
-   1,024 documents, forward ms per chunk and the kernel's share of it.
+   1,024 documents, forward ms per chunk and the kernel's share of it;
+10. the two flash backward kernels (dq; dk and dv) against their plain
+    version on the card: the training shape (64, 508, 8, 32) bf16 as
+    views of one qkv projection, (4, 140, 2, 16) bf16 and f32, ragged
+    (2, 200, 4, 64) f32 and bf16, cross-length q 45 / kv 70 f32; f32
+    within 5e-5 + 1e-4 x the gradient's largest magnitude, bf16 within
+    two bf16 ulps of it; one launch of each per call;
+11. training at full width in this process (the job's model, batch 64,
+    bf16, one seeded init): one step's gradients through the flash
+    kernels against dense attention, parameter by parameter (cosine
+    >= 0.98, norm ratio within 5 %); then 30 steps each way on the same
+    batches: loss curves within 0.05 of each other (0.02 on average),
+    the flash run's loss falls (mean of the last 10 below the first 10),
+    and every step launches exactly depth forwards, depth dq and depth
+    dk/dv kernels;
+12. the training main path: ``python -m mlops_tpu_torch train --config
+    configs/long_context_job.toml model.seq_parallel=false`` in a
+    subprocess with ``train.steps`` and ``train.eval_every`` cut (logged;
+    widths and rows are the job's), its JSON checked (finite metrics,
+    metrics.jsonl, a ``doc`` bundle), the port's ``predict-file`` on the
+    bundle it wrote; then the same command's function in this process
+    with the launch counts set to 0 just before: dq and dk/dv exactly
+    steps x depth, forwards steps x depth plus depth per evaluation
+    chunk;
+13. training timing: step ms (CUDA events, after warm-up) and documents
+    trained per second; each backward kernel's ms beside its bound, the
+    plain version's ms and SDPA's backward ms (the library yardstick for
+    the pair), and the share of a step the three attention kernels take.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -60,6 +88,7 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import functools
 import http.client
 import json
 import math
@@ -88,6 +117,18 @@ EXP_OPS_PER_S = 16 * 132 * 1.98e9
 FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 1e-3)}
 DOC_PRED_ATOL = 1e-2  # bf16 model: flash vs dense attention, card vs CPU
 DOC_DEPTH = 4
+JOB_TOML = "configs/long_context_job.toml"
+
+# Flash vs dense attention in training (bf16): per parameter, the cosine
+# of the two gradients and the ratio of their norms; the loss curves'
+# largest and mean gap. The dense reference rounds its scores to bf16,
+# the kernels keep them in f32, so the two differ by bf16 noise.
+GRAD_COSINE_MIN = 0.98
+GRAD_NORM_RTOL = 0.05
+CURVE_MAX_GAP = 0.05
+CURVE_MEAN_GAP = 0.02
+TRAIN_STEPS_CUT = 40  # of the job's 2,000
+TRAIN_EVAL_EVERY_CUT = 20  # of the job's 200
 
 PRED_ATOL = 1e-6  # f32 MLP in another summation order + sigmoid
 DRIFT_ATOL = 1e-5  # chi2/K-S p-values computed on two devices
@@ -108,18 +149,28 @@ def check(cond: bool, msg: str) -> None:
 
 
 # ------------------------------------------------------------------ phase 1
-def phase_card():
-    import torch
-
-    if not torch.cuda.is_available():
-        raise SmokeFailure("torch.cuda.is_available() is False: no card")
+@functools.cache
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them;
+    every timing line carries it."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    card_line = smi.stdout.strip().splitlines()[0]
-    log(card_line)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def log_timing(label: str, row: dict) -> None:
+    log(f"{label} {json.dumps({'card': card_line(), **row})}")
+
+
+def phase_card():
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is False: no card")
+    log(card_line())
     cap = torch.cuda.get_device_capability(0)
     log(
         f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -128,7 +179,6 @@ def phase_card():
     check(cap == (9, 0), f"need compute capability 9.0, got {cap}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return card_line
 
 
 # ------------------------------------------------------------------ phase 2
@@ -138,11 +188,15 @@ def phase_build():
     from mlops_tpu_torch.ops import attention, quant_kernel
     from mlops_tpu_torch.ops.cuda_build import build_shared_library
 
-    kernels = {"quant_fused": quant_kernel, "flash_attention": attention}
-    with ThreadPoolExecutor(len(kernels)) as pool:
+    sources = {
+        "quant_fused": quant_kernel.KERNEL_SOURCE,
+        "flash_attention": attention.KERNEL_SOURCE,
+        "flash_attention_bwd": attention.BWD_KERNEL_SOURCE,
+    }
+    with ThreadPoolExecutor(len(sources)) as pool:
         futures = {
-            name: pool.submit(build_shared_library, mod.KERNEL_SOURCE, name)
-            for name, mod in kernels.items()
+            name: pool.submit(build_shared_library, source, name)
+            for name, source in sources.items()
         }
         results = {name: f.result() for name, f in futures.items()}
     for name, result in results.items():
@@ -153,8 +207,9 @@ def phase_build():
         for line in result.log.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
-    for mod in kernels.values():
-        mod.load_library()
+    quant_kernel.load_library()
+    attention.load_library()
+    attention.load_bwd_library()
 
 
 # ------------------------------------------------------------------ phase 3
@@ -577,7 +632,7 @@ def phase_timing(bundle_dir: Path, engine) -> list[dict]:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
-        log(f"timing {json.dumps(row)}")
+        log_timing("timing", row)
         rows.append(row)
     return rows
 
@@ -831,7 +886,362 @@ def phase_flash_timing(bundle_dir: Path) -> dict:
         "chunk_forward_ms": chunk_ms,
         "kernel_share_of_chunk": DOC_DEPTH * kernel_ms / chunk_ms,
     }
-    log(f"flash timing {json.dumps(row)}")
+    log_timing("flash timing", row)
+    return row
+
+# ----------------------------------------------------------------- phase 10
+def _grad_tol(want) -> float:
+    """f32: 5e-5 + 1e-4 x the largest magnitude (the JAX package's ragged
+    flash-gradient tolerance); bf16: two bf16 ulps at it."""
+    import torch
+
+    big = want.float().abs().max().item()
+    if want.dtype == torch.bfloat16:
+        return 2 * 2.0 ** (math.floor(math.log2(max(big, 1e-30))) - 7)
+    return 5e-5 + 1e-4 * big
+
+
+def _normal_like(x, seed: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=tuple(x.shape)).astype(np.float32)).to(
+        x.device, x.dtype
+    )
+
+
+def phase_bwd_parity() -> dict:
+    import torch
+
+    from mlops_tpu_torch.ops import attention
+
+    cases = [
+        ("training shape", (64, 508, 508, 8, 32), torch.bfloat16),
+        ("doc_records 3", (4, 140, 140, 2, 16), torch.bfloat16),
+        ("doc_records 3", (4, 140, 140, 2, 16), torch.float32),
+        ("ragged", (2, 200, 200, 4, 64), torch.float32),
+        ("ragged", (2, 200, 200, 4, 64), torch.bfloat16),
+        ("cross-length", (2, 45, 70, 2, 32), torch.float32),
+    ]
+    rows = []
+    for n, (what, shape, dtype) in enumerate(cases):
+        q, k, v = _qkv_views(*shape, dtype, seed=60 + n)
+        do = _normal_like(q, seed=80 + n)
+        out, lse = attention.flash_forward_cuda(q, k, v)
+        before = (attention.flash_bwd_dq_launches.value,
+                  attention.flash_bwd_dkv_launches.value)
+        got = attention.flash_backward_cuda(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        launched = (attention.flash_bwd_dq_launches.value - before[0],
+                    attention.flash_bwd_dkv_launches.value - before[1])
+        want = attention.flash_backward_reference(q, k, v, out, lse, do)
+        errs = {
+            name: (g.float() - w.float()).abs().max().item()
+            for name, g, w in zip(("dq", "dk", "dv"), got, want)
+        }
+        tols = {name: _grad_tol(w) for name, w in zip(("dq", "dk", "dv"), want)}
+        row = {"case": what, "shape": list(shape), "dtype": str(dtype).split(".")[-1],
+               "err": errs, "tol": tols}
+        log(f"flash backward parity {json.dumps(row)}")
+        check(launched == (1, 1), f"backward {what}: launch counters rose by {launched}")
+        check(
+            all(math.isfinite(e) and e <= tols[name] for name, e in errs.items()),
+            f"flash backward kernels disagree with their plain version: {row}",
+        )
+        rows.append(row)
+        del q, k, v, do, out, lse, got, want
+    torch.cuda.empty_cache()
+    return {"dq_err": rows[0]["err"]["dq"],
+            "dkv_err": max(rows[0]["err"]["dk"], rows[0]["err"]["dv"]),
+            "cases": rows}
+
+
+# ----------------------------------------------------------------- phase 11
+def _launch_counts() -> tuple[int, int, int]:
+    from mlops_tpu_torch.ops import attention
+
+    return (attention.flash_kernel_launches.value,
+            attention.flash_bwd_dq_launches.value,
+            attention.flash_bwd_dkv_launches.value)
+
+
+def _reset_launch_counts() -> None:
+    from mlops_tpu_torch.ops import attention
+
+    for counter in (attention.flash_kernel_launches, attention.flash_bwd_dq_launches,
+                    attention.flash_bwd_dkv_launches):
+        counter.reset()
+
+
+def _train_documents(config, rows: int, seed: int, device):
+    """Documents of ``rows`` synthetic rows as (cat, num, label) tensors on
+    ``device``."""
+    import torch
+
+    from mlops_tpu_torch.data import Preprocessor, generate_synthetic
+    from mlops_tpu_torch.train.long_context import make_documents
+
+    columns, labels = generate_synthetic(rows, seed=seed)
+    ds = Preprocessor.fit(columns).encode(columns, labels)
+    return tuple(
+        torch.from_numpy(a).to(device) for a in make_documents(ds, config.doc_records)
+    )
+
+
+def _doc_trainer(config, device, flash: bool):
+    """The job's trainer (learning rate 1e-3, seeded init 0); ``flash``
+    False puts every attention module on the dense reference."""
+    from mlops_tpu_torch.config import TrainConfig
+    from mlops_tpu_torch.models.layers import MultiHeadSelfAttention
+    from mlops_tpu_torch.train.long_context import make_doc_train_step
+
+    trainer = make_doc_train_step(
+        config, TrainConfig(learning_rate=1e-3, device=str(device)), seed=0
+    )
+    for mod in trainer.model.modules():
+        if isinstance(mod, MultiHeadSelfAttention):
+            mod.use_flash = None if flash else False
+    return trainer
+
+
+def phase_train_parity(config=None, batch: int = 64, steps: int = 30,
+                       device: str = "cuda") -> dict:
+    """Flash against dense attention in training at the job's width.
+    ``device="cpu"`` (with a small ``config``) rehearses it without a
+    card: both routes are then dense and nothing launches."""
+    import torch
+
+    from mlops_tpu_torch.train.loop import sigmoid_bce
+    from mlops_tpu_torch.train.pipeline import _batch_indices
+
+    config = config or _doc_config()
+    cat, num, lab = _train_documents(config, 20000, seed=3, device=device)
+    n_docs = cat.shape[0]
+    on_card = device == "cuda"
+    per_step = (config.depth,) * 3 if on_card else (0, 0, 0)
+
+    def batch_of(step):
+        idx = torch.from_numpy(_batch_indices(n_docs, batch, 0, step)).to(device)
+        return cat[idx], num[idx], lab[idx]
+
+    grads = {}
+    for route in ("flash", "dense"):
+        trainer = _doc_trainer(config, device, route == "flash")
+        _reset_launch_counts()
+        c, x, y = batch_of(1)
+        sigmoid_bce(trainer.model(c, x), y).backward()
+        counts = _launch_counts()
+        want = per_step if route == "flash" else (0, 0, 0)
+        check(counts == want, f"{route} gradient step launched {counts}, expected {want}")
+        grads[route] = {k: p.grad.float().flatten() for k, p in trainer.model.named_parameters()}
+        del trainer
+    stats = []
+    for name, g in grads["flash"].items():
+        d = grads["dense"][name]
+        cos = torch.nn.functional.cosine_similarity(g, d, dim=0).item()
+        ratio = (g.norm() / d.norm().clamp_min(1e-30)).item()
+        stats.append((name, cos, ratio))
+        check(cos >= GRAD_COSINE_MIN and abs(ratio - 1) <= GRAD_NORM_RTOL,
+              f"{name}: flash vs dense gradient cosine {cos:.5f}, norm ratio {ratio:.5f}")
+    cos_name, worst_cos, _ = min(stats, key=lambda t: t[1])
+    ratio_name, _, worst_ratio = max(stats, key=lambda t: abs(t[2] - 1))
+    log(f"train gradients flash vs dense ({len(stats)} parameters): worst "
+        f"cosine {worst_cos:.6f} ({cos_name}), worst norm ratio "
+        f"{worst_ratio:.6f} ({ratio_name})")
+    del grads
+
+    curves = {}
+    for route in ("flash", "dense"):
+        trainer = _doc_trainer(config, device, route == "flash")
+        losses = []
+        for step in range(1, steps + 1):
+            _reset_launch_counts()
+            losses.append(float(trainer.step(*batch_of(step))))
+            counts = _launch_counts()
+            want = per_step if route == "flash" else (0, 0, 0)
+            check(counts == want, f"{route} step {step} launched {counts}, expected {want}")
+        curves[route] = losses
+        del trainer
+    gaps = [abs(a - b) for a, b in zip(curves["flash"], curves["dense"])]
+    first, last = sum(curves["flash"][:10]) / 10, sum(curves["flash"][-10:]) / 10
+    row = {
+        "steps": steps, "batch": batch, "max_gap": max(gaps),
+        "mean_gap": sum(gaps) / len(gaps), "first10_mean": first, "last10_mean": last,
+        "flash": [round(v, 5) for v in curves["flash"]],
+        "dense": [round(v, 5) for v in curves["dense"]],
+    }
+    log(f"train loss curves {json.dumps(row)}")
+    check(all(math.isfinite(v) for v in curves["flash"] + curves["dense"]),
+          "non-finite training loss")
+    check(max(gaps) <= CURVE_MAX_GAP and row["mean_gap"] <= CURVE_MEAN_GAP,
+          f"flash and dense loss curves part: max {max(gaps)}, mean {row['mean_gap']}")
+    check(last < first, f"the flash run's loss does not fall: {first} -> {last}")
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"worst_cosine": worst_cos, "worst_norm_ratio": worst_ratio, **row}
+
+
+# ----------------------------------------------------------------- phase 12
+def phase_train_path(history: Path, extra: tuple[str, ...] = (),
+                     device: str = "cuda") -> dict:
+    """The training main path: the CLI in a subprocess, predict-file on
+    its bundle, then the same function here with the launch counts read.
+    ``extra`` overrides and ``device="cpu"`` rehearse it small on the CPU
+    (nothing launches there)."""
+    import numpy as np
+
+    from mlops_tpu_torch.commands import predict_file, train
+    from mlops_tpu_torch.config import load_config
+
+    root = WORK / "train"
+    shutil.rmtree(root, ignore_errors=True)
+    cuts = [f"train.steps={TRAIN_STEPS_CUT}", f"train.eval_every={TRAIN_EVAL_EVERY_CUT}"]
+    overrides = [
+        "model.seq_parallel=false", *cuts, f"registry.root={root / 'registry'}",
+        f"registry.run_root={root / 'runs'}", f"train.device={device}", *extra,
+    ]
+    config = load_config(overrides, ROOT / JOB_TOML)
+    log(f"train: {JOB_TOML} with model.seq_parallel=false (one card: the dense "
+        f"path); cut: {' '.join(cuts)} (the job: train.steps=2000 "
+        f"train.eval_every=200); rows {config.data.rows}, batch "
+        f"{config.train.batch_size}, {config.model.token_dim}/{config.model.depth}/"
+        f"{config.model.heads}, {config.model.precision}: the job's")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlops_tpu_torch", "train", "--config", JOB_TOML,
+         *overrides, "registry.run_name=cli"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=900,
+    )
+    check(proc.returncode == 0, f"train exited {proc.returncode}: {proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(f"train subprocess: {time.perf_counter() - t0:.1f} s: {json.dumps(out)}")
+    check(set(out) == {"bundle", "model_uri", "run_dir", "steps", "packaged_step", "metrics"},
+          f"train printed keys {sorted(out)}")
+    check(out["steps"] == TRAIN_STEPS_CUT and out["packaged_step"] == TRAIN_STEPS_CUT,
+          f"train steps {out['steps']}/{out['packaged_step']}")
+    check(len(out["metrics"]) == 5 and all(math.isfinite(v) for v in out["metrics"].values()),
+          f"train metrics {out['metrics']}")
+    rows = [json.loads(line) for line in (Path(out["run_dir"]) / "metrics.jsonl").open()]
+    check([r["step"] for r in rows] == list(
+        range(TRAIN_EVAL_EVERY_CUT, TRAIN_STEPS_CUT + 1, TRAIN_EVAL_EVERY_CUT)),
+        f"metrics.jsonl steps {[r['step'] for r in rows]}")
+    manifest = json.loads((Path(out["bundle"]) / "manifest.json").read_text())
+    check(manifest["flavor"] == "doc" and manifest["tags"]["trained_with"]
+          == "long_context dense", "the bundle is not a dense-trained doc bundle")
+
+    scored = predict_file(load_config([
+        f"data.train_path={history}", f"serve.model_directory={out['bundle']}",
+        "serve.max_batch=128", f"serve.device={device}",
+    ]))
+    preds = np.asarray(scored["predictions"])
+    log(f"predict-file on the trained bundle: {scored['documents']} documents, "
+        f"mean probability {preds.mean():.4f}")
+    check(scored["documents"] == 300 and np.isfinite(preds).all()
+          and ((preds >= 0) & (preds <= 1)).all(),
+          "predict-file on the trained bundle: not 300 finite probabilities")
+
+    config.registry.run_name = "in_process"
+    _reset_launch_counts()
+    here = train(config)
+    counts = _launch_counts()
+    valid_docs = int(config.data.rows * config.data.valid_fraction) // config.model.doc_records
+    chunks = math.ceil(valid_docs / 256)
+    evals = TRAIN_STEPS_CUT // TRAIN_EVAL_EVERY_CUT + 1  # and the calibration's
+    depth = config.model.depth
+    want = (
+        (depth * (TRAIN_STEPS_CUT + evals * chunks), depth * TRAIN_STEPS_CUT,
+         depth * TRAIN_STEPS_CUT) if device == "cuda" else (0, 0, 0)
+    )
+    log(f"train in process: launches forward/dq/dkv {counts} (expected {want}); "
+        f"metrics {json.dumps(here['metrics'])}")
+    check(counts == want, f"training launched {counts}, expected {want}")
+    return {"launches": counts, "cli": out, "in_process": here}
+
+
+# ----------------------------------------------------------------- phase 13
+def _bwd_bound(q, k, outputs: int):
+    """Least time for one backward kernel: q, k, v, do read once, lse and
+    delta once, ``outputs`` gradient tensors written once, at the HBM
+    rate; its products (3 for dq, 4 for dk/dv, each 2*B*H*Sq*Skv*D FLOPs)
+    at the bf16 tensor-core peak; B*H*Sq*Skv exponentials at the
+    special-function rate. The largest decides."""
+    b, s_q, h, d = q.shape
+    s_kv = k.shape[1]
+    el = q.element_size()
+    nbytes = (2 * b * s_q * h * d + 2 * b * s_kv * h * d) * el + 2 * b * h * s_q * 4
+    nbytes += outputs * (b * (s_q if outputs == 1 else s_kv) * h * d) * el
+    products = 3 if outputs == 1 else 4
+    terms = {
+        "bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+        "tensor_flops": products * 2 * b * h * s_q * s_kv * d / BF16_TC_FLOPS * 1e3,
+        "exponentials": b * h * s_q * s_kv / EXP_OPS_PER_S * 1e3,
+    }
+    bound = max(terms.values())
+    return bound, ("bytes" if terms["bytes"] == bound else "operations"), terms
+
+
+def phase_train_timing() -> dict:
+    import torch
+
+    from mlops_tpu_torch.ops import attention
+
+    config = _doc_config()
+    cat, num, lab = _train_documents(config, 64 * 11, seed=5, device="cuda")
+    trainer = _doc_trainer(config, "cuda", flash=True)
+    step_ms = _event_ms(lambda: trainer.step(cat, num, lab), 20)
+    del trainer
+    torch.cuda.empty_cache()
+
+    q, k, v = _qkv_views(64, 508, 508, 8, 32, torch.bfloat16, seed=92)
+    do = _normal_like(q, seed=93)
+    out, lse = attention.flash_forward_cuda(q, k, v)
+    delta = attention.flash_delta(out, do)
+    dq = torch.empty_like(out)
+    dk, dv = torch.empty_like(out), torch.empty_like(out)
+    dq_ms = _event_ms(lambda: attention.launch_dq(q, k, v, do, lse, delta, dq), 50)
+    dkv_ms = _event_ms(lambda: attention.launch_dkv(q, k, v, do, lse, delta, dk, dv), 50)
+    plain_ms = _event_ms(
+        lambda: attention.flash_backward_reference(q, k, v, out, lse, do), 5
+    )
+    # SDPA's backward (its flash backend) as one call of the aten op, in
+    # its layout [B,H,S,D] copied outside the timed calls, as the kernels
+    # are timed through their launch helpers: no autograd on the host,
+    # whose speed would otherwise decide the time.
+    qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+    sdpa_fwd = torch.ops.aten._scaled_dot_product_flash_attention
+    sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+    fo = sdpa_fwd(qt, kt, vt, 0.0, False, False)
+    bwd_args = (dot, qt, kt, vt, *fo[:6], 0.0, False, fo[6], fo[7])
+    library_ms = _event_ms(lambda: sdpa_bwd(*bwd_args), 50)
+    sdpa_fwd_ms = _event_ms(lambda: sdpa_fwd(qt, kt, vt, 0.0, False, False), 50)
+    sdpa_dq = sdpa_bwd(*bwd_args)[0].transpose(1, 2)
+    ours_dq = attention.flash_bwd_dq_cuda(q, k, v, do, lse, delta)
+    sdpa_gap = (sdpa_dq.float() - ours_dq.float()).abs().max().item()
+    dq_bound, dq_by, dq_terms = _bwd_bound(q, k, 1)
+    dkv_bound, dkv_by, dkv_terms = _bwd_bound(q, k, 2)
+    depth = config.depth
+    row = {
+        "shape": "64x508x8x32 bf16",
+        "step_ms": step_ms,
+        "docs_per_s": 64 / step_ms * 1e3,
+        "dq_ms": dq_ms, "dq_bound_ms": dq_bound, "dq_bound_by": dq_by,
+        "dq_bound_terms_ms": dq_terms,
+        "dkv_ms": dkv_ms, "dkv_bound_ms": dkv_bound, "dkv_bound_by": dkv_by,
+        "dkv_bound_terms_ms": dkv_terms,
+        "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        "sdpa_fwd_ms": sdpa_fwd_ms,
+        "dq_max_gap_to_sdpa": sdpa_gap,
+        "fwd_ms_at_batch_64": _event_ms(lambda: attention.launch(q, k, v, out, lse), 50),
+    }
+    row["attention_share_of_step"] = (
+        depth * (row["fwd_ms_at_batch_64"] + dq_ms + dkv_ms) / step_ms
+    )
+    log_timing("train timing", row)
+    del q, k, v, do, out, lse, delta, dq, dk, dv, qt, kt, vt, dot, fo, sdpa_dq, ours_dq
+    torch.cuda.empty_cache()
     return row
 
 
@@ -854,6 +1264,10 @@ def main() -> int:
         doc_dir, history = phase_doc_bundle()
         doc = phase_doc_path(doc_dir, history)
         flash_timing = phase_flash_timing(doc_dir)
+        bwd = phase_bwd_parity()
+        train_parity = phase_train_parity()
+        trained = phase_train_path(history)
+        train_timing = phase_train_timing()
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -868,6 +1282,15 @@ def main() -> int:
               file=sys.stderr)
         return 1
     head = timing[0]  # bucket 1: the golden request's shape
+    train_fwd, train_dq, train_dkv = trained["launches"]
+    bwd_common = {
+        "route": "cuda",
+        "source": "mlops_tpu_torch/csrc/flash_attention_bwd.cu",
+        "plain_ms": train_timing["plain_ms"],  # the plain version computes the pair
+        "library_ms": train_timing["library_ms"],  # SDPA's backward: the pair
+        "shape": train_timing["shape"],
+        "parity": bwd["cases"],
+    }
     kernels = {
         "kernels": [{
             "name": "quant_fused",
@@ -889,6 +1312,7 @@ def main() -> int:
             "source": "mlops_tpu_torch/csrc/flash_attention.cu",
             "replaces": attention.REPLACES,
             "launches": doc["launches"],
+            "train_launches": train_fwd,
             "max_abs_err": flash["max_abs_err"],
             "ms": flash_timing["ms"],
             "plain_ms": flash_timing["plain_ms"],
@@ -899,9 +1323,33 @@ def main() -> int:
             "timing": flash_timing,
             "parity": flash["cases"],
             "doc_path": doc,
+        }, {
+            "name": "flash_bwd_dq",
+            "replaces": attention.BWD_DQ_REPLACES,
+            "launches": train_dq,
+            "max_abs_err": bwd["dq_err"],
+            "ms": train_timing["dq_ms"],
+            "bound_ms": train_timing["dq_bound_ms"],
+            "bound_by": train_timing["dq_bound_by"],
+            **bwd_common,
+        }, {
+            "name": "flash_bwd_dkv",
+            "replaces": attention.BWD_DKV_REPLACES,
+            "launches": train_dkv,
+            "max_abs_err": bwd["dkv_err"],
+            "ms": train_timing["dkv_ms"],
+            "bound_ms": train_timing["dkv_bound_ms"],
+            "bound_by": train_timing["dkv_bound_by"],
+            **bwd_common,
         }],
+        "train": {
+            "parity": train_parity,
+            "timing": train_timing,
+            "metrics": trained["cli"]["metrics"],
+        },
     }
     log(f"total {time.perf_counter() - t0:.1f} s")
+    print(card_line(), flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({
         "ok": True,

@@ -212,10 +212,13 @@ def save_doc_bundle(
     monitor: MonitorState,
     calibration: dict[str, float] | None = None,
     tags: dict[str, str] | None = None,
+    metrics: dict[str, float] | None = None,
 ) -> Path:
     """Write a ``doc`` bundle the JAX package loads: the manifest with its
-    ``model_config``, the model's weights as flax's ``params.msgpack``
-    (f32, keys in flax's order) and the two npz files."""
+    ``model_config``, ``metrics``, ``tags`` and ``calibration`` (as the
+    JAX ``save_bundle`` writes them), the model's weights as flax's
+    ``params.msgpack`` (f32, keys in flax's order) and the two npz
+    files."""
     from mlops_tpu_torch.weights import unflatten_tree
 
     if model_config.doc_records <= 1:
@@ -229,7 +232,7 @@ def save_doc_bundle(
         "created_at": datetime.datetime.now(datetime.timezone.utc).isoformat(),
         "schema_fingerprint": SCHEMA.fingerprint(),
         "model_config": dataclasses.asdict(model_config),
-        "metrics": {},
+        "metrics": metrics or {},
         "tags": tags or {},
         "calibration": calibration or {},
     }

@@ -1,6 +1,10 @@
-"""Offline subcommands: ``predict-file`` on a ``doc`` bundle.
+"""Offline subcommands: ``train`` (the long-context doc model) and
+``predict-file`` on a ``doc`` bundle.
 
-The JAX package's ``_predict_file`` / ``_predict_documents``
+``train`` is the JAX package's ``_train`` (``mlops_tpu/commands.py:96``)
+for doc configs: ``run_layout_training`` on ``train.device`` (the card
+unless ``cpu``), then the same JSON line. ``predict-file`` is the JAX
+package's ``_predict_file`` / ``_predict_documents``
 (``mlops_tpu/commands.py:315-384``): consecutive rows of a record-history
 CSV group into ``doc_records``-length documents (the prediction targets
 the last record's default), documents stream through the doc model in
@@ -27,6 +31,23 @@ _UNPORTED_TIER = {
     "flax": "the exact tier (the zoo's flax models)",
     "sklearn": "the sklearn tree-ensemble floor",
 }
+
+
+def train(config: Config) -> dict:
+    """``train --config <toml> [overrides]`` on a doc config: the JSON the
+    JAX package prints (bundle, model_uri, run_dir, steps, packaged_step,
+    metrics)."""
+    from mlops_tpu_torch.train.pipeline import run_layout_training
+
+    result = run_layout_training(config, run_name=config.registry.run_name or None)
+    return {
+        "bundle": str(result.bundle_dir) if result.bundle_dir else None,
+        "model_uri": result.model_uri,
+        "run_dir": str(result.run_dir),
+        "steps": result.train_result.steps,
+        "packaged_step": result.train_result.packaged_step,
+        "metrics": result.train_result.metrics,
+    }
 
 
 def predict_file(config: Config) -> dict:

@@ -1,22 +1,35 @@
 """Configuration: the ported subset of the JAX package's config tree.
 
-``serve`` holds the quant-tier subset of ``ServeConfig`` (plus the
-``device`` knob), ``data`` the input path of ``predict-file``.
-``ModelConfig`` is a copy of the JAX dataclass, field for field, so a
-bundle manifest's ``model_config`` parses into it. Overrides are
-positional ``section.field=value`` pairs, parsed the JAX package's way
-(``serve.port=5001``, ``data.train_path=<csv>``)."""
+``ModelConfig`` and ``TrainConfig`` are copies of the JAX dataclasses,
+field for field with their defaults, so a bundle manifest's
+``model_config`` and a job's TOML parse into them. ``data``,
+``monitor`` and ``registry`` hold the fields the ported paths read;
+``serve`` the quant-tier subset of ``ServeConfig``. Two port-only knobs,
+``serve.device`` and ``train.device``, say where the entry points run:
+the card unless the caller writes ``cpu``.
+
+``load_config`` builds the tree as the JAX package's does: defaults <-
+TOML (``--config <file>``) <- positional ``section.field=value``
+overrides (``train.steps=200``, ``serve.port=5001``). The JAX package's
+``MLOPS_TPU_<SECTION>_<FIELD>`` environment overrides are not ported yet.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import tomllib
 import typing
+from pathlib import Path
 from typing import Any
 
 
 @dataclasses.dataclass
 class DataConfig:
-    train_path: str = ""  # predict-file: the history CSV to score
+    train_path: str = ""  # train: CSV to train on (empty -> synthetic);
+    # predict-file: the history CSV to score
+    rows: int = 50_000  # synthetic row count
+    seed: int = 0
+    valid_fraction: float = 0.2  # held-out split (seed 2024)
 
 
 @dataclasses.dataclass
@@ -43,6 +56,52 @@ class ModelConfig:
     pipeline_stages: int = 0
     tensor_parallel: int = 0
 
+    @property
+    def uses_layout_trainer(self) -> bool:
+        """True when this config trains through a layout trainer (the
+        doc model, pipeline or tensor parallel) instead of the dense
+        single-record ``run_training``: the JAX package's predicate."""
+        return bool(
+            self.pipeline_stages
+            or self.seq_parallel
+            or self.doc_records > 1
+            or self.tensor_parallel
+        )
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The JAX package's ``TrainConfig`` (``mlops_tpu/config.py:98``),
+    field for field, plus ``device``. The doc trainer reads batch_size,
+    steps, learning_rate, weight_decay, seed, eval_every,
+    checkpoint_every, pos_weight, ema_decay, tensorboard_dir and
+    init_params (both refused when set), as the JAX doc trainer does."""
+
+    batch_size: int = 1024
+    steps: int = 2000
+    learning_rate: float = 3e-3
+    weight_decay: float = 1e-4
+    warmup_steps: int = 100
+    seed: int = 0
+    eval_every: int = 200
+    checkpoint_every: int = 500
+    pos_weight: float = 1.0
+    init_params: str = ""
+    tensorboard_dir: str = ""
+    keep_best: bool = True
+    distill_bulk: bool = True
+    distill_quant: bool = False
+    pipeline_microbatches: int = 8
+    pipeline_remat: bool = False
+    ema_decay: float = 0.0
+    device: str = "cuda"  # "cpu" trains on the CPU (the plain torch route)
+
+
+@dataclasses.dataclass
+class MonitorConfig:
+    outlier_quantile: float = 0.95
+    drift_ref_size: int = 2048  # per-feature reference sample for K-S
+
 
 @dataclasses.dataclass
 class ServeConfig:
@@ -62,9 +121,23 @@ class ServeConfig:
 
 
 @dataclasses.dataclass
+class RegistryConfig:
+    root: str = "registry"  # a local directory (gs:// is not ported)
+    model_name: str = "credit-default-uci-custom"
+    experiment_name: str = "credit-default-uci-train"
+    run_root: str = "runs"  # per-run artifacts: metrics.jsonl, checkpoints
+    run_name: str = ""  # stable run-directory name: a rerun with the same
+    # name resumes from its checkpoints; empty = a fresh timestamped one
+
+
+@dataclasses.dataclass
 class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    monitor: MonitorConfig = dataclasses.field(default_factory=MonitorConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
+    registry: RegistryConfig = dataclasses.field(default_factory=RegistryConfig)
 
 
 def _coerce(owner: type, field: str, current: Any, raw: str) -> Any:
@@ -82,15 +155,39 @@ def _coerce(owner: type, field: str, current: Any, raw: str) -> Any:
     return raw
 
 
-def load_config(overrides: list[str] | None = None) -> Config:
-    """Defaults <- ``section.field=value`` overrides. Unknown keys raise."""
+def _apply(config: Config, section: str, field: str, value: Any) -> None:
+    sub = getattr(config, section, None)
+    if sub is None or not hasattr(sub, field):
+        raise KeyError(
+            f"unknown config key {section}.{field} (this package has not "
+            "ported it, or it does not exist)"
+        )
+    current = getattr(sub, field)
+    if isinstance(value, str) and not isinstance(current, str):
+        value = _coerce(type(sub), field, current, value)
+    elif isinstance(current, tuple) and isinstance(value, list):
+        value = tuple(value)
+    elif isinstance(current, float) and isinstance(value, int):
+        value = float(value)
+    setattr(sub, field, value)
+
+
+def load_config(
+    overrides: list[str] | None = None, toml_path: str | Path | None = None
+) -> Config:
+    """Defaults <- TOML (``toml_path``) <- ``section.field=value``
+    overrides. Unknown keys raise."""
     config = Config()
+    if toml_path:
+        with open(toml_path, "rb") as f:
+            doc = tomllib.load(f)
+        for section, fields in doc.items():
+            for field, value in fields.items():
+                _apply(config, section, field, value)
     for item in overrides or []:
         key, sep, raw = item.partition("=")
         section, _, field = key.strip("-").partition(".")
-        sub = getattr(config, section, None)
-        if not sep or sub is None or not hasattr(sub, field):
+        if not sep:
             raise KeyError(f"unknown config override {item!r}")
-        current = getattr(sub, field)
-        setattr(sub, field, _coerce(type(sub), field, current, raw))
+        _apply(config, section, field, raw)
     return config

@@ -13,8 +13,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available (torch.cuda.is_available() is "
-            "False); pass device='cpu' (serve.device=cpu on the CLI) to "
-            "run on the CPU"
+            "False); pass device='cpu' (serve.device=cpu or "
+            "train.device=cpu on the CLI) to run on the CPU"
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")

@@ -8,8 +8,9 @@ bins of fixed standard-normal quantile edges. ``BertDocEncoder`` reads
 tokens (R = 11: 508) and scores the last record's default from the whole
 history. Module and parameter names follow the flax tree (``tok_embed``,
 ``pos_embed``, ``ln_embed``, ``block_i``, ``ln_final``, ``pooler``,
-``head``). Eval path only; the single-record ``BertEncoder`` and the
-masked-LM head are not ported yet.
+``head``). With dropout 0 the training path is the eval path under
+autograd; the single-record ``BertEncoder`` and the masked-LM head are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -187,20 +188,38 @@ class BertDocEncoder(nn.Module):
         return apply_cls_head(self, x)
 
 
+# flax's truncated_normal(-2, 2) has standard deviation 0.8796...; its
+# variance_scaling divides the scale by this so the kept values have
+# variance scale / fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
 @torch.no_grad()
 def init_doc_params(model: BertDocEncoder, seed: int) -> BertDocEncoder:
-    """Seeded random weights (numpy's generator) at the scales of flax's
-    default initializers: kernels N(0, 1/fan_in), embedding rows
-    N(0, 1/features), ``pos_embed`` N(0, 0.02^2), biases 0, LayerNorm
-    scales 1. For checks and timing without a trained bundle."""
+    """Seeded weights (numpy's generator) from flax's default
+    initializers, as a fresh flax model starts: Dense/DenseGeneral
+    kernels ``lecun_normal`` (a normal truncated at +-2 of its scale,
+    rescaled so its variance is 1/fan_in, fan_in the contracted
+    features), embedding rows N(0, 1/features), ``pos_embed`` N(0, 0.02^2),
+    biases 0, LayerNorm scales 1. The numbers differ from flax's (another
+    generator); their distributions do not."""
     rng = np.random.default_rng(seed)
 
     def normal(shape, std):
         return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32))
 
+    def lecun_normal(shape, fan_in):
+        x = rng.standard_normal(shape)
+        out = np.abs(x) > 2.0
+        while out.any():  # redraw what falls outside [-2, 2]
+            x[out] = rng.standard_normal(int(out.sum()))
+            out = np.abs(x) > 2.0
+        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+        return torch.from_numpy((x * std).astype(np.float32))
+
     for mod in model.modules():
         if isinstance(mod, Dense):
-            mod.kernel.copy_(normal(mod.kernel.shape, 1.0 / math.sqrt(mod.in_features)))
+            mod.kernel.copy_(lecun_normal(mod.kernel.shape, mod.in_features))
             mod.bias.zero_()
         elif isinstance(mod, Embed):
             shape = mod.embedding.shape

@@ -1,5 +1,5 @@
 """The pre-LN transformer block of the JAX package's ``models/ft_transformer.py``
-(``TransformerBlock``, eval path). The FT-Transformer itself and its
+(``TransformerBlock`` without dropout). The FT-Transformer itself and its
 ``FeatureTokenizer`` are not ported yet."""
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Layers with flax's semantics: Dense, Embed, LayerNorm, self-attention.
 
-Port of the JAX package's ``models/layers.py`` (eval path) plus the flax
-layers the zoo builds on. Parameters are f32 and named as flax names
+Port of the JAX package's ``models/layers.py`` plus the flax layers the
+zoo builds on; with dropout 0 (the doc model's) training runs these same
+forwards under autograd. Parameters are f32 and named as flax names
 them (``kernel``, ``bias``, ``embedding``, ``scale``), so a flax param
 tree flattened with ``.`` is the module's ``state_dict``. Compute runs in
 the model's type (``dtype``): inputs, kernels and biases are cast to it,
@@ -81,13 +82,14 @@ class LayerNorm(nn.Module):
 
 class MultiHeadSelfAttention(nn.Module):
     """Self-attention through ``ops.attention.attend`` (the dense reference
-    at short sequence, the flash kernel at ``S >= 128`` on the card).
+    at short sequence, the flash kernels at ``S >= 128`` on the card; under
+    autograd the flash route's backward is the two backward kernels).
 
     ``qkv`` is a DenseGeneral with kernel ``[dim, 3, heads, head_dim]`` and
     bias ``[3, heads, head_dim]``; ``out`` has kernel ``[heads, head_dim,
     dim]``. q, k and v reach the kernel as strided views of the qkv
-    projection. Eval path only: the ring (``attend_fn``) and padding masks
-    belong to the training and sequence-parallel paths, which are not
+    projection. The ring (``attend_fn``) and padding masks belong to the
+    sequence-parallel path and the masked dense path, which are not
     ported, and are refused."""
 
     def __init__(
@@ -122,8 +124,8 @@ class MultiHeadSelfAttention(nn.Module):
     ) -> torch.Tensor:
         if mask is not None:
             raise ValueError(
-                "padding masks are not ported: they need the dense "
-                "training path"
+                "padding masks are not ported: they need the masked dense "
+                "attention path"
             )
         n, s, dim = x.shape
         qkv = self.qkv(x.reshape(n * s, dim)).reshape(

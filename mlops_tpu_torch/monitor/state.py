@@ -102,6 +102,7 @@ def fit_monitor(
     ds: EncodedDataset,
     drift_ref_size: int = DRIFT_REF_SIZE,
     seed: int = 0,
+    outlier_quantile: float = OUTLIER_QUANTILE,
 ) -> MonitorState:
     """Host-side numpy fit on the encoded training split; the same
     arithmetic and the same ``default_rng(seed)`` subsample as the JAX
@@ -119,7 +120,7 @@ def fit_monitor(
     ref = np.sort(ds.numeric[idx].astype(np.float32), axis=0).T  # [M, R]
 
     mean, precision, threshold = fit_mahalanobis(
-        ds.numeric, quantile=OUTLIER_QUANTILE
+        ds.numeric, quantile=outlier_quantile
     )
     return MonitorState.from_arrays(
         {

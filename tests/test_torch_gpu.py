@@ -14,6 +14,13 @@ Tolerances, flash attention: f32 out 2e-5 and lse 1e-5 (the same f32
 arithmetic summed tile by tile); bf16 out 2e-2 (two bf16 ulps at |out|
 near 1: p is rounded to bf16 at another running max than the one-pass
 plain version's) and lse 1e-3.
+
+Tolerances, flash backward (dq, dk, dv): f32 5e-5 absolute plus 1e-4 of
+the gradient's largest magnitude (the JAX package's own tolerance for
+ragged flash gradients: the same f32 arithmetic in another summation
+order); bf16 two bf16 ulps at the gradient's largest magnitude (the
+kernel and the plain version round ds and p to bf16 from f32 values
+that differ in the last bits, and each rounds its f32 sum once).
 """
 
 import numpy as np
@@ -175,3 +182,106 @@ def test_flash_launch_into_preallocated_outputs_equals_the_wrapper():
     torch.cuda.synchronize()
     assert attention.flash_kernel_launches.value == before + 2
     assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+
+
+BWD_SHAPES = [  # (B, S_q, S_kv, H, D): ragged edges, cross-length, each head_dim
+    (2, 128, 128, 4, 32),
+    (1, 200, 200, 2, 16),
+    (2, 45, 70, 2, 32),
+    (4, 140, 140, 2, 16),
+    (2, 200, 200, 4, 64),
+    (2, 70, 45, 2, 64),
+]
+
+
+def _grad_tol(want: torch.Tensor) -> float:
+    big = want.float().abs().max().item()
+    if want.dtype == torch.bfloat16:
+        return 2 * 2.0 ** (np.floor(np.log2(max(big, 1e-30))) - 7)
+    return 5e-5 + 1e-4 * big
+
+
+def _bwd_inputs(b, s_q, s_kv, h, d, dtype, dev, seed):
+    q, k, v = _qkv(b, s_q, s_kv, h, d, dtype, dev, seed)
+    rng = np.random.default_rng(seed + 1)
+    do = torch.from_numpy(rng.normal(size=(b, s_q, h, d)).astype(np.float32))
+    out, lse = attention.flash_forward_cuda(q, k, v)
+    return q, k, v, out, lse, do.to(dev, dtype)
+
+
+def _assert_grads_close(got, want):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= _grad_tol(w), (name, err, _grad_tol(w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s_q,s_kv,h,d", BWD_SHAPES)
+def test_flash_backward_kernels_match_plain_version_on_the_card(b, s_q, s_kv, h, d, dtype):
+    dev = _card()
+    q, k, v, out, lse, do = _bwd_inputs(b, s_q, s_kv, h, d, dtype, dev, seed=s_kv + d)
+    before = (attention.flash_bwd_dq_launches.value, attention.flash_bwd_dkv_launches.value)
+    got = attention.flash_backward_cuda(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    after = (attention.flash_bwd_dq_launches.value, attention.flash_bwd_dkv_launches.value)
+    assert after == (before[0] + 1, before[1] + 1)
+    _assert_grads_close(got, attention.flash_backward_reference(q, k, v, out, lse, do))
+
+
+@pytest.mark.gpu
+def test_flash_backward_kernels_at_the_training_shape():
+    """The doc model's training shape, q, k and v as views of one qkv
+    projection [64, 508, 3, 8, 32] bf16."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    qkv = torch.from_numpy(
+        rng.normal(size=(64, 508, 3, 8, 32)).astype(np.float32)
+    ).to(dev, torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    do = torch.from_numpy(
+        rng.normal(size=(64, 508, 8, 32)).astype(np.float32)
+    ).to(dev, torch.bfloat16)
+    out, lse = attention.flash_forward_cuda(q, k, v)
+    got = attention.flash_backward_cuda(q, k, v, out, lse, do)
+    _assert_grads_close(got, attention.flash_backward_reference(q, k, v, out, lse, do))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_function_gradients_on_the_card_match_the_plain_route(dtype):
+    """Autograd through ``flash_attention`` on the card (forward kernel,
+    both backward kernels) against the same Function on CPU copies (the
+    plain versions)."""
+    dev = _card()
+    rng = np.random.default_rng(21)
+    host = [
+        torch.from_numpy(rng.normal(size=(2, s, 4, 32)).astype(np.float32)).to(dtype)
+        for s in (150, 150, 150, 150)
+    ]
+    grads = {}
+    for where in ("cuda", "cpu"):
+        q, k, v = (x.to(where).requires_grad_() for x in host[:3])
+        out = attention.attend(q, k, v, use_flash=True)
+        assert isinstance(out.grad_fn, attention.FlashAttention._backward_cls)
+        out.backward(host[3].to(where))
+        grads[where] = (q.grad.cpu(), k.grad.cpu(), v.grad.cpu())
+    _assert_grads_close(grads["cuda"], grads["cpu"])
+
+
+@pytest.mark.gpu
+def test_flash_backward_launch_into_preallocated_outputs_equals_the_wrapper():
+    dev = _card()
+    q, k, v, out, lse, do = _bwd_inputs(2, 200, 200, 4, 32, torch.bfloat16, dev, seed=9)
+    delta = attention.flash_delta(out, do)
+    want_dq = attention.flash_bwd_dq_cuda(q, k, v, do, lse, delta)
+    want_dk, want_dv = attention.flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    dq, dk, dv = (torch.full_like(x, float("nan")) for x in (want_dq, want_dk, want_dv))
+    before = (attention.flash_bwd_dq_launches.value, attention.flash_bwd_dkv_launches.value)
+    attention.launch_dq(q, k, v, do, lse, delta, dq)
+    attention.launch_dkv(q, k, v, do, lse, delta, dk, dv)
+    torch.cuda.synchronize()
+    after = (attention.flash_bwd_dq_launches.value, attention.flash_bwd_dkv_launches.value)
+    assert after == (before[0] + 1, before[1] + 1)
+    assert torch.equal(dq, want_dq) and torch.equal(dk, want_dk) and torch.equal(dv, want_dv)

@@ -42,6 +42,8 @@ def test_importing_every_submodule_loads_no_jax_and_no_reference_package():
     names, loaded = json.loads(out.stdout.strip().splitlines()[-1])
     assert "mlops_tpu_torch.serve.server" in names
     assert "mlops_tpu_torch.ops.quant_kernel" in names
+    assert "mlops_tpu_torch.train.pipeline" in names
+    assert "mlops_tpu_torch.bundle.registry" in names
     assert [m for m in loaded if _forbidden(m)] == []
 
 

@@ -346,7 +346,7 @@ def test_load_config_parses_positional_overrides():
     ]).serve
     assert (cfg.port, cfg.device, cfg.warmup_batch_sizes) == (5001, "cpu", (1, 8))
     assert cfg.drain_deadline_s == 2.5
-    for bad in ("serve.nope=1", "train.steps=3", "serve.port"):
+    for bad in ("serve.nope=1", "hpo.trials=3", "serve.port"):
         with pytest.raises(KeyError):
             load_config([bad])
 
