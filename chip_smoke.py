@@ -38,8 +38,10 @@ Phases, each of which fails the run loudly:
 7. the flash-attention kernel against its plain version on the card: the
    doc model's full width (256, 508, 8, 32) bf16 as views of one qkv
    projection, doc_records 3 (4, 140, 2, 16), ragged (2, 200, 4, 64) in
-   f32 and bf16, cross-length q 45 / kv 70 in f32; f32 out 2e-5 and lse
-   1e-5, bf16 out 2e-2 and lse 1e-3; one launch per call;
+   f32 and bf16, cross-length q 45 / kv 70 in f32, and in bf16 at the
+   tile edges (S = 127, 128, 129, 255, 256, 257 and q/kv 45/70, 70/45 at
+   head_dim 16, 32 and 64); f32 out 2e-5 and lse 1e-5, bf16 out 2e-2 and
+   lse 1e-3; one launch per call;
 8. the doc path at full width: a bundle of the ``long_context_job.toml``
    model (bert, doc_records 11, token_dim 256, depth 4, heads 8, bf16)
    with seeded weights, preprocessor and monitor fitted on 20,000
@@ -57,9 +59,10 @@ Phases, each of which fails the run loudly:
 10. the two flash backward kernels (dq; dk and dv) against their plain
     version on the card: the training shape (64, 508, 8, 32) bf16 as
     views of one qkv projection, (4, 140, 2, 16) bf16 and f32, ragged
-    (2, 200, 4, 64) f32 and bf16, cross-length q 45 / kv 70 f32; f32
-    within 5e-5 + 1e-4 x the gradient's largest magnitude, bf16 within
-    two bf16 ulps of it; one launch of each per call;
+    (2, 200, 4, 64) f32 and bf16, cross-length q 45 / kv 70 f32, the
+    bf16 tile edges of phase 7; f32 within 5e-5 + 1e-4 x the gradient's
+    largest magnitude, bf16 within two bf16 ulps of it; one launch of
+    each per call;
 11. training at full width in this process (the job's model, batch 64,
     bf16, one seeded init): one step's gradients through the flash
     kernels against dense attention, parameter by parameter (cosine
@@ -638,6 +641,19 @@ def phase_timing(bundle_dir: Path, engine) -> list[dict]:
 
 
 # ------------------------------------------------------------------ phase 7
+def _tile_edge_cases():
+    """bf16 shapes at the kernels' tile edges (128-row forward blocks over
+    128-key tiles, 128-key dk/dv blocks over 64-query tiles), cross
+    lengths both ways, every head_dim: (what, (B, S_q, S_kv, H, D), dtype)."""
+    import torch
+
+    lengths = [(s, s) for s in (127, 128, 129, 255, 256, 257)] + [(45, 70), (70, 45)]
+    return [
+        ("tile edge", (2, s_q, s_kv, 2, d), torch.bfloat16)
+        for d in (16, 32, 64) for s_q, s_kv in lengths
+    ]
+
+
 def _qkv_views(b: int, s_q: int, s_kv: int, h: int, d: int, dtype, seed: int):
     """q, k and v as the doc model hands them to the kernel: strided views
     of one [B, S, 3, H, D] projection (separate tensors when q and kv
@@ -670,7 +686,7 @@ def phase_flash_parity() -> dict:
         ("ragged", (2, 200, 200, 4, 64), torch.float32),
         ("ragged", (2, 200, 200, 4, 64), torch.bfloat16),
         ("cross-length", (2, 45, 70, 2, 32), torch.float32),
-    ]
+    ] + _tile_edge_cases()
     rows = []
     for k, (what, shape, dtype) in enumerate(cases):
         q, k_, v = _qkv_views(*shape, dtype, seed=40 + k)
@@ -923,7 +939,7 @@ def phase_bwd_parity() -> dict:
         ("ragged", (2, 200, 200, 4, 64), torch.float32),
         ("ragged", (2, 200, 200, 4, 64), torch.bfloat16),
         ("cross-length", (2, 45, 70, 2, 32), torch.float32),
-    ]
+    ] + _tile_edge_cases()
     rows = []
     for n, (what, shape, dtype) in enumerate(cases):
         q, k, v = _qkv_views(*shape, dtype, seed=60 + n)

@@ -12,9 +12,9 @@
 // results are the same from run to run. The TPU wrapper folds heads and
 // pads S to a block multiple; here both kernels read q, k, v and dO as
 // strided [B, S, H, D] views (the head dimension contiguous), write dq,
-// dk and dv the same way, and mask the ragged edges themselves: keys past
-// S_kv and queries past S_q get p = 0, and lse/delta are never read past
-// S_q (the TPU kernel relied on its zero-padded dO and delta instead).
+// dk and dv the same way, and mask the ragged edges themselves: queries
+// past S_q get p = 0, and lse/delta are never read past S_q (the TPU
+// kernel relied on its zero-padded dO and delta instead).
 //
 // Bound on this card. At the doc model's training shape (B*H = 512,
 // S = 508, D = 32, bf16): dq reads q, k, v, dO, lse, delta and writes dq,
@@ -25,36 +25,46 @@
 // by the exponentials, dk/dv by the tensor cores, all three terms within
 // 30 % of each other. Design:
 //
-// - bf16: 4 warps per block, each warp owns 16 rows of its output (64
-//   per block) and walks 64-row tiles of the other operands staged in
-//   shared memory. Every product is mma.sync.m16n8k16 (bf16 in, f32
-//   accumulate). The recomputed score tile and dP = dO V^T stay in
-//   registers; p and dS = p (dP - delta) scale are formed there in f32 and
-//   re-packed in registers as the bf16 A operand of the next product
-//   (dS K for dq; P^T dO and dS^T Q for dk/dv), B fragments coming from
-//   ldmatrix.trans. Rounding follows the TPU kernel: dS to k's type for
-//   dq (attention.py:237-239), P^T to dO's type for dv (:283-286), dS^T to
-//   q's type for dk (:291-294); accumulators f32, stored once in the
-//   output's type. Exponentials are ex2.approx on log2-scaled scores.
+// - dk/dv, bf16: a block owns 128 key rows of one (b, h): two warpgroups
+//   of 64 keys. K and V are loaded once by TMA, and 64-query tiles of q
+//   and dO stream through a three-stage shared-memory ring
+//   (cp.async.bulk.tensor over the strided views, zero-filled past S_q),
+//   with the tile's lse (in log2 units, negated) and delta (times -scale)
+//   stored beside them by the 32 lanes of the warp that loads the tile; a
+//   query past S_q gets lse = +inf, so its p = exp2(-inf) = 0 with no
+//   compare in the loop. Each stage has an mbarrier for the bytes and
+//   lanes landing; the last of the block's eight warps to finish with a
+//   stage (a shared counter) refills it, so the query loop has no
+//   __syncthreads and no warp is set aside for loads. All four products are
+//   wgmma: S^T = K Q^T and dP^T = V dO^T (m64n64k16, both operands in
+//   shared memory, K-major), then dV += P^T dO and dK += dS^T Q
+//   (m64n{D}k16, A from registers, q and dO read as MN-major operands).
+//   p and dS^T are formed in f32 in registers and re-packed as the A
+//   fragments; rounding follows the TPU kernel: P^T to dO's type
+//   (attention.py:283-286), dS^T to q's type (:291-294); dk and dv
+//   accumulate in f32 and are stored once. Key rows past S_kv (zero rows
+//   of K and V) feed only their own, never stored, rows of dk and dv. Two
+//   blocks share an SM (D <= 32), so one block's exponentials run under
+//   the other's tensor-core work and copies.
+// - dq, bf16: 4 warps per block, each warp owns 16 query rows (64 per
+//   block) and walks 64-key tiles staged in shared memory by all threads
+//   between two barriers; every product is mma.sync.m16n8k16, the score
+//   and dP tiles stay in registers, dS is re-packed there as the A
+//   operand of dS K with K's B fragments from ldmatrix.trans, dS rounded
+//   to k's type (attention.py:237-239).
 // - f32: plain one-row-per-thread kernels with f32 FMAs and expf (no
 //   TF32), because f32 callers expect f32 accuracy.
 //
-// A simple kernel that is right: no cp.async / TMA pipeline, no wgmma;
-// that is later work (PERF.md).
-//
 // Plain C interface (ctypes); launches on the caller's stream, allocates
-// nothing, and returns cudaGetLastError() after the launch.
+// nothing, and returns cudaGetLastError() after the launch. The TMA
+// tensor maps are encoded on the host by cuTensorMapEncodeTiled, looked
+// up through the runtime, so nothing links libcuda.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
-
-struct Strides {
-  long long b, s, h;  // in elements; the head dimension is contiguous
-};
 
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -66,17 +76,6 @@ constexpr int kTile = 64;           // rows of a shared-memory tile
 constexpr int kPad = 8;             // bf16 of row padding: conflict-free
 constexpr int kTilesS = kTile / 8;  // n-tiles of a 16 x kTile score tile
 constexpr int kStepsP = kTile / 16;  // k-steps of a product over a tile
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // D (16x8, f32) += A (16x16, bf16, row-major) * B (16x8, bf16, col-major).
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
@@ -284,83 +283,232 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // dv = sum_i p_ij dO_i and dk = scale * sum_i p_ij (dp_ij - delta_i) q_i
-// for 64 key rows of one (b, h); grid (B*H, ceil(S_kv / 64)). The loop
+// for 128 key rows of one (b, h); grid (B*H, ceil(S_kv / 128)). The loop
 // over query tiles stands in for the TPU's sequential q-block grid axis.
+constexpr int kDkvGroups = 2;                        // warpgroups of 64 keys
+constexpr int kDkvKeys = 64 * kDkvGroups;            // key rows per block
+constexpr int kDkvTile = 64;                         // queries per ring stage
+constexpr int kDkvStages = 3;
+constexpr int kDkvThreads = kDkvGroups * 128;
+constexpr int kDkvWarps = kDkvThreads / 32;
+
+// D (64 x 64, f32) (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared,
+// K-major); accumulate = 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// Shared memory of one dk/dv block, in bytes from a 1024-aligned base: K
+// and V (128 rows each), then per stage a q and a dO tile (64 rows each)
+// and the tile's -lse*log2(e) and -delta*scale (64 f32 each), then the
+// mbarriers and the per-stage count of warps done with it. Stages start
+// on 1024-byte boundaries (the swizzle repeat).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_bf16(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v,
-                       const __nv_bfloat16* __restrict__ dout,
+struct DkvSmem {
+  static constexpr int kRow = 2 * D;                 // bytes per row
+  static constexpr int kKV = kDkvKeys * kRow;        // K or V
+  static constexpr int kTile = kDkvTile * kRow;      // a q or dO tile
+  static constexpr int kK = 0;
+  static constexpr int kV = kKV;
+  static constexpr int kRing = 2 * kKV;
+  static constexpr int kStage = (2 * kTile + 2 * kDkvTile * 4 + 1023) / 1024 * 1024;
+  static constexpr int kQ = 0;                       // within a stage
+  static constexpr int kDo = kTile;
+  static constexpr int kLse = 2 * kTile;
+  static constexpr int kDelta = 2 * kTile + kDkvTile * 4;
+  static constexpr int kBars = kRing + kDkvStages * kStage;
+  static constexpr int kDone = kBars + 8 * (1 + kDkvStages);
+  static constexpr int kBytes = kDone + 4 * kDkvStages + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, D <= 32 ? 2 : 1)
+    flash_bwd_dkv_bf16(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
                        const float* __restrict__ lse,
                        const float* __restrict__ delta,
                        __nv_bfloat16* __restrict__ dk,
-                       __nv_bfloat16* __restrict__ dv, Strides sq, Strides sk,
-                       Strides sv, Strides sdo, Strides sdk, Strides sdv,
+                       __nv_bfloat16* __restrict__ dv, Strides sdk, Strides sdv,
                        int heads, int s_q, int s_kv, float scale) {
-  constexpr int kRow = D + kPad;
-  __shared__ __align__(16) __nv_bfloat16 qs[kTile * kRow];
-  __shared__ __align__(16) __nv_bfloat16 dos[kTile * kRow];
-  __shared__ float ls[kTile];   // lse of the tile's queries, log2 units
-  __shared__ float dls[kTile];  // delta of the tile's queries
+  using L = DkvSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = kv_full + 1;  // [kDkvStages]: a tile and its rows landed
+  unsigned* done = reinterpret_cast<unsigned*>(smem + L::kDone);  // [kDkvStages]
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh % heads;
+  const int key0 = blockIdx.y * kDkvKeys;
+  const int n_tiles = (s_q + kDkvTile - 1) / kDkvTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int c = lane % 4;
-  const int key0 = blockIdx.y * kRows + warp * 16;
-
-  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
-  const __nv_bfloat16* dob = dout + b * sdo.b + h * sdo.h;
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  load_a<D>(ka, k + b * sk.b + h * sk.h, sk.s, key0, g, c, s_kv);
-  load_a<D>(va, v + b * sv.b + h * sv.h, sv.s, key0, g, c, s_kv);
-  // Key rows past s_kv get p = 0, so their (never stored) dk/dv stay 0.
-  const bool live[2] = {key0 + g < s_kv, key0 + g + 8 < s_kv};
-  const float scale2 = scale * kLog2e;
   const float* lse_bh = lse + static_cast<long long>(bh) * s_q;
   const float* delta_bh = delta + static_cast<long long>(bh) * s_q;
 
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  // Query tile t lands in stage t % kDkvStages, loaded by one whole warp:
+  // its lanes store the tile's lse and delta rows and arrive, lane 0 with
+  // the TMA bytes of q and dO. Warp 0 loads the first kDkvStages tiles;
+  // after that the last of the block's warps to finish with a stage
+  // refills it, so no warp is set aside for loads.
+  const CUtensorMap* tqp = &tq;
+  const CUtensorMap* tdop = &tdo;
+  auto load_tile = [=](int t) {
+    const int s = t % kDkvStages;
+    uint8_t* stage = smem + L::kRing + s * L::kStage;
+    float* nl2 = reinterpret_cast<float*>(stage + L::kLse);
+    float* ndl = reinterpret_cast<float*>(stage + L::kDelta);
+    for (int i = lane; i < kDkvTile; i += 32) {
+      const int row = t * kDkvTile + i;  // never read lse/delta past s_q
+      nl2[i] = row < s_q ? -lse_bh[row] * kLog2e : -INFINITY;
+      ndl[i] = row < s_q ? -delta_bh[row] * scale : 0.f;
+    }
+    if (lane == 0) {
+      mbar_arrive_tx(&full[s], 2 * L::kTile);
+      tma_load(stage + L::kQ, tqp, &full[s], h, t * kDkvTile, b);
+      tma_load(stage + L::kDo, tdop, &full[s], h, t * kDkvTile, b);
+    } else {
+      mbar_arrive(&full[s]);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 32);  // a warp's lanes (lane 0 with the bytes)
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_arrive_tx(kv_full, 2 * L::kKV);
+    tma_load(smem + L::kK, &tk, kv_full, h, key0, b);
+    tma_load(smem + L::kV, &tv, kv_full, h, key0, b);
+  }
+  __syncthreads();
+  if (warp == 0) {
+    for (int t = 0; t < kDkvStages && t < n_tiles; ++t) load_tile(t);
   }
 
-  for (int q0 = 0; q0 < s_q; q0 += kTile) {
-    __syncthreads();
-    stage_pair<D>(qs, dos, qb, sq.s, dob, sdo.s, q0, s_q);
-    for (int i = threadIdx.x; i < kTile; i += kThreads) {
-      const int row = q0 + i;  // never read lse/delta past s_q
-      ls[i] = row < s_q ? lse_bh[row] * kLog2e : 0.f;
-      dls[i] = row < s_q ? delta_bh[row] : 0.f;
-    }
-    __syncthreads();
+  // A warpgroup owns 64 key rows. Each thread holds rows g and g + 8
+  // of its warp's 16, at query columns 8j + 2c and 8j + 2c + 1.
+  const int wg = warp / 4;
+  const int g = lane / 4, c = lane % 4;
+  const uint64_t k_desc = smem_desc<L::kRow>(smem + L::kK + wg * 64 * L::kRow);
+  const uint64_t v_desc = smem_desc<L::kRow>(smem + L::kV + wg * 64 * L::kRow);
+  const float scale2 = scale * kLog2e;
 
-    float s[kTilesS][4], dp[kTilesS][4];
-    mma_a_tt<D>(s, ka, qs, g, c);    // S^T = K Q^T
-    mma_a_tt<D>(dp, va, dos, g, c);  // dP^T = V dO^T
+  float dka[D / 2], dva[D / 2];
 #pragma unroll
-    for (int j = 0; j < kTilesS; ++j) {
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kDkvStages;
+    mbar_wait(&full[s], (t / kDkvStages) & 1);
+    const uint8_t* stage = smem + L::kRing + s * L::kStage;
+    const uint64_t q_desc = smem_desc<L::kRow>(stage + L::kQ);
+    const uint64_t do_desc = smem_desc<L::kRow>(stage + L::kDo);
+    const float* nl2 = reinterpret_cast<const float*>(stage + L::kLse);
+    const float* ndl = reinterpret_cast<const float*>(stage + L::kDelta);
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x 64 queries each.
+    float st[kDkvTile / 2], dpt[kDkvTile / 2];
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = j * 8 + c * 2 + (e & 1);
-        const bool on = q0 + col < s_q && live[e >> 1];
-        const float p = on ? fast_exp2(fmaf(s[j][e], scale2, -ls[col])) : 0.f;
-        s[j][e] = p;                                     // P^T
-        dp[j][e] = p * (dp[j][e] - dls[col]) * scale;  // dS^T
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_n64(st, k_desc + 2 * kk, q_desc + 2 * kk, kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_n64(dpt, v_desc + 2 * kk, do_desc + 2 * kk, kk);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // p = exp2(s * scale * log2e - lse * log2e) (0 for queries past
+    // s_q), dS^T = p (dp - delta) scale; both re-packed in registers as
+    // bf16 A fragments of the 16-query steps of the next two products.
+    uint32_t pa[kDkvTile / 16][4], da[kDkvTile / 16][4];
+#pragma unroll
+    for (int j = 0; j < kDkvTile / 8; ++j) {
+      const float2 nl = *reinterpret_cast<const float2*>(nl2 + 8 * j + 2 * c);
+      const float2 nd = *reinterpret_cast<const float2*>(ndl + 8 * j + 2 * c);
+      const float p0 = fast_exp2(fmaf(st[4 * j], scale2, nl.x));
+      const float p1 = fast_exp2(fmaf(st[4 * j + 1], scale2, nl.y));
+      const float p2 = fast_exp2(fmaf(st[4 * j + 2], scale2, nl.x));
+      const float p3 = fast_exp2(fmaf(st[4 * j + 3], scale2, nl.y));
+      pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      da[j / 2][(j % 2) * 2] = pack_bf16(p0 * fmaf(dpt[4 * j], scale, nd.x),
+                                         p1 * fmaf(dpt[4 * j + 1], scale, nd.y));
+      da[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2 * fmaf(dpt[4 * j + 2], scale, nd.x),
+                                             p3 * fmaf(dpt[4 * j + 3], scale, nd.y));
+    }
+
+    // dV += P^T dO and dK += dS^T Q: the tiles' 16-query steps are 16
+    // rows further down.
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDkvTile / 16; ++kk) {
+      wgmma_rs<D>(dva, pa[kk], do_desc + ((16 * kk * L::kRow) >> 4));
+    }
+#pragma unroll
+    for (int kk = 0; kk < kDkvTile / 16; ++kk) {
+      wgmma_rs<D>(dka, da[kk], q_desc + ((16 * kk * L::kRow) >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(dva);
+    fence_regs(dka);
+    // This warp is done with the stage; the last of the block's warps to
+    // be done refills it with tile t + kDkvStages.
+    if (t + kDkvStages < n_tiles) {
+      __syncwarp();  // every lane's loads of lse and delta come first
+      unsigned before = 0;
+      if (lane == 0) before = stage_done(&done[s]);
+      before = __shfl_sync(0xffffffffu, before, 0);
+      if (before % kDkvWarps == kDkvWarps - 1) {
+        __syncwarp();  // lane 0's acquire before the lanes' stores
+        load_tile(t + kDkvStages);
       }
     }
-    uint32_t pa[kStepsP][4];
-    pack_a(pa, s);  // P^T rounded to dO's type
-    mma_p_t<D>(dva, pa, dos, lane);  // dv += P^T dO
-    pack_a(pa, dp);  // dS^T rounded to q's type
-    mma_p_t<D>(dka, pa, qs, lane);  // dk += dS^T Q
   }
-  store_rows<D>(dk + b * sdk.b + h * sdk.h, sdk.s, dka, key0, g, c, s_kv);
-  store_rows<D>(dv + b * sdv.b + h * sdv.h, sdv.s, dva, key0, g, c, s_kv);
+
+  const int row0 = key0 + wg * 64 + (warp % 4) * 16 + g;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row < s_kv) {
+      __nv_bfloat16* kp = dk + b * sdk.b + row * sdk.s + h * sdk.h;
+      __nv_bfloat16* vp = dv + b * sdv.b + row * sdv.s + h * sdv.h;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(kp + j * 8 + c * 2) =
+            pack_bf16(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(vp + j * 8 + c * 2) =
+            pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------------------- f32
@@ -511,6 +659,7 @@ __global__ void __launch_bounds__(kRowsF32)
   }
 }
 
+// ------------------------------------------------------------------ host
 struct Args {
   const void *q, *k, *v, *dout;
   const float *lse, *delta;
@@ -548,14 +697,23 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, Strides sdk,
                        Strides sdv) {
   const unsigned bh = static_cast<unsigned>(a.batch) * a.heads;
   if (a.dtype == 1) {
-    const dim3 grid(bh, (a.s_kv + kRows - 1) / kRows);
-    flash_bwd_dkv_bf16<D><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q),
-        static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v),
-        static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta,
-        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.sq,
-        a.sk, a.sv, a.sdo, sdk, sdv, a.heads, a.s_q, a.s_kv, a.scale);
+    CUtensorMap tq, tk, tv, tdo;
+    if (!tensor_map(&tq, a.q, a.sq, a.batch, a.s_q, a.heads, D, kDkvTile) ||
+        !tensor_map(&tk, a.k, a.sk, a.batch, a.s_kv, a.heads, D, kDkvKeys) ||
+        !tensor_map(&tv, a.v, a.sv, a.batch, a.s_kv, a.heads, D, kDkvKeys) ||
+        !tensor_map(&tdo, a.dout, a.sdo, a.batch, a.s_q, a.heads, D, kDkvTile)) {
+      return cudaErrorInvalidValue;
+    }
+    constexpr int kSmem = DkvSmem<D>::kBytes;
+    static std::atomic<unsigned long long> smem_allowed{0};
+    const cudaError_t err =
+        allow_dynamic_smem(flash_bwd_dkv_bf16<D>, kSmem, smem_allowed);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(bh, (a.s_kv + kDkvKeys - 1) / kDkvKeys);
+    flash_bwd_dkv_bf16<D><<<grid, kDkvThreads, kSmem, a.stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv), sdk, sdv, a.heads, a.s_q, a.s_kv,
+        a.scale);
   } else {
     const dim3 grid(bh, (a.s_kv + kRowsF32 - 1) / kRowsF32);
     flash_bwd_dkv_f32<D><<<grid, kRowsF32, 0, a.stream>>>(

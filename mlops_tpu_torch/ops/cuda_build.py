@@ -57,10 +57,16 @@ def find_nvcc() -> str:
 
 
 def build_shared_library(source: Path, name: str) -> BuildResult:
-    """Compile ``source`` into ``build/kernels/lib<name>-<hash>.so``."""
+    """Compile ``source`` into ``build/kernels/lib<name>-<hash>.so``.
+
+    The hash covers the source, the headers (``*.cuh``) beside it, which
+    a source includes by relative path, and the flags.
+    """
     source = Path(source)
+    headers = sorted(source.parent.glob("*.cuh"))
     digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        b"".join(path.read_bytes() for path in (source, *headers))
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / f"lib{name}-{digest}.so"

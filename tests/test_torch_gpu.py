@@ -285,3 +285,72 @@ def test_flash_backward_launch_into_preallocated_outputs_equals_the_wrapper():
     after = (attention.flash_bwd_dq_launches.value, attention.flash_bwd_dkv_launches.value)
     assert after == (before[0] + 1, before[1] + 1)
     assert torch.equal(dq, want_dq) and torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+
+
+# The bf16 forward works on 128-row query blocks over 128-key tiles and
+# dk/dv on 128-key blocks over 64-query tiles: lengths on each side of
+# those edges, the doc model's 508, cross lengths both ways, every
+# head_dim, q, k and v as views of one qkv projection.
+EDGE_LENGTHS = [127, 128, 129, 255, 256, 257, 508]
+EDGE_CASES = [(s, s) for s in EDGE_LENGTHS] + [(45, 70), (70, 45)]
+
+
+def _edge_inputs(s_q, s_kv, d, dev, seed):
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            dev, torch.bfloat16
+        )
+
+    if s_q == s_kv:
+        qkv = normal(2, s_q, 3, 2, d)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = normal(2, s_q, 2, d), normal(2, s_kv, 2, d), normal(2, s_kv, 2, d)
+    return q, k, v, normal(2, s_q, 2, d)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", attention.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("s_q,s_kv", EDGE_CASES)
+def test_bf16_forward_at_the_tile_edges(s_q, s_kv, d):
+    dev = _card()
+    q, k, v, _ = _edge_inputs(s_q, s_kv, d, dev, seed=s_q * 31 + s_kv + d)
+    out, lse = attention.flash_forward_cuda(q, k, v)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = attention.flash_forward_reference(q, k, v)
+    out_tol, lse_tol = FLASH_TOL[torch.bfloat16]
+    assert torch.isfinite(lse).all()
+    assert (out.float() - ref_out.float()).abs().max().item() <= out_tol
+    assert (lse - ref_lse).abs().max().item() <= lse_tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", attention.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("s_q,s_kv", EDGE_CASES)
+def test_bf16_dkv_at_the_tile_edges(s_q, s_kv, d):
+    dev = _card()
+    q, k, v, do = _edge_inputs(s_q, s_kv, d, dev, seed=s_q * 37 + s_kv + d)
+    out, lse = attention.flash_forward_cuda(q, k, v)
+    delta = attention.flash_delta(out, do)
+    dk, dv = attention.flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    _, want_dk, want_dv = attention.flash_backward_reference(q, k, v, out, lse, do)
+    for got, want in ((dk, want_dk), (dv, want_dv)):
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= _grad_tol(want), (err, _grad_tol(want))
+
+
+@pytest.mark.gpu
+def test_dkv_launches_are_bitwise_equal():
+    """Each dk/dv block owns its key rows and sums its query tiles in one
+    order (no atomics): two launches give the same bits."""
+    dev = _card()
+    q, k, v, do = _edge_inputs(508, 508, 32, dev, seed=17)
+    out, lse = attention.flash_forward_cuda(q, k, v)
+    delta = attention.flash_delta(out, do)
+    first = attention.flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    second = attention.flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
