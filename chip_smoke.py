@@ -24,16 +24,24 @@ Phases, each of which fails the run loudly:
    weights (E=4, H=32), written in the bundle format;
 4. the kernel against its plain PyTorch version on the card, at solo
    buckets 1/8/64/256 with partial masks and at all 12 group geometries
-   with all-padding slots: counts and K-S statistics exact, predictions
-   within 1e-6, flags exact except rows within 1e-5 x threshold of it;
+   with all-padding slots, then on K-S edge cases (ties with the
+   reference and within a slot, values past both ends of the reference,
+   a one-row and an all-padding slot; B = 1..300, S = 1, 3, 4, 64):
+   counts and K-S statistics exact, predictions within 1e-6, flags exact
+   except rows within 1e-5 x threshold of it, two launches bitwise equal;
 5. the main path: ``python -m mlops_tpu_torch serve`` in a subprocess
    answers the golden request and 5/64/256-record bodies (257 -> 413,
    malformed -> 422), the engine's grouped path runs a 64x1 and a 64x8
    group in this process; responses agree with the plain version run on
    the CPU, /metrics rows equal the records sent, the kernel's launch
    count rose, and SIGTERM drains the server;
-6. timing with CUDA events at bucket 1, bucket 256 and groups 64x1 and
-   64x8: kernel, plain version, whole dispatch -> fetch, and the bound
+6. timing at bucket 1, bucket 256 and groups 64x1 and 64x8: the
+   kernel's device time (100 launches captured in a CUDA graph and
+   replayed between events; beside it ``torch.profiler``'s kernel time),
+   the same for an empty launch of the same grid made the same way, the
+   host-paced time (events around back-to-back ctypes calls, which the
+   host's submission decides once the kernel is shorter than it), the
+   wrapper, the plain version, whole dispatch -> fetch, and the bound
    from bytes and operations;
 7. the flash-attention kernel against its plain version on the card: the
    doc model's full width (256, 508, 8, 32) bf16 as views of one qkv
@@ -60,9 +68,10 @@ Phases, each of which fails the run loudly:
     version on the card: the training shape (64, 508, 8, 32) bf16 as
     views of one qkv projection, (4, 140, 2, 16) bf16 and f32, ragged
     (2, 200, 4, 64) f32 and bf16, cross-length q 45 / kv 70 f32, the
-    bf16 tile edges of phase 7; f32 within 5e-5 + 1e-4 x the gradient's
-    largest magnitude, bf16 within two bf16 ulps of it; one launch of
-    each per call;
+    bf16 tile edges of phase 7 and S = 508 at head_dim 16/32/64; f32
+    within 5e-5 + 1e-4 x the gradient's largest magnitude, bf16 within
+    two bf16 ulps of it; one launch of each per call; two dq launches at
+    the training shape bitwise equal;
 11. training at full width in this process (the job's model, batch 64,
     bf16, one seeded init): one step's gradients through the flash
     kernels against dense attention, parameter by parameter (cosine
@@ -293,6 +302,47 @@ def _inputs(prep, s: int, b: int, seed: int, device):
     )
 
 
+def _ks_edge_inputs(prep, ref_sorted, s: int, b: int, seed: int, device):
+    """Rows whose numerics break a sorted-batch merge: exact reference
+    points, ties within the slot, values below the reference minimum and
+    above its maximum. Slot 0 holds one valid row and slot 1 none (S > 1);
+    the other slots fill 0..B rows."""
+    import numpy as np
+    import torch
+
+    from mlops_tpu_torch.data import generate_synthetic
+
+    rng = np.random.default_rng(seed)
+    columns, _ = generate_synthetic(s * b, seed=seed, drift=0.4)
+    ds = prep.encode(columns)
+    cat = ds.cat_ids.reshape(s, b, -1)
+    num = ds.numeric.reshape(s, b, -1).astype(np.float32)
+    ref = ref_sorted.cpu().numpy()
+    m, r = ref.shape
+    span = ref[:, -1] - ref[:, 0] + 1.0
+    pick = rng.integers(0, 5, size=(s, b, m))
+    at_ref = ref[np.arange(m), rng.integers(0, r, size=(s, b, m))]
+    num = np.where(pick == 1, at_ref, num)
+    num = np.where(pick == 2, ref[:, 0] - rng.uniform(0.1, 2.0, (s, b, m)) * span, num)
+    num = np.where(pick == 3, ref[:, -1] + rng.uniform(0.1, 2.0, (s, b, m)) * span, num)
+    num = np.where(pick == 4, num[:, :1, :], num).astype(np.float32)
+    mask = np.zeros((s, b), bool)
+    if s == 1:
+        mask[0, : int(rng.integers(1, b + 1))] = True
+    else:
+        mask[0, int(rng.integers(0, b))] = True
+        for i in range(2, s):
+            mask[i, : int(rng.integers(0, b + 1))] = True
+    return tuple(
+        torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (cat, num, mask)
+    )
+
+
+# K-S edge cases (S, B): every solo bucket, the 64-slot groups, and past
+# 256 rows (a slot group loops over its rows).
+KS_EDGE_SHAPES = [(1, 1), (1, 8), (1, 64), (1, 256), (64, 1), (64, 8), (4, 256), (3, 300)]
+
+
 def _near_threshold(mon, num, mask):
     from mlops_tpu_torch.ops.outlier import mahalanobis_sq
 
@@ -317,28 +367,38 @@ def phase_parity(bundle_dir: Path) -> dict:
         bundle.monitor.to(dev),
         torch.tensor(bundle.quant_temperature, dtype=torch.float32, device=dev),
     )
+    ref_sorted = state[1].num_ref_sorted
+    cases = [("geometry", s, b, _inputs(bundle.preprocessor, s, b, 100 + k, dev))
+             for k, (s, b) in enumerate(_geometries())]
+    cases += [
+        ("K-S edge", s, b, _ks_edge_inputs(bundle.preprocessor, ref_sorted, s, b, 500 + k, dev))
+        for k, (s, b) in enumerate(KS_EDGE_SHAPES)
+    ]
     worst = 0.0
-    for k, (s, b) in enumerate(_geometries()):
-        cat, num, mask = _inputs(bundle.preprocessor, s, b, 100 + k, dev)
+    for what, s, b, (cat, num, mask) in cases:
         args = _core_args(state, cat, num, mask)
-        kp, kf, kc, kk = fused_core_cuda(*args)
+        got = fused_core_cuda(*args)
+        again = fused_core_cuda(*args)
         torch.cuda.synchronize()
+        kp, kf, kc, kk = got
         rp, rf, rc, rk = fused_core_reference(*args)
         err = (kp - rp).abs().max().item()
         worst = max(worst, err)
         near = _near_threshold(state[1], num, mask)
         flag_diff = ((kf != rf) & ~near).sum().item()
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
         ok = (
             torch.equal(kc, rc) and torch.equal(kk, rk)
-            and err <= PRED_ATOL and flag_diff == 0
+            and err <= PRED_ATOL and flag_diff == 0 and repeat
         )
         log(
-            f"parity S={s:2d} B={b:3d}: counts/ks exact={torch.equal(kc, rc)}"
+            f"parity {what} S={s:2d} B={b:3d}: counts/ks exact={torch.equal(kc, rc)}"
             f"/{torch.equal(kk, rk)} preds max|err|={err:.3g} "
-            f"flag mismatches={flag_diff} (near threshold {int(near.sum())})"
+            f"flag mismatches={flag_diff} (near threshold {int(near.sum())}) "
+            f"two launches equal={repeat}"
         )
-        check(ok, f"kernel disagrees with its plain version at S={s} B={b}")
-    return {"max_abs_err": worst, "shapes": len(_geometries())}
+        check(ok, f"kernel disagrees with its plain version ({what}) at S={s} B={b}")
+    return {"max_abs_err": worst, "shapes": len(cases)}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -528,23 +588,82 @@ def _event_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _raw_launcher(args, outs, s: int, b: int, r: int):
-    """The kernel's C entry point called directly on preallocated outputs,
-    so back-to-back launches time the device, not the wrapper's checks."""
+def _graph_ms(launch, n: int = 100, replays: int = 5) -> float:
+    """Device time per launch of a short kernel: ``n`` launches
+    (``launch(stream)``) captured in one CUDA graph and replayed between
+    two events, so the host submits one graph and not n calls. Events
+    around back-to-back calls time the host's submission instead once a
+    kernel is shorter than it."""
     import torch
 
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            launch(side.cuda_stream)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(n):
+            launch(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (n * replays)
+
+
+def _profiler_ms(launch, kernel: str, n: int = 100) -> float | None:
+    """The mean device time of the kernels whose name holds ``kernel``
+    over ``n`` launches under ``torch.profiler`` (CUPTI's start-to-end
+    times), or None if the profiler saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    stream = torch.cuda.current_stream().cuda_stream
+    for _ in range(5):
+        launch(stream)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            launch(stream)
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for event in prof.key_averages():
+        if event.device_type == DeviceType.CUDA and kernel in event.key:
+            us = getattr(event, "self_device_time_total", None)
+            total += float(us if us is not None else event.self_cuda_time_total)
+            count += event.count
+    return total / count / 1e3 if count else None
+
+
+def _raw_launcher(args, outs, s: int, b: int, r: int):
+    """The kernel's C entry point called directly on preallocated outputs
+    (``launch(stream)``), without the wrapper's checks; and the library's
+    empty launch of the same grid, made the same way."""
     from mlops_tpu_torch.ops.quant_kernel import load_library
 
     lib = load_library()
     ptrs = [t.data_ptr() for t in (*args, *outs)]
-    stream = torch.cuda.current_stream().cuda_stream
 
-    def launch():
+    def launch(stream):
         err = lib.quant_fused_launch(*ptrs, s, b, r, 0, stream)
         if err != 0:
             raise SmokeFailure(f"raw launch failed: cudaError {err}")
 
-    return launch
+    def empty(stream):
+        err = lib.quant_fused_empty_launch(s, b, r, 0, stream)
+        if err != 0:
+            raise SmokeFailure(f"empty launch failed: cudaError {err}")
+
+    return launch, empty
 
 
 def _bound(args, outs, s: int, b: int, n_valid: list[int], r: int):
@@ -596,7 +715,14 @@ def phase_timing(bundle_dir: Path, engine) -> list[dict]:
         cat, num, mask = _inputs(bundle.preprocessor, s, b, 300 + s + b, dev)
         args = _core_args(state, cat, num, mask)
         outs = fused_core_cuda(*args)
-        kernel_ms = _event_ms(_raw_launcher(args, outs, s, b, r), 200)
+        launch, empty = _raw_launcher(args, outs, s, b, r)
+        stream = torch.cuda.current_stream().cuda_stream
+        kernel_ms = _graph_ms(launch)
+        profiler_ms = _profiler_ms(launch, "quant_fused_kernel")
+        host_paced_ms = _event_ms(lambda: launch(stream), 200)
+        empty_ms = _graph_ms(empty)
+        empty_profiler_ms = _profiler_ms(empty, "quant_empty_kernel")
+        empty_host_paced_ms = _event_ms(lambda: empty(stream), 200)
         wrapper_ms = _event_ms(lambda: fused_core_cuda(*args), 200)
         plain_ms = _event_ms(lambda: fused_core_reference(*args), 20)
         bound_ms, bound_by = _bound(
@@ -629,6 +755,11 @@ def phase_timing(bundle_dir: Path, engine) -> list[dict]:
         row = {
             "shape": f"{s}x{b}",
             "ms": kernel_ms,
+            "profiler_ms": profiler_ms,
+            "host_paced_ms": host_paced_ms,
+            "empty_launch_ms": empty_ms,
+            "empty_launch_profiler_ms": empty_profiler_ms,
+            "empty_launch_host_paced_ms": empty_host_paced_ms,
             "wrapper_ms": wrapper_ms,
             "plain_ms": plain_ms,
             "dispatch_fetch_ms_p50": float(np.median(times)),
@@ -939,7 +1070,10 @@ def phase_bwd_parity() -> dict:
         ("ragged", (2, 200, 200, 4, 64), torch.float32),
         ("ragged", (2, 200, 200, 4, 64), torch.bfloat16),
         ("cross-length", (2, 45, 70, 2, 32), torch.float32),
-    ] + _tile_edge_cases()
+    ] + _tile_edge_cases() + [
+        # dq's 128-row blocks over 64-key tiles at the doc model's length
+        ("tile edge", (2, 508, 508, 2, d), torch.bfloat16) for d in (16, 32, 64)
+    ]
     rows = []
     for n, (what, shape, dtype) in enumerate(cases):
         q, k, v = _qkv_views(*shape, dtype, seed=60 + n)
@@ -951,6 +1085,12 @@ def phase_bwd_parity() -> dict:
         torch.cuda.synchronize()
         launched = (attention.flash_bwd_dq_launches.value - before[0],
                     attention.flash_bwd_dkv_launches.value - before[1])
+        if n == 0:  # each dq block owns its rows: a second launch, the same bits
+            again = attention.flash_bwd_dq_cuda(
+                q, k, v, do, lse, attention.flash_delta(out, do)
+            )
+            check(torch.equal(again, got[0]), "two dq launches differ")
+            log("flash backward: two dq launches at the training shape are bitwise equal")
         want = attention.flash_backward_reference(q, k, v, out, lse, do)
         errs = {
             name: (g.float() - w.float()).abs().max().item()
@@ -1320,6 +1460,9 @@ def main() -> int:
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],
             "library_ms": None,
+            "profiler_ms": head["profiler_ms"],
+            "host_paced_ms": head["host_paced_ms"],
+            "empty_launch_ms": head["empty_launch_ms"],
             "shape": head["shape"],
             "timings": timing,
         }, {

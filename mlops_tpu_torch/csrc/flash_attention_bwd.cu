@@ -46,12 +46,24 @@
 //   of K and V) feed only their own, never stored, rows of dk and dv. Two
 //   blocks share an SM (D <= 32), so one block's exponentials run under
 //   the other's tensor-core work and copies.
-// - dq, bf16: 4 warps per block, each warp owns 16 query rows (64 per
-//   block) and walks 64-key tiles staged in shared memory by all threads
-//   between two barriers; every product is mma.sync.m16n8k16, the score
-//   and dP tiles stay in registers, dS is re-packed there as the A
-//   operand of dS K with K's B fragments from ldmatrix.trans, dS rounded
-//   to k's type (attention.py:237-239).
+// - dq, bf16: the same machinery turned round for query-owned rows. A
+//   block owns 128 query rows of one (b, h): two warpgroups of 64. Q and
+//   dO are loaded once by TMA (zero-filled past S_q); each thread keeps
+//   its two rows' lse (log2 units, negated) and delta (times -scale) in
+//   registers, read only for rows below S_q. 64-key tiles of K and V
+//   stream through a four-stage TMA ring refilled by the last warp done
+//   with a stage, as above. S = Q K^T and dP = dO V^T are wgmma.m64n64k16
+//   with both operands in shared memory, K-major, committed as two
+//   groups: p = exp2(...) is formed from S while dP's product still runs,
+//   then dS = p (dp - delta) scale, all in f32 registers (keys past S_kv
+//   masked on the tile that crosses it only: TMA zero-fills K there, which
+//   would score 0, not -inf). dS is rounded to k's type (attention.py:237-239)
+//   and re-packed as the register A operand of dq += dS K, with K read
+//   again as an MN-major operand (the forward's P V form). dq accumulates
+//   in f32 and is stored once: no atomics, the same bits every launch.
+//   64-key tiles keep S and dP at 32 f32 registers each per thread, so
+//   two blocks share an SM (D <= 32) and one block's exponentials run
+//   under the other's products.
 // - f32: plain one-row-per-thread kernels with f32 FMAs and expf (no
 //   TF32), because f32 callers expect f32 accuracy.
 //
@@ -69,229 +81,6 @@ namespace {
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ------------------------------------------------------------------ bf16
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;  // output rows a block owns
-constexpr int kTile = 64;           // rows of a shared-memory tile
-constexpr int kPad = 8;             // bf16 of row padding: conflict-free
-constexpr int kTilesS = kTile / 8;  // n-tiles of a 16 x kTile score tile
-constexpr int kStepsP = kTile / 16;  // k-steps of a product over a tile
-
-// D (16x8, f32) += A (16x16, bf16, row-major) * B (16x8, bf16, col-major).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two 8x8 b16 matrices from shared memory, transposed into the B-operand
-// layout: lanes 0-7 address the rows of the first, lanes 8-15 the second.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1,
-                                                  const void* smem) {
-  uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-// A fragments of a warp's 16 rows (from r0) of one head of a [B,S,H,D]
-// view; rows at or past n read as 0.
-template <int D>
-__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4],
-                                       const __nv_bfloat16* base,
-                                       long long row_stride, int r0, int g,
-                                       int c, int n) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = r0 + g + (i & 1) * 8;
-      const int col = kk * 16 + (i >> 1) * 8 + c * 2;
-      a[kk][i] = row < n ? *reinterpret_cast<const uint32_t*>(
-                               base + row * row_stride + col)
-                         : 0u;
-    }
-  }
-}
-
-// Stage rows [r0, r0 + kTile) of one head of two [B,S,H,D] views into
-// shared memory, 16 bytes per thread and step; rows at or past n are 0.
-template <int D>
-__device__ __forceinline__ void stage_pair(__nv_bfloat16* xs,
-                                           __nv_bfloat16* ys,
-                                           const __nv_bfloat16* xb,
-                                           long long x_stride,
-                                           const __nv_bfloat16* yb,
-                                           long long y_stride, int r0, int n) {
-  constexpr int kRow = D + kPad;
-  constexpr int kVec = 8;  // bf16 per 16-byte vector
-  for (int i = threadIdx.x; i < kTile * D / kVec; i += kThreads) {
-    const int r = i / (D / kVec), col = (i % (D / kVec)) * kVec;
-    const int row = r0 + r;
-    uint4 xv = make_uint4(0, 0, 0, 0), yv = make_uint4(0, 0, 0, 0);
-    if (row < n) {
-      xv = *reinterpret_cast<const uint4*>(xb + row * x_stride + col);
-      yv = *reinterpret_cast<const uint4*>(yb + row * y_stride + col);
-    }
-    *reinterpret_cast<uint4*>(xs + r * kRow + col) = xv;
-    *reinterpret_cast<uint4*>(ys + r * kRow + col) = yv;
-  }
-}
-
-// C (16 x kTile) = A (16 x D) * T^T, T the staged tile (kTile x D): the
-// tile's rows are the columns of C.
-template <int D>
-__device__ __forceinline__ void mma_a_tt(float (&cf)[kTilesS][4],
-                                         const uint32_t (&a)[D / 16][4],
-                                         const __nv_bfloat16* ts, int g,
-                                         int c) {
-  constexpr int kRow = D + kPad;
-#pragma unroll
-  for (int j = 0; j < kTilesS; ++j) {
-    cf[j][0] = cf[j][1] = cf[j][2] = cf[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* tp = ts + (j * 8 + g) * kRow + kk * 16 + c * 2;
-      mma_bf16(cf[j], a[kk], *reinterpret_cast<const uint32_t*>(tp),
-               *reinterpret_cast<const uint32_t*>(tp + 8));
-    }
-  }
-}
-
-// acc (16 x D) += P (16 x kTile, bf16 A fragments) * T (kTile x D), T's B
-// fragments through ldmatrix.trans.
-template <int D>
-__device__ __forceinline__ void mma_p_t(float (&acc)[D / 8][4],
-                                        const uint32_t (&pa)[kStepsP][4],
-                                        const __nv_bfloat16* ts, int lane) {
-  constexpr int kRow = D + kPad;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < kStepsP; ++kk) {
-      uint32_t b0, b1;
-      ldmatrix_x2_trans(b0, b1, ts + (kk * 16 + lane % 16) * kRow + n * 8);
-      mma_bf16(acc[n], pa[kk], b0, b1);
-    }
-  }
-}
-
-// The C fragments of a 16 x kTile f32 tile, rounded to bf16, are the A
-// fragments of a product over the tile's columns.
-__device__ __forceinline__ void pack_a(uint32_t (&pa)[kStepsP][4],
-                                       const float (&x)[kTilesS][4]) {
-#pragma unroll
-  for (int j = 0; j < kTilesS; ++j) {
-    pa[j / 2][(j % 2) * 2] = pack_bf16(x[j][0], x[j][1]);
-    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(x[j][2], x[j][3]);
-  }
-}
-
-// A warp's 16 x D f32 accumulator as bf16 rows of one head of a [B,S,H,D]
-// view; rows at or past n are not stored.
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* base,
-                                           long long row_stride,
-                                           const float (&acc)[D / 8][4], int r0,
-                                           int g, int c, int n) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = r0 + g + r * 8;
-    if (row < n) {
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(base + row * row_stride + j * 8 + c * 2) =
-            pack_bf16(acc[j][2 * r], acc[j][2 * r + 1]);
-      }
-    }
-  }
-}
-
-// dq = scale * sum_j p_ij (dp_ij - delta_i) k_j for 64 query rows of one
-// (b, h); grid (B*H, ceil(S_q / 64)).
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_bf16(const __nv_bfloat16* __restrict__ q,
-                      const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v,
-                      const __nv_bfloat16* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      __nv_bfloat16* __restrict__ dq, Strides sq, Strides sk,
-                      Strides sv, Strides sdo, Strides sdq, int heads, int s_q,
-                      int s_kv, float scale) {
-  constexpr int kRow = D + kPad;
-  __shared__ __align__(16) __nv_bfloat16 ks[kTile * kRow];
-  __shared__ __align__(16) __nv_bfloat16 vs[kTile * kRow];
-
-  const int bh = blockIdx.x;
-  const int b = bh / heads, h = bh % heads;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4;  // fragment row (and row + 8)
-  const int c = lane % 4;  // fragment column pair
-  const int q0 = blockIdx.y * kRows + warp * 16;
-
-  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
-  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
-  uint32_t qa[D / 16][4], da[D / 16][4];
-  load_a<D>(qa, q + b * sq.b + h * sq.h, sq.s, q0, g, c, s_q);
-  load_a<D>(da, dout + b * sdo.b + h * sdo.h, sdo.s, q0, g, c, s_q);
-
-  // Row statistics (lse in log2 units); rows past s_q read none: their q
-  // and dO are 0 and they are not stored.
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + g + r * 8;
-    const long long at = static_cast<long long>(bh) * s_q + row;
-    lse2[r] = row < s_q ? lse[at] * kLog2e : 0.f;
-    dl[r] = row < s_q ? delta[at] : 0.f;
-  }
-  const float scale2 = scale * kLog2e;
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < s_kv; k0 += kTile) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_pair<D>(ks, vs, kb, sk.s, vb, sv.s, k0, s_kv);
-    __syncthreads();
-
-    float s[kTilesS][4], dp[kTilesS][4];
-    mma_a_tt<D>(s, qa, ks, g, c);   // Q K^T
-    mma_a_tt<D>(dp, da, vs, g, c);  // dO V^T
-#pragma unroll
-    for (int j = 0; j < kTilesS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + c * 2 + (e & 1);
-        const int r = e >> 1;
-        const float p =
-            key < s_kv ? fast_exp2(fmaf(s[j][e], scale2, -lse2[r])) : 0.f;
-        s[j][e] = p * (dp[j][e] - dl[r]) * scale;  // dS
-      }
-    }
-    uint32_t pa[kStepsP][4];
-    pack_a(pa, s);  // dS rounded to k's type
-    mma_p_t<D>(acc, pa, ks, lane);  // dq += dS K
-  }
-  store_rows<D>(dq + b * sdq.b + h * sdq.h, sdq.s, acc, q0, g, c, s_q);
-}
-
-// dv = sum_i p_ij dO_i and dk = scale * sum_i p_ij (dp_ij - delta_i) q_i
-// for 128 key rows of one (b, h); grid (B*H, ceil(S_kv / 128)). The loop
-// over query tiles stands in for the TPU's sequential q-block grid axis.
-constexpr int kDkvGroups = 2;                        // warpgroups of 64 keys
-constexpr int kDkvKeys = 64 * kDkvGroups;            // key rows per block
-constexpr int kDkvTile = 64;                         // queries per ring stage
-constexpr int kDkvStages = 3;
-constexpr int kDkvThreads = kDkvGroups * 128;
-constexpr int kDkvWarps = kDkvThreads / 32;
-
 // D (64 x 64, f32) (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared,
 // K-major); accumulate = 0 overwrites D.
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
@@ -312,6 +101,208 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
+
+// dq = scale * sum_j p_ij (dp_ij - delta_i) k_j for 128 query rows of one
+// (b, h); grid (B*H, ceil(S_q / 128)). The loop over key tiles stands in
+// for the TPU's sequential kv-block grid axis.
+constexpr int kDqGroups = 2;                   // warpgroups of 64 queries
+constexpr int kDqRows = 64 * kDqGroups;        // query rows per block
+constexpr int kDqTile = 64;                    // keys per ring stage
+constexpr int kDqStages = 4;
+constexpr int kDqThreads = kDqGroups * 128;
+constexpr int kDqWarps = kDqThreads / 32;
+
+// Shared memory of one dq block, in bytes from a 1024-aligned base: Q and
+// dO (128 rows each), then per stage a K and a V tile (64 rows each),
+// then the mbarriers and the per-stage count of warps done with it.
+template <int D>
+struct DqSmem {
+  static constexpr int kRow = 2 * D;                 // bytes per row
+  static constexpr int kRows = kDqRows * kRow;       // Q or dO
+  static constexpr int kTile = kDqTile * kRow;       // a K or V tile
+  static constexpr int kQ = 0;
+  static constexpr int kDo = kRows;
+  static constexpr int kRing = 2 * kRows;
+  static constexpr int kStage = 2 * kTile;
+  static constexpr int kK = 0;                       // within a stage
+  static constexpr int kV = kTile;
+  static constexpr int kBars = kRing + kDqStages * kStage;
+  static constexpr int kDone = kBars + 8 * (1 + kDqStages);
+  static constexpr int kBytes = kDone + 4 * kDqStages + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, D <= 32 ? 2 : 1)
+    flash_bwd_dq_bf16(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq, Strides sdq, int heads,
+                      int s_q, int s_kv, float scale) {
+  using L = DqSmem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* full = qdo_full + 1;  // [kDqStages]: K and V of a tile landed
+  unsigned* done = reinterpret_cast<unsigned*>(smem + L::kDone);  // [kDqStages]
+
+  const int bh = blockIdx.x;
+  const int b = bh / heads, h = bh % heads;
+  const int q0 = blockIdx.y * kDqRows;
+  const int n_tiles = (s_kv + kDqTile - 1) / kDqTile;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  // Key tile t's K and V land in stage t % kDqStages. Thread 0 starts Q,
+  // dO and the first kDqStages tiles; after that the last of the block's
+  // warps to finish with a stage refills it, so no warp is set aside for
+  // loads.
+  const CUtensorMap* tkp = &tk;
+  const CUtensorMap* tvp = &tv;
+  auto load_tile = [=](int t) {
+    const int s = t % kDqStages;
+    uint8_t* stage = smem + L::kRing + s * L::kStage;
+    mbar_arrive_tx(&full[s], 2 * L::kTile);
+    tma_load(stage + L::kK, tkp, &full[s], h, t * kDqTile, b);
+    tma_load(stage + L::kV, tvp, &full[s], h, t * kDqTile, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      done[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_arrive_tx(qdo_full, 2 * L::kRows);
+    tma_load(smem + L::kQ, &tq, qdo_full, h, q0, b);
+    tma_load(smem + L::kDo, &tdo, qdo_full, h, q0, b);
+    for (int t = 0; t < kDqStages && t < n_tiles; ++t) load_tile(t);
+  }
+  __syncthreads();
+
+  // A warpgroup owns 64 query rows. Each thread holds rows g and g + 8
+  // of its warp's 16, at key columns 8j + 2c and 8j + 2c + 1; their
+  // -lse*log2(e) and -delta*scale live in registers (rows past s_q read
+  // neither: their q and dO arrive as zeros and they are not stored).
+  const int wg = warp / 4;
+  const int g = lane / 4, c = lane % 4;
+  const int row0 = q0 + wg * 64 + (warp % 4) * 16 + g;
+  const uint64_t q_desc = smem_desc<L::kRow>(smem + L::kQ + wg * 64 * L::kRow);
+  const uint64_t do_desc = smem_desc<L::kRow>(smem + L::kDo + wg * 64 * L::kRow);
+  const float scale2 = scale * kLog2e;
+  float nl2[2], ndl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    const long long at = static_cast<long long>(bh) * s_q + row;
+    nl2[r] = row < s_q ? -lse[at] * kLog2e : 0.f;
+    ndl[r] = row < s_q ? -delta[at] * scale : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(qdo_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int s = t % kDqStages;
+    mbar_wait(&full[s], (t / kDqStages) & 1);
+    const uint8_t* stage = smem + L::kRing + s * L::kStage;
+    const uint64_t k_desc = smem_desc<L::kRow>(stage + L::kK);
+    const uint64_t v_desc = smem_desc<L::kRow>(stage + L::kV);
+
+    // S = Q K^T and dP = dO V^T, 64 queries x 64 keys each, committed as
+    // two groups: p is formed from S while dP's product still runs.
+    float sc[kDqTile / 2], dp[kDqTile / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_n64(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss_n64(dp, do_desc + 2 * kk, v_desc + 2 * kk, kk);
+    }
+    wgmma_commit();
+    wgmma_wait_one();
+    fence_regs(sc);
+
+    // Only the tile that crosses s_kv has keys to mask (they arrived as
+    // zero rows of K and scored 0, which would give p = exp(-lse)).
+    if (t * kDqTile + kDqTile > s_kv) {
+#pragma unroll
+      for (int i = 0; i < kDqTile / 2; ++i) {
+        const int key = t * kDqTile + (i / 4) * 8 + 2 * c + (i & 1);
+        if (key >= s_kv) sc[i] = -INFINITY;
+      }
+    }
+    // p = exp2(s * scale * log2e - lse * log2e), in place.
+#pragma unroll
+    for (int i = 0; i < kDqTile / 2; ++i) {
+      sc[i] = fast_exp2(fmaf(sc[i], scale2, nl2[(i / 2) & 1]));
+    }
+    wgmma_wait_all();
+    fence_regs(dp);
+
+    // dS = p (dp - delta) scale, rounded to k's type (attention.py:237-239)
+    // and re-packed in registers as the A fragments of the tile's 16-key
+    // steps.
+    uint32_t da[kDqTile / 16][4];
+#pragma unroll
+    for (int j = 0; j < kDqTile / 8; ++j) {
+      da[j / 2][(j % 2) * 2] = pack_bf16(sc[4 * j] * fmaf(dp[4 * j], scale, ndl[0]),
+                                         sc[4 * j + 1] * fmaf(dp[4 * j + 1], scale, ndl[0]));
+      da[j / 2][(j % 2) * 2 + 1] =
+          pack_bf16(sc[4 * j + 2] * fmaf(dp[4 * j + 2], scale, ndl[1]),
+                    sc[4 * j + 3] * fmaf(dp[4 * j + 3], scale, ndl[1]));
+    }
+
+    // dq += dS K: K, the K-major operand of S, is read again as the
+    // MN-major one; its 16-key steps are 16 rows further down the tile.
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqTile / 16; ++kk) {
+      wgmma_rs<D>(acc, da[kk], k_desc + ((16 * kk * L::kRow) >> 4));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    // This warp is done with the stage; the last of the block's warps to
+    // be done refills it with tile t + kDqStages.
+    if (t + kDqStages < n_tiles) {
+      __syncwarp();
+      if (lane == 0 && stage_done(&done[s]) % kDqWarps == kDqWarps - 1) {
+        load_tile(t + kDqStages);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + r * 8;
+    if (row < s_q) {
+      __nv_bfloat16* out = dq + b * sdq.b + row * sdq.s + h * sdq.h;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(out + j * 8 + c * 2) =
+            pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+// dv = sum_i p_ij dO_i and dk = scale * sum_i p_ij (dp_ij - delta_i) q_i
+// for 128 key rows of one (b, h); grid (B*H, ceil(S_kv / 128)). The loop
+// over query tiles stands in for the TPU's sequential q-block grid axis.
+constexpr int kDkvGroups = 2;                        // warpgroups of 64 keys
+constexpr int kDkvKeys = 64 * kDkvGroups;            // key rows per block
+constexpr int kDkvTile = 64;                         // queries per ring stage
+constexpr int kDkvStages = 3;
+constexpr int kDkvThreads = kDkvGroups * 128;
+constexpr int kDkvWarps = kDkvThreads / 32;
 
 // Shared memory of one dk/dv block, in bytes from a 1024-aligned base: K
 // and V (128 rows each), then per stage a q and a dO tile (64 rows each)
@@ -673,13 +664,21 @@ template <int D>
 cudaError_t launch_dq(const Args& a, void* dq, Strides sdq) {
   const unsigned bh = static_cast<unsigned>(a.batch) * a.heads;
   if (a.dtype == 1) {
-    const dim3 grid(bh, (a.s_q + kRows - 1) / kRows);
-    flash_bwd_dq_bf16<D><<<grid, kThreads, 0, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q),
-        static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v),
-        static_cast<const __nv_bfloat16*>(a.dout), a.lse, a.delta,
-        static_cast<__nv_bfloat16*>(dq), a.sq, a.sk, a.sv, a.sdo, sdq,
+    CUtensorMap tq, tk, tv, tdo;
+    if (!tensor_map(&tq, a.q, a.sq, a.batch, a.s_q, a.heads, D, kDqRows) ||
+        !tensor_map(&tk, a.k, a.sk, a.batch, a.s_kv, a.heads, D, kDqTile) ||
+        !tensor_map(&tv, a.v, a.sv, a.batch, a.s_kv, a.heads, D, kDqTile) ||
+        !tensor_map(&tdo, a.dout, a.sdo, a.batch, a.s_q, a.heads, D, kDqRows)) {
+      return cudaErrorInvalidValue;
+    }
+    constexpr int kSmem = DqSmem<D>::kBytes;
+    static std::atomic<unsigned long long> smem_allowed{0};
+    const cudaError_t err =
+        allow_dynamic_smem(flash_bwd_dq_bf16<D>, kSmem, smem_allowed);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(bh, (a.s_q + kDqRows - 1) / kDqRows);
+    flash_bwd_dq_bf16<D><<<grid, kDqThreads, kSmem, a.stream>>>(
+        tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq), sdq,
         a.heads, a.s_q, a.s_kv, a.scale);
   } else {
     const dim3 grid(bh, (a.s_q + kRowsF32 - 1) / kRowsF32);

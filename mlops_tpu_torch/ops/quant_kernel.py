@@ -53,8 +53,8 @@ KERNEL_SOURCE = PACKAGE_DIR / "csrc" / "quant_fused.cu"
 REPLACES = "mlops_tpu/ops/quant_kernel.py:167"
 
 # Shared memory a block may use on an H100 (232,448 bytes), less room for
-# the kernel's static arrays.
-_SMEM_LIMIT = 232_448 - 2_048
+# the kernel's static arrays (6 KB).
+_SMEM_LIMIT = 232_448 - 8_192
 
 # The geometry csrc/quant_fused.cu is compiled for.
 _C = SCHEMA.num_categorical
@@ -62,6 +62,10 @@ _K = max(SCHEMA.cards)
 _M = SCHEMA.num_numeric
 _E = QUANT_EMBED_DIM
 _H = QUANT_HIDDEN
+# csrc/quant_fused.cu's block width, and the shared words of one K-S slot
+# besides its 3B + 1 (category counts and the valid-row count).
+_THREADS = 256
+_GROUP_EXTRA = _K + 1
 
 
 quant_kernel_launches = LaunchCounter()
@@ -73,6 +77,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr,
     ]
     lib.quant_fused_launch.restype = ctypes.c_int
+    lib.quant_fused_empty_launch.argtypes = [ctypes.c_int] * 4 + [ptr]
+    lib.quant_fused_empty_launch.restype = ctypes.c_int
 
 
 _LIBRARY = KernelLibrary(KERNEL_SOURCE, "quant_fused", _bind)
@@ -80,10 +86,23 @@ _LIBRARY = KernelLibrary(KERNEL_SOURCE, "quant_fused", _bind)
 load_library = _LIBRARY.load
 
 
+def _smem_bytes(b: int, r: int) -> int:
+    """Dynamic shared memory of one launch (csrc: ``geometry``): a K-S
+    block holds a feature's two reference planes (2r floats) and, for each
+    of its 256 / G slots (G = B rounded up to a power of two, 32 to 256),
+    the slot's keys, sorted column and ECDF table (3B + 1 words) and its
+    counters."""
+    group = 32
+    while group < b and group < _THREADS:
+        group *= 2
+    return 4 * (2 * r + (_THREADS // group) * (3 * b + 1 + _GROUP_EXTRA))
+
+
 def max_rows(r: int) -> int:
     """Largest rows-per-slot one launch takes for a reference of ``r``
-    points: the K-S blocks hold 2r + B floats in shared memory."""
-    return (_SMEM_LIMIT - 8 * r) // 4
+    points: past 256 rows a K-S block holds one slot, 2r + 3B + 1 words
+    and the slot's counters, in shared memory."""
+    return (_SMEM_LIMIT // 4 - 2 * r - 1 - _GROUP_EXTRA) // 3
 
 
 def fused_core_reference(
@@ -146,19 +165,19 @@ def fused_core_cuda(
     """Launch ``csrc/quant_fused.cu`` on the current stream: same
     arguments and results as ``fused_core_reference``."""
     device = cat_ids.device
-    if device.type != "cuda":
-        raise ValueError(f"fused_core_cuda takes CUDA tensors, got {device}")
     if cat_ids.dim() != 3:
         raise ValueError(f"cat_ids must be [S, B, C], got {tuple(cat_ids.shape)}")
     s, b = cat_ids.shape[0], cat_ids.shape[1]
     r = ref_sorted.shape[-1]
     if s < 1 or b < 1 or r < 1:
         raise ValueError(f"empty launch: S={s}, B={b}, R={r}")
-    if b > max_rows(r):
+    if _smem_bytes(b, r) > _SMEM_LIMIT:
         raise ValueError(
             f"B={b} rows per slot exceed the kernel's shared-memory layout "
             f"({max_rows(r)} rows at R={r})"
         )
+    if device.type != "cuda":
+        raise ValueError(f"fused_core_cuda takes CUDA tensors, got {device}")
     f32, scalar = torch.float32, ()
     for t, name, dtype, shape in (
         (embed, "embed", torch.bfloat16, (_C, _K, _E)),

@@ -8,14 +8,16 @@ sources into ``build/kernels/`` with ``ops/cuda_build.py`` and reads
 those. Runs ``cuobjdump -sass`` (the CUDA toolkit's, else the copy that
 the ``triton`` package carries under ``triton/backends/nvidia/bin/``;
 it fails loudly if neither is found) and prints one JSON line per
-kernel function: the static count of each instruction class that bounds the flash
-kernels: ``MUFU.EX2`` (exponentials), ``HMMA``/``HGMMA`` (tensor cores:
-``mma.sync`` / ``wgmma``), ``FFMA``/``FMUL``/``FADD``/``FMNMX`` (the
-softmax's f32 work), ``LDS``/``LDSM`` (operand loads from shared
-memory), ``BAR``/``SYNCS`` (CTA barriers / ``mbarrier`` traffic),
-``LDG`` (global loads) and ``UTMALDG`` (TMA loads), with the f32 and
-shared-load instructions per exponential. Counts are of the compiled
-code, not of executed instructions: a loop body counts once.
+kernel function: the static count of each instruction class that bounds
+the port's kernels: ``MUFU.EX2`` (exponentials), ``HMMA``/``HGMMA``
+(tensor cores: ``mma.sync`` / ``wgmma``), ``FFMA``/``FMUL``/``FADD``/
+``FMNMX`` (the softmax's f32 work), ``LDS``/``LDSM`` (operand loads from
+shared memory), ``BAR``/``SYNCS`` (CTA barriers / ``mbarrier`` traffic),
+``LDG`` (global loads), ``UTMALDG`` (TMA loads), ``SHFL`` (warp
+shuffles) and ``LDL``/``STL`` (local memory: arrays or spills that the
+registers did not hold), with the f32 and shared-load instructions per
+exponential. Counts are of the compiled code, not of executed
+instructions: a loop body counts once.
 
 Needs only the toolkit's ``cuobjdump`` and, to build, ``nvcc``: no card.
 """
@@ -36,6 +38,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 CLASSES = (
     "MUFU.EX2", "HMMA", "HGMMA", "FFMA", "FMUL", "FADD", "FMNMX",
     "LDS", "LDSM", "STS", "BAR", "SYNCS", "LDG", "UTMALDG", "SHFL",
+    "LDL", "STL",
 )
 _FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)")
 # An instruction line: "/*0123*/   @!P0 OPCODE.MOD ... ;"

@@ -354,3 +354,104 @@ def test_dkv_launches_are_bitwise_equal():
     second = attention.flash_bwd_dkv_cuda(q, k, v, do, lse, delta)
     torch.cuda.synchronize()
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", attention.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("s_q,s_kv", EDGE_CASES)
+def test_bf16_dq_at_the_tile_edges(s_q, s_kv, d):
+    """dq's 128-row query blocks over 64-key tiles: lengths on each side of
+    both edges, the doc model's 508, cross lengths both ways."""
+    dev = _card()
+    q, k, v, do = _edge_inputs(s_q, s_kv, d, dev, seed=s_q * 41 + s_kv + d)
+    out, lse = attention.flash_forward_cuda(q, k, v)
+    dq = attention.flash_bwd_dq_cuda(q, k, v, do, lse, attention.flash_delta(out, do))
+    torch.cuda.synchronize()
+    want = attention.flash_backward_reference(q, k, v, out, lse, do)[0]
+    err = (dq.float() - want.float()).abs().max().item()
+    assert err <= _grad_tol(want), (err, _grad_tol(want))
+
+
+@pytest.mark.gpu
+def test_dq_launches_are_bitwise_equal():
+    """Each dq block owns its query rows and sums its key tiles in one
+    order (no atomics): two launches give the same bits."""
+    dev = _card()
+    q, k, v, do = _edge_inputs(508, 508, 32, dev, seed=19)
+    out, lse = attention.flash_forward_cuda(q, k, v)
+    delta = attention.flash_delta(out, do)
+    first = attention.flash_bwd_dq_cuda(q, k, v, do, lse, delta)
+    second = attention.flash_bwd_dq_cuda(q, k, v, do, lse, delta)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def _ks_edge_batch(ds, ref_sorted, s, b, seed):
+    """Numerics that break a sorted-batch merge: exact reference points,
+    ties within the slot, values below the reference minimum and above its
+    maximum. With S > 1, slot 0 holds one valid row, slot 1 none and the
+    others 0..B rows."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, ds.n, size=s * b)
+    cat = ds.cat_ids[idx].reshape(s, b, -1)
+    num = ds.numeric[idx].reshape(s, b, -1).astype(np.float32)
+    ref = ref_sorted.cpu().numpy()
+    m, r = ref.shape
+    span = ref[:, -1] - ref[:, 0] + 1.0
+    pick = rng.integers(0, 5, size=(s, b, m))
+    num = np.where(pick == 1, ref[np.arange(m), rng.integers(0, r, size=(s, b, m))], num)
+    num = np.where(pick == 2, ref[:, 0] - rng.uniform(0.1, 2.0, (s, b, m)) * span, num)
+    num = np.where(pick == 3, ref[:, -1] + rng.uniform(0.1, 2.0, (s, b, m)) * span, num)
+    num = np.where(pick == 4, num[:, :1, :], num).astype(np.float32)
+    mask = np.zeros((s, b), bool)
+    if s == 1:
+        mask[0, : int(rng.integers(1, b + 1))] = True
+    else:
+        mask[0, int(rng.integers(0, b))] = True
+        for i in range(2, s):
+            mask[i, : int(rng.integers(0, b + 1))] = True
+    return cat, num, mask
+
+
+def _quant_args(card_state, cat, num, mask):
+    qp, mon, _, dev = card_state
+    return (
+        qp["embed"], qp["w1_q"], qp["w1_s"], qp["b1"], qp["w2_q"],
+        qp["w2_s"], qp["b2"], mon.num_ref_sorted, mon.num_ref_cdf,
+        mon.out_mean, mon.out_precision, mon.out_threshold,
+        torch.tensor(1.3, device=dev),
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (cat, num, mask)),
+    )
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "s,b", [(1, 1), (1, 8), (1, 64), (1, 256), (64, 1), (64, 8), (64, 64), (3, 300)]
+)
+def test_kernel_ks_is_exact_on_inputs_that_break_a_merge(card_state, s, b):
+    _, mon, ds, _ = card_state
+    cat, num, mask = _ks_edge_batch(ds, mon.num_ref_sorted, s, b, seed=s * 7 + b)
+    args = _quant_args(card_state, cat, num, mask)
+    kp, kf, kc, kk = quant_kernel.fused_core_cuda(*args)
+    torch.cuda.synchronize()
+    rp, rf, rc, rk = quant_kernel.fused_core_reference(*args)
+    assert torch.equal(kc, rc) and torch.equal(kk, rk)
+    assert (kp - rp).abs().max().item() <= PRED_ATOL
+    numt = args[14]
+    d2 = mahalanobis_sq(numt, mon.out_mean, mon.out_precision)
+    thr = mon.out_threshold
+    off = (d2 - thr).abs() > FLAG_BAND * thr.abs()
+    assert torch.equal(kf[off], rf[off])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,b", [(64, 1), (64, 8)])
+def test_grouped_launches_are_bitwise_equal(card_state, s, b):
+    """Every output element has one owner (a warp per row, a slot group
+    per slot and feature): two launches give the same bits."""
+    _, mon, ds, _ = card_state
+    args = _quant_args(card_state, *_ks_edge_batch(ds, mon.num_ref_sorted, s, b, seed=3))
+    first = quant_kernel.fused_core_cuda(*args)
+    second = quant_kernel.fused_core_cuda(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))

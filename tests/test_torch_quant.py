@@ -242,3 +242,33 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_needs_cuda(state):
     assert tkernel.quant_kernel_launches.value == before
     with pytest.raises(ValueError, match="CUDA tensors"):
         tkernel.fused_core_cuda(*args)
+
+
+def test_kernel_row_limit_follows_its_shared_memory_layout(state):
+    """Past 256 rows a K-S block of csrc/quant_fused.cu holds its
+    feature's two reference planes (2R floats) and one slot: its keys,
+    sorted column and ECDF table (3B + 1 words) and 13 words of
+    counters. The wrapper refuses one row more than fits in an H100
+    block's shared memory (232,448 bytes less 8,192 for static arrays),
+    before it looks for a card."""
+    _, _, (tq, tm, temp), _ = state
+    r = tm.num_ref_sorted.shape[1]
+    limit = tkernel.max_rows(r)
+    assert 4 * (2 * r + 3 * limit + 1 + 13) <= 232_448 - 8_192
+    assert 4 * (2 * r + 3 * (limit + 1) + 1 + 13) > 232_448 - 8_192
+
+    def args(b):
+        return (
+            tq["embed"], tq["w1_q"], tq["w1_s"], tq["b1"], tq["w2_q"],
+            tq["w2_s"], tq["b2"], tm.num_ref_sorted, tm.num_ref_cdf,
+            tm.out_mean, tm.out_precision, tm.out_threshold, temp,
+            torch.zeros((1, b, 9), dtype=torch.int32),
+            torch.zeros((1, b, 14), dtype=torch.float32),
+            torch.ones((1, b), dtype=torch.bool),
+        )
+
+    with pytest.raises(ValueError, match=f"exceed .*{limit} rows at R={r}"):
+        tkernel.fused_core_cuda(*args(limit + 1))
+    for b in (1, 32, 33, 256, 257, limit):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tkernel.fused_core_cuda(*args(b))
