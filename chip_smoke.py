@@ -8,10 +8,12 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card of compute capability 9.0 and exits non-zero,
 printing no result, without one (or when run from a directory that holds
 this script and nothing else of the repository). It imports torch and the
-port (``mlops_tpu_torch``), never JAX or the JAX package. Three main
-paths: quant-tier serving (``POST /predict``), long-context doc scoring
-(``predict-file`` on a ``doc`` bundle) and doc-model training (``train
---config configs/long_context_job.toml model.seq_parallel=false``).
+port (``mlops_tpu_torch``), never JAX or the JAX package. Four main
+paths: quant-tier serving (``POST /predict`` with
+``serve.serve_tier=quant``), long-context doc scoring (``predict-file`` on
+a ``doc`` bundle), doc-model training (``train --config
+configs/long_context_job.toml model.seq_parallel=false``) and exact-tier
+serving (``POST /predict`` on a ``flax`` bundle, the default tier).
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -29,7 +31,8 @@ Phases, each of which fails the run loudly:
    a one-row and an all-padding slot; B = 1..300, S = 1, 3, 4, 64):
    counts and K-S statistics exact, predictions within 1e-6, flags exact
    except rows within 1e-5 x threshold of it, two launches bitwise equal;
-5. the main path: ``python -m mlops_tpu_torch serve`` in a subprocess
+5. the main path: ``python -m mlops_tpu_torch serve
+   serve.serve_tier=quant`` in a subprocess
    answers the golden request and 5/64/256-record bodies (257 -> 413,
    malformed -> 422), the engine's grouped path runs a 64x1 and a 64x8
    group in this process; responses agree with the plain version run on
@@ -46,10 +49,10 @@ Phases, each of which fails the run loudly:
 7. the flash-attention kernel against its plain version on the card: the
    doc model's full width (256, 508, 8, 32) bf16 as views of one qkv
    projection, doc_records 3 (4, 140, 2, 16), ragged (2, 200, 4, 64) in
-   f32 and bf16, cross-length q 45 / kv 70 in f32, and in bf16 at the
-   tile edges (S = 127, 128, 129, 255, 256, 257 and q/kv 45/70, 70/45 at
-   head_dim 16, 32 and 64); f32 out 2e-5 and lse 1e-5, bf16 out 2e-2 and
-   lse 1e-3; one launch per call;
+   f32 and bf16, cross-length q 45 / kv 70 in f32, head_dim 8 and 128 in
+   f32, and in bf16 at the tile edges (S = 127, 128, 129, 255, 256, 257,
+   508 and q/kv 45/70, 70/45 at head_dim 8, 16, 32, 64 and 128); f32 out
+   2e-5 and lse 1e-5, bf16 out 2e-2 and lse 1e-3; one launch per call;
 8. the doc path at full width: a bundle of the ``long_context_job.toml``
    model (bert, doc_records 11, token_dim 256, depth 4, heads 8, bf16)
    with seeded weights, preprocessor and monitor fitted on 20,000
@@ -67,8 +70,9 @@ Phases, each of which fails the run loudly:
 10. the two flash backward kernels (dq; dk and dv) against their plain
     version on the card: the training shape (64, 508, 8, 32) bf16 as
     views of one qkv projection, (4, 140, 2, 16) bf16 and f32, ragged
-    (2, 200, 4, 64) f32 and bf16, cross-length q 45 / kv 70 f32, the
-    bf16 tile edges of phase 7 and S = 508 at head_dim 16/32/64; f32
+    (2, 200, 4, 64) f32 and bf16, cross-length q 45 / kv 70 f32, head_dim
+    8 and 128 in f32, the bf16 tile edges of phase 7 (S = 508 included)
+    at every head_dim; f32
     within 5e-5 + 1e-4 x the gradient's largest magnitude, bf16 within
     two bf16 ulps of it; one launch of each per call; two dq launches at
     the training shape bitwise equal;
@@ -92,7 +96,35 @@ Phases, each of which fails the run loudly:
 13. training timing: step ms (CUDA events, after warm-up) and documents
     trained per second; each backward kernel's ms beside its bound, the
     plain version's ms and SDPA's backward ms (the library yardstick for
-    the pair), and the share of a step the three attention kernels take.
+    the pair), and the share of a step the three attention kernels take;
+14. head_dim 8 and 128 in training (ROADMAP C1): the doc model at the
+    config's default width (token_dim 64 over 8 heads: head_dim 8, depth
+    3) and at token_dim 256 over 2 heads (head_dim 128, depth 2), batch
+    64, 508 tokens: 5 steps each through the flash kernels and through
+    dense attention on the same batches (every step launches depth
+    forwards, dq and dk/dv; losses finite, within 0.05); then each
+    kernel's time at both head dims beside its bound, its plain version
+    and the library yardsticks (SDPA's forward, its backward op);
+15. ``quant_fused`` past its old shared-memory layout (ROADMAP C2): a
+    monitor fitted with drift_ref_size 32,768 (its planes read from
+    global memory) at 1x256 and 64x8, and 17,408 rows per slot at
+    R = 2048 (sorted through the global workspace), with K-S edge inputs:
+    counts and K-S exact, then each shape's device time (graph replay, as
+    phase 6) beside an empty launch of its grid, the wrapper, the plain
+    version and its bound;
+16. the exact tier (no kernel of its own): seeded full-width ``flax``
+    bundles of ``linear``, ``mlp`` and ``mlp-ens8`` (hidden 256/256/128,
+    embed 16, 8 members, bf16), written by the port; each model's packed
+    programs on the card against the port's CPU route at every bucket
+    and group geometry (predictions within 1.6e-2: four bf16 ulps of a
+    logit times the sigmoid's slope; flags exact off the threshold band;
+    K-S statistics, category counts and accumulator counters exact;
+    drift within 1e-5);
+17. the exact main path: ``python -m mlops_tpu_torch serve`` (the default
+    tier) on the mlp-ens8 bundle answers the golden request and 5/64/256
+    bodies like the CPU route and drains on SIGTERM, launching no
+    kernel; ``predict-file`` on it, card against CPU; dispatch -> fetch
+    p50 of each model at bucket 1, bucket 256 and groups 64x1, 64x8.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -139,6 +171,9 @@ GRAD_COSINE_MIN = 0.98
 GRAD_NORM_RTOL = 0.05
 CURVE_MAX_GAP = 0.05
 CURVE_MEAN_GAP = 0.02
+# Phase 14's five steps from init: about ten times the largest gap measured
+# there (5.2e-4 at head_dim 8, 2.7e-4 at 128; H100 80GB HBM3, 700 W).
+C1_CURVE_MAX_GAP = 5e-3
 TRAIN_STEPS_CUT = 40  # of the job's 2,000
 TRAIN_EVAL_EVERY_CUT = 20  # of the job's 200
 
@@ -468,7 +503,7 @@ def phase_serve(bundle_dir: Path, device: str = "cuda") -> dict:
     from mlops_tpu_torch.serve.engine import InferenceEngine
 
     bundle = load_bundle(bundle_dir)
-    cpu = InferenceEngine(bundle, device="cpu")
+    cpu = InferenceEngine(bundle, serve_tier="quant", device="cpu")
     mon_cpu = bundle.monitor
     port = _free_port()
     server_log = WORK / "server.log"
@@ -483,7 +518,8 @@ def phase_serve(bundle_dir: Path, device: str = "cuda") -> dict:
         proc = subprocess.Popen(
             [sys.executable, "-m", "mlops_tpu_torch", "serve",
              f"serve.model_directory={bundle_dir}", f"serve.port={port}",
-             "serve.host=127.0.0.1", f"serve.device={device}"],
+             "serve.host=127.0.0.1", f"serve.device={device}",
+             "serve.serve_tier=quant"],
             cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
         )
     try:
@@ -543,7 +579,7 @@ def phase_serve(bundle_dir: Path, device: str = "cuda") -> dict:
             proc.kill()
             proc.wait(timeout=30)
 
-    engine = InferenceEngine(bundle, device=device)
+    engine = InferenceEngine(bundle, serve_tier="quant", device=device)
     engine.warmup()
     quant_kernel_launches.reset()
     for rows in (1, 8):
@@ -644,17 +680,20 @@ def _profiler_ms(launch, kernel: str, n: int = 100) -> float | None:
     return total / count / 1e3 if count else None
 
 
-def _raw_launcher(args, outs, s: int, b: int, r: int):
+def _raw_launcher(args, outs, s: int, b: int, r: int, work=None):
     """The kernel's C entry point called directly on preallocated outputs
-    (``launch(stream)``), without the wrapper's checks; and the library's
-    empty launch of the same grid, made the same way."""
+    (and, past 256 rows, the sort's workspace) as ``launch(stream)``,
+    without the wrapper's checks; and the library's empty launch of the
+    same grid, made the same way."""
     from mlops_tpu_torch.ops.quant_kernel import load_library
 
     lib = load_library()
     ptrs = [t.data_ptr() for t in (*args, *outs)]
+    ptrs.append(work.data_ptr() if work is not None else None)
+    words = work.shape[-1] if work is not None else 0
 
     def launch(stream):
-        err = lib.quant_fused_launch(*ptrs, s, b, r, 0, stream)
+        err = lib.quant_fused_launch(*ptrs, s, b, r, words, 0, stream)
         if err != 0:
             raise SmokeFailure(f"raw launch failed: cudaError {err}")
 
@@ -693,7 +732,6 @@ def _bound(args, outs, s: int, b: int, n_valid: list[int], r: int):
 
 
 def phase_timing(bundle_dir: Path, engine) -> list[dict]:
-    import numpy as np
     import torch
 
     from mlops_tpu_torch.bundle import load_bundle
@@ -728,30 +766,6 @@ def phase_timing(bundle_dir: Path, engine) -> list[dict]:
         bound_ms, bound_by = _bound(
             args, outs, s, b, mask.sum(dim=1).tolist(), r
         )
-        cat_h, num_h = cat.cpu().numpy(), num.cpu().numpy()
-        mask_h = mask.cpu().numpy()
-        if s == 1:
-            n = int(mask_h[0].sum())
-
-            def call():
-                engine.fetch_arrays_raw(
-                    engine.dispatch_arrays(cat_h[0, :n], num_h[0, :n])
-                )
-        else:
-            parts = [
-                (cat_h[i, : mask_h[i].sum()], num_h[i, : mask_h[i].sum()])
-                for i in range(s) if mask_h[i].any()
-            ]
-
-            def call():
-                engine.fetch_group_raw(engine.dispatch_group_arrays(parts))
-        for _ in range(10):
-            call()
-        times = []
-        for _ in range(100):
-            t0 = time.perf_counter()
-            call()
-            times.append((time.perf_counter() - t0) * 1e3)
         row = {
             "shape": f"{s}x{b}",
             "ms": kernel_ms,
@@ -762,7 +776,8 @@ def phase_timing(bundle_dir: Path, engine) -> list[dict]:
             "empty_launch_host_paced_ms": empty_host_paced_ms,
             "wrapper_ms": wrapper_ms,
             "plain_ms": plain_ms,
-            "dispatch_fetch_ms_p50": float(np.median(times)),
+            "dispatch_fetch_ms_p50": _dispatch_fetch_p50(
+                engine, bundle.preprocessor, s, b, 300 + s + b),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         }
@@ -778,11 +793,22 @@ def _tile_edge_cases():
     lengths both ways, every head_dim: (what, (B, S_q, S_kv, H, D), dtype)."""
     import torch
 
-    lengths = [(s, s) for s in (127, 128, 129, 255, 256, 257)] + [(45, 70), (70, 45)]
+    from mlops_tpu_torch.ops.attention import KERNEL_HEAD_DIMS
+
+    lengths = [(s, s) for s in (127, 128, 129, 255, 256, 257, 508)]
+    lengths += [(45, 70), (70, 45)]
     return [
         ("tile edge", (2, s_q, s_kv, 2, d), torch.bfloat16)
-        for d in (16, 32, 64) for s_q, s_kv in lengths
+        for d in KERNEL_HEAD_DIMS for s_q, s_kv in lengths
     ]
+
+
+# f32 cases at the head dims ROADMAP C1 added (the bf16 ones are tile edges).
+C1_F32_CASES = [
+    ("head_dim 8", (2, 200, 200, 4, 8)),
+    ("head_dim 128", (1, 140, 140, 2, 128)),
+    ("head_dim 128 cross-length", (2, 70, 45, 2, 128)),
+]
 
 
 def _qkv_views(b: int, s_q: int, s_kv: int, h: int, d: int, dtype, seed: int):
@@ -817,7 +843,8 @@ def phase_flash_parity() -> dict:
         ("ragged", (2, 200, 200, 4, 64), torch.float32),
         ("ragged", (2, 200, 200, 4, 64), torch.bfloat16),
         ("cross-length", (2, 45, 70, 2, 32), torch.float32),
-    ] + _tile_edge_cases()
+    ] + [(what, shape, torch.float32) for what, shape in C1_F32_CASES]
+    cases += _tile_edge_cases()
     rows = []
     for k, (what, shape, dtype) in enumerate(cases):
         q, k_, v = _qkv_views(*shape, dtype, seed=40 + k)
@@ -1070,10 +1097,8 @@ def phase_bwd_parity() -> dict:
         ("ragged", (2, 200, 200, 4, 64), torch.float32),
         ("ragged", (2, 200, 200, 4, 64), torch.bfloat16),
         ("cross-length", (2, 45, 70, 2, 32), torch.float32),
-    ] + _tile_edge_cases() + [
-        # dq's 128-row blocks over 64-key tiles at the doc model's length
-        ("tile edge", (2, 508, 508, 2, d), torch.bfloat16) for d in (16, 32, 64)
-    ]
+    ] + [(what, shape, torch.float32) for what, shape in C1_F32_CASES]
+    cases += _tile_edge_cases()
     rows = []
     for n, (what, shape, dtype) in enumerate(cases):
         q, k, v = _qkv_views(*shape, dtype, seed=60 + n)
@@ -1401,6 +1426,518 @@ def phase_train_timing() -> dict:
     return row
 
 
+# ----------------------------------------------------------------- phase 14
+# The doc model at the head dims ROADMAP C1 added: the config's default
+# width (token_dim 64 over 8 heads: head_dim 8) and head_dim 128.
+C1_CONFIGS = {
+    8: dict(token_dim=64, heads=8, depth=3),
+    128: dict(token_dim=256, heads=2, depth=2),
+}
+C1_STEPS = 5
+
+
+def _c1_config(d: int):
+    from mlops_tpu_torch.config import ModelConfig
+
+    return ModelConfig(family="bert", doc_records=11, precision="bf16",
+                       dropout=0.0, **C1_CONFIGS[d])
+
+
+def phase_c1_train(device: str = "cuda") -> dict:
+    """A few training steps of the doc model at head_dim 8 and 128 through
+    the flash kernels, against the same steps through dense attention.
+    ``device="cpu"`` rehearses it (nothing launches there)."""
+    from mlops_tpu_torch.train.pipeline import _batch_indices
+
+    out = {}
+    for d in C1_CONFIGS:
+        config = _c1_config(d)
+        cat, num, lab = _train_documents(config, 64 * 11 * 4, seed=8, device=device)
+        per_step = (config.depth,) * 3 if device == "cuda" else (0, 0, 0)
+        curves, launches = {}, None
+        for route in ("flash", "dense"):
+            trainer = _doc_trainer(config, device, route == "flash")
+            losses = []
+            _reset_launch_counts()
+            for step in range(1, C1_STEPS + 1):
+                idx = _batch_indices(cat.shape[0], 64, 0, step)
+                losses.append(float(trainer.step(cat[idx], num[idx], lab[idx])))
+            counts = _launch_counts()
+            want = tuple(C1_STEPS * n for n in per_step) if route == "flash" else (0, 0, 0)
+            check(counts == want, f"head_dim {d} {route}: launched {counts}, expected {want}")
+            if route == "flash":
+                launches = counts
+            curves[route] = losses
+            del trainer
+        gap = max(abs(a - b) for a, b in zip(curves["flash"], curves["dense"]))
+        row = {"head_dim": d, "config": C1_CONFIGS[d], "launches_fwd_dq_dkv": launches,
+               "max_loss_gap": gap, "flash": curves["flash"], "dense": curves["dense"]}
+        log(f"C1 train {json.dumps(row)}")
+        check(all(math.isfinite(v) for v in curves["flash"] + curves["dense"]),
+              f"head_dim {d}: non-finite loss")
+        check(gap <= C1_CURVE_MAX_GAP,
+              f"head_dim {d}: flash and dense losses part by {gap}")
+        out[d] = row
+    return out
+
+
+def phase_c1_timing() -> dict:
+    """Each attention kernel at head_dim 8 and 128 at the doc model's
+    shapes (a 256-document scoring chunk for the forward, a batch of 64
+    for the backward), held against its plain version there (phase 7's
+    and phase 10's tolerances) and timed beside its bound, its plain
+    version and SDPA's forward / backward op."""
+    import torch
+    import torch.nn.functional as F
+
+    from mlops_tpu_torch.ops import attention
+
+    rows = {}
+    for d, cfg in C1_CONFIGS.items():
+        h = cfg["heads"]
+        q, k, v = _qkv_views(256, 508, 508, h, d, torch.bfloat16, seed=94 + d)
+        out, lse = attention.flash_forward_cuda(q, k, v)
+        fwd_ms = _event_ms(lambda: attention.launch(q, k, v, out, lse), 50)
+        fwd_plain_ms = _event_ms(lambda: attention.flash_forward_reference(q, k, v), 3)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        fwd_library_ms = _event_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 50)
+        fwd_bound, fwd_by, _ = _flash_bound(q, out, lse, 508)
+        ref_out, ref_lse = attention.flash_forward_reference(q, k, v)
+        out_tol, lse_tol = FLASH_TOL["bfloat16"]
+        fwd_err = {"out": (out.float() - ref_out.float()).abs().max().item(),
+                   "lse": (lse - ref_lse).abs().max().item()}
+        check(
+            math.isfinite(fwd_err["out"]) and fwd_err["out"] <= out_tol
+            and fwd_err["lse"] <= lse_tol,
+            f"flash forward at head_dim {d}, 256x508x{h}: {fwd_err} "
+            f"past ({out_tol}, {lse_tol})",
+        )
+        del q, k, v, out, lse, qt, kt, vt, ref_out, ref_lse
+        torch.cuda.empty_cache()
+
+        q, k, v = _qkv_views(64, 508, 508, h, d, torch.bfloat16, seed=96 + d)
+        do = _normal_like(q, seed=97 + d)
+        out, lse = attention.flash_forward_cuda(q, k, v)
+        delta = attention.flash_delta(out, do)
+        dq, dk, dv = (torch.empty_like(out) for _ in range(3))
+        dq_ms = _event_ms(lambda: attention.launch_dq(q, k, v, do, lse, delta, dq), 50)
+        dkv_ms = _event_ms(lambda: attention.launch_dkv(q, k, v, do, lse, delta, dk, dv), 50)
+        bwd_plain_ms = _event_ms(
+            lambda: attention.flash_backward_reference(q, k, v, out, lse, do), 3
+        )
+        qt, kt, vt, dot = (x.transpose(1, 2).contiguous() for x in (q, k, v, do))
+        sdpa_fwd = torch.ops.aten._scaled_dot_product_flash_attention
+        sdpa_bwd = torch.ops.aten._scaled_dot_product_flash_attention_backward
+        fo = sdpa_fwd(qt, kt, vt, 0.0, False, False)
+        bwd_args = (dot, qt, kt, vt, *fo[:6], 0.0, False, fo[6], fo[7])
+        bwd_library_ms = _event_ms(lambda: sdpa_bwd(*bwd_args), 50)
+        dq_bound, dq_by, _ = _bwd_bound(q, k, 1)
+        dkv_bound, dkv_by, _ = _bwd_bound(q, k, 2)
+        want = attention.flash_backward_reference(q, k, v, out, lse, do)
+        bwd_err = {
+            name: (g.float() - w.float()).abs().max().item()
+            for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)
+        }
+        bwd_tol = {name: _grad_tol(w) for name, w in zip(("dq", "dk", "dv"), want)}
+        check(
+            all(math.isfinite(e) and e <= bwd_tol[n] for n, e in bwd_err.items()),
+            f"flash backward at head_dim {d}, 64x508x{h}: {bwd_err} past {bwd_tol}",
+        )
+        del want
+        row = {
+            "head_dim": d,
+            "fwd_shape": f"256x508x{h}x{d} bf16", "fwd_ms": fwd_ms,
+            "fwd_bound_ms": fwd_bound, "fwd_bound_by": fwd_by,
+            "fwd_plain_ms": fwd_plain_ms, "fwd_library_ms": fwd_library_ms,
+            "fwd_max_abs_err": fwd_err,
+            "bwd_shape": f"64x508x{h}x{d} bf16", "dq_ms": dq_ms,
+            "dq_bound_ms": dq_bound, "dq_bound_by": dq_by, "dkv_ms": dkv_ms,
+            "dkv_bound_ms": dkv_bound, "dkv_bound_by": dkv_by,
+            "bwd_plain_ms": bwd_plain_ms, "bwd_library_ms": bwd_library_ms,
+            "bwd_max_abs_err": bwd_err, "bwd_tol": bwd_tol,
+        }
+        log_timing("C1 timing", row)
+        rows[d] = row
+        del q, k, v, do, out, lse, delta, dq, dk, dv, qt, kt, vt, dot, fo
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ----------------------------------------------------------------- phase 15
+C2_REF_SIZE = 32_768
+# (R, S, B): the planes in global memory; past the old layout's 17,318-row
+# limit at R = 2048.
+C2_SHAPES = [(C2_REF_SIZE, 1, 256), (C2_REF_SIZE, 64, 8), (2048, 1, 17_408)]
+
+
+def phase_c2(bundle_dir: Path) -> list[dict]:
+    """``quant_fused`` past the shared-memory layout, against its plain
+    version (exact counts and K-S), then timed."""
+    import torch
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.data import Preprocessor, generate_synthetic
+    from mlops_tpu_torch.monitor.state import fit_monitor
+    from mlops_tpu_torch.ops.quant_kernel import (
+        fused_core_cuda,
+        fused_core_reference,
+        kernel_route,
+    )
+
+    bundle = load_bundle(bundle_dir)
+    dev = torch.device("cuda")
+    columns, _ = generate_synthetic(40_000, seed=2)
+    big = fit_monitor(Preprocessor.fit(columns).encode(columns),
+                      drift_ref_size=C2_REF_SIZE).to(dev)
+    monitors = {C2_REF_SIZE: big, 2048: bundle.monitor.to(dev)}
+    qparams = {k: v.to(dev) for k, v in bundle.quant_params.items()}
+    temp = torch.tensor(bundle.quant_temperature, dtype=torch.float32, device=dev)
+    rows = []
+    for n, (r, s, b) in enumerate(C2_SHAPES):
+        mon = monitors[r]
+        check(mon.num_ref_sorted.shape[1] == r, f"reference of {r} points expected")
+        route = kernel_route(b, r)
+        cat, num, mask = _ks_edge_inputs(bundle.preprocessor, mon.num_ref_sorted,
+                                         s, b, 700 + n, dev)
+        args = _core_args((qparams, mon, temp), cat, num, mask)
+        got = fused_core_cuda(*args)
+        again = fused_core_cuda(*args)
+        torch.cuda.synchronize()
+        want = fused_core_reference(*args)
+        err = (got[0] - want[0]).abs().max().item()
+        near = _near_threshold(mon, num, mask)
+        flag_diff = ((got[1] != want[1]) & ~near).sum().item()
+        exact = torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+        repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        work = None
+        if route.workspace_words:
+            work = torch.empty((s, 14, route.workspace_words), dtype=torch.int32, device=dev)
+        launch, empty = _raw_launcher(args, got, s, b, r, work)
+        ms = _graph_ms(launch)
+        empty_ms = _graph_ms(empty)
+        wrapper_ms = _event_ms(lambda: fused_core_cuda(*args), 20)
+        plain_ms = _event_ms(lambda: fused_core_reference(*args), 3)
+        bound_ms, bound_by = _bound(args, got, s, b, mask.sum(dim=1).tolist(), r)
+        row = {
+            "shape": f"{s}x{b}", "R": r, "slots": route.slots, "planes": route.planes,
+            "smem_bytes": route.smem_bytes, "counts_ks_exact": exact,
+            "preds_max_abs_err": err, "flag_mismatches": flag_diff,
+            "two_launches_equal": repeat, "ms": ms, "empty_launch_ms": empty_ms,
+            "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        log_timing("C2", row)
+        check(exact and err <= PRED_ATOL and flag_diff == 0 and repeat,
+              f"quant_fused disagrees with its plain version past the layout: {row}")
+        rows.append(row)
+        del args, got, again, want, work
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ----------------------------------------------------------------- phase 16
+EXACT_MODELS = {
+    "linear": dict(family="linear"),
+    "mlp": dict(family="mlp", hidden_dims=(256, 256, 128), embed_dim=16),
+    "mlp-ens8": dict(family="mlp", hidden_dims=(256, 256, 128), embed_dim=16,
+                     ensemble_size=8),
+}
+EXACT_PRED_ATOL = 1.6e-2  # bf16 model: four ulps of a logit below 4, x 1/4
+EXACT_DRIFT_ATOL = 1e-5  # p-values of the same statistics on two devices
+
+
+
+def _seeded_exact_params(model, seed: int) -> None:
+    """Seeded weights from numpy's generator: kernels N(0, 1/fan_in),
+    embeddings N(0, 1), LayerNorm scales 1 + N(0, 0.01), biases
+    N(0, 0.01); the ensemble's members differ."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            shape = tuple(p.shape)
+            if name.endswith("kernel"):
+                vals = rng.normal(size=shape) / math.sqrt(shape[-2])
+            elif name.endswith("embedding"):
+                vals = rng.normal(size=shape)
+            elif name.endswith("scale"):
+                vals = 1.0 + 0.1 * rng.normal(size=shape)
+            else:
+                vals = 0.1 * rng.normal(size=shape)
+            p.copy_(torch.from_numpy(vals.astype(np.float32)))
+
+
+def phase_exact_bundles(seed: int = 0) -> dict:
+    """Full-width exact-tier bundles of each served model, written by the
+    port (no JAX): the preprocessor and monitor fitted on 20,000 synthetic
+    rows (R = 2048), seeded weights, a fitted-looking temperature."""
+    from mlops_tpu_torch.bundle import save_exact_bundle
+    from mlops_tpu_torch.config import ModelConfig
+    from mlops_tpu_torch.data import Preprocessor, generate_synthetic
+    from mlops_tpu_torch.models import build_model
+    from mlops_tpu_torch.monitor.state import fit_monitor
+
+    columns, _ = generate_synthetic(20000, seed=seed)
+    prep = Preprocessor.fit(columns)
+    monitor = fit_monitor(prep.encode(columns), drift_ref_size=2048)
+    dirs = {}
+    for k, (name, kw) in enumerate(EXACT_MODELS.items()):
+        config = ModelConfig(precision="bf16", **kw)
+        model = build_model(config)
+        _seeded_exact_params(model, seed + k)
+        directory = WORK / f"exact_{name}"
+        shutil.rmtree(directory, ignore_errors=True)
+        save_exact_bundle(
+            directory, config, model, prep, monitor,
+            calibration={"temperature": 1.2},
+            tags={"source": "chip_smoke.py", "note": "seeded weights, not trained"},
+        )
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f"exact bundle {name}: {directory} ({n_params} params)")
+        dirs[name] = directory
+    return dirs
+
+
+def _exact_programs(bundle, device):
+    """The exact tier's packed programs with the bundle's state on
+    ``device``."""
+    import torch
+
+    from mlops_tpu_torch.ops.predict import (
+        make_packed_grouped_base,
+        make_packed_predict_base,
+        model_params,
+    )
+
+    model = bundle.model.to(device).eval()
+    state = (model_params(model), bundle.monitor.to(device),
+             torch.tensor(bundle.temperature, dtype=torch.float32, device=device))
+    return make_packed_predict_base(model), make_packed_grouped_base(model), state
+
+
+def _monitor_statistics(mon, cat, num, mask):
+    """The integer-valued statistics under the drift: category counts and
+    the K-S statistics by the branch ``drift_scores`` takes."""
+    import torch
+
+    from mlops_tpu_torch.monitor.state import SMALL_KS_ROWS
+    from mlops_tpu_torch.ops import drift
+
+    counts = (torch.nn.functional.one_hot(cat.long(), mon.cat_ref_counts.shape[1])
+              * mask[..., None, None]).sum(dim=-3)
+    batch = num.float().transpose(-1, -2)
+    if num.shape[-2] <= SMALL_KS_ROWS:
+        ks = drift.ks_small_masked_statistic(
+            mon.num_ref_sorted, mon.num_ref_cdf, batch, mask[..., None, :])
+    else:
+        ks = drift.ks_two_sample_masked(
+            mon.num_ref_sorted, batch, mask[..., None, :].expand(batch.shape))[0]
+    return counts, ks
+
+
+def phase_exact_parity(dirs: dict, device: str = "cuda") -> dict:
+    """Each model's packed programs on ``device`` against the port's CPU
+    route at every bucket and group geometry."""
+    import torch
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.monitor.state import init_accumulator
+    from mlops_tpu_torch.ops.predict import packed_layout
+
+    worst = {}
+    for name, path in dirs.items():
+        card = _exact_programs(load_bundle(path), device)
+        cpu = _exact_programs(load_bundle(path), "cpu")
+        prep = load_bundle(path).preprocessor
+        mon_cpu = cpu[2][1]
+        worst[name] = 0.0
+        for k, (s, b) in enumerate(_geometries()):
+            inputs = _inputs(prep, s, b, 900 + k, "cpu")
+            if s == 1:
+                inputs = tuple(t[0] for t in inputs)
+            program = 0 if s == 1 else 1
+            with torch.inference_mode():
+                got, got_acc = card[program](
+                    card[2][0], card[2][1], init_accumulator(device), card[2][2],
+                    *(t.to(device) for t in inputs))
+                want, want_acc = cpu[program](
+                    cpu[2][0], cpu[2][1], init_accumulator("cpu"), cpu[2][2], *inputs)
+                stats = [_monitor_statistics(mon, *(t.to(mon.out_mean.device) for t in inputs))
+                         for mon in (card[2][1], mon_cpu)]
+            got = got.cpu()
+            p, o, d = packed_layout(b)
+            pred_err = (got[..., p] - want[..., p]).abs().max().item()
+            drift_err = (got[..., d] - want[..., d]).nan_to_num(0.0).abs().max().item()
+            nan_same = torch.equal(got[..., d].isnan(), want[..., d].isnan())
+            near = _near_threshold(mon_cpu, inputs[1], inputs[2])
+            flag_diff = ((got[..., o] != want[..., o]) & ~near).sum().item()
+            stats_exact = all(torch.equal(x.cpu(), y) for x, y in zip(*stats))
+            # Rows and batches exact; outliers exact up to flags within the
+            # threshold band, which may differ.
+            counters = all(
+                float(getattr(got_acc, f)) == float(getattr(want_acc, f))
+                for f in ("rows", "batches")
+            ) and abs(float(got_acc.outliers) - float(want_acc.outliers)) <= int(near.sum())
+            worst[name] = max(worst[name], pred_err)
+            ok = (pred_err <= EXACT_PRED_ATOL and drift_err <= EXACT_DRIFT_ATOL
+                  and nan_same and flag_diff == 0 and stats_exact and counters)
+            log(f"exact parity {name} S={s:2d} B={b:3d}: preds |err|={pred_err:.3g} "
+                f"drift |err|={drift_err:.3g} flag mismatches={flag_diff} "
+                f"counts/K-S exact={stats_exact} counters exact={counters}")
+            check(ok, f"exact tier {name} on {device} disagrees with the CPU at S={s} B={b}")
+    return {"max_pred_err": worst, "geometries": len(_geometries())}
+
+
+def phase_exact_serve(dirs: dict, device: str = "cuda") -> dict:
+    """The exact main path: ``serve`` at its default tier on the mlp-ens8
+    bundle in a subprocess, then ``predict-file`` on it."""
+    import numpy as np
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.commands import predict_file
+    from mlops_tpu_torch.config import load_config
+    from mlops_tpu_torch.data import generate_synthetic, write_csv_columns
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    path = dirs["mlp-ens8"]
+    bundle = load_bundle(path)
+    cpu = InferenceEngine(bundle, device="cpu")
+    port = _free_port()
+    server_log = WORK / "exact_server.log"
+    bodies = {
+        "golden": json.loads((ROOT / "tests/golden/sample-request.json").read_text()),
+        "5": _records(5, 31), "64": _records(64, 32, drift=0.5), "256": _records(256, 33),
+    }
+    with open(server_log, "wb") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mlops_tpu_torch", "serve",
+             f"serve.model_directory={path}", f"serve.port={port}",
+             "serve.host=127.0.0.1", f"serve.device={device}"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            stdout=out, stderr=subprocess.STDOUT,
+        )
+    try:
+        deadline = time.monotonic() + 600
+        while True:
+            check(proc.poll() is None,
+                  f"exact server exited early ({proc.returncode}); see {server_log}")
+            try:
+                if _http(port, "GET", "/healthz/ready")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.monotonic() < deadline, "exact server never became ready")
+            time.sleep(0.5)
+        _, text = _http(port, "GET", "/metrics")
+        launches_before = _metric(text.decode(), "mlops_tpu_kernel_launches_total")
+        worst = 0.0
+        for name, records in bodies.items():
+            status, body = _http(port, "POST", "/predict", json.dumps(records).encode())
+            check(status == 200, f"exact /predict {name} answered {status}: {body[:200]}")
+            got, want = json.loads(body), cpu.predict_records(records)
+            check(len(got["predictions"]) == len(records)
+                  and all(math.isfinite(x) for x in got["predictions"]),
+                  f"exact {name}: not {len(records)} finite predictions")
+            worst = max(worst, _compare_exact(got, want, bundle, records, f"exact http {name}"))
+        _, text = _http(port, "GET", "/metrics")
+        text = text.decode()
+        rows = _metric(text, "mlops_tpu_rows_scored_total")
+        launched = _metric(text, "mlops_tpu_kernel_launches_total") - launches_before
+        sent = sum(len(r) for r in bodies.values())
+        check(rows == sent, f"exact /metrics rows {rows} != records sent {sent}")
+        check(launched == 0, f"the exact tier launched quant_fused {launched} times")
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=120) == 0, "exact server did not exit 0 after SIGTERM")
+        text = server_log.read_text()
+        check("tier=exact" in text and "drained; exiting" in text,
+              "exact server: no 'tier=exact' or no clean drain in its log")
+        log("exact http: served on the default tier (exact), drained cleanly")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+    columns, _ = generate_synthetic(300, seed=34, drift=0.2)
+    csv = WORK / "exact_rows.csv"
+    write_csv_columns(csv, columns)
+    args = [f"data.train_path={csv}", f"serve.model_directory={path}"]
+    here = predict_file(load_config(args + [f"serve.device={device}"]))
+    there = predict_file(load_config(args + ["serve.device=cpu"]))
+    records = [{k: columns[k][i] for k in columns} for i in range(300)]
+    gap = _compare_exact(here, there, bundle, records, "exact predict-file")
+    check(len(here["predictions"]) == 300 and np.isfinite(here["predictions"]).all(),
+          "exact predict-file: not 300 finite predictions")
+    return {"http_max_pred_err": worst, "predict_file_max_pred_err": gap}
+
+
+def _compare_exact(got: dict, want: dict, bundle, records, what: str) -> float:
+    import numpy as np
+    import torch
+
+    from mlops_tpu_torch.schema.validate import records_to_columns
+
+    p_err = float(np.abs(np.asarray(got["predictions"]) - np.asarray(want["predictions"])).max())
+    d_err = float(np.abs(np.asarray(list(got["feature_drift_batch"].values()))
+                         - np.asarray(list(want["feature_drift_batch"].values()))).max())
+    ds = bundle.preprocessor.encode(records_to_columns(records))
+    near = _near_threshold(bundle.monitor, torch.from_numpy(ds.numeric),
+                           torch.ones(len(records), dtype=torch.bool))
+    diff = np.asarray(got["outliers"]) != np.asarray(want["outliers"])
+    flag_diff = int((diff & ~near.numpy()).sum())
+    log(f"{what}: preds |err|={p_err:.3g} drift |err|={d_err:.3g} flag mismatches={flag_diff}")
+    check(p_err <= EXACT_PRED_ATOL + 1e-6 and d_err <= EXACT_DRIFT_ATOL + 1e-6
+          and flag_diff == 0, f"{what}: disagrees with the CPU route")
+    return p_err
+
+
+def _dispatch_fetch_p50(engine, prep, s: int, b: int, seed: int, n: int = 100) -> float:
+    """Host wall ms of one dispatch -> fetch round trip (median of ``n``)
+    for a solo request of ``b`` rows or a group of ``s`` requests."""
+    import numpy as np
+
+    cat, num, mask = (t.numpy() for t in _inputs(prep, s, b, seed, "cpu"))
+    if s == 1:
+        m = int(mask[0].sum())
+
+        def call():
+            engine.fetch_arrays_raw(engine.dispatch_arrays(cat[0, :m], num[0, :m]))
+    else:
+        parts = [(cat[i, : mask[i].sum()], num[i, : mask[i].sum()])
+                 for i in range(s) if mask[i].any()]
+
+        def call():
+            engine.fetch_group_raw(engine.dispatch_group_arrays(parts))
+    for _ in range(10):
+        call()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_exact_timing(dirs: dict) -> list[dict]:
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    rows = []
+    for name, path in dirs.items():
+        bundle = load_bundle(path)
+        engine = InferenceEngine(bundle, device="cuda")
+        engine.warmup()
+        row = {"model": name, "tier": engine.serve_tier,
+               "warmup_s": engine.warmup_stats["warmup_s"]}
+        for s, b in ((1, 1), (1, 256), (64, 1), (64, 8)):
+            row[f"dispatch_fetch_ms_p50_{s}x{b}"] = _dispatch_fetch_p50(
+                engine, bundle.preprocessor, s, b, 950 + s + b)
+        log_timing("exact timing", row)
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "mlops_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1424,6 +1961,13 @@ def main() -> int:
         train_parity = phase_train_parity()
         trained = phase_train_path(history)
         train_timing = phase_train_timing()
+        c1_train = phase_c1_train()
+        c1_timing = phase_c1_timing()
+        c2 = phase_c2(bundle_dir)
+        exact_dirs = phase_exact_bundles()
+        exact_parity = phase_exact_parity(exact_dirs)
+        exact = phase_exact_serve(exact_dirs)
+        exact_timing = phase_exact_timing(exact_dirs)
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -1465,6 +2009,7 @@ def main() -> int:
             "empty_launch_ms": head["empty_launch_ms"],
             "shape": head["shape"],
             "timings": timing,
+            "large_shapes": c2,
         }, {
             "name": "flash_attention",
             "route": "cuda",
@@ -1482,6 +2027,10 @@ def main() -> int:
             "timing": flash_timing,
             "parity": flash["cases"],
             "doc_path": doc,
+            "head_dims": {d: {k: v for k, v in row.items() if k.startswith("fwd_")}
+                          for d, row in c1_timing.items()},
+            "c1_train_launches": {d: row["launches_fwd_dq_dkv"][0]
+                                  for d, row in c1_train.items()},
         }, {
             "name": "flash_bwd_dq",
             "replaces": attention.BWD_DQ_REPLACES,
@@ -1490,6 +2039,11 @@ def main() -> int:
             "ms": train_timing["dq_ms"],
             "bound_ms": train_timing["dq_bound_ms"],
             "bound_by": train_timing["dq_bound_by"],
+            "head_dims": {d: {k: v for k, v in row.items()
+                              if k.startswith(("dq_", "bwd_"))}
+                          for d, row in c1_timing.items()},
+            "c1_train_launches": {d: row["launches_fwd_dq_dkv"][1]
+                                  for d, row in c1_train.items()},
             **bwd_common,
         }, {
             "name": "flash_bwd_dkv",
@@ -1499,8 +2053,14 @@ def main() -> int:
             "ms": train_timing["dkv_ms"],
             "bound_ms": train_timing["dkv_bound_ms"],
             "bound_by": train_timing["dkv_bound_by"],
+            "head_dims": {d: {k: v for k, v in row.items()
+                              if k.startswith(("dkv_", "bwd_"))}
+                          for d, row in c1_timing.items()},
+            "c1_train_launches": {d: row["launches_fwd_dq_dkv"][2]
+                                  for d, row in c1_train.items()},
             **bwd_common,
         }],
+        "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
         "train": {
             "parity": train_parity,
             "timing": train_timing,

@@ -3,15 +3,21 @@
 A bundle is one directory: ``manifest.json``, ``preprocess.npz``,
 ``monitor.npz`` and, by flavor and tier:
 
+- the exact tier of a ``flax`` bundle: ``params.msgpack`` (flax's
+  serialization, read and written by ``bundle.msgpack``) and the
+  manifest's ``model_config``, from which ``models.build_model`` builds
+  the linear, mlp or deep-ensemble module; a family the port has not
+  ported yet loads without it (``Bundle.exact_refusal`` says why);
 - the quant tier: ``quant_params.npz`` plus the manifest's ``quant``
   block (format tag, fidelity, refit temperature and the stamped
-  promotion-gate decision);
+  promotion-gate decision); a JAX bundle trained with
+  ``train.distill_quant=true`` carries both tiers;
 - the ``doc`` flavor (the long-context document model): ``params.msgpack``
-  (flax's serialization, read and written by ``bundle.msgpack``) and the
-  manifest's ``model_config``, from which the dense doc model is built.
+  and the manifest's ``model_config``, from which the dense doc model is
+  built.
 
-The exact tier's ``params.msgpack`` of a ``flax`` bundle is not read yet:
-its models are not ported.
+The ``bulk`` tier (``bulk_params.msgpack``) is not read: bulk scoring is
+not ported (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -53,7 +59,9 @@ class Bundle:
     preprocessor: Preprocessor
     monitor: MonitorState
     quant_params: dict[str, torch.Tensor] | None = None
-    model: torch.nn.Module | None = None  # doc flavor: BertDocEncoder
+    # flax flavor: the exact tier's module; doc flavor: BertDocEncoder
+    model: torch.nn.Module | None = None
+    exact_refusal: str = ""  # why a flax bundle loaded without its exact tier
 
     @property
     def flavor(self) -> str:
@@ -118,10 +126,39 @@ def _load_doc_model(directory: Path, manifest: dict[str, Any]) -> torch.nn.Modul
     return model.eval()
 
 
+def _load_exact_model(
+    directory: Path, manifest: dict[str, Any]
+) -> tuple[torch.nn.Module | None, str]:
+    """The exact tier's module of a ``flax`` bundle with its weights from
+    ``params.msgpack`` (checked against the module's tree and shapes), or
+    ``(None, why)`` when the bundle has no exact params or its family is
+    not ported yet."""
+    from mlops_tpu_torch.models import build_model
+    from mlops_tpu_torch.weights import exact_params_from_numpy, load_params
+
+    if not (directory / PARAMS_NAME).exists() or not manifest.get("model_config"):
+        return None, "bundle carries no exact-tier params (params.msgpack)"
+    config = _model_config_from_manifest(manifest)
+    try:
+        model = build_model(config)
+    except ValueError as err:
+        return None, str(err)
+    tree = msgpack.unpackb((directory / PARAMS_NAME).read_bytes())
+    try:
+        load_params(model, exact_params_from_numpy(tree, "cpu"))
+    except ValueError as err:
+        raise ValueError(
+            f"bundle {directory} holds a param tree that no longer matches "
+            f"the {config.family!r} module this package builds — "
+            "re-train/re-register the model"
+        ) from err
+    return model.eval(), ""
+
+
 def load_bundle(directory: str | Path) -> Bundle:
     """Load a bundle directory. Refuses a schema fingerprint other than
-    this package's, a quant blob in a foreign packing format and a doc
-    param tree that does not match the module."""
+    this package's, a quant blob in a foreign packing format and a param
+    tree that does not match its module."""
     directory = Path(directory)
     manifest = json.loads((directory / MANIFEST_NAME).read_text())
     if manifest["schema_fingerprint"] != SCHEMA.fingerprint():
@@ -132,9 +169,11 @@ def load_bundle(directory: str | Path) -> Bundle:
         )
     preprocessor = Preprocessor.load(directory / PREPROCESS_NAME)
     monitor = MonitorState.load(directory / MONITOR_NAME)
-    model = None
+    model, exact_refusal = None, ""
     if manifest.get("flavor") == "doc":
         model = _load_doc_model(directory, manifest)
+    elif manifest.get("flavor", "flax") == "flax":
+        model, exact_refusal = _load_exact_model(directory, manifest)
     quant_params = None
     if "quant" in manifest and (directory / QUANT_PARAMS_NAME).exists():
         stored = manifest["quant"].get("format")
@@ -154,6 +193,7 @@ def load_bundle(directory: str | Path) -> Bundle:
         monitor=monitor,
         quant_params=quant_params,
         model=model,
+        exact_refusal=exact_refusal,
     )
 
 
@@ -198,6 +238,55 @@ def save_quant_bundle(
     np.savez(
         directory / QUANT_PARAMS_NAME, **quant_params_to_arrays(quant_params)
     )
+    preprocessor.save(directory / PREPROCESS_NAME)
+    monitor.save(directory / MONITOR_NAME)
+    (directory / MANIFEST_NAME).write_text(json.dumps(manifest, indent=2))
+    return directory
+
+
+def save_exact_bundle(
+    directory: str | Path,
+    model_config: ModelConfig,
+    model: torch.nn.Module,
+    preprocessor: Preprocessor,
+    monitor: MonitorState,
+    calibration: dict[str, float] | None = None,
+    tags: dict[str, str] | None = None,
+    metrics: dict[str, float] | None = None,
+    quant_params: dict[str, torch.Tensor] | None = None,
+    quant: dict[str, Any] | None = None,
+) -> Path:
+    """Write a ``flax`` bundle of the exact tier that the JAX package's
+    ``load_bundle`` reads: the manifest with its ``model_config``,
+    ``metrics``, ``tags`` and ``calibration``, the module's weights as
+    flax's ``params.msgpack`` (f32, keys in flax's order, the ensemble's
+    member axis leading), and the two npz files. With ``quant_params``
+    the bundle carries the quant tier too (``quant``: its manifest block,
+    as ``save_quant_bundle`` writes it)."""
+    from mlops_tpu_torch.weights import unflatten_tree
+
+    if model_config.doc_records > 1:
+        raise ValueError("a doc model (doc_records > 1) is a doc bundle")
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    manifest = {
+        "format_version": 1,
+        "flavor": "flax",
+        "framework": _framework(),
+        "created_at": datetime.datetime.now(datetime.timezone.utc).isoformat(),
+        "schema_fingerprint": SCHEMA.fingerprint(),
+        "model_config": dataclasses.asdict(model_config),
+        "metrics": metrics or {},
+        "tags": tags or {},
+        "calibration": calibration or {},
+    }
+    params = {k: v.detach().cpu().float() for k, v in model.state_dict().items()}
+    (directory / PARAMS_NAME).write_bytes(msgpack.packb(unflatten_tree(params)))
+    if quant_params is not None:
+        manifest["quant"] = {"format": QUANT_FORMAT, **(quant or {})}
+        np.savez(
+            directory / QUANT_PARAMS_NAME, **quant_params_to_arrays(quant_params)
+        )
     preprocessor.save(directory / PREPROCESS_NAME)
     monitor.save(directory / MONITOR_NAME)
     (directory / MANIFEST_NAME).write_text(json.dumps(manifest, indent=2))

@@ -1,9 +1,12 @@
 """Command-line entry point: ``python -m mlops_tpu_torch <command> [key=value ...]``.
 
-- ``serve``: serve a quant-tier bundle over HTTP;
-- ``predict-file``: score a record-history CSV with a ``doc`` bundle and
-  print one JSON line (``data.train_path=<csv>
-  serve.model_directory=<bundle> [serve.max_batch=N]``);
+- ``serve``: serve a bundle over HTTP on the exact tier (the default) or
+  the quant tier (``serve.serve_tier=quant``; ``auto`` prefers a gated
+  quant tier);
+- ``predict-file``: score a CSV with a ``flax`` bundle (the exact tier's
+  response JSON) or a record-history CSV with a ``doc`` bundle, and print
+  one JSON line (``data.train_path=<csv> serve.model_directory=<bundle>
+  [serve.max_batch=N]``);
 - ``train``: train the long-context doc model and print one JSON line
   (``--config configs/long_context_job.toml model.seq_parallel=false
   registry.root=<dir> registry.run_root=<dir>``).
@@ -33,9 +36,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command")
     commands = {
-        "serve": ("serve a quant-tier bundle over HTTP", "serve.port=5001"),
+        "serve": ("serve a bundle over HTTP (exact or quant tier)", "serve.port=5001"),
         "predict-file": (
-            "score a record-history CSV with a doc bundle",
+            "score a CSV with a flax bundle or a record-history CSV with a doc bundle",
             "data.train_path=<csv> serve.model_directory=<bundle>",
         ),
         "train": (

@@ -1,11 +1,14 @@
 """Offline subcommands: ``train`` (the long-context doc model) and
-``predict-file`` on a ``doc`` bundle.
+``predict-file`` on a ``flax`` (exact tier) or ``doc`` bundle.
 
 ``train`` is the JAX package's ``_train`` (``mlops_tpu/commands.py:96``)
 for doc configs: ``run_layout_training`` on ``train.device`` (the card
 unless ``cpu``), then the same JSON line. ``predict-file`` is the JAX
 package's ``_predict_file`` / ``_predict_documents``
-(``mlops_tpu/commands.py:315-384``): consecutive rows of a record-history
+(``mlops_tpu/commands.py:315-384``). On a ``flax`` bundle it is one
+exact-tier engine dispatch over the whole file (``buckets=(max_batch,)``,
+``predict_arrays``), printing the response JSON. On a ``doc`` bundle,
+consecutive rows of a record-history
 CSV group into ``doc_records``-length documents (the prediction targets
 the last record's default), documents stream through the doc model in
 ``serve.max_batch`` chunks (the tail chunk padded to the same shape), and
@@ -24,13 +27,7 @@ from mlops_tpu_torch.config import Config
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.data.ingest import load_csv_columns
 from mlops_tpu_torch.device import resolve_device
-from mlops_tpu_torch.train.long_context import group_documents
-
-# What a non-doc bundle would need from predict-file, by flavor.
-_UNPORTED_TIER = {
-    "flax": "the exact tier (the zoo's flax models)",
-    "sklearn": "the sklearn tree-ensemble floor",
-}
+from mlops_tpu_torch.train.long_context import check_doc_attention, group_documents
 
 
 def train(config: Config) -> dict:
@@ -51,23 +48,33 @@ def train(config: Config) -> dict:
 
 
 def predict_file(config: Config) -> dict:
-    """``predict-file data.train_path=<csv> serve.model_directory=<doc
-    bundle>``: the JSON the JAX package prints for a doc bundle."""
+    """``predict-file data.train_path=<csv> serve.model_directory=<bundle>``:
+    the JSON the JAX package prints for a flax or a doc bundle."""
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
     device = resolve_device(config.serve.device)
     source = config.data.train_path
     if not source:
         raise SystemExit("pass the input csv via data.train_path=<csv>")
     bundle = load_bundle(config.serve.model_directory)
-    if bundle.flavor != "doc":
-        tier = _UNPORTED_TIER.get(bundle.flavor, f"the {bundle.flavor!r} flavor")
+    if bundle.flavor == "sklearn":
         raise SystemExit(
-            f"predict-file on a {bundle.flavor!r} bundle needs {tier}, which "
-            "this package has not ported yet; it scores doc bundles only"
+            "predict-file on a 'sklearn' bundle needs the sklearn "
+            "tree-ensemble floor (ROADMAP A8), which this package has not "
+            "ported yet"
         )
     columns, _ = load_csv_columns(source)
-    return predict_documents(
-        bundle, bundle.preprocessor.encode(columns), config.serve.max_batch, device
-    )
+    ds = bundle.preprocessor.encode(columns)
+    if bundle.flavor == "doc":
+        return predict_documents(bundle, ds, config.serve.max_batch, device)
+    try:
+        engine = InferenceEngine(
+            bundle, buckets=(config.serve.max_batch,), serve_tier="exact",
+            device=device,
+        )
+    except ValueError as err:
+        raise SystemExit(f"predict-file scores a flax bundle on its exact tier: {err}") from err
+    return engine.predict_arrays(ds.cat_ids, ds.numeric)
 
 
 def predict_documents(
@@ -80,6 +87,7 @@ def predict_documents(
     bundle's model moves to ``device`` (the card unless ``"cpu"``); each
     ``max_batch`` chunk is one forward under ``torch.inference_mode()``."""
     device = resolve_device(device)
+    check_doc_attention(bundle.model_config, device)
     r = bundle.model_config.doc_records
     if ds.cat_ids.shape[0] < r:
         raise SystemExit(

@@ -4,7 +4,7 @@
 field for field with their defaults, so a bundle manifest's
 ``model_config`` and a job's TOML parse into them. ``data``,
 ``monitor`` and ``registry`` hold the fields the ported paths read;
-``serve`` the quant-tier subset of ``ServeConfig``. Two port-only knobs,
+``serve`` the subset of ``ServeConfig`` the exact and quant tiers read. Two port-only knobs,
 ``serve.device`` and ``train.device``, say where the entry points run:
 the card unless the caller writes ``cpu``.
 
@@ -35,8 +35,9 @@ class DataConfig:
 @dataclasses.dataclass
 class ModelConfig:
     """The JAX package's ``ModelConfig`` (``mlops_tpu/config.py:42``),
-    field for field with its defaults. The port builds only the dense doc
-    model from it so far (``family="bert"``, ``doc_records > 1``)."""
+    field for field with its defaults. The port builds the exact tier's
+    linear, mlp and deep-ensemble models (``models.build_model``) and the
+    dense doc model (``family="bert"``, ``doc_records > 1``) from it."""
 
     family: str = "mlp"  # mlp | ft_transformer | moe | linear | bert | gbm | rf
     hidden_dims: tuple[int, ...] = (256, 256, 128)
@@ -113,7 +114,8 @@ class ServeConfig:
     # largest warmed bucket so serving never pads past the bucket grid;
     # predict-file: documents per forward chunk
     warmup_batch_sizes: tuple[int, ...] = (1, 8, 64, 256)
-    serve_tier: str = "quant"  # the only tier this package serves yet
+    serve_tier: str = "exact"  # exact | quant | auto, as in the JAX package
+    model_shards: int = 1  # as in the JAX package; load_config refuses >1
     device: str = "cuda"  # "cpu" runs on the CPU (plain torch route)
     max_workers: int = 8  # scoring thread pool size
     drain_deadline_s: float = 30.0  # SIGTERM: how long busy exchanges may
@@ -190,4 +192,9 @@ def load_config(
         if not sep:
             raise KeyError(f"unknown config override {item!r}")
         _apply(config, section, field, raw)
+    if config.serve.model_shards != 1:
+        raise ValueError(
+            f"serve.model_shards={config.serve.model_shards} refused: sharding "
+            "the exact params over several cards is not ported (ROADMAP A11)"
+        )
     return config

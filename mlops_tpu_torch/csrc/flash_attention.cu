@@ -27,7 +27,12 @@
 //   the key loop has no __syncthreads, and no warp is set aside for loads
 //   (its registers would cost the second block per SM). Rows are swizzled
 //   at their own width (32, 64 or 128 bytes for D = 16, 32, 64), the
-//   layout both TMA and wgmma read.
+//   layout both TMA and wgmma read (hopper.cuh `Tile`): D = 8 runs as
+//   D = 16 on columns that TMA zero-fills past the view's 8, and D = 128
+//   as two 64-column panels (a 256-byte row is wider than the swizzle);
+//   its three stages of 128-key K and V tiles and Q take 225 KB of the
+//   227 KB a block may hold, and its 64 + 64 f32 accumulators per thread
+//   leave one block per SM.
 //   S = Q K^T is one wgmma.m64n128k16 per 16 of D with both operands in
 //   shared memory; the softmax runs on the f32 accumulator in registers
 //   (row max on raw scores, p = ex2(fma(s, scale*log2e, -m*scale*log2e)):
@@ -38,7 +43,10 @@
 //   an MN-major operand. Two blocks share an SM (D <= 32), so one block's
 //   exponentials run under the other's tensor-core work and copies.
 // - f32: a plain one-row-per-thread kernel with f32 FMAs and expf/logf
-//   (no TF32), because f32 callers expect f32 accuracy.
+//   (no TF32), because f32 callers expect f32 accuracy. At D = 128 a row's
+//   q and accumulator would not fit one thread's registers, so four
+//   neighbouring lanes share the row, each holding every fourth column,
+//   and add their partial scores by two shuffles.
 //
 // Plain C interface (ctypes); launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() after the launch. The TMA
@@ -95,14 +103,17 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
 // of warps done with it.
 template <int D>
 struct FwdSmem {
-  static constexpr int kRow = 2 * D;                // bytes per row
-  static constexpr int kTile = kBlockK * kRow;      // a 128-row tile
+  static constexpr int kRow = Tile<D>::kRow;         // bytes per panel row
+  static constexpr int kTile = Tile<D>::bytes(kBlockK);  // a 128-row tile
+  static constexpr int kQPanel = kBlockQ * kRow;     // panel strides
+  static constexpr int kKPanel = kBlockK * kRow;
   static constexpr int kQ = 0;
   static constexpr int kK = kTile;                  // + stage * 2 * kTile
   static constexpr int kV = 2 * kTile;              // + stage * 2 * kTile
   static constexpr int kBars = kTile + kStages * 2 * kTile;
   static constexpr int kDone = kBars + 8 * (1 + kStages);
   static constexpr int kBytes = kDone + 4 * kStages + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
 template <int D>
@@ -134,8 +145,10 @@ __global__ void __launch_bounds__(kThreads, D <= 32 ? 2 : 1)
   auto load_tile = [=](int t) {
     const int s = t % kStages;
     mbar_arrive_tx(&full[s], 2 * L::kTile);
-    tma_load(smem + L::kK + s * 2 * L::kTile, tkp, &full[s], h, t * kBlockK, b);
-    tma_load(smem + L::kV + s * 2 * L::kTile, tvp, &full[s], h, t * kBlockK, b);
+    tma_tile<D>(smem + L::kK + s * 2 * L::kTile, tkp, &full[s], kBlockK, h,
+                t * kBlockK, b);
+    tma_tile<D>(smem + L::kV + s * 2 * L::kTile, tvp, &full[s], kBlockK, h,
+                t * kBlockK, b);
   };
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -145,7 +158,7 @@ __global__ void __launch_bounds__(kThreads, D <= 32 ? 2 : 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_arrive_tx(q_full, L::kTile);
-    tma_load(smem + L::kQ, &tq, q_full, h, q0, b);
+    tma_tile<D>(smem + L::kQ, &tq, q_full, kBlockQ, h, q0, b);
     for (int t = 0; t < kStages && t < n_tiles; ++t) load_tile(t);
   }
   __syncthreads();
@@ -157,9 +170,10 @@ __global__ void __launch_bounds__(kThreads, D <= 32 ? 2 : 1)
   const uint64_t q_desc =
       smem_desc<L::kRow>(smem + L::kQ + wg * 64 * L::kRow);
 
-  float o[D / 2];
+  constexpr int N = Tile<D>::kCols;  // columns of O (D = 8: 8 stay zero)
+  float o[N / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max of the raw scores
   float l[2] = {0.f, 0.f};              // this lane's share of the normalizer
 
@@ -175,9 +189,10 @@ __global__ void __launch_bounds__(kThreads, D <= 32 ? 2 : 1)
     const uint64_t k_desc = smem_desc<L::kRow>(ks);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      // 16 more of D is 32 bytes further along each row.
-      wgmma_ss_n128(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    for (int kk = 0; kk < N / 16; ++kk) {
+      // 16 more of D is 32 bytes further along each row (or the next panel).
+      wgmma_ss_n128(sc, kmajor_step<D>(q_desc, kk, L::kQPanel),
+                    kmajor_step<D>(k_desc, kk, L::kKPanel), kk);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -212,7 +227,7 @@ __global__ void __launch_bounds__(kThreads, D <= 32 ? 2 : 1)
       neg_m2[r] = -mx * scale_log2;
       l[r] *= alpha;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+      for (int j = 0; j < N / 8; ++j) {
         o[4 * j + 2 * r] *= alpha;
         o[4 * j + 2 * r + 1] *= alpha;
       }
@@ -235,12 +250,11 @@ __global__ void __launch_bounds__(kThreads, D <= 32 ? 2 : 1)
     }
 
     // O += P V: V's 16-key steps are 16 rows further down the tile.
-    const uint64_t v_desc = smem_desc<L::kRow>(vs);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      wgmma_rs<D>(o, pa[kk], v_desc + ((16 * kk * L::kRow) >> 4));
+      wgmma_rs<N>(o, pa[kk], mnmajor_step<D>(vs, kk, L::kKPanel));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -281,26 +295,42 @@ __global__ void __launch_bounds__(kThreads, D <= 32 ? 2 : 1)
 constexpr int kRowsF32 = 128;  // one query row per thread
 constexpr int kKeysF32 = 16;   // keys per shared-memory tile
 
+// Lanes that share a query row in the f32 kernels: four at D = 128 (each
+// holds columns part, part + 4, ...: the lanes' shared loads fall in four
+// banks), one below.
+template <int D>
+constexpr int kLanesPerRow = D > 64 ? 4 : 1;
+
+// The sum of a row's partial value over the lanes that share it.
+template <int P>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < P; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
 template <int D>
 __global__ void __launch_bounds__(kRowsF32)
     flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ out,
                   float* __restrict__ lse, Strides sq, Strides sk, Strides sv,
                   Strides so, int heads, int s_q, int s_kv, float scale) {
+  constexpr int P = kLanesPerRow<D>, W = D / P;  // lanes, columns per lane
   __shared__ __align__(16) float ks[kKeysF32 * D];
   __shared__ __align__(16) float vs[kKeysF32 * D];
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh % heads;
-  const int row = blockIdx.y * kRowsF32 + threadIdx.x;
+  const int part = threadIdx.x % P;
+  const int row = blockIdx.y * (kRowsF32 / P) + threadIdx.x / P;
   const bool live = row < s_q;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
 
-  float qr[D], acc[D];
+  float qr[W], acc[W];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = live ? q[b * sq.b + row * sq.s + h * sq.h + d] : 0.f;
+  for (int d = 0; d < W; ++d) {
+    qr[d] = live ? q[b * sq.b + row * sq.s + h * sq.h + d * P + part] : 0.f;
     acc[d] = 0.f;
   }
   float m = -INFINITY, l = 0.f;
@@ -327,7 +357,8 @@ __global__ void __launch_bounds__(kRowsF32)
     for (int j = 0; j < kKeysF32; ++j) {
       float dot = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[j * D + d], dot);
+      for (int d = 0; d < W; ++d) dot = fmaf(qr[d], ks[j * D + d * P + part], dot);
+      dot = row_sum<P>(dot);
       sc[j] = j < valid ? dot * scale : -INFINITY;
       mx = fmaxf(mx, sc[j]);
     }
@@ -335,13 +366,13 @@ __global__ void __launch_bounds__(kRowsF32)
     const float alpha = expf(m - m_new);
     l *= alpha;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    for (int d = 0; d < W; ++d) acc[d] *= alpha;
 #pragma unroll
     for (int j = 0; j < kKeysF32; ++j) {
       const float p = expf(sc[j] - m_new);
       l += p;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vs[j * D + d], acc[d]);
+      for (int d = 0; d < W; ++d) acc[d] = fmaf(p, vs[j * D + d * P + part], acc[d]);
     }
     m = m_new;
   }
@@ -349,8 +380,10 @@ __global__ void __launch_bounds__(kRowsF32)
   if (live) {
     float* op = out + b * so.b + row * so.s + h * so.h;
 #pragma unroll
-    for (int d = 0; d < D; ++d) op[d] = acc[d] / l;
-    lse[static_cast<long long>(bh) * s_q + row] = m + logf(fmaxf(l, 1e-30f));
+    for (int d = 0; d < W; ++d) op[d * P + part] = acc[d] / l;
+    if (part == 0) {
+      lse[static_cast<long long>(bh) * s_q + row] = m + logf(fmaxf(l, 1e-30f));
+    }
   }
 }
 
@@ -377,7 +410,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
         tq, tk, tv, static_cast<__nv_bfloat16*>(out), lse, so, heads, s_q, s_kv,
         static_cast<float>(scale * 1.4426950408889634));
   } else {
-    const dim3 grid(bh, (s_q + kRowsF32 - 1) / kRowsF32);
+    constexpr int rows = kRowsF32 / kLanesPerRow<D>;
+    const dim3 grid(bh, (s_q + rows - 1) / rows);
     flash_fwd_f32<D><<<grid, kRowsF32, 0, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), lse, sq, sk,
@@ -406,6 +440,9 @@ extern "C" int flash_attention_launch(
   const Strides sv{v_sb, v_ss, v_sh}, so{o_sb, o_ss, o_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
+    case 8:
+      return static_cast<int>(launch<8>(q, k, v, out, lse, sq, sk, sv, so, batch,
+                                        heads, s_q, s_kv, dtype, scale, st));
     case 16:
       return static_cast<int>(launch<16>(q, k, v, out, lse, sq, sk, sv, so, batch,
                                          heads, s_q, s_kv, dtype, scale, st));
@@ -415,6 +452,9 @@ extern "C" int flash_attention_launch(
     case 64:
       return static_cast<int>(launch<64>(q, k, v, out, lse, sq, sk, sv, so, batch,
                                          heads, s_q, s_kv, dtype, scale, st));
+    case 128:
+      return static_cast<int>(launch<128>(q, k, v, out, lse, sq, sk, sv, so, batch,
+                                          heads, s_q, s_kv, dtype, scale, st));
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

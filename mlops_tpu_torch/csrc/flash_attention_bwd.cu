@@ -64,8 +64,15 @@
 //   64-key tiles keep S and dP at 32 f32 registers each per thread, so
 //   two blocks share an SM (D <= 32) and one block's exponentials run
 //   under the other's products.
+// - Head dims (hopper.cuh `Tile`): D = 8 runs as D = 16 on columns that
+//   TMA zero-fills past the view's 8; D = 128 holds each tile as two
+//   64-column panels, with one block per SM (dq: 192 KB of shared memory
+//   and 64 f32 accumulators per thread; dk/dv: 165 KB and 128).
 // - f32: plain one-row-per-thread kernels with f32 FMAs and expf (no
-//   TF32), because f32 callers expect f32 accuracy.
+//   TF32), because f32 callers expect f32 accuracy. At D = 128 a row's
+//   vectors would not fit one thread's registers, so four neighbouring
+//   lanes share the row, each holding every fourth column, and add their
+//   partial dot products by two shuffles.
 //
 // Plain C interface (ctypes); launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() after the launch. The TMA
@@ -117,9 +124,11 @@ constexpr int kDqWarps = kDqThreads / 32;
 // then the mbarriers and the per-stage count of warps done with it.
 template <int D>
 struct DqSmem {
-  static constexpr int kRow = 2 * D;                 // bytes per row
-  static constexpr int kRows = kDqRows * kRow;       // Q or dO
-  static constexpr int kTile = kDqTile * kRow;       // a K or V tile
+  static constexpr int kRow = Tile<D>::kRow;         // bytes per panel row
+  static constexpr int kRows = Tile<D>::bytes(kDqRows);  // Q or dO
+  static constexpr int kTile = Tile<D>::bytes(kDqTile);  // a K or V tile
+  static constexpr int kRowsPanel = kDqRows * kRow;  // panel strides
+  static constexpr int kTilePanel = kDqTile * kRow;
   static constexpr int kQ = 0;
   static constexpr int kDo = kRows;
   static constexpr int kRing = 2 * kRows;
@@ -129,6 +138,7 @@ struct DqSmem {
   static constexpr int kBars = kRing + kDqStages * kStage;
   static constexpr int kDone = kBars + 8 * (1 + kDqStages);
   static constexpr int kBytes = kDone + 4 * kDqStages + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
 template <int D>
@@ -164,8 +174,8 @@ __global__ void __launch_bounds__(kDqThreads, D <= 32 ? 2 : 1)
     const int s = t % kDqStages;
     uint8_t* stage = smem + L::kRing + s * L::kStage;
     mbar_arrive_tx(&full[s], 2 * L::kTile);
-    tma_load(stage + L::kK, tkp, &full[s], h, t * kDqTile, b);
-    tma_load(stage + L::kV, tvp, &full[s], h, t * kDqTile, b);
+    tma_tile<D>(stage + L::kK, tkp, &full[s], kDqTile, h, t * kDqTile, b);
+    tma_tile<D>(stage + L::kV, tvp, &full[s], kDqTile, h, t * kDqTile, b);
   };
   if (threadIdx.x == 0) {
     mbar_init(qdo_full, 1);
@@ -175,8 +185,8 @@ __global__ void __launch_bounds__(kDqThreads, D <= 32 ? 2 : 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_arrive_tx(qdo_full, 2 * L::kRows);
-    tma_load(smem + L::kQ, &tq, qdo_full, h, q0, b);
-    tma_load(smem + L::kDo, &tdo, qdo_full, h, q0, b);
+    tma_tile<D>(smem + L::kQ, &tq, qdo_full, kDqRows, h, q0, b);
+    tma_tile<D>(smem + L::kDo, &tdo, qdo_full, kDqRows, h, q0, b);
     for (int t = 0; t < kDqStages && t < n_tiles; ++t) load_tile(t);
   }
   __syncthreads();
@@ -200,9 +210,10 @@ __global__ void __launch_bounds__(kDqThreads, D <= 32 ? 2 : 1)
     ndl[r] = row < s_q ? -delta[at] * scale : 0.f;
   }
 
-  float acc[D / 2];
+  constexpr int N = Tile<D>::kCols;  // columns of dq (D = 8: 8 stay zero)
+  float acc[N / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(qdo_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -217,13 +228,15 @@ __global__ void __launch_bounds__(kDqThreads, D <= 32 ? 2 : 1)
     float sc[kDqTile / 2], dp[kDqTile / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss_n64(sc, q_desc + 2 * kk, k_desc + 2 * kk, kk);
+    for (int kk = 0; kk < N / 16; ++kk) {
+      wgmma_ss_n64(sc, kmajor_step<D>(q_desc, kk, L::kRowsPanel),
+                   kmajor_step<D>(k_desc, kk, L::kTilePanel), kk);
     }
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss_n64(dp, do_desc + 2 * kk, v_desc + 2 * kk, kk);
+    for (int kk = 0; kk < N / 16; ++kk) {
+      wgmma_ss_n64(dp, kmajor_step<D>(do_desc, kk, L::kRowsPanel),
+                   kmajor_step<D>(v_desc, kk, L::kTilePanel), kk);
     }
     wgmma_commit();
     wgmma_wait_one();
@@ -265,7 +278,7 @@ __global__ void __launch_bounds__(kDqThreads, D <= 32 ? 2 : 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDqTile / 16; ++kk) {
-      wgmma_rs<D>(acc, da[kk], k_desc + ((16 * kk * L::kRow) >> 4));
+      wgmma_rs<N>(acc, da[kk], mnmajor_step<D>(stage + L::kK, kk, L::kTilePanel));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -311,9 +324,11 @@ constexpr int kDkvWarps = kDkvThreads / 32;
 // on 1024-byte boundaries (the swizzle repeat).
 template <int D>
 struct DkvSmem {
-  static constexpr int kRow = 2 * D;                 // bytes per row
-  static constexpr int kKV = kDkvKeys * kRow;        // K or V
-  static constexpr int kTile = kDkvTile * kRow;      // a q or dO tile
+  static constexpr int kRow = Tile<D>::kRow;         // bytes per panel row
+  static constexpr int kKV = Tile<D>::bytes(kDkvKeys);   // K or V
+  static constexpr int kTile = Tile<D>::bytes(kDkvTile); // a q or dO tile
+  static constexpr int kKVPanel = kDkvKeys * kRow;   // panel strides
+  static constexpr int kTilePanel = kDkvTile * kRow;
   static constexpr int kK = 0;
   static constexpr int kV = kKV;
   static constexpr int kRing = 2 * kKV;
@@ -325,6 +340,7 @@ struct DkvSmem {
   static constexpr int kBars = kRing + kDkvStages * kStage;
   static constexpr int kDone = kBars + 8 * (1 + kDkvStages);
   static constexpr int kBytes = kDone + 4 * kDkvStages + 1024;
+  static_assert(kBytes <= 232448, "a block's shared memory");
 };
 
 template <int D>
@@ -372,8 +388,8 @@ __global__ void __launch_bounds__(kDkvThreads, D <= 32 ? 2 : 1)
     }
     if (lane == 0) {
       mbar_arrive_tx(&full[s], 2 * L::kTile);
-      tma_load(stage + L::kQ, tqp, &full[s], h, t * kDkvTile, b);
-      tma_load(stage + L::kDo, tdop, &full[s], h, t * kDkvTile, b);
+      tma_tile<D>(stage + L::kQ, tqp, &full[s], kDkvTile, h, t * kDkvTile, b);
+      tma_tile<D>(stage + L::kDo, tdop, &full[s], kDkvTile, h, t * kDkvTile, b);
     } else {
       mbar_arrive(&full[s]);
     }
@@ -387,8 +403,8 @@ __global__ void __launch_bounds__(kDkvThreads, D <= 32 ? 2 : 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     mbar_arrive_tx(kv_full, 2 * L::kKV);
-    tma_load(smem + L::kK, &tk, kv_full, h, key0, b);
-    tma_load(smem + L::kV, &tv, kv_full, h, key0, b);
+    tma_tile<D>(smem + L::kK, &tk, kv_full, kDkvKeys, h, key0, b);
+    tma_tile<D>(smem + L::kV, &tv, kv_full, kDkvKeys, h, key0, b);
   }
   __syncthreads();
   if (warp == 0) {
@@ -403,9 +419,10 @@ __global__ void __launch_bounds__(kDkvThreads, D <= 32 ? 2 : 1)
   const uint64_t v_desc = smem_desc<L::kRow>(smem + L::kV + wg * 64 * L::kRow);
   const float scale2 = scale * kLog2e;
 
-  float dka[D / 2], dva[D / 2];
+  constexpr int N = Tile<D>::kCols;  // columns of dk, dv (D = 8: 8 stay zero)
+  float dka[N / 2], dva[N / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) dka[i] = dva[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int t = 0; t < n_tiles; ++t) {
@@ -421,12 +438,14 @@ __global__ void __launch_bounds__(kDkvThreads, D <= 32 ? 2 : 1)
     float st[kDkvTile / 2], dpt[kDkvTile / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss_n64(st, k_desc + 2 * kk, q_desc + 2 * kk, kk);
+    for (int kk = 0; kk < N / 16; ++kk) {
+      wgmma_ss_n64(st, kmajor_step<D>(k_desc, kk, L::kKVPanel),
+                   kmajor_step<D>(q_desc, kk, L::kTilePanel), kk);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss_n64(dpt, v_desc + 2 * kk, do_desc + 2 * kk, kk);
+    for (int kk = 0; kk < N / 16; ++kk) {
+      wgmma_ss_n64(dpt, kmajor_step<D>(v_desc, kk, L::kKVPanel),
+                   kmajor_step<D>(do_desc, kk, L::kTilePanel), kk);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -460,11 +479,11 @@ __global__ void __launch_bounds__(kDkvThreads, D <= 32 ? 2 : 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kDkvTile / 16; ++kk) {
-      wgmma_rs<D>(dva, pa[kk], do_desc + ((16 * kk * L::kRow) >> 4));
+      wgmma_rs<N>(dva, pa[kk], mnmajor_step<D>(stage + L::kDo, kk, L::kTilePanel));
     }
 #pragma unroll
     for (int kk = 0; kk < kDkvTile / 16; ++kk) {
-      wgmma_rs<D>(dka, da[kk], q_desc + ((16 * kk * L::kRow) >> 4));
+      wgmma_rs<N>(dka, da[kk], mnmajor_step<D>(stage + L::kQ, kk, L::kTilePanel));
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -503,8 +522,21 @@ __global__ void __launch_bounds__(kDkvThreads, D <= 32 ? 2 : 1)
 }
 
 // ------------------------------------------------------------------- f32
-constexpr int kRowsF32 = 128;  // one output row per thread
+constexpr int kRowsF32 = 128;  // threads of a block: one output row each
 constexpr int kTileF32 = 16;   // rows of a shared-memory tile
+
+// Lanes that share an output row (four at D = 128, each holding columns
+// part, part + 4, ...: the lanes' shared loads fall in four banks).
+template <int D>
+constexpr int kLanesPerRow = D > 64 ? 4 : 1;
+
+// The sum of a row's partial value over the lanes that share it.
+template <int P>
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < P; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
 
 // Stage rows [r0, r0 + kTileF32) of one head of two f32 views.
 template <int D>
@@ -536,21 +568,24 @@ __global__ void __launch_bounds__(kRowsF32)
                      const float* __restrict__ delta, float* __restrict__ dq,
                      Strides sq, Strides sk, Strides sv, Strides sdo,
                      Strides sdq, int heads, int s_q, int s_kv, float scale) {
+  constexpr int P = kLanesPerRow<D>, W = D / P;  // lanes, columns per lane
   __shared__ __align__(16) float ks[kTileF32 * D];
   __shared__ __align__(16) float vs[kTileF32 * D];
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh % heads;
-  const int row = blockIdx.y * kRowsF32 + threadIdx.x;
+  const int part = threadIdx.x % P;
+  const int row = blockIdx.y * (kRowsF32 / P) + threadIdx.x / P;
   const bool on = row < s_q;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
 
-  float qr[D], dr[D], acc[D];
+  float qr[W], dr[W], acc[W];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = on ? q[b * sq.b + row * sq.s + h * sq.h + d] : 0.f;
-    dr[d] = on ? dout[b * sdo.b + row * sdo.s + h * sdo.h + d] : 0.f;
+  for (int d = 0; d < W; ++d) {
+    const int col = d * P + part;
+    qr[d] = on ? q[b * sq.b + row * sq.s + h * sq.h + col] : 0.f;
+    dr[d] = on ? dout[b * sdo.b + row * sdo.s + h * sdo.h + col] : 0.f;
     acc[d] = 0.f;
   }
   const long long at = static_cast<long long>(bh) * s_q + row;
@@ -565,19 +600,21 @@ __global__ void __launch_bounds__(kRowsF32)
     for (int j = 0; j < valid; ++j) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qr[d], ks[j * D + d], s);
-        dp = fmaf(dr[d], vs[j * D + d], dp);
+      for (int d = 0; d < W; ++d) {
+        s = fmaf(qr[d], ks[j * D + d * P + part], s);
+        dp = fmaf(dr[d], vs[j * D + d * P + part], dp);
       }
+      s = row_sum<P>(s);
+      dp = row_sum<P>(dp);
       const float ds = expf(s * scale - l) * (dp - dl) * scale;
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, ks[j * D + d], acc[d]);
+      for (int d = 0; d < W; ++d) acc[d] = fmaf(ds, ks[j * D + d * P + part], acc[d]);
     }
   }
   if (on) {
     float* out = dq + b * sdq.b + row * sdq.s + h * sdq.h;
 #pragma unroll
-    for (int d = 0; d < D; ++d) out[d] = acc[d];
+    for (int d = 0; d < W; ++d) out[d * P + part] = acc[d];
   }
 }
 
@@ -591,6 +628,7 @@ __global__ void __launch_bounds__(kRowsF32)
                       float* __restrict__ dv, Strides sq, Strides sk,
                       Strides sv, Strides sdo, Strides sdk, Strides sdv,
                       int heads, int s_q, int s_kv, float scale) {
+  constexpr int P = kLanesPerRow<D>, W = D / P;  // lanes, columns per lane
   __shared__ __align__(16) float qs[kTileF32 * D];
   __shared__ __align__(16) float dos[kTileF32 * D];
   __shared__ float ls[kTileF32];
@@ -598,18 +636,20 @@ __global__ void __launch_bounds__(kRowsF32)
 
   const int bh = blockIdx.x;
   const int b = bh / heads, h = bh % heads;
-  const int key = blockIdx.y * kRowsF32 + threadIdx.x;
+  const int part = threadIdx.x % P;
+  const int key = blockIdx.y * (kRowsF32 / P) + threadIdx.x / P;
   const bool on = key < s_kv;
   const float* qb = q + b * sq.b + h * sq.h;
   const float* dob = dout + b * sdo.b + h * sdo.h;
   const float* lse_bh = lse + static_cast<long long>(bh) * s_q;
   const float* delta_bh = delta + static_cast<long long>(bh) * s_q;
 
-  float kr[D], vr[D], dka[D], dva[D];
+  float kr[W], vr[W], dka[W], dva[W];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    kr[d] = on ? k[b * sk.b + key * sk.s + h * sk.h + d] : 0.f;
-    vr[d] = on ? v[b * sv.b + key * sv.s + h * sv.h + d] : 0.f;
+  for (int d = 0; d < W; ++d) {
+    const int col = d * P + part;
+    kr[d] = on ? k[b * sk.b + key * sk.s + h * sk.h + col] : 0.f;
+    vr[d] = on ? v[b * sv.b + key * sv.s + h * sv.h + col] : 0.f;
     dka[d] = dva[d] = 0.f;
   }
 
@@ -626,16 +666,18 @@ __global__ void __launch_bounds__(kRowsF32)
     for (int i = 0; i < valid; ++i) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(kr[d], qs[i * D + d], s);
-        dp = fmaf(vr[d], dos[i * D + d], dp);
+      for (int d = 0; d < W; ++d) {
+        s = fmaf(kr[d], qs[i * D + d * P + part], s);
+        dp = fmaf(vr[d], dos[i * D + d * P + part], dp);
       }
+      s = row_sum<P>(s);
+      dp = row_sum<P>(dp);
       const float p = expf(s * scale - ls[i]);
       const float ds = p * (dp - dls[i]) * scale;
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dva[d] = fmaf(p, dos[i * D + d], dva[d]);
-        dka[d] = fmaf(ds, qs[i * D + d], dka[d]);
+      for (int d = 0; d < W; ++d) {
+        dva[d] = fmaf(p, dos[i * D + d * P + part], dva[d]);
+        dka[d] = fmaf(ds, qs[i * D + d * P + part], dka[d]);
       }
     }
   }
@@ -643,9 +685,9 @@ __global__ void __launch_bounds__(kRowsF32)
     float* dkp = dk + b * sdk.b + key * sdk.s + h * sdk.h;
     float* dvp = dv + b * sdv.b + key * sdv.s + h * sdv.h;
 #pragma unroll
-    for (int d = 0; d < D; ++d) {
-      dkp[d] = dka[d];
-      dvp[d] = dva[d];
+    for (int d = 0; d < W; ++d) {
+      dkp[d * P + part] = dka[d];
+      dvp[d * P + part] = dva[d];
     }
   }
 }
@@ -681,7 +723,8 @@ cudaError_t launch_dq(const Args& a, void* dq, Strides sdq) {
         tq, tk, tv, tdo, a.lse, a.delta, static_cast<__nv_bfloat16*>(dq), sdq,
         a.heads, a.s_q, a.s_kv, a.scale);
   } else {
-    const dim3 grid(bh, (a.s_q + kRowsF32 - 1) / kRowsF32);
+    constexpr int rows = kRowsF32 / kLanesPerRow<D>;
+    const dim3 grid(bh, (a.s_q + rows - 1) / rows);
     flash_bwd_dq_f32<D><<<grid, kRowsF32, 0, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
@@ -714,7 +757,8 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv, Strides sdk,
         static_cast<__nv_bfloat16*>(dv), sdk, sdv, a.heads, a.s_q, a.s_kv,
         a.scale);
   } else {
-    const dim3 grid(bh, (a.s_kv + kRowsF32 - 1) / kRowsF32);
+    constexpr int rows = kRowsF32 / kLanesPerRow<D>;
+    const dim3 grid(bh, (a.s_kv + rows - 1) / rows);
     flash_bwd_dkv_f32<D><<<grid, kRowsF32, 0, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
@@ -752,9 +796,11 @@ extern "C" int flash_attention_bwd_dq_launch(
   if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sdq{dq_sb, dq_ss, dq_sh};
   switch (head_dim) {
+    case 8: return static_cast<int>(launch_dq<8>(a, dq, sdq));
     case 16: return static_cast<int>(launch_dq<16>(a, dq, sdq));
     case 32: return static_cast<int>(launch_dq<32>(a, dq, sdq));
     case 64: return static_cast<int>(launch_dq<64>(a, dq, sdq));
+    case 128: return static_cast<int>(launch_dq<128>(a, dq, sdq));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -777,9 +823,11 @@ extern "C" int flash_attention_bwd_dkv_launch(
   if (!args_ok(a)) return static_cast<int>(cudaErrorInvalidValue);
   const Strides sdk{dk_sb, dk_ss, dk_sh}, sdv{dv_sb, dv_ss, dv_sh};
   switch (head_dim) {
+    case 8: return static_cast<int>(launch_dkv<8>(a, dk, dv, sdk, sdv));
     case 16: return static_cast<int>(launch_dkv<16>(a, dk, dv, sdk, sdv));
     case 32: return static_cast<int>(launch_dkv<32>(a, dk, dv, sdk, sdv));
     case 64: return static_cast<int>(launch_dkv<64>(a, dk, dv, sdk, sdv));
+    case 128: return static_cast<int>(launch_dkv<128>(a, dk, dv, sdk, sdv));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

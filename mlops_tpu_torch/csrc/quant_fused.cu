@@ -36,9 +36,9 @@
 //     reads the feature's two reference planes once into shared memory,
 //     then each G-thread group sorts its slot's masked column (padding at
 //     +inf; a total order on the float bits puts NaN last, so the counts
-//     are those of IEEE <=). Up to 32 rows, and past 256, a key's rank
-//     and its count of keys <= it come from one pass over the column;
-//     in between, each warp sorts 32 keys by a bitonic network of
+//     are those of IEEE <=). Up to 32 rows a key's rank and its count
+//     of keys <= it come from one pass over the column; past 32,
+//     each warp sorts 32 keys by a bitonic network of
 //     shuffles and the runs are ranked against each other by binary
 //     search. Each finite batch point is counted in the sorted reference
 //     by binary search. Then every thread of the block counts 8
@@ -50,6 +50,19 @@
 //     ref_cdf is read as given (not assumed monotone). Blocks of the
 //     first C features also count the slot's categories with
 //     shared-memory integer atomics.
+//   - Past 256 rows a slot no longer fits that shared-memory layout (the
+//     JAX package bounds neither the batch nor the reference). A K-S
+//     block then owns one (slot, feature) and sorts the slot's keys
+//     through a global workspace that the wrapper allocates (P words, P
+//     the batch rounded up to a power of two): a bitonic sort whose steps
+//     within 4,096 keys run in shared memory chunk by chunk, the longer
+//     ones over the workspace. The counts and divisions are the ones
+//     above, so the statistic stays bit-exact. When a feature's two
+//     planes (2R floats) do not fit beside the slot's words, K-S blocks
+//     read them from global memory instead (at R = 32,768 they are
+//     256 KB, which stays in L2). The wrapper picks the route by shape;
+//     the served shapes (R = 2048, B <= 256) keep everything in shared
+//     memory.
 //
 // Plain C interface (ctypes); launches on the caller's stream, allocates
 // nothing, and returns cudaGetLastError() after the launch.
@@ -78,6 +91,7 @@ constexpr int GROUP_EXTRA = K + 1;
 constexpr int MAX_GROUPS = THREADS / 32;  // slot groups in a K-S block
 constexpr int REF_ILP = 8;  // reference points a thread counts at once
 constexpr int SMALL_B = 8;  // the largest batch counted by comparison
+constexpr int SORT_CHUNK = 4096;  // keys a large slot's sort steps in shared memory
 
 static_assert(H == 32, "a warp's lanes are the student's hidden units");
 static_assert(M <= 32 && C + M <= 32, "a row's inputs are one warp's lanes");
@@ -278,6 +292,7 @@ __device__ void sort_runs(const SlotView& v, uint64_t* runs, int B, int G,
 // G-thread group per slot sorts its column and counts its batch points;
 // then every thread of the block counts 8 reference points in every slot
 // of the block.
+template <bool kPlanesShared>
 __device__ void ks_slots(const float* __restrict__ ref_sorted,
                          const float* __restrict__ ref_cdf,
                          const int32_t* __restrict__ cat_ids,
@@ -288,12 +303,14 @@ __device__ void ks_slots(const float* __restrict__ ref_sorted,
                          float* smem) {
   __shared__ float red[MAX_GROUPS][WARPS];  // per slot, each warp's maximum
   __shared__ uint64_t runs[THREADS];        // the sort's sorted warp runs
-  float* ref = smem;     // [R]
-  float* cdf = ref + R;  // [R]
+  // The feature's reference planes [R] each: in shared memory, or where
+  // they lie in global memory when they do not fit.
+  const float* ref = kPlanesShared ? smem : ref_sorted + static_cast<size_t>(j) * R;
+  const float* cdf = kPlanesShared ? smem + R : ref_cdf + static_cast<size_t>(j) * R;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int group = tid / G, gt = tid % G, n_groups = THREADS / G;
   const int stride = 3 * B + 1 + GROUP_EXTRA;  // a slot's words
-  uint32_t* slots = reinterpret_cast<uint32_t*>(cdf + R);
+  uint32_t* slots = reinterpret_cast<uint32_t*>(kPlanesShared ? smem + 2 * R : smem);
   const SlotView view(slots + group * stride, B);
 
   const int s = slot0 + group;
@@ -310,9 +327,11 @@ __device__ void ks_slots(const float* __restrict__ ref_sorted,
     if (j < C) id0 = cat_ids[(base + gt) * C + j];
   }
   // The feature's reference planes, once for all of the block's slots.
-  for (int k = tid; k < R; k += THREADS) {
-    ref[k] = ref_sorted[static_cast<size_t>(j) * R + k];
-    cdf[k] = ref_cdf[static_cast<size_t>(j) * R + k];
+  if (kPlanesShared) {
+    for (int k = tid; k < R; k += THREADS) {
+      smem[k] = ref_sorted[static_cast<size_t>(j) * R + k];
+      smem[R + k] = ref_cdf[static_cast<size_t>(j) * R + k];
+    }
   }
   if (gt < K) view.cnt[gt] = 0;
   if (gt == 0) *view.n_rows = 0;
@@ -353,7 +372,7 @@ __device__ void ks_slots(const float* __restrict__ ref_sorted,
     }
     const float r_f = static_cast<float>(R);
     const int top_r = top_power(R);
-    if (B <= 32 || B > G) {
+    if (B <= 32) {
       // Each key's rank (ties by row) and its count of keys <= it by one
       // pass over the column; the ECDFs at the finite batch points.
       for (int t = gt; t < B; t += G) {
@@ -451,8 +470,159 @@ __device__ void ks_slots(const float* __restrict__ ref_sorted,
   }
 }
 
+// One bitonic step (merge size k, partner distance jj) over keys[0, n),
+// whose first element has index `base` in the whole sort (the step's
+// direction follows the whole sort's index); a barrier ends it.
+__device__ __forceinline__ void bitonic_step(uint32_t* keys, int n, int base,
+                                             int k, int jj) {
+  for (int i = threadIdx.x; i < n; i += THREADS) {
+    const int ixj = i ^ jj;
+    if (ixj > i) {
+      const uint32_t a = keys[i], b = keys[ixj];
+      const bool up = ((base + i) & k) == 0;
+      if ((a > b) == up) {
+        keys[i] = b;
+        keys[ixj] = a;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// keys[0, P) ascending, P a power of two, by the block, `buf` a
+// shared-memory chunk of min(P, SORT_CHUNK) words: the runs of a chunk are
+// sorted chunk by chunk in shared memory; each longer merge takes its
+// steps of a chunk or more over `keys` and the rest chunk by chunk.
+__device__ void sort_keys(uint32_t* keys, int P, uint32_t* buf) {
+  const int chunk = min(P, SORT_CHUNK);
+  for (int c0 = 0; c0 < P; c0 += chunk) {
+    for (int i = threadIdx.x; i < chunk; i += THREADS) buf[i] = keys[c0 + i];
+    __syncthreads();
+    for (int k = 2; k <= chunk; k <<= 1) {
+      for (int jj = k >> 1; jj > 0; jj >>= 1) bitonic_step(buf, chunk, c0, k, jj);
+    }
+    for (int i = threadIdx.x; i < chunk; i += THREADS) keys[c0 + i] = buf[i];
+    __syncthreads();
+  }
+  for (int k = 2 * chunk; k <= P; k <<= 1) {
+    for (int jj = k >> 1; jj >= chunk; jj >>= 1) bitonic_step(keys, P, 0, k, jj);
+    for (int c0 = 0; c0 < P; c0 += chunk) {
+      for (int i = threadIdx.x; i < chunk; i += THREADS) buf[i] = keys[c0 + i];
+      __syncthreads();
+      for (int jj = chunk >> 1; jj > 0; jj >>= 1) bitonic_step(buf, chunk, c0, k, jj);
+      for (int i = threadIdx.x; i < chunk; i += THREADS) keys[c0 + i] = buf[i];
+      __syncthreads();
+    }
+  }
+}
+
+// Feature j's K-S statistic (and, for j < C, its category counts) for
+// slot s of a launch with B > 256 rows per slot, by the whole block: the
+// slot's order keys are sorted in the workspace `work` (P words for this
+// slot and feature), then read as the sorted column.
+template <bool kPlanesShared>
+__device__ void ks_large_slot(const float* __restrict__ ref_sorted,
+                              const float* __restrict__ ref_cdf,
+                              const int32_t* __restrict__ cat_ids,
+                              const float* __restrict__ numeric,
+                              const uint8_t* __restrict__ mask,
+                              float* __restrict__ counts, float* __restrict__ ks,
+                              uint32_t* work, int j, int s, int B, int R, int P,
+                              float* smem) {
+  __shared__ int cnt[K];
+  __shared__ int n_rows;
+  __shared__ float red[WARPS];
+  const float* ref = kPlanesShared ? smem : ref_sorted + static_cast<size_t>(j) * R;
+  const float* cdf = kPlanesShared ? smem + R : ref_cdf + static_cast<size_t>(j) * R;
+  uint32_t* buf = reinterpret_cast<uint32_t*>(kPlanesShared ? smem + 2 * R : smem);
+  uint32_t* keys = work + (static_cast<size_t>(s) * M + j) * P;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const size_t base = static_cast<size_t>(s) * B;
+  if (kPlanesShared) {
+    for (int k = tid; k < R; k += THREADS) {
+      smem[k] = ref_sorted[static_cast<size_t>(j) * R + k];
+      smem[R + k] = ref_cdf[static_cast<size_t>(j) * R + k];
+    }
+  }
+  if (tid < K) cnt[tid] = 0;
+  if (tid == 0) n_rows = 0;
+  __syncthreads();
+  // The masked column as order keys (padding +inf, the keys past B the
+  // largest), valid rows by ballot, categories by shared atomics. P is a
+  // multiple of the block, so every lane takes part in every ballot.
+  for (int t = tid; t < P; t += THREADS) {
+    bool valid = false;
+    uint32_t key = 0xFFFFFFFFu;
+    if (t < B) {
+      valid = mask[base + t] != 0;
+      const float x = numeric[(base + t) * M + j];
+      const int id = j < C ? cat_ids[(base + t) * C + j] : -1;
+      key = order_key(valid ? x : INFINITY);
+      if (valid && id >= 0 && id < K) atomicAdd(&cnt[id], 1);
+    }
+    keys[t] = key;
+    const unsigned ballot = __ballot_sync(0xffffffffu, valid);
+    if (lane == 0 && ballot) atomicAdd(&n_rows, __popc(ballot));
+  }
+  __syncthreads();
+  sort_keys(keys, P, buf);
+  const int n = n_rows;
+  const float n_f = fmaxf(static_cast<float>(n), 1.0f);
+  if (j < C && tid < K) {
+    counts[(static_cast<size_t>(s) * C + j) * K + tid] = static_cast<float>(cnt[tid]);
+  }
+  // The sorted keys as the sorted column, in place.
+  float* sorted = reinterpret_cast<float*>(keys);
+  for (int t = tid; t < B; t += THREADS) sorted[t] = key_value(keys[t]);
+  __syncthreads();
+
+  const float r_f = static_cast<float>(R);
+  const int top_r = top_power(R), top_b = top_power(B);
+  float d = 0.0f;
+  // ECDFs at the finite batch points: counts in the sorted batch and in
+  // the sorted reference, both by binary search.
+  for (int t = tid; t < B; t += THREADS) {
+    const float v[1] = {sorted[t]};
+    if (isfinite(v[0])) {
+      int le[1], c_ref[1];
+      bound<false>(sorted, B, top_b, v, le);
+      bound<false>(ref, R, top_r, v, c_ref);
+      const float f_b = __fdiv_rn(fminf(static_cast<float>(le[0]), n_f), n_f);
+      d = fmaxf(d, fabsf(__fdiv_rn(static_cast<float>(c_ref[0]), r_f) - f_b));
+    }
+  }
+  // ECDF of the batch at the reference points, 8 per thread and pass.
+  for (int k0 = 0; k0 < R; k0 += THREADS * REF_ILP) {
+    float rv[REF_ILP], cv[REF_ILP];
+#pragma unroll
+    for (int u = 0; u < REF_ILP; ++u) {
+      const int k = min(k0 + u * THREADS + tid, R - 1);  // a repeat is harmless
+      rv[u] = ref[k];
+      cv[u] = cdf[k];
+    }
+    int c[REF_ILP];
+    bound<false>(sorted, B, top_b, rv, c);
+#pragma unroll
+    for (int u = 0; u < REF_ILP; ++u) {
+      const float f = __fdiv_rn(fminf(static_cast<float>(c[u]), n_f), n_f);
+      d = fmaxf(d, fabsf(cv[u] - f));
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) d = fmaxf(d, __shfl_xor_sync(0xffffffffu, d, off));
+  if (lane == 0) red[warp] = d;
+  __syncthreads();
+  if (tid == 0) {
+    float m = 0.0f;
+    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, red[w]);
+    ks[static_cast<size_t>(s) * M + j] = n > 0 ? m : 0.0f;
+  }
+}
+
 // Blocks [0, n_ks) are K-S blocks (feature j = block % M, slot group
-// block / M); the rest run the student, a warp per row.
+// block / M); the rest run the student, a warp per row. kLarge: more than
+// 256 rows per slot, one slot per K-S block sorted through `work`.
+template <bool kPlanesShared, bool kLarge>
 __global__ void __launch_bounds__(THREADS, 2) quant_fused_kernel(
     const uint16_t* __restrict__ embed, const int8_t* __restrict__ w1_q,
     const float* __restrict__ w1_s, const float* __restrict__ b1,
@@ -463,13 +633,20 @@ __global__ void __launch_bounds__(THREADS, 2) quant_fused_kernel(
     const float* __restrict__ temperature, const int32_t* __restrict__ cat_ids,
     const float* __restrict__ numeric, const uint8_t* __restrict__ mask,
     float* __restrict__ preds, float* __restrict__ flags,
-    float* __restrict__ counts, float* __restrict__ ks, int S, int B, int R,
-    int G, int n_ks) {
+    float* __restrict__ counts, float* __restrict__ ks, uint32_t* work, int S,
+    int B, int R, int G, int P, int n_ks) {
   extern __shared__ float smem[];
   const int block = blockIdx.x;
   if (block < n_ks) {
-    ks_slots(ref_sorted, ref_cdf, cat_ids, numeric, mask, counts, ks, block % M,
-             (block / M) * (THREADS / G), S, B, R, G, smem);
+    if constexpr (kLarge) {
+      ks_large_slot<kPlanesShared>(ref_sorted, ref_cdf, cat_ids, numeric, mask,
+                                   counts, ks, work, block % M, block / M, B, R,
+                                   P, smem);
+    } else {
+      ks_slots<kPlanesShared>(ref_sorted, ref_cdf, cat_ids, numeric, mask,
+                              counts, ks, block % M,
+                              (block / M) * (THREADS / G), S, B, R, G, smem);
+    }
   } else {
     student_row(embed, w1_q, w1_s, b1, w2_q, w2_s, b2, mean, precision,
                 threshold, temperature, cat_ids, numeric, mask, preds, flags,
@@ -479,25 +656,63 @@ __global__ void __launch_bounds__(THREADS, 2) quant_fused_kernel(
 
 __global__ void quant_empty_kernel() {}
 
+// Dynamic shared memory a block may use: the H100's 232,448 bytes less an
+// 8 KB reserve for the kernel's static arrays (~6 KB).
+constexpr size_t SMEM_LIMIT = 232448 - 8192;
+
 // The launch's geometry: threads per K-S slot group, K-S blocks, student
-// blocks (a warp per row) and dynamic shared memory.
+// blocks (a warp per row), the route (past 256 rows a slot's keys sort in
+// the workspace, P words per slot and feature; the planes in shared or
+// global memory) and dynamic shared memory. ops/quant_kernel.py's
+// `kernel_route` mirrors it; the launch refuses a workspace of another P.
 struct Geometry {
-  int group, n_ks, n_student;
+  int group, n_ks, n_student, pow2;
+  bool large, planes_shared;
   size_t smem;
 };
 
 Geometry geometry(int S, int B, int R) {
   Geometry g;
+  g.large = B > THREADS;
   g.group = 32;
   while (g.group < B && g.group < THREADS) g.group *= 2;
+  g.pow2 = 1;
+  while (g.pow2 < B) g.pow2 *= 2;
   const int per_block = THREADS / g.group;
   g.n_ks = M * ((S + per_block - 1) / per_block);
   const long long rows = static_cast<long long>(S) * B;
   g.n_student = static_cast<int>((rows + WARPS - 1) / WARPS);
-  g.smem = (2 * static_cast<size_t>(R) +
-            per_block * (3 * static_cast<size_t>(B) + 1 + GROUP_EXTRA)) *
-           4;
+  const size_t slot_words =
+      g.large ? static_cast<size_t>(g.pow2 < SORT_CHUNK ? g.pow2 : SORT_CHUNK)
+              : per_block * (3 * static_cast<size_t>(B) + 1 + GROUP_EXTRA);
+  g.planes_shared = 4 * (2 * static_cast<size_t>(R) + slot_words) <= SMEM_LIMIT;
+  g.smem = 4 * ((g.planes_shared ? 2 * static_cast<size_t>(R) : 0) + slot_words);
   return g;
+}
+
+template <bool kPlanesShared, bool kLarge>
+cudaError_t launch_route(const Geometry& g, cudaStream_t stream,
+                         const void* const* in, void* const* out, void* work,
+                         int S, int B, int R) {
+  auto kernel = quant_fused_kernel<kPlanesShared, kLarge>;
+  if (g.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(g.smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<g.n_ks + g.n_student, THREADS, g.smem, stream>>>(
+      static_cast<const uint16_t*>(in[0]), static_cast<const int8_t*>(in[1]),
+      static_cast<const float*>(in[2]), static_cast<const float*>(in[3]),
+      static_cast<const int8_t*>(in[4]), static_cast<const float*>(in[5]),
+      static_cast<const float*>(in[6]), static_cast<const float*>(in[7]),
+      static_cast<const float*>(in[8]), static_cast<const float*>(in[9]),
+      static_cast<const float*>(in[10]), static_cast<const float*>(in[11]),
+      static_cast<const float*>(in[12]), static_cast<const int32_t*>(in[13]),
+      static_cast<const float*>(in[14]), static_cast<const uint8_t*>(in[15]),
+      static_cast<float*>(out[0]), static_cast<float*>(out[1]),
+      static_cast<float*>(out[2]), static_cast<float*>(out[3]),
+      static_cast<uint32_t*>(work), S, B, R, g.group, g.pow2, g.n_ks);
+  return cudaGetLastError();
 }
 
 cudaError_t use_device(int device) {
@@ -513,7 +728,10 @@ extern "C" {
 
 // Launches one fused predict over S slots of B rows on `stream` and
 // returns cudaGetLastError() (0 = launched). Pointers are device pointers
-// of contiguous tensors; the caller has checked shapes and dtypes.
+// of contiguous tensors; the caller has checked shapes and dtypes. `work`
+// is the workspace of S * M * `work_words` uint32 words when B > 256, else
+// unused (may be null); `work_words` must be this geometry's P (the batch
+// rounded up to a power of two), or the launch is refused.
 int quant_fused_launch(const void* embed, const void* w1_q, const void* w1_s,
                        const void* b1, const void* w2_q, const void* w2_s,
                        const void* b2, const void* ref_sorted,
@@ -521,32 +739,28 @@ int quant_fused_launch(const void* embed, const void* w1_q, const void* w1_s,
                        const void* precision, const void* threshold,
                        const void* temperature, const void* cat_ids,
                        const void* numeric, const void* mask, void* preds,
-                       void* flags, void* counts, void* ks, int S, int B,
-                       int R, int device, void* stream) {
-  cudaError_t err = use_device(device);
+                       void* flags, void* counts, void* ks, void* work, int S,
+                       int B, int R, int work_words, int device, void* stream) {
+  const cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const Geometry g = geometry(S, B, R);
-  if (g.smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(quant_fused_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(g.smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if (g.smem > SMEM_LIMIT || (g.large && (work == nullptr || work_words != g.pow2))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  quant_fused_kernel<<<g.n_ks + g.n_student, THREADS, g.smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(embed), static_cast<const int8_t*>(w1_q),
-      static_cast<const float*>(w1_s), static_cast<const float*>(b1),
-      static_cast<const int8_t*>(w2_q), static_cast<const float*>(w2_s),
-      static_cast<const float*>(b2), static_cast<const float*>(ref_sorted),
-      static_cast<const float*>(ref_cdf), static_cast<const float*>(mean),
-      static_cast<const float*>(precision),
-      static_cast<const float*>(threshold),
-      static_cast<const float*>(temperature),
-      static_cast<const int32_t*>(cat_ids), static_cast<const float*>(numeric),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(preds),
-      static_cast<float*>(flags), static_cast<float*>(counts),
-      static_cast<float*>(ks), S, B, R, g.group, g.n_ks);
-  return static_cast<int>(cudaGetLastError());
+  const void* in[16] = {embed, w1_q, w1_s, b1, w2_q, w2_s, b2, ref_sorted,
+                        ref_cdf, mean, precision, threshold, temperature,
+                        cat_ids, numeric, mask};
+  void* out[4] = {preds, flags, counts, ks};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t r;
+  if (g.large) {
+    r = g.planes_shared ? launch_route<true, true>(g, st, in, out, work, S, B, R)
+                        : launch_route<false, true>(g, st, in, out, work, S, B, R);
+  } else {
+    r = g.planes_shared ? launch_route<true, false>(g, st, in, out, work, S, B, R)
+                        : launch_route<false, false>(g, st, in, out, work, S, B, R);
+  }
+  return static_cast<int>(r);
 }
 
 // An empty kernel launched as quant_fused_launch launches its kernel (the

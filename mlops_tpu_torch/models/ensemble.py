@@ -1,0 +1,32 @@
+"""The deep ensemble of the JAX package's ``models/ensemble.py``.
+
+The JAX ``DeepEnsemble`` lifts a member with ``nn.vmap``: every parameter
+gains a leading member axis and each layer is one batched matmul. Here
+the member module is built with that axis (``members=K``, see
+``models/mlp.py``) and held as ``member``, the flax tree's name, so the
+vmapped param tree maps 1:1. Serving is eval: the logit of the mean
+member probability, the probability clipped to ``[1e-7, 1 - 1e-7]``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class DeepEnsemble(nn.Module):
+    """K members stacked on a leading axis: ``(cat_ids, numeric) ->
+    logits [N]`` (f32)."""
+
+    def __init__(self, member: nn.Module, size: int) -> None:
+        super().__init__()
+        if getattr(member, "members", 0) != size:
+            raise ValueError(f"the member must be built with members={size}")
+        self.member = member
+        self.size = size
+
+    def forward(self, cat_ids: torch.Tensor, numeric: torch.Tensor) -> torch.Tensor:
+        logits = self.member(cat_ids, numeric)  # [K, N]
+        probs = torch.sigmoid(logits.float()).mean(dim=0)
+        probs = torch.clamp(probs, 1e-7, 1.0 - 1e-7)
+        return torch.log(probs) - torch.log1p(-probs)

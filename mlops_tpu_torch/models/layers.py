@@ -10,6 +10,11 @@ a product is rounded to it before its bias is added, as flax's
 ``promote_dtype`` + ``dot_general`` + ``y += bias`` do. LayerNorm keeps
 its statistics in f32 (eps 1e-6, flax's fast variance) and returns the
 model's type.
+
+``members=K`` gives Dense, Embed and LayerNorm a leading ``[K, ...]``
+axis on every parameter, the layout of the JAX package's ``nn.vmap``
+deep ensemble: one batched product per layer over the K members, the
+input shared (``[N, F]``) or per member (``[K, N, F]``).
 """
 
 from __future__ import annotations
@@ -34,30 +39,38 @@ class Dense(nn.Module):
         bias_shape: tuple[int, ...],
         dtype: torch.dtype,
         in_features: int | None = None,
+        members: int = 0,
     ) -> None:
         super().__init__()
         self.dtype = dtype
         self.in_features = in_features or kernel_shape[0]
-        self.kernel = nn.Parameter(torch.zeros(kernel_shape))
-        self.bias = nn.Parameter(torch.zeros(bias_shape))
+        self.lead = (members,) if members else ()
+        self.kernel = nn.Parameter(torch.zeros(self.lead + tuple(kernel_shape)))
+        self.bias = nn.Parameter(torch.zeros(self.lead + tuple(bias_shape)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        kernel = self.kernel.to(self.dtype).reshape(self.in_features, -1)
+        kernel = self.kernel.to(self.dtype).reshape(*self.lead, self.in_features, -1)
         y = torch.matmul(x.to(self.dtype), kernel)
-        return y + self.bias.to(self.dtype).reshape(-1)
+        bias = self.bias.to(self.dtype)
+        return y + (bias.reshape(*self.lead, 1, -1) if self.lead else bias.reshape(-1))
 
 
 class Embed(nn.Module):
     """flax ``nn.Embed``: the table cast to the model's type, then a
     gather."""
 
-    def __init__(self, num: int, features: int, dtype: torch.dtype) -> None:
+    def __init__(
+        self, num: int, features: int, dtype: torch.dtype, members: int = 0
+    ) -> None:
         super().__init__()
         self.dtype = dtype
-        self.embedding = nn.Parameter(torch.zeros((num, features)))
+        self.members = members
+        lead = (members,) if members else ()
+        self.embedding = nn.Parameter(torch.zeros(lead + (num, features)))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding.to(self.dtype)[ids]
+        table = self.embedding.to(self.dtype)
+        return table[:, ids] if self.members else table[ids]
 
 
 class LayerNorm(nn.Module):
@@ -65,18 +78,24 @@ class LayerNorm(nn.Module):
     variance in f32, ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in
     f32, the result cast to the model's type."""
 
-    def __init__(self, features: int, dtype: torch.dtype, eps: float = 1e-6) -> None:
+    def __init__(
+        self, features: int, dtype: torch.dtype, eps: float = 1e-6, members: int = 0
+    ) -> None:
         super().__init__()
         self.dtype = dtype
         self.eps = eps
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
+        self.lead = (members,) if members else ()
+        self.scale = nn.Parameter(torch.ones(self.lead + (features,)))
+        self.bias = nn.Parameter(torch.zeros(self.lead + (features,)))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.scale) + self.bias
+        scale, bias = self.scale, self.bias
+        if self.lead:  # [K, F] -> [K, 1, F] over the members' rows
+            scale, bias = scale.unsqueeze(-2), bias.unsqueeze(-2)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * scale) + bias
         return y.to(self.dtype)
 
 

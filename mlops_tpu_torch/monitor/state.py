@@ -1,9 +1,12 @@
-"""Fitted monitor state and the device-resident accumulator.
+"""Fitted monitor state, the device-resident accumulator and the
+serving monitors.
 
 Port of the JAX package's ``monitor/state.py``: the same six arrays, read
 from and written to the same ``monitor.npz``, held here as a dataclass of
-tensors instead of a flax pytree; the same accumulator and the same two
-folds, written as plain functions on tensors.
+tensors instead of a flax pytree; the same accumulator, its two folds and
+``merge_accumulators``; ``drift_scores`` and ``outlier_flags``, written
+over an optional leading slot dimension in the place of the JAX
+package's ``vmap``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,13 @@ import numpy as np
 import torch
 
 from mlops_tpu_torch.data.encode import EncodedDataset
-from mlops_tpu_torch.ops.outlier import fit_mahalanobis
+from mlops_tpu_torch.ops.drift import (
+    chi2_two_sample,
+    ks_two_sample,
+    ks_two_sample_masked,
+    ks_two_sample_small_masked,
+)
+from mlops_tpu_torch.ops.outlier import fit_mahalanobis, mahalanobis_sq
 from mlops_tpu_torch.schema.features import SCHEMA
 
 # Fit-time defaults of the JAX package's MonitorConfig (config.py):
@@ -151,7 +160,7 @@ class MonitorAccumulator:
 
 
 def init_accumulator(device: torch.device | str) -> MonitorAccumulator:
-    d =SCHEMA.num_categorical + SCHEMA.num_numeric
+    d = SCHEMA.num_categorical + SCHEMA.num_numeric
 
     def zeros(*shape):
         return torch.zeros(shape, dtype=torch.float32, device=device)
@@ -211,3 +220,69 @@ def fold_accumulator_grouped(
         drift_sum=acc.drift_sum + drift_total,
         drift_last=torch.where(n_slots > 0, mean_drift, acc.drift_last),
     )
+
+
+def merge_accumulators(
+    older: MonitorAccumulator, newer: MonitorAccumulator
+) -> MonitorAccumulator:
+    """Two accumulator windows as one: counters and sums add,
+    ``drift_last`` is the newer window's unless it folded no batches. The
+    engine folds a window whose fetch failed back into the live one, so a
+    transient device error delays the counts and never drops them."""
+    return MonitorAccumulator(
+        rows=older.rows + newer.rows,
+        outliers=older.outliers + newer.outliers,
+        batches=older.batches + newer.batches,
+        drift_sum=older.drift_sum + newer.drift_sum,
+        drift_last=torch.where(newer.batches > 0, newer.drift_last, older.drift_last),
+    )
+
+
+# Up to this many rows per batch (a request slot) the masked K-S runs as
+# dense comparisons, past it by sort and searchsorted: the JAX package's
+# rule (``drift_scores``).
+SMALL_KS_ROWS = 64
+
+
+def drift_scores(
+    state: MonitorState,
+    cat_ids: torch.Tensor,  # int [..., N, C]
+    numeric: torch.Tensor,  # f32 [..., N, M]
+    mask: torch.Tensor | None = None,  # bool [..., N]
+) -> torch.Tensor:
+    """Per-feature drift ``1 - p`` in schema order, ``[..., C + M]``, each
+    batch (leading index) over its own rows: chi-squared on the masked
+    category counts, two-sample K-S against the reference sample. Without
+    a mask the K-S sorts the whole batch; with one, batches of up to 64
+    rows take the dense comparisons and larger ones the masked sort."""
+    k = state.cat_ref_counts.shape[1]
+    one_hot = torch.nn.functional.one_hot(cat_ids.long(), k).float()  # [..., N, C, K]
+    if mask is not None:
+        one_hot = one_hot * mask.float()[..., None, None]
+    batch_counts = one_hot.sum(dim=-3)  # [..., C, K]
+    _, cat_p = chi2_two_sample(state.cat_ref_counts, batch_counts)
+
+    batch = numeric.float().transpose(-1, -2)  # [..., M, N]
+    if mask is None:
+        _, num_p = ks_two_sample(state.num_ref_sorted, batch)
+    elif numeric.shape[-2] <= SMALL_KS_ROWS:
+        _, num_p = ks_two_sample_small_masked(
+            state.num_ref_sorted, state.num_ref_cdf, batch, mask[..., None, :]
+        )
+    else:
+        _, num_p = ks_two_sample_masked(
+            state.num_ref_sorted, batch, mask[..., None, :].expand(batch.shape)
+        )
+    return 1.0 - torch.cat([cat_p, num_p], dim=-1)
+
+
+def outlier_flags(
+    state: MonitorState, numeric: torch.Tensor, mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Per-row 0/1 outlier flags (squared Mahalanobis distance over the
+    fitted threshold), zeroed on padding rows."""
+    distances = mahalanobis_sq(numeric.float(), state.out_mean, state.out_precision)
+    flags = (distances > state.out_threshold).float()
+    if mask is not None:
+        flags = flags * mask.float()
+    return flags

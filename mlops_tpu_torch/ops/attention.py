@@ -45,7 +45,10 @@ BWD_DKV_REPLACES = "mlops_tpu/ops/attention.py:247"
 # card; below it the dense reference (the JAX package's rule on the TPU).
 FLASH_MIN_SEQ = 128
 
-KERNEL_HEAD_DIMS = (16, 32, 64)
+# The head dims the three kernels are compiled for. The JAX package sets
+# no bound; a model whose attention would reach the kernels at another
+# head_dim is refused where it is built (``check_flash_head_dim``).
+KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 flash_kernel_launches = LaunchCounter()
@@ -191,8 +194,8 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _check_launchable(views: dict[str, torch.Tensor]) -> None:
     """What every kernel of this module needs of its CUDA arguments
-    (``views`` by name, q and k among them): bf16 or f32, head_dim
-    16/32/64, and each ``[B,S,H,D]`` view with its head dimension
+    (``views`` by name, q and k among them): bf16 or f32, head_dim in
+    ``KERNEL_HEAD_DIMS``, and each ``[B,S,H,D]`` view with its head dimension
     contiguous and its pointer and strides 16-byte aligned."""
     q, k = views["q"], views["k"]
     if q.device.type != "cuda":
@@ -240,7 +243,8 @@ def flash_forward_cuda(
     """Launch ``csrc/flash_attention.cu`` on the current stream: same
     arguments and results as ``flash_forward_reference``. Takes strided
     ``[B,S,H,D]`` views (the head dimension contiguous, pointers and
-    strides 16-byte aligned), bf16 or f32, head_dim 16, 32 or 64."""
+    strides 16-byte aligned), bf16 or f32, head_dim in
+    ``KERNEL_HEAD_DIMS``."""
     _check_inputs(q, k, v)
     _check_launchable({"q": q, "k": k, "v": v})
     b, s_q, h, d = q.shape
@@ -423,6 +427,24 @@ def flash_attention(
     if wants_grad:
         return FlashAttention.apply(q, k, v, scale)
     return _flash_forward(q, k, v, scale)[0]
+
+
+def check_flash_head_dim(head_dim: int, seq: int, device: torch.device | str) -> None:
+    """Refuse, before any forward, a model whose attention at sequence
+    length ``seq`` would reach the flash kernels on the card at a head_dim
+    they are not compiled for (ROADMAP C1). On the CPU the plain route
+    takes every head_dim, and short sequences take the dense route on the
+    card too."""
+    if (
+        torch.device(device).type == "cuda"
+        and seq >= FLASH_MIN_SEQ
+        and head_dim not in KERNEL_HEAD_DIMS
+    ):
+        raise ValueError(
+            f"head_dim {head_dim} has no flash-attention kernel on the card "
+            f"(compiled for {KERNEL_HEAD_DIMS}; ROADMAP C1): pick token_dim "
+            "and heads whose quotient is one of them, or run on the CPU"
+        )
 
 
 def attend(

@@ -112,3 +112,85 @@ def ks_small_masked_statistic(
     stat = torch.maximum(d_b, d_r)
     return torch.where(mask.any(dim=-1), stat, torch.zeros_like(stat))
 
+
+
+def _ks_p_value(statistic: torch.Tensor, en: torch.Tensor) -> torch.Tensor:
+    """Asymptotic p-value with the Stephens correction (scipy's
+    two-sample ``method="asymp"``)."""
+    return _kolmogorov_sf((en + 0.12 + 0.11 / en) * statistic)
+
+
+def _pooled_cdfs(
+    ref_sorted: torch.Tensor, batch_sorted: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pooled points (reference ‖ sorted batch) and each sample's
+    right-continuous count at them, by ``searchsorted(side="right")`` over
+    the leading dimensions."""
+    lead = batch_sorted.shape[:-1]
+    ref = ref_sorted.float().expand(*lead, ref_sorted.shape[-1]).contiguous()
+    pooled = torch.cat([ref, batch_sorted], dim=-1)
+    ref_counts = torch.searchsorted(ref, pooled, right=True)
+    batch_counts = torch.searchsorted(batch_sorted.contiguous(), pooled, right=True)
+    return pooled, ref_counts, batch_counts
+
+
+def ks_two_sample(
+    ref_sorted: torch.Tensor,  # f32 [..., R] ascending
+    batch: torch.Tensor,  # f32 [..., B] unsorted
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-sample K-S over the leading dimensions -> ``(statistic,
+    p_value)``: both right-continuous ECDFs at every pooled sample point
+    (tie-safe), counts by ``searchsorted`` over the sorted batch, each
+    ECDF one correctly rounded f32 division."""
+    r, b = ref_sorted.shape[-1], batch.shape[-1]
+    batch_sorted = torch.sort(batch.float(), dim=-1).values
+    _, ref_counts, batch_counts = _pooled_cdfs(ref_sorted, batch_sorted)
+    statistic = (ref_counts.float() / r - batch_counts.float() / b).abs().amax(dim=-1)
+    en = torch.sqrt(
+        torch.tensor(r * b, dtype=torch.float32, device=batch.device)
+        / torch.tensor(r + b, dtype=torch.float32, device=batch.device)
+    )
+    return statistic, _ks_p_value(statistic, en)
+
+
+def ks_two_sample_small_masked(
+    ref_sorted: torch.Tensor,  # f32 [..., R] ascending
+    ref_cdf: torch.Tensor,  # f32 [..., R]
+    batch: torch.Tensor,  # f32 [..., B] possibly padded, B small
+    mask: torch.Tensor,  # bool [..., B]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K-S for small padded batches as dense comparisons
+    (``ks_small_masked_statistic``) with its p-value over the valid
+    rows."""
+    r = ref_sorted.shape[-1]
+    statistic = ks_small_masked_statistic(ref_sorted, ref_cdf, batch, mask)
+    n_valid = torch.clamp(mask.sum(dim=-1).float(), min=1.0)
+    en = torch.sqrt(r * n_valid / (r + n_valid))
+    return statistic, _ks_p_value(statistic, en)
+
+
+def ks_two_sample_masked(
+    ref_sorted: torch.Tensor,  # f32 [..., R] ascending
+    batch: torch.Tensor,  # f32 [..., B] possibly padded
+    mask: torch.Tensor,  # bool [..., B] True for real rows
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K-S ignoring padded rows, by sort and ``searchsorted``: padding is
+    +inf (it sorts to the tail), the batch ECDF divides by the valid rows,
+    and only finite pooled points count, so the statistic is the unpadded
+    batch's. An all-padding batch gives 0."""
+    r = ref_sorted.shape[-1]
+    inf = torch.full_like(batch, float("inf"), dtype=torch.float32)
+    bvals = torch.where(mask, batch.float(), inf)
+    batch_sorted = torch.sort(bvals, dim=-1).values
+    n_valid = torch.clamp(mask.sum(dim=-1).float(), min=1.0)[..., None]
+    pooled, ref_counts, batch_counts = _pooled_cdfs(ref_sorted, batch_sorted)
+    ref_f = ref_counts.float() / r
+    batch_f = torch.minimum(batch_counts.float(), n_valid) / n_valid
+    diff = torch.where(
+        torch.isfinite(pooled), (ref_f - batch_f).abs(), torch.zeros_like(ref_f)
+    )
+    statistic = diff.amax(dim=-1)
+    statistic = torch.where(mask.any(dim=-1), statistic, torch.zeros_like(statistic))
+    n = n_valid[..., 0]
+    en = torch.sqrt(r * n / (r + n))
+    return statistic, _ks_p_value(statistic, en)

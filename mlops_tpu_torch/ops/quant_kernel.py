@@ -19,6 +19,7 @@ slot — so a grouped dispatch is still a single launch.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Any, Callable
 
 import torch
@@ -35,7 +36,7 @@ from mlops_tpu_torch.ops.cuda_build import (
     LaunchCounter,
 )
 from mlops_tpu_torch.ops.drift import (
-    _kolmogorov_sf,
+    _ks_p_value,
     chi2_two_sample,
     ks_small_masked_statistic,
 )
@@ -52,8 +53,8 @@ KERNEL_SOURCE = PACKAGE_DIR / "csrc" / "quant_fused.cu"
 # Where the Pallas kernel this one replaces lives in the JAX package.
 REPLACES = "mlops_tpu/ops/quant_kernel.py:167"
 
-# Shared memory a block may use on an H100 (232,448 bytes), less room for
-# the kernel's static arrays (6 KB).
+# Shared memory a block may use on an H100 (232,448 bytes), less an 8 KB
+# reserve for the kernel's static arrays (about 6 KB).
 _SMEM_LIMIT = 232_448 - 8_192
 
 # The geometry csrc/quant_fused.cu is compiled for.
@@ -62,10 +63,12 @@ _K = max(SCHEMA.cards)
 _M = SCHEMA.num_numeric
 _E = QUANT_EMBED_DIM
 _H = QUANT_HIDDEN
-# csrc/quant_fused.cu's block width, and the shared words of one K-S slot
-# besides its 3B + 1 (category counts and the valid-row count).
+# csrc/quant_fused.cu's block width, the shared words of one K-S slot
+# besides its 3B + 1 (category counts and the valid-row count), and the
+# keys a large slot's sort steps in shared memory.
 _THREADS = 256
 _GROUP_EXTRA = _K + 1
+_SORT_CHUNK = 4096
 
 
 quant_kernel_launches = LaunchCounter()
@@ -73,9 +76,7 @@ quant_kernel_launches = LaunchCounter()
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr = ctypes.c_void_p
-    lib.quant_fused_launch.argtypes = [ptr] * 20 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr,
-    ]
+    lib.quant_fused_launch.argtypes = [ptr] * 21 + [ctypes.c_int] * 5 + [ptr]
     lib.quant_fused_launch.restype = ctypes.c_int
     lib.quant_fused_empty_launch.argtypes = [ctypes.c_int] * 4 + [ptr]
     lib.quant_fused_empty_launch.restype = ctypes.c_int
@@ -86,23 +87,43 @@ _LIBRARY = KernelLibrary(KERNEL_SOURCE, "quant_fused", _bind)
 load_library = _LIBRARY.load
 
 
-def _smem_bytes(b: int, r: int) -> int:
-    """Dynamic shared memory of one launch (csrc: ``geometry``): a K-S
-    block holds a feature's two reference planes (2r floats) and, for each
-    of its 256 / G slots (G = B rounded up to a power of two, 32 to 256),
-    the slot's keys, sorted column and ECDF table (3B + 1 words) and its
-    counters."""
-    group = 32
-    while group < b and group < _THREADS:
-        group *= 2
-    return 4 * (2 * r + (_THREADS // group) * (3 * b + 1 + _GROUP_EXTRA))
+@dataclasses.dataclass(frozen=True)
+class KernelRoute:
+    """How one launch of ``csrc/quant_fused.cu`` lays out a K-S block
+    (csrc: ``geometry``), chosen by shape alone.
+
+    - ``slots``: "shared" up to 256 rows per slot (each of a block's
+      256 / G slots, G = B rounded up to a power of two from 32, keeps its
+      keys, sorted column and ECDF table, 3B + 1 words, and 13 words of
+      counters in shared memory); "global" past 256 (one slot per block,
+      its keys sorted through a workspace of ``workspace_words`` uint32
+      per slot and feature, with a shared chunk of min(P, 4096) words).
+    - ``planes``: "shared" when the feature's two reference planes (2R
+      floats) fit beside the slot words, else "global" (read where they
+      lie).
+    """
+
+    slots: str
+    planes: str
+    smem_bytes: int
+    workspace_words: int  # per (slot, feature); 0 on the shared route
 
 
-def max_rows(r: int) -> int:
-    """Largest rows-per-slot one launch takes for a reference of ``r``
-    points: past 256 rows a K-S block holds one slot, 2r + 3B + 1 words
-    and the slot's counters, in shared memory."""
-    return (_SMEM_LIMIT // 4 - 2 * r - 1 - _GROUP_EXTRA) // 3
+def kernel_route(b: int, r: int) -> KernelRoute:
+    """The route of a launch with ``b`` rows per slot and a reference of
+    ``r`` points; every b and r take one."""
+    if b > _THREADS:
+        pow2 = 1 << (b - 1).bit_length()
+        slot_words, slots, work = min(pow2, _SORT_CHUNK), "global", pow2
+    else:
+        group = 32
+        while group < b:
+            group *= 2
+        slot_words = (_THREADS // group) * (3 * b + 1 + _GROUP_EXTRA)
+        slots, work = "shared", 0
+    planes_shared = 4 * (2 * r + slot_words) <= _SMEM_LIMIT
+    smem = 4 * ((2 * r if planes_shared else 0) + slot_words)
+    return KernelRoute(slots, "shared" if planes_shared else "global", smem, work)
 
 
 def fused_core_reference(
@@ -171,10 +192,10 @@ def fused_core_cuda(
     r = ref_sorted.shape[-1]
     if s < 1 or b < 1 or r < 1:
         raise ValueError(f"empty launch: S={s}, B={b}, R={r}")
-    if _smem_bytes(b, r) > _SMEM_LIMIT:
+    route = kernel_route(b, r)
+    if max(s * b, r, route.workspace_words) > 2**30:
         raise ValueError(
-            f"B={b} rows per slot exceed the kernel's shared-memory layout "
-            f"({max_rows(r)} rows at R={r})"
+            f"S*B={s * b} rows or R={r} past the kernel's 32-bit indexing"
         )
     if device.type != "cuda":
         raise ValueError(f"fused_core_cuda takes CUDA tensors, got {device}")
@@ -202,6 +223,11 @@ def fused_core_cuda(
     flags = torch.empty((s, b), dtype=f32, device=device)
     counts = torch.empty((s, _C, _K), dtype=f32, device=device)
     ks = torch.empty((s, _M), dtype=f32, device=device)
+    work = None
+    if route.workspace_words:
+        work = torch.empty(
+            (s, _M, route.workspace_words), dtype=torch.int32, device=device
+        )
     lib = load_library()
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.quant_fused_launch(
@@ -213,7 +239,9 @@ def fused_core_cuda(
                 mask, preds, flags, counts, ks,
             )
         ),
-        s, b, r, device.index if device.index is not None else 0, stream,
+        work.data_ptr() if work is not None else None,
+        s, b, r, route.workspace_words,
+        device.index if device.index is not None else 0, stream,
     )
     if err != 0:
         raise RuntimeError(f"quant_fused kernel launch failed: cudaError {err}")
@@ -253,8 +281,7 @@ def quant_fused(
     _, cat_p = chi2_two_sample(monitor.cat_ref_counts[None], cat_counts)
     r = monitor.num_ref_sorted.shape[1]
     n_valid = torch.clamp(mask.float().sum(dim=1), min=1.0)[:, None]
-    en = torch.sqrt(r * n_valid / (r + n_valid))
-    ks_p = _kolmogorov_sf((en + 0.12 + 0.11 / en) * ks_stat)
+    ks_p = _ks_p_value(ks_stat, torch.sqrt(r * n_valid / (r + n_valid)))
     drift = 1.0 - torch.cat([cat_p, ks_p], dim=1)
     return preds, flags, drift
 

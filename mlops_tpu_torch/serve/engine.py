@@ -1,23 +1,33 @@
-"""Inference engine, quant tier: bundle -> warmed, bucketed, fused predict.
+"""Inference engine: bundle -> warmed, bucketed, fused predict, on the
+exact or the quant tier.
 
-Port of the quant-tier subset of the JAX package's ``serve/engine.py``:
+Port of the JAX package's ``serve/engine.py`` for its two single-device
+tiers:
 
+- the tier table ``exact | quant | auto`` (``_resolve_tier``): exact is
+  the default, quant is a demand (raise rather than serve other bits than
+  asked for), auto takes a gated quant tier and otherwise falls back to
+  exact, logging why;
 - requests pad up to the nearest row bucket (1, 8, 64, 256 by default)
   with a validity mask, so drift and outlier statistics ignore padding;
-- one fused program per dispatch (``ops/quant_kernel.py``: one CUDA
-  kernel launch plus the p-value tail), grouped requests included;
+- one packed program per dispatch, grouped requests included: on the
+  exact tier the model, flags, drift and fold in plain PyTorch
+  (``ops/predict.py``), on the quant tier one CUDA kernel launch plus the
+  p-value tail (``ops/quant_kernel.py``);
 - the device -> host surface is ONE packed f32 buffer per dispatch
   (predictions ‖ outlier flags ‖ drift). Dispatch enqueues the work on
   the current stream and starts a non-blocking copy into pinned host
   memory behind a CUDA event; fetch waits on that event;
 - the running monitor aggregate stays on the device and is read off the
   request path by ``monitor_snapshot`` (fetch-and-reset into f64 host
-  totals).
+  totals; a window whose fetch fails folds back into the live one).
 """
 
 from __future__ import annotations
 
 import bisect
+import copy
+import logging
 import threading
 import time
 from typing import Any
@@ -27,8 +37,13 @@ import torch
 
 from mlops_tpu_torch.bundle.bundle import Bundle
 from mlops_tpu_torch.device import resolve_device
-from mlops_tpu_torch.monitor.state import init_accumulator
-from mlops_tpu_torch.ops.predict import packed_layout
+from mlops_tpu_torch.monitor.state import init_accumulator, merge_accumulators
+from mlops_tpu_torch.ops.predict import (
+    make_packed_grouped_base,
+    make_packed_predict_base,
+    model_params,
+    packed_layout,
+)
 from mlops_tpu_torch.ops.quant_kernel import (
     make_quant_grouped_base,
     make_quant_packed_base,
@@ -44,6 +59,9 @@ from mlops_tpu_torch.serve.wire import (
     encode_response,
     format_response,
 )
+
+logger = logging.getLogger(__name__)
+TIERS = ("exact", "quant", "auto")
 
 
 def _pad_rows(
@@ -83,7 +101,7 @@ class InferenceEngine:
         self,
         bundle: Bundle,
         buckets: tuple[int, ...] = (1, 8, 64, 256),
-        serve_tier: str = "quant",
+        serve_tier: str = "exact",
         device: str | torch.device | None = None,
     ):
         self.device = resolve_device(device)
@@ -91,17 +109,32 @@ class InferenceEngine:
         self.bundle = bundle
         self.buckets = sorted(buckets)
         self.max_bucket = self.buckets[-1]
-        # Committed once: params, monitor and temperature are arguments
-        # of every dispatch and stay on the device.
-        self._qparams = {
-            k: v.to(self.device) for k, v in bundle.quant_params.items()
-        }
+        # Committed once: the tier's params, the monitor and the
+        # temperature are arguments of every dispatch and stay on the
+        # device.
+        if self.serve_tier == "quant":
+            self._params = {
+                k: v.to(self.device) for k, v in bundle.quant_params.items()
+            }
+            temperature = bundle.quant_temperature
+            self._predict = make_quant_packed_base()
+            self._predict_group = make_quant_grouped_base()
+        else:
+            # The programs apply these params to the module (which has no
+            # buffers) by swapping them in for the call, under the
+            # accumulator lock; the engine's own copy keeps another engine
+            # over the same bundle out of the swap.
+            model = copy.deepcopy(bundle.model).eval()
+            self._params = {
+                k: v.to(self.device) for k, v in model_params(model).items()
+            }
+            temperature = bundle.temperature
+            self._predict = make_packed_predict_base(model)
+            self._predict_group = make_packed_grouped_base(model)
         self._monitor = bundle.monitor.to(self.device)
         self._temperature = torch.tensor(
-            bundle.quant_temperature, dtype=torch.float32, device=self.device
+            temperature, dtype=torch.float32, device=self.device
         )
-        self._predict = make_quant_packed_base()
-        self._predict_group = make_quant_grouped_base()
         # The lock orders the accumulator chain: each dispatch reads the
         # current accumulator and installs the one its program returns.
         # On the card the hold is an enqueue, never a wait.
@@ -119,29 +152,45 @@ class InferenceEngine:
         self.warmup_stats: dict[str, Any] = {}
         self.ready = False
 
-    @staticmethod
-    def _resolve_tier(serve_tier: str, bundle: Bundle) -> str:
-        """Only the quant tier is ported, and it demands a GATED quant
-        tier in the bundle and raises otherwise — an ungraded tier must
-        never serve."""
-        if serve_tier != "quant":
+    def _resolve_tier(self, serve_tier: str, bundle: Bundle) -> str:
+        """The JAX package's tier table: "exact" serves the bundle's exact
+        model; "quant" demands a GATED quant tier and raises otherwise (an
+        ungraded tier must never serve); "auto" takes the quant tier when
+        it is admissible and falls back to exact, logging why. What this
+        package cannot serve on either tier is refused with its reason."""
+        if serve_tier not in TIERS:
             raise ValueError(
-                f"serve_tier={serve_tier!r} is not ported to mlops_tpu_torch "
-                "yet; serve the quant tier (serve.serve_tier=quant)"
+                f"serve_tier must be 'exact', 'quant' or 'auto', got {serve_tier!r}"
             )
+        if serve_tier != "exact":
+            why = ""
+            if bundle.flavor == "sklearn":
+                why = "sklearn bundles have no quant tier"
+            elif not bundle.has_quant:
+                why = "bundle carries no quant params"
+            elif not bundle.quant_gates_passed:
+                why = (
+                    "quant tier failed (or was never graded by) the promotion "
+                    "gates"
+                )
+            if not why:
+                return "quant"
+            if serve_tier == "quant":
+                raise ValueError(f"serve_tier='quant' refused: {why}")
+            logger.info("serve_tier='auto' falling back to exact tier: %s", why)
         why = ""
         if bundle.flavor == "sklearn":
-            why = "sklearn bundles have no quant tier"
-        elif not bundle.has_quant:
-            why = "bundle carries no quant params"
-        elif not bundle.quant_gates_passed:
             why = (
-                "quant tier failed (or was never graded by) the promotion "
-                "gates"
+                "sklearn bundles score on the host tree ensemble, which is "
+                "not ported (ROADMAP A8)"
             )
+        elif bundle.flavor != "flax":
+            why = f"a {bundle.flavor!r} bundle is scored by predict-file, not served"
+        elif bundle.model is None:
+            why = bundle.exact_refusal or "bundle carries no exact model"
         if why:
             raise ValueError(f"serve_tier={serve_tier!r} refused: {why}")
-        return "quant"
+        return "exact"
 
     # ------------------------------------------------------------- warmup
     def warmup(self) -> None:
@@ -153,8 +202,8 @@ class InferenceEngine:
         scratch = init_accumulator(self.device)
         programs = 0
         for rows in self.buckets:
-            _, scratch = self._predict(
-                self._qparams, self._monitor, scratch, self._temperature,
+            _, scratch = self._run(
+                self._predict, scratch,
                 *self._to_device(
                     np.zeros((rows, c), np.int32),
                     np.zeros((rows, m), np.float32),
@@ -164,8 +213,8 @@ class InferenceEngine:
             programs += 1
         for rows in GROUP_ROW_BUCKETS:
             for slots in GROUP_SLOT_BUCKETS:
-                _, scratch = self._predict_group(
-                    self._qparams, self._monitor, scratch, self._temperature,
+                _, scratch = self._run(
+                    self._predict_group, scratch,
                     *self._to_device(
                         np.zeros((slots, rows, c), np.int32),
                         np.zeros((slots, rows, m), np.float32),
@@ -178,6 +227,7 @@ class InferenceEngine:
             "warmup_s": round(time.perf_counter() - t0, 3),
             "programs": programs,
             "device": str(self.device),
+            "tier": self.serve_tier,
         }
         self.ready = True
 
@@ -188,15 +238,19 @@ class InferenceEngine:
             for a in (cat, num, mask)
         )
 
+    def _run(self, program, acc, *batch):
+        """One packed program on the tier's committed state (no autograd)."""
+        with torch.inference_mode():
+            return program(
+                self._params, self._monitor, acc, self._temperature, *batch
+            )
+
     def _dispatch(self, program, cat, num, mask) -> tuple[torch.Tensor, Any]:
         """Run one packed program, thread the accumulator through it and
         start the packed buffer's copy to the host."""
         batch = self._to_device(cat, num, mask)
         with self._acc_lock:
-            out, self._acc = program(
-                self._qparams, self._monitor, self._acc, self._temperature,
-                *batch,
-            )
+            out, self._acc = self._run(program, self._acc, *batch)
         if self.device.type == "cpu":
             return out, None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -322,14 +376,21 @@ class InferenceEngine:
         """ONE device -> host read of the monitor aggregate, off the
         request path. Fetch-and-reset: a zero accumulator is swapped in
         under the lock and the fetched window folds into exact f64 host
-        totals, so the f32 device counters never approach 2^24."""
+        totals, so the f32 device counters never approach 2^24. A window
+        whose fetch fails folds back into the live accumulator: the counts
+        are delayed, never dropped."""
         with self._acc_lock:
             window = self._acc
             self._acc = init_accumulator(self.device)
-        host = {
-            k: getattr(window, k).double().cpu().numpy()
-            for k in ("rows", "outliers", "batches", "drift_sum", "drift_last")
-        }
+        try:
+            host = {
+                k: getattr(window, k).double().cpu().numpy()
+                for k in ("rows", "outliers", "batches", "drift_sum", "drift_last")
+            }
+        except Exception:
+            with self._acc_lock:
+                self._acc = merge_accumulators(window, self._acc)
+            raise
         window_batches = float(host["batches"])
         with self._totals_lock:
             t = self._totals

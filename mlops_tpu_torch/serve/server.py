@@ -1,4 +1,4 @@
-"""A small asyncio HTTP/1.1 server for the quant-tier engine.
+"""A small asyncio HTTP/1.1 server for the engine (exact or quant tier).
 
 The JAX package's single-process plane (``serve/httpcore.py`` +
 ``serve/server.py``) cut down to this slice's routes:

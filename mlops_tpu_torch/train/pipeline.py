@@ -40,6 +40,7 @@ from mlops_tpu_torch.train.checkpoint import (
 from mlops_tpu_torch.train.long_context import (
     DocTrainStep,
     build_doc_model,
+    check_doc_attention,
     make_doc_train_step,
     make_documents,
 )
@@ -245,6 +246,7 @@ def run_layout_training(
     and package and register it as a ``doc`` bundle."""
     _refuse_unported(config)
     device = resolve_device(config.train.device)
+    check_doc_attention(config.model, device)
     if register:
         ModelRegistry(config.registry.root)  # refuses a gs:// root up front
     run_name = run_name or time.strftime("%Y%m%d-%H%M%S")

@@ -95,6 +95,20 @@ def doc_params_from_numpy(
     return {k: _to_tensor(v).to(device) for k, v in flatten_tree(tree).items()}
 
 
+def exact_params_from_numpy(
+    tree: dict[str, Any], device: torch.device | str
+) -> dict[str, torch.Tensor]:
+    """A flax exact-tier param tree (``linear``, ``mlp``, or a
+    ``DeepEnsemble`` whose ``member`` subtree carries the vmapped ``[K,
+    ...]`` axis; the variables ``{"params": ...}`` or the params alone) ->
+    the port's ``state_dict`` entries on ``device``, ready for
+    ``load_params`` into ``models.build_model``'s module. The member axis
+    maps onto the port's stacked parameters as it is."""
+    if set(tree) == {"params"}:
+        tree = tree["params"]
+    return doc_params_from_numpy(tree, device)
+
+
 @torch.no_grad()
 def load_params(model: nn.Module, params: dict[str, torch.Tensor]) -> nn.Module:
     """Copy ``params`` (flattened names) into ``model``'s f32 parameters.

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Where one quant-tier dispatch of the PyTorch port spends its time on
-the card.
+"""Where one dispatch of the PyTorch port's serving engine spends its
+time on the card, on the quant or the exact tier.
 
-    python3 scripts/profile_quant_dispatch.py [--iters 50]
+    python3 scripts/profile_quant_dispatch.py [--iters 50] [--tier quant|exact]
+        [--model linear|mlp|mlp-ens8]
 
 Needs a CUDA card (exits non-zero without one). Builds the same
-full-width quant bundle as ``chip_smoke.py`` (its ``phase_bundle``: 20,000
-synthetic rows, R=2048, seeded E=4/H=32 student), warms an
-``InferenceEngine`` on the card and, for bucket 1,
-bucket 256 and groups 64x1 and 64x8, runs ``--iters`` dispatch -> fetch
-round trips under ``torch.profiler``. Prints one JSON line per shape:
-host wall time per dispatch, device busy time per dispatch (sum of the
-kernels' self device time), the fused kernel's device time, device
-launches per dispatch, and the operators that take the most device time.
+full-width bundle as ``chip_smoke.py``: for ``--tier quant`` (the
+default) its ``phase_bundle`` (20,000 synthetic rows, R=2048, seeded
+E=4/H=32 student), for ``--tier exact`` its ``phase_exact_bundles``
+model ``--model`` (default mlp-ens8: hidden 256/256/128, embed 16, 8
+members, bf16, seeded). Warms an ``InferenceEngine`` of that tier on
+the card and, for bucket 1, bucket 256 and groups 64x1 and 64x8, runs
+``--iters`` dispatch -> fetch round trips under ``torch.profiler``.
+Prints one JSON line per shape: host wall time per dispatch, device busy
+time per dispatch (sum of the kernels' self device time), the fused
+kernel's device time (quant tier), device launches per dispatch, and the
+operators that take the most device time.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import torch  # noqa: E402
 from torch.autograd import DeviceType  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 
-from chip_smoke import phase_bundle  # noqa: E402
+from chip_smoke import EXACT_MODELS, phase_bundle, phase_exact_bundles  # noqa: E402
 from mlops_tpu_torch.bundle import load_bundle  # noqa: E402
 from mlops_tpu_torch.data import generate_synthetic  # noqa: E402
 from mlops_tpu_torch.serve.engine import InferenceEngine  # noqa: E402
@@ -46,6 +50,8 @@ def _self_device_us(event) -> float:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iters", type=int, default=50)
+    parser.add_argument("--tier", choices=("quant", "exact"), default="quant")
+    parser.add_argument("--model", choices=tuple(EXACT_MODELS), default="mlp-ens8")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -56,8 +62,11 @@ def main() -> int:
     )
     print(smi.stdout.strip(), flush=True)
 
-    bundle = load_bundle(phase_bundle())
-    engine = InferenceEngine(bundle)
+    if args.tier == "quant":
+        bundle = load_bundle(phase_bundle())
+    else:
+        bundle = load_bundle(phase_exact_bundles()[args.model])
+    engine = InferenceEngine(bundle, serve_tier=args.tier)
     engine.warmup()
     held, _ = generate_synthetic(4096, seed=1, drift=0.3)
     ds = bundle.preprocessor.encode(held)
@@ -96,6 +105,8 @@ def main() -> int:
         top = sorted(device, key=_self_device_us, reverse=True)[:8]
         n = args.iters
         print(json.dumps({
+            "tier": args.tier,
+            "model": args.model if args.tier == "exact" else "quant student",
             "shape": f"{slots}x{rows}",
             "iters": n,
             "wall_ms_per_dispatch": wall * 1e3 / n,

@@ -27,6 +27,9 @@ SHAPES = [  # (B, S_q, S_kv, H, D)
     (2, 24, 24, 2, 8),
     (2, 45, 70, 2, 32),
     (4, 140, 140, 2, 16),
+    (1, 140, 140, 4, 8),
+    (1, 140, 140, 2, 128),
+    (1, 45, 70, 2, 128),
 ]
 DTYPES = {
     "f32": (jnp.float32, torch.float32, 2e-5, 1e-5),

@@ -33,6 +33,9 @@ SHAPES = [  # (B, S_q, S_kv, H, D)
     (2, 24, 24, 2, 8),
     (2, 45, 70, 2, 32),
     (4, 140, 140, 2, 16),
+    (1, 140, 140, 4, 8),
+    (1, 140, 140, 2, 128),
+    (1, 45, 70, 2, 128),
 ]
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
 FUNCTION_TOL = 2e-6

@@ -306,7 +306,7 @@ def test_predict_file_refuses_a_bundle_that_is_not_doc_flavor(tmp_path, history_
         tmp_path / "quant", prep, fit_monitor(prep.encode(columns), drift_ref_size=128),
         quantize_student(init_quant_master(0)), gates={"passed": True},
     )
-    with pytest.raises(SystemExit, match="exact tier.*not ported"):
+    with pytest.raises(SystemExit, match="exact tier.*no exact-tier params"):
         main(_predict_args(history_csv, tmp_path / "quant") + ["serve.device=cpu"])
 
 

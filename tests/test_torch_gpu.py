@@ -93,6 +93,10 @@ FLASH_SHAPES = [  # (B, S_q, S_kv, H, D)
     (2, 45, 70, 2, 32),
     (4, 140, 140, 2, 16),
     (2, 200, 200, 4, 64),
+    (2, 200, 200, 4, 8),
+    (2, 45, 70, 2, 8),
+    (1, 140, 140, 2, 128),
+    (2, 70, 45, 2, 128),
 ]
 FLASH_TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (2e-2, 1e-3)}
 
@@ -152,7 +156,7 @@ def test_flash_kernel_reads_strided_qkv_views(dtype):
 @pytest.mark.gpu
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take():
     dev = _card()
-    q, k, v = _qkv(2, 24, 24, 2, 8, torch.float32, dev, seed=0)
+    q, k, v = _qkv(2, 24, 24, 2, 24, torch.float32, dev, seed=0)
     with pytest.raises(ValueError, match="head_dim"):
         attention.flash_forward_cuda(q, k, v)
     q, k, v = _qkv(2, 24, 24, 2, 16, torch.float16, dev, seed=0)
@@ -191,6 +195,10 @@ BWD_SHAPES = [  # (B, S_q, S_kv, H, D): ragged edges, cross-length, each head_di
     (4, 140, 140, 2, 16),
     (2, 200, 200, 4, 64),
     (2, 70, 45, 2, 64),
+    (2, 200, 200, 4, 8),
+    (2, 45, 70, 2, 8),
+    (1, 140, 140, 2, 128),
+    (2, 70, 45, 2, 128),
 ]
 
 
@@ -455,3 +463,116 @@ def test_grouped_launches_are_bitwise_equal(card_state, s, b):
     second = quant_kernel.fused_core_cuda(*args)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.fixture(scope="module")
+def large_ref_state(card_state):
+    """A monitor fitted with drift_ref_size 32,768 (the JAX config bounds
+    it by nothing): its planes do not fit a block's shared memory."""
+    qparams, _, ds, dev = card_state
+    columns, _ = generate_synthetic(40_000, seed=2)
+    prep = Preprocessor.fit(columns)
+    monitor = fit_monitor(prep.encode(columns), drift_ref_size=32_768).to(dev)
+    return qparams, monitor, ds, dev
+
+
+# (R, S, B): the planes from global memory, a slot past 256 rows sorted
+# through the workspace (just past the old shared-memory limit of 17,318
+# rows at R = 2048, and at a size that is not a power of two), both.
+LARGE_SHAPES = [
+    (32_768, 1, 256), (32_768, 64, 8), (2048, 1, 17_408), (2048, 3, 300),
+    (32_768, 1, 5000),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,s,b", LARGE_SHAPES)
+def test_kernel_ks_is_exact_past_the_shared_memory_layout(
+    card_state, large_ref_state, r, s, b
+):
+    state = large_ref_state if r == 32_768 else card_state
+    _, mon, ds, _ = state
+    assert mon.num_ref_sorted.shape[1] == r
+    route = quant_kernel.kernel_route(b, r)
+    assert (route.slots, route.planes) != ("shared", "shared")
+    cat, num, mask = _ks_edge_batch(ds, mon.num_ref_sorted, s, b, seed=r + s + b)
+    args = _quant_args(state, cat, num, mask)
+    kp, kf, kc, kk = quant_kernel.fused_core_cuda(*args)
+    torch.cuda.synchronize()
+    rp, rf, rc, rk = quant_kernel.fused_core_reference(*args)
+    assert torch.equal(kc, rc) and torch.equal(kk, rk)
+    assert (kp - rp).abs().max().item() <= PRED_ATOL
+    d2 = mahalanobis_sq(args[14], mon.out_mean, mon.out_precision)
+    thr = mon.out_threshold
+    off = (d2 - thr).abs() > FLAG_BAND * thr.abs()
+    assert torch.equal(kf[off], rf[off])
+
+
+# The exact tier's models at the served widths (bf16) and a seeded init:
+# the packed programs on the card against the port's CPU route. bf16
+# predictions within 1.6e-2 (four bf16 ulps of a logit below 4 times the
+# sigmoid's slope; cuBLAS and the CPU round bf16 products in other
+# places), flags exact off the threshold band, accumulator rows and
+# batches exact, drift within 1e-5 (p-values of the same statistics
+# computed on two devices).
+EXACT_MODELS = {
+    "linear": dict(family="linear"),
+    "mlp": dict(family="mlp", hidden_dims=(256, 256, 128), embed_dim=16),
+    "mlp-ens8": dict(family="mlp", hidden_dims=(256, 256, 128), embed_dim=16,
+                     ensemble_size=8),
+}
+
+
+def _exact_model(name):
+    from mlops_tpu_torch.config import ModelConfig
+    from mlops_tpu_torch.models import build_model
+
+    model = build_model(ModelConfig(precision="bf16", **EXACT_MODELS[name]))
+    rng = np.random.default_rng(len(name))
+    with torch.no_grad():
+        for key, p in model.named_parameters():
+            scale = 1 / np.sqrt(p.shape[-2]) if key.endswith("kernel") else 0.5
+            p.copy_(torch.from_numpy((scale * rng.normal(size=tuple(p.shape))).astype(np.float32)))
+    return model.eval()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,b", [(1, 1), (1, 256), (64, 1), (64, 8)])
+@pytest.mark.parametrize("name", sorted(EXACT_MODELS))
+def test_exact_tier_on_the_card_matches_the_cpu_route(card_state, name, s, b):
+    from mlops_tpu_torch.monitor.state import init_accumulator
+    from mlops_tpu_torch.ops.predict import (
+        make_packed_grouped_base,
+        make_packed_predict_base,
+        model_params,
+        packed_layout,
+    )
+
+    _, mon, ds, dev = card_state
+    cat, num, mask = _ks_edge_batch(ds, mon.num_ref_sorted, s, b, seed=s + b)
+    outs = {}
+    for device in ("cpu", dev):
+        model = _exact_model(name).to(device)
+        program = (make_packed_predict_base if s == 1 else make_packed_grouped_base)(model)
+        inputs = [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (cat, num, mask)]
+        if s == 1:
+            inputs = [t[0] for t in inputs]
+        with torch.inference_mode():
+            packed, acc = program(
+                model_params(model), mon.to(device), init_accumulator(device),
+                torch.tensor(1.2, device=device), *inputs,
+            )
+        outs[str(device)] = (packed.cpu(), acc)
+    (got, got_acc), (want, want_acc) = outs["cuda"], outs["cpu"]
+    p, o, d = packed_layout(b)
+    assert (got[..., p] - want[..., p]).abs().max().item() <= 1.6e-2
+    numt = torch.from_numpy(num.reshape(-1, num.shape[-1]))
+    mon_cpu = mon.to("cpu")
+    d2 = mahalanobis_sq(numt, mon_cpu.out_mean, mon_cpu.out_precision)
+    off = ((d2 - mon_cpu.out_threshold).abs() > FLAG_BAND * mon_cpu.out_threshold.abs())
+    off = off.reshape(got[..., o].shape)
+    assert torch.equal(got[..., o][off], want[..., o][off])
+    assert torch.equal(got[..., d].isnan(), want[..., d].isnan())
+    assert (got[..., d] - want[..., d]).nan_to_num(0.0).abs().max().item() <= 1e-5
+    assert float(got_acc.rows) == float(want_acc.rows)
+    assert float(got_acc.batches) == float(want_acc.batches)

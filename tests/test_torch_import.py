@@ -84,7 +84,7 @@ def test_engine_needs_the_card_unless_asked_for_the_cpu(tmp_path):
         InferenceEngine(bundle)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InferenceEngine(bundle, device="cuda")
-    engine = InferenceEngine(bundle, buckets=(1, 8), device="cpu")
+    engine = InferenceEngine(bundle, buckets=(1, 8), serve_tier="quant", device="cpu")
     records = [{"age": 40.0}, {"sex": "female"}]
     response = engine.predict_records(records)
     assert len(response["predictions"]) == 2

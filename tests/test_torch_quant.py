@@ -245,17 +245,44 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_needs_cuda(state):
 
 
 def test_kernel_row_limit_follows_its_shared_memory_layout(state):
-    """Past 256 rows a K-S block of csrc/quant_fused.cu holds its
-    feature's two reference planes (2R floats) and one slot: its keys,
-    sorted column and ECDF table (3B + 1 words) and 13 words of
-    counters. The wrapper refuses one row more than fits in an H100
-    block's shared memory (232,448 bytes less 8,192 for static arrays),
-    before it looks for a card."""
+    """csrc/quant_fused.cu takes every rows-per-slot B and reference size
+    R. Up to 256 rows a K-S block keeps each slot's keys, sorted column
+    and ECDF table (3B + 1 words) and 13 words of counters in shared
+    memory, past 256 it sorts one slot through a global workspace (P
+    words, P = B rounded up to a power of two, with a shared chunk of
+    min(P, 4096)); the feature's two reference planes (2R floats) stay in
+    shared memory only while they fit beside the slot's words in an H100
+    block's 232,448 bytes less 8,192 for static arrays. The served shapes
+    (R = 2048, B <= 256) keep everything in shared memory; no shape is
+    refused before the wrapper looks for a card."""
     _, _, (tq, tm, temp), _ = state
     r = tm.num_ref_sorted.shape[1]
-    limit = tkernel.max_rows(r)
-    assert 4 * (2 * r + 3 * limit + 1 + 13) <= 232_448 - 8_192
-    assert 4 * (2 * r + 3 * (limit + 1) + 1 + 13) > 232_448 - 8_192
+    limit = 232_448 - 8_192
+    for b in range(1, 257):
+        route = tkernel.kernel_route(b, r)
+        assert (route.slots, route.planes, route.workspace_words) == (
+            "shared", "shared", 0
+        )
+    for b, rr in [(1, 2048), (33, 2048), (256, 2048), (257, 2048),
+                  (17_319, 2048), (65_536, 2048), (256, 32_768),
+                  (8, 32_768), (20_000, 32_768), (1, 28_000)]:
+        route = tkernel.kernel_route(b, rr)
+        pow2 = 1 << (b - 1).bit_length()
+        if b <= 256:
+            group = max(32, pow2)
+            slot_words = (256 // group) * (3 * b + 1 + 13)
+            assert (route.slots, route.workspace_words) == ("shared", 0)
+        else:
+            slot_words = min(pow2, 4096)
+            assert (route.slots, route.workspace_words) == ("global", pow2)
+        fits = 4 * (2 * rr + slot_words) <= limit
+        assert route.planes == ("shared" if fits else "global")
+        assert route.smem_bytes == 4 * ((2 * rr if fits else 0) + slot_words)
+        assert route.smem_bytes <= limit
+    # The old all-shared layout refused 17,319 rows at R = 2048; the planes of a
+    # 32,768-point reference (256 KB) never fit.
+    assert tkernel.kernel_route(1, 32_768).planes == "global"
+    assert tkernel.kernel_route(17_319, 2048).slots == "global"
 
     def args(b):
         return (
@@ -267,8 +294,6 @@ def test_kernel_row_limit_follows_its_shared_memory_layout(state):
             torch.ones((1, b), dtype=torch.bool),
         )
 
-    with pytest.raises(ValueError, match=f"exceed .*{limit} rows at R={r}"):
-        tkernel.fused_core_cuda(*args(limit + 1))
-    for b in (1, 32, 33, 256, 257, limit):
+    for b in (1, 32, 33, 256, 257, 17_318, 17_319):
         with pytest.raises(ValueError, match="CUDA tensors"):
             tkernel.fused_core_cuda(*args(b))

@@ -27,7 +27,7 @@ from mlops_tpu.bundle import load_bundle as jax_load_bundle
 from mlops_tpu.schema import LoanApplicant
 from mlops_tpu.serve.engine import InferenceEngine as JaxEngine
 from mlops_tpu_torch.bundle import load_bundle, save_quant_bundle
-from mlops_tpu_torch.config import ServeConfig
+from mlops_tpu_torch.config import ServeConfig, load_config
 from mlops_tpu_torch.data import generate_synthetic
 from mlops_tpu_torch.schema.validate import records_to_columns, validate_records
 from mlops_tpu_torch.serve.engine import InferenceEngine
@@ -159,17 +159,26 @@ def test_port_written_bundle_reads_back_in_both_packages(bundles, tmp_path):
 @pytest.fixture(scope="module")
 def engines(bundles):
     jb, tb = bundles
-    return JaxEngine(jb, serve_tier="quant"), InferenceEngine(tb, device="cpu")
+    return (
+        JaxEngine(jb, serve_tier="quant"),
+        InferenceEngine(tb, serve_tier="quant", device="cpu"),
+    )
 
 
 def test_engine_refuses_ungraded_or_unported_tiers(bundles, tmp_path):
+    """The exact tier is the default; a bundle without exact params
+    refuses it, an ungraded quant tier refuses quant, an unknown tier is
+    refused, and the config refuses sharded params (ROADMAP A11)."""
     _, tb = bundles
-    with pytest.raises(ValueError, match="not ported"):
-        InferenceEngine(tb, serve_tier="exact", device="cpu")
+    assert InferenceEngine(tb, device="cpu").serve_tier == "exact"
     with pytest.raises(ValueError, match="serve_tier"):
         InferenceEngine(tb, serve_tier="int4", device="cpu")
+    with pytest.raises(ValueError, match="A11"):
+        load_config(["serve.model_shards=2"])
     save_quant_bundle(tmp_path, tb.preprocessor, tb.monitor, tb.quant_params)
     with pytest.raises(ValueError, match="promotion gates"):
+        InferenceEngine(load_bundle(tmp_path), serve_tier="quant", device="cpu")
+    with pytest.raises(ValueError, match="no exact-tier params"):
         InferenceEngine(load_bundle(tmp_path), device="cpu")
 
 
@@ -206,7 +215,7 @@ def test_grouped_dispatch_matches_jax_engine(engines, bundles, rows):
 def test_monitor_snapshot_totals_match_jax_engine(bundles):
     jb, tb = bundles
     jax_engine = JaxEngine(jb, buckets=(1, 8, 64), serve_tier="quant")
-    engine = InferenceEngine(tb, buckets=(1, 8, 64), device="cpu")
+    engine = InferenceEngine(tb, buckets=(1, 8, 64), serve_tier="quant", device="cpu")
     ds = tb.preprocessor.encode(records_to_columns(_records(200, 7, drift=0.5)))
     for lo, hi in ((0, 1), (1, 9), (9, 60), (60, 61)):
         for eng in (jax_engine, engine):
@@ -226,7 +235,7 @@ def test_monitor_snapshot_totals_match_jax_engine(bundles):
 
 
 def test_warmup_leaves_the_monitor_untouched(bundles):
-    engine = InferenceEngine(bundles[1], buckets=(1, 8), device="cpu")
+    engine = InferenceEngine(bundles[1], buckets=(1, 8), serve_tier="quant", device="cpu")
     engine.warmup()
     assert engine.ready and engine.warmup_stats["programs"] == 2 + 12
     snap = engine.monitor_snapshot()
@@ -246,7 +255,9 @@ def _request(port, method, path, body=None):
 
 @pytest.fixture(scope="module")
 def http_server(bundles):
-    engine = InferenceEngine(bundles[1], buckets=(1, 8, 64), device="cpu")
+    engine = InferenceEngine(
+        bundles[1], buckets=(1, 8, 64), serve_tier="quant", device="cpu"
+    )
     server = HttpServer(engine, ServeConfig(host="127.0.0.1", port=0))
     loop = asyncio.new_event_loop()
     srv = loop.run_until_complete(server.start())
@@ -370,7 +381,7 @@ def test_cli_serves_on_the_cpu_and_drains_on_sigterm(quant_pipeline, tmp_path):
             [sys.executable, "-m", "mlops_tpu_torch", "serve",
              f"serve.model_directory={quant_pipeline}", f"serve.port={port}",
              "serve.host=127.0.0.1", "serve.device=cpu",
-             "serve.warmup_batch_sizes=1,8"],
+             "serve.warmup_batch_sizes=1,8", "serve.serve_tier=quant"],
             cwd=root, env=dict(os.environ, PYTHONPATH=str(root)),
             stdout=out, stderr=subprocess.STDOUT,
         )
