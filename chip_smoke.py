@@ -8,12 +8,13 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card of compute capability 9.0 and exits non-zero,
 printing no result, without one (or when run from a directory that holds
 this script and nothing else of the repository). It imports torch and the
-port (``mlops_tpu_torch``), never JAX or the JAX package. Four main
+port (``mlops_tpu_torch``), never JAX or the JAX package. Five main
 paths: quant-tier serving (``POST /predict`` with
 ``serve.serve_tier=quant``), long-context doc scoring (``predict-file`` on
 a ``doc`` bundle), doc-model training (``train --config
-configs/long_context_job.toml model.seq_parallel=false``) and exact-tier
-serving (``POST /predict`` on a ``flax`` bundle, the default tier).
+configs/long_context_job.toml model.seq_parallel=false``), exact-tier
+serving (``POST /predict`` on a ``flax`` bundle, the default tier) and
+exact-tier training (``train --config configs/train_register_job.toml``).
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -124,7 +125,31 @@ Phases, each of which fails the run loudly:
     tier) on the mlp-ens8 bundle answers the golden request and 5/64/256
     bodies like the CPU route and drains on SIGTERM, launching no
     kernel; ``predict-file`` on it, card against CPU; dispatch -> fetch
-    p50 of each model at bucket 1, bucket 256 and groups 64x1, 64x8.
+    p50 of each model at bucket 1, bucket 256 and groups 64x1, 64x8;
+18. exact-tier training, card against CPU (no kernel of its own): mlp
+    (hidden 256/256/128, embed 16), mlp-ens8, ft_transformer and bert
+    (token_dim 64, depth 3, 8 heads; BERT reads 48 tokens) and linear at
+    the config's widths, bf16, dropout 0, one seeded init on both: one
+    step's gradients leaf by leaf (cosine >= 0.98, norm ratio within
+    5 %), then 50 steps each way on the same batches of 256 rows (loss
+    curves within 0.05, 0.02 on average);
+19. the exact tier's training main path: ``python -m mlops_tpu_torch
+    train --config configs/train_register_job.toml`` in a subprocess at
+    the job's full config (mlp, 50,000 rows, batch 1024, 2,000 steps,
+    pos_weight 3, bf16), then mlp-ens8 (``train.distill_bulk=false``),
+    ft_transformer and bert with the steps cut to 200, eval every 100
+    (logged; widths the config's): each JSON line checked (finite metrics, one metrics.jsonl
+    row per window, the packaged step the best AUC's), each bundle on the
+    card against the CPU route at every bucket and group geometry
+    (phase 16's tolerances) and over HTTP (the golden request, no kernel
+    launched); then ``fit`` of the mlp config in this process for 200
+    steps on the card and on the CPU on the same batches, validation AUCs
+    within 0.01, no kernel launched (the counts set to 0 just before);
+20. exact-tier training timing per family at batch 1024: step ms (CUDA
+    events over 8 windows of 15 steps after warm-up: the median window,
+    with the fastest and slowest beside it), rows trained per second,
+    device kernels per step and the device's busy share of an unprofiled
+    step (``torch.profiler``), and the CLI's wall time.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -132,6 +157,7 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import http.client
 import json
@@ -206,6 +232,14 @@ def card_line() -> str:
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
     return smi.stdout.strip().splitlines()[0]
+
+
+def timed(phase, *args, **kwargs):
+    """Run one phase and log its wall time (the run's limit is the sum)."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    log(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def log_timing(label: str, row: dict) -> None:
@@ -891,14 +925,14 @@ def phase_doc_bundle(seed: int = 0) -> tuple[Path, Path]:
         generate_synthetic,
         write_csv_columns,
     )
-    from mlops_tpu_torch.models.bert import init_doc_params
+    from mlops_tpu_torch.models import init_params
     from mlops_tpu_torch.monitor.state import fit_monitor
     from mlops_tpu_torch.train.long_context import build_doc_model
 
     columns, _ = generate_synthetic(20000, seed=seed)
     prep = Preprocessor.fit(columns)
     config = _doc_config()
-    model = init_doc_params(build_doc_model(config), seed)
+    model = init_params(build_doc_model(config), seed)
     directory = WORK / "doc_bundle"
     shutil.rmtree(directory, ignore_errors=True)
     save_doc_bundle(
@@ -1194,7 +1228,7 @@ def phase_train_parity(config=None, batch: int = 64, steps: int = 30,
     import torch
 
     from mlops_tpu_torch.train.loop import sigmoid_bce
-    from mlops_tpu_torch.train.pipeline import _batch_indices
+    from mlops_tpu_torch.train.loop import batch_indices
 
     config = config or _doc_config()
     cat, num, lab = _train_documents(config, 20000, seed=3, device=device)
@@ -1203,7 +1237,7 @@ def phase_train_parity(config=None, batch: int = 64, steps: int = 30,
     per_step = (config.depth,) * 3 if on_card else (0, 0, 0)
 
     def batch_of(step):
-        idx = torch.from_numpy(_batch_indices(n_docs, batch, 0, step)).to(device)
+        idx = torch.from_numpy(batch_indices(n_docs, batch, 0, step)).to(device)
         return cat[idx], num[idx], lab[idx]
 
     grads = {}
@@ -1447,7 +1481,7 @@ def phase_c1_train(device: str = "cuda") -> dict:
     """A few training steps of the doc model at head_dim 8 and 128 through
     the flash kernels, against the same steps through dense attention.
     ``device="cpu"`` rehearses it (nothing launches there)."""
-    from mlops_tpu_torch.train.pipeline import _batch_indices
+    from mlops_tpu_torch.train.loop import batch_indices
 
     out = {}
     for d in C1_CONFIGS:
@@ -1460,7 +1494,7 @@ def phase_c1_train(device: str = "cuda") -> dict:
             losses = []
             _reset_launch_counts()
             for step in range(1, C1_STEPS + 1):
-                idx = _batch_indices(cat.shape[0], 64, 0, step)
+                idx = batch_indices(cat.shape[0], 64, 0, step)
                 losses.append(float(trainer.step(cat[idx], num[idx], lab[idx])))
             counts = _launch_counts()
             want = tuple(C1_STEPS * n for n in per_step) if route == "flash" else (0, 0, 0)
@@ -1737,9 +1771,9 @@ def _monitor_statistics(mon, cat, num, mask):
     return counts, ks
 
 
-def phase_exact_parity(dirs: dict, device: str = "cuda") -> dict:
+def phase_exact_parity(dirs: dict, device: str = "cuda", geometries=None) -> dict:
     """Each model's packed programs on ``device`` against the port's CPU
-    route at every bucket and group geometry."""
+    route at every bucket and group geometry (or at ``geometries``)."""
     import torch
 
     from mlops_tpu_torch.bundle import load_bundle
@@ -1753,7 +1787,7 @@ def phase_exact_parity(dirs: dict, device: str = "cuda") -> dict:
         prep = load_bundle(path).preprocessor
         mon_cpu = cpu[2][1]
         worst[name] = 0.0
-        for k, (s, b) in enumerate(_geometries()):
+        for k, (s, b) in enumerate(geometries or _geometries()):
             inputs = _inputs(prep, s, b, 900 + k, "cpu")
             if s == 1:
                 inputs = tuple(t[0] for t in inputs)
@@ -1787,7 +1821,7 @@ def phase_exact_parity(dirs: dict, device: str = "cuda") -> dict:
                 f"drift |err|={drift_err:.3g} flag mismatches={flag_diff} "
                 f"counts/K-S exact={stats_exact} counters exact={counters}")
             check(ok, f"exact tier {name} on {device} disagrees with the CPU at S={s} B={b}")
-    return {"max_pred_err": worst, "geometries": len(_geometries())}
+    return {"max_pred_err": worst, "geometries": len(geometries or _geometries())}
 
 
 def phase_exact_serve(dirs: dict, device: str = "cuda") -> dict:
@@ -1938,6 +1972,397 @@ def phase_exact_timing(dirs: dict) -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------- phase 18
+EXACT_JOB_TOML = "configs/train_register_job.toml"
+# The exact tier's families at full width: the job's model (mlp, hidden
+# 256/256/128, embed 16, bf16, the config's defaults), its 8-member
+# ensemble, the FT-Transformer and the single-record BERT at the config's
+# defaults (token_dim 64, depth 3, 8 heads), and the linear floor. The
+# ensemble and the transformers ship a bulk student in the JAX package
+# unless train.distill_bulk is off; the port refuses it (ROADMAP A7).
+EXACT_TRAIN_FAMILIES = {
+    "mlp": [],
+    "mlp-ens8": ["model.ensemble_size=8", "train.distill_bulk=false"],
+    "ft_transformer": ["model.family=ft_transformer", "train.distill_bulk=false"],
+    "bert": ["model.family=bert", "train.distill_bulk=false"],
+    "linear": ["model.family=linear"],
+}
+EXACT_CURVE_BATCH = 64  # phase 18's 50-step curves: the CPU side runs them too
+EXACT_CURVE_STEPS = 50
+EXACT_CUT_STEPS = 200  # of the job's 2,000, for mlp-ens8, ft_transformer, bert
+EXACT_CUT_EVAL_EVERY = 100  # of the job's 200
+# The trained bundles on the card against the CPU route: solo buckets 1
+# and 256, groups 64x1 and 64x8 (phase 16 checks every geometry).
+EXACT_TRAINED_GEOMETRIES = [(1, 1), (1, 256), (64, 1), (64, 8)]
+EXACT_AUC_STEPS = 200
+EXACT_AUC_GAP = 0.01
+
+
+def _job_config(extra, device: str):
+    from mlops_tpu_torch.config import load_config
+
+    return load_config([*extra, f"train.device={device}"], ROOT / EXACT_JOB_TOML)
+
+
+def _exact_split(config):
+    """The job's data as ``run_training`` reads it: ``data.rows``
+    synthetic rows from ``data.seed``, the preprocessor fitted on them,
+    the seed-2024 split."""
+    from mlops_tpu_torch.data import Preprocessor
+    from mlops_tpu_torch.train.pipeline import load_training_data, split_dataset
+
+    columns, labels = load_training_data(config)
+    ds = Preprocessor.fit(columns).encode(columns, labels)
+    return split_dataset(ds, config.data.valid_fraction)
+
+
+def _tensors(ds, device):
+    import numpy as np
+    import torch
+
+    return (torch.from_numpy(ds.cat_ids).to(device), torch.from_numpy(ds.numeric).to(device),
+            torch.from_numpy(np.asarray(ds.labels, np.float32)).to(device))
+
+
+def phase_exact_train_parity(families=None, extra: tuple[str, ...] = (),
+                             batch: int = EXACT_CURVE_BATCH,
+                             steps: int = EXACT_CURVE_STEPS, device: str = "cuda") -> dict:
+    """Each family at full width, dropout 0, the same seeded init on the
+    card and on the CPU: one step's gradients at the job's batch, leaf by
+    leaf (cosine >= 0.98, norm ratio within 5 %), then ``steps`` steps of
+    ``batch`` rows each way on the same batches (loss curves within 0.05,
+    0.02 on average). ``extra`` overrides and ``device="cpu"`` rehearse it
+    small on the CPU."""
+    import torch
+
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.train import loop
+
+    families = families or EXACT_TRAIN_FAMILIES
+    out = {}
+    train_ds = None
+    for name, fam_extra in families.items():
+        config = _job_config([*fam_extra, "model.dropout=0.0", f"train.steps={steps}",
+                              *extra], device)
+        if train_ds is None:
+            train_ds, _ = _exact_split(config)
+            host = _tensors(train_ds, "cpu")
+            n = host[0].shape[0]
+        models = {dev: init_params(build_model(config.model), 0).to(dev)
+                  for dev in (device, "cpu")}
+
+        def batch_of(step, dev, rows=batch):
+            idx = torch.from_numpy(loop.batch_indices(n, rows, 0, step))
+            return tuple(t[idx].to(dev) for t in host)
+
+        grads = {}
+        for dev, model in models.items():
+            loss = loop.training_loss(model, *batch_of(1, dev, config.train.batch_size),
+                                      None, config.train.pos_weight)
+            loss.backward()
+            grads[dev] = {k: p.grad.float().cpu().flatten() for k, p in model.named_parameters()}
+        stats = []
+        for k, want in grads["cpu"].items():
+            got = grads[device][k]
+            cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
+            ratio = (got.norm() / want.norm().clamp_min(1e-30)).item()
+            stats.append((k, cos, ratio))
+            check(cos >= GRAD_COSINE_MIN and abs(ratio - 1) <= GRAD_NORM_RTOL,
+                  f"{name} {k}: card vs CPU gradient cosine {cos:.5f}, norm ratio {ratio:.5f}")
+        curves = {}
+        for dev, model in models.items():
+            opt = loop.make_optimizer(model, config.train)
+            curves[dev] = [
+                float(loop.train_step(model, opt, config.train, s, *batch_of(s, dev)))
+                for s in range(1, steps + 1)
+            ]
+        gaps = [abs(a - b) for a, b in zip(curves[device], curves["cpu"])]
+        row = {
+            "grad_batch": config.train.batch_size, "curve_batch": batch, "steps": steps,
+            "params": sum(p.numel() for p in models["cpu"].parameters()),
+            "worst_cosine": min(s[1] for s in stats),
+            "worst_norm_ratio": max((s[2] for s in stats), key=lambda r: abs(r - 1)),
+            "max_gap": max(gaps), "mean_gap": sum(gaps) / len(gaps),
+            "first_loss": curves[device][0], "last_loss": curves[device][-1],
+        }
+        log(f"exact train parity {name} {json.dumps(row)}")
+        check(all(math.isfinite(v) for c in curves.values() for v in c),
+              f"{name}: non-finite training loss")
+        check(row["max_gap"] <= CURVE_MAX_GAP and row["mean_gap"] <= CURVE_MEAN_GAP,
+              f"{name}: card and CPU loss curves part: {row}")
+        out[name] = row
+        del models, grads
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- phase 19
+def _start_train_cli(name: str, extra, root: Path, device: str):
+    """``python -m mlops_tpu_torch train --config <job>`` in a subprocess,
+    started; ``_finish_train_cli`` waits for it."""
+    log_path = root / f"{name}.log"
+    root.mkdir(parents=True, exist_ok=True)
+    out = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mlops_tpu_torch", "train", "--config", EXACT_JOB_TOML,
+         *extra, f"registry.root={root / 'registry'}", f"registry.run_root={root / 'runs'}",
+         f"registry.run_name={name}", f"train.device={device}"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        stdout=subprocess.PIPE, stderr=out, text=True,
+    )
+    return proc, out, log_path, time.perf_counter()
+
+
+def _finish_train_cli(name: str, extra, started, device: str) -> tuple[dict, float]:
+    """The started run's JSON line checked against its metrics.jsonl (one
+    row per window, the packaged step the best validation AUC's)."""
+    proc, err, log_path, t0 = started
+    try:
+        stdout, _ = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        err.close()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"train {name} exited {proc.returncode}: {log_path.read_text()[-3000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    config = _job_config(extra, device)
+    steps, every = config.train.steps, max(1, min(config.train.eval_every, config.train.steps))
+    log(f"train {name}: {wall:.1f} s: {json.dumps(out)}")
+    check(set(out) == {"bundle", "model_uri", "run_dir", "steps", "packaged_step", "metrics"},
+          f"train {name} printed keys {sorted(out)}")
+    check(out["steps"] == steps, f"train {name} trained {out['steps']} steps, not {steps}")
+    check(len(out["metrics"]) == 5 and all(math.isfinite(v) for v in out["metrics"].values()),
+          f"train {name} metrics {out['metrics']}")
+    rows = [json.loads(line) for line in (Path(out["run_dir"]) / "metrics.jsonl").open()]
+    want_steps = list(range(every, steps + 1, every))
+    if want_steps[-1] != steps:
+        want_steps.append(steps)
+    check([r["step"] for r in rows] == want_steps,
+          f"train {name} metrics.jsonl steps {[r['step'] for r in rows]}")
+    best = max(rows, key=lambda r: r["validation_roc_auc_score"])
+    check(out["packaged_step"] == best["step"] and out["metrics"] == {
+        k: v for k, v in best.items() if k.startswith("validation_")},
+        f"train {name}: packaged step {out['packaged_step']}, best row {best['step']}")
+    manifest = json.loads((Path(out["bundle"]) / "manifest.json").read_text())
+    check(manifest["flavor"] == "flax" and manifest["calibration"]["temperature"] > 0,
+          f"train {name}: not a calibrated flax bundle")
+    return out, wall
+
+
+def _serve_golden(bundles: dict, device: str) -> dict:
+    """``python -m mlops_tpu_torch serve`` on each bundle at once (the
+    default tier, exact), the golden request to each, compared with the
+    CPU route; no kernel launches; each drains on SIGTERM."""
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    golden = json.loads((ROOT / "tests/golden/sample-request.json").read_text())
+    procs = {}
+    for name, path in bundles.items():
+        port = _free_port()
+        out = open(WORK / f"exact_train_server_{name}.log", "wb")
+        procs[name] = (port, out, subprocess.Popen(
+            [sys.executable, "-m", "mlops_tpu_torch", "serve",
+             f"serve.model_directory={path}", f"serve.port={port}",
+             "serve.host=127.0.0.1", f"serve.device={device}"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            stdout=out, stderr=subprocess.STDOUT,
+        ))
+    worst = {}
+    try:
+        for name, (port, _, proc) in procs.items():
+            deadline = time.monotonic() + 600
+            while True:
+                check(proc.poll() is None, f"{name} server exited early ({proc.returncode})")
+                try:
+                    if _http(port, "GET", "/healthz/ready")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                check(time.monotonic() < deadline, f"{name} server never became ready")
+                time.sleep(0.5)
+            status, body = _http(port, "POST", "/predict", json.dumps(golden).encode())
+            check(status == 200, f"{name} golden /predict answered {status}: {body[:200]}")
+            bundle = load_bundle(bundles[name])
+            want = InferenceEngine(bundle, device="cpu").predict_records(golden)
+            worst[name] = _compare_exact(json.loads(body), want, bundle, golden,
+                                         f"trained {name} golden http")
+            _, text = _http(port, "GET", "/metrics")
+            check(_metric(text.decode(), "mlops_tpu_kernel_launches_total") == 0,
+                  f"{name}: the exact tier launched a kernel")
+        for name, (port, out, proc) in procs.items():
+            proc.send_signal(signal.SIGTERM)
+            check(proc.wait(timeout=120) == 0, f"{name} server did not exit 0 after SIGTERM")
+            check("tier=exact" in (WORK / f"exact_train_server_{name}.log").read_text(),
+                  f"{name} server did not serve the exact tier")
+    finally:
+        for _, out, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            out.close()
+    return worst
+
+
+def phase_exact_train_path(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
+    """The exact tier's training main path: the job in a subprocess at
+    its full config (mlp), then mlp-ens8, ft_transformer and bert with
+    the steps cut; every bundle on the card against the CPU route at
+    every bucket and group geometry and over HTTP; then ``fit`` of the
+    mlp config in this process for 200 steps on the card and on the CPU
+    on the same batches (validation AUCs within 0.01), with the kernel
+    launch counts set to 0 just before and read after. ``extra`` and
+    ``device="cpu"`` rehearse it small on the CPU."""
+    import torch
+
+    from mlops_tpu_torch.models import build_model
+    from mlops_tpu_torch.ops import quant_kernel
+    from mlops_tpu_torch.train import loop
+
+    root = WORK / "exact_train"
+    shutil.rmtree(root, ignore_errors=True)
+    cut = [f"train.steps={EXACT_CUT_STEPS}", f"train.eval_every={EXACT_CUT_EVAL_EVERY}"]
+    runs = {name: [*fam_extra, *(cut if name != "mlp" else []), *extra]
+            for name, fam_extra in EXACT_TRAIN_FAMILIES.items() if name != "linear"}
+    config = _job_config(list(extra), device)
+    log(f"exact train: {EXACT_JOB_TOML} (rows {config.data.rows}, batch "
+        f"{config.train.batch_size}, {config.train.steps} steps, eval every "
+        f"{config.train.eval_every}, {config.model.family} {config.model.hidden_dims} "
+        f"{config.model.precision}, pos_weight {config.train.pos_weight}); mlp-ens8, "
+        f"ft_transformer and bert cut to {' '.join(cut)} (widths the config's)")
+    # The job alone (its wall is the time a retraining job holds the
+    # card), then the three cut runs at once.
+    clis, walls = {}, {}
+    clis["mlp"], walls["mlp"] = _finish_train_cli(
+        "mlp", runs["mlp"], _start_train_cli("mlp", runs["mlp"], root, device), device)
+    started = {name: _start_train_cli(name, args, root, device)
+               for name, args in runs.items() if name != "mlp"}
+    try:
+        for name, run in started.items():
+            clis[name], walls[name] = _finish_train_cli(name, runs[name], run, device)
+    finally:
+        for proc, *_ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    bundles = {name: Path(out["bundle"]) for name, out in clis.items()}
+    parity = phase_exact_parity(bundles, device, EXACT_TRAINED_GEOMETRIES)
+    http = _serve_golden(bundles, device)
+
+    train_ds, valid_ds = _exact_split(config)
+    cfg = dataclasses.replace(config.train, steps=EXACT_AUC_STEPS, eval_every=EXACT_AUC_STEPS)
+    _reset_launch_counts()
+    quant_kernel.quant_kernel_launches.reset()
+    fits = {dev: loop.fit(build_model(config.model), train_ds, valid_ds, cfg, device=dev)
+            for dev in (device, "cpu")}
+    launches = (*_launch_counts(), quant_kernel.quant_kernel_launches.value)
+    aucs = {dev: r.metrics["validation_roc_auc_score"] for dev, r in fits.items()}
+    log(f"exact train in process, {EXACT_AUC_STEPS} steps: validation AUC {aucs}; "
+        f"kernel launches flash fwd/dq/dkv/quant_fused {launches}")
+    check(launches == (0, 0, 0, 0), f"the dense trainer launched kernels {launches}")
+    check(abs(aucs[device] - aucs["cpu"]) <= EXACT_AUC_GAP,
+          f"card and CPU validation AUCs part: {aucs}")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "cli": {name: {"steps": out["steps"], "packaged_step": out["packaged_step"],
+                       "metrics": out["metrics"], "wall_s": walls[name]}
+                for name, out in clis.items()},
+        "bundle_parity": parity, "golden_http_max_pred_err": http,
+        "auc_card_vs_cpu": aucs, "launches": launches,
+    }
+
+
+# ----------------------------------------------------------------- phase 20
+TIMED_WINDOWS = 8  # the host paces these steps: its jitter shows as spread
+TIMED_STEPS = 15  # per window
+PROFILED_STEPS = 5
+
+
+def phase_exact_train_timing(cli_walls: dict) -> list[dict]:
+    """Each family's training step at the job's batch on the card: step
+    ms (CUDA events around each of 8 windows of 15 steps after 5 of
+    warm-up, with the host clock around the same windows; the median
+    window, and the fastest and slowest), rows trained per second at the
+    median, and under ``torch.profiler`` over 5 steps the device kernels
+    per step and the device's busy time, as a share of the median
+    unprofiled wall."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.train import loop
+
+    rows = []
+    data = None
+    for name, fam_extra in EXACT_TRAIN_FAMILIES.items():
+        config = _job_config(fam_extra, "cuda")
+        if data is None:
+            data = _tensors(_exact_split(config)[0], "cuda")
+            n = data[0].shape[0]
+        batch = config.train.batch_size
+        model = init_params(build_model(config.model), 0).to("cuda")
+        opt = loop.make_optimizer(model, config.train)
+        idx = torch.from_numpy(
+            np.stack([loop.batch_indices(n, batch, 0, s) for s in range(1, 41)])
+        ).to("cuda")
+        count = [0]
+
+        def step():
+            count[0] += 1
+            i = idx[count[0] % 40]
+            loop.train_step(model, opt, config.train, count[0], *(t[i] for t in data))
+
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        windows, walls = [], []
+        for _ in range(TIMED_WINDOWS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(TIMED_STEPS):
+                step()
+            end.record()
+            end.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
+            windows.append(start.elapsed_time(end) / TIMED_STEPS)
+        step_ms, wall_ms = float(np.median(windows)), float(np.median(walls))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILED_STEPS):
+                step()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)]
+        busy_us = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in device)
+        busy_ms = busy_us / 1e3 / PROFILED_STEPS
+        row = {
+            "model": name, "batch": batch, "precision": config.model.precision,
+            "params": sum(p.numel() for p in model.parameters()),
+            "step_ms": step_ms, "step_ms_min": min(windows),
+            "step_ms_max": max(windows), "windows": TIMED_WINDOWS,
+            "steps_per_window": TIMED_STEPS,
+            "rows_per_s": batch / step_ms * 1e3,
+            "wall_ms_per_step_unprofiled": wall_ms,
+            "device_kernels_per_step": sum(e.count for e in device) / PROFILED_STEPS,
+            "device_busy_ms_per_step": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "cli_wall_s": cli_walls.get(name),
+        }
+        log_timing("exact train timing", row)
+        rows.append(row)
+        del model, opt
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "mlops_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -1945,29 +2370,40 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     WORK.mkdir(parents=True, exist_ok=True)
+    # Bytecode goes to a cache in the work directory, for this process and
+    # every subprocess it starts: where the interpreter's site-packages
+    # cannot be written, each process would otherwise compile torch's
+    # modules anew (about 7 s), and the CLI walls would time that.
+    sys.pycache_prefix = str(WORK / "pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
     t0 = time.perf_counter()
     try:
-        phase_card()
-        phase_build()
-        bundle_dir = phase_bundle()
-        parity = phase_parity(bundle_dir)
-        served = phase_serve(bundle_dir)
-        timing = phase_timing(bundle_dir, served["engine"])
-        flash = phase_flash_parity()
-        doc_dir, history = phase_doc_bundle()
-        doc = phase_doc_path(doc_dir, history)
-        flash_timing = phase_flash_timing(doc_dir)
-        bwd = phase_bwd_parity()
-        train_parity = phase_train_parity()
-        trained = phase_train_path(history)
-        train_timing = phase_train_timing()
-        c1_train = phase_c1_train()
-        c1_timing = phase_c1_timing()
-        c2 = phase_c2(bundle_dir)
-        exact_dirs = phase_exact_bundles()
-        exact_parity = phase_exact_parity(exact_dirs)
-        exact = phase_exact_serve(exact_dirs)
-        exact_timing = phase_exact_timing(exact_dirs)
+        timed(phase_card)
+        timed(phase_build)
+        bundle_dir = timed(phase_bundle)
+        parity = timed(phase_parity, bundle_dir)
+        served = timed(phase_serve, bundle_dir)
+        timing = timed(phase_timing, bundle_dir, served["engine"])
+        flash = timed(phase_flash_parity)
+        doc_dir, history = timed(phase_doc_bundle)
+        doc = timed(phase_doc_path, doc_dir, history)
+        flash_timing = timed(phase_flash_timing, doc_dir)
+        bwd = timed(phase_bwd_parity)
+        train_parity = timed(phase_train_parity)
+        trained = timed(phase_train_path, history)
+        train_timing = timed(phase_train_timing)
+        c1_train = timed(phase_c1_train)
+        c1_timing = timed(phase_c1_timing)
+        c2 = timed(phase_c2, bundle_dir)
+        exact_dirs = timed(phase_exact_bundles)
+        exact_parity = timed(phase_exact_parity, exact_dirs)
+        exact = timed(phase_exact_serve, exact_dirs)
+        exact_timing = timed(phase_exact_timing, exact_dirs)
+        exact_train_parity = timed(phase_exact_train_parity)
+        exact_train = timed(phase_exact_train_path)
+        exact_train_timing = timed(
+            phase_exact_train_timing,
+            {name: row["wall_s"] for name, row in exact_train["cli"].items()})
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -2061,6 +2497,11 @@ def main() -> int:
             **bwd_common,
         }],
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
+        "exact_train": {
+            "parity": exact_train_parity,
+            "path": exact_train,
+            "timing": exact_train_timing,
+        },
         "train": {
             "parity": train_parity,
             "timing": train_timing,

@@ -7,9 +7,13 @@
   response JSON) or a record-history CSV with a ``doc`` bundle, and print
   one JSON line (``data.train_path=<csv> serve.model_directory=<bundle>
   [serve.max_batch=N]``);
-- ``train``: train the long-context doc model and print one JSON line
-  (``--config configs/long_context_job.toml model.seq_parallel=false
-  registry.root=<dir> registry.run_root=<dir>``).
+- ``train``: train an exact-tier model into a ``flax`` bundle
+  (``--config configs/train_register_job.toml``; linear, mlp, deep
+  ensembles with ``train.distill_bulk=false``, ``ft_transformer`` and
+  single-record ``bert`` with ``train.distill_bulk=false``) or the
+  long-context doc model into a ``doc`` bundle (``--config
+  configs/long_context_job.toml model.seq_parallel=false``), and print
+  one JSON line (``registry.root=<dir> registry.run_root=<dir>``).
 
 Every command takes ``--config <toml>`` and positional
 ``section.field=value`` overrides, as the JAX package's CLI does
@@ -42,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
             "data.train_path=<csv> serve.model_directory=<bundle>",
         ),
         "train": (
-            "train the long-context doc model into a doc bundle",
+            "train an exact-tier model or the long-context doc model into a bundle",
             "train.steps=200 registry.root=<dir>",
         ),
     }

@@ -1,9 +1,10 @@
-"""Offline subcommands: ``train`` (the long-context doc model) and
-``predict-file`` on a ``flax`` (exact tier) or ``doc`` bundle.
+"""Offline subcommands: ``train`` and ``predict-file`` on a ``flax``
+(exact tier) or ``doc`` bundle.
 
-``train`` is the JAX package's ``_train`` (``mlops_tpu/commands.py:96``)
-for doc configs: ``run_layout_training`` on ``train.device`` (the card
-unless ``cpu``), then the same JSON line. ``predict-file`` is the JAX
+``train`` is the JAX package's ``_train`` (``mlops_tpu/commands.py:96``):
+``run_layout_training`` for a layout config (the long-context doc model),
+else ``run_training`` (the exact tier's dense trainer), on
+``train.device`` (the card unless ``cpu``), then the same JSON line. ``predict-file`` is the JAX
 package's ``_predict_file`` / ``_predict_documents``
 (``mlops_tpu/commands.py:315-384``). On a ``flax`` bundle it is one
 exact-tier engine dispatch over the whole file (``buckets=(max_batch,)``,
@@ -31,12 +32,12 @@ from mlops_tpu_torch.train.long_context import check_doc_attention, group_docume
 
 
 def train(config: Config) -> dict:
-    """``train --config <toml> [overrides]`` on a doc config: the JSON the
-    JAX package prints (bundle, model_uri, run_dir, steps, packaged_step,
-    metrics)."""
-    from mlops_tpu_torch.train.pipeline import run_layout_training
+    """``train --config <toml> [overrides]``: the JSON the JAX package
+    prints (bundle, model_uri, run_dir, steps, packaged_step, metrics)."""
+    from mlops_tpu_torch.train.pipeline import run_layout_training, run_training
 
-    result = run_layout_training(config, run_name=config.registry.run_name or None)
+    run = run_layout_training if config.model.uses_layout_trainer else run_training
+    result = run(config, run_name=config.registry.run_name or None)
     return {
         "bundle": str(result.bundle_dir) if result.bundle_dir else None,
         "model_uri": result.model_uri,

@@ -73,10 +73,13 @@ class ModelConfig:
 @dataclasses.dataclass
 class TrainConfig:
     """The JAX package's ``TrainConfig`` (``mlops_tpu/config.py:98``),
-    field for field, plus ``device``. The doc trainer reads batch_size,
-    steps, learning_rate, weight_decay, seed, eval_every,
-    checkpoint_every, pos_weight, ema_decay, tensorboard_dir and
-    init_params (both refused when set), as the JAX doc trainer does."""
+    field for field, plus ``device``. The dense trainer reads what the JAX
+    ``fit`` reads (warmup_steps and keep_best too; the pipeline-parallel
+    knobs are not its); the doc trainer reads batch_size, steps,
+    learning_rate, weight_decay, seed, eval_every, checkpoint_every,
+    pos_weight and ema_decay, as the JAX doc trainer does.
+    tensorboard_dir, init_params, distill_quant and (for ensembles and
+    transformers) distill_bulk are refused when set."""
 
     batch_size: int = 1024
     steps: int = 2000
@@ -178,12 +181,16 @@ def load_config(
     overrides: list[str] | None = None, toml_path: str | Path | None = None
 ) -> Config:
     """Defaults <- TOML (``toml_path``) <- ``section.field=value``
-    overrides. Unknown keys raise."""
+    overrides. Unknown keys raise, except a TOML's ``[hpo]`` table, which
+    configures the ``tune`` command (not ported, ROADMAP A6) and is
+    skipped so a job file of both commands trains."""
     config = Config()
     if toml_path:
         with open(toml_path, "rb") as f:
             doc = tomllib.load(f)
         for section, fields in doc.items():
+            if section == "hpo":
+                continue
             for field, value in fields.items():
                 _apply(config, section, field, value)
     for item in overrides or []:

@@ -1,4 +1,6 @@
-"""The long-context document BERT of the JAX package's ``models/bert.py``.
+"""The BERT models of the JAX package's ``models/bert.py``: the
+single-record ``BertEncoder`` (48 tokens, the exact tier's ``bert``
+family) and the long-context document ``BertDocEncoder``.
 
 Records render as tokens with pure integer arithmetic (``tokenize``):
 ``[CLS] name_1 value_1 ... name_23 value_23 [SEP]``, categoricals as
@@ -8,15 +10,15 @@ bins of fixed standard-normal quantile edges. ``BertDocEncoder`` reads
 tokens (R = 11: 508) and scores the last record's default from the whole
 history. Module and parameter names follow the flax tree (``tok_embed``,
 ``pos_embed``, ``ln_embed``, ``block_i``, ``ln_final``, ``pooler``,
-``head``). With dropout 0 the training path is the eval path under
-autograd; the single-record ``BertEncoder`` and the masked-LM head are
-not ported yet.
+``head``). The doc model trains with dropout 0, where the training path
+is the eval path under autograd; ``BertEncoder`` takes the zoo's
+``train``/``generator`` and drops out after the embedding front and in
+its blocks. The masked-LM head is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from statistics import NormalDist
 from typing import Sequence
 
@@ -25,7 +27,12 @@ import torch
 from torch import nn
 
 from mlops_tpu_torch.models.ft_transformer import TransformerBlock
-from mlops_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from mlops_tpu_torch.models.layers import (
+    Dense,
+    Embed,
+    LayerNorm,
+    dropout,
+)
 
 PAD_ID, CLS_ID, SEP_ID, MASK_ID = 0, 1, 2, 3
 _SPECIAL = 4
@@ -142,6 +149,54 @@ def apply_cls_head(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return mod.head(pooled)[:, 0].float()
 
 
+class BertEncoder(nn.Module):
+    """Pre-LN BERT over the single-record token rendering:
+    ``(cat_ids, numeric) -> logits f32 [N]`` over 48 tokens, the
+    classifier reading [CLS] (dense attention: the sequence is far below
+    the flash kernels' length)."""
+
+    def __init__(
+        self,
+        cards: Sequence[int],
+        num_numeric: int,
+        hidden: int = 768,
+        depth: int = 12,
+        heads: int = 12,
+        dropout: float = 0.0,
+        num_bins: int = 32,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> None:
+        super().__init__()
+        self.layout = TokenLayout(tuple(cards), num_numeric, num_bins)
+        self.depth = depth
+        self.dropout = dropout
+        self.dtype = dtype
+        self.tok_embed = Embed(self.layout.vocab_size, hidden, dtype)
+        self.pos_embed = nn.Parameter(torch.zeros((self.layout.seq_len, hidden)))
+        self.ln_embed = LayerNorm(hidden, dtype)
+        for i in range(depth):
+            self.add_module(
+                f"block_{i}", TransformerBlock(heads, hidden, dtype, dropout)
+            )
+        self.ln_final = LayerNorm(hidden, dtype)
+        self.pooler = Dense((hidden, hidden), (hidden,), dtype)
+        self.head = Dense((hidden, 1), (1,), dtype)
+
+    def forward(
+        self,
+        cat_ids: torch.Tensor,
+        numeric: torch.Tensor,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        gen = generator if train else None
+        x = apply_embed_front(self, tokenize(cat_ids, numeric, self.layout))
+        x = dropout(x, self.dropout, gen)
+        for i in range(self.depth):
+            x = getattr(self, f"block_{i}")(x, gen)
+        return apply_cls_head(self, x)
+
+
 class BertDocEncoder(nn.Module):
     """Long-context BERT over record histories (dense attention).
 
@@ -186,46 +241,3 @@ class BertDocEncoder(nn.Module):
         for i in range(self.depth):
             x = getattr(self, f"block_{i}")(x)
         return apply_cls_head(self, x)
-
-
-# flax's truncated_normal(-2, 2) has standard deviation 0.8796...; its
-# variance_scaling divides the scale by this so the kept values have
-# variance scale / fan_in.
-_TRUNC_STD = 0.87962566103423978
-
-
-@torch.no_grad()
-def init_doc_params(model: BertDocEncoder, seed: int) -> BertDocEncoder:
-    """Seeded weights (numpy's generator) from flax's default
-    initializers, as a fresh flax model starts: Dense/DenseGeneral
-    kernels ``lecun_normal`` (a normal truncated at +-2 of its scale,
-    rescaled so its variance is 1/fan_in, fan_in the contracted
-    features), embedding rows N(0, 1/features), ``pos_embed`` N(0, 0.02^2),
-    biases 0, LayerNorm scales 1. The numbers differ from flax's (another
-    generator); their distributions do not."""
-    rng = np.random.default_rng(seed)
-
-    def normal(shape, std):
-        return torch.from_numpy((rng.standard_normal(shape) * std).astype(np.float32))
-
-    def lecun_normal(shape, fan_in):
-        x = rng.standard_normal(shape)
-        out = np.abs(x) > 2.0
-        while out.any():  # redraw what falls outside [-2, 2]
-            x[out] = rng.standard_normal(int(out.sum()))
-            out = np.abs(x) > 2.0
-        std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-        return torch.from_numpy((x * std).astype(np.float32))
-
-    for mod in model.modules():
-        if isinstance(mod, Dense):
-            mod.kernel.copy_(lecun_normal(mod.kernel.shape, mod.in_features))
-            mod.bias.zero_()
-        elif isinstance(mod, Embed):
-            shape = mod.embedding.shape
-            mod.embedding.copy_(normal(shape, 1.0 / math.sqrt(shape[1])))
-        elif isinstance(mod, LayerNorm):
-            mod.scale.fill_(1.0)
-            mod.bias.zero_()
-    model.pos_embed.copy_(normal(model.pos_embed.shape, 0.02))
-    return model

@@ -16,7 +16,7 @@ from torch import nn
 
 class DeepEnsemble(nn.Module):
     """K members stacked on a leading axis: ``(cat_ids, numeric) ->
-    logits [N]`` (f32)."""
+    logits [N]`` (f32) in eval, ``[K, N]`` in training."""
 
     def __init__(self, member: nn.Module, size: int) -> None:
         super().__init__()
@@ -25,8 +25,16 @@ class DeepEnsemble(nn.Module):
         self.member = member
         self.size = size
 
-    def forward(self, cat_ids: torch.Tensor, numeric: torch.Tensor) -> torch.Tensor:
-        logits = self.member(cat_ids, numeric)  # [K, N]
+    def forward(
+        self,
+        cat_ids: torch.Tensor,
+        numeric: torch.Tensor,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        logits = self.member(cat_ids, numeric, train, generator)  # [K, N]
+        if train:
+            return logits
         probs = torch.sigmoid(logits.float()).mean(dim=0)
         probs = torch.clamp(probs, 1e-7, 1.0 - 1e-7)
         return torch.log(probs) - torch.log1p(-probs)

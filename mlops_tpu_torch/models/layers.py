@@ -1,8 +1,10 @@
-"""Layers with flax's semantics: Dense, Embed, LayerNorm, self-attention.
+"""Layers with flax's semantics: Dense, Embed, LayerNorm, dropout and
+self-attention.
 
 Port of the JAX package's ``models/layers.py`` plus the flax layers the
-zoo builds on; with dropout 0 (the doc model's) training runs these same
-forwards under autograd. Parameters are f32 and named as flax names
+zoo builds on; training runs these same forwards under autograd, with
+dropout drawn from a ``torch.Generator`` the trainer passes in (eval
+passes none). Parameters are f32 and named as flax names
 them (``kernel``, ``bias``, ``embedding``, ``scale``), so a flax param
 tree flattened with ``.`` is the module's ``state_dict``. Compute runs in
 the model's type (``dtype``): inputs, kernels and biases are cast to it,
@@ -19,6 +21,7 @@ input shared (``[N, F]``) or per member (``[K, N, F]``).
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -56,8 +59,10 @@ class Dense(nn.Module):
 
 
 class Embed(nn.Module):
-    """flax ``nn.Embed``: the table cast to the model's type, then a
-    gather."""
+    """flax ``nn.Embed``: the table's rows in the model's type. The rows
+    are gathered and then cast, which gives flax's values (it casts the
+    table, then gathers) and lets the gradient of a row that many ids hit
+    accumulate in f32."""
 
     def __init__(
         self, num: int, features: int, dtype: torch.dtype, members: int = 0
@@ -69,8 +74,8 @@ class Embed(nn.Module):
         self.embedding = nn.Parameter(torch.zeros(lead + (num, features)))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        table = self.embedding.to(self.dtype)
-        return table[:, ids] if self.members else table[ids]
+        rows = self.embedding[:, ids] if self.members else self.embedding[ids]
+        return rows.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -99,6 +104,23 @@ class LayerNorm(nn.Module):
         return y.to(self.dtype)
 
 
+def dropout(
+    x: torch.Tensor, rate: float, generator: torch.Generator | None
+) -> torch.Tensor:
+    """flax ``nn.Dropout``: with a generator (training), keep each element
+    with probability ``1 - rate`` and divide the kept ones by ``1 - rate``
+    in the tensor's own type; without one (eval), or at rate 0, ``x`` as it
+    is. One draw covers the whole tensor, so the members of an ensemble
+    (a leading ``[K, ...]`` axis) draw masks of their own."""
+    if generator is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 class MultiHeadSelfAttention(nn.Module):
     """Self-attention through ``ops.attention.attend`` (the dense reference
     at short sequence, the flash kernels at ``S >= 128`` on the card; under
@@ -107,9 +129,13 @@ class MultiHeadSelfAttention(nn.Module):
     ``qkv`` is a DenseGeneral with kernel ``[dim, 3, heads, head_dim]`` and
     bias ``[3, heads, head_dim]``; ``out`` has kernel ``[heads, head_dim,
     dim]``. q, k and v reach the kernel as strided views of the qkv
-    projection. The ring (``attend_fn``) and padding masks belong to the
-    sequence-parallel path and the masked dense path, which are not
-    ported, and are refused."""
+    projection. With attention-weight dropout in training (``dropout >
+    0`` and a generator) the scores are materialized instead, as the JAX
+    module does, on the CPU and the card alike: ``einsum(q, k)`` in f32
+    times the scale, a softmax, dropout on the probabilities, which are
+    cast to v's type for ``einsum(p, v)``. The ring (``attend_fn``) and
+    padding masks belong to the sequence-parallel path and the masked
+    dense path, which are not ported, and are refused."""
 
     def __init__(
         self,
@@ -118,6 +144,7 @@ class MultiHeadSelfAttention(nn.Module):
         dtype: torch.dtype,
         use_flash: bool | None = None,
         attend_fn: Callable | None = None,
+        dropout: float = 0.0,
     ) -> None:
         super().__init__()
         if attend_fn is not None:
@@ -130,6 +157,7 @@ class MultiHeadSelfAttention(nn.Module):
         self.heads = heads
         self.head_dim = dim // heads
         self.use_flash = use_flash  # None = dispatch on device and length
+        self.dropout = dropout
         self.qkv = Dense(
             (dim, 3, heads, self.head_dim), (3, heads, self.head_dim), dtype
         )
@@ -139,7 +167,10 @@ class MultiHeadSelfAttention(nn.Module):
         )
 
     def forward(
-        self, x: torch.Tensor, mask: torch.Tensor | None = None
+        self,
+        x: torch.Tensor,
+        mask: torch.Tensor | None = None,
+        generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         if mask is not None:
             raise ValueError(
@@ -150,7 +181,13 @@ class MultiHeadSelfAttention(nn.Module):
         qkv = self.qkv(x.reshape(n * s, dim)).reshape(
             n, s, 3, self.heads, self.head_dim
         )
-        out = attend(
-            qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], use_flash=self.use_flash
-        )
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        if self.dropout > 0.0 and generator is not None:
+            scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (
+                1.0 / math.sqrt(self.head_dim)
+            )
+            probs = dropout(torch.softmax(scores, dim=-1), self.dropout, generator)
+            out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+        else:
+            out = attend(q, k, v, use_flash=self.use_flash)
         return self.out(out.reshape(n * s, dim)).reshape(n, s, dim)

@@ -4,8 +4,10 @@ Port of the JAX package's ``models/mlp.py`` on the flax-semantics layers
 of ``models/layers.py``: Dense kernels ``[in, out]``, LayerNorm with eps
 1e-6 and f32 statistics, ``nn.gelu``'s tanh approximation, compute in the
 model's type (bf16 by default) over f32 parameters, the logit cast to
-f32. Dropout is off: these modules score (eval), they do not train yet.
-Submodules carry flax's names (``CategoricalEmbed_0``, ``embed_j``,
+f32. ``forward(cat_ids, numeric, train=False, generator=None)`` is the
+zoo's calling convention: with ``train`` and the trainer's generator the
+MLP drops out after each block's GELU (``dropout``), as the flax module
+does; the linear model has no dropout. Submodules carry flax's names (``CategoricalEmbed_0``, ``embed_j``,
 ``stem``, ``ln_i``, ``dense_ia``/``dense_ib``, ``ln_out``, ``head``), so a
 flax param tree flattened with ``.`` is the module's ``state_dict``.
 
@@ -22,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mlops_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from mlops_tpu_torch.models.layers import Dense, Embed, LayerNorm, dropout
 
 
 class CategoricalEmbed(nn.Module):
@@ -77,7 +79,13 @@ class LinearModel(nn.Module):
         self.CategoricalEmbed_0 = CategoricalEmbed(cards, 1, dtype, members)
         self.head = Dense((len(cards) + num_numeric, 1), (1,), dtype, members=members)
 
-    def forward(self, cat_ids: torch.Tensor, numeric: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        cat_ids: torch.Tensor,
+        numeric: torch.Tensor,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
         x = _inputs(self.CategoricalEmbed_0, cat_ids, numeric, self.dtype, self.members)
         return self.head(x)[..., 0].float()
 
@@ -95,10 +103,12 @@ class MLP(nn.Module):
         hidden_dims: Sequence[int] = (256, 256, 128),
         dtype: torch.dtype = torch.bfloat16,
         members: int = 0,
+        dropout: float = 0.0,
     ) -> None:
         super().__init__()
         self.dtype = dtype
         self.members = members
+        self.dropout = dropout
         self.depth = len(hidden_dims)
         width0 = hidden_dims[0]
         self.CategoricalEmbed_0 = CategoricalEmbed(cards, embed_dim, dtype, members)
@@ -115,11 +125,19 @@ class MLP(nn.Module):
         self.ln_out = LayerNorm(width0, dtype, members=members)
         self.head = Dense((width0, 1), (1,), dtype, members=members)
 
-    def forward(self, cat_ids: torch.Tensor, numeric: torch.Tensor) -> torch.Tensor:
+    def forward(
+        self,
+        cat_ids: torch.Tensor,
+        numeric: torch.Tensor,
+        train: bool = False,
+        generator: torch.Generator | None = None,
+    ) -> torch.Tensor:
+        gen = generator if train else None
         x = _inputs(self.CategoricalEmbed_0, cat_ids, numeric, self.dtype, self.members)
         x = self.stem(x)
         for i in range(self.depth):
             h = getattr(self, f"ln_{i}")(x)
             h = F.gelu(getattr(self, f"dense_{i}a")(h), approximate="tanh")
+            h = dropout(h, self.dropout, gen)
             x = x + getattr(self, f"dense_{i}b")(h)
         return self.head(self.ln_out(x))[..., 0].float()

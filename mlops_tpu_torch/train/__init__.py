@@ -1,3 +1,4 @@
-"""Training: the long-context doc model's trainer on one card (documents,
-the train step, the loop's shared pieces, metrics, calibration,
-checkpoints and the pipeline that packages and registers a doc bundle)."""
+"""Training on one card: the exact tier's dense trainer (``loop.fit``,
+``pipeline.run_training``) and the long-context doc model's trainer,
+with what they share (the loss, the optimizer, metrics, calibration,
+checkpoints) and the pipeline that packages and registers a bundle."""

@@ -1,11 +1,14 @@
 """Checkpoints of a training run: every ``checkpoint_every`` steps and
 at the end, ``ckpt_<step>.pt`` beside a ``latest.json`` pointer, written
-atomically; a rerun resumes from the newest one that loads.
+atomically; a rerun resumes from the newest one that loads. Beside them,
+``train.keep_best``'s best-window snapshot (``save_best``/``load_best``),
+so a resumed run continues the comparison.
 
-The format is the port's own (``torch.save`` of the model, optimizer and
-EMA state with the step), read back with ``weights_only=True``. The JAX
-package checkpoints an optax ``opt_state`` tree of another layout, so
-checkpoints do not cross between the packages (bundles do)."""
+The format is the port's own (``torch.save`` of the model's params, the
+optimizer's state with its step count, and the EMA), read back with
+``weights_only=True``. The JAX package checkpoints an optax
+``opt_state`` tree of another layout, so checkpoints do not cross between
+the packages (bundles do)."""
 
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from pathlib import Path
 from typing import Any, Callable
 
 import torch
+from torch import nn
 
 from mlops_tpu_torch.utils.io import atomic_write
 
@@ -90,3 +94,82 @@ def load_checkpoint(
             stacklevel=2,
         )
     return None
+
+
+def train_state(
+    model: nn.Module, optimizer: Any, ema: dict[str, torch.Tensor] | None
+) -> dict[str, Any]:
+    """What a checkpoint holds: the params, the optimizer's state and the
+    EMA accumulator when there is one."""
+    state = {"model": model.state_dict(), "optimizer": optimizer.state_dict()}
+    if ema is not None:
+        state["ema"] = ema
+    return state
+
+
+def restore_train_state(
+    directory: str | Path,
+    model: nn.Module,
+    optimizer: Any,
+    ema: dict[str, torch.Tensor] | None,
+) -> int:
+    """Params, optimizer and EMA from the newest checkpoint in
+    ``directory`` that fits this run; the step to resume after (0 for a
+    fresh start, or when none fits: ``load_checkpoint`` warns)."""
+    if not has_checkpoints(directory):
+        return 0
+
+    def restore(state: dict[str, Any]) -> None:
+        want = model.state_dict()
+        got = state["model"]
+        if set(got) != set(want) or any(got[k].shape != want[k].shape for k in want):
+            raise ValueError("the model state does not fit this model")
+        if (state.get("ema") is None) != (ema is None):
+            raise ValueError("train.ema_decay was toggled between runs")
+        optimizer.load_state_dict(state["optimizer"])
+        model.load_state_dict(got)
+        if ema is not None:
+            for name, e in ema.items():
+                e.copy_(state["ema"][name])
+
+    return load_checkpoint(directory, restore) or 0
+
+
+BEST_PARAMS_NAME = "best_params.pt"
+BEST_RECORD_NAME = "best_record.json"
+
+
+def save_best(
+    directory: str | Path, params: dict[str, torch.Tensor], record: dict
+) -> None:
+    """Persist the best eval window's params and record
+    (``train.keep_best``)."""
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    buf = io.BytesIO()
+    torch.save(params, buf)
+    atomic_write(directory / BEST_PARAMS_NAME, buf.getvalue())
+    atomic_write(directory / BEST_RECORD_NAME, json.dumps(record).encode())
+
+
+def load_best(
+    directory: str | Path, template: dict[str, torch.Tensor]
+) -> tuple[dict[str, torch.Tensor], dict] | None:
+    """The persisted best snapshot, or None when it is absent, unreadable
+    or does not fit ``template`` (the params' names and shapes)."""
+    directory = Path(directory)
+    try:
+        params = torch.load(
+            io.BytesIO((directory / BEST_PARAMS_NAME).read_bytes()),
+            map_location="cpu",
+            weights_only=True,
+        )
+        record = json.loads((directory / BEST_RECORD_NAME).read_text())
+        float(record["validation_roc_auc_score"])
+    except (OSError, RuntimeError, ValueError, KeyError, TypeError):
+        return None
+    if set(params) != set(template) or any(
+        params[k].shape != template[k].shape for k in template
+    ):
+        return None
+    return params, record

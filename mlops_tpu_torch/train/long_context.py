@@ -13,8 +13,8 @@ import torch
 from mlops_tpu_torch.config import ModelConfig, TrainConfig
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.device import resolve_device
-from mlops_tpu_torch.models import DTYPES
-from mlops_tpu_torch.models.bert import BertDocEncoder, init_doc_params
+from mlops_tpu_torch.models import DTYPES, init_params
+from mlops_tpu_torch.models.bert import BertDocEncoder
 from mlops_tpu_torch.ops.attention import check_flash_head_dim
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.train.loop import sigmoid_bce, update_ema
@@ -57,7 +57,7 @@ def build_doc_model(
     config: ModelConfig, device: str | torch.device | None = None
 ) -> BertDocEncoder:
     """The dense ``BertDocEncoder`` of ``config``, on the CPU with zero
-    weights (load a bundle's params or ``init_doc_params`` into it).
+    weights (load a bundle's params or ``models.init_params`` into it).
     Dropout is 0, as in the JAX package's ``build_doc_model``;
     ``seq_parallel=true`` (the ring) is refused: it is not ported. With
     ``device``, the device the model will run on, a head_dim that has no
@@ -129,7 +129,7 @@ def make_doc_train_step(
             "port trains the dense doc model on one card"
         )
     dev = resolve_device(device if device is not None else train_config.device)
-    model = init_doc_params(build_doc_model(model_config, dev), seed).to(dev).train()
+    model = init_params(build_doc_model(model_config, dev), seed).to(dev).train()
     optimizer = torch.optim.AdamW(
         model.parameters(),
         lr=train_config.learning_rate,

@@ -1,41 +1,49 @@
-"""Training pipeline, the document route: data -> doc trainer ->
-calibration -> monitor -> bundle -> registry.
+"""Training pipeline: data -> trainer -> calibration -> monitor ->
+bundle -> registry.
 
-A port of the JAX package's ``train/pipeline.py`` for one card:
-``run_layout_training`` and ``_run_doc_training`` with their helpers
-(run directory, data, split, per-step batches, resume, checkpoints,
-packaging). The same config and data give the same batches in the same
-order as the JAX trainer, and the run writes the same artifacts:
-``metrics.jsonl``, ``doc_params.msgpack``, a ``doc`` bundle both
-packages load, and a registry version. Pipeline- and tensor-parallel
-training, the sequence-parallel ring and the dense single-record
-trainer (the exact tier) are not ported and are refused.
+A port of the JAX package's ``train/pipeline.py`` for one card, both
+routes with their helpers (run directory, data, split, resume,
+checkpoints, packaging):
+
+- ``run_training``, the dense single-record trainer of the exact tier
+  (linear, mlp, deep ensembles, FT-Transformer, single-record BERT):
+  ``loop.fit``, temperature calibration on the packaged params, a
+  ``flax`` bundle both packages load;
+- ``run_layout_training`` and ``_run_doc_training``, the long-context
+  doc model: a ``doc`` bundle and ``doc_params.msgpack``.
+
+The same config and data give the same batches in the same order on the
+CPU and the card; each run writes ``metrics.jsonl``, checkpoints, a
+bundle and a registry version. What the JAX ``train`` command accepts and
+the port does not train yet (pipeline- and tensor-parallel training, the
+sequence-parallel ring, bulk and quant students, pretrained trunks, the
+MoE and tree families) is refused before any work, naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
 import time
 from pathlib import Path
-from typing import Any, Callable
+from typing import Callable
 
 import numpy as np
 import torch
-from torch.func import functional_call
 
-from mlops_tpu_torch.bundle import msgpack, save_doc_bundle
+from mlops_tpu_torch.bundle import msgpack, save_doc_bundle, save_exact_bundle
 from mlops_tpu_torch.bundle.registry import ModelRegistry
 from mlops_tpu_torch.config import Config
 from mlops_tpu_torch.data import Preprocessor, generate_synthetic, load_csv_columns
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.device import resolve_device
+from mlops_tpu_torch.models import build_model
 from mlops_tpu_torch.monitor.state import fit_monitor
 from mlops_tpu_torch.train.calibrate import calibration_record
 from mlops_tpu_torch.train.checkpoint import (
-    has_checkpoints,
-    load_checkpoint,
+    restore_train_state,
     save_checkpoint,
+    train_state,
 )
 from mlops_tpu_torch.train.long_context import (
     DocTrainStep,
@@ -44,7 +52,15 @@ from mlops_tpu_torch.train.long_context import (
     make_doc_train_step,
     make_documents,
 )
-from mlops_tpu_torch.train.loop import TrainResult, metric_writers, packaged_or_raw
+from mlops_tpu_torch.train.loop import (
+    TrainResult,
+    batch_indices,
+    eval_logits,
+    fit,
+    journal_max_step,
+    metric_writers,
+    packaged_or_raw,
+)
 from mlops_tpu_torch.train.metrics import binary_metrics
 from mlops_tpu_torch.utils.io import atomic_write
 from mlops_tpu_torch.weights import load_params, unflatten_tree
@@ -94,29 +110,6 @@ def split_dataset(
     return ds.slice(perm[n_valid:]), ds.slice(perm[:n_valid])
 
 
-def _journal_max_step(path: Path) -> int:
-    """Highest step already in a metrics.jsonl (0 when absent), so a
-    resumed run appends no duplicate rows; unreadable lines are skipped."""
-    best = 0
-    try:
-        lines = path.read_text().splitlines()
-    except OSError:
-        return 0
-    for line in lines:
-        try:
-            best = max(best, int(json.loads(line)["step"]))
-        except (ValueError, KeyError, TypeError):
-            continue
-    return best
-
-
-def _batch_indices(n_rows: int, batch: int, seed: int, step: int) -> np.ndarray:
-    """Minibatch indices for ONE step, seeded by (seed, step), exactly as
-    the JAX trainer draws them: the data order is a function of the step,
-    so a resumed run sees the batches the interrupted one would have."""
-    return np.random.default_rng((seed, step)).integers(0, n_rows, batch)
-
-
 def _final_validation_metrics(
     history: list[dict], steps: int, fallback: Callable[[], dict]
 ) -> dict[str, float]:
@@ -134,44 +127,20 @@ def _layout_run_setup(tcfg, run_dir: Path, trainer: DocTrainStep):
     eval_every = max(1, min(tcfg.eval_every, tcfg.steps))
     ckpt_every = max(1, tcfg.checkpoint_every or eval_every)
     ckpt_dir = run_dir / "checkpoints"
-    start_step = _restore_layout_state(ckpt_dir, trainer)
-    journal_floor = _journal_max_step(run_dir / "metrics.jsonl")
+    start_step = restore_train_state(
+        ckpt_dir, trainer.model, trainer.optimizer, trainer.ema
+    )
+    journal_floor = journal_max_step(run_dir / "metrics.jsonl")
     return eval_every, ckpt_every, ckpt_dir, start_step, journal_floor
-
-
-def _restore_layout_state(ckpt_dir: Path, trainer: DocTrainStep) -> int:
-    """Model, optimizer and EMA from the newest checkpoint that fits this
-    trainer; the step to resume after (0 for a fresh start)."""
-    if not has_checkpoints(ckpt_dir):
-        return 0
-
-    def restore(state: dict[str, Any]) -> None:
-        want = trainer.model.state_dict()
-        got = state["model"]
-        if set(got) != set(want) or any(got[k].shape != want[k].shape for k in want):
-            raise ValueError("the model state does not fit this model")
-        if (state.get("ema") is None) != (trainer.ema is None):
-            raise ValueError("train.ema_decay was toggled between runs")
-        trainer.optimizer.load_state_dict(state["optimizer"])
-        trainer.model.load_state_dict(got)
-        if trainer.ema is not None:
-            for name, e in trainer.ema.items():
-                e.copy_(state["ema"][name])
-
-    return load_checkpoint(ckpt_dir, restore) or 0
 
 
 def _maybe_checkpoint(
     ckpt_dir: Path, trainer: DocTrainStep, step: int, ckpt_every: int, steps: int
 ) -> None:
     if step % ckpt_every == 0 or step == steps:
-        state = {
-            "model": trainer.model.state_dict(),
-            "optimizer": trainer.optimizer.state_dict(),
-        }
-        if trainer.ema is not None:
-            state["ema"] = trainer.ema
-        save_checkpoint(ckpt_dir, state, step)
+        save_checkpoint(
+            ckpt_dir, train_state(trainer.model, trainer.optimizer, trainer.ema), step
+        )
 
 
 def _package_and_register(
@@ -187,7 +156,7 @@ def _package_and_register(
     calibration: dict[str, float],
 ) -> tuple[Path, str | None]:
     """The packaging tail: fit the monitors on the training split, write
-    the ``doc`` bundle, register it."""
+    the bundle (``doc`` for a doc model, else ``flax``), register it."""
     bundle_dir = run_dir / "bundle"
     monitor = fit_monitor(
         train_ds,
@@ -195,7 +164,8 @@ def _package_and_register(
         seed=config.data.seed,
         outlier_quantile=config.monitor.outlier_quantile,
     )
-    save_doc_bundle(
+    save = save_doc_bundle if config.model.doc_records > 1 else save_exact_bundle
+    save(
         bundle_dir, config.model, model, preprocessor, monitor,
         calibration=calibration, tags=bundle_tags, metrics=metrics,
     )
@@ -212,11 +182,12 @@ def _refuse_unported(config: Config) -> None:
     train yet, refused before any work, each with its reason."""
     model = config.model
     if not model.uses_layout_trainer:
+        # The JAX package's guard: a dense config routed here would train
+        # a one-record "document" model.
         raise ValueError(
-            f"train with model.family={model.family!r} and doc_records="
-            f"{model.doc_records} is the dense single-record trainer (the "
-            "exact tier), which is not ported (ROADMAP.md A1); this package "
-            "trains the long-context doc model (model.doc_records > 1)"
+            "run_layout_training needs a layout knob set "
+            "(model.pipeline_stages / seq_parallel / doc_records>1); "
+            "dense configs train via run_training"
         )
     if model.pipeline_stages or model.tensor_parallel:
         raise ValueError(
@@ -236,6 +207,113 @@ def _refuse_unported(config: Config) -> None:
             "pretrained pos_embed covers one 48-token record, not a 2+46R "
             "document sequence"
         )
+
+
+# The JAX package's package-time distillation gate (``_maybe_distill``):
+# these models ship a bulk student unless train.distill_bulk is off.
+_BULK_STUDENT_FAMILIES = ("ft_transformer", "moe", "bert")
+
+
+def _refuse_unported_dense(config: Config) -> None:
+    """What the JAX ``run_training`` accepts and this package does not
+    train yet, refused before any work, each with its ROADMAP item."""
+    model, tcfg = config.model, config.train
+    if model.uses_layout_trainer:
+        raise ValueError(
+            "run_training trains the single-record dense model; multi-device "
+            "training layouts have dedicated trainers (model.doc_records -> "
+            "run_layout_training, which the `train` CLI dispatches to)"
+        )
+    if model.family in ("gbm", "rf"):
+        raise ValueError(
+            f"model.family={model.family!r} is the sklearn tree-ensemble floor, "
+            "which is not ported (ROADMAP.md A8)"
+        )
+    if model.family == "moe":
+        raise ValueError("model.family='moe' is not ported (ROADMAP.md A9)")
+    if tcfg.distill_bulk and (
+        model.ensemble_size > 1 or model.family in _BULK_STUDENT_FAMILIES
+    ):
+        raise ValueError(
+            "train.distill_bulk=true packages a bulk student "
+            "(bulk_params.msgpack, distill_for_bulk) for an ensemble or a "
+            "transformer family, which is not ported (ROADMAP.md A7): a bundle "
+            "without it would differ from the JAX package's; pass "
+            "train.distill_bulk=false"
+        )
+    if tcfg.distill_quant:
+        raise ValueError(
+            "train.distill_quant=true (the quant student, distill_quant_student) "
+            "is not ported (ROADMAP.md A5)"
+        )
+    if tcfg.init_params:
+        raise ValueError(
+            "train.init_params (a pretrained masked-LM trunk) is not ported "
+            "(ROADMAP.md A9)"
+        )
+    if tcfg.tensorboard_dir:
+        raise ValueError(
+            "train.tensorboard_dir is not ported (ROADMAP.md, queue C): this "
+            "package writes metrics.jsonl only; unset train.tensorboard_dir"
+        )
+    if config.data.train_path.endswith(".parquet"):
+        raise ValueError(
+            f"{config.data.train_path}: Parquet input is not ported "
+            "(ROADMAP.md, queue C); train from a CSV"
+        )
+
+
+def run_training(
+    config: Config, register: bool = True, run_name: str | None = None
+) -> PipelineResult:
+    """Train one exact-tier model per config on ``train.device`` (the
+    card unless "cpu") and package and register it as a ``flax`` bundle:
+    data, ``Preprocessor.fit``, the seed-2024 split, ``fit``, a
+    temperature fitted on the packaged params' validation logits, the
+    monitors, the bundle, the registry."""
+    _refuse_unported_dense(config)
+    device = resolve_device(config.train.device)
+    model = build_model(config.model)  # refuses what the zoo does not port
+    if register:
+        ModelRegistry(config.registry.root)  # refuses a gs:// root up front
+    run_name = run_name or time.strftime("%Y%m%d-%H%M%S")
+    run_dir = new_run_dir(config, run_name)
+    columns, labels = load_training_data(config)
+    preprocessor = Preprocessor.fit(columns)
+    ds = preprocessor.encode(columns, labels)
+    train_ds, valid_ds = split_dataset(ds, config.data.valid_fraction)
+    result = fit(
+        model, train_ds, valid_ds, config.train,
+        metrics_path=run_dir / "metrics.jsonl",
+        checkpoint_dir=run_dir / "checkpoints",
+        device=device,
+    )
+    packaged = load_params(build_model(config.model), result.params).to(device)
+    logits = eval_logits(
+        packaged,
+        dict(packaged.named_parameters()),
+        torch.from_numpy(valid_ds.cat_ids).to(device),
+        torch.from_numpy(valid_ds.numeric).to(device),
+    )
+    calibration = calibration_record(logits.cpu().numpy(), valid_ds.labels)
+    bundle_dir, model_uri = _package_and_register(
+        config,
+        run_dir,
+        packaged.cpu(),
+        preprocessor,
+        train_ds,
+        metrics=result.metrics,
+        bundle_tags={"run_name": run_name, "experiment": config.registry.experiment_name},
+        registry_tags={
+            "run_name": run_name,
+            **{k: f"{v:.6f}" for k, v in result.metrics.items()},
+        },
+        register=register,
+        calibration=calibration,
+    )
+    return PipelineResult(
+        bundle_dir=bundle_dir, model_uri=model_uri, train_result=result, run_dir=run_dir
+    )
 
 
 def run_layout_training(
@@ -282,15 +360,7 @@ def _run_doc_training(
     model = trainer.model
 
     def valid_doc_logits(params: dict[str, torch.Tensor]) -> torch.Tensor:
-        with torch.inference_mode():
-            chunks = [
-                functional_call(
-                    model, params,
-                    (vcat_d[lo: lo + EVAL_CHUNK], vnum_d[lo: lo + EVAL_CHUNK]),
-                )
-                for lo in range(0, vcat_d.shape[0], EVAL_CHUNK)
-            ]
-        return torch.cat(chunks) if chunks else torch.empty(0, device=device)
+        return eval_logits(model, params, vcat_d, vnum_d, EVAL_CHUNK)
 
     def doc_eval(params: dict[str, torch.Tensor]) -> dict[str, float]:
         metrics = binary_metrics(
@@ -310,7 +380,7 @@ def _run_doc_training(
     with metric_writers(run_dir / "metrics.jsonl", tcfg.tensorboard_dir) as emit:
         for step in range(start_step + 1, tcfg.steps + 1):
             idx = torch.from_numpy(
-                _batch_indices(dcat.shape[0], tcfg.batch_size, tcfg.seed, step)
+                batch_indices(dcat.shape[0], tcfg.batch_size, tcfg.seed, step)
             ).to(device)
             loss = trainer.step(dcat[idx], dnum[idx], dlab[idx])
             if step % eval_every == 0 or step == tcfg.steps:

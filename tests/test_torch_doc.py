@@ -41,7 +41,7 @@ from mlops_tpu_torch.bundle import load_bundle, msgpack, save_doc_bundle, save_q
 from mlops_tpu_torch.cli import main
 from mlops_tpu_torch.config import ModelConfig
 from mlops_tpu_torch.data import Preprocessor, generate_synthetic
-from mlops_tpu_torch.models import bert
+from mlops_tpu_torch.models import bert, init_params
 from mlops_tpu_torch.models.layers import MultiHeadSelfAttention
 from mlops_tpu_torch.monitor.state import fit_monitor
 from mlops_tpu_torch.ops import attention
@@ -270,7 +270,7 @@ def test_a_port_bundle_loads_and_predicts_in_jax(tmp_path, history_csv, capsys):
     kw = _config(3, "f32")
     columns, _ = generate_synthetic(600, seed=0)
     prep = Preprocessor.fit(columns)
-    model = bert.init_doc_params(build_doc_model(ModelConfig(**kw)), seed=4)
+    model = init_params(build_doc_model(ModelConfig(**kw)), seed=4)
     save_doc_bundle(
         tmp_path / "port_doc", ModelConfig(**kw), model, prep,
         fit_monitor(prep.encode(columns)), calibration={"temperature": 0.8},

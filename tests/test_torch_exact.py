@@ -143,11 +143,17 @@ def test_the_ensemble_holds_its_members_on_a_leading_axis():
 
 
 @pytest.mark.parametrize(
-    "family,item", [("ft_transformer", "A1c"), ("bert", "A1c"), ("moe", "A9"), ("gbm", "A8")]
+    "kw,item",
+    [
+        (dict(family="rf"), "A8"),
+        (dict(family="moe", ensemble_size=2), "A9"),
+        (dict(family="moe"), "A9"),
+        (dict(family="gbm"), "A8"),
+    ],
 )
-def test_build_model_refuses_the_families_it_does_not_port(family, item):
+def test_build_model_refuses_the_families_it_does_not_port(kw, item):
     with pytest.raises(ValueError, match=item):
-        build_model(ModelConfig(family=family))
+        build_model(ModelConfig(**kw))
 
 
 def test_a_param_tree_that_does_not_match_is_refused():
@@ -470,19 +476,19 @@ def test_the_tier_table(exact_bundles, tmp_path, caplog):
         load_config(["serve.model_shards=4"])
     # A bundle of a family the exact tier does not port loads without it.
     manifest = json.loads((exact_bundles["linear"] / "manifest.json").read_text())
-    manifest["model_config"]["family"] = "ft_transformer"
+    manifest["model_config"]["family"] = "moe"
     import shutil
 
-    shutil.copytree(exact_bundles["linear"], tmp_path / "ft")
-    (tmp_path / "ft" / "manifest.json").write_text(json.dumps(manifest))
-    ft = load_bundle(tmp_path / "ft")
-    assert ft.model is None and "A1c" in ft.exact_refusal
-    with pytest.raises(ValueError, match="A1c"):
-        InferenceEngine(ft, device="cpu")
+    shutil.copytree(exact_bundles["linear"], tmp_path / "moe")
+    (tmp_path / "moe" / "manifest.json").write_text(json.dumps(manifest))
+    moe = load_bundle(tmp_path / "moe")
+    assert moe.model is None and "A9" in moe.exact_refusal
+    with pytest.raises(ValueError, match="A9"):
+        InferenceEngine(moe, device="cpu")
     manifest["flavor"] = "sklearn"
-    (tmp_path / "ft" / "manifest.json").write_text(json.dumps(manifest))
+    (tmp_path / "moe" / "manifest.json").write_text(json.dumps(manifest))
     with pytest.raises(ValueError, match="A8"):
-        InferenceEngine(load_bundle(tmp_path / "ft"), device="cpu")
+        InferenceEngine(load_bundle(tmp_path / "moe"), device="cpu")
 
 
 def test_the_exact_tier_needs_the_card_unless_asked_for_the_cpu(exact_bundles):

@@ -576,3 +576,54 @@ def test_exact_tier_on_the_card_matches_the_cpu_route(card_state, name, s, b):
     assert (got[..., d] - want[..., d]).nan_to_num(0.0).abs().max().item() <= 1e-5
     assert float(got_acc.rows) == float(want_acc.rows)
     assert float(got_acc.batches) == float(want_acc.batches)
+
+
+# Tolerances, the dense trainer on the card: one step's gradients against
+# the CPU's on the same params and batch, per leaf a cosine of at least
+# 0.98 and a norm ratio within 5 % (bf16 products summed in another
+# order; the tolerance of chip_smoke.py's phase 18), the loss within 1e-2
+# relative; f32 within 1e-4 of each leaf's largest magnitude (TF32 is off,
+# so only the summation order differs).
+TRAIN_FAMILIES = {
+    "linear": dict(family="linear"),
+    "mlp": dict(family="mlp", hidden_dims=(64, 64, 32), embed_dim=8),
+    "mlp-ens4": dict(family="mlp", hidden_dims=(32, 16), embed_dim=4, ensemble_size=4),
+    "ft_transformer": dict(family="ft_transformer", token_dim=32, depth=2, heads=4),
+    "bert": dict(family="bert", token_dim=32, depth=2, heads=4),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("name", sorted(TRAIN_FAMILIES))
+def test_one_step_gradients_on_the_card_match_the_cpu(name, precision):
+    from mlops_tpu_torch.config import ModelConfig
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.schema.features import SCHEMA
+    from mlops_tpu_torch.train.loop import training_loss
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kw = dict(TRAIN_FAMILIES[name], precision=precision, dropout=0.0)
+    rng = np.random.default_rng(3)
+    cat = np.stack([rng.integers(0, c, 256) for c in SCHEMA.cards], axis=-1).astype(np.int32)
+    num = rng.normal(size=(256, SCHEMA.num_numeric)).astype(np.float32)
+    lab = (rng.random(256) < 0.3).astype(np.float32)
+    grads, losses = {}, {}
+    for device in ("cpu", "cuda"):
+        model = init_params(build_model(ModelConfig(**kw)), 0).to(device)
+        loss = training_loss(model, *(torch.from_numpy(a).to(device) for a in (cat, num, lab)),
+                             None, 3.0)
+        loss.backward()
+        losses[device] = loss.item()
+        grads[device] = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+    assert abs(losses["cuda"] - losses["cpu"]) <= 1e-2 * abs(losses["cpu"])
+    for k, want in grads["cpu"].items():
+        got = grads["cuda"][k]
+        if precision == "f32":
+            assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item(), k
+            continue
+        g, w = got.flatten(), want.flatten()
+        cos = torch.nn.functional.cosine_similarity(g, w, dim=0).item()
+        assert cos >= 0.98, (k, cos)
+        assert abs(g.norm().item() / w.norm().item() - 1) <= 0.05, k

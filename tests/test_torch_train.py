@@ -51,13 +51,14 @@ from mlops_tpu.train.loop import sigmoid_bce as jax_sigmoid_bce
 from mlops_tpu_torch.bundle import load_bundle, msgpack
 from mlops_tpu_torch.cli import main
 from mlops_tpu_torch.config import ModelConfig, TrainConfig, load_config
-from mlops_tpu_torch.models.bert import init_doc_params
+from mlops_tpu_torch.models import init_params
 from mlops_tpu_torch.models.layers import Dense, MultiHeadSelfAttention
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.train import calibrate, metrics
 from mlops_tpu_torch.train.long_context import build_doc_model, make_doc_train_step
 from mlops_tpu_torch.train.loop import debias_ema, packaged_or_raw, sigmoid_bce
-from mlops_tpu_torch.train.pipeline import _batch_indices, run_layout_training
+from mlops_tpu_torch.train.loop import batch_indices
+from mlops_tpu_torch.train.pipeline import run_layout_training
 from mlops_tpu_torch.weights import doc_params_from_numpy, flatten_tree, load_params
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -112,7 +113,7 @@ def jax_run():
     params, opt_state, ema = trainer.params, trainer.opt_state, trainer.ema
     losses = []
     for step in range(1, 6):
-        idx = _batch_indices(64, 8, 0, step)
+        idx = batch_indices(64, 8, 0, step)
         params, opt_state, ema, loss = trainer.step_fn(
             params, opt_state, ema, *(jnp.asarray(a[idx]) for a in docs)
         )
@@ -156,14 +157,14 @@ def test_one_step_loss_and_gradients_match_jax(jax_run, route):
         assert err <= GRAD_RTOL * np.abs(want).max(), name
     # The step's own loss is make_doc_train_step's first loss (same batch
     # rule, same params).
-    step_loss = trainer.step(*_t(*(a[_batch_indices(64, 8, 0, 1)] for a in jax_run["docs"])))
+    step_loss = trainer.step(*_t(*(a[batch_indices(64, 8, 0, 1)] for a in jax_run["docs"])))
     assert abs(float(step_loss) - jax_run["losses"][0]) <= 1e-6
 
 
 def test_loss_curve_matches_the_jax_trainer(jax_run):
     trainer = _port_trainer(jax_run["params"], flash=True)
     losses = [
-        float(trainer.step(*_t(*(a[_batch_indices(64, 8, 0, step)] for a in jax_run["docs"]))))
+        float(trainer.step(*_t(*(a[batch_indices(64, 8, 0, step)] for a in jax_run["docs"]))))
         for step in range(1, 6)
     ]
     assert np.abs(np.asarray(losses) - jax_run["losses"]).max() <= CURVE_TOL
@@ -213,7 +214,7 @@ def test_doc_trainer_accumulates_ema(jax_run):
 
 # -------------------------------------------------------- initializers
 def test_init_doc_params_follows_flax_initializers():
-    model = init_doc_params(
+    model = init_params(
         build_doc_model(ModelConfig(family="bert", doc_records=3, token_dim=64, heads=4, depth=1)),
         seed=3,
     )
@@ -266,6 +267,15 @@ def test_config_reads_the_job_toml_as_jax_does():
     assert tomllib.loads(toml.read_text())["model"]["seq_parallel"] is True
     with pytest.raises(KeyError, match="hpo.trials"):
         load_config(["hpo.trials=3"])
+    # The exact tier's job: its sections parse as the JAX package's; its
+    # [hpo] table (the tune command's, ROADMAP A6) is skipped.
+    job = ROOT / "configs" / "train_register_job.toml"
+    got, want = load_config([], toml_path=job), jax_load_config(job, env={})
+    for section in ("data", "model", "train"):
+        for field, value in dataclasses.asdict(getattr(got, section)).items():
+            if hasattr(getattr(want, section), field):
+                assert value == getattr(getattr(want, section), field), (section, field)
+    assert not hasattr(got, "hpo")
 
 
 # ------------------------------------------------------------ end to end
@@ -377,7 +387,7 @@ def test_a_rerun_with_the_same_run_name_resumes(tmp_path, capsys):
         (["model.seq_parallel=true"], "seq_parallel"),
         (["model.pipeline_stages=2"], "pipeline-parallel"),
         (["model.tensor_parallel=2"], "tensor-parallel"),
-        (["model.doc_records=1", "model.family=mlp"], "A1"),
+        (["model.doc_records=1", "model.family=mlp"], "run_training"),
         (["registry.root=gs://bucket/models"], "gs://"),
         (["train.tensorboard_dir=tb"], "tensorboard_dir"),
         (["train.init_params=pretrained.msgpack"], "init_params"),
