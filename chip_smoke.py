@@ -149,7 +149,31 @@ Phases, each of which fails the run loudly:
     events over 8 windows of 15 steps after warm-up: the median window,
     with the fastest and slowest beside it), rows trained per second,
     device kernels per step and the device's busy share of an unprofiled
-    step (``torch.profiler``), and the CLI's wall time.
+    step (``torch.profiler``), and the CLI's wall time;
+21. eager against CUDA-graph dispatch (the engines serve every program
+    from a graph captured at warmup; ``cuda_graphs=False`` runs the same
+    programs eagerly): for the quant tier and the linear, mlp and
+    mlp-ens8 exact tiers at bucket 1, bucket 256 and groups 64x1, 64x8,
+    the two routes' fetched arrays bitwise equal, then in turns
+    dispatch -> fetch p50/p99 with the spread of the turns, and under
+    ``torch.profiler`` the host's CUDA API calls (kernel and graph
+    launches), device ops and the device's busy share per dispatch;
+    each engine's capture seconds and graph pool bytes;
+22. concurrent traffic, the serving main path under load: ``python -m
+    mlops_tpu_torch serve serve.tier_routing=true`` on the mlp-ens8
+    bundle with a gated quant student, once as configured (the
+    micro-batcher on) and once with ``serve.batch_window_ms=0``, each
+    taking 2,000 single-record and 2,000 mixed 1..8-record requests at
+    1, 16 and 64 keep-alive connections (every fourth request asks for
+    ``x-slo-class: cheap``, the quant tier): every answer held against
+    the CPU route (phase 5 and 16 tolerances), /metrics rows equal to the
+    records sent, the quant_fused launches equal to the quant-tier
+    dispatches (graph replays), fewer dispatches than requests at
+    concurrency 64 with the batcher on; requests/s, p50/p99 and
+    dispatches (grouped ones too) per request.
+
+Every serving engine on the card dispatches through CUDA graphs, so the
+kernel's launches on the main path (phase 5) are counted at graph replay.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1926,23 +1950,27 @@ def _compare_exact(got: dict, want: dict, bundle, records, what: str) -> float:
     return p_err
 
 
+def _dispatch_call(engine, prep, s: int, b: int, seed: int):
+    """One dispatch -> fetch round trip as a call returning the fetched
+    arrays (``fetch_arrays_raw`` / ``fetch_group_raw``): a solo request
+    of ``b`` rows or a group of ``s`` requests (``_inputs``' rows and
+    mask)."""
+    cat, num, mask = (t.numpy() for t in _inputs(prep, s, b, seed, "cpu"))
+    if s == 1:
+        m = int(mask[0].sum())
+        return lambda: engine.fetch_arrays_raw(
+            engine.dispatch_arrays(cat[0, :m], num[0, :m]))
+    parts = [(cat[i, : mask[i].sum()], num[i, : mask[i].sum()])
+             for i in range(s) if mask[i].any()]
+    return lambda: engine.fetch_group_raw(engine.dispatch_group_arrays(parts))[1:]
+
+
 def _dispatch_fetch_p50(engine, prep, s: int, b: int, seed: int, n: int = 100) -> float:
     """Host wall ms of one dispatch -> fetch round trip (median of ``n``)
     for a solo request of ``b`` rows or a group of ``s`` requests."""
     import numpy as np
 
-    cat, num, mask = (t.numpy() for t in _inputs(prep, s, b, seed, "cpu"))
-    if s == 1:
-        m = int(mask[0].sum())
-
-        def call():
-            engine.fetch_arrays_raw(engine.dispatch_arrays(cat[0, :m], num[0, :m]))
-    else:
-        parts = [(cat[i, : mask[i].sum()], num[i, : mask[i].sum()])
-                 for i in range(s) if mask[i].any()]
-
-        def call():
-            engine.fetch_group_raw(engine.dispatch_group_arrays(parts))
+    call = _dispatch_call(engine, prep, s, b, seed)
     for _ in range(10):
         call()
     times = []
@@ -2363,6 +2391,364 @@ def phase_exact_train_timing(cli_walls: dict) -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------- phase 21
+ROUTE_SHAPES = [(1, 1), (1, 256), (64, 1), (64, 8)]
+ROUTE_ROUNDS = 4  # eager and graph take turns, this many times each
+ROUTE_ITERS = 25  # dispatches per turn
+ROUTE_PROFILED = 10  # dispatches per route under torch.profiler
+_KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                        "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def _route_profile(call, n: int) -> dict:
+    """``n`` calls under ``torch.profiler``: the host's CUDA API calls
+    per dispatch (kernel launches, graph launches, all), the device ops
+    per dispatch and the device's busy share of the profiled wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            call()
+        wall_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    api = {e.key: e.count for e in events if e.device_type == DeviceType.CPU
+           and e.key.startswith(("cuda", "cu"))}
+    busy_s = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in device) / 1e6
+    return {
+        "kernel_launch_calls": sum(api.get(k, 0) for k in _KERNEL_LAUNCH_CALLS) / n,
+        "graph_launch_calls": api.get("cudaGraphLaunch", 0) / n,
+        "cuda_api_calls": sum(api.values()) / n,
+        "device_ops": sum(e.count for e in device) / n,
+        "device_busy_share": busy_s / wall_s,
+    }
+
+
+def phase_dispatch_routes(bundle_dir: Path, dirs: dict) -> list[dict]:
+    """Eager against CUDA-graph dispatch on the card, in one call and in
+    turns: for the quant bundle (quant tier) and the linear, mlp and
+    mlp-ens8 bundles (exact tier), an engine of each route, and at bucket
+    1, bucket 256 and groups 64x1, 64x8 the packed outputs of the two
+    routes (bitwise equal), dispatch -> fetch p50 and p99 over
+    ROUTE_ROUNDS x ROUTE_ITERS round trips a route with the spread of the
+    turns' p50s, and each route's profile (``_route_profile``)."""
+    import numpy as np
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    models = {"quant": (bundle_dir, "quant"),
+              **{name: (path, "exact") for name, path in dirs.items()}}
+    rows = []
+    for name, (path, tier) in models.items():
+        bundle = load_bundle(path)
+        engines = {"eager": InferenceEngine(bundle, serve_tier=tier, cuda_graphs=False),
+                   "graph": InferenceEngine(bundle, serve_tier=tier)}
+        for engine in engines.values():
+            engine.warmup()
+        stats = engines["graph"].warmup_stats
+        row = {"model": name, "tier": tier, "capture_s": stats["capture_s"],
+               "graph_pool_bytes": stats["graph_pool_bytes"],
+               "graphs": stats["programs"]}
+        for k, (s, b) in enumerate(ROUTE_SHAPES):
+            calls = {route: _dispatch_call(e, bundle.preprocessor, s, b, 970 + k)
+                     for route, e in engines.items()}
+            outs = {route: call() for route, call in calls.items()}
+            same = all(np.array_equal(e.view(np.uint64), g.view(np.uint64))
+                       for e, g in zip(outs["eager"], outs["graph"]))
+            check(same, f"{name} {s}x{b}: graph replay differs from the eager program")
+            for call in calls.values():
+                for _ in range(5):
+                    call()
+            times = {route: [] for route in calls}
+            turns = {route: [] for route in calls}
+            for r in range(ROUTE_ROUNDS):
+                for route in (("eager", "graph") if r % 2 == 0 else ("graph", "eager")):
+                    t = []
+                    for _ in range(ROUTE_ITERS):
+                        t0 = time.perf_counter()
+                        calls[route]()
+                        t.append((time.perf_counter() - t0) * 1e3)
+                    times[route] += t
+                    turns[route].append(float(np.median(t)))
+            row[f"{s}x{b}"] = {
+                route: {
+                    "p50_ms": float(np.percentile(times[route], 50)),
+                    "p99_ms": float(np.percentile(times[route], 99)),
+                    "turn_p50_ms_min": min(turns[route]),
+                    "turn_p50_ms_max": max(turns[route]),
+                    **_route_profile(calls[route], ROUTE_PROFILED),
+                }
+                for route in calls
+            }
+            row[f"{s}x{b}"]["bitwise_equal"] = same
+        log_timing("dispatch routes", row)
+        rows.append(row)
+    return rows
+
+
+# ----------------------------------------------------------------- phase 22
+BURST_REQUESTS = 2000
+BURST_CONCURRENCY = (1, 16, 64)
+BURST_CHEAP_EVERY = 4  # every 4th request asks for x-slo-class: cheap
+
+
+def phase_burst_bundle(dirs: dict) -> Path:
+    """The mlp-ens8 bundle with a gated quant student beside its exact
+    tier (seeded student weights)."""
+    from mlops_tpu_torch.bundle import load_bundle, save_exact_bundle
+    from mlops_tpu_torch.ops.quant import init_quant_master, quantize_student
+
+    bundle = load_bundle(dirs["mlp-ens8"])
+    directory = WORK / "exact_mlp-ens8_quant"
+    shutil.rmtree(directory, ignore_errors=True)
+    save_exact_bundle(
+        directory, bundle.model_config, bundle.model, bundle.preprocessor,
+        bundle.monitor, calibration={"temperature": bundle.temperature},
+        quant_params=quantize_student(init_quant_master(1)),
+        quant={"fidelity": {}, "temperature": 1.0, "gates": {
+            "passed": True,
+            "note": "seeded weights, not distilled: this bundle checks "
+            "parity, not quality"}},
+        tags={"source": "chip_smoke.py"},
+    )
+    return directory
+
+
+def _burst_set(bundle, cpu, kind: str, seed: int) -> dict:
+    """BURST_REQUESTS requests (``single``: one record each; ``mixed``:
+    1..8), their bodies and headers, and what the CPU route answers each
+    (grouped 64 at a time, tier by tier), with the tolerances of phases
+    5 and 16 and each request's rows off the flag threshold band."""
+    import numpy as np
+    import torch
+
+    from mlops_tpu_torch.schema.validate import records_to_columns
+
+    rng = np.random.default_rng(seed)
+    sizes = (np.ones(BURST_REQUESTS, int) if kind == "single"
+             else rng.integers(1, 9, size=BURST_REQUESTS))
+    pool = _records(int(sizes.sum()), seed, drift=0.3)
+    bounds = np.cumsum([0, *sizes])
+    requests = [pool[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+    cheap = [i % BURST_CHEAP_EVERY == 0 for i in range(BURST_REQUESTS)]
+    wants = [None] * BURST_REQUESTS
+    for tier in (True, False):
+        idx = [i for i in range(BURST_REQUESTS) if cheap[i] == tier]
+        for lo in range(0, len(idx), 64):
+            chunk = idx[lo:lo + 64]
+            got = cpu.predict_group([requests[i] for i in chunk],
+                                    tier="quant" if tier else None)
+            for i, want in zip(chunk, got):
+                wants[i] = want
+    ds = bundle.preprocessor.encode(records_to_columns(pool))
+    near = _near_threshold(bundle.monitor, torch.from_numpy(ds.numeric),
+                           torch.ones(len(pool), dtype=torch.bool)).numpy()
+    return {
+        "kind": kind,
+        "bodies": [json.dumps(r).encode() for r in requests],
+        "headers": ["x-slo-class: cheap\r\n" if c else "" for c in cheap],
+        "rows": int(sizes.sum()),
+        "cheap": sum(cheap),
+        "want": [(np.asarray(w["predictions"]),
+                  np.asarray(list(w["feature_drift_batch"].values())),
+                  np.asarray(w["outliers"])) for w in wants],
+        "off_band": [~near[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])],
+        "tol": [(PRED_ATOL, DRIFT_ATOL) if c else
+                (EXACT_PRED_ATOL + 1e-6, EXACT_DRIFT_ATOL + 1e-6) for c in cheap],
+    }
+
+
+async def _burst_client(port: int, burst: dict, order, out: list, lat: list) -> None:
+    """One keep-alive connection sending requests of ``burst`` as
+    ``order`` hands them out, recording each answer and its latency."""
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        for i in order:
+            body = burst["bodies"][i]
+            head = (f"POST /predict HTTP/1.1\r\nhost: localhost\r\n"
+                    f"content-type: application/json\r\n{burst['headers'][i]}"
+                    f"content-length: {len(body)}\r\n\r\n").encode()
+            t0 = time.perf_counter()
+            writer.write(head + body)
+            status = int((await reader.readline()).split()[1])
+            length = 0
+            while (line := await reader.readline()) not in (b"\r\n", b""):
+                name, _, value = line.decode("latin1").partition(":")
+                if name.strip().lower() == "content-length":
+                    length = int(value)
+            payload = await reader.readexactly(length)
+            lat[i] = (time.perf_counter() - t0) * 1e3
+            out[i] = (status, payload)
+    finally:
+        writer.close()
+
+
+def _run_burst(port: int, burst: dict, concurrency: int) -> tuple[list, list, float]:
+    import asyncio
+
+    n = len(burst["bodies"])
+    out, lat = [None] * n, [0.0] * n
+    order = iter(range(n))
+
+    async def main():
+        await asyncio.gather(*(_burst_client(port, burst, order, out, lat)
+                               for _ in range(concurrency)))
+
+    t0 = time.perf_counter()
+    asyncio.run(main())
+    return out, lat, time.perf_counter() - t0
+
+
+def _check_burst(burst: dict, out: list, what: str) -> dict:
+    import numpy as np
+
+    worst = {"pred": 0.0, "drift": 0.0}
+    for i, (status, payload) in enumerate(out):
+        check(status == 200, f"{what}: request {i} answered {status}: {payload[:200]}")
+        got = json.loads(payload)
+        preds, drift, flags = burst["want"][i]
+        p_tol, d_tol = burst["tol"][i]
+        p_err = float(np.abs(np.asarray(got["predictions"]) - preds).max())
+        d_err = float(np.abs(np.asarray(list(got["feature_drift_batch"].values()))
+                             - drift).max())
+        off = burst["off_band"][i]
+        flag_diff = int((np.asarray(got["outliers"])[off] != flags[off]).sum())
+        check(p_err <= p_tol and d_err <= d_tol and flag_diff == 0,
+              f"{what}: request {i} disagrees with the CPU route "
+              f"(preds {p_err:.3g}, drift {d_err:.3g}, flags {flag_diff})")
+        worst["pred"] = max(worst["pred"], p_err)
+        worst["drift"] = max(worst["drift"], d_err)
+    return worst
+
+
+def _scrape(port: int) -> dict:
+    """The /metrics numbers the burst phase reads: rows, demotions, kernel
+    launches and dispatches (all, grouped, quant-tier)."""
+    _, text = _http(port, "GET", "/metrics")
+    text = text.decode()
+    out = {"rows": _metric(text, "mlops_tpu_rows_scored_total"),
+           "demotions": _metric(text, "mlops_tpu_tier_demotions_total"),
+           "launches": _metric(text, "mlops_tpu_kernel_launches_total"),
+           "dispatches": 0.0, "group_dispatches": 0.0, "quant_dispatches": 0.0}
+    for line in text.splitlines():
+        if line.startswith("mlops_tpu_dispatches_total{"):
+            entry = line.split('"')[1]
+            n = float(line.rsplit(" ", 1)[1])
+            out["dispatches"] += n
+            out["group_dispatches"] += n * entry.startswith("group_")
+            out["quant_dispatches"] += n * entry.endswith("@quant")
+    return out
+
+
+def phase_burst(bundle_dir: Path, device: str = "cuda") -> list[dict]:
+    """Concurrent traffic through the micro-batcher on the main path:
+    ``python -m mlops_tpu_torch serve serve.tier_routing=true`` on the
+    exact mlp-ens8 bundle with a gated quant tier, twice in subprocesses
+    (the batcher on, as configured by default, and off with
+    ``serve.batch_window_ms=0``). Each takes BURST_REQUESTS single-record
+    and BURST_REQUESTS mixed 1..8-record requests (every
+    BURST_CHEAP_EVERY-th asking for the cheap class, so the quant tier)
+    at each of BURST_CONCURRENCY keep-alive connections, servers in
+    turns. Every answer agrees with the CPU route; /metrics rows equal
+    the records sent, no default-class request was demoted, the
+    quant_fused launches equal the quant-tier dispatches, and at
+    concurrency 64 the batcher makes fewer dispatches than requests.
+    Logs requests/s, latency p50/p99 and dispatches (grouped ones too)
+    per request."""
+    import numpy as np
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    bundle = load_bundle(bundle_dir)
+    cpu = InferenceEngine(bundle, device="cpu", tier_routing=True)
+    bursts = [_burst_set(bundle, cpu, kind, seed)
+              for kind, seed in (("single", 41), ("mixed", 42))]
+    modes = {"batcher": [], "window_0": ["serve.batch_window_ms=0"]}
+    servers = {}
+    for mode, extra in modes.items():
+        port = _free_port()
+        out = open(WORK / f"burst_server_{mode}.log", "wb")
+        servers[mode] = (port, out, subprocess.Popen(
+            [sys.executable, "-m", "mlops_tpu_torch", "serve",
+             f"serve.model_directory={bundle_dir}", f"serve.port={port}",
+             "serve.host=127.0.0.1", f"serve.device={device}",
+             "serve.tier_routing=true", *extra],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            stdout=out, stderr=subprocess.STDOUT,
+        ))
+    rows = []
+    try:
+        for mode, (port, _, proc) in servers.items():
+            deadline = time.monotonic() + 600
+            while True:
+                check(proc.poll() is None, f"burst server {mode} exited early "
+                      f"({proc.returncode}); see {WORK}/burst_server_{mode}.log")
+                try:
+                    if _http(port, "GET", "/healthz/ready")[0] == 200:
+                        break
+                except OSError:
+                    pass
+                check(time.monotonic() < deadline, f"burst server {mode} never became ready")
+                time.sleep(0.5)
+        for burst in bursts:
+            for concurrency in BURST_CONCURRENCY:
+                for mode, (port, _, _) in servers.items():
+                    before = _scrape(port)
+                    out, lat, wall = _run_burst(port, burst, concurrency)
+                    after = _scrape(port)
+                    what = f"burst {burst['kind']} c={concurrency} {mode}"
+                    worst = _check_burst(burst, out, what)
+                    d = {k: after[k] - before[k] for k in before}
+                    check(d["rows"] == burst["rows"],
+                          f"{what}: /metrics rows {d['rows']} != records sent {burst['rows']}")
+                    check(d["demotions"] == 0, f"{what}: {d['demotions']} demotions")
+                    expected = d["quant_dispatches"] if device == "cuda" else 0
+                    check(d["launches"] == expected,
+                          f"{what}: {d['launches']} quant_fused launches for "
+                          f"{d['quant_dispatches']} quant-tier dispatches")
+                    if mode == "batcher" and concurrency == 64:
+                        check(d["dispatches"] < BURST_REQUESTS,
+                              f"{what}: {d['dispatches']} dispatches, nothing coalesced")
+                    row = {
+                        "kind": burst["kind"], "concurrency": concurrency, "mode": mode,
+                        "requests": BURST_REQUESTS, "records": burst["rows"],
+                        "cheap_requests": burst["cheap"],
+                        "requests_per_s": BURST_REQUESTS / wall,
+                        "p50_ms": float(np.percentile(lat, 50)),
+                        "p99_ms": float(np.percentile(lat, 99)),
+                        "dispatches_per_request": d["dispatches"] / BURST_REQUESTS,
+                        "grouped_dispatches_per_request":
+                            d["group_dispatches"] / BURST_REQUESTS,
+                        "quant_dispatches": d["quant_dispatches"],
+                        "quant_fused_launches": d["launches"],
+                        "max_pred_err": worst["pred"], "max_drift_err": worst["drift"],
+                    }
+                    log_timing("burst", row)
+                    rows.append(row)
+        for mode, (port, _, proc) in servers.items():
+            proc.send_signal(signal.SIGTERM)
+            check(proc.wait(timeout=120) == 0, f"burst server {mode} did not exit 0")
+            text = (WORK / f"burst_server_{mode}.log").read_text()
+            check("tiers=quant,exact" in text and "drained; exiting" in text,
+                  f"burst server {mode}: no 'tiers=quant,exact' or no clean drain")
+    finally:
+        for _, out, proc in servers.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            out.close()
+    return rows
+
+
 def main() -> int:
     if not (ROOT / "mlops_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2404,6 +2790,8 @@ def main() -> int:
         exact_train_timing = timed(
             phase_exact_train_timing,
             {name: row["wall_s"] for name, row in exact_train["cli"].items()})
+        routes = timed(phase_dispatch_routes, bundle_dir, exact_dirs)
+        burst = timed(phase_burst, timed(phase_burst_bundle, exact_dirs))
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -2497,6 +2885,7 @@ def main() -> int:
             **bwd_common,
         }],
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
+        "serving": {"dispatch_routes": routes, "burst": burst},
         "exact_train": {
             "parity": exact_train_parity,
             "path": exact_train,

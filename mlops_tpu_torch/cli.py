@@ -2,7 +2,9 @@
 
 - ``serve``: serve a bundle over HTTP on the exact tier (the default) or
   the quant tier (``serve.serve_tier=quant``; ``auto`` prefers a gated
-  quant tier);
+  quant tier), concurrent requests coalescing in the micro-batcher; with
+  ``serve.tier_routing=true`` on both, each request's SLO class picking
+  one;
 - ``predict-file``: score a CSV with a ``flax`` bundle (the exact tier's
   response JSON) or a record-history CSV with a ``doc`` bundle, and print
   one JSON line (``data.train_path=<csv> serve.model_directory=<bundle>
@@ -70,11 +72,13 @@ def _serve(config) -> int:
     cfg = config.serve
     cfg.service_name = os.environ.get("SERVICE_NAME", cfg.service_name)
     model_dir = os.environ.get("MODEL_DIRECTORY", cfg.model_directory)
+    cfg.validate()
     engine = InferenceEngine(
         load_bundle(model_dir),
         buckets=tuple(cfg.warmup_batch_sizes),
         serve_tier=cfg.serve_tier,
         device=cfg.device,
+        tier_routing=cfg.tier_routing,
     )
     serve_forever(engine, cfg)
     return 0

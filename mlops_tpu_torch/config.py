@@ -4,7 +4,9 @@
 field for field with their defaults, so a bundle manifest's
 ``model_config`` and a job's TOML parse into them. ``data``,
 ``monitor`` and ``registry`` hold the fields the ported paths read;
-``serve`` the subset of ``ServeConfig`` the exact and quant tiers read. Two port-only knobs,
+``serve`` the keys of the JAX package's ``ServeConfig`` that its
+single-process server reads (``ServeConfig.validate`` with the same
+messages). Two port-only knobs,
 ``serve.device`` and ``train.device``, say where the entry points run:
 the card unless the caller writes ``cpu``.
 
@@ -107,8 +109,16 @@ class MonitorConfig:
     drift_ref_size: int = 2048  # per-feature reference sample for K-S
 
 
+class ServeConfigError(ValueError):
+    """An inconsistent serving geometry, named at startup
+    (``ServeConfig.validate``), as the JAX package's is."""
+
+
 @dataclasses.dataclass
 class ServeConfig:
+    """The JAX package's ``ServeConfig`` keys of the single-process
+    server, with their defaults, plus ``device``."""
+
     host: str = "0.0.0.0"
     port: int = 5000
     service_name: str = "credit-default-api"
@@ -117,12 +127,113 @@ class ServeConfig:
     # largest warmed bucket so serving never pads past the bucket grid;
     # predict-file: documents per forward chunk
     warmup_batch_sizes: tuple[int, ...] = (1, 8, 64, 256)
+    batch_window_ms: float = 1.0  # micro-batching window: concurrent small
+    # requests arriving within it coalesce into one grouped dispatch
+    # (serve/batcher.py); 0 turns coalescing off. In continuous mode it
+    # caps the measured admit deadline
+    max_group: int = 64  # most requests one grouped dispatch carries,
+    # clamped to the largest slot bucket
+    batch_mode: str = "continuous"  # "continuous": pending requests join
+    # the next free in-flight dispatch slot, and only an empty pipe waits
+    # (batch_admit_fraction x the measured dispatch time, capped by the
+    # window); "windowed": every group holds the full window first
+    batch_admit_fraction: float = 0.5
     serve_tier: str = "exact"  # exact | quant | auto, as in the JAX package
+    max_inflight: int = 4  # overlapped grouped dispatches in flight
+    max_workers: int = 8  # scoring thread pool size: the dispatch bound,
+    # the fetch ring and one thread of headroom must fit it
+    monitor_fetch_every_s: float = 2.0  # cadence of the monitor
+    # aggregate's device -> host read while traffic flows (0: no timer)
+    monitor_fetch_every_requests: int = 512  # also read after this many
+    # predict requests (0: no request trigger); /metrics reads fresh
+    request_timeout_s: float = 30.0  # per-request deadline on the predict
+    # path (504 past it; a stalled device must not wedge every
+    # connection); x-request-deadline-ms tightens it per request. 0: none
+    profile_dir: str = ""  # torch.profiler trace directory of the
+    # /debug/profile routes; empty: the routes answer 404
+    tier_routing: bool = False  # per-request SLO tier routing: the engine
+    # also holds the bundle's other gated tier and each request's
+    # x-slo-class (or a tight x-request-deadline-ms) picks one
+    slo_cheap_deadline_ms: float = 50.0  # a deadline budget at or under
+    # this routes the cheap class (<= 0: only the header routes)
+    brownout_demote_depth: float = 0.75  # in-flight depth fraction past
+    # which default-class requests demote to the cheaper tier
+    brownout_restore_depth: float = 0.5  # and under which they stop
     model_shards: int = 1  # as in the JAX package; load_config refuses >1
     device: str = "cuda"  # "cpu" runs on the CPU (plain torch route)
-    max_workers: int = 8  # scoring thread pool size
     drain_deadline_s: float = 30.0  # SIGTERM: how long busy exchanges may
     # take to finish their response before connections are force-closed
+
+    def validate(self) -> "ServeConfig":
+        """Reject an inconsistent geometry with the JAX package's messages,
+        one per broken invariant, all in one ``ServeConfigError``."""
+        problems: list[str] = []
+        if self.max_workers < 1:
+            problems.append(f"serve.max_workers={self.max_workers} must be >= 1")
+        if self.max_batch < 1:
+            problems.append(f"serve.max_batch={self.max_batch} must be >= 1")
+        inflight_cap = max(1, self.max_workers - 2)
+        if not 1 <= self.max_inflight <= inflight_cap:
+            problems.append(
+                f"serve.max_inflight={self.max_inflight} outside "
+                f"[1, max(1, serve.max_workers - 2) = {inflight_cap}]: the "
+                "dispatch bound, the fetch ring, and one thread of headroom "
+                "(solo fast path / monitor fetch) must fit the predict pool "
+                "— raise serve.max_workers or lower serve.max_inflight"
+            )
+        if self.batch_window_ms < 0:
+            problems.append(
+                f"serve.batch_window_ms={self.batch_window_ms} must be "
+                ">= 0 (0 disables coalescing; negative has no meaning)"
+            )
+        if self.max_group < 2:
+            problems.append(
+                f"serve.max_group={self.max_group} must be >= 2 (a group "
+                "of one is the solo path; the batcher clamps the top end "
+                "to the largest warmed slot bucket)"
+            )
+        if self.batch_mode not in ("continuous", "windowed"):
+            problems.append(
+                f"serve.batch_mode={self.batch_mode!r} must be "
+                "'continuous' or 'windowed'"
+            )
+        if not 0.0 < self.batch_admit_fraction <= 1.0:
+            problems.append(
+                f"serve.batch_admit_fraction={self.batch_admit_fraction} "
+                "must be in (0, 1] — it scales the measured dispatch time "
+                "into the empty-pipe admit deadline; more than one whole "
+                "dispatch of waiting buys nothing a deeper group wouldn't"
+            )
+        if self.serve_tier not in ("exact", "quant", "auto"):
+            problems.append(
+                f"serve.serve_tier={self.serve_tier!r} must be 'exact', "
+                "'quant' or 'auto'"
+            )
+        if not 0.0 < self.brownout_demote_depth <= 1.0:
+            problems.append(
+                f"serve.brownout_demote_depth={self.brownout_demote_depth} "
+                "must be in (0, 1] — it is a fraction of admission depth"
+            )
+        if not 0.0 <= self.brownout_restore_depth < self.brownout_demote_depth:
+            problems.append(
+                f"serve.brownout_restore_depth={self.brownout_restore_depth}"
+                " must be in [0, serve.brownout_demote_depth ="
+                f" {self.brownout_demote_depth}) — restoring at or above "
+                "the demote threshold flaps the brownout on every sample"
+            )
+        if self.drain_deadline_s <= 0:
+            problems.append(
+                f"serve.drain_deadline_s={self.drain_deadline_s} must be "
+                "> 0 (a zero drain window severs in-flight responses on "
+                "every rollout)"
+            )
+        if self.model_shards < 1:
+            problems.append(
+                f"serve.model_shards={self.model_shards} must be >= 1"
+            )
+        if problems:
+            raise ServeConfigError("; ".join(problems))
+        return self
 
 
 @dataclasses.dataclass

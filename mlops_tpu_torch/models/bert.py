@@ -19,6 +19,7 @@ its blocks. The masked-LM head is not ported yet.
 from __future__ import annotations
 
 import dataclasses
+import threading
 from statistics import NormalDist
 from typing import Sequence
 
@@ -96,6 +97,28 @@ class TokenLayout:
         return np.asarray([nd.inv_cdf(q) for q in qs], np.float32)
 
 
+_LAYOUT_TENSORS: dict[tuple, tuple[torch.Tensor, ...]] = {}
+_LAYOUT_LOCK = threading.Lock()
+
+
+def _layout_tensors(
+    layout: TokenLayout, device: torch.device
+) -> tuple[torch.Tensor, ...]:
+    """The layout's categorical offsets, bin edges and bin offsets on
+    ``device``, made once and kept for good: a CUDA graph captured over
+    ``tokenize`` reads them where they lie (an upload cannot be
+    captured)."""
+    key = (layout, device)
+    with _LAYOUT_LOCK:
+        if key not in _LAYOUT_TENSORS:
+            _LAYOUT_TENSORS[key] = (
+                torch.tensor(layout.cat_offsets, device=device),
+                torch.from_numpy(layout.bin_edges()).to(device),
+                torch.tensor(layout.bin_offsets, device=device),
+            )
+        return _LAYOUT_TENSORS[key]
+
+
 def tokenize(
     cat_ids: torch.Tensor, numeric: torch.Tensor, layout: TokenLayout
 ) -> torch.Tensor:
@@ -105,10 +128,10 @@ def tokenize(
     f = layout.num_features
     dev = cat_ids.device
     names = torch.arange(layout.name_offset, layout.name_offset + f, device=dev)
-    cat_tok = torch.tensor(layout.cat_offsets, device=dev)[None] + cat_ids.long()
-    edges = torch.from_numpy(layout.bin_edges()).to(dev)
+    cat_offsets, edges, bin_offsets = _layout_tensors(layout, dev)
+    cat_tok = cat_offsets[None] + cat_ids.long()
     bins = torch.searchsorted(edges, numeric.float().contiguous(), right=True)
-    num_tok = torch.tensor(layout.bin_offsets, device=dev)[None] + bins
+    num_tok = bin_offsets[None] + bins
     values = torch.cat([cat_tok, num_tok], dim=1)  # [N, F]
     pairs = torch.stack([names[None].expand(n, f), values], dim=2).reshape(n, 2 * f)
     cls = torch.full((n, 1), CLS_ID, dtype=torch.long, device=dev)

@@ -8,7 +8,8 @@ library that is already there. Nothing here builds at import time.
 
 Beside ``build_shared_library``: ``KernelLibrary`` (one source's
 library, built and bound at first use) and ``LaunchCounter`` (the count
-each kernel wrapper bumps where it launches).
+each kernel wrapper bumps where it launches; ``LAUNCH_COUNTERS`` lists
+them all).
 """
 
 from __future__ import annotations
@@ -118,17 +119,39 @@ class KernelLibrary:
             return self._lib
 
 
+# Every launch counter of the package, for what counts launches across
+# kernels (the CUDA graphs of ``serve/graphs.py``).
+LAUNCH_COUNTERS: list["LaunchCounter"] = []
+
+
 class LaunchCounter:
     """How many times a kernel was launched: a plain integer the wrapper
-    bumps at each launch (thread-safe; the server scores from a pool)."""
+    bumps at each launch (thread-safe; the server scores from a pool).
+
+    A launch made while the calling thread's stream is being captured
+    into a CUDA graph runs nothing then: it counts in this thread's
+    ``captured`` instead, and each replay of the graph adds it
+    (``serve/graphs.py``)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
+        self._local = threading.local()
         self.value = 0
+        LAUNCH_COUNTERS.append(self)
 
-    def add(self) -> None:
+    @property
+    def captured(self) -> int:
+        """Launches this thread has recorded into CUDA graphs."""
+        return getattr(self._local, "captured", 0)
+
+    def add(self, n: int = 1) -> None:
+        import torch
+
+        if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+            self._local.captured = self.captured + n
+            return
         with self._lock:
-            self.value += 1
+            self.value += n
 
     def reset(self) -> None:
         with self._lock:

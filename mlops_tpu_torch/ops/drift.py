@@ -51,6 +51,12 @@ def chi2_two_sample(
     return stat, p_value
 
 
+# sqrt(2 pi) in f32, the correctly rounded root either device computes. A
+# CPU scalar, so a program on the card that uses it uploads nothing (a
+# host-to-device copy cannot be captured into a CUDA graph).
+_ROOT_TWO_PI = torch.sqrt(torch.tensor(2.0 * math.pi, dtype=torch.float32))
+
+
 def _kolmogorov_sf(t: torch.Tensor, terms: int = 32) -> torch.Tensor:
     """Kolmogorov distribution survival function Q(t), elementwise.
 
@@ -63,10 +69,7 @@ def _kolmogorov_sf(t: torch.Tensor, terms: int = 32) -> torch.Tensor:
     signs = torch.where(k % 2 == 1, 1.0, -1.0)
     large = 2.0 * (signs * torch.exp(-2.0 * (k**2) * (t_safe**2))).sum(dim=-1)
     odd = 2.0 * k - 1.0
-    root_two_pi = torch.sqrt(
-        torch.tensor(2.0 * math.pi, dtype=torch.float32, device=t.device)
-    )
-    small = 1.0 - root_two_pi / t_safe[..., 0] * torch.exp(
+    small = 1.0 - _ROOT_TWO_PI / t_safe[..., 0] * torch.exp(
         -(odd**2) * (math.pi**2) / (8.0 * t_safe**2)
     ).sum(dim=-1)
     return torch.clamp(

@@ -1,43 +1,54 @@
 """Inference engine: bundle -> warmed, bucketed, fused predict, on the
-exact or the quant tier.
+exact or the quant tier, or on both with per-request tier routing.
 
-Port of the JAX package's ``serve/engine.py`` for its two single-device
+Port of the JAX package's ``serve/engine.py`` for its single-device
 tiers:
 
 - the tier table ``exact | quant | auto`` (``_resolve_tier``): exact is
   the default, quant is a demand (raise rather than serve other bits than
   asked for), auto takes a gated quant tier and otherwise falls back to
-  exact, logging why;
+  exact, logging why. With ``tier_routing`` the engine also holds the
+  bundle's other gated tier (``_extra_tier``), and each dispatch names the
+  tier it runs (``route_tier`` maps an SLO class to one);
 - requests pad up to the nearest row bucket (1, 8, 64, 256 by default)
   with a validity mask, so drift and outlier statistics ignore padding;
-- one packed program per dispatch, grouped requests included: on the
-  exact tier the model, flags, drift and fold in plain PyTorch
-  (``ops/predict.py``), on the quant tier one CUDA kernel launch plus the
-  p-value tail (``ops/quant_kernel.py``);
+  concurrent small requests group into one ``[slots, rows]`` dispatch
+  (``dispatch_group``, which the micro-batcher calls);
+- one packed program per dispatch: on the exact tier the model, flags,
+  drift and fold in plain PyTorch (``ops/predict.py``), on the quant tier
+  one CUDA kernel launch plus the p-value tail (``ops/quant_kernel.py``);
+- on the card, ``warmup`` captures every (tier, bucket) and (tier, group
+  geometry) program into one CUDA graph (``serve/graphs.py``), and every
+  dispatch replays one: no eager program serves traffic there (a shape
+  warmup did not cover is captured on first use, under the lock). The CPU
+  runs the programs eagerly: the route the caller asked for;
 - the device -> host surface is ONE packed f32 buffer per dispatch
-  (predictions ‖ outlier flags ‖ drift). Dispatch enqueues the work on
-  the current stream and starts a non-blocking copy into pinned host
-  memory behind a CUDA event; fetch waits on that event;
-- the running monitor aggregate stays on the device and is read off the
-  request path by ``monitor_snapshot`` (fetch-and-reset into f64 host
-  totals; a window whose fetch fails folds back into the live one).
+  (predictions ‖ outlier flags ‖ drift), copied into pinned host memory
+  behind a CUDA event; fetch waits on that event;
+- the running monitor aggregate is one static device buffer that every
+  program of every tier folds into in place. ``monitor_snapshot`` reads it
+  off the request path (fetch-and-reset into f64 host totals; a window
+  whose fetch fails folds back into the live one).
 """
 
 from __future__ import annotations
 
 import bisect
+import contextlib
 import copy
+import dataclasses
+import json
 import logging
 import threading
 import time
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from mlops_tpu_torch.bundle.bundle import Bundle
 from mlops_tpu_torch.device import resolve_device
-from mlops_tpu_torch.monitor.state import init_accumulator, merge_accumulators
+from mlops_tpu_torch.monitor.state import MonitorAccumulator, init_accumulator
 from mlops_tpu_torch.ops.predict import (
     make_packed_grouped_base,
     make_packed_predict_base,
@@ -50,6 +61,8 @@ from mlops_tpu_torch.ops.quant_kernel import (
 )
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.schema.validate import records_to_columns
+from mlops_tpu_torch.serve import graphs
+from mlops_tpu_torch.serve.tierroute import TIERS, tier_for_class
 from mlops_tpu_torch.serve.wire import (
     EMPTY_RESPONSE_BYTES,
     GROUP_ROW_BUCKET,
@@ -61,34 +74,46 @@ from mlops_tpu_torch.serve.wire import (
 )
 
 logger = logging.getLogger(__name__)
-TIERS = ("exact", "quant", "auto")
+TIER_NAMES = ("exact", "quant", "auto")
+_D = SCHEMA.num_categorical + SCHEMA.num_numeric
 
 
-def _pad_rows(
-    cat: np.ndarray, num: np.ndarray, n: int, rows: int
-) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Pad ``n`` encoded rows up to ``rows`` with a validity mask."""
-    pad = rows - n
-    if pad:
-        cat = np.pad(cat, ((0, pad), (0, 0)))
-        num = np.pad(num, ((0, pad), (0, 0)))
-    return cat, num, np.arange(rows) < n
+def _entry_name(base: str, tier: str | None) -> str:
+    """A dispatch's entry label, as the JAX package names its compiled
+    entries: the geometry, suffixed with the tier for non-default tiers
+    only."""
+    return base if tier is None else f"{base}@{tier}"
+
+
+@dataclasses.dataclass(frozen=True)
+class _Tier:
+    """One servable tier: its committed params and temperature on the
+    device, and its solo and grouped packed programs."""
+
+    params: dict[str, torch.Tensor]
+    temperature: torch.Tensor
+    solo: Callable
+    group: Callable
 
 
 class _Handle:
     """An in-flight dispatch: the packed output's host buffer, the event
     its copy completes behind (None on the CPU), and the geometry the
-    fetch side needs to slice it."""
+    fetch side needs to slice it. A group handle of 1 or more than 64
+    requests carries their already formatted ``responses`` instead (the
+    JAX engine's degenerate handle)."""
 
-    __slots__ = ("host", "event", "n", "rows", "sizes", "slots")
+    __slots__ = ("host", "event", "n", "rows", "sizes", "slots", "responses")
 
-    def __init__(self, host, event, n=0, rows=0, sizes=None, slots=0):
+    def __init__(self, host=None, event=None, n=0, rows=0, sizes=None,
+                 slots=0, responses=None):
         self.host = host
         self.event = event
         self.n = n
         self.rows = rows
         self.sizes = sizes
         self.slots = slots
+        self.responses = responses
 
     def wait(self) -> np.ndarray:
         if self.event is not None:
@@ -103,52 +128,60 @@ class InferenceEngine:
         buckets: tuple[int, ...] = (1, 8, 64, 256),
         serve_tier: str = "exact",
         device: str | torch.device | None = None,
+        tier_routing: bool = False,
+        cuda_graphs: bool = True,
     ):
+        """``cuda_graphs=False`` runs the programs eagerly on the card, for
+        holding the graphs against them; nothing in ``serve`` or the CLI
+        sets it."""
         self.device = resolve_device(device)
         self.serve_tier = self._resolve_tier(serve_tier, bundle)
+        self.default_tier = self.serve_tier
+        self.tier_routing = bool(tier_routing)
         self.bundle = bundle
         self.buckets = sorted(buckets)
         self.max_bucket = self.buckets[-1]
-        # Committed once: the tier's params, the monitor and the
-        # temperature are arguments of every dispatch and stay on the
-        # device.
-        if self.serve_tier == "quant":
-            self._params = {
-                k: v.to(self.device) for k, v in bundle.quant_params.items()
-            }
-            temperature = bundle.quant_temperature
-            self._predict = make_quant_packed_base()
-            self._predict_group = make_quant_grouped_base()
-        else:
-            # The programs apply these params to the module (which has no
-            # buffers) by swapping them in for the call, under the
-            # accumulator lock; the engine's own copy keeps another engine
-            # over the same bundle out of the swap.
-            model = copy.deepcopy(bundle.model).eval()
-            self._params = {
-                k: v.to(self.device) for k, v in model_params(model).items()
-            }
-            temperature = bundle.temperature
-            self._predict = make_packed_predict_base(model)
-            self._predict_group = make_packed_grouped_base(model)
+        # Committed once: each tier's params and temperature are
+        # arguments of every dispatch and stay on the device.
+        self._tiers = {self.serve_tier: self._build_tier(self.serve_tier)}
+        if self.tier_routing:
+            extra = self._extra_tier(bundle)
+            if extra is not None:
+                self._tiers[extra] = self._build_tier(extra)
         self._monitor = bundle.monitor.to(self.device)
-        self._temperature = torch.tensor(
-            temperature, dtype=torch.float32, device=self.device
+        # The static accumulator: one f32 buffer rows ‖ outliers ‖ batches
+        # ‖ drift_sum[D] ‖ drift_last[D], and the fields as views of it.
+        # Every program of every tier folds into it in place (``_store``);
+        # the lock orders the dispatches that do, and on the card holds
+        # each one's device work (upload, program or replay, download) on
+        # the engine's one stream. The hold is an enqueue, never a wait.
+        self._cuda = self.device.type == "cuda"
+        self._use_graphs = self._cuda and cuda_graphs
+        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        # Captures (and the eager pass before each) run on a stream of their
+        # own; the lock and two stream waits order them with the replays on
+        # ``_stream`` (``_capture``).
+        self._capture_stream = (
+            torch.cuda.Stream(self.device) if self._use_graphs else None
         )
-        # The lock orders the accumulator chain: each dispatch reads the
-        # current accumulator and installs the one its program returns.
-        # On the card the hold is an enqueue, never a wait.
-        self._acc = init_accumulator(self.device)
+        with self._on_stream():
+            self._acc_flat = torch.zeros(3 + 2 * _D, dtype=torch.float32,
+                                         device=self.device)
+        self._acc = _acc_views(self._acc_flat)
         self._acc_lock = threading.Lock()
-        d = SCHEMA.num_categorical + SCHEMA.num_numeric
+        self._pool = torch.cuda.graph_pool_handle() if self._use_graphs else None
+        self._graphs: dict[tuple, graphs.ServingGraph] = {}
         self._totals: dict[str, Any] = {
             "rows": 0.0,
             "outliers": 0.0,
             "batches": 0.0,
-            "drift_sum": np.zeros(d, np.float64),
-            "drift_last": np.zeros(d, np.float64),
+            "drift_sum": np.zeros(_D, np.float64),
+            "drift_last": np.zeros(_D, np.float64),
         }
         self._totals_lock = threading.Lock()
+        self._dispatches: dict[str, int] = {}  # entry label -> dispatches
+        self._capture_s = 0.0
+        self._pool_bytes = 0
         self.warmup_stats: dict[str, Any] = {}
         self.ready = False
 
@@ -158,21 +191,12 @@ class InferenceEngine:
         ungraded tier must never serve); "auto" takes the quant tier when
         it is admissible and falls back to exact, logging why. What this
         package cannot serve on either tier is refused with its reason."""
-        if serve_tier not in TIERS:
+        if serve_tier not in TIER_NAMES:
             raise ValueError(
                 f"serve_tier must be 'exact', 'quant' or 'auto', got {serve_tier!r}"
             )
         if serve_tier != "exact":
-            why = ""
-            if bundle.flavor == "sklearn":
-                why = "sklearn bundles have no quant tier"
-            elif not bundle.has_quant:
-                why = "bundle carries no quant params"
-            elif not bundle.quant_gates_passed:
-                why = (
-                    "quant tier failed (or was never graded by) the promotion "
-                    "gates"
-                )
+            why = self._quant_refusal(bundle)
             if not why:
                 return "quant"
             if serve_tier == "quant":
@@ -192,89 +216,280 @@ class InferenceEngine:
             raise ValueError(f"serve_tier={serve_tier!r} refused: {why}")
         return "exact"
 
-    # ------------------------------------------------------------- warmup
-    def warmup(self) -> None:
-        """Run every bucket and every group geometry once on zeros (first
-        launch, kernel library load, allocator warm-up) against a scratch
-        accumulator, so the live monitor aggregate sees nothing."""
-        t0 = time.perf_counter()
-        c, m = SCHEMA.num_categorical, SCHEMA.num_numeric
-        scratch = init_accumulator(self.device)
-        programs = 0
-        for rows in self.buckets:
-            _, scratch = self._run(
-                self._predict, scratch,
-                *self._to_device(
-                    np.zeros((rows, c), np.int32),
-                    np.zeros((rows, m), np.float32),
-                    np.ones((rows,), bool),
-                ),
+    @staticmethod
+    def _quant_refusal(bundle: Bundle) -> str:
+        """Why the bundle's quant tier may not serve ("" when it may)."""
+        if bundle.flavor == "sklearn":
+            return "sklearn bundles have no quant tier"
+        if not bundle.has_quant:
+            return "bundle carries no quant params"
+        if not bundle.quant_gates_passed:
+            return (
+                "quant tier failed (or was never graded by) the promotion "
+                "gates"
             )
-            programs += 1
-        for rows in GROUP_ROW_BUCKETS:
-            for slots in GROUP_SLOT_BUCKETS:
-                _, scratch = self._run(
-                    self._predict_group, scratch,
-                    *self._to_device(
-                        np.zeros((slots, rows, c), np.int32),
-                        np.zeros((slots, rows, m), np.float32),
-                        np.ones((slots, rows), bool),
-                    ),
-                )
-                programs += 1
-        scratch.rows.cpu()  # waits for every warmup launch to finish
-        self.warmup_stats = {
-            "warmup_s": round(time.perf_counter() - t0, 3),
-            "programs": programs,
-            "device": str(self.device),
-            "tier": self.serve_tier,
-        }
-        self.ready = True
+        return ""
 
-    # ----------------------------------------------------------- dispatch
-    def _to_device(self, cat, num, mask) -> tuple[torch.Tensor, ...]:
-        return tuple(
-            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-            for a in (cat, num, mask)
+    def _extra_tier(self, bundle: Bundle) -> str | None:
+        """The tier routing adds (the JAX ``_build_extra_tiers``): an
+        exact-default engine adds its gated quant student, when the bundle
+        has one; a quant-default engine always keeps its exact teacher,
+        and a bundle without one is refused."""
+        if self.serve_tier == "exact":
+            return None if self._quant_refusal(bundle) else "quant"
+        return self._resolve_tier("exact", bundle)
+
+    def _build_tier(self, tier: str) -> _Tier:
+        bundle = self.bundle
+        if tier == "quant":
+            return _Tier(
+                {k: v.to(self.device) for k, v in bundle.quant_params.items()},
+                self._scalar(bundle.quant_temperature),
+                make_quant_packed_base(),
+                make_quant_grouped_base(),
+            )
+        # The programs apply these params to the module (which has no
+        # buffers) by swapping them in for the call, under the engine
+        # lock; the engine's own copy keeps another engine over the same
+        # bundle out of the swap.
+        model = copy.deepcopy(bundle.model).eval()
+        return _Tier(
+            {k: v.to(self.device) for k, v in model_params(model).items()},
+            self._scalar(bundle.temperature),
+            make_packed_predict_base(model),
+            make_packed_grouped_base(model),
         )
 
-    def _run(self, program, acc, *batch):
-        """One packed program on the tier's committed state (no autograd)."""
+    def _scalar(self, value: float) -> torch.Tensor:
+        return torch.tensor(value, dtype=torch.float32, device=self.device)
+
+    @property
+    def supports_grouping(self) -> bool:
+        return True
+
+    @property
+    def available_tiers(self) -> tuple[str, ...]:
+        """The tiers this engine dispatches per request, cheapest -> most
+        accurate (``tierroute.TIERS`` order); one tier without routing."""
+        return tuple(t for t in TIERS if t in self._tiers)
+
+    def route_tier(self, slo_class: int) -> str | None:
+        """SLO class -> the tier that serves it here; None means the
+        default tier."""
+        tier = tier_for_class(self.available_tiers, self.default_tier, slo_class)
+        return None if tier == self.default_tier else tier
+
+    def _normalize_tier(self, tier: str | None) -> str:
+        """None and the default tier both mean the default tier; any other
+        must be held by this engine (routing never invents a tier)."""
+        if tier is None:
+            return self.default_tier
+        if tier not in self._tiers:
+            raise ValueError(
+                f"tier {tier!r} is not committed on this engine "
+                f"(available: {self.available_tiers})"
+            )
+        return tier
+
+    # ------------------------------------------------------------- warmup
+    def _warm_keys(self) -> list[tuple]:
+        """Every (tier, padded shape) the server dispatches: each tier's
+        row buckets and its group geometries."""
+        group = [(s, r) for r in GROUP_ROW_BUCKETS for s in GROUP_SLOT_BUCKETS]
+        return [
+            (tier, lead)
+            for tier in self._tiers
+            for lead in [(b,) for b in self.buckets] + group
+        ]
+
+    def warmup(self) -> None:
+        """Ready every bucket and group geometry of every tier before
+        traffic, without touching the live monitor aggregate. On the CPU
+        each program runs once on zeros against a scratch accumulator. On
+        the card each is also captured into its CUDA graph (after one such
+        eager pass on the engine's stream); a capture that fails raises."""
+        t0 = time.perf_counter()
+        keys = self._warm_keys()
+        if self._use_graphs:
+            for key in keys:
+                self._graph(key)
+        else:
+            with self._acc_lock, self._on_stream():
+                scratch = init_accumulator(self.device)
+                for tier, lead in keys:
+                    self._warm_pass(tier, lead, scratch)
+                scratch.rows.cpu()  # waits for every warmup launch to finish
+        self.warmup_stats = {
+            "warmup_s": round(time.perf_counter() - t0, 3),
+            "programs": len(keys),
+            "device": str(self.device),
+            "tier": self.serve_tier,
+            "tiers": list(self.available_tiers),
+            "route": "cuda_graphs" if self._use_graphs else "eager",
+        }
+        if self._use_graphs:
+            self.warmup_stats.update(
+                capture_s=round(self._capture_s, 3),
+                graph_pool_bytes=self._pool_bytes,
+            )
+        self.ready = True
+
+    def _warm_pass(self, tier: str, lead: tuple[int, ...], scratch) -> None:
+        """One eager run of a program on zeros (every row valid) against
+        ``scratch``, on the current stream (caller holds the lock)."""
+        cat = torch.zeros((*lead, SCHEMA.num_categorical), dtype=torch.int32,
+                          device=self.device)
+        num = torch.zeros((*lead, SCHEMA.num_numeric), dtype=torch.float32,
+                          device=self.device)
+        mask = torch.ones(lead, dtype=torch.bool, device=self.device)
+        self._run(tier, lead, scratch, cat, num, mask)
+
+    def _graph(self, key: tuple) -> graphs.ServingGraph:
+        """The graph of ``key``, captured now if it is not yet (warmup, or
+        a shape warmup did not cover); raises if the capture fails."""
+        graph = self._graphs.get(key)
+        if graph is None:
+            with self._acc_lock:
+                graph = self._graphs.get(key)
+                if graph is None:
+                    graph = self._capture(*key)
+        return graph
+
+    def _capture(self, tier: str, lead: tuple[int, ...]) -> graphs.ServingGraph:
+        """One eager pass of the program against a scratch accumulator,
+        then its capture over the static accumulator, both on the capture
+        stream (caller holds the lock). The capture stream first waits
+        for every replay already enqueued, and later replays wait for the
+        eager pass: the two never overlap on the device, so they may share
+        cuBLAS's workspace."""
+        side = self._capture_stream
+        side.wait_stream(self._stream)
+        with torch.cuda.stream(side):
+            self._warm_pass(tier, lead, init_accumulator(self.device))
+
+        def run(cat, num, mask):
+            out, new_acc = self._run(tier, lead, self._acc, cat, num, mask)
+            self._store(new_acc)
+            return out
+
+        graph, seconds, grown = graphs.capture(
+            run, lead, self.device, side, self._pool
+        )
+        self._stream.wait_stream(side)
+        self._capture_s += seconds
+        self._pool_bytes += grown
+        self._graphs[(tier, lead)] = graph
+        return graph
+
+    # ----------------------------------------------------------- dispatch
+    def _on_stream(self):
+        if self._cuda:
+            return torch.cuda.stream(self._stream)
+        return contextlib.nullcontext()
+
+    def _run(self, tier: str, lead: tuple[int, ...], acc, *batch):
+        """One packed program of ``tier`` on its committed state (no
+        autograd): solo for a ``(rows,)`` batch, grouped for ``(slots,
+        rows)``."""
+        state = self._tiers[tier]
+        program = state.solo if len(lead) == 1 else state.group
         with torch.inference_mode():
             return program(
-                self._params, self._monitor, acc, self._temperature, *batch
+                state.params, self._monitor, acc, state.temperature, *batch
             )
 
-    def _dispatch(self, program, cat, num, mask) -> tuple[torch.Tensor, Any]:
-        """Run one packed program, thread the accumulator through it and
-        start the packed buffer's copy to the host."""
-        batch = self._to_device(cat, num, mask)
-        with self._acc_lock:
-            out, self._acc = self._run(program, self._acc, *batch)
-        if self.device.type == "cpu":
+    def _store(self, new: MonitorAccumulator) -> None:
+        """Write a program's folded accumulator into the static one."""
+        torch.cat(
+            [new.rows.reshape(1), new.outliers.reshape(1),
+             new.batches.reshape(1), new.drift_sum, new.drift_last],
+            out=self._acc_flat,
+        )
+
+    def _dispatch(
+        self, tier: str, lead: tuple[int, ...], entry: str,
+        fill: Callable[[np.ndarray, np.ndarray, np.ndarray], None],
+    ) -> tuple[torch.Tensor, Any]:
+        """Run one packed program on a batch that ``fill(cat, num, mask)``
+        writes into zeroed host arrays of shape ``lead``, fold the
+        accumulator and start the packed buffer's copy to the host.
+
+        On the card the batch is written straight into a pinned buffer;
+        under the lock, on the engine's stream, it is uploaded into the
+        graph's static inputs with one copy, the graph replays, and its
+        static output is copied into this dispatch's own pinned buffer
+        behind an event. Only the event wait (``fetch``) is outside."""
+        tier_label = None if tier == self.default_tier else tier
+        if not self._cuda:
+            batch = tuple(
+                np.zeros((*lead, *tail), dtype)
+                for tail, dtype in (((SCHEMA.num_categorical,), np.int32),
+                                    ((SCHEMA.num_numeric,), np.float32),
+                                    ((), bool))
+            )
+            fill(*batch)
+            with self._acc_lock:
+                out, new_acc = self._run(
+                    tier, lead, self._acc, *map(torch.from_numpy, batch)
+                )
+                self._store(new_acc)
+            self._count(_entry_name(entry, tier_label))
             return out, None
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(self.device))
+        staged = torch.zeros(graphs.input_nbytes(lead), dtype=torch.uint8,
+                             pin_memory=True)
+        fill(*graphs.split_host(staged.numpy(), lead))
+        graph = self._graph((tier, lead)) if self._use_graphs else None
+        with self._acc_lock, self._on_stream():
+            if graph is not None:
+                graph.inputs.copy_(staged, non_blocking=True)
+                graph.replay()
+                out = graph.out
+            else:
+                inputs = staged.to(self.device, non_blocking=True)
+                out, new_acc = self._run(
+                    tier, lead, self._acc, *graphs.split_inputs(inputs, lead)
+                )
+                self._store(new_acc)
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        self._count(_entry_name(entry, tier_label))
         return host, event
+
+    def _count(self, entry: str) -> None:
+        with self._totals_lock:
+            self._dispatches[entry] = self._dispatches.get(entry, 0) + 1
+
+    def dispatch_counts(self) -> dict[str, int]:
+        """Dispatches per entry label (``bucket_<rows>``,
+        ``group_<slots>x<rows>``, ``@<tier>`` for a non-default tier); on
+        the card each is one graph replay."""
+        with self._totals_lock:
+            return dict(self._dispatches)
 
     def _bucket_for(self, n: int) -> int | None:
         i = bisect.bisect_left(self.buckets, n)
         return self.buckets[i] if i < len(self.buckets) else None
 
     def dispatch_arrays(
-        self, cat_ids: np.ndarray, numeric: np.ndarray
+        self, cat_ids: np.ndarray, numeric: np.ndarray, tier: str | None = None
     ) -> _Handle | None:
         """Pad to the bucket and enqueue the fused dispatch without
         waiting for it; None for the empty request (no device work)."""
+        tier = self._normalize_tier(tier)
         n = cat_ids.shape[0]
         if n == 0:
             return None
         bucket = self._bucket_for(n)
         rows = bucket if bucket is not None else n
-        cat, num, mask = _pad_rows(cat_ids, numeric, n, rows)
-        host, event = self._dispatch(self._predict, cat, num, mask)
+
+        def fill(cat, num, mask):
+            cat[:n] = cat_ids
+            num[:n] = numeric
+            mask[:n] = True
+
+        host, event = self._dispatch(tier, (rows,), f"bucket_{rows}", fill)
         return _Handle(host, event, n=n, rows=rows)
 
     def fetch_arrays_raw(
@@ -297,33 +512,76 @@ class InferenceEngine:
         return encode_response(*self.fetch_arrays_raw(handle))
 
     def predict_arrays(
-        self, cat_ids: np.ndarray, numeric: np.ndarray
+        self, cat_ids: np.ndarray, numeric: np.ndarray, tier: str | None = None
     ) -> dict[str, Any]:
-        handle = self.dispatch_arrays(cat_ids, numeric)
+        handle = self.dispatch_arrays(cat_ids, numeric, tier=tier)
         if handle is None:
             return empty_response()
         return self.fetch_arrays(handle)
 
-    def predict_records(self, records: list[dict[str, Any]]) -> dict[str, Any]:
+    def predict_records(
+        self, records: list[dict[str, Any]], tier: str | None = None
+    ) -> dict[str, Any]:
         """Validated records -> the reference response dict."""
         ds = self.bundle.preprocessor.encode(records_to_columns(records))
-        return self.predict_arrays(ds.cat_ids, ds.numeric)
+        return self.predict_arrays(ds.cat_ids, ds.numeric, tier=tier)
 
-    def predict_records_wire(self, records: list[dict[str, Any]]) -> bytes:
-        """Validated records -> response wire bytes."""
+    def predict_records_wire(
+        self, records: list[dict[str, Any]], tier: str | None = None
+    ) -> bytes:
+        """Validated records -> response wire bytes, encoded in the calling
+        (executor) thread."""
         ds = self.bundle.preprocessor.encode(records_to_columns(records))
-        handle = self.dispatch_arrays(ds.cat_ids, ds.numeric)
+        handle = self.dispatch_arrays(ds.cat_ids, ds.numeric, tier=tier)
         if handle is None:
             return EMPTY_RESPONSE_BYTES
         return self.fetch_arrays_wire(handle)
 
     # ----------------------------------------------------- grouped predict
+    def predict_group(
+        self, requests: list[list[dict[str, Any]]], tier: str | None = None
+    ) -> list[dict[str, Any]]:
+        """Score several concurrent requests in one dispatch; each response
+        is what ``predict_records`` gives that request alone."""
+        return self.fetch_group(self.dispatch_group(requests, tier=tier))
+
+    def dispatch_group(
+        self, requests: list[list[dict[str, Any]]], tier: str | None = None
+    ) -> _Handle:
+        """Encode the group in one pass, split it back per request and
+        enqueue the grouped dispatch without waiting (the micro-batcher
+        dispatches the next group while this one's copy lands). One
+        request, or more than 64, score solo into a handle that carries
+        their responses."""
+        if len(requests) == 1 or len(requests) > GROUP_SLOT_BUCKETS[-1]:
+            return _Handle(
+                responses=[self.predict_records(r, tier=tier) for r in requests]
+            )
+        sizes = [len(r) for r in requests]
+        if not all(1 <= n <= GROUP_ROW_BUCKET for n in sizes):
+            raise ValueError(
+                f"grouped requests must have 1..{GROUP_ROW_BUCKET} records, "
+                f"got sizes {sizes}"
+            )
+        # Encoding is row-wise, so one flat encode equals per-request
+        # encodes and does the Python work once.
+        flat = [record for records in requests for record in records]
+        ds = self.bundle.preprocessor.encode(records_to_columns(flat))
+        bounds = np.cumsum([0, *sizes])
+        parts = [
+            (ds.cat_ids[lo:hi], ds.numeric[lo:hi])
+            for lo, hi in zip(bounds[:-1], bounds[1:])
+        ]
+        return self.dispatch_group_arrays(parts, tier=tier)
+
     def dispatch_group_arrays(
-        self, parts: list[tuple[np.ndarray, np.ndarray]]
+        self, parts: list[tuple[np.ndarray, np.ndarray]], tier: str | None = None
     ) -> _Handle:
         """One dispatch for 2..64 pre-encoded requests of 1..8 rows each:
         slots pad to a slot bucket, rows to 1 (all batch-1) or 8, and
-        every slot's drift is computed over its own rows."""
+        every slot's drift is computed over its own rows. The whole group
+        runs one tier."""
+        tier = self._normalize_tier(tier)
         sizes = [cat.shape[0] for cat, _ in parts]
         if not 2 <= len(parts) <= GROUP_SLOT_BUCKETS[-1]:
             raise ValueError(
@@ -339,15 +597,17 @@ class InferenceEngine:
             bisect.bisect_left(GROUP_SLOT_BUCKETS, len(parts))
         ]
         rows = GROUP_ROW_BUCKETS[0] if max(sizes) == 1 else GROUP_ROW_BUCKET
-        cat = np.zeros((slots, rows, SCHEMA.num_categorical), np.int32)
-        num = np.zeros((slots, rows, SCHEMA.num_numeric), np.float32)
-        mask = np.zeros((slots, rows), bool)
-        for i, (part_cat, part_num) in enumerate(parts):
-            n = sizes[i]
-            cat[i, :n] = part_cat
-            num[i, :n] = part_num
-            mask[i, :n] = True
-        host, event = self._dispatch(self._predict_group, cat, num, mask)
+
+        def fill(cat, num, mask):
+            for i, (part_cat, part_num) in enumerate(parts):
+                n = sizes[i]
+                cat[i, :n] = part_cat
+                num[i, :n] = part_num
+                mask[i, :n] = True
+
+        host, event = self._dispatch(
+            tier, (slots, rows), f"group_{slots}x{rows}", fill
+        )
         return _Handle(host, event, rows=rows, sizes=sizes, slots=slots)
 
     def fetch_group_raw(
@@ -355,6 +615,9 @@ class InferenceEngine:
     ) -> tuple[list[int], np.ndarray, np.ndarray, np.ndarray]:
         """``(sizes, predictions f64[slots, rows], outliers f64[slots,
         rows], drift f64[slots, D] rounded)``."""
+        if handle.responses is not None:
+            raise ValueError("degenerate group handle carries formatted "
+                             "responses; fetch_group owns that path")
         arr = handle.wait()
         p, o, d = packed_layout(handle.rows)
         return (
@@ -365,41 +628,63 @@ class InferenceEngine:
         )
 
     def fetch_group(self, handle: _Handle) -> list[dict[str, Any]]:
+        if handle.responses is not None:
+            return handle.responses
         sizes, preds, outs, drifts = self.fetch_group_raw(handle)
         return [
             format_response(preds[i, :n], outs[i, :n], drifts[i])
             for i, n in enumerate(sizes)
         ]
 
+    def fetch_group_wire(self, handle: _Handle) -> list[bytes]:
+        """``fetch_group`` straight to per-request wire bytes."""
+        if handle.responses is not None:
+            return [
+                json.dumps(r, separators=(",", ":")).encode()
+                for r in handle.responses
+            ]
+        sizes, preds, outs, drifts = self.fetch_group_raw(handle)
+        return [
+            encode_response(preds[i, :n], outs[i, :n], drifts[i])
+            for i, n in enumerate(sizes)
+        ]
+
     # ------------------------------------------------------------ monitor
     def monitor_snapshot(self) -> dict[str, Any]:
         """ONE device -> host read of the monitor aggregate, off the
-        request path. Fetch-and-reset: a zero accumulator is swapped in
-        under the lock and the fetched window folds into exact f64 host
-        totals, so the f32 device counters never approach 2^24. A window
-        whose fetch fails folds back into the live accumulator: the counts
-        are delayed, never dropped."""
-        with self._acc_lock:
-            window = self._acc
-            self._acc = init_accumulator(self.device)
+        request path. Fetch-and-reset: under the lock the static
+        accumulator is cloned and zeroed in place, and the fetched window
+        folds into exact f64 host totals, so the f32 device counters never
+        approach 2^24. A window whose fetch fails folds back into the live
+        accumulator: the counts are delayed, never dropped."""
+        with self._acc_lock, self._on_stream():
+            window = self._acc_flat.clone()
+            self._acc_flat.zero_()
+            if self._cuda:
+                host = torch.empty(window.shape, dtype=window.dtype,
+                                   pin_memory=True)
+                host.copy_(window, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._stream)
         try:
-            host = {
-                k: getattr(window, k).double().cpu().numpy()
-                for k in ("rows", "outliers", "batches", "drift_sum", "drift_last")
-            }
+            if self._cuda:
+                event.synchronize()
+            else:
+                host = window
+            flat = host.double().numpy()
         except Exception:
-            with self._acc_lock:
-                self._acc = merge_accumulators(window, self._acc)
+            with self._acc_lock, self._on_stream():
+                self._fold_back(window)
             raise
-        window_batches = float(host["batches"])
+        rows, outliers, window_batches = (float(x) for x in flat[:3])
         with self._totals_lock:
             t = self._totals
-            t["rows"] += float(host["rows"])
-            t["outliers"] += float(host["outliers"])
+            t["rows"] += rows
+            t["outliers"] += outliers
             t["batches"] += window_batches
-            t["drift_sum"] = t["drift_sum"] + host["drift_sum"]
+            t["drift_sum"] = t["drift_sum"] + flat[3:3 + _D]
             if window_batches:
-                t["drift_last"] = host["drift_last"]
+                t["drift_last"] = flat[3 + _D:]
             rows, outliers, batches = t["rows"], t["outliers"], t["batches"]
             drift_sum, drift_last = t["drift_sum"], t["drift_last"]
         drift_mean = drift_sum / max(batches, 1.0)
@@ -415,3 +700,23 @@ class InferenceEngine:
             ),
             "drift_sum": drift_sum.tolist(),
         }
+
+    def _fold_back(self, window: torch.Tensor) -> None:
+        """Merge an unread window (the older) into the live accumulator
+        (the newer) in place: counters and sums add, ``drift_last`` stays
+        the live one's unless it folded no batches
+        (``merge_accumulators``)."""
+        older = _acc_views(window)
+        live = self._acc
+        live.drift_last.copy_(
+            torch.where(live.batches > 0, live.drift_last, older.drift_last)
+        )
+        self._acc_flat[: 3 + _D].add_(window[: 3 + _D])
+
+
+def _acc_views(flat: torch.Tensor) -> MonitorAccumulator:
+    """The accumulator fields as views of one flat buffer."""
+    return MonitorAccumulator(
+        rows=flat[0], outliers=flat[1], batches=flat[2],
+        drift_sum=flat[3:3 + _D], drift_last=flat[3 + _D:],
+    )

@@ -1,8 +1,10 @@
-"""The serving wire contract: group geometry and response shape.
+"""The serving wire contract: group geometry, response shape and the
+error answers every route shares.
 
-A copy of the JAX package's ``serve/wire.py``: the same group shape grid
-and the same response formatting, so a response from the port is
-byte-for-byte in the reference's format.
+A copy of the JAX package's ``serve/wire.py`` (group grid, response
+formatting, ``DeadlineExceeded``) and of the two wire helpers of its
+``serve/httpcore.py`` (``deadline_response``, ``profile_payload``), so a
+response from the port is byte-for-byte in the reference's format.
 """
 
 from __future__ import annotations
@@ -20,6 +22,42 @@ from mlops_tpu_torch.schema.features import SCHEMA
 GROUP_SLOT_BUCKETS = (2, 4, 8, 16, 32, 64)
 GROUP_ROW_BUCKETS = (1, 8)
 GROUP_ROW_BUCKET = GROUP_ROW_BUCKETS[-1]
+
+
+class DeadlineExceeded(Exception):
+    """A request's deadline budget (``x-request-deadline-ms``) ran out
+    before its work dispatched: the micro-batcher's claim-time purge
+    completes the entry with this instead of dispatching it, and the
+    handler answers the documented 504."""
+
+
+def deadline_response(detail: str = "request deadline exceeded") -> tuple:
+    """The deadline-exceeded answer: a ``504`` (distinct from a shed
+    503: a 504'd request may or may not have been scored)."""
+    return 504, {"detail": detail}, "application/json"
+
+
+def profile_payload(
+    status: int, action: str, profile_dir: str, err: str | None = None
+) -> tuple:
+    """The ``/debug/profile/{start,stop}`` answers for a profiler status
+    (200 tracing/stopped, 409 already running/not running, 404 profiling
+    disabled, else 500 with the error)."""
+    if status == 200:
+        state = "tracing" if action == "start" else "stopped"
+        return 200, {"status": state, "dir": profile_dir}, "application/json"
+    if status == 409:
+        detail = (
+            "trace already running" if action == "start"
+            else "no trace running"
+        )
+        return 409, {"detail": detail}, "application/json"
+    if status == 404:
+        return 404, {"detail": "profiling disabled"}, "application/json"
+    detail = f"profiler {action} failed"
+    if err:
+        detail = f"{detail}: {err}"
+    return 500, {"detail": detail}, "application/json"
 
 
 def format_response(

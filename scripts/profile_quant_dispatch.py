@@ -11,7 +11,9 @@ default) its ``phase_bundle`` (20,000 synthetic rows, R=2048, seeded
 E=4/H=32 student), for ``--tier exact`` its ``phase_exact_bundles``
 model ``--model`` (default mlp-ens8: hidden 256/256/128, embed 16, 8
 members, bf16, seeded). Warms an ``InferenceEngine`` of that tier on
-the card and, for bucket 1, bucket 256 and groups 64x1 and 64x8, runs
+the card (every dispatch then replays a CUDA graph captured at warmup;
+``chip_smoke.py`` phase 21 sets it against the eager programs) and, for
+bucket 1, bucket 256 and groups 64x1 and 64x8, runs
 ``--iters`` dispatch -> fetch round trips under ``torch.profiler``.
 Prints one JSON line per shape: host wall time per dispatch, device busy
 time per dispatch (sum of the kernels' self device time), the fused

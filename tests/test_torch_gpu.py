@@ -627,3 +627,207 @@ def test_one_step_gradients_on_the_card_match_the_cpu(name, precision):
         cos = torch.nn.functional.cosine_similarity(g, w, dim=0).item()
         assert cos >= 0.98, (k, cos)
         assert abs(g.norm().item() / w.norm().item() - 1) <= 0.05, k
+
+
+# The serving engine's CUDA graphs (serve/graphs.py) against the same
+# programs run eagerly on the card: bitwise equal, packed outputs and
+# accumulator alike, for every tier, bucket and group geometry. Engines
+# serve a bundle of the served mlp-ens8 widths with a gated quant tier,
+# with tier routing on, so one engine holds both tiers.
+@pytest.fixture(scope="module")
+def serving_engines(card_state, tmp_path_factory):
+    from mlops_tpu_torch.bundle import load_bundle, save_exact_bundle
+    from mlops_tpu_torch.config import ModelConfig
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    _, mon, ds, _ = card_state
+    columns, _ = generate_synthetic(5000, seed=0)
+    prep = Preprocessor.fit(columns)
+    path = tmp_path_factory.mktemp("graph_bundle")
+    save_exact_bundle(
+        path, ModelConfig(precision="bf16", **EXACT_MODELS["mlp-ens8"]),
+        _exact_model("mlp-ens8"), prep, mon.to("cpu"),
+        calibration={"temperature": 1.2},
+        quant_params=quantize_student(init_quant_master(0)),
+        quant={"fidelity": {}, "temperature": 1.1, "gates": {"passed": True}},
+    )
+    bundle = load_bundle(path)
+    graphs = InferenceEngine(bundle, tier_routing=True)
+    eager = InferenceEngine(bundle, tier_routing=True, cuda_graphs=False)
+    graphs.warmup()
+    eager.warmup()
+    return graphs, eager, ds
+
+
+def _bits(arr):
+    return np.ascontiguousarray(arr, dtype=np.float32).view(np.uint32)
+
+
+def _acc_bits(engine):
+    with engine._acc_lock, torch.cuda.stream(engine._stream):
+        flat = engine._acc_flat.cpu()
+    return flat.numpy().view(np.uint32)
+
+
+def _parts(ds, slots, rows, seed):
+    rng = np.random.default_rng(seed)
+    sizes = [rows] * slots if rows == 1 else list(rng.integers(1, rows + 1, slots))
+    idx = rng.integers(0, ds.n, size=sum(sizes))
+    bounds = np.cumsum([0, *sizes])
+    return [(ds.cat_ids[idx[lo:hi]], ds.numeric[idx[lo:hi]])
+            for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def _dispatch(engine, ds, key, seed, tier):
+    """One dispatch of ``key`` (``(rows,)`` solo or ``(slots, rows)``) on
+    the same seeded inputs; returns the packed host buffer."""
+    if len(key) == 1:
+        rows = key[0]
+        n = max(1, rows - seed % 3)
+        idx = np.random.default_rng(seed).integers(0, ds.n, size=n)
+        handle = engine.dispatch_arrays(ds.cat_ids[idx], ds.numeric[idx], tier=tier)
+    else:
+        slots, rows = key
+        handle = engine.dispatch_group_arrays(
+            _parts(ds, slots, rows, seed), tier=tier
+        )
+    return handle.wait().copy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier", ["exact", "quant"])
+def test_graph_replay_is_bitwise_equal_to_the_eager_program(serving_engines, tier):
+    graphs, eager, ds = serving_engines
+    assert graphs.warmup_stats["route"] == "cuda_graphs"
+    assert graphs.warmup_stats["programs"] == 32 == len(graphs._graphs)
+    assert graphs.warmup_stats["graph_pool_bytes"] > 0
+    graphs.monitor_snapshot()
+    eager.monitor_snapshot()
+    keys = [(b,) for b in graphs.buckets] + [
+        (s, r) for r in GROUP_ROW_BUCKETS for s in GROUP_SLOT_BUCKETS
+    ]
+    for k, key in enumerate(keys):
+        got = _dispatch(graphs, ds, key, 10 * k + 1, tier)
+        want = _dispatch(eager, ds, key, 10 * k + 1, tier)
+        assert np.array_equal(_bits(got), _bits(want)), (tier, key)
+        assert np.array_equal(_acc_bits(graphs), _acc_bits(eager)), (tier, key)
+
+
+@pytest.mark.gpu
+def test_overlapped_dispatches_from_threads_match_serial_dispatches(serving_engines):
+    """8 threads x 50 dispatches of mixed shapes and tiers give each
+    request the bits a serial dispatch gives it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    graphs, _, ds = serving_engines
+    keys = [(1,), (8,), (64,), (256,), (2, 1), (64, 1), (16, 8), (64, 8)]
+    jobs = [(keys[i % len(keys)], 1000 + i, ("exact", "quant")[i % 2])
+            for i in range(400)]
+    serial = [_dispatch(graphs, ds, *job) for job in jobs]
+    with ThreadPoolExecutor(8) as pool:
+        overlapped = list(pool.map(lambda job: _dispatch(graphs, ds, *job), jobs))
+    for job, got, want in zip(jobs, overlapped, serial):
+        assert np.array_equal(_bits(got), _bits(want)), job
+
+
+@pytest.mark.gpu
+def test_monitor_counts_are_exact_after_replays(serving_engines):
+    graphs, eager, ds = serving_engines
+    base = {e: e.monitor_snapshot() for e in (graphs, eager)}
+    rows = batches = 0
+    for k, key in enumerate([(1,), (8,), (256,), (4, 1), (64, 8)] * 3):
+        for engine in (graphs, eager):
+            _dispatch(engine, ds, key, 77 + k, ("exact", "quant")[k % 2])
+        if len(key) == 1:
+            rows += max(1, key[0] - (77 + k) % 3)
+            batches += 1
+        else:
+            rows += sum(len(c) for c, _ in _parts(ds, *key, 77 + k))
+            batches += key[0]
+    snaps = {e: e.monitor_snapshot() for e in (graphs, eager)}
+    delta = {e: {f: snaps[e][f] - base[e][f] for f in ("rows", "outliers", "batches")}
+             for e in (graphs, eager)}
+    assert delta[graphs] == delta[eager]
+    assert (delta[graphs]["rows"], delta[graphs]["batches"]) == (rows, batches)
+
+
+@pytest.mark.gpu
+def test_a_scrape_during_warmup_neither_breaks_capture_nor_counts(serving_engines):
+    import threading
+
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    graphs, eager, ds = serving_engines
+    engine = InferenceEngine(graphs.bundle, tier_routing=True)
+    stop = threading.Event()
+    scrapes = []
+
+    def scrape():
+        while not stop.is_set():
+            scrapes.append(engine.monitor_snapshot()["rows"])
+
+    thread = threading.Thread(target=scrape)
+    thread.start()
+    try:
+        engine.warmup()
+    finally:
+        stop.set()
+        thread.join()
+    assert scrapes and set(scrapes) == {0.0}
+    assert engine.monitor_snapshot()["rows"] == 0.0
+    for k, key in enumerate([(1,), (64, 8)]):
+        got = _dispatch(engine, ds, key, 500 + k, "exact")
+        want = _dispatch(eager, ds, key, 500 + k, "exact")
+        assert np.array_equal(_bits(got), _bits(want))
+
+
+@pytest.mark.gpu
+def test_a_capture_under_traffic_keeps_every_answer(serving_engines):
+    """A shape warmup did not cover is captured on first use while other
+    threads dispatch warmed ones: every answer keeps the eager bits."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    graphs, eager, ds = serving_engines
+    jobs = [(((1,), (8,), (64, 1), (16, 8))[i % 4], 3000 + i, "exact")
+            for i in range(200)]
+    want = [_dispatch(eager, ds, *job) for job in jobs]
+    novel = [((300 + 17 * k,), 4000 + k, ("exact", "quant")[k % 2]) for k in range(4)]
+    want_novel = [_dispatch(eager, ds, *job) for job in novel]
+    with ThreadPoolExecutor(4) as pool:
+        traffic = pool.map(lambda job: _dispatch(graphs, ds, *job), jobs)
+        captured = [_dispatch(graphs, ds, *job) for job in novel]
+        traffic = list(traffic)
+    for got, exp in zip(traffic + captured, want + want_novel):
+        assert np.array_equal(_bits(got), _bits(exp))
+    assert all((tier, (rows - seed % 3,)) in graphs._graphs
+               for (rows,), seed, tier in novel)
+
+
+@pytest.mark.gpu
+def test_the_launch_counter_counts_graph_replays(serving_engines):
+    graphs, _, ds = serving_engines
+    counter = quant_kernel.quant_kernel_launches
+    replays = graphs.dispatch_counts()
+    before = counter.value
+    for k, key in enumerate([(1,), (256,), (64, 1), (8, 8)] * 2):
+        _dispatch(graphs, ds, key, 900 + k, "quant")
+        _dispatch(graphs, ds, key, 900 + k, "exact")
+    assert counter.value - before == 8
+    after = graphs.dispatch_counts()
+    quant = sum(n - replays.get(e, 0) for e, n in after.items() if e.endswith("@quant"))
+    assert quant == 8
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_fails_warmup(serving_engines, monkeypatch):
+    from mlops_tpu_torch.serve import graphs as graph_module
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(graph_module, "capture", broken)
+    engine = InferenceEngine(serving_engines[0].bundle)
+    with pytest.raises(RuntimeError, match="capturing"):
+        engine.warmup()
+    assert not engine.ready
