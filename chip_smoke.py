@@ -8,13 +8,15 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card of compute capability 9.0 and exits non-zero,
 printing no result, without one (or when run from a directory that holds
 this script and nothing else of the repository). It imports torch and the
-port (``mlops_tpu_torch``), never JAX or the JAX package. Five main
+port (``mlops_tpu_torch``), never JAX or the JAX package. Seven main
 paths: quant-tier serving (``POST /predict`` with
 ``serve.serve_tier=quant``), long-context doc scoring (``predict-file`` on
 a ``doc`` bundle), doc-model training (``train --config
 configs/long_context_job.toml model.seq_parallel=false``), exact-tier
-serving (``POST /predict`` on a ``flax`` bundle, the default tier) and
-exact-tier training (``train --config configs/train_register_job.toml``).
+serving (``POST /predict`` on a ``flax`` bundle, the default tier),
+exact-tier training (``train --config configs/train_register_job.toml``),
+the distilled students it packages, and bulk scoring (``score-batch``, in
+memory and streamed).
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -171,6 +173,35 @@ Phases, each of which fails the run loudly:
     dispatches (graph replays), fewer dispatches than requests at
     concurrency 64 with the batcher on; requests/s, p50/p99 and
     dispatches (grouped ones too) per request.
+
+23. the distilled students, the main path of packaging: ``python -m
+    mlops_tpu_torch train --config configs/train_register_job.toml`` with
+    ``model.ensemble_size=8 train.distill_quant=true``, the same at
+    ``train.pos_weight=1.0`` (the package default), and
+    ``model.family=ft_transformer``, ``train.distill_bulk`` at its default
+    (true), steps cut to 200, in three concurrent subprocesses: each
+    bundle's ``bulk`` block (fidelity: mean |Δprob| <= 0.05, |AUC delta|
+    <= 0.02) and the ensembles' ``quant`` block with its gate record; an
+    ungated quant tier refused by the engine; each student's fit seconds
+    (800 steps) and device ops and kernel launches per step; the gated
+    port-trained quant tier served as phase 5 serves (``serve
+    serve.serve_tier=quant``, four bodies and two groups against the CPU
+    route, ``quant_fused`` launches counted at replay);
+24. bulk scoring, the main path: ``python -m mlops_tpu_torch score-batch
+    data.rows=1000000`` on phase 23's mlp-ens8 bundle in a subprocess (the
+    exact path on the card), then ``score_dataset`` at 1,000,000 rows on
+    its exact and distilled paths, the gated quant path, and the
+    ft_transformer bundle at 262,144 rows, chunk 131,072: depth 1 and
+    depth 2 bitwise equal, the first chunk against the CPU route
+    (1.6e-2; the quant path 1e-6; flags exact off the band) and the
+    drift on the same 65,536-row sample (1e-5), rows/s, the stage
+    record, peak device memory, and device ops and busy share per chunk
+    (``torch.profiler`` over two chunks);
+25. streamed bulk scoring: a 200,000-row synthetic CSV through ``python
+    -m mlops_tpu_torch score-batch score.streaming=true
+    score.output_path=...`` in a subprocess; every output row equal to
+    the in-memory path's prediction rounded to 6 places and its flag;
+    rows/s and the stage record.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
@@ -2006,8 +2037,9 @@ EXACT_JOB_TOML = "configs/train_register_job.toml"
 # 256/256/128, embed 16, bf16, the config's defaults), its 8-member
 # ensemble, the FT-Transformer and the single-record BERT at the config's
 # defaults (token_dim 64, depth 3, 8 heads), and the linear floor. The
-# ensemble and the transformers ship a bulk student in the JAX package
-# unless train.distill_bulk is off; the port refuses it (ROADMAP A7).
+# ensemble and the transformers ship a bulk student unless
+# train.distill_bulk is off; these runs turn it off to time the trainer
+# alone (phase 23 trains the students).
 EXACT_TRAIN_FAMILIES = {
     "mlp": [],
     "mlp-ens8": ["model.ensemble_size=8", "train.distill_bulk=false"],
@@ -2749,6 +2781,318 @@ def phase_burst(bundle_dir: Path, device: str = "cuda") -> list[dict]:
     return rows
 
 
+# ----------------------------------------------------------------- phase 23
+# The two distilled students of the job (train/distill.py): the 8-member
+# ensemble with train.distill_quant=true and the FT-Transformer, both with
+# train.distill_bulk at its default (true), steps cut as in phase 19. The
+# job's pos_weight 3 biases the teacher's probabilities, which a refit
+# temperature cannot take out, so its quant student may fail the ECE gate
+# (the JAX package's does on the same config); the same ensemble at the
+# package default pos_weight 1 gives the quant tier that is then served.
+STUDENT_RUNS = {
+    "mlp-ens8": ["model.ensemble_size=8", "train.distill_quant=true"],
+    "mlp-ens8-pw1": ["model.ensemble_size=8", "train.distill_quant=true",
+                     "train.pos_weight=1.0"],
+    "ft_transformer": ["model.family=ft_transformer"],
+}
+STUDENT_PROFILED_STEPS = 20
+
+
+def _student_fit_launches(teacher, config, train_ds, device: str) -> dict:
+    """Each student's fit in this process on the job's split: its wall
+    (the distill functions' ``fit_s``, 800 steps) and, under
+    ``torch.profiler`` over STUDENT_PROFILED_STEPS steps of the same
+    loop, device ops and kernel-launch calls per step."""
+    import dataclasses as dc
+
+    import torch
+
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.ops.quant import init_quant_master, master_student_logits
+    from mlops_tpu_torch.train import distill
+
+    target = distill.teacher_logits(teacher, train_ds, device)
+    cat, num = (torch.from_numpy(a).to(device) for a in (train_ds.cat_ids, train_ds.numeric))
+    student_config = dc.replace(config.model, family="mlp", ensemble_size=1,
+                                hidden_dims=(64, 64), dropout=0.0)
+    student = init_params(build_model(student_config), 0).to(device)
+    master = {k: v.to(device).requires_grad_() for k, v in init_quant_master(0).items()}
+    fits = {
+        "bulk": (student, list(student.parameters())),
+        "quant": (lambda c, x: master_student_logits(master, c, x), list(master.values())),
+    }
+    out = {}
+    for name, (forward, leaves) in fits.items():
+        row = _route_profile(lambda: distill._fit(
+            forward, leaves, target, cat, num, STUDENT_PROFILED_STEPS, 2048, 3e-3, 0), 1)
+        out[name] = {k: row[k] / STUDENT_PROFILED_STEPS
+                     for k in ("device_ops", "kernel_launch_calls")}
+    return out
+
+
+def phase_students(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
+    """The students' main path: ``train --config
+    configs/train_register_job.toml`` of each STUDENT_RUNS entry in three
+    concurrent subprocesses (steps cut to EXACT_CUT_STEPS), each bundle's
+    ``bulk`` block (and the ensembles' ``quant`` block) checked; each
+    student's fit seconds and launches per step in this process; the
+    gated quant tier served through ``quant_fused`` (phase 5's checks:
+    ``serve serve.serve_tier=quant`` answering four bodies like the CPU
+    route, a 64x1 and a 64x8 group in this process, the launches counted
+    at replay); an ungated quant tier refused by the engine."""
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+    from mlops_tpu_torch.train import distill
+
+    root = WORK / "students"
+    shutil.rmtree(root, ignore_errors=True)
+    cut = [f"train.steps={EXACT_CUT_STEPS}", f"train.eval_every={EXACT_CUT_EVAL_EVERY}"]
+    runs = {name: [*args, *cut, *extra] for name, args in STUDENT_RUNS.items()}
+    started = {name: _start_train_cli(name, args, root, device) for name, args in runs.items()}
+    clis, walls = {}, {}
+    try:
+        for name, run in started.items():
+            clis[name], walls[name] = _finish_train_cli(name, runs[name], run, device)
+    finally:
+        for proc, *_ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    bundles = {name: Path(out["bundle"]) for name, out in clis.items()}
+    records = {}
+    for name, path in bundles.items():
+        manifest = json.loads((path / "manifest.json").read_text())
+        bundle = load_bundle(path)
+        check(bundle.has_bulk and (path / "bulk_params.msgpack").exists(),
+              f"{name}: no bulk student in the bundle")
+        fid = manifest["bulk"]["fidelity"]
+        check(fid["mean_abs_prob_delta"] <= 0.05 and abs(fid["roc_auc_delta"]) <= 0.02,
+              f"{name}: bulk student fidelity {fid}")
+        records[name] = {"bulk": fid, "wall_s": walls[name],
+                         "metrics": clis[name]["metrics"]}
+        if "distill_quant=true" in " ".join(runs[name]):
+            quant = manifest["quant"]
+            check(bundle.has_quant and set(quant) == {"format", "fidelity", "temperature",
+                                                      "gates"}, f"{name}: quant block {quant}")
+            records[name]["quant"] = {k: quant[k] for k in ("fidelity", "temperature", "gates")}
+        log(f"students {name}: {json.dumps(records[name])}")
+    gated = [n for n in ("mlp-ens8", "mlp-ens8-pw1") if load_bundle(bundles[n]).quant_gates_passed]
+    check(bool(gated), "no port-trained quant tier passed its gates: "
+          f"{[records[n]['quant']['gates'] for n in ('mlp-ens8', 'mlp-ens8-pw1')]}")
+    for name in ("mlp-ens8", "mlp-ens8-pw1"):
+        if name not in gated:
+            try:
+                InferenceEngine(load_bundle(bundles[name]), serve_tier="quant", device=device)
+            except ValueError as err:
+                log(f"students {name}: quant tier refused as it should: {err}")
+            else:
+                raise SmokeFailure(f"{name}: an ungated quant tier was admitted")
+
+    config = _job_config(["model.ensemble_size=8", *extra], device)
+    train_ds, valid_ds = _exact_split(config)
+    fit = {}
+    teacher = load_bundle(bundles["mlp-ens8"]).model
+    fit["bulk_fit_s"] = distill.distill_for_bulk(
+        teacher, config.model, train_ds, valid_ds, device=device).fit_s
+    fit["quant_fit_s"] = distill.distill_quant_student(
+        teacher, train_ds, valid_ds, device=device).fit_s
+    if device == "cuda":
+        fit["per_step"] = _student_fit_launches(teacher, config, train_ds, device)
+    log_timing("students fit (800 steps each, mlp-ens8 teacher)", fit)
+    served = phase_serve(bundles[gated[0]], device)
+    log(f"students: port-trained quant tier of {gated[0]} served, quant_fused launches "
+        f"{served['launches']}")
+    if device == "cuda":
+        check(served["launches"] >= 1, "quant_fused never launched for the trained tier")
+    return {"bundles": bundles, "records": records, "fit": fit, "quant_bundle": gated[0],
+            "launches": served["launches"]}
+
+
+# ----------------------------------------------------------------- phase 24
+BULK_ROWS = 1_000_000
+BULK_FT_ROWS = 262_144
+BULK_CHUNK = 131_072  # ScoreConfig's default
+
+
+def _bulk_reference(bundle_dir: Path, ds, kw: dict, got, seed: int) -> dict:
+    """The first chunk of a card sweep against the port's CPU route on the
+    same rows (the exact tier's 1.6e-2 for a bf16 model, 1e-6 for the
+    quant student's f32 forward; flags exact off the threshold band) and
+    the dataset-level drift on the same sample (1e-5)."""
+    import numpy as np
+    import torch
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.monitor.state import drift_scores
+    from mlops_tpu_torch.parallel import bulk
+
+    bundle = load_bundle(bundle_dir)
+    scorer = bulk.make_chunk_scorer(bundle, device="cpu", **kw)
+    rows = min(BULK_CHUNK, ds.n)
+    cat = torch.from_numpy(ds.cat_ids[:rows].astype(np.int8))
+    num = torch.from_numpy(ds.numeric[:rows])
+    mask = torch.ones(rows, dtype=torch.bool)
+    probs, flags = scorer.score(cat, num, mask)
+    tol = PRED_ATOL if scorer.path == "quant" else EXACT_PRED_ATOL
+    p_err = float(np.abs(probs.numpy() - got.predictions[:rows]).max())
+    near = _near_threshold(bundle.monitor, num, mask).numpy()
+    flag_diff = int(((flags.numpy() != got.outliers[:rows]) & ~near).sum())
+    take = min(ds.n, 65_536)
+    idx = np.random.default_rng(seed).choice(ds.n, take, replace=False)
+    drift = drift_scores(bundle.monitor, torch.from_numpy(ds.cat_ids[idx]),
+                         torch.from_numpy(ds.numeric[idx]), torch.ones(take, dtype=torch.bool))
+    d_err = float(np.abs(drift.double().numpy() - np.asarray(
+        list(got.feature_drift.values()))).max())
+    check(p_err <= tol and flag_diff == 0 and d_err <= EXACT_DRIFT_ATOL,
+          f"bulk {scorer.path}: first chunk against the CPU route: preds {p_err:.3g}, "
+          f"flag mismatches {flag_diff}, drift {d_err:.3g}")
+    return {"first_chunk_max_pred_err": p_err, "drift_max_err": d_err}
+
+
+def phase_bulk(students: dict, device: str = "cuda", rows: int = BULK_ROWS,
+               ft_rows: int = BULK_FT_ROWS, chunk: int = BULK_CHUNK) -> dict:
+    """Bulk scoring, the main path: ``python -m mlops_tpu_torch
+    score-batch data.rows=<rows>`` on phase 23's mlp-ens8 bundle in a
+    subprocess (auto routing keeps the exact model on the card), then
+    through the API at depth 2 and depth 1 (bitwise equal): the exact
+    and distilled paths of that bundle, the quant path of the gated
+    bundle at ``rows`` and the ft_transformer bundle at ``ft_rows``.
+    For each: rows/s, the stage record, peak device memory, the first
+    chunk against the CPU route, device ops and the device's busy share
+    per chunk under ``torch.profiler`` over two chunks."""
+    import numpy as np
+    import torch
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.data import generate_synthetic
+    from mlops_tpu_torch.parallel import bulk
+
+    bundles = students["bundles"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlops_tpu_torch", "score-batch", f"data.rows={rows}",
+         f"serve.model_directory={bundles['mlp-ens8']}", f"serve.device={device}",
+         f"score.chunk_rows={chunk}"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=600,
+    )
+    cli_wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"score-batch exited {proc.returncode}: {proc.stderr[-3000:]}")
+    cli = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(cli["rows"] == rows and cli["devices"] == 1 and cli["mesh"] == [1]
+          and cli["path"] == ("exact" if device == "cuda" else "distilled"),
+          f"score-batch printed {json.dumps(cli)[:500]}")
+    log_timing("bulk cli", {"wall_s": cli_wall, **{k: cli[k] for k in (
+        "rows", "path", "elapsed_s", "rows_per_s", "default_rate", "outlier_rate")},
+        "pipeline": cli["pipeline"]})
+
+    columns, _ = generate_synthetic(rows, seed=0)
+    ds = load_bundle(bundles["mlp-ens8"]).preprocessor.encode(columns)
+    del columns
+    cases = {
+        "exact": (bundles["mlp-ens8"], dict(exact=True), ds),
+        "distilled": (bundles["mlp-ens8"], dict(exact=False), ds),
+        "quant": (bundles[students["quant_bundle"]], dict(tier="quant"), ds),
+        "ft_transformer": (bundles["ft_transformer"], dict(exact=True), ds.slice(np.arange(ft_rows))),
+    }
+    out = {"cli": {**cli, "wall_s": cli_wall}}
+    for name, (path, kw, data) in cases.items():
+        bundle = load_bundle(path)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        two = bulk.score_dataset(bundle, data, chunk_rows=chunk, pipeline_depth=2,
+                                 device=device, **kw)
+        peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+        one = bulk.score_dataset(bundle, data, chunk_rows=chunk, pipeline_depth=1,
+                                 device=device, **kw)
+        check(np.array_equal(one.predictions.view(np.uint32), two.predictions.view(np.uint32))
+              and np.array_equal(one.outliers, two.outliers)
+              and one.feature_drift == two.feature_drift,
+              f"bulk {name}: depth 1 and depth 2 differ")
+        check(np.isfinite(two.predictions).all() and two.rows == data.n,
+              f"bulk {name}: non-finite predictions or a row count of {two.rows}")
+        row = {"path": two.path, "rows": two.rows, "rows_per_s": two.rows_per_s,
+               "rows_per_s_depth1": one.rows_per_s, "elapsed_s": two.elapsed_s,
+               "peak_device_bytes": peak, "pipeline": two.pipeline,
+               **_bulk_reference(path, data, kw, two, seed=0)}
+        if device == "cuda":
+            scorer = bulk.make_chunk_scorer(bundle, device=device, **kw)
+            transfer = bulk.make_chunk_transfer(device, chunk)
+            fetch = bulk.ChunkFetch(torch.device(device), chunk)
+            host = (data.cat_ids[:chunk].astype(np.int8), data.numeric[:chunk],
+                    np.ones(chunk, bool))
+            fetch([scorer(transfer(*host))])
+            row["per_chunk"] = _route_profile(lambda: fetch([scorer(transfer(*host))]), 2)
+        log_timing(f"bulk {name}", row)
+        out[name] = row
+        del bundle, one, two
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+# ----------------------------------------------------------------- phase 25
+STREAM_ROWS = 200_000
+
+
+def phase_stream(students: dict, device: str = "cuda", rows: int = STREAM_ROWS,
+                 chunk: int = BULK_CHUNK) -> dict:
+    """Streamed bulk scoring: a ``rows``-row synthetic CSV (seed 7) through
+    ``python -m mlops_tpu_torch score-batch score.streaming=true`` on
+    phase 23's mlp-ens8 bundle in a subprocess; every output row equals
+    the in-memory path's prediction rounded to 6 places, on the same
+    device and chunk, and its outlier flag."""
+    import csv
+
+    import numpy as np
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.data import generate_synthetic, load_csv_columns, write_csv_columns
+    from mlops_tpu_torch.parallel import bulk
+
+    root = WORK / "stream"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    source, out_csv = root / "rows.csv", root / "scored.csv"
+    columns, labels = generate_synthetic(rows, seed=7)
+    write_csv_columns(source, columns, labels)
+    bundle_dir = students["bundles"]["mlp-ens8"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlops_tpu_torch", "score-batch", "score.streaming=true",
+         f"data.train_path={source}", f"score.output_path={out_csv}",
+         f"serve.model_directory={bundle_dir}", f"serve.device={device}",
+         f"score.chunk_rows={chunk}"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=600,
+    )
+    cli_wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"streamed score-batch exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    stats = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(stats["rows"] == rows and not out_csv.with_name(out_csv.name + ".tmp").exists(),
+          f"streamed score-batch printed {json.dumps(stats)[:500]}")
+    bundle = load_bundle(bundle_dir)
+    cols, _ = load_csv_columns(source)
+    mem = bulk.score_dataset(bundle, bundle.preprocessor.encode(cols), chunk_rows=chunk,
+                             device=device)
+    check(mem.path == stats["path"], f"paths {mem.path} and {stats['path']}")
+    with out_csv.open(newline="") as f:
+        reader = csv.reader(f)
+        check(next(reader) == ["prediction", "outlier"], "streamed output header")
+        written = [(float(p), float(o)) for p, o in reader]
+    want = list(zip(np.round(mem.predictions, 6).tolist(), mem.outliers.tolist()))
+    mismatches = sum(a != b for a, b in zip(written, want))
+    check(len(written) == rows and mismatches == 0,
+          f"streamed output: {len(written)} rows, {mismatches} differ from the in-memory path")
+    row = {"wall_s": cli_wall, **{k: stats[k] for k in (
+        "rows", "path", "elapsed_s", "rows_per_s", "mean_prediction", "outlier_rate",
+        "stages")}, "in_memory_rows_per_s": mem.rows_per_s}
+    log_timing("stream", row)
+    return row
+
+
 def main() -> int:
     if not (ROOT / "mlops_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -2792,6 +3136,9 @@ def main() -> int:
             {name: row["wall_s"] for name, row in exact_train["cli"].items()})
         routes = timed(phase_dispatch_routes, bundle_dir, exact_dirs)
         burst = timed(phase_burst, timed(phase_burst_bundle, exact_dirs))
+        students = timed(phase_students)
+        bulk_rows = timed(phase_bulk, students)
+        streamed = timed(phase_stream, students)
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -2834,6 +3181,7 @@ def main() -> int:
             "shape": head["shape"],
             "timings": timing,
             "large_shapes": c2,
+            "trained_tier_launches": students["launches"],
         }, {
             "name": "flash_attention",
             "route": "cuda",
@@ -2886,6 +3234,10 @@ def main() -> int:
         }],
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
         "serving": {"dispatch_routes": routes, "burst": burst},
+        "students": {"records": students["records"], "fit": students["fit"],
+                     "served_quant_bundle": students["quant_bundle"]},
+        "bulk": bulk_rows,
+        "stream": streamed,
         "exact_train": {
             "parity": exact_train_parity,
             "path": exact_train,

@@ -8,16 +8,18 @@ A bundle is one directory: ``manifest.json``, ``preprocess.npz``,
   manifest's ``model_config``, from which ``models.build_model`` builds
   the linear, mlp or deep-ensemble module; a family the port has not
   ported yet loads without it (``Bundle.exact_refusal`` says why);
+- the bulk tier (the distilled student of an ensemble or a transformer
+  family, ``train/distill.py distill_for_bulk``): ``bulk_params.msgpack``
+  plus the manifest's ``bulk`` block (the student's ``model_config`` and
+  its fidelity record); ``parallel/bulk.py`` routes bulk sweeps through
+  it;
 - the quant tier: ``quant_params.npz`` plus the manifest's ``quant``
   block (format tag, fidelity, refit temperature and the stamped
-  promotion-gate decision); a JAX bundle trained with
-  ``train.distill_quant=true`` carries both tiers;
+  promotion-gate decision); a bundle trained with
+  ``train.distill_quant=true`` carries it beside the exact tier;
 - the ``doc`` flavor (the long-context document model): ``params.msgpack``
   and the manifest's ``model_config``, from which the dense doc model is
   built.
-
-The ``bulk`` tier (``bulk_params.msgpack``) is not read: bulk scoring is
-not ported (ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from mlops_tpu_torch.schema.features import SCHEMA
 
 MANIFEST_NAME = "manifest.json"
 PARAMS_NAME = "params.msgpack"
+BULK_PARAMS_NAME = "bulk_params.msgpack"
 QUANT_PARAMS_NAME = "quant_params.npz"
 PREPROCESS_NAME = "preprocess.npz"
 MONITOR_NAME = "monitor.npz"
@@ -62,6 +65,25 @@ class Bundle:
     # flax flavor: the exact tier's module; doc flavor: BertDocEncoder
     model: torch.nn.Module | None = None
     exact_refusal: str = ""  # why a flax bundle loaded without its exact tier
+    bulk_model: torch.nn.Module | None = None  # the distilled bulk student
+
+    @property
+    def has_bulk(self) -> bool:
+        """True when the bundle carries a distilled bulk student (bulk
+        sweeps may route through it; serving always uses the exact
+        model)."""
+        return self.bulk_model is not None
+
+    @property
+    def bulk_variables(self) -> dict[str, torch.Tensor] | None:
+        """The bulk student's parameters by flattened flax name."""
+        if self.bulk_model is None:
+            return None
+        return dict(self.bulk_model.state_dict())
+
+    @property
+    def bulk_fidelity(self) -> dict[str, float]:
+        return dict(self.manifest.get("bulk", {}).get("fidelity", {}))
 
     @property
     def flavor(self) -> str:
@@ -126,15 +148,32 @@ def _load_doc_model(directory: Path, manifest: dict[str, Any]) -> torch.nn.Modul
     return model.eval()
 
 
+def _load_weights(
+    model: torch.nn.Module, directory: Path, name: str, family: str
+) -> torch.nn.Module:
+    """``model`` with its weights from the flax tree in ``directory /
+    name``, checked against the module's tree and shapes."""
+    from mlops_tpu_torch.weights import exact_params_from_numpy, load_params
+
+    tree = msgpack.unpackb((directory / name).read_bytes())
+    try:
+        load_params(model, exact_params_from_numpy(tree, "cpu"))
+    except ValueError as err:
+        raise ValueError(
+            f"bundle {directory} holds a param tree ({name}) that no longer "
+            f"matches the {family!r} module this package builds — "
+            "re-train/re-register the model"
+        ) from err
+    return model.eval()
+
+
 def _load_exact_model(
     directory: Path, manifest: dict[str, Any]
 ) -> tuple[torch.nn.Module | None, str]:
     """The exact tier's module of a ``flax`` bundle with its weights from
-    ``params.msgpack`` (checked against the module's tree and shapes), or
-    ``(None, why)`` when the bundle has no exact params or its family is
-    not ported yet."""
+    ``params.msgpack``, or ``(None, why)`` when the bundle has no exact
+    params or its family is not ported yet."""
     from mlops_tpu_torch.models import build_model
-    from mlops_tpu_torch.weights import exact_params_from_numpy, load_params
 
     if not (directory / PARAMS_NAME).exists() or not manifest.get("model_config"):
         return None, "bundle carries no exact-tier params (params.msgpack)"
@@ -143,16 +182,7 @@ def _load_exact_model(
         model = build_model(config)
     except ValueError as err:
         return None, str(err)
-    tree = msgpack.unpackb((directory / PARAMS_NAME).read_bytes())
-    try:
-        load_params(model, exact_params_from_numpy(tree, "cpu"))
-    except ValueError as err:
-        raise ValueError(
-            f"bundle {directory} holds a param tree that no longer matches "
-            f"the {config.family!r} module this package builds — "
-            "re-train/re-register the model"
-        ) from err
-    return model.eval(), ""
+    return _load_weights(model, directory, PARAMS_NAME, config.family), ""
 
 
 def load_bundle(directory: str | Path) -> Bundle:
@@ -187,6 +217,14 @@ def load_bundle(directory: str | Path) -> Bundle:
             quant_params = quant_params_from_arrays(
                 {k: data[k] for k in data.files}
             )
+    bulk_model = None
+    if "bulk" in manifest and (directory / BULK_PARAMS_NAME).exists():
+        from mlops_tpu_torch.models import build_model
+
+        bulk_config = _model_config_from_manifest(manifest["bulk"])
+        bulk_model = _load_weights(
+            build_model(bulk_config), directory, BULK_PARAMS_NAME, bulk_config.family
+        )
     return Bundle(
         manifest=manifest,
         preprocessor=preprocessor,
@@ -194,6 +232,7 @@ def load_bundle(directory: str | Path) -> Bundle:
         quant_params=quant_params,
         model=model,
         exact_refusal=exact_refusal,
+        bulk_model=bulk_model,
     )
 
 
@@ -255,6 +294,7 @@ def save_exact_bundle(
     metrics: dict[str, float] | None = None,
     quant_params: dict[str, torch.Tensor] | None = None,
     quant: dict[str, Any] | None = None,
+    bulk: Any = None,
 ) -> Path:
     """Write a ``flax`` bundle of the exact tier that the JAX package's
     ``load_bundle`` reads: the manifest with its ``model_config``,
@@ -262,7 +302,9 @@ def save_exact_bundle(
     flax's ``params.msgpack`` (f32, keys in flax's order, the ensemble's
     member axis leading), and the two npz files. With ``quant_params``
     the bundle carries the quant tier too (``quant``: its manifest block,
-    as ``save_quant_bundle`` writes it)."""
+    fidelity, refit temperature and stamped gates); with ``bulk`` (a
+    ``train.distill.DistillResult``) the distilled bulk student, as
+    ``bulk_params.msgpack`` and the manifest's ``bulk`` block."""
     from mlops_tpu_torch.weights import unflatten_tree
 
     if model_config.doc_records > 1:
@@ -282,6 +324,15 @@ def save_exact_bundle(
     }
     params = {k: v.detach().cpu().float() for k, v in model.state_dict().items()}
     (directory / PARAMS_NAME).write_bytes(msgpack.packb(unflatten_tree(params)))
+    if bulk is not None:
+        manifest["bulk"] = {
+            "model_config": dataclasses.asdict(bulk.student_config),
+            "fidelity": bulk.fidelity,
+        }
+        student = {k: v.detach().cpu().float() for k, v in bulk.student_params.items()}
+        (directory / BULK_PARAMS_NAME).write_bytes(
+            msgpack.packb(unflatten_tree(student))
+        )
     if quant_params is not None:
         manifest["quant"] = {"format": QUANT_FORMAT, **(quant or {})}
         np.savez(

@@ -11,17 +11,24 @@
   [serve.max_batch=N]``);
 - ``train``: train an exact-tier model into a ``flax`` bundle
   (``--config configs/train_register_job.toml``; linear, mlp, deep
-  ensembles with ``train.distill_bulk=false``, ``ft_transformer`` and
-  single-record ``bert`` with ``train.distill_bulk=false``) or the
-  long-context doc model into a ``doc`` bundle (``--config
-  configs/long_context_job.toml model.seq_parallel=false``), and print
-  one JSON line (``registry.root=<dir> registry.run_root=<dir>``).
+  ensembles, ``ft_transformer`` and single-record ``bert``, with the
+  distilled bulk student of an ensemble or a transformer family unless
+  ``train.distill_bulk=false``, and the gated quant tier with
+  ``train.distill_quant=true``) or the long-context doc model into a
+  ``doc`` bundle (``--config configs/long_context_job.toml
+  model.seq_parallel=false``), and print one JSON line
+  (``registry.root=<dir> registry.run_root=<dir>``);
+- ``score-batch``: bulk-score ``data.rows`` synthetic rows or a CSV
+  (``data.train_path``) with a ``flax`` bundle and print one JSON line
+  (``serve.model_directory=<bundle> [score.output_path=<npz>]``); with
+  ``score.streaming=true`` stream the CSV to ``score.output_path`` (a
+  CSV).
 
 Every command takes ``--config <toml>`` and positional
 ``section.field=value`` overrides, as the JAX package's CLI does
 (``serve.model_directory=<bundle> serve.port=5001 serve.device=cpu``).
 Every command runs on the card unless ``serve.device=cpu`` (serve,
-predict-file) or ``train.device=cpu`` (train). For ``serve``, ``MODEL_DIRECTORY`` and
+predict-file, score-batch) or ``train.device=cpu`` (train). For ``serve``, ``MODEL_DIRECTORY`` and
 ``SERVICE_NAME`` in the environment take precedence over the config, as
 in the reference.
 """
@@ -51,6 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
             "train an exact-tier model or the long-context doc model into a bundle",
             "train.steps=200 registry.root=<dir>",
         ),
+        "score-batch": (
+            "bulk-score a dataset (in memory or streamed) with a flax bundle",
+            "data.rows=1000000 serve.model_directory=<bundle>",
+        ),
     }
     for name, (help_text, example) in commands.items():
         cmd = sub.add_parser(name, help=help_text)
@@ -73,6 +84,12 @@ def _serve(config) -> int:
     cfg.service_name = os.environ.get("SERVICE_NAME", cfg.service_name)
     model_dir = os.environ.get("MODEL_DIRECTORY", cfg.model_directory)
     cfg.validate()
+    config.lifecycle.validate()
+    if config.lifecycle.enabled:
+        raise SystemExit(
+            "lifecycle.enabled=true (the closed retrain / shadow / promote "
+            "loop) is not ported (ROADMAP A10)"
+        )
     engine = InferenceEngine(
         load_bundle(model_dir),
         buckets=tuple(cfg.warmup_batch_sizes),
@@ -98,11 +115,23 @@ def _train(config) -> int:
     return 0
 
 
+def _score_batch(config) -> int:
+    from mlops_tpu_torch.commands import score_batch
+
+    print(json.dumps(score_batch(config)), flush=True)
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     from mlops_tpu_torch.config import load_config
 
     args = build_parser().parse_args(argv)
-    handlers = {"serve": _serve, "predict-file": _predict_file, "train": _train}
+    handlers = {
+        "serve": _serve,
+        "predict-file": _predict_file,
+        "train": _train,
+        "score-batch": _score_batch,
+    }
     if args.command not in handlers:
         build_parser().print_help()
         return 1

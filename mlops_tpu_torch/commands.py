@@ -1,5 +1,5 @@
-"""Offline subcommands: ``train`` and ``predict-file`` on a ``flax``
-(exact tier) or ``doc`` bundle.
+"""Offline subcommands: ``train``, ``predict-file`` on a ``flax`` (exact
+tier) or ``doc`` bundle, and ``score-batch``.
 
 ``train`` is the JAX package's ``_train`` (``mlops_tpu/commands.py:96``):
 ``run_layout_training`` for a layout config (the long-context doc model),
@@ -14,8 +14,12 @@ CSV group into ``doc_records``-length documents (the prediction targets
 the last record's default), documents stream through the doc model in
 ``serve.max_batch`` chunks (the tail chunk padded to the same shape), and
 one calibrated probability ``sigmoid(logit / T)`` comes back per
-document, with the grouping accounted for. Runs on the card unless
-``serve.device=cpu``.
+document, with the grouping accounted for. ``score-batch`` is the JAX
+package's ``_score_batch`` (``mlops_tpu/commands.py:387``) on one device:
+``parallel/bulk.py score_dataset`` over ``data.train_path`` (a CSV) or
+``data.rows`` synthetic rows, or with ``score.streaming=true``
+``data/stream.py score_csv_stream`` from the CSV to
+``score.output_path``. Each runs on the card unless ``serve.device=cpu``.
 """
 
 from __future__ import annotations
@@ -118,3 +122,61 @@ def predict_documents(
         "records_per_document": r,
         "rows_dropped": int(ds.cat_ids.shape[0] - docs * r),
     }
+
+
+def score_batch(config: Config) -> dict:
+    """``score-batch serve.model_directory=<bundle> [data.rows=N |
+    data.train_path=<csv>] [score.*]``: the JSON the JAX package prints on
+    one device (``devices`` 1, ``mesh`` [1]); ``score.output_path`` writes
+    the predictions and outliers as an ``.npz``. With
+    ``score.streaming=true`` the CSV streams to ``score.output_path`` (a
+    CSV) and the stream's stats are printed."""
+    from mlops_tpu_torch.data import generate_synthetic
+    from mlops_tpu_torch.parallel.bulk import DOC_REFUSAL, score_dataset
+
+    device = resolve_device(config.serve.device)
+    bundle = load_bundle(config.serve.model_directory)
+    if bundle.flavor == "doc":
+        raise SystemExit(DOC_REFUSAL)
+    exact = True if config.score.exact else None
+    if config.score.streaming:
+        from mlops_tpu_torch.data.stream import score_csv_stream
+
+        if not config.data.train_path:
+            raise SystemExit("score.streaming requires data.train_path=<csv>")
+        return score_csv_stream(
+            bundle,
+            config.data.train_path,
+            out_path=config.score.output_path or None,
+            chunk_rows=config.score.chunk_rows,
+            exact=exact,
+            pipeline_depth=config.score.pipeline_depth,
+            device=device,
+        )
+    if config.data.train_path:
+        if config.data.train_path.endswith(".parquet"):
+            raise SystemExit(
+                f"{config.data.train_path}: Parquet input is not ported "
+                "(ROADMAP A6); score a CSV"
+            )
+        columns, _ = load_csv_columns(config.data.train_path)
+    else:
+        columns, _ = generate_synthetic(config.data.rows, seed=config.data.seed)
+    ds = bundle.preprocessor.encode(columns)
+    result = score_dataset(
+        bundle,
+        ds,
+        chunk_rows=config.score.chunk_rows,
+        drift_sample=config.score.drift_sample,
+        seed=config.data.seed,
+        exact=exact,
+        pipeline_depth=config.score.pipeline_depth,
+        device=device,
+    )
+    if config.score.output_path:
+        np.savez(
+            config.score.output_path,
+            predictions=result.predictions,
+            outliers=result.outliers,
+        )
+    return {"devices": 1, "mesh": [1], **result.summary()}

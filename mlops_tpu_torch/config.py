@@ -6,7 +6,9 @@ field for field with their defaults, so a bundle manifest's
 ``monitor`` and ``registry`` hold the fields the ported paths read;
 ``serve`` the keys of the JAX package's ``ServeConfig`` that its
 single-process server reads (``ServeConfig.validate`` with the same
-messages). Two port-only knobs,
+messages). ``score`` (bulk scoring) and ``lifecycle`` (whose gate
+bounds grade the quant student; the controller itself is not ported)
+are the JAX package's, field for field. Two port-only knobs,
 ``serve.device`` and ``train.device``, say where the entry points run:
 the card unless the caller writes ``cpu``.
 
@@ -79,9 +81,11 @@ class TrainConfig:
     ``fit`` reads (warmup_steps and keep_best too; the pipeline-parallel
     knobs are not its); the doc trainer reads batch_size, steps,
     learning_rate, weight_decay, seed, eval_every, checkpoint_every,
-    pos_weight and ema_decay, as the JAX doc trainer does.
-    tensorboard_dir, init_params, distill_quant and (for ensembles and
-    transformers) distill_bulk are refused when set."""
+    pos_weight and ema_decay, as the JAX doc trainer does. After the fit
+    ``run_training`` distills the bulk student (``distill_bulk``, for
+    ensembles and the transformer families) and the quant student
+    (``distill_quant``), as the JAX package's does; tensorboard_dir and
+    init_params are refused when set."""
 
     batch_size: int = 1024
     steps: int = 2000
@@ -237,6 +241,145 @@ class ServeConfig:
 
 
 @dataclasses.dataclass
+class ScoreConfig:
+    """The JAX package's ``ScoreConfig`` (``mlops_tpu/config.py:534``):
+    bulk scoring (``score-batch``, ``parallel/bulk.py`` and
+    ``data/stream.py``)."""
+
+    chunk_rows: int = 131_072  # rows per chunk program
+    drift_sample: int = 65_536  # bounded sample for dataset-level drift
+    pipeline_depth: int = 2  # bounded-queue depth of the staged executor
+    # (data/pipeline_exec.py); 1 = strict serial, bit-identical outputs
+    output_path: str = ""  # optional .npz with predictions/outliers
+    # (streaming: the output CSV)
+    streaming: bool = False  # stream CSV chunks through the chunk program
+    # with one-chunk peak memory (data/stream.py)
+    exact: bool = False  # True forces the serving-identical model; False
+    # auto-routes through the distilled bulk student on the CPU
+    # (parallel/bulk.py use_distilled_bulk)
+
+
+class LifecycleConfigError(ValueError):
+    """An inconsistent lifecycle geometry, named at startup."""
+
+
+@dataclasses.dataclass
+class LifecycleConfig:
+    """The JAX package's ``LifecycleConfig`` (``mlops_tpu/config.py:562``),
+    field for field with its defaults and validation. The port reads
+    ``max_auc_drop`` and ``max_ece``: the bounds ``quant_tier_gates``
+    grades the quant student by. The closed-loop controller
+    (``lifecycle.enabled=true``) is not ported (ROADMAP A10)."""
+
+    enabled: bool = False
+    dir: str = "lifecycle"
+    labeled_path: str = ""
+    drift_threshold: float = 0.9
+    outlier_threshold: float = 0.5
+    min_window_rows: int = 256
+    hysteresis_windows: int = 2
+    cooldown_s: float = 300.0
+    tick_s: float = 1.0
+    reservoir_rows: int = 8192
+    retrain_steps: int = 300
+    retrain_batch_size: int = 256
+    min_labeled_rows: int = 512
+    refit_preprocessor: bool = False
+    mirror_fraction: float = 0.1
+    shadow_min_mirrors: int = 32
+    shadow_max_s: float = 600.0
+    max_auc_drop: float = 0.01  # a student may trail its teacher's AUC by
+    # at most this on the held-out split
+    max_ece: float = 0.1  # expected-calibration-error bound
+    max_p99_ratio: float = 2.0
+    auto_promote: bool = True
+    breaker_failures: int = 3
+    breaker_cooldown_s: float = 1800.0
+
+    def validate(self) -> "LifecycleConfig":
+        """Reject an inconsistent geometry with the JAX package's
+        messages, all in one ``LifecycleConfigError``."""
+        problems: list[str] = []
+        if not 0.0 < self.drift_threshold <= 1.0:
+            problems.append(
+                f"lifecycle.drift_threshold={self.drift_threshold} must be "
+                "in (0, 1] (drift scores are 1 - p_val)"
+            )
+        if not 0.0 < self.outlier_threshold <= 1.0:
+            problems.append(
+                f"lifecycle.outlier_threshold={self.outlier_threshold} "
+                "must be in (0, 1] (a rate)"
+            )
+        if self.hysteresis_windows < 1:
+            problems.append(
+                f"lifecycle.hysteresis_windows={self.hysteresis_windows} "
+                "must be >= 1 (0 would fire on no evidence at all)"
+            )
+        if not 0.0 <= self.mirror_fraction <= 1.0:
+            problems.append(
+                f"lifecycle.mirror_fraction={self.mirror_fraction} must be "
+                "in [0, 1]"
+            )
+        if self.reservoir_rows < 1:
+            problems.append(
+                f"lifecycle.reservoir_rows={self.reservoir_rows} must be >= 1"
+            )
+        if self.retrain_steps < 1:
+            problems.append(
+                f"lifecycle.retrain_steps={self.retrain_steps} must be >= 1"
+            )
+        if self.max_p99_ratio <= 0:
+            problems.append(
+                f"lifecycle.max_p99_ratio={self.max_p99_ratio} must be > 0"
+            )
+        if self.tick_s <= 0:
+            problems.append(
+                f"lifecycle.tick_s={self.tick_s} must be > 0 (a zero tick "
+                "turns the controller thread into a busy loop of "
+                "fetch-and-reset device round trips contending the "
+                "accumulator lock with live traffic)"
+            )
+        if self.cooldown_s < 0:
+            problems.append(
+                f"lifecycle.cooldown_s={self.cooldown_s} must be >= 0"
+            )
+        if self.min_window_rows < 1:
+            problems.append(
+                f"lifecycle.min_window_rows={self.min_window_rows} must "
+                "be >= 1"
+            )
+        if self.min_labeled_rows < 2:
+            problems.append(
+                f"lifecycle.min_labeled_rows={self.min_labeled_rows} must "
+                "be >= 2 (the holdout split needs both classes a chance "
+                "to exist)"
+            )
+        if self.shadow_min_mirrors < 0:
+            problems.append(
+                f"lifecycle.shadow_min_mirrors={self.shadow_min_mirrors} "
+                "must be >= 0"
+            )
+        if self.shadow_max_s <= 0:
+            problems.append(
+                f"lifecycle.shadow_max_s={self.shadow_max_s} must be > 0 "
+                "(the shadow phase needs a bounded evaluation deadline)"
+            )
+        if self.breaker_failures < 1:
+            problems.append(
+                f"lifecycle.breaker_failures={self.breaker_failures} must "
+                "be >= 1 (0 would open the breaker on no evidence)"
+            )
+        if self.breaker_cooldown_s < 0:
+            problems.append(
+                f"lifecycle.breaker_cooldown_s={self.breaker_cooldown_s} "
+                "must be >= 0"
+            )
+        if problems:
+            raise LifecycleConfigError("; ".join(problems))
+        return self
+
+
+@dataclasses.dataclass
 class RegistryConfig:
     root: str = "registry"  # a local directory (gs:// is not ported)
     model_name: str = "credit-default-uci-custom"
@@ -254,6 +397,8 @@ class Config:
     monitor: MonitorConfig = dataclasses.field(default_factory=MonitorConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     registry: RegistryConfig = dataclasses.field(default_factory=RegistryConfig)
+    score: ScoreConfig = dataclasses.field(default_factory=ScoreConfig)
+    lifecycle: LifecycleConfig = dataclasses.field(default_factory=LifecycleConfig)
 
 
 def _coerce(owner: type, field: str, current: Any, raw: str) -> Any:

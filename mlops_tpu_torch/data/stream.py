@@ -1,0 +1,217 @@
+"""Out-of-core CSV streaming: chunked ingest and stream scoring.
+
+Port of the JAX package's ``data/stream.py`` scoring half: a CSV of any
+size is read as fixed-size row chunks and scored chunk -> encode ->
+device -> append-to-output without ever holding the dataset. Chunks
+share the batch reader's parsing (``data/ingest.py`` ``rows_to_columns``
+/ ``parse_labels``): blank lines skipped, short rows read missing cells
+as empty (-> OOV / median); labels are parsed, strictly, only under
+``require_target=True``.
+
+Not ported: Parquet input (ROADMAP A6), ``gs://`` staging, the streaming
+preprocessor fit (``fit_streaming``, ROADMAP A10) and the C++ byte-level
+encoder (``native/``): chunks encode through the Python route, which the
+JAX package pins bit-identical to it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import csv
+from pathlib import Path
+from typing import Iterator
+
+import numpy as np
+import torch
+
+from mlops_tpu_torch.data.ingest import parse_labels, rows_to_columns
+from mlops_tpu_torch.schema.features import SCHEMA, FeatureSchema
+
+
+def iter_csv_chunks(
+    path: str | Path,
+    chunk_rows: int = 65_536,
+    schema: FeatureSchema = SCHEMA,
+    require_target: bool = False,
+) -> Iterator[tuple[dict[str, list], np.ndarray | None]]:
+    """Yield ``(columns, labels)`` chunks of at most ``chunk_rows`` rows;
+    ``labels`` is None unless ``require_target``. Memory is bounded by one
+    chunk."""
+    with Path(path).open(newline="") as f:
+        reader = csv.reader(f)
+        header = next(reader)
+        col_index = {name: i for i, name in enumerate(header)}
+        missing = [n for n in schema.feature_names if n not in col_index]
+        if missing:
+            raise ValueError(f"{path}: missing required columns {missing}")
+        if require_target and schema.target not in col_index:
+            raise ValueError(f"{path}: missing target column {schema.target!r}")
+
+        def emit(rows: list, base_row: int):
+            columns = rows_to_columns(rows, col_index, schema)
+            labels = (
+                parse_labels(rows, col_index, schema, path, base_row)
+                if require_target
+                else None
+            )
+            return columns, labels
+
+        buffer: list = []
+        seen = 0
+        for row in reader:
+            if not row or row == [""]:
+                continue
+            buffer.append(row)
+            if len(buffer) >= chunk_rows:
+                yield emit(buffer, seen)
+                seen += len(buffer)
+                buffer = []
+        if buffer:
+            yield emit(buffer, seen)
+
+
+def iter_table_chunks(
+    path: str | Path,
+    chunk_rows: int = 65_536,
+    schema: FeatureSchema = SCHEMA,
+    require_target: bool = False,
+) -> Iterator[tuple[dict[str, list], np.ndarray | None]]:
+    """The JAX package's format-dispatching chunk iterator: a CSV streams
+    through ``iter_csv_chunks``; Parquet is refused (ROADMAP A6)."""
+    if str(path).endswith(".parquet"):
+        raise ValueError(
+            f"{path}: Parquet input is not ported (ROADMAP A6); stream a CSV"
+        )
+    return iter_csv_chunks(path, chunk_rows, schema, require_target)
+
+
+def score_csv_stream(
+    bundle,
+    in_path: str | Path,
+    out_path: str | Path | None = None,
+    chunk_rows: int = 65_536,
+    exact: bool | None = None,
+    pipeline_depth: int = 2,
+    device: str | torch.device | None = None,
+) -> dict[str, float]:
+    """Stream-score a CSV through the bundle's bulk chunk program on
+    ``device`` (the card unless "cpu").
+
+    Stages (``data/pipeline_exec.py``): read and parse -> encode and pad
+    -> transfer -> compute -> batched fetch -> append ``prediction,
+    outlier`` rows (the prediction rounded to 6 places) to ``out_path``.
+    Depth 1 runs them serially with the same output. Returns aggregate
+    stats with per-stage busy time and ``rows_per_s`` after warm-up.
+
+    The output is written to a ``.tmp`` sibling and renamed into place on
+    success only, so a failure mid-stream (which drains the pipeline and
+    propagates) leaves no partial file behind."""
+    from mlops_tpu_torch.data.pipeline_exec import Stage, run_pipeline
+    from mlops_tpu_torch.device import resolve_device
+    from mlops_tpu_torch.parallel.bulk import (
+        FETCH_WAVE,
+        ChunkFetch,
+        make_chunk_scorer,
+        make_chunk_transfer,
+        mesh_chunk_rows,
+    )
+
+    device = resolve_device(device)
+    chunk_rows = mesh_chunk_rows(chunk_rows)
+    # exact=None routes through the distilled student on the CPU when the
+    # bundle carries one; the stats' "path" says which ran.
+    scorer = make_chunk_scorer(bundle, exact=exact, device=device)
+    source = (columns for columns, _ in iter_table_chunks(in_path, chunk_rows))
+    transfer = make_chunk_transfer(device, chunk_rows, pipeline_depth)
+    fetch = ChunkFetch(device, chunk_rows)
+    # Warm the chunk program before the streamed (and timed) run.
+    fetch([scorer(transfer(
+        np.zeros((chunk_rows, SCHEMA.num_categorical), np.int8),
+        np.zeros((chunk_rows, SCHEMA.num_numeric), np.float32),
+        np.arange(chunk_rows) < 1,
+    ))])
+
+    prep = bundle.preprocessor
+    base_index = np.arange(chunk_rows)
+    full_mask = np.ones(chunk_rows, bool)
+
+    def encode_chunk(columns):
+        ds = prep.encode(columns)
+        n = ds.n
+        # The ids travel as int8 (the largest vocabulary is 12); pad to
+        # the fixed chunk shape (only the tail chunk is short).
+        cat = ds.cat_ids.astype(np.int8)
+        pad = chunk_rows - n
+        if pad:
+            cat = np.pad(cat, ((0, pad), (0, 0)))
+            num = np.pad(ds.numeric, ((0, pad), (0, 0)))
+            mask = base_index < n
+        else:
+            num = ds.numeric
+            mask = full_mask
+        return cat, num, mask, n
+
+    def transfer_chunk(item):
+        cat, num, mask, n = item
+        return transfer(cat, num, mask), n
+
+    def compute_chunk(item):
+        on_device, n = item
+        return scorer(on_device), n
+
+    def fetch_chunks(items):
+        fetched = fetch([out for out, _ in items])
+        return [(host[0, :n], host[1, :n]) for host, (_, n) in zip(fetched, items)]
+
+    rows = 0
+    outlier_count = 0.0
+    prob_sum = 0.0
+    writer = None
+
+    def write_chunk(item):
+        nonlocal rows, outlier_count, prob_sum
+        probs, outliers = item
+        rows += probs.size
+        outlier_count += float(outliers.sum())
+        prob_sum += float(probs.sum())
+        if writer is not None:
+            writer.writerows(zip(np.round(probs, 6).tolist(), outliers.tolist()))
+
+    tmp_path = None
+    try:
+        with contextlib.ExitStack() as stack:
+            if out_path is not None:
+                out_path = Path(out_path)
+                out_path.parent.mkdir(parents=True, exist_ok=True)
+                tmp_path = out_path.with_name(out_path.name + ".tmp")
+                f = stack.enter_context(tmp_path.open("w", newline=""))
+                writer = csv.writer(f)
+                writer.writerow(["prediction", "outlier"])
+            pipe = run_pipeline(
+                source,
+                [
+                    Stage("encode", encode_chunk),
+                    Stage("transfer", transfer_chunk),
+                    Stage("compute", compute_chunk),
+                    Stage("fetch", fetch_chunks, batch_max=FETCH_WAVE,
+                          queue_depth=FETCH_WAVE),
+                ],
+                write_chunk,
+                depth=pipeline_depth,
+            )
+        if tmp_path is not None:
+            tmp_path.replace(out_path)
+    except BaseException:
+        if tmp_path is not None:
+            tmp_path.unlink(missing_ok=True)
+        raise
+    return {
+        "rows": rows,
+        "path": scorer.path,
+        "mean_prediction": prob_sum / max(rows, 1),
+        "outlier_rate": outlier_count / max(rows, 1),
+        "pipeline_depth": pipe.depth,
+        "elapsed_s": round(pipe.wall_s, 4),
+        "rows_per_s": round(rows / max(pipe.wall_s, 1e-9), 1),
+        "stages": pipe.stages,
+    }

@@ -68,6 +68,11 @@ def quantize_student(master: dict[str, Any]) -> dict[str, torch.Tensor]:
     }
 
 
+def quant_params_geometry(qparams: dict[str, Any]) -> tuple[int, int]:
+    """(embed_dim, hidden) read back from a quant dict."""
+    return int(qparams["embed"].shape[2]), int(qparams["w1_q"].shape[1])
+
+
 def init_quant_master(
     seed: int = 0,
     embed_dim: int = QUANT_EMBED_DIM,
@@ -114,6 +119,19 @@ def student_logits(
     x = torch.cat(feats + [numeric.float()], dim=-1)
     h = torch.relu(x @ w1 + b1)
     return h @ w2 + b2
+
+
+def master_student_logits(
+    master: dict[str, torch.Tensor],
+    cat_ids: torch.Tensor,
+    numeric: torch.Tensor,
+) -> torch.Tensor:
+    """Forward through the un-quantized f32 master, differentiable: the
+    surface the quant student's distillation fit descends."""
+    return student_logits(
+        master["embed"], master["w1"], master["b1"], master["w2"],
+        master["b2"], cat_ids, numeric,
+    )
 
 
 def quant_student_logits(

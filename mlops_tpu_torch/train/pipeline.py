@@ -7,8 +7,11 @@ checkpoints, packaging):
 
 - ``run_training``, the dense single-record trainer of the exact tier
   (linear, mlp, deep ensembles, FT-Transformer, single-record BERT):
-  ``loop.fit``, temperature calibration on the packaged params, a
-  ``flax`` bundle both packages load;
+  ``loop.fit``, temperature calibration on the packaged params, the
+  distilled students (``train/distill.py``: the bulk student of an
+  ensemble or a transformer family unless ``train.distill_bulk`` is off,
+  the quant tier with ``train.distill_quant``), a ``flax`` bundle both
+  packages load;
 - ``run_layout_training`` and ``_run_doc_training``, the long-context
   doc model: a ``doc`` bundle and ``doc_params.msgpack``.
 
@@ -16,9 +19,8 @@ The same config and data give the same batches in the same order on the
 CPU and the card; each run writes ``metrics.jsonl``, checkpoints, a
 bundle and a registry version. What the JAX ``train`` command accepts and
 the port does not train yet (pipeline- and tensor-parallel training, the
-sequence-parallel ring, bulk and quant students, pretrained trunks, the
-MoE and tree families) is refused before any work, naming its ROADMAP
-item.
+sequence-parallel ring, pretrained trunks, the MoE and tree families) is
+refused before any work, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -44,6 +46,12 @@ from mlops_tpu_torch.train.checkpoint import (
     restore_train_state,
     save_checkpoint,
     train_state,
+)
+from mlops_tpu_torch.train.distill import (
+    DistillResult,
+    QuantDistillResult,
+    distill_for_bulk,
+    distill_quant_student,
 )
 from mlops_tpu_torch.train.long_context import (
     DocTrainStep,
@@ -154,9 +162,11 @@ def _package_and_register(
     registry_tags: dict[str, str],
     register: bool,
     calibration: dict[str, float],
+    students: dict | None = None,
 ) -> tuple[Path, str | None]:
     """The packaging tail: fit the monitors on the training split, write
-    the bundle (``doc`` for a doc model, else ``flax``), register it."""
+    the bundle (``doc`` for a doc model, else ``flax`` with the
+    ``students`` keywords of ``save_exact_bundle``), register it."""
     bundle_dir = run_dir / "bundle"
     monitor = fit_monitor(
         train_ds,
@@ -168,6 +178,7 @@ def _package_and_register(
     save(
         bundle_dir, config.model, model, preprocessor, monitor,
         calibration=calibration, tags=bundle_tags, metrics=metrics,
+        **(students or {}),
     )
     model_uri = None
     if register:
@@ -210,8 +221,40 @@ def _refuse_unported(config: Config) -> None:
 
 
 # The JAX package's package-time distillation gate (``_maybe_distill``):
-# these models ship a bulk student unless train.distill_bulk is off.
-_BULK_STUDENT_FAMILIES = ("ft_transformer", "moe", "bert")
+# ensembles and these families ship a bulk student unless
+# train.distill_bulk is off.
+_DISTILL_FAMILIES = ("ft_transformer", "moe", "bert")
+
+
+def _maybe_distill(
+    config: Config, teacher: torch.nn.Module, train_ds, valid_ds, device
+) -> DistillResult | None:
+    """The bulk student of an ensemble or a transformer family (the
+    families whose per-row FLOPs the JAX package distills away for CPU
+    bulk sweeps), unless ``train.distill_bulk`` turned it off."""
+    expensive = (
+        config.model.ensemble_size > 1 or config.model.family in _DISTILL_FAMILIES
+    )
+    if not expensive or not config.train.distill_bulk:
+        return None
+    return distill_for_bulk(
+        teacher, config.model, train_ds, valid_ds, seed=config.train.seed,
+        device=device,
+    )
+
+
+def _maybe_distill_quant(
+    config: Config, teacher: torch.nn.Module, train_ds, valid_ds, device
+) -> QuantDistillResult | None:
+    """The quant tier, opt-in (``train.distill_quant``): the quantized
+    student with its fidelity record, refit temperature and stamped gate
+    decision, which the engine admits the tier by."""
+    if not config.train.distill_quant:
+        return None
+    return distill_quant_student(
+        teacher, train_ds, valid_ds, seed=config.train.seed,
+        lifecycle=config.lifecycle, device=device,
+    )
 
 
 def _refuse_unported_dense(config: Config) -> None:
@@ -231,21 +274,6 @@ def _refuse_unported_dense(config: Config) -> None:
         )
     if model.family == "moe":
         raise ValueError("model.family='moe' is not ported (ROADMAP.md A9)")
-    if tcfg.distill_bulk and (
-        model.ensemble_size > 1 or model.family in _BULK_STUDENT_FAMILIES
-    ):
-        raise ValueError(
-            "train.distill_bulk=true packages a bulk student "
-            "(bulk_params.msgpack, distill_for_bulk) for an ensemble or a "
-            "transformer family, which is not ported (ROADMAP.md A7): a bundle "
-            "without it would differ from the JAX package's; pass "
-            "train.distill_bulk=false"
-        )
-    if tcfg.distill_quant:
-        raise ValueError(
-            "train.distill_quant=true (the quant student, distill_quant_student) "
-            "is not ported (ROADMAP.md A5)"
-        )
     if tcfg.init_params:
         raise ValueError(
             "train.init_params (a pretrained masked-LM trunk) is not ported "
@@ -270,7 +298,9 @@ def run_training(
     card unless "cpu") and package and register it as a ``flax`` bundle:
     data, ``Preprocessor.fit``, the seed-2024 split, ``fit``, a
     temperature fitted on the packaged params' validation logits, the
-    monitors, the bundle, the registry."""
+    bulk and quant students (``_maybe_distill``, ``_maybe_distill_quant``)
+    distilled from the packaged params, the monitors, the bundle, the
+    registry."""
     _refuse_unported_dense(config)
     device = resolve_device(config.train.device)
     model = build_model(config.model)  # refuses what the zoo does not port
@@ -296,6 +326,16 @@ def run_training(
         torch.from_numpy(valid_ds.numeric).to(device),
     )
     calibration = calibration_record(logits.cpu().numpy(), valid_ds.labels)
+    bulk = _maybe_distill(config, packaged, train_ds, valid_ds, device)
+    quant = _maybe_distill_quant(config, packaged, train_ds, valid_ds, device)
+    students = {"bulk": bulk}
+    if quant is not None:
+        students["quant_params"] = quant.qparams
+        students["quant"] = {
+            "fidelity": quant.fidelity,
+            "temperature": quant.temperature,
+            "gates": quant.gates,
+        }
     bundle_dir, model_uri = _package_and_register(
         config,
         run_dir,
@@ -310,6 +350,7 @@ def run_training(
         },
         register=register,
         calibration=calibration,
+        students=students,
     )
     return PipelineResult(
         bundle_dir=bundle_dir, model_uri=model_uri, train_result=result, run_dir=run_dir

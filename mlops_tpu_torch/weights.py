@@ -1,9 +1,11 @@
 """Carry model and serving state across from the JAX package.
 
 The tests feed both packages identical state: they take the JAX package's
-quant params, monitor arrays and flax param trees as numpy (``np.asarray``
-of its leaves, or the arrays its npz files hold) and hand them to these
-functions, which return the port's tensors on ``device``. bf16 leaves
+quant params and the quant student's f32 master, monitor arrays and flax
+param trees (the exact tier's model and the distilled bulk student) as
+numpy (``np.asarray`` of its leaves, or the arrays its npz files hold)
+and hand them to these functions, which return the port's tensors on
+``device``. bf16 leaves
 arrive either as the f32 image the npz holds or as an ml_dtypes bfloat16
 array; both map to the same bf16 bits.
 
@@ -24,6 +26,7 @@ from mlops_tpu_torch.monitor.state import MonitorState
 from mlops_tpu_torch.ops.quant import quant_params_from_arrays
 
 _QUANT_KEYS = {"embed", "w1_q", "w1_s", "b1", "w2_q", "w2_s", "b2"}
+_MASTER_KEYS = {"embed", "w1", "b1", "w2", "b2"}
 
 
 def quant_params_from_numpy(
@@ -41,6 +44,21 @@ def quant_params_from_numpy(
         for k, v in arrays.items()
     }
     return {k: v.to(device) for k, v in quant_params_from_arrays(host).items()}
+
+
+def quant_master_from_numpy(
+    arrays: dict[str, np.ndarray], device: torch.device | str
+) -> dict[str, torch.Tensor]:
+    """The quant student's f32 master (``init_quant_master``'s keys) ->
+    f32 tensors on ``device``."""
+    if set(arrays) != _MASTER_KEYS:
+        raise KeyError(
+            f"a quant master must hold {sorted(_MASTER_KEYS)}, got {sorted(arrays)}"
+        )
+    return {
+        k: torch.from_numpy(np.array(v, np.float32, copy=True)).to(device)
+        for k, v in arrays.items()
+    }
 
 
 def monitor_from_numpy(
@@ -107,6 +125,18 @@ def exact_params_from_numpy(
     if set(tree) == {"params"}:
         tree = tree["params"]
     return doc_params_from_numpy(tree, device)
+
+
+def bulk_student_from_numpy(
+    config: Any, tree: dict[str, Any], device: torch.device | str
+) -> nn.Module:
+    """A distilled bulk student (its ``ModelConfig`` from the manifest's
+    ``bulk`` block and its flax param tree) -> the port's module on
+    ``device``, in eval."""
+    from mlops_tpu_torch.models import build_model
+
+    model = build_model(config)
+    return load_params(model, exact_params_from_numpy(tree, "cpu")).to(device).eval()
 
 
 @torch.no_grad()

@@ -482,10 +482,6 @@ def test_run_training_trains_the_transformer_families(tmp_path, family):
 @pytest.mark.parametrize(
     "overrides,match",
     [
-        (["model.ensemble_size=8"], "A7"),
-        (["model.family=ft_transformer"], "A7"),
-        (["model.family=bert"], "A7"),
-        (["train.distill_quant=true"], "A5"),
         (["train.init_params=pretrained.msgpack"], "A9"),
         (["model.family=moe", "train.distill_bulk=false"], "A9"),
         (["model.family=ft_transformer", "model.ensemble_size=2",

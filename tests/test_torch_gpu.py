@@ -831,3 +831,119 @@ def test_a_failed_capture_fails_warmup(serving_engines, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing"):
         engine.warmup()
     assert not engine.ready
+
+
+# ------------------------------------------------------------ bulk scoring
+# Bulk sweeps on the card (parallel/bulk.py): the staged executor's
+# threads, the pinned staging ring, the compute stream and the fetch
+# waves. Predictions of the card against its own depth-1 sweep: bitwise;
+# against the CPU route: the exact tier's 1.6e-2 (bf16 model), 1e-6 for
+# the quant student's f32 forward, flags exact off the threshold band.
+BULK_PATHS = {"exact": dict(exact=True), "distilled": dict(exact=False),
+              "quant": dict(tier="quant")}
+
+
+@pytest.fixture(scope="module")
+def bulk_bundle(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the sweep's streams and pinned ring are the card's")
+    import dataclasses
+
+    from mlops_tpu_torch.bundle import load_bundle, save_exact_bundle
+    from mlops_tpu_torch.config import ModelConfig
+    from mlops_tpu_torch.data.encode import EncodedDataset
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.train.distill import DistillResult
+
+    columns, _ = generate_synthetic(5000, seed=0)
+    prep = Preprocessor.fit(columns)
+    config = ModelConfig(hidden_dims=(64, 64, 32), ensemble_size=8)
+    student = dataclasses.replace(config, ensemble_size=1, hidden_dims=(64, 64), dropout=0.0)
+    directory = tmp_path_factory.mktemp("bulk") / "bundle"
+    save_exact_bundle(
+        directory, config, init_params(build_model(config), 0), prep,
+        fit_monitor(prep.encode(columns)), calibration={"temperature": 1.2},
+        quant_params=quantize_student(init_quant_master(0)),
+        quant={"fidelity": {}, "temperature": 0.9, "gates": {"passed": True}},
+        bulk=DistillResult(student, init_params(build_model(student), 1).state_dict(), {}),
+    )
+    held, _ = generate_synthetic(41 * 1024 + 7, seed=2, drift=0.3)
+    ds = prep.encode(held)
+    return directory, EncodedDataset(ds.cat_ids, ds.numeric), load_bundle
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(BULK_PATHS))
+def test_bulk_depth_one_and_two_are_bitwise_equal_on_the_card(bulk_bundle, name):
+    from mlops_tpu_torch.parallel import bulk
+
+    directory, ds, load = bulk_bundle
+    b = load(directory)
+    small = ds.slice(np.arange(3 * 4096 + 5))
+    runs = [bulk.score_dataset(b, small, chunk_rows=4096, pipeline_depth=d,
+                               device="cuda", **BULK_PATHS[name]) for d in (1, 2, 3)]
+    assert runs[0].path == name
+    for other in runs[1:]:
+        assert np.array_equal(runs[0].predictions.view(np.uint32),
+                              other.predictions.view(np.uint32))
+        assert np.array_equal(runs[0].outliers, other.outliers)
+        assert runs[0].feature_drift == other.feature_drift
+    cpu = bulk.score_dataset(load(directory), small, chunk_rows=4096, device="cpu",
+                             **BULK_PATHS[name])
+    tol = 1e-6 if name == "quant" else 1.6e-2
+    assert np.abs(runs[1].predictions - cpu.predictions).max() <= tol
+    b_cpu = load(directory)
+    num = torch.from_numpy(small.numeric)
+    d2 = mahalanobis_sq(num, b_cpu.monitor.out_mean, b_cpu.monitor.out_precision).numpy()
+    off = np.abs(d2 - float(b_cpu.monitor.out_threshold)) > FLAG_BAND * float(
+        b_cpu.monitor.out_threshold)
+    assert np.array_equal(runs[1].outliers[off], cpu.outliers[off])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [2, 3])
+def test_a_sweep_past_the_pinned_ring_and_the_fetch_wave(bulk_bundle, depth):
+    """41 chunks: the staging ring (depth + 1 buffers) wraps many times and
+    the compute stage may run a full fetch wave (32 chunks) ahead."""
+    from mlops_tpu_torch.parallel import bulk
+
+    directory, ds, load = bulk_bundle
+    b = load(directory)
+    got = bulk.score_dataset(b, ds, chunk_rows=1024, pipeline_depth=depth,
+                             device="cuda", exact=True)
+    want = bulk.score_dataset(b, ds, chunk_rows=1024, pipeline_depth=1,
+                              device="cuda", exact=True)
+    assert got.pipeline["items"] == 42 and got.rows == ds.n
+    assert np.array_equal(got.predictions.view(np.uint32), want.predictions.view(np.uint32))
+    assert np.array_equal(got.outliers, want.outliers)
+    scorer = bulk.make_chunk_scorer(b, exact=True, device="cuda")
+    last = slice(41 * 1024, ds.n)
+    probs, _ = scorer.score(
+        torch.from_numpy(ds.cat_ids[last]).cuda(), torch.from_numpy(ds.numeric[last]).cuda(),
+        torch.ones(ds.n - 41 * 1024, dtype=torch.bool, device="cuda"))
+    assert np.abs(probs.cpu().numpy() - got.predictions[last]).max() <= 1.6e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 2])
+def test_an_error_in_the_compute_stage_ends_the_sweep(bulk_bundle, monkeypatch, depth):
+    import threading
+
+    from mlops_tpu_torch.parallel import bulk
+
+    directory, ds, load = bulk_bundle
+    calls = {"n": 0}
+    real = bulk.ChunkScorer.__call__
+
+    def failing(self, chunk):
+        calls["n"] += 1
+        if calls["n"] == 4:  # the warm-up chunk, then the third of the sweep
+            raise RuntimeError("compute failed on the card")
+        return real(self, chunk)
+
+    monkeypatch.setattr(bulk.ChunkScorer, "__call__", failing)
+    before = threading.active_count()
+    with pytest.raises(RuntimeError, match="compute failed on the card"):
+        bulk.score_dataset(load(directory), ds, chunk_rows=1024, pipeline_depth=depth,
+                           device="cuda", exact=True)
+    assert threading.active_count() == before
