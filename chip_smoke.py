@@ -8,15 +8,16 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card of compute capability 9.0 and exits non-zero,
 printing no result, without one (or when run from a directory that holds
 this script and nothing else of the repository). It imports torch and the
-port (``mlops_tpu_torch``), never JAX or the JAX package. Seven main
+port (``mlops_tpu_torch``), never JAX or the JAX package. Eight main
 paths: quant-tier serving (``POST /predict`` with
 ``serve.serve_tier=quant``), long-context doc scoring (``predict-file`` on
 a ``doc`` bundle), doc-model training (``train --config
 configs/long_context_job.toml model.seq_parallel=false``), exact-tier
 serving (``POST /predict`` on a ``flax`` bundle, the default tier),
 exact-tier training (``train --config configs/train_register_job.toml``),
-the distilled students it packages, and bulk scoring (``score-batch``, in
-memory and streamed).
+the distilled students it packages, bulk scoring (``score-batch``, in
+memory and streamed), and the deployed training Job (``tune``, then
+``promote`` and ``serve`` of the registry's production stage).
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -201,7 +202,30 @@ Phases, each of which fails the run loudly:
     -m mlops_tpu_torch score-batch score.streaming=true
     score.output_path=...`` in a subprocess; every output row equal to
     the in-memory path's prediction rounded to 6 places and its flag;
-    rows/s and the stage record.
+    rows/s and the stage record;
+26. the deployed training Job: ``python -m mlops_tpu_torch tune --config
+    configs/train_register_job.toml`` in a subprocess at the job's full
+    config (10 trials x 1,000 steps of the mlp, hidden 256/256/128, embed
+    16, bf16, 50,000 rows, batch 1024): its JSON line, trials.jsonl,
+    best.json and the registered bundle (calibrated, no quant tier);
+    ``promote`` of that version to production, then ``serve
+    serve.model_directory=production`` answering the golden request like
+    the CPU route; in this process, the counts set to 0 just before, the
+    job's stacked step at 10 trials and at 2 (step ms as phase 20, trial
+    rows per second, kernels and busy share per step, peak device memory;
+    kernels per step at 10 within 10 % of 2), no kernel launched; the
+    stacked trainer on the card against its CPU route at the job's width,
+    3 trials x 20 steps from the same init, rows and masks (per-trial
+    gradient cosine >= 0.98, loss curves within 0.05);
+27. the architecture sweep: ``tune --config configs/tune_architectures.toml
+    hpo.strategy=sha`` with the steps cut 1,000 -> 200 (widths the
+    config's: mlp 128x128 embed 8, mlp 256x256x128 embed 16,
+    ft_transformer token_dim 64 depth 3; 8 trials a group), each record
+    with its group, architecture, rung and steps, the winner's bundle
+    with its bulk student when an ensemble or a transformer wins; the
+    same command again under the same run name restores every group
+    (none retrained, the same best.json, a new version); each group's
+    stacked step at 8 trials timed as phase 26.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
@@ -2213,10 +2237,13 @@ def _finish_train_cli(name: str, extra, started, device: str) -> tuple[dict, flo
     return out, wall
 
 
-def _serve_golden(bundles: dict, device: str) -> dict:
+def _serve_golden(bundles: dict, device: str, served_as: dict | None = None,
+                  extra: tuple[str, ...] = ()) -> dict:
     """``python -m mlops_tpu_torch serve`` on each bundle at once (the
     default tier, exact), the golden request to each, compared with the
-    CPU route; no kernel launches; each drains on SIGTERM."""
+    CPU route on the bundle's directory; no kernel launches; each drains
+    on SIGTERM. ``served_as`` names what the server is given instead of
+    the directory (a registry stage: ``extra`` then names the registry)."""
     from mlops_tpu_torch.bundle import load_bundle
     from mlops_tpu_torch.serve.engine import InferenceEngine
 
@@ -2227,8 +2254,9 @@ def _serve_golden(bundles: dict, device: str) -> dict:
         out = open(WORK / f"exact_train_server_{name}.log", "wb")
         procs[name] = (port, out, subprocess.Popen(
             [sys.executable, "-m", "mlops_tpu_torch", "serve",
-             f"serve.model_directory={path}", f"serve.port={port}",
-             "serve.host=127.0.0.1", f"serve.device={device}"],
+             f"serve.model_directory={(served_as or {}).get(name, path)}",
+             f"serve.port={port}", "serve.host=127.0.0.1", f"serve.device={device}",
+             *extra],
             cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
             stdout=out, stderr=subprocess.STDOUT,
         ))
@@ -3093,6 +3121,338 @@ def phase_stream(students: dict, device: str = "cuda", rows: int = STREAM_ROWS,
     return row
 
 
+# ----------------------------------------------------------------- phase 26
+TUNE_JOB_TOML = "configs/train_register_job.toml"
+TUNE_ARCH_TOML = "configs/tune_architectures.toml"
+TUNE_ARCH_STEPS = 200  # phase 27: of the config's 1,000
+TUNE_SMALL_T = 2  # the job's stack again at two trials: kernels per step
+TUNE_KERNEL_GROWTH = 1.10  # kernels per step at T=10 within 10 % of T=2
+TUNE_PARITY_TRIALS = 3
+TUNE_PARITY_STEPS = 20
+TUNE_KEYS = {"bundle", "model_uri", "best_trial", "best_hyperparams", "metrics", "trials"}
+# The dense trainer's single-trial mlp step at the job's config (phase 20's
+# median; H100 80GB HBM3, 700 W), printed beside the stacked step.
+SINGLE_TRIAL_MLP_STEP = {"step_ms": 8.614, "kernels_per_step": 453.0, "busy_share": 0.207}
+
+
+def _tune_cli(name: str, toml: str, extra, root: Path, device: str) -> tuple[dict, float, float]:
+    """``python -m mlops_tpu_torch tune --config <toml>`` in a subprocess:
+    its JSON line (checked), its wall and the sweep's seconds from its
+    log."""
+    import re
+
+    root.mkdir(parents=True, exist_ok=True)
+    log_path = root / f"{name}.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as err:
+        proc = subprocess.run(
+            [sys.executable, "-m", "mlops_tpu_torch", "tune", "--config", toml, *extra,
+             f"train.device={device}"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            stdout=subprocess.PIPE, stderr=err, text=True, timeout=900,
+        )
+    wall = time.perf_counter() - t0
+    text = log_path.read_text()
+    check(proc.returncode == 0, f"tune {name} exited {proc.returncode}: {text[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(set(out) == TUNE_KEYS, f"tune {name} printed keys {sorted(out)}")
+    check(all(math.isfinite(v) for v in out["metrics"].values()) and len(out["metrics"]) == 5,
+          f"tune {name} metrics {out['metrics']}")
+    swept = re.search(r"tune: (\d+) trials swept in ([0-9.]+) s", text)
+    check(swept is not None and int(swept.group(1)) == out["trials"],
+          f"tune {name}: no sweep line in its log")
+    log(f"tune {name}: {wall:.1f} s (sweep {swept.group(2)} s): {json.dumps(out)}")
+    return out, wall, float(swept.group(2))
+
+
+def _check_tune_run(name: str, out: dict, run_dir: Path) -> list[dict]:
+    """trials.jsonl (one record per trial, in order), best.json (the
+    winner the CLI printed, the best finite objective) and the bundle."""
+    trials = [json.loads(line) for line in (run_dir / "trials.jsonl").open()]
+    check([t["trial"] for t in trials] == list(range(out["trials"])),
+          f"tune {name}: trials.jsonl holds {len(trials)} records")
+    best = json.loads((run_dir / "best.json").read_text())
+    check(best["best_index"] == out["best_trial"] and best["metrics"] == out["metrics"]
+          and best["hyperparams"] == out["best_hyperparams"],
+          f"tune {name}: best.json {best} against the CLI's line")
+    aucs = [t["metrics"]["validation_roc_auc_score"] for t in trials]
+    # Random search: the best record wins. (Under SHA an eliminated
+    # trial's record is as of its rung; the winner is a finalist.)
+    check("rung" in trials[0] or out["metrics"]["validation_roc_auc_score"] == max(aucs),
+          f"tune {name}: the winner is not the best AUC of {aucs}")
+    manifest = json.loads((Path(out["bundle"]) / "manifest.json").read_text())
+    check(manifest["flavor"] == "flax" and manifest["calibration"]["temperature"] > 0
+          and "quant" not in manifest,
+          f"tune {name}: not a calibrated flax bundle without a quant tier")
+    return trials
+
+
+def _stack_timing(model_config, train_config, trials: int, data, horizon: int,
+                  label: str) -> dict:
+    """The stacked step of ``trials`` trials on the card: step ms over
+    ``TIMED_WINDOWS`` windows of ``TIMED_STEPS`` (CUDA events, after 5
+    warm-up steps; the median window, the fastest and slowest), the host
+    clock around the same windows, device kernels and busy ms per step
+    under ``torch.profiler`` (``PROFILED_STEPS``), peak device memory
+    above what the process held before the stack (earlier phases' tensors
+    stay allocated), and trial-rows trained per second (trials x batch /
+    step)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlops_tpu_torch.config import HPOConfig
+    from mlops_tpu_torch.train import hpo
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    hp = hpo.sample_hyperparams(HPOConfig(trials=trials))
+    stack = hpo.TrialStack(model_config, train_config, hp,
+                           hpo.trial_seeds(2024, trials), horizon, data, torch.device("cuda"))
+    for _ in range(5):
+        stack.step()
+    torch.cuda.synchronize()
+    windows, walls = [], []
+    for _ in range(TIMED_WINDOWS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(TIMED_STEPS):
+            stack.step()
+        end.record()
+        end.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
+        windows.append(start.elapsed_time(end) / TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated() - held
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILED_STEPS):
+            stack.step()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in dev) / 1e3 / PROFILED_STEPS
+    step_ms, wall_ms = float(np.median(windows)), float(np.median(walls))
+    row = {
+        "what": label, "family": model_config.family, "trials": trials,
+        "batch": train_config.batch_size, "precision": model_config.precision,
+        "params_per_trial": sum(stack.sizes),
+        "step_ms": step_ms, "step_ms_min": min(windows), "step_ms_max": max(windows),
+        "windows": TIMED_WINDOWS, "steps_per_window": TIMED_STEPS,
+        "wall_ms_per_step_unprofiled": wall_ms,
+        "trial_rows_per_s": trials * train_config.batch_size / step_ms * 1e3,
+        "device_kernels_per_step": sum(e.count for e in dev) / PROFILED_STEPS,
+        "device_busy_ms_per_step": busy_ms,
+        "device_busy_share": busy_ms / wall_ms,
+        "peak_device_bytes": peak,
+    }
+    log_timing("tune stacked step", row)
+    row["kernel_counts"] = {e.key: e.count / PROFILED_STEPS for e in dev}
+    del stack
+    torch.cuda.empty_cache()
+    return row
+
+
+def _stack_parity(model_config, train_config, train_ds, valid_ds, device: str) -> dict:
+    """The stacked trainer on the card against its CPU route: the same
+    trials (init, rows and dropout masks are functions of the trial's
+    key), one step's per-trial gradient cosine (>= 0.98), then
+    ``TUNE_PARITY_STEPS`` steps' per-trial loss curves (within 0.05)."""
+    import torch
+
+    from mlops_tpu_torch.config import HPOConfig
+    from mlops_tpu_torch.train import hpo
+
+    hp = hpo.sample_hyperparams(HPOConfig(trials=TUNE_PARITY_TRIALS))
+    seeds = hpo.trial_seeds(2024, TUNE_PARITY_TRIALS)
+    stacks = {
+        dev: hpo.TrialStack(model_config, train_config, hp, seeds, TUNE_PARITY_STEPS,
+                            hpo.SweepData.put(train_ds, valid_ds, dev), torch.device(dev))
+        for dev in (device, "cpu")
+    }
+    curves, grads = {}, {}
+    for dev, stack in stacks.items():
+        loss, grad = stack.loss_and_grad()
+        grads[dev] = grad.float().cpu()
+        stack.apply(grad)
+        curves[dev] = torch.cat([loss[None], stack.run(TUNE_PARITY_STEPS - 1)]).float().cpu()
+    cos = torch.nn.functional.cosine_similarity(grads[device], grads["cpu"], dim=1)
+    gap = (curves[device] - curves["cpu"]).abs()
+    row = {
+        "trials": TUNE_PARITY_TRIALS, "steps": TUNE_PARITY_STEPS,
+        "per_trial_grad_cosine": cos.tolist(),
+        "per_trial_max_gap": gap.max(dim=0).values.tolist(),
+        "first_loss": curves[device][0].tolist(), "last_loss": curves[device][-1].tolist(),
+    }
+    log(f"tune card vs cpu {json.dumps(row)}")
+    check(all(torch.isfinite(c).all() for c in curves.values()), "non-finite sweep losses")
+    check(float(cos.min()) >= GRAD_COSINE_MIN, f"stacked gradients part: cosine {cos.tolist()}")
+    check(float(gap.max()) <= CURVE_MAX_GAP, f"stacked loss curves part: {gap.max(dim=0)}")
+    return row
+
+
+def phase_tune_job(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
+    """The deployed training Job's main path: ``python -m mlops_tpu_torch
+    tune --config configs/train_register_job.toml`` in a subprocess at the
+    job's full config (10 trials x 1,000 steps of the mlp, 50,000 rows,
+    batch 1024, bf16), its records and bundle checked; ``promote`` of the
+    registered version to production and ``serve
+    serve.model_directory=production`` over HTTP against the CPU route;
+    then in this process, the counts set to 0 just before, the job's
+    stacked step at 10 trials and at 2 (kernels per step within 10 %),
+    no kernel launched; and the stacked trainer on the card against its
+    CPU route at 3 trials x 20 steps. ``extra`` and ``device="cpu"``
+    rehearse the subprocess half small on the CPU."""
+    from mlops_tpu_torch.bundle.registry import ModelRegistry
+    from mlops_tpu_torch.config import load_config
+    from mlops_tpu_torch.ops import quant_kernel
+
+    root = WORK / "tune_job"
+    shutil.rmtree(root, ignore_errors=True)
+    reg = [f"registry.root={root / 'registry'}", f"registry.run_root={root / 'runs'}"]
+    config = load_config([*extra, f"train.device={device}"], ROOT / TUNE_JOB_TOML)
+    model, hcfg = config.model, config.hpo
+    log(f"tune job: {TUNE_JOB_TOML} (rows {config.data.rows}, {hcfg.trials} trials x "
+        f"{hcfg.steps} steps, strategy {hcfg.strategy}, batch {config.train.batch_size}, "
+        f"{model.family} {model.hidden_dims} embed {model.embed_dim} {model.precision}, "
+        f"dropout {model.dropout})")
+    out, wall, sweep_s = _tune_cli("job", TUNE_JOB_TOML, [*extra, *reg, "registry.run_name=job"],
+                                   root, device)
+    check(out["trials"] == hcfg.trials, f"tune job swept {out['trials']} trials")
+    trials = _check_tune_run("job", out, root / "runs" / "job")
+    version = out["model_uri"].rsplit("/", 1)[1]
+    promoted = subprocess.run(
+        [sys.executable, "-m", "mlops_tpu_torch", "promote", *reg,
+         f"registry.promote_version={version}", "registry.promote_stage=production"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=300,
+    )
+    check(promoted.returncode == 0 and json.loads(promoted.stdout) == {
+        "model": config.registry.model_name, "version": int(version), "stage": "production"},
+        f"promote: {promoted.stdout} {promoted.stderr[-2000:]}")
+    registry = ModelRegistry(root / "registry")
+    staged = registry.resolve(config.registry.model_name, "production")
+    check((staged / "manifest.json").read_bytes()
+          == (Path(out["bundle"]) / "manifest.json").read_bytes(),
+          "the production stage does not hold the tuned bundle")
+    http = _serve_golden({"tuned": Path(out["bundle"])}, device,
+                         served_as={"tuned": "production"}, extra=tuple(reg))
+    result = {
+        "cli": {"wall_s": wall, "sweep_s": sweep_s, "trials": out["trials"],
+                "steps": hcfg.steps, "best_trial": out["best_trial"],
+                "best_hyperparams": out["best_hyperparams"], "metrics": out["metrics"],
+                "aucs": [t["metrics"]["validation_roc_auc_score"] for t in trials]},
+        "promoted_version": int(version), "production_http_max_pred_err": http,
+    }
+    if device != "cuda":
+        return result
+    train_ds, valid_ds = _exact_split(config)
+    from mlops_tpu_torch.train import hpo
+
+    data = hpo.SweepData.put(train_ds, valid_ds, "cuda")
+    _reset_launch_counts()
+    quant_kernel.quant_kernel_launches.reset()
+    rows = [_stack_timing(model, config.train, t, data, hcfg.steps, f"job T={t}")
+            for t in (hcfg.trials, TUNE_SMALL_T)]
+    launches = (*_launch_counts(), quant_kernel.quant_kernel_launches.value)
+    check(launches == (0, 0, 0, 0), f"the stacked trainer launched kernels {launches}")
+    growth = rows[0]["device_kernels_per_step"] / rows[1]["device_kernels_per_step"]
+    big, small = (row.pop("kernel_counts") for row in rows)
+    moved = {k: [small.get(k, 0.0), big.get(k, 0.0)] for k in set(big) | set(small)
+             if big.get(k, 0.0) != small.get(k, 0.0)}
+    log(f"tune job: kernels whose count per step differs, T={TUNE_SMALL_T} -> "
+        f"T={hcfg.trials}: {json.dumps(moved)}")
+    check(growth <= TUNE_KERNEL_GROWTH,
+          f"kernels per step grew {growth:.3f}x from T={TUNE_SMALL_T} to T={hcfg.trials}")
+    del data
+    parity = _stack_parity(model, config.train, train_ds, valid_ds, device)
+    result["kernels_differing_T2_T10"] = moved
+    log_timing("tune job", {**result["cli"], "stacked_T10_over_T2_kernels": growth,
+                            "single_trial_mlp_step": SINGLE_TRIAL_MLP_STEP})
+    return {**result, "timing": rows, "kernel_growth_T10_over_T2": growth,
+            "launches": launches, "card_vs_cpu": parity,
+            "single_trial_mlp_step": SINGLE_TRIAL_MLP_STEP}
+
+
+# ----------------------------------------------------------------- phase 27
+def phase_tune_arch(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
+    """The architecture sweep: ``tune --config configs/tune_architectures.toml
+    hpo.strategy=sha`` in a subprocess at the config's widths (three
+    groups of 8 trials: mlp 128x128 embed 8, mlp 256x256x128 embed 16,
+    ft_transformer token_dim 64 depth 3), steps cut 1,000 -> 200; every
+    record carries its group, architecture, rung and steps; the winner's
+    bundle (a bulk student when an ensemble or a transformer wins); then
+    the same command again under the same run name: no group trains
+    (their records are not rewritten), the same best.json, a new version.
+    Per group, the stacked step at 8 trials in this process."""
+    from mlops_tpu_torch.config import load_config
+    from mlops_tpu_torch.train import hpo
+
+    root = WORK / "tune_arch"
+    shutil.rmtree(root, ignore_errors=True)
+    args = ["hpo.strategy=sha", f"hpo.steps={TUNE_ARCH_STEPS}", *extra,
+            f"registry.root={root / 'registry'}", f"registry.run_root={root / 'runs'}",
+            "registry.run_name=arch"]
+    config = load_config([*args, f"train.device={device}"], ROOT / TUNE_ARCH_TOML)
+    hcfg = config.hpo
+    counts, rung_steps, horizon = hpo.sha_plan(hcfg)
+    log(f"tune arch: {TUNE_ARCH_TOML} hpo.strategy=sha, steps cut to {hcfg.steps} "
+        f"(rungs {counts} of {rung_steps} steps, horizon {horizon}); groups "
+        f"{list(hcfg.architectures)}, {hcfg.trials} trials each, rows {config.data.rows}")
+    out, wall, sweep_s = _tune_cli("arch", TUNE_ARCH_TOML, args, root, device)
+    run_dir = root / "runs" / "arch"
+    trials = _check_tune_run("arch", out, run_dir)
+    groups = len(hcfg.architectures)
+    check(out["trials"] == groups * hcfg.trials, f"tune arch swept {out['trials']} trials")
+    check(all({"group", "architecture", "rung", "steps"} <= set(t) for t in trials),
+          "tune arch: a trial record lacks group/architecture/rung/steps")
+    check(sum(t["steps"] == horizon for t in trials) == groups * counts[-1],
+          f"tune arch: finalists {[t['steps'] for t in trials]}")
+    manifest = json.loads((Path(out["bundle"]) / "manifest.json").read_text())
+    winner = manifest["model_config"]
+    expensive = winner["ensemble_size"] > 1 or winner["family"] in ("ft_transformer", "bert")
+    check(("bulk" in manifest) == expensive, f"tune arch: bulk block {manifest.get('bulk')}")
+    group_files = sorted((run_dir / "hpo_groups").glob("group_*.json"))
+    stamps = {p.name: p.stat().st_mtime_ns for p in group_files}
+    best = (run_dir / "best.json").read_text()
+    again, wall2, sweep2 = _tune_cli("arch_rerun", TUNE_ARCH_TOML, args, root, device)
+    check({p.name: p.stat().st_mtime_ns for p in group_files} == stamps
+          and len(stamps) == groups, "the rerun retrained a group")
+    check((run_dir / "best.json").read_text() == best, "the rerun wrote another best.json")
+    check((again["best_trial"], again["metrics"]) == (out["best_trial"], out["metrics"])
+          and int(again["model_uri"].rsplit("/", 1)[1]) == int(out["model_uri"].rsplit("/", 1)[1]) + 1,
+          f"the rerun's result {again}")
+    per_group = {}
+    for g in range(groups):
+        rows = [t for t in trials if t["group"] == g]
+        per_group[g] = {
+            "architecture": rows[0]["architecture"],
+            "best_auc": max(t["metrics"]["validation_roc_auc_score"] for t in rows),
+            "finalist_steps": max(t["steps"] for t in rows),
+        }
+    result = {
+        "cli": {"wall_s": wall, "sweep_s": sweep_s, "rerun_wall_s": wall2,
+                "rerun_sweep_s": sweep2, "trials": out["trials"], "plan": [counts, rung_steps, horizon],
+                "best_trial": out["best_trial"], "best_hyperparams": out["best_hyperparams"],
+                "metrics": out["metrics"]},
+        "groups": per_group, "winner": winner["family"], "bulk": manifest.get("bulk"),
+    }
+    log_timing("tune arch", result["cli"])
+    if device != "cuda":
+        return result
+    train_ds, valid_ds = _exact_split(config)
+    data = hpo.SweepData.put(train_ds, valid_ds, "cuda")
+    result["timing"] = [
+        _stack_timing(hpo.parse_architecture_spec(spec, config.model), config.train,
+                      hcfg.trials, data, horizon, f"arch group {g}")
+        for g, spec in enumerate(hcfg.architectures)
+    ]
+    for row in result["timing"]:
+        row.pop("kernel_counts")
+    return result
+
+
 def main() -> int:
     if not (ROOT / "mlops_tpu_torch").is_dir():
         print("chip_smoke.py must run from a checkout of the repository "
@@ -3139,6 +3499,8 @@ def main() -> int:
         students = timed(phase_students)
         bulk_rows = timed(phase_bulk, students)
         streamed = timed(phase_stream, students)
+        tune_job = timed(phase_tune_job)
+        tune_arch = timed(phase_tune_arch)
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -3238,6 +3600,7 @@ def main() -> int:
                      "served_quant_bundle": students["quant_bundle"]},
         "bulk": bulk_rows,
         "stream": streamed,
+        "tune": {"job": tune_job, "arch": tune_arch},
         "exact_train": {
             "parity": exact_train_parity,
             "path": exact_train,

@@ -22,15 +22,29 @@
   (``data.train_path``) with a ``flax`` bundle and print one JSON line
   (``serve.model_directory=<bundle> [score.output_path=<npz>]``); with
   ``score.streaming=true`` stream the CSV to ``score.output_path`` (a
-  CSV).
+  CSV);
+- ``tune``: the hyperparameter sweep (``--config
+  configs/train_register_job.toml``: every trial of an architecture
+  trained stacked, ``hpo.strategy=sha`` for successive halving,
+  ``hpo.architectures`` for groups), the winner packaged and registered,
+  one JSON line;
+- ``register`` (``data.train_path=<bundle dir>``, prints the
+  ``models:/`` URI), ``promote`` (``registry.promote_version=<n>
+  registry.promote_stage=staging|production|none``), ``versions`` and
+  ``gc`` (``[registry.gc_keep=N]``) on the registry at
+  ``registry.root``;
+- ``synth`` (``data.rows`` synthetic rows to ``data.train_path``) and
+  ``validate`` (lint a CSV: exit 2 when anything is flagged).
 
 Every command takes ``--config <toml>`` and positional
 ``section.field=value`` overrides, as the JAX package's CLI does
 (``serve.model_directory=<bundle> serve.port=5001 serve.device=cpu``).
 Every command runs on the card unless ``serve.device=cpu`` (serve,
-predict-file, score-batch) or ``train.device=cpu`` (train). For ``serve``, ``MODEL_DIRECTORY`` and
-``SERVICE_NAME`` in the environment take precedence over the config, as
-in the reference.
+predict-file, score-batch) or ``train.device=cpu`` (train, tune). For
+``serve``, ``MODEL_DIRECTORY`` and ``SERVICE_NAME`` in the environment
+take precedence over the config, as in the reference; a model directory
+that is not a directory is a registry version, stage or ``latest``
+(``serve.model_directory=production``).
 """
 
 from __future__ import annotations
@@ -62,6 +76,28 @@ def build_parser() -> argparse.ArgumentParser:
             "bulk-score a dataset (in memory or streamed) with a flax bundle",
             "data.rows=1000000 serve.model_directory=<bundle>",
         ),
+        "tune": (
+            "hyperparameter search (trials stacked), the winner registered",
+            "hpo.trials=10 hpo.strategy=sha registry.root=<dir>",
+        ),
+        "register": (
+            "register a bundle in the model registry",
+            "data.train_path=<bundle dir> registry.root=<dir>",
+        ),
+        "promote": (
+            "move a registered version between stages",
+            "registry.promote_version=3 registry.promote_stage=production",
+        ),
+        "versions": ("list registered versions, stages, tags", "registry.root=<dir>"),
+        "gc": (
+            "prune registry orphans (and old unstaged versions)",
+            "registry.gc_keep=5",
+        ),
+        "synth": ("generate a synthetic schema-conforming CSV", "data.rows=50000"),
+        "validate": (
+            "schema-check a CSV (OOV / unparseable counts)",
+            "data.train_path=<csv>",
+        ),
     }
     for name, (help_text, example) in commands.items():
         cmd = sub.add_parser(name, help=help_text)
@@ -76,6 +112,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _serve(config) -> int:
     from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.commands import resolve_bundle
     from mlops_tpu_torch.serve.engine import InferenceEngine
     from mlops_tpu_torch.serve.server import serve_forever
 
@@ -91,7 +128,7 @@ def _serve(config) -> int:
             "loop) is not ported (ROADMAP A10)"
         )
     engine = InferenceEngine(
-        load_bundle(model_dir),
+        load_bundle(resolve_bundle(config, model_dir)),
         buckets=tuple(cfg.warmup_batch_sizes),
         serve_tier=cfg.serve_tier,
         device=cfg.device,
@@ -122,6 +159,57 @@ def _score_batch(config) -> int:
     return 0
 
 
+def _tune(config) -> int:
+    from mlops_tpu_torch.commands import tune
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")  # stderr
+    print(json.dumps(tune(config)), flush=True)
+    return 0
+
+
+def _register(config) -> int:
+    from mlops_tpu_torch.commands import register
+
+    print(register(config), flush=True)
+    return 0
+
+
+def _promote(config) -> int:
+    from mlops_tpu_torch.commands import promote
+
+    print(json.dumps(promote(config)), flush=True)
+    return 0
+
+
+def _versions(config) -> int:
+    from mlops_tpu_torch.commands import versions
+
+    print(json.dumps(versions(config), indent=2), flush=True)
+    return 0
+
+
+def _gc(config) -> int:
+    from mlops_tpu_torch.commands import gc
+
+    print(json.dumps(gc(config)), flush=True)
+    return 0
+
+
+def _synth(config) -> int:
+    from mlops_tpu_torch.commands import synth
+
+    print(synth(config), flush=True)
+    return 0
+
+
+def _validate(config) -> int:
+    from mlops_tpu_torch.commands import validate
+
+    report = validate(config)
+    print(json.dumps(report), flush=True)
+    return 0 if report["ok"] else 2
+
+
 def main(argv: list[str] | None = None) -> int:
     from mlops_tpu_torch.config import load_config
 
@@ -131,6 +219,13 @@ def main(argv: list[str] | None = None) -> int:
         "predict-file": _predict_file,
         "train": _train,
         "score-batch": _score_batch,
+        "tune": _tune,
+        "register": _register,
+        "promote": _promote,
+        "versions": _versions,
+        "gc": _gc,
+        "synth": _synth,
+        "validate": _validate,
     }
     if args.command not in handlers:
         build_parser().print_help()

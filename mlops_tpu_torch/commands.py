@@ -1,5 +1,7 @@
-"""Offline subcommands: ``train``, ``predict-file`` on a ``flax`` (exact
-tier) or ``doc`` bundle, and ``score-batch``.
+"""Offline subcommands: ``train``, ``tune``, ``predict-file`` on a
+``flax`` (exact tier) or ``doc`` bundle, ``score-batch``, the registry's
+``register`` / ``promote`` / ``versions`` / ``gc``, ``synth`` and
+``validate``.
 
 ``train`` is the JAX package's ``_train`` (``mlops_tpu/commands.py:96``):
 ``run_layout_training`` for a layout config (the long-context doc model),
@@ -20,14 +22,27 @@ package's ``_score_batch`` (``mlops_tpu/commands.py:387``) on one device:
 ``data.rows`` synthetic rows, or with ``score.streaming=true``
 ``data/stream.py score_csv_stream`` from the CSV to
 ``score.output_path``. Each runs on the card unless ``serve.device=cpu``.
+``serve``, ``predict-file`` and ``score-batch`` take
+``serve.model_directory`` as a bundle directory or, when it is not one,
+as a version number, a stage or ``latest`` of ``registry.model_name`` in
+the registry at ``registry.root`` (``resolve_bundle``, the JAX package's
+``_resolve_bundle``).
+
+``tune`` is the JAX package's ``_tune`` (``mlops_tpu/commands.py:151``)
+on one device: ``train/pipeline.py run_tuning`` and the same JSON line.
+The registry commands, ``synth`` and ``validate`` are the JAX package's
+(``mlops_tpu/commands.py:86,174-312``), with its outputs and exit codes.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from mlops_tpu_torch.bundle import Bundle, load_bundle
+from mlops_tpu_torch.bundle.registry import ModelRegistry
 from mlops_tpu_torch.config import Config
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.data.ingest import load_csv_columns
@@ -52,6 +67,135 @@ def train(config: Config) -> dict:
     }
 
 
+def resolve_bundle(config: Config, model_dir: str | None = None) -> str | Path:
+    """One rule for every command: a value that is an existing directory
+    is the bundle itself; anything else (a version number, a stage,
+    ``latest``) resolves through the registry."""
+    model_dir = model_dir or config.serve.model_directory
+    if Path(model_dir).is_dir():
+        return model_dir
+    return _registry(config).resolve(config.registry.model_name, model_dir)
+
+
+def _registry(config: Config) -> ModelRegistry:
+    try:
+        return ModelRegistry(config.registry.root)
+    except ValueError as err:  # a gs:// root: a message, no traceback
+        raise SystemExit(str(err)) from err
+
+
+def tune(config: Config) -> dict:
+    """``tune --config <toml> [overrides]``: the JSON the JAX package
+    prints (bundle, model_uri, best_trial, best_hyperparams, metrics,
+    trials)."""
+    from mlops_tpu_torch.train.pipeline import run_tuning
+
+    result, hpo_result = run_tuning(config, run_name=config.registry.run_name or None)
+    return {
+        "bundle": str(result.bundle_dir),
+        "model_uri": result.model_uri,
+        "best_trial": hpo_result.best_index,
+        "best_hyperparams": hpo_result.best_hyperparams,
+        "metrics": hpo_result.best_metrics,
+        "trials": len(hpo_result.trials),
+    }
+
+
+def register(config: Config) -> str:
+    """``register data.train_path=<bundle dir>``: the new version's URI."""
+    bundle_dir = config.data.train_path
+    if not bundle_dir:
+        raise SystemExit("pass the bundle dir via data.train_path=<dir>")
+    return _registry(config).register(config.registry.model_name, bundle_dir)
+
+
+def promote(config: Config) -> dict:
+    """``promote registry.promote_version=<n> registry.promote_stage=<stage>``:
+    the registry half of the staging -> production gate."""
+    version = config.registry.promote_version
+    stage = config.registry.promote_stage
+    if not version:
+        raise SystemExit(
+            "pass registry.promote_version=<n> [registry.promote_stage=staging]"
+        )
+    _registry(config).set_stage(config.registry.model_name, int(version), stage)
+    return {"model": config.registry.model_name, "version": int(version), "stage": stage}
+
+
+def versions(config: Config) -> list[dict]:
+    return _registry(config).list_versions(config.registry.model_name)
+
+
+def gc(config: Config) -> dict:
+    """Prune crash orphans (and, with ``registry.gc_keep=N``, old unstaged
+    versions) of the configured model."""
+    removed = _registry(config).gc(
+        config.registry.model_name, keep_unstaged=config.registry.gc_keep
+    )
+    return {"model": config.registry.model_name, **removed}
+
+
+def synth(config: Config) -> str:
+    """Write ``data.rows`` synthetic rows from ``data.seed`` to
+    ``data.train_path`` (``data/curated.csv`` when unset)."""
+    from mlops_tpu_torch.data import generate_synthetic, write_csv_columns
+
+    path = config.data.train_path or "data/curated.csv"
+    columns, labels = generate_synthetic(config.data.rows, seed=config.data.seed)
+    write_csv_columns(path, columns, labels)
+    return f"wrote {config.data.rows} rows -> {path}"
+
+
+def validate(config: Config) -> dict:
+    """Lint a CSV before training or scoring, streamed: values the
+    pipeline would silently degrade (out-of-vocabulary categoricals,
+    missing or unparseable numerics) and the labels' parse as training
+    sees it. ``ok`` is False when anything is flagged. Parquet is not
+    ported (ROADMAP A6)."""
+    from mlops_tpu_torch.data.stream import iter_table_chunks
+    from mlops_tpu_torch.schema import SCHEMA
+
+    path = config.data.train_path
+    if not path:
+        raise SystemExit("pass the dataset via data.train_path=<csv|parquet>")
+    rows = 0
+    oov = dict.fromkeys((f.name for f in SCHEMA.categorical), 0)
+    vocabs = {f.name: set(f.vocab) for f in SCHEMA.categorical}
+    degraded_numeric = dict.fromkeys((f.name for f in SCHEMA.numeric), 0)
+    try:
+        chunks = iter_table_chunks(path, chunk_rows=65_536)
+    except ValueError as err:  # Parquet
+        raise SystemExit(str(err)) from err
+    for columns, _ in chunks:
+        rows += len(columns[SCHEMA.categorical[0].name])
+        for feat in SCHEMA.categorical:
+            vocab = vocabs[feat.name]
+            oov[feat.name] += sum(1 for v in columns[feat.name] if v not in vocab)
+        for feat in SCHEMA.numeric:
+            raw = np.asarray(columns[feat.name], dtype=np.float64)
+            degraded_numeric[feat.name] += int((~np.isfinite(raw)).sum())
+    # Label pre-flight: training's strict parse (one bad value fails
+    # `train` fast); "absent" is fine for scoring-only files.
+    try:
+        for _ in iter_table_chunks(path, chunk_rows=65_536, require_target=True):
+            pass
+        labels = "ok"
+    except ValueError as err:
+        labels = "absent" if "missing target column" in str(err) else str(err)
+    return {
+        "path": path,
+        "rows": rows,
+        "oov_categorical": {k: v for k, v in oov.items() if v},
+        "numeric_imputed": {k: v for k, v in degraded_numeric.items() if v},
+        "labels": labels,
+        "ok": (
+            not any(oov.values())
+            and not any(degraded_numeric.values())
+            and labels in ("ok", "absent")
+        ),
+    }
+
+
 def predict_file(config: Config) -> dict:
     """``predict-file data.train_path=<csv> serve.model_directory=<bundle>``:
     the JSON the JAX package prints for a flax or a doc bundle."""
@@ -61,7 +205,7 @@ def predict_file(config: Config) -> dict:
     source = config.data.train_path
     if not source:
         raise SystemExit("pass the input csv via data.train_path=<csv>")
-    bundle = load_bundle(config.serve.model_directory)
+    bundle = load_bundle(resolve_bundle(config))
     if bundle.flavor == "sklearn":
         raise SystemExit(
             "predict-file on a 'sklearn' bundle needs the sklearn "
@@ -135,7 +279,7 @@ def score_batch(config: Config) -> dict:
     from mlops_tpu_torch.parallel.bulk import DOC_REFUSAL, score_dataset
 
     device = resolve_device(config.serve.device)
-    bundle = load_bundle(config.serve.model_directory)
+    bundle = load_bundle(resolve_bundle(config))
     if bundle.flavor == "doc":
         raise SystemExit(DOC_REFUSAL)
     exact = True if config.score.exact else None

@@ -6,16 +6,19 @@ field for field with their defaults, so a bundle manifest's
 ``monitor`` and ``registry`` hold the fields the ported paths read;
 ``serve`` the keys of the JAX package's ``ServeConfig`` that its
 single-process server reads (``ServeConfig.validate`` with the same
-messages). ``score`` (bulk scoring) and ``lifecycle`` (whose gate
-bounds grade the quant student; the controller itself is not ported)
-are the JAX package's, field for field. Two port-only knobs,
+messages). ``hpo`` (the ``tune`` sweep), ``score`` (bulk scoring) and
+``lifecycle`` (whose gate bounds grade the quant student; the controller
+itself is not ported) are the JAX package's, field for field. Two port-only knobs,
 ``serve.device`` and ``train.device``, say where the entry points run:
 the card unless the caller writes ``cpu``.
 
 ``load_config`` builds the tree as the JAX package's does: defaults <-
 TOML (``--config <file>``) <- positional ``section.field=value``
-overrides (``train.steps=200``, ``serve.port=5001``). The JAX package's
-``MLOPS_TPU_<SECTION>_<FIELD>`` environment overrides are not ported yet.
+overrides (``train.steps=200``, ``serve.port=5001``); a string tuple's
+items separate on ``;`` there (``hpo.architectures='hidden_dims=16,
+embed_dim=8;family=bert'``), any other tuple's on ``,``. The JAX
+package's ``MLOPS_TPU_<SECTION>_<FIELD>`` environment overrides are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -105,6 +108,27 @@ class TrainConfig:
     pipeline_remat: bool = False
     ema_decay: float = 0.0
     device: str = "cuda"  # "cpu" trains on the CPU (the plain torch route)
+
+
+@dataclasses.dataclass
+class HPOConfig:
+    """The JAX package's ``HPOConfig`` (``mlops_tpu/config.py:145``),
+    field for field with its defaults: the ``tune`` sweep
+    (``train/hpo.py``). Trials of one architecture train stacked in one
+    program per step; ``architectures`` specs (comma-separated
+    ``ModelConfig`` overrides, tuples joined by ``x``) loop as groups."""
+
+    trials: int = 10
+    seed: int = 2024
+    objective: str = "roc_auc"  # selection metric (validation_<objective>_score)
+    steps: int = 1000
+    strategy: str = "random"  # random | sha (successive halving)
+    eta: int = 3  # sha: keep the top 1/eta per rung
+    sha_rungs: int = 3  # sha rung count (the last trains the finalists)
+    lr_log10: tuple[float, float] = (-3.7, -2.0)  # log-uniform bounds
+    wd_log10: tuple[float, float] = (-6.0, -3.0)
+    pos_weight_range: tuple[float, float] = (1.0, 4.0)  # uniform
+    architectures: tuple[str, ...] = ()  # e.g. "family=mlp,hidden_dims=64x64"
 
 
 @dataclasses.dataclass
@@ -387,6 +411,10 @@ class RegistryConfig:
     run_root: str = "runs"  # per-run artifacts: metrics.jsonl, checkpoints
     run_name: str = ""  # stable run-directory name: a rerun with the same
     # name resumes from its checkpoints; empty = a fresh timestamped one
+    promote_version: str = ""  # `promote` CLI: version to move
+    promote_stage: str = "staging"  # `promote` CLI: target stage
+    gc_keep: int = 0  # `gc` CLI: also prune unstaged versions beyond the
+    # newest N (0 = crash orphans only)
 
 
 @dataclasses.dataclass
@@ -394,6 +422,7 @@ class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    hpo: HPOConfig = dataclasses.field(default_factory=HPOConfig)
     monitor: MonitorConfig = dataclasses.field(default_factory=MonitorConfig)
     serve: ServeConfig = dataclasses.field(default_factory=ServeConfig)
     registry: RegistryConfig = dataclasses.field(default_factory=RegistryConfig)
@@ -412,6 +441,10 @@ def _coerce(owner: type, field: str, current: Any, raw: str) -> Any:
         args = typing.get_args(typing.get_type_hints(owner)[field])
         inner = args[0] if args else str
         body = raw.strip("()[] ")
+        if inner is str:
+            # String tuples (hpo.architectures) hold comma-containing
+            # specs, so their items separate on ';'.
+            return tuple(x.strip() for x in body.split(";") if x.strip())
         return tuple(inner(x) for x in body.split(",") if x.strip())
     return raw
 
@@ -437,16 +470,12 @@ def load_config(
     overrides: list[str] | None = None, toml_path: str | Path | None = None
 ) -> Config:
     """Defaults <- TOML (``toml_path``) <- ``section.field=value``
-    overrides. Unknown keys raise, except a TOML's ``[hpo]`` table, which
-    configures the ``tune`` command (not ported, ROADMAP A6) and is
-    skipped so a job file of both commands trains."""
+    overrides. Unknown keys raise."""
     config = Config()
     if toml_path:
         with open(toml_path, "rb") as f:
             doc = tomllib.load(f)
         for section, fields in doc.items():
-            if section == "hpo":
-                continue
             for field, value in fields.items():
                 _apply(config, section, field, value)
     for item in overrides or []:

@@ -111,14 +111,20 @@ def dropout(
     with probability ``1 - rate`` and divide the kept ones by ``1 - rate``
     in the tensor's own type; without one (eval), or at rate 0, ``x`` as it
     is. One draw covers the whole tensor, so the members of an ensemble
-    (a leading ``[K, ...]`` axis) draw masks of their own."""
+    (a leading ``[K, ...]`` axis) draw masks of their own. ``generator``
+    is a ``torch.Generator`` or a counter-based stream with
+    ``uniform(shape, device)`` (``train/hpo.py``'s ``CounterStream``,
+    which runs under ``torch.func.vmap``, where a generator cannot)."""
     if generator is None or rate == 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    if isinstance(generator, torch.Generator):
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    else:
+        u = generator.uniform(x.shape, x.device)
+    return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
 class MultiHeadSelfAttention(nn.Module):

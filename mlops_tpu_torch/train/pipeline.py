@@ -13,7 +13,10 @@ checkpoints, packaging):
   the quant tier with ``train.distill_quant``), a ``flax`` bundle both
   packages load;
 - ``run_layout_training`` and ``_run_doc_training``, the long-context
-  doc model: a ``doc`` bundle and ``doc_params.msgpack``.
+  doc model: a ``doc`` bundle and ``doc_params.msgpack``;
+- ``run_tuning``, the ``tune`` sweep (``train/hpo.py``): every trial of
+  every architecture group stacked, the winner calibrated, its bulk
+  student distilled when its family takes one, packaged and registered.
 
 The same config and data give the same batches in the same order on the
 CPU and the card; each run writes ``metrics.jsonl``, checkpoints, a
@@ -26,6 +29,8 @@ refused before any work, naming its ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
 import time
 from pathlib import Path
 from typing import Callable
@@ -35,7 +40,7 @@ import torch
 
 from mlops_tpu_torch.bundle import msgpack, save_doc_bundle, save_exact_bundle
 from mlops_tpu_torch.bundle.registry import ModelRegistry
-from mlops_tpu_torch.config import Config
+from mlops_tpu_torch.config import Config, ModelConfig
 from mlops_tpu_torch.data import Preprocessor, generate_synthetic, load_csv_columns
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.device import resolve_device
@@ -60,6 +65,7 @@ from mlops_tpu_torch.train.long_context import (
     make_doc_train_step,
     make_documents,
 )
+from mlops_tpu_torch.train.hpo import HPOResult, run_architecture_hpo
 from mlops_tpu_torch.train.loop import (
     TrainResult,
     batch_indices,
@@ -163,10 +169,13 @@ def _package_and_register(
     register: bool,
     calibration: dict[str, float],
     students: dict | None = None,
+    model_config: ModelConfig | None = None,
 ) -> tuple[Path, str | None]:
     """The packaging tail: fit the monitors on the training split, write
-    the bundle (``doc`` for a doc model, else ``flax`` with the
-    ``students`` keywords of ``save_exact_bundle``), register it."""
+    the bundle of ``model_config`` (``config.model`` when None; ``doc``
+    for a doc model, else ``flax`` with the ``students`` keywords of
+    ``save_exact_bundle``), register it."""
+    model_config = model_config or config.model
     bundle_dir = run_dir / "bundle"
     monitor = fit_monitor(
         train_ds,
@@ -174,9 +183,9 @@ def _package_and_register(
         seed=config.data.seed,
         outlier_quantile=config.monitor.outlier_quantile,
     )
-    save = save_doc_bundle if config.model.doc_records > 1 else save_exact_bundle
+    save = save_doc_bundle if model_config.doc_records > 1 else save_exact_bundle
     save(
-        bundle_dir, config.model, model, preprocessor, monitor,
+        bundle_dir, model_config, model, preprocessor, monitor,
         calibration=calibration, tags=bundle_tags, metrics=metrics,
         **(students or {}),
     )
@@ -227,18 +236,21 @@ _DISTILL_FAMILIES = ("ft_transformer", "moe", "bert")
 
 
 def _maybe_distill(
-    config: Config, teacher: torch.nn.Module, train_ds, valid_ds, device
+    config: Config, teacher: torch.nn.Module, train_ds, valid_ds, device,
+    model_config: ModelConfig | None = None,
 ) -> DistillResult | None:
     """The bulk student of an ensemble or a transformer family (the
     families whose per-row FLOPs the JAX package distills away for CPU
-    bulk sweeps), unless ``train.distill_bulk`` turned it off."""
+    bulk sweeps) of ``model_config`` (``config.model`` when None), unless
+    ``train.distill_bulk`` turned it off."""
+    model_config = model_config or config.model
     expensive = (
-        config.model.ensemble_size > 1 or config.model.family in _DISTILL_FAMILIES
+        model_config.ensemble_size > 1 or model_config.family in _DISTILL_FAMILIES
     )
     if not expensive or not config.train.distill_bulk:
         return None
     return distill_for_bulk(
-        teacher, config.model, train_ds, valid_ds, seed=config.train.seed,
+        teacher, model_config, train_ds, valid_ds, seed=config.train.seed,
         device=device,
     )
 
@@ -478,3 +490,118 @@ def _run_doc_training(
         train_result=result,
         run_dir=run_dir,
     )
+
+
+def run_tuning(
+    config: Config, register: bool = True, run_name: str | None = None
+) -> tuple[PipelineResult, HPOResult]:
+    """The ``tune`` sweep on ``train.device`` (the card unless "cpu"),
+    then the winner packaged: the JAX package's ``run_tuning``. Every
+    ``hpo.architectures`` group (or the configured model alone) trains
+    its ``hpo.trials`` trials stacked for ``hpo.steps`` steps
+    (``train/hpo.py``); groups persist under ``<run_dir>/hpo_groups`` as
+    they finish, so a rerun with the same ``registry.run_name`` trains
+    only the unfinished ones. ``trials.jsonl`` (a full atomic rewrite)
+    and ``best.json`` record the sweep; the winner's architecture is
+    calibrated on the validation split, distills its bulk student when
+    its family takes one (never a quant student), and is packaged and
+    registered. ``train.steps``, ``keep_best`` and the eval windows are
+    not read, as in the JAX package."""
+    model = config.model
+    if model.family in ("gbm", "rf"):
+        raise ValueError(
+            "sklearn baseline families (gbm/rf) train via `train`; the "
+            "vmapped/sharded `tune` sweep applies to the Flax families only"
+        )
+    if model.uses_layout_trainer:
+        raise ValueError(
+            "`tune` sweeps dense single-record models; layout knobs "
+            "(model.pipeline_stages / seq_parallel / doc_records>1) train "
+            "via `train` -> run_layout_training"
+        )
+    if model.family == "moe":
+        raise ValueError("model.family='moe' is not ported (ROADMAP.md A9)")
+    device = resolve_device(config.train.device)
+    if register:
+        ModelRegistry(config.registry.root)  # refuses a gs:// root up front
+    run_name = run_name or time.strftime("%Y%m%d-%H%M%S") + "-tune"
+    run_dir = new_run_dir(config, run_name)
+    columns, labels = load_training_data(config)
+    preprocessor = Preprocessor.fit(columns)
+    ds = preprocessor.encode(columns, labels)
+    train_ds, valid_ds = split_dataset(ds, config.data.valid_fraction)
+    t0 = time.perf_counter()
+    win_model, hpo_result = run_architecture_hpo(
+        model, config.train, config.hpo, train_ds, valid_ds,
+        device=device, resume_dir=run_dir,
+    )
+    logging.getLogger(__name__).info(
+        "tune: %d trials swept in %.3f s on %s",
+        len(hpo_result.trials), time.perf_counter() - t0, device,
+    )
+    # A full rewrite, not an append: the records cover every trial,
+    # restored groups included, so a retried run duplicates nothing.
+    atomic_write(
+        run_dir / "trials.jsonl",
+        "".join(
+            json.dumps({"trial": i, **trial}, default=float) + "\n"
+            for i, trial in enumerate(hpo_result.trials)
+        ).encode(),
+    )
+    atomic_write(
+        run_dir / "best.json",
+        json.dumps(
+            {
+                "best_index": hpo_result.best_index,
+                "hyperparams": hpo_result.best_hyperparams,
+                "metrics": hpo_result.best_metrics,
+            },
+            indent=2,
+        ).encode(),
+    )
+    packaged = load_params(build_model(win_model), hpo_result.best_params).to(device)
+    logits = eval_logits(
+        packaged,
+        dict(packaged.named_parameters()),
+        torch.from_numpy(valid_ds.cat_ids).to(device),
+        torch.from_numpy(valid_ds.numeric).to(device),
+    )
+    calibration = calibration_record(logits.cpu().numpy(), valid_ds.labels)
+    bulk = _maybe_distill(
+        config, packaged, train_ds, valid_ds, device, model_config=win_model
+    )
+    best_trial = str(hpo_result.best_index)
+    bundle_dir, model_uri = _package_and_register(
+        config,
+        run_dir,
+        packaged.cpu(),
+        preprocessor,
+        train_ds,
+        metrics=hpo_result.best_metrics,
+        bundle_tags={
+            "run_name": run_name,
+            "best_trial": best_trial,
+            # Structural winners (family/hidden_dims/...) surface as strings.
+            **{
+                k: (f"{v:.6g}" if isinstance(v, float) else str(v))
+                for k, v in hpo_result.best_hyperparams.items()
+            },
+        },
+        registry_tags={"run_name": run_name, "best_trial": best_trial},
+        register=register,
+        calibration=calibration,
+        students={"bulk": bulk},
+        model_config=win_model,
+    )
+    result = PipelineResult(
+        bundle_dir=bundle_dir,
+        model_uri=model_uri,
+        train_result=TrainResult(
+            params=hpo_result.best_params,
+            metrics=hpo_result.best_metrics,
+            history=[],
+            steps=config.hpo.steps,
+        ),
+        run_dir=run_dir,
+    )
+    return result, hpo_result

@@ -947,3 +947,100 @@ def test_an_error_in_the_compute_stage_ends_the_sweep(bulk_bundle, monkeypatch, 
         bulk.score_dataset(load(directory), ds, chunk_rows=1024, pipeline_depth=depth,
                            device="cuda", exact=True)
     assert threading.active_count() == before
+
+
+# ------------------------------------------------- the stacked HPO trainer
+HPO_MLP = dict(family="mlp", hidden_dims=(64, 64), embed_dim=8, dropout=0.1)
+
+
+def _hpo_stack(trials: int, device: str, precision: str = "f32", seed: int = 0, **model):
+    from mlops_tpu_torch.config import HPOConfig, ModelConfig, TrainConfig
+    from mlops_tpu_torch.data.encode import EncodedDataset
+    from mlops_tpu_torch.train import hpo
+
+    columns, labels = generate_synthetic(4000, seed=3)
+    ds = Preprocessor.fit(columns).encode(columns, labels)
+    train = EncodedDataset(ds.cat_ids[:3200], ds.numeric[:3200], ds.labels[:3200])
+    valid = EncodedDataset(ds.cat_ids[3200:], ds.numeric[3200:], ds.labels[3200:])
+    hp = hpo.sample_hyperparams(HPOConfig(trials=trials, seed=seed))
+    seeds = hpo.trial_seeds(seed, trials)
+    return hpo.TrialStack(
+        ModelConfig(precision=precision, **{**HPO_MLP, **model}),
+        TrainConfig(batch_size=256, ema_decay=0.9), hp, seeds, 40,
+        hpo.SweepData.put(train, valid, device), torch.device(device),
+    )
+
+
+@pytest.mark.gpu
+def test_the_stacked_step_equals_per_trial_steps_on_the_card():
+    """f32, dropout on: 3 trials stacked against each trained alone, 5
+    steps; losses 1e-5, params 1e-5 (cuBLAS batches the products in
+    another order than single ones)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    stack = _hpo_stack(3, "cuda")
+    losses = stack.run(5)
+    for i in range(3):
+        alone = _hpo_stack(3, "cuda")
+        alone.keep(np.asarray([i]))
+        torch.testing.assert_close(alone.run(5)[:, 0], losses[:, i], rtol=0, atol=1e-5)
+        torch.testing.assert_close(alone.eval_params()[0], stack.eval_params()[i],
+                                   rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_the_stacked_trainer_on_the_card_matches_its_cpu_route(precision):
+    """3 trials from the same init and rows: per-trial gradient cosine at
+    the first step >= 0.98, then 20 steps' loss curves within 0.05."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    stacks = {d: _hpo_stack(3, d, precision) for d in ("cuda", "cpu")}
+    grads = {d: s.loss_and_grad()[1].float().cpu() for d, s in stacks.items()}
+    cos = torch.nn.functional.cosine_similarity(grads["cuda"], grads["cpu"], dim=1)
+    assert float(cos.min()) >= 0.98, cos
+    curves = {d: s.run(20).float().cpu() for d, s in stacks.items()}
+    assert float((curves["cuda"] - curves["cpu"]).abs().max()) <= 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["mlp", "ft_transformer"])
+def test_kernels_per_stacked_step_do_not_grow_with_the_trials(family):
+    """Device kernels of one step at T = 2 and T = 10 (torch.profiler):
+    the same program, batched, so within 10 %."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    model = {} if family == "mlp" else dict(family=family, token_dim=32, depth=2, heads=4)
+    counts = {}
+    for t in (2, 10):
+        stack = _hpo_stack(t, "cuda", "bf16", **model)
+        stack.run(2)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            stack.run(3)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        counts[t] = sum(e.count for e in kernels) / 3
+    assert counts[10] <= 1.1 * counts[2], counts
+
+
+@pytest.mark.gpu
+def test_the_sha_survivor_gather_stays_on_the_card():
+    """Survivors gathered on the device continue as if trained straight
+    through alone: the buffers stay on the card, the trial ids follow."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    stack = _hpo_stack(4, "cuda", seed=2)
+    stack.run(6)
+    stack.keep(np.asarray([3, 1, 0])[::-1][:2])  # argsort(...)[::-1] gives a reversed view
+    assert stack.trial_ids.tolist() == [0, 1]
+    for buf in (stack.flat, stack.mu, stack.nu, stack.ema, stack.lr, stack.keys):
+        assert buf.is_cuda and buf.shape[0] == 2
+    stack.run(6)
+    alone = _hpo_stack(4, "cuda", seed=2)
+    alone.keep(np.asarray([1]))
+    alone.run(12)
+    torch.testing.assert_close(alone.eval_params()[0], stack.eval_params()[1], rtol=0, atol=1e-5)

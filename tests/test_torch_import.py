@@ -45,7 +45,7 @@ def test_importing_every_submodule_loads_no_jax_and_no_reference_package():
     assert "mlops_tpu_torch.train.pipeline" in names
     assert "mlops_tpu_torch.bundle.registry" in names
     for name in ("data.pipeline_exec", "data.stream", "parallel.bulk",
-                 "train.distill", "lifecycle.promote"):
+                 "train.distill", "lifecycle.promote", "train.hpo"):
         assert f"mlops_tpu_torch.{name}" in names
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -265,17 +265,17 @@ def test_config_reads_the_job_toml_as_jax_does():
                 getattr(want, section), field
             ), (section, field)
     assert tomllib.loads(toml.read_text())["model"]["seq_parallel"] is True
-    with pytest.raises(KeyError, match="hpo.trials"):
-        load_config(["hpo.trials=3"])
-    # The exact tier's job: its sections parse as the JAX package's; its
-    # [hpo] table (the tune command's, ROADMAP A6) is skipped.
+    with pytest.raises(KeyError, match="hpo.nope"):
+        load_config(["hpo.nope=3"])
+    # The exact tier's job: its sections parse as the JAX package's, its
+    # [hpo] table (the tune command's) too.
     job = ROOT / "configs" / "train_register_job.toml"
     got, want = load_config([], toml_path=job), jax_load_config(job, env={})
-    for section in ("data", "model", "train"):
+    for section in ("data", "model", "train", "hpo"):
         for field, value in dataclasses.asdict(getattr(got, section)).items():
             if hasattr(getattr(want, section), field):
                 assert value == getattr(getattr(want, section), field), (section, field)
-    assert not hasattr(got, "hpo")
+    assert dataclasses.asdict(got.hpo) == dataclasses.asdict(want.hpo)
 
 
 # ------------------------------------------------------------ end to end
