@@ -17,7 +17,8 @@ serving (``POST /predict`` on a ``flax`` bundle, the default tier),
 exact-tier training (``train --config configs/train_register_job.toml``),
 the distilled students it packages, bulk scoring (``score-batch``, in
 memory and streamed), and the deployed training Job (``tune``, then
-``promote`` and ``serve`` of the registry's production stage).
+``promote`` and ``serve`` of the registry's production stage), on local
+paths and, as ``kubernetes/train-job.yml`` runs it, on a ``gs://`` bucket.
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -203,14 +204,12 @@ Phases, each of which fails the run loudly:
     score.output_path=...`` in a subprocess; every output row equal to
     the in-memory path's prediction rounded to 6 places and its flag;
     rows/s and the stage record;
-26. the deployed training Job: ``python -m mlops_tpu_torch tune --config
-    configs/train_register_job.toml`` in a subprocess at the job's full
-    config (10 trials x 1,000 steps of the mlp, hidden 256/256/128, embed
-    16, bf16, 50,000 rows, batch 1024): its JSON line, trials.jsonl,
-    best.json and the registered bundle (calibrated, no quant tier);
-    ``promote`` of that version to production, then ``serve
-    serve.model_directory=production`` answering the golden request like
-    the CPU route; in this process, the counts set to 0 just before, the
+26. the deployed training Job on local paths: ``python -m mlops_tpu_torch
+    tune --config configs/train_register_job.toml`` in a subprocess at the
+    job's full config (10 trials x 1,000 steps of the mlp, hidden
+    256/256/128, embed 16, bf16, 50,000 rows, batch 1024): its JSON line,
+    trials.jsonl, best.json and the registered bundle (calibrated, no quant
+    tier); in this process, the counts set to 0 just before, the
     job's stacked step at 10 trials and at 2 (step ms as phase 20, trial
     rows per second, kernels and busy share per step, peak device memory;
     kernels per step at 10 within 10 % of 2), no kernel launched; the
@@ -225,7 +224,27 @@ Phases, each of which fails the run loudly:
     with its bulk student when an ensemble or a transformer wins; the
     same command again under the same run name restores every group
     (none retrained, the same best.json, a new version); each group's
-    stacked step at 8 trials timed as phase 26.
+    stacked step at 8 trials timed as phase 26;
+28. the deployed Job as the manifest runs it: the job config's 50,000
+    synthetic rows as a CSV uploaded to a fake bucket (``FileBucket``:
+    objects are files under ``build/``, every subprocess runs the CLI
+    through ``gcs_main`` with the port's GCS client speaking to it; the
+    card machine has no network), then exactly the manifest's argv,
+    ``tune --config configs/train_register_job.toml
+    data.train_path=gs://.../curated.csv registry.root=gs://.../registry
+    registry.run_name=train-job``, on the card; ``promote`` of its winner
+    to production on the bucket; ``serve serve.model_directory=production
+    registry.root=gs://...`` with ``MLOPS_TPU_SERVE_WORKERS=0`` and the
+    port through ``MLOPS_TPU_SERVE_PORT``, four bodies against the CPU
+    route on the bundle the registry downloads (1.6e-2); at once, the same
+    ``serve`` with ``MLOPS_TPU_SERVE_WORKERS=2`` and with
+    ``MLOPS_TPU_CACHE_DIR`` set (non-zero exits naming A4 and A3), a
+    ``train`` at 50 steps with ``train.tensorboard_dir`` (event files, or
+    the JAX warning where ``torch.utils.tensorboard`` is unusable), and
+    where pyarrow imports ``score-batch`` on ``gs://.../rows.parquet``
+    against the same rows as the CSV (equal to 6 places); the Job's wall
+    and sweep beside phase 26's, the seconds staging the data and moving
+    the bundle, the bucket's objects and bytes.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
@@ -247,7 +266,9 @@ import signal
 import socket
 import subprocess
 import sys
+import threading
 import time
+import urllib.parse
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -550,6 +571,16 @@ def phase_parity(bundle_dir: Path) -> dict:
 
 
 # ------------------------------------------------------------------ phase 5
+def _cli(args: list[str], bucket: Path | None = None) -> list[str]:
+    """The command of ``python -m mlops_tpu_torch <args>``; with
+    ``bucket``, the same through ``gcs_main`` against that fake bucket."""
+    if bucket is None:
+        return [sys.executable, "-m", "mlops_tpu_torch", *args]
+    return [sys.executable, "-c",
+            "import sys, chip_smoke; sys.exit(chip_smoke.gcs_main(sys.argv[1], sys.argv[2:]))",
+            str(bucket), *args]
+
+
 def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -2237,13 +2268,19 @@ def _finish_train_cli(name: str, extra, started, device: str) -> tuple[dict, flo
     return out, wall
 
 
-def _serve_golden(bundles: dict, device: str, served_as: dict | None = None,
-                  extra: tuple[str, ...] = ()) -> dict:
-    """``python -m mlops_tpu_torch serve`` on each bundle at once (the
-    default tier, exact), the golden request to each, compared with the
-    CPU route on the bundle's directory; no kernel launches; each drains
-    on SIGTERM. ``served_as`` names what the server is given instead of
-    the directory (a registry stage: ``extra`` then names the registry)."""
+def _serve_cmd(path, port: int, device: str) -> tuple[list[str], dict]:
+    """``python -m mlops_tpu_torch serve`` on ``path`` at ``port``."""
+    return _cli(["serve", f"serve.model_directory={path}", f"serve.port={port}",
+                 "serve.host=127.0.0.1", f"serve.device={device}"]), {}
+
+
+def _serve_golden(bundles: dict, device: str, launch=_serve_cmd,
+                  bodies: tuple[list[dict], ...] = ()) -> dict:
+    """``serve`` on each bundle at once (the default tier, exact), the
+    golden request and ``bodies`` to each, compared with the CPU route on
+    the bundle's directory; no kernel launches; each drains on SIGTERM.
+    ``launch(path, port, device)`` gives the server's command and the
+    environment it adds."""
     from mlops_tpu_torch.bundle import load_bundle
     from mlops_tpu_torch.serve.engine import InferenceEngine
 
@@ -2252,12 +2289,9 @@ def _serve_golden(bundles: dict, device: str, served_as: dict | None = None,
     for name, path in bundles.items():
         port = _free_port()
         out = open(WORK / f"exact_train_server_{name}.log", "wb")
+        cmd, env = launch(path, port, device)
         procs[name] = (port, out, subprocess.Popen(
-            [sys.executable, "-m", "mlops_tpu_torch", "serve",
-             f"serve.model_directory={(served_as or {}).get(name, path)}",
-             f"serve.port={port}", "serve.host=127.0.0.1", f"serve.device={device}",
-             *extra],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT), **env),
             stdout=out, stderr=subprocess.STDOUT,
         ))
     worst = {}
@@ -2273,12 +2307,15 @@ def _serve_golden(bundles: dict, device: str, served_as: dict | None = None,
                     pass
                 check(time.monotonic() < deadline, f"{name} server never became ready")
                 time.sleep(0.5)
-            status, body = _http(port, "POST", "/predict", json.dumps(golden).encode())
-            check(status == 200, f"{name} golden /predict answered {status}: {body[:200]}")
             bundle = load_bundle(bundles[name])
-            want = InferenceEngine(bundle, device="cpu").predict_records(golden)
-            worst[name] = _compare_exact(json.loads(body), want, bundle, golden,
-                                         f"trained {name} golden http")
+            cpu = InferenceEngine(bundle, device="cpu")
+            worst[name] = 0.0
+            for records in (golden, *bodies):
+                status, body = _http(port, "POST", "/predict", json.dumps(records).encode())
+                check(status == 200, f"{name} /predict answered {status}: {body[:200]}")
+                worst[name] = max(worst[name], _compare_exact(
+                    json.loads(body), cpu.predict_records(records), bundle, records,
+                    f"trained {name} http, {len(records)} records"))
             _, text = _http(port, "GET", "/metrics")
             check(_metric(text.decode(), "mlops_tpu_kernel_launches_total") == 0,
                   f"{name}: the exact tier launched a kernel")
@@ -3135,8 +3172,10 @@ TUNE_KEYS = {"bundle", "model_uri", "best_trial", "best_hyperparams", "metrics",
 SINGLE_TRIAL_MLP_STEP = {"step_ms": 8.614, "kernels_per_step": 453.0, "busy_share": 0.207}
 
 
-def _tune_cli(name: str, toml: str, extra, root: Path, device: str) -> tuple[dict, float, float]:
-    """``python -m mlops_tpu_torch tune --config <toml>`` in a subprocess:
+def _tune_cli(name: str, args: list[str], root: Path, bucket: Path | None = None,
+              env: dict | None = None) -> tuple[dict, float, float]:
+    """``python -m mlops_tpu_torch tune <args>`` in a subprocess (through
+    ``gcs_main`` with ``bucket``, with ``env`` added to the environment):
     its JSON line (checked), its wall and the sweep's seconds from its
     log."""
     import re
@@ -3146,9 +3185,8 @@ def _tune_cli(name: str, toml: str, extra, root: Path, device: str) -> tuple[dic
     t0 = time.perf_counter()
     with open(log_path, "w") as err:
         proc = subprocess.run(
-            [sys.executable, "-m", "mlops_tpu_torch", "tune", "--config", toml, *extra,
-             f"train.device={device}"],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            _cli(["tune", *args], bucket),
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT), **(env or {})),
             stdout=subprocess.PIPE, stderr=err, text=True, timeout=900,
         )
     wall = time.perf_counter() - t0
@@ -3293,18 +3331,16 @@ def _stack_parity(model_config, train_config, train_ds, valid_ds, device: str) -
 
 
 def phase_tune_job(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
-    """The deployed training Job's main path: ``python -m mlops_tpu_torch
-    tune --config configs/train_register_job.toml`` in a subprocess at the
-    job's full config (10 trials x 1,000 steps of the mlp, 50,000 rows,
-    batch 1024, bf16), its records and bundle checked; ``promote`` of the
-    registered version to production and ``serve
-    serve.model_directory=production`` over HTTP against the CPU route;
-    then in this process, the counts set to 0 just before, the job's
-    stacked step at 10 trials and at 2 (kernels per step within 10 %),
-    no kernel launched; and the stacked trainer on the card against its
-    CPU route at 3 trials x 20 steps. ``extra`` and ``device="cpu"``
+    """The deployed training Job on local paths: ``python -m
+    mlops_tpu_torch tune --config configs/train_register_job.toml`` in a
+    subprocess at the job's full config (10 trials x 1,000 steps of the
+    mlp, 50,000 rows, batch 1024, bf16), its records and bundle checked
+    (phase 28 runs the same Job on a bucket, then promotes and serves its
+    winner); then in this process, the counts set to 0 just before, the
+    job's stacked step at 10 trials and at 2 (kernels per step within
+    10 %), no kernel launched; and the stacked trainer on the card against
+    its CPU route at 3 trials x 20 steps. ``extra`` and ``device="cpu"``
     rehearse the subprocess half small on the CPU."""
-    from mlops_tpu_torch.bundle.registry import ModelRegistry
     from mlops_tpu_torch.config import load_config
     from mlops_tpu_torch.ops import quant_kernel
 
@@ -3317,33 +3353,16 @@ def phase_tune_job(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
         f"{hcfg.steps} steps, strategy {hcfg.strategy}, batch {config.train.batch_size}, "
         f"{model.family} {model.hidden_dims} embed {model.embed_dim} {model.precision}, "
         f"dropout {model.dropout})")
-    out, wall, sweep_s = _tune_cli("job", TUNE_JOB_TOML, [*extra, *reg, "registry.run_name=job"],
-                                   root, device)
+    out, wall, sweep_s = _tune_cli(
+        "job", ["--config", TUNE_JOB_TOML, *extra, *reg, "registry.run_name=job",
+                f"train.device={device}"], root)
     check(out["trials"] == hcfg.trials, f"tune job swept {out['trials']} trials")
     trials = _check_tune_run("job", out, root / "runs" / "job")
-    version = out["model_uri"].rsplit("/", 1)[1]
-    promoted = subprocess.run(
-        [sys.executable, "-m", "mlops_tpu_torch", "promote", *reg,
-         f"registry.promote_version={version}", "registry.promote_stage=production"],
-        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
-        capture_output=True, text=True, timeout=300,
-    )
-    check(promoted.returncode == 0 and json.loads(promoted.stdout) == {
-        "model": config.registry.model_name, "version": int(version), "stage": "production"},
-        f"promote: {promoted.stdout} {promoted.stderr[-2000:]}")
-    registry = ModelRegistry(root / "registry")
-    staged = registry.resolve(config.registry.model_name, "production")
-    check((staged / "manifest.json").read_bytes()
-          == (Path(out["bundle"]) / "manifest.json").read_bytes(),
-          "the production stage does not hold the tuned bundle")
-    http = _serve_golden({"tuned": Path(out["bundle"])}, device,
-                         served_as={"tuned": "production"}, extra=tuple(reg))
     result = {
         "cli": {"wall_s": wall, "sweep_s": sweep_s, "trials": out["trials"],
                 "steps": hcfg.steps, "best_trial": out["best_trial"],
                 "best_hyperparams": out["best_hyperparams"], "metrics": out["metrics"],
                 "aucs": [t["metrics"]["validation_roc_auc_score"] for t in trials]},
-        "promoted_version": int(version), "production_http_max_pred_err": http,
     }
     if device != "cuda":
         return result
@@ -3400,7 +3419,8 @@ def phase_tune_arch(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
     log(f"tune arch: {TUNE_ARCH_TOML} hpo.strategy=sha, steps cut to {hcfg.steps} "
         f"(rungs {counts} of {rung_steps} steps, horizon {horizon}); groups "
         f"{list(hcfg.architectures)}, {hcfg.trials} trials each, rows {config.data.rows}")
-    out, wall, sweep_s = _tune_cli("arch", TUNE_ARCH_TOML, args, root, device)
+    cli_args = ["--config", TUNE_ARCH_TOML, *args, f"train.device={device}"]
+    out, wall, sweep_s = _tune_cli("arch", cli_args, root)
     run_dir = root / "runs" / "arch"
     trials = _check_tune_run("arch", out, run_dir)
     groups = len(hcfg.architectures)
@@ -3416,7 +3436,7 @@ def phase_tune_arch(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
     group_files = sorted((run_dir / "hpo_groups").glob("group_*.json"))
     stamps = {p.name: p.stat().st_mtime_ns for p in group_files}
     best = (run_dir / "best.json").read_text()
-    again, wall2, sweep2 = _tune_cli("arch_rerun", TUNE_ARCH_TOML, args, root, device)
+    again, wall2, sweep2 = _tune_cli("arch_rerun", cli_args, root)
     check({p.name: p.stat().st_mtime_ns for p in group_files} == stamps
           and len(stamps) == groups, "the rerun retrained a group")
     check((run_dir / "best.json").read_text() == best, "the rerun wrote another best.json")
@@ -3451,6 +3471,379 @@ def phase_tune_arch(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
     for row in result["timing"]:
         row.pop("kernel_counts")
     return result
+
+
+# ----------------------------------------------------------------- phase 28
+class FileBucket:
+    """A fake GCS behind the storage client's transport ``(method, url,
+    data, headers) -> (status, body)``, answering the JSON API calls
+    ``utils/storage.py`` makes as ``tests/test_storage.py``'s ``FakeGCS``
+    answers them: media upload, media and metadata GETs, prefix listing
+    paged ``PAGE`` keys at a time, delimited listing, generations, and the
+    metadata server's token; a call without a bearer token is refused.
+    Objects are files under ``root/<bucket>/<key>``, each written by a
+    rename, so every process given ``root`` shares one bucket; an
+    object's generation is its file's mtime and inode. ``calls`` records
+    each call's kind, key, bytes and seconds."""
+
+    PAGE = 4
+
+    def __init__(self, root: str | Path):
+        self.root = Path(root)
+        self.calls: list[tuple[str, str, int, float]] = []
+
+    def transport(self, method: str, url: str, data: bytes | None,
+                  headers: dict) -> tuple[int, bytes]:
+        t0 = time.perf_counter()
+        kind, key, status, body = self._answer(method, url, data, headers)
+        self.calls.append((kind, key, len(data or b"") + len(body),
+                           time.perf_counter() - t0))
+        return status, body
+
+    def _answer(self, method, url, data, headers):
+        parsed = urllib.parse.urlparse(url)
+        query = urllib.parse.parse_qs(parsed.query)
+        path = urllib.parse.unquote(parsed.path)
+        if parsed.hostname == "metadata.google.internal":
+            return "token", "", 200, json.dumps({"access_token": "fake-token"}).encode()
+        if not headers.get("Authorization", "").startswith("Bearer "):
+            return "refused", path, 401, b"{}"
+        if method == "POST" and path.startswith("/upload/storage/v1/b/"):
+            bucket, key = path.split("/")[5], query["name"][0]
+            target = self.root / bucket / key
+            target.parent.mkdir(parents=True, exist_ok=True)
+            tmp = self.root / ".tmp" / f"{os.getpid()}-{threading.get_ident()}"
+            tmp.parent.mkdir(parents=True, exist_ok=True)
+            tmp.write_bytes(data)
+            os.replace(tmp, target)
+            return "upload", key, 200, b"{}"
+        parts = path.split("/", 6)  # ['', 'storage', 'v1', 'b', bucket, 'o', key]
+        if method != "GET" or parts[1:4] != ["storage", "v1", "b"]:
+            return "unknown", path, 400, b"{}"
+        bucket = parts[4]
+        if len(parts) < 7:
+            return "list", query.get("prefix", [""])[0], 200, self._list(bucket, query)
+        key = parts[6]
+        target = self.root / bucket / key
+        if not target.is_file():
+            return "missing", key, 404, b"{}"
+        if query.get("alt") == ["media"]:
+            return "media", key, 200, target.read_bytes()
+        st = target.stat()
+        # Every write is a new file by rename: a new inode, even where two
+        # writes share an mtime tick.
+        meta = {"name": key, "size": str(st.st_size),
+                "generation": f"{st.st_mtime_ns}{st.st_ino:020d}"}
+        return "stat", key, 200, json.dumps(meta).encode()
+
+    def _list(self, bucket: str, query: dict) -> bytes:
+        prefix = query.get("prefix", [""])[0]
+        base = self.root / bucket
+        start = base / prefix.rpartition("/")[0]
+        names = sorted(
+            name for name in (p.relative_to(base).as_posix()
+                              for p in start.rglob("*") if p.is_file())
+            if name.startswith(prefix)
+        ) if start.is_dir() else []
+        delimiter = query.get("delimiter", [None])[0]
+        if delimiter:
+            prefixes, leaves = set(), []
+            for name in names:
+                rest = name[len(prefix):]
+                if delimiter in rest:
+                    prefixes.add(prefix + rest.split(delimiter, 1)[0] + delimiter)
+                else:
+                    leaves.append(name)
+            return json.dumps({"items": [{"name": n} for n in leaves],
+                               "prefixes": sorted(prefixes)}).encode()
+        page = int(query.get("pageToken", ["0"])[0] or 0)
+        payload = {"items": [{"name": n} for n in names[page:page + self.PAGE]]}
+        if page + self.PAGE < len(names):
+            payload["nextPageToken"] = str(page + self.PAGE)
+        return json.dumps(payload).encode()
+
+    def holdings(self) -> dict:
+        """The objects and bytes each bucket under ``root`` holds."""
+        out = {}
+        for bucket in sorted(p for p in self.root.iterdir() if p.name != ".tmp"):
+            files = [p for p in bucket.rglob("*") if p.is_file()]
+            out[bucket.name] = {"objects": len(files),
+                                "bytes": sum(p.stat().st_size for p in files)}
+        return out
+
+
+def gcs_main(bucket_root: str, argv: list[str]) -> int:
+    """``mlops_tpu_torch.cli.main(argv)`` with the port's process-wide GCS
+    client speaking to the ``FileBucket`` at ``bucket_root`` (the card
+    machine has no network): every ``gs://`` path of the command reads and
+    writes there, token from the fake metadata server. The seconds spent
+    staging data (``read_to_file``, the local copy included) and uploading
+    and downloading bundles (``upload_dir`` / ``download_dir``), with the
+    bucket's call record, go to ``<bucket_root>.calls/<pid>.json`` as the
+    command returns."""
+    sys.path.insert(0, str(ROOT))
+    from mlops_tpu_torch import cli
+    from mlops_tpu_torch.utils import storage
+
+    os.environ.pop("GCS_ACCESS_TOKEN", None)
+    bucket = FileBucket(bucket_root)
+    client = storage.GCSClient(transport=bucket.transport)
+    storage._default_client = client
+    spent: dict[str, float] = {}
+
+    def timed(what, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent[what] = spent.get(what, 0.0) + time.perf_counter() - t0
+        return run
+
+    client.read_to_file = timed("data_staging", client.read_to_file)
+    storage.upload_dir = timed("bundle_upload", storage.upload_dir)
+    storage.download_dir = timed("bundle_download", storage.download_dir)
+    try:
+        return cli.main(argv)
+    finally:
+        record = Path(f"{bucket_root}.calls") / f"{os.getpid()}.json"
+        record.parent.mkdir(parents=True, exist_ok=True)
+        record.write_text(json.dumps({"command": argv[0], "calls": bucket.calls,
+                                      "spent_s": spent}))
+
+
+def _bucket_seconds(bucket_root: Path) -> dict:
+    """Per command: the seconds ``gcs_main`` timed (``spent_s``), and the
+    calls, bytes and seconds the fake bucket served by what they moved:
+    ``data`` (the dataset: metadata and media), ``bundle`` (objects under
+    ``versions/``: uploads, listings and downloads), ``index``
+    (``index.json``) and ``token``."""
+    out: dict = {}
+    for path in sorted(Path(f"{bucket_root}.calls").glob("*.json")):
+        rec = json.loads(path.read_text())
+        row = out.setdefault(rec["command"], {"spent_s": {}, "bucket": {}})
+        for what, seconds in rec["spent_s"].items():
+            row["spent_s"][what] = row["spent_s"].get(what, 0.0) + seconds
+        for kind, key, nbytes, seconds in rec["calls"]:
+            what = ("token" if kind == "token" else "bundle" if "/versions/" in key
+                    else "index" if key.endswith("index.json") else "data")
+            cell = row["bucket"].setdefault(what, {"calls": 0, "bytes": 0, "s": 0.0})
+            cell["calls"] += 1
+            cell["bytes"] += nbytes
+            cell["s"] += seconds
+    return out
+
+
+def _start(cmd: list[str], env: dict, log: Path) -> tuple[subprocess.Popen, Path]:
+    """``cmd`` started with ``env`` added, its stdout and stderr going to
+    ``<log>.out`` and ``<log>.err`` (files: a pipe nobody reads while the
+    caller waits on something else could fill and stall it)."""
+    with open(f"{log}.out", "w") as out, open(f"{log}.err", "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, stdout=out, stderr=err,
+                                env=dict(os.environ, PYTHONPATH=str(ROOT), **env))
+    return proc, log
+
+
+def _finish(procs: dict, timeout: int = 600) -> dict:
+    """Wait for ``_start``'s subprocesses: name -> (exit code, stdout,
+    stderr); any still running past ``timeout`` is killed."""
+    out = {}
+    try:
+        for name, (proc, log) in procs.items():
+            proc.wait(timeout=timeout)
+            out[name] = (proc.returncode, Path(f"{log}.out").read_text(),
+                         Path(f"{log}.err").read_text())
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    return out
+
+
+JOB_NAME = "train-job"  # registry.run_name, as the manifest's ${JOB_NAME}
+TB_STEPS = 50  # the TensorBoard run: of the job's 2,000
+TB_EVAL_EVERY = 25
+
+
+def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
+                       device: str = "cuda") -> dict:
+    """The deployed Job as ``kubernetes/train-job.yml`` runs it, against a
+    fake bucket (``FileBucket``; every command runs through ``gcs_main``):
+    the job config's ``data.rows`` synthetic rows written as a CSV and
+    uploaded as ``gs://<bucket>/curated.csv``; then exactly the manifest's
+    argv, ``tune --config configs/train_register_job.toml
+    data.train_path=gs://... registry.root=gs://... registry.run_name=...``
+    (the run root through ``MLOPS_TPU_REGISTRY_RUN_ROOT``, as a pod's
+    environment would give it); ``promote`` of the winner to production on
+    the bucket; ``serve serve.model_directory=production
+    registry.root=gs://...`` with ``MLOPS_TPU_SERVE_WORKERS=0`` and the
+    port through ``MLOPS_TPU_SERVE_PORT``, as the serving image sets them,
+    answering the golden request and 5/64/256-record bodies like the CPU
+    route on the bundle the registry resolves; the same ``serve`` with
+    ``MLOPS_TPU_SERVE_WORKERS=2`` and with ``MLOPS_TPU_CACHE_DIR`` set
+    exits non-zero naming A4 and A3; a ``train`` of the job config with
+    the steps cut to 50 and ``train.tensorboard_dir`` set writes event
+    files (or, where ``torch.utils.tensorboard`` cannot be built, warns as
+    the JAX package does); where pyarrow imports, ``score-batch`` on the
+    same rows as ``gs://.../rows.parquet`` equals the CSV's to 6 places.
+    ``local`` is phase 26's CLI record, printed beside. ``extra`` and
+    ``device="cpu"`` (given through ``MLOPS_TPU_*_DEVICE``) rehearse it
+    small on the CPU."""
+    import numpy as np
+
+    from mlops_tpu_torch.bundle.registry import ModelRegistry
+    from mlops_tpu_torch.config import load_config
+    from mlops_tpu_torch.data import generate_synthetic, write_csv_columns
+    from mlops_tpu_torch.utils import storage
+
+    root = WORK / "deployed_job"
+    shutil.rmtree(root, ignore_errors=True)
+    bucket_root = root / "bucket"
+    bucket_root.mkdir(parents=True)
+    gs = "gs://smoke-bucket"
+    registry_root = f"{gs}/registry"
+    # The pod's environment: its own HOME (the data and registry caches
+    # live under it) and run root, and the device only when rehearsing.
+    env = {"HOME": str(root / "home"), "MLOPS_TPU_REGISTRY_RUN_ROOT": str(root / "runs")}
+    if device != "cuda":
+        env.update(MLOPS_TPU_TRAIN_DEVICE=device, MLOPS_TPU_SERVE_DEVICE=device)
+    config = load_config(list(extra), ROOT / TUNE_JOB_TOML, env={})
+    columns, labels = generate_synthetic(config.data.rows, seed=config.data.seed)
+    write_csv_columns(root / "curated.csv", columns, labels)
+    client = storage.GCSClient(transport=FileBucket(bucket_root).transport)
+    client.write_bytes(f"{gs}/curated.csv", (root / "curated.csv").read_bytes())
+
+    job_args = ["--config", TUNE_JOB_TOML, f"data.train_path={gs}/curated.csv",
+                f"registry.root={registry_root}", f"registry.run_name={JOB_NAME}", *extra]
+    log(f"deployed job: tune {' '.join(job_args)}")
+    out, wall, sweep_s = _tune_cli("deployed", job_args, root, bucket=bucket_root, env=env)
+    check(out["trials"] == config.hpo.trials, f"the deployed job swept {out['trials']} trials")
+    check(out["model_uri"].startswith(f"models:/{config.registry.model_name}/"),
+          f"the deployed job registered {out['model_uri']}")
+    trials = _check_tune_run("deployed", out, root / "runs" / JOB_NAME)
+    version = out["model_uri"].rsplit("/", 1)[1]
+
+    (code, stdout, stderr), = _finish({"promote": _start(_cli(
+        ["promote", f"registry.root={registry_root}", f"registry.promote_version={version}",
+         "registry.promote_stage=production"], bucket_root), env, root / "promote")}).values()
+    check(code == 0 and json.loads(stdout) == {
+        "model": config.registry.model_name, "version": int(version), "stage": "production"},
+        f"promote: {stdout} {stderr[-2000:]}")
+    registry = ModelRegistry(registry_root, client=client, cache_dir=root / "resolved")
+    staged = registry.resolve(config.registry.model_name, "production")
+    for name in ("manifest.json", "params.msgpack"):
+        check((staged / name).read_bytes() == (Path(out["bundle"]) / name).read_bytes(),
+              f"the production stage on the bucket does not hold the tuned {name}")
+
+    serve_args = ["serve", "serve.model_directory=production", f"registry.root={registry_root}"]
+
+    def launch(path, port, dev):
+        return _cli(serve_args, bucket_root), {
+            **env, "MLOPS_TPU_SERVE_WORKERS": "0", "MLOPS_TPU_SERVE_PORT": str(port),
+            "MLOPS_TPU_SERVE_HOST": "127.0.0.1"}
+
+    # The rest runs while the production stage serves: the two refusals,
+    # the TensorBoard run and, where pyarrow imports, score-batch on the
+    # Parquet twin and the CSV (their resolves of production race the
+    # server's download into the one registry cache: a rename decides).
+    refused = {"MLOPS_TPU_SERVE_WORKERS": ("2", "A4"),
+               "MLOPS_TPU_CACHE_DIR": (str(root / "cache"), "A3")}
+    procs = {key: _start(_cli(serve_args, bucket_root), {**env, key: value}, root / key)
+             for key, (value, _) in refused.items()}
+    tb_dir = root / "tensorboard"
+    procs["tensorboard"] = _start(_cli(
+        ["train", "--config", TUNE_JOB_TOML, *extra, f"train.steps={TB_STEPS}",
+         f"train.eval_every={TB_EVAL_EVERY}", f"train.tensorboard_dir={tb_dir}",
+         f"registry.root={root / 'tb_registry'}", "registry.run_name=tensorboard"]), env,
+        root / "tensorboard")
+    pyarrow = _pyarrow_version()
+    if pyarrow:
+        from mlops_tpu_torch.data.parquet import write_parquet_columns
+
+        write_parquet_columns(root / "rows.parquet", columns, labels)
+        client.write_bytes(f"{gs}/rows.parquet", (root / "rows.parquet").read_bytes())
+        for name in ("curated.csv", "rows.parquet"):
+            procs[name] = _start(_cli(
+                ["score-batch", "serve.model_directory=production",
+                 f"registry.root={registry_root}", f"data.train_path={gs}/{name}",
+                 f"score.output_path={root / f'scored-{name}.npz'}"], bucket_root), env,
+                root / f"score-{name}")
+    try:
+        bodies = tuple(_records(n, seed=60 + n, drift=0.2) for n in (5, 64, 256))
+        http = _serve_golden({"production": staged}, device, launch=launch, bodies=bodies)
+    finally:
+        done = _finish(procs)
+
+    refusals = {}
+    for key, (value, item) in refused.items():
+        code, _, stderr = done[key]
+        check(code != 0 and f"ROADMAP {item}" in stderr,
+              f"serve with {key}={value} exited {code}: {stderr[-2000:]}")
+        refusals[key] = stderr.strip().splitlines()[-1]
+        log(f"deployed job: {key}={value} refused: {refusals[key]}")
+
+    code, _, stderr = done["tensorboard"]
+    check(code == 0, f"train with train.tensorboard_dir: {stderr[-3000:]}")
+    events = sorted(p.name for p in tb_dir.glob("events.out.tfevents.*"))
+    warned = [line for line in stderr.splitlines() if "tensorboard writer unavailable" in line]
+    check(bool(events) != bool(warned), f"tensorboard: events {events}, warnings {warned}")
+    tensorboard = {"event_files": events, "warning": warned[0] if warned else None}
+    log(f"deployed job: tensorboard {json.dumps(tensorboard)}")
+
+    parquet = {"pyarrow": "absent"}
+    if pyarrow:
+        scored = {}
+        for name in ("curated.csv", "rows.parquet"):
+            code, stdout, stderr = done[name]
+            check(code == 0, f"score-batch {name}: {stderr[-3000:]}")
+            scored[name] = (json.loads(stdout.strip().splitlines()[-1]),
+                            np.load(root / f"scored-{name}.npz")["predictions"])
+        (_, csv_p), (pq_out, pq_p) = scored.values()
+        gap = float(np.abs(csv_p - pq_p).max())
+        check(csv_p.shape == pq_p.shape == (len(labels),)
+              and np.array_equal(np.round(csv_p, 6), np.round(pq_p, 6)),
+              f"score-batch on Parquet differs from the CSV by {gap}")
+        parquet = {"pyarrow": pyarrow, "rows": int(pq_p.size), "max_gap": gap,
+                   "path": pq_out["path"]}
+    log(f"deployed job: parquet {json.dumps(parquet)}")
+
+    holdings = FileBucket(bucket_root).holdings()
+    moved = _bucket_seconds(bucket_root)
+    result = {
+        "cli": {"wall_s": wall, "sweep_s": sweep_s, "trials": out["trials"],
+                "best_trial": out["best_trial"], "best_hyperparams": out["best_hyperparams"],
+                "metrics": out["metrics"],
+                "aucs": [t["metrics"]["validation_roc_auc_score"] for t in trials]},
+        "local_cli": {k: local[k] for k in ("wall_s", "sweep_s", "best_trial", "metrics")}
+        if local else None,
+        "staging_s": {
+            "data": moved["tune"]["spent_s"]["data_staging"],
+            "bundle_upload": moved["tune"]["spent_s"]["bundle_upload"],
+            # The server or a score-batch, whichever resolved first; a
+            # loser of the rename downloaded too.
+            "bundle_download": [row["spent_s"]["bundle_download"] for row in moved.values()
+                                if "bundle_download" in row["spent_s"]],
+        },
+        "bucket_calls": moved, "bucket_holdings": holdings,
+        "promoted_version": int(version),
+        "requests_answered": 1 + len(bodies), "max_pred_gap_to_cpu": http["production"],
+        "refusals": refusals, "tensorboard": tensorboard, "parquet": parquet,
+    }
+    log_timing("deployed job", {k: result[k] for k in (
+        "cli", "local_cli", "staging_s", "bucket_holdings", "requests_answered",
+        "max_pred_gap_to_cpu")})
+    return result
+
+
+def _pyarrow_version() -> str | None:
+    """pyarrow's version where it imports (the optional dependency the JAX
+    package gates too), else None."""
+    try:
+        import pyarrow
+    except ImportError:
+        return None
+    return pyarrow.__version__
 
 
 def main() -> int:
@@ -3501,6 +3894,7 @@ def main() -> int:
         streamed = timed(phase_stream, students)
         tune_job = timed(phase_tune_job)
         tune_arch = timed(phase_tune_arch)
+        deployed = timed(phase_deployed_job, tune_job["cli"])
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -3600,7 +3994,7 @@ def main() -> int:
                      "served_quant_bundle": students["quant_bundle"]},
         "bulk": bulk_rows,
         "stream": streamed,
-        "tune": {"job": tune_job, "arch": tune_arch},
+        "tune": {"job": tune_job, "arch": tune_arch, "deployed": deployed},
         "exact_train": {
             "parity": exact_train_parity,
             "path": exact_train,

@@ -1,7 +1,8 @@
-"""Filesystem model registry with staged promotion: a copy of the JAX
-package's ``ModelRegistry`` (``mlops_tpu/bundle/registry.py``) and its
-``index.json`` layout for local roots, so a registry either package
-writes is read, promoted and pruned by the other.
+"""Model registry with staged promotion: a copy of the JAX package's
+``ModelRegistry`` (``mlops_tpu/bundle/registry.py``) and its
+``index.json`` layout, over a local directory or a ``gs://bucket/prefix``
+root, so a registry either package writes is read and promoted by the
+other (and, on a local root, pruned).
 
 Layout::
 
@@ -10,14 +11,20 @@ Layout::
 
 Versions are addressed as ``models:/<name>/<version-or-stage>``; a
 version number, a stage of ``STAGES`` or ``latest`` resolves to its
-bundle directory. A ``gs://`` root is not ported (ROADMAP A6) and is
-refused."""
+bundle directory. On GCS a resolved version is downloaded into a local
+cache (``~/.cache/mlops_tpu/registry/<sha256(root)[:16]>/<name>/<v>``,
+the JAX package's: bundle versions are immutable), through a temporary
+sibling and a rename, so a reader of either package never sees half a
+bundle. GCS has no lock: the GCS flavor keeps the JAX package's
+single-writer contract (one release pipeline registers and promotes at a
+time), and ``gc`` refuses a ``gs://`` root as the JAX package's does."""
 
 from __future__ import annotations
 
 import contextlib
 import datetime
 import fcntl
+import hashlib
 import json
 import shutil
 import threading
@@ -25,7 +32,7 @@ import uuid
 from pathlib import Path
 from typing import Any, Iterator
 
-from mlops_tpu_torch.utils.io import atomic_write
+from mlops_tpu_torch.utils import storage
 
 STAGES = ("none", "staging", "production")
 
@@ -50,21 +57,39 @@ def _now() -> str:
 
 
 class ModelRegistry:
-    """Registry over a local directory."""
+    """Registry over a local directory or a ``gs://bucket/prefix`` root
+    (``client``: the GCS client, the process-wide one when None;
+    ``cache_dir``: where GCS versions download, the per-user cache when
+    None)."""
 
-    def __init__(self, root: str | Path) -> None:
-        if str(root).startswith("gs://"):
-            raise ValueError(
-                f"registry root {root!r}: gs:// registries are not ported "
-                "(ROADMAP.md A6); use a local directory"
-            )
-        self.root = Path(root)
+    def __init__(
+        self,
+        root: str | Path,
+        client: storage.GCSClient | None = None,
+        cache_dir: str | Path | None = None,
+    ) -> None:
+        self._gcs = storage.is_gcs(root)
+        self.root = str(root).rstrip("/") if self._gcs else Path(root)
+        self._client = client
+        # Per user, created 0700 in resolve(): a shared temp dir would let
+        # another local user plant a "cached" bundle that resolve() trusts
+        # as immutable. Namespaced by the root, so two registries never
+        # serve each other's versions.
+        root_tag = hashlib.sha256(str(self.root).encode()).hexdigest()[:16]
+        self._cache_dir = (
+            Path(cache_dir or Path.home() / ".cache" / "mlops_tpu" / "registry")
+            / root_tag
+        )
 
     @contextlib.contextmanager
     def _locked(self, name: str) -> Iterator[None]:
         """A process-local lock for threads plus an ``flock`` (under
         ``<root>/.locks``, the JAX package's lock file) for concurrent
-        processes of either package."""
+        processes of either package. A GCS root takes no lock: object
+        stores have none, and the release pipeline is the one writer."""
+        if self._gcs:
+            yield
+            return
         key = str(self.root.resolve() / name)
         with _LOCKS_GUARD:
             thread_lock = _LOCKS.setdefault(key, threading.Lock())
@@ -78,20 +103,33 @@ class ModelRegistry:
                 finally:
                     fcntl.flock(lock_file, fcntl.LOCK_UN)
 
-    def _index_path(self, name: str) -> Path:
-        return self.root / name / "index.json"
+    def _index_path(self, name: str) -> str | Path:
+        return storage.join(self.root, name, "index.json")
 
     def _read_index(self, name: str) -> dict[str, Any]:
         try:
-            return json.loads(self._index_path(name).read_bytes())
+            return json.loads(storage.read_bytes(self._index_path(name), self._client))
         except FileNotFoundError:
             return {"name": name, "versions": []}
 
     def _write_index(self, name: str, index: dict[str, Any]) -> None:
-        atomic_write(self._index_path(name), json.dumps(index, indent=2).encode())
+        storage.write_bytes(
+            self._index_path(name), json.dumps(index, indent=2).encode(), self._client
+        )
 
     def _stored_versions(self, name: str) -> list[int]:
-        """Version numbers physically present under versions/."""
+        """Version numbers physically present under versions/ (the orphan
+        scan). On GCS a listing failure fails the register: numbering
+        from the index alone could merge a new bundle into a crashed
+        upload's orphan."""
+        if self._gcs:
+            client = self._client or storage.gcs_client()
+            found = set()
+            for child in client.list_prefixes(f"{self.root}/{name}/versions/"):
+                head = child.rstrip("/").rsplit("/", 1)[-1]
+                if head.isdigit():
+                    found.add(int(head))
+            return sorted(found)
         versions_dir = self.root / name / "versions"
         return sorted(
             int(p.name)
@@ -113,15 +151,24 @@ class ModelRegistry:
                 [0, *(v["version"] for v in index["versions"]),
                  *self._stored_versions(name)]
             )
-            versions_dir = self.root / name / "versions"
-            versions_dir.mkdir(parents=True, exist_ok=True)
-            staging = versions_dir / f".incoming-{uuid.uuid4().hex}"
-            try:
-                shutil.copytree(bundle_dir, staging)
-                staging.replace(versions_dir / str(version))
-            except BaseException:
-                shutil.rmtree(staging, ignore_errors=True)
-                raise
+            if self._gcs:
+                # GCS has no rename: objects upload under the final
+                # prefix, the version becomes resolvable when the index
+                # write lands, and a crashed upload is an orphan the scan
+                # above numbers past.
+                storage.upload_dir(
+                    bundle_dir, f"{self.root}/{name}/versions/{version}", self._client
+                )
+            else:
+                versions_dir = self.root / name / "versions"
+                versions_dir.mkdir(parents=True, exist_ok=True)
+                staging = versions_dir / f".incoming-{uuid.uuid4().hex}"
+                try:
+                    shutil.copytree(bundle_dir, staging)
+                    staging.replace(versions_dir / str(version))
+                except BaseException:
+                    shutil.rmtree(staging, ignore_errors=True)
+                    raise
             index["versions"].append({
                 "version": version,
                 "created_at": _now(),
@@ -133,7 +180,8 @@ class ModelRegistry:
 
     def resolve(self, name: str, version_or_stage: str) -> Path:
         """A version number, a stage name or ``latest`` -> its bundle
-        directory (a stage: the newest version holding it)."""
+        directory (a stage: the newest version holding it; on GCS, the
+        version's copy in the local cache)."""
         index = self._read_index(name)
         if not index["versions"]:
             raise KeyError(f"no versions registered for model {name!r}")
@@ -152,7 +200,31 @@ class ModelRegistry:
             version = max(v["version"] for v in staged)
         else:
             raise KeyError(f"unknown version or stage {version_or_stage!r}")
-        return self.root / name / "versions" / str(version)
+        if not self._gcs:
+            return self.root / name / "versions" / str(version)
+        # Versions are immutable, so a cached copy is authoritative; the
+        # download lands in a temporary sibling and is renamed into place.
+        local = self._cache_dir / name / str(version)
+        if not local.exists():
+            self._cache_dir.mkdir(parents=True, exist_ok=True, mode=0o700)
+            local.parent.mkdir(parents=True, exist_ok=True)
+            incoming = local.parent / f".incoming-{uuid.uuid4().hex}"
+            try:
+                storage.download_dir(
+                    f"{self.root}/{name}/versions/{version}", incoming, self._client
+                )
+                try:
+                    incoming.replace(local)
+                except OSError:
+                    # A concurrent resolver won the rename; its copy of the
+                    # immutable bundle is as good as ours.
+                    if not (local / "manifest.json").exists():
+                        raise
+                    shutil.rmtree(incoming, ignore_errors=True)
+            except BaseException:
+                shutil.rmtree(incoming, ignore_errors=True)
+                raise
+        return local
 
     def resolve_uri(self, uri: str) -> Path:
         return self.resolve(*parse_model_uri(uri))
@@ -186,7 +258,15 @@ class ModelRegistry:
         disk, absent from the index) and abandoned ``.incoming-*`` copies,
         the leftovers of a crash mid-register; with ``keep_unstaged > 0``
         also the oldest stage-``none`` versions beyond the newest N.
-        Staged versions are never touched. Returns what was removed."""
+        Staged versions are never touched. Returns what was removed. A
+        ``gs://`` root is refused, as in the JAX package: with no lock, a
+        pruning pass could delete a registration in flight."""
+        if self._gcs:
+            raise ValueError(
+                "gc supports the local registry backend; for gs:// roots "
+                "use bucket lifecycle rules (versions are immutable "
+                "prefixes)"
+            )
         with self._locked(name):
             index = self._read_index(name)
             known = {v["version"] for v in index["versions"]}

@@ -36,9 +36,14 @@
 - ``synth`` (``data.rows`` synthetic rows to ``data.train_path``) and
   ``validate`` (lint a CSV: exit 2 when anything is flagged).
 
-Every command takes ``--config <toml>`` and positional
-``section.field=value`` overrides, as the JAX package's CLI does
-(``serve.model_directory=<bundle> serve.port=5001 serve.device=cpu``).
+Every command takes ``--config <toml>``, ``MLOPS_TPU_<SECTION>_<FIELD>``
+environment overrides and positional ``section.field=value`` overrides,
+as the JAX package's CLI does (``serve.model_directory=<bundle>
+serve.port=5001 serve.device=cpu``); a key the port has not ported, set
+away from its JAX default (``MLOPS_TPU_SERVE_WORKERS=2``,
+``MLOPS_TPU_CACHE_DIR``), exits non-zero naming its ROADMAP item. A
+``gs://`` ``data.train_path`` or ``registry.root`` is read and written
+through ``utils/storage.py``, as in the JAX package.
 Every command runs on the card unless ``serve.device=cpu`` (serve,
 predict-file, score-batch) or ``train.device=cpu`` (train, tune). For
 ``serve``, ``MODEL_DIRECTORY`` and ``SERVICE_NAME`` in the environment
@@ -230,7 +235,11 @@ def main(argv: list[str] | None = None) -> int:
     if args.command not in handlers:
         build_parser().print_help()
         return 1
-    return handlers[args.command](load_config(args.overrides, args.config))
+    try:
+        config = load_config(args.overrides, args.config)
+    except ValueError as err:  # a refused key: its message, no traceback
+        raise SystemExit(str(err)) from err
+    return handlers[args.command](config)
 
 
 if __name__ == "__main__":

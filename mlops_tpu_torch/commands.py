@@ -18,10 +18,12 @@ the last record's default), documents stream through the doc model in
 one calibrated probability ``sigmoid(logit / T)`` comes back per
 document, with the grouping accounted for. ``score-batch`` is the JAX
 package's ``_score_batch`` (``mlops_tpu/commands.py:387``) on one device:
-``parallel/bulk.py score_dataset`` over ``data.train_path`` (a CSV) or
-``data.rows`` synthetic rows, or with ``score.streaming=true``
-``data/stream.py score_csv_stream`` from the CSV to
-``score.output_path``. Each runs on the card unless ``serve.device=cpu``.
+``parallel/bulk.py score_dataset`` over ``data.train_path`` (a CSV or a
+Parquet file) or ``data.rows`` synthetic rows, or with
+``score.streaming=true`` ``data/stream.py score_csv_stream`` from the
+file to ``score.output_path``. Each runs on the card unless
+``serve.device=cpu``. Every data path and ``registry.root`` may be a
+``gs://`` URI, as in the JAX package.
 ``serve``, ``predict-file`` and ``score-batch`` take
 ``serve.model_directory`` as a bundle directory or, when it is not one,
 as a version number, a stage or ``latest`` of ``registry.model_name`` in
@@ -45,7 +47,7 @@ from mlops_tpu_torch.bundle import Bundle, load_bundle
 from mlops_tpu_torch.bundle.registry import ModelRegistry
 from mlops_tpu_torch.config import Config
 from mlops_tpu_torch.data.encode import EncodedDataset
-from mlops_tpu_torch.data.ingest import load_csv_columns
+from mlops_tpu_torch.data.ingest import load_csv_columns, load_table_columns
 from mlops_tpu_torch.device import resolve_device
 from mlops_tpu_torch.train.long_context import check_doc_attention, group_documents
 
@@ -74,14 +76,7 @@ def resolve_bundle(config: Config, model_dir: str | None = None) -> str | Path:
     model_dir = model_dir or config.serve.model_directory
     if Path(model_dir).is_dir():
         return model_dir
-    return _registry(config).resolve(config.registry.model_name, model_dir)
-
-
-def _registry(config: Config) -> ModelRegistry:
-    try:
-        return ModelRegistry(config.registry.root)
-    except ValueError as err:  # a gs:// root: a message, no traceback
-        raise SystemExit(str(err)) from err
+    return ModelRegistry(config.registry.root).resolve(config.registry.model_name, model_dir)
 
 
 def tune(config: Config) -> dict:
@@ -106,7 +101,7 @@ def register(config: Config) -> str:
     bundle_dir = config.data.train_path
     if not bundle_dir:
         raise SystemExit("pass the bundle dir via data.train_path=<dir>")
-    return _registry(config).register(config.registry.model_name, bundle_dir)
+    return ModelRegistry(config.registry.root).register(config.registry.model_name, bundle_dir)
 
 
 def promote(config: Config) -> dict:
@@ -118,20 +113,23 @@ def promote(config: Config) -> dict:
         raise SystemExit(
             "pass registry.promote_version=<n> [registry.promote_stage=staging]"
         )
-    _registry(config).set_stage(config.registry.model_name, int(version), stage)
+    ModelRegistry(config.registry.root).set_stage(config.registry.model_name, int(version), stage)
     return {"model": config.registry.model_name, "version": int(version), "stage": stage}
 
 
 def versions(config: Config) -> list[dict]:
-    return _registry(config).list_versions(config.registry.model_name)
+    return ModelRegistry(config.registry.root).list_versions(config.registry.model_name)
 
 
 def gc(config: Config) -> dict:
     """Prune crash orphans (and, with ``registry.gc_keep=N``, old unstaged
     versions) of the configured model."""
-    removed = _registry(config).gc(
-        config.registry.model_name, keep_unstaged=config.registry.gc_keep
-    )
+    try:
+        removed = ModelRegistry(config.registry.root).gc(
+            config.registry.model_name, keep_unstaged=config.registry.gc_keep
+        )
+    except ValueError as err:  # a gs:// root: a message, no traceback
+        raise SystemExit(str(err)) from err
     return {"model": config.registry.model_name, **removed}
 
 
@@ -147,11 +145,10 @@ def synth(config: Config) -> str:
 
 
 def validate(config: Config) -> dict:
-    """Lint a CSV before training or scoring, streamed: values the
-    pipeline would silently degrade (out-of-vocabulary categoricals,
-    missing or unparseable numerics) and the labels' parse as training
-    sees it. ``ok`` is False when anything is flagged. Parquet is not
-    ported (ROADMAP A6)."""
+    """Lint a CSV or Parquet file before training or scoring, streamed:
+    values the pipeline would silently degrade (out-of-vocabulary
+    categoricals, missing or unparseable numerics) and the labels' parse
+    as training sees it. ``ok`` is False when anything is flagged."""
     from mlops_tpu_torch.data.stream import iter_table_chunks
     from mlops_tpu_torch.schema import SCHEMA
 
@@ -162,11 +159,7 @@ def validate(config: Config) -> dict:
     oov = dict.fromkeys((f.name for f in SCHEMA.categorical), 0)
     vocabs = {f.name: set(f.vocab) for f in SCHEMA.categorical}
     degraded_numeric = dict.fromkeys((f.name for f in SCHEMA.numeric), 0)
-    try:
-        chunks = iter_table_chunks(path, chunk_rows=65_536)
-    except ValueError as err:  # Parquet
-        raise SystemExit(str(err)) from err
-    for columns, _ in chunks:
+    for columns, _ in iter_table_chunks(path, chunk_rows=65_536):
         rows += len(columns[SCHEMA.categorical[0].name])
         for feat in SCHEMA.categorical:
             vocab = vocabs[feat.name]
@@ -270,10 +263,10 @@ def predict_documents(
 
 def score_batch(config: Config) -> dict:
     """``score-batch serve.model_directory=<bundle> [data.rows=N |
-    data.train_path=<csv>] [score.*]``: the JSON the JAX package prints on
-    one device (``devices`` 1, ``mesh`` [1]); ``score.output_path`` writes
-    the predictions and outliers as an ``.npz``. With
-    ``score.streaming=true`` the CSV streams to ``score.output_path`` (a
+    data.train_path=<csv|parquet>] [score.*]``: the JSON the JAX package
+    prints on one device (``devices`` 1, ``mesh`` [1]); ``score.output_path``
+    writes the predictions and outliers as an ``.npz``. With
+    ``score.streaming=true`` the file streams to ``score.output_path`` (a
     CSV) and the stream's stats are printed."""
     from mlops_tpu_torch.data import generate_synthetic
     from mlops_tpu_torch.parallel.bulk import DOC_REFUSAL, score_dataset
@@ -298,12 +291,9 @@ def score_batch(config: Config) -> dict:
             device=device,
         )
     if config.data.train_path:
-        if config.data.train_path.endswith(".parquet"):
-            raise SystemExit(
-                f"{config.data.train_path}: Parquet input is not ported "
-                "(ROADMAP A6); score a CSV"
-            )
-        columns, _ = load_csv_columns(config.data.train_path)
+        # Both formats encode through the Python pipeline (the JAX package
+        # takes it for Parquet; its C++ CSV encoder is pinned equal to it).
+        columns, _ = load_table_columns(config.data.train_path)
     else:
         columns, _ = generate_synthetic(config.data.rows, seed=config.data.seed)
     ds = bundle.preprocessor.encode(columns)

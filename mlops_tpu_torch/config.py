@@ -1,4 +1,5 @@
-"""Configuration: the ported subset of the JAX package's config tree.
+"""Configuration: the JAX package's config tree, with what the port
+has not ported held at its JAX default.
 
 ``ModelConfig`` and ``TrainConfig`` are copies of the JAX dataclasses,
 field for field with their defaults, so a bundle manifest's
@@ -12,22 +13,49 @@ itself is not ported) are the JAX package's, field for field. Two port-only knob
 ``serve.device`` and ``train.device``, say where the entry points run:
 the card unless the caller writes ``cpu``.
 
+Every other key of the JAX tree is here too, declared with ``unported``:
+the 13 keys of the JAX ``ServeConfig`` that its multi-worker plane reads,
+and the sections ``trace``, ``slo``, ``autotune`` (ROADMAP A4) and
+``cache`` (the AOT executable cache, A3). Such a key is accepted at its
+JAX default, where it changes nothing, and ``serve.workers`` also at 1
+(the JAX package's single-process server, as 0 is); any other value is
+refused with a ``ValueError`` naming the item, whichever layer sets it.
+
 ``load_config`` builds the tree as the JAX package's does: defaults <-
-TOML (``--config <file>``) <- positional ``section.field=value``
+TOML (``--config <file>``) <- ``MLOPS_TPU_<SECTION>_<FIELD>``
+environment overrides (``MLOPS_TPU_TRAIN_STEPS=7``; a malformed or
+unknown key warns and is skipped) <- positional ``section.field=value``
 overrides (``train.steps=200``, ``serve.port=5001``); a string tuple's
 items separate on ``;`` there (``hpo.architectures='hidden_dims=16,
-embed_dim=8;family=bert'``), any other tuple's on ``,``. The JAX
-package's ``MLOPS_TPU_<SECTION>_<FIELD>`` environment overrides are not
-ported yet.
+embed_dim=8;family=bert'``), any other tuple's on ``,``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import tomllib
 import typing
+import warnings
 from pathlib import Path
 from typing import Any
+
+
+# What each item the refusals name still has to port.
+_ITEMS = {
+    "A3": "warm start: the AOT executable cache and the `warmup` command",
+    "A4": "the serving plane's rest: the multi-worker ring plane, tracing, "
+    "the SLO engine and flight recorder, the autotuner",
+}
+
+
+def unported(default: Any, item: str, accept: tuple = ()) -> Any:
+    """A field the JAX package has and this package has not ported:
+    accepted at ``default`` (and at any value in ``accept``), refused at
+    any other value naming ROADMAP ``item``."""
+    return dataclasses.field(
+        default=default, metadata={"unported": item, "accept": (default, *accept)}
+    )
 
 
 @dataclasses.dataclass
@@ -87,8 +115,9 @@ class TrainConfig:
     pos_weight and ema_decay, as the JAX doc trainer does. After the fit
     ``run_training`` distills the bulk student (``distill_bulk``, for
     ensembles and the transformer families) and the quant student
-    (``distill_quant``), as the JAX package's does; tensorboard_dir and
-    init_params are refused when set."""
+    (``distill_quant``), as the JAX package's does. Every trainer streams
+    its metrics to TensorBoard too when ``tensorboard_dir`` is set;
+    ``init_params`` is refused when set (ROADMAP A9)."""
 
     batch_size: int = 1024
     steps: int = 2000
@@ -191,6 +220,21 @@ class ServeConfig:
     device: str = "cuda"  # "cpu" runs on the CPU (plain torch route)
     drain_deadline_s: float = 30.0  # SIGTERM: how long busy exchanges may
     # take to finish their response before connections are force-closed
+    # The JAX package's multi-worker plane (ROADMAP A4); 0 and 1 are both
+    # its single-process server.
+    workers: int = unported(0, "A4", accept=(1,))
+    ring_slots_small: int = unported(64, "A4")
+    ring_slots_large: int = unported(4, "A4")
+    shed_retry_after_s: int = unported(1, "A4")
+    zygote_join_deadline_s: float = unported(35.0, "A4")
+    engine_zygote_join_s: float = unported(50.0, "A4")
+    engine_respawn_eta_s: float = unported(5.0, "A4")
+    engine_replicas: int = unported(1, "A4")
+    replica_affinity_slack: int = unported(4, "A4")
+    tenants_path: str = unported("", "A4")
+    log_sample_rate: float = unported(1.0, "A4")
+    loop_lag_monitor: bool = unported(False, "A4")
+    loop_lag_slow_ms: float = unported(100.0, "A4")
 
     def validate(self) -> "ServeConfig":
         """Reject an inconsistent geometry with the JAX package's messages,
@@ -405,7 +449,7 @@ class LifecycleConfig:
 
 @dataclasses.dataclass
 class RegistryConfig:
-    root: str = "registry"  # a local directory (gs:// is not ported)
+    root: str = "registry"  # a local directory or a gs://bucket/prefix
     model_name: str = "credit-default-uci-custom"
     experiment_name: str = "credit-default-uci-train"
     run_root: str = "runs"  # per-run artifacts: metrics.jsonl, checkpoints
@@ -415,6 +459,72 @@ class RegistryConfig:
     promote_stage: str = "staging"  # `promote` CLI: target stage
     gc_keep: int = 0  # `gc` CLI: also prune unstaged versions beyond the
     # newest N (0 = crash orphans only)
+
+
+@dataclasses.dataclass
+class TraceConfig:
+    """The JAX package's ``TraceConfig`` (``mlops_tpu/config.py:719``):
+    span tracing and ``trace-report``, not ported (ROADMAP A4)."""
+
+    enabled: bool = unported(False, "A4")
+    dir: str = unported("traces", "A4")
+    ring_capacity: int = unported(4096, "A4")
+    flush_interval_s: float = unported(0.5, "A4")
+    tenant: str = unported("", "A4")
+    replica: int = unported(-1, "A4")
+    ledger: bool = unported(False, "A4")
+
+
+@dataclasses.dataclass
+class SLOConfig:
+    """The JAX package's ``SLOConfig`` (``mlops_tpu/config.py:774``): the
+    SLO engine and the flight recorder, not ported (ROADMAP A4)."""
+
+    enabled: bool = unported(False, "A4")
+    availability_target: float = unported(0.999, "A4")
+    latency_target: float = unported(0.99, "A4")
+    latency_threshold_ms: float = unported(50.0, "A4")
+    tick_s: float = unported(1.0, "A4")
+    fast_burn_threshold: float = unported(14.4, "A4")
+    slow_burn_threshold: float = unported(6.0, "A4")
+    fast_short_s: float = unported(300.0, "A4")
+    fast_long_s: float = unported(3600.0, "A4")
+    slow_short_s: float = unported(21600.0, "A4")
+    slow_long_s: float = unported(259200.0, "A4")
+    flightrec_enabled: bool = unported(True, "A4")
+    flightrec_dir: str = unported("runs", "A4")
+    flightrec_capacity: int = unported(2048, "A4")
+    flightrec_cooldown_s: float = unported(30.0, "A4")
+    flightrec_keep: int = unported(8, "A4")
+    flightrec_spike_errors: int = unported(8, "A4")
+    flightrec_spike_window_s: float = unported(5.0, "A4")
+    ledger_dir: str = unported("", "A4")
+    ledger_flush_s: float = unported(30.0, "A4")
+
+
+@dataclasses.dataclass
+class AutotuneConfig:
+    """The JAX package's ``AutotuneConfig`` (``mlops_tpu/config.py:942``):
+    the traffic-shape autotuner, not ported (ROADMAP A4)."""
+
+    enabled: bool = unported(False, "A4")
+    interval_s: float = unported(60.0, "A4")
+    min_dispatches: int = unported(512, "A4")
+    max_entries: int = unported(16, "A4")
+    min_gain_pct: float = unported(5.0, "A4")
+    apply: bool = unported(True, "A4")
+    plan_dir: str = unported("autotune", "A4")
+    cooldown_s: float = unported(300.0, "A4")
+
+
+@dataclasses.dataclass
+class CacheConfig:
+    """The JAX package's ``CacheConfig`` (``mlops_tpu/config.py:1009``):
+    the AOT executable cache, which the port does not have (ROADMAP A3;
+    its kernels build at first use, ``ops/cuda_build.py``)."""
+
+    dir: str = unported("", "A3")
+    warmup_workers: int = unported(0, "A3")
 
 
 @dataclasses.dataclass
@@ -428,6 +538,10 @@ class Config:
     registry: RegistryConfig = dataclasses.field(default_factory=RegistryConfig)
     score: ScoreConfig = dataclasses.field(default_factory=ScoreConfig)
     lifecycle: LifecycleConfig = dataclasses.field(default_factory=LifecycleConfig)
+    trace: TraceConfig = dataclasses.field(default_factory=TraceConfig)
+    slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
+    autotune: AutotuneConfig = dataclasses.field(default_factory=AutotuneConfig)
+    cache: CacheConfig = dataclasses.field(default_factory=CacheConfig)
 
 
 def _coerce(owner: type, field: str, current: Any, raw: str) -> Any:
@@ -449,13 +563,22 @@ def _coerce(owner: type, field: str, current: Any, raw: str) -> Any:
     return raw
 
 
+def _refuse_unported(owner: type, section: str, field: str, value: Any) -> None:
+    meta = next(f.metadata for f in dataclasses.fields(owner) if f.name == field)
+    if "unported" in meta and value not in meta["accept"]:
+        item = meta["unported"]
+        accepted = " or ".join(repr(v) for v in meta["accept"])
+        raise ValueError(
+            f"{section}.{field}={value!r} refused: this package has not ported "
+            f"it (ROADMAP {item}: {_ITEMS[item]}); it accepts {accepted}, the "
+            "JAX package's value that changes nothing"
+        )
+
+
 def _apply(config: Config, section: str, field: str, value: Any) -> None:
     sub = getattr(config, section, None)
     if sub is None or not hasattr(sub, field):
-        raise KeyError(
-            f"unknown config key {section}.{field} (this package has not "
-            "ported it, or it does not exist)"
-        )
+        raise KeyError(f"unknown config key {section}.{field}")
     current = getattr(sub, field)
     if isinstance(value, str) and not isinstance(current, str):
         value = _coerce(type(sub), field, current, value)
@@ -463,14 +586,22 @@ def _apply(config: Config, section: str, field: str, value: Any) -> None:
         value = tuple(value)
     elif isinstance(current, float) and isinstance(value, int):
         value = float(value)
+    # Not a KeyError: the environment layer turns those into warnings,
+    # and a refusal must stop the run whichever layer set the key.
+    _refuse_unported(type(sub), section, field, value)
     setattr(sub, field, value)
 
 
 def load_config(
-    overrides: list[str] | None = None, toml_path: str | Path | None = None
+    overrides: list[str] | None = None,
+    toml_path: str | Path | None = None,
+    env: dict[str, str] | None = None,
 ) -> Config:
-    """Defaults <- TOML (``toml_path``) <- ``section.field=value``
-    overrides. Unknown keys raise."""
+    """Defaults <- TOML (``toml_path``) <- ``MLOPS_TPU_<SECTION>_<FIELD>``
+    in ``env`` (``os.environ`` when None) <- ``section.field=value``
+    overrides. An unknown key raises, except in the environment, where
+    it warns as in the JAX package; an unported key at a value other
+    than its default raises ``ValueError``."""
     config = Config()
     if toml_path:
         with open(toml_path, "rb") as f:
@@ -478,6 +609,19 @@ def load_config(
         for section, fields in doc.items():
             for field, value in fields.items():
                 _apply(config, section, field, value)
+    env = dict(os.environ if env is None else env)
+    for key, raw in env.items():
+        if not key.startswith("MLOPS_TPU_"):
+            continue
+        parts = key[len("MLOPS_TPU_"):].lower().split("_", 1)
+        if len(parts) != 2:
+            warnings.warn(f"ignoring malformed env override {key}", stacklevel=2)
+            continue
+        section, field = parts
+        try:
+            _apply(config, section, field, raw)
+        except KeyError:
+            warnings.warn(f"ignoring unknown env override {key}", stacklevel=2)
     for item in overrides or []:
         key, sep, raw = item.partition("=")
         section, _, field = key.strip("-").partition(".")

@@ -1,8 +1,12 @@
-"""Encoding, CSV ingest and synthetic data (numpy copies of the JAX
-package's)."""
+"""Encoding, CSV and Parquet ingest and synthetic data (numpy copies of
+the JAX package's)."""
 
 from mlops_tpu_torch.data.encode import EncodedDataset, Preprocessor
-from mlops_tpu_torch.data.ingest import load_csv_columns, write_csv_columns
+from mlops_tpu_torch.data.ingest import (
+    load_csv_columns,
+    load_table_columns,
+    write_csv_columns,
+)
 from mlops_tpu_torch.data.synth import generate_synthetic
 
 __all__ = [
@@ -10,5 +14,6 @@ __all__ = [
     "Preprocessor",
     "generate_synthetic",
     "load_csv_columns",
+    "load_table_columns",
     "write_csv_columns",
 ]

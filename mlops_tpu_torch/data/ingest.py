@@ -1,18 +1,44 @@
-"""CSV ingest: a copy of the JAX package's ``data/ingest.py`` readers and
-writer for local files (no ``gs://`` staging, no Parquet). Columnar lists
-keyed by the canonical schema, with header validation; malformed-row
-semantics as the JAX package pins them: blank lines skipped, short rows
-read missing cells as empty (-> OOV / median), unparseable numerics as
-NaN (-> median)."""
+"""Table ingest: a copy of the JAX package's ``data/ingest.py`` readers
+and writer. Columnar lists keyed by the canonical schema, with header
+validation; malformed-row semantics as the JAX package pins them: blank
+lines skipped, short rows read missing cells as empty (-> OOV / median),
+unparseable numerics as NaN (-> median). ``gs://`` paths stage through
+``fetch_local``; ``load_table_columns`` routes ``.parquet`` / ``.pq``
+files to ``data/parquet.py``."""
 
 from __future__ import annotations
 
 import csv
+import hashlib
 from pathlib import Path
 
 import numpy as np
 
 from mlops_tpu_torch.schema.features import SCHEMA, FeatureSchema
+from mlops_tpu_torch.utils import storage
+
+
+def fetch_local(path: str | Path, workdir: str | Path | None = None) -> Path:
+    """Materialize ``path`` as a local file. Local paths pass through;
+    ``gs://`` objects download into ``workdir`` (default: a per-user
+    cache under ``~/.cache/mlops_tpu``, shared with the JAX package). The
+    cache key holds the path and the object's generation (or md5/size
+    when the server omits it), so a dataset staged again at the same URI
+    is fetched again instead of served stale."""
+    if not storage.is_gcs(path):
+        return Path(path)
+    workdir = Path(workdir or Path.home() / ".cache" / "mlops_tpu" / "data")
+    workdir.mkdir(parents=True, exist_ok=True)
+    client = storage.gcs_client()
+    meta = client.stat(str(path))
+    stamp = str(
+        meta.get("generation") or meta.get("md5Hash") or meta.get("size", "")
+    )
+    tag = hashlib.sha256(f"{path}\x00{stamp}".encode()).hexdigest()[:16]
+    local = workdir / f"{tag}-{str(path).rsplit('/', 1)[-1]}"
+    if not local.exists():
+        client.read_to_file(str(path), local)
+    return local
 
 
 def _cell(row: list, i: int) -> str:
@@ -65,7 +91,7 @@ def load_csv_columns(
     """Read a schema-conforming CSV into columnar lists (+labels if
     present; a target column with any unparseable value reads as
     unlabeled unless ``require_target``)."""
-    with Path(path).open(newline="") as f:
+    with fetch_local(path).open(newline="") as f:
         reader = csv.reader(f)
         header = next(reader)
         rows = [row for row in reader if row and row != [""]]
@@ -88,6 +114,21 @@ def load_csv_columns(
             raw = np.asarray([_to_float(_cell(row, i)) for row in rows])
             labels = None if (~np.isfinite(raw)).any() else raw.astype(np.int8)
     return columns, labels
+
+
+def load_table_columns(
+    path: str | Path,
+    schema: FeatureSchema = SCHEMA,
+    require_target: bool = False,
+) -> tuple[dict[str, list], np.ndarray | None]:
+    """The format-dispatching reader: ``.parquet`` / ``.pq`` routes to
+    ``data/parquet.py``, anything else to the CSV reader, one contract
+    either way."""
+    from mlops_tpu_torch.data import parquet
+
+    if parquet.is_parquet(path):
+        return parquet.load_parquet_columns(path, schema, require_target)
+    return load_csv_columns(path, schema, require_target)
 
 
 def write_csv_columns(

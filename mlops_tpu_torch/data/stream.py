@@ -1,17 +1,18 @@
-"""Out-of-core CSV streaming: chunked ingest and stream scoring.
+"""Out-of-core streaming: chunked ingest and stream scoring.
 
-Port of the JAX package's ``data/stream.py`` scoring half: a CSV of any
-size is read as fixed-size row chunks and scored chunk -> encode ->
-device -> append-to-output without ever holding the dataset. Chunks
-share the batch reader's parsing (``data/ingest.py`` ``rows_to_columns``
-/ ``parse_labels``): blank lines skipped, short rows read missing cells
-as empty (-> OOV / median); labels are parsed, strictly, only under
-``require_target=True``.
+Port of the JAX package's ``data/stream.py`` scoring half: a CSV or
+Parquet file of any size, local or ``gs://`` (staged by
+``ingest.fetch_local``), is read as fixed-size row chunks and scored
+chunk -> encode -> device -> append-to-output without ever holding the
+dataset. CSV chunks share the batch reader's parsing (``data/ingest.py``
+``rows_to_columns`` / ``parse_labels``): blank lines skipped, short rows
+read missing cells as empty (-> OOV / median); labels are parsed,
+strictly, only under ``require_target=True``. Parquet chunks come from
+``parquet.iter_parquet_chunks`` with the same contract.
 
-Not ported: Parquet input (ROADMAP A6), ``gs://`` staging, the streaming
-preprocessor fit (``fit_streaming``, ROADMAP A10) and the C++ byte-level
-encoder (``native/``): chunks encode through the Python route, which the
-JAX package pins bit-identical to it.
+Not ported: the streaming preprocessor fit (``fit_streaming``, ROADMAP
+A10) and the C++ byte-level encoder (``native/``): chunks encode through
+the Python route, which the JAX package pins bit-identical to it.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from mlops_tpu_torch.data.ingest import parse_labels, rows_to_columns
+from mlops_tpu_torch.data.ingest import fetch_local, parse_labels, rows_to_columns
 from mlops_tpu_torch.schema.features import SCHEMA, FeatureSchema
 
 
@@ -36,8 +37,8 @@ def iter_csv_chunks(
 ) -> Iterator[tuple[dict[str, list], np.ndarray | None]]:
     """Yield ``(columns, labels)`` chunks of at most ``chunk_rows`` rows;
     ``labels`` is None unless ``require_target``. Memory is bounded by one
-    chunk."""
-    with Path(path).open(newline="") as f:
+    chunk. Accepts local paths and ``gs://`` URIs."""
+    with fetch_local(path).open(newline="") as f:
         reader = csv.reader(f)
         header = next(reader)
         col_index = {name: i for i, name in enumerate(header)}
@@ -76,12 +77,14 @@ def iter_table_chunks(
     schema: FeatureSchema = SCHEMA,
     require_target: bool = False,
 ) -> Iterator[tuple[dict[str, list], np.ndarray | None]]:
-    """The JAX package's format-dispatching chunk iterator: a CSV streams
-    through ``iter_csv_chunks``; Parquet is refused (ROADMAP A6)."""
-    if str(path).endswith(".parquet"):
-        raise ValueError(
-            f"{path}: Parquet input is not ported (ROADMAP A6); stream a CSV"
-        )
+    """The JAX package's format-dispatching chunk iterator: Parquet
+    streams through ``parquet.iter_parquet_chunks`` (chunks of exactly
+    ``chunk_rows`` rows but the tail), anything else through
+    ``iter_csv_chunks``. Same yielded contract."""
+    from mlops_tpu_torch.data import parquet
+
+    if parquet.is_parquet(path):
+        return parquet.iter_parquet_chunks(path, chunk_rows, schema, require_target)
     return iter_csv_chunks(path, chunk_rows, schema, require_target)
 
 
@@ -94,7 +97,7 @@ def score_csv_stream(
     pipeline_depth: int = 2,
     device: str | torch.device | None = None,
 ) -> dict[str, float]:
-    """Stream-score a CSV through the bundle's bulk chunk program on
+    """Stream-score a CSV or Parquet file through the bundle's bulk chunk program on
     ``device`` (the card unless "cpu").
 
     Stages (``data/pipeline_exec.py``): read and parse -> encode and pad

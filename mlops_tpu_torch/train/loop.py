@@ -115,32 +115,37 @@ def packaged_or_raw(
 def metric_writers(
     metrics_path: str | Path | None, tensorboard_dir: str = ""
 ) -> Iterator[Callable[[dict], None]]:
-    """The metric sink: yields ``emit(record)``, which appends one JSON
-    line (``{"ts": ..., **record}``, flushed) to ``metrics_path`` as the
-    JAX package's ``JsonlWriter`` does. TensorBoard
-    (``train.tensorboard_dir``) is not ported and is refused, not
-    dropped."""
-    if tensorboard_dir:
-        raise ValueError(
-            "train.tensorboard_dir is not ported (ROADMAP.md, queue C): this "
-            "package writes metrics.jsonl only; unset train.tensorboard_dir"
-        )
+    """The metric sink every trainer shares, as in the JAX package: yields
+    ``emit(record)``, which appends one JSON line (``{"ts": ...,
+    **record}``, flushed) to ``metrics_path`` as the JAX package's
+    ``JsonlWriter`` does, and with ``tensorboard_dir`` (``train.
+    tensorboard_dir``) also writes the record's numbers as TensorBoard
+    scalars (``utils/tboard.py``). Both sinks close on every exit."""
     f = None
     if metrics_path:
         path = Path(metrics_path)
         path.parent.mkdir(parents=True, exist_ok=True)
         f = path.open("a")
+    tb = None
+    if tensorboard_dir:
+        from mlops_tpu_torch.utils.tboard import TensorBoardWriter
+
+        tb = TensorBoardWriter(tensorboard_dir)
 
     def emit(record: dict) -> None:
         if f is not None:
             f.write(json.dumps({"ts": time.time(), **record}, default=float) + "\n")
             f.flush()
+        if tb is not None:
+            tb.write(record)
 
     try:
         yield emit
     finally:
         if f is not None:
             f.close()
+        if tb is not None:
+            tb.close()
 
 
 def batch_indices(n_rows: int, batch: int, seed: int, step: int) -> np.ndarray:

@@ -19,8 +19,10 @@ checkpoints, packaging):
   student distilled when its family takes one, packaged and registered.
 
 The same config and data give the same batches in the same order on the
-CPU and the card; each run writes ``metrics.jsonl``, checkpoints, a
-bundle and a registry version. What the JAX ``train`` command accepts and
+CPU and the card; each run writes ``metrics.jsonl`` (and TensorBoard
+events with ``train.tensorboard_dir``), checkpoints, a bundle and a
+registry version. ``data.train_path`` may be a CSV or a Parquet file and
+it and ``registry.root`` may be ``gs://`` URIs, as in the JAX package. What the JAX ``train`` command accepts and
 the port does not train yet (pipeline- and tensor-parallel training, the
 sequence-parallel ring, pretrained trunks, the MoE and tree families) is
 refused before any work, naming its ROADMAP item.
@@ -41,7 +43,7 @@ import torch
 from mlops_tpu_torch.bundle import msgpack, save_doc_bundle, save_exact_bundle
 from mlops_tpu_torch.bundle.registry import ModelRegistry
 from mlops_tpu_torch.config import Config, ModelConfig
-from mlops_tpu_torch.data import Preprocessor, generate_synthetic, load_csv_columns
+from mlops_tpu_torch.data import Preprocessor, generate_synthetic, load_table_columns
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.device import resolve_device
 from mlops_tpu_torch.models import build_model
@@ -103,15 +105,11 @@ def new_run_dir(config: Config, run_name: str | None = None) -> Path:
 
 
 def load_training_data(config: Config) -> tuple[dict[str, list], np.ndarray]:
-    """A labelled CSV if ``data.train_path`` is set (Parquet is not
-    ported), else ``data.rows`` synthetic rows from ``data.seed``."""
-    path = config.data.train_path
-    if path:
-        if path.endswith(".parquet"):
-            raise ValueError(
-                f"{path}: Parquet input is not ported; train from a CSV"
-            )
-        return load_csv_columns(path, require_target=True)
+    """A labelled CSV or Parquet file (local or ``gs://``) if
+    ``data.train_path`` is set, else ``data.rows`` synthetic rows from
+    ``data.seed``."""
+    if config.data.train_path:
+        return load_table_columns(config.data.train_path, require_target=True)
     return generate_synthetic(config.data.rows, seed=config.data.seed)
 
 
@@ -272,7 +270,7 @@ def _maybe_distill_quant(
 def _refuse_unported_dense(config: Config) -> None:
     """What the JAX ``run_training`` accepts and this package does not
     train yet, refused before any work, each with its ROADMAP item."""
-    model, tcfg = config.model, config.train
+    model = config.model
     if model.uses_layout_trainer:
         raise ValueError(
             "run_training trains the single-record dense model; multi-device "
@@ -286,20 +284,10 @@ def _refuse_unported_dense(config: Config) -> None:
         )
     if model.family == "moe":
         raise ValueError("model.family='moe' is not ported (ROADMAP.md A9)")
-    if tcfg.init_params:
+    if config.train.init_params:
         raise ValueError(
             "train.init_params (a pretrained masked-LM trunk) is not ported "
             "(ROADMAP.md A9)"
-        )
-    if tcfg.tensorboard_dir:
-        raise ValueError(
-            "train.tensorboard_dir is not ported (ROADMAP.md, queue C): this "
-            "package writes metrics.jsonl only; unset train.tensorboard_dir"
-        )
-    if config.data.train_path.endswith(".parquet"):
-        raise ValueError(
-            f"{config.data.train_path}: Parquet input is not ported "
-            "(ROADMAP.md, queue C); train from a CSV"
         )
 
 
@@ -316,8 +304,6 @@ def run_training(
     _refuse_unported_dense(config)
     device = resolve_device(config.train.device)
     model = build_model(config.model)  # refuses what the zoo does not port
-    if register:
-        ModelRegistry(config.registry.root)  # refuses a gs:// root up front
     run_name = run_name or time.strftime("%Y%m%d-%H%M%S")
     run_dir = new_run_dir(config, run_name)
     columns, labels = load_training_data(config)
@@ -378,8 +364,6 @@ def run_layout_training(
     _refuse_unported(config)
     device = resolve_device(config.train.device)
     check_doc_attention(config.model, device)
-    if register:
-        ModelRegistry(config.registry.root)  # refuses a gs:// root up front
     run_name = run_name or time.strftime("%Y%m%d-%H%M%S")
     run_dir = new_run_dir(config, run_name)
     columns, labels = load_training_data(config)
@@ -522,8 +506,6 @@ def run_tuning(
     if model.family == "moe":
         raise ValueError("model.family='moe' is not ported (ROADMAP.md A9)")
     device = resolve_device(config.train.device)
-    if register:
-        ModelRegistry(config.registry.root)  # refuses a gs:// root up front
     run_name = run_name or time.strftime("%Y%m%d-%H%M%S") + "-tune"
     run_dir = new_run_dir(config, run_name)
     columns, labels = load_training_data(config)

@@ -488,9 +488,6 @@ def test_run_training_trains_the_transformer_families(tmp_path, family):
           "train.distill_bulk=false"], "A9"),
         (["model.family=gbm"], "A8"),
         (["model.family=rf"], "A8"),
-        (["train.tensorboard_dir=tb"], "tensorboard_dir"),
-        (["data.train_path=rows.parquet"], "Parquet"),
-        (["registry.root=gs://bucket/models"], "gs://"),
         (["model.doc_records=3", "model.family=bert"], "run_layout_training"),
     ],
 )
@@ -501,6 +498,49 @@ def test_run_training_refuses_what_is_not_ported_before_any_work(tmp_path, overr
     with pytest.raises(ValueError, match=match):
         run_training(config)
     assert not (tmp_path / "runs").exists()
+
+
+TAKEN = ["train.device=cpu", "data.rows=600", "train.steps=4", "train.eval_every=2",
+         "train.batch_size=32", "model.hidden_dims=16", "model.embed_dim=4"]
+
+
+@pytest.mark.parametrize("case", ["tensorboard", "parquet", "gs_registry"])
+def test_run_training_takes_tensorboard_parquet_and_a_gs_registry(tmp_path, monkeypatch, case):
+    """What the port refused until it had them: TensorBoard events beside
+    metrics.jsonl, a Parquet file trained on as its CSV twin is (params
+    equal bit for bit), and a ``gs://`` registry the JAX package reads."""
+    from mlops_tpu.bundle.registry import ModelRegistry as JaxRegistry
+    from mlops_tpu_torch.data import generate_synthetic, write_csv_columns
+    from mlops_tpu_torch.data.parquet import write_parquet_columns
+    from torch_gcs import install_fake_bucket
+
+    def train(*extra, name="run"):
+        config = load_config([*TAKEN, f"registry.root={tmp_path / 'registry'}",
+                              f"registry.run_root={tmp_path / 'runs'}", *extra], JOB)
+        return run_training(config, run_name=name)
+
+    if case == "tensorboard":
+        result = train(f"train.tensorboard_dir={tmp_path / 'tb'}")
+        assert list((tmp_path / "tb").glob("events.out.tfevents.*"))
+        rows = (result.run_dir / "metrics.jsonl").read_text().splitlines()
+        assert [json.loads(r)["step"] for r in rows] == [2, 4]
+    elif case == "parquet":
+        pytest.importorskip("pyarrow")
+        columns, labels = generate_synthetic(600, seed=4)
+        write_csv_columns(tmp_path / "rows.csv", columns, labels)
+        write_parquet_columns(tmp_path / "rows.parquet", columns, labels)
+        bundles = [train(f"data.train_path={tmp_path / f'rows.{kind}'}", name=kind).bundle_dir
+                   for kind in ("csv", "parquet")]
+        for name in ("params.msgpack", "preprocess.npz", "monitor.npz"):
+            assert (bundles[0] / name).read_bytes() == (bundles[1] / name).read_bytes(), name
+    else:
+        install_fake_bucket(monkeypatch, tmp_path / "home")
+        result = train("registry.root=gs://bucket/models")
+        assert result.model_uri == "models:/credit-default-uci-custom/1"
+        resolved = JaxRegistry("gs://bucket/models").resolve("credit-default-uci-custom", "1")
+        assert (resolved / "params.msgpack").read_bytes() == \
+            (result.bundle_dir / "params.msgpack").read_bytes()
+        assert jax_load_bundle(resolved).model_config.family == "mlp"
 
 
 def test_train_needs_the_card_unless_asked_for_the_cpu(tmp_path):

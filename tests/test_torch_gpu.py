@@ -1044,3 +1044,23 @@ def test_the_sha_survivor_gather_stays_on_the_card():
     alone.keep(np.asarray([1]))
     alone.run(12)
     torch.testing.assert_close(alone.eval_params()[0], stack.eval_params()[1], rtol=0, atol=1e-5)
+
+
+# ------------------------------------------------- the deployed Job on a bucket
+@pytest.mark.gpu
+def test_the_deployed_job_on_a_bucket_tunes_and_serves_on_the_card():
+    """chip_smoke.py's phase 28 at a small size: the manifest's ``tune``
+    argv against a fake ``gs://`` bucket on the card, ``promote``, ``serve``
+    of the production stage (exact-tier tolerance against the CPU route),
+    the environment refusals, TensorBoard and Parquet."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the entry points run on it")
+    import chip_smoke
+
+    chip_smoke.WORK.mkdir(parents=True, exist_ok=True)
+    out = chip_smoke.phase_deployed_job(extra=(
+        "data.rows=3000", "model.hidden_dims=32,32", "model.embed_dim=4", "hpo.trials=3",
+        "hpo.steps=30", "train.batch_size=128"))
+    assert out["requests_answered"] == 4
+    assert out["max_pred_gap_to_cpu"] <= chip_smoke.EXACT_PRED_ATOL + 1e-6
+    assert set(out["refusals"]) == {"MLOPS_TPU_SERVE_WORKERS", "MLOPS_TPU_CACHE_DIR"}

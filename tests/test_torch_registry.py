@@ -149,11 +149,37 @@ def test_gc_prunes_as_the_jax_package_prunes(bundles, tmp_path):
     assert ModelRegistry(tmp_path / "port").register(NAME, bundles[0]).endswith("/5")
 
 
-def test_a_gs_root_is_refused_naming_its_roadmap_item(tmp_path, capsys):
-    with pytest.raises(ValueError, match="gs:// registries are not ported .*A6"):
-        ModelRegistry("gs://bucket/models")
-    with pytest.raises(SystemExit, match="A6"):
-        main(["gc", "registry.root=gs://bucket/models"])
+def test_a_gs_root_serves_its_production_stage_and_refuses_gc_as_jax(
+        bundles, tmp_path, capsys, monkeypatch):
+    """The registry commands on a bucket (the deployed Job's root): the
+    JAX package registers and promotes, the port's ``predict-file``
+    resolves production from the bucket and answers as on the bundle
+    directory; ``gc`` exits in both with the JAX message."""
+    from torch_gcs import install_fake_bucket
+
+    install_fake_bucket(monkeypatch, tmp_path / "home")
+    root = "registry.root=gs://bucket/models"
+    for entry, argv in ((jax_main, ["register", root, f"data.train_path={bundles[0]}"]),
+                        (main, ["register", root, f"data.train_path={bundles[1]}"]),
+                        (jax_main, ["promote", root, "registry.promote_version=1",
+                                    "registry.promote_stage=production"])):
+        capsys.readouterr()
+        assert entry(argv) == 0
+    csv = tmp_path / "rows.csv"
+    from mlops_tpu_torch.data import write_csv_columns
+
+    write_csv_columns(csv, *generate_synthetic(50, seed=9))
+    answers = {}
+    for model_dir, extra in (("production", [root]), (str(bundles[0]), [])):
+        capsys.readouterr()
+        assert main(["predict-file", f"data.train_path={csv}", "serve.device=cpu",
+                     f"serve.model_directory={model_dir}", *extra]) == 0
+        answers[model_dir] = json.loads(capsys.readouterr().out)
+    assert answers["production"] == answers[str(bundles[0])]
+    for entry in (jax_main, main):
+        with pytest.raises(SystemExit, match="use bucket lifecycle rules") as err:
+            entry(["gc", root])
+        assert "gc supports the local registry backend" in str(err.value)
 
 
 # ----------------------------------------------------------------- CLI
@@ -299,6 +325,26 @@ def test_validate_counts_and_exits_as_the_jax_package(tmp_path, capsys, case):
         case, report["labels"])
 
 
-def test_validate_refuses_parquet_naming_its_roadmap_item(tmp_path):
-    with pytest.raises(SystemExit, match="Parquet input is not ported .*A6"):
-        main(["validate", f"data.train_path={tmp_path / 'x.parquet'}"])
+def test_validate_reads_a_gs_parquet_file_as_the_jax_package(tmp_path, capsys, monkeypatch):
+    pytest.importorskip("pyarrow")
+    from mlops_tpu_torch.data import load_csv_columns
+    from mlops_tpu_torch.data.parquet import write_parquet_columns
+    from mlops_tpu_torch.utils import storage
+    from torch_gcs import install_fake_bucket
+
+    install_fake_bucket(monkeypatch, tmp_path / "home")
+    _dirty_csv(tmp_path / "dirty.csv", bad_label=False)
+    write_parquet_columns(tmp_path / "dirty.parquet",
+                          *load_csv_columns(tmp_path / "dirty.csv", require_target=True))
+    storage.gcs_client().write_bytes("gs://bucket/dirty.parquet",
+                                     (tmp_path / "dirty.parquet").read_bytes())
+    got = {}
+    for who, entry in (("jax", jax_main), ("port", main)):
+        capsys.readouterr()
+        code = entry(["validate", "data.train_path=gs://bucket/dirty.parquet"])
+        got[who] = (code, json.loads(capsys.readouterr().out.strip()))
+    assert got["port"] == got["jax"]
+    code, report = got["port"]
+    assert code == 2 and report["rows"] == 400 and report["labels"] == "ok"
+    assert report["oov_categorical"] == {"sex": 1, "education": 1}
+    assert report["numeric_imputed"] == {"credit_limit": 1, "age": 1}

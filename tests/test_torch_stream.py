@@ -116,10 +116,25 @@ def test_a_failed_stage_leaves_no_output(bundles, csv_path, tmp_path, monkeypatc
     assert not (tmp_path / "out.csv.tmp").exists()
 
 
-def test_parquet_is_refused(bundles, tmp_path):
-    _, tb = bundles
-    with pytest.raises(ValueError, match="ROADMAP A6"):
-        stream.score_csv_stream(tb, tmp_path / "x.parquet", device="cpu")
+def test_a_parquet_file_streams_as_the_jax_package_streams_it(bundles, csv_path, tmp_path):
+    pytest.importorskip("pyarrow")
+    from mlops_tpu_torch.data.parquet import write_parquet_columns
+
+    jb, tb = bundles
+    pq_path = tmp_path / "rows.parquet"
+    write_parquet_columns(pq_path, *load_csv_columns(csv_path))
+    jstream.score_csv_stream(jb, pq_path, tmp_path / "jax.csv", chunk_rows=CHUNK)
+    got = stream.score_csv_stream(tb, pq_path, tmp_path / "port.csv", chunk_rows=CHUNK,
+                                  device="cpu")
+    stream.score_csv_stream(tb, csv_path, tmp_path / "port_csv.csv", chunk_rows=CHUNK,
+                            device="cpu")
+    assert got["rows"] == ROWS
+    assert (tmp_path / "port.csv").read_bytes() == (tmp_path / "port_csv.csv").read_bytes()
+    mine, theirs = _read(tmp_path / "port.csv"), _read(tmp_path / "jax.csv")
+    tol = PRED_TOL[tb.model_config.precision] + 1e-6  # plus the 6-place rounding
+    np.testing.assert_allclose(mine[:, 0], theirs[:, 0], rtol=0, atol=tol)
+    ds = tb.preprocessor.encode(load_csv_columns(csv_path)[0])
+    assert_flags_match(mine[:, 1], theirs[:, 1], ds.numeric, tb.monitor.to_arrays())
 
 
 def test_the_streaming_cli_prints_the_jax_keys(bundle_dir, csv_path, tmp_path, capsys):

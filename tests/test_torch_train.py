@@ -388,8 +388,6 @@ def test_a_rerun_with_the_same_run_name_resumes(tmp_path, capsys):
         (["model.pipeline_stages=2"], "pipeline-parallel"),
         (["model.tensor_parallel=2"], "tensor-parallel"),
         (["model.doc_records=1", "model.family=mlp"], "run_training"),
-        (["registry.root=gs://bucket/models"], "gs://"),
-        (["train.tensorboard_dir=tb"], "tensorboard_dir"),
         (["train.init_params=pretrained.msgpack"], "init_params"),
     ],
 )
@@ -401,6 +399,28 @@ def test_train_refuses_what_is_not_ported(tmp_path, overrides, match):
         run_layout_training(config)
     with pytest.raises(ValueError, match="mesh"):
         make_doc_train_step(ModelConfig(**KW), TrainConfig(device="cpu"), mesh=object())
+
+
+@pytest.mark.parametrize("case", ["gs_registry", "tensorboard"])
+def test_the_doc_trainer_takes_a_gs_registry_and_tensorboard(tmp_path, capsys, monkeypatch, case):
+    """What the doc trainer refused until the port had them: a ``gs://``
+    registry the JAX package resolves, and TensorBoard events beside
+    metrics.jsonl."""
+    from torch_gcs import install_fake_bucket
+
+    if case == "gs_registry":
+        install_fake_bucket(monkeypatch, tmp_path / "home")
+        out = _train(tmp_path, "gs", 2, capsys, extra=("registry.root=gs://bucket/models",))
+        assert out["model_uri"] == "models:/credit-default-uci-custom/1"
+        resolved = JaxRegistry("gs://bucket/models").resolve("credit-default-uci-custom", "1")
+        assert (resolved / "manifest.json").read_bytes() == \
+            (Path(out["bundle"]) / "manifest.json").read_bytes()
+        assert jax_load_bundle(resolved).flavor == "doc"
+    else:
+        out = _train(tmp_path, "tb", 2, capsys, extra=(f"train.tensorboard_dir={tmp_path / 'tb'}",))
+        assert list((tmp_path / "tb").glob("events.out.tfevents.*"))
+        rows = (Path(out["run_dir"]) / "metrics.jsonl").read_text().splitlines()
+        assert [json.loads(r)["step"] for r in rows] == [2]
 
 
 def test_train_needs_the_card_unless_asked_for_the_cpu(tmp_path):

@@ -258,7 +258,6 @@ def test_an_ensemble_winner_ships_its_bulk_student_and_never_a_quant_one(tmp_pat
     (["hpo.architectures=family=moe"], "'moe' is not ported .*A9"),
     (["hpo.architectures=family=gbm"], "not vmappable"),
     (["hpo.strategy=tpe"], "hpo.strategy must be 'random' or 'sha'"),
-    (["registry.root=gs://bucket/models"], "gs://"),
 ])
 def test_tune_refuses_what_it_cannot_sweep(tmp_path, overrides, match):
     config = load_config([
@@ -268,6 +267,35 @@ def test_tune_refuses_what_it_cannot_sweep(tmp_path, overrides, match):
     ])
     with pytest.raises(ValueError, match=match):
         run_tuning(config)
+
+
+def test_both_packages_tune_into_one_gs_registry(tmp_path, monkeypatch, capsys):
+    """The deployed Job's registry on a bucket: the JAX ``tune`` registers
+    version 1, the port's ``tune`` version 2 beside it; each package
+    resolves the other's version to the bytes its run wrote."""
+    from mlops_tpu.bundle.registry import ModelRegistry as JaxRegistry
+    from mlops_tpu.cli import main as jax_main
+    from mlops_tpu_torch.bundle.registry import ModelRegistry
+    from torch_gcs import install_fake_bucket
+
+    install_fake_bucket(monkeypatch, tmp_path / "home")
+    small = ["data.rows=800", "model.hidden_dims=8", "model.embed_dim=2",
+             "model.precision=f32", "train.batch_size=32", "hpo.trials=2", "hpo.steps=6",
+             "registry.root=gs://bucket/models", f"registry.run_root={tmp_path / 'runs'}"]
+    out = {}
+    for who, entry, extra in (("jax", jax_main, []), ("port", main, ["train.device=cpu"])):
+        capsys.readouterr()
+        assert entry(["tune", *small, f"registry.run_name={who}", *extra]) == 0
+        out[who] = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    name = "credit-default-uci-custom"
+    assert [out[w]["model_uri"] for w in ("jax", "port")] == [f"models:/{name}/1", f"models:/{name}/2"]
+    for registry in (JaxRegistry("gs://bucket/models"), ModelRegistry("gs://bucket/models")):
+        for who, version in (("jax", "1"), ("port", "2")):
+            resolved = registry.resolve(name, version)
+            for part in ("manifest.json", "params.msgpack"):
+                assert (resolved / part).read_bytes() == \
+                    (Path(out[who]["bundle"]) / part).read_bytes(), (who, part)
+        assert [v["tags"]["run_name"] for v in registry.list_versions(name)] == ["jax", "port"]
 
 
 def test_the_jax_refusal_texts_are_the_ones_copied(tmp_path):
