@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card of compute capability 9.0 and exits non-zero,
 printing no result, without one (or when run from a directory that holds
 this script and nothing else of the repository). It imports torch and the
-port (``mlops_tpu_torch``), never JAX or the JAX package. Eight main
+port (``mlops_tpu_torch``), never JAX or the JAX package. Nine main
 paths: quant-tier serving (``POST /predict`` with
 ``serve.serve_tier=quant``), long-context doc scoring (``predict-file`` on
 a ``doc`` bundle), doc-model training (``train --config
@@ -16,9 +16,11 @@ configs/long_context_job.toml model.seq_parallel=false``), exact-tier
 serving (``POST /predict`` on a ``flax`` bundle, the default tier),
 exact-tier training (``train --config configs/train_register_job.toml``),
 the distilled students it packages, bulk scoring (``score-batch``, in
-memory and streamed), and the deployed training Job (``tune``, then
+memory and streamed), the deployed training Job (``tune``, then
 ``promote`` and ``serve`` of the registry's production stage), on local
-paths and, as ``kubernetes/train-job.yml`` runs it, on a ``gs://`` bucket.
+paths and, as ``kubernetes/train-job.yml`` runs it, on a ``gs://`` bucket,
+and serving as the serving image starts it (``warmup --cache-dir``, then
+``serve`` on the multi-worker ring plane).
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -236,15 +238,35 @@ Phases, each of which fails the run loudly:
     to production on the bucket; ``serve serve.model_directory=production
     registry.root=gs://...`` with ``MLOPS_TPU_SERVE_WORKERS=0`` and the
     port through ``MLOPS_TPU_SERVE_PORT``, four bodies against the CPU
-    route on the bundle the registry downloads (1.6e-2); at once, the same
-    ``serve`` with ``MLOPS_TPU_SERVE_WORKERS=2`` and with
-    ``MLOPS_TPU_CACHE_DIR`` set (non-zero exits naming A4 and A3), a
+    route on the bundle the registry downloads (1.6e-2), and at once the
+    same ``serve`` with ``MLOPS_TPU_SERVE_WORKERS=2`` and
+    ``MLOPS_TPU_CACHE_DIR`` set (the ring plane, answering the same); the
+    same ``serve`` with ``MLOPS_TPU_SERVE_ENGINE_REPLICAS=2`` (a non-zero
+    exit naming A4), a
     ``train`` at 50 steps with ``train.tensorboard_dir`` (event files, or
     the JAX warning where ``torch.utils.tensorboard`` is unusable), and
     where pyarrow imports ``score-batch`` on ``gs://.../rows.parquet``
     against the same rows as the CSV (equal to 6 places); the Job's wall
     and sweep beside phase 26's, the seconds staging the data and moving
-    the bundle, the bucket's objects and bytes.
+    the bundle, the bucket's objects and bytes;
+29. the serving image's start (``docker/Dockerfile:38-55``): ``warmup
+    --cache-dir`` into an empty cache (one nvcc, ``quant_fused``) and again
+    (reused, none); then ``serve`` with the image's environment
+    (``MODEL_DIRECTORY``, ``SERVICE_NAME``, ``MLOPS_TPU_SERVE_WORKERS=2``,
+    ``MLOPS_TPU_CACHE_DIR``) and tier routing on phase 22's bundle (the
+    ring plane: two front ends over the shared-memory ring to one engine
+    process, which builds no kernel and is the plane's only process
+    holding the card), beside the same with ``MLOPS_TPU_SERVE_WORKERS=0``;
+    phase 22's bursts to both in turns, every answer against the CPU route,
+    /metrics rows equal to the records sent, ``quant_fused`` launches (read
+    from the ring's /metrics, counted in the engine process) equal to the
+    quant-tier dispatches, requests/s, p50/p99 and dispatches per request;
+    kill -9 of the engine while 16 connections stream 600 requests (every
+    answer right, the slots it left busy replayed, kill -> ready timed, no
+    nvcc, the respawned engine's answers bitwise equal to its
+    predecessor's), again with the cache emptied (one nvcc), kill -9 of a
+    front end (respawn timed), SIGTERM while traffic flows (every answer
+    200, every process exits 0).
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
@@ -2275,12 +2297,12 @@ def _serve_cmd(path, port: int, device: str) -> tuple[list[str], dict]:
 
 
 def _serve_golden(bundles: dict, device: str, launch=_serve_cmd,
-                  bodies: tuple[list[dict], ...] = ()) -> dict:
+                  bodies: tuple[list[dict], ...] = (), env_by_name=None) -> dict:
     """``serve`` on each bundle at once (the default tier, exact), the
     golden request and ``bodies`` to each, compared with the CPU route on
     the bundle's directory; no kernel launches; each drains on SIGTERM.
     ``launch(path, port, device)`` gives the server's command and the
-    environment it adds."""
+    environment it adds; ``env_by_name`` adds more to one server's."""
     from mlops_tpu_torch.bundle import load_bundle
     from mlops_tpu_torch.serve.engine import InferenceEngine
 
@@ -2290,6 +2312,7 @@ def _serve_golden(bundles: dict, device: str, launch=_serve_cmd,
         port = _free_port()
         out = open(WORK / f"exact_train_server_{name}.log", "wb")
         cmd, env = launch(path, port, device)
+        env = {**env, **(env_by_name or {}).get(name, {})}
         procs[name] = (port, out, subprocess.Popen(
             cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT), **env),
             stdout=out, stderr=subprocess.STDOUT,
@@ -3680,9 +3703,11 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
     registry.root=gs://...`` with ``MLOPS_TPU_SERVE_WORKERS=0`` and the
     port through ``MLOPS_TPU_SERVE_PORT``, as the serving image sets them,
     answering the golden request and 5/64/256-record bodies like the CPU
-    route on the bundle the registry resolves; the same ``serve`` with
-    ``MLOPS_TPU_SERVE_WORKERS=2`` and with ``MLOPS_TPU_CACHE_DIR`` set
-    exits non-zero naming A4 and A3; a ``train`` of the job config with
+    route on the bundle the registry resolves, and at once the same
+    ``serve`` as the serving image starts it, ``MLOPS_TPU_SERVE_WORKERS=2``
+    (the ring plane) with ``MLOPS_TPU_CACHE_DIR`` set, answering the same;
+    the same ``serve`` with ``MLOPS_TPU_SERVE_ENGINE_REPLICAS=2`` exits
+    non-zero naming A4; a ``train`` of the job config with
     the steps cut to 50 and ``train.tensorboard_dir`` set writes event
     files (or, where ``torch.utils.tensorboard`` cannot be built, warns as
     the JAX package does); where pyarrow imports, ``score-batch`` on the
@@ -3743,12 +3768,14 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
             **env, "MLOPS_TPU_SERVE_WORKERS": "0", "MLOPS_TPU_SERVE_PORT": str(port),
             "MLOPS_TPU_SERVE_HOST": "127.0.0.1"}
 
-    # The rest runs while the production stage serves: the two refusals,
-    # the TensorBoard run and, where pyarrow imports, score-batch on the
-    # Parquet twin and the CSV (their resolves of production race the
-    # server's download into the one registry cache: a rename decides).
-    refused = {"MLOPS_TPU_SERVE_WORKERS": ("2", "A4"),
-               "MLOPS_TPU_CACHE_DIR": (str(root / "cache"), "A3")}
+    # The rest runs while the production stage serves (on the
+    # single-process server and, as the serving image starts it, on the
+    # two-worker ring plane with the kernel cache): the refusal of a key
+    # the port lacks, the TensorBoard run and, where pyarrow imports,
+    # score-batch on the Parquet twin and the CSV (their resolves of
+    # production race the servers' downloads into the one registry cache:
+    # a rename decides).
+    refused = {"MLOPS_TPU_SERVE_ENGINE_REPLICAS": ("2", "A4")}
     procs = {key: _start(_cli(serve_args, bucket_root), {**env, key: value}, root / key)
              for key, (value, _) in refused.items()}
     tb_dir = root / "tensorboard"
@@ -3771,7 +3798,11 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
                 root / f"score-{name}")
     try:
         bodies = tuple(_records(n, seed=60 + n, drift=0.2) for n in (5, 64, 256))
-        http = _serve_golden({"production": staged}, device, launch=launch, bodies=bodies)
+        http = _serve_golden(
+            {"production": staged, "production_ring": staged}, device, launch=launch,
+            bodies=bodies, env_by_name={"production_ring": {
+                "MLOPS_TPU_SERVE_WORKERS": "2",
+                "MLOPS_TPU_CACHE_DIR": str(root / "cache")}})
     finally:
         done = _finish(procs)
 
@@ -3828,11 +3859,405 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
         "bucket_calls": moved, "bucket_holdings": holdings,
         "promoted_version": int(version),
         "requests_answered": 1 + len(bodies), "max_pred_gap_to_cpu": http["production"],
+        "ring_max_pred_gap_to_cpu": http["production_ring"],
         "refusals": refusals, "tensorboard": tensorboard, "parquet": parquet,
     }
     log_timing("deployed job", {k: result[k] for k in (
         "cli", "local_cli", "staging_s", "bucket_holdings", "requests_answered",
-        "max_pred_gap_to_cpu")})
+        "max_pred_gap_to_cpu", "ring_max_pred_gap_to_cpu")})
+    return result
+
+
+# ----------------------------------------------------------------- phase 29
+# The serving image's start (docker/Dockerfile:38-55,
+# kubernetes/manifest.yml:53-60): two SO_REUSEPORT front ends over the
+# shared-memory ring to one engine process, the kernel cache baked by
+# `warmup --cache-dir` and named by MLOPS_TPU_CACHE_DIR.
+RING_WORKERS = 2
+RING_KILL_REQUESTS = 600  # single-record requests streamed across an engine kill
+RING_KILL_CONCURRENCY = 16
+RING_BITWISE_REQUESTS = 64  # re-sent to the respawned engine, one at a time
+RING_DRAIN_REQUESTS = 400  # streamed while the plane drains on SIGTERM
+
+
+def _image_env(bundle_dir: Path, cache: Path, port: int, workers: int, device: str) -> dict:
+    """The serving image's environment for ``serve`` (the model and
+    service name, the workers, the cache), the burst's tier routing, and
+    the port."""
+    env = {"MODEL_DIRECTORY": str(bundle_dir), "SERVICE_NAME": "credit-default-api",
+           "MLOPS_TPU_SERVE_WORKERS": str(workers), "MLOPS_TPU_CACHE_DIR": str(cache),
+           "MLOPS_TPU_SERVE_TIER_ROUTING": "true", "MLOPS_TPU_SERVE_PORT": str(port),
+           "MLOPS_TPU_SERVE_HOST": "127.0.0.1"}
+    if device != "cuda":
+        env["MLOPS_TPU_SERVE_DEVICE"] = device
+    return env
+
+
+def _wait_ready(port: int, proc, what: str, timeout: float = 600) -> None:
+    deadline = time.monotonic() + timeout
+    while True:
+        check(proc.poll() is None, f"{what} exited early ({proc.returncode})")
+        try:
+            if _http(port, "GET", "/healthz/ready")[0] == 200:
+                return
+        except OSError:
+            pass
+        check(time.monotonic() < deadline, f"{what} never became ready")
+        time.sleep(0.05)
+
+
+def _ring_log(path: Path) -> tuple[dict, list[dict], str]:
+    """The plane's log: the latest pid of each process, every engine
+    ready record, and the text."""
+    text = path.read_text(errors="replace")
+    pids, ready = {}, []
+    for line in text.splitlines():
+        if line.startswith("engine started (pid "):
+            pids["engine"] = int(line.split("pid ")[1].rstrip(")"))
+        elif line.startswith("frontend ") and " started (pid " in line:
+            pids[f"frontend {line.split()[1]}"] = int(line.split("pid ")[1].rstrip(")"))
+        elif line.startswith("warmup complete; ready {"):
+            ready.append(json.loads(line.split("ready ", 1)[1]))
+    return pids, ready, text
+
+
+def _children(pid: int) -> list[int]:
+    out = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                stat = Path(f"/proc/{entry}/stat").read_text()
+            except OSError:
+                continue
+            if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+                out.append(int(entry))
+    return out
+
+
+def _holds_card(pid: int) -> bool:
+    """The process has the card's device files open (a CUDA context)."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            pass
+    return False
+
+
+def _cpu_s(pid: int) -> float:
+    """User plus system CPU seconds of ``pid`` so far (/proc; 0 when gone)."""
+    try:
+        fields = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()
+    except OSError:
+        return 0.0
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def _compute_apps() -> list[int] | None:
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def _sub_burst(burst: dict, idx: list[int]) -> dict:
+    return {**burst, **{k: [burst[k][i] for i in idx]
+                        for k in ("bodies", "headers", "want", "off_band", "tol")}}
+
+
+def _tolerant_burst(port: int, burst: dict, concurrency: int) -> list:
+    """``_run_burst``, except that a connection the server closes (a
+    drain) ends that client instead of failing: unanswered requests stay
+    None."""
+    import asyncio
+
+    n = len(burst["bodies"])
+    out, lat = [None] * n, [0.0] * n
+    order = iter(range(n))
+
+    async def client():
+        try:
+            await _burst_client(port, burst, order, out, lat)
+        except (OSError, IndexError, ValueError, asyncio.IncompleteReadError):
+            pass
+
+    async def main():
+        await asyncio.gather(*(client() for _ in range(concurrency)))
+
+    asyncio.run(main())
+    return out
+
+
+def _scrape_ring(port: int) -> dict:
+    _, text = _http(port, "GET", "/metrics")
+    text = text.decode()
+    return {name: _metric(text, f"mlops_tpu_{name}") for name in (
+        "engine_incarnation", "engine_respawn_total", "replayed_slots_total",
+        "monitor_rows_lost_total", "brownout_shed_total", "parked_requests",
+        "rows_scored_total")}
+
+
+def _await_rows(port: int, before: dict, rows: int, what: str) -> dict:
+    """The scrape once the monitor aggregate counts ``rows`` more rows
+    (the ring plane's engine writes it on its telemetry cadence)."""
+    deadline = time.monotonic() + 15
+    while True:
+        after = _scrape(port)
+        if after["rows"] - before["rows"] >= rows or time.monotonic() > deadline:
+            check(after["rows"] - before["rows"] == rows,
+                  f"{what}: /metrics rows {after['rows'] - before['rows']} != records sent {rows}")
+            return after
+        time.sleep(0.1)
+
+
+def _kill_engine(port: int, log_path: Path, burst: dict, cpu_stream: bool) -> dict:
+    """kill -9 the engine; with ``cpu_stream``, while RING_KILL_CONCURRENCY
+    connections stream RING_KILL_REQUESTS single-record requests, each
+    answer then held against the CPU route. Times kill -> ready (the
+    incarnation bumped and /healthz/ready 200)."""
+    pids, ready, _ = _ring_log(log_path)
+    before = _scrape_ring(port)
+    sub = _sub_burst(burst, list(range(RING_KILL_REQUESTS)))
+    result = {}
+    thread = None
+    if cpu_stream:
+        thread = threading.Thread(target=lambda: result.setdefault(
+            "out", _tolerant_burst(port, sub, RING_KILL_CONCURRENCY)))
+        thread.start()
+        time.sleep(0.2)
+    os.kill(pids["engine"], signal.SIGKILL)
+    t_kill = time.monotonic()
+    while True:
+        try:
+            m = _scrape_ring(port)
+            if (m["engine_incarnation"] > before["engine_incarnation"]
+                    and _http(port, "GET", "/healthz/ready")[0] == 200):
+                break
+        except OSError:
+            pass
+        check(time.monotonic() - t_kill < 300, "the engine never came back after kill -9")
+        time.sleep(0.02)
+    kill_to_ready = time.monotonic() - t_kill
+    if thread is not None:
+        thread.join(timeout=300)
+        _check_burst(sub, result["out"], "ring kill -9 stream")
+    after = _scrape_ring(port)
+    _, ready_after, _ = _ring_log(log_path)
+    check(len(ready_after) == len(ready) + 1, "no ready record from the respawned engine")
+    new = ready_after[-1]
+    check(after["engine_respawn_total"] == before["engine_respawn_total"] + 1,
+          "the respawn was not counted")
+    return {"kill_to_ready_s": kill_to_ready, "engine_ready_s": new["ready_s"],
+            "nvcc_calls": new["nvcc_calls"], "incarnation": new["incarnation"],
+            "replayed_slots": after["replayed_slots_total"] - before["replayed_slots_total"],
+            "monitor_rows_lost": after["monitor_rows_lost_total"]
+            - before["monitor_rows_lost_total"],
+            "stream_requests": RING_KILL_REQUESTS if cpu_stream else 0}
+
+
+def phase_ring(bundle_dir: Path, device: str = "cuda") -> dict:
+    """The serving image's start on the ring plane: ``warmup --cache-dir``
+    into an empty cache (cold, then reused), then ``serve`` with the
+    image's environment (``MODEL_DIRECTORY``, ``SERVICE_NAME``,
+    ``MLOPS_TPU_SERVE_WORKERS=2``, ``MLOPS_TPU_CACHE_DIR``) plus tier
+    routing, beside the same with ``MLOPS_TPU_SERVE_WORKERS=0`` (the
+    single-process server). The engine process builds no kernel and is the
+    plane's only process holding the card (``/proc`` fds, and
+    ``nvidia-smi --query-compute-apps`` where it lists this machine's
+    processes). Phase 22's bursts go to both planes in turns: every answer
+    held against the CPU route, /metrics rows equal to the records sent,
+    no demotion, quant_fused launches equal to the quant-tier dispatches;
+    requests/s, p50/p99 and dispatches per request. Then on the ring
+    plane: kill -9 of the engine while 16 connections stream requests
+    (every answer 200 and right, the respawned engine ready without nvcc;
+    kill -> ready timed), its answers bitwise equal to the dead engine's;
+    kill -9 again with the cache emptied (kill -> ready with an nvcc
+    build); kill -9 of a front end (respawn timed); SIGTERM while traffic
+    flows: every answer 200, every process exits 0."""
+    import numpy as np
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    root = WORK / "ring"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cache = root / "cache"
+    base_env = dict(os.environ, PYTHONPATH=str(ROOT))
+    warm = {}
+    if device == "cuda":  # warmup needs nvcc, which only the card machine has
+        for kind in ("cold", "reused"):
+            env = _image_env(bundle_dir, cache, 0, RING_WORKERS, device)
+            t0 = time.perf_counter()
+            proc = subprocess.run(_cli(["warmup", "--cache-dir", str(cache)]), cwd=ROOT,
+                                  env={**base_env, **env}, capture_output=True, text=True,
+                                  timeout=600)
+            wall = time.perf_counter() - t0
+            check(proc.returncode == 0, f"warmup {kind}: {proc.stderr[-3000:]}")
+            report = json.loads(proc.stdout.strip().splitlines()[-1])
+            names = [row["name"] for row in report["libraries"]]
+            check(names == ["quant_fused"], f"warmup {kind} built {names}")
+            check(report["built" if kind == "cold" else "reused"] == 1
+                  and report["nvcc_calls"] == (kind == "cold"),
+                  f"warmup {kind}: {report}")
+            warm[kind] = {"wall_s": wall, **report}
+            log_timing(f"ring warmup {kind}", warm[kind])
+    bundle = load_bundle(bundle_dir)
+    cpu = InferenceEngine(bundle, device="cpu", tier_routing=True)
+    bursts = [_burst_set(bundle, cpu, kind, seed)
+              for kind, seed in (("single", 41), ("mixed", 42))]
+    planes = {}
+    for mode, workers in (("ring", RING_WORKERS), ("single", 0)):
+        port = _free_port()
+        log_path = WORK / f"ring_server_{mode}.log"
+        out = open(log_path, "wb")
+        planes[mode] = (port, out, subprocess.Popen(
+            _cli(["serve"]), cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+            env={**base_env, **_image_env(bundle_dir, cache, port, workers, device)}),
+            log_path)
+    rows, kills = [], {}
+    try:
+        for mode, (port, _, proc, _) in planes.items():
+            _wait_ready(port, proc, f"{mode} plane")
+        port, _, proc, log_path = planes["ring"]
+        pids, ready, text = _ring_log(log_path)
+        check(len(ready) == 1 and (device != "cuda" or ready[0]["nvcc_calls"] == 0),
+              f"the ring engine's start: {ready}")
+        check("tiers=quant,exact" in text, "the ring engine does not hold both tiers")
+        plane = {proc.pid, *_children(proc.pid)}
+        check(set(pids.values()) <= plane, f"plane pids {pids} vs {plane}")
+        holders = sorted(pid for pid in plane if _holds_card(pid))
+        apps = _compute_apps()
+        if device == "cuda":
+            check(holders == [pids["engine"]],
+                  f"processes holding the card {holders}, engine {pids['engine']}")
+            if apps and os.getpid() in apps:
+                check(sorted(plane & set(apps)) == [pids["engine"]],
+                      f"nvidia-smi lists {sorted(plane & set(apps))} of the plane")
+        cuda_check = {"plane_pids": sorted(plane), "engine_pid": pids["engine"],
+                      "holding_the_card": holders, "nvidia_smi_compute_apps": apps,
+                      "engine_ready_s": ready[0]["ready_s"], "nvcc_calls": ready[0]["nvcc_calls"]}
+        log(f"ring plane: {json.dumps(cuda_check)}")
+        c1_single = None
+        # Whose CPU a burst takes: each front end, the engine, the
+        # single-process server and this process (the load generator).
+        procs = {"client": os.getpid(), "single": planes["single"][2].pid,
+                 **{name: pid for name, pid in pids.items()}}
+        for burst in bursts:
+            for concurrency in BURST_CONCURRENCY:
+                for mode, (port, _, _, _) in planes.items():
+                    before = _scrape(port)
+                    cpu0 = {name: _cpu_s(pid) for name, pid in procs.items()}
+                    out, lat, wall = _run_burst(port, burst, concurrency)
+                    cpu = {name: round((_cpu_s(pid) - cpu0[name]) / wall, 3)
+                           for name, pid in procs.items()}
+                    what = f"ring phase {burst['kind']} c={concurrency} {mode}"
+                    worst = _check_burst(burst, out, what)
+                    after = _await_rows(port, before, burst["rows"], what)
+                    d = {k: after[k] - before[k] for k in before}
+                    check(d["demotions"] == 0, f"{what}: {d['demotions']} demotions")
+                    expected = d["quant_dispatches"] if device == "cuda" else 0
+                    check(d["launches"] == expected,
+                          f"{what}: {d['launches']} quant_fused launches for "
+                          f"{d['quant_dispatches']} quant-tier dispatches")
+                    if mode == "ring" and burst["kind"] == "single" and concurrency == 1:
+                        c1_single = out
+                    row = {
+                        "kind": burst["kind"], "concurrency": concurrency, "plane": mode,
+                        "workers": RING_WORKERS if mode == "ring" else 0,
+                        "requests": BURST_REQUESTS, "records": burst["rows"],
+                        "requests_per_s": BURST_REQUESTS / wall,
+                        "p50_ms": float(np.percentile(lat, 50)),
+                        "p99_ms": float(np.percentile(lat, 99)),
+                        "dispatches_per_request": d["dispatches"] / BURST_REQUESTS,
+                        "grouped_dispatches_per_request":
+                            d["group_dispatches"] / BURST_REQUESTS,
+                        "quant_dispatches": d["quant_dispatches"],
+                        "quant_fused_launches": d["launches"],
+                        "max_pred_err": worst["pred"], "max_drift_err": worst["drift"],
+                        "cpu_share": cpu,
+                    }
+                    log_timing("ring burst", row)
+                    rows.append(row)
+        port, _, proc, log_path = planes["ring"]
+        single = bursts[0]
+        kills["cache_filled"] = _kill_engine(port, log_path, single, cpu_stream=True)
+        if device == "cuda":
+            check(kills["cache_filled"]["nvcc_calls"] == 0,
+                  f"the respawned engine built a kernel: {kills['cache_filled']}")
+        # The respawned engine answers as its predecessor did, bit for bit.
+        idx = list(range(RING_BITWISE_REQUESTS))
+        again, _, _ = _run_burst(port, _sub_burst(single, idx), 1)
+        diff = [i for i in idx if again[i] != c1_single[i]]
+        check(not diff, f"the respawned engine's answers differ at requests {diff[:10]}")
+        kills["cache_filled"]["bitwise_equal_requests"] = len(idx)
+        shutil.rmtree(cache / "kernels", ignore_errors=True)
+        kills["cache_empty"] = _kill_engine(port, log_path, single, cpu_stream=False)
+        if device == "cuda":
+            check(kills["cache_empty"]["nvcc_calls"] == 1,
+                  f"the engine on an empty cache: {kills['cache_empty']}")
+        for name, row in kills.items():
+            log_timing(f"ring engine kill -9 ({name})", row)
+        # A front end's kill -9: the supervisor forks its replacement.
+        pids, _, _ = _ring_log(log_path)
+        victim = pids["frontend 0"]
+        os.kill(victim, signal.SIGKILL)
+        t_kill = time.monotonic()
+        while True:
+            pids, _, text = _ring_log(log_path)
+            if pids["frontend 0"] != victim and (
+                    f"(pid {pids['frontend 0']})" in text.split("frontend 0 serving")[-1]):
+                break
+            check(time.monotonic() - t_kill < 60, "front end 0 was not respawned")
+            time.sleep(0.01)
+        frontend_respawn_s = time.monotonic() - t_kill
+        for _ in range(8):
+            status, _ = _http(port, "POST", "/predict", single["bodies"][0])
+            check(status == 200, f"after the front end's respawn: {status}")
+        log(f"ring front end respawn: {frontend_respawn_s:.3f} s")
+        final = _scrape_ring(port)
+        # SIGTERM while traffic flows: every answer that came back is 200,
+        # every process exits 0.
+        result = {}
+        sub = _sub_burst(single, list(range(min(RING_DRAIN_REQUESTS, BURST_REQUESTS))))
+        thread = threading.Thread(target=lambda: result.setdefault(
+            "out", _tolerant_burst(port, sub, RING_KILL_CONCURRENCY)))
+        thread.start()
+        time.sleep(0.2)
+        proc.send_signal(signal.SIGTERM)
+        thread.join(timeout=120)
+        check(proc.wait(timeout=180) == 0, "the ring plane did not exit 0 after SIGTERM")
+        answered = [r for r in result["out"] if r is not None]
+        check(answered and all(status == 200 for status, _ in answered),
+              f"answers during the drain: {sorted({s for s, _ in answered})}")
+        pids, _, text = _ring_log(log_path)
+        for worker in range(RING_WORKERS):
+            check(f"frontend {worker} (pid {pids[f'frontend {worker}']}) exited 0" in text,
+                  f"front end {worker} did not exit 0")
+        check(f"engine (pid {pids['engine']}) exited 0" in text, "the engine did not exit 0")
+        port, _, single_proc, _ = planes["single"]
+        single_proc.send_signal(signal.SIGTERM)
+        check(single_proc.wait(timeout=120) == 0, "the single-process plane did not exit 0")
+    finally:
+        for _, out, proc, _ in planes.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            out.close()
+    launches = sum(r["quant_fused_launches"] for r in rows if r["plane"] == "ring")
+    result = {"warmup": warm, "cuda": cuda_check, "bursts": rows, "kills": kills,
+              "frontend_respawn_s": frontend_respawn_s, "final_metrics": final,
+              "drain_answered": len(answered), "launches": launches}
+    log_timing("ring plane", {k: result[k] for k in (
+        "kills", "frontend_respawn_s", "final_metrics", "drain_answered", "launches")})
     return result
 
 
@@ -3888,13 +4313,15 @@ def main() -> int:
             phase_exact_train_timing,
             {name: row["wall_s"] for name, row in exact_train["cli"].items()})
         routes = timed(phase_dispatch_routes, bundle_dir, exact_dirs)
-        burst = timed(phase_burst, timed(phase_burst_bundle, exact_dirs))
+        burst_dir = timed(phase_burst_bundle, exact_dirs)
+        burst = timed(phase_burst, burst_dir)
         students = timed(phase_students)
         bulk_rows = timed(phase_bulk, students)
         streamed = timed(phase_stream, students)
         tune_job = timed(phase_tune_job)
         tune_arch = timed(phase_tune_arch)
         deployed = timed(phase_deployed_job, tune_job["cli"])
+        ring = timed(phase_ring, burst_dir)
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -3938,6 +4365,7 @@ def main() -> int:
             "timings": timing,
             "large_shapes": c2,
             "trained_tier_launches": students["launches"],
+            "ring_launches": ring["launches"],
         }, {
             "name": "flash_attention",
             "route": "cuda",
@@ -3989,7 +4417,7 @@ def main() -> int:
             **bwd_common,
         }],
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
-        "serving": {"dispatch_routes": routes, "burst": burst},
+        "serving": {"dispatch_routes": routes, "burst": burst, "ring": ring},
         "students": {"records": students["records"], "fit": students["fit"],
                      "served_quant_bundle": students["quant_bundle"]},
         "bulk": bulk_rows,

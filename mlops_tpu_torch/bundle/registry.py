@@ -301,3 +301,13 @@ class ModelRegistry:
                 "orphans_removed": orphans_removed,
                 "versions_removed": versions_removed,
             }
+
+
+def resolve_bundle(config, model_dir: str | None = None) -> str | Path:
+    """One rule for every command: a value that is an existing directory
+    is the bundle itself; anything else (a version number, a stage,
+    ``latest``) resolves through the registry at ``registry.root``."""
+    model_dir = model_dir or config.serve.model_directory
+    if Path(model_dir).is_dir():
+        return model_dir
+    return ModelRegistry(config.registry.root).resolve(config.registry.model_name, model_dir)

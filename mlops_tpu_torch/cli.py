@@ -34,14 +34,24 @@
   ``gc`` (``[registry.gc_keep=N]``) on the registry at
   ``registry.root``;
 - ``synth`` (``data.rows`` synthetic rows to ``data.train_path``) and
-  ``validate`` (lint a CSV: exit 2 when anything is flagged).
+  ``validate`` (lint a CSV: exit 2 when anything is flagged);
+- ``warmup --cache-dir <dir>``: build the kernel libraries the resolved
+  bundle serves with into ``<dir>/kernels/`` (every library without a
+  bundle) and print one JSON report; a ``serve`` with ``cache.dir`` set
+  (``MLOPS_TPU_CACHE_DIR``) loads them from there without nvcc.
+
+``serve --workers N`` (``serve.workers``, ``MLOPS_TPU_SERVE_WORKERS``)
+with N >= 2 serves from N ``SO_REUSEPORT`` front-end processes over a
+shared-memory ring to one engine process (``serve/frontend.py``); 0 and 1
+are the single-process server.
 
 Every command takes ``--config <toml>``, ``MLOPS_TPU_<SECTION>_<FIELD>``
 environment overrides and positional ``section.field=value`` overrides,
 as the JAX package's CLI does (``serve.model_directory=<bundle>
 serve.port=5001 serve.device=cpu``); a key the port has not ported, set
-away from its JAX default (``MLOPS_TPU_SERVE_WORKERS=2``,
-``MLOPS_TPU_CACHE_DIR``), exits non-zero naming its ROADMAP item. A
+away from its JAX default (``MLOPS_TPU_SERVE_ENGINE_REPLICAS=2``,
+``MLOPS_TPU_TRACE_ENABLED=true``), exits non-zero naming its ROADMAP
+item. A
 ``gs://`` ``data.train_path`` or ``registry.root`` is read and written
 through ``utils/storage.py``, as in the JAX package.
 Every command runs on the card unless ``serve.device=cpu`` (serve,
@@ -103,6 +113,10 @@ def build_parser() -> argparse.ArgumentParser:
             "schema-check a CSV (OOV / unparseable counts)",
             "data.train_path=<csv>",
         ),
+        "warmup": (
+            "build the kernel libraries into the cache (cache.dir)",
+            "serve.model_directory=<bundle>",
+        ),
     }
     for name, (help_text, example) in commands.items():
         cmd = sub.add_parser(name, help=help_text)
@@ -112,14 +126,24 @@ def build_parser() -> argparse.ArgumentParser:
         cmd.add_argument(
             "overrides", nargs="*", help=f"config overrides, e.g. {example}"
         )
+        if name == "warmup":
+            cmd.add_argument(
+                "--cache-dir", default=None,
+                help="cache directory (sugar for cache.dir=<dir>)",
+            )
+        if name == "serve":
+            cmd.add_argument(
+                "--workers", type=int, default=None,
+                help="HTTP front-end processes (sugar for serve.workers=N): "
+                "N >= 2 binds one port from N processes via SO_REUSEPORT, "
+                "all feeding one engine process over the shared-memory "
+                "ring; 0/1 = single-process server",
+            )
     return parser
 
 
 def _serve(config) -> int:
-    from mlops_tpu_torch.bundle import load_bundle
-    from mlops_tpu_torch.commands import resolve_bundle
-    from mlops_tpu_torch.serve.engine import InferenceEngine
-    from mlops_tpu_torch.serve.server import serve_forever
+    from mlops_tpu_torch.bundle.registry import resolve_bundle
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     cfg = config.serve
@@ -132,8 +156,21 @@ def _serve(config) -> int:
             "lifecycle.enabled=true (the closed retrain / shadow / promote "
             "loop) is not ported (ROADMAP A10)"
         )
+    bundle_dir = resolve_bundle(config, model_dir)
+    if cfg.workers >= 2:
+        # The supervisor stays torch-free: only its engine child loads the
+        # bundle and touches the device.
+        from mlops_tpu_torch.serve.frontend import serve_multi_worker
+
+        return serve_multi_worker(config, str(bundle_dir))
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.ops import cuda_build
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+    from mlops_tpu_torch.serve.server import serve_forever
+
+    cuda_build.set_cache_dir(config.cache.dir)
     engine = InferenceEngine(
-        load_bundle(resolve_bundle(config, model_dir)),
+        load_bundle(bundle_dir),
         buckets=tuple(cfg.warmup_batch_sizes),
         serve_tier=cfg.serve_tier,
         device=cfg.device,
@@ -207,6 +244,13 @@ def _synth(config) -> int:
     return 0
 
 
+def _warmup(config) -> int:
+    from mlops_tpu_torch.commands import warmup
+
+    print(json.dumps(warmup(config)), flush=True)
+    return 0
+
+
 def _validate(config) -> int:
     from mlops_tpu_torch.commands import validate
 
@@ -231,12 +275,18 @@ def main(argv: list[str] | None = None) -> int:
         "gc": _gc,
         "synth": _synth,
         "validate": _validate,
+        "warmup": _warmup,
     }
     if args.command not in handlers:
         build_parser().print_help()
         return 1
+    overrides = list(args.overrides)
+    if getattr(args, "cache_dir", None):
+        overrides.append(f"cache.dir={args.cache_dir}")
+    if getattr(args, "workers", None) is not None:
+        overrides.append(f"serve.workers={args.workers}")
     try:
-        config = load_config(args.overrides, args.config)
+        config = load_config(overrides, args.config)
     except ValueError as err:  # a refused key: its message, no traceback
         raise SystemExit(str(err)) from err
     return handlers[args.command](config)

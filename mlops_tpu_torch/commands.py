@@ -1,7 +1,13 @@
 """Offline subcommands: ``train``, ``tune``, ``predict-file`` on a
-``flax`` (exact tier) or ``doc`` bundle, ``score-batch``, the registry's
-``register`` / ``promote`` / ``versions`` / ``gc``, ``synth`` and
-``validate``.
+``flax`` (exact tier) or ``doc`` bundle, ``score-batch``, ``warmup``, the
+registry's ``register`` / ``promote`` / ``versions`` / ``gc``, ``synth``
+and ``validate``.
+
+``warmup`` is the JAX package's ``_warmup`` (``mlops_tpu/commands.py:689``)
+for the port's artifacts, the kernel libraries (``compilecache/``): with
+``cache.dir`` set (``--cache-dir``), it builds the libraries the resolved
+bundle's serving programs launch into ``<cache.dir>/kernels/``, or every
+library when no bundle resolves (said on stderr), and returns the report.
 
 ``train`` is the JAX package's ``_train`` (``mlops_tpu/commands.py:96``):
 ``run_layout_training`` for a layout config (the long-context doc model),
@@ -38,13 +44,12 @@ The registry commands, ``synth`` and ``validate`` are the JAX package's
 
 from __future__ import annotations
 
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from mlops_tpu_torch.bundle import Bundle, load_bundle
-from mlops_tpu_torch.bundle.registry import ModelRegistry
+from mlops_tpu_torch.bundle.registry import ModelRegistry, resolve_bundle
 from mlops_tpu_torch.config import Config
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.data.ingest import load_csv_columns, load_table_columns
@@ -69,16 +74,6 @@ def train(config: Config) -> dict:
     }
 
 
-def resolve_bundle(config: Config, model_dir: str | None = None) -> str | Path:
-    """One rule for every command: a value that is an existing directory
-    is the bundle itself; anything else (a version number, a stage,
-    ``latest``) resolves through the registry."""
-    model_dir = model_dir or config.serve.model_directory
-    if Path(model_dir).is_dir():
-        return model_dir
-    return ModelRegistry(config.registry.root).resolve(config.registry.model_name, model_dir)
-
-
 def tune(config: Config) -> dict:
     """``tune --config <toml> [overrides]``: the JSON the JAX package
     prints (bundle, model_uri, best_trial, best_hyperparams, metrics,
@@ -94,6 +89,37 @@ def tune(config: Config) -> dict:
         "metrics": hpo_result.best_metrics,
         "trials": len(hpo_result.trials),
     }
+
+
+def warmup(config: Config) -> dict:
+    """``warmup --cache-dir <dir>``: the kernel libraries into the cache,
+    ``cache.warmup_workers`` nvcc builds at a time; needs nvcc, no card."""
+    import os
+    import sys
+
+    from mlops_tpu_torch.compilecache import bundle_libraries, libraries, warm_kernels
+    from mlops_tpu_torch.ops import cuda_build
+
+    if not config.cache.dir:
+        raise SystemExit("pass --cache-dir <dir> (or cache.dir=<dir>)")
+    cuda_build.set_cache_dir(config.cache.dir)
+    model_dir = os.environ.get("MODEL_DIRECTORY", config.serve.model_directory)
+    try:
+        bundle_dir = resolve_bundle(config, model_dir)
+    # No bundle anywhere (an image built before training): every library
+    # is built, and said so, as the JAX package's config-mode warmup does.
+    except Exception as err:
+        print(f"warmup: no bundle at {model_dir!r} ({err}); building every "
+              f"kernel library ({', '.join(libraries())})", file=sys.stderr)
+        bundle_dir = None
+    if bundle_dir is None:
+        names = list(libraries())
+    else:
+        # A bundle that resolves but does not load fails the build.
+        names = bundle_libraries(load_bundle(bundle_dir), config.serve.serve_tier,
+                                 config.serve.tier_routing)
+    report = warm_kernels(names, config.cache.warmup_workers)
+    return {"bundle": None if bundle_dir is None else str(bundle_dir), **report}
 
 
 def register(config: Config) -> str:

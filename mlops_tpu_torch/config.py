@@ -13,13 +13,16 @@ itself is not ported) are the JAX package's, field for field. Two port-only knob
 ``serve.device`` and ``train.device``, say where the entry points run:
 the card unless the caller writes ``cpu``.
 
+``serve`` also holds the keys of the multi-worker ring plane
+(``serve.workers`` >= 2: ``serve/frontend.py``) and ``cache`` the warm
+start (``cache.dir``: the kernel libraries' cache, ``compilecache/``).
+
 Every other key of the JAX tree is here too, declared with ``unported``:
-the 13 keys of the JAX ``ServeConfig`` that its multi-worker plane reads,
-and the sections ``trace``, ``slo``, ``autotune`` (ROADMAP A4) and
-``cache`` (the AOT executable cache, A3). Such a key is accepted at its
-JAX default, where it changes nothing, and ``serve.workers`` also at 1
-(the JAX package's single-process server, as 0 is); any other value is
-refused with a ``ValueError`` naming the item, whichever layer sets it.
+the five keys of the JAX ``ServeConfig`` for the engine replica set,
+tenancy and the event-loop lag sanitizer, and the sections ``trace``,
+``slo`` and ``autotune`` (ROADMAP A4). Such a key is accepted at its JAX
+default, where it changes nothing; any other value is refused with a
+``ValueError`` naming the item, whichever layer sets it.
 
 ``load_config`` builds the tree as the JAX package's does: defaults <-
 TOML (``--config <file>``) <- ``MLOPS_TPU_<SECTION>_<FIELD>``
@@ -43,9 +46,9 @@ from typing import Any
 
 # What each item the refusals name still has to port.
 _ITEMS = {
-    "A3": "warm start: the AOT executable cache and the `warmup` command",
-    "A4": "the serving plane's rest: the multi-worker ring plane, tracing, "
-    "the SLO engine and flight recorder, the autotuner",
+    "A4": "the serving plane's rest: the engine replica set, tenancy, "
+    "tracing, the SLO engine and flight recorder, the autotuner",
+    "A12": "tooling: the event-loop lag sanitizer and the analysis commands",
 }
 
 
@@ -174,7 +177,8 @@ class ServeConfigError(ValueError):
 @dataclasses.dataclass
 class ServeConfig:
     """The JAX package's ``ServeConfig`` keys of the single-process
-    server, with their defaults, plus ``device``."""
+    server and of the multi-worker ring plane, with their defaults, plus
+    ``device``."""
 
     host: str = "0.0.0.0"
     port: int = 5000
@@ -220,21 +224,25 @@ class ServeConfig:
     device: str = "cuda"  # "cpu" runs on the CPU (plain torch route)
     drain_deadline_s: float = 30.0  # SIGTERM: how long busy exchanges may
     # take to finish their response before connections are force-closed
-    # The JAX package's multi-worker plane (ROADMAP A4); 0 and 1 are both
-    # its single-process server.
-    workers: int = unported(0, "A4", accept=(1,))
-    ring_slots_small: int = unported(64, "A4")
-    ring_slots_large: int = unported(4, "A4")
-    shed_retry_after_s: int = unported(1, "A4")
-    zygote_join_deadline_s: float = unported(35.0, "A4")
-    engine_zygote_join_s: float = unported(50.0, "A4")
-    engine_respawn_eta_s: float = unported(5.0, "A4")
+    workers: int = 0  # HTTP front-end processes: 0 and 1 are the
+    # single-process server; N >= 2 binds one port from N SO_REUSEPORT
+    # processes feeding one engine process over the shared-memory ring
+    ring_slots_small: int = 64  # per-front-end request slots of
+    # GROUP_ROW_BUCKET rows (the coalescable class)
+    ring_slots_large: int = 4  # per-front-end slots of max_batch rows
+    shed_retry_after_s: int = 1  # Retry-After of a shed 503
+    zygote_join_deadline_s: float = 35.0  # supervisor drain: one budget
+    # for every front end's join before SIGKILL; covers drain_deadline_s
+    engine_zygote_join_s: float = 50.0  # then the engine's drain budget
+    engine_respawn_eta_s: float = 5.0  # Retry-After of a brownout 503
+    # while the engine process respawns
+    log_sample_rate: float = 1.0  # fraction of requests whose two-event
+    # log pair is written; non-200 answers always log
     engine_replicas: int = unported(1, "A4")
     replica_affinity_slack: int = unported(4, "A4")
     tenants_path: str = unported("", "A4")
-    log_sample_rate: float = unported(1.0, "A4")
-    loop_lag_monitor: bool = unported(False, "A4")
-    loop_lag_slow_ms: float = unported(100.0, "A4")
+    loop_lag_monitor: bool = unported(False, "A12")
+    loop_lag_slow_ms: float = unported(100.0, "A12")
 
     def validate(self) -> "ServeConfig":
         """Reject an inconsistent geometry with the JAX package's messages,
@@ -253,6 +261,8 @@ class ServeConfig:
                 "(solo fast path / monitor fetch) must fit the predict pool "
                 "— raise serve.max_workers or lower serve.max_inflight"
             )
+        if self.workers < 0:
+            problems.append(f"serve.workers={self.workers} must be >= 0")
         if self.batch_window_ms < 0:
             problems.append(
                 f"serve.batch_window_ms={self.batch_window_ms} must be "
@@ -299,9 +309,52 @@ class ServeConfig:
                 "> 0 (a zero drain window severs in-flight responses on "
                 "every rollout)"
             )
+        if self.zygote_join_deadline_s < self.drain_deadline_s:
+            problems.append(
+                f"serve.zygote_join_deadline_s={self.zygote_join_deadline_s}"
+                f" must cover serve.drain_deadline_s={self.drain_deadline_s}"
+                " (the zygote joins children that are themselves draining "
+                "for the full drain window)"
+            )
+        if self.engine_zygote_join_s < self.zygote_join_deadline_s + 5:
+            problems.append(
+                f"serve.engine_zygote_join_s={self.engine_zygote_join_s} "
+                "must exceed serve.zygote_join_deadline_s + 5 "
+                f"(= {self.zygote_join_deadline_s + 5:g}: the zygote's "
+                "child-join budget plus its SIGKILL grace — a shorter "
+                "engine wait SIGKILLs a zygote that is still joining "
+                "cleanly)"
+            )
+        if self.workers > 1:
+            if self.ring_slots_small < 1 or self.ring_slots_large < 1:
+                problems.append(
+                    f"serve.ring_slots_small={self.ring_slots_small} / "
+                    f"serve.ring_slots_large={self.ring_slots_large} must "
+                    "each be >= 1 with serve.workers > 1 (every front end "
+                    "needs at least one slot per bucket class, or whole "
+                    "request classes would shed 100%)"
+                )
+            if self.shed_retry_after_s < 1:
+                problems.append(
+                    f"serve.shed_retry_after_s={self.shed_retry_after_s} "
+                    "must be >= 1 (the shed 503 contract promises a "
+                    "positive Retry-After)"
+                )
+            if self.engine_respawn_eta_s <= 0:
+                problems.append(
+                    f"serve.engine_respawn_eta_s={self.engine_respawn_eta_s}"
+                    " must be > 0 (the brownout 503 contract promises a "
+                    "positive respawn-ETA Retry-After)"
+                )
         if self.model_shards < 1:
             problems.append(
                 f"serve.model_shards={self.model_shards} must be >= 1"
+            )
+        if not 0.0 < self.log_sample_rate <= 1.0:
+            problems.append(
+                f"serve.log_sample_rate={self.log_sample_rate} must be in "
+                "(0, 1] (0 would silence even the always-logged errors' "
+                "InferenceData events; sample DOWN, never off)"
             )
         if problems:
             raise ServeConfigError("; ".join(problems))
@@ -519,12 +572,14 @@ class AutotuneConfig:
 
 @dataclasses.dataclass
 class CacheConfig:
-    """The JAX package's ``CacheConfig`` (``mlops_tpu/config.py:1009``):
-    the AOT executable cache, which the port does not have (ROADMAP A3;
-    its kernels build at first use, ``ops/cuda_build.py``)."""
+    """The JAX package's ``CacheConfig`` (``mlops_tpu/config.py:1009``).
+    The JAX package caches compiled XLA executables there; the port
+    caches its kernel libraries (``compilecache/``): with ``dir`` set,
+    every kernel builds into and loads from ``<dir>/kernels/``, and
+    ``warmup --cache-dir <dir>`` fills it ahead of serving."""
 
-    dir: str = unported("", "A3")
-    warmup_workers: int = unported(0, "A3")
+    dir: str = ""  # empty: the kernels build into build/kernels/
+    warmup_workers: int = 0  # parallel nvcc builds of `warmup` (0: serial)
 
 
 @dataclasses.dataclass

@@ -2,9 +2,14 @@
 
 The kernels have a plain C interface and are loaded with ``ctypes``, so a
 build is one ``nvcc`` call of a few seconds. Libraries land in
-``build/kernels/`` at the root of the checkout, named by a hash of the
-source and the flags, and a later call (or another process) reuses a
-library that is already there. Nothing here builds at import time.
+``build/kernels/`` at the root of the checkout, or in
+``<cache.dir>/kernels/`` once ``set_cache_dir`` names a cache (the warm
+start, ``compilecache/``), named by a hash of the source and the flags,
+and a later call (or another process) reuses a library that is already
+there. Each library is written under a private name and renamed into
+place, with the sha256 of its bytes beside it; a library whose bytes do
+not match (truncated, corrupted) is discarded and rebuilt, never loaded.
+Nothing here builds at import time.
 
 Beside ``build_shared_library``: ``KernelLibrary`` (one source's
 library, built and bound at first use) and ``LaunchCounter`` (the count
@@ -34,6 +39,25 @@ NVCC_FLAGS = (
 )
 
 
+_cache_dir: Path | None = None
+_nvcc_calls = 0  # nvcc runs of this process (a warm start makes none)
+
+
+def set_cache_dir(cache_dir: str | Path | None) -> None:
+    """Build into and load from ``<cache_dir>/kernels/`` (``cache.dir``);
+    None or empty goes back to ``build/kernels/``."""
+    global _cache_dir
+    _cache_dir = Path(cache_dir) if cache_dir else None
+
+
+def kernel_dir() -> Path:
+    return _cache_dir / "kernels" if _cache_dir is not None else BUILD_DIR
+
+
+def nvcc_calls() -> int:
+    return _nvcc_calls
+
+
 @dataclasses.dataclass(frozen=True)
 class BuildResult:
     path: Path
@@ -57,42 +81,67 @@ def find_nvcc() -> str:
     return found
 
 
+def _sha256(path: Path) -> str:
+    return hashlib.sha256(path.read_bytes()).hexdigest()
+
+
+def _atomic_write(path: Path, data: str) -> None:
+    tmp = path.with_name(f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    tmp.write_text(data)
+    os.replace(tmp, path)
+
+
 def build_shared_library(source: Path, name: str) -> BuildResult:
-    """Compile ``source`` into ``build/kernels/lib<name>-<hash>.so``.
+    """Compile ``source`` into ``<kernel dir>/lib<name>-<hash>.so``, or
+    reuse the library there when its recorded sha256 matches its bytes.
 
     The hash covers the source, the headers (``*.cuh``) beside it, which
     a source includes by relative path, and the flags.
     """
+    global _nvcc_calls
     source = Path(source)
     headers = sorted(source.parent.glob("*.cuh"))
     digest = hashlib.sha256(
         b"".join(path.read_bytes() for path in (source, *headers))
         + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out_dir = kernel_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out = out_dir / f"lib{name}-{digest}.so"
     log_path = out.with_suffix(".log")
+    sum_path = out.with_name(out.name + ".sha256")
     if out.exists():
-        log = log_path.read_text() if log_path.exists() else ""
-        return BuildResult(out, 0.0, log, reused=True)
+        recorded = sum_path.read_text().strip() if sum_path.exists() else ""
+        if recorded == _sha256(out):
+            log = log_path.read_text() if log_path.exists() else ""
+            return BuildResult(out, 0.0, log, reused=True)
+        # A library that is not the one that was written: never loaded.
+        out.unlink(missing_ok=True)
     nvcc = find_nvcc()
     # Build under a private name and rename into place, so a concurrent
     # process never loads a half-written library.
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
     t0 = time.perf_counter()
     proc = subprocess.run(
         [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)],
         capture_output=True,
         text=True,
     )
+    _nvcc_calls += 1
     seconds = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for {source}:\n{log}")
-    log_path.write_text(log)
+    _atomic_write(log_path, log)
+    _atomic_write(sum_path, _sha256(tmp))
     os.replace(tmp, out)
     return BuildResult(out, seconds, log, reused=False)
+
+
+# Every kernel library of the package, in the order their modules made
+# them (what ``warmup`` builds without a bundle).
+KERNEL_LIBRARIES: list["KernelLibrary"] = []
 
 
 class KernelLibrary:
@@ -108,12 +157,16 @@ class KernelLibrary:
         self._bind = bind
         self._lock = threading.Lock()
         self._lib: ctypes.CDLL | None = None
+        KERNEL_LIBRARIES.append(self)
+
+    def build(self) -> BuildResult:
+        """Build the library into the kernel directory, or reuse it."""
+        return build_shared_library(self.source, self.name)
 
     def load(self) -> ctypes.CDLL:
         with self._lock:
             if self._lib is None:
-                path = build_shared_library(self.source, self.name).path
-                lib = ctypes.CDLL(str(path))
+                lib = ctypes.CDLL(str(self.build().path))
                 self._bind(lib)
                 self._lib = lib
             return self._lib

@@ -701,6 +701,18 @@ class InferenceEngine:
             "drift_sum": drift_sum.tolist(),
         }
 
+    def seed_monitor_totals(self, rows: float, outliers: float, batches: float,
+                            drift_sum: np.ndarray, drift_last: np.ndarray) -> None:
+        """Start the host totals from a predecessor's last published
+        aggregate (the ring plane's respawned engine process), so the
+        exported counters stay monotone across engine processes."""
+        with self._totals_lock:
+            self._totals.update(
+                rows=float(rows), outliers=float(outliers), batches=float(batches),
+                drift_sum=np.asarray(drift_sum, np.float64).copy(),
+                drift_last=np.asarray(drift_last, np.float64).copy(),
+            )
+
     def _fold_back(self, window: torch.Tensor) -> None:
         """Merge an unread window (the older) into the live accumulator
         (the newer) in place: counters and sums add, ``drift_last`` stays

@@ -1,17 +1,21 @@
 """A small asyncio HTTP/1.1 server for the engine (exact or quant tier,
-or both with SLO tier routing).
+or both with SLO tier routing): the single-process plane.
 
-The JAX package's single-process plane (``serve/httpcore.py`` +
-``serve/server.py``), without tenancy, tracing spans, the SLO engine,
-lifecycle or the ring plane (ROADMAP A4):
+The JAX package's single-process plane (``serve/server.py`` over
+``serve/httpcore.py``), without tenancy, tracing spans, the SLO engine
+or lifecycle (ROADMAP A4). The HTTP protocol, the docs and health routes
+and the ``POST /predict`` shell are ``serve/httpcore.py``'s, shared with
+the multi-worker front ends (``serve/frontend.py``); this module scores
+in process:
 
 - ``POST /predict`` — validate (422), cap the batch (413), log the
   reference's two structured events (``InferenceData`` before scoring,
-  ``ModelOutput`` after), then score through the micro-batcher
-  (``serve/batcher.py``): concurrent small requests coalesce into one
-  grouped dispatch, up to ``max_inflight`` dispatches overlap. The
-  request deadline (``x-request-deadline-ms``; ``serve.request_timeout_s``
-  for a stalled device) answers 504; any scoring failure 500. With
+  ``ModelOutput`` after; ``serve.log_sample_rate`` samples the pair),
+  then score through the micro-batcher (``serve/batcher.py``): concurrent
+  small requests coalesce into one grouped dispatch, up to
+  ``max_inflight`` dispatches overlap. The request deadline
+  (``x-request-deadline-ms``; ``serve.request_timeout_s`` for a stalled
+  device) answers 504; any scoring failure 500. With
   ``serve.tier_routing`` each request's SLO class (``x-slo-class``, or a
   tight deadline) picks its tier, and the brownout governor demotes
   default-class traffic to the cheaper tier under load;
@@ -36,27 +40,18 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import contextlib
-import json
 import logging
 import os
-import re
 import signal
 import threading
-import uuid
 from typing import Any
 
 from mlops_tpu_torch.config import ServeConfig
 from mlops_tpu_torch.ops.quant_kernel import quant_kernel_launches
-from mlops_tpu_torch.schema.validate import validate_records
 from mlops_tpu_torch.serve.batcher import MicroBatcher
 from mlops_tpu_torch.serve.engine import InferenceEngine
-from mlops_tpu_torch.serve.openapi import SWAGGER_HTML, build_openapi
-from mlops_tpu_torch.serve.tierroute import (
-    SLO_DEFAULT,
-    TIERS,
-    BrownoutGovernor,
-    resolve_slo_class,
-)
+from mlops_tpu_torch.serve.httpcore import HttpProtocol, _LazyJson
+from mlops_tpu_torch.serve.tierroute import TIERS, BrownoutGovernor
 from mlops_tpu_torch.serve.wire import (
     DeadlineExceeded,
     deadline_response,
@@ -64,64 +59,6 @@ from mlops_tpu_torch.serve.wire import (
 )
 
 logger = logging.getLogger("mlops_tpu_torch.serve")
-
-_REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found",
-            409: "Conflict", 413: "Payload Too Large",
-            422: "Unprocessable Entity", 500: "Internal Server Error",
-            503: "Service Unavailable", 504: "Gateway Timeout"}
-_REQUEST_ID_RE = re.compile(r"^[A-Za-z0-9_-]{1,64}$")
-MAX_BODY_BYTES = 16 * 1024 * 1024
-
-_DOCS_HTML = """<!doctype html>
-<html><head><title>{title}</title></head>
-<body style="font-family: sans-serif; max-width: 42rem; margin: 2rem auto">
-<h1>{title}</h1>
-<p>Credit-default inference service on a CUDA card.</p>
-<ul>
-<li><code>POST /predict</code> — body: JSON list of loan-applicant records;
-returns <code>{{"predictions": [...], "outliers": [...],
-"feature_drift_batch": {{...}}}}</code></li>
-<li><code>GET /healthz/live</code> — liveness probe</li>
-<li><code>GET /healthz/ready</code> — readiness probe (bundle loaded + programs warm)</li>
-<li><code>GET /metrics</code> — Prometheus metrics</li>
-<li><code>POST /debug/profile/start</code>, <code>POST /debug/profile/stop</code>
-— capture a <code>torch.profiler</code> trace (view in TensorBoard)</li>
-</ul>
-</body></html>"""
-
-
-def _json_default(obj):
-    # A ModelOutput event embeds the response's pre-encoded wire bytes;
-    # parsing them back keeps the logged JSON identical to the dict form.
-    if isinstance(obj, (bytes, bytearray)):
-        return json.loads(obj)
-    raise TypeError(f"Object of type {type(obj).__name__} is not JSON serializable")
-
-
-class _LazyJson:
-    """Defer the dumps of a log payload until a handler emits it."""
-
-    __slots__ = ("_payload",)
-
-    def __init__(self, payload):
-        self._payload = payload
-
-    def __str__(self) -> str:
-        return json.dumps(
-            self._payload, separators=(",", ":"), default=_json_default
-        )
-
-
-def health_verdict(ready: bool) -> tuple[int, dict[str, Any], str]:
-    """The ``/healthz`` answer of the JAX package's single-process server
-    with its SLO engine disarmed (``slo/engine.py::health_verdict`` with
-    no view): "ok" once ready, else "down" with a 503."""
-    verdict, status = ("ok", 200) if ready else ("down", 503)
-    return (
-        status,
-        {"verdict": verdict, "ready": bool(ready), "alerts": []},
-        "application/json",
-    )
 
 
 class TorchProfiler:
@@ -193,7 +130,8 @@ class Metrics:
         self.tier_demotions = 0
         self.brownout_demotions = 0
 
-    def observe_request(self, route: str, status: int) -> None:
+    def observe_request(self, route: str, status: int,
+                        latency_ms: float = 0.0) -> None:
         with self._lock:
             key = (route, status)
             self.requests[key] = self.requests.get(key, 0) + 1
@@ -277,10 +215,10 @@ class Metrics:
         return "\n".join(lines) + "\n"
 
 
-class HttpServer:
+class HttpServer(HttpProtocol):
     def __init__(self, engine: InferenceEngine, config: ServeConfig):
+        super().__init__(config.validate())
         self.engine = engine
-        self.config = config.validate()
         self.metrics = Metrics()
         # The request cap never exceeds the largest warmed bucket.
         self.max_batch = min(config.max_batch, engine.max_bucket)
@@ -321,18 +259,12 @@ class HttpServer:
         )
         self._score_inflight = 0
         self._score_capacity = max(1, max_inflight * self.batcher.max_group)
-        self._openapi: dict | None = None  # built once, on first request
         # Monitor telemetry: the request path only counts requests; the
         # aggregate is read off the hot path (after K requests, on the
         # timer, on scrapes) through one single-flight task.
         self._monitor_requests = 0
         self._monitor_task: asyncio.Task | None = None
         self._monitor_timer_task: asyncio.Task | None = None
-        # Event-loop confined, like the fields above: touched only from
-        # coroutines on the loop.
-        self.draining = False
-        self._connections: set[asyncio.StreamWriter] = set()
-        self._busy: set[asyncio.StreamWriter] = set()
 
     async def start(self) -> asyncio.AbstractServer:
         if self.config.monitor_fetch_every_s > 0:
@@ -353,34 +285,6 @@ class HttpServer:
         self._executor.shutdown(wait=True)
 
     # ------------------------------------------------------------- scoring
-    async def _predict(self, body: bytes, request_id: str,
-                       deadline: float | None, slo: int):
-        records, errors = validate_records(body)
-        if errors:
-            return 422, {"detail": errors}
-        if len(records) > self.max_batch:
-            return 413, {
-                "detail": f"batch of {len(records)} exceeds "
-                f"max_batch={self.max_batch}"
-            }
-        if deadline is not None and asyncio.get_running_loop().time() >= deadline:
-            # Expired at admission: no encode, no dispatch.
-            self.metrics.count_deadline_expired()
-            return deadline_response()
-        name = self.config.service_name
-        logger.info("%s", _LazyJson({
-            "service_name": name, "type": "InferenceData",
-            "request_id": request_id, "data": records,
-        }))
-        response = await self._score(records, request_id, deadline, slo)
-        if isinstance(response, tuple):
-            return response
-        logger.info("%s", _LazyJson({
-            "service_name": name, "type": "ModelOutput",
-            "request_id": request_id, "data": response,
-        }))
-        return 200, response
-
     async def _score(self, records: list[dict], request_id: str,
                      deadline: float | None, slo: int):
         """Micro-batcher -> engine, with the deadline and failure
@@ -495,175 +399,6 @@ class HttpServer:
     # -------------------------------------------------------------- routes
     def _ready(self) -> bool:
         return bool(self.engine.ready) and not self.draining
-
-    def _request_deadline(self, headers: dict[str, str]) -> float | None:
-        """Absolute loop-clock deadline from a well-formed
-        ``x-request-deadline-ms`` (positive ASCII digits), else None;
-        malformed values are ignored, as the header is a hint."""
-        raw = headers.get("x-request-deadline-ms", "")
-        if raw and raw.isascii() and raw.isdigit() and int(raw) > 0:
-            return asyncio.get_running_loop().time() + int(raw) / 1e3
-        return None
-
-    def _request_slo(self, headers: dict[str, str]) -> int:
-        """The SLO class at admission: an explicit ``x-slo-class`` wins,
-        else a deadline budget at or under ``slo_cheap_deadline_ms`` routes
-        cheap; default when routing is off."""
-        if not self.slo_routing:
-            return SLO_DEFAULT
-        raw = headers.get("x-request-deadline-ms", "")
-        deadline_ms = (
-            float(raw)
-            if raw and raw.isascii() and raw.isdigit() and int(raw) > 0
-            else None
-        )
-        return resolve_slo_class(
-            headers.get("x-slo-class", ""), deadline_ms,
-            self.config.slo_cheap_deadline_ms,
-        )
-
-    async def _route(self, method: str, path: str, body: bytes,
-                     request_id: str, headers: dict[str, str]):
-        if path == "/predict" and method == "POST":
-            return await self._predict(
-                body, request_id, self._request_deadline(headers),
-                self._request_slo(headers),
-            )
-        if path.startswith("/debug/profile/") and method == "POST":
-            return await self._profile(path.removeprefix("/debug/profile/"))
-        if method == "GET":
-            title = self.config.service_name
-            if path == "/":
-                return 200, SWAGGER_HTML.format(title=title), "text/html"
-            if path == "/docs/plain":
-                return 200, _DOCS_HTML.format(title=title), "text/html"
-            if path == "/openapi.json":
-                if self._openapi is None:
-                    self._openapi = build_openapi(title)
-                return 200, self._openapi
-            if path == "/healthz":
-                return health_verdict(self._ready())
-            if path == "/healthz/live":
-                return 200, {"status": "alive"}
-            if path == "/healthz/ready":
-                if self._ready():
-                    return 200, {"status": "ready"}
-                return 503, {"status": "warming"}
-            if path == "/metrics":
-                return await self._metrics_endpoint()
-        return 404, {"detail": "not found"}
-
-    # ---------------------------------------------------------- HTTP layer
-    async def handle_connection(
-        self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter
-    ) -> None:
-        self._connections.add(writer)
-        try:
-            while True:
-                request_line = await reader.readline()
-                if not request_line:
-                    break
-                try:
-                    method, path, _ = request_line.decode("latin1").split(" ", 2)
-                except ValueError:
-                    await self._write(writer, 400, {"detail": "bad request"}, False)
-                    break
-                headers: dict[str, str] = {}
-                while True:
-                    line = await reader.readline()
-                    if line in (b"\r\n", b"\n", b""):
-                        break
-                    name, _, value = line.decode("latin1").partition(":")
-                    headers[name.strip().lower()] = value.strip()
-                if "transfer-encoding" in headers:
-                    await self._write(
-                        writer, 400,
-                        {"detail": "transfer-encoding not supported"}, False,
-                    )
-                    break
-                raw_length = headers.get("content-length", "")
-                if raw_length.isascii() and raw_length.isdigit():
-                    length = int(raw_length)
-                elif not raw_length:
-                    length = 0
-                else:
-                    await self._write(
-                        writer, 400, {"detail": "bad content-length"}, False
-                    )
-                    break
-                if length > MAX_BODY_BYTES:
-                    await self._write(
-                        writer, 413,
-                        {"detail": f"body exceeds {MAX_BODY_BYTES} bytes"},
-                        False,
-                    )
-                    break
-                body = await reader.readexactly(length) if length else b""
-                keep_alive = (
-                    headers.get("connection", "keep-alive") != "close"
-                    and not self.draining
-                )
-                inbound = headers.get("x-request-id", "")
-                request_id = (
-                    inbound if _REQUEST_ID_RE.match(inbound)
-                    else uuid.uuid4().hex
-                )
-                route = path.split("?", 1)[0]
-                self._busy.add(writer)
-                try:
-                    status, payload, *ctype = await self._route(
-                        method, route, body, request_id, headers
-                    )
-                    self.metrics.observe_request(route, status)
-                    keep_alive = keep_alive and not self.draining
-                    await self._write(
-                        writer, status, payload, keep_alive, request_id,
-                        ctype[0] if ctype else "application/json",
-                    )
-                finally:
-                    self._busy.discard(writer)
-                if not keep_alive:
-                    break
-        except (asyncio.IncompleteReadError, ConnectionResetError, BrokenPipeError):
-            pass
-        finally:
-            self._connections.discard(writer)
-            writer.close()
-            try:
-                await writer.wait_closed()
-            except (ConnectionResetError, BrokenPipeError):
-                pass
-
-    async def _write(
-        self, writer, status: int, payload, keep_alive: bool = True,
-        request_id: str | None = None, content_type: str = "application/json",
-    ) -> None:
-        if isinstance(payload, (dict, list)):
-            body = json.dumps(payload, separators=(",", ":")).encode()
-        elif isinstance(payload, str):
-            body = payload.encode()
-        else:
-            body = payload
-        head = (
-            f"HTTP/1.1 {status} {_REASONS.get(status, 'OK')}\r\n"
-            f"content-type: {content_type}\r\n"
-            f"content-length: {len(body)}\r\n"
-        )
-        if request_id:
-            head += f"x-request-id: {request_id}\r\n"
-        head += "connection: keep-alive\r\n\r\n" if keep_alive else (
-            "connection: close\r\n\r\n"
-        )
-        writer.write(head.encode() + body)
-        await writer.drain()
-
-    def begin_drain(self, srv: asyncio.AbstractServer) -> None:
-        """Stop accepting, report not-ready, close idle connections; busy
-        exchanges finish their current response."""
-        self.draining = True
-        srv.close()
-        for w in list(self._connections - self._busy):
-            w.close()
 
 
 async def serve(engine: InferenceEngine, config: ServeConfig) -> None:

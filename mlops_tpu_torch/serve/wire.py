@@ -23,6 +23,10 @@ GROUP_SLOT_BUCKETS = (2, 4, 8, 16, 32, 64)
 GROUP_ROW_BUCKETS = (1, 8)
 GROUP_ROW_BUCKET = GROUP_ROW_BUCKETS[-1]
 
+# A ring slot's response status (serve/ipc.py): scored, failed, or
+# completed unscored because its deadline budget ran out in the queue.
+RESP_OK, RESP_ERROR, RESP_EXPIRED = 0, 1, 2
+
 
 class DeadlineExceeded(Exception):
     """A request's deadline budget (``x-request-deadline-ms``) ran out

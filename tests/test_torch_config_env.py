@@ -7,8 +7,10 @@ with the same text. Every key of the JAX config tree that the port has not
 ported (the JAX dataclass fields minus the port's ported ones, enumerated
 here from the two trees) is accepted at its JAX default and refused,
 naming its ROADMAP item, at any other value, whether the environment, the
-TOML or a CLI override sets it; ``serve.workers`` is accepted at 0 and 1,
-both the JAX package's single-process server."""
+TOML or a CLI override sets it. The ten keys of the ring plane and the warm
+start (``serve.workers`` and its geometry, ``cache.dir``,
+``cache.warmup_workers``) are ported: off their defaults, each layer gives
+the JAX loader's value."""
 
 import dataclasses
 import warnings
@@ -62,9 +64,11 @@ def test_the_unported_keys_are_the_jax_keys_the_port_lacks():
     assert set(PORT_FIELDS) - set(JAX_FIELDS) == {"serve.device", "train.device"}
     for key in JAX_ONLY:
         assert PORT_FIELDS[key][1] == JAX_FIELDS[key][1], key  # the JAX default
-    assert {k.split(".")[0] for k in JAX_ONLY} == {"serve", "trace", "slo", "autotune", "cache"}
-    assert {k for k, item in ITEM.items() if item == "A3"} == {"cache.dir", "cache.warmup_workers"}
-    assert sum(k.startswith("serve.") for k in JAX_ONLY) == 13
+    assert {k.split(".")[0] for k in JAX_ONLY} == {"serve", "trace", "slo", "autotune"}
+    assert not [k for k, item in ITEM.items() if item == "A3"]
+    assert sum(k.startswith("serve.") for k in JAX_ONLY) == 5
+    assert {k for k, item in ITEM.items() if item == "A12"} == {
+        "serve.loop_lag_monitor", "serve.loop_lag_slow_ms"}
 
 
 def test_shared_keys_come_out_equal():
@@ -129,6 +133,31 @@ def test_a_key_the_port_lacks_is_refused_off_its_default(key, tmp_path):
     assert getattr(getattr(config, section), field) == default
 
 
+RING_AND_WARM_START = [
+    "serve.workers", "serve.ring_slots_small", "serve.ring_slots_large",
+    "serve.shed_retry_after_s", "serve.engine_respawn_eta_s",
+    "serve.zygote_join_deadline_s", "serve.engine_zygote_join_s",
+    "serve.log_sample_rate", "cache.dir", "cache.warmup_workers",
+]
+
+
+@pytest.mark.parametrize("key", RING_AND_WARM_START)
+def test_a_ported_key_matches_jax_off_its_default(key, tmp_path):
+    assert key in PORTED
+    section, field = key.split(".")
+    default = JAX_FIELDS[key][1]
+    assert PORT_FIELDS[key][1] == default
+    other = _other_value(default)
+    toml = tmp_path / "c.toml"
+    toml.write_text(f'[{section}]\n{field} = {other if not isinstance(default, str) else repr(other)}\n')
+    for kwargs in (dict(env={_env_key(key): other}), dict(overrides=[f"{key}={other}"], env={}),
+                   dict(toml_path=toml, env={})):
+        jax = jax_load_config(**kwargs)
+        port = load_config(**kwargs)
+        got = getattr(getattr(port, section), field)
+        assert got == getattr(getattr(jax, section), field) != default, kwargs
+
+
 @pytest.mark.parametrize("workers", ["0", "1"])
 def test_workers_zero_and_one_are_the_single_process_server(workers):
     jax, port, _ = _both({"MLOPS_TPU_SERVE_WORKERS": workers})
@@ -136,12 +165,12 @@ def test_workers_zero_and_one_are_the_single_process_server(workers):
 
 
 def test_the_cli_exits_naming_the_item(monkeypatch):
-    monkeypatch.setenv("MLOPS_TPU_SERVE_WORKERS", "2")
-    with pytest.raises(SystemExit, match="serve.workers=2 refused: .*ROADMAP A4"):
+    monkeypatch.setenv("MLOPS_TPU_SERVE_ENGINE_REPLICAS", "2")
+    with pytest.raises(SystemExit, match="serve.engine_replicas=2 refused: .*ROADMAP A4"):
         main(["serve", "serve.device=cpu"])
-    monkeypatch.delenv("MLOPS_TPU_SERVE_WORKERS")
-    monkeypatch.setenv("MLOPS_TPU_CACHE_DIR", "/srv/compile-cache")
-    with pytest.raises(SystemExit, match="cache.dir='/srv/compile-cache' refused: .*ROADMAP A3"):
+    monkeypatch.delenv("MLOPS_TPU_SERVE_ENGINE_REPLICAS")
+    monkeypatch.setenv("MLOPS_TPU_TRACE_ENABLED", "true")
+    with pytest.raises(SystemExit, match="trace.enabled=True refused: .*ROADMAP A4"):
         main(["versions"])
 
 

@@ -1063,4 +1063,100 @@ def test_the_deployed_job_on_a_bucket_tunes_and_serves_on_the_card():
         "hpo.steps=30", "train.batch_size=128"))
     assert out["requests_answered"] == 4
     assert out["max_pred_gap_to_cpu"] <= chip_smoke.EXACT_PRED_ATOL + 1e-6
-    assert set(out["refusals"]) == {"MLOPS_TPU_SERVE_WORKERS", "MLOPS_TPU_CACHE_DIR"}
+    assert out["ring_max_pred_gap_to_cpu"] <= chip_smoke.EXACT_PRED_ATOL + 1e-6
+    assert set(out["refusals"]) == {"MLOPS_TPU_SERVE_ENGINE_REPLICAS"}
+
+
+# ------------------------------------------------------------ the ring plane
+@pytest.mark.gpu
+def test_a_two_worker_plane_on_the_card_answers_like_the_cpu_route(tmp_path):
+    """``serve serve.workers=2`` on the card at a small size (an mlp with a
+    gated quant student, tier routing, the kernel cache in ``cache.dir``):
+    exact- and quant-tier answers against the port's CPU route (exact 1.6e-2
+    + 1e-6, quant 1e-6, drift 1e-5, flags exact off the 1e-5 band), one
+    ``quant_fused`` launch per quant-tier dispatch, and a drain exiting 0."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    import urllib.request
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the engine process serves on it")
+    import chip_smoke
+    from mlops_tpu_torch.bundle import load_bundle, save_exact_bundle
+    from mlops_tpu_torch.config import ModelConfig
+    from mlops_tpu_torch.models import build_model
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    columns, _ = generate_synthetic(3000, seed=0)
+    prep = Preprocessor.fit(columns)
+    config = ModelConfig(hidden_dims=(32, 32), embed_dim=4, precision="bf16")
+    model = build_model(config)
+    chip_smoke._seeded_exact_params(model, 0)
+    bundle_dir = tmp_path / "bundle"
+    save_exact_bundle(bundle_dir, config, model, prep,
+                      fit_monitor(prep.encode(columns), drift_ref_size=256),
+                      calibration={"temperature": 1.2},
+                      quant_params=quantize_student(init_quant_master(0)),
+                      quant={"fidelity": {}, "temperature": 1.1, "gates": {"passed": True}})
+    port = chip_smoke._free_port()
+    root = Path(__file__).resolve().parent.parent
+    log = open(tmp_path / "plane.log", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mlops_tpu_torch", "serve", "serve.workers=2",
+         "serve.tier_routing=true", f"serve.model_directory={bundle_dir}",
+         f"serve.port={port}", "serve.host=127.0.0.1", "serve.warmup_batch_sizes=1,8,64"],
+        cwd=root, stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=str(root), MLOPS_TPU_CACHE_DIR=str(tmp_path / "cache")))
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            assert proc.poll() is None, (tmp_path / "plane.log").read_text()[-3000:]
+            try:
+                if chip_smoke._http(port, "GET", "/healthz/ready")[0] == 200:
+                    break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline
+            time.sleep(0.2)
+        bundle = load_bundle(bundle_dir)
+        cpu = InferenceEngine(bundle, buckets=(1, 8, 64), device="cpu", tier_routing=True)
+        mon = bundle.monitor
+        launches = chip_smoke._metric(chip_smoke._http(port, "GET", "/metrics")[1].decode(),
+                                      "mlops_tpu_kernel_launches_total")  # warmup's
+        for n in (1, 5, 8, 64):
+            columns, _ = generate_synthetic(n, seed=n, drift=0.3)
+            recs = [{k: columns[k][i] for k in columns} for i in range(n)]
+            for cheap in (False, True):
+                request = urllib.request.Request(
+                    f"http://127.0.0.1:{port}/predict", data=json.dumps(recs).encode(),
+                    headers={"x-slo-class": "cheap"} if cheap else {})
+                got = json.loads(urllib.request.urlopen(request, timeout=60).read())
+                want = cpu.predict_records(recs, tier="quant" if cheap else None)
+                np.testing.assert_allclose(got["predictions"], want["predictions"], rtol=0,
+                                           atol=PRED_ATOL if cheap else 1.6e-2 + 1e-6)
+                np.testing.assert_allclose(list(got["feature_drift_batch"].values()),
+                                           list(want["feature_drift_batch"].values()),
+                                           rtol=0, atol=1e-5 + 1e-6)
+                num = torch.from_numpy(prep.encode(columns).numeric)
+                d2 = mahalanobis_sq(num, mon.out_mean, mon.out_precision)
+                off = ((d2 - mon.out_threshold).abs() > FLAG_BAND * mon.out_threshold.abs())
+                assert (np.asarray(got["outliers"]) == np.asarray(want["outliers"]))[
+                    off.numpy()].all()
+        text = chip_smoke._http(port, "GET", "/metrics")[1].decode()
+        quant = sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                    if line.startswith("mlops_tpu_dispatches_total{") and "@quant" in line)
+        assert quant == 4
+        assert chip_smoke._metric(text, "mlops_tpu_kernel_launches_total") - launches == quant
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+

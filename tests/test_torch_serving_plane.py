@@ -47,7 +47,7 @@ from mlops_tpu_torch.data import Preprocessor
 from mlops_tpu_torch.models import build_model
 from mlops_tpu_torch.ops.quant import init_quant_master, quantize_student
 from mlops_tpu_torch.schema.validate import records_to_columns
-from mlops_tpu_torch.serve import server as server_module
+from mlops_tpu_torch.serve import httpcore
 from mlops_tpu_torch.serve import tierroute as troute
 from mlops_tpu_torch.serve.engine import InferenceEngine
 from mlops_tpu_torch.serve.server import HttpServer
@@ -241,13 +241,13 @@ def test_batch_window_zero_scores_every_request_alone(serving, bundle_dir, jax_e
 def test_a_deadline_spent_at_admission_answers_the_jax_504(serving, monkeypatch):
     """A slow body parse spends a 1 ms budget: 504 with the JAX body, no
     dispatch, counted in mlops_tpu_deadline_expired_total."""
-    real = server_module.validate_records
+    real = httpcore.validate_records
 
     def slow(body):
         time.sleep(0.01)
         return real(body)
 
-    monkeypatch.setattr(server_module, "validate_records", slow)
+    monkeypatch.setattr(httpcore, "validate_records", slow)
     s = serving()
     status, body, _ = s.request("POST", "/predict", json.dumps(_records(1, 3)).encode(),
                                 {"x-request-deadline-ms": "1"})
@@ -276,6 +276,38 @@ def test_a_purged_entry_answers_504_and_counts(bundle_dir):
 
     assert asyncio.run(drive()) == jax_deadline_response()
     assert server.metrics.deadline_expired == 1
+    server.close()
+
+
+@pytest.mark.parametrize("draw,fails,events", [
+    (0.1, False, ["InferenceData", "ModelOutput"]),  # sampled
+    (0.9, False, []),  # not sampled: a 200 logs nothing
+    (0.9, True, ["InferenceData"]),  # not sampled, but an error always logs
+])
+def test_log_sample_rate_samples_the_event_pair_but_never_an_error(
+        bundle_dir, monkeypatch, caplog, draw, fails, events):
+    """``serve.log_sample_rate`` as in the JAX package's shell
+    (``mlops_tpu/serve/httpcore.py:286-326``): a request is sampled when
+    its draw falls under the rate; an unsampled one that does not answer
+    200 logs its InferenceData event after the fact."""
+    server = HttpServer(_engine(bundle_dir), ServeConfig(log_sample_rate=0.5))
+    monkeypatch.setattr(httpcore.random, "random", lambda: draw)
+    if fails:
+        async def purged(records, deadline=None, tier=None):
+            raise DeadlineExceeded()
+
+        server.batcher.predict = purged
+
+    async def drive():
+        return await server._predict(json.dumps(_records(2, 5)).encode(), "rid", None,
+                                     troute.SLO_DEFAULT)
+
+    with caplog.at_level("INFO", logger="mlops_tpu_torch.serve"):
+        status = asyncio.run(drive())[0]
+    assert status == (504 if fails else 200)
+    logged = [json.loads(r.getMessage())["type"] for r in caplog.records
+              if r.getMessage().startswith("{")]
+    assert logged == events
     server.close()
 
 
