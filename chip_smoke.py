@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card of compute capability 9.0 and exits non-zero,
 printing no result, without one (or when run from a directory that holds
 this script and nothing else of the repository). It imports torch and the
-port (``mlops_tpu_torch``), never JAX or the JAX package. Nine main
+port (``mlops_tpu_torch``), never JAX or the JAX package. Ten main
 paths: quant-tier serving (``POST /predict`` with
 ``serve.serve_tier=quant``), long-context doc scoring (``predict-file`` on
 a ``doc`` bundle), doc-model training (``train --config
@@ -19,8 +19,10 @@ the distilled students it packages, bulk scoring (``score-batch``, in
 memory and streamed), the deployed training Job (``tune``, then
 ``promote`` and ``serve`` of the registry's production stage), on local
 paths and, as ``kubernetes/train-job.yml`` runs it, on a ``gs://`` bucket,
-and serving as the serving image starts it (``warmup --cache-dir``, then
-``serve`` on the multi-worker ring plane).
+serving as the serving image starts it (``warmup --cache-dir``, then
+``serve`` on the multi-worker ring plane), and the closed lifecycle loop
+(``serve --config configs/lifecycle_serve.toml``: drift trigger, retrain,
+shadow, gated hot swap, rollback).
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -266,7 +268,30 @@ Phases, each of which fails the run loudly:
     nvcc, the respawned engine's answers bitwise equal to its
     predecessor's), again with the cache emptied (one nvcc), kill -9 of a
     front end (respawn timed), SIGTERM while traffic flows (every answer
-    200, every process exits 0).
+    200, every process exits 0);
+30. the closed lifecycle loop as ``configs/lifecycle_serve.toml`` ships it
+    (the single-process plane, tier routing on phase 22's bundle as the
+    incumbent; only the loop's clocks overridden: ``tick_s`` 0.25,
+    ``cooldown_s`` 2, ``min_window_rows`` 32, ``mirror_fraction`` 1.0): a
+    8,000-row labeled window (numerics x10); ``serve --config ...`` in a
+    subprocess under four keep-alive clients (single records and 8-record
+    bodies, every fourth cheap), normal traffic and then drifted, until
+    the trigger, the retrain on the controller thread, the shadow and the
+    promotion to generation 2 show in the log and on /metrics; every
+    answer 200, /metrics rows equal to the records answered, p50/p99 in
+    four windows (before the trigger, retrain, shadow, after the swap),
+    ``quant_fused`` launches in each (0 after the swap: the candidate has
+    no quant tier), SIGTERM drains; then in this process the engine and
+    ``LifecycleController`` on the same bundle and window, ``run_once``
+    driven to a promotion and ``controller.rollback()``: the candidate's
+    holdout predictions on the card against the CPU route (1.6e-2), a
+    row's answer after the swap bitwise equal to the candidate's eager
+    route and after the rollback to the incumbent's (both tiers), the live
+    aggregate's rows equal to the rows served across both, ``quant_fused``
+    launched before the swap, not after it, once after the rollback; the
+    retrain's wall and step ms, the shadow's warm, the swap's and the
+    rollback's critical sections in µs, the gate record and peak device
+    memory with the graph pools alive.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
@@ -2824,12 +2849,13 @@ def phase_burst(bundle_dir: Path, device: str = "cuda") -> list[dict]:
                 for mode, (port, _, _) in servers.items():
                     before = _scrape(port)
                     out, lat, wall = _run_burst(port, burst, concurrency)
-                    after = _scrape(port)
                     what = f"burst {burst['kind']} c={concurrency} {mode}"
                     worst = _check_burst(burst, out, what)
+                    # A scrape that finds the single-flight monitor fetch
+                    # still in flight renders that fetch's (older) snapshot:
+                    # poll until the rows land, exact, as phase 29 does.
+                    after = _await_rows(port, before, burst["rows"], what)
                     d = {k: after[k] - before[k] for k in before}
-                    check(d["rows"] == burst["rows"],
-                          f"{what}: /metrics rows {d['rows']} != records sent {burst['rows']}")
                     check(d["demotions"] == 0, f"{what}: {d['demotions']} demotions")
                     expected = d["quant_dispatches"] if device == "cuda" else 0
                     check(d["launches"] == expected,
@@ -4261,6 +4287,418 @@ def phase_ring(bundle_dir: Path, device: str = "cuda") -> dict:
     return result
 
 
+# ----------------------------------------------------------------- phase 30
+# The closed lifecycle loop as configs/lifecycle_serve.toml ships it, on the
+# single-process plane: drift trigger -> retrain on the controller thread
+# -> the candidate shadowed on mirrored traffic -> gates -> hot swap; then,
+# in this process (the JAX package offers no HTTP route for it either, its
+# runbook calls controller.rollback() in process), the same loop through
+# to a promotion and rollback(). Only the loop's clocks are overridden
+# (LIFECYCLE_CLOCKS, as scripts/lifecycle_smoke.py sets them; the mirror
+# count keeps the file's 32, so the p99 gate reads more than four
+# samples), plus where its state and labeled window live.
+LIFECYCLE_TOML = "configs/lifecycle_serve.toml"
+LIFECYCLE_CLOCKS = ("lifecycle.tick_s=0.25", "lifecycle.cooldown_s=2",
+                    "lifecycle.min_window_rows=32", "lifecycle.mirror_fraction=1.0")
+# The labeled drifted window (numerics x10). At 2,000 rows the 300-step
+# candidate from phase 22's seeded weights keeps an ECE of 0.11 on its
+# 400-row holdout after temperature scaling, over the file's 0.1 bound; at
+# 8,000 rows it calibrates to ~0.014.
+LIFECYCLE_WINDOW_ROWS = 8000
+LIFECYCLE_HAMMER_THREADS = 4
+LIFECYCLE_WINDOWS = ("before_trigger", "retrain", "shadow", "after_swap")
+
+
+def _drifted_columns(rows: int, seed: int):
+    from mlops_tpu_torch.data import generate_synthetic
+    from mlops_tpu_torch.schema.features import SCHEMA
+
+    columns, labels = generate_synthetic(rows, seed=seed)
+    for feat in SCHEMA.numeric:
+        columns[feat.name] = [v * 10.0 for v in columns[feat.name]]
+    return columns, labels
+
+
+def _lifecycle_bodies(seed: int) -> dict:
+    """Request bodies for the hammer, normal and drifted: single records
+    and 8-record bodies, alternating."""
+    from mlops_tpu_torch.data import generate_synthetic
+
+    out = {}
+    for drifted in (False, True):
+        columns, _ = (_drifted_columns(512, seed) if drifted
+                      else generate_synthetic(512, seed=seed))
+        records = [{k: columns[k][i] for k in columns} for i in range(512)]
+        out[drifted] = [json.dumps(records[8 * k:8 * k + (1 if k % 2 else 8)]).encode()
+                        for k in range(64)]
+    return out
+
+
+def _hammer(port: int, bodies: dict, phase: dict, stop, samples: list) -> None:
+    """One keep-alive client: every fourth request asks for the cheap
+    class; records (send time, ms, status, records)."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    i = 0
+    try:
+        while not stop.is_set():
+            batch = bodies[phase["drift"]]
+            body = batch[i % len(batch)]
+            headers = {"content-type": "application/json"}
+            if i % BURST_CHEAP_EVERY == 0:
+                headers["x-slo-class"] = "cheap"
+            t0 = time.monotonic()
+            try:
+                conn.request("POST", "/predict", body=body, headers=headers)
+                resp = conn.getresponse()
+                resp.read()
+                status = resp.status
+            except (OSError, http.client.HTTPException) as err:
+                status = repr(err)
+                conn.close()
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            samples.append((t0, (time.monotonic() - t0) * 1e3, status,
+                            1 if body.count(b"{") == 1 else 8))
+            i += 1
+    finally:
+        conn.close()
+
+
+def _lifecycle_scrape(port: int) -> dict:
+    _, text = _http(port, "GET", "/metrics")
+    text = text.decode()
+
+    def value(name: str) -> float:
+        for line in text.splitlines():
+            if line.startswith(name + " ") or line.startswith(name + "{"):
+                return float(line.rsplit(" ", 1)[1])
+        return -1.0
+
+    return {
+        "t": time.monotonic(),
+        "rows": value("mlops_tpu_rows_scored_total"),
+        "launches": value("mlops_tpu_kernel_launches_total"),
+        "generation": value('mlops_tpu_bundle_generation{tenant="default"}'),
+        "triggers": value('mlops_tpu_drift_trigger_total{tenant="default"}'),
+        "promoted": value('mlops_tpu_promotions_total{tenant="default",outcome="promoted"}'),
+        "rejected": value('mlops_tpu_promotions_total{tenant="default",outcome="rejected"}'),
+    }
+
+
+def _lifecycle_server(bundle_dir: Path, window: Path, device: str,
+                      extra: tuple[str, ...]) -> dict:
+    """Part one: ``serve --config configs/lifecycle_serve.toml`` in a
+    subprocess under the hammer, normal traffic and then drifted, until a
+    promotion; SIGTERM; the four windows' latency, the quant_fused
+    launches in each, the rows /metrics counted against the records
+    answered."""
+    import numpy as np
+
+    work = WORK / "lifecycle_server"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    port = _free_port()
+    cmd = [sys.executable, "-m", "mlops_tpu_torch", "serve", "--config", LIFECYCLE_TOML,
+           "serve.host=127.0.0.1", f"serve.port={port}", f"serve.device={device}",
+           "serve.tier_routing=true", f"lifecycle.dir={work / 'state'}",
+           f"lifecycle.labeled_path={window}", *LIFECYCLE_CLOCKS, *extra]
+    log(f"lifecycle server: {' '.join(cmd[2:])} (MODEL_DIRECTORY={bundle_dir})")
+    proc = subprocess.Popen(
+        cmd, cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), MODEL_DIRECTORY=str(bundle_dir),
+                 PYTHONFAULTHANDLER="1"),
+    )
+    events: list[tuple[float, str]] = []
+
+    def pump():
+        """Every line into the log file; all but the per-request structured
+        events (InferenceData / ModelOutput) into ``events`` too."""
+        with open(work / "server.log", "w") as out:
+            for line in iter(proc.stdout.readline, ""):
+                if not line.startswith('{"service_name"'):
+                    events.append((time.monotonic(), line))
+                out.write(line)
+
+    pumper = threading.Thread(target=pump, daemon=True)
+    pumper.start()
+
+    def tail() -> str:
+        return "".join(line for _, line in events[-40:])
+
+    def wait_log(pattern: str, seconds: float) -> float:
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            for t, line in list(events):
+                if pattern in line:
+                    return t
+            try:
+                scrapes.append(_lifecycle_scrape(port))
+            except OSError as err:
+                time.sleep(1.0)  # the pump reads the last lines of a dead server
+                raise SmokeFailure(f"lifecycle server: /metrics failed ({err!r}), exit "
+                                   f"code {proc.poll()}; its last lines:\n{tail()}") from err
+            time.sleep(0.25)
+        raise SmokeFailure(f"lifecycle server: no {pattern!r} in {seconds:.0f} s; "
+                           f"its last lines:\n{tail()}")
+
+    bodies = _lifecycle_bodies(seed=61)
+    phase = {"drift": False}
+    stop = threading.Event()
+    samples: list = []
+    scrapes: list = []
+    clients = []
+    try:
+        deadline = time.monotonic() + 600
+        while True:
+            check(proc.poll() is None, f"lifecycle server exited early ({proc.returncode}); "
+                  f"see {work / 'server.log'}")
+            try:
+                if _http(port, "GET", "/healthz/ready")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.monotonic() < deadline, "lifecycle server never became ready")
+            time.sleep(0.5)
+        wait_log("lifecycle controller started", 30)
+        first = _lifecycle_scrape(port)
+        check(first["generation"] == 1 and first["triggers"] == 0,
+              f"lifecycle server before traffic: {first}")
+        t_start = time.monotonic()
+        clients = [threading.Thread(target=_hammer, args=(port, bodies, phase, stop, samples),
+                                    daemon=True) for _ in range(LIFECYCLE_HAMMER_THREADS)]
+        for client in clients:
+            client.start()
+        time.sleep(3.0)
+        scrapes.append(_lifecycle_scrape(port))
+        check(scrapes[-1]["triggers"] == 0, "lifecycle server: a trigger on normal traffic")
+        phase["drift"] = True
+        t_trigger = wait_log("lifecycle trigger fired", 120)
+        t_shadow = wait_log("; shadowing", 300)
+        t_swap = wait_log("candidate promoted: generation", 300)
+        after_swap = _lifecycle_scrape(port)
+        scrapes.append(after_swap)
+        time.sleep(3.0)  # traffic on the promoted bundle
+        stop.set()
+        for client in clients:
+            client.join(timeout=120)
+        t_end = time.monotonic()
+        records = sum(s[3] for s in samples)
+        deadline = time.monotonic() + 30
+        while (final := _lifecycle_scrape(port))["rows"] != records:
+            if time.monotonic() > deadline:
+                break  # the check below names both numbers
+            time.sleep(0.5)
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        pumper.join(timeout=30)
+    finally:
+        stop.set()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    text = (work / "server.log").read_text()
+    check(rc == 0 and "drained; exiting" in text,
+          f"lifecycle server exited {rc} without a clean drain; see {work / 'server.log'}")
+    bad = [s for s in samples if s[2] != 200]
+    check(not bad, f"lifecycle server: {len(bad)} non-200 answers, first {bad[:3]}")
+    check(final["rows"] == records,
+          f"lifecycle server: /metrics rows {final['rows']} != records answered {records}")
+    check(final["generation"] >= 2 and final["promoted"] >= 1,
+          f"lifecycle server: no promotion on /metrics: {final}")
+    bounds = (t_start, t_trigger, t_shadow, t_swap, t_end)
+
+    def launches_at(t: float) -> float:
+        return next((s["launches"] for s in sorted(scrapes, key=lambda s: s["t"])
+                     if s["t"] >= t), final["launches"])
+
+    windows = {}
+    for name, lo, hi in zip(LIFECYCLE_WINDOWS, bounds[:-1], bounds[1:]):
+        lat = [s[1] for s in samples if lo <= s[0] < hi]
+        windows[name] = {
+            "seconds": hi - lo, "requests": len(lat),
+            "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat else None,
+            "quant_fused_launches": launches_at(hi) - launches_at(lo),
+        }
+    windows["after_swap"]["quant_fused_launches"] = final["launches"] - after_swap["launches"]
+    if device == "cuda":
+        check(windows["before_trigger"]["quant_fused_launches"] > 0,
+              "lifecycle server: quant_fused never launched before the swap")
+    check(windows["after_swap"]["quant_fused_launches"] == 0,
+          "lifecycle server: quant_fused launched after the promotion to a bundle "
+          "without a quant tier")
+    built = next(line for _, line in events if "; shadowing" in line).strip()
+    promoted = next(line for _, line in events if "candidate promoted" in line).strip()
+    result = {
+        "requests": len(samples), "records": records, "non_200": len(bad),
+        "windows": windows, "candidate_built": built, "promotion": promoted,
+        "rejections_before_promotion": final["rejected"],
+        "trigger_to_swap_s": t_swap - t_trigger,
+        "final_metrics": {k: final[k] for k in ("generation", "triggers", "promoted",
+                                                "rejected", "rows", "launches")},
+    }
+    log_timing("lifecycle server", result)
+    return result
+
+
+def _lifecycle_in_process(bundle_dir: Path, window: Path, device: str,
+                          extra: tuple[str, ...]) -> dict:
+    """Part two, in this process: the engine and LifecycleController on
+    the card from the same bundle and window, run_once driven with normal
+    and then drifted traffic (every fourth request on the cheap tier)
+    through to a promotion, then controller.rollback(). Holds the
+    candidate's holdout predictions on the card against the CPU route, a
+    row's answer after the swap against the candidate's eager route and
+    after the rollback against the incumbent's (bitwise), and the live
+    aggregate's rows against the rows served across both."""
+    import numpy as np
+    import torch
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.config import load_config
+    from mlops_tpu_torch.data import generate_synthetic
+    from mlops_tpu_torch.data.ingest import load_table_columns
+    from mlops_tpu_torch.lifecycle.controller import LifecycleController
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+    from mlops_tpu_torch.serve.server import Metrics
+    from mlops_tpu_torch.train.pipeline import split_dataset
+
+    work = WORK / "lifecycle_inprocess"
+    shutil.rmtree(work, ignore_errors=True)
+    config = load_config([f"serve.device={device}", f"lifecycle.dir={work}",
+                          f"lifecycle.labeled_path={window}", *LIFECYCLE_CLOCKS, *extra],
+                         ROOT / LIFECYCLE_TOML)
+    incumbent = load_bundle(bundle_dir)
+    engine = InferenceEngine(incumbent, tier_routing=True, device=device)
+    engine.warmup()
+    ctrl = LifecycleController(engine, config)
+    normal = incumbent.preprocessor.encode(generate_synthetic(512, seed=71)[0])
+    drifted = incumbent.preprocessor.encode(_drifted_columns(512, seed=71)[0])
+    served = {"rows": 0}
+
+    def serve_rows(ds, lo: int, n: int = 64) -> None:
+        for k, start in enumerate(range(lo, lo + n, 8)):
+            rows = ds.cat_ids[start:start + 8], ds.numeric[start:start + 8]
+            tier = "quant" if k % BURST_CHEAP_EVERY == 0 else None
+            engine.predict_arrays(*rows, tier=tier)
+            served["rows"] += 8
+
+    def launches() -> float:
+        return _metric(Metrics().render(engine.dispatch_counts()),
+                       "mlops_tpu_kernel_launches_total")
+
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    counts = {"start": launches()}
+    serve_rows(normal, 0)
+    ctrl.run_once()
+    shadow_pools = None
+    status = ctrl.status()
+    for tick in range(40):
+        serve_rows(drifted, (64 * tick) % 448)
+        if status["state"] == "shadowing" and ctrl._shadow is not None:
+            shadow = ctrl._shadow
+            shadow_pools = {"candidate": shadow.engine._pool_bytes,
+                            "incumbent": shadow._incumbent._pool_bytes}
+        counts["before_swap"] = launches()
+        status = ctrl.run_once()
+        if status["promotions"]["promoted"]:
+            break
+    check(status["promotions"]["promoted"] == 1 and engine.bundle_generation == 2,
+          f"in-process loop: no promotion in 40 ticks: {status}")
+    swap = dict(engine.swap_stats)
+    peak = ({"max_memory_allocated": torch.cuda.max_memory_allocated(),
+             "max_memory_reserved": torch.cuda.max_memory_reserved(),
+             "graph_pools_bytes": {"live_before_swap": engine.warmup_stats.get(
+                 "graph_pool_bytes"), "promotion": swap["graph_pool_bytes"],
+                 "shadow": shadow_pools}}
+            if device == "cuda" else None)
+    candidate = load_bundle(status["last_retrain"]["candidate"])
+    labeled_cols, labeled = load_table_columns(window)
+    _, holdout = split_dataset(incumbent.preprocessor.encode(labeled_cols, labeled), 0.2)
+    cpu = InferenceEngine(candidate, device="cpu")
+    card = InferenceEngine(candidate, device=device, cuda_graphs=False)
+    pred_err = 0.0
+    for lo in range(0, holdout.n, 256):
+        rows = holdout.cat_ids[lo:lo + 256], holdout.numeric[lo:lo + 256]
+        got = np.asarray(card.predict_arrays(*rows)["predictions"])
+        want = np.asarray(cpu.predict_arrays(*rows)["predictions"])
+        pred_err = max(pred_err, float(np.abs(got - want).max()))
+    check(pred_err <= EXACT_PRED_ATOL + 1e-6,
+          f"in-process loop: the candidate on the card differs from the CPU route "
+          f"by {pred_err:.3g} > {EXACT_PRED_ATOL}")
+    probe = drifted.cat_ids[:8], drifted.numeric[:8]
+    for tier in (None, "quant"):
+        got = engine.predict_arrays(*probe, tier=tier)
+        served["rows"] += 8
+        check(got == card.predict_arrays(*probe),
+              f"in-process loop: after the swap a {tier or 'default'}-tier answer is not "
+              "the candidate's eager route's, bitwise")
+    counts["after_swap"] = launches()
+    check(counts["after_swap"] == counts["before_swap"],
+          "in-process loop: quant_fused launched after the promotion")
+    generation = ctrl.rollback()
+    rollback = dict(engine.swap_stats)
+    check(generation == 3 and engine.available_tiers == ("quant", "exact"),
+          f"in-process loop: rollback gave generation {generation}, tiers "
+          f"{engine.available_tiers}")
+    answers = {}
+    for tier in (None, "quant"):
+        answers[tier] = engine.predict_arrays(*probe, tier=tier)
+        served["rows"] += 8
+    counts["after_rollback"] = launches()  # before the eager route launches
+    incumbent_eager = InferenceEngine(incumbent, tier_routing=True, device=device,
+                                      cuda_graphs=False)
+    for tier, got in answers.items():
+        check(got == incumbent_eager.predict_arrays(*probe, tier=tier),
+              f"in-process loop: after the rollback a {tier or 'default'}-tier answer is "
+              "not the incumbent's eager route's, bitwise")
+    if device == "cuda":
+        check(counts["before_swap"] > counts["start"], "in-process loop: quant_fused "
+              "never launched before the swap")
+        check(counts["after_rollback"] == counts["after_swap"] + 1,
+              "in-process loop: quant_fused did not launch once after the rollback")
+    rows = engine.monitor_snapshot()["rows"]
+    check(rows == served["rows"], f"in-process loop: the live aggregate counted {rows} "
+          f"rows, {served['rows']} were served across the swap and the rollback")
+    ctrl.stop()
+    report = status["last_report"]
+    result = {
+        "retrain": status["last_retrain"],
+        "retrain_step_ms": 1e3 * status["last_retrain"]["fit_s"]
+        / config.lifecycle.retrain_steps,
+        "gates": report["gates"], "report": {k: report[k] for k in (
+            "auc_candidate", "auc_incumbent", "auc_delta", "ece_candidate",
+            "p50_candidate_ms", "p50_incumbent_ms", "p99_candidate_ms",
+            "p99_incumbent_ms", "mirrors", "mirror_drops", "holdout_rows")},
+        "swap": swap, "rollback": rollback, "peak_memory": peak,
+        "candidate_vs_cpu_max_abs_err": pred_err, "rows": rows,
+        "quant_fused_launches": {
+            "before_swap": counts["before_swap"] - counts["start"],
+            "after_swap": counts["after_swap"] - counts["before_swap"],
+            "after_rollback": counts["after_rollback"] - counts["after_swap"]},
+    }
+    log_timing("lifecycle in process", result)
+    return result
+
+
+def phase_lifecycle(bundle_dir: Path, device: str = "cuda",
+                    extra: tuple[str, ...] = ()) -> dict:
+    """Phase 30: the labeled drifted window, then the loop in a server
+    subprocess and in this process (``_lifecycle_server``,
+    ``_lifecycle_in_process``)."""
+    from mlops_tpu_torch.data.ingest import write_csv_columns
+
+    window = WORK / "lifecycle_window.csv"
+    write_csv_columns(window, *_drifted_columns(LIFECYCLE_WINDOW_ROWS, seed=3))
+    server = _lifecycle_server(bundle_dir, window, device, extra)
+    in_process = _lifecycle_in_process(bundle_dir, window, device, extra)
+    launches = {**{f"server_{k}": v["quant_fused_launches"]
+                   for k, v in server["windows"].items()},
+                **{f"in_process_{k}": v
+                   for k, v in in_process["quant_fused_launches"].items()}}
+    return {"server": server, "in_process": in_process, "launches": launches}
+
+
 def _pyarrow_version() -> str | None:
     """pyarrow's version where it imports (the optional dependency the JAX
     package gates too), else None."""
@@ -4322,6 +4760,7 @@ def main() -> int:
         tune_arch = timed(phase_tune_arch)
         deployed = timed(phase_deployed_job, tune_job["cli"])
         ring = timed(phase_ring, burst_dir)
+        lifecycle = timed(phase_lifecycle, burst_dir)
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -4366,6 +4805,7 @@ def main() -> int:
             "large_shapes": c2,
             "trained_tier_launches": students["launches"],
             "ring_launches": ring["launches"],
+            "lifecycle_launches": lifecycle["launches"],
         }, {
             "name": "flash_attention",
             "route": "cuda",
@@ -4418,6 +4858,7 @@ def main() -> int:
         }],
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
         "serving": {"dispatch_routes": routes, "burst": burst, "ring": ring},
+        "lifecycle": {k: v for k, v in lifecycle.items() if k != "launches"},
         "students": {"records": students["records"], "fit": students["fit"],
                      "served_quant_bundle": students["quant_bundle"]},
         "bulk": bulk_rows,

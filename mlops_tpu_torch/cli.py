@@ -4,7 +4,14 @@
   the quant tier (``serve.serve_tier=quant``; ``auto`` prefers a gated
   quant tier), concurrent requests coalescing in the micro-batcher; with
   ``serve.tier_routing=true`` on both, each request's SLO class picking
-  one;
+  one; with ``lifecycle.enabled=true`` (``configs/lifecycle_serve.toml``)
+  the closed loop runs in-process beside it: drift trigger -> retrain ->
+  shadow -> gated hot swap (single-process plane only: with
+  ``serve.workers >= 2`` it is refused, ROADMAP A10);
+- ``lifecycle``: one offline lifecycle pass — retrain a candidate from
+  the labeled window (``lifecycle.labeled_path``), grade it against the
+  incumbent through the AUC and calibration gates, register it when it
+  passes; exit 0 when it passed, 3 when the gates rejected it;
 - ``predict-file``: score a CSV with a ``flax`` bundle (the exact tier's
   response JSON) or a record-history CSV with a ``doc`` bundle, and print
   one JSON line (``data.train_path=<csv> serve.model_directory=<bundle>
@@ -78,7 +85,18 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sub = parser.add_subparsers(dest="command")
     commands = {
-        "serve": ("serve a bundle over HTTP (exact or quant tier)", "serve.port=5001"),
+        "serve": (
+            "serve a bundle over HTTP (exact or quant tier; lifecycle.enabled=true "
+            "also runs the drift-triggered retrain -> shadow -> gated hot-promotion "
+            "loop in-process)",
+            "serve.port=5001",
+        ),
+        "lifecycle": (
+            "one-shot offline lifecycle pass: retrain a candidate from the labeled "
+            "window (lifecycle.labeled_path), grade it against the incumbent through "
+            "the AUC/calibration gates, and register it when it passes",
+            "lifecycle.labeled_path=<csv> serve.model_directory=<bundle>",
+        ),
         "predict-file": (
             "score a CSV with a flax bundle or a record-history CSV with a doc bundle",
             "data.train_path=<csv> serve.model_directory=<bundle>",
@@ -151,10 +169,11 @@ def _serve(config) -> int:
     model_dir = os.environ.get("MODEL_DIRECTORY", cfg.model_directory)
     cfg.validate()
     config.lifecycle.validate()
-    if config.lifecycle.enabled:
+    if config.lifecycle.enabled and cfg.workers >= 2:
         raise SystemExit(
-            "lifecycle.enabled=true (the closed retrain / shadow / promote "
-            "loop) is not ported (ROADMAP A10)"
+            "lifecycle.enabled=true with serve.workers >= 2 (the ring "
+            "plane's engine-side lifecycle loop) is not ported (ROADMAP "
+            "A10); serve.workers=0 runs it on the single-process plane"
         )
     bundle_dir = resolve_bundle(config, model_dir)
     if cfg.workers >= 2:
@@ -176,8 +195,25 @@ def _serve(config) -> int:
         device=cfg.device,
         tier_routing=cfg.tier_routing,
     )
-    serve_forever(engine, cfg)
+    if not config.lifecycle.enabled:
+        serve_forever(engine, cfg)
+        return 0
+    # The closed loop's controller thread, in this process: it watches the
+    # monitor aggregate, retrains off the hot path, shadows, and
+    # hot-promotes through the gates.
+    from mlops_tpu_torch.lifecycle.controller import LifecycleController
+
+    serve_forever(engine, cfg, lifecycle=LifecycleController(engine, config))
     return 0
+
+
+def _lifecycle(config) -> int:
+    from mlops_tpu_torch.commands import lifecycle
+
+    logging.basicConfig(level=logging.INFO, format="%(message)s")  # stderr
+    record, passed = lifecycle(config)
+    print(json.dumps(record), flush=True)
+    return 0 if passed else 3
 
 
 def _predict_file(config) -> int:
@@ -265,6 +301,7 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     handlers = {
         "serve": _serve,
+        "lifecycle": _lifecycle,
         "predict-file": _predict_file,
         "train": _train,
         "score-batch": _score_batch,

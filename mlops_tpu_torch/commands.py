@@ -36,6 +36,14 @@ as a version number, a stage or ``latest`` of ``registry.model_name`` in
 the registry at ``registry.root`` (``resolve_bundle``, the JAX package's
 ``_resolve_bundle``).
 
+``lifecycle`` is the JAX package's ``_lifecycle``
+(``mlops_tpu/commands.py:736``), the offline twin of the serving loop:
+the incumbent bundle (``serve.model_directory``) and the labeled window
+(``lifecycle.labeled_path``) -> a fine-tuned candidate (on
+``train.device``) -> both sides scored through their serving programs on
+``serve.device`` -> the AUC and calibration gates (no mirrored traffic
+offline, so the latency gate passes) -> registered when they pass.
+
 ``tune`` is the JAX package's ``_tune`` (``mlops_tpu/commands.py:151``)
 on one device: ``train/pipeline.py run_tuning`` and the same JSON line.
 The registry commands, ``synth`` and ``validate`` are the JAX package's
@@ -72,6 +80,49 @@ def train(config: Config) -> dict:
         "packaged_step": result.train_result.packaged_step,
         "metrics": result.train_result.metrics,
     }
+
+
+def lifecycle(config: Config) -> tuple[dict, bool]:
+    """One offline lifecycle pass; returns the JAX command's JSON record
+    and whether the gates passed. A window that cannot produce a
+    candidate exits with its reason."""
+    from mlops_tpu_torch.lifecycle import promote
+    from mlops_tpu_torch.lifecycle.retrain import LifecycleError, run_retrain
+    from mlops_tpu_torch.lifecycle.shadow import ShadowEngine
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    incumbent = load_bundle(resolve_bundle(config))
+    try:
+        result = run_retrain(incumbent, config, generation=2)
+    except LifecycleError as err:
+        raise SystemExit(f"lifecycle: {err}") from err
+    live = InferenceEngine(
+        incumbent,
+        buckets=tuple(config.serve.warmup_batch_sizes),
+        device=config.serve.device,
+    )
+    shadow = ShadowEngine(live, result.bundle)
+    shadow.warm()
+    report = shadow.evaluate(result.holdout, result.holdout_incumbent)
+    decision = promote.evaluate_gates(report, config.lifecycle)
+    model_uri = None
+    if decision.passed and config.lifecycle.auto_promote:
+        model_uri = ModelRegistry(config.registry.root).register(
+            config.registry.model_name,
+            result.candidate_dir,
+            tags={"lifecycle": "gated-promotion"},
+        )
+    return {
+        "candidate": str(result.candidate_dir),
+        "labeled_rows": result.labeled_rows,
+        "retrain_wall_s": result.wall_s,
+        "auc_candidate": round(report.auc_candidate, 6),
+        "auc_incumbent": round(report.auc_incumbent, 6),
+        "auc_delta": round(report.auc_delta, 6),
+        "ece_candidate": round(report.ece_candidate, 6),
+        "gates": decision.as_dict(),
+        "model_uri": model_uri,
+    }, decision.passed
 
 
 def tune(config: Config) -> dict:

@@ -387,10 +387,10 @@ class LifecycleConfigError(ValueError):
 @dataclasses.dataclass
 class LifecycleConfig:
     """The JAX package's ``LifecycleConfig`` (``mlops_tpu/config.py:562``),
-    field for field with its defaults and validation. The port reads
-    ``max_auc_drop`` and ``max_ece``: the bounds ``quant_tier_gates``
-    grades the quant student by. The closed-loop controller
-    (``lifecycle.enabled=true``) is not ported (ROADMAP A10)."""
+    field for field with its defaults and validation: the closed loop's
+    knobs (``lifecycle/``; ``serve`` runs it with ``lifecycle.enabled=true``
+    on the single-process plane only, ROADMAP A10) and the bounds
+    ``quant_tier_gates`` grades the quant student by."""
 
     enabled: bool = False
     dir: str = "lifecycle"

@@ -10,9 +10,13 @@ read missing cells as empty (-> OOV / median); labels are parsed,
 strictly, only under ``require_target=True``. Parquet chunks come from
 ``parquet.iter_parquet_chunks`` with the same contract.
 
-Not ported: the streaming preprocessor fit (``fit_streaming``, ROADMAP
-A10) and the C++ byte-level encoder (``native/``): chunks encode through
-the Python route, which the JAX package pins bit-identical to it.
+The streaming preprocessor fit is here too (``StreamingStats``,
+``fit_streaming``: one pass, shifted moments and a seeded per-feature
+reservoir for the medians, bit-identical to the JAX package's), which the
+lifecycle retrain uses under ``lifecycle.refit_preprocessor=true``.
+
+Not ported: the C++ byte-level encoder (``native/``): chunks encode
+through the Python route, which the JAX package pins bit-identical to it.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from mlops_tpu_torch.data.encode import Preprocessor
 from mlops_tpu_torch.data.ingest import fetch_local, parse_labels, rows_to_columns
 from mlops_tpu_torch.schema.features import SCHEMA, FeatureSchema
 
@@ -86,6 +91,155 @@ def iter_table_chunks(
     if parquet.is_parquet(path):
         return parquet.iter_parquet_chunks(path, chunk_rows, schema, require_target)
     return iter_csv_chunks(path, chunk_rows, schema, require_target)
+
+
+class StreamingStats:
+    """Mergeable single-pass accumulator for the Preprocessor's fit.
+
+    ``update(columns)`` per chunk, then ``finalize()`` -> Preprocessor.
+    """
+
+    def __init__(
+        self,
+        schema: FeatureSchema = SCHEMA,
+        reservoir_size: int = 100_000,
+        seed: int = 0,
+    ):
+        self.schema = schema
+        m = schema.num_numeric
+        self._count = np.zeros(m, np.int64)  # finite values
+        self._missing = np.zeros(m, np.int64)
+        self._shift = np.full(m, np.nan)  # first finite value per feature
+        self._sum_d = np.zeros(m, np.float64)  # sum of (x - shift)
+        self._sumsq_d = np.zeros(m, np.float64)  # sum of (x - shift)^2
+        self._reservoirs: list[np.ndarray] = [
+            np.empty(0, np.float64) for _ in range(m)
+        ]
+        self._reservoir_size = reservoir_size
+        self._rng = np.random.default_rng(seed)
+
+    def update(self, columns: dict[str, list]) -> None:
+        self.update_arrays(
+            [
+                np.asarray(columns[feat.name], dtype=np.float64)
+                for feat in self.schema.numeric
+            ]
+        )
+
+    def update_arrays(self, raws: list[np.ndarray]) -> None:
+        """Fold one chunk given per-numeric-feature float64 arrays (in
+        schema order). The list-of-columns conversion is split out so the
+        pipelined fit (`fit_streaming`) can run it on a worker thread
+        while this fold — which must stay sequential for the reservoir
+        RNG — runs on the sink."""
+        for j, raw in enumerate(raws):
+            finite = raw[np.isfinite(raw)]
+            self._missing[j] += raw.size - finite.size
+            if finite.size and np.isnan(self._shift[j]):
+                self._shift[j] = finite[0]
+            if finite.size:
+                d = finite - self._shift[j]
+                self._sum_d[j] += d.sum()
+                self._sumsq_d[j] += np.square(d).sum()
+            self._reservoirs[j] = self._fold_reservoir(
+                self._reservoirs[j], finite, self._count[j]
+            )
+            self._count[j] += finite.size
+
+    def _fold_reservoir(
+        self, reservoir: np.ndarray, values: np.ndarray, seen: int
+    ) -> np.ndarray:
+        """Uniform reservoir over the stream: every value seen so far has
+        equal probability of residing in the sample (Vitter's Algorithm R,
+        vectorized per chunk)."""
+        k = self._reservoir_size
+        if reservoir.size < k:
+            taken = min(k - reservoir.size, values.size)
+            reservoir = np.concatenate([reservoir, values[:taken]])
+            values = values[taken:]
+            seen += taken
+        if values.size == 0:
+            return reservoir
+        # For the i-th remaining value (global index seen+i), replace a
+        # random slot with probability k / (seen+i+1).
+        idx = seen + 1 + np.arange(values.size, dtype=np.float64)
+        accept = self._rng.random(values.size) < (k / idx)
+        slots = self._rng.integers(0, k, size=values.size)
+        sel_slots = slots[accept]
+        if sel_slots.size:
+            # Vectorized scatter with explicit last-write-wins on duplicate
+            # slots (bit-identical to the per-value loop it replaces):
+            # np.unique over the REVERSED slot array returns, per unique
+            # slot, the index of its last occurrence in stream order.
+            sel_values = values[accept]
+            unique_slots, last_in_reversed = np.unique(
+                sel_slots[::-1], return_index=True
+            )
+            reservoir[unique_slots] = sel_values[::-1][last_in_reversed]
+        return reservoir
+
+    def finalize(self) -> Preprocessor:
+        medians, means, stds = [], [], []
+        for j in range(self.schema.num_numeric):
+            reservoir = self._reservoirs[j]
+            median = float(np.median(reservoir)) if reservoir.size else 0.0
+            n = self._count[j] + self._missing[j]
+            if n == 0:
+                means.append(0.0)
+                stds.append(1.0)
+                medians.append(median)
+                continue
+            shift = self._shift[j] if np.isfinite(self._shift[j]) else 0.0
+            med_d = median - shift
+            mean_d = (self._sum_d[j] + self._missing[j] * med_d) / n
+            ex2_d = (self._sumsq_d[j] + self._missing[j] * med_d**2) / n
+            mean = shift + mean_d
+            var = max(ex2_d - mean_d**2, 0.0)
+            std = float(np.sqrt(var))
+            medians.append(median)
+            means.append(float(mean))
+            stds.append(std if std > 1e-12 else 1.0)
+        return Preprocessor(
+            numeric_median=np.asarray(medians, np.float32),
+            numeric_mean=np.asarray(means, np.float32),
+            numeric_std=np.asarray(stds, np.float32),
+            schema_fingerprint=self.schema.fingerprint(),
+        )
+
+
+def fit_streaming(
+    path: str | Path,
+    chunk_rows: int = 65_536,
+    schema: FeatureSchema = SCHEMA,
+    reservoir_size: int = 100_000,
+    seed: int = 0,
+    pipeline_depth: int = 1,
+) -> Preprocessor:
+    """One-pass Preprocessor fit over an arbitrarily large CSV/Parquet.
+
+    ``pipeline_depth > 1`` overlaps chunk read+parse and the list->float64
+    conversion with the sequential moment/reservoir fold on background
+    threads (`data/pipeline_exec.py`); depth 1 is the serial loop. The
+    fold order is preserved either way, so the fitted Preprocessor is
+    bit-identical at any depth.
+    """
+    from mlops_tpu_torch.data.pipeline_exec import Stage, run_pipeline
+
+    stats = StreamingStats(schema, reservoir_size=reservoir_size, seed=seed)
+    names = [feat.name for feat in schema.numeric]
+
+    def to_float_arrays(item):
+        columns, _ = item
+        return [np.asarray(columns[name], dtype=np.float64) for name in names]
+
+    run_pipeline(
+        iter_table_chunks(path, chunk_rows, schema),
+        [Stage("tofloat", to_float_arrays)],
+        stats.update_arrays,
+        depth=pipeline_depth,
+        sink_name="fold",
+    )
+    return stats.finalize()
 
 
 def score_csv_stream(

@@ -1,3 +1,16 @@
-"""Lifecycle: the packaging-time gate of the quant student
-(``promote.quant_tier_gates``). The closed-loop controller, shadow
-serving and hot promotion are not ported (ROADMAP A10)."""
+"""Lifecycle: the closed MLOps loop, the JAX package's ``lifecycle/``.
+
+Threshold policies over the device-resident monitor aggregates
+(``triggers``), an off-hot-path incremental retrain fed by a bounded
+on-disk sample reservoir (``retrain``), a shadow engine that captures the
+candidate's serving programs and mirrors live traffic (``shadow``), and
+gated zero-downtime promotion with instant rollback (``promote``),
+orchestrated by ``controller.LifecycleController``, which ``serve`` runs
+in-process when ``lifecycle.enabled=true`` on the single-process plane and
+the ``lifecycle`` command drives as a one-shot offline pass. The quant
+student's packaging-time gate (``promote.quant_tier_gates``) lives here
+too. The ring plane's engine-side loop is not ported (ROADMAP A10).
+
+This ``__init__`` imports nothing, so the training path's import of
+``promote.quant_tier_gates`` loads no serving engine.
+"""

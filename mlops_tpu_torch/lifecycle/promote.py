@@ -1,25 +1,35 @@
-"""The gate half of the JAX package's ``lifecycle/promote.py``: the
-numpy metric helpers and the quant tier's packaging-time gate.
+"""Gated promotion: the JAX package's ``lifecycle/promote.py``.
 
 - ``roc_auc_np``: ROC-AUC by the Mann-Whitney U statistic with average
   ranks for ties;
 - ``expected_calibration_error``: ECE over equal-width probability bins;
+- ``evaluate_gates``: the three gates over one shadow report — the
+  candidate's holdout AUC may trail the incumbent's by at most
+  ``max_auc_drop``, its ECE must stay under ``max_ece``, and its p99 on
+  mirrored traffic within ``max_p99_ratio`` x the incumbent's (skipped
+  without mirrored samples, as in the offline pass);
 - ``quant_tier_gates``: the AUC and calibration gates applied to the
   quantized student on the held-out split. The decision is stamped into
   the bundle's ``quant`` block, and the engine serves the tier only when
-  it passed.
+  it passed;
+- ``promote_engine`` / ``rollback_engine``: the hot swap and its one-call
+  undo (``InferenceEngine.swap_bundle`` / ``rollback``).
 
-``evaluate_gates``, ``promote_engine`` and ``rollback_engine`` (shadow
-evidence and hot promotion) wait for the closed loop (ROADMAP A10).
+The metric helpers are numpy only, so the gate math runs the same in the
+serving process, the offline ``lifecycle`` command and the tests.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 
 from mlops_tpu_torch.config import LifecycleConfig
+
+if TYPE_CHECKING:
+    from mlops_tpu_torch.lifecycle.shadow import ShadowEngine, ShadowReport
 
 
 def roc_auc_np(scores: np.ndarray, labels: np.ndarray) -> float:
@@ -75,6 +85,36 @@ class GateDecision:
         return {"passed": self.passed, "reasons": list(self.reasons)}
 
 
+def evaluate_gates(
+    report: "ShadowReport", config: LifecycleConfig
+) -> GateDecision:
+    """The three gates over one shadow report. Latency is skipped (passes)
+    when neither side has samples — the offline CLI pass has no mirrored
+    traffic and must still be able to grade AUC/ECE."""
+    reasons: list[str] = []
+    if report.auc_delta < -config.max_auc_drop:
+        reasons.append(
+            f"auc: candidate {report.auc_candidate:.4f} trails incumbent "
+            f"{report.auc_incumbent:.4f} by {-report.auc_delta:.4f} > "
+            f"epsilon {config.max_auc_drop:g}"
+        )
+    if report.ece_candidate > config.max_ece:
+        reasons.append(
+            f"calibration: candidate ECE {report.ece_candidate:.4f} > "
+            f"bound {config.max_ece:g}"
+        )
+    if report.p99_incumbent_ms > 0 and (
+        report.p99_candidate_ms
+        > config.max_p99_ratio * report.p99_incumbent_ms
+    ):
+        reasons.append(
+            f"latency: candidate p99 {report.p99_candidate_ms:.2f} ms > "
+            f"{config.max_p99_ratio:g}x incumbent "
+            f"{report.p99_incumbent_ms:.2f} ms"
+        )
+    return GateDecision(passed=not reasons, reasons=tuple(reasons))
+
+
 def quant_tier_gates(
     fidelity: dict[str, float], config: LifecycleConfig
 ) -> GateDecision:
@@ -100,3 +140,15 @@ def quant_tier_gates(
             f"calibration: quant ECE {ece:.4f} > bound {config.max_ece:g}"
         )
     return GateDecision(passed=not reasons, reasons=tuple(reasons))
+
+
+def promote_engine(live, shadow: "ShadowEngine") -> int:
+    """Install the shadowed candidate into the live engine (zero-downtime
+    swap, ``InferenceEngine.swap_bundle``). Returns the new bundle
+    generation."""
+    return live.swap_bundle(shadow.engine)
+
+
+def rollback_engine(live) -> int:
+    """One-call rollback to the retained previous bundle."""
+    return live.rollback()

@@ -28,7 +28,12 @@ tiers:
 - the running monitor aggregate is one static device buffer that every
   program of every tier folds into in place. ``monitor_snapshot`` reads it
   off the request path (fetch-and-reset into f64 host totals; a window
-  whose fetch fails folds back into the live one).
+  whose fetch fails folds back into the live one);
+- bundle turnover for the lifecycle loop (``lifecycle/``): a tee hands
+  each request's encoded rows to the controller, ``swap_bundle``
+  hot-promotes a candidate engine's bundle (its programs captured again
+  over this engine's accumulator before one reference exchange under the
+  lock) and ``rollback`` exchanges back.
 """
 
 from __future__ import annotations
@@ -47,8 +52,12 @@ import numpy as np
 import torch
 
 from mlops_tpu_torch.bundle.bundle import Bundle
-from mlops_tpu_torch.device import resolve_device
-from mlops_tpu_torch.monitor.state import MonitorAccumulator, init_accumulator
+from mlops_tpu_torch.device import held_stream, resolve_device
+from mlops_tpu_torch.monitor.state import (
+    MonitorAccumulator,
+    MonitorState,
+    init_accumulator,
+)
 from mlops_tpu_torch.ops.predict import (
     make_packed_grouped_base,
     make_packed_predict_base,
@@ -78,11 +87,11 @@ TIER_NAMES = ("exact", "quant", "auto")
 _D = SCHEMA.num_categorical + SCHEMA.num_numeric
 
 
-def _entry_name(base: str, tier: str | None) -> str:
+def _entry_name(base: str, tier: str, gen: "_Generation") -> str:
     """A dispatch's entry label, as the JAX package names its compiled
     entries: the geometry, suffixed with the tier for non-default tiers
     only."""
-    return base if tier is None else f"{base}@{tier}"
+    return base if tier == gen.default_tier else f"{base}@{tier}"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +103,30 @@ class _Tier:
     temperature: torch.Tensor
     solo: Callable
     group: Callable
+
+
+@dataclasses.dataclass
+class _Generation:
+    """What one bundle generation serves with: the bundle, its tiers and
+    default tier, its monitor state on the device, its row buckets, and on
+    the card its CUDA graphs in their pool. Every generation's graphs fold
+    into the engine's one accumulator, so a hot swap (``swap_bundle``) is
+    one reference exchange and the aggregate never splits."""
+
+    bundle: Bundle
+    tiers: dict[str, _Tier]
+    default_tier: str
+    monitor: MonitorState
+    buckets: list[int]
+    graphs: dict[tuple, graphs.ServingGraph]
+    pool: Any
+
+    def tier(self, requested: str | None) -> str:
+        """The tier a dispatch asking for ``requested`` runs: the default
+        for None, or for a tier this generation does not hold (a request
+        routed to the quant tier just before a promotion to a bundle
+        without one)."""
+        return requested if requested in self.tiers else self.default_tier
 
 
 class _Handle:
@@ -136,41 +169,54 @@ class InferenceEngine:
         sets it."""
         self.device = resolve_device(device)
         self.serve_tier = self._resolve_tier(serve_tier, bundle)
-        self.default_tier = self.serve_tier
         self.tier_routing = bool(tier_routing)
-        self.bundle = bundle
-        self.buckets = sorted(buckets)
-        self.max_bucket = self.buckets[-1]
         # Committed once: each tier's params and temperature are
         # arguments of every dispatch and stay on the device.
-        self._tiers = {self.serve_tier: self._build_tier(self.serve_tier)}
+        tiers = {self.serve_tier: self._build_tier(self.serve_tier, bundle)}
         if self.tier_routing:
             extra = self._extra_tier(bundle)
             if extra is not None:
-                self._tiers[extra] = self._build_tier(extra)
-        self._monitor = bundle.monitor.to(self.device)
+                tiers[extra] = self._build_tier(extra, bundle)
         # The static accumulator: one f32 buffer rows ‖ outliers ‖ batches
         # ‖ drift_sum[D] ‖ drift_last[D], and the fields as views of it.
-        # Every program of every tier folds into it in place (``_store``);
-        # the lock orders the dispatches that do, and on the card holds
-        # each one's device work (upload, program or replay, download) on
-        # the engine's one stream. The hold is an enqueue, never a wait.
+        # Every program of every tier and every generation folds into it
+        # in place (``_store``); the lock orders the dispatches that do,
+        # and on the card holds each one's device work (upload, program or
+        # replay, download) on the engine's one stream. The hold is an
+        # enqueue, never a wait.
         self._cuda = self.device.type == "cuda"
         self._use_graphs = self._cuda and cuda_graphs
-        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
+        # No other holder's streams (``device.held_stream``): another engine
+        # in the process (the lifecycle's shadow engines) never shares them.
+        self._stream = held_stream(self, self.device) if self._cuda else None
         # Captures (and the eager pass before each) run on a stream of their
         # own; the lock and two stream waits order them with the replays on
         # ``_stream`` (``_capture``).
         self._capture_stream = (
-            torch.cuda.Stream(self.device) if self._use_graphs else None
+            held_stream(self, self.device, capture=True) if self._use_graphs else None
         )
         with self._on_stream():
             self._acc_flat = torch.zeros(3 + 2 * _D, dtype=torch.float32,
                                          device=self.device)
         self._acc = _acc_views(self._acc_flat)
         self._acc_lock = threading.Lock()
-        self._pool = torch.cuda.graph_pool_handle() if self._use_graphs else None
-        self._graphs: dict[tuple, graphs.ServingGraph] = {}
+        self._gen = _Generation(
+            bundle=bundle,
+            tiers=tiers,
+            default_tier=self.serve_tier,
+            monitor=bundle.monitor.to(self.device),
+            buckets=sorted(buckets),
+            graphs={},
+            pool=torch.cuda.graph_pool_handle() if self._use_graphs else None,
+        )
+        # Bundle turnover (``lifecycle/``): the generation counts hot swaps
+        # and rollbacks from 1; ``_retired`` is the one-deep history a
+        # rollback restores; ``_tee`` is the lifecycle observation hook
+        # (``set_lifecycle_tee``).
+        self.bundle_generation = 1
+        self._retired: _Generation | None = None
+        self._tee: Callable[[np.ndarray, np.ndarray], None] | None = None
+        self.swap_stats: dict[str, Any] = {}
         self._totals: dict[str, Any] = {
             "rows": 0.0,
             "outliers": 0.0,
@@ -184,6 +230,15 @@ class InferenceEngine:
         self._pool_bytes = 0
         self.warmup_stats: dict[str, Any] = {}
         self.ready = False
+
+    # The serving generation's state, read as the engine's own.
+    bundle = property(lambda self: self._gen.bundle)
+    default_tier = property(lambda self: self._gen.default_tier)
+    buckets = property(lambda self: self._gen.buckets)
+    max_bucket = property(lambda self: self._gen.buckets[-1])
+    _tiers = property(lambda self: self._gen.tiers)
+    _monitor = property(lambda self: self._gen.monitor)
+    _graphs = property(lambda self: self._gen.graphs)
 
     def _resolve_tier(self, serve_tier: str, bundle: Bundle) -> str:
         """The JAX package's tier table: "exact" serves the bundle's exact
@@ -239,25 +294,35 @@ class InferenceEngine:
             return None if self._quant_refusal(bundle) else "quant"
         return self._resolve_tier("exact", bundle)
 
-    def _build_tier(self, tier: str) -> _Tier:
-        bundle = self.bundle
+    def _build_tier(self, tier: str, bundle: Bundle) -> _Tier:
+        """``tier``'s params and temperature committed to the device, with
+        its programs (``_build_programs``)."""
         if tier == "quant":
-            return _Tier(
-                {k: v.to(self.device) for k, v in bundle.quant_params.items()},
-                self._scalar(bundle.quant_temperature),
-                make_quant_packed_base(),
-                make_quant_grouped_base(),
-            )
-        # The programs apply these params to the module (which has no
-        # buffers) by swapping them in for the call, under the engine
-        # lock; the engine's own copy keeps another engine over the same
-        # bundle out of the swap.
+            params = {k: v.to(self.device) for k, v in bundle.quant_params.items()}
+            temperature = bundle.quant_temperature
+        else:
+            params = {
+                k: v.to(self.device)
+                for k, v in model_params(bundle.model).items()
+            }
+            temperature = bundle.temperature
+        return dataclasses.replace(
+            self._build_programs(tier, bundle),
+            params=params, temperature=self._scalar(temperature),
+        )
+
+    @staticmethod
+    def _build_programs(tier: str, bundle: Bundle) -> _Tier:
+        """``tier``'s solo and grouped programs, params not yet set. The
+        exact tier's apply its params to a module (which has no buffers)
+        by swapping them in for the call, under the engine lock; the
+        engine's own copy of the module keeps another engine over the same
+        bundle out of the swap."""
+        if tier == "quant":
+            return _Tier({}, None, make_quant_packed_base(), make_quant_grouped_base())
         model = copy.deepcopy(bundle.model).eval()
         return _Tier(
-            {k: v.to(self.device) for k, v in model_params(model).items()},
-            self._scalar(bundle.temperature),
-            make_packed_predict_base(model),
-            make_packed_grouped_base(model),
+            {}, None, make_packed_predict_base(model), make_packed_grouped_base(model)
         )
 
     def _scalar(self, value: float) -> torch.Tensor:
@@ -279,12 +344,22 @@ class InferenceEngine:
         tier = tier_for_class(self.available_tiers, self.default_tier, slo_class)
         return None if tier == self.default_tier else tier
 
-    def _normalize_tier(self, tier: str | None) -> str:
-        """None and the default tier both mean the default tier; any other
-        must be held by this engine (routing never invents a tier)."""
-        if tier is None:
-            return self.default_tier
-        if tier not in self._tiers:
+    @property
+    def monitor_accumulating(self) -> bool:
+        """Every program of this engine folds its monitor statistics into
+        the device accumulator (the JAX engine's host-hybrid flavor, which
+        does not, is not ported): what a hot swap needs on both sides."""
+        return True
+
+    def _normalize_tier(self, tier: str | None) -> str | None:
+        """None and the default tier both mean the default tier (None);
+        any other must be held by this engine's serving or retired
+        generation (routing never invents a tier). A tier only the retired
+        one holds serves on the default tier (``_Generation.tier``)."""
+        if tier is None or tier == self.default_tier:
+            return None
+        retired = self._retired
+        if tier not in self._tiers and (retired is None or tier not in retired.tiers):
             raise ValueError(
                 f"tier {tier!r} is not committed on this engine "
                 f"(available: {self.available_tiers})"
@@ -292,14 +367,15 @@ class InferenceEngine:
         return tier
 
     # ------------------------------------------------------------- warmup
-    def _warm_keys(self) -> list[tuple]:
-        """Every (tier, padded shape) the server dispatches: each tier's
-        row buckets and its group geometries."""
+    @staticmethod
+    def _warm_keys(gen: _Generation) -> list[tuple]:
+        """Every (tier, padded shape) the server dispatches for ``gen``:
+        each tier's row buckets and its group geometries."""
         group = [(s, r) for r in GROUP_ROW_BUCKETS for s in GROUP_SLOT_BUCKETS]
         return [
             (tier, lead)
-            for tier in self._tiers
-            for lead in [(b,) for b in self.buckets] + group
+            for tier in gen.tiers
+            for lead in [(b,) for b in gen.buckets] + group
         ]
 
     def warmup(self) -> None:
@@ -309,15 +385,18 @@ class InferenceEngine:
         the card each is also captured into its CUDA graph (after one such
         eager pass on the engine's stream); a capture that fails raises."""
         t0 = time.perf_counter()
-        keys = self._warm_keys()
+        gen = self._gen
+        keys = self._warm_keys(gen)
         if self._use_graphs:
             for key in keys:
-                self._graph(key)
+                with self._acc_lock:
+                    if key not in gen.graphs:
+                        self._capture(gen, *key)
         else:
             with self._acc_lock, self._on_stream():
                 scratch = init_accumulator(self.device)
                 for tier, lead in keys:
-                    self._warm_pass(tier, lead, scratch)
+                    self._warm_pass(gen, tier, lead, scratch)
                 scratch.rows.cpu()  # waits for every warmup launch to finish
         self.warmup_stats = {
             "warmup_s": round(time.perf_counter() - t0, 3),
@@ -334,7 +413,8 @@ class InferenceEngine:
             )
         self.ready = True
 
-    def _warm_pass(self, tier: str, lead: tuple[int, ...], scratch) -> None:
+    def _warm_pass(self, gen: _Generation, tier: str, lead: tuple[int, ...],
+                   scratch) -> None:
         """One eager run of a program on zeros (every row valid) against
         ``scratch``, on the current stream (caller holds the lock)."""
         cat = torch.zeros((*lead, SCHEMA.num_categorical), dtype=torch.int32,
@@ -342,43 +422,33 @@ class InferenceEngine:
         num = torch.zeros((*lead, SCHEMA.num_numeric), dtype=torch.float32,
                           device=self.device)
         mask = torch.ones(lead, dtype=torch.bool, device=self.device)
-        self._run(tier, lead, scratch, cat, num, mask)
+        self._run(gen, tier, lead, scratch, cat, num, mask)
 
-    def _graph(self, key: tuple) -> graphs.ServingGraph:
-        """The graph of ``key``, captured now if it is not yet (warmup, or
-        a shape warmup did not cover); raises if the capture fails."""
-        graph = self._graphs.get(key)
-        if graph is None:
-            with self._acc_lock:
-                graph = self._graphs.get(key)
-                if graph is None:
-                    graph = self._capture(*key)
-        return graph
-
-    def _capture(self, tier: str, lead: tuple[int, ...]) -> graphs.ServingGraph:
-        """One eager pass of the program against a scratch accumulator,
-        then its capture over the static accumulator, both on the capture
-        stream (caller holds the lock). The capture stream first waits
-        for every replay already enqueued, and later replays wait for the
-        eager pass: the two never overlap on the device, so they may share
-        cuBLAS's workspace."""
+    def _capture(self, gen: _Generation, tier: str,
+                 lead: tuple[int, ...]) -> graphs.ServingGraph:
+        """One eager pass of ``gen``'s program against a scratch
+        accumulator, then its capture over the engine's accumulator into
+        ``gen``'s pool, both on the capture stream (caller holds the
+        lock). The capture stream first waits for every replay already
+        enqueued, and later replays wait for the eager pass: the two never
+        overlap on the device, so they may share cuBLAS's workspace."""
         side = self._capture_stream
         side.wait_stream(self._stream)
         with torch.cuda.stream(side):
-            self._warm_pass(tier, lead, init_accumulator(self.device))
+            self._warm_pass(gen, tier, lead, init_accumulator(self.device))
 
         def run(cat, num, mask):
-            out, new_acc = self._run(tier, lead, self._acc, cat, num, mask)
+            out, new_acc = self._run(gen, tier, lead, self._acc, cat, num, mask)
             self._store(new_acc)
             return out
 
         graph, seconds, grown = graphs.capture(
-            run, lead, self.device, side, self._pool
+            run, lead, self.device, side, gen.pool
         )
         self._stream.wait_stream(side)
         self._capture_s += seconds
         self._pool_bytes += grown
-        self._graphs[(tier, lead)] = graph
+        gen.graphs[(tier, lead)] = graph
         return graph
 
     # ----------------------------------------------------------- dispatch
@@ -387,15 +457,16 @@ class InferenceEngine:
             return torch.cuda.stream(self._stream)
         return contextlib.nullcontext()
 
-    def _run(self, tier: str, lead: tuple[int, ...], acc, *batch):
-        """One packed program of ``tier`` on its committed state (no
-        autograd): solo for a ``(rows,)`` batch, grouped for ``(slots,
-        rows)``."""
-        state = self._tiers[tier]
+    def _run(self, gen: _Generation, tier: str, lead: tuple[int, ...], acc,
+             *batch):
+        """One packed program of ``gen``'s ``tier`` on its committed state
+        (no autograd): solo for a ``(rows,)`` batch, grouped for
+        ``(slots, rows)``."""
+        state = gen.tiers[tier]
         program = state.solo if len(lead) == 1 else state.group
         with torch.inference_mode():
             return program(
-                state.params, self._monitor, acc, state.temperature, *batch
+                state.params, gen.monitor, acc, state.temperature, *batch
             )
 
     def _store(self, new: MonitorAccumulator) -> None:
@@ -407,19 +478,21 @@ class InferenceEngine:
         )
 
     def _dispatch(
-        self, tier: str, lead: tuple[int, ...], entry: str,
+        self, tier: str | None, lead: tuple[int, ...], entry: str,
         fill: Callable[[np.ndarray, np.ndarray, np.ndarray], None],
     ) -> tuple[torch.Tensor, Any]:
         """Run one packed program on a batch that ``fill(cat, num, mask)``
         writes into zeroed host arrays of shape ``lead``, fold the
-        accumulator and start the packed buffer's copy to the host.
+        accumulator and start the packed buffer's copy to the host. The
+        generation, and in it the tier (``_Generation.tier``), is read
+        under the lock: a dispatch runs exactly one generation.
 
         On the card the batch is written straight into a pinned buffer;
         under the lock, on the engine's stream, it is uploaded into the
-        graph's static inputs with one copy, the graph replays, and its
-        static output is copied into this dispatch's own pinned buffer
-        behind an event. Only the event wait (``fetch``) is outside."""
-        tier_label = None if tier == self.default_tier else tier
+        graph's static inputs with one copy, the graph replays (captured
+        now if warmup did not cover the shape), and its static output is
+        copied into this dispatch's own pinned buffer behind an event.
+        Only the event wait (``fetch``) is outside."""
         if not self._cuda:
             batch = tuple(
                 np.zeros((*lead, *tail), dtype)
@@ -429,32 +502,36 @@ class InferenceEngine:
             )
             fill(*batch)
             with self._acc_lock:
+                gen = self._gen
+                tier = gen.tier(tier)
                 out, new_acc = self._run(
-                    tier, lead, self._acc, *map(torch.from_numpy, batch)
+                    gen, tier, lead, self._acc, *map(torch.from_numpy, batch)
                 )
                 self._store(new_acc)
-            self._count(_entry_name(entry, tier_label))
+            self._count(_entry_name(entry, tier, gen))
             return out, None
         staged = torch.zeros(graphs.input_nbytes(lead), dtype=torch.uint8,
                              pin_memory=True)
         fill(*graphs.split_host(staged.numpy(), lead))
-        graph = self._graph((tier, lead)) if self._use_graphs else None
         with self._acc_lock, self._on_stream():
-            if graph is not None:
+            gen = self._gen
+            tier = gen.tier(tier)
+            if self._use_graphs:
+                graph = gen.graphs.get((tier, lead)) or self._capture(gen, tier, lead)
                 graph.inputs.copy_(staged, non_blocking=True)
                 graph.replay()
                 out = graph.out
             else:
                 inputs = staged.to(self.device, non_blocking=True)
                 out, new_acc = self._run(
-                    tier, lead, self._acc, *graphs.split_inputs(inputs, lead)
+                    gen, tier, lead, self._acc, *graphs.split_inputs(inputs, lead)
                 )
                 self._store(new_acc)
             host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
             host.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
             event.record(self._stream)
-        self._count(_entry_name(entry, tier_label))
+        self._count(_entry_name(entry, tier, gen))
         return host, event
 
     def _count(self, entry: str) -> None:
@@ -481,6 +558,11 @@ class InferenceEngine:
         n = cat_ids.shape[0]
         if n == 0:
             return None
+        tee = self._tee
+        if tee is not None:
+            # Lifecycle observation (the reservoir and the shadow mirror):
+            # the pre-padding arrays, into a bounded non-blocking queue.
+            tee(cat_ids, numeric)
         bucket = self._bucket_for(n)
         rows = bucket if bucket is not None else n
 
@@ -583,6 +665,10 @@ class InferenceEngine:
         runs one tier."""
         tier = self._normalize_tier(tier)
         sizes = [cat.shape[0] for cat, _ in parts]
+        tee = self._tee
+        if tee is not None:
+            for part_cat, part_num in parts:
+                tee(part_cat, part_num)
         if not 2 <= len(parts) <= GROUP_SLOT_BUCKETS[-1]:
             raise ValueError(
                 f"grouped dispatch takes 2..{GROUP_SLOT_BUCKETS[-1]} "
@@ -648,6 +734,113 @@ class InferenceEngine:
             encode_response(preds[i, :n], outs[i, :n], drifts[i])
             for i, n in enumerate(sizes)
         ]
+
+    # ----------------------------------------------------- bundle turnover
+    def set_lifecycle_tee(
+        self, tee: Callable[[np.ndarray, np.ndarray], None] | None
+    ) -> None:
+        """Install (or clear, with None) the lifecycle observation hook:
+        ``tee(cat_ids, numeric)`` is called with each request's
+        pre-padding encoded arrays on the dispatch path. The tee owns its
+        cheapness and safety (a bounded non-blocking enqueue that never
+        raises); the engine calls it bare."""
+        self._tee = tee
+
+    def swap_bundle(self, candidate: "InferenceEngine") -> int:
+        """Hot-promote a candidate engine's bundle in place with zero
+        downtime; returns the new generation.
+
+        The candidate's graphs fold into the candidate's own accumulator,
+        so they are not what this engine serves: first, outside the swap,
+        each of the candidate's programs is captured again over this
+        engine's accumulator into a pool of its own, one graph per lock
+        hold on this engine's capture stream, as a shape warmup did not
+        cover is (on the CPU the programs run eagerly and nothing is
+        captured). The swap itself is then one exchange of generations
+        under the lock, with no capture and no transfer: every dispatch
+        reads its generation under the same lock, so each runs exactly
+        one, and every served row folds into the one aggregate exactly
+        once across the swap. The outgoing generation, graphs and pool
+        included, is kept for ``rollback``. The candidate engine is not
+        used by this engine afterwards: it shares its param tensors only.
+
+        Refused as the JAX engine refuses: engines that do not both
+        accumulate, a candidate without the grouped path, and one whose
+        largest bucket is smaller (the server caps requests at it)."""
+        if not self.monitor_accumulating or not getattr(
+            candidate, "monitor_accumulating", False
+        ):
+            raise ValueError(
+                "hot swap requires device-accumulating engines on both "
+                "sides — the host-hybrid flavor (rf) redeploys instead"
+            )
+        if self.supports_grouping and not candidate.supports_grouping:
+            raise ValueError(
+                "candidate engine lacks the grouped path the live engine "
+                "serves — build it with enable_grouping=True"
+            )
+        if candidate.max_bucket < self.max_bucket:
+            raise ValueError(
+                f"candidate max_bucket {candidate.max_bucket} < live "
+                f"{self.max_bucket}: a swap may never shrink shape "
+                "coverage below the admission ceiling"
+            )
+        source = candidate._gen
+        staged = _Generation(
+            bundle=source.bundle,
+            tiers={
+                name: dataclasses.replace(
+                    self._build_programs(name, source.bundle),
+                    params=tier.params, temperature=tier.temperature,
+                )
+                for name, tier in source.tiers.items()
+            },
+            default_tier=source.default_tier,
+            monitor=source.monitor,
+            buckets=list(source.buckets),
+            graphs={},
+            pool=torch.cuda.graph_pool_handle() if self._use_graphs else None,
+        )
+        t0 = time.perf_counter()
+        pool_before = self._pool_bytes
+        if self._use_graphs:
+            for key in self._warm_keys(staged):
+                with self._acc_lock:
+                    self._capture(staged, *key)
+        capture_s = time.perf_counter() - t0
+        with self._acc_lock:
+            t1 = time.perf_counter()
+            self._retired, self._gen = self._gen, staged
+            self.bundle_generation += 1
+            critical = time.perf_counter() - t1
+        self.swap_stats = {
+            "op": "swap",
+            "generation": self.bundle_generation,
+            "graphs": len(staged.graphs),
+            "capture_s": round(capture_s, 6),
+            "graph_pool_bytes": self._pool_bytes - pool_before,
+            "critical_us": round(critical * 1e6, 3),
+        }
+        return self.bundle_generation
+
+    def rollback(self) -> int:
+        """Restore the retired generation in one exchange under the lock
+        (graphs, tiers and pool included: nothing is captured). The
+        generations exchange, so a rollback can itself be rolled back.
+        Raises if no swap ever happened."""
+        if self._retired is None:
+            raise ValueError("no retired bundle to roll back to")
+        with self._acc_lock:
+            t1 = time.perf_counter()
+            self._gen, self._retired = self._retired, self._gen
+            self.bundle_generation += 1
+            critical = time.perf_counter() - t1
+        self.swap_stats = {
+            "op": "rollback",
+            "generation": self.bundle_generation,
+            "critical_us": round(critical * 1e6, 3),
+        }
+        return self.bundle_generation
 
     # ------------------------------------------------------------ monitor
     def monitor_snapshot(self) -> dict[str, Any]:

@@ -1,4 +1,5 @@
-"""The ring plane's Prometheus exposition, rendered from shared memory.
+"""The ring plane's Prometheus exposition, rendered from shared memory,
+and the lifecycle block both planes share.
 
 The ring subset of the JAX package's ``serve/metrics.py``
 (``render_ring_metrics``): every front end renders the whole plane from
@@ -20,8 +21,13 @@ engine process. Under the JAX package's series names:
   ``mlops_tpu_kernel_launches_total``, counted in the engine process and
   mirrored into shared memory.
 
-Tracing, the SLO engine, the cost ledger, the autotuner and the
-lifecycle loop are not ported (ROADMAP A4, A10), nor their series.
+``lifecycle_lines`` is the JAX ``ServingMetrics.lifecycle_lines``: the
+lifecycle controller's gauges (bundle generation, drift triggers, shadow
+AUC delta, promotions by outcome, reservoir rows, circuit breaker), byte
+for byte the JAX render of the same snapshot. The single-process server
+renders it under ``lifecycle.enabled=true``; the ring plane's lifecycle
+loop, tracing, the SLO engine, the cost ledger and the autotuner are not
+ported (ROADMAP A10, A4), nor their series.
 """
 
 from __future__ import annotations
@@ -43,6 +49,8 @@ ROUTES = KNOWN_ROUTES + ("<other>",)
 RING_STATUSES = (200, 400, 404, 409, 413, 422, 500, 503, 504)
 RING_CLASSES = ("small", "large")
 TENANT = "default"
+# Promotion outcomes, in the JAX package's order.
+LIFE_OUTCOMES = ("promoted", "rejected", "rolled_back")
 # Fields of the monitor-aggregate row (engine-process single writer).
 MON_ROWS, MON_OUTLIERS, MON_BATCHES, MON_FETCHES, MON_FETCHED_AT, MON_HAS = range(6)
 # Fields of the engine-supervision row. The engine process writes
@@ -61,6 +69,47 @@ MON_ROWS, MON_OUTLIERS, MON_BATCHES, MON_FETCHES, MON_FETCHED_AT, MON_HAS = rang
 
 def _counter(name: str, value) -> list[str]:
     return [f"# TYPE {name} counter", f"{name} {value}"]
+
+
+def lifecycle_lines(snapshot: dict | None, tenant: str = TENANT) -> list[str]:
+    """The lifecycle gauge block for one controller
+    (``LifecycleController.metrics_snapshot``); empty without one."""
+    if not snapshot:
+        return []
+    t = f'tenant="{tenant}"'
+    lines = [
+        "# TYPE mlops_tpu_bundle_generation gauge",
+        f"mlops_tpu_bundle_generation{{{t}}} {int(snapshot['generation'])}",
+        "# TYPE mlops_tpu_drift_trigger_total counter",
+        f"mlops_tpu_drift_trigger_total{{{t}}} {int(snapshot['drift_triggers'])}",
+    ]
+    delta = snapshot.get("shadow_auc_delta")
+    if delta is not None:
+        lines.append("# TYPE mlops_tpu_shadow_auc_delta gauge")
+        lines.append(f"mlops_tpu_shadow_auc_delta{{{t}}} {float(delta):.6f}")
+    lines.append("# TYPE mlops_tpu_promotions_total counter")
+    promotions = snapshot.get("promotions", {})
+    for outcome in LIFE_OUTCOMES:
+        lines.append(
+            f'mlops_tpu_promotions_total{{{t},outcome="{outcome}"}} '
+            f"{int(promotions.get(outcome, 0))}"
+        )
+    rows = snapshot.get("reservoir_rows")
+    if rows is not None:
+        lines.append("# TYPE mlops_tpu_lifecycle_reservoir_rows gauge")
+        lines.append(f"mlops_tpu_lifecycle_reservoir_rows{{{t}}} {int(rows)}")
+    if "breaker_open" in snapshot:
+        lines.append("# TYPE mlops_tpu_lifecycle_breaker_open gauge")
+        lines.append(
+            f"mlops_tpu_lifecycle_breaker_open{{{t}}} "
+            f"{1 if snapshot['breaker_open'] else 0}"
+        )
+        lines.append("# TYPE mlops_tpu_lifecycle_breaker_trips_total counter")
+        lines.append(
+            f"mlops_tpu_lifecycle_breaker_trips_total{{{t}}} "
+            f"{int(snapshot.get('breaker_trips', 0))}"
+        )
+    return lines
 
 
 def render_ring_metrics(ring) -> str:

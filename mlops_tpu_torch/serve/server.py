@@ -2,8 +2,10 @@
 or both with SLO tier routing): the single-process plane.
 
 The JAX package's single-process plane (``serve/server.py`` over
-``serve/httpcore.py``), without tenancy, tracing spans, the SLO engine
-or lifecycle (ROADMAP A4). The HTTP protocol, the docs and health routes
+``serve/httpcore.py``), without tenancy, tracing spans or the SLO engine
+(ROADMAP A4); with ``lifecycle=`` it runs the closed lifecycle loop's
+controller (``lifecycle/controller.py``): started once warmup is done,
+its gauges on ``/metrics``, drained on SIGTERM. The HTTP protocol, the docs and health routes
 and the ``POST /predict`` shell are ``serve/httpcore.py``'s, shared with
 the multi-worker front ends (``serve/frontend.py``); this module scores
 in process:
@@ -25,8 +27,9 @@ in process:
 - ``GET /metrics`` — request counters, the monitor aggregate (read from
   the device after every ``monitor_fetch_every_requests`` requests, every
   ``monitor_fetch_every_s`` seconds while traffic flows, and fresh on
-  each scrape), the deadline, tier and demotion counters, dispatches per
-  program and the kernel launch count;
+  each scrape), the deadline, tier and demotion counters, the lifecycle
+  block (``serve/metrics.py lifecycle_lines``) when a loop runs,
+  dispatches per program and the kernel launch count;
 - ``POST /debug/profile/{start,stop}`` — a ``torch.profiler`` trace of
   live traffic into ``serve.profile_dir`` (404 when it is unset).
 
@@ -51,6 +54,7 @@ from mlops_tpu_torch.ops.quant_kernel import quant_kernel_launches
 from mlops_tpu_torch.serve.batcher import MicroBatcher
 from mlops_tpu_torch.serve.engine import InferenceEngine
 from mlops_tpu_torch.serve.httpcore import HttpProtocol, _LazyJson
+from mlops_tpu_torch.serve.metrics import lifecycle_lines
 from mlops_tpu_torch.serve.tierroute import TIERS, BrownoutGovernor
 from mlops_tpu_torch.serve.wire import (
     DeadlineExceeded,
@@ -129,6 +133,7 @@ class Metrics:
         self.tier_requests: dict[str, int] = dict.fromkeys(TIERS, 0)
         self.tier_demotions = 0
         self.brownout_demotions = 0
+        self.lifecycle: dict[str, Any] | None = None
 
     def observe_request(self, route: str, status: int,
                         latency_ms: float = 0.0) -> None:
@@ -145,6 +150,12 @@ class Metrics:
         """One request answered 504 without its work dispatching."""
         with self._lock:
             self.deadline_expired += 1
+
+    def set_lifecycle(self, snapshot: dict[str, Any]) -> None:
+        """Install a lifecycle-controller snapshot for the next render."""
+        if snapshot:
+            with self._lock:
+                self.lifecycle = dict(snapshot)
 
     def count_tier(self, tier: str) -> None:
         with self._lock:
@@ -204,6 +215,7 @@ class Metrics:
                 "# TYPE mlops_tpu_brownout_demote_total counter",
                 f"mlops_tpu_brownout_demote_total {self.brownout_demotions}",
             ]
+            lines += lifecycle_lines(self.lifecycle)
         lines.append("# TYPE mlops_tpu_dispatches_total counter")
         for entry, count in sorted(dispatches.items()):
             lines.append(f'mlops_tpu_dispatches_total{{entry="{entry}"}} {count}')
@@ -216,9 +228,13 @@ class Metrics:
 
 
 class HttpServer(HttpProtocol):
-    def __init__(self, engine: InferenceEngine, config: ServeConfig):
+    def __init__(self, engine: InferenceEngine, config: ServeConfig,
+                 lifecycle=None):
         super().__init__(config.validate())
         self.engine = engine
+        # The lifecycle controller (``lifecycle/controller.py``), when the
+        # loop runs: ``serve`` starts it after warmup and stops it on drain.
+        self.lifecycle = lifecycle
         self.metrics = Metrics()
         # The request cap never exceeds the largest warmed bucket.
         self.max_batch = min(config.max_batch, engine.max_bucket)
@@ -385,6 +401,9 @@ class HttpServer(HttpProtocol):
                 await asyncio.wait_for(
                     asyncio.shield(self._spawn_monitor_fetch()), timeout=1.0
                 )
+        if self.lifecycle is not None:
+            # A host dict read under the controller's leaf lock.
+            self.metrics.set_lifecycle(self.lifecycle.metrics_snapshot())
         text = self.metrics.render(self.engine.dispatch_counts())
         return 200, text, "text/plain; version=0.0.4"
 
@@ -401,9 +420,13 @@ class HttpServer(HttpProtocol):
         return bool(self.engine.ready) and not self.draining
 
 
-async def serve(engine: InferenceEngine, config: ServeConfig) -> None:
-    """Bind, warm up behind the socket, serve until SIGTERM, then drain."""
-    server = HttpServer(engine, config)
+async def serve(engine: InferenceEngine, config: ServeConfig,
+                lifecycle=None) -> None:
+    """Bind, warm up behind the socket, serve until SIGTERM, then drain.
+    ``lifecycle`` (a ``LifecycleController``) starts once warmup is done
+    and stops (its thread joined, the engine tee cleared, the reservoir
+    saved) while the server drains."""
+    server = HttpServer(engine, config, lifecycle=lifecycle)
     srv = await server.start()
     logger.info(
         "serving %s on %s:%s (tier=%s, tiers=%s, device=%s)",
@@ -417,6 +440,11 @@ async def serve(engine: InferenceEngine, config: ServeConfig) -> None:
         try:
             await loop.run_in_executor(None, engine.warmup)
             logger.info("warmup complete; ready %s", _LazyJson(engine.warmup_stats))
+            if lifecycle is not None:
+                # Only once the live graphs are all captured: a trigger
+                # before then would have nothing warm to shadow against.
+                lifecycle.start()
+                logger.info("lifecycle controller started")
         # A failed warmup (kernel build, launch, graph capture, OOM) stops
         # the server: the error is re-raised below, never left as a
         # forever-503.
@@ -441,6 +469,9 @@ async def serve(engine: InferenceEngine, config: ServeConfig) -> None:
     finally:
         srv.close()
         server.stop_telemetry()
+        if lifecycle is not None:
+            # stop() joins the controller thread: never on the event loop.
+            await loop.run_in_executor(None, lifecycle.stop)
         await warm_task
         deadline = loop.time() + config.drain_deadline_s
         while server._busy and loop.time() < deadline:
@@ -453,6 +484,7 @@ async def serve(engine: InferenceEngine, config: ServeConfig) -> None:
         raise SystemExit(f"warmup failed: {warmup_error[0]}")
 
 
-def serve_forever(engine: InferenceEngine, config: ServeConfig) -> None:
+def serve_forever(engine: InferenceEngine, config: ServeConfig,
+                  lifecycle=None) -> None:
     """Blocking entry point."""
-    asyncio.run(serve(engine, config))
+    asyncio.run(serve(engine, config, lifecycle=lifecycle))

@@ -47,6 +47,7 @@ from mlops_tpu_torch.device import resolve_device
 from mlops_tpu_torch.models import init_params
 from mlops_tpu_torch.train import checkpoint as ckpt
 from mlops_tpu_torch.train.metrics import binary_metrics
+from mlops_tpu_torch.weights import load_params
 
 # Validation rows per forward when a split is scored: rows are
 # independent, so the chunking changes memory, not results.
@@ -331,17 +332,25 @@ def fit(
     train_ds: EncodedDataset,
     valid_ds: EncodedDataset,
     config: TrainConfig,
+    init_state: dict[str, torch.Tensor] | None = None,
     metrics_path: str | Path | None = None,
     checkpoint_dir: str | Path | None = None,
     device: str | torch.device | None = None,
 ) -> TrainResult:
     """Train ``model`` (a ``models.build_model`` module; initialized here
-    from ``config.seed`` and moved to ``device``, ``config.device`` when
+    from ``config.seed``, or from ``init_state``, a ``state_dict`` of its
+    params — the JAX ``init_variables``, which the lifecycle retrain
+    fine-tunes from —, and moved to ``device``, ``config.device`` when
     None: the card unless "cpu") on an encoded dataset; resume from the
-    checkpoints in ``checkpoint_dir`` if any. The result's params are the
-    packaged ones on the CPU, by ``state_dict`` name."""
+    checkpoints in ``checkpoint_dir`` if any (a checkpoint wins over
+    ``init_state``). The optimizer starts fresh either way. The result's
+    params are the packaged ones on the CPU, by ``state_dict`` name."""
     dev = resolve_device(device if device is not None else config.device)
-    model = init_params(model, config.seed).to(dev)
+    if init_state is None:
+        model = init_params(model, config.seed)
+    else:
+        model = load_params(model, init_state)
+    model = model.to(dev)
     params = dict(model.named_parameters())
     optimizer = make_optimizer(model, config)
     decay = config.ema_decay

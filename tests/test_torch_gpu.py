@@ -833,6 +833,81 @@ def test_a_failed_capture_fails_warmup(serving_engines, monkeypatch):
     assert not engine.ready
 
 
+@pytest.mark.gpu
+def test_a_hot_swap_keeps_the_aggregate_exact_and_rolls_back_bitwise(
+    serving_engines, tmp_path
+):
+    """The lifecycle's promotion on the card: the candidate's programs
+    are captured again over the live engine's accumulator, so after
+    ``swap_bundle`` every row served folds into the live aggregate once,
+    rows scored on the candidate's own engine never do, the answers are
+    the candidate's eager program's bits, a cheap-tier request serves on
+    the candidate's default tier, and ``rollback`` gives back the
+    incumbent's bits, quant tier included."""
+    from mlops_tpu_torch.bundle import load_bundle, save_exact_bundle
+    from mlops_tpu_torch.config import ModelConfig
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    graphs, eager, ds = serving_engines
+    model = _exact_model("mlp-ens8")
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(0.9)
+    incumbent = graphs.bundle
+    save_exact_bundle(tmp_path, ModelConfig(precision="bf16", **EXACT_MODELS["mlp-ens8"]),
+                      model, incumbent.preprocessor, incumbent.monitor,
+                      calibration={"temperature": 1.3})
+    candidate_bundle = load_bundle(tmp_path)
+    live = InferenceEngine(incumbent, tier_routing=True)
+    candidate = InferenceEngine(candidate_bundle, tier_routing=True)
+    candidate_eager = InferenceEngine(candidate_bundle, cuda_graphs=False)
+    for engine in (live, candidate, candidate_eager):
+        engine.warmup()
+    keys = [((1,), "exact"), ((256,), "quant"), ((64, 8), "exact"), ((4, 1), "quant")]
+    before = [_dispatch(live, ds, key, 5 + k, tier) for k, (key, tier) in enumerate(keys)]
+    base = live.monitor_snapshot()["rows"]
+    _dispatch(live, ds, (8,), 3, None)  # 8 rows left in the window across the swap
+    assert live.swap_bundle(candidate) == 2
+    assert live.swap_stats["graphs"] == 16 and live.available_tiers == ("exact",)
+    assert live.route_tier(1) is None
+    for k, (key, tier) in enumerate(keys):
+        got = _dispatch(live, ds, key, 5 + k, tier)
+        want = _dispatch(candidate_eager, ds, key, 5 + k, None)
+        assert np.array_equal(_bits(got), _bits(want)), key
+    _dispatch(candidate, ds, (64,), 9, None)  # folds into the candidate's own
+    rows = 8 + sum(
+        max(1, key[0] - (5 + k) % 3) if len(key) == 1
+        else sum(len(c) for c, _ in _parts(ds, *key, 5 + k))
+        for k, (key, _) in enumerate(keys)
+    )
+    assert live.monitor_snapshot()["rows"] - base == rows
+    assert live.rollback() == 3 and live.available_tiers == ("quant", "exact")
+    for k, (key, tier) in enumerate(keys):
+        got = _dispatch(live, ds, key, 5 + k, tier)
+        assert np.array_equal(_bits(got), _bits(before[k])), key
+
+
+@pytest.mark.gpu
+def test_live_engines_never_share_a_stream(serving_engines):
+    """torch's stream pool wraps after 32 draws; engines built one after
+    another (a lifecycle loop's shadow engines beside the serving one)
+    must still never hold another live engine's stream, and a capture
+    stream is nobody's serving stream."""
+    from mlops_tpu_torch.device import own_stream
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    graphs, _, _ = serving_engines
+    fresh = []
+    for k in range(24):  # 48 more pool draws: past the pool's wrap
+        fresh = fresh[-4:] + [InferenceEngine(graphs.bundle)]
+        alive = [graphs, *fresh]
+        with own_stream(graphs.device) as retrain:
+            held = [e._stream.cuda_stream for e in alive]
+            held += [e._capture_stream.cuda_stream for e in alive]
+            held.append(retrain.cuda_stream)
+            assert len(set(held)) == len(held), k
+
+
 # ------------------------------------------------------------ bulk scoring
 # Bulk sweeps on the card (parallel/bulk.py): the staged executor's
 # threads, the pinned staging ring, the compute stream and the fetch
