@@ -22,7 +22,8 @@ paths and, as ``kubernetes/train-job.yml`` runs it, on a ``gs://`` bucket,
 serving as the serving image starts it (``warmup --cache-dir``, then
 ``serve`` on the multi-worker ring plane), and the closed lifecycle loop
 (``serve --config configs/lifecycle_serve.toml``: drift trigger, retrain,
-shadow, gated hot swap, rollback).
+shadow, gated hot swap, rollback), in one process and on the ring plane,
+also under a seeded fault plan.
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -275,7 +276,8 @@ Phases, each of which fails the run loudly:
     ``cooldown_s`` 2, ``min_window_rows`` 32, ``mirror_fraction`` 1.0): a
     8,000-row labeled window (numerics x10); ``serve --config ...`` in a
     subprocess under four keep-alive clients (single records and 8-record
-    bodies, every fourth cheap), normal traffic and then drifted, until
+    bodies, every fourth cheap, each pausing 50 ms between requests),
+    normal traffic and then drifted, until
     the trigger, the retrain on the controller thread, the shadow and the
     promotion to generation 2 show in the log and on /metrics; every
     answer 200, /metrics rows equal to the records answered, p50/p99 in
@@ -291,7 +293,32 @@ Phases, each of which fails the run loudly:
     launched before the swap, not after it, once after the rollback; the
     retrain's wall and step ms, the shadow's warm, the swap's and the
     rollback's critical sections in µs, the gate record and peak device
-    memory with the graph pools alive.
+    memory with the graph pools alive;
+31. the lifecycle loop on the ring plane as the serving image starts it
+    with ``configs/lifecycle_serve.toml`` mounted (``MLOPS_TPU_SERVE_WORKERS=2``
+    and ``MLOPS_TPU_CACHE_DIR`` win over the file's ``workers = 0``; the
+    loop runs in the engine process, the only one holding the card, with no
+    nvcc): phase 30's bundle, window, clocks and four unpaced clients; 32
+    requests one at a time before the traffic; per window (before the
+    trigger, retrain, shadow, after the swap) p50 / p99, requests/s,
+    non-200 and ``quant_fused`` launches from the ring's /metrics; trigger
+    -> swap, the retrain's wall and ms per step, the shadow's warm; every
+    front end's lifecycle block equal at generation 2; kill -9 of the
+    engine: no counter goes back, the respawn serves generation 1 (the
+    fork-time bundle, as the JAX plane does) and answers the 32 requests
+    bitwise as before the trigger, ``quant_fused`` launching again;
+    SIGTERM under traffic, every child exiting 0;
+32. a card twin of ``scripts/chaos_smoke.py``: phase 31's plane armed
+    through ``MLOPS_TPU_FAULTS`` with ``CHAOS_PLAN`` (the JAX plan format):
+    budgeted requests answer 504 inside their deadline while the first
+    dispatches stall, 200 after; two injected retrain failures open the
+    breaker on every front end and no retrain runs; the engine kills
+    itself at main-loop tick 60, the respawn answers bitwise as before and
+    no counter goes back; in subprocesses, kills at the reservoir's, the
+    atomic write's and the kernel cache's mid-write points leave no torn
+    file, and bit flips on the cached library's read are a counted discard
+    and one nvcc rebuild whose kernel agrees with its plain version; every
+    status in {200, 413, 422, 503, 504}, SIGTERM drains.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
@@ -4306,6 +4333,11 @@ LIFECYCLE_CLOCKS = ("lifecycle.tick_s=0.25", "lifecycle.cooldown_s=2",
 # 8,000 rows it calibrates to ~0.014.
 LIFECYCLE_WINDOW_ROWS = 8000
 LIFECYCLE_HAMMER_THREADS = 4
+# Phase 30's server part only: each client pauses this long between
+# requests, so fewer requests starve the retrain of the server's one GIL
+# and the run stays inside its time limit. Phase 31 sends the same four
+# clients unpaced to the ring plane.
+LIFECYCLE_SERVER_PAUSE_S = 0.05
 LIFECYCLE_WINDOWS = ("before_trigger", "retrain", "shadow", "after_swap")
 
 
@@ -4334,9 +4366,11 @@ def _lifecycle_bodies(seed: int) -> dict:
     return out
 
 
-def _hammer(port: int, bodies: dict, phase: dict, stop, samples: list) -> None:
+def _hammer(port: int, bodies: dict, phase: dict, stop, samples: list,
+            pause_s: float = 0.0) -> None:
     """One keep-alive client: every fourth request asks for the cheap
-    class; records (send time, ms, status, records)."""
+    class, ``pause_s`` between requests; records (send time, ms, status,
+    records)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     i = 0
     try:
@@ -4359,6 +4393,8 @@ def _hammer(port: int, bodies: dict, phase: dict, stop, samples: list) -> None:
             samples.append((t0, (time.monotonic() - t0) * 1e3, status,
                             1 if body.count(b"{") == 1 else 8))
             i += 1
+            if pause_s:
+                stop.wait(pause_s)
     finally:
         conn.close()
 
@@ -4384,6 +4420,62 @@ def _lifecycle_scrape(port: int) -> dict:
     }
 
 
+class _PlaneLog:
+    """A plane subprocess whose output a thread copies into a log file,
+    keeping (arrival time, line) for everything but the per-request
+    structured events."""
+
+    def __init__(self, cmd: list[str], env: dict, path: Path) -> None:
+        self.path = path
+        self.events: list[tuple[float, str]] = []
+        self.proc = subprocess.Popen(cmd, cwd=ROOT, env=env, text=True,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        self._pump = threading.Thread(target=self._copy, daemon=True)
+        self._pump.start()
+
+    def _copy(self) -> None:
+        with open(self.path, "w") as out:
+            for line in iter(self.proc.stdout.readline, ""):
+                if not line.startswith('{"service_name"'):
+                    self.events.append((time.monotonic(), line))
+                out.write(line)
+                out.flush()
+
+    def tail(self) -> str:
+        return "".join(line for _, line in self.events[-40:])
+
+    def find(self, pattern: str, after: float = 0.0) -> tuple[float, str] | None:
+        return next(((t, line) for t, line in list(self.events)
+                     if t >= after and pattern in line), None)
+
+    def wait(self, pattern: str, seconds: float, after: float = 0.0, each=None) -> float:
+        """The arrival time of the first line holding ``pattern`` (after
+        ``after``); ``each()`` runs between looks."""
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            hit = self.find(pattern, after)
+            if hit is not None:
+                return hit[0]
+            check(self.proc.poll() is None,
+                  f"the plane exited ({self.proc.returncode}); its last lines:\n{self.tail()}")
+            if each is not None:
+                each()
+            time.sleep(0.1)
+        raise SmokeFailure(f"no {pattern!r} in {seconds:.0f} s; the plane's last lines:\n"
+                           f"{self.tail()}")
+
+    def stop(self, timeout: float = 120) -> int:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            rc = self.proc.wait(timeout=30)
+        self._pump.join(timeout=30)
+        return rc
+
+
 def _lifecycle_server(bundle_dir: Path, window: Path, device: str,
                       extra: tuple[str, ...]) -> dict:
     """Part one: ``serve --config configs/lifecycle_serve.toml`` in a
@@ -4402,43 +4494,12 @@ def _lifecycle_server(bundle_dir: Path, window: Path, device: str,
            "serve.tier_routing=true", f"lifecycle.dir={work / 'state'}",
            f"lifecycle.labeled_path={window}", *LIFECYCLE_CLOCKS, *extra]
     log(f"lifecycle server: {' '.join(cmd[2:])} (MODEL_DIRECTORY={bundle_dir})")
-    proc = subprocess.Popen(
-        cmd, cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        env=dict(os.environ, PYTHONPATH=str(ROOT), MODEL_DIRECTORY=str(bundle_dir),
-                 PYTHONFAULTHANDLER="1"),
-    )
-    events: list[tuple[float, str]] = []
+    plane = _PlaneLog(cmd, dict(os.environ, PYTHONPATH=str(ROOT), MODEL_DIRECTORY=str(bundle_dir),
+                                PYTHONFAULTHANDLER="1"), work / "server.log")
+    proc = plane.proc
 
-    def pump():
-        """Every line into the log file; all but the per-request structured
-        events (InferenceData / ModelOutput) into ``events`` too."""
-        with open(work / "server.log", "w") as out:
-            for line in iter(proc.stdout.readline, ""):
-                if not line.startswith('{"service_name"'):
-                    events.append((time.monotonic(), line))
-                out.write(line)
-
-    pumper = threading.Thread(target=pump, daemon=True)
-    pumper.start()
-
-    def tail() -> str:
-        return "".join(line for _, line in events[-40:])
-
-    def wait_log(pattern: str, seconds: float) -> float:
-        deadline = time.monotonic() + seconds
-        while time.monotonic() < deadline:
-            for t, line in list(events):
-                if pattern in line:
-                    return t
-            try:
-                scrapes.append(_lifecycle_scrape(port))
-            except OSError as err:
-                time.sleep(1.0)  # the pump reads the last lines of a dead server
-                raise SmokeFailure(f"lifecycle server: /metrics failed ({err!r}), exit "
-                                   f"code {proc.poll()}; its last lines:\n{tail()}") from err
-            time.sleep(0.25)
-        raise SmokeFailure(f"lifecycle server: no {pattern!r} in {seconds:.0f} s; "
-                           f"its last lines:\n{tail()}")
+    def scrape():
+        scrapes.append(_lifecycle_scrape(port))
 
     bodies = _lifecycle_bodies(seed=61)
     phase = {"drift": False}
@@ -4447,23 +4508,14 @@ def _lifecycle_server(bundle_dir: Path, window: Path, device: str,
     scrapes: list = []
     clients = []
     try:
-        deadline = time.monotonic() + 600
-        while True:
-            check(proc.poll() is None, f"lifecycle server exited early ({proc.returncode}); "
-                  f"see {work / 'server.log'}")
-            try:
-                if _http(port, "GET", "/healthz/ready")[0] == 200:
-                    break
-            except OSError:
-                pass
-            check(time.monotonic() < deadline, "lifecycle server never became ready")
-            time.sleep(0.5)
-        wait_log("lifecycle controller started", 30)
+        _wait_ready(port, proc, "lifecycle server")
+        plane.wait("lifecycle controller started", 30)
         first = _lifecycle_scrape(port)
         check(first["generation"] == 1 and first["triggers"] == 0,
               f"lifecycle server before traffic: {first}")
         t_start = time.monotonic()
-        clients = [threading.Thread(target=_hammer, args=(port, bodies, phase, stop, samples),
+        clients = [threading.Thread(target=_hammer, args=(port, bodies, phase, stop, samples,
+                                                          LIFECYCLE_SERVER_PAUSE_S),
                                     daemon=True) for _ in range(LIFECYCLE_HAMMER_THREADS)]
         for client in clients:
             client.start()
@@ -4471,9 +4523,9 @@ def _lifecycle_server(bundle_dir: Path, window: Path, device: str,
         scrapes.append(_lifecycle_scrape(port))
         check(scrapes[-1]["triggers"] == 0, "lifecycle server: a trigger on normal traffic")
         phase["drift"] = True
-        t_trigger = wait_log("lifecycle trigger fired", 120)
-        t_shadow = wait_log("; shadowing", 300)
-        t_swap = wait_log("candidate promoted: generation", 300)
+        t_trigger = plane.wait("lifecycle trigger fired", 120, each=scrape)
+        t_shadow = plane.wait("; shadowing", 300, each=scrape)
+        t_swap = plane.wait("candidate promoted: generation", 300, each=scrape)
         after_swap = _lifecycle_scrape(port)
         scrapes.append(after_swap)
         time.sleep(3.0)  # traffic on the promoted bundle
@@ -4487,9 +4539,7 @@ def _lifecycle_server(bundle_dir: Path, window: Path, device: str,
             if time.monotonic() > deadline:
                 break  # the check below names both numbers
             time.sleep(0.5)
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=120)
-        pumper.join(timeout=30)
+        rc = plane.stop()
     finally:
         stop.set()
         if proc.poll() is None:
@@ -4526,8 +4576,8 @@ def _lifecycle_server(bundle_dir: Path, window: Path, device: str,
     check(windows["after_swap"]["quant_fused_launches"] == 0,
           "lifecycle server: quant_fused launched after the promotion to a bundle "
           "without a quant tier")
-    built = next(line for _, line in events if "; shadowing" in line).strip()
-    promoted = next(line for _, line in events if "candidate promoted" in line).strip()
+    built = plane.find("; shadowing")[1].strip()
+    promoted = plane.find("candidate promoted")[1].strip()
     result = {
         "requests": len(samples), "records": records, "non_200": len(bad),
         "windows": windows, "candidate_built": built, "promotion": promoted,
@@ -4699,6 +4749,632 @@ def phase_lifecycle(bundle_dir: Path, device: str = "cuda",
     return {"server": server, "in_process": in_process, "launches": launches}
 
 
+# ----------------------------------------------------------------- phase 31
+# The lifecycle loop on the ring plane, as the serving image starts it with
+# configs/lifecycle_serve.toml mounted: the image's MLOPS_TPU_SERVE_WORKERS=2
+# and MLOPS_TPU_CACHE_DIR win over the file's workers = 0, and the loop
+# runs in the engine process. Phase 30's bundle, window, clocks and traffic,
+# so the two planes compare.
+RING_LOOP_BITWISE_REQUESTS = 32  # sent one at a time before the trigger and after the respawn
+
+
+def _lifecycle_block(text: str) -> list[str]:
+    """The lifecycle series of a /metrics text."""
+    return [line for line in text.splitlines() if "tenant=\"default\"" in line and any(
+        name in line for name in ("bundle_generation", "drift_trigger", "shadow_auc",
+                                  "promotions_total", "lifecycle_"))]
+
+
+def _every_front_end(port: int, workers: int) -> list[str]:
+    """Scrapes on new connections until each of the ``workers`` front
+    ends has answered some (the per-worker /metrics counters tell which);
+    every scrape's lifecycle block must be the same. Returns it."""
+    def answered(text: str) -> dict[str, float]:
+        out = {}
+        for line in text.splitlines():
+            if line.startswith('mlops_tpu_requests_total{route="/metrics",status="200",worker="'):
+                out[line.split('worker="')[1][0]] = float(line.rsplit(" ", 1)[1])
+        return out
+
+    start = answered(_http(port, "GET", "/metrics")[1].decode())
+    blocks = []
+    for _ in range(200):
+        text = _http(port, "GET", "/metrics")[1].decode()
+        blocks.append(_lifecycle_block(text))
+        counts = answered(text)
+        if all(counts.get(str(w), 0) > start.get(str(w), 0) + 1 for w in range(workers)):
+            break
+    check(all(counts.get(str(w), 0) > start.get(str(w), 0) + 1 for w in range(workers)),
+          f"not every front end answered a scrape: {counts} from {start}")
+    check(all(block == blocks[0] for block in blocks),
+          "the front ends render different lifecycle blocks")
+    return blocks[0]
+
+
+def _sequential(port: int, bodies: list[bytes]) -> list[tuple[int, bytes]]:
+    """One keep-alive connection, one request at a time (every fourth
+    cheap): (status, body) of each."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    out = []
+    try:
+        for i, body in enumerate(bodies):
+            headers = {"content-type": "application/json"}
+            if i % BURST_CHEAP_EVERY == 0:
+                headers["x-slo-class"] = "cheap"
+            conn.request("POST", "/predict", body=body, headers=headers)
+            resp = conn.getresponse()
+            out.append((resp.status, resp.read()))
+    finally:
+        conn.close()
+    return out
+
+
+def _retrain_steps(extra: tuple[str, ...]) -> int:
+    import tomllib
+
+    for item in extra:
+        if item.startswith("lifecycle.retrain_steps="):
+            return int(item.split("=", 1)[1])
+    with open(ROOT / LIFECYCLE_TOML, "rb") as f:
+        return int(tomllib.load(f)["lifecycle"]["retrain_steps"])
+
+
+def _warm_cache(bundle_dir: Path, cache: Path, device: str) -> None:
+    """``warmup --cache-dir`` unless the cache holds the bundle's kernel
+    library already (phase 29 fills it)."""
+    if device != "cuda" or list((cache / "kernels").glob("libquant_fused-*.so")):
+        return
+    proc = subprocess.run(_cli(["warmup", "--cache-dir", str(cache)]), cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT),
+                                   **_image_env(bundle_dir, cache, 0, RING_WORKERS, device)),
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"warmup: {proc.stderr[-3000:]}")
+
+
+def phase_ring_lifecycle(bundle_dir: Path, device: str = "cuda",
+                         extra: tuple[str, ...] = ()) -> dict:
+    """Phase 31: ``serve --config configs/lifecycle_serve.toml`` with the
+    serving image's environment (``MLOPS_TPU_SERVE_WORKERS=2``,
+    ``MLOPS_TPU_CACHE_DIR`` on a warmed cache) and tier routing on phase
+    22's bundle; the engine process alone holds the card and builds no
+    kernel. 32 requests one at a time, then phase 30's four clients,
+    normal traffic and then drifted, through the engine-side trigger,
+    retrain, shadow and promotion; every answer 200; per window (before
+    the trigger, retrain, shadow, after the swap) p50 / p99, requests/s,
+    non-200 and ``quant_fused`` launches from the ring's /metrics; every
+    front end's lifecycle block equal at generation 2; kill -9 of the
+    engine: the counters never go back, the respawn serves the fork-time
+    bundle at generation 1 and answers the 32 requests bitwise as before
+    the trigger (``quant_fused`` launching again); SIGTERM under traffic:
+    every child exits 0."""
+    import numpy as np
+
+    from mlops_tpu_torch.data.ingest import write_csv_columns
+
+    root = WORK / "ring_lifecycle"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    window = WORK / "lifecycle_window.csv"
+    if not window.is_file():
+        write_csv_columns(window, *_drifted_columns(LIFECYCLE_WINDOW_ROWS, seed=3))
+    cache = WORK / "ring" / "cache"
+    _warm_cache(bundle_dir, cache, device)
+    port = _free_port()
+    cmd = _cli(["serve", "--config", LIFECYCLE_TOML, f"lifecycle.dir={root / 'state'}",
+                f"lifecycle.labeled_path={window}", *LIFECYCLE_CLOCKS, *extra])
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONFAULTHANDLER="1",
+               **_image_env(bundle_dir, cache, port, RING_WORKERS, device))
+    log(f"ring lifecycle plane: {' '.join(cmd[2:])} (MLOPS_TPU_SERVE_WORKERS={RING_WORKERS})")
+    plane = _PlaneLog(cmd, env, root / "plane.log")
+    bodies = _lifecycle_bodies(seed=61)
+    probe = bodies[False][:RING_LOOP_BITWISE_REQUESTS]
+    phase = {"drift": False}
+    stop = threading.Event()
+    samples: list = []
+    scrapes: list = []
+    clients: list = []
+
+    def scrape():
+        scrapes.append(_lifecycle_scrape(port))
+
+    try:
+        _wait_ready(port, plane.proc, "ring lifecycle plane")
+        plane.wait("lifecycle controller started", 60)
+        pids, ready, text = _ring_log(plane.path)
+        check(len(ready) == 1 and (device != "cuda" or ready[0]["nvcc_calls"] == 0),
+              f"the ring engine's start: {ready}")
+        check("tiers=quant,exact" in text, "the ring engine does not hold both tiers")
+        members = {plane.proc.pid, *_children(plane.proc.pid)}
+        holders = sorted(pid for pid in members if _holds_card(pid))
+        if device == "cuda":
+            check(holders == [pids["engine"]],
+                  f"processes holding the card {holders}, engine {pids['engine']}")
+        first = _lifecycle_scrape(port)
+        check(first["generation"] == 1 and first["triggers"] == 0,
+              f"ring lifecycle plane before traffic: {first}")
+        before = _sequential(port, probe)
+        check(all(status == 200 for status, _ in before),
+              f"ring lifecycle plane: {[s for s, _ in before]}")
+        scrape()
+        t_start = time.monotonic()
+        clients = [threading.Thread(target=_hammer, args=(port, bodies, phase, stop, samples),
+                                    daemon=True) for _ in range(LIFECYCLE_HAMMER_THREADS)]
+        for client in clients:
+            client.start()
+        time.sleep(3.0)
+        scrape()
+        check(scrapes[-1]["triggers"] == 0, "ring lifecycle plane: a trigger on normal traffic")
+        phase["drift"] = True
+        t_trigger = plane.wait("lifecycle trigger fired", 120, each=scrape)
+        t_shadow = plane.wait("; shadowing", 300, after=t_trigger, each=scrape)
+        t_swap = plane.wait("candidate promoted: generation", 300, after=t_shadow, each=scrape)
+        after_swap = _lifecycle_scrape(port)
+        scrapes.append(after_swap)
+        time.sleep(3.0)  # traffic on the promoted bundle
+        stop.set()
+        for client in clients:
+            client.join(timeout=120)
+        t_end = time.monotonic()
+        final = _lifecycle_scrape(port)
+        scrapes.append(final)
+        block = _every_front_end(port, RING_WORKERS)
+        check('mlops_tpu_bundle_generation{tenant="default"} 2' in block,
+              f"the front ends' lifecycle block after the promotion: {block}")
+        # kill -9 of the engine after the promotion.
+        kill_before = _lifecycle_scrape(port)
+        incarnation = _scrape_ring(port)["engine_incarnation"]
+        os.kill(pids["engine"], signal.SIGKILL)
+        t_kill = time.monotonic()
+        while True:
+            try:
+                if (_scrape_ring(port)["engine_incarnation"] > incarnation
+                        and _http(port, "GET", "/healthz/ready")[0] == 200
+                        and _lifecycle_scrape(port)["generation"] == 1):
+                    break
+            except OSError:
+                pass
+            check(time.monotonic() - t_kill < 300, "the engine never came back after kill -9")
+            time.sleep(0.05)
+        kill_to_ready = time.monotonic() - t_kill
+        respawned = _lifecycle_scrape(port)
+        again = _sequential(port, probe)
+        after_respawn = _lifecycle_scrape(port)
+        # SIGTERM while traffic flows.
+        stop.clear()
+        phase["drift"] = False
+        drain_samples: list = []
+        drainers = [threading.Thread(target=_hammer,
+                                     args=(port, bodies, phase, stop, drain_samples),
+                                     daemon=True) for _ in range(2)]
+        for client in drainers:
+            client.start()
+        time.sleep(0.5)
+        rc = plane.stop()
+        stop.set()
+        for client in drainers:
+            client.join(timeout=60)
+    finally:
+        stop.set()
+        if plane.proc.poll() is None:
+            plane.proc.kill()
+            plane.proc.wait(timeout=30)
+    bad = [s for s in samples if s[2] != 200]
+    check(not bad, f"ring lifecycle plane: {len(bad)} non-200 answers, first {bad[:3]}")
+    # Two readers of the monitor in one process (the controller's windows
+    # and the ring's telemetry): the rows never go back on /metrics.
+    for key in ("rows", "triggers", "launches"):
+        seen = [s[key] for s in sorted(scrapes, key=lambda s: s["t"])]
+        check(seen == sorted(seen), f"ring lifecycle plane: /metrics {key} went back")
+    for key in ("triggers", "promoted", "rejected", "rows", "launches"):
+        check(respawned[key] >= kill_before[key],
+              f"ring lifecycle plane: {key} went back across the engine kill "
+              f"({kill_before[key]} -> {respawned[key]})")
+    check(respawned["generation"] == 1,
+          f"the respawned engine serves generation {respawned['generation']}, not 1")
+    diff = [i for i, (a, b) in enumerate(zip(before, again)) if a != b]
+    check(not diff, f"the respawned engine's answers differ from the pre-trigger ones at {diff}")
+    pids_after, _, text = _ring_log(plane.path)
+    check(rc == 0, f"the ring lifecycle plane exited {rc} after SIGTERM")
+    for worker in range(RING_WORKERS):
+        check(f"frontend {worker} (pid {pids_after[f'frontend {worker}']}) exited 0" in text,
+              f"front end {worker} did not exit 0")
+    check(f"engine (pid {pids_after['engine']}) exited 0" in text, "the engine did not exit 0")
+    answered = [s for s in drain_samples if isinstance(s[2], int)]
+    check(all(s[2] == 200 for s in answered),
+          f"answers during the drain: {sorted({s[2] for s in answered})}")
+    bounds = (t_start, t_trigger, t_shadow, t_swap, t_end)
+
+    def launches_at(t: float) -> float:
+        return next((s["launches"] for s in sorted(scrapes, key=lambda s: s["t"])
+                     if s["t"] >= t), final["launches"])
+
+    windows = {}
+    for name, lo, hi in zip(LIFECYCLE_WINDOWS, bounds[:-1], bounds[1:]):
+        inside = [s for s in samples if lo <= s[0] < hi]
+        lat = [s[1] for s in inside]
+        windows[name] = {
+            "seconds": hi - lo, "requests": len(lat),
+            "requests_per_s": len(lat) / (hi - lo) if hi > lo else None,
+            "p50_ms": float(np.percentile(lat, 50)) if lat else None,
+            "p99_ms": float(np.percentile(lat, 99)) if lat else None,
+            "non_200": sum(s[2] != 200 for s in inside),
+            "quant_fused_launches": launches_at(hi) - launches_at(lo),
+        }
+    windows["after_swap"]["quant_fused_launches"] = final["launches"] - after_swap["launches"]
+    launches_after_respawn = after_respawn["launches"] - respawned["launches"]
+    if device == "cuda":
+        check(windows["before_trigger"]["quant_fused_launches"] > 0,
+              "ring lifecycle plane: quant_fused never launched before the swap")
+        check(launches_after_respawn > 0,
+              "ring lifecycle plane: quant_fused did not launch after the respawn")
+    check(windows["after_swap"]["quant_fused_launches"] == 0,
+          "ring lifecycle plane: quant_fused launched after the promotion to a bundle "
+          "without a quant tier")
+    built = plane.find("; shadowing")[1]
+    wall_s, rest = built.split(" built in ", 1)[1].split("s (fit ", 1)
+    fit_s, rest = rest.split("s; warm: ", 1)
+    warm_mode, warm_s = rest.split("s)")[0].split()
+    steps = _retrain_steps(extra)
+    result = {
+        "requests": len(samples), "records": sum(s[3] for s in samples), "non_200": len(bad),
+        "windows": windows, "trigger_to_swap_s": t_swap - t_trigger,
+        "retrain": {"wall_s": float(wall_s), "fit_s": float(fit_s), "steps": steps,
+                    "step_ms": 1e3 * float(fit_s) / steps, "warm_mode": warm_mode,
+                    "warm_s": float(warm_s)},
+        "promotion": plane.find("candidate promoted")[1].strip(),
+        "front_end_block": block, "holding_the_card": holders, "engine_pid": pids["engine"],
+        "engine_nvcc_calls": ready[0]["nvcc_calls"],
+        "kill": {"kill_to_ready_s": kill_to_ready, "before": kill_before,
+                 "after": respawned, "bitwise_equal_requests": len(probe),
+                 "quant_fused_launches_after_respawn": launches_after_respawn},
+        "drain_answered": len(answered),
+    }
+    log_timing("ring lifecycle", result)
+    return result
+
+
+# ----------------------------------------------------------------- phase 32
+# A card twin of scripts/chaos_smoke.py on the port's paths: one ring plane
+# as phase 31 starts it, armed through MLOPS_TPU_FAULTS with the JAX plan
+# format, then short subprocesses for the torn writes and the bad cache
+# bytes.
+CHAOS_ALLOWED = {200, 413, 422, 503, 504}
+CHAOS_STALL_S = 0.6  # each of the first CHAOS_STALL_FIRES dispatches of a kind stalls
+CHAOS_STALL_FIRES = 4
+CHAOS_BUDGET_MS = 200  # x-request-deadline-ms of the stalled requests
+CHAOS_EXIT_TICKS = 60  # the engine kills itself at this 0.5 s main-loop tick
+CHAOS_BITWISE_REQUESTS = 16
+CHAOS_PLAN = f"""\
+seed = 42
+
+[[fault]]
+point = "serve.engine.dispatch*"
+mode = "delay"
+delay_s = {CHAOS_STALL_S}
+max_fires = {CHAOS_STALL_FIRES}
+
+[[fault]]
+point = "lifecycle.retrain"
+mode = "raise"
+max_fires = 2
+message = "injected retrain failure"
+
+[[fault]]
+point = "serve.engine.exit"
+mode = "kill"
+after = {CHAOS_EXIT_TICKS}
+max_fires = 1
+"""
+
+
+def _budgeted_burst(port: int, body: bytes, n: int) -> list[tuple[int, float]]:
+    """``n`` concurrent requests, each on its own connection, with a
+    ``CHAOS_BUDGET_MS`` deadline: (status, ms) of each."""
+    out: list = [None] * n
+
+    def one(i):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+        t0 = time.monotonic()
+        try:
+            conn.request("POST", "/predict", body=body, headers={
+                "content-type": "application/json",
+                "x-request-deadline-ms": str(CHAOS_BUDGET_MS)})
+            resp = conn.getresponse()
+            resp.read()
+            out[i] = (resp.status, (time.monotonic() - t0) * 1e3)
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for thread in threads:
+        thread.start()
+    for thread in threads:
+        thread.join(timeout=60)
+    check(all(o is not None for o in out), "a budgeted request hung")
+    return out
+
+
+def _counters(port: int) -> dict[str, float]:
+    """Every counter sample of /metrics by series name and labels."""
+    text = _http(port, "GET", "/metrics")[1].decode()
+    kinds, out = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            kinds[name] = kind
+        elif line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            if kinds.get(series.split("{")[0]) == "counter":
+                out[series] = float(value)
+    return out
+
+
+_CHAOS_RESERVOIR_KILL = """
+import numpy as np
+from mlops_tpu_torch import faults
+from mlops_tpu_torch.lifecycle.retrain import SampleReservoir
+from mlops_tpu_torch.schema.features import SCHEMA
+res = SampleReservoir(64, {state!r})
+res.add_batch(np.zeros((40, SCHEMA.num_categorical), np.int32),
+              np.zeros((40, SCHEMA.num_numeric), np.float32))
+res.save()
+faults.arm(faults.FaultPlan.from_rules(
+    [{{"point": "lifecycle.reservoir.midwrite", "mode": "kill"}}]))
+res.add_batch(np.ones((9, SCHEMA.num_categorical), np.int32),
+              np.ones((9, SCHEMA.num_numeric), np.float32))
+res.save()
+raise SystemExit("the kill fault did not fire")
+"""
+
+_CHAOS_ATOMIC_KILL = """
+from mlops_tpu_torch import faults
+from mlops_tpu_torch.utils.io import atomic_write
+atomic_write({target!r}, b"GOOD" * 1024)
+faults.arm(faults.FaultPlan.from_rules(
+    [{{"point": "io.atomic_write.midwrite", "mode": "kill"}}]))
+atomic_write({target!r}, b"TORN" * 4096)
+raise SystemExit("the kill fault did not fire")
+"""
+
+_CHAOS_PERSIST_KILL = """
+from mlops_tpu_torch import faults
+from mlops_tpu_torch.ops import cuda_build
+cuda_build.set_cache_dir({cache!r})
+faults.arm(faults.FaultPlan.from_rules(
+    [{{"point": "compilecache.persist.midwrite", "mode": "kill"}}]))
+cuda_build.build_shared_library(cuda_build.PACKAGE_DIR / "csrc" / "quant_fused.cu",
+                                "quant_fused")
+raise SystemExit("the kill fault did not fire")
+"""
+
+_CHAOS_CORRUPT_READ = """
+import json
+import torch
+from mlops_tpu_torch import faults
+from mlops_tpu_torch.data import Preprocessor, generate_synthetic
+from mlops_tpu_torch.monitor.state import fit_monitor
+from mlops_tpu_torch.ops import cuda_build, quant_kernel
+from mlops_tpu_torch.ops.quant import init_quant_master, quantize_student
+cuda_build.set_cache_dir({cache!r})
+faults.arm(faults.FaultPlan.from_rules(
+    [{{"point": "compilecache.read", "mode": "corrupt", "flip_bits": 8}}]))
+dev = torch.device("cuda")
+columns, _ = generate_synthetic(5000, seed=0)
+prep = Preprocessor.fit(columns)
+mon = fit_monitor(prep.encode(columns)).to(dev)
+qp = {{k: v.to(dev) for k, v in quantize_student(init_quant_master(0)).items()}}
+ds = prep.encode(generate_synthetic(512, seed=1, drift=0.4)[0])
+cat = torch.from_numpy(ds.cat_ids.reshape(64, 8, -1)).to(dev)
+num = torch.from_numpy(ds.numeric.reshape(64, 8, -1)).to(dev)
+mask = torch.ones((64, 8), dtype=torch.bool, device=dev)
+args = (qp["embed"], qp["w1_q"], qp["w1_s"], qp["b1"], qp["w2_q"], qp["w2_s"], qp["b2"],
+        mon.num_ref_sorted, mon.num_ref_cdf, mon.out_mean, mon.out_precision,
+        mon.out_threshold, torch.tensor(1.3, device=dev), cat, num, mask)
+kp, kf, kc, kk = quant_kernel.fused_core_cuda(*args)
+torch.cuda.synchronize()
+rp, rf, rc, rk = quant_kernel.fused_core_reference(*args)
+print(json.dumps({{"discards": cuda_build.cache_discards(), "nvcc_calls": cuda_build.nvcc_calls(),
+                  "counts_and_ks_exact": bool(torch.equal(kc, rc) and torch.equal(kk, rk)),
+                  "max_abs_err": float((kp - rp).abs().max()),
+                  "trace": faults.active_plan().trace()}}))
+"""
+
+
+def _chaos_script(name: str, script: str, expect_kill: bool, env: dict | None = None
+                  ) -> subprocess.CompletedProcess:
+    proc = subprocess.run([sys.executable, "-c", script], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=str(ROOT), **(env or {})))
+    if expect_kill:
+        check(proc.returncode == -signal.SIGKILL,
+              f"{name}: exit {proc.returncode}, not SIGKILL\n{proc.stderr[-2000:]}")
+    else:
+        check(proc.returncode == 0, f"{name}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+    return proc
+
+
+def _torn_writes(root: Path, device: str) -> dict:
+    """A kill at each mid-write point in a subprocess: no torn file lands.
+    The reservoir keeps its prior snapshot (40 rows), the atomic write its
+    prior bytes, and the kernel cache holds no library under its final
+    name (the persist kill needs nvcc: the card machine's)."""
+    import numpy as np
+
+    out = {}
+    state = root / "reservoir"
+    _chaos_script("reservoir mid-write kill",
+                  _CHAOS_RESERVOIR_KILL.format(state=str(state)), expect_kill=True)
+    with np.load(state / "reservoir.npz") as data:
+        rows = int(data["cat"].shape[0])
+        clean = bool((data["cat"] == 0).all())
+    check(rows == 40 and clean, f"the reservoir after a mid-write kill: {rows} rows")
+    out["reservoir_rows_kept"] = rows
+    target = root / "record.bin"
+    _chaos_script("atomic_write mid-write kill",
+                  _CHAOS_ATOMIC_KILL.format(target=str(target)), expect_kill=True)
+    check(target.read_bytes() == b"GOOD" * 1024, "atomic_write left a torn file")
+    out["atomic_write_kept_bytes"] = len(target.read_bytes())
+    if device == "cuda":
+        cache = root / "persist_cache"
+        _chaos_script("kernel cache persist kill",
+                      _CHAOS_PERSIST_KILL.format(cache=str(cache)), expect_kill=True)
+        landed = [p.name for p in (cache / "kernels").glob("*.so") if ".tmp." not in p.name]
+        check(not landed, f"a torn kernel library landed: {landed}")
+        out["persist_kill_libraries_landed"] = 0
+    return out
+
+
+def _bad_cache_bytes(root: Path, device: str) -> dict | None:
+    """Seeded bit flips on the cached ``quant_fused`` library's read: a
+    counted discard, one nvcc rebuild, and the rebuilt kernel's answers
+    against its plain version (counts and K-S exact, predictions 1e-6)."""
+    if device != "cuda":
+        return None
+    cache = root / "corrupt_cache"
+    shutil.copytree(WORK / "ring" / "cache" / "kernels", cache / "kernels")
+    proc = _chaos_script("corrupt cache read", _CHAOS_CORRUPT_READ.format(cache=str(cache)),
+                         expect_kill=False)
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(report["discards"] == 1 and report["nvcc_calls"] == 1,
+          f"corrupt cache read: {report}")
+    check(report["counts_and_ks_exact"] and report["max_abs_err"] <= PRED_ATOL,
+          f"the rebuilt kernel disagrees with its plain version: {report}")
+    return report
+
+
+def phase_chaos(bundle_dir: Path, device: str = "cuda", extra: tuple[str, ...] = ()) -> dict:
+    """Phase 32: phase 31's plane armed with ``CHAOS_PLAN`` through
+    ``MLOPS_TPU_FAULTS`` (every process of the plane arms at import).
+    Stall: budgeted requests answer 504 inside their deadline while the
+    first dispatches stall, 200 after. Breaker: two injected retrain
+    failures on drifted traffic open ``mlops_tpu_lifecycle_breaker_open``
+    on every front end, and no retrain runs. Engine death: the engine
+    kills itself at main-loop tick ``CHAOS_EXIT_TICKS``; the respawn
+    answers bitwise as before and no counter goes back. Then the torn
+    writes and the bad cache bytes in subprocesses. Every status in
+    {200, 413, 422, 503, 504}; SIGTERM drains, every child exits 0."""
+    root = WORK / "chaos"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    plan = root / "chaos.toml"
+    plan.write_text(CHAOS_PLAN)
+    window = WORK / "lifecycle_window.csv"
+    cache = WORK / "ring" / "cache"
+    _warm_cache(bundle_dir, cache, device)
+    port = _free_port()
+    cmd = _cli(["serve", "--config", LIFECYCLE_TOML, f"lifecycle.dir={root / 'state'}",
+                f"lifecycle.labeled_path={window}", *LIFECYCLE_CLOCKS,
+                "lifecycle.breaker_failures=2", "lifecycle.breaker_cooldown_s=600", *extra])
+    env = dict(os.environ, PYTHONPATH=str(ROOT), MLOPS_TPU_FAULTS=str(plan),
+               **_image_env(bundle_dir, cache, port, RING_WORKERS, device))
+    plane = _PlaneLog(cmd, env, root / "plane.log")
+    bodies = _lifecycle_bodies(seed=62)
+    statuses: list = []
+    result: dict = {}
+    try:
+        _wait_ready(port, plane.proc, "chaos plane")
+        t_armed = plane.wait("lifecycle controller started", 60)
+        check(plane.find("fault injection ARMED: 3 rule(s), seed 42") is not None,
+              "the plane did not arm the plan")
+        # Stall: budgeted requests against stalled dispatches.
+        single = bodies[False][1]
+        stalls = []
+        for _ in range(12):
+            burst = _budgeted_burst(port, single, 8)
+            stalls.append(burst)
+            statuses += [s for s, _ in burst]
+            if all(s == 200 for s, _ in burst):
+                break
+        late = [ms for burst in stalls for s, ms in burst
+                if s == 504 and ms > CHAOS_BUDGET_MS + 300]
+        check(any(s == 504 for burst in stalls for s, _ in burst),
+              f"no 504 from the stalled dispatches: {stalls}")
+        check(not late, f"504s past their {CHAOS_BUDGET_MS} ms budget: {late}")
+        check(all(s == 200 for s, _ in stalls[-1]), f"still stalling: {stalls}")
+        result["stall"] = {"bursts": len(stalls), "504": sum(
+            s == 504 for b in stalls for s, _ in b), "max_504_ms": max(
+            ms for b in stalls for s, ms in b if s == 504)}
+        # Breaker: drifted traffic, two injected retrain failures.
+        phase, stop, samples = {"drift": True}, threading.Event(), []
+        clients = [threading.Thread(target=_hammer, args=(port, bodies, phase, stop, samples),
+                                    daemon=True) for _ in range(2)]
+        for client in clients:
+            client.start()
+        try:
+            plane.wait("lifecycle circuit breaker OPEN", 60)
+        finally:
+            stop.set()
+            for client in clients:
+                client.join(timeout=60)
+        statuses += [s[2] for s in samples]
+        check(_scrape_ring(port)["engine_incarnation"] == 1,
+              "the engine died before the breaker check")
+        deadline = time.monotonic() + 10
+        while 'mlops_tpu_lifecycle_breaker_open{tenant="default"} 1' not in _lifecycle_block(
+                _http(port, "GET", "/metrics")[1].decode()):
+            check(time.monotonic() < deadline, "the breaker gauge never showed on /metrics")
+            time.sleep(0.05)
+        block = _every_front_end(port, RING_WORKERS)
+        check('mlops_tpu_lifecycle_breaker_open{tenant="default"} 1' in block
+              and 'mlops_tpu_lifecycle_breaker_trips_total{tenant="default"} 1' in block
+              and 'mlops_tpu_drift_trigger_total{tenant="default"} 2' in block,
+              f"the breaker on the front ends: {block}")
+        check(plane.find("; shadowing") is None, "a retrain ran with the breaker open")
+        result["breaker"] = {"requests": len(samples), "front_end_block": block,
+                             "open_s": time.monotonic() - t_armed}
+        # Engine death at a main-loop tick, then the respawn; the torn
+        # writes and the bad cache bytes run in subprocesses meanwhile.
+        probe = bodies[False][:CHAOS_BITWISE_REQUESTS]
+        before_kill = _sequential(port, probe)
+        counters = _counters(port)
+        check(_scrape_ring(port)["engine_incarnation"] == 1,
+              "the engine died before the pre-kill answers")
+        result["torn_writes"] = _torn_writes(root, device)
+        result["bad_cache_bytes"] = _bad_cache_bytes(root, device)
+        t_kill = plane.wait("fault injected: SIGKILL at serve.engine.exit", 120)
+        while True:
+            try:
+                if (_scrape_ring(port)["engine_incarnation"] == 2
+                        and _http(port, "GET", "/healthz/ready")[0] == 200
+                        and _lifecycle_scrape(port)["generation"] == 1):
+                    break
+            except OSError:
+                pass
+            check(time.monotonic() - t_kill < 120, "the engine never came back after its kill")
+            time.sleep(0.05)
+        respawn_s = time.monotonic() - t_kill
+        after_kill = _sequential(port, probe)
+        statuses += [s for s, _ in before_kill + after_kill]
+        diff = [i for i, (a, b) in enumerate(zip(before_kill, after_kill)) if a != b]
+        check(not diff, f"the respawned engine's answers differ at {diff}")
+        later = _counters(port)
+        back = {k: (v, later.get(k)) for k, v in counters.items()
+                if later.get(k) is None or later[k] < v}
+        check(not back, f"counters went back across the engine's death: {back}")
+        check(later['mlops_tpu_lifecycle_breaker_trips_total{tenant="default"}'] == 1,
+              "the breaker trips were not carried across the respawn")
+        result["engine_exit"] = {"tick": CHAOS_EXIT_TICKS, "kill_to_ready_s": respawn_s,
+                                 "bitwise_equal_requests": len(probe),
+                                 "counters_checked": len(counters)}
+        rc = plane.stop()
+    finally:
+        if plane.proc.poll() is None:
+            plane.proc.kill()
+            plane.proc.wait(timeout=30)
+    pids, _, text = _ring_log(plane.path)
+    check(rc == 0, f"the chaos plane exited {rc} after SIGTERM")
+    for worker in range(RING_WORKERS):
+        check(f"frontend {worker} (pid {pids[f'frontend {worker}']}) exited 0" in text,
+              f"front end {worker} did not exit 0")
+    check(f"engine (pid {pids['engine']}) exited 0" in text, "the engine did not exit 0")
+    check(text.count("injected retrain failure") >= 2, "the retrain failures were not logged")
+    outside = sorted({s for s in statuses if s not in CHAOS_ALLOWED}, key=str)
+    check(not outside, f"statuses outside {sorted(CHAOS_ALLOWED)}: {outside}")
+    result["statuses"] = {str(s): statuses.count(s) for s in sorted(set(statuses), key=str)}
+    log_timing("chaos", result)
+    return result
+
+
 def _pyarrow_version() -> str | None:
     """pyarrow's version where it imports (the optional dependency the JAX
     package gates too), else None."""
@@ -4761,6 +5437,8 @@ def main() -> int:
         deployed = timed(phase_deployed_job, tune_job["cli"])
         ring = timed(phase_ring, burst_dir)
         lifecycle = timed(phase_lifecycle, burst_dir)
+        ring_lifecycle = timed(phase_ring_lifecycle, burst_dir)
+        chaos = timed(phase_chaos, burst_dir)
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -4806,6 +5484,10 @@ def main() -> int:
             "trained_tier_launches": students["launches"],
             "ring_launches": ring["launches"],
             "lifecycle_launches": lifecycle["launches"],
+            "ring_lifecycle_launches": {
+                **{k: v["quant_fused_launches"]
+                   for k, v in ring_lifecycle["windows"].items()},
+                "after_respawn": ring_lifecycle["kill"]["quant_fused_launches_after_respawn"]},
         }, {
             "name": "flash_attention",
             "route": "cuda",
@@ -4859,6 +5541,8 @@ def main() -> int:
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
         "serving": {"dispatch_routes": routes, "burst": burst, "ring": ring},
         "lifecycle": {k: v for k, v in lifecycle.items() if k != "launches"},
+        "ring_lifecycle": ring_lifecycle,
+        "chaos": chaos,
         "students": {"records": students["records"], "fit": students["fit"],
                      "served_quant_bundle": students["quant_bundle"]},
         "bulk": bulk_rows,

@@ -5,9 +5,9 @@
   quant tier), concurrent requests coalescing in the micro-batcher; with
   ``serve.tier_routing=true`` on both, each request's SLO class picking
   one; with ``lifecycle.enabled=true`` (``configs/lifecycle_serve.toml``)
-  the closed loop runs in-process beside it: drift trigger -> retrain ->
-  shadow -> gated hot swap (single-process plane only: with
-  ``serve.workers >= 2`` it is refused, ROADMAP A10);
+  the closed loop runs beside it: drift trigger -> retrain -> shadow ->
+  gated hot swap (in the server's process, or with ``serve.workers >= 2``
+  in the ring plane's engine process);
 - ``lifecycle``: one offline lifecycle pass — retrain a candidate from
   the labeled window (``lifecycle.labeled_path``), grade it against the
   incumbent through the AUC and calibration gates, register it when it
@@ -169,12 +169,6 @@ def _serve(config) -> int:
     model_dir = os.environ.get("MODEL_DIRECTORY", cfg.model_directory)
     cfg.validate()
     config.lifecycle.validate()
-    if config.lifecycle.enabled and cfg.workers >= 2:
-        raise SystemExit(
-            "lifecycle.enabled=true with serve.workers >= 2 (the ring "
-            "plane's engine-side lifecycle loop) is not ported (ROADMAP "
-            "A10); serve.workers=0 runs it on the single-process plane"
-        )
     bundle_dir = resolve_bundle(config, model_dir)
     if cfg.workers >= 2:
         # The supervisor stays torch-free: only its engine child loads the

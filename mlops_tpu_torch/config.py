@@ -389,8 +389,8 @@ class LifecycleConfig:
     """The JAX package's ``LifecycleConfig`` (``mlops_tpu/config.py:562``),
     field for field with its defaults and validation: the closed loop's
     knobs (``lifecycle/``; ``serve`` runs it with ``lifecycle.enabled=true``
-    on the single-process plane only, ROADMAP A10) and the bounds
-    ``quant_tier_gates`` grades the quant student by."""
+    on either plane) and the bounds ``quant_tier_gates`` grades the quant
+    student by."""
 
     enabled: bool = False
     dir: str = "lifecycle"

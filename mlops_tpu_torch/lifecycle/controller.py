@@ -3,11 +3,10 @@ sees — drift trigger -> off-hot-path retrain -> shadow mirror -> gated
 hot promotion, with instant rollback and cooldown.
 
 The JAX package's ``lifecycle/controller.py``, unchanged in behaviour but
-for two things: the retrain runs on the serving engine's device (on the
-card, on a stream of its own beside the engine's), and the JAX module's
-fault-injection points (``lifecycle.retrain``,
-``lifecycle.shadow.evaluate``) are not here: the fault points are not
-ported (ROADMAP A4).
+for one thing: the retrain runs on the serving engine's device (on the
+card, on a stream of its own beside the engine's). Its fault points
+(``lifecycle.retrain``, ``lifecycle.shadow.evaluate``) feed the circuit
+breaker as the JAX ones do.
 
 Threading model: the controller owns ONE worker thread
 (`start`/`stop`) running ``run_once`` every ``lifecycle.tick_s``. All
@@ -40,6 +39,7 @@ import threading
 import time
 from typing import Any
 
+from mlops_tpu_torch import faults
 from mlops_tpu_torch.config import Config
 from mlops_tpu_torch.lifecycle.promote import (
     evaluate_gates,
@@ -279,6 +279,9 @@ class LifecycleController:
             self._last_error = ""
         logger.info("lifecycle trigger fired: %s", decision.reason)
         try:
+            # Fault point: a raise here is the repeated retrain failure
+            # the circuit breaker exists for.
+            faults.fire("lifecycle.retrain")
             result = run_retrain(
                 self.engine.bundle,
                 self.config,
@@ -320,8 +323,8 @@ class LifecycleController:
             self.policy.start_cooldown(now)
             return
         logger.info(
-            "candidate %s built in %.1fs (warm: %s %.2fs); shadowing",
-            result.candidate_dir, result.wall_s, shadow.warm_mode,
+            "candidate %s built in %.1fs (fit %.2fs; warm: %s %.2fs); shadowing",
+            result.candidate_dir, result.wall_s, result.fit_s, shadow.warm_mode,
             shadow.warm_s,
         )
         with self._lock:
@@ -353,6 +356,9 @@ class LifecycleController:
         if not (enough or timed_out):
             return
         try:
+            # Fault point: repeated evaluation failure, the shadow half of
+            # the circuit breaker's scenario.
+            faults.fire("lifecycle.shadow.evaluate")
             report = shadow.evaluate(*self._holdout)
         # An evaluation that cannot complete (device error mid-holdout)
         # would otherwise retry-fail every tick forever: discard the

@@ -21,9 +21,6 @@ The JAX package's ``lifecycle/retrain.py``. Two pieces:
   candidate bundle under ``<lifecycle.dir>/candidates/``. On the card the
   retrain runs on a stream of its own, beside the serving engine's, and
   waits on nothing device-wide.
-
-The JAX module's fault-injection point inside ``SampleReservoir.save``
-belongs to the fault points, which are not ported (ROADMAP A4).
 """
 
 from __future__ import annotations
@@ -42,6 +39,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from mlops_tpu_torch import faults
 from mlops_tpu_torch.config import Config, TrainConfig
 from mlops_tpu_torch.schema.features import SCHEMA
 
@@ -130,6 +128,9 @@ class SampleReservoir:
         try:
             with os.fdopen(fd, "wb") as f:
                 np.savez(f, **payload)
+            # Fault point: a kill between the tmp write and the rename
+            # must leave no snapshot or the previous intact one.
+            faults.fire("lifecycle.reservoir.midwrite")
             os.replace(tmp, self.path)
         except BaseException:
             with contextlib.suppress(OSError):

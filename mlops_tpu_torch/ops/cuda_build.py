@@ -8,8 +8,11 @@ start, ``compilecache/``), named by a hash of the source and the flags,
 and a later call (or another process) reuses a library that is already
 there. Each library is written under a private name and renamed into
 place, with the sha256 of its bytes beside it; a library whose bytes do
-not match (truncated, corrupted) is discarded and rebuilt, never loaded.
-Nothing here builds at import time.
+not match (truncated, corrupted) is discarded, counted
+(``cache_discards``) and rebuilt, never loaded. The fault points
+``compilecache.read`` (the bytes read for that check) and
+``compilecache.persist.midwrite`` (between a build's tmp write and its
+rename) drive both paths. Nothing here builds at import time.
 
 Beside ``build_shared_library``: ``KernelLibrary`` (one source's
 library, built and bound at first use) and ``LaunchCounter`` (the count
@@ -30,6 +33,8 @@ import time
 from pathlib import Path
 from typing import Callable
 
+from mlops_tpu_torch import faults
+
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = (
@@ -41,6 +46,7 @@ NVCC_FLAGS = (
 
 _cache_dir: Path | None = None
 _nvcc_calls = 0  # nvcc runs of this process (a warm start makes none)
+_discards = 0  # libraries whose bytes did not match their sha256
 
 
 def set_cache_dir(cache_dir: str | Path | None) -> None:
@@ -56,6 +62,10 @@ def kernel_dir() -> Path:
 
 def nvcc_calls() -> int:
     return _nvcc_calls
+
+
+def cache_discards() -> int:
+    return _discards
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +108,7 @@ def build_shared_library(source: Path, name: str) -> BuildResult:
     The hash covers the source, the headers (``*.cuh``) beside it, which
     a source includes by relative path, and the flags.
     """
-    global _nvcc_calls
+    global _nvcc_calls, _discards
     source = Path(source)
     headers = sorted(source.parent.glob("*.cuh"))
     digest = hashlib.sha256(
@@ -112,11 +122,15 @@ def build_shared_library(source: Path, name: str) -> BuildResult:
     sum_path = out.with_name(out.name + ".sha256")
     if out.exists():
         recorded = sum_path.read_text().strip() if sum_path.exists() else ""
-        if recorded == _sha256(out):
+        # Fault point: bit flips in the bytes read must land in the
+        # discard and rebuild below.
+        raw = faults.corrupt("compilecache.read", out.read_bytes())
+        if recorded == hashlib.sha256(raw).hexdigest():
             log = log_path.read_text() if log_path.exists() else ""
             return BuildResult(out, 0.0, log, reused=True)
         # A library that is not the one that was written: never loaded.
         out.unlink(missing_ok=True)
+        _discards += 1
     nvcc = find_nvcc()
     # Build under a private name and rename into place, so a concurrent
     # process never loads a half-written library.
@@ -135,6 +149,9 @@ def build_shared_library(source: Path, name: str) -> BuildResult:
         raise RuntimeError(f"nvcc failed for {source}:\n{log}")
     _atomic_write(log_path, log)
     _atomic_write(sum_path, _sha256(tmp))
+    # Fault point: a kill between the tmp write and the rename must leave
+    # no library under the final name.
+    faults.fire("compilecache.persist.midwrite")
     os.replace(tmp, out)
     return BuildResult(out, seconds, log, reused=False)
 

@@ -51,6 +51,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from mlops_tpu_torch import faults
 from mlops_tpu_torch.bundle.bundle import Bundle
 from mlops_tpu_torch.device import held_stream, resolve_device
 from mlops_tpu_torch.monitor.state import (
@@ -132,14 +133,16 @@ class _Generation:
 class _Handle:
     """An in-flight dispatch: the packed output's host buffer, the event
     its copy completes behind (None on the CPU), and the geometry the
-    fetch side needs to slice it. A group handle of 1 or more than 64
-    requests carries their already formatted ``responses`` instead (the
-    JAX engine's degenerate handle)."""
+    fetch side needs to slice it, and the tier that served it (resolved
+    under the lock: the default when the generation lacks the tier asked
+    for). A group handle of 1 or more than 64 requests carries their
+    already formatted ``responses`` instead (the JAX engine's degenerate
+    handle)."""
 
-    __slots__ = ("host", "event", "n", "rows", "sizes", "slots", "responses")
+    __slots__ = ("host", "event", "n", "rows", "sizes", "slots", "responses", "tier")
 
     def __init__(self, host=None, event=None, n=0, rows=0, sizes=None,
-                 slots=0, responses=None):
+                 slots=0, responses=None, tier=None):
         self.host = host
         self.event = event
         self.n = n
@@ -147,6 +150,7 @@ class _Handle:
         self.sizes = sizes
         self.slots = slots
         self.responses = responses
+        self.tier = tier
 
     def wait(self) -> np.ndarray:
         if self.event is not None:
@@ -480,7 +484,7 @@ class InferenceEngine:
     def _dispatch(
         self, tier: str | None, lead: tuple[int, ...], entry: str,
         fill: Callable[[np.ndarray, np.ndarray, np.ndarray], None],
-    ) -> tuple[torch.Tensor, Any]:
+    ) -> tuple[torch.Tensor, Any, str]:
         """Run one packed program on a batch that ``fill(cat, num, mask)``
         writes into zeroed host arrays of shape ``lead``, fold the
         accumulator and start the packed buffer's copy to the host. The
@@ -492,7 +496,8 @@ class InferenceEngine:
         graph's static inputs with one copy, the graph replays (captured
         now if warmup did not cover the shape), and its static output is
         copied into this dispatch's own pinned buffer behind an event.
-        Only the event wait (``fetch``) is outside."""
+        Only the event wait (``fetch``) is outside. Returns the host
+        buffer, its event and the tier that ran."""
         if not self._cuda:
             batch = tuple(
                 np.zeros((*lead, *tail), dtype)
@@ -509,7 +514,7 @@ class InferenceEngine:
                 )
                 self._store(new_acc)
             self._count(_entry_name(entry, tier, gen))
-            return out, None
+            return out, None, tier
         staged = torch.zeros(graphs.input_nbytes(lead), dtype=torch.uint8,
                              pin_memory=True)
         fill(*graphs.split_host(staged.numpy(), lead))
@@ -532,7 +537,7 @@ class InferenceEngine:
             event = torch.cuda.Event()
             event.record(self._stream)
         self._count(_entry_name(entry, tier, gen))
-        return host, event
+        return host, event, tier
 
     def _count(self, entry: str) -> None:
         with self._totals_lock:
@@ -563,6 +568,11 @@ class InferenceEngine:
             # Lifecycle observation (the reservoir and the shadow mirror):
             # the pre-padding arrays, into a bounded non-blocking queue.
             tee(cat_ids, numeric)
+        # Fault point (raise = device error -> 500; delay = engine stall
+        # -> deadline 504), fired on the host outside every lock: before
+        # the graph replay, never inside a capture, where it would run
+        # once at capture time.
+        faults.fire("serve.engine.dispatch")
         bucket = self._bucket_for(n)
         rows = bucket if bucket is not None else n
 
@@ -571,8 +581,8 @@ class InferenceEngine:
             num[:n] = numeric
             mask[:n] = True
 
-        host, event = self._dispatch(tier, (rows,), f"bucket_{rows}", fill)
-        return _Handle(host, event, n=n, rows=rows)
+        host, event, served = self._dispatch(tier, (rows,), f"bucket_{rows}", fill)
+        return _Handle(host, event, n=n, rows=rows, tier=served)
 
     def fetch_arrays_raw(
         self, handle: _Handle
@@ -679,6 +689,9 @@ class InferenceEngine:
                 f"grouped requests must have 1..{GROUP_ROW_BUCKET} records, "
                 f"got sizes {sizes}"
             )
+        # Fault point: the grouped twin of ``serve.engine.dispatch`` (the
+        # micro-batcher's and the ring plane's coalesced jobs).
+        faults.fire("serve.engine.dispatch_group")
         slots = GROUP_SLOT_BUCKETS[
             bisect.bisect_left(GROUP_SLOT_BUCKETS, len(parts))
         ]
@@ -691,10 +704,10 @@ class InferenceEngine:
                 num[i, :n] = part_num
                 mask[i, :n] = True
 
-        host, event = self._dispatch(
+        host, event, served = self._dispatch(
             tier, (slots, rows), f"group_{slots}x{rows}", fill
         )
-        return _Handle(host, event, rows=rows, sizes=sizes, slots=slots)
+        return _Handle(host, event, rows=rows, sizes=sizes, slots=slots, tier=served)
 
     def fetch_group_raw(
         self, handle: _Handle

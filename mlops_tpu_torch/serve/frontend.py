@@ -31,14 +31,26 @@ queue per slot class. No free slot answers ``503`` with Retry-After at
 once; with ``serve.tier_routing`` the brownout governor first demotes
 default-class requests to the cheaper tier as the partition fills.
 
+The lifecycle loop (``lifecycle.enabled=true``) runs engine-side, in
+the only process with the card, the graphs and the monitor accumulator:
+after warmup and re-attach the engine process starts a
+``LifecycleController`` on its engine (the front ends encode with the
+fork-time preprocessor, so a refit is forced off), and the ring's
+telemetry thread mirrors its gauges into shared memory for every front
+end's ``/metrics``. A respawned engine serves the fork-time bundle again
+at generation 1, as the JAX plane does, restarts the loop from the
+on-disk reservoir, and carries the dead incarnation's lifecycle counters
+as bases.
+
 Graceful drain: SIGTERM to the supervisor reaches every front end; each
 stops accepting, finishes its in-flight exchanges (the engine keeps
 answering meanwhile) and exits; then the supervisor stops the engine,
-which finishes its jobs and writes its last monitor aggregate.
+which stops its lifecycle loop, finishes its jobs and writes its last
+monitor aggregate and lifecycle gauges.
 
 Not ported (ROADMAP A4): the engine replica set, tenancy, tracing spans,
-``/debug/profile`` over the ring (the front ends answer 404), fault
-points, the SLO engine and flight recorder, the autotuner.
+``/debug/profile`` over the ring (the front ends answer 404), the SLO
+engine and flight recorder, the autotuner.
 """
 
 from __future__ import annotations
@@ -58,6 +70,7 @@ import time
 from pathlib import Path
 from typing import Any, Callable
 
+from mlops_tpu_torch import faults
 from mlops_tpu_torch.config import Config, ServeConfig
 from mlops_tpu_torch.schema.validate import records_to_columns
 from mlops_tpu_torch.serve.httpcore import HttpProtocol, _LazyJson
@@ -184,6 +197,9 @@ class FrontendServer(HttpProtocol):
         descriptor unscored, and bounds the completion wait."""
         if not records:
             return EMPTY_RESPONSE_BYTES
+        # Fault point: kill = a front end's crash mid-request (the
+        # supervisor's respawn and the slot quarantine).
+        faults.fire("serve.frontend.predict")
         n = len(records)
         demoted = False
         if self.slo_routing:
@@ -340,8 +356,9 @@ def _engine_main(config: Config, ring: RequestRing, bundle_dir: str,
     """The engine process (forked from the supervisor; torch is imported
     here, after the fork): load the kernels from ``cache.dir``, build and
     warm the engine, re-attach to the ring (replaying what a dead
-    predecessor left busy), serve until SIGTERM or the supervisor's
-    death. First boot and every respawn run this same function."""
+    predecessor left busy), start the lifecycle loop when it is enabled,
+    serve until SIGTERM or the supervisor's death. First boot and every
+    respawn run this same function."""
     t0 = time.monotonic()
     stop: list[int] = []  # a signal handler appends; the main loop polls
     signal.signal(signal.SIGTERM, lambda *_: stop.append(1))
@@ -379,6 +396,17 @@ def _engine_main(config: Config, ring: RequestRing, bundle_dir: str,
         "device": str(getattr(engine, "device", "")),
         "warmup": getattr(engine, "warmup_stats", {}), **attach,
     }))
+    controller = None
+    if config.lifecycle.enabled:
+        from mlops_tpu_torch.lifecycle.controller import LifecycleController
+
+        # The front ends encode with the preprocessor loaded at fork: it
+        # is part of the promotion contract here.
+        controller = LifecycleController(engine, config, force_incumbent_preprocessor=True)
+        controller.start()
+        service.attach_lifecycle(controller)
+        logger.info("lifecycle controller started (engine process %d, generation %d)",
+                    os.getpid(), engine.bundle_generation)
     supervisor = os.getppid()
     try:
         # Not stopped by the ring's drain flag: during a drain the front
@@ -386,11 +414,17 @@ def _engine_main(config: Config, ring: RequestRing, bundle_dir: str,
         # process; the supervisor stops it after they have exited.
         while not stop:
             time.sleep(0.5)
+            # Fault point: kill = the engine's death in process (the
+            # supervisor respawns it); raise = a main-loop failure, the
+            # same recovery.
+            faults.fire("serve.engine.exit")
             if os.getppid() != supervisor:
                 logger.error("engine: supervisor gone; exiting")
                 break
     finally:
         ring.set_ready(False)
+        if controller is not None:
+            controller.stop()
         service.stop()
         logger.info("engine process drained; exiting")
 

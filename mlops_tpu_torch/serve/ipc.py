@@ -32,7 +32,8 @@ Topology and ownership:
   a dead request's answer.
 - The engine incarnation word: a respawned engine bumps it, recovers the
   completion lock its predecessor may have died holding, seeds its
-  monitor totals from the shared aggregate (exported counters stay
+  monitor totals from the shared aggregate and carries the dead
+  incarnation's lifecycle counters as bases (exported counters stay
   monotone) and replays every busy slot whose completion never came
   (``RingService.reattach``). The slabs hold the full encoded input and
   the packed programs are pure, so a replayed answer is bit-identical.
@@ -63,6 +64,7 @@ from typing import Any, Callable
 
 import numpy as np
 
+from mlops_tpu_torch import faults
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.serve.metrics import (
     ENG_EXPIRED,
@@ -71,6 +73,15 @@ from mlops_tpu_torch.serve.metrics import (
     ENG_ROWS_DISPATCHED,
     ENG_ROWS_LOST,
     LATENCY_BUCKETS,
+    LIFE_AUC_DELTA,
+    LIFE_BREAKER_OPEN,
+    LIFE_BREAKER_TRIPS,
+    LIFE_GENERATION,
+    LIFE_HAS,
+    LIFE_HAS_DELTA,
+    LIFE_OUTCOMES,
+    LIFE_RESERVOIR,
+    LIFE_TRIGGERS,
     MON_BATCHES,
     MON_FETCHED_AT,
     MON_FETCHES,
@@ -236,6 +247,11 @@ class RequestRing:
             ("disp_keys", np.dtype(np.uint8), (DISPATCH_ROWS, DISPATCH_KEY_BYTES)),
             ("disp_vals", f64, (DISPATCH_ROWS,)),
             ("kernel_launches", f64, (1,)),
+            # The engine-side lifecycle loop's gauges (the telemetry
+            # thread writes them; see serve/metrics.py LIFE_*), so any
+            # front end renders them.
+            ("life_vals", f64, (8,)),
+            ("life_promos", f64, (len(LIFE_OUTCOMES),)),
         ]
         offset, offsets = 0, {}
         for name, dtype, shape in plan:
@@ -383,6 +399,26 @@ class RequestRing:
         row[MON_FETCHES] += 1
         row[MON_FETCHED_AT] = time.monotonic()
         row[MON_HAS] = 1.0
+
+    def write_lifecycle(self, snapshot: dict[str, Any]) -> None:
+        """Install the lifecycle controller's ``metrics_snapshot`` for the
+        front ends' renders (engine-process single writer; the same
+        tearing contract as ``write_monitor``)."""
+        if not snapshot:
+            return
+        row = self.life_vals
+        row[LIFE_GENERATION] = float(snapshot["generation"])
+        row[LIFE_TRIGGERS] = float(snapshot["drift_triggers"])
+        delta = snapshot.get("shadow_auc_delta")
+        row[LIFE_AUC_DELTA] = 0.0 if delta is None else float(delta)
+        row[LIFE_HAS_DELTA] = 0.0 if delta is None else 1.0
+        row[LIFE_RESERVOIR] = float(snapshot.get("reservoir_rows") or 0)
+        row[LIFE_BREAKER_OPEN] = 1.0 if snapshot.get("breaker_open") else 0.0
+        row[LIFE_BREAKER_TRIPS] = float(snapshot.get("breaker_trips", 0))
+        promotions = snapshot.get("promotions", {})
+        for i, outcome in enumerate(LIFE_OUTCOMES):
+            self.life_promos[i] = float(promotions.get(outcome, 0))
+        row[LIFE_HAS] = 1.0
 
     def dispatch_counts(self) -> dict[str, int]:
         """The engine's mirrored dispatches per program label."""
@@ -587,7 +623,9 @@ class RingService:
     micro-batcher takes), run jobs on a thread pool so dispatches
     overlap, write raw responses into the slabs and ring the owners'
     doorbells. It answers every accepted descriptor (scored, failed or
-    expired), and never waits on front-end state."""
+    expired), and never waits on front-end state. With a lifecycle
+    controller attached (``attach_lifecycle``), its telemetry thread also
+    mirrors the controller's gauges into the ring's lifecycle row."""
 
     def __init__(self, engine: Any, ring: RequestRing, max_group: int = 64,
                  max_inflight: int = 4, threads: int = 8,
@@ -616,6 +654,11 @@ class RingService:
         self._dispatch_base: dict[str, float] = {}
         self._dispatch_rows: dict[str, int] = {}
         self._launch_base = 0.0
+        # The lifecycle counters of a dead incarnation (drift triggers,
+        # breaker trips, promotions by outcome), added to a fresh
+        # controller's, which start at zero.
+        self._life_base: dict[str, Any] | None = None
+        self.lifecycle: Any = None
         self._requests_since_fetch = 0  # collector-thread writer
 
     # ----------------------------------------------------------- lifecycle
@@ -623,10 +666,22 @@ class RingService:
         self._collector = threading.Thread(target=self._collect, name="ring-collector",
                                            daemon=True)
         self._collector.start()
-        if self._accumulating and self._mon_period > 0:
-            self._telemetry = threading.Thread(target=self._telemetry_loop,
-                                               name="ring-telemetry", daemon=True)
-            self._telemetry.start()
+        if (self._accumulating and self._mon_period > 0) or self.lifecycle is not None:
+            self._start_telemetry()
+
+    def _start_telemetry(self) -> None:
+        self._telemetry = threading.Thread(target=self._telemetry_loop,
+                                           name="ring-telemetry", daemon=True)
+        self._telemetry.start()
+
+    def attach_lifecycle(self, controller: Any) -> None:
+        """Mirror ``controller``'s gauges into the ring on every telemetry
+        tick and on ``stop``; the telemetry thread starts if the monitor
+        cadence did not start it."""
+        self.lifecycle = controller
+        self._write_lifecycle()
+        if self._telemetry is None and self._collector is not None:
+            self._start_telemetry()
 
     def stop(self) -> None:
         """Drain: stop collecting, finish the jobs in flight, write the
@@ -642,6 +697,7 @@ class RingService:
                 self.ring.write_monitor(self.engine.monitor_snapshot())
             except Exception:  # the drain goes on without a last snapshot
                 logger.exception("final monitor snapshot failed on drain")
+        self._write_lifecycle()
 
     # ------------------------------------------------------------ collect
     def _collect(self) -> None:
@@ -692,16 +748,27 @@ class RingService:
         """Run by the engine process after warmup and before ``start``,
         on every boot (a first boot finds nothing to replay): bump the
         incarnation word (a dead incarnation's completions become
-        droppable), recover the completion lock, seed the monitor totals
-        and the mirrored counters from shared memory, count the monitor
-        rows that died unfetched with the old process, replay every busy
-        slot whose descriptor is not still queued, and ring every worker's
-        doorbell with its outstanding completion count."""
+        droppable), recover the completion lock, seed the monitor totals,
+        the mirrored counters and the lifecycle bases from shared memory,
+        count the monitor rows that died unfetched with the old process,
+        replay every busy slot whose descriptor is not still queued, and
+        ring every worker's doorbell with its outstanding completion
+        count."""
+        # Fault point: delay = a slow re-attach; raise = a failed one (this
+        # engine process exits and the supervisor forks another).
+        faults.fire("serve.ring.reattach")
         ring = self.ring
         eng = ring.eng_vals
         incarnation = int(eng[ENG_INCARNATION]) + 1
         eng[ENG_INCARNATION] = incarnation
         ring.recover_engine_lock()
+        if ring.life_vals[LIFE_HAS]:
+            self._life_base = {
+                "drift_triggers": float(ring.life_vals[LIFE_TRIGGERS]),
+                "breaker_trips": float(ring.life_vals[LIFE_BREAKER_TRIPS]),
+                "promotions": {outcome: float(ring.life_promos[i])
+                               for i, outcome in enumerate(LIFE_OUTCOMES)},
+            }
         self._dispatch_base = {k: float(v) for k, v in ring.dispatch_counts().items()}
         self._dispatch_rows = {k: i for i, k in enumerate(ring.dispatch_counts())}
         self._launch_base = float(ring.kernel_launches[0])
@@ -819,12 +886,17 @@ class RingService:
             cat, num = ring.request_views(slot)
             parts.append((cat[:n], num[:n]))
         if len(parts) >= 2:
-            sizes, preds, outs, drifts = engine.fetch_group_raw(
-                engine.dispatch_group_arrays(parts, **kwargs))
+            handle = engine.dispatch_group_arrays(parts, **kwargs)
+            sizes, preds, outs, drifts = engine.fetch_group_raw(handle)
             raws = [(preds[i, :n], outs[i, :n], drifts[i]) for i, n in enumerate(sizes)]
         else:
-            raws = [engine.fetch_arrays_raw(engine.dispatch_arrays(*parts[0], **kwargs))]
-        label = tier or getattr(engine, "default_tier", None)
+            handle = engine.dispatch_arrays(*parts[0], **kwargs)
+            raws = [engine.fetch_arrays_raw(handle)]
+        # Counted under the tier that served: the engine resolves it under
+        # its lock, so a job routed to the quant tier just before a
+        # promotion to a bundle without one counts on the default tier.
+        label = (getattr(handle, "tier", None) or tier
+                 or getattr(engine, "default_tier", None))
         with self._mon_lock:
             if label in _TIER_IDX:
                 ring.tier_counts[_TIER_IDX[label]] += len(job)
@@ -854,10 +926,15 @@ class RingService:
     def _telemetry_loop(self) -> None:
         """Single-flight monitor reads, in the engine process only: after
         K ring requests, or when the period lapses with traffic
-        outstanding (and once at start); never per request or scrape."""
-        tick = min(0.25, self._mon_period)
+        outstanding (and once at start); never per request or scrape.
+        Every tick also mirrors the lifecycle controller's gauges."""
+        monitor = self._accumulating and self._mon_period > 0
+        tick = min(0.25, self._mon_period) if monitor else 0.25
         last = time.monotonic()
         while not self._stop.wait(tick):
+            self._write_lifecycle()
+            if not monitor:
+                continue
             due = (
                 (self._mon_every and self._requests_since_fetch >= self._mon_every)
                 or (time.monotonic() - last >= self._mon_period
@@ -873,3 +950,27 @@ class RingService:
             # A failed fetch keeps the last gauges; the next tick retries.
             except Exception:
                 logger.exception("ring monitor fetch failed; gauges stale")
+
+    def _write_lifecycle(self) -> None:
+        """Mirror the controller's gauge snapshot, plus the dead
+        incarnations' bases, into the ring (host reads and f64 stores, no
+        device work)."""
+        controller = self.lifecycle
+        if controller is None:
+            return
+        try:
+            snapshot = controller.metrics_snapshot()
+            base = self._life_base
+            if base and snapshot:
+                snapshot = dict(snapshot)
+                for key in ("drift_triggers", "breaker_trips"):
+                    snapshot[key] = snapshot.get(key, 0) + base[key]
+                promotions = dict(snapshot.get("promotions", {}))
+                for outcome, count in base["promotions"].items():
+                    promotions[outcome] = promotions.get(outcome, 0) + count
+                snapshot["promotions"] = promotions
+            self.ring.write_lifecycle(snapshot)
+        # A controller mid-transition costs one gauge refresh, never the
+        # telemetry thread.
+        except Exception:
+            logger.exception("ring lifecycle write failed; gauges stale")

@@ -25,9 +25,12 @@ engine process. Under the JAX package's series names:
 lifecycle controller's gauges (bundle generation, drift triggers, shadow
 AUC delta, promotions by outcome, reservoir rows, circuit breaker), byte
 for byte the JAX render of the same snapshot. The single-process server
-renders it under ``lifecycle.enabled=true``; the ring plane's lifecycle
-loop, tracing, the SLO engine, the cost ledger and the autotuner are not
-ported (ROADMAP A10, A4), nor their series.
+renders it under ``lifecycle.enabled=true``; on the ring plane the engine
+process's telemetry loop writes the controller's snapshot into the
+ring's lifecycle row (``RequestRing.write_lifecycle``) and every front
+end renders it from there, as the JAX ring render does. Tracing, the SLO
+engine, the cost ledger and the autotuner are not ported (ROADMAP A4),
+nor their series.
 """
 
 from __future__ import annotations
@@ -51,6 +54,19 @@ RING_CLASSES = ("small", "large")
 TENANT = "default"
 # Promotion outcomes, in the JAX package's order.
 LIFE_OUTCOMES = ("promoted", "rejected", "rolled_back")
+# Fields of the ring's lifecycle row (engine-process single writer; see
+# RequestRing.write_lifecycle). The AUC delta rides two fields, value and
+# has-flag, because 0.0 is a delta and not "unknown".
+(
+    LIFE_GENERATION,
+    LIFE_TRIGGERS,
+    LIFE_AUC_DELTA,
+    LIFE_HAS_DELTA,
+    LIFE_RESERVOIR,
+    LIFE_HAS,
+    LIFE_BREAKER_OPEN,
+    LIFE_BREAKER_TRIPS,
+) = range(8)
 # Fields of the monitor-aggregate row (engine-process single writer).
 MON_ROWS, MON_OUTLIERS, MON_BATCHES, MON_FETCHES, MON_FETCHED_AT, MON_HAS = range(6)
 # Fields of the engine-supervision row. The engine process writes
@@ -215,4 +231,19 @@ def render_ring_metrics(ring) -> str:
         'mlops_tpu_kernel_launches_total{kernel="quant_fused"} '
         f"{int(ring.kernel_launches[0])}",
     ]
+    life = ring.life_vals
+    if life[LIFE_HAS]:
+        # The engine process's loop state, rebuilt as a snapshot so the
+        # one formatter renders it on both planes.
+        lines += lifecycle_lines({
+            "generation": int(life[LIFE_GENERATION]),
+            "drift_triggers": int(life[LIFE_TRIGGERS]),
+            "shadow_auc_delta": (float(life[LIFE_AUC_DELTA])
+                                 if life[LIFE_HAS_DELTA] else None),
+            "promotions": {outcome: int(ring.life_promos[i])
+                           for i, outcome in enumerate(LIFE_OUTCOMES)},
+            "reservoir_rows": int(life[LIFE_RESERVOIR]),
+            "breaker_open": bool(life[LIFE_BREAKER_OPEN]),
+            "breaker_trips": int(life[LIFE_BREAKER_TRIPS]),
+        })
     return "\n".join(lines) + "\n"

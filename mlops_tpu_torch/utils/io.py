@@ -1,12 +1,13 @@
 """Atomic filesystem writes, shared by checkpoints, run artifacts and the
-registry (a copy of the JAX package's ``utils/io.py`` without its fault
-injection point)."""
+registry (a copy of the JAX package's ``utils/io.py``)."""
 
 from __future__ import annotations
 
 import os
 import tempfile
 from pathlib import Path
+
+from mlops_tpu_torch import faults
 
 
 def atomic_write(path: str | Path, data: bytes) -> None:
@@ -18,6 +19,9 @@ def atomic_write(path: str | Path, data: bytes) -> None:
     try:
         with os.fdopen(fd, "wb") as f:
             f.write(data)
+        # Fault point: a kill between write and rename must leave the
+        # target as it was, never a partial payload.
+        faults.fire("io.atomic_write.midwrite")
         os.replace(tmp, path)
     except BaseException:
         try:

@@ -908,6 +908,69 @@ def test_live_engines_never_share_a_stream(serving_engines):
             assert len(set(held)) == len(held), k
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("key", [(1,), (64, 8)])
+def test_a_dispatch_fault_fires_on_the_host_at_every_replay(serving_engines, key):
+    """The engine's dispatch fault points fire on the host before the
+    graph replay: once per dispatch, never only at capture; a delay rule
+    leaves the answers bitwise, and a raise replays nothing and leaves the
+    engine serving."""
+    from mlops_tpu_torch import faults
+
+    graphs, _, ds = serving_engines
+    point = "serve.engine.dispatch" if len(key) == 1 else "serve.engine.dispatch_group"
+    want = [_dispatch(graphs, ds, key, 40 + k, None) for k in range(5)]
+    plan = faults.arm(faults.FaultPlan.from_rules([{"point": point, "mode": "delay"}]))
+    try:
+        got = [_dispatch(graphs, ds, key, 40 + k, None) for k in range(5)]
+    finally:
+        faults.disarm()
+    assert [hit for _, hit, _, _ in plan.trace()] == list(range(5))
+    for a, b in zip(got, want):
+        assert np.array_equal(_bits(a), _bits(b))
+    counts = graphs.dispatch_counts()
+    faults.arm(faults.FaultPlan.from_rules([{"point": point, "mode": "raise"}]))
+    try:
+        with pytest.raises(faults.FaultInjected):
+            _dispatch(graphs, ds, key, 40, None)
+    finally:
+        faults.disarm()
+    assert graphs.dispatch_counts() == counts
+    assert np.array_equal(_bits(_dispatch(graphs, ds, key, 40, None)), _bits(want[0]))
+
+
+@pytest.mark.gpu
+def test_a_corrupt_kernel_cache_read_is_discarded_and_rebuilt(tmp_path):
+    """Bit flips in the bytes read for a cached library's sha256 check:
+    the library is discarded (counted), nvcc builds it again, and the
+    healed cache is reused."""
+    import ctypes
+
+    from mlops_tpu_torch import faults
+    from mlops_tpu_torch.ops import cuda_build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs the card machine's nvcc")
+    source = cuda_build.PACKAGE_DIR / "csrc" / "quant_fused.cu"
+    cuda_build.set_cache_dir(tmp_path)
+    try:
+        first = cuda_build.build_shared_library(source, "quant_fused")
+        discards, calls = cuda_build.cache_discards(), cuda_build.nvcc_calls()
+        faults.arm(faults.FaultPlan.from_rules(
+            [{"point": "compilecache.read", "mode": "corrupt", "flip_bits": 8}]))
+        try:
+            again = cuda_build.build_shared_library(source, "quant_fused")
+        finally:
+            faults.disarm()
+        assert not again.reused and again.path == first.path
+        assert cuda_build.cache_discards() == discards + 1
+        assert cuda_build.nvcc_calls() == calls + 1
+        assert cuda_build.build_shared_library(source, "quant_fused").reused
+        assert ctypes.CDLL(str(again.path)).quant_fused_launch is not None
+    finally:
+        cuda_build.set_cache_dir(None)
+
+
 # ------------------------------------------------------------ bulk scoring
 # Bulk sweeps on the card (parallel/bulk.py): the staged executor's
 # threads, the pinned staging ring, the compute stream and the fetch

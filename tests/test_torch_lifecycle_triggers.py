@@ -3,15 +3,14 @@ CPU: the trigger policy (hysteresis, cooldown, the thin window, the
 outlier path, ``consume``, the unrounded ``drift_sum`` view), the
 promotion gates and their metric helpers, the sample reservoir (the same
 seed and batches give the same rows; the npz crosses between the
-packages), the streaming preprocessor fit, the ``/metrics`` lifecycle
-block byte for byte, and the ring plane's refusal of the loop.
+packages), the streaming preprocessor fit, and the ``/metrics`` lifecycle
+block byte for byte.
 
 Decisions and records must be equal (the arithmetic is the same numpy
 in both packages); the streaming fit's stats are compared bitwise.
 """
 
 import dataclasses
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -37,8 +36,6 @@ from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.serve import metrics as port_metrics
 from mlops_tpu_torch.serve.server import Metrics
 from torch_lifecycle import budget, write_drifted_window  # noqa: F401
-
-ROOT = Path(__file__).resolve().parent.parent
 
 
 def _snap(rows, outliers, batches, drift, drift_sum=None):
@@ -262,14 +259,3 @@ def test_lifecycle_block_is_the_jax_render_byte_for_byte(name):
         assert "\n".join(want) + "\n" in text
     else:
         assert "mlops_tpu_bundle_generation" not in text
-
-
-# ------------------------------------------------------------- refusals
-@pytest.mark.parametrize("workers", ["2", "3"])
-def test_the_ring_plane_refuses_the_loop_naming_a10(workers):
-    from mlops_tpu_torch import cli
-
-    with pytest.raises(SystemExit, match="ROADMAP A10") as err:
-        cli.main(["serve", "--config", str(ROOT / "configs/lifecycle_serve.toml"),
-                  f"serve.workers={workers}", "serve.device=cpu"])
-    assert "serve.workers >= 2" in str(err.value)

@@ -99,19 +99,20 @@ def free_port() -> int:
 
 class Plane:
     """A serving plane in a subprocess, on a free port, its output in a
-    log file: ``python -m mlops_tpu_torch serve`` with ``overrides`` and
-    ``env``, or with ``stub`` the stub-engine plane of
+    log file: ``python -m mlops_tpu_torch serve [--config <toml>]`` with
+    ``overrides`` and ``env``, or with ``stub`` the stub-engine plane of
     ``tests/torch_ring_stub.py``. Stopped with SIGTERM (then SIGKILL)."""
 
     def __init__(self, bundle: Path, log: Path, overrides=(), env=None, stub=False,
-                 timeout: float = 90) -> None:
+                 timeout: float = 90, config: Path | None = None) -> None:
         self.port = free_port()
         self.log = log
         args = [f"serve.model_directory={bundle}", f"serve.port={self.port}",
                 "serve.host=127.0.0.1", "serve.device=cpu",
                 f"serve.warmup_batch_sizes={BUCKETS}", *overrides]
         cmd = ([sys.executable, str(ROOT / "tests" / "torch_ring_stub.py"), *args] if stub
-               else [sys.executable, "-m", "mlops_tpu_torch", "serve", *args])
+               else [sys.executable, "-m", "mlops_tpu_torch", "serve",
+                     *(["--config", str(config)] if config else []), *args])
         self._out = open(log, "wb")
         self.proc = subprocess.Popen(
             cmd, cwd=ROOT, stdout=self._out, stderr=subprocess.STDOUT,
