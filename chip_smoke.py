@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card of compute capability 9.0 and exits non-zero,
 printing no result, without one (or when run from a directory that holds
 this script and nothing else of the repository). It imports torch and the
-port (``mlops_tpu_torch``), never JAX or the JAX package. Ten main
+port (``mlops_tpu_torch``), never JAX or the JAX package. Eleven main
 paths: quant-tier serving (``POST /predict`` with
 ``serve.serve_tier=quant``), long-context doc scoring (``predict-file`` on
 a ``doc`` bundle), doc-model training (``train --config
@@ -23,7 +23,10 @@ serving as the serving image starts it (``warmup --cache-dir``, then
 ``serve`` on the multi-worker ring plane), and the closed lifecycle loop
 (``serve --config configs/lifecycle_serve.toml``: drift trigger, retrain,
 shadow, gated hot swap, rollback), in one process and on the ring plane,
-also under a seeded fault plan.
+also under a seeded fault plan, and the serving plane scaled out and
+shared: an engine replica set behind one ring (``serve --replicas 2``)
+and a tenant fleet (``serve --tenants configs/tenants.toml``) with its
+quotas and per-tenant loops.
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -151,7 +154,7 @@ Phases, each of which fails the run loudly:
     row per window, the packaged step the best AUC's), each bundle on the
     card against the CPU route at every bucket and group geometry
     (phase 16's tolerances) and over HTTP (the golden request, no kernel
-    launched); then ``fit`` of the mlp config in this process for 200
+    launched); then ``fit`` of the mlp config in this process for 100
     steps on the card and on the CPU on the same batches, validation AUCs
     within 0.01, no kernel launched (the counts set to 0 just before);
 20. exact-tier training timing per family at batch 1024: step ms (CUDA
@@ -172,7 +175,7 @@ Phases, each of which fails the run loudly:
     mlops_tpu_torch serve serve.tier_routing=true`` on the mlp-ens8
     bundle with a gated quant student, once as configured (the
     micro-batcher on) and once with ``serve.batch_window_ms=0``, each
-    taking 2,000 single-record and 2,000 mixed 1..8-record requests at
+    taking 600 single-record and 600 mixed 1..8-record requests at
     1, 16 and 64 keep-alive connections (every fourth request asks for
     ``x-slo-class: cheap``, the quant tier): every answer held against
     the CPU route (phase 5 and 16 tolerances), /metrics rows equal to the
@@ -199,8 +202,8 @@ Phases, each of which fails the run loudly:
     exact path on the card), then ``score_dataset`` at 1,000,000 rows on
     its exact and distilled paths, the gated quant path, and the
     ft_transformer bundle at 262,144 rows, chunk 131,072: depth 1 and
-    depth 2 bitwise equal, the first chunk against the CPU route
-    (1.6e-2; the quant path 1e-6; flags exact off the band) and the
+    depth 2 bitwise equal, the first chunk's first 32,768 rows against the
+    CPU route (1.6e-2; the quant path 1e-6; flags exact off the band) and the
     drift on the same 65,536-row sample (1e-5), rows/s, the stage
     record, peak device memory, and device ops and busy share per chunk
     (``torch.profiler`` over two chunks);
@@ -222,7 +225,7 @@ Phases, each of which fails the run loudly:
     3 trials x 20 steps from the same init, rows and masks (per-trial
     gradient cosine >= 0.98, loss curves within 0.05);
 27. the architecture sweep: ``tune --config configs/tune_architectures.toml
-    hpo.strategy=sha`` with the steps cut 1,000 -> 200 (widths the
+    hpo.strategy=sha`` with the steps cut 1,000 -> 50 (widths the
     config's: mlp 128x128 embed 8, mlp 256x256x128 embed 16,
     ft_transformer token_dim 64 depth 3; 8 trials a group), each record
     with its group, architecture, rung and steps, the winner's bundle
@@ -244,7 +247,7 @@ Phases, each of which fails the run loudly:
     route on the bundle the registry downloads (1.6e-2), and at once the
     same ``serve`` with ``MLOPS_TPU_SERVE_WORKERS=2`` and
     ``MLOPS_TPU_CACHE_DIR`` set (the ring plane, answering the same); the
-    same ``serve`` with ``MLOPS_TPU_SERVE_ENGINE_REPLICAS=2`` (a non-zero
+    same ``serve`` with ``MLOPS_TPU_SLO_ENABLED=true`` (a non-zero
     exit naming A4), a
     ``train`` at 50 steps with ``train.tensorboard_dir`` (event files, or
     the JAX warning where ``torch.utils.tensorboard`` is unusable), and
@@ -260,7 +263,8 @@ Phases, each of which fails the run loudly:
     ring plane: two front ends over the shared-memory ring to one engine
     process, which builds no kernel and is the plane's only process
     holding the card), beside the same with ``MLOPS_TPU_SERVE_WORKERS=0``;
-    phase 22's bursts to both in turns, every answer against the CPU route,
+    phase 22's bursts at 2,000 requests to both in turns (the first 250 of
+    each at one connection), every answer against the CPU route,
     /metrics rows equal to the records sent, ``quant_fused`` launches (read
     from the ring's /metrics, counted in the engine process) equal to the
     quant-tier dispatches, requests/s, p50/p99 and dispatches per request;
@@ -276,8 +280,8 @@ Phases, each of which fails the run loudly:
     ``cooldown_s`` 2, ``min_window_rows`` 32, ``mirror_fraction`` 1.0): a
     8,000-row labeled window (numerics x10); ``serve --config ...`` in a
     subprocess under four keep-alive clients (single records and 8-record
-    bodies, every fourth cheap, each pausing 50 ms between requests),
-    normal traffic and then drifted, until
+    bodies, every fourth cheap, each pausing 50 ms between requests; the
+    retrain cut to 150 steps), normal traffic and then drifted, until
     the trigger, the retrain on the controller thread, the shadow and the
     promotion to generation 2 show in the log and on /metrics; every
     answer 200, /metrics rows equal to the records answered, p50/p99 in
@@ -298,7 +302,8 @@ Phases, each of which fails the run loudly:
     with ``configs/lifecycle_serve.toml`` mounted (``MLOPS_TPU_SERVE_WORKERS=2``
     and ``MLOPS_TPU_CACHE_DIR`` win over the file's ``workers = 0``; the
     loop runs in the engine process, the only one holding the card, with no
-    nvcc): phase 30's bundle, window, clocks and four unpaced clients; 32
+    nvcc): phase 30's bundle, window, clocks and four unpaced clients, the
+    retrain cut to 150 steps; 32
     requests one at a time before the traffic; per window (before the
     trigger, retrain, shadow, after the swap) p50 / p99, requests/s,
     non-200 and ``quant_fused`` launches from the ring's /metrics; trigger
@@ -318,7 +323,35 @@ Phases, each of which fails the run loudly:
     atomic write's and the kernel cache's mid-write points leave no torn
     file, and bit flips on the cached library's read are a counted discard
     and one nvcc rebuild whose kernel agrees with its plain version; every
-    status in {200, 413, 422, 503, 504}, SIGTERM drains.
+    status in {200, 413, 422, 503, 504}, SIGTERM drains;
+33. the engine replica set as the serving image starts it: ``serve
+    --workers W --replicas 2`` beside ``--replicas 1`` (W = 4 with eight
+    cores, else 2) on phase 22's bundle and phase 29's warmed cache:
+    replica 1 ready without nvcc, the two replica processes and only they
+    holding the card; phase 29's bursts at 16 and 64 connections on both,
+    every answer against the CPU route, requests/s, p50/p99, dispatches
+    per request, CPU cores per front end and replica, rows per replica,
+    ``quant_fused`` launches summed over the replicas; kill -9 of replica
+    1 under 64 connections (every answer 200 and right, replica 0's
+    incarnation unchanged, replica 1's up by one, per-replica counters
+    monotone), then of replica 0 at rest with 64 requests one at a time
+    through the respawned replica 1, bitwise as before; SIGTERM, every
+    child exiting 0; ``--replicas 2 lifecycle.enabled=true`` refused with
+    the JAX package's message;
+34. the tenant fleet of ``configs/tenants.toml`` (its names, order,
+    weights and default; emea phase 22's bundle, apac its twin from other
+    seeds, latam-ab-arm phase 17's mlp) with its bundle directories
+    replaced, on ``serve --tenants`` and on ``serve --tenants --workers W
+    --replicas 2``: each tenant's answers bitwise the same bundle's served
+    alone on the card, untagged requests emea's, an unknown tenant 404;
+    apac on 10x the connections shedding 503s against its own quota, the
+    cold tenants never; kill -9 of replica 1 under every tenant's traffic,
+    each answer its own tenant's; then the per-tenant loops (``--config
+    configs/lifecycle_serve.toml --tenants ... --replicas 1``, phase 30's
+    clocks, window and paced clients, the retrain cut to 60 steps):
+    drifted traffic to
+    latam-ab-arm alone promotes it alone to generation 2, every front end
+    rendering each tenant's lifecycle block.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
@@ -2183,7 +2216,7 @@ EXACT_CUT_EVAL_EVERY = 100  # of the job's 200
 # The trained bundles on the card against the CPU route: solo buckets 1
 # and 256, groups 64x1 and 64x8 (phase 16 checks every geometry).
 EXACT_TRAINED_GEOMETRIES = [(1, 1), (1, 256), (64, 1), (64, 8)]
-EXACT_AUC_STEPS = 200
+EXACT_AUC_STEPS = 100  # cut from 200 to keep the run in its time limit
 EXACT_AUC_GAP = 0.01
 
 
@@ -2413,7 +2446,7 @@ def phase_exact_train_path(extra: tuple[str, ...] = (), device: str = "cuda") ->
     its full config (mlp), then mlp-ens8, ft_transformer and bert with
     the steps cut; every bundle on the card against the CPU route at
     every bucket and group geometry and over HTTP; then ``fit`` of the
-    mlp config in this process for 200 steps on the card and on the CPU
+    mlp config in this process for EXACT_AUC_STEPS steps on the card and on the CPU
     on the same batches (validation AUCs within 0.01), with the kernel
     launch counts set to 0 just before and read after. ``extra`` and
     ``device="cpu"`` rehearse it small on the CPU."""
@@ -2565,7 +2598,8 @@ def phase_exact_train_timing(cli_walls: dict) -> list[dict]:
 
 # ----------------------------------------------------------------- phase 21
 ROUTE_SHAPES = [(1, 1), (1, 256), (64, 1), (64, 8)]
-ROUTE_ROUNDS = 4  # eager and graph take turns, this many times each
+ROUTE_ROUNDS = 2  # eager and graph take turns, this many times each (cut from 4 to keep
+# the run in its time limit)
 ROUTE_ITERS = 25  # dispatches per turn
 ROUTE_PROFILED = 10  # dispatches per route under torch.profiler
 _KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -2665,7 +2699,8 @@ def phase_dispatch_routes(bundle_dir: Path, dirs: dict) -> list[dict]:
 
 
 # ----------------------------------------------------------------- phase 22
-BURST_REQUESTS = 2000
+BURST_REQUESTS = 2000  # phases 29 and 33
+BURST_SERVER_REQUESTS = 600  # phase 22 (cut from 2,000 to keep the run in its time limit)
 BURST_CONCURRENCY = (1, 16, 64)
 BURST_CHEAP_EVERY = 4  # every 4th request asks for x-slo-class: cheap
 
@@ -2692,8 +2727,8 @@ def phase_burst_bundle(dirs: dict) -> Path:
     return directory
 
 
-def _burst_set(bundle, cpu, kind: str, seed: int) -> dict:
-    """BURST_REQUESTS requests (``single``: one record each; ``mixed``:
+def _burst_set(bundle, cpu, kind: str, seed: int, n: int = BURST_REQUESTS) -> dict:
+    """``n`` requests (``single``: one record each; ``mixed``:
     1..8), their bodies and headers, and what the CPU route answers each
     (grouped 64 at a time, tier by tier), with the tolerances of phases
     5 and 16 and each request's rows off the flag threshold band."""
@@ -2703,15 +2738,14 @@ def _burst_set(bundle, cpu, kind: str, seed: int) -> dict:
     from mlops_tpu_torch.schema.validate import records_to_columns
 
     rng = np.random.default_rng(seed)
-    sizes = (np.ones(BURST_REQUESTS, int) if kind == "single"
-             else rng.integers(1, 9, size=BURST_REQUESTS))
+    sizes = np.ones(n, int) if kind == "single" else rng.integers(1, 9, size=n)
     pool = _records(int(sizes.sum()), seed, drift=0.3)
     bounds = np.cumsum([0, *sizes])
     requests = [pool[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
-    cheap = [i % BURST_CHEAP_EVERY == 0 for i in range(BURST_REQUESTS)]
-    wants = [None] * BURST_REQUESTS
+    cheap = [i % BURST_CHEAP_EVERY == 0 for i in range(n)]
+    wants = [None] * n
     for tier in (True, False):
-        idx = [i for i in range(BURST_REQUESTS) if cheap[i] == tier]
+        idx = [i for i in range(n) if cheap[i] == tier]
         for lo in range(0, len(idx), 64):
             chunk = idx[lo:lo + 64]
             got = cpu.predict_group([requests[i] for i in chunk],
@@ -2825,8 +2859,8 @@ def phase_burst(bundle_dir: Path, device: str = "cuda") -> list[dict]:
     ``python -m mlops_tpu_torch serve serve.tier_routing=true`` on the
     exact mlp-ens8 bundle with a gated quant tier, twice in subprocesses
     (the batcher on, as configured by default, and off with
-    ``serve.batch_window_ms=0``). Each takes BURST_REQUESTS single-record
-    and BURST_REQUESTS mixed 1..8-record requests (every
+    ``serve.batch_window_ms=0``). Each takes BURST_SERVER_REQUESTS
+    single-record and BURST_SERVER_REQUESTS mixed 1..8-record requests (every
     BURST_CHEAP_EVERY-th asking for the cheap class, so the quant tier)
     at each of BURST_CONCURRENCY keep-alive connections, servers in
     turns. Every answer agrees with the CPU route; /metrics rows equal
@@ -2842,7 +2876,7 @@ def phase_burst(bundle_dir: Path, device: str = "cuda") -> list[dict]:
 
     bundle = load_bundle(bundle_dir)
     cpu = InferenceEngine(bundle, device="cpu", tier_routing=True)
-    bursts = [_burst_set(bundle, cpu, kind, seed)
+    bursts = [_burst_set(bundle, cpu, kind, seed, BURST_SERVER_REQUESTS)
               for kind, seed in (("single", 41), ("mixed", 42))]
     modes = {"batcher": [], "window_0": ["serve.batch_window_ms=0"]}
     servers = {}
@@ -2889,18 +2923,18 @@ def phase_burst(bundle_dir: Path, device: str = "cuda") -> list[dict]:
                           f"{what}: {d['launches']} quant_fused launches for "
                           f"{d['quant_dispatches']} quant-tier dispatches")
                     if mode == "batcher" and concurrency == 64:
-                        check(d["dispatches"] < BURST_REQUESTS,
+                        check(d["dispatches"] < BURST_SERVER_REQUESTS,
                               f"{what}: {d['dispatches']} dispatches, nothing coalesced")
                     row = {
                         "kind": burst["kind"], "concurrency": concurrency, "mode": mode,
-                        "requests": BURST_REQUESTS, "records": burst["rows"],
+                        "requests": BURST_SERVER_REQUESTS, "records": burst["rows"],
                         "cheap_requests": burst["cheap"],
-                        "requests_per_s": BURST_REQUESTS / wall,
+                        "requests_per_s": BURST_SERVER_REQUESTS / wall,
                         "p50_ms": float(np.percentile(lat, 50)),
                         "p99_ms": float(np.percentile(lat, 99)),
-                        "dispatches_per_request": d["dispatches"] / BURST_REQUESTS,
+                        "dispatches_per_request": d["dispatches"] / BURST_SERVER_REQUESTS,
                         "grouped_dispatches_per_request":
-                            d["group_dispatches"] / BURST_REQUESTS,
+                            d["group_dispatches"] / BURST_SERVER_REQUESTS,
                         "quant_dispatches": d["quant_dispatches"],
                         "quant_fused_launches": d["launches"],
                         "max_pred_err": worst["pred"], "max_drift_err": worst["drift"],
@@ -3053,6 +3087,7 @@ def phase_students(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
 BULK_ROWS = 1_000_000
 BULK_FT_ROWS = 262_144
 BULK_CHUNK = 131_072  # ScoreConfig's default
+BULK_REFERENCE_ROWS = 32_768  # of the first chunk, held against the CPU route
 
 
 def _bulk_reference(bundle_dir: Path, ds, kw: dict, got, seed: int) -> dict:
@@ -3069,7 +3104,7 @@ def _bulk_reference(bundle_dir: Path, ds, kw: dict, got, seed: int) -> dict:
 
     bundle = load_bundle(bundle_dir)
     scorer = bulk.make_chunk_scorer(bundle, device="cpu", **kw)
-    rows = min(BULK_CHUNK, ds.n)
+    rows = min(BULK_REFERENCE_ROWS, ds.n)
     cat = torch.from_numpy(ds.cat_ids[:rows].astype(np.int8))
     num = torch.from_numpy(ds.numeric[:rows])
     mask = torch.ones(rows, dtype=torch.bool)
@@ -3237,7 +3272,7 @@ def phase_stream(students: dict, device: str = "cuda", rows: int = STREAM_ROWS,
 # ----------------------------------------------------------------- phase 26
 TUNE_JOB_TOML = "configs/train_register_job.toml"
 TUNE_ARCH_TOML = "configs/tune_architectures.toml"
-TUNE_ARCH_STEPS = 200  # phase 27: of the config's 1,000
+TUNE_ARCH_STEPS = 50  # phase 27: of the config's 1,000
 TUNE_SMALL_T = 2  # the job's stack again at two trials: kernels per step
 TUNE_KERNEL_GROWTH = 1.10  # kernels per step at T=10 within 10 % of T=2
 TUNE_PARITY_TRIALS = 3
@@ -3759,7 +3794,7 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
     route on the bundle the registry resolves, and at once the same
     ``serve`` as the serving image starts it, ``MLOPS_TPU_SERVE_WORKERS=2``
     (the ring plane) with ``MLOPS_TPU_CACHE_DIR`` set, answering the same;
-    the same ``serve`` with ``MLOPS_TPU_SERVE_ENGINE_REPLICAS=2`` exits
+    the same ``serve`` with ``MLOPS_TPU_SLO_ENABLED=true`` exits
     non-zero naming A4; a ``train`` of the job config with
     the steps cut to 50 and ``train.tensorboard_dir`` set writes event
     files (or, where ``torch.utils.tensorboard`` cannot be built, warns as
@@ -3828,7 +3863,7 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
     # score-batch on the Parquet twin and the CSV (their resolves of
     # production race the servers' downloads into the one registry cache:
     # a rename decides).
-    refused = {"MLOPS_TPU_SERVE_ENGINE_REPLICAS": ("2", "A4")}
+    refused = {"MLOPS_TPU_SLO_ENABLED": ("true", "A4")}
     procs = {key: _start(_cli(serve_args, bucket_root), {**env, key: value}, root / key)
              for key, (value, _) in refused.items()}
     tb_dir = root / "tensorboard"
@@ -3931,6 +3966,7 @@ RING_KILL_REQUESTS = 600  # single-record requests streamed across an engine kil
 RING_KILL_CONCURRENCY = 16
 RING_BITWISE_REQUESTS = 64  # re-sent to the respawned engine, one at a time
 RING_DRAIN_REQUESTS = 400  # streamed while the plane drains on SIGTERM
+RING_C1_REQUESTS = 250  # of a burst's requests, sent at one connection
 
 
 def _image_env(bundle_dir: Path, cache: Path, port: int, workers: int, device: str) -> dict:
@@ -3960,13 +3996,17 @@ def _wait_ready(port: int, proc, what: str, timeout: float = 600) -> None:
 
 
 def _ring_log(path: Path) -> tuple[dict, list[dict], str]:
-    """The plane's log: the latest pid of each process, every engine
-    ready record, and the text."""
+    """The plane's log: the latest pid of each process (``engine`` is
+    replica 0's, ``engine r`` replica r's), every engine ready record, and
+    the text."""
     text = path.read_text(errors="replace")
     pids, ready = {}, []
     for line in text.splitlines():
-        if line.startswith("engine started (pid "):
-            pids["engine"] = int(line.split("pid ")[1].rstrip(")"))
+        if line.startswith("engine replica ") and " started (pid " in line:
+            pid, replica = int(line.split("pid ")[1].rstrip(")")), int(line.split()[2])
+            pids[f"engine {replica}"] = pid
+            if replica == 0:
+                pids["engine"] = pid
         elif line.startswith("frontend ") and " started (pid " in line:
             pids[f"frontend {line.split()[1]}"] = int(line.split("pid ")[1].rstrip(")"))
         elif line.startswith("warmup complete; ready {"):
@@ -4022,8 +4062,10 @@ def _compute_apps() -> list[int] | None:
 
 
 def _sub_burst(burst: dict, idx: list[int]) -> dict:
-    return {**burst, **{k: [burst[k][i] for i in idx]
-                        for k in ("bodies", "headers", "want", "off_band", "tol")}}
+    sub = {**burst, **{k: [burst[k][i] for i in idx]
+                       for k in ("bodies", "headers", "want", "off_band", "tol")}}
+    sub["rows"] = sum(len(json.loads(body)) for body in sub["bodies"])
+    return sub
 
 
 def _tolerant_burst(port: int, burst: dict, concurrency: int) -> list:
@@ -4116,6 +4158,24 @@ def _kill_engine(port: int, log_path: Path, burst: dict, cpu_stream: bool) -> di
             "stream_requests": RING_KILL_REQUESTS if cpu_stream else 0}
 
 
+_RING_BURSTS: dict = {}
+
+
+def _ring_bursts(bundle_dir: Path) -> list[dict]:
+    """Phase 29's bursts on ``bundle_dir`` (2 x BURST_REQUESTS requests and
+    the CPU route's answers), built once and kept for phase 33."""
+    key = (str(bundle_dir), BURST_REQUESTS)
+    if key not in _RING_BURSTS:
+        from mlops_tpu_torch.bundle import load_bundle
+        from mlops_tpu_torch.serve.engine import InferenceEngine
+
+        bundle = load_bundle(bundle_dir)
+        cpu = InferenceEngine(bundle, device="cpu", tier_routing=True)
+        _RING_BURSTS[key] = [_burst_set(bundle, cpu, kind, seed)
+                             for kind, seed in (("single", 41), ("mixed", 42))]
+    return _RING_BURSTS[key]
+
+
 def phase_ring(bundle_dir: Path, device: str = "cuda") -> dict:
     """The serving image's start on the ring plane: ``warmup --cache-dir``
     into an empty cache (cold, then reused), then ``serve`` with the
@@ -4136,9 +4196,6 @@ def phase_ring(bundle_dir: Path, device: str = "cuda") -> dict:
     build); kill -9 of a front end (respawn timed); SIGTERM while traffic
     flows: every answer 200, every process exits 0."""
     import numpy as np
-
-    from mlops_tpu_torch.bundle import load_bundle
-    from mlops_tpu_torch.serve.engine import InferenceEngine
 
     root = WORK / "ring"
     shutil.rmtree(root, ignore_errors=True)
@@ -4163,10 +4220,7 @@ def phase_ring(bundle_dir: Path, device: str = "cuda") -> dict:
                   f"warmup {kind}: {report}")
             warm[kind] = {"wall_s": wall, **report}
             log_timing(f"ring warmup {kind}", warm[kind])
-    bundle = load_bundle(bundle_dir)
-    cpu = InferenceEngine(bundle, device="cpu", tier_routing=True)
-    bursts = [_burst_set(bundle, cpu, kind, seed)
-              for kind, seed in (("single", 41), ("mixed", 42))]
+    bursts = _ring_bursts(bundle_dir)
     planes = {}
     for mode, workers in (("ring", RING_WORKERS), ("single", 0)):
         port = _free_port()
@@ -4207,14 +4261,16 @@ def phase_ring(bundle_dir: Path, device: str = "cuda") -> dict:
         for burst in bursts:
             for concurrency in BURST_CONCURRENCY:
                 for mode, (port, _, _, _) in planes.items():
+                    sent = (burst if concurrency > 1
+                            else _sub_burst(burst, list(range(RING_C1_REQUESTS))))
                     before = _scrape(port)
                     cpu0 = {name: _cpu_s(pid) for name, pid in procs.items()}
-                    out, lat, wall = _run_burst(port, burst, concurrency)
+                    out, lat, wall = _run_burst(port, sent, concurrency)
                     cpu = {name: round((_cpu_s(pid) - cpu0[name]) / wall, 3)
                            for name, pid in procs.items()}
                     what = f"ring phase {burst['kind']} c={concurrency} {mode}"
-                    worst = _check_burst(burst, out, what)
-                    after = _await_rows(port, before, burst["rows"], what)
+                    worst = _check_burst(sent, out, what)
+                    after = _await_rows(port, before, sent["rows"], what)
                     d = {k: after[k] - before[k] for k in before}
                     check(d["demotions"] == 0, f"{what}: {d['demotions']} demotions")
                     expected = d["quant_dispatches"] if device == "cuda" else 0
@@ -4226,13 +4282,13 @@ def phase_ring(bundle_dir: Path, device: str = "cuda") -> dict:
                     row = {
                         "kind": burst["kind"], "concurrency": concurrency, "plane": mode,
                         "workers": RING_WORKERS if mode == "ring" else 0,
-                        "requests": BURST_REQUESTS, "records": burst["rows"],
-                        "requests_per_s": BURST_REQUESTS / wall,
+                        "requests": len(sent["bodies"]), "records": sent["rows"],
+                        "requests_per_s": len(sent["bodies"]) / wall,
                         "p50_ms": float(np.percentile(lat, 50)),
                         "p99_ms": float(np.percentile(lat, 99)),
-                        "dispatches_per_request": d["dispatches"] / BURST_REQUESTS,
+                        "dispatches_per_request": d["dispatches"] / len(sent["bodies"]),
                         "grouped_dispatches_per_request":
-                            d["group_dispatches"] / BURST_REQUESTS,
+                            d["group_dispatches"] / len(sent["bodies"]),
                         "quant_dispatches": d["quant_dispatches"],
                         "quant_fused_launches": d["launches"],
                         "max_pred_err": worst["pred"], "max_drift_err": worst["drift"],
@@ -4295,7 +4351,7 @@ def phase_ring(bundle_dir: Path, device: str = "cuda") -> dict:
         for worker in range(RING_WORKERS):
             check(f"frontend {worker} (pid {pids[f'frontend {worker}']}) exited 0" in text,
                   f"front end {worker} did not exit 0")
-        check(f"engine (pid {pids['engine']}) exited 0" in text, "the engine did not exit 0")
+        check(f"engine replica 0 (pid {pids['engine']}) exited 0" in text, "the engine did not exit 0")
         port, _, single_proc, _ = planes["single"]
         single_proc.send_signal(signal.SIGTERM)
         check(single_proc.wait(timeout=120) == 0, "the single-process plane did not exit 0")
@@ -4367,10 +4423,10 @@ def _lifecycle_bodies(seed: int) -> dict:
 
 
 def _hammer(port: int, bodies: dict, phase: dict, stop, samples: list,
-            pause_s: float = 0.0) -> None:
+            pause_s: float = 0.0, tenant: str = "") -> None:
     """One keep-alive client: every fourth request asks for the cheap
-    class, ``pause_s`` between requests; records (send time, ms, status,
-    records)."""
+    class, ``pause_s`` between requests, each tagged ``x-tenant: tenant``
+    when one is named; records (send time, ms, status, records)."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
     i = 0
     try:
@@ -4380,6 +4436,8 @@ def _hammer(port: int, bodies: dict, phase: dict, stop, samples: list,
             headers = {"content-type": "application/json"}
             if i % BURST_CHEAP_EVERY == 0:
                 headers["x-slo-class"] = "cheap"
+            if tenant:
+                headers["x-tenant"] = tenant
             t0 = time.monotonic()
             try:
                 conn.request("POST", "/predict", body=body, headers=headers)
@@ -4740,7 +4798,8 @@ def phase_lifecycle(bundle_dir: Path, device: str = "cuda",
 
     window = WORK / "lifecycle_window.csv"
     write_csv_columns(window, *_drifted_columns(LIFECYCLE_WINDOW_ROWS, seed=3))
-    server = _lifecycle_server(bundle_dir, window, device, extra)
+    server = _lifecycle_server(bundle_dir, window, device,
+                               (f"lifecycle.retrain_steps={LOOP_RETRAIN_STEPS}", *extra))
     in_process = _lifecycle_in_process(bundle_dir, window, device, extra)
     launches = {**{f"server_{k}": v["quant_fused_launches"]
                    for k, v in server["windows"].items()},
@@ -4756,38 +4815,44 @@ def phase_lifecycle(bundle_dir: Path, device: str = "cuda",
 # runs in the engine process. Phase 30's bundle, window, clocks and traffic,
 # so the two planes compare.
 RING_LOOP_BITWISE_REQUESTS = 32  # sent one at a time before the trigger and after the respawn
+LOOP_RETRAIN_STEPS = 150  # of the file's 300, in phase 30's server and phase 31
 
 
-def _lifecycle_block(text: str) -> list[str]:
-    """The lifecycle series of a /metrics text."""
-    return [line for line in text.splitlines() if "tenant=\"default\"" in line and any(
-        name in line for name in ("bundle_generation", "drift_trigger", "shadow_auc",
-                                  "promotions_total", "lifecycle_"))]
+def _lifecycle_block(text: str, tenants: tuple[str, ...] = ("default",)) -> list[str]:
+    """The lifecycle series of ``tenants`` in a /metrics text."""
+    return [line for line in text.splitlines()
+            if any(f'tenant="{t}"' in line for t in tenants) and any(
+                name in line for name in ("bundle_generation", "drift_trigger", "shadow_auc",
+                                          "promotions_total", "lifecycle_"))]
 
 
-def _every_front_end(port: int, workers: int) -> list[str]:
+def _every_front_end(port: int, workers: int,
+                     tenants: tuple[str, ...] = ("default",)) -> list[str]:
     """Scrapes on new connections until each of the ``workers`` front
     ends has answered some (the per-worker /metrics counters tell which);
-    every scrape's lifecycle block must be the same. Returns it."""
+    every scrape's lifecycle block of ``tenants`` must be the same.
+    Returns it."""
     def answered(text: str) -> dict[str, float]:
         out = {}
         for line in text.splitlines():
             if line.startswith('mlops_tpu_requests_total{route="/metrics",status="200",worker="'):
-                out[line.split('worker="')[1][0]] = float(line.rsplit(" ", 1)[1])
+                worker = line.split('worker="')[1].split('"')[0]
+                out[worker] = out.get(worker, 0.0) + float(line.rsplit(" ", 1)[1])
         return out
 
     start = answered(_http(port, "GET", "/metrics")[1].decode())
     blocks = []
     for _ in range(200):
         text = _http(port, "GET", "/metrics")[1].decode()
-        blocks.append(_lifecycle_block(text))
+        blocks.append(_lifecycle_block(text, tenants))
         counts = answered(text)
         if all(counts.get(str(w), 0) > start.get(str(w), 0) + 1 for w in range(workers)):
             break
     check(all(counts.get(str(w), 0) > start.get(str(w), 0) + 1 for w in range(workers)),
           f"not every front end answered a scrape: {counts} from {start}")
-    check(all(block == blocks[0] for block in blocks),
-          "the front ends render different lifecycle blocks")
+    odd = next((block for block in blocks if block != blocks[0]), None)
+    check(odd is None, "the front ends render different lifecycle blocks: "
+          f"{sorted(set(blocks[0]) ^ set(odd or ()))}")
     return blocks[0]
 
 
@@ -4836,8 +4901,8 @@ def phase_ring_lifecycle(bundle_dir: Path, device: str = "cuda",
     """Phase 31: ``serve --config configs/lifecycle_serve.toml`` with the
     serving image's environment (``MLOPS_TPU_SERVE_WORKERS=2``,
     ``MLOPS_TPU_CACHE_DIR`` on a warmed cache) and tier routing on phase
-    22's bundle; the engine process alone holds the card and builds no
-    kernel. 32 requests one at a time, then phase 30's four clients,
+    22's bundle, the retrain cut to LOOP_RETRAIN_STEPS; the engine
+    process alone holds the card and builds no kernel. 32 requests one at a time, then phase 30's four clients,
     normal traffic and then drifted, through the engine-side trigger,
     retrain, shadow and promotion; every answer 200; per window (before
     the trigger, retrain, shadow, after the swap) p50 / p99, requests/s,
@@ -4860,8 +4925,9 @@ def phase_ring_lifecycle(bundle_dir: Path, device: str = "cuda",
     cache = WORK / "ring" / "cache"
     _warm_cache(bundle_dir, cache, device)
     port = _free_port()
+    cut = f"lifecycle.retrain_steps={LOOP_RETRAIN_STEPS}"
     cmd = _cli(["serve", "--config", LIFECYCLE_TOML, f"lifecycle.dir={root / 'state'}",
-                f"lifecycle.labeled_path={window}", *LIFECYCLE_CLOCKS, *extra])
+                f"lifecycle.labeled_path={window}", *LIFECYCLE_CLOCKS, cut, *extra])
     env = dict(os.environ, PYTHONPATH=str(ROOT), PYTHONFAULTHANDLER="1",
                **_image_env(bundle_dir, cache, port, RING_WORKERS, device))
     log(f"ring lifecycle plane: {' '.join(cmd[2:])} (MLOPS_TPU_SERVE_WORKERS={RING_WORKERS})")
@@ -4978,7 +5044,7 @@ def phase_ring_lifecycle(bundle_dir: Path, device: str = "cuda",
     for worker in range(RING_WORKERS):
         check(f"frontend {worker} (pid {pids_after[f'frontend {worker}']}) exited 0" in text,
               f"front end {worker} did not exit 0")
-    check(f"engine (pid {pids_after['engine']}) exited 0" in text, "the engine did not exit 0")
+    check(f"engine replica 0 (pid {pids_after['engine']}) exited 0" in text, "the engine did not exit 0")
     answered = [s for s in drain_samples if isinstance(s[2], int)]
     check(all(s[2] == 200 for s in answered),
           f"answers during the drain: {sorted({s[2] for s in answered})}")
@@ -5014,7 +5080,7 @@ def phase_ring_lifecycle(bundle_dir: Path, device: str = "cuda",
     wall_s, rest = built.split(" built in ", 1)[1].split("s (fit ", 1)
     fit_s, rest = rest.split("s; warm: ", 1)
     warm_mode, warm_s = rest.split("s)")[0].split()
-    steps = _retrain_steps(extra)
+    steps = _retrain_steps((*extra, cut))
     result = {
         "requests": len(samples), "records": sum(s[3] for s in samples), "non_200": len(bad),
         "windows": windows, "trigger_to_swap_s": t_swap - t_trigger,
@@ -5366,13 +5432,636 @@ def phase_chaos(bundle_dir: Path, device: str = "cuda", extra: tuple[str, ...] =
     for worker in range(RING_WORKERS):
         check(f"frontend {worker} (pid {pids[f'frontend {worker}']}) exited 0" in text,
               f"front end {worker} did not exit 0")
-    check(f"engine (pid {pids['engine']}) exited 0" in text, "the engine did not exit 0")
+    check(f"engine replica 0 (pid {pids['engine']}) exited 0" in text, "the engine did not exit 0")
     check(text.count("injected retrain failure") >= 2, "the retrain failures were not logged")
     outside = sorted({s for s in statuses if s not in CHAOS_ALLOWED}, key=str)
     check(not outside, f"statuses outside {sorted(CHAOS_ALLOWED)}: {outside}")
     result["statuses"] = {str(s): statuses.count(s) for s in sorted(set(statuses), key=str)}
     log_timing("chaos", result)
     return result
+
+
+# ----------------------------------------------------------------- phase 33
+# The engine replica set as the serving image starts it: `serve --workers W
+# --replicas 2` (and `--replicas 1` beside it, in the same call) on phase
+# 22's bundle with the image's environment and a warmed kernel cache.
+REPLICA_CONCURRENCY = (16, 64)
+REPLICA_BITWISE_REQUESTS = 64  # one at a time, before the kill and after it
+
+
+def _replica_workers() -> int:
+    """Front ends of phases 33-34: four where the machine has eight cores,
+    else two."""
+    return 4 if (os.cpu_count() or 1) >= 8 else 2
+
+
+def _series(port: int) -> dict[str, float]:
+    """Every sample of a /metrics scrape, by its series and labels."""
+    _, text = _http(port, "GET", "/metrics")
+    return {line.rsplit(" ", 1)[0]: float(line.rsplit(" ", 1)[1])
+            for line in text.decode().splitlines() if line and not line.startswith("#")}
+
+
+def _replica(series: dict, name: str, r: int) -> float:
+    return series[f'mlops_tpu_replica_{name}{{replica="{r}"}}']
+
+
+def _wait_replicas(port: int, proc, replicas: int, what: str, incarnations=None,
+                   timeout: float = 300) -> dict:
+    """Until every replica is ready (at ``incarnations`` when given)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        check(proc.poll() is None, f"{what} exited early ({proc.returncode})")
+        try:
+            series = _series(port)
+            if all(_replica(series, "ready", r) == 1 and (
+                    incarnations is None or _replica(series, "incarnation", r)
+                    >= incarnations[r]) for r in range(replicas)):
+                return series
+        except (OSError, KeyError):
+            pass
+        check(time.monotonic() < deadline, f"{what}: the replicas never became ready")
+        time.sleep(0.05)
+
+
+def _plane_procs(log_path: Path) -> dict[str, int]:
+    """The plane's front ends and replicas by name (``engine`` aliases
+    replica 0), for the CPU shares."""
+    pids, _, _ = _ring_log(log_path)
+    return {name: pid for name, pid in pids.items() if name != "engine"}
+
+
+def phase_replicas(bundle_dir: Path, device: str = "cuda") -> dict:
+    """Phase 33: ``serve --workers W --replicas 2`` and ``--replicas 1``
+    side by side with the serving image's environment on a warmed cache
+    (W = 4 with eight cores, else 2). Replica 0 starts, then replica 1
+    with no nvcc; both and only the replica processes hold the card.
+    Phase 29's bursts at 16 and 64 connections on each plane in turns:
+    every answer against the CPU route, requests/s, p50/p99, dispatches
+    per request, the CPU cores each front end and replica kept busy, each
+    replica's rows, ``quant_fused`` launches equal to the quant-tier
+    dispatches summed over the replicas. kill -9 of replica 1 under 64
+    connections: every answer 200 and right, replica 0's incarnation
+    unchanged, replica 1's up by one, every per-replica counter monotone;
+    then replica 0 killed at rest and 64 requests one at a time through
+    the respawned replica 1, bitwise as before the kills. SIGTERM: every
+    child exits 0. ``--replicas 2 lifecycle.enabled=true`` exits with the
+    JAX package's message."""
+    import numpy as np
+
+    root = WORK / "replicas"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cache = WORK / "ring" / "cache"
+    _warm_cache(bundle_dir, cache, device)
+    workers, cores = _replica_workers(), os.cpu_count()
+    log(f"replica set: {workers} front ends on {cores} cores")
+    bursts = _ring_bursts(bundle_dir)
+    base_env = dict(os.environ, PYTHONPATH=str(ROOT))
+    planes = {}
+    for replicas in (2, 1):
+        port = _free_port()
+        log_path = root / f"plane_e{replicas}.log"
+        out = open(log_path, "wb")
+        planes[replicas] = (port, out, subprocess.Popen(
+            _cli(["serve", "--workers", str(workers), "--replicas", str(replicas)]),
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+            env={**base_env, **_image_env(bundle_dir, cache, port, workers, device)}),
+            log_path)
+    rows = []
+    try:
+        for replicas, (port, _, proc, _) in planes.items():
+            _wait_ready(port, proc, f"replica plane E={replicas}")
+            _wait_replicas(port, proc, replicas, f"replica plane E={replicas}")
+        port, _, proc, log_path = planes[2]
+        pids, ready, text = _ring_log(log_path)
+        check(sorted(r["replica"] for r in ready) == [0, 1], f"the replicas' starts: {ready}")
+        if device == "cuda":
+            check(all(r["nvcc_calls"] == 0 for r in ready),
+                  f"a replica built a kernel on the warmed cache: {ready}")
+        check(text.count("tiers=quant,exact") == 2, "a replica does not hold both tiers")
+        members = {proc.pid, *_children(proc.pid)}
+        holders = sorted(pid for pid in members if _holds_card(pid))
+        replica_pids = sorted((pids["engine 0"], pids["engine 1"]))
+        if device == "cuda":
+            check(holders == replica_pids,
+                  f"processes holding the card {holders}, replicas {replica_pids}")
+        start = {"holding_the_card": holders, "replica_pids": replica_pids,
+                 "ready": [{k: r[k] for k in ("replica", "ready_s", "nvcc_calls")}
+                           for r in ready]}
+        log(f"replica plane: {json.dumps(start)}")
+        single = bursts[0]
+        probe = _sub_burst(single, list(range(REPLICA_BITWISE_REQUESTS)))
+        settled = _scrape(port)
+        probe_before, _, _ = _run_burst(port, probe, 1)
+        _check_burst(probe, probe_before, "replica probe")
+        _await_rows(port, settled, len(probe["bodies"]), "replica probe")  # single records
+        for burst in bursts:
+            for concurrency in REPLICA_CONCURRENCY:
+                for replicas in (2, 1):
+                    port, _, _, log_path = planes[replicas]
+                    procs = {"client": os.getpid(), **_plane_procs(log_path)}
+                    before, series0 = _scrape(port), _series(port)
+                    cpu0 = {name: _cpu_s(pid) for name, pid in procs.items()}
+                    out, lat, wall = _run_burst(port, burst, concurrency)
+                    cpu = {name: round((_cpu_s(pid) - cpu0[name]) / wall, 3)
+                           for name, pid in procs.items()}
+                    what = f"replicas {burst['kind']} c={concurrency} E={replicas}"
+                    worst = _check_burst(burst, out, what)
+                    after = _await_rows(port, before, burst["rows"], what)
+                    series1 = _series(port)
+                    d = {k: after[k] - before[k] for k in before}
+                    expected = d["quant_dispatches"] if device == "cuda" else 0
+                    check(d["launches"] == expected,
+                          f"{what}: {d['launches']} quant_fused launches for "
+                          f"{d['quant_dispatches']} quant-tier dispatches")
+                    row = {
+                        "kind": burst["kind"], "concurrency": concurrency,
+                        "replicas": replicas, "workers": workers,
+                        "requests": len(burst["bodies"]), "records": burst["rows"],
+                        "requests_per_s": len(burst["bodies"]) / wall,
+                        "p50_ms": float(np.percentile(lat, 50)),
+                        "p99_ms": float(np.percentile(lat, 99)),
+                        "dispatches_per_request": d["dispatches"] / len(burst["bodies"]),
+                        "quant_fused_launches": d["launches"],
+                        "replica_rows": [_replica(series1, "rows_scored_total", r)
+                                         - _replica(series0, "rows_scored_total", r)
+                                         for r in range(replicas)],
+                        "max_pred_err": worst["pred"], "max_drift_err": worst["drift"],
+                        "cpu_share": cpu,
+                    }
+                    log_timing("replica burst", row)
+                    rows.append(row)
+        # kill -9 of replica 1 while 64 connections stream requests.
+        port, _, proc, log_path = planes[2]
+        pids, ready, _ = _ring_log(log_path)
+        before = _series(port)
+        result = {}
+        thread = threading.Thread(target=lambda: result.setdefault(
+            "out", _run_burst(port, single, 64)[0]))
+        thread.start()
+        time.sleep(0.3)
+        os.kill(pids["engine 1"], signal.SIGKILL)
+        t_kill = time.monotonic()
+        inc = [int(_replica(before, "incarnation", r)) for r in (0, 1)]
+        after = _wait_replicas(port, proc, 2, "replica 1's respawn", [inc[0], inc[1] + 1])
+        kill_to_ready = time.monotonic() - t_kill
+        thread.join(timeout=300)
+        worst = _check_burst(single, result["out"], "replica 1 kill -9 stream")
+        after = _series(port)
+        check(_replica(after, "incarnation", 0) == inc[0],
+              "replica 0's incarnation moved when replica 1 died")
+        check(_replica(after, "incarnation", 1) == inc[1] + 1,
+              "replica 1's incarnation did not move up by one")
+        check(_replica(after, "respawn_total", 1) == _replica(before, "respawn_total", 1) + 1,
+              "replica 1's respawn was not counted")
+        back = [name for name, value in before.items()
+                if (name.startswith("mlops_tpu_replica_") and "_total{" in name)
+                and after[name] < value]
+        check(not back, f"per-replica counters went back across the kill: {back}")
+        _, ready_after, _ = _ring_log(log_path)
+        new = [r for r in ready_after if r["replica"] == 1][-1]
+        if device == "cuda":
+            check(new["nvcc_calls"] == 0, f"the respawned replica built a kernel: {new}")
+        kill = {"kill_to_ready_s": kill_to_ready, "replica_ready_s": new["ready_s"],
+                "nvcc_calls": new["nvcc_calls"], "stream_requests": len(single["bodies"]),
+                "replayed_slots": _replica(after, "replayed_slots_total", 1)
+                - _replica(before, "replayed_slots_total", 1),
+                "max_pred_err": worst["pred"],
+                "replica_incarnations": [_replica(after, "incarnation", r) for r in (0, 1)]}
+        # Replica 0 killed at rest: the probe goes through the respawned
+        # replica 1 (the router routes around the dead one) and answers
+        # bitwise as the plane did before the kills.
+        pids, _, _ = _ring_log(log_path)
+        rows1 = _replica(_series(port), "rows_scored_total", 1)
+        os.kill(pids["engine 0"], signal.SIGKILL)
+        deadline = time.monotonic() + 30
+        while _replica(_series(port), "ready", 0) == 1:
+            check(time.monotonic() < deadline, "replica 0's death was not seen")
+            time.sleep(0.01)
+        probe_after, _, _ = _run_burst(port, probe, 1)
+        diff = [i for i, (a, b) in enumerate(zip(probe_before, probe_after)) if a != b]
+        check(not diff, f"the respawned replica 1 answers differently at {diff[:10]}")
+        series = _wait_replicas(port, proc, 2, "replica 0's respawn", [inc[0] + 1, inc[1] + 1])
+        kill["bitwise_equal_requests"] = len(probe["bodies"])
+        kill["probe_rows_on_replica_1"] = _replica(series, "rows_scored_total", 1) - rows1
+        log_timing("replica kill -9", kill)
+        # SIGTERM: both planes drain, every child exits 0.
+        for replicas, (port, _, proc, log_path) in planes.items():
+            proc.send_signal(signal.SIGTERM)
+            check(proc.wait(timeout=180) == 0, f"replica plane E={replicas} did not exit 0")
+            pids, _, text = _ring_log(log_path)
+            for w in range(workers):
+                check(f"frontend {w} (pid {pids[f'frontend {w}']}) exited 0" in text,
+                      f"E={replicas}: front end {w} did not exit 0")
+            for r in range(replicas):
+                check(f"engine replica {r} (pid {pids[f'engine {r}']}) exited 0" in text,
+                      f"E={replicas}: replica {r} did not exit 0")
+    finally:
+        for _, out, proc, _ in planes.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            out.close()
+    refused = subprocess.run(
+        _cli(["serve", "--workers", "2", "--replicas", "2", "lifecycle.enabled=true"]),
+        cwd=ROOT, env={**base_env, **_image_env(bundle_dir, cache, _free_port(), 2, device)},
+        capture_output=True, text=True, timeout=300)
+    check(refused.returncode != 0 and "serve.engine_replicas > 1 is incompatible with "
+          "lifecycle.enabled" in refused.stderr,
+          f"--replicas 2 with the loop: {refused.returncode} {refused.stderr[-1500:]}")
+    result = {"workers": workers, "cores": cores, "start": start, "bursts": rows,
+              "kill": kill, "lifecycle_refusal": refused.stderr.strip().splitlines()[-1],
+              "launches": sum(r["quant_fused_launches"] for r in rows if r["replicas"] == 2)}
+    log_timing("replica set", {k: result[k] for k in ("workers", "cores", "kill", "launches")})
+    return result
+
+
+# ----------------------------------------------------------------- phase 34
+# The tenant fleet of configs/tenants.toml: its names, order, weights and
+# default, with only the bundle directories replaced.
+TENANT_NAMES = ("emea", "apac", "latam-ab-arm")
+TENANT_PROBE_REQUESTS = 32  # per tenant, one at a time, on each plane
+TENANT_HOT_CONNECTIONS = 80  # apac: 10x the cold tenants' rate
+TENANT_COLD_CONNECTIONS = 8
+TENANT_QUOTA_S = 5.0
+TENANT_KILL_REQUESTS = 600
+TENANT_RETRAIN_STEPS = 60  # of configs/lifecycle_serve.toml's 300
+
+
+def phase_tenant_bundles(burst_dir: Path, dirs: dict) -> dict:
+    """The fleet's bundles: emea is phase 22's (mlp-ens8 with a gated quant
+    student), apac its architecture twin from other seeds, latam-ab-arm
+    phase 17's mlp (no quant tier)."""
+    from mlops_tpu_torch.bundle import load_bundle, save_exact_bundle
+    from mlops_tpu_torch.models import build_model
+    from mlops_tpu_torch.ops.quant import init_quant_master, quantize_student
+
+    emea = load_bundle(burst_dir)
+    model = build_model(emea.model_config)
+    _seeded_exact_params(model, 7)
+    apac = WORK / "tenant_apac"
+    shutil.rmtree(apac, ignore_errors=True)
+    save_exact_bundle(
+        apac, emea.model_config, model, emea.preprocessor, emea.monitor,
+        calibration={"temperature": 1.1},
+        quant_params=quantize_student(init_quant_master(2)),
+        quant={"fidelity": {}, "temperature": 1.0, "gates": {
+            "passed": True, "note": "seeded weights, not distilled"}},
+        tags={"source": "chip_smoke.py"},
+    )
+    return dict(zip(TENANT_NAMES, (Path(burst_dir), apac, Path(dirs["mlp"]))))
+
+
+def _tenants_toml(path: Path, bundles: dict) -> Path:
+    """configs/tenants.toml with its three bundle directories replaced."""
+    text = (ROOT / "configs" / "tenants.toml").read_text()
+    for old, name in zip(("registry/credit-default/3", "registry/credit-default-apac/1",
+                          "registry/credit-default-latam/2"), TENANT_NAMES):
+        check(f'"{old}"' in text, f"configs/tenants.toml no longer names {old}")
+        text = text.replace(f'"{old}"', json.dumps(str(bundles[name])))
+    path.write_text(text)
+    return path
+
+
+def _tenant_probe(port: int, bodies: list[bytes], tenant: str | None) -> list:
+    """One keep-alive connection, one request at a time, every fourth
+    cheap; (status, body) of each."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    out = []
+    try:
+        for i, body in enumerate(bodies):
+            headers = {"content-type": "application/json"}
+            if i % BURST_CHEAP_EVERY == 0:
+                headers["x-slo-class"] = "cheap"
+            if tenant is not None:
+                headers["x-tenant"] = tenant
+            conn.request("POST", "/predict", body=body, headers=headers)
+            resp = conn.getresponse()
+            out.append((resp.status, resp.read()))
+    finally:
+        conn.close()
+    return out
+
+
+async def _tenant_client(port: int, tenant: str, body: bytes, stop_at: float,
+                         samples: list) -> None:
+    import asyncio
+
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    head = (f"POST /predict HTTP/1.1\r\nhost: localhost\r\nx-tenant: {tenant}\r\n"
+            f"content-type: application/json\r\ncontent-length: {len(body)}\r\n\r\n").encode()
+    try:
+        while time.monotonic() < stop_at:
+            t0 = time.perf_counter()
+            writer.write(head + body)
+            status = int((await reader.readline()).split()[1])
+            length = 0
+            while (line := await reader.readline()) not in (b"\r\n", b""):
+                name, _, value = line.decode("latin1").partition(":")
+                if name.strip().lower() == "content-length":
+                    length = int(value)
+            payload = await reader.readexactly(length)
+            samples.append((tenant, status, (time.perf_counter() - t0) * 1e3, payload))
+    finally:
+        writer.close()
+
+
+def _tenant_load(port: int, body: bytes, clients: dict, seconds: float) -> list:
+    import asyncio
+
+    samples: list = []
+    stop_at = time.monotonic() + seconds
+
+    async def main():
+        await asyncio.gather(*(_tenant_client(port, tenant, body, stop_at, samples)
+                               for tenant, n in clients.items() for _ in range(n)))
+
+    asyncio.run(main())
+    return samples
+
+
+def phase_tenants(burst_dir: Path, dirs: dict, device: str = "cuda",
+                  extra: tuple[str, ...] = ()) -> dict:
+    """Phase 34: configs/tenants.toml's fleet (emea, apac, latam-ab-arm;
+    weights 2, 1, 1; emea the default), its bundle directories replaced,
+    served with tier routing by ``serve --tenants <file>`` and by ``serve
+    --tenants <file> --workers W --replicas 2`` side by side. Each
+    tenant's answers one at a time are bitwise the same bundle's served
+    alone on the card; untagged requests are emea's, an unknown tenant a
+    404. On the ring: apac on 10x the cold tenants' connections sheds 503s
+    against its own quota (counted per tenant), the cold tenants never
+    see a non-200; kill -9 of replica 1 under every tenant's traffic,
+    every answer 200 and its own tenant's. Then the loop: ``--config
+    configs/lifecycle_serve.toml`` with ``--tenants`` on ``--replicas 1``,
+    phase 30's clocks, window and paced clients, drifted traffic to
+    latam-ab-arm alone:
+    latam-ab-arm promoted to generation 2, emea and apac at 1, each
+    tenant's lifecycle block on every front end, 0 non-200."""
+    import numpy as np
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.schema.validate import validate_records
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    root = WORK / "tenants"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    bundles = phase_tenant_bundles(burst_dir, dirs)
+    toml = _tenants_toml(root / "tenants.toml", bundles)
+    cache = WORK / "ring" / "cache"
+    _warm_cache(burst_dir, cache, device)
+    workers = _replica_workers()
+    pool = _records(TENANT_PROBE_REQUESTS * 5, 71, drift=0.3)
+    bodies = [json.dumps(pool[5 * k:5 * k + (1 if k % 2 else 5)]).encode()
+              for k in range(TENANT_PROBE_REQUESTS)]
+    # Each bundle served alone on the card, one request at a time: the
+    # bytes every plane must answer.
+    want, has_quant = {}, {}
+    for name, path in bundles.items():
+        engine = InferenceEngine(load_bundle(path), device=device, tier_routing=True)
+        engine.warmup()
+        has_quant[name] = "quant" in engine.available_tiers
+        want[name] = []
+        for i, body in enumerate(bodies):
+            records, errors = validate_records(body)
+            check(not errors, f"probe body {i}: {errors}")
+            tier = "quant" if i % BURST_CHEAP_EVERY == 0 and has_quant[name] else None
+            want[name].append(engine.predict_records_wire(records, tier=tier))
+        del engine
+    a, b = (np.asarray([json.loads(w)["predictions"][0] for w in want[n]])
+            for n in ("emea", "apac"))
+    gap = float(np.abs(a - b).max())
+    # The kill check below tells the twins apart only if they differ by
+    # more than twice its tolerance somewhere.
+    check(gap > 2 * (EXACT_PRED_ATOL + 1e-6), f"emea and apac answer alike ({gap:.3g})")
+    base_env = dict(os.environ, PYTHONPATH=str(ROOT))
+    planes = {}
+    for mode, args, w in (("single", [], 0),
+                          ("ring", ["--workers", str(workers), "--replicas", "2"], workers)):
+        port = _free_port()
+        log_path = root / f"plane_{mode}.log"
+        out = open(log_path, "wb")
+        planes[mode] = (port, out, subprocess.Popen(
+            _cli(["serve", "--tenants", str(toml), *args]), cwd=ROOT, stdout=out,
+            stderr=subprocess.STDOUT,
+            env={**base_env, **_image_env(burst_dir, cache, port, w, device)}), log_path)
+    result: dict = {"workers": workers, "tenants": list(TENANT_NAMES),
+                    "max_gap_emea_apac": gap}
+    try:
+        for mode, (port, _, proc, _) in planes.items():
+            _wait_ready(port, proc, f"tenant plane {mode}")
+        port, _, proc, log_path = planes["ring"]
+        _wait_replicas(port, proc, 2, "tenant ring plane")
+        pids, ready, text = _ring_log(log_path)
+        check(sorted(r["replica"] for r in ready) == [0, 1]
+              and all(r["tenants"] == list(TENANT_NAMES) for r in ready),
+              f"the tenant replicas' starts: {ready}")
+        holders = sorted(pid for pid in {proc.pid, *_children(proc.pid)} if _holds_card(pid))
+        if device == "cuda":
+            check(holders == sorted((pids["engine 0"], pids["engine 1"])),
+                  f"tenant plane: processes holding the card {holders}")
+        result["ready"] = [{k: r[k] for k in ("replica", "ready_s", "nvcc_calls")}
+                           for r in ready]
+        result["graph_pool_bytes"] = {
+            name: row.get("graph_pool_bytes") for name, row in ready[0]["warmup"].items()
+            if isinstance(row, dict)}
+        for mode, (port, _, proc, _) in planes.items():
+            launches0 = _scrape(port)["launches"]
+            for name in TENANT_NAMES:
+                got = _tenant_probe(port, bodies, name)
+                diff = [i for i, ((status, body), w) in enumerate(zip(got, want[name]))
+                        if status != 200 or body != w]
+                check(not diff, f"tenant plane {mode}: {name}'s answers differ from the "
+                      f"bundle's alone at {diff[:10]}")
+            untagged = _tenant_probe(port, bodies[:8], None)
+            check([b for _, b in untagged] == want["emea"][:8],
+                  f"tenant plane {mode}: untagged requests are not emea's")
+            status, payload = _tenant_probe(port, bodies[:1], "nope")[0]
+            check(status == 404 and json.loads(payload) == {
+                "detail": "unknown tenant 'nope'"}, f"tenant plane {mode}: {status} {payload}")
+            quant = sum(1 for i in range(TENANT_PROBE_REQUESTS) if i % BURST_CHEAP_EVERY == 0
+                        ) * sum(has_quant.values()) + 2 * has_quant["emea"]
+            time.sleep(0.1)
+            launched = _scrape(port)["launches"] - launches0
+            if device == "cuda":
+                check(launched == quant, f"tenant plane {mode}: {launched} quant_fused "
+                      f"launches for {quant} quant-tier requests")
+            result[f"{mode}_probe_launches"] = launched
+        port, _, proc, _ = planes["single"]
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=120) == 0, "the single-process tenant plane did not exit 0")
+        # Quota: apac on 10x the connections.
+        port, _, proc, log_path = planes["ring"]
+        series0 = _series(port)
+        launches0 = _scrape(port)["launches"]
+        samples = _tenant_load(port, bodies[1], {
+            "apac": TENANT_HOT_CONNECTIONS, "emea": TENANT_COLD_CONNECTIONS,
+            "latam-ab-arm": TENANT_COLD_CONNECTIONS}, TENANT_QUOTA_S)
+        series1 = _series(port)
+        quota = {}
+        for name in TENANT_NAMES:
+            mine = [s for s in samples if s[0] == name]
+            lat = [s[2] for s in mine]
+            shed = [s for s in mine if s[1] == 503]
+            quota[name] = {
+                "requests": len(mine), "requests_per_s": len(mine) / TENANT_QUOTA_S,
+                "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+                "ok": sum(s[1] == 200 for s in mine), "quota_503": len(shed),
+                "quota_shed_counted": sum(
+                    series1[f'mlops_tpu_tenant_quota_shed_total{{worker="{w}",tenant="{name}"}}']
+                    - series0[f'mlops_tpu_tenant_quota_shed_total{{worker="{w}",tenant="{name}"}}']
+                    for w in range(workers)),
+            }
+            other = {s[1] for s in mine} - {200, 503}
+            check(not other, f"tenant {name} answered {other} under the quota load")
+            body = json.dumps({"detail": f"tenant {name!r} over quota; retry in 1s"},
+                              separators=(",", ":")).encode()
+            check(all(s[3] == body for s in shed), f"tenant {name}: a 503 not of its quota")
+            check(quota[name]["quota_shed_counted"] == len(shed),
+                  f"tenant {name}: {len(shed)} quota 503s, {quota[name]['quota_shed_counted']}"
+                  " counted")
+        check(quota["apac"]["quota_503"] > 0, f"apac at 10x never shed: {quota['apac']}")
+        for name in ("emea", "latam-ab-arm"):
+            check(quota[name]["ok"] == quota[name]["requests"] > 0,
+                  f"cold tenant {name} saw a non-200: {quota[name]}")
+        result["quota"] = quota
+        result["quota_launches"] = _scrape(port)["launches"] - launches0
+        log_timing("tenant quota", quota)
+        # kill -9 of replica 1 under every tenant's traffic.
+        inc = [int(_replica(series1, "incarnation", r)) for r in (0, 1)]
+        work = [(name, i) for i in range(TENANT_KILL_REQUESTS // 3) for name in TENANT_NAMES]
+        outs: list = [None] * len(work)
+        order = iter(range(len(work)))
+        lock = threading.Lock()
+
+        def stream():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+            while True:
+                with lock:
+                    k = next(order, None)
+                if k is None:
+                    break
+                name, i = work[k]
+                j = 1 + 2 * (i % (TENANT_PROBE_REQUESTS // 2))  # single records, exact
+                conn.request("POST", "/predict", body=bodies[j],
+                             headers={"content-type": "application/json", "x-tenant": name})
+                resp = conn.getresponse()
+                outs[k] = (resp.status, resp.read(), j)
+            conn.close()
+
+        streams = [threading.Thread(target=stream) for _ in range(12)]
+        for t in streams:
+            t.start()
+        time.sleep(0.3)
+        os.kill(pids["engine 1"], signal.SIGKILL)
+        t_kill = time.monotonic()
+        _wait_replicas(port, proc, 2, "tenant replica 1's respawn", [inc[0], inc[1] + 1])
+        kill_to_ready = time.monotonic() - t_kill
+        for t in streams:
+            t.join(timeout=300)
+        worst = 0.0
+        for (name, _), out in zip(work, outs):
+            check(out is not None and out[0] == 200, f"tenant kill -9: {name} got {out}")
+            got = np.asarray(json.loads(out[1])["predictions"])
+            ref = np.asarray(json.loads(want[name][out[2]])["predictions"])
+            err = float(np.abs(got - ref).max())
+            check(err <= EXACT_PRED_ATOL + 1e-6, f"tenant kill -9: a {name} answer is "
+                  f"{err:.3g} from its bundle's")
+            worst = max(worst, err)
+        series2 = _series(port)
+        check(_replica(series2, "incarnation", 0) == inc[0], "replica 0's incarnation moved")
+        result["kill"] = {"kill_to_ready_s": kill_to_ready, "requests": len(work),
+                          "max_pred_err": worst,
+                          "replayed_slots": _replica(series2, "replayed_slots_total", 1)
+                          - _replica(series1, "replayed_slots_total", 1)}
+        log_timing("tenant kill -9", result["kill"])
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=180) == 0, "the tenant ring plane did not exit 0")
+    finally:
+        for _, out, proc, _ in planes.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            out.close()
+    result["loop"] = _tenant_loop(toml, burst_dir, cache, workers, device, extra)
+    log_timing("tenant fleet", {k: v for k, v in result.items() if k != "quota"})
+    return result
+
+
+def _tenant_loop(toml: Path, burst_dir: Path, cache: Path, workers: int, device: str,
+                 extra: tuple[str, ...]) -> dict:
+    """The per-tenant loops on the ring (one replica): drifted traffic to
+    latam-ab-arm alone promotes it alone."""
+    from mlops_tpu_torch.data.ingest import write_csv_columns
+
+    root = WORK / "tenants" / "loop"
+    root.mkdir(parents=True, exist_ok=True)
+    window = WORK / "lifecycle_window.csv"
+    if not window.is_file():
+        write_csv_columns(window, *_drifted_columns(LIFECYCLE_WINDOW_ROWS, seed=3))
+    port = _free_port()
+    cmd = _cli(["serve", "--config", LIFECYCLE_TOML, "--tenants", str(toml),
+                "--workers", str(workers), "--replicas", "1",
+                f"lifecycle.dir={root / 'state'}", f"lifecycle.labeled_path={window}",
+                *LIFECYCLE_CLOCKS, f"lifecycle.retrain_steps={TENANT_RETRAIN_STEPS}", *extra])
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               **_image_env(burst_dir, cache, port, workers, device))
+    plane = _PlaneLog(cmd, env, root / "plane.log")
+    bodies = _lifecycle_bodies(seed=81)
+    phases = {name: {"drift": False} for name in TENANT_NAMES}
+    stop = threading.Event()
+    samples: list = []
+    try:
+        _wait_ready(port, plane.proc, "tenant loop plane")
+        plane.wait("lifecycle controller started", 60)
+        clients = [threading.Thread(target=_hammer, daemon=True, args=(
+            port, bodies, phases[name], stop, samples),
+            kwargs={"tenant": name, "pause_s": LIFECYCLE_SERVER_PAUSE_S})
+            for name in ("latam-ab-arm", "latam-ab-arm", "emea", "apac")]
+        for client in clients:
+            client.start()
+        time.sleep(2.0)
+        phases["latam-ab-arm"]["drift"] = True
+        t0 = time.monotonic()
+        t_trigger = plane.wait("lifecycle trigger fired", 120)
+        t_swap = plane.wait("candidate promoted: generation", 300, after=t_trigger)
+        time.sleep(1.0)
+        stop.set()
+        for client in clients:
+            client.join(timeout=120)
+        # The controllers fold the last requests' rows into their
+        # reservoirs on their next ticks: compare the front ends' blocks
+        # once two reads a second apart agree.
+        settled, deadline = None, time.monotonic() + 30
+        while True:
+            block = _lifecycle_block(_http(port, "GET", "/metrics")[1].decode(), TENANT_NAMES)
+            if block == settled or time.monotonic() > deadline:
+                break
+            settled = block
+            time.sleep(1.0)
+        block = _every_front_end(port, workers, TENANT_NAMES)
+        for name, generation in (("emea", 1), ("apac", 1), ("latam-ab-arm", 2)):
+            check(f'mlops_tpu_bundle_generation{{tenant="{name}"}} {generation}' in block,
+                  f"tenant loop: {name} not at generation {generation}: {block}")
+        for name in ("emea", "apac"):
+            check(f'mlops_tpu_drift_trigger_total{{tenant="{name}"}} 0' in block,
+                  f"tenant loop: a trigger fired for {name}, which saw no drift: {block}")
+        launches = _scrape(port)["launches"]
+        rc = plane.stop()
+    finally:
+        stop.set()
+        if plane.proc.poll() is None:
+            plane.proc.kill()
+            plane.proc.wait(timeout=30)
+    check(rc == 0, f"the tenant loop plane exited {rc}")
+    bad = [s for s in samples if s[2] != 200]
+    check(not bad, f"tenant loop: {len(bad)} non-200 answers, first {bad[:3]}")
+    built = plane.find("; shadowing")[1]
+    return {"requests": len(samples), "trigger_s": t_trigger - t0,
+            "trigger_to_swap_s": t_swap - t_trigger, "retrain_steps": TENANT_RETRAIN_STEPS,
+            "candidate": built.strip(), "promotion": plane.find("candidate promoted")[1].strip(),
+            "front_end_block": block, "quant_fused_launches": launches}
 
 
 def _pyarrow_version() -> str | None:
@@ -5439,6 +6128,8 @@ def main() -> int:
         lifecycle = timed(phase_lifecycle, burst_dir)
         ring_lifecycle = timed(phase_ring_lifecycle, burst_dir)
         chaos = timed(phase_chaos, burst_dir)
+        replicas = timed(phase_replicas, burst_dir)
+        tenants = timed(phase_tenants, burst_dir, exact_dirs)
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -5488,6 +6179,11 @@ def main() -> int:
                 **{k: v["quant_fused_launches"]
                    for k, v in ring_lifecycle["windows"].items()},
                 "after_respawn": ring_lifecycle["kill"]["quant_fused_launches_after_respawn"]},
+            "replica_set_launches": replicas["launches"],
+            "tenant_fleet_launches": {
+                "single_probe": tenants["single_probe_launches"],
+                "ring_probe": tenants["ring_probe_launches"],
+                "ring_quota": tenants["quota_launches"]},
         }, {
             "name": "flash_attention",
             "route": "cuda",
@@ -5543,6 +6239,8 @@ def main() -> int:
         "lifecycle": {k: v for k, v in lifecycle.items() if k != "launches"},
         "ring_lifecycle": ring_lifecycle,
         "chaos": chaos,
+        "replica_set": replicas,
+        "tenant_fleet": tenants,
         "students": {"records": students["records"], "fit": students["fit"],
                      "served_quant_bundle": students["quant_bundle"]},
         "bulk": bulk_rows,

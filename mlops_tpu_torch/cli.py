@@ -50,13 +50,18 @@
 ``serve --workers N`` (``serve.workers``, ``MLOPS_TPU_SERVE_WORKERS``)
 with N >= 2 serves from N ``SO_REUSEPORT`` front-end processes over a
 shared-memory ring to one engine process (``serve/frontend.py``); 0 and 1
-are the single-process server.
+are the single-process server. ``serve --replicas E``
+(``serve.engine_replicas``) runs E engine replica processes behind that
+ring. ``serve --tenants <file>`` (``serve.tenants_path``) serves the
+tenant fleet a tenants.toml declares (``configs/tenants.toml``) on either
+plane, routed by the ``x-tenant`` header; ``serve.model_directory`` is
+then not resolved.
 
 Every command takes ``--config <toml>``, ``MLOPS_TPU_<SECTION>_<FIELD>``
 environment overrides and positional ``section.field=value`` overrides,
 as the JAX package's CLI does (``serve.model_directory=<bundle>
 serve.port=5001 serve.device=cpu``); a key the port has not ported, set
-away from its JAX default (``MLOPS_TPU_SERVE_ENGINE_REPLICAS=2``,
+away from its JAX default (``MLOPS_TPU_SLO_ENABLED=true``,
 ``MLOPS_TPU_TRACE_ENABLED=true``), exits non-zero naming its ROADMAP
 item. A
 ``gs://`` ``data.train_path`` or ``registry.root`` is read and written
@@ -157,6 +162,20 @@ def build_parser() -> argparse.ArgumentParser:
                 "all feeding one engine process over the shared-memory "
                 "ring; 0/1 = single-process server",
             )
+            cmd.add_argument(
+                "--tenants", default=None,
+                help="multi-tenant fleet declaration (sugar for "
+                "serve.tenants_path=<file>): a tenants.toml naming N "
+                "tenants (name, bundle_dir, quota weight, default "
+                "tenant); requests route by the x-tenant header",
+            )
+            cmd.add_argument(
+                "--replicas", type=int, default=None,
+                help="engine replica set (sugar for "
+                "serve.engine_replicas=E): E engine processes behind the "
+                "one shared-memory ring; a kill -9 of one replica is a "
+                "brownout of 1/E capacity (needs --workers >= 2)",
+            )
     return parser
 
 
@@ -169,35 +188,66 @@ def _serve(config) -> int:
     model_dir = os.environ.get("MODEL_DIRECTORY", cfg.model_directory)
     cfg.validate()
     config.lifecycle.validate()
-    bundle_dir = resolve_bundle(config, model_dir)
+    # A tenants file names every bundle itself: the model directory is not
+    # resolved on either plane.
+    bundle_dir = "" if cfg.tenants_path else str(resolve_bundle(config, model_dir))
     if cfg.workers >= 2:
-        # The supervisor stays torch-free: only its engine child loads the
-        # bundle and touches the device.
+        # The supervisor stays torch-free: only its engine children load
+        # the bundles and touch the device.
         from mlops_tpu_torch.serve.frontend import serve_multi_worker
 
-        return serve_multi_worker(config, str(bundle_dir))
+        return serve_multi_worker(config, bundle_dir)
     from mlops_tpu_torch.bundle import load_bundle
     from mlops_tpu_torch.ops import cuda_build
     from mlops_tpu_torch.serve.engine import InferenceEngine
     from mlops_tpu_torch.serve.server import serve_forever
 
     cuda_build.set_cache_dir(config.cache.dir)
-    engine = InferenceEngine(
-        load_bundle(bundle_dir),
-        buckets=tuple(cfg.warmup_batch_sizes),
-        serve_tier=cfg.serve_tier,
-        device=cfg.device,
-        tier_routing=cfg.tier_routing,
-    )
+    registry = None
+    if cfg.tenants_path:
+        # The fleet on the single-process plane: one engine per tenant
+        # behind one HTTP server.
+        from mlops_tpu_torch.tenancy import TenantRegistry, load_tenants_toml
+
+        try:
+            tenancy = load_tenants_toml(cfg.tenants_path).validate()
+        except ValueError as err:
+            raise SystemExit(str(err)) from err
+        registry = TenantRegistry(tenancy, buckets=tuple(cfg.warmup_batch_sizes),
+                                  serve_tier=cfg.serve_tier, device=cfg.device,
+                                  tier_routing=cfg.tier_routing)
+        engine = registry.default_engine
+    else:
+        engine = InferenceEngine(
+            load_bundle(bundle_dir),
+            buckets=tuple(cfg.warmup_batch_sizes),
+            serve_tier=cfg.serve_tier,
+            device=cfg.device,
+            tier_routing=cfg.tier_routing,
+        )
+    fleet = {} if registry is None else {"registry": registry}
     if not config.lifecycle.enabled:
-        serve_forever(engine, cfg)
+        serve_forever(engine, cfg, **fleet)
         return 0
-    # The closed loop's controller thread, in this process: it watches the
-    # monitor aggregate, retrains off the hot path, shadows, and
-    # hot-promotes through the gates.
+    # The closed loop's controller threads, in this process, one per
+    # tenant: each watches its engine's monitor aggregate, retrains off the
+    # hot path, shadows, and hot-promotes through the gates.
     from mlops_tpu_torch.lifecycle.controller import LifecycleController
 
-    serve_forever(engine, cfg, lifecycle=LifecycleController(engine, config))
+    if registry is None:
+        lifecycle = LifecycleController(engine, config)
+    else:
+        from mlops_tpu_torch.tenancy import tenant_scoped_config
+
+        # A one-tenant "default" fleet keeps lifecycle.dir, as the ring
+        # plane does.
+        single_default = registry.names == ("default",)
+        lifecycle = [
+            LifecycleController(eng, config if single_default
+                                else tenant_scoped_config(config, name))
+            for name, eng in zip(registry.names, registry.engines)
+        ]
+    serve_forever(engine, cfg, lifecycle=lifecycle, **fleet)
     return 0
 
 
@@ -316,6 +366,10 @@ def main(argv: list[str] | None = None) -> int:
         overrides.append(f"cache.dir={args.cache_dir}")
     if getattr(args, "workers", None) is not None:
         overrides.append(f"serve.workers={args.workers}")
+    if getattr(args, "tenants", None):
+        overrides.append(f"serve.tenants_path={args.tenants}")
+    if getattr(args, "replicas", None) is not None:
+        overrides.append(f"serve.engine_replicas={args.replicas}")
     try:
         config = load_config(overrides, args.config)
     except ValueError as err:  # a refused key: its message, no traceback

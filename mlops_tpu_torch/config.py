@@ -14,13 +14,16 @@ itself is not ported) are the JAX package's, field for field. Two port-only knob
 the card unless the caller writes ``cpu``.
 
 ``serve`` also holds the keys of the multi-worker ring plane
-(``serve.workers`` >= 2: ``serve/frontend.py``) and ``cache`` the warm
-start (``cache.dir``: the kernel libraries' cache, ``compilecache/``).
+(``serve.workers`` >= 2: ``serve/frontend.py``), of its engine replica
+set (``serve.engine_replicas``, ``serve.replica_affinity_slack``) and of
+the tenant fleet (``serve.tenants_path``: ``tenancy/``), and ``cache``
+the warm start (``cache.dir``: the kernel libraries' cache,
+``compilecache/``).
 
 Every other key of the JAX tree is here too, declared with ``unported``:
-the five keys of the JAX ``ServeConfig`` for the engine replica set,
-tenancy and the event-loop lag sanitizer, and the sections ``trace``,
-``slo`` and ``autotune`` (ROADMAP A4). Such a key is accepted at its JAX
+the two keys of the JAX ``ServeConfig`` for the event-loop lag sanitizer
+(ROADMAP A12), and the sections ``trace``, ``slo`` and ``autotune``
+(ROADMAP A4). Such a key is accepted at its JAX
 default, where it changes nothing; any other value is refused with a
 ``ValueError`` naming the item, whichever layer sets it.
 
@@ -46,8 +49,8 @@ from typing import Any
 
 # What each item the refusals name still has to port.
 _ITEMS = {
-    "A4": "the serving plane's rest: the engine replica set, tenancy, "
-    "tracing, the SLO engine and flight recorder, the autotuner",
+    "A4": "the serving plane's rest: tracing, the SLO engine and flight "
+    "recorder, the autotuner",
     "A12": "tooling: the event-loop lag sanitizer and the analysis commands",
 }
 
@@ -238,9 +241,14 @@ class ServeConfig:
     # while the engine process respawns
     log_sample_rate: float = 1.0  # fraction of requests whose two-event
     # log pair is written; non-200 answers always log
-    engine_replicas: int = unported(1, "A4")
-    replica_affinity_slack: int = unported(4, "A4")
-    tenants_path: str = unported("", "A4")
+    engine_replicas: int = 1  # engine replica processes behind the ring
+    # (serve --replicas E; needs serve.workers >= 2): the front ends route
+    # each submit least-loaded, and a dead replica is a 1/E brownout
+    replica_affinity_slack: int = 4  # slots a sticky (tenant, small
+    # class) replica may trail the least-loaded one before the router
+    # moves that tenant's small requests
+    tenants_path: str = ""  # a tenants.toml (serve --tenants): N tenants
+    # served from one plane, routed by the x-tenant header
     loop_lag_monitor: bool = unported(False, "A12")
     loop_lag_slow_ms: float = unported(100.0, "A12")
 
@@ -346,6 +354,22 @@ class ServeConfig:
                     " must be > 0 (the brownout 503 contract promises a "
                     "positive respawn-ETA Retry-After)"
                 )
+        if self.engine_replicas < 1:
+            problems.append(
+                f"serve.engine_replicas={self.engine_replicas} must be "
+                ">= 1"
+            )
+        if self.engine_replicas > 1 and self.workers < 2:
+            problems.append(
+                f"serve.engine_replicas={self.engine_replicas} needs the "
+                "multi-worker ring plane (serve.workers >= 2): the "
+                "single-process server has no descriptor ring to fan out"
+            )
+        if self.replica_affinity_slack < 0:
+            problems.append(
+                f"serve.replica_affinity_slack={self.replica_affinity_slack}"
+                " must be >= 0"
+            )
         if self.model_shards < 1:
             problems.append(
                 f"serve.model_shards={self.model_shards} must be >= 1"

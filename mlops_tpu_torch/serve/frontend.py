@@ -1,56 +1,69 @@
-"""The multi-worker ring plane: ``SO_REUSEPORT`` front ends + one engine.
+"""The multi-worker ring plane: ``SO_REUSEPORT`` front ends + E engine
+replicas, serving a tenant fleet.
 
-The port's copy of the JAX package's ``serve/frontend.py`` for one
-tenant and one engine process. ``serve --workers N`` (``serve.workers``
->= 2, ``MLOPS_TPU_SERVE_WORKERS``) replaces the single-process server
-with N front-end processes that each bind the same host:port through
-``SO_REUSEPORT``: the kernel spreads accepted connections over them, so
-HTTP parsing, validation, encoding and response formatting run on N
-cores, all feeding one engine process over the shared-memory ring
-(``serve/ipc.py``). The engine process holds everything expensive once:
-the bundle, the kernels, the CUDA graphs, the monitor accumulator.
+The port's copy of the JAX package's ``serve/frontend.py``. ``serve
+--workers N`` (``serve.workers`` >= 2, ``MLOPS_TPU_SERVE_WORKERS``)
+replaces the single-process server with N front-end processes that each
+bind the same host:port through ``SO_REUSEPORT``: the kernel spreads
+accepted connections over them, so HTTP parsing, validation, encoding and
+response formatting run on N cores, all feeding the engine processes over
+the shared-memory ring (``serve/ipc.py``). ``serve --replicas E``
+(``serve.engine_replicas``) runs E engine replica processes behind that
+one ring; each front end routes every submit through its
+``ReplicaRouter`` (least-loaded, small-class tenant affinity). ``serve
+--tenants <file>`` (``serve.tenants_path``) serves the fleet of a
+tenants.toml: every replica process holds one engine per tenant
+(``tenancy.TenantRegistry``), each front end one preprocessor per tenant
+and, for more than one tenant, one weighted max-min ``QuotaGovernor`` per
+slot class (a hot tenant sheds 503 against its own quota).
 
 Process model: the parent is a supervisor without threads and without
 torch. It builds the ring, reserves the port and forks every other
-process: the N front ends and the engine child, which imports torch and
-touches the card only after the fork, so no fork ever crosses a thread
-or a CUDA context (each fork checks it). Respawns fork from the same
+process: the N front ends and the E engine children, which import torch
+and touch the card only after the fork, so no fork ever crosses a thread
+or a CUDA context (each fork checks it). Replica 0 starts first and the
+others once it is ready: on a cold kernel cache replica 0 runs nvcc and
+the rest load its libraries. On one visible card every replica shares
+it (the card time-slices their kernels); replica r takes card r only
+when the process sees a card per replica. Respawns fork from the same
 clean supervisor. A crashed front end is respawned and re-attaches to its
-slot partition through the generation counters. A dead engine is a
-brownout, not an outage: the supervisor forks a replacement, which loads
-its kernels from ``cache.dir`` (no nvcc), captures its graphs,
-re-attaches under a new incarnation and replays every busy slot
-(``RingService.reattach``). Meanwhile in-flight requests park against
-their deadline budgets (200 when the replay lands in time, 504 past the
-budget) and new admissions park until the partition fills; then the shed
-503's Retry-After advertises the respawn ETA. More than five engine deaths
-in 60 s is a crash loop: the supervisor drains and exits 1.
+slot partition through the generation counters. A dead replica is a
+brownout of 1/E of capacity: the router routes new admissions to the
+others, and the supervisor forks a replacement, which loads its kernels
+from ``cache.dir`` (no nvcc), captures its graphs, re-attaches under a
+new incarnation of its own and replays the busy slots routed to it
+(``RingService.reattach``). Only with every replica down do admissions
+park against their deadline budgets (200 when the replay lands in time,
+504 past the budget) until the partition fills; then the shed 503's
+Retry-After advertises the respawn ETA. More than five deaths of one
+replica in 60 s is a crash loop: the supervisor drains and exits 1.
 
 Load shedding: each front end's slot partition is its bounded admission
 queue per slot class. No free slot answers ``503`` with Retry-After at
 once; with ``serve.tier_routing`` the brownout governor first demotes
-default-class requests to the cheaper tier as the partition fills.
+default-class requests to the cheaper tier as the partition fills. On a
+multi-tenant plane the quota check comes first, per slot class.
 
-The lifecycle loop (``lifecycle.enabled=true``) runs engine-side, in
-the only process with the card, the graphs and the monitor accumulator:
-after warmup and re-attach the engine process starts a
-``LifecycleController`` on its engine (the front ends encode with the
-fork-time preprocessor, so a refit is forced off), and the ring's
-telemetry thread mirrors its gauges into shared memory for every front
-end's ``/metrics``. A respawned engine serves the fork-time bundle again
-at generation 1, as the JAX plane does, restarts the loop from the
-on-disk reservoir, and carries the dead incarnation's lifecycle counters
-as bases.
+The lifecycle loops (``lifecycle.enabled=true``) run engine-side, in
+replica 0, one ``LifecycleController`` per tenant (each on its own state
+directory; a one-tenant ``default`` fleet keeps ``lifecycle.dir``): the
+front ends encode with the fork-time preprocessors, so a refit is forced
+off, and the ring's telemetry thread mirrors each controller's gauges
+into its tenant's row for every front end's ``/metrics``. A respawned
+engine serves the fork-time bundles again at generation 1, as the JAX
+plane does, restarts the loops from the on-disk reservoirs, and carries
+the dead incarnation's lifecycle counters as bases. A replica set with
+the loop is refused (one controller hot-swaps one process's bundle).
 
 Graceful drain: SIGTERM to the supervisor reaches every front end; each
-stops accepting, finishes its in-flight exchanges (the engine keeps
-answering meanwhile) and exits; then the supervisor stops the engine,
-which stops its lifecycle loop, finishes its jobs and writes its last
-monitor aggregate and lifecycle gauges.
+stops accepting, finishes its in-flight exchanges (the engines keep
+answering meanwhile) and exits; then the supervisor stops the engine
+replicas, which stop their lifecycle loops, finish their jobs and write
+their last monitor aggregates and lifecycle gauges.
 
-Not ported (ROADMAP A4): the engine replica set, tenancy, tracing spans,
-``/debug/profile`` over the ring (the front ends answer 404), the SLO
-engine and flight recorder, the autotuner.
+Not ported (ROADMAP A4): tracing spans, ``/debug/profile`` over the ring
+(the front ends answer 404), the SLO engine and flight recorder, the
+autotuner.
 """
 
 from __future__ import annotations
@@ -75,7 +88,6 @@ from mlops_tpu_torch.config import Config, ServeConfig
 from mlops_tpu_torch.schema.validate import records_to_columns
 from mlops_tpu_torch.serve.httpcore import HttpProtocol, _LazyJson
 from mlops_tpu_torch.serve.ipc import (
-    CTL_TIERS,
     RequestRing,
     RingClient,
     RingService,
@@ -95,11 +107,18 @@ from mlops_tpu_torch.serve.wire import (
     encode_response,
     profile_payload,
 )
+from mlops_tpu_torch.tenancy.config import (
+    TenancyConfig,
+    load_tenants_toml,
+    single_tenant_config,
+)
+from mlops_tpu_torch.tenancy.quota import QuotaGovernor
+from mlops_tpu_torch.tenancy.router import TenantRouter
 
 logger = logging.getLogger("mlops_tpu_torch.serve")
 
-# More engine deaths than this inside the window is a crash loop, not a
-# blip: the supervisor drains and exits 1 for the orchestrator to restart.
+# More deaths of one replica than this inside the window is a crash loop,
+# not a blip: the supervisor drains and exits 1 for the orchestrator.
 _ENGINE_STORM_DEATHS = 5
 _ENGINE_STORM_WINDOW_S = 60.0
 _SUPERVISE_TICK_S = 0.25
@@ -119,49 +138,65 @@ def reuseport_socket(host: str, port: int) -> socket.socket:
 
 class FrontendServer(HttpProtocol):
     """The ring-backed front end: the shared HTTP protocol and
-    ``/predict`` shell, with the engine call replaced by claim a slot ->
-    encode into its slab -> await the completion doorbell -> encode the
-    raw response arrays with the single-process plane's wire formatter,
-    so answers are byte-identical to it."""
+    ``/predict`` shell, with the engine call replaced by quota -> claim a
+    slot -> encode into its slab -> await the completion doorbell ->
+    encode the raw response arrays with the single-process plane's wire
+    formatter, so answers are byte-identical to it. ``preprocessor`` is
+    one per tenant (a single one is the one-tenant fleet)."""
 
     def __init__(self, config: ServeConfig, ring: RequestRing, worker_id: int,
-                 preprocessor: Any) -> None:
+                 preprocessor: Any, tenancy: TenancyConfig | None = None) -> None:
         super().__init__(config)
         self.ring = ring
         self.worker_id = worker_id
-        self.preprocessor = preprocessor
-        self.client = RingClient(ring, worker_id)
-        self.metrics = ShmWorkerMetrics(ring, worker_id)
+        self.preprocessors = (list(preprocessor) if isinstance(preprocessor, (list, tuple))
+                              else [preprocessor])
+        if len(self.preprocessors) != ring.tenants:
+            raise ValueError(f"{len(self.preprocessors)} preprocessors for "
+                             f"{ring.tenants} ring tenants")
+        default_index = tenancy.default_index if tenancy is not None else 0
+        weights = tenancy.weights if tenancy is not None else (1.0,) * ring.tenants
+        self.tenants = TenantRouter(ring.tenant_names, default_index)
+        # One governor per slot class over this worker's partition (the
+        # classes are separate physical pools, so fairness holds in each);
+        # a one-tenant fleet needs none. Confined to the event loop.
+        self.quota = ((QuotaGovernor(ring.slots_small, weights),
+                       QuotaGovernor(ring.slots_large, weights))
+                      if ring.tenants > 1 else None)
+        self.client = RingClient(ring, worker_id,
+                                 affinity_slack=config.replica_affinity_slack)
+        self.metrics = ShmWorkerMetrics(ring, worker_id, default_tenant=default_index)
         # The large slabs are sized to the (bucket-clamped) request cap.
         self.max_batch = min(config.max_batch, ring.large_rows)
-        # Demote before shed, per worker, fed by this worker's partition
-        # occupancy: the resource whose exhaustion sheds.
+        # SLO tier routing is armed by the config, as the JAX front end
+        # arms it: the class rides the slot header and each tenant's engine
+        # resolves it to a tier it holds (its default when it holds no
+        # other). Demote before shed, per worker, fed by this worker's
+        # partition occupancy: the resource whose exhaustion sheds.
+        self.slo_routing = bool(config.tier_routing)
         self._brownout = (
             BrownoutGovernor(demote_depth=config.brownout_demote_depth,
                              restore_depth=config.brownout_restore_depth)
-            if config.tier_routing else None
+            if self.slo_routing else None
         )
-
-    @property
-    def slo_routing(self) -> bool:
-        """Armed as the single-process server arms it: asked for, and the
-        engine holds a second tier (the engine publishes its tier count)."""
-        return self._brownout is not None and self.ring.ctl[CTL_TIERS] > 1
 
     def _ready(self) -> bool:
         return self.ring.engine_ready and not self.draining
 
     def _outage(self) -> bool:
-        """The supervisor stamped the engine's death and no engine is up:
-        a real outage, not a first boot still warming."""
-        return not self.ring.engine_ready and self.ring.eng_vals[ENG_DOWN_SINCE] > 0
+        """The supervisor stamped a replica's death and no replica is up:
+        a full outage, not a first boot still warming and not the partial
+        brownout the router absorbs."""
+        return (not self.ring.engine_ready
+                and bool((self.ring.eng_vals[:, ENG_DOWN_SINCE] > 0).any()))
 
     def _respawn_retry_after(self) -> int:
         """Retry-After of a brownout 503: the respawn ETA less the time
-        the outage has run, the full ETA again once that is blown, never
-        under 1 s."""
+        since the earliest still-down replica died, the full ETA again once
+        that is blown, never under 1 s."""
         eta = self.config.engine_respawn_eta_s
-        remaining = eta - (time.monotonic() - float(self.ring.eng_vals[ENG_DOWN_SINCE]))
+        stamps = [float(v) for v in self.ring.eng_vals[:, ENG_DOWN_SINCE] if v > 0]
+        remaining = eta - (time.monotonic() - min(stamps)) if stamps else eta
         return max(1, math.ceil(remaining if remaining > 0 else eta))
 
     async def _metrics_endpoint(self):
@@ -170,14 +205,14 @@ class FrontendServer(HttpProtocol):
         return 200, render_ring_metrics(self.ring), "text/plain; version=0.0.4"
 
     async def _profile(self, action: str):
-        # The trace belongs to the engine process; forwarding it over the
+        # The trace belongs to an engine process; forwarding it over the
         # ring is not ported (ROADMAP A4).
         return profile_payload(404, action, "")
 
-    def _shed(self, n: int) -> tuple:
+    def _shed(self, n: int, tenant: int) -> tuple:
         """The 503 of a full partition: Retry-After as configured, or the
-        respawn ETA while the engine is down (a brownout shed)."""
-        self.client.count_shed(n)
+        respawn ETA while every replica is down (a brownout shed)."""
+        self.client.count_shed(n, tenant)
         cls = "small" if n <= self.ring.small_rows else "large"
         if self._outage():
             self.ring.brownout_shed[self.worker_id] += 1
@@ -190,24 +225,52 @@ class FrontendServer(HttpProtocol):
         return 503, {"detail": detail}, "application/json", {"retry-after": str(retry_s)}
 
     async def _score(self, records: list[dict], request_id: str,
-                     deadline: float | None, slo: int):
-        """Slot admission before encode (a shed costs nothing), encode
-        into the slab, then the slot's round trip. The deadline budget
-        rides the slot header, so the engine completes an expired
-        descriptor unscored, and bounds the completion wait."""
+                     deadline: float | None, slo: int, tenant: int = 0):
+        """The tenant's quota first, in the slot class the row count names
+        (a one-tenant plane has none), then the slot round trip."""
         if not records:
             return EMPTY_RESPONSE_BYTES
+        if self.quota is None:
+            return await self._score_admitted(records, request_id, deadline, slo, tenant)
+        governor = self.quota[0 if len(records) <= self.ring.small_rows else 1]
+        verdict = governor.try_acquire(tenant)
+        if verdict == "quota":
+            # Capacity exists, the tenant's share does not cover it: a 503
+            # against its own quota, counted per tenant (not a slot shed).
+            self.client.count_quota_shed(tenant)
+            retry_s = self.config.shed_retry_after_s
+            name = self.tenants.names[tenant]
+            return (503, {"detail": f"tenant {name!r} over quota; retry in {retry_s}s"},
+                    "application/json", {"retry-after": str(retry_s)})
+        if verdict == "full":
+            # No hold to release: the claim answers the physical shed.
+            return await self._score_admitted(records, request_id, deadline, slo, tenant)
+        try:
+            return await self._score_admitted(records, request_id, deadline, slo, tenant)
+        finally:
+            # The governor holds admitted requests, not slots: a zombie
+            # slot awaiting a late completion keeps its slot, never its
+            # quota.
+            governor.release(tenant)
+
+    async def _score_admitted(self, records: list[dict], request_id: str,
+                              deadline: float | None, slo: int, tenant: int):
+        """Slot admission before encode (a shed costs nothing), encode
+        into the slab with the tenant's preprocessor, then the slot's round
+        trip. The deadline budget rides the slot header, so the engine
+        completes an expired descriptor unscored, and bounds the
+        completion wait."""
         # Fault point: kill = a front end's crash mid-request (the
         # supervisor's respawn and the slot quarantine).
         faults.fire("serve.frontend.predict")
         n = len(records)
         demoted = False
-        if self.slo_routing:
+        if self._brownout is not None:
             self._brownout.observe(self.client.pressure())
             slo, demoted = self._brownout.route(slo)
-        slot = self.client.claim(n, slo)
+        slot = self.client.claim(n, slo, tenant=tenant, allow_overflow=self.quota is None)
         if slot is None:
-            return self._shed(n)
+            return self._shed(n, tenant)
         if demoted:  # counted for admitted requests only
             self.client.count_demotion(brownout=True)
         submitted = False
@@ -218,15 +281,15 @@ class FrontendServer(HttpProtocol):
                 slot = None
                 self.metrics.count_deadline_expired()
                 return deadline_response()
-            ds = self.preprocessor.encode(records_to_columns(records))
+            ds = self.preprocessors[tenant].encode(records_to_columns(records))
             future = self.client.submit(slot, ds.cat_ids, ds.numeric, deadline=deadline)
             submitted = True
             timeout = self.config.request_timeout_s or None
             if deadline is not None:
                 remaining = deadline - loop.time()
                 timeout = min(timeout or remaining, remaining)
-            # Parked: admitted while the engine is down; the respawned
-            # engine's replay answers it, or its deadline does.
+            # Parked: admitted while every replica is down; a respawned
+            # replica's replay answers it, or its deadline does.
             parked = self._outage()
             if parked:
                 self.ring.parked[self.worker_id] += 1
@@ -267,38 +330,40 @@ class FrontendServer(HttpProtocol):
             return 500, {"detail": "prediction failed"}, "application/json"
 
     async def start(self) -> asyncio.AbstractServer:
-        """Bind this worker's own socket and hook the completion doorbell
-        into the event loop."""
+        """Bind this worker's own socket and hook every replica's
+        completion doorbell into the event loop."""
         sock = reuseport_socket(self.config.host, self.config.port)
         loop = asyncio.get_running_loop()
-        loop.add_reader(self.ring.worker_doorbells[self.worker_id].fileno(),
-                        self.client.on_doorbell)
-        # One kick: a respawned client may hold credit for completions
-        # whose doorbell its dead incarnation drained.
-        loop.call_soon(self.client.on_doorbell)
+        for replica in range(self.ring.replicas):
+            loop.add_reader(self.ring.worker_doorbell(self.worker_id, replica).fileno(),
+                            self.client.on_doorbell, replica)
+            # One kick per replica: a respawned client may hold credit for
+            # completions whose doorbell its dead incarnation drained.
+            loop.call_soon(self.client.on_doorbell, replica)
         return await asyncio.start_server(self.handle_connection, sock=sock)
 
     def stop_doorbell(self) -> None:
-        with contextlib.suppress(Exception):
-            asyncio.get_running_loop().remove_reader(
-                self.ring.worker_doorbells[self.worker_id].fileno())
+        for replica in range(self.ring.replicas):
+            with contextlib.suppress(Exception):
+                asyncio.get_running_loop().remove_reader(
+                    self.ring.worker_doorbell(self.worker_id, replica).fileno())
 
 
 # --------------------------------------------------------------- children
 def _frontend_main(worker_id: int, config: ServeConfig, ring: RequestRing,
-                   preprocess_path: str) -> None:
+                   preprocess_paths: list[str], tenancy: TenancyConfig | None) -> None:
     """A front-end process (forked; everything arrives by inheritance).
     It never imports torch and never touches the device."""
     from mlops_tpu_torch.data.encode import Preprocessor
 
-    preprocessor = Preprocessor.load(preprocess_path)
+    preprocessors = [Preprocessor.load(path) for path in preprocess_paths]
     with contextlib.suppress(KeyboardInterrupt):
-        asyncio.run(_run_frontend(worker_id, config, ring, preprocessor))
+        asyncio.run(_run_frontend(worker_id, config, ring, preprocessors, tenancy))
 
 
 async def _run_frontend(worker_id: int, config: ServeConfig, ring: RequestRing,
-                        preprocessor: Any) -> None:
-    server = FrontendServer(config, ring, worker_id, preprocessor)
+                        preprocessors: list, tenancy: TenancyConfig | None) -> None:
+    server = FrontendServer(config, ring, worker_id, preprocessors, tenancy)
     srv = await server.start()
     logger.info("frontend %d serving %s on %s:%s (pid %d)", worker_id,
                 config.service_name, config.host, config.port, os.getpid())
@@ -340,8 +405,9 @@ async def _run_frontend(worker_id: int, config: ServeConfig, ring: RequestRing,
 
 
 def build_engine(config: Config, bundle_dir: str):
-    """The engine process's engine: the bundle on ``serve.device`` (the
-    card unless ``cpu``), as the single-process ``serve`` builds it."""
+    """One tenant's engine in a replica process: the bundle on
+    ``serve.device`` (the card unless ``cpu``), as the single-process
+    ``serve`` builds it."""
     from mlops_tpu_torch.bundle import load_bundle
     from mlops_tpu_torch.serve.engine import InferenceEngine
 
@@ -351,62 +417,97 @@ def build_engine(config: Config, bundle_dir: str):
                            tier_routing=cfg.tier_routing)
 
 
-def _engine_main(config: Config, ring: RequestRing, bundle_dir: str,
-                 make_engine: Callable) -> None:
-    """The engine process (forked from the supervisor; torch is imported
-    here, after the fork): load the kernels from ``cache.dir``, build and
-    warm the engine, re-attach to the ring (replaying what a dead
-    predecessor left busy), start the lifecycle loop when it is enabled,
-    serve until SIGTERM or the supervisor's death. First boot and every
-    respawn run this same function."""
+def _replica_config(config: Config, replica: int, replicas: int) -> Config:
+    """The config a replica process builds its engines with: on one
+    visible card (or too few for one each) every replica shares
+    ``serve.device``; replica r takes card r only when the process sees a
+    card per replica, as the JAX plane takes a device slice per replica.
+    Spanning cards with one replica is not ported (ROADMAP A11)."""
+    if replicas < 2 or config.serve.device != "cuda":
+        return config
+    import torch
+
+    if torch.cuda.device_count() < replicas:
+        return config
+    logger.info("engine replica %d pinned to cuda:%d", replica, replica)
+    return dataclasses.replace(
+        config, serve=dataclasses.replace(config.serve, device=f"cuda:{replica}"))
+
+
+def _engine_main(config: Config, ring: RequestRing, tenancy: TenancyConfig,
+                 make_engine: Callable, replica: int = 0) -> None:
+    """An engine replica process (forked from the supervisor; torch is
+    imported here, after the fork): load the kernels from ``cache.dir``,
+    build and warm one engine per tenant (``TenantRegistry``), re-attach
+    to the ring as ``replica`` (replaying what a dead predecessor left
+    busy, each slot under its tenant), start the lifecycle loops when they
+    are enabled, serve until SIGTERM or the supervisor's death. First boot
+    and every respawn run this same function."""
     t0 = time.monotonic()
     stop: list[int] = []  # a signal handler appends; the main loop polls
     signal.signal(signal.SIGTERM, lambda *_: stop.append(1))
     signal.signal(signal.SIGINT, lambda *_: stop.append(1))
     from mlops_tpu_torch.ops import cuda_build
     from mlops_tpu_torch.ops.quant_kernel import quant_kernel_launches
+    from mlops_tpu_torch.tenancy.registry import TenantRegistry
 
     t_import = time.monotonic()
     cuda_build.set_cache_dir(config.cache.dir)
     serve_cfg = config.serve
-    engine = make_engine(config, bundle_dir)
+    scoped = _replica_config(config, replica, ring.replicas)
+    registry = TenantRegistry(tenancy, make_engine=lambda path: make_engine(scoped, path))
+    engines = registry.engines
     t_build = time.monotonic()
-    engine.warmup()
-    ring.ctl[CTL_TIERS] = len(engine.available_tiers)
+    warm_report = registry.warmup()
     service = RingService(
-        engine, ring, max_group=serve_cfg.max_group,
+        engines[0], ring, max_group=serve_cfg.max_group,
         max_inflight=serve_cfg.max_inflight, threads=serve_cfg.max_workers,
         monitor_fetch_every_s=serve_cfg.monitor_fetch_every_s,
         monitor_fetch_every_requests=serve_cfg.monitor_fetch_every_requests,
         kernel_launches=lambda: quant_kernel_launches.value,
+        engines=engines, replica=replica,
     )
-    # Warmup -> re-attach -> serve: parked requests are answered by the
-    # replay before the ready flag flips.
+    # Warmup -> re-attach -> serve: the busy slots routed to this replica
+    # are answered by the replay before its ready flag flips.
     attach = service.reattach()
     service.start()
-    logger.info("engine %d serving (tier=%s, tiers=%s, device=%s)", os.getpid(),
-                getattr(engine, "serve_tier", ""), ",".join(engine.available_tiers),
-                getattr(engine, "device", ""))
-    ring.set_ready(True)
-    ring.eng_vals[ENG_DOWN_SINCE] = 0.0
+    logger.info("engine replica %d (pid %d) serving %d tenant(s) %s (tier=%s, tiers=%s, "
+                "device=%s)", replica, os.getpid(), len(engines), list(registry.names),
+                getattr(engines[0], "serve_tier", ""),
+                ",".join(getattr(engines[0], "available_tiers", ())),
+                getattr(engines[0], "device", ""))
+    ring.set_ready(True, replica)
+    ring.eng_vals[replica, ENG_DOWN_SINCE] = 0.0
     logger.info("warmup complete; ready %s", _LazyJson({
-        "pid": os.getpid(), "ready_s": round(time.monotonic() - t0, 3),
+        "replica": replica, "pid": os.getpid(),
+        "ready_s": round(time.monotonic() - t0, 3),
         "import_s": round(t_import - t0, 3), "build_s": round(t_build - t_import, 3),
-        "nvcc_calls": cuda_build.nvcc_calls(), "tiers": list(engine.available_tiers),
-        "device": str(getattr(engine, "device", "")),
-        "warmup": getattr(engine, "warmup_stats", {}), **attach,
+        "nvcc_calls": cuda_build.nvcc_calls(),
+        "tenants": list(registry.names),
+        "tiers": list(getattr(engines[0], "available_tiers", ())),
+        "device": str(getattr(engines[0], "device", "")),
+        "warmup": warm_report, **attach,
     }))
-    controller = None
-    if config.lifecycle.enabled:
+    controllers: list = []
+    if config.lifecycle.enabled and replica == 0:
         from mlops_tpu_torch.lifecycle.controller import LifecycleController
+        from mlops_tpu_torch.tenancy.registry import tenant_scoped_config
 
-        # The front ends encode with the preprocessor loaded at fork: it
-        # is part of the promotion contract here.
-        controller = LifecycleController(engine, config, force_incumbent_preprocessor=True)
-        controller.start()
-        service.attach_lifecycle(controller)
-        logger.info("lifecycle controller started (engine process %d, generation %d)",
-                    os.getpid(), engine.bundle_generation)
+        # One loop per tenant, each on its own state directory (the
+        # one-tenant "default" fleet keeps lifecycle.dir). The front ends
+        # encode with the preprocessors loaded at fork: they are part of
+        # the promotion contract here.
+        single_default = registry.names == ("default",)
+        for name, engine in zip(registry.names, engines):
+            controller = LifecycleController(
+                engine, config if single_default else tenant_scoped_config(config, name),
+                force_incumbent_preprocessor=True)
+            controller.start()
+            controllers.append(controller)
+        service.attach_lifecycle(controllers)
+        logger.info("lifecycle controller started (engine process %d, generation %d, "
+                    "%d tenant(s))", os.getpid(), engines[0].bundle_generation,
+                    len(controllers))
     supervisor = os.getppid()
     try:
         # Not stopped by the ring's drain flag: during a drain the front
@@ -419,14 +520,14 @@ def _engine_main(config: Config, ring: RequestRing, bundle_dir: str,
             # same recovery.
             faults.fire("serve.engine.exit")
             if os.getppid() != supervisor:
-                logger.error("engine: supervisor gone; exiting")
+                logger.error("engine replica %d: supervisor gone; exiting", replica)
                 break
     finally:
-        ring.set_ready(False)
-        if controller is not None:
+        ring.set_ready(False, replica)
+        for controller in controllers:
             controller.stop()
         service.stop()
-        logger.info("engine process drained; exiting")
+        logger.info("engine replica %d drained; exiting", replica)
 
 
 def _check_fork_safe() -> None:
@@ -446,35 +547,64 @@ def _fork(target: Callable, args: tuple, name: str) -> multiprocessing.Process:
     return proc
 
 
-def _respawn(config: ServeConfig, ring: RequestRing, preprocess_path: str,
-             worker_id: int) -> multiprocessing.Process:
+def _respawn(config: ServeConfig, ring: RequestRing, preprocess_paths: list[str],
+             worker_id: int, tenancy: TenancyConfig) -> multiprocessing.Process:
     """Fork the front end of one slot partition (first boot or respawn)."""
-    proc = _fork(_frontend_main, (worker_id, config, ring, preprocess_path),
+    proc = _fork(_frontend_main, (worker_id, config, ring, preprocess_paths, tenancy),
                  f"mlops-tpu-torch-frontend-{worker_id}")
     logger.info("frontend %d started (pid %d)", worker_id, proc.pid)
     return proc
 
 
-def _spawn_engine(config: Config, ring: RequestRing, bundle_dir: str,
-                  make_engine: Callable) -> multiprocessing.Process:
-    proc = _fork(_engine_main, (config, ring, bundle_dir, make_engine),
-                 "mlops-tpu-torch-engine")
-    logger.info("engine started (pid %d)", proc.pid)
+def _spawn_engine(config: Config, ring: RequestRing, tenancy: TenancyConfig,
+                  make_engine: Callable, replica: int) -> multiprocessing.Process:
+    proc = _fork(_engine_main, (config, ring, tenancy, make_engine, replica),
+                 f"mlops-tpu-torch-engine-{replica}")
+    logger.info("engine replica %d started (pid %d)", replica, proc.pid)
     return proc
+
+
+class _DrainNow(Exception):
+    """A replica's crash loop: leave the supervision loop for the drain."""
 
 
 # --------------------------------------------------------------- parent
 def serve_multi_worker(config: Config, bundle_dir: str,
                        make_engine: Callable = build_engine) -> int:
-    """The supervisor: ring -> fork the front ends -> fork the engine ->
-    supervise (respawn what dies) -> drain on SIGTERM. Returns the exit
-    code: 0 after a drain, 1 after an engine crash loop.
-    ``make_engine(config, bundle_dir)`` builds the engine in the engine
-    process."""
+    """The supervisor: ring -> fork the front ends -> fork the engine
+    replicas (replica 0 first) -> supervise (respawn what dies) -> drain
+    on SIGTERM. Returns the exit code: 0 after a drain, 1 after a
+    replica's crash loop. ``make_engine(config, bundle_dir)`` builds one
+    tenant's engine in a replica process; with ``serve.tenants_path`` the
+    fleet is that file's (``bundle_dir`` is unused), else the one
+    ``default`` tenant serving ``bundle_dir``."""
     serve_cfg = config.serve.validate()
-    preprocess_path = Path(bundle_dir) / "preprocess.npz"
-    if not preprocess_path.is_file():
-        raise SystemExit(f"no preprocessor at {preprocess_path}")
+    if serve_cfg.tenants_path:
+        try:
+            tenancy = load_tenants_toml(serve_cfg.tenants_path).validate()
+        except ValueError as err:
+            raise SystemExit(str(err)) from err
+    else:
+        tenancy = single_tenant_config(bundle_dir)
+    replicas = serve_cfg.engine_replicas
+    if replicas > 1 and config.lifecycle.enabled:
+        # One controller hot-swaps one engine process's bundle: a replica
+        # fleet would serve mixed generations.
+        raise SystemExit(
+            "serve.engine_replicas > 1 is incompatible with "
+            "lifecycle.enabled: the lifecycle controller hot-swaps one "
+            "engine process's bundle, and a replica fleet would serve "
+            "mixed generations — run E=1 with the lifecycle loop, or "
+            "the replica set without it. (The autotune plane's "
+            "lead-plans/siblings-adopt regrid protocol covers exec-table "
+            "changes only, not bundle promotion — see docs/operations.md)"
+        )
+    preprocess_paths = []
+    for spec in tenancy.tenants:
+        path = Path(spec.bundle_dir) / "preprocess.npz"
+        if not path.is_file():
+            raise SystemExit(f"no preprocessor at {path} (tenant {spec.name!r})")
+        preprocess_paths.append(str(path))
     if serve_cfg.profile_dir:
         logger.warning("serve.profile_dir is not forwarded over the ring "
                        "(ROADMAP A4): /debug/profile answers 404")
@@ -482,20 +612,27 @@ def serve_multi_worker(config: Config, bundle_dir: str,
     # ends' 413 gate enforces the clamped cap, sized into the slabs.
     max_batch = min(serve_cfg.max_batch, max(serve_cfg.warmup_batch_sizes))
     ring = RequestRing(workers=serve_cfg.workers, slots_small=serve_cfg.ring_slots_small,
-                       slots_large=serve_cfg.ring_slots_large, large_rows=max_batch)
+                       slots_large=serve_cfg.ring_slots_large, large_rows=max_batch,
+                       tenant_names=tenancy.names, replicas=replicas)
     placeholder = reuseport_socket(serve_cfg.host, serve_cfg.port)
     child_cfg = dataclasses.replace(serve_cfg, port=placeholder.getsockname()[1],
                                     max_batch=max_batch)
-    procs = [_respawn(child_cfg, ring, str(preprocess_path), w)
+    procs = [_respawn(child_cfg, ring, preprocess_paths, w, tenancy)
              for w in range(serve_cfg.workers)]
-    engine = _spawn_engine(config, ring, bundle_dir, make_engine)
-    logger.info("supervisor %d serving %s on %s:%s with %d SO_REUSEPORT front ends",
-                os.getpid(), serve_cfg.service_name, child_cfg.host, child_cfg.port,
-                serve_cfg.workers)
+    # Replica 0 first; the others fork once it is ready, so on a cold
+    # kernel cache one replica runs nvcc and the rest load its libraries.
+    engines: list[multiprocessing.Process | None] = [
+        _spawn_engine(config, ring, tenancy, make_engine, 0)] + [None] * (replicas - 1)
+    logger.info("supervisor %d serving %s on %s:%s with %d SO_REUSEPORT front ends, "
+                "%d engine replica(s), %d tenant(s) %s", os.getpid(),
+                serve_cfg.service_name, child_cfg.host, child_cfg.port,
+                serve_cfg.workers, replicas, len(tenancy.tenants), list(tenancy.names))
     stopping: list[int] = []  # a signal handler appends; the loop polls
     signal.signal(signal.SIGTERM, lambda *_: stopping.append(1))
     signal.signal(signal.SIGINT, lambda *_: stopping.append(1))
-    deaths: list[float] = []
+    # One crash-loop window per replica: two replicas each dying twice
+    # are two brownouts, not one crash loop.
+    deaths: list[list[float]] = [[] for _ in range(replicas)]
     rc = 0
     try:
         while not stopping:
@@ -504,37 +641,46 @@ def serve_multi_worker(config: Config, bundle_dir: str,
                 if not proc.is_alive() and not stopping:
                     logger.error("frontend %d (pid %d) died with exit code %s; respawning",
                                  i, proc.pid, proc.exitcode)
-                    procs[i] = _respawn(child_cfg, ring, str(preprocess_path), i)
-            if engine.is_alive() or stopping:
-                continue
-            now = time.monotonic()
-            deaths = [t for t in deaths if now - t < _ENGINE_STORM_WINDOW_S] + [now]
-            if len(deaths) > _ENGINE_STORM_DEATHS:
-                logger.error("engine died %d times inside %.0f s: a crash loop; "
-                             "draining", len(deaths), _ENGINE_STORM_WINDOW_S)
-                rc = 1
-                break
-            logger.error("engine (pid %d) died with exit code %s; respawning",
-                         engine.pid, engine.exitcode)
-            # The brownout begins: not ready, the outage stamped for the
-            # Retry-After arithmetic, the respawn counted.
-            ring.set_ready(False)
-            ring.eng_vals[ENG_DOWN_SINCE] = now
-            ring.eng_vals[ENG_RESPAWNS] += 1
-            engine = _spawn_engine(config, ring, bundle_dir, make_engine)
+                    procs[i] = _respawn(child_cfg, ring, preprocess_paths, i, tenancy)
+            if engines[-1] is None and ring.rep_ready[0]:
+                for r in range(1, replicas):
+                    engines[r] = _spawn_engine(config, ring, tenancy, make_engine, r)
+            for r, engine in enumerate(engines):
+                if engine is None or engine.is_alive() or stopping:
+                    continue
+                now = time.monotonic()
+                deaths[r] = [t for t in deaths[r] if now - t < _ENGINE_STORM_WINDOW_S] + [now]
+                if len(deaths[r]) > _ENGINE_STORM_DEATHS:
+                    logger.error("engine replica %d died %d times inside %.0f s: a crash "
+                                 "loop; draining", r, len(deaths[r]), _ENGINE_STORM_WINDOW_S)
+                    rc = 1
+                    raise _DrainNow
+                logger.error("engine replica %d (pid %d) died with exit code %s; "
+                             "respawning", r, engine.pid, engine.exitcode)
+                # This replica's brownout begins: its ready word drops (the
+                # router routes around it), its death stamped in its own
+                # row for the Retry-After arithmetic, the respawn counted.
+                ring.set_ready(False, r)
+                ring.eng_vals[r, ENG_DOWN_SINCE] = now
+                ring.eng_vals[r, ENG_RESPAWNS] += 1
+                engines[r] = _spawn_engine(config, ring, tenancy, make_engine, r)
+    except _DrainNow:
+        pass
     finally:
-        # Front ends first (their in-flight slots need the engine), then
-        # the engine; one join budget each, then SIGKILL.
+        # Front ends first (their in-flight slots need the engines), then
+        # the replicas; one join budget each, then SIGKILL.
         ring.set_draining()
         for proc in procs:
             if proc.is_alive():
                 with contextlib.suppress(ProcessLookupError):
                     os.kill(proc.pid, signal.SIGTERM)
         _join(procs, serve_cfg.zygote_join_deadline_s, "frontend")
-        if engine.is_alive():
-            with contextlib.suppress(ProcessLookupError):
-                os.kill(engine.pid, signal.SIGTERM)
-        _join([engine], serve_cfg.engine_zygote_join_s, "engine")
+        live = [e for e in engines if e is not None]
+        for engine in live:
+            if engine.is_alive():
+                with contextlib.suppress(ProcessLookupError):
+                    os.kill(engine.pid, signal.SIGTERM)
+        _join(live, serve_cfg.engine_zygote_join_s, "engine replica")
         placeholder.close()
         ring.close()
         logger.info("multi-worker plane drained; exiting")
@@ -543,7 +689,7 @@ def serve_multi_worker(config: Config, bundle_dir: str,
 
 def _join(procs: list[multiprocessing.Process], budget_s: float, what: str) -> None:
     """Join ``procs`` within one shared budget, SIGKILL the stragglers,
-    and log each one's exit code."""
+    and log each one's exit code (``<what> <index> (pid N) exited C``)."""
     deadline = time.monotonic() + budget_s
     for proc in procs:
         proc.join(timeout=max(0.0, deadline - time.monotonic()))
@@ -552,5 +698,4 @@ def _join(procs: list[multiprocessing.Process], budget_s: float, what: str) -> N
             logger.error("%s (pid %d) ignored SIGTERM; killing it", what, proc.pid)
             proc.kill()
             proc.join(timeout=5)
-        label = f"{what} {i}" if what == "frontend" else what
-        logger.info("%s (pid %d) exited %s", label, proc.pid, proc.exitcode)
+        logger.info("%s %d (pid %d) exited %s", what, i, proc.pid, proc.exitcode)

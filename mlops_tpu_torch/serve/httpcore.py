@@ -14,6 +14,11 @@ same 422/413/504 answers and the same two structured log events.
 (``InferenceData`` before scoring, ``ModelOutput`` after) under load, as
 in the JAX package: a request that does not answer 200 always logs its
 ``InferenceData`` event, so errors are never sampled out.
+
+The ``x-tenant`` header picks the tenant of a multi-tenant plane
+(``tenancy/``): resolved before validation, an untagged request rides the
+default tenant and an unknown name answers 404 with the JAX package's
+body; its metrics bill the default tenant's row.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from mlops_tpu_torch.schema.validate import validate_records
 from mlops_tpu_torch.serve.openapi import SWAGGER_HTML, build_openapi
 from mlops_tpu_torch.serve.tierroute import SLO_DEFAULT, resolve_slo_class
 from mlops_tpu_torch.serve.wire import deadline_response
+from mlops_tpu_torch.tenancy.router import TenantRouter
 
 logger = logging.getLogger("mlops_tpu_torch.serve")
 
@@ -117,12 +123,16 @@ class HttpProtocol:
         self.draining = False
         self._connections: set[asyncio.StreamWriter] = set()
         self._busy: set[asyncio.StreamWriter] = set()
+        # The ``x-tenant`` resolution: a subclass serving a fleet installs
+        # its own; this is the one-tenant ("default") fleet.
+        self.tenants = TenantRouter(())
 
     # ------------------------------------------------------ subclass hooks
     async def _score(self, records: list[dict], request_id: str,
-                     deadline: float | None, slo: int):
+                     deadline: float | None, slo: int, tenant: int = 0):
         """The response dict or its wire bytes, or a ``(status, payload,
-        content_type[, headers])`` tuple for an error answer."""
+        content_type[, headers])`` tuple for an error answer; ``tenant``
+        is the request's tenant index."""
         raise NotImplementedError
 
     def _ready(self) -> bool:
@@ -136,9 +146,13 @@ class HttpProtocol:
 
     # ------------------------------------------------------------- scoring
     async def _predict(self, body: bytes, request_id: str,
-                       deadline: float | None, slo: int):
-        """Validate (422), cap the batch (413), shed an expired budget
-        (504), log ``InferenceData``, score, log ``ModelOutput``."""
+                       deadline: float | None, slo: int, tenant_raw: str = ""):
+        """Resolve the tenant (404), validate (422), cap the batch (413),
+        shed an expired budget (504), log ``InferenceData``, score, log
+        ``ModelOutput``."""
+        tenant = self.tenants.resolve(tenant_raw)
+        if tenant is None:
+            return 404, {"detail": f"unknown tenant {tenant_raw[:64]!r}"}
         records, errors = validate_records(body)
         if errors:
             return 422, {"detail": errors}
@@ -160,7 +174,7 @@ class HttpProtocol:
         }
         if sampled:
             logger.info("%s", _LazyJson(request_event))
-        response = await self._score(records, request_id, deadline, slo)
+        response = await self._score(records, request_id, deadline, slo, tenant)
         if isinstance(response, tuple):
             # An error answer: an unsampled request logs its evidence now.
             if not sampled:
@@ -207,7 +221,7 @@ class HttpProtocol:
         if path == "/predict" and method == "POST":
             return await self._predict(
                 body, request_id, self._request_deadline(headers),
-                self._request_slo(headers),
+                self._request_slo(headers), headers.get("x-tenant", ""),
             )
         if path.startswith("/debug/profile/") and method == "POST":
             return await self._profile(path.removeprefix("/debug/profile/"))
@@ -307,7 +321,8 @@ class HttpProtocol:
                         method, route, body, request_id, headers
                     )
                     self.metrics.observe_request(
-                        route, status, (time.perf_counter() - start) * 1e3
+                        route, status, (time.perf_counter() - start) * 1e3,
+                        tenant=self.tenants.bill_label(headers.get("x-tenant", "")),
                     )
                     keep_alive = keep_alive and not self.draining
                     await self._write(

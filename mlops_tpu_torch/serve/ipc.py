@@ -1,13 +1,31 @@
-"""Shared-memory IPC of the ring plane: N HTTP front ends -> one engine.
+"""Shared-memory IPC of the ring plane: N HTTP front ends -> E engine
+replicas, serving T tenants.
 
-The port's copy of the JAX package's ``serve/ipc.py`` for one tenant and
-one engine replica (the replica set and tenancy are ROADMAP A4). Front-end
+The port's copy of the JAX package's ``serve/ipc.py``. Front-end
 processes validate and encode requests and write the feature arrays
-straight into fixed-slot slabs of one shared memory segment; the engine
-process scores them (coalescing concurrent small requests into one
-grouped dispatch, as the in-process micro-batcher does) and writes the
-raw response arrays back into the same slot. Only 8-byte descriptors
-cross a queue: the arrays are never pickled or piped.
+straight into fixed-slot slabs of one shared memory segment; an engine
+replica scores them (coalescing concurrent small requests of one tenant
+into one grouped dispatch, as the in-process micro-batcher does) and
+writes the raw response arrays back into the same slot. Only 8-byte
+descriptors cross a queue: the arrays are never pickled or piped.
+
+The engine replica set (``replicaset/``): every queue, doorbell and lock
+an engine consumes or produces is per replica. Replica r owns submission
+queue r (its own doorbell, its own credit), pushes completions into its
+own per-worker completion queues under its own completion lock, and
+mirrors its telemetry into its own row of every engine-written block. The
+front ends' ``ReplicaRouter`` picks the replica of each submit. A ``kill
+-9`` of replica k is a brownout of 1/E of capacity: only k's queues stall,
+the router routes new admissions around it, and k's respawned incarnation
+replays exactly the busy slots tagged ``slot_replica == k``.
+
+The tenant fleet (``tenancy/``): a front end tags each slot with its
+tenant at claim (``slot_tenant``); the engine dispatches the slot against
+that tenant's engine, never grouping two tenants into one dispatch, and a
+replay re-answers it under the same tenant. The request counters are per
+(worker, tenant), the monitor aggregate per (replica, tenant), the
+lifecycle row per tenant. ``replicas=1`` and the one-tenant
+``("default",)`` fleet are the plane without either axis.
 
 Topology and ownership:
 
@@ -15,39 +33,48 @@ Topology and ownership:
   it forks anything; every process sees the same pages by inheritance.
 - Every front end owns a fixed partition of the slots: claim and release
   are confined to its event loop. The only cross-process lock a front end
-  takes is the submission queue's (producers only); the completion
-  queue's belongs to the engine's threads alone. Both consumers are
+  takes is a submission queue's (producers only); a completion queue's
+  belongs to its replica's engine threads alone. Both consumers are
   lock-free and fenced by a counted doorbell instead: the ``eventfd``
   value is the number of entries published, and a consumer consumes only
-  what a drained doorbell credited. A ``kill -9`` on either side
-  therefore never orphans a lock the other side needs.
+  what a drained doorbell credited.
 - Two slot classes per worker: small slabs of ``GROUP_ROW_BUCKET`` rows
   (the coalescable class) and large slabs of ``max_batch`` rows (solo
-  dispatches; a small request may overflow into a free large slab, never
-  the reverse). An exhausted class is the shed signal: 503 with
-  Retry-After, never an unbounded queue.
+  dispatches; on a one-tenant plane a small request may overflow into a
+  free large slab, never the reverse). An exhausted class is the shed
+  signal: 503 with Retry-After, never an unbounded queue.
 - Per-slot generations: a front end bumps the slot's generation at
   submit, the engine stamps the response with it, and a completion with
   a stale generation is dropped, so a respawned front end is never handed
   a dead request's answer.
-- The engine incarnation word: a respawned engine bumps it, recovers the
-  completion lock its predecessor may have died holding, seeds its
-  monitor totals from the shared aggregate and carries the dead
-  incarnation's lifecycle counters as bases (exported counters stay
-  monotone) and replays every busy slot whose completion never came
+- Each replica's incarnation word: a respawned replica bumps its own,
+  recovers its own completion lock, seeds each tenant's monitor totals
+  from its own rows of the shared aggregate, carries the dead
+  incarnation's counters as bases (exported counters stay monotone) and
+  replays every busy slot of its own whose completion never came
   (``RingService.reattach``). The slabs hold the full encoded input and
   the packed programs are pure, so a replayed answer is bit-identical.
   Completions stamped by a dead incarnation are dropped on arrival.
 
-Lock discipline: locks guard index arithmetic only; slab reads and
-writes happen outside every lock, on slots exclusively owned between
-claim and release. Outermost first: ``RingService._inflight`` (the
-dispatch bound, taken by the collector and released by the pool thread
-that finishes the job), then the leaves ``RequestRing._submit_lock``,
-``RequestRing._complete_lock`` and ``RingService._mon_lock``.
+Lock discipline: locks guard index arithmetic only; slab reads and writes
+happen outside every lock, on slots exclusively owned between claim and
+release. ``RequestRing._submit_locks[r]`` and ``._complete_locks[r]`` are
+the cross-process locks, one per descriptor queue's head index, per
+engine replica r. Beyond mutual exclusion they order the producers'
+stores against the head bump. Only front ends acquire a
+``_submit_locks`` entry and only replica r's engine threads acquire
+``_complete_locks[r]``, so a ``kill -9`` on either side never orphans a
+lock any other process needs: an engine replica's death is a 1/E
+brownout, not a wedge. The one residual case, a dead replica's own
+completion lock, is recovered by its successor in
+``recover_engine_locks``: the supervisor runs at most one incarnation of
+each replica, and no replica ever takes another replica's lock. All queue
+locks are leaves. In ``RingService``: ``_inflight`` (the dispatch bound,
+taken by the collector and released by the pool thread that finishes the
+job) is outermost, ``_mon_lock`` a leaf.
 
 Nothing here imports torch: front ends import this module, and the
-engine side reaches the device only through the engine it is given.
+engine side reaches the device only through the engines it is given.
 """
 
 from __future__ import annotations
@@ -106,12 +133,13 @@ SMALL, LARGE = 0, 1
 _STATUS_IDX = {s: i for i, s in enumerate(RING_STATUSES)}
 _ROUTE_IDX = {r: i for i, r in enumerate(ROUTES)}
 _TIER_IDX = {t: i for i, t in enumerate(TIERS)}
-# The engine's dispatches per program label, mirrored into a fixed table:
-# rows are assigned in first-seen order and never move.
+# An engine replica's dispatches per program label, mirrored into a fixed
+# table of its own: rows are assigned in first-seen order and never move.
 DISPATCH_ROWS = 128
 DISPATCH_KEY_BYTES = 32
-# Control words: ready, draining, and how many tiers the engine holds.
-CTL_READY, CTL_DRAINING, CTL_TIERS = range(3)
+# Control words: [0] reserved (readiness is per replica, rep_ready),
+# [1] draining.
+CTL_DRAINING = 1
 
 
 class Doorbell:
@@ -169,10 +197,23 @@ class RequestRing:
     each stats cell has one writer)."""
 
     def __init__(self, workers: int, slots_small: int, slots_large: int,
-                 large_rows: int, small_rows: int = GROUP_ROW_BUCKET) -> None:
+                 large_rows: int, small_rows: int = GROUP_ROW_BUCKET,
+                 tenant_names: tuple[str, ...] = ("default",),
+                 replicas: int = 1) -> None:
         if workers < 1:
             raise ValueError("workers must be >= 1")
+        if replicas < 1:
+            raise ValueError("replicas must be >= 1")
+        if not tenant_names:
+            raise ValueError("tenant_names must name at least one tenant")
         self.workers = workers
+        # A replica's index is its position on every per-replica axis and
+        # a tenant's its position in ``tenant_names``, both fixed for the
+        # plane's lifetime (the names are plain state inherited through
+        # fork, never stored in shared memory).
+        self.replicas = R = replicas
+        self.tenant_names = tuple(tenant_names)
+        self.tenants = T = len(self.tenant_names)
         self.slots_small = slots_small
         self.slots_large = slots_large
         self.small_rows = small_rows
@@ -185,26 +226,40 @@ class RequestRing:
         u64, u32, f64 = np.dtype(np.uint64), np.dtype(np.uint32), np.dtype(np.float64)
         plan: list[tuple[str, np.dtype, tuple[int, ...]]] = [
             ("ctl", u64, (4,)),
-            # The submission queue (front ends -> the engine's collector).
-            ("sub_entries", u64, (self.n_slots,)),
-            ("sub_head", u64, (1,)),
-            ("sub_tail", u64, (1,)),
-            # One completion queue per worker (engine -> that front end);
-            # a worker never has more slots in flight than it owns.
-            ("comp_entries", u64, (workers, slots_small + slots_large)),
-            ("comp_head", u64, (workers,)),
-            ("comp_tail", u64, (workers,)),
+            # Per-replica readiness: replica r's engine flips its own word
+            # at attach, the supervisor clears it when r dies. The plane
+            # is ready while any replica is.
+            ("rep_ready", u64, (R,)),
+            # Per-(worker, replica) live ring depth: slots this worker
+            # routed to replica r and has not released (single writer:
+            # that worker); the router sums a replica's column.
+            ("rep_inflight", u64, (workers, R)),
+            # One submission queue per replica (front ends -> replica r's
+            # collector).
+            ("sub_entries", u64, (R, self.n_slots)),
+            ("sub_head", u64, (R,)),
+            ("sub_tail", u64, (R,)),
+            # One completion queue per (replica, worker). A slot completes
+            # on the replica it was routed to, so a worker's slot count
+            # bounds each row.
+            ("comp_entries", u64, (R, workers, slots_small + slots_large)),
+            ("comp_head", u64, (R, workers)),
+            ("comp_tail", u64, (R, workers)),
             # Slot headers. slot_busy marks submitted-but-unreleased slots
             # in shared memory, so a respawned front end quarantines them
-            # (the engine may still write their slabs) and a respawned
-            # engine replays them. slot_slo is the routed SLO class (after
-            # brownout demotion): the dispatch and a replay both resolve
-            # the same tier from it. slot_deadline is the absolute
-            # CLOCK_MONOTONIC deadline (0: none), which the engine checks
-            # before dispatching.
+            # (an engine may still write their slabs) and a respawned
+            # replica replays its own. slot_tenant (stamped at claim) and
+            # slot_replica (stamped at submit, before the busy flag) name
+            # the engine that dispatches and replays the slot. slot_slo is
+            # the routed SLO class (after brownout demotion): the dispatch
+            # and a replay resolve the same tier from it. slot_deadline is
+            # the absolute CLOCK_MONOTONIC deadline (0: none), which the
+            # engine checks before dispatching.
             ("slot_gen", u32, (self.n_slots,)),
             ("slot_n", u32, (self.n_slots,)),
             ("slot_busy", u32, (self.n_slots,)),
+            ("slot_tenant", u32, (self.n_slots,)),
+            ("slot_replica", u32, (self.n_slots,)),
             ("slot_slo", u32, (self.n_slots,)),
             ("slot_deadline", f64, (self.n_slots,)),
             ("resp_gen", u32, (self.n_slots,)),
@@ -220,38 +275,49 @@ class RequestRing:
             # single-process plane encodes, so the bytes are the same.
             ("small_resp", f64, (self.n_small, 2 * small_rows + D)),
             ("large_resp", f64, (self.n_large, 2 * self.large_rows + D)),
-            # Per-worker serving stats (single writer: that worker).
-            ("req_counts", u64, (workers, len(ROUTES), len(RING_STATUSES) + 1)),
-            ("lat_counts", u64, (workers, len(LATENCY_BUCKETS))),
-            ("lat_sum_ms", f64, (workers,)),
-            ("lat_n", u64, (workers,)),
-            ("shed", u64, (workers, 2)),
-            ("inflight", u64, (workers, 2)),
+            # Per-(worker, tenant) serving stats (single writer: that
+            # worker).
+            ("req_counts", u64, (workers, T, len(ROUTES), len(RING_STATUSES) + 1)),
+            ("lat_counts", u64, (workers, T, len(LATENCY_BUCKETS))),
+            ("lat_sum_ms", f64, (workers, T)),
+            ("lat_n", u64, (workers, T)),
+            ("shed", u64, (workers, T, 2)),
+            ("inflight", u64, (workers, T, 2)),
+            # Admissions refused by the tenant's own weighted max-min
+            # floor, not by physical exhaustion.
+            ("quota_shed", u64, (workers, T)),
             ("expired", u64, (workers,)),
-            # Requests admitted while the engine is down, holding a slot
-            # for the respawned engine's replay (a gauge), and sheds of a
-            # full partition during such an outage.
+            # Requests admitted while every replica is down, holding a
+            # slot for a respawned replica's replay (a gauge), and sheds
+            # of a full partition during such an outage.
             ("parked", u64, (workers,)),
             ("brownout_shed", u64, (workers,)),
             ("tier_demote", u64, (workers,)),
             ("brownout_demote", u64, (workers,)),
-            # Engine-process writers (under RingService._mon_lock).
-            ("tier_counts", f64, (len(TIERS),)),
-            ("mon_vals", f64, (8,)),
-            ("mon_drift_last", f64, (D,)),
-            ("mon_drift_mean", f64, (D,)),
-            # Unrounded cumulative sums: a respawned engine seeds its
-            # exact host totals from them.
-            ("mon_drift_sum", f64, (D,)),
-            ("eng_vals", f64, (8,)),
-            ("disp_keys", np.dtype(np.uint8), (DISPATCH_ROWS, DISPATCH_KEY_BYTES)),
-            ("disp_vals", f64, (DISPATCH_ROWS,)),
-            ("kernel_launches", f64, (1,)),
-            # The engine-side lifecycle loop's gauges (the telemetry
-            # thread writes them; see serve/metrics.py LIFE_*), so any
-            # front end renders them.
-            ("life_vals", f64, (8,)),
-            ("life_promos", f64, (len(LIFE_OUTCOMES),)),
+            # Engine-process writers, one row per replica (under that
+            # replica's RingService._mon_lock); the render sums them.
+            ("tier_counts", f64, (R, len(TIERS))),
+            # The monitor aggregate, one row per (replica, tenant); the
+            # render folds the replica axis. mon_drift_sum carries the
+            # unrounded cumulative sums a respawned replica seeds each
+            # tenant's exact host totals from.
+            ("mon_vals", f64, (R, T, 8)),
+            ("mon_drift_last", f64, (R, T, D)),
+            ("mon_drift_mean", f64, (R, T, D)),
+            ("mon_drift_sum", f64, (R, T, D)),
+            # Engine supervision, one row per replica (serve/metrics.py
+            # ENG_*); eng_rows_tenant holds the per-tenant rows-dispatched
+            # baselines a respawn's rows-lost accounting differences.
+            ("eng_vals", f64, (R, 8)),
+            ("eng_rows_tenant", f64, (R, T)),
+            ("disp_keys", np.dtype(np.uint8), (R, DISPATCH_ROWS, DISPATCH_KEY_BYTES)),
+            ("disp_vals", f64, (R, DISPATCH_ROWS)),
+            ("kernel_launches", f64, (R,)),
+            # The engine-side lifecycle loops' gauges, one row per tenant
+            # (the lead replica's telemetry thread writes them; see
+            # serve/metrics.py LIFE_*), so any front end renders them.
+            ("life_vals", f64, (T, 8)),
+            ("life_promos", f64, (T, len(LIFE_OUTCOMES))),
         ]
         offset, offsets = 0, {}
         for name, dtype, shape in plan:
@@ -264,18 +330,40 @@ class RequestRing:
                                  offset=offsets[name]).reshape(shape)
             setattr(self, name, view)
         ctx = multiprocessing.get_context("fork")
-        self._submit_lock = ctx.Lock()  # producers (front ends) only
-        self._complete_lock = ctx.Lock()  # the engine's threads only
-        self.engine_doorbell = Doorbell()
-        self.worker_doorbells = [Doorbell() for _ in range(workers)]
+        self._submit_locks = [ctx.Lock() for _ in range(R)]  # front ends only
+        self._complete_locks = [ctx.Lock() for _ in range(R)]  # replica r only
+        self.engine_doorbells = [Doorbell() for _ in range(R)]
+        # Flat [worker * replicas + replica]: a one-replica plane's
+        # worker_doorbells[w] is worker w's one doorbell.
+        self.worker_doorbells = [Doorbell() for _ in range(workers * R)]
+
+    # ---------------------------------------------------------- doorbells
+    @property
+    def engine_doorbell(self) -> Doorbell:
+        """Replica 0's submission doorbell."""
+        return self.engine_doorbells[0]
+
+    def worker_doorbell(self, worker: int, replica: int = 0) -> Doorbell:
+        """The doorbell replica ``replica`` rings for ``worker``'s
+        completions (one per pair: the counted credit fences one queue)."""
+        return self.worker_doorbells[worker * self.replicas + replica]
 
     # ------------------------------------------------------ control words
     @property
     def engine_ready(self) -> bool:
-        return bool(self.ctl[CTL_READY])
+        """Any replica ready: the router routes around the rest."""
+        return bool(self.rep_ready.any())
 
-    def set_ready(self, ready: bool) -> None:
-        self.ctl[CTL_READY] = 1 if ready else 0
+    def set_ready(self, ready: bool, replica: int | None = None) -> None:
+        """Flip one replica's readiness word (its engine at attach, the
+        supervisor at its death), or with ``replica`` None every one."""
+        if replica is None:
+            self.rep_ready[:] = 1 if ready else 0
+        else:
+            self.rep_ready[replica] = 1 if ready else 0
+
+    def ready_replicas(self) -> list[int]:
+        return [r for r in range(self.replicas) if self.rep_ready[r]]
 
     @property
     def draining(self) -> bool:
@@ -283,12 +371,6 @@ class RequestRing:
 
     def set_draining(self) -> None:
         self.ctl[CTL_DRAINING] = 1
-
-    @property
-    def engine_tiers(self) -> int:
-        """How many tiers the engine dispatches per request (0 before the
-        first engine is up)."""
-        return int(self.ctl[CTL_TIERS])
 
     # ----------------------------------------------------- slot geometry
     def worker_slots(self, worker: int) -> tuple[range, range]:
@@ -323,90 +405,102 @@ class RequestRing:
         return resp[:n], resp[rows:rows + n], resp[2 * rows:]
 
     # ------------------------------------------------------- descriptors
-    def submit(self, slot: int, gen: int) -> None:
-        """Front-end side: enqueue a filled slot. The lock (producers
-        only) orders the slab stores before the head bump; the doorbell
-        rings outside it with one unit of credit."""
-        with self._submit_lock:
-            head = int(self.sub_head[0])
-            self.sub_entries[head % self.n_slots] = _pack(slot, gen)
-            self.sub_head[0] = head + 1
-        self.engine_doorbell.ring()
+    def submit(self, slot: int, gen: int, replica: int = 0) -> None:
+        """Front-end side: enqueue a filled slot for ``replica``. The lock
+        (producers only) orders the slab stores before the head bump; the
+        doorbell rings outside it with one unit of credit."""
+        with self._submit_locks[replica]:
+            head = int(self.sub_head[replica])
+            self.sub_entries[replica, head % self.n_slots] = _pack(slot, gen)
+            self.sub_head[replica] = head + 1
+        self.engine_doorbells[replica].ring()
 
-    def pop_submissions(self, limit: int | None = None) -> list[tuple[int, int]]:
-        """Engine side, the one consumer, lock-free: at most ``limit``
-        entries (the doorbell credit), so an entry is consumed only after
-        a doorbell rung after its publication was drained."""
-        head, tail = int(self.sub_head[0]), int(self.sub_tail[0])
+    def pop_submissions(self, limit: int | None = None,
+                        replica: int = 0) -> list[tuple[int, int]]:
+        """Engine side, the one consumer of ``replica``'s queue, lock-free:
+        at most ``limit`` entries (the doorbell credit), so an entry is
+        consumed only after a doorbell rung after its publication was
+        drained."""
+        head, tail = int(self.sub_head[replica]), int(self.sub_tail[replica])
         if limit is not None:
             head = min(head, tail + limit)
-        out = [_unpack(int(self.sub_entries[i % self.n_slots])) for i in range(tail, head)]
-        self.sub_tail[0] = head if head > tail else tail
+        out = [_unpack(int(self.sub_entries[replica, i % self.n_slots]))
+               for i in range(tail, head)]
+        self.sub_tail[replica] = head if head > tail else tail
         return out
 
-    def pending_submissions(self) -> set[int]:
-        """Slots with a descriptor queued but not popped: the re-attach
-        replay leaves them to the collector."""
-        head, tail = int(self.sub_head[0]), int(self.sub_tail[0])
-        return {_unpack(int(self.sub_entries[i % self.n_slots]))[0]
+    def pending_submissions(self, replica: int = 0) -> set[int]:
+        """Slots with a descriptor queued for ``replica`` but not popped:
+        the re-attach replay leaves them to the collector."""
+        head, tail = int(self.sub_head[replica]), int(self.sub_tail[replica])
+        return {_unpack(int(self.sub_entries[replica, i % self.n_slots]))[0]
                 for i in range(tail, head)}
 
-    def recover_engine_lock(self) -> None:
-        """A respawned engine frees the completion lock its predecessor
-        may have died holding. Safe because only engine processes take
-        it, the supervisor runs one at a time, and this runs before the
+    def recover_engine_locks(self, replica: int = 0) -> None:
+        """A respawned replica frees its own completion lock, which its
+        predecessor may have died holding. Safe because only that
+        replica's engine processes take it, the supervisor runs one
+        incarnation of each replica at a time, and this runs before the
         new engine starts a thread: a failed try-acquire can only be an
-        orphaned hold."""
-        if self._complete_lock.acquire(block=False):
-            self._complete_lock.release()
+        orphaned hold. Sibling replicas' locks are untouched: their
+        owners are alive."""
+        lock = self._complete_locks[replica]
+        if lock.acquire(block=False):
+            lock.release()
             return
-        self._complete_lock.release()
-        logger.warning("recovered the completion lock of a dead engine")
+        lock.release()
+        logger.warning("recovered the completion lock of dead engine replica %d", replica)
 
-    def push_completion(self, slot: int, gen: int) -> None:
-        """Engine side: hand a finished slot back to its owner's queue."""
+    def push_completion(self, slot: int, gen: int, replica: int = 0) -> None:
+        """Engine side: hand a finished slot back to its owner through
+        ``replica``'s own queue row."""
         worker = self.slot_owner(slot)
-        cap = self.comp_entries.shape[1]
-        with self._complete_lock:
-            head = int(self.comp_head[worker])
-            self.comp_entries[worker, head % cap] = _pack(slot, gen)
-            self.comp_head[worker] = head + 1
+        cap = self.comp_entries.shape[2]
+        with self._complete_locks[replica]:
+            head = int(self.comp_head[replica, worker])
+            self.comp_entries[replica, worker, head % cap] = _pack(slot, gen)
+            self.comp_head[replica, worker] = head + 1
 
-    def pop_completions(self, worker: int, limit: int | None = None) -> list[tuple[int, int]]:
+    def pop_completions(self, worker: int, limit: int | None = None,
+                        replica: int = 0) -> list[tuple[int, int]]:
         """Front-end side, lock-free and credit-fenced like
-        ``pop_submissions``."""
-        cap = self.comp_entries.shape[1]
-        head, tail = int(self.comp_head[worker]), int(self.comp_tail[worker])
+        ``pop_submissions``, on one (replica, worker) queue."""
+        cap = self.comp_entries.shape[2]
+        head = int(self.comp_head[replica, worker])
+        tail = int(self.comp_tail[replica, worker])
         if limit is not None:
             head = min(head, tail + limit)
-        out = [_unpack(int(self.comp_entries[worker, i % cap])) for i in range(tail, head)]
+        out = [_unpack(int(self.comp_entries[replica, worker, i % cap]))
+               for i in range(tail, head)]
         if head > tail:
-            self.comp_tail[worker] = head
+            self.comp_tail[replica, worker] = head
         return out
 
     # ---------------------------------------------- engine-written tables
-    def write_monitor(self, snapshot: dict[str, Any]) -> None:
-        """Install the engine's ``monitor_snapshot`` for the front ends'
-        renders. Field-at-a-time f64 stores; a scrape racing this write
-        may see a mix, which gauges tolerate."""
-        row = self.mon_vals
+    def write_monitor(self, snapshot: dict[str, Any], tenant: int = 0,
+                      replica: int = 0) -> None:
+        """Install one tenant engine's ``monitor_snapshot`` in its
+        (replica, tenant) row for the front ends' renders. Field-at-a-time
+        f64 stores; a scrape racing this write may see a mix, which gauges
+        tolerate."""
+        row = self.mon_vals[replica, tenant]
         row[MON_ROWS] = float(snapshot["rows"])
         row[MON_OUTLIERS] = float(snapshot["outliers"])
         row[MON_BATCHES] = float(snapshot["batches"])
-        self.mon_drift_last[:] = list(snapshot["drift_last"].values())
-        self.mon_drift_mean[:] = list(snapshot["drift_mean"].values())
-        self.mon_drift_sum[:] = snapshot["drift_sum"]
+        self.mon_drift_last[replica, tenant] = list(snapshot["drift_last"].values())
+        self.mon_drift_mean[replica, tenant] = list(snapshot["drift_mean"].values())
+        self.mon_drift_sum[replica, tenant] = snapshot["drift_sum"]
         row[MON_FETCHES] += 1
         row[MON_FETCHED_AT] = time.monotonic()
         row[MON_HAS] = 1.0
 
-    def write_lifecycle(self, snapshot: dict[str, Any]) -> None:
-        """Install the lifecycle controller's ``metrics_snapshot`` for the
-        front ends' renders (engine-process single writer; the same
-        tearing contract as ``write_monitor``)."""
+    def write_lifecycle(self, snapshot: dict[str, Any], tenant: int = 0) -> None:
+        """Install one tenant's lifecycle controller ``metrics_snapshot``
+        for the front ends' renders (the same tearing contract as
+        ``write_monitor``)."""
         if not snapshot:
             return
-        row = self.life_vals
+        row = self.life_vals[tenant]
         row[LIFE_GENERATION] = float(snapshot["generation"])
         row[LIFE_TRIGGERS] = float(snapshot["drift_triggers"])
         delta = snapshot.get("shadow_auc_delta")
@@ -417,20 +511,23 @@ class RequestRing:
         row[LIFE_BREAKER_TRIPS] = float(snapshot.get("breaker_trips", 0))
         promotions = snapshot.get("promotions", {})
         for i, outcome in enumerate(LIFE_OUTCOMES):
-            self.life_promos[i] = float(promotions.get(outcome, 0))
+            self.life_promos[tenant, i] = float(promotions.get(outcome, 0))
         row[LIFE_HAS] = 1.0
 
-    def dispatch_counts(self) -> dict[str, int]:
-        """The engine's mirrored dispatches per program label."""
-        out = {}
-        for key, count in zip(self.disp_keys, self.disp_vals):
-            label = bytes(key).rstrip(b"\0").decode()
-            if label:
-                out[label] = int(count)
+    def dispatch_counts(self, replica: int | None = None) -> dict[str, int]:
+        """Mirrored dispatches per program label: one replica's, or with
+        ``replica`` None the plane's, summed over replicas by label."""
+        out: dict[str, int] = {}
+        rows = range(self.replicas) if replica is None else (replica,)
+        for r in rows:
+            for key, count in zip(self.disp_keys[r], self.disp_vals[r]):
+                label = bytes(key).rstrip(b"\0").decode()
+                if label:
+                    out[label] = out.get(label, 0) + int(count)
         return out
 
     def close(self) -> None:
-        for bell in (self.engine_doorbell, *self.worker_doorbells):
+        for bell in (*self.engine_doorbells, *self.worker_doorbells):
             bell.close()
 
 
@@ -439,19 +536,25 @@ class ShmWorkerMetrics:
     shared stats: single writer (that worker's event loop), so no lock;
     readers see monotone counters."""
 
-    def __init__(self, ring: RequestRing, worker: int) -> None:
+    def __init__(self, ring: RequestRing, worker: int, default_tenant: int = 0) -> None:
         self._ring = ring
         self._worker = worker
+        # Tenant label -> row. Labels are bounded upstream
+        # (TenantRouter.bill_label): every one is a declared tenant.
+        self._tenant_idx = {name: i for i, name in enumerate(ring.tenant_names)}
+        self._default_tenant = int(default_tenant)
 
-    def observe_request(self, route: str, status: int, latency_ms: float) -> None:
+    def observe_request(self, route: str, status: int, latency_ms: float,
+                        tenant: str = "default") -> None:
         ring, w = self._ring, self._worker
+        t = self._tenant_idx.get(tenant, self._default_tenant)
         r = _ROUTE_IDX.get(route, _ROUTE_IDX["<other>"])
-        ring.req_counts[w, r, _STATUS_IDX.get(status, len(RING_STATUSES))] += 1
-        ring.lat_sum_ms[w] += latency_ms
-        ring.lat_n[w] += 1
+        ring.req_counts[w, t, r, _STATUS_IDX.get(status, len(RING_STATUSES))] += 1
+        ring.lat_sum_ms[w, t] += latency_ms
+        ring.lat_n[w, t] += 1
         for i, edge in enumerate(LATENCY_BUCKETS):
             if latency_ms <= edge:
-                ring.lat_counts[w, i] += 1
+                ring.lat_counts[w, t, i] += 1
                 break
 
     def count_deadline_expired(self) -> None:
@@ -461,12 +564,17 @@ class ShmWorkerMetrics:
 
 class RingClient:
     """One front end's view of the ring: slot claim, submit and release,
-    and the completion doorbell. Everything here is confined to the
-    owning worker's event loop."""
+    and the per-replica completion doorbells. Everything here is confined
+    to the owning worker's event loop."""
 
-    def __init__(self, ring: RequestRing, worker: int) -> None:
+    def __init__(self, ring: RequestRing, worker: int, affinity_slack: int = 4) -> None:
+        from mlops_tpu_torch.replicaset.router import ReplicaRouter
+
         self.ring = ring
         self.worker = worker
+        # The replica of each submit: least-loaded by live ring depth,
+        # sticky per (tenant, class) on the coalescable class.
+        self.router = ReplicaRouter(ring, affinity_slack=affinity_slack)
         small, large = ring.worker_slots(worker)
         # Restart-safe: a slot the dead incarnation of this worker
         # submitted and never released may still see an engine write, so
@@ -477,42 +585,68 @@ class RingClient:
         self._free: tuple[list[int], list[int]] = ([], [])
         self._quarantined: set[int] = set()
         self.partition_slots = len(small) + len(large)
-        ring.inflight[worker, :] = 0
         for slot in (*small, *large):
             ring.slot_gen[slot] += 1
             if int(ring.slot_busy[slot]):
                 self._quarantined.add(slot)
-                ring.inflight[worker, ring.slot_class(slot)] += 1
             else:
                 self._free[ring.slot_class(slot)].append(slot)
+        # The depth gauges restart at the quarantined slots, attributed by
+        # their shared-memory tenant and replica tags: the router keeps
+        # seeing a crashed worker's in-flight load on its replica.
+        ring.inflight[worker] = 0
+        ring.rep_inflight[worker] = 0
+        self._routed: set[int] = set(self._quarantined)
+        for slot in self._quarantined:
+            tenant = int(ring.slot_tenant[slot]) % ring.tenants
+            ring.inflight[worker, tenant, ring.slot_class(slot)] += 1
+            ring.rep_inflight[worker, int(ring.slot_replica[slot]) % ring.replicas] += 1
         # The dead incarnation's parked requests died with its
         # connections.
         ring.parked[worker] = 0
-        # Completion credit, seeded with the entries already queued,
-        # whose doorbell a dead incarnation may have drained.
-        self._credit = int(ring.comp_head[worker]) - int(ring.comp_tail[worker])
+        # Completion credit per replica queue, seeded with the entries
+        # already queued, whose doorbell a dead incarnation may have
+        # drained.
+        self._credit = [int(ring.comp_head[r, worker]) - int(ring.comp_tail[r, worker])
+                        for r in range(ring.replicas)]
         # slot -> (generation, future). A future that gave up waiting (a
         # deadline) leaves a zombie: the slot is reused only once the
         # engine's completion arrives.
         self._pending: dict[int, tuple[int, Any]] = {}
 
-    def claim(self, n_rows: int, slo: int = 0) -> int | None:
-        """A free slot whose slab fits ``n_rows``, or None (shed). The
-        routed SLO class rides the slot header."""
+    def claim(self, n_rows: int, slo: int = 0, tenant: int = 0,
+              allow_overflow: bool = True) -> int | None:
+        """A free slot whose slab fits ``n_rows``, or None (shed). A small
+        request may overflow into a large slab only with
+        ``allow_overflow`` (a multi-tenant plane passes False: its
+        per-class quota governors admit against the class the row count
+        names). The tenant and the routed SLO class ride the slot header,
+        stamped before any counter moves."""
         small_free, large_free = self._free
-        if n_rows <= self.ring.small_rows and small_free:
-            slot = small_free.pop()
+        if n_rows <= self.ring.small_rows:
+            if small_free:
+                slot = small_free.pop()
+            elif allow_overflow and large_free:
+                slot = large_free.pop()
+            else:
+                return None
         elif large_free:
             slot = large_free.pop()
         else:
             return None
+        self.ring.slot_tenant[slot] = tenant
         self.ring.slot_slo[slot] = slo
-        self.ring.inflight[self.worker, self.ring.slot_class(slot)] += 1
+        self.ring.inflight[self.worker, tenant, self.ring.slot_class(slot)] += 1
         return slot
 
-    def count_shed(self, n_rows: int) -> None:
+    def count_shed(self, n_rows: int, tenant: int = 0) -> None:
         cls = SMALL if n_rows <= self.ring.small_rows else LARGE
-        self.ring.shed[self.worker, cls] += 1
+        self.ring.shed[self.worker, tenant, cls] += 1
+
+    def count_quota_shed(self, tenant: int) -> None:
+        """One admission refused by the tenant's own weighted max-min
+        quota (free slots existed; its floor did not allow the claim)."""
+        self.ring.quota_shed[self.worker, tenant] += 1
 
     def pressure(self) -> float:
         """Occupied fraction of this worker's partition (1.0: the next
@@ -526,34 +660,48 @@ class RingClient:
             self.ring.brownout_demote[self.worker] += 1
 
     def submit(self, slot: int, cat: np.ndarray, num: np.ndarray,
-               deadline: float | None = None):
-        """Write the encoded arrays into the slot's slab and enqueue it;
-        the asyncio future the completion resolves with the engine's
-        status. ``deadline`` is absolute ``time.monotonic`` seconds."""
+               deadline: float | None = None, replica: int | None = None):
+        """Write the encoded arrays into the slot's slab and enqueue it on
+        one replica's queue (``replica`` None: the router's choice); the
+        asyncio future the completion resolves with the engine's status.
+        ``deadline`` is absolute ``time.monotonic`` seconds."""
         import asyncio
 
         n = cat.shape[0]
         ring = self.ring
+        if replica is None:
+            replica = self.router.route(int(ring.slot_tenant[slot]), ring.slot_class(slot))
         slab_cat, slab_num = ring.request_views(slot)
         slab_cat[:n] = cat
         slab_num[:n] = num
         ring.slot_n[slot] = n
         ring.slot_deadline[slot] = deadline if deadline is not None else 0.0
+        # The replica tag before busy, busy before the descriptor: a
+        # worker dying anywhere past here leaves the slot, tagged with its
+        # replica, to the next incarnation's quarantine and that replica's
+        # replay.
+        ring.slot_replica[slot] = replica
         gen = (int(ring.slot_gen[slot]) + 1) & 0xFFFFFFFF
         ring.slot_gen[slot] = gen
-        # Busy before the descriptor: a worker dying past here leaves the
-        # slot for the next incarnation's quarantine.
         ring.slot_busy[slot] = 1
+        self._routed.add(slot)
+        ring.rep_inflight[self.worker, replica] += 1
         future = asyncio.get_running_loop().create_future()
         self._pending[slot] = (gen, future)
-        ring.submit(slot, gen)
+        ring.submit(slot, gen, replica)
         return future
 
     def _free_slot(self, slot: int) -> None:
-        self.ring.slot_busy[slot] = 0
-        cls = self.ring.slot_class(slot)
+        ring = self.ring
+        ring.slot_busy[slot] = 0
+        cls = ring.slot_class(slot)
         self._free[cls].append(slot)
-        self.ring.inflight[self.worker, cls] -= 1
+        ring.inflight[self.worker, int(ring.slot_tenant[slot]) % ring.tenants, cls] -= 1
+        if slot in self._routed:
+            # Submitted slots count toward their replica's depth; a claim
+            # released unsubmitted never did.
+            self._routed.discard(slot)
+            ring.rep_inflight[self.worker, int(ring.slot_replica[slot]) % ring.replicas] -= 1
 
     def release(self, slot: int) -> None:
         """Return a slot whose response was consumed (or that was never
@@ -575,16 +723,16 @@ class RingClient:
     def response_arrays(self, slot: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         return self.ring.response_views(slot)
 
-    def on_doorbell(self) -> None:
-        """Event-loop reader callback: drain the completions the doorbell
-        credited, resolve live futures, release zombies, and drain the
-        quarantine (the engine answering a slot proves its slab is
-        quiescent). Credit beyond what pops is surplus and dropped:
-        entries always arrive with their own ring."""
+    def on_doorbell(self, replica: int = 0) -> None:
+        """Event-loop reader callback of ``replica``'s doorbell for this
+        worker: drain the completions it credited, resolve live futures,
+        release zombies, and drain the quarantine (the engine answering a
+        slot proves its slab is quiescent). Credit beyond what pops is
+        surplus and dropped: entries always arrive with their own ring."""
         ring = self.ring
-        credit = self._credit + ring.worker_doorbells[self.worker].drain()
-        self._credit = 0
-        for slot, gen in ring.pop_completions(self.worker, limit=credit):
+        credit = self._credit[replica] + ring.worker_doorbell(self.worker, replica).drain()
+        self._credit[replica] = 0
+        for slot, gen in ring.pop_completions(self.worker, limit=credit, replica=replica):
             entry = self._pending.get(slot)
             if entry is None or entry[0] != gen:
                 # Addressed to a dead incarnation of this worker.
@@ -600,12 +748,14 @@ class RingClient:
                 # re-answered a slot whose first completion was already
                 # queued): the awaiting handler owns the release.
                 continue
-            elif int(ring.resp_incarnation[slot]) != int(ring.eng_vals[ENG_INCARNATION]):
-                # Produced by a dead engine incarnation: nothing it left
-                # is trusted; the replay re-answers, or the deadline turns
-                # the wait into a 504 and the zombie path reclaims.
-                logger.info("dropping slot %d's completion from dead engine "
-                            "incarnation %d", slot, int(ring.resp_incarnation[slot]))
+            elif int(ring.resp_incarnation[slot]) != int(ring.eng_vals[replica, ENG_INCARNATION]):
+                # Produced by a dead incarnation of this replica: nothing
+                # it left is trusted; its successor's replay re-answers,
+                # or the deadline turns the wait into a 504 and the zombie
+                # path reclaims.
+                logger.info("dropping slot %d's completion from dead engine replica %d "
+                            "incarnation %d", slot, replica,
+                            int(ring.resp_incarnation[slot]))
             elif int(ring.resp_gen[slot]) != gen:
                 logger.error("slot %d completed gen %d but its slab carries gen %d",
                              slot, gen, int(ring.resp_gen[slot]))
@@ -617,22 +767,33 @@ class RingClient:
 
 
 class RingService:
-    """The engine-process half: collect submitted slots, coalesce small
-    requests into grouped dispatches through the engine's two-phase API
+    """The engine-replica half: collect the slots submitted to this
+    replica, coalesce small requests of one tenant and one tier into
+    grouped dispatches through that tenant's engine's two-phase API
     (``dispatch_group_arrays`` / ``fetch_group_raw``, the path the
-    micro-batcher takes), run jobs on a thread pool so dispatches
-    overlap, write raw responses into the slabs and ring the owners'
-    doorbells. It answers every accepted descriptor (scored, failed or
-    expired), and never waits on front-end state. With a lifecycle
-    controller attached (``attach_lifecycle``), its telemetry thread also
-    mirrors the controller's gauges into the ring's lifecycle row."""
+    micro-batcher takes), run jobs on a thread pool so dispatches overlap,
+    write raw responses into the slabs and ring the owners' doorbells. It
+    answers every accepted descriptor (scored, failed or expired), and
+    never waits on front-end state. ``engines[t]`` serves tenant ``t``
+    (one engine is the one-tenant fleet). With lifecycle controllers
+    attached (``attach_lifecycle``), its telemetry thread also mirrors
+    each tenant's gauges into its lifecycle row."""
 
     def __init__(self, engine: Any, ring: RequestRing, max_group: int = 64,
                  max_inflight: int = 4, threads: int = 8,
                  monitor_fetch_every_s: float = 2.0,
                  monitor_fetch_every_requests: int = 512,
-                 kernel_launches: Callable[[], int] = lambda: 0) -> None:
+                 kernel_launches: Callable[[], int] = lambda: 0,
+                 engines: list[Any] | None = None, replica: int = 0) -> None:
         self.engine = engine
+        self.engines: list[Any] = list(engines) if engines is not None else [engine]
+        if len(self.engines) != ring.tenants:
+            raise ValueError(f"{len(self.engines)} engines but the ring carries "
+                             f"{ring.tenants} tenant rows")
+        self.replica = int(replica)
+        if not 0 <= self.replica < ring.replicas:
+            raise ValueError(f"replica {replica} outside the ring's {ring.replicas} "
+                             "replica rows")
         self.ring = ring
         self.max_group = max(2, min(max_group, GROUP_SLOT_BUCKETS[-1]))
         self._pool = concurrent.futures.ThreadPoolExecutor(
@@ -645,20 +806,23 @@ class RingService:
         self._telemetry: threading.Thread | None = None
         self._mon_period = monitor_fetch_every_s
         self._mon_every = monitor_fetch_every_requests
-        self._accumulating = hasattr(engine, "monitor_snapshot")
+        self._accumulating = [hasattr(eng, "monitor_snapshot") for eng in self.engines]
         self._kernel_launches = kernel_launches
         # Respawn bases of the mirrored counters (set by ``reattach``): a
-        # respawned engine's counts restart at zero, and the dead
+        # respawned replica's counts restart at zero, and its dead
         # incarnation's last published values carry over so the exported
         # counters stay monotone.
         self._dispatch_base: dict[str, float] = {}
         self._dispatch_rows: dict[str, int] = {}
         self._launch_base = 0.0
-        # The lifecycle counters of a dead incarnation (drift triggers,
-        # breaker trips, promotions by outcome), added to a fresh
-        # controller's, which start at zero.
-        self._life_base: dict[str, Any] | None = None
+        # Per tenant row: the lifecycle counters of a dead incarnation
+        # (drift triggers, breaker trips, promotions by outcome), added to
+        # a fresh controller's, which start at zero.
+        self._life_base: dict[int, dict[str, Any]] = {}
+        # One controller per tenant (``lifecycles``), or the one-tenant
+        # plane's single ``lifecycle``.
         self.lifecycle: Any = None
+        self.lifecycles: list[Any] | None = None
         self._requests_since_fetch = 0  # collector-thread writer
 
     # ----------------------------------------------------------- lifecycle
@@ -666,7 +830,8 @@ class RingService:
         self._collector = threading.Thread(target=self._collect, name="ring-collector",
                                            daemon=True)
         self._collector.start()
-        if (self._accumulating and self._mon_period > 0) or self.lifecycle is not None:
+        monitor = any(self._accumulating) and self._mon_period > 0
+        if monitor or self._tenant_lifecycles():
             self._start_telemetry()
 
     def _start_telemetry(self) -> None:
@@ -675,42 +840,50 @@ class RingService:
         self._telemetry.start()
 
     def attach_lifecycle(self, controller: Any) -> None:
-        """Mirror ``controller``'s gauges into the ring on every telemetry
-        tick and on ``stop``; the telemetry thread starts if the monitor
-        cadence did not start it."""
-        self.lifecycle = controller
+        """Mirror the controllers' gauges into the ring on every telemetry
+        tick and on ``stop``: one controller (tenant 0) or a list of one
+        per tenant. The telemetry thread starts if the monitor cadence did
+        not start it."""
+        if isinstance(controller, (list, tuple)):
+            self.lifecycles = list(controller)
+            self.lifecycle = self.lifecycles[0] if self.lifecycles else None
+        else:
+            self.lifecycle = controller
         self._write_lifecycle()
         if self._telemetry is None and self._collector is not None:
             self._start_telemetry()
 
+    def _tenant_lifecycles(self) -> list[tuple[int, Any]]:
+        """(tenant index, controller) pairs: the per-tenant list when the
+        fleet attached one, else the single controller on tenant row 0."""
+        if self.lifecycles is not None:
+            return [(t, c) for t, c in enumerate(self.lifecycles) if c is not None]
+        return [(0, self.lifecycle)] if self.lifecycle is not None else []
+
     def stop(self) -> None:
         """Drain: stop collecting, finish the jobs in flight, write the
-        final monitor aggregate. Safe to call twice."""
+        final monitor aggregates. Safe to call twice."""
         self._stop.set()
-        self.ring.engine_doorbell.ring()  # wake the collector's select
+        self.ring.engine_doorbells[self.replica].ring()  # wake the collector
         for thread in (self._collector, self._telemetry):
             if thread is not None:
                 thread.join(timeout=10)
         self._pool.shutdown(wait=True)
-        if self._accumulating:
-            try:
-                self.ring.write_monitor(self.engine.monitor_snapshot())
-            except Exception:  # the drain goes on without a last snapshot
-                logger.exception("final monitor snapshot failed on drain")
+        self._write_monitors()
         self._write_lifecycle()
 
     # ------------------------------------------------------------ collect
     def _collect(self) -> None:
-        ring = self.ring
+        ring, rep = self.ring, self.replica
         # Seeded with the entries already queued: their credit may have
         # died with a previous incarnation. Surplus credit after a pop is
         # dropped, never banked.
-        credit = int(ring.sub_head[0]) - int(ring.sub_tail[0])
+        credit = int(ring.sub_head[rep]) - int(ring.sub_tail[rep])
         while not self._stop.is_set():
-            descs = ring.pop_submissions(limit=credit) if credit else []
+            descs = ring.pop_submissions(limit=credit, replica=rep) if credit else []
             credit = 0
             if not descs:
-                credit = ring.engine_doorbell.wait(timeout_s=1.0)
+                credit = ring.engine_doorbells[rep].wait(timeout_s=1.0)
                 continue
             self._requests_since_fetch += len(descs)
             for job in self._make_jobs(descs):
@@ -720,78 +893,106 @@ class RingService:
                 self._inflight.acquire()
                 self._pool.submit(self._run_job, job)
 
-    def _slot_tier(self, slot: int) -> str | None:
-        """The tier the slot's SLO class resolves to (None: the default
-        tier); a replay resolves the same header the same way."""
-        route = getattr(self.engine, "route_tier", None)
+    def _slot_tenant(self, slot: int) -> int:
+        """The slot's tenant tag (the modulo only guards against a garbage
+        value indexing out of range: the constructor holds one engine per
+        tenant row)."""
+        return int(self.ring.slot_tenant[slot]) % len(self.engines)
+
+    def _slot_tier(self, slot: int, tenant: int) -> str | None:
+        """The tier the slot's SLO class resolves to on its tenant's engine
+        (None: that engine's default tier); a replay resolves the same
+        header the same way."""
+        route = getattr(self.engines[tenant], "route_tier", None)
         return route(int(self.ring.slot_slo[slot])) if route is not None else None
 
     def _make_jobs(self, descs: list[tuple[int, int]]) -> list[list[tuple[int, int]]]:
-        """Small requests group per tier, up to ``max_group`` a
-        dispatch; everything else runs solo."""
-        groupable: dict[str | None, list[tuple[int, int]]] = {}
+        """Small requests group per (tenant, tier), up to ``max_group`` a
+        dispatch: a group runs one tenant's program for one tier and folds
+        one tenant's accumulator. Everything else runs solo."""
+        groupable: dict[tuple[int, str | None], list[tuple[int, int]]] = {}
         solo = []
-        grouping = getattr(self.engine, "supports_grouping", False)
         for slot, gen in descs:
+            tenant = self._slot_tenant(slot)
+            grouping = getattr(self.engines[tenant], "supports_grouping", False)
             if grouping and 1 <= int(self.ring.slot_n[slot]) <= GROUP_ROW_BUCKET:
-                groupable.setdefault(self._slot_tier(slot), []).append((slot, gen))
+                key = (tenant, self._slot_tier(slot, tenant))
+                groupable.setdefault(key, []).append((slot, gen))
             else:
                 solo.append((slot, gen))
         jobs = []
-        for tier in sorted(groupable, key=lambda t: t or ""):
-            batch = groupable[tier]
+        for key in sorted(groupable, key=lambda k: (k[0], k[1] or "")):
+            batch = groupable[key]
             jobs += [batch[i:i + self.max_group] for i in range(0, len(batch), self.max_group)]
         return jobs + [[d] for d in solo]
 
     # ----------------------------------------------------------- reattach
     def reattach(self) -> dict[str, Any]:
-        """Run by the engine process after warmup and before ``start``,
-        on every boot (a first boot finds nothing to replay): bump the
-        incarnation word (a dead incarnation's completions become
-        droppable), recover the completion lock, seed the monitor totals,
-        the mirrored counters and the lifecycle bases from shared memory,
-        count the monitor rows that died unfetched with the old process,
-        replay every busy slot whose descriptor is not still queued, and
-        ring every worker's doorbell with its outstanding completion
-        count."""
+        """Run by the replica's engine process after warmup and before
+        ``start``, on every boot (a first boot finds nothing to replay):
+        bump this replica's incarnation word (its dead incarnation's
+        completions become droppable), recover its completion lock, seed
+        each tenant's monitor totals, the mirrored counters and the
+        lifecycle bases from its rows of shared memory, count the monitor
+        rows that died unfetched with the old process, replay every busy
+        slot tagged with this replica whose descriptor is not still
+        queued, and ring every worker's doorbell with its outstanding
+        completion count."""
         # Fault point: delay = a slow re-attach; raise = a failed one (this
         # engine process exits and the supervisor forks another).
         faults.fire("serve.ring.reattach")
-        ring = self.ring
-        eng = ring.eng_vals
+        ring, rep = self.ring, self.replica
+        eng = ring.eng_vals[rep]
         incarnation = int(eng[ENG_INCARNATION]) + 1
         eng[ENG_INCARNATION] = incarnation
-        ring.recover_engine_lock()
-        if ring.life_vals[LIFE_HAS]:
-            self._life_base = {
-                "drift_triggers": float(ring.life_vals[LIFE_TRIGGERS]),
-                "breaker_trips": float(ring.life_vals[LIFE_BREAKER_TRIPS]),
-                "promotions": {outcome: float(ring.life_promos[i])
-                               for i, outcome in enumerate(LIFE_OUTCOMES)},
-            }
-        self._dispatch_base = {k: float(v) for k, v in ring.dispatch_counts().items()}
-        self._dispatch_rows = {k: i for i, k in enumerate(ring.dispatch_counts())}
-        self._launch_base = float(ring.kernel_launches[0])
-        mon = ring.mon_vals
-        fetched = float(mon[MON_ROWS]) if mon[MON_HAS] else 0.0
-        if self._accumulating and mon[MON_HAS]:
-            self.engine.seed_monitor_totals(
-                float(mon[MON_ROWS]), float(mon[MON_OUTLIERS]), float(mon[MON_BATCHES]),
-                np.array(ring.mon_drift_sum), np.array(ring.mon_drift_last),
-            )
-        pending = ring.pending_submissions()
+        ring.recover_engine_locks(rep)
+        for t in range(ring.tenants):
+            if ring.life_vals[t, LIFE_HAS]:
+                self._life_base[t] = {
+                    "drift_triggers": float(ring.life_vals[t, LIFE_TRIGGERS]),
+                    "breaker_trips": float(ring.life_vals[t, LIFE_BREAKER_TRIPS]),
+                    "promotions": {outcome: float(ring.life_promos[t, i])
+                                   for i, outcome in enumerate(LIFE_OUTCOMES)},
+                }
+        counts = ring.dispatch_counts(rep)
+        self._dispatch_base = {k: float(v) for k, v in counts.items()}
+        self._dispatch_rows = {k: i for i, k in enumerate(counts)}
+        self._launch_base = float(ring.kernel_launches[rep])
+        for t, engine in enumerate(self.engines):
+            mon = ring.mon_vals[rep, t]
+            if self._accumulating[t] and mon[MON_HAS]:
+                engine.seed_monitor_totals(
+                    float(mon[MON_ROWS]), float(mon[MON_OUTLIERS]), float(mon[MON_BATCHES]),
+                    np.array(ring.mon_drift_sum[rep, t]), np.array(ring.mon_drift_last[rep, t]),
+                )
+        pending = ring.pending_submissions(rep)
+        # Only this replica's busy slots: a sibling's are its own live work
+        # (or its own successor's replay).
         replay = [(slot, int(ring.slot_gen[slot])) for slot in range(ring.n_slots)
-                  if int(ring.slot_busy[slot]) and slot not in pending]
+                  if int(ring.slot_busy[slot])
+                  and int(ring.slot_replica[slot]) % ring.replicas == rep
+                  and slot not in pending]
         replay_rows = sum(int(ring.slot_n[slot]) for slot, _ in replay)
-        # Rows the dead engine folded on the device but no fetch
-        # preserved, less those the replay folds again: counted, then the
-        # baseline re-anchors to the fetched total so replayed rows land
-        # once.
-        rows_lost = 0.0
-        if self._accumulating:
-            rows_lost = max(0.0, float(eng[ENG_ROWS_DISPATCHED]) - fetched - replay_rows)
-            eng[ENG_ROWS_LOST] += rows_lost
-            eng[ENG_ROWS_DISPATCHED] = fetched
+        replay_by_tenant: dict[int, int] = {}
+        for slot, _ in replay:
+            t = self._slot_tenant(slot)
+            replay_by_tenant[t] = replay_by_tenant.get(t, 0) + int(ring.slot_n[slot])
+        # Per tenant: rows the dead incarnation folded on the device but no
+        # fetch preserved, less those the replay folds again, are counted,
+        # then the baseline re-anchors to the fetched total so replayed
+        # rows land once.
+        rows_lost, fetched_total = 0.0, 0.0
+        for t in range(ring.tenants):
+            if not self._accumulating[t]:
+                continue
+            mon = ring.mon_vals[rep, t]
+            fetched = float(mon[MON_ROWS]) if mon[MON_HAS] else 0.0
+            fetched_total += fetched
+            rows_lost += max(0.0, float(ring.eng_rows_tenant[rep, t]) - fetched
+                             - replay_by_tenant.get(t, 0))
+            ring.eng_rows_tenant[rep, t] = fetched
+        eng[ENG_ROWS_LOST] += rows_lost
+        eng[ENG_ROWS_DISPATCHED] = fetched_total
         if replay:
             jobs = []
             for job in self._make_jobs(replay):
@@ -807,9 +1008,9 @@ class RingService:
             eng[ENG_REPLAYED] += len(replay)
             self._requests_since_fetch += len(replay)
         for worker in range(ring.workers):
-            outstanding = int(ring.comp_head[worker]) - int(ring.comp_tail[worker])
+            outstanding = int(ring.comp_head[rep, worker]) - int(ring.comp_tail[rep, worker])
             if outstanding > 0:
-                ring.worker_doorbells[worker].ring(outstanding)
+                ring.worker_doorbell(worker, rep).ring(outstanding)
         with self._mon_lock:  # warmup's launches too, before the first scrape
             self._mirror_counts()
         return {"incarnation": incarnation, "replayed_slots": len(replay),
@@ -817,7 +1018,7 @@ class RingService:
 
     # --------------------------------------------------------------- jobs
     def _run_job(self, job: list[tuple[int, int]]) -> None:
-        ring = self.ring
+        ring, rep = self.ring, self.replica
         try:
             # Dead-work shedding: a descriptor whose deadline ran out while
             # it queued completes RESP_EXPIRED without a dispatch.
@@ -827,23 +1028,25 @@ class RingService:
                 deadline = float(ring.slot_deadline[slot])
                 (expired if deadline and now >= deadline else live).append((slot, gen))
             raws, status = None, RESP_OK
+            tenant = self._slot_tenant(job[0][0])
             if live:
                 try:
-                    raws = self._score(live)
+                    raws = self._score(live, tenant)
                 # Any scoring failure becomes an error completion on every
                 # waiting slot: a dropped descriptor would strand its
                 # front end's future until the deadline.
                 except Exception:
                     logger.exception("ring dispatch failed (%d slots)", len(live))
                     status = RESP_ERROR
-            incarnation = int(ring.eng_vals[ENG_INCARNATION])
+            incarnation = int(ring.eng_vals[rep, ENG_INCARNATION])
             with self._mon_lock:
-                ring.eng_vals[ENG_EXPIRED] += len(expired)
-                if live and status == RESP_OK and self._accumulating:
+                ring.eng_vals[rep, ENG_EXPIRED] += len(expired)
+                if live and status == RESP_OK and self._accumulating[tenant]:
                     # Folded on the device, not yet preserved by a fetch:
                     # what a death of this process would lose.
-                    ring.eng_vals[ENG_ROWS_DISPATCHED] += sum(
-                        int(ring.slot_n[s]) for s, _ in live)
+                    rows = sum(int(ring.slot_n[s]) for s, _ in live)
+                    ring.eng_rows_tenant[rep, tenant] += rows
+                    ring.eng_vals[rep, ENG_ROWS_DISPATCHED] += rows
             for i, (slot, gen) in enumerate(live):
                 # The stale-generation guard: never write the slab of a
                 # slot that moved on; the completion still goes out (it
@@ -865,20 +1068,21 @@ class RingService:
             # pushes, with how many landed.
             owners: dict[int, int] = {}
             for slot, gen in job:
-                ring.push_completion(slot, gen)
+                ring.push_completion(slot, gen, rep)
                 owner = ring.slot_owner(slot)
                 owners[owner] = owners.get(owner, 0) + 1
             for worker, count in owners.items():
-                ring.worker_doorbells[worker].ring(count)
+                ring.worker_doorbell(worker, rep).ring(count)
         finally:
             self._inflight.release()
 
-    def _score(self, job: list[tuple[int, int]]) -> list[tuple[np.ndarray, ...]]:
-        """One job -> per-slot raw (predictions, outliers, drift). Several
-        slots ride one grouped dispatch; the arrays arrive encoded, so
-        the engine process does no per-record Python."""
-        ring, engine = self.ring, self.engine
-        tier = self._slot_tier(job[0][0])
+    def _score(self, job: list[tuple[int, int]], tenant: int = 0) -> list[tuple[np.ndarray, ...]]:
+        """One job -> per-slot raw (predictions, outliers, drift), through
+        the job's tenant's engine. Several slots ride one grouped
+        dispatch; the arrays arrive encoded, so the engine process does no
+        per-record Python."""
+        ring, engine = self.ring, self.engines[tenant]
+        tier = self._slot_tier(job[0][0], tenant)
         kwargs = {} if tier is None else {"tier": tier}
         parts = []
         for slot, _ in job:
@@ -899,16 +1103,20 @@ class RingService:
                  or getattr(engine, "default_tier", None))
         with self._mon_lock:
             if label in _TIER_IDX:
-                ring.tier_counts[_TIER_IDX[label]] += len(job)
+                ring.tier_counts[self.replica, _TIER_IDX[label]] += len(job)
             self._mirror_counts()
         return raws
 
     def _mirror_counts(self) -> None:
-        """Publish the engine's dispatches per program and the kernel's
-        launches (plus the respawn bases); caller holds ``_mon_lock``, so
-        the writes never go back in time."""
-        ring = self.ring
-        counts = getattr(self.engine, "dispatch_counts", dict)()
+        """Publish this replica's dispatches per program, summed over its
+        tenant engines, and the kernel's launches (plus the respawn
+        bases); caller holds ``_mon_lock``, so the writes never go back in
+        time."""
+        ring, rep = self.ring, self.replica
+        counts: dict[str, int] = {}
+        for engine in self.engines:
+            for label, n in getattr(engine, "dispatch_counts", dict)().items():
+                counts[label] = counts.get(label, 0) + n
         for label in {*counts, *self._dispatch_base}:
             row = self._dispatch_rows.get(label)
             if row is None:
@@ -917,60 +1125,69 @@ class RingService:
                     continue
                 self._dispatch_rows[label] = row
                 key = label.encode()[:DISPATCH_KEY_BYTES]
-                ring.disp_keys[row] = 0
-                ring.disp_keys[row, :len(key)] = np.frombuffer(key, np.uint8)
-            ring.disp_vals[row] = self._dispatch_base.get(label, 0.0) + counts.get(label, 0)
-        ring.kernel_launches[0] = self._launch_base + self._kernel_launches()
+                ring.disp_keys[rep, row] = 0
+                ring.disp_keys[rep, row, :len(key)] = np.frombuffer(key, np.uint8)
+            ring.disp_vals[rep, row] = self._dispatch_base.get(label, 0.0) + counts.get(label, 0)
+        ring.kernel_launches[rep] = self._launch_base + self._kernel_launches()
 
     # ----------------------------------------------------------- telemetry
     def _telemetry_loop(self) -> None:
         """Single-flight monitor reads, in the engine process only: after
         K ring requests, or when the period lapses with traffic
         outstanding (and once at start); never per request or scrape.
-        Every tick also mirrors the lifecycle controller's gauges."""
-        monitor = self._accumulating and self._mon_period > 0
+        Every tick also mirrors the lifecycle controllers' gauges."""
+        monitor = any(self._accumulating) and self._mon_period > 0
         tick = min(0.25, self._mon_period) if monitor else 0.25
         last = time.monotonic()
         while not self._stop.wait(tick):
             self._write_lifecycle()
             if not monitor:
                 continue
+            never = any(self._accumulating[t] and not self.ring.mon_vals[self.replica, t, MON_HAS]
+                        for t in range(len(self.engines)))
             due = (
                 (self._mon_every and self._requests_since_fetch >= self._mon_every)
                 or (time.monotonic() - last >= self._mon_period
                     and self._requests_since_fetch > 0)
-                or not self.ring.mon_vals[MON_HAS]
+                or never
             )
             if not due:
                 continue
             self._requests_since_fetch = 0
             last = time.monotonic()
+            self._write_monitors()
+
+    def _write_monitors(self) -> None:
+        """Each accumulating tenant engine's snapshot into its row; one
+        tenant's failed fetch keeps its last gauges and never stops the
+        others' (the next tick retries)."""
+        for t, engine in enumerate(self.engines):
+            if not self._accumulating[t]:
+                continue
             try:
-                self.ring.write_monitor(self.engine.monitor_snapshot())
-            # A failed fetch keeps the last gauges; the next tick retries.
+                self.ring.write_monitor(engine.monitor_snapshot(), t, self.replica)
             except Exception:
-                logger.exception("ring monitor fetch failed; gauges stale")
+                logger.exception("ring monitor fetch failed (tenant %d); gauges stale", t)
 
     def _write_lifecycle(self) -> None:
-        """Mirror the controller's gauge snapshot, plus the dead
-        incarnations' bases, into the ring (host reads and f64 stores, no
-        device work)."""
-        controller = self.lifecycle
-        if controller is None:
-            return
-        try:
-            snapshot = controller.metrics_snapshot()
-            base = self._life_base
-            if base and snapshot:
-                snapshot = dict(snapshot)
-                for key in ("drift_triggers", "breaker_trips"):
-                    snapshot[key] = snapshot.get(key, 0) + base[key]
-                promotions = dict(snapshot.get("promotions", {}))
-                for outcome, count in base["promotions"].items():
-                    promotions[outcome] = promotions.get(outcome, 0) + count
-                snapshot["promotions"] = promotions
-            self.ring.write_lifecycle(snapshot)
-        # A controller mid-transition costs one gauge refresh, never the
-        # telemetry thread.
-        except Exception:
-            logger.exception("ring lifecycle write failed; gauges stale")
+        """Mirror each controller's gauge snapshot, plus the dead
+        incarnations' bases, into its tenant's row (host reads and f64
+        stores, no device work)."""
+        for tenant, controller in self._tenant_lifecycles():
+            try:
+                snapshot = controller.metrics_snapshot()
+                base = self._life_base.get(tenant)
+                if base and snapshot:
+                    snapshot = dict(snapshot)
+                    for key in ("drift_triggers", "breaker_trips"):
+                        snapshot[key] = snapshot.get(key, 0) + base[key]
+                    promotions = dict(snapshot.get("promotions", {}))
+                    for outcome, count in base["promotions"].items():
+                        promotions[outcome] = promotions.get(outcome, 0) + count
+                    snapshot["promotions"] = promotions
+                self.ring.write_lifecycle(snapshot, tenant)
+            # A controller mid-transition costs one gauge refresh, never
+            # the telemetry thread.
+            except Exception:
+                logger.exception("ring lifecycle write failed (tenant %d); gauges stale",
+                                 tenant)

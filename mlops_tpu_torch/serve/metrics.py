@@ -4,33 +4,39 @@ and the lifecycle block both planes share.
 The ring subset of the JAX package's ``serve/metrics.py``
 (``render_ring_metrics``): every front end renders the whole plane from
 the shared-memory ring (``serve/ipc.py``), so whichever of the
-``SO_REUSEPORT`` workers answers a scrape shows every worker and the
-engine process. Under the JAX package's series names:
+``SO_REUSEPORT`` workers answers a scrape shows every worker, every
+engine replica and every tenant. Under the JAX package's series names:
 
-- per worker: request counters and the latency histogram (JAX's
-  ``LATENCY_BUCKETS``), ring depth and sheds per slot class;
-- the monitor aggregate, which the engine process's telemetry loop
-  writes (a front end never touches the device);
+- per worker and tenant: request counters and the latency histogram
+  (JAX's ``LATENCY_BUCKETS``), ring depth and sheds per slot class, and
+  the sheds of each tenant's own quota
+  (``mlops_tpu_tenant_quota_shed_total``);
+- the monitor aggregate per tenant, which each replica's telemetry loop
+  writes into its own rows (a front end never touches the device),
+  folded over the replicas;
 - the dead-work sheds (``mlops_tpu_deadline_expired_total``), the
-  survivability block (engine respawns and incarnation, replayed slots,
-  monitor rows lost with a dead engine, parked requests, brownout sheds)
-  and the port's ``mlops_tpu_engine_down_since``;
+  survivability block (respawns and incarnations, replayed slots, monitor
+  rows lost with a dead replica, parked requests, brownout sheds) summed
+  over the replicas, and the port's ``mlops_tpu_engine_down_since``;
 - the tier and demotion counters;
+- the per-replica block: ``mlops_tpu_replica_ready``, ``_ring_depth``,
+  ``_incarnation``, ``_respawn_total``, ``_replayed_slots_total`` and
+  ``_rows_scored_total``, every replica on every scrape;
 - the port's two series of the single-process plane: dispatches per
   program (``mlops_tpu_dispatches_total{entry=...}``) and
-  ``mlops_tpu_kernel_launches_total``, counted in the engine process and
-  mirrored into shared memory.
+  ``mlops_tpu_kernel_launches_total``, counted in each replica process and
+  summed over the replicas' rows.
 
-``lifecycle_lines`` is the JAX ``ServingMetrics.lifecycle_lines``: the
-lifecycle controller's gauges (bundle generation, drift triggers, shadow
-AUC delta, promotions by outcome, reservoir rows, circuit breaker), byte
-for byte the JAX render of the same snapshot. The single-process server
-renders it under ``lifecycle.enabled=true``; on the ring plane the engine
-process's telemetry loop writes the controller's snapshot into the
-ring's lifecycle row (``RequestRing.write_lifecycle``) and every front
-end renders it from there, as the JAX ring render does. Tracing, the SLO
-engine, the cost ledger and the autotuner are not ported (ROADMAP A4),
-nor their series.
+``lifecycle_lines`` is the JAX ``ServingMetrics.lifecycle_lines``: one
+tenant's lifecycle controller gauges (bundle generation, drift triggers,
+shadow AUC delta, promotions by outcome, reservoir rows, circuit
+breaker), byte for byte the JAX render of the same snapshot. The
+single-process server renders one block per tenant under
+``lifecycle.enabled=true``; on the ring plane the engine process's
+telemetry loop writes each controller's snapshot into its tenant's row
+(``RequestRing.write_lifecycle``) and every front end renders it from
+there, as the JAX ring render does. Tracing, the SLO engine, the cost
+ledger and the autotuner are not ported (ROADMAP A4), nor their series.
 """
 
 from __future__ import annotations
@@ -51,7 +57,7 @@ ROUTES = KNOWN_ROUTES + ("<other>",)
 # a catch-all column rendered as status="other".
 RING_STATUSES = (200, 400, 404, 409, 413, 422, 500, 503, 504)
 RING_CLASSES = ("small", "large")
-TENANT = "default"
+DEFAULT_TENANT_LABEL = "default"
 # Promotion outcomes, in the JAX package's order.
 LIFE_OUTCOMES = ("promoted", "rejected", "rolled_back")
 # Fields of the ring's lifecycle row (engine-process single writer; see
@@ -87,7 +93,7 @@ def _counter(name: str, value) -> list[str]:
     return [f"# TYPE {name} counter", f"{name} {value}"]
 
 
-def lifecycle_lines(snapshot: dict | None, tenant: str = TENANT) -> list[str]:
+def lifecycle_lines(snapshot: dict | None, tenant: str = DEFAULT_TENANT_LABEL) -> list[str]:
     """The lifecycle gauge block for one controller
     (``LifecycleController.metrics_snapshot``); empty without one."""
     if not snapshot:
@@ -128,122 +134,196 @@ def lifecycle_lines(snapshot: dict | None, tenant: str = TENANT) -> list[str]:
     return lines
 
 
+def _lifecycle_row(ring, t: int) -> dict:
+    """Tenant ``t``'s lifecycle row rebuilt as a controller snapshot, so
+    the one formatter renders it on both planes."""
+    life = ring.life_vals[t]
+    return {
+        "generation": int(life[LIFE_GENERATION]),
+        "drift_triggers": int(life[LIFE_TRIGGERS]),
+        "shadow_auc_delta": (float(life[LIFE_AUC_DELTA])
+                             if life[LIFE_HAS_DELTA] else None),
+        "promotions": {outcome: int(ring.life_promos[t, i])
+                       for i, outcome in enumerate(LIFE_OUTCOMES)},
+        "reservoir_rows": int(life[LIFE_RESERVOIR]),
+        "breaker_open": bool(life[LIFE_BREAKER_OPEN]),
+        "breaker_trips": int(life[LIFE_BREAKER_TRIPS]),
+    }
+
+
 def render_ring_metrics(ring) -> str:
     """Prometheus text for the whole ring plane, from ``ring``'s shared
-    memory alone."""
-    t = f'tenant="{TENANT}"'
+    memory alone. The per-tenant request, depth, shed, quota and monitor
+    series, the per-replica block and the lifecycle blocks are the JAX
+    ring render's lines for the same rows."""
+    tenants = ring.tenant_names
+    R, T = ring.replicas, len(tenants)
+    statuses = (*RING_STATUSES, "other")
     lines = ["# TYPE mlops_tpu_requests_total counter"]
     for w in range(ring.workers):
-        for r_i, route in enumerate(ROUTES):
-            row = ring.req_counts[w, r_i]
-            for s_i, status in enumerate((*RING_STATUSES, "other")):
-                if int(row[s_i]):
-                    lines.append(
-                        f'mlops_tpu_requests_total{{route="{route}",'
-                        f'status="{status}",worker="{w}",{t}}} {int(row[s_i])}'
-                    )
+        for t, tenant in enumerate(tenants):
+            for r_i, route in enumerate(ROUTES):
+                row = ring.req_counts[w, t, r_i]
+                for s_i, status in enumerate(statuses):
+                    if int(row[s_i]):
+                        lines.append(
+                            f'mlops_tpu_requests_total{{route="{route}",'
+                            f'status="{status}",worker="{w}",'
+                            f'tenant="{tenant}"}} {int(row[s_i])}'
+                        )
     lines.append("# TYPE mlops_tpu_request_latency_ms histogram")
     for w in range(ring.workers):
-        cumulative = 0
-        for edge, count in zip(LATENCY_BUCKETS, ring.lat_counts[w]):
-            cumulative += int(count)
-            label = "+Inf" if edge == float("inf") else str(edge)
+        for t, tenant in enumerate(tenants):
+            cumulative = 0
+            for edge, count in zip(LATENCY_BUCKETS, ring.lat_counts[w, t]):
+                cumulative += int(count)
+                label = "+Inf" if edge == float("inf") else str(edge)
+                lines.append(
+                    f'mlops_tpu_request_latency_ms_bucket{{le="{label}",'
+                    f'worker="{w}",tenant="{tenant}"}} {cumulative}'
+                )
             lines.append(
-                f'mlops_tpu_request_latency_ms_bucket{{le="{label}",'
-                f'worker="{w}",{t}}} {cumulative}'
+                f'mlops_tpu_request_latency_ms_sum{{worker="{w}",'
+                f'tenant="{tenant}"}} {float(ring.lat_sum_ms[w, t])}'
             )
-        lines.append(
-            f'mlops_tpu_request_latency_ms_sum{{worker="{w}",{t}}} '
-            f"{float(ring.lat_sum_ms[w])}"
-        )
-        lines.append(
-            f'mlops_tpu_request_latency_ms_count{{worker="{w}",{t}}} '
-            f"{int(ring.lat_n[w])}"
-        )
-    # Every worker's depth and shed series, always: a scrape proves each
-    # worker exists even before it served traffic.
+            lines.append(
+                f'mlops_tpu_request_latency_ms_count{{worker="{w}",'
+                f'tenant="{tenant}"}} {int(ring.lat_n[w, t])}'
+            )
+    # Every worker's depth and shed series for every tenant, always: a
+    # scrape proves each worker exists even before it served traffic.
     for name, cells in (("mlops_tpu_ring_depth", ring.inflight),
                         ("mlops_tpu_shed_total", ring.shed)):
         kind = "gauge" if name.endswith("depth") else "counter"
         lines.append(f"# TYPE {name} {kind}")
         for w in range(ring.workers):
             for c_i, cls in enumerate(RING_CLASSES):
-                lines.append(
-                    f'{name}{{worker="{w}",class="{cls}",{t}}} '
-                    f"{int(cells[w, c_i])}"
-                )
+                for t, tenant in enumerate(tenants):
+                    lines.append(
+                        f'{name}{{worker="{w}",class="{cls}",'
+                        f'tenant="{tenant}"}} {int(cells[w, t, c_i])}'
+                    )
+    # Sheds of a tenant's own weighted max-min quota, apart from physical
+    # slot exhaustion.
+    lines.append("# TYPE mlops_tpu_tenant_quota_shed_total counter")
+    for w in range(ring.workers):
+        for t, tenant in enumerate(tenants):
+            lines.append(
+                f'mlops_tpu_tenant_quota_shed_total{{worker="{w}",'
+                f'tenant="{tenant}"}} {int(ring.quota_shed[w, t])}'
+            )
+    # The monitor aggregate folds the replica axis: totals sum over the
+    # replica rows; the drift mean is recomputed from the unrounded sums;
+    # drift_last comes from the most recently fetched row.
     mon = ring.mon_vals
-    lines += [
-        "# TYPE mlops_tpu_rows_scored_total counter",
-        f"mlops_tpu_rows_scored_total{{{t}}} {int(mon[MON_ROWS])}",
-        "# TYPE mlops_tpu_outliers_total counter",
-        f"mlops_tpu_outliers_total{{{t}}} {int(mon[MON_OUTLIERS])}",
-    ]
-    if mon[MON_HAS]:
-        for name, values in (("mlops_tpu_feature_drift_score", ring.mon_drift_last),
-                             ("mlops_tpu_feature_drift_mean", ring.mon_drift_mean)):
-            lines.append(f"# TYPE {name} gauge")
-            for feature, score in zip(SCHEMA.feature_names, values):
-                lines.append(f'{name}{{feature="{feature}",{t}}} {float(score)}')
-        lines += _counter("mlops_tpu_monitor_fetches_total", int(mon[MON_FETCHES]))
-        lines += [
-            "# TYPE mlops_tpu_monitor_batches_total counter",
-            f"mlops_tpu_monitor_batches_total{{{t}}} {int(mon[MON_BATCHES])}",
-            "# TYPE mlops_tpu_monitor_fetch_age_seconds gauge",
-            "mlops_tpu_monitor_fetch_age_seconds "
-            f"{time.monotonic() - float(mon[MON_FETCHED_AT]):.3f}",
-        ]
+    lines.append("# TYPE mlops_tpu_rows_scored_total counter")
+    for t, tenant in enumerate(tenants):
+        lines.append(f'mlops_tpu_rows_scored_total{{tenant="{tenant}"}} '
+                     f"{int(mon[:, t, MON_ROWS].sum())}")
+    lines.append("# TYPE mlops_tpu_outliers_total counter")
+    for t, tenant in enumerate(tenants):
+        lines.append(f'mlops_tpu_outliers_total{{tenant="{tenant}"}} '
+                     f"{int(mon[:, t, MON_OUTLIERS].sum())}")
+    if mon[:, :, MON_HAS].any():
+        lines.append("# TYPE mlops_tpu_feature_drift_score gauge")
+        for t, tenant in enumerate(tenants):
+            has = [r for r in range(R) if mon[r, t, MON_HAS]]
+            if not has:
+                continue
+            last = max(has, key=lambda r: (float(mon[r, t, MON_FETCHED_AT]), -r))
+            for feature, score in zip(SCHEMA.feature_names, ring.mon_drift_last[last, t]):
+                lines.append(f'mlops_tpu_feature_drift_score{{feature="{feature}",'
+                             f'tenant="{tenant}"}} {float(score)}')
+        if mon[:, :, MON_FETCHES].sum():
+            lines.append("# TYPE mlops_tpu_feature_drift_mean gauge")
+            for t, tenant in enumerate(tenants):
+                if not int(mon[:, t, MON_FETCHES].sum()):
+                    continue
+                if R == 1:
+                    mean = ring.mon_drift_mean[0, t]
+                else:
+                    batches = float(mon[:, t, MON_BATCHES].sum())
+                    mean = (ring.mon_drift_sum[:, t, :].sum(axis=0)
+                            / max(batches, 1.0)).round(6)
+                for feature, score in zip(SCHEMA.feature_names, mean):
+                    lines.append(f'mlops_tpu_feature_drift_mean{{feature="{feature}",'
+                                 f'tenant="{tenant}"}} {float(score)}')
+    fetches = int(mon[:, :, MON_FETCHES].sum())
+    if fetches:
+        lines += _counter("mlops_tpu_monitor_fetches_total", fetches)
+        lines.append("# TYPE mlops_tpu_monitor_batches_total counter")
+        for t, tenant in enumerate(tenants):
+            lines.append(f'mlops_tpu_monitor_batches_total{{tenant="{tenant}"}} '
+                         f"{int(mon[:, t, MON_BATCHES].sum())}")
+        # The oldest fetched row's age: one stuck (replica, tenant) row
+        # never hides behind another's fresh fetch.
+        fetched = [float(mon[r, t, MON_FETCHED_AT]) for r in range(R) for t in range(T)
+                   if float(mon[r, t, MON_FETCHED_AT]) > 0]
+        if fetched:
+            lines += [
+                "# TYPE mlops_tpu_monitor_fetch_age_seconds gauge",
+                "mlops_tpu_monitor_fetch_age_seconds "
+                f"{time.monotonic() - min(fetched):.3f}",
+            ]
     eng = ring.eng_vals
     lines += _counter(
         "mlops_tpu_deadline_expired_total",
-        int(ring.expired.sum()) + int(eng[ENG_EXPIRED]),
+        int(ring.expired.sum()) + int(eng[:, ENG_EXPIRED].sum()),
     )
-    lines += _counter("mlops_tpu_engine_respawn_total", int(eng[ENG_RESPAWNS]))
-    lines += _counter("mlops_tpu_replayed_slots_total", int(eng[ENG_REPLAYED]))
-    lines += _counter("mlops_tpu_monitor_rows_lost_total", int(eng[ENG_ROWS_LOST]))
+    lines += _counter("mlops_tpu_engine_respawn_total", int(eng[:, ENG_RESPAWNS].sum()))
+    lines += _counter("mlops_tpu_replayed_slots_total", int(eng[:, ENG_REPLAYED].sum()))
+    lines += _counter("mlops_tpu_monitor_rows_lost_total", int(eng[:, ENG_ROWS_LOST].sum()))
     lines += [
         "# TYPE mlops_tpu_parked_requests gauge",
         f"mlops_tpu_parked_requests {int(ring.parked.sum())}",
     ]
     lines += _counter("mlops_tpu_brownout_shed_total", int(ring.brownout_shed.sum()))
+    down = [float(v) for v in eng[:, ENG_DOWN_SINCE] if v > 0]
     lines += [
         "# TYPE mlops_tpu_engine_incarnation gauge",
-        f"mlops_tpu_engine_incarnation {int(eng[ENG_INCARNATION])}",
-        # The monotonic time the supervisor saw the engine die; 0 while
-        # an engine is up.
+        f"mlops_tpu_engine_incarnation {int(eng[:, ENG_INCARNATION].sum())}",
+        # The monotonic time the supervisor saw the earliest replica still
+        # down die; 0 while every replica is up.
         "# TYPE mlops_tpu_engine_down_since gauge",
-        f"mlops_tpu_engine_down_since {float(eng[ENG_DOWN_SINCE])}",
+        f"mlops_tpu_engine_down_since {min(down) if down else 0.0}",
         "# TYPE mlops_tpu_tier_requests_total counter",
     ]
     for i, tier in enumerate(TIERS):
         lines.append(
             f'mlops_tpu_tier_requests_total{{tier="{tier}"}} '
-            f"{int(ring.tier_counts[i])}"
+            f"{int(ring.tier_counts[:, i].sum())}"
         )
     lines += _counter("mlops_tpu_tier_demotions_total", int(ring.tier_demote.sum()))
     lines += _counter("mlops_tpu_brownout_demote_total",
                       int(ring.brownout_demote.sum()))
+    # Every replica's series on every scrape: a replica that never
+    # dispatched exports zeros, as "no series" reads as a dead replica.
+    for name, kind, values in (
+        ("mlops_tpu_replica_ready", "gauge",
+         [1 if ring.rep_ready[r] else 0 for r in range(R)]),
+        ("mlops_tpu_replica_ring_depth", "gauge",
+         [int(ring.rep_inflight[:, r].sum()) for r in range(R)]),
+        ("mlops_tpu_replica_incarnation", "gauge",
+         [int(eng[r, ENG_INCARNATION]) for r in range(R)]),
+        ("mlops_tpu_replica_respawn_total", "counter",
+         [int(eng[r, ENG_RESPAWNS]) for r in range(R)]),
+        ("mlops_tpu_replica_replayed_slots_total", "counter",
+         [int(eng[r, ENG_REPLAYED]) for r in range(R)]),
+        ("mlops_tpu_replica_rows_scored_total", "counter",
+         [int(mon[r, :, MON_ROWS].sum()) for r in range(R)]),
+    ):
+        lines.append(f"# TYPE {name} {kind}")
+        lines += [f'{name}{{replica="{r}"}} {v}' for r, v in enumerate(values)]
     lines.append("# TYPE mlops_tpu_dispatches_total counter")
     for entry, count in sorted(ring.dispatch_counts().items()):
         lines.append(f'mlops_tpu_dispatches_total{{entry="{entry}"}} {count}')
     lines += [
         "# TYPE mlops_tpu_kernel_launches_total counter",
         'mlops_tpu_kernel_launches_total{kernel="quant_fused"} '
-        f"{int(ring.kernel_launches[0])}",
+        f"{int(ring.kernel_launches.sum())}",
     ]
-    life = ring.life_vals
-    if life[LIFE_HAS]:
-        # The engine process's loop state, rebuilt as a snapshot so the
-        # one formatter renders it on both planes.
-        lines += lifecycle_lines({
-            "generation": int(life[LIFE_GENERATION]),
-            "drift_triggers": int(life[LIFE_TRIGGERS]),
-            "shadow_auc_delta": (float(life[LIFE_AUC_DELTA])
-                                 if life[LIFE_HAS_DELTA] else None),
-            "promotions": {outcome: int(ring.life_promos[i])
-                           for i, outcome in enumerate(LIFE_OUTCOMES)},
-            "reservoir_rows": int(life[LIFE_RESERVOIR]),
-            "breaker_open": bool(life[LIFE_BREAKER_OPEN]),
-            "breaker_trips": int(life[LIFE_BREAKER_TRIPS]),
-        })
+    for t, tenant in enumerate(tenants):
+        if ring.life_vals[t, LIFE_HAS]:
+            # The engine process's loop state per tenant.
+            lines += lifecycle_lines(_lifecycle_row(ring, t), tenant)
     return "\n".join(lines) + "\n"

@@ -2,13 +2,21 @@
 or both with SLO tier routing): the single-process plane.
 
 The JAX package's single-process plane (``serve/server.py`` over
-``serve/httpcore.py``), without tenancy, tracing spans or the SLO engine
-(ROADMAP A4); with ``lifecycle=`` it runs the closed lifecycle loop's
-controller (``lifecycle/controller.py``): started once warmup is done,
-its gauges on ``/metrics``, drained on SIGTERM. The HTTP protocol, the docs and health routes
-and the ``POST /predict`` shell are ``serve/httpcore.py``'s, shared with
-the multi-worker front ends (``serve/frontend.py``); this module scores
-in process:
+``serve/httpcore.py``), without tracing spans or the SLO engine (ROADMAP
+A4); with ``lifecycle=`` it runs the closed lifecycle loop's controller
+(``lifecycle/controller.py``): started once warmup is done, its gauges on
+``/metrics``, drained on SIGTERM. With ``registry=`` (a
+``tenancy.TenantRegistry``) it serves a tenant fleet: one engine and one
+micro-batcher per tenant over the one executor, the dispatch and fetch
+bounds divided by the tenant count (each tenant's slice of the pool is
+its own, so a hot tenant's flood queues in its own batcher: this plane
+has no quota governor), requests routed by ``x-tenant``, the monitor
+read per tenant (one tenant's failed read never freezes the others'),
+one lifecycle controller per tenant, and the ``tenant`` label on every
+per-tenant series. The HTTP protocol, the docs and health routes and the
+``POST /predict`` shell are ``serve/httpcore.py``'s, shared with the
+multi-worker front ends (``serve/frontend.py``); this module scores in
+process:
 
 - ``POST /predict`` — validate (422), cap the batch (413), log the
   reference's two structured events (``InferenceData`` before scoring,
@@ -61,6 +69,7 @@ from mlops_tpu_torch.serve.wire import (
     deadline_response,
     profile_payload,
 )
+from mlops_tpu_torch.tenancy.router import TenantRouter
 
 logger = logging.getLogger("mlops_tpu_torch.serve")
 
@@ -114,36 +123,40 @@ class TorchProfiler:
 
 
 class Metrics:
-    """Request counters by (route, status), the last monitor snapshot and
-    the deadline and tier-routing counters; rendered in Prometheus text
-    format under the JAX package's series names. Two series are the
-    port's own: ``mlops_tpu_kernel_launches_total`` and
+    """Request counters by (route, status, tenant), each tenant's last
+    monitor snapshot and lifecycle gauges, and the deadline and
+    tier-routing counters; rendered in Prometheus text format under the
+    JAX package's series names, every per-tenant series with its
+    ``tenant`` label. Two series are the port's own:
+    ``mlops_tpu_kernel_launches_total`` and
     ``mlops_tpu_dispatches_total{entry=...}`` (dispatches per program; on
     the card each is one CUDA graph replay)."""
 
-    def __init__(self) -> None:
+    def __init__(self, tenants: tuple[str, ...] = ("default",)) -> None:
         self._lock = threading.Lock()
-        self.requests: dict[tuple[str, int], int] = {}
-        self.monitor: dict[str, Any] = {
-            "rows": 0.0, "outliers": 0.0, "batches": 0.0,
-            "drift_last": {}, "drift_mean": {},
+        self.requests: dict[tuple[str, int, str], int] = {}
+        self.monitor: dict[str, dict[str, Any]] = {
+            tenant: {"rows": 0.0, "outliers": 0.0, "batches": 0.0,
+                     "drift_last": {}, "drift_mean": {}}
+            for tenant in tenants
         }
         self.monitor_fetches = 0
         self.deadline_expired = 0
         self.tier_requests: dict[str, int] = dict.fromkeys(TIERS, 0)
         self.tier_demotions = 0
         self.brownout_demotions = 0
-        self.lifecycle: dict[str, Any] | None = None
+        self.lifecycle: dict[str, dict[str, Any]] = {}
 
-    def observe_request(self, route: str, status: int,
-                        latency_ms: float = 0.0) -> None:
+    def observe_request(self, route: str, status: int, latency_ms: float = 0.0,
+                        tenant: str = "default") -> None:
         with self._lock:
-            key = (route, status)
+            key = (route, status, tenant)
             self.requests[key] = self.requests.get(key, 0) + 1
 
-    def set_monitor_aggregate(self, snapshot: dict[str, Any]) -> None:
+    def set_monitor_aggregate(self, snapshot: dict[str, Any],
+                              tenant: str = "default") -> None:
         with self._lock:
-            self.monitor = snapshot
+            self.monitor[tenant] = snapshot
             self.monitor_fetches += 1
 
     def count_deadline_expired(self) -> None:
@@ -151,11 +164,12 @@ class Metrics:
         with self._lock:
             self.deadline_expired += 1
 
-    def set_lifecycle(self, snapshot: dict[str, Any]) -> None:
-        """Install a lifecycle-controller snapshot for the next render."""
+    def set_lifecycle(self, snapshot: dict[str, Any], tenant: str = "default") -> None:
+        """Install a tenant's lifecycle-controller snapshot for the next
+        render."""
         if snapshot:
             with self._lock:
-                self.lifecycle = dict(snapshot)
+                self.lifecycle[tenant] = dict(snapshot)
 
     def count_tier(self, tier: str) -> None:
         with self._lock:
@@ -168,37 +182,32 @@ class Metrics:
                 self.brownout_demotions += 1
 
     def render(self, dispatches: dict[str, int]) -> str:
-        t = 'tenant="default"'
         with self._lock:
             lines = ["# TYPE mlops_tpu_requests_total counter"]
-            for (route, status), count in sorted(self.requests.items()):
+            for (route, status, tenant), count in sorted(
+                self.requests.items(), key=lambda kv: (kv[0][2],) + kv[0][:2]
+            ):
                 lines.append(
                     f'mlops_tpu_requests_total{{route="{route}",'
-                    f'status="{status}",{t}}} {count}'
+                    f'status="{status}",tenant="{tenant}"}} {count}'
                 )
-            monitor = self.monitor
+            tenants = sorted(self.monitor)
+            for name, field in (("mlops_tpu_rows_scored_total", "rows"),
+                                ("mlops_tpu_outliers_total", "outliers"),
+                                ("mlops_tpu_monitor_batches_total", "batches")):
+                lines.append(f"# TYPE {name} counter")
+                lines += [f'{name}{{tenant="{t}"}} {self.monitor[t][field]}'
+                          for t in tenants]
             lines += [
-                "# TYPE mlops_tpu_rows_scored_total counter",
-                f"mlops_tpu_rows_scored_total{{{t}}} {monitor['rows']}",
-                "# TYPE mlops_tpu_outliers_total counter",
-                f"mlops_tpu_outliers_total{{{t}}} {monitor['outliers']}",
-                "# TYPE mlops_tpu_monitor_batches_total counter",
-                f"mlops_tpu_monitor_batches_total{{{t}}} {monitor['batches']}",
                 "# TYPE mlops_tpu_monitor_fetches_total counter",
                 f"mlops_tpu_monitor_fetches_total {self.monitor_fetches}",
-                "# TYPE mlops_tpu_feature_drift_score gauge",
             ]
-            for feature, score in monitor["drift_last"].items():
-                lines.append(
-                    f'mlops_tpu_feature_drift_score{{feature="{feature}",{t}}} '
-                    f"{score}"
-                )
-            lines.append("# TYPE mlops_tpu_feature_drift_mean gauge")
-            for feature, score in monitor["drift_mean"].items():
-                lines.append(
-                    f'mlops_tpu_feature_drift_mean{{feature="{feature}",{t}}} '
-                    f"{score}"
-                )
+            for name, field in (("mlops_tpu_feature_drift_score", "drift_last"),
+                                ("mlops_tpu_feature_drift_mean", "drift_mean")):
+                lines.append(f"# TYPE {name} gauge")
+                for t in tenants:
+                    for feature, score in self.monitor[t][field].items():
+                        lines.append(f'{name}{{feature="{feature}",tenant="{t}"}} {score}')
             lines += [
                 "# TYPE mlops_tpu_deadline_expired_total counter",
                 f"mlops_tpu_deadline_expired_total {self.deadline_expired}",
@@ -215,7 +224,8 @@ class Metrics:
                 "# TYPE mlops_tpu_brownout_demote_total counter",
                 f"mlops_tpu_brownout_demote_total {self.brownout_demotions}",
             ]
-            lines += lifecycle_lines(self.lifecycle)
+            for tenant in sorted(self.lifecycle):
+                lines += lifecycle_lines(self.lifecycle[tenant], tenant)
         lines.append("# TYPE mlops_tpu_dispatches_total counter")
         for entry, count in sorted(dispatches.items()):
             lines.append(f'mlops_tpu_dispatches_total{{entry="{entry}"}} {count}')
@@ -229,42 +239,58 @@ class Metrics:
 
 class HttpServer(HttpProtocol):
     def __init__(self, engine: InferenceEngine, config: ServeConfig,
-                 lifecycle=None):
+                 lifecycle=None, registry=None):
         super().__init__(config.validate())
-        self.engine = engine
-        # The lifecycle controller (``lifecycle/controller.py``), when the
-        # loop runs: ``serve`` starts it after warmup and stops it on drain.
+        # The tenant fleet: ``registry`` (a ``TenantRegistry``) puts one
+        # engine per tenant behind this plane; None is the one-tenant
+        # fleet around ``engine``.
+        self.registry = registry
+        self.engines = list(registry.engines) if registry is not None else [engine]
+        self.engine = registry.default_engine if registry is not None else engine
+        if registry is not None:
+            self.tenants = TenantRouter(registry.names, registry.default_index)
+        # The lifecycle controllers (``lifecycle/controller.py``), when the
+        # loop runs, one per tenant (a bare one is the one-tenant form):
+        # ``serve`` starts them after warmup and stops them on drain.
         self.lifecycle = lifecycle
-        self.metrics = Metrics()
+        self.metrics = Metrics(self.tenants.names)
         # The request cap never exceeds the largest warmed bucket.
-        self.max_batch = min(config.max_batch, engine.max_bucket)
+        self.max_batch = min(config.max_batch, min(e.max_bucket for e in self.engines))
         max_inflight = config.max_inflight
         self._executor = concurrent.futures.ThreadPoolExecutor(
             max_workers=config.max_workers, thread_name_prefix="predict"
         )
         self._profiler = TorchProfiler(config.profile_dir)
-        # One batcher over the one executor: validate() guarantees the
-        # dispatch bound, the fetch ring (>= 1) and one thread of headroom
-        # (the solo fast path, monitor fetches) fit the pool.
+        # One batcher per tenant over the one executor: validate()
+        # guarantees the dispatch bound, the fetch ring (>= 1) and one
+        # thread of headroom (the solo fast path, monitor fetches) fit the
+        # pool, and a fleet divides the bounds (at least 1 each): each
+        # tenant's slice of the pool is its own.
         fetch_inflight = min(
             max_inflight, max(1, config.max_workers - max_inflight - 1)
         )
-        self.batcher = MicroBatcher(
-            engine,
-            self._executor,
-            window_ms=config.batch_window_ms,
-            max_group=config.max_group,
-            max_inflight=max_inflight,
-            fetch_inflight=fetch_inflight,
-            batch_mode=config.batch_mode,
-            admit_fraction=config.batch_admit_fraction,
-            wire_responses=True,
-        )
-        # SLO tier routing and brownout: armed only when asked for and the
+        n_tenants = len(self.engines)
+        self.batchers = [
+            MicroBatcher(
+                eng,
+                self._executor,
+                window_ms=config.batch_window_ms,
+                max_group=config.max_group,
+                max_inflight=max(1, max_inflight // n_tenants),
+                fetch_inflight=max(1, fetch_inflight // n_tenants),
+                batch_mode=config.batch_mode,
+                admit_fraction=config.batch_admit_fraction,
+                wire_responses=True,
+            )
+            for eng in self.engines
+        ]
+        self.batcher = self.batchers[self.tenants.default_index]
+        # SLO tier routing and brownout: armed only when asked for and an
         # engine holds a second tier. Pressure is the in-flight predict
         # depth over the dispatch capacity (max_inflight groups of
         # max_group requests).
-        self.slo_routing = config.tier_routing and len(engine.available_tiers) > 1
+        self.slo_routing = config.tier_routing and any(
+            len(eng.available_tiers) > 1 for eng in self.engines)
         self._brownout = (
             BrownoutGovernor(
                 demote_depth=config.brownout_demote_depth,
@@ -302,16 +328,18 @@ class HttpServer(HttpProtocol):
 
     # ------------------------------------------------------------- scoring
     async def _score(self, records: list[dict], request_id: str,
-                     deadline: float | None, slo: int):
-        """Micro-batcher -> engine, with the deadline and failure
-        contracts. ``slo`` maps to a tier, through the brownout governor
-        first."""
+                     deadline: float | None, slo: int, tenant: int = 0):
+        """The tenant's micro-batcher -> its engine, with the deadline and
+        failure contracts (tenants share the pool, never a dispatch).
+        ``slo`` maps to a tier of that engine, through the brownout
+        governor first."""
+        engine = self.engines[tenant]
         tier: str | None = None
         if self._brownout is not None:
             self._brownout.observe(self._score_inflight / self._score_capacity)
             routed, demoted = self._brownout.route(slo)
-            tier = self.engine.route_tier(routed)
-            self.metrics.count_tier(tier or self.engine.default_tier)
+            tier = engine.route_tier(routed)
+            self.metrics.count_tier(tier or engine.default_tier)
             if demoted:
                 self.metrics.count_demotion(brownout=True)
         self._score_inflight += 1
@@ -323,7 +351,7 @@ class HttpServer(HttpProtocol):
             if deadline is not None:
                 remaining = deadline - asyncio.get_running_loop().time()
                 timeout = min(timeout or remaining, remaining)
-            call = self.batcher.predict(records, deadline=deadline, tier=tier)
+            call = self.batchers[tenant].predict(records, deadline=deadline, tier=tier)
             if timeout is not None:
                 response = await asyncio.wait_for(call, max(timeout, 0.0))
             else:
@@ -377,11 +405,23 @@ class HttpServer(HttpProtocol):
             self._spawn_monitor_fetch()
 
     async def _fetch_monitor(self) -> None:
+        """One aggregate read per tenant, in turn on the executor. A
+        tenant's failed read keeps its gauges and never stops the
+        others'; a one-tenant plane's failure reaches the done-callback
+        log."""
+        loop = asyncio.get_running_loop()
         self._monitor_requests = 0
-        snapshot = await asyncio.get_running_loop().run_in_executor(
-            self._executor, self.engine.monitor_snapshot
-        )
-        self.metrics.set_monitor_aggregate(snapshot)
+        failed = None
+        for name, engine in zip(self.tenants.names, self.engines):
+            try:
+                snapshot = await loop.run_in_executor(self._executor,
+                                                      engine.monitor_snapshot)
+                self.metrics.set_monitor_aggregate(snapshot, tenant=name)
+            except Exception as err:
+                logger.error("monitor fetch failed for tenant %r", name, exc_info=True)
+                failed = err
+        if failed is not None and len(self.engines) == 1:
+            raise failed
 
     async def _monitor_timer(self) -> None:
         """The staleness floor: a trickle of traffic that never reaches
@@ -401,11 +441,25 @@ class HttpServer(HttpProtocol):
                 await asyncio.wait_for(
                     asyncio.shield(self._spawn_monitor_fetch()), timeout=1.0
                 )
-        if self.lifecycle is not None:
+        for name, controller in self._tenant_lifecycles():
             # A host dict read under the controller's leaf lock.
-            self.metrics.set_lifecycle(self.lifecycle.metrics_snapshot())
-        text = self.metrics.render(self.engine.dispatch_counts())
+            self.metrics.set_lifecycle(controller.metrics_snapshot(), tenant=name)
+        dispatches: dict[str, int] = {}
+        for engine in self.engines:
+            for entry, count in engine.dispatch_counts().items():
+                dispatches[entry] = dispatches.get(entry, 0) + count
+        text = self.metrics.render(dispatches)
         return 200, text, "text/plain; version=0.0.4"
+
+    def _tenant_lifecycles(self) -> list[tuple[str, Any]]:
+        """(tenant name, controller) pairs: the per-tenant list, or the
+        one controller on the default tenant."""
+        if self.lifecycle is None:
+            return []
+        if isinstance(self.lifecycle, (list, tuple)):
+            return [(self.tenants.names[t], c) for t, c in enumerate(self.lifecycle)
+                    if c is not None]
+        return [(self.tenants.names[self.tenants.default_index], self.lifecycle)]
 
     async def _profile(self, action: str):
         if action not in ("start", "stop"):
@@ -417,16 +471,19 @@ class HttpServer(HttpProtocol):
 
     # -------------------------------------------------------------- routes
     def _ready(self) -> bool:
-        return bool(self.engine.ready) and not self.draining
+        return all(bool(eng.ready) for eng in self.engines) and not self.draining
 
 
 async def serve(engine: InferenceEngine, config: ServeConfig,
-                lifecycle=None) -> None:
+                lifecycle=None, registry=None) -> None:
     """Bind, warm up behind the socket, serve until SIGTERM, then drain.
-    ``lifecycle`` (a ``LifecycleController``) starts once warmup is done
-    and stops (its thread joined, the engine tee cleared, the reservoir
-    saved) while the server drains."""
-    server = HttpServer(engine, config, lifecycle=lifecycle)
+    ``registry`` (a ``TenantRegistry``) serves its fleet, warmed tenant by
+    tenant. ``lifecycle`` (a ``LifecycleController``, or one per tenant)
+    starts once warmup is done and stops (its thread joined, the engine
+    tee cleared, the reservoir saved) while the server drains."""
+    server = HttpServer(engine, config, lifecycle=lifecycle, registry=registry)
+    engine = server.engine
+    controllers = [c for _, c in server._tenant_lifecycles()]
     srv = await server.start()
     logger.info(
         "serving %s on %s:%s (tier=%s, tiers=%s, device=%s)",
@@ -438,13 +495,19 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
 
     async def _warm() -> None:
         try:
-            await loop.run_in_executor(None, engine.warmup)
-            logger.info("warmup complete; ready %s", _LazyJson(engine.warmup_stats))
-            if lifecycle is not None:
-                # Only once the live graphs are all captured: a trigger
-                # before then would have nothing warm to shadow against.
-                lifecycle.start()
-                logger.info("lifecycle controller started")
+            if registry is not None:
+                report = await loop.run_in_executor(None, registry.warmup)
+            else:
+                await loop.run_in_executor(None, engine.warmup)
+                report = engine.warmup_stats
+            logger.info("warmup complete; ready %s", _LazyJson(report))
+            # Only once the live graphs are all captured: a trigger before
+            # then would have nothing warm to shadow against.
+            for controller in controllers:
+                controller.start()
+            if controllers:
+                logger.info("lifecycle controller started (%d tenant(s))",
+                            len(controllers))
         # A failed warmup (kernel build, launch, graph capture, OOM) stops
         # the server: the error is re-raised below, never left as a
         # forever-503.
@@ -469,9 +532,9 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
     finally:
         srv.close()
         server.stop_telemetry()
-        if lifecycle is not None:
+        for controller in controllers:
             # stop() joins the controller thread: never on the event loop.
-            await loop.run_in_executor(None, lifecycle.stop)
+            await loop.run_in_executor(None, controller.stop)
         await warm_task
         deadline = loop.time() + config.drain_deadline_s
         while server._busy and loop.time() < deadline:
@@ -485,6 +548,6 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
 
 
 def serve_forever(engine: InferenceEngine, config: ServeConfig,
-                  lifecycle=None) -> None:
+                  lifecycle=None, registry=None) -> None:
     """Blocking entry point."""
-    asyncio.run(serve(engine, config, lifecycle=lifecycle))
+    asyncio.run(serve(engine, config, lifecycle=lifecycle, registry=registry))

@@ -7,8 +7,10 @@ with the same text. Every key of the JAX config tree that the port has not
 ported (the JAX dataclass fields minus the port's ported ones, enumerated
 here from the two trees) is accepted at its JAX default and refused,
 naming its ROADMAP item, at any other value, whether the environment, the
-TOML or a CLI override sets it. The ten keys of the ring plane and the warm
-start (``serve.workers`` and its geometry, ``cache.dir``,
+TOML or a CLI override sets it. The thirteen keys of the ring plane, its
+engine replica set, the tenant fleet and the warm start (``serve.workers``
+and its geometry, ``serve.engine_replicas``,
+``serve.replica_affinity_slack``, ``serve.tenants_path``, ``cache.dir``,
 ``cache.warmup_workers``) are ported: off their defaults, each layer gives
 the JAX loader's value."""
 
@@ -66,7 +68,7 @@ def test_the_unported_keys_are_the_jax_keys_the_port_lacks():
         assert PORT_FIELDS[key][1] == JAX_FIELDS[key][1], key  # the JAX default
     assert {k.split(".")[0] for k in JAX_ONLY} == {"serve", "trace", "slo", "autotune"}
     assert not [k for k, item in ITEM.items() if item == "A3"]
-    assert sum(k.startswith("serve.") for k in JAX_ONLY) == 5
+    assert sum(k.startswith("serve.") for k in JAX_ONLY) == 2
     assert {k for k, item in ITEM.items() if item == "A12"} == {
         "serve.loop_lag_monitor", "serve.loop_lag_slow_ms"}
 
@@ -138,6 +140,7 @@ RING_AND_WARM_START = [
     "serve.shed_retry_after_s", "serve.engine_respawn_eta_s",
     "serve.zygote_join_deadline_s", "serve.engine_zygote_join_s",
     "serve.log_sample_rate", "cache.dir", "cache.warmup_workers",
+    "serve.engine_replicas", "serve.replica_affinity_slack", "serve.tenants_path",
 ]
 
 
@@ -165,10 +168,10 @@ def test_workers_zero_and_one_are_the_single_process_server(workers):
 
 
 def test_the_cli_exits_naming_the_item(monkeypatch):
-    monkeypatch.setenv("MLOPS_TPU_SERVE_ENGINE_REPLICAS", "2")
-    with pytest.raises(SystemExit, match="serve.engine_replicas=2 refused: .*ROADMAP A4"):
+    monkeypatch.setenv("MLOPS_TPU_SLO_ENABLED", "true")
+    with pytest.raises(SystemExit, match="slo.enabled=True refused: .*ROADMAP A4"):
         main(["serve", "serve.device=cpu"])
-    monkeypatch.delenv("MLOPS_TPU_SERVE_ENGINE_REPLICAS")
+    monkeypatch.delenv("MLOPS_TPU_SLO_ENABLED")
     monkeypatch.setenv("MLOPS_TPU_TRACE_ENABLED", "true")
     with pytest.raises(SystemExit, match="trace.enabled=True refused: .*ROADMAP A4"):
         main(["versions"])

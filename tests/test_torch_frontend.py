@@ -381,7 +381,7 @@ def test_sigterm_drains_in_flight_requests_and_every_child_exits_zero(bundle_dir
     text = plane.text()
     for worker in (0, 1):
         assert f"frontend {worker} (pid {pids[f'frontend {worker}']}) exited 0" in text
-    assert f"engine (pid {pids['engine']}) exited 0" in text
+    assert f"engine replica 0 (pid {pids['engine']}) exited 0" in text
 
 
 def test_an_engine_outage_parks_admissions_and_its_shed_advertises_the_respawn_eta(

@@ -1202,7 +1202,7 @@ def test_the_deployed_job_on_a_bucket_tunes_and_serves_on_the_card():
     assert out["requests_answered"] == 4
     assert out["max_pred_gap_to_cpu"] <= chip_smoke.EXACT_PRED_ATOL + 1e-6
     assert out["ring_max_pred_gap_to_cpu"] <= chip_smoke.EXACT_PRED_ATOL + 1e-6
-    assert set(out["refusals"]) == {"MLOPS_TPU_SERVE_ENGINE_REPLICAS"}
+    assert set(out["refusals"]) == {"MLOPS_TPU_SLO_ENABLED"}
 
 
 # ------------------------------------------------------------ the ring plane
@@ -1298,3 +1298,155 @@ def test_a_two_worker_plane_on_the_card_answers_like_the_cpu_route(tmp_path):
             proc.wait(timeout=30)
         log.close()
 
+
+
+# ------------------------------------------------- the tenant fleet, replicas
+@pytest.fixture(scope="module")
+def fleet_dirs(card_state, tmp_path_factory):
+    """Three tenants' bundles: mlp-ens8 with a gated quant student, its
+    twin from another seed (another student too), and an mlp without one."""
+    import chip_smoke
+    from mlops_tpu_torch.bundle import save_exact_bundle
+    from mlops_tpu_torch.config import ModelConfig
+    from mlops_tpu_torch.models import build_model
+
+    _, mon, _, _ = card_state
+    columns, _ = generate_synthetic(5000, seed=0)
+    prep = Preprocessor.fit(columns)
+    root = tmp_path_factory.mktemp("fleet")
+    dirs = []
+    for k, (name, quant) in enumerate((("mlp-ens8", 0), ("mlp-ens8", 3), ("mlp", None))):
+        config = ModelConfig(precision="bf16", **EXACT_MODELS[name])
+        model = build_model(config)
+        chip_smoke._seeded_exact_params(model, 10 + k)
+        path = root / f"tenant{k}"
+        save_exact_bundle(
+            path, config, model, prep, mon.to("cpu"), calibration={"temperature": 1.2},
+            **({} if quant is None else dict(
+                quant_params=quantize_student(init_quant_master(quant)),
+                quant={"fidelity": {}, "temperature": 1.1, "gates": {"passed": True}})))
+        dirs.append(path)
+    return dirs
+
+
+def _fleet(dirs):
+    from mlops_tpu_torch.tenancy import TenancyConfig, TenantRegistry, TenantSpec
+
+    tenancy = TenancyConfig(tuple(TenantSpec(f"t{k}", str(d)) for k, d in enumerate(dirs)))
+    registry = TenantRegistry(tenancy, buckets=(1, 8, 64), device="cuda", tier_routing=True)
+    report = registry.warmup()
+    return registry, report
+
+
+@pytest.mark.gpu
+def test_no_two_live_engines_of_a_tenant_fleet_share_a_stream(serving_engines, fleet_dirs):
+    """A three-tenant fleet beside the serving engine and a retrain's own
+    stream: every dispatch and capture stream is held by one engine only;
+    the warmup report says no graphs are shared."""
+    from mlops_tpu_torch.device import own_stream
+
+    graphs, _, _ = serving_engines
+    registry, report = _fleet(fleet_dirs)
+    assert report["shared_exec_count"] == 0
+    assert report["t1"]["arch_twin_of"] == "t0" and "arch_twin_of" not in report["t2"]
+    alive = [graphs, *registry.engines]
+    with own_stream(graphs.device) as retrain:
+        held = [e._stream.cuda_stream for e in alive]
+        held += [e._capture_stream.cuda_stream for e in alive]
+        held.append(retrain.cuda_stream)
+    assert len(set(held)) == len(held)
+
+
+@pytest.mark.gpu
+def test_each_tenants_graphs_answer_as_its_bundle_alone(card_state, fleet_dirs):
+    """Each tenant engine of a fleet replays its own graphs: bitwise the
+    answers of an engine serving that bundle alone, on both tiers."""
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    _, _, ds, _ = card_state
+    registry, _ = _fleet(fleet_dirs)
+    for path, engine in zip(fleet_dirs, registry.engines):
+        alone = InferenceEngine(load_bundle(path), buckets=(1, 8, 64), tier_routing=True)
+        alone.warmup()
+        for tier in engine.available_tiers:
+            t = None if tier == engine.default_tier else tier
+            for key in ((1,), (8,), (64,), (64, 1), (64, 8)):
+                for seed in (5, 6):
+                    got = _dispatch(engine, ds, key, seed, t)
+                    want = _dispatch(alone, ds, key, seed, t)
+                    assert np.array_equal(_bits(got), _bits(want)), (path.name, tier, key)
+        del alone
+
+
+@pytest.mark.gpu
+def test_each_replica_counts_its_own_launches_and_the_ring_sums_them(fleet_dirs, tmp_path):
+    """``serve --workers 2 --replicas 2`` on the card with an empty kernel
+    cache: replica 0 builds the kernel, replica 1 loads it (0 nvcc); both
+    replicas serve quant-tier requests, and the ring's
+    ``mlops_tpu_kernel_launches_total`` is the sum of the replica
+    processes' own launches: one per quant-tier dispatch, summed."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+    import threading
+    import time
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the engine processes serve on it")
+    import chip_smoke
+
+    port = chip_smoke._free_port()
+    root = chip_smoke.ROOT
+    log_path = tmp_path / "plane.log"
+    log = open(log_path, "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mlops_tpu_torch", "serve", "--workers", "2", "--replicas", "2",
+         "serve.tier_routing=true", f"serve.model_directory={fleet_dirs[0]}",
+         f"serve.port={port}", "serve.host=127.0.0.1", "serve.warmup_batch_sizes=1,8,64"],
+        cwd=root, stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=str(root), MLOPS_TPU_CACHE_DIR=str(tmp_path / "cache")))
+    try:
+        series = chip_smoke._wait_replicas(port, proc, 2, "two replicas", timeout=300)
+        _, ready, _ = chip_smoke._ring_log(log_path)
+        nvcc = {r["replica"]: r["nvcc_calls"] for r in ready}
+        assert nvcc == {0: 1, 1: 0}
+        before = chip_smoke._scrape(port)
+        rows0 = [chip_smoke._replica(series, "rows_scored_total", r) for r in (0, 1)]
+        columns, _ = generate_synthetic(256, seed=4, drift=0.3)
+        recs = [{k: columns[k][i] for k in columns} for i in range(256)]
+        bodies = [json.dumps(recs[i:i + 1]).encode() for i in range(256)]
+
+        def stream(k):
+            for body in bodies[k::16]:
+                conn = chip_smoke.http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+                conn.request("POST", "/predict", body=body,
+                             headers={"x-slo-class": "cheap"})
+                assert conn.getresponse().status == 200
+                conn.close()
+
+        threads = [threading.Thread(target=stream, args=(k,)) for k in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        deadline = time.monotonic() + 30
+        while chip_smoke._scrape(port)["rows"] - before["rows"] < 256:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        after = chip_smoke._scrape(port)
+        series = chip_smoke._series(port)
+        rows = [chip_smoke._replica(series, "rows_scored_total", r) - rows0[r] for r in (0, 1)]
+        assert sum(rows) == 256 and min(rows) > 0, rows
+        quant = after["quant_dispatches"] - before["quant_dispatches"]
+        assert quant > 0
+        assert after["launches"] - before["launches"] == quant
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()

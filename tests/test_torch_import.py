@@ -45,9 +45,29 @@ def test_importing_every_submodule_loads_no_jax_and_no_reference_package():
     assert "mlops_tpu_torch.train.pipeline" in names
     assert "mlops_tpu_torch.bundle.registry" in names
     for name in ("data.pipeline_exec", "data.stream", "parallel.bulk",
-                 "train.distill", "lifecycle.promote", "train.hpo"):
+                 "train.distill", "lifecycle.promote", "train.hpo",
+                 "replicaset.router", "tenancy.config", "tenancy.quota",
+                 "tenancy.router", "tenancy.registry"):
         assert f"mlops_tpu_torch.{name}" in names
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_the_replica_router_and_the_tenancy_front_half_load_no_torch():
+    """What the supervisor and the front ends import of the replica set
+    and of tenancy is torch-free; the registry, which builds engines,
+    loads lazily."""
+    code = (
+        "import json, sys\n"
+        "import mlops_tpu_torch.replicaset, mlops_tpu_torch.replicaset.router\n"
+        "import mlops_tpu_torch.tenancy.config, mlops_tpu_torch.tenancy.quota\n"
+        "from mlops_tpu_torch.tenancy import TenantRouter, QuotaGovernor, load_tenants_toml\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'"
+        " or m == 'mlops_tpu_torch.tenancy.registry')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 @pytest.mark.parametrize(

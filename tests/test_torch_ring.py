@@ -110,9 +110,9 @@ def test_respawned_client_counts_quarantined_slots_as_inflight():
         ring.worker_doorbells[0].ring(1)
         ring.worker_doorbells[0].drain()  # the credit died with the worker
         client = RingClient(ring, 0)
-        assert int(ring.inflight[0, SMALL]) == 1 and int(ring.inflight[0, LARGE]) == 0
+        assert int(ring.inflight[0, 0, SMALL]) == 1 and int(ring.inflight[0, 0, LARGE]) == 0
         assert int(ring.parked[0]) == 0
-        assert client._credit == 1
+        assert client._credit == [1]  # one cell per replica queue
         assert client.claim(1) != busy  # quarantined: not claimable
         client.on_doorbell()
         assert busy in client._free[SMALL]
@@ -160,7 +160,7 @@ def test_dead_incarnation_completion_is_dropped_not_double_served():
     async def scenario():
         ring = _ring()
         try:
-            ring.eng_vals[ENG_INCARNATION] = 1
+            ring.eng_vals[0, ENG_INCARNATION] = 1
             client = RingClient(ring, 0)
             slot = client.claim(1)
             future = client.submit(slot, *_zeros())
@@ -171,7 +171,7 @@ def test_dead_incarnation_completion_is_dropped_not_double_served():
             ring.resp_incarnation[slot] = 1
             ring.resp_gen[slot] = gen
             ring.push_completion(slot, gen)
-            ring.eng_vals[ENG_INCARNATION] = 2
+            ring.eng_vals[0, ENG_INCARNATION] = 2
             ring.worker_doorbells[0].ring(1)
             client.on_doorbell()
             assert not future.done(), "a dead incarnation's completion was served"
@@ -276,15 +276,16 @@ def test_the_mirrored_counters_and_monitor_stay_monotone_across_a_respawn(bundle
             ring.write_monitor(first.monitor_snapshot())  # a telemetry tick
             await one_request(ring, client, ds)  # folded, never fetched
             service._stop.set()  # the kill: nothing more runs or is written
+            service._collector.join()  # else its select could take the next credit
             service._pool.shutdown(wait=True)
             assert ring.dispatch_counts() == {"bucket_8": 2}
-            assert int(ring.mon_vals[MON_ROWS]) == 3
+            assert int(ring.mon_vals[0, 0, MON_ROWS]) == 3
             second = _engine(bundle_dir)
             service = RingService(second, ring, max_inflight=2, threads=2,
                                   monitor_fetch_every_s=0)
             stats = service.reattach()
             assert stats["monitor_rows_lost"] == 3.0
-            assert float(ring.eng_vals[ENG_ROWS_LOST]) == 3.0
+            assert float(ring.eng_vals[0, ENG_ROWS_LOST]) == 3.0
             service.start()
             try:
                 await one_request(ring, client, ds)
@@ -292,7 +293,7 @@ def test_the_mirrored_counters_and_monitor_stay_monotone_across_a_respawn(bundle
                 service.stop()  # writes the final aggregate
             assert ring.dispatch_counts() == {"bucket_8": 3}
             assert second.dispatch_counts() == {"bucket_8": 1}
-            assert int(ring.mon_vals[MON_ROWS]) == 6  # 3 fetched + 3 new: monotone
+            assert int(ring.mon_vals[0, 0, MON_ROWS]) == 6  # 3 fetched + 3 new: monotone
             text = render_ring_metrics(ring)
             assert 'mlops_tpu_tier_requests_total{tier="exact"} 3' in text
             assert "mlops_tpu_engine_incarnation 2" in text

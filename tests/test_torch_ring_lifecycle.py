@@ -172,7 +172,7 @@ def test_the_telemetry_thread_mirrors_an_attached_controller(scenery):
         assert service._telemetry is None  # no monitor cadence, no controller
         controller = _Controller(generation=1, drift_triggers=0, promotions={})
         service.attach_lifecycle(controller)
-        assert service._telemetry is not None and ring.life_vals[LIFE_HAS]
+        assert service._telemetry is not None and ring.life_vals[0, LIFE_HAS]
         controller.snapshot["drift_triggers"] = 5
         deadline = time.monotonic() + 10
         while 'mlops_tpu_drift_trigger_total{tenant="default"} 5' not in render_ring_metrics(ring):
@@ -486,7 +486,7 @@ def test_the_ring_plane_runs_the_loop_under_a_fault_plan(scenery, tmp_path):
         assert log.count("injected retrain failure") >= 2
         for worker in (0, 1):
             assert re.search(rf"frontend {worker} \(pid \d+\) exited 0", log)
-        assert re.search(r"engine \(pid \d+\) exited 0", log)
+        assert re.search(r"engine replica 0 \(pid \d+\) exited 0", log)
     finally:
         stop.set()
         plane.stop()

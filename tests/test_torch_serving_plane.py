@@ -348,14 +348,14 @@ def test_the_monitor_is_read_after_k_requests_and_on_the_timer(serving):
     while s.server.metrics.monitor_fetches < 1:
         assert time.monotonic() < deadline
         time.sleep(0.01)
-    assert s.server.metrics.monitor["rows"] == 6.0
+    assert s.server.metrics.monitor["default"]["rows"] == 6.0
     t = serving(monitor_fetch_every_requests=0, monitor_fetch_every_s=0.05)
     t.request("POST", "/predict", json.dumps(_records(1, 30)).encode())
     deadline = time.monotonic() + 10
     while t.server.metrics.monitor_fetches < 1:
         assert time.monotonic() < deadline
         time.sleep(0.01)
-    assert t.server.metrics.monitor["rows"] == 1.0
+    assert t.server.metrics.monitor["default"]["rows"] == 1.0
 
 
 def test_a_scrape_reads_fresh_only_after_traffic(serving):

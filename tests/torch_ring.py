@@ -44,10 +44,12 @@ def budget():
     signal.signal(signal.SIGALRM, previous)
 
 
-def make_bundle(root: Path) -> Path:
-    """A port-written flax bundle both packages load: an mlp with flax-init
-    weights plus seeded noise, the preprocessor and monitor of 3,000
-    synthetic rows (the JAX package's fits), and a gated quant student."""
+def make_bundle(root: Path, seed: int = 0, model: dict | None = None,
+                quant: bool = True) -> Path:
+    """A port-written flax bundle both packages load: an mlp (``model``:
+    ``MODEL`` unless given) with flax-init weights plus noise, both from
+    ``seed``, the preprocessor and monitor of 3,000 synthetic rows (the
+    JAX package's fits), and with ``quant`` a gated quant student."""
     import jax
 
     from mlops_tpu.config import ModelConfig as JaxModelConfig
@@ -67,19 +69,21 @@ def make_bundle(root: Path) -> Path:
     jprep = JaxPreprocessor.fit(columns)
     jmon = jstate.fit_monitor(jprep.encode(columns))
     jprep.save(root / "preprocess.npz")
-    params = jax_init_params(jax_build_model(JaxModelConfig(**MODEL)),
-                             jax.random.PRNGKey(0))["params"]
-    rng = np.random.default_rng(100)
+    model_kw = dict(MODEL if model is None else model)
+    params = jax_init_params(jax_build_model(JaxModelConfig(**model_kw)),
+                             jax.random.PRNGKey(seed))["params"]
+    rng = np.random.default_rng(100 + seed)
     params = jax.tree_util.tree_map(
         lambda p: np.asarray(p) + 0.2 * rng.normal(size=p.shape).astype(np.float32), params)
-    model = load_params(build_model(ModelConfig(**MODEL)),
-                        exact_params_from_numpy(params, "cpu")).eval()
+    module = load_params(build_model(ModelConfig(**model_kw)),
+                         exact_params_from_numpy(params, "cpu")).eval()
     path = root / "bundle"
     save_exact_bundle(
-        path, ModelConfig(**MODEL), model, Preprocessor.load(root / "preprocess.npz"),
+        path, ModelConfig(**model_kw), module, Preprocessor.load(root / "preprocess.npz"),
         monitor_from_numpy(jmon.to_arrays(), "cpu"), calibration={"temperature": 1.37},
-        quant_params=quantize_student(init_quant_master(0)),
-        quant={"fidelity": {}, "temperature": 1.1, "gates": {"passed": True}},
+        **(dict(quant_params=quantize_student(init_quant_master(seed)),
+                quant={"fidelity": {}, "temperature": 1.1, "gates": {"passed": True}})
+           if quant else {}),
     )
     return path
 
@@ -136,11 +140,16 @@ class Plane:
         return self.log.read_text(errors="replace")
 
     def pids(self) -> dict[str, int]:
-        """The latest pid of the engine and of each front end."""
+        """The latest pid of each engine replica (``engine`` is replica
+        0's, ``engine r`` replica r's) and of each front end."""
         out = {}
         for line in self.text().splitlines():
-            if line.startswith("engine started (pid "):
-                out["engine"] = int(line.split("pid ")[1].rstrip(")"))
+            if line.startswith("engine replica ") and " started (pid " in line:
+                pid = int(line.split("pid ")[1].rstrip(")"))
+                replica = int(line.split()[2])
+                out[f"engine {replica}"] = pid
+                if replica == 0:
+                    out["engine"] = pid
             elif line.startswith("frontend ") and " started (pid " in line:
                 out[f"frontend {line.split()[1]}"] = int(line.split("pid ")[1].rstrip(")"))
         return out
