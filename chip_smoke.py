@@ -143,7 +143,7 @@ Phases, each of which fails the run loudly:
     (token_dim 64, depth 3, 8 heads; BERT reads 48 tokens) and linear at
     the config's widths, bf16, dropout 0, one seeded init on both: one
     step's gradients leaf by leaf (cosine >= 0.98, norm ratio within
-    5 %), then 50 steps each way on the same batches of 256 rows (loss
+    5 %), then 25 steps each way on the same batches of 256 rows (loss
     curves within 0.05, 0.02 on average);
 19. the exact tier's training main path: ``python -m mlops_tpu_torch
     train --config configs/train_register_job.toml`` in a subprocess at
@@ -158,7 +158,7 @@ Phases, each of which fails the run loudly:
     steps on the card and on the CPU on the same batches, validation AUCs
     within 0.01, no kernel launched (the counts set to 0 just before);
 20. exact-tier training timing per family at batch 1024: step ms (CUDA
-    events over 8 windows of 15 steps after warm-up: the median window,
+    events over 4 windows of 15 steps after warm-up: the median window,
     with the fastest and slowest beside it), rows trained per second,
     device kernels per step and the device's busy share of an unprofiled
     step (``torch.profiler``), and the CLI's wall time;
@@ -247,7 +247,7 @@ Phases, each of which fails the run loudly:
     route on the bundle the registry downloads (1.6e-2), and at once the
     same ``serve`` with ``MLOPS_TPU_SERVE_WORKERS=2`` and
     ``MLOPS_TPU_CACHE_DIR`` set (the ring plane, answering the same); the
-    same ``serve`` with ``MLOPS_TPU_SLO_ENABLED=true`` (a non-zero
+    same ``serve`` with ``MLOPS_TPU_AUTOTUNE_ENABLED=true`` (a non-zero
     exit naming A4), a
     ``train`` at 50 steps with ``train.tensorboard_dir`` (event files, or
     the JAX warning where ``torch.utils.tensorboard`` is unusable), and
@@ -263,12 +263,12 @@ Phases, each of which fails the run loudly:
     ring plane: two front ends over the shared-memory ring to one engine
     process, which builds no kernel and is the plane's only process
     holding the card), beside the same with ``MLOPS_TPU_SERVE_WORKERS=0``;
-    phase 22's bursts at 2,000 requests to both in turns (the first 250 of
+    phase 22's bursts at 1,000 requests to both in turns (the first 250 of
     each at one connection), every answer against the CPU route,
     /metrics rows equal to the records sent, ``quant_fused`` launches (read
     from the ring's /metrics, counted in the engine process) equal to the
     quant-tier dispatches, requests/s, p50/p99 and dispatches per request;
-    kill -9 of the engine while 16 connections stream 600 requests (every
+    kill -9 of the engine while 16 connections stream 300 requests (every
     answer right, the slots it left busy replayed, kill -> ready timed, no
     nvcc, the respawned engine's answers bitwise equal to its
     predecessor's), again with the cache emptied (one nvcc), kill -9 of a
@@ -281,7 +281,7 @@ Phases, each of which fails the run loudly:
     8,000-row labeled window (numerics x10); ``serve --config ...`` in a
     subprocess under four keep-alive clients (single records and 8-record
     bodies, every fourth cheap, each pausing 50 ms between requests; the
-    retrain cut to 150 steps), normal traffic and then drifted, until
+    retrain cut to 75 steps), normal traffic and then drifted, until
     the trigger, the retrain on the controller thread, the shadow and the
     promotion to generation 2 show in the log and on /metrics; every
     answer 200, /metrics rows equal to the records answered, p50/p99 in
@@ -303,7 +303,7 @@ Phases, each of which fails the run loudly:
     and ``MLOPS_TPU_CACHE_DIR`` win over the file's ``workers = 0``; the
     loop runs in the engine process, the only one holding the card, with no
     nvcc): phase 30's bundle, window, clocks and four unpaced clients, the
-    retrain cut to 150 steps; 32
+    retrain cut to 75 steps; 32
     requests one at a time before the traffic; per window (before the
     trigger, retrain, shadow, after the swap) p50 / p99, requests/s,
     non-200 and ``quant_fused`` launches from the ring's /metrics; trigger
@@ -351,7 +351,24 @@ Phases, each of which fails the run loudly:
     clocks, window and paced clients, the retrain cut to 60 steps):
     drifted traffic to
     latam-ab-arm alone promotes it alone to generation 2, every front end
-    rendering each tenant's lifecycle block.
+    rendering each tenant's lifecycle block;
+35. the observability layer on the ring plane as the image starts it
+    (``--workers 2 --replicas 2``, phase 22's bundle, phase 29's cache)
+    armed through ``MLOPS_TPU_TRACE_*``, ``MLOPS_TPU_SLO_*`` (short burn
+    windows, the ledger, the flight recorder), ``serve.profile_dir`` and a
+    seeded fault plan, beside the same plane disarmed: the plan's failed
+    grouped dispatches page (``mlops_tpu_alert_active`` 1, ``/healthz``
+    degraded, a dump ``flightrec`` renders); phase 29's single-record
+    burst at 16 and 64 connections on both planes in two turns (every
+    answer against the CPU route, requests/s armed against disarmed,
+    ``quant_fused`` launches equal to quant-tier dispatches);
+    ``trace-report`` per entry and per replica (every 200's span
+    stitched, drops read from ``/metrics``); ``/debug/profile`` through a
+    front end (200 / 409 / 200 / 409, the trace's ``quant_fused`` kernel
+    and graph-launch events); kill -9 of replica 0 at rest with the cost
+    ledger's counts carried by the respawn and ``trace-report --ledger``;
+    in process, the degraded-bucket fallback on the quant tier bitwise
+    the warmed answers and counted; SIGTERM, every child exiting 0.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
@@ -362,6 +379,7 @@ The line before the last is the kernels JSON; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import http.client
@@ -2209,14 +2227,14 @@ EXACT_TRAIN_FAMILIES = {
     "bert": ["model.family=bert", "train.distill_bulk=false"],
     "linear": ["model.family=linear"],
 }
-EXACT_CURVE_BATCH = 64  # phase 18's 50-step curves: the CPU side runs them too
-EXACT_CURVE_STEPS = 50
+EXACT_CURVE_BATCH = 64  # phase 18's curves: the CPU side runs them too
+EXACT_CURVE_STEPS = 25  # cut from 50 to keep the run in its time limit
 EXACT_CUT_STEPS = 200  # of the job's 2,000, for mlp-ens8, ft_transformer, bert
 EXACT_CUT_EVAL_EVERY = 100  # of the job's 200
 # The trained bundles on the card against the CPU route: solo buckets 1
 # and 256, groups 64x1 and 64x8 (phase 16 checks every geometry).
 EXACT_TRAINED_GEOMETRIES = [(1, 1), (1, 256), (64, 1), (64, 8)]
-EXACT_AUC_STEPS = 100  # cut from 200 to keep the run in its time limit
+EXACT_AUC_STEPS = 50  # cut from 200 to keep the run in its time limit
 EXACT_AUC_GAP = 0.01
 
 
@@ -2511,14 +2529,14 @@ def phase_exact_train_path(extra: tuple[str, ...] = (), device: str = "cuda") ->
 
 
 # ----------------------------------------------------------------- phase 20
-TIMED_WINDOWS = 8  # the host paces these steps: its jitter shows as spread
+TIMED_WINDOWS = 4  # the host paces these steps: its jitter shows as spread (cut from 8)
 TIMED_STEPS = 15  # per window
 PROFILED_STEPS = 5
 
 
 def phase_exact_train_timing(cli_walls: dict) -> list[dict]:
     """Each family's training step at the job's batch on the card: step
-    ms (CUDA events around each of 8 windows of 15 steps after 5 of
+    ms (CUDA events around each of 4 windows of 15 steps after 5 of
     warm-up, with the host clock around the same windows; the median
     window, and the fastest and slowest), rows trained per second at the
     median, and under ``torch.profiler`` over 5 steps the device kernels
@@ -2600,7 +2618,7 @@ def phase_exact_train_timing(cli_walls: dict) -> list[dict]:
 ROUTE_SHAPES = [(1, 1), (1, 256), (64, 1), (64, 8)]
 ROUTE_ROUNDS = 2  # eager and graph take turns, this many times each (cut from 4 to keep
 # the run in its time limit)
-ROUTE_ITERS = 25  # dispatches per turn
+ROUTE_ITERS = 12  # dispatches per turn (cut from 25)
 ROUTE_PROFILED = 10  # dispatches per route under torch.profiler
 _KERNEL_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                         "cuLaunchKernel", "cuLaunchKernelEx")
@@ -2699,7 +2717,7 @@ def phase_dispatch_routes(bundle_dir: Path, dirs: dict) -> list[dict]:
 
 
 # ----------------------------------------------------------------- phase 22
-BURST_REQUESTS = 2000  # phases 29 and 33
+BURST_REQUESTS = 1000  # phases 29, 33 and 35 (cut from 2,000)
 BURST_SERVER_REQUESTS = 600  # phase 22 (cut from 2,000 to keep the run in its time limit)
 BURST_CONCURRENCY = (1, 16, 64)
 BURST_CHEAP_EVERY = 4  # every 4th request asks for x-slo-class: cheap
@@ -3794,7 +3812,7 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
     route on the bundle the registry resolves, and at once the same
     ``serve`` as the serving image starts it, ``MLOPS_TPU_SERVE_WORKERS=2``
     (the ring plane) with ``MLOPS_TPU_CACHE_DIR`` set, answering the same;
-    the same ``serve`` with ``MLOPS_TPU_SLO_ENABLED=true`` exits
+    the same ``serve`` with ``MLOPS_TPU_AUTOTUNE_ENABLED=true`` exits
     non-zero naming A4; a ``train`` of the job config with
     the steps cut to 50 and ``train.tensorboard_dir`` set writes event
     files (or, where ``torch.utils.tensorboard`` cannot be built, warns as
@@ -3863,7 +3881,7 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
     # score-batch on the Parquet twin and the CSV (their resolves of
     # production race the servers' downloads into the one registry cache:
     # a rename decides).
-    refused = {"MLOPS_TPU_SLO_ENABLED": ("true", "A4")}
+    refused = {"MLOPS_TPU_AUTOTUNE_ENABLED": ("true", "A4")}
     procs = {key: _start(_cli(serve_args, bucket_root), {**env, key: value}, root / key)
              for key, (value, _) in refused.items()}
     tb_dir = root / "tensorboard"
@@ -3962,7 +3980,7 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
 # shared-memory ring to one engine process, the kernel cache baked by
 # `warmup --cache-dir` and named by MLOPS_TPU_CACHE_DIR.
 RING_WORKERS = 2
-RING_KILL_REQUESTS = 600  # single-record requests streamed across an engine kill
+RING_KILL_REQUESTS = 300  # single-record requests streamed across an engine kill (cut from 600)
 RING_KILL_CONCURRENCY = 16
 RING_BITWISE_REQUESTS = 64  # re-sent to the respawned engine, one at a time
 RING_DRAIN_REQUESTS = 400  # streamed while the plane drains on SIGTERM
@@ -4815,7 +4833,7 @@ def phase_lifecycle(bundle_dir: Path, device: str = "cuda",
 # runs in the engine process. Phase 30's bundle, window, clocks and traffic,
 # so the two planes compare.
 RING_LOOP_BITWISE_REQUESTS = 32  # sent one at a time before the trigger and after the respawn
-LOOP_RETRAIN_STEPS = 150  # of the file's 300, in phase 30's server and phase 31
+LOOP_RETRAIN_STEPS = 75  # of the file's 300, in phase 30's server and phase 31
 
 
 def _lifecycle_block(text: str, tenants: tuple[str, ...] = ("default",)) -> list[str]:
@@ -5685,7 +5703,7 @@ TENANT_PROBE_REQUESTS = 32  # per tenant, one at a time, on each plane
 TENANT_HOT_CONNECTIONS = 80  # apac: 10x the cold tenants' rate
 TENANT_COLD_CONNECTIONS = 8
 TENANT_QUOTA_S = 5.0
-TENANT_KILL_REQUESTS = 600
+TENANT_KILL_REQUESTS = 300  # cut from 600
 TENANT_RETRAIN_STEPS = 60  # of configs/lifecycle_serve.toml's 300
 
 
@@ -6064,6 +6082,350 @@ def _tenant_loop(toml: Path, burst_dir: Path, cache: Path, workers: int, device:
             "front_end_block": block, "quant_fused_launches": launches}
 
 
+# ----------------------------------------------------------------- phase 35
+OBS_REQUESTS = 500  # single-record requests of phase 29's burst, per burst
+OBS_CONCURRENCY = (16, 64)
+OBS_TURNS = 2  # armed and disarmed take turns, this many times each
+OBS_FAULT_FIRES = 12  # grouped dispatches that raise in each replica process
+OBS_FAULT_REQUESTS = 400  # the burst's last requests, at 16 connections, under the plan
+OBS_PROFILE_REQUESTS = 200
+OBS_RESPAWN_REQUESTS = 16  # one at a time through the respawned replica 0
+OBS_PLAN = f"""\
+seed = 35
+[[fault]]
+point = "serve.engine.dispatch_group"
+mode = "raise"
+max_fires = {OBS_FAULT_FIRES}
+"""
+
+
+def _obs_env(root: Path) -> dict:
+    """The observability layer armed through the environment layer, with
+    short SLO windows (2 / 5 / 8 / 12 s) so a burst can page, the flight
+    recorder dumping on the alert, and the phase's fault plan."""
+    return {
+        "MLOPS_TPU_TRACE_ENABLED": "true", "MLOPS_TPU_TRACE_DIR": str(root / "traces"),
+        "MLOPS_TPU_SLO_ENABLED": "true", "MLOPS_TPU_SLO_LEDGER_DIR": str(root / "ledger"),
+        "MLOPS_TPU_SLO_LEDGER_FLUSH_S": "0.5", "MLOPS_TPU_SLO_FLIGHTREC_DIR": str(root / "runs"),
+        # The alert is this phase's trigger: the 5xx-spike trigger would
+        # dump first and hold the 30 s cooldown.
+        "MLOPS_TPU_SLO_FLIGHTREC_SPIKE_ERRORS": "1000000",
+        "MLOPS_TPU_SLO_TICK_S": "0.25", "MLOPS_TPU_SLO_FAST_SHORT_S": "2",
+        "MLOPS_TPU_SLO_FAST_LONG_S": "5", "MLOPS_TPU_SLO_SLOW_SHORT_S": "8",
+        "MLOPS_TPU_SLO_SLOW_LONG_S": "12", "MLOPS_TPU_SERVE_PROFILE_DIR": str(root / "profile"),
+        "MLOPS_TPU_FAULTS": str(root / "plan.toml"),
+    }
+
+
+def _statuses(port: int, burst: dict, concurrency: int) -> list[int]:
+    out, _, _ = _run_burst(port, burst, concurrency)
+    return [status for status, _ in out]
+
+
+def _entry_dispatches(port: int) -> int:
+    _, text = _http(port, "GET", "/metrics")
+    return int(sum(float(line.rsplit(" ", 1)[1]) for line in text.decode().splitlines()
+                   if line.startswith("mlops_tpu_entry_dispatch_total{")))
+
+
+def _trace_report(root: Path, *args: str) -> dict:
+    out = subprocess.run(_cli(["trace-report", f"trace.dir={root / 'traces'}",
+                               f"slo.ledger_dir={root / 'ledger'}", *args]),
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"trace-report {args}: {out.returncode} {out.stderr[-2000:]}")
+    return json.loads(out.stdout)
+
+
+def _stage_table(report: dict) -> dict:
+    """entry -> stage -> [p50, p99] ms, and wall p50 / p99."""
+    return {g["entry"]: {"requests": g["requests"], "wall": [g["wall_p50_ms"], g["wall_p99_ms"]],
+                         **{s: [v["p50_ms"], v["p99_ms"]] for s, v in g["stages"].items()}}
+            for g in report["groups"]}
+
+
+def _profile_counts(profile_dir: Path) -> dict:
+    """Kernel and graph-launch events in the newest trace file."""
+    traces = sorted(profile_dir.glob("*.pt.trace.json"), key=lambda p: p.stat().st_mtime)
+    check(bool(traces), f"no trace file in {profile_dir}")
+    events = json.loads(traces[-1].read_text()).get("traceEvents", [])
+    names = [e.get("name", "") for e in events]
+    return {"file": traces[-1].name, "events": len(events),
+            "quant_fused_kernel": sum("quant_fused_kernel" in n for n in names),
+            "graph_launches": sum(n == "cudaGraphLaunch" for n in names),
+            "kernel_events": sum(e.get("cat") == "kernel" for e in events)}
+
+
+def phase_observability(bundle_dir: Path, device: str = "cuda") -> dict:
+    """Phase 35: the observability layer on the ring plane as the serving
+    image starts it, with ``--replicas 2`` on phase 22's bundle and phase
+    29's warmed cache: tracing, the SLO engine, the cost ledger, the
+    flight recorder and ``serve.profile_dir`` armed through the
+    ``MLOPS_TPU_*`` layer (short SLO windows), beside the same plane
+    disarmed. (d) A seeded fault plan (the first grouped dispatches of each
+    replica raise) pages: ``mlops_tpu_alert_active`` 1, ``/healthz``
+    degraded, a flight-recorder dump that ``flightrec`` renders. (a) Phase
+    29's single-record burst at 16 and 64 connections, every answer
+    against the CPU route, ``trace-report`` per entry and per replica, the
+    spans stitched and dropped; (b) the same bursts on the disarmed plane
+    in turns, requests/s side by side. (c) ``/debug/profile`` start / stop
+    through a front end: the trace file and its ``quant_fused`` kernel or
+    graph-launch events. (e) kill -9 of replica 0 at rest: the cost
+    ledger's counts carried by the respawn, then ``trace-report
+    --ledger``. (f) In this process: a quant bucket and a group geometry
+    without their graphs and their captures failing at
+    ``serve.engine.compile`` are served through the next larger graphs,
+    bitwise the warmed answers, counted in
+    ``mlops_tpu_degraded_dispatch_total``. SIGTERM: every child exits 0."""
+    import numpy as np
+
+    root = WORK / "observability"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    (root / "plan.toml").write_text(OBS_PLAN)
+    cache = WORK / "ring" / "cache"
+    _warm_cache(bundle_dir, cache, device)
+    single = _ring_bursts(bundle_dir)[0]
+    burst = _sub_burst(single, list(range(OBS_REQUESTS)))
+    base_env = dict(os.environ, PYTHONPATH=str(ROOT))
+    planes = {}
+    for name in ("armed", "disarmed"):
+        port = _free_port()
+        log_path = root / f"plane_{name}.log"
+        out = open(log_path, "wb")
+        env = {**base_env, **_image_env(bundle_dir, cache, port, RING_WORKERS, device),
+               **(_obs_env(root) if name == "armed" else {})}
+        planes[name] = (port, out, subprocess.Popen(
+            _cli(["serve", "--workers", str(RING_WORKERS), "--replicas", "2"]),
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, env=env), log_path)
+    result: dict = {}
+    try:
+        for name, (port, _, proc, _) in planes.items():
+            _wait_ready(port, proc, f"{name} plane")
+            _wait_replicas(port, proc, 2, f"{name} plane")
+        port, _, proc, log_path = planes["armed"]
+        text = log_path.read_text(errors="replace")
+        check("fault injection ARMED" in text and "SLO engine armed" in text
+              and text.count("cost ledger armed") == 2, "the armed plane's log")
+        # (d) the fault plan pages.
+        t0 = time.monotonic()
+        n = len(single["bodies"])
+        fault = _sub_burst(single, list(range(n - OBS_FAULT_REQUESTS, n)))
+        statuses = _statuses(port, fault, 16)
+        bad = sum(s == 500 for s in statuses)
+        check(bad > 0 and set(statuses) <= {200, 500}, f"fault burst statuses {set(statuses)}")
+        page = ('mlops_tpu_alert_active{alert="availability_fast_burn",severity="page",'
+                'tenant="default"}')
+        while _metric(_http(port, "GET", "/metrics")[1].decode(), page) != 1:
+            check(time.monotonic() - t0 < 30, "the fast-burn alert never fired")
+            time.sleep(0.05)
+        page_s = time.monotonic() - t0
+        status, body = _http(port, "GET", "/healthz")
+        verdict = json.loads(body)
+        check(status == 200 and verdict["verdict"] == "degraded"
+              and any(a["alert"] == "availability_fast_burn" for a in verdict["alerts"]),
+              f"/healthz under the burn: {status} {verdict}")
+        while not (dumps := sorted((root / "runs").glob("flightrec-*.json"))):
+            check(time.monotonic() - t0 < 30, "no flight-recorder dump")
+            time.sleep(0.05)
+        rendered = subprocess.run(_cli(["flightrec", *map(str, dumps)]), cwd=ROOT,
+                                  env=base_env, capture_output=True, text=True, timeout=120)
+        check(rendered.returncode == 0, f"flightrec: {rendered.stderr[-2000:]}")
+        summary = json.loads(rendered.stdout)
+        check(any(d["reason"] == "alert-availability_fast_burn" for d in summary),
+              f"flightrec dumps: {summary}")
+        for _ in range(5):  # the plan's fires run out: a clean pass
+            if set(_statuses(port, _sub_burst(single, list(range(200))), 16)) == {200}:
+                break
+        else:
+            raise SmokeFailure("the fault plan's grouped dispatches never stopped raising")
+        result["fault"] = {"requests": len(statuses), "answered_500": bad,
+                           "fast_burn_after_s": page_s, "verdict": verdict["verdict"],
+                           "alerts": [a["alert"] for a in verdict["alerts"]],
+                           "dumps": [{k: d[k] for k in ("reason", "worker", "events")}
+                                     for d in summary],
+                           "timeline_lines": rendered.stderr.count("\n")}
+        log_timing("observability fault", result["fault"])
+        # (a) + (b): the bursts, armed and disarmed in turns.
+        rows = []
+        launches = quant = 0.0
+        for turn in range(OBS_TURNS):
+            for concurrency in OBS_CONCURRENCY:
+                for name in ("armed", "disarmed"):
+                    port = planes[name][0]
+                    before = _scrape(port)
+                    out, lat, wall = _run_burst(port, burst, concurrency)
+                    worst = _check_burst(burst, out, f"observability {name} c={concurrency}")
+                    # Dispatches and launches are mirrored at dispatch time:
+                    # no wait for the monitor's cadence.
+                    after = _scrape(port)
+                    d = {k: after[k] - before[k] for k in before}
+                    if device == "cuda":
+                        check(d["launches"] == d["quant_dispatches"],
+                              f"{name}: {d['launches']} quant_fused launches for "
+                              f"{d['quant_dispatches']} quant-tier dispatches")
+                    if name == "armed":
+                        launches += d["launches"]
+                        quant += d["quant_dispatches"]
+                    row = {"plane": name, "turn": turn, "concurrency": concurrency,
+                           "requests_per_s": len(burst["bodies"]) / wall,
+                           "p50_ms": float(np.percentile(lat, 50)),
+                           "p99_ms": float(np.percentile(lat, 99)),
+                           "dispatches_per_request": d["dispatches"] / len(burst["bodies"]),
+                           "max_pred_err": worst["pred"]}
+                    log_timing("observability burst", row)
+                    rows.append(row)
+        result["bursts"] = rows
+        ratio = {}
+        for c in OBS_CONCURRENCY:
+            armed = [r["requests_per_s"] for r in rows if r["plane"] == "armed"
+                     and r["concurrency"] == c]
+            disarmed = [r["requests_per_s"] for r in rows if r["plane"] == "disarmed"
+                        and r["concurrency"] == c]
+            ratio[c] = {"armed": armed, "disarmed": disarmed,
+                        "armed_over_disarmed": [a / b for a, b in zip(armed, disarmed)]}
+        result["armed_vs_disarmed"] = ratio
+        log_timing("observability armed vs disarmed", ratio)
+        port = planes["armed"][0]
+        time.sleep(1.0)  # the span writers' 0.5 s flush
+        from mlops_tpu_torch.trace import load_spans
+
+        spans = load_spans(root / "traces")
+        ok = [s for s in spans if s["status"] == 200]
+        stitched = sum("ring_wait" in s["stages"] for s in ok)
+        text = _http(port, "GET", "/metrics")[1].decode()
+        with concurrent.futures.ThreadPoolExecutor(3) as pool:
+            reports = list(pool.map(lambda args: _trace_report(root, *args),
+                                    [(), ("--replica", "0"), ("--replica", "1")]))
+        per_replica = {r: _stage_table(reports[1 + r]) for r in (0, 1)}
+        result["trace"] = {
+            "spans": len(spans), "spans_200": len(ok), "stitched_share": stitched / len(ok),
+            "dropped": _metric(text, "mlops_tpu_trace_dropped_total"),
+            "per_entry": _stage_table(reports[0]), "per_replica": per_replica,
+            "padding_waste_pct": _metric(text, "mlops_tpu_padding_waste_pct"),
+        }
+        check(result["trace"]["stitched_share"] == 1.0,
+              f"spans without their engine half: {len(ok) - stitched} of {len(ok)}")
+        log_timing("observability trace", result["trace"])
+        # (c) /debug/profile through a front end, answered by replica 0.
+        answers = [_http(port, "POST", "/debug/profile/start")[0],
+                   _http(port, "POST", "/debug/profile/start")[0]]
+        _check_burst(_sub_burst(single, list(range(OBS_PROFILE_REQUESTS))),
+                     _run_burst(port, _sub_burst(single, list(range(OBS_PROFILE_REQUESTS))),
+                                16)[0], "observability profiled burst")
+        answers += [_http(port, "POST", "/debug/profile/stop")[0],
+                    _http(port, "POST", "/debug/profile/stop")[0]]
+        check(answers == [200, 409, 200, 409], f"the profile protocol: {answers}")
+        result["profile"] = _profile_counts(root / "profile")
+        if device == "cuda":
+            check(result["profile"]["quant_fused_kernel"] + result["profile"]["graph_launches"]
+                  > 0, f"the profile names neither the kernel nor a graph: {result['profile']}")
+        log_timing("observability profile", result["profile"])
+        # (e) kill -9 of replica 0 at rest: the ledger carries on.
+        time.sleep(1.2)  # two ledger flushes after the last dispatch
+        before = _entry_dispatches(port)
+        shard = json.loads((root / "ledger" / "ledger-r0.json").read_text())["entries"]
+        pids, _, _ = _ring_log(log_path)
+        series = _series(port)
+        inc = [int(_replica(series, "incarnation", r)) for r in (0, 1)]
+        os.kill(pids["engine 0"], signal.SIGKILL)
+        t_kill = time.monotonic()
+        _wait_replicas(port, proc, 2, "replica 0's respawn", [inc[0] + 1, inc[1]])
+        kill_to_ready = time.monotonic() - t_kill
+        carried = _entry_dispatches(port)
+        check(carried == before, f"ledger dispatches {before} before the kill, {carried} after")
+        probe = _sub_burst(single, list(range(OBS_RESPAWN_REQUESTS)))
+        _check_burst(probe, _run_burst(port, probe, 1)[0], "after replica 0's respawn")
+        deadline = time.monotonic() + 10
+        while _entry_dispatches(port) < before + OBS_RESPAWN_REQUESTS:
+            check(time.monotonic() < deadline, "the respawned ledger does not count")
+            time.sleep(0.05)
+        time.sleep(1.2)
+        ranked = _trace_report(root, "--ledger")
+        result["ledger"] = {
+            "dispatches_before_kill": before, "after_respawn": carried,
+            "replica_0_shard_dispatches": sum(v["dispatches"] for v in shard.values()),
+            "after_probe": _entry_dispatches(port), "kill_to_ready_s": kill_to_ready,
+            "ranked": [{k: e[k] for k in ("key", "cost_ms_per_row", "cost_ms_per_dispatch",
+                                          "dispatches", "padding_waste_pct")}
+                       for e in ranked["entries"]],
+        }
+        log_timing("observability ledger", result["ledger"])
+        for _, _, proc, _ in planes.values():  # both drain at once
+            proc.send_signal(signal.SIGTERM)
+        for name, (port, _, proc, log_path) in planes.items():
+            check(proc.wait(timeout=180) == 0, f"the {name} plane did not exit 0")
+            pids, _, text = _ring_log(log_path)
+            for w in range(RING_WORKERS):
+                check(f"frontend {w} (pid {pids[f'frontend {w}']}) exited 0" in text,
+                      f"{name}: front end {w} did not exit 0")
+    finally:
+        for _, out, proc, _ in planes.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            out.close()
+    result["degraded"] = _degraded_fallback(bundle_dir, device)
+    result["launches"] = launches
+    result["quant_dispatches"] = quant
+    return result
+
+
+def _degraded_fallback(bundle_dir: Path, device: str) -> dict:
+    """(f): the quant tier's bucket 8 and group 2x1 without their graphs,
+    their captures raising at ``serve.engine.compile``: each dispatch
+    replays the next larger graph (bucket 64, group 4x1) and answers
+    bitwise as the warmed shape did on the same rows."""
+    import numpy as np
+
+    from mlops_tpu_torch import faults
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.schema.validate import records_to_columns
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+    from mlops_tpu_torch.serve.metrics import robustness_lines
+
+    bundle = load_bundle(bundle_dir)
+    engine = InferenceEngine(bundle, serve_tier="quant", device=device)
+    engine.warmup()
+    ds = bundle.preprocessor.encode(records_to_columns(_records(5, seed=35)))
+    solo = (ds.cat_ids[:3], ds.numeric[:3])
+    parts = [(ds.cat_ids[i:i + 1], ds.numeric[i:i + 1]) for i in (3, 4)]
+    want = (engine.fetch_arrays_raw(engine.dispatch_arrays(*solo)),
+            engine.fetch_group_raw(engine.dispatch_group_arrays(parts)))
+    for key in (("quant", (8,)), ("quant", (2, 1))):
+        if engine._use_graphs:
+            engine._gen.graphs.pop(key)
+        else:
+            engine._gen.warmed.discard(key)
+    faults.arm(faults.FaultPlan.from_rules([{"point": "serve.engine.compile", "mode": "raise"}]))
+    try:
+        solo_handle = engine.dispatch_arrays(*solo)
+        group_handle = engine.dispatch_group_arrays(parts)
+        got = (engine.fetch_arrays_raw(solo_handle), engine.fetch_group_raw(group_handle))
+    finally:
+        faults.disarm()
+    check((solo_handle.rows, group_handle.slots, group_handle.rows) == (64, 4, 1),
+          f"degraded shapes {solo_handle.rows} {group_handle.slots}x{group_handle.rows}")
+    same = all(np.array_equal(a, b) for a, b in zip(want[0], got[0]))
+    sizes = got[1][0]
+    same = same and all(np.array_equal(want[1][k][i, :n] if k < 3 else want[1][k][i],
+                                       got[1][k][i, :n] if k < 3 else got[1][k][i])
+                        for k in (1, 2, 3) for i, n in enumerate(sizes))
+    # On the card each row is its own warp of quant_fused: bitwise. The
+    # CPU route's plain version computes other batch shapes in another
+    # order, so a rehearsal there reads the gap instead.
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(want[0], got[0]))
+    check(same or device != "cuda",
+          "a degraded dispatch answered differently from its warmed shape")
+    lines = robustness_lines(0, engine.degraded_dispatch_total)
+    counted = _metric("\n".join(lines), "mlops_tpu_degraded_dispatch_total")
+    check(counted == 2, f"mlops_tpu_degraded_dispatch_total {counted}")
+    out = {"served_through": ["bucket_64", "group_4x1"], "bitwise": same, "max_gap": gap,
+           "degraded_dispatch_total": counted, "entries": [solo_handle.entry, group_handle.entry]}
+    log_timing("observability degraded fallback", out)
+    return out
+
+
 def _pyarrow_version() -> str | None:
     """pyarrow's version where it imports (the optional dependency the JAX
     package gates too), else None."""
@@ -6130,6 +6492,7 @@ def main() -> int:
         chaos = timed(phase_chaos, burst_dir)
         replicas = timed(phase_replicas, burst_dir)
         tenants = timed(phase_tenants, burst_dir, exact_dirs)
+        observability = timed(phase_observability, burst_dir)
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
@@ -6184,6 +6547,7 @@ def main() -> int:
                 "single_probe": tenants["single_probe_launches"],
                 "ring_probe": tenants["ring_probe_launches"],
                 "ring_quota": tenants["quota_launches"]},
+            "observability_launches": observability["launches"],
         }, {
             "name": "flash_attention",
             "route": "cuda",
@@ -6241,6 +6605,7 @@ def main() -> int:
         "chaos": chaos,
         "replica_set": replicas,
         "tenant_fleet": tenants,
+        "observability": {k: v for k, v in observability.items() if k != "launches"},
         "students": {"records": students["records"], "fit": students["fit"],
                      "served_quant_bundle": students["quant_bundle"]},
         "bulk": bulk_rows,

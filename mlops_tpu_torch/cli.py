@@ -45,7 +45,19 @@
 - ``warmup --cache-dir <dir>``: build the kernel libraries the resolved
   bundle serves with into ``<dir>/kernels/`` (every library without a
   bundle) and print one JSON report; a ``serve`` with ``cache.dir`` set
-  (``MLOPS_TPU_CACHE_DIR``) loads them from there without nvcc.
+  (``MLOPS_TPU_CACHE_DIR``) loads them from there without nvcc;
+- ``trace-report [trace.dir=<dir>] [--tenant T] [--replica R]``: p50/p99
+  per stage per entry from a traced server's span files (the table on
+  stderr, the JSON on stdout; exit 2 without spans); ``--ledger
+  slo.ledger_dir=<dir>`` ranks the cost ledger's entries by cost per row;
+- ``flightrec <dump.json>...``: render flight-recorder dumps as
+  timelines (stderr) and one JSON summary line (exit 2 when none reads).
+
+Tracing and the SLO layer are armed from the config on both planes:
+``trace.enabled=true`` (``MLOPS_TPU_TRACE_ENABLED``; spans into
+``trace.dir``), ``slo.enabled=true`` (the SLO engine, the alert gauges,
+the ``/healthz`` verdict and the flight recorder into
+``slo.flightrec_dir``) and ``slo.ledger_dir=<dir>`` (the cost ledger).
 
 ``serve --workers N`` (``serve.workers``, ``MLOPS_TPU_SERVE_WORKERS``)
 with N >= 2 serves from N ``SO_REUSEPORT`` front-end processes over a
@@ -61,9 +73,8 @@ Every command takes ``--config <toml>``, ``MLOPS_TPU_<SECTION>_<FIELD>``
 environment overrides and positional ``section.field=value`` overrides,
 as the JAX package's CLI does (``serve.model_directory=<bundle>
 serve.port=5001 serve.device=cpu``); a key the port has not ported, set
-away from its JAX default (``MLOPS_TPU_SLO_ENABLED=true``,
-``MLOPS_TPU_TRACE_ENABLED=true``), exits non-zero naming its ROADMAP
-item. A
+away from its JAX default (``MLOPS_TPU_AUTOTUNE_ENABLED=true``), exits
+non-zero naming its ROADMAP item. A
 ``gs://`` ``data.train_path`` or ``registry.root`` is read and written
 through ``utils/storage.py``, as in the JAX package.
 Every command runs on the card unless ``serve.device=cpu`` (serve,
@@ -140,6 +151,11 @@ def build_parser() -> argparse.ArgumentParser:
             "build the kernel libraries into the cache (cache.dir)",
             "serve.model_directory=<bundle>",
         ),
+        "trace-report": (
+            "p50/p99 per stage per entry from a traced server's span files "
+            "(trace.dir), or the cost ledger ranked (--ledger)",
+            "trace.dir=traces",
+        ),
     }
     for name, (help_text, example) in commands.items():
         cmd = sub.add_parser(name, help=help_text)
@@ -176,6 +192,28 @@ def build_parser() -> argparse.ArgumentParser:
                 "one shared-memory ring; a kill -9 of one replica is a "
                 "brownout of 1/E capacity (needs --workers >= 2)",
             )
+        if name == "trace-report":
+            cmd.add_argument(
+                "--ledger", action="store_true",
+                help="report the device-time cost ledger (slo.ledger_dir) "
+                "ranked by cost_ms_per_row instead of aggregating span files",
+            )
+            cmd.add_argument(
+                "--tenant", default=None,
+                help="only aggregate spans whose tenant label matches",
+            )
+            cmd.add_argument(
+                "--replica", type=int, default=None,
+                help="only aggregate spans served by this engine replica "
+                "(spans without one count as 0)",
+            )
+    # `flightrec` takes dump paths, not config overrides: a post-mortem
+    # renders anywhere the dump files are.
+    flightrec = sub.add_parser(
+        "flightrec",
+        help="render flight-recorder dumps (flightrec-*.json) as timelines",
+    )
+    flightrec.add_argument("paths", nargs="+", help="dump files to render")
     return parser
 
 
@@ -226,6 +264,11 @@ def _serve(config) -> int:
             tier_routing=cfg.tier_routing,
         )
     fleet = {} if registry is None else {"registry": registry}
+    # The observability sections ride only when armed.
+    if config.trace.enabled:
+        fleet["trace"] = config.trace
+    if config.slo.enabled or config.slo.ledger_dir:
+        fleet["slo"] = config.slo
     if not config.lifecycle.enabled:
         serve_forever(engine, cfg, **fleet)
         return 0
@@ -339,10 +382,62 @@ def _validate(config) -> int:
     return 0 if report["ok"] else 2
 
 
+def _trace_report(config) -> int:
+    """The JAX ``trace-report``: the human table on stderr, the JSON
+    report on stdout; exit 2 when nothing was found."""
+    if config.trace.ledger:
+        from mlops_tpu_torch.slo.ledger import format_ledger_report, ledger_report
+
+        if not config.slo.ledger_dir:
+            raise SystemExit(
+                "trace-report --ledger needs slo.ledger_dir (the "
+                "directory a served plane's cost ledger flushed into)"
+            )
+        report = ledger_report(config.slo.ledger_dir)
+        print(format_ledger_report(report), file=sys.stderr)
+        print(json.dumps(report), flush=True)
+        return 0 if report["entries"] else 2
+    from mlops_tpu_torch.trace import format_report, load_spans, stage_report
+
+    spans = load_spans(config.trace.dir)
+    if config.trace.tenant:
+        spans = [s for s in spans if s.get("tenant", "default") == config.trace.tenant]
+    if config.trace.replica >= 0:
+        spans = [s for s in spans if int(s.get("replica", 0)) == config.trace.replica]
+    report = stage_report(spans)
+    print(format_report(report), file=sys.stderr)
+    print(json.dumps(report), flush=True)
+    return 0 if spans else 2
+
+
+def _flightrec(paths: list[str]) -> int:
+    """The JAX ``flightrec``: each dump's timeline on stderr, one JSON
+    summary line on stdout; exit 2 when no dump reads."""
+    from mlops_tpu_torch.slo.flightrec import format_timeline, load_dump
+
+    summaries = []
+    for path in paths:
+        try:
+            dump = load_dump(path)
+        except (OSError, ValueError) as err:
+            print(f"flightrec: unreadable dump {path}: {err}", file=sys.stderr)
+            continue
+        print(format_timeline(dump), file=sys.stderr)
+        summaries.append({
+            "path": str(path), "reason": dump.get("reason"),
+            "source": dump.get("source"), "worker": dump.get("worker"),
+            "pid": dump.get("pid"), "events": len(dump.get("events", [])),
+        })
+    print(json.dumps(summaries), flush=True)
+    return 0 if summaries else 2
+
+
 def main(argv: list[str] | None = None) -> int:
     from mlops_tpu_torch.config import load_config
 
     args = build_parser().parse_args(argv)
+    if args.command == "flightrec":
+        return _flightrec(args.paths)
     handlers = {
         "serve": _serve,
         "lifecycle": _lifecycle,
@@ -357,6 +452,7 @@ def main(argv: list[str] | None = None) -> int:
         "synth": _synth,
         "validate": _validate,
         "warmup": _warmup,
+        "trace-report": _trace_report,
     }
     if args.command not in handlers:
         build_parser().print_help()
@@ -370,6 +466,12 @@ def main(argv: list[str] | None = None) -> int:
         overrides.append(f"serve.tenants_path={args.tenants}")
     if getattr(args, "replicas", None) is not None:
         overrides.append(f"serve.engine_replicas={args.replicas}")
+    if getattr(args, "ledger", False):
+        overrides.append("trace.ledger=true")
+    if getattr(args, "tenant", None):
+        overrides.append(f"trace.tenant={args.tenant}")
+    if getattr(args, "replica", None) is not None:
+        overrides.append(f"trace.replica={args.replica}")
     try:
         config = load_config(overrides, args.config)
     except ValueError as err:  # a refused key: its message, no traceback

@@ -22,8 +22,7 @@ the warm start (``cache.dir``: the kernel libraries' cache,
 
 Every other key of the JAX tree is here too, declared with ``unported``:
 the two keys of the JAX ``ServeConfig`` for the event-loop lag sanitizer
-(ROADMAP A12), and the sections ``trace``, ``slo`` and ``autotune``
-(ROADMAP A4). Such a key is accepted at its JAX
+(ROADMAP A12) and the ``autotune`` section (ROADMAP A4). Such a key is accepted at its JAX
 default, where it changes nothing; any other value is refused with a
 ``ValueError`` naming the item, whichever layer sets it.
 
@@ -49,8 +48,7 @@ from typing import Any
 
 # What each item the refusals name still has to port.
 _ITEMS = {
-    "A4": "the serving plane's rest: tracing, the SLO engine and flight "
-    "recorder, the autotuner",
+    "A4": "the serving plane's rest: the traffic-shape autotuner",
     "A12": "tooling: the event-loop lag sanitizer and the analysis commands",
 }
 
@@ -538,45 +536,228 @@ class RegistryConfig:
     # newest N (0 = crash orphans only)
 
 
+class TraceConfigError(ValueError):
+    """An inconsistent tracing geometry, named at startup (the
+    ``ServeConfigError`` discipline applied to the tracing knobs)."""
+
+
 @dataclasses.dataclass
 class TraceConfig:
-    """The JAX package's ``TraceConfig`` (``mlops_tpu/config.py:719``):
-    span tracing and ``trace-report``, not ported (ROADMAP A4)."""
+    """The JAX package's ``TraceConfig`` (``mlops_tpu/config.py:719``),
+    its defaults and validation: request tracing and shape/goodput
+    telemetry on both serving planes (``trace/``). Disabled by default —
+    disarmed, the hot path pays one ``is None`` check per request."""
 
-    enabled: bool = unported(False, "A4")
-    dir: str = unported("traces", "A4")
-    ring_capacity: int = unported(4096, "A4")
-    flush_interval_s: float = unported(0.5, "A4")
-    tenant: str = unported("", "A4")
-    replica: int = unported(-1, "A4")
-    ledger: bool = unported(False, "A4")
+    enabled: bool = False
+    dir: str = "traces"  # span JSONL root: the single-process server
+    # writes spans.jsonl, each multi-worker front end spans-w{N}.jsonl;
+    # `python -m mlops_tpu_torch trace-report trace.dir=<dir>`
+    # aggregates them
+    ring_capacity: int = 4096  # bounded span buffer per process; a full
+    # buffer DROPS (counted in mlops_tpu_trace_dropped_total) instead of
+    # ever back-pressuring the request path
+    flush_interval_s: float = 0.5  # background writer cadence; the drain
+    # path flushes everything regardless, so this only bounds how long a
+    # span sits in memory while the server runs
+    tenant: str = ""  # `trace-report` filter (`--tenant` flag sugar):
+    # only aggregate spans carrying this tenant label — multi-tenant
+    # planes (mlops_tpu/tenancy/) stamp every span with its tenant;
+    # pre-tenancy spans count as "default". Empty = all tenants
+    replica: int = -1  # `trace-report` filter (`--replica` flag sugar):
+    # only aggregate spans served by this engine replica (the ring
+    # plane stitches the router's choice into every span; pre-replica
+    # spans count as replica 0). -1 = all replicas
+    ledger: bool = False  # `trace-report --ledger` flag sugar: report
+    # the device-time cost ledger (slo.ledger_dir) ranked by
+    # cost_ms_per_row instead of aggregating span files
+
+    def validate(self) -> "TraceConfig":
+        problems: list[str] = []
+        if self.ring_capacity < 1:
+            problems.append(
+                f"trace.ring_capacity={self.ring_capacity} must be >= 1"
+            )
+        if self.flush_interval_s <= 0:
+            problems.append(
+                f"trace.flush_interval_s={self.flush_interval_s} must be "
+                "> 0 (a zero interval busy-loops the writer thread)"
+            )
+        if self.enabled and not self.dir:
+            problems.append(
+                "trace.enabled=true requires trace.dir (the span JSONL "
+                "root)"
+            )
+        if problems:
+            raise TraceConfigError("; ".join(problems))
+        return self
+
+
+class SLOConfigError(ValueError):
+    """An inconsistent SLO geometry, named at startup (the
+    ``ServeConfigError`` discipline applied to the SLO knobs)."""
 
 
 @dataclasses.dataclass
 class SLOConfig:
-    """The JAX package's ``SLOConfig`` (``mlops_tpu/config.py:774``): the
-    SLO engine and the flight recorder, not ported (ROADMAP A4)."""
+    """The JAX package's ``SLOConfig`` (``mlops_tpu/config.py:774``), its
+    defaults and validation (``slo/``): SLO/error-budget accounting with
+    multi-window multi-burn-rate alerts, the anomaly-triggered flight
+    recorder, and the per-entry device-time cost ledger. Disabled by
+    default — disarmed, every hot path pays one ``is None`` check."""
 
-    enabled: bool = unported(False, "A4")
-    availability_target: float = unported(0.999, "A4")
-    latency_target: float = unported(0.99, "A4")
-    latency_threshold_ms: float = unported(50.0, "A4")
-    tick_s: float = unported(1.0, "A4")
-    fast_burn_threshold: float = unported(14.4, "A4")
-    slow_burn_threshold: float = unported(6.0, "A4")
-    fast_short_s: float = unported(300.0, "A4")
-    fast_long_s: float = unported(3600.0, "A4")
-    slow_short_s: float = unported(21600.0, "A4")
-    slow_long_s: float = unported(259200.0, "A4")
-    flightrec_enabled: bool = unported(True, "A4")
-    flightrec_dir: str = unported("runs", "A4")
-    flightrec_capacity: int = unported(2048, "A4")
-    flightrec_cooldown_s: float = unported(30.0, "A4")
-    flightrec_keep: int = unported(8, "A4")
-    flightrec_spike_errors: int = unported(8, "A4")
-    flightrec_spike_window_s: float = unported(5.0, "A4")
-    ledger_dir: str = unported("", "A4")
-    ledger_flush_s: float = unported(30.0, "A4")
+    enabled: bool = False
+    # ------------------------------------------------------------- targets
+    availability_target: float = 0.999  # fraction of /predict requests
+    # answered without a server-side failure (5xx: 500s, shed 503s, and
+    # deadline 504s all spend budget — a shed request is not goodput)
+    latency_target: float = 0.99  # fraction of requests answered inside
+    # the latency threshold below
+    latency_threshold_ms: float = 50.0  # measured against the existing
+    # latency histogram: the EFFECTIVE threshold is the smallest bucket
+    # edge >= this value (ServingMetrics.LATENCY_BUCKETS)
+    tick_s: float = 1.0  # evaluation cadence (the single-process plane's
+    # timer task; the ring plane's lead-replica telemetry loop). The
+    # alert contract is "flips within two ticks of the counters
+    # crossing" — tune down for chaos drills, up for huge fleets
+    # --------------------------------------------------------- burn alerts
+    # The SRE-workbook multiwindow multi-burn-rate pairs: each alert
+    # requires BOTH its windows over the threshold (long filters blips,
+    # short ends the alert fast once the burn stops). Defaults are the
+    # classic 30-day-budget numbers; chaos drills shrink the windows.
+    fast_burn_threshold: float = 14.4  # page: budget gone in ~2 days
+    slow_burn_threshold: float = 6.0  # ticket: budget gone in ~5 days
+    fast_short_s: float = 300.0  # 5m
+    fast_long_s: float = 3600.0  # 1h
+    slow_short_s: float = 21600.0  # 6h
+    slow_long_s: float = 259200.0  # 3d
+    # ---------------------------------------------------- flight recorder
+    flightrec_enabled: bool = True  # armed with slo.enabled: each serving
+    # process keeps a bounded in-memory ring of recent request summaries
+    # (+ spans when tracing is armed) and dumps it atomically on
+    # anomaly — burn alert, engine respawn, 5xx/504 spike, breaker open,
+    # SIGTERM-with-evidence. A clean run writes NOTHING.
+    flightrec_dir: str = "runs"  # dump directory (flightrec-*.json)
+    flightrec_capacity: int = 2048  # events per process ring
+    flightrec_cooldown_s: float = 30.0  # min seconds between triggered
+    # dumps per process (a sustained burn produces a bounded stream)
+    flightrec_keep: int = 8  # retention: newest N dumps kept in the dir
+    flightrec_spike_errors: int = 8  # 5xx/504 spike trigger: this many
+    # server-side failures inside the window below trips a dump even
+    # when no burn alert is armed to notice
+    flightrec_spike_window_s: float = 5.0
+    # --------------------------------------------------------- cost ledger
+    ledger_dir: str = ""  # per-entry device-time cost ledger root
+    # (slo/ledger.py): empty = OFF. Set it and every packed
+    # dispatch accounts (entry, rows, padded rows, device-path seconds)
+    # into <dir>/ledger.json — persisted atomically, ACCUMULATED across
+    # runs, keyed by entry + model fingerprint (a regrid/promotion never
+    # cross-pollutes), exported as mlops_tpu_entry_* series and ranked
+    # by `trace-report --ledger`. Arms independently of
+    # slo.enabled: the ledger is autotuner input, not alerting.
+    ledger_flush_s: float = 30.0  # background flush cadence
+
+    def validate(self) -> "SLOConfig":
+        problems: list[str] = []
+        for name, target in (
+            ("availability_target", self.availability_target),
+            ("latency_target", self.latency_target),
+        ):
+            if not 0.0 < target < 1.0:
+                problems.append(
+                    f"slo.{name}={target} must be in (0, 1) — a target of "
+                    "1.0 leaves zero error budget and every burn rate "
+                    "undefined"
+                )
+        if self.latency_threshold_ms <= 0:
+            problems.append(
+                f"slo.latency_threshold_ms={self.latency_threshold_ms} "
+                "must be > 0"
+            )
+        else:
+            # The SLO measures against the serving latency histogram;
+            # a threshold past its largest FINITE edge would map to the
+            # +Inf bucket and count EVERY request as good — a silently
+            # dead latency alert, exactly what the always-emit contract
+            # exists to prevent. (Lazy import: serve/metrics never
+            # imports config back.)
+            from mlops_tpu_torch.serve.metrics import LATENCY_BUCKETS
+
+            max_edge = LATENCY_BUCKETS[-2]
+            if self.latency_threshold_ms > max_edge:
+                problems.append(
+                    f"slo.latency_threshold_ms={self.latency_threshold_ms}"
+                    f" exceeds the largest finite latency bucket "
+                    f"({max_edge:g} ms) — every request would count as "
+                    "good and the latency alerts could never fire"
+                )
+        if self.tick_s <= 0:
+            problems.append(
+                f"slo.tick_s={self.tick_s} must be > 0 (a zero tick "
+                "busy-loops the evaluator)"
+            )
+        if self.fast_burn_threshold <= 0 or self.slow_burn_threshold <= 0:
+            problems.append(
+                "slo.fast_burn_threshold/slow_burn_threshold must be > 0"
+            )
+        if not (
+            0 < self.fast_short_s < self.fast_long_s
+            and 0 < self.slow_short_s < self.slow_long_s
+        ):
+            problems.append(
+                "slo burn windows must satisfy 0 < fast_short_s < "
+                "fast_long_s and 0 < slow_short_s < slow_long_s "
+                f"(got {self.fast_short_s}/{self.fast_long_s} and "
+                f"{self.slow_short_s}/{self.slow_long_s}): each alert "
+                "pairs a short window with its long one"
+            )
+        else:
+            # Burn gauges carry a window LABEL dimension ("5m"/"1h"):
+            # two windows collapsing to one label (90 vs 90.5 s both →
+            # "90s") would silently overwrite each other's burns and
+            # drop a series — reject the collision by name instead.
+            from mlops_tpu_torch.slo.engine import window_label
+
+            windows = (self.fast_short_s, self.fast_long_s,
+                       self.slow_short_s, self.slow_long_s)
+            labels = [window_label(w) for w in windows]
+            if len(set(labels)) != len(labels):
+                problems.append(
+                    f"slo burn windows {windows} collapse to duplicate "
+                    f"window labels {labels}: every window needs a "
+                    "distinct whole-second label (the burn gauges' "
+                    "window dimension)"
+                )
+        if self.flightrec_capacity < 1:
+            problems.append(
+                f"slo.flightrec_capacity={self.flightrec_capacity} must "
+                "be >= 1"
+            )
+        if self.flightrec_cooldown_s < 0:
+            problems.append(
+                f"slo.flightrec_cooldown_s={self.flightrec_cooldown_s} "
+                "must be >= 0"
+            )
+        if self.flightrec_keep < 1:
+            problems.append(
+                f"slo.flightrec_keep={self.flightrec_keep} must be >= 1"
+            )
+        if self.flightrec_spike_errors < 1:
+            problems.append(
+                f"slo.flightrec_spike_errors={self.flightrec_spike_errors}"
+                " must be >= 1"
+            )
+        if self.flightrec_spike_window_s <= 0:
+            problems.append(
+                f"slo.flightrec_spike_window_s="
+                f"{self.flightrec_spike_window_s} must be > 0"
+            )
+        if self.ledger_flush_s <= 0:
+            problems.append(
+                f"slo.ledger_flush_s={self.ledger_flush_s} must be > 0"
+            )
+        if problems:
+            raise SLOConfigError("; ".join(problems))
+        return self
 
 
 @dataclasses.dataclass

@@ -35,6 +35,9 @@ POINTS: dict[str, str] = {
     "serve.engine.exit": "each tick of the engine process's main loop (kill = "
     "engine death -> supervisor respawn, brownout; raise = main-loop failure, "
     "same recovery)",
+    "serve.engine.compile": "before a dispatch readies a shape warmup did not "
+    "(the card's graph capture; raise = a failed capture -> the degraded fallback "
+    "through the next larger ready shape of the tier, counted)",
     "serve.ring.reattach": "entry of a respawned engine's ring re-attach (delay = "
     "a slow re-attach; raise = failed re-attach -> the engine exits, the "
     "supervisor retries)",
@@ -55,6 +58,5 @@ POINTS: dict[str, str] = {
 # JAX points whose code path the port does not have yet, and the ROADMAP
 # item that brings each with it.
 UNPORTED_POINTS: dict[str, str] = {
-    "serve.engine.compile": "A4 (the degraded-bucket fallback)",
     "autotune.regrid.midswap": "A4 (the traffic-shape autotuner)",
 }

@@ -1,7 +1,9 @@
 """Micro-batching queue: coalesce concurrent requests into one dispatch.
 
 A port of the JAX package's ``serve/batcher.py``, unchanged in
-behaviour (tracing spans are not ported, ROADMAP A4). Under concurrent
+behaviour, tracing spans included (a traced request's span gets the
+``queue`` stamp at claim and the grouped dispatch's ``dispatch`` and
+``device_fetch`` stamps; a solo call hands it to the engine). Under concurrent
 load, one dispatch per small request leaves the card idle between short
 programs; here requests that arrive together ride one grouped program
 (``InferenceEngine.dispatch_group``) and each gets exactly the response
@@ -31,8 +33,8 @@ from mlops_tpu_torch.serve.wire import (
 )
 
 # A queued request: (records, future, absolute loop-clock deadline or
-# None, routed tier or None).
-_Entry = tuple[list[dict], asyncio.Future, "float | None", "str | None"]
+# None, trace span or None, routed tier or None).
+_Entry = tuple[list[dict], asyncio.Future, "float | None", Any, "str | None"]
 
 
 class MicroBatcher:
@@ -116,18 +118,22 @@ class MicroBatcher:
     def enabled(self) -> bool:
         return self.engine.supports_grouping and self.window_s > 0
 
-    def _solo(self, records, tier):
-        """The solo call for the executor; stub engines without the tier
-        keyword only see it with tier routing on."""
-        if tier is None:
-            return lambda: self._predict_solo(records)
-        return lambda: self._predict_solo(records, tier=tier)
+    def _solo(self, records, tier, span=None):
+        """The solo call for the executor; stub engines without the span
+        or tier keyword only see it with tracing or tier routing on."""
+        kwargs = {}
+        if span is not None:
+            kwargs["span"] = span
+        if tier is not None:
+            kwargs["tier"] = tier
+        return lambda: self._predict_solo(records, **kwargs)
 
     async def predict(
         self,
         records: list[dict[str, Any]],
         deadline: float | None = None,
         tier: str | None = None,
+        span: Any = None,
     ) -> dict[str, Any] | bytes:
         """Entry point for the request handler. ``deadline`` (absolute
         loop-clock time, from the request's ``x-request-deadline-ms``
@@ -135,11 +141,13 @@ class MicroBatcher:
         an expired entry with ``DeadlineExceeded`` instead of dispatching
         it. ``tier`` (resolved upstream by ``engine.route_tier``; None is
         the engine's default tier) rides too: a group is one program, so
-        only same-tier entries coalesce."""
+        only same-tier entries coalesce. ``span`` (tracing armed) rides
+        the same way and gets the queue/dispatch/fetch stamps; None costs
+        one branch per path."""
         loop = asyncio.get_running_loop()
         if not self.enabled or not (1 <= len(records) <= GROUP_ROW_BUCKET):
             return await loop.run_in_executor(
-                self._executor, self._solo(records, tier)
+                self._executor, self._solo(records, tier, span)
             )
 
         # Idle fast path: with nothing queued, nothing in flight (grouped
@@ -163,7 +171,8 @@ class MicroBatcher:
             # occupying its thread, and an early decrement would reopen
             # the fast path for the next victim.
             self._solo_inflight += 1
-            fut = loop.run_in_executor(self._executor, self._solo(records, tier))
+            fut = loop.run_in_executor(self._executor,
+                                       self._solo(records, tier, span))
 
             def _done(f: asyncio.Future) -> None:
                 self._solo_inflight -= 1
@@ -177,7 +186,7 @@ class MicroBatcher:
             return await asyncio.shield(fut)
 
         future: asyncio.Future = loop.create_future()
-        self._pending.append((records, future, deadline, tier))
+        self._pending.append((records, future, deadline, span, tier))
         if len(self._pending) >= self.max_group:
             self._full.set()  # close the window early
         if self._drain_task is None or self._drain_task.done():
@@ -225,7 +234,7 @@ class MicroBatcher:
             now = asyncio.get_running_loop().time()
             live = []
             for entry in self._pending:
-                _, future, entry_deadline, _ = entry
+                _, future, entry_deadline, _, _ = entry
                 if future.done():
                     continue
                 if entry_deadline is not None and now >= entry_deadline:
@@ -239,11 +248,11 @@ class MicroBatcher:
             # Same-tier claim: the head entry's tier and every queued
             # co-traveler on it (FIFO within the tier); other tiers stay
             # queued for the next iteration.
-            head_tier = self._pending[0][3]
+            head_tier = self._pending[0][4]
             batch: list[_Entry] = []
             rest: list[_Entry] = []
             for entry in self._pending:
-                if len(batch) < self.max_group and entry[3] == head_tier:
+                if len(batch) < self.max_group and entry[4] == head_tier:
                     batch.append(entry)
                 else:
                     rest.append(entry)
@@ -265,7 +274,12 @@ class MicroBatcher:
 
     async def _dispatch(self, batch: list[_Entry], tier: str | None) -> None:
         loop = asyncio.get_running_loop()
-        requests = [records for records, _, _, _ in batch]
+        requests = [records for records, _, _, _, _ in batch]
+        spans = [span for _, _, _, span, _ in batch if span is not None]
+        for span in spans:
+            # The queue stage ends at claim: the window wait and any wait
+            # for the in-flight bound.
+            span.stamp("queue")
         # The two-phase engine API when it has one: the dispatch holds the
         # in-flight slot, the blocking fetch rides the fetch ring. The
         # handle is local to this task, so responses never cross between
@@ -293,6 +307,11 @@ class MicroBatcher:
                     self._executor, lambda: dispatch(requests, **kwargs)
                 )
                 self._observe_dispatch_s(loop.time() - t_dispatch)
+                for span in spans:
+                    # The engine encodes inside dispatch_group, so the
+                    # dispatch stage covers encode and device enqueue.
+                    span.stamp("dispatch")
+                    span.entry = getattr(handle, "entry", None)
                 # Claim the fetch ring before releasing the dispatch slot:
                 # released first, a lagging fetch path would let dispatched
                 # but unfetched handles pile up at the ring. This order
@@ -305,14 +324,16 @@ class MicroBatcher:
                     responses = await loop.run_in_executor(
                         self._executor, fetch, handle
                     )
+                for span in spans:
+                    span.stamp("device_fetch")
         # Whatever the dispatch raised (device error, encode bug) goes to
         # every waiter's future, where the handler answers 500.
         except Exception as err:
-            for _, future, _, _ in batch:
+            for _, future, _, _, _ in batch:
                 if not future.done():
                     future.set_exception(err)
         else:
-            for (_, future, _, _), response in zip(batch, responses):
+            for (_, future, _, _, _), response in zip(batch, responses):
                 if not future.done():
                     future.set_result(response)
         finally:

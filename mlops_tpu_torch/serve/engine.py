@@ -33,7 +33,21 @@ tiers:
   each request's encoded rows to the controller, ``swap_bundle``
   hot-promotes a candidate engine's bundle (its programs captured again
   over this engine's accumulator before one reference exchange under the
-  lock) and ``rollback`` exchanges back.
+  lock) and ``rollback`` exchanges back;
+- observability (``trace/``, ``slo/``): with tracing armed a request's
+  span gets the engine-side stamps (``encode``, ``dispatch`` when the
+  replay and the copy to the host are enqueued, ``device_fetch`` when the
+  pinned host buffer is complete) and every dispatch feeds the shape
+  histograms (``set_shape_stats``); with ``slo.ledger_dir`` every dispatch
+  bills its entry's dispatch -> fetch host seconds to the cost ledger
+  (``set_cost_ledger``), keyed by entry and model fingerprint;
+- the degraded-bucket fallback: a shape warmup did not ready (no graph
+  on the card, never run on the CPU route) is captured (or run once) at
+  dispatch under the ``serve.engine.compile`` fault point; when that
+  fails, the dispatch serves through the smallest larger ready shape of
+  the same tier, padding masked (the answer is bitwise the target
+  shape's), and ``degraded_dispatch_total`` counts it. With no larger
+  ready shape the failure raises.
 """
 
 from __future__ import annotations
@@ -82,6 +96,7 @@ from mlops_tpu_torch.serve.wire import (
     encode_response,
     format_response,
 )
+from mlops_tpu_torch.slo.ledger import model_tag
 
 logger = logging.getLogger(__name__)
 TIER_NAMES = ("exact", "quant", "auto")
@@ -121,6 +136,9 @@ class _Generation:
     buckets: list[int]
     graphs: dict[tuple, graphs.ServingGraph]
     pool: Any
+    # (tier, lead) programs run once off the card-graph route (the CPU,
+    # or eager on the card): the shapes this generation has ready there.
+    warmed: set = dataclasses.field(default_factory=set)
 
     def tier(self, requested: str | None) -> str:
         """The tier a dispatch asking for ``requested`` runs: the default
@@ -137,12 +155,15 @@ class _Handle:
     under the lock: the default when the generation lacks the tier asked
     for). A group handle of 1 or more than 64 requests carries their
     already formatted ``responses`` instead (the JAX engine's degenerate
-    handle)."""
+    handle). ``rows``/``slots`` are the geometry that served (a degraded
+    fallback's), ``entry`` its label and ``t0`` the cost ledger's
+    dispatch stamp (0 with the ledger disarmed)."""
 
-    __slots__ = ("host", "event", "n", "rows", "sizes", "slots", "responses", "tier")
+    __slots__ = ("host", "event", "n", "rows", "sizes", "slots", "responses", "tier",
+                 "entry", "t0")
 
     def __init__(self, host=None, event=None, n=0, rows=0, sizes=None,
-                 slots=0, responses=None, tier=None):
+                 slots=0, responses=None, tier=None, entry=None, t0=0.0):
         self.host = host
         self.event = event
         self.n = n
@@ -151,6 +172,8 @@ class _Handle:
         self.slots = slots
         self.responses = responses
         self.tier = tier
+        self.entry = entry
+        self.t0 = t0
 
     def wait(self) -> np.ndarray:
         if self.event is not None:
@@ -230,6 +253,14 @@ class InferenceEngine:
         }
         self._totals_lock = threading.Lock()
         self._dispatches: dict[str, int] = {}  # entry label -> dispatches
+        # Requests served through a larger ready shape after the target
+        # shape's capture failed (``_ready_shape``).
+        self._degraded = 0
+        # Observability hooks, armed by the server: ``set_shape_stats``
+        # and ``set_cost_ledger``. None is one branch on the dispatch path.
+        self.shape_stats = None
+        self.cost_ledger = None
+        self._cost_tag = ""
         self._capture_s = 0.0
         self._pool_bytes = 0
         self.warmup_stats: dict[str, Any] = {}
@@ -401,6 +432,7 @@ class InferenceEngine:
                 scratch = init_accumulator(self.device)
                 for tier, lead in keys:
                     self._warm_pass(gen, tier, lead, scratch)
+                    gen.warmed.add((tier, lead))
                 scratch.rows.cpu()  # waits for every warmup launch to finish
         self.warmup_stats = {
             "warmup_s": round(time.perf_counter() - t0, 3),
@@ -438,18 +470,22 @@ class InferenceEngine:
         overlap on the device, so they may share cuBLAS's workspace."""
         side = self._capture_stream
         side.wait_stream(self._stream)
-        with torch.cuda.stream(side):
-            self._warm_pass(gen, tier, lead, init_accumulator(self.device))
 
         def run(cat, num, mask):
             out, new_acc = self._run(gen, tier, lead, self._acc, cat, num, mask)
             self._store(new_acc)
             return out
 
-        graph, seconds, grown = graphs.capture(
-            run, lead, self.device, side, gen.pool
-        )
-        self._stream.wait_stream(side)
+        try:
+            with torch.cuda.stream(side):
+                self._warm_pass(gen, tier, lead, init_accumulator(self.device))
+            graph, seconds, grown = graphs.capture(
+                run, lead, self.device, side, gen.pool
+            )
+        finally:
+            # Also after a failed capture: whatever the side stream ran
+            # is ordered before the next replay, and no graph is stored.
+            self._stream.wait_stream(side)
         self._capture_s += seconds
         self._pool_bytes += grown
         gen.graphs[(tier, lead)] = graph
@@ -482,9 +518,10 @@ class InferenceEngine:
         )
 
     def _dispatch(
-        self, tier: str | None, lead: tuple[int, ...], entry: str,
+        self, tier: str | None, lead: tuple[int, ...], requested: int,
+        need: tuple[int, ...],
         fill: Callable[[np.ndarray, np.ndarray, np.ndarray], None],
-    ) -> tuple[torch.Tensor, Any, str]:
+    ) -> tuple[Any, Any, str, tuple[int, ...], str, float]:
         """Run one packed program on a batch that ``fill(cat, num, mask)``
         writes into zeroed host arrays of shape ``lead``, fold the
         accumulator and start the packed buffer's copy to the host. The
@@ -493,51 +530,142 @@ class InferenceEngine:
 
         On the card the batch is written straight into a pinned buffer;
         under the lock, on the engine's stream, it is uploaded into the
-        graph's static inputs with one copy, the graph replays (captured
-        now if warmup did not cover the shape), and its static output is
-        copied into this dispatch's own pinned buffer behind an event.
-        Only the event wait (``fetch``) is outside. Returns the host
-        buffer, its event and the tier that ran."""
+        graph's static inputs with one copy, the graph replays, and its
+        static output is copied into this dispatch's own pinned buffer
+        behind an event. Only the event wait (``fetch``) is outside. A
+        shape that is not ready yet is readied under the lock first, or
+        served through a larger ready one (``_ready_shape``; ``need`` is
+        the least geometry that holds the batch). Returns the host buffer,
+        its event, the tier and the geometry that served, the entry label
+        and the cost ledger's dispatch stamp (0 when it is disarmed)."""
+        t0 = time.perf_counter() if self.cost_ledger is not None else 0.0
         if not self._cuda:
-            batch = tuple(
-                np.zeros((*lead, *tail), dtype)
-                for tail, dtype in (((SCHEMA.num_categorical,), np.int32),
-                                    ((SCHEMA.num_numeric,), np.float32),
-                                    ((), bool))
-            )
+            batch = _host_batch(lead)
             fill(*batch)
             with self._acc_lock:
                 gen = self._gen
                 tier = gen.tier(tier)
+                served = self._ready_shape(gen, tier, lead, need)
+                if served != lead:
+                    batch = _host_batch(served)
+                    fill(*batch)
                 out, new_acc = self._run(
-                    gen, tier, lead, self._acc, *map(torch.from_numpy, batch)
+                    gen, tier, served, self._acc, *map(torch.from_numpy, batch)
                 )
                 self._store(new_acc)
-            self._count(_entry_name(entry, tier, gen))
-            return out, None, tier
-        staged = torch.zeros(graphs.input_nbytes(lead), dtype=torch.uint8,
-                             pin_memory=True)
-        fill(*graphs.split_host(staged.numpy(), lead))
-        with self._acc_lock, self._on_stream():
-            gen = self._gen
-            tier = gen.tier(tier)
+            host, event = out, None
+        else:
+            staged = torch.zeros(graphs.input_nbytes(lead), dtype=torch.uint8,
+                                 pin_memory=True)
+            fill(*graphs.split_host(staged.numpy(), lead))
+            with self._acc_lock, self._on_stream():
+                gen = self._gen
+                tier = gen.tier(tier)
+                served = self._ready_shape(gen, tier, lead, need)
+                if served != lead:
+                    staged = torch.zeros(graphs.input_nbytes(served),
+                                         dtype=torch.uint8, pin_memory=True)
+                    fill(*graphs.split_host(staged.numpy(), served))
+                if self._use_graphs:
+                    graph = gen.graphs[(tier, served)]
+                    graph.inputs.copy_(staged, non_blocking=True)
+                    graph.replay()
+                    out = graph.out
+                else:
+                    inputs = staged.to(self.device, non_blocking=True)
+                    out, new_acc = self._run(
+                        gen, tier, served, self._acc,
+                        *graphs.split_inputs(inputs, served)
+                    )
+                    self._store(new_acc)
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(self._stream)
+        base = (f"bucket_{served[0]}" if len(served) == 1
+                else f"group_{served[0]}x{served[1]}")
+        label = _entry_name(base, tier, gen)
+        self._count(label)
+        stats = self.shape_stats
+        if stats is not None:
+            # The shape that served, a degraded fallback's included: the
+            # histogram describes the compute paid, not the compute meant.
+            stats.observe(label, requested, int(np.prod(served)))
+        return host, event, tier, served, label, t0
+
+    def _ready_shape(self, gen: _Generation, tier: str, lead: tuple[int, ...],
+                     need: tuple[int, ...]) -> tuple[int, ...]:
+        """The geometry a dispatch of ``lead`` serves through (caller holds
+        the lock). A shape warmup readied is itself. Any other is readied
+        now, at the ``serve.engine.compile`` fault point: captured into
+        its graph on the card, on the eager route simply marked ready (its
+        first run is the dispatch). When that fails, the dispatch degrades
+        to the smallest ready shape of the same tier and kind that holds
+        ``need`` (every axis at least as large; a tie goes to the earlier
+        warm key), padding masked out of every statistic, and the request
+        is counted in ``degraded_dispatch_total``; with none, the failure
+        raises. A failed capture stores no graph."""
+        ready = gen.graphs if self._use_graphs else gen.warmed
+        key = (tier, lead)
+        if key in ready:
+            return lead
+        try:
+            # Fault point (raise = a failed capture of a shape warmup did
+            # not cover -> the degraded fallback below).
+            faults.fire("serve.engine.compile")
             if self._use_graphs:
-                graph = gen.graphs.get((tier, lead)) or self._capture(gen, tier, lead)
-                graph.inputs.copy_(staged, non_blocking=True)
-                graph.replay()
-                out = graph.out
+                self._capture(gen, tier, lead)
             else:
-                inputs = staged.to(self.device, non_blocking=True)
-                out, new_acc = self._run(
-                    gen, tier, lead, self._acc, *graphs.split_inputs(inputs, lead)
-                )
-                self._store(new_acc)
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(self._stream)
-        self._count(_entry_name(entry, tier, gen))
-        return host, event, tier
+                gen.warmed.add(key)
+            return lead
+        except Exception:
+            fits = [
+                cand for t, cand in self._warm_keys(gen)
+                if t == tier and (t, cand) in ready and len(cand) == len(lead)
+                and cand != lead and all(c >= n for c, n in zip(cand, need))
+            ]
+            if not fits:
+                raise
+            fallback = min(fits, key=lambda cand: int(np.prod(cand)))
+            logger.warning(
+                "dispatch at %s failed; degrading to ready shape %s",
+                lead, fallback, exc_info=True,
+            )
+            with self._totals_lock:
+                self._degraded += 1
+            return fallback
+
+    @property
+    def degraded_dispatch_total(self) -> int:
+        """Requests served through a degraded (larger than their target)
+        shape: the ``mlops_tpu_degraded_dispatch_total`` counter."""
+        with self._totals_lock:
+            return self._degraded
+
+    def set_shape_stats(self, stats) -> None:
+        """Install (or clear, with None) the shape histograms: a
+        ``trace.shapes.ShapeStats`` fed (entry, requested rows, padded
+        rows) per dispatch, called bare on the dispatch path."""
+        self.shape_stats = stats
+
+    def set_cost_ledger(self, ledger) -> None:
+        """Install (or clear, with None) the device-time cost ledger
+        (``slo.ledger.CostLedger``): every dispatch bills (entry,
+        requested rows, padded rows, dispatch -> fetch seconds) under
+        ``<entry>@<model tag>``. Disarmed it is one branch on the
+        dispatch path and one on the fetch path."""
+        if ledger is not None:
+            self._cost_tag = model_tag(self.bundle.model_config)
+        self.cost_ledger = ledger
+
+    def _bill(self, handle: _Handle, requested: int) -> None:
+        """The fetch side's ledger hook: the packed buffer is in hand, so
+        the seconds since the dispatch stamp are the device path's."""
+        ledger = self.cost_ledger
+        if ledger is not None and handle.t0:
+            padded = handle.rows * (handle.slots or 1)
+            ledger.observe(handle.entry, self._cost_tag, requested, padded,
+                           time.perf_counter() - handle.t0)
 
     def _count(self, entry: str) -> None:
         with self._totals_lock:
@@ -581,8 +709,9 @@ class InferenceEngine:
             num[:n] = numeric
             mask[:n] = True
 
-        host, event, served = self._dispatch(tier, (rows,), f"bucket_{rows}", fill)
-        return _Handle(host, event, n=n, rows=rows, tier=served)
+        host, event, served, lead, entry, t0 = self._dispatch(
+            tier, (rows,), n, (n,), fill)
+        return _Handle(host, event, n=n, rows=lead[0], tier=served, entry=entry, t0=t0)
 
     def fetch_arrays_raw(
         self, handle: _Handle
@@ -590,6 +719,7 @@ class InferenceEngine:
         """Wait for the packed buffer: ``(predictions f64[n], outliers
         f64[n], drift f64[D] rounded to 6 places)``."""
         arr = handle.wait()
+        self._bill(handle, handle.n)
         p, o, d = packed_layout(handle.rows)
         return (
             arr[p][: handle.n].astype(float),
@@ -604,30 +734,51 @@ class InferenceEngine:
         return encode_response(*self.fetch_arrays_raw(handle))
 
     def predict_arrays(
-        self, cat_ids: np.ndarray, numeric: np.ndarray, tier: str | None = None
+        self, cat_ids: np.ndarray, numeric: np.ndarray, span=None,
+        tier: str | None = None,
     ) -> dict[str, Any]:
+        """``span`` (``trace.Span``, tracing armed) gets the ``dispatch``
+        stamp once the replay and the copy to the host are enqueued and
+        ``device_fetch`` once the host buffer is complete."""
         handle = self.dispatch_arrays(cat_ids, numeric, tier=tier)
         if handle is None:
             return empty_response()
-        return self.fetch_arrays(handle)
+        if span is not None:
+            span.stamp("dispatch")
+            span.entry = handle.entry
+        response = self.fetch_arrays(handle)
+        if span is not None:
+            span.stamp("device_fetch")
+        return response
 
     def predict_records(
-        self, records: list[dict[str, Any]], tier: str | None = None
+        self, records: list[dict[str, Any]], span=None, tier: str | None = None
     ) -> dict[str, Any]:
-        """Validated records -> the reference response dict."""
+        """Validated records -> the reference response dict; ``span`` gets
+        the engine-side stamps (``encode``, then ``predict_arrays``')."""
         ds = self.bundle.preprocessor.encode(records_to_columns(records))
-        return self.predict_arrays(ds.cat_ids, ds.numeric, tier=tier)
+        if span is not None:
+            span.stamp("encode")
+        return self.predict_arrays(ds.cat_ids, ds.numeric, span=span, tier=tier)
 
     def predict_records_wire(
-        self, records: list[dict[str, Any]], tier: str | None = None
+        self, records: list[dict[str, Any]], span=None, tier: str | None = None
     ) -> bytes:
         """Validated records -> response wire bytes, encoded in the calling
-        (executor) thread."""
+        (executor) thread; ``span`` as in ``predict_records``."""
         ds = self.bundle.preprocessor.encode(records_to_columns(records))
+        if span is not None:
+            span.stamp("encode")
         handle = self.dispatch_arrays(ds.cat_ids, ds.numeric, tier=tier)
         if handle is None:
             return EMPTY_RESPONSE_BYTES
-        return self.fetch_arrays_wire(handle)
+        if span is not None:
+            span.stamp("dispatch")
+            span.entry = handle.entry
+        response = self.fetch_arrays_wire(handle)
+        if span is not None:
+            span.stamp("device_fetch")
+        return response
 
     # ----------------------------------------------------- grouped predict
     def predict_group(
@@ -704,10 +855,11 @@ class InferenceEngine:
                 num[i, :n] = part_num
                 mask[i, :n] = True
 
-        host, event, served = self._dispatch(
-            tier, (slots, rows), f"group_{slots}x{rows}", fill
+        host, event, served, lead, entry, t0 = self._dispatch(
+            tier, (slots, rows), sum(sizes), (len(parts), max(sizes)), fill
         )
-        return _Handle(host, event, rows=rows, sizes=sizes, slots=slots, tier=served)
+        return _Handle(host, event, rows=lead[1], sizes=sizes, slots=lead[0],
+                       tier=served, entry=entry, t0=t0)
 
     def fetch_group_raw(
         self, handle: _Handle
@@ -718,6 +870,7 @@ class InferenceEngine:
             raise ValueError("degenerate group handle carries formatted "
                              "responses; fetch_group owns that path")
         arr = handle.wait()
+        self._bill(handle, sum(handle.sizes))
         p, o, d = packed_layout(handle.rows)
         return (
             handle.sizes,
@@ -813,6 +966,9 @@ class InferenceEngine:
             buckets=list(source.buckets),
             graphs={},
             pool=torch.cuda.graph_pool_handle() if self._use_graphs else None,
+            # The eager route runs the candidate's programs as they are:
+            # the shapes it readied stay ready.
+            warmed=set(source.warmed),
         )
         t0 = time.perf_counter()
         pool_before = self._pool_bytes
@@ -826,6 +982,10 @@ class InferenceEngine:
             self._retired, self._gen = self._gen, staged
             self.bundle_generation += 1
             critical = time.perf_counter() - t1
+        if self.cost_ledger is not None:
+            # Bill the promoted architecture from here on (outside the
+            # lock; a dispatch already in flight bills the outgoing tag).
+            self._cost_tag = model_tag(self.bundle.model_config)
         self.swap_stats = {
             "op": "swap",
             "generation": self.bundle_generation,
@@ -848,6 +1008,8 @@ class InferenceEngine:
             self._gen, self._retired = self._retired, self._gen
             self.bundle_generation += 1
             critical = time.perf_counter() - t1
+        if self.cost_ledger is not None:
+            self._cost_tag = model_tag(self.bundle.model_config)
         self.swap_stats = {
             "op": "rollback",
             "generation": self.bundle_generation,
@@ -930,6 +1092,16 @@ class InferenceEngine:
             torch.where(live.batches > 0, live.drift_last, older.drift_last)
         )
         self._acc_flat[: 3 + _D].add_(window[: 3 + _D])
+
+
+def _host_batch(lead: tuple[int, ...]) -> tuple[np.ndarray, ...]:
+    """Zeroed host ``(cat_ids, numeric, mask)`` arrays of ``lead`` rows."""
+    return tuple(
+        np.zeros((*lead, *tail), dtype)
+        for tail, dtype in (((SCHEMA.num_categorical,), np.int32),
+                            ((SCHEMA.num_numeric,), np.float32),
+                            ((), bool))
+    )
 
 
 def _acc_views(flat: torch.Tensor) -> MonitorAccumulator:

@@ -61,9 +61,19 @@ answering meanwhile) and exits; then the supervisor stops the engine
 replicas, which stop their lifecycle loops, finish their jobs and write
 their last monitor aggregates and lifecycle gauges.
 
-Not ported (ROADMAP A4): tracing spans, ``/debug/profile`` over the ring
-(the front ends answer 404), the SLO engine and flight recorder, the
-autotuner.
+Observability (``trace.enabled``, ``slo.enabled``, ``slo.ledger_dir``),
+as the JAX plane wires it: the supervisor creates ``trace.dir``, flips the
+ring's tracing word and publishes the SLO geometry before it forks. Each
+front end keeps its own span recorder (``<trace.dir>/spans-w<N>.jsonl``;
+drops counted in the ring) and stitches the engine half of every traced
+request from its slot; with SLOs armed it keeps its own flight recorder,
+which dumps on an alert turning on, an engine respawn, a 5xx spike or a
+SIGTERM with evidence, and answers ``/healthz`` from the SLO rows. Each
+engine replica feeds one ``ShapeStats`` (tracing) and one ``CostLedger``
+(``slo.ledger_dir``, ``ledger-r<k>.json`` per replica of a set); replica 0
+runs the ``SLOEngine`` over the ring's counters and answers
+``/debug/profile`` (with ``serve.profile_dir``), which the front ends
+forward over the ring. Not ported (ROADMAP A4): the autotuner.
 """
 
 from __future__ import annotations
@@ -93,6 +103,7 @@ from mlops_tpu_torch.serve.ipc import (
     RingService,
     ShmWorkerMetrics,
 )
+from mlops_tpu_torch.serve.ipc import PROFILE_ACTIONS
 from mlops_tpu_torch.serve.metrics import (
     ENG_DOWN_SINCE,
     ENG_RESPAWNS,
@@ -122,6 +133,9 @@ logger = logging.getLogger("mlops_tpu_torch.serve")
 _ENGINE_STORM_DEATHS = 5
 _ENGINE_STORM_WINDOW_S = 60.0
 _SUPERVISE_TICK_S = 0.25
+# How long a front end waits for the engine's answer to a forwarded
+# /debug/profile request before cancelling it and answering 504.
+_PROFILE_ACK_S = 10.0
 
 
 def reuseport_socket(host: str, port: int) -> socket.socket:
@@ -145,7 +159,8 @@ class FrontendServer(HttpProtocol):
     one per tenant (a single one is the one-tenant fleet)."""
 
     def __init__(self, config: ServeConfig, ring: RequestRing, worker_id: int,
-                 preprocessor: Any, tenancy: TenancyConfig | None = None) -> None:
+                 preprocessor: Any, tenancy: TenancyConfig | None = None,
+                 trace: Any = None, slo: Any = None) -> None:
         super().__init__(config)
         self.ring = ring
         self.worker_id = worker_id
@@ -166,6 +181,40 @@ class FrontendServer(HttpProtocol):
         self.client = RingClient(ring, worker_id,
                                  affinity_slack=config.replica_affinity_slack)
         self.metrics = ShmWorkerMetrics(ring, worker_id, default_tenant=default_index)
+        self.trace_plane = "ring"
+        self.trace_worker = worker_id
+        if trace is not None and trace.enabled:
+            from mlops_tpu_torch.trace import TraceRecorder
+
+            def _count_drops(n: int) -> None:
+                ring.trace_dropped[worker_id] += n
+
+            # A file per worker: appends never need coordinating.
+            self.tracer = TraceRecorder(
+                Path(trace.dir) / f"spans-w{worker_id}.jsonl",
+                capacity=trace.ring_capacity,
+                flush_interval_s=trace.flush_interval_s,
+                on_drop=_count_drops,
+            )
+        if slo is not None and slo.enabled and slo.flightrec_enabled:
+            from mlops_tpu_torch.slo import FlightRecorder
+
+            def _count_dump(path) -> None:
+                ring.flight_dumps[worker_id] += 1
+
+            # This worker's own evidence ring; the SLO engine runs in the
+            # lead engine replica, whose alert rows the watchdog reads.
+            self.flightrec = FlightRecorder(
+                slo.flightrec_dir,
+                capacity=slo.flightrec_capacity,
+                cooldown_s=slo.flightrec_cooldown_s,
+                keep=slo.flightrec_keep,
+                source="ring",
+                worker=worker_id,
+                spike_errors=slo.flightrec_spike_errors,
+                spike_window_s=slo.flightrec_spike_window_s,
+                on_dump=_count_dump,
+            )
         # The large slabs are sized to the (bucket-clamped) request cap.
         self.max_batch = min(config.max_batch, ring.large_rows)
         # SLO tier routing is armed by the config, as the JAX front end
@@ -199,15 +248,78 @@ class FrontendServer(HttpProtocol):
         remaining = eta - (time.monotonic() - min(stamps)) if stamps else eta
         return max(1, math.ceil(remaining if remaining > 0 else eta))
 
+    def _slo_view(self):
+        """The fleet view the lead replica last mirrored (rows never
+        written read as the zero baseline); None with SLOs disarmed."""
+        if not self.ring.slo_armed:
+            return None
+        from mlops_tpu_torch.slo.engine import read_slo_view
+
+        return read_slo_view(self.ring.slo_vals, self.ring.alert_vals,
+                             self.ring.tenant_names,
+                             tuple(float(x) for x in self.ring.slo_meta[:4]))
+
+    def _engine_down(self) -> bool:
+        return self._outage()
+
     async def _metrics_endpoint(self):
         # Every series renders from shared memory: any worker answers a
         # scrape with the whole plane, which SO_REUSEPORT requires.
         return 200, render_ring_metrics(self.ring), "text/plain; version=0.0.4"
 
     async def _profile(self, action: str):
-        # The trace belongs to an engine process; forwarding it over the
-        # ring is not ported (ROADMAP A4).
-        return profile_payload(404, action, "")
+        """Forward ``/debug/profile`` to engine replica 0, which holds the
+        card: claim the channel (busy: 409), post the request word, wait
+        for the answer word (10 s, then cancel: 504) and answer with the
+        single-process plane's payloads."""
+        if not self.config.profile_dir:
+            return profile_payload(404, action, "")
+        code = PROFILE_ACTIONS.get(action)
+        if code is None:
+            return 404, {"detail": "not found"}, "application/json"
+        ring = self.ring
+        token = ring.try_claim_profile()
+        if token is None:
+            return 409, {"detail": "profile control busy"}, "application/json"
+        loop = asyncio.get_running_loop()
+        try:
+            seq = ring.post_profile_request(code)
+            deadline = loop.time() + _PROFILE_ACK_S
+            while (status := ring.read_profile_ack(seq)) is None:
+                if loop.time() >= deadline:
+                    ring.cancel_profile_request(seq, token)
+                    status = 504
+                    break
+                await asyncio.sleep(0.02)
+        finally:
+            ring.release_profile(token)
+        return profile_payload(status, action, self.config.profile_dir)
+
+    def _stitch_engine_half(self, span, slot: int) -> None:
+        """Fold the engine's stamps from the slot into ``span`` (between
+        completion and release: the response slab's ownership window). A
+        slot without all four (the engine ran untraced) keeps the front
+        end's stamps only."""
+        stamps = self.ring.resp_trace[slot]
+        collect, jobstart, dispatched, fetched = (float(x) for x in stamps[:4])
+        if not (collect and jobstart and dispatched and fetched):
+            return
+        span.stamp_at("ring_wait", collect)
+        span.stamp_at("engine_queue", jobstart)
+        span.stamp_at("dispatch", dispatched)
+        span.stamp_at("device_fetch", fetched)
+        span.replica = int(self.ring.slot_replica[slot]) % self.ring.replicas
+        kind, geom = int(stamps[4]), int(stamps[5])
+        if kind == 1:
+            span.entry = f"bucket_{geom}"
+        elif kind == 2:
+            span.entry = f"group_{geom // 100000}x{geom % 100000}"
+
+    def close_tracer(self) -> None:
+        """Flush this worker's span file (the drain path, once the
+        exchanges in flight finished)."""
+        if self.tracer is not None:
+            self.tracer.close()
 
     def _shed(self, n: int, tenant: int) -> tuple:
         """The 503 of a full partition: Retry-After as configured, or the
@@ -225,13 +337,14 @@ class FrontendServer(HttpProtocol):
         return 503, {"detail": detail}, "application/json", {"retry-after": str(retry_s)}
 
     async def _score(self, records: list[dict], request_id: str,
-                     deadline: float | None, slo: int, tenant: int = 0):
+                     deadline: float | None, slo: int, tenant: int = 0, span=None):
         """The tenant's quota first, in the slot class the row count names
         (a one-tenant plane has none), then the slot round trip."""
         if not records:
             return EMPTY_RESPONSE_BYTES
         if self.quota is None:
-            return await self._score_admitted(records, request_id, deadline, slo, tenant)
+            return await self._score_admitted(records, request_id, deadline, slo, tenant,
+                                              span)
         governor = self.quota[0 if len(records) <= self.ring.small_rows else 1]
         verdict = governor.try_acquire(tenant)
         if verdict == "quota":
@@ -244,9 +357,11 @@ class FrontendServer(HttpProtocol):
                     "application/json", {"retry-after": str(retry_s)})
         if verdict == "full":
             # No hold to release: the claim answers the physical shed.
-            return await self._score_admitted(records, request_id, deadline, slo, tenant)
+            return await self._score_admitted(records, request_id, deadline, slo, tenant,
+                                              span)
         try:
-            return await self._score_admitted(records, request_id, deadline, slo, tenant)
+            return await self._score_admitted(records, request_id, deadline, slo, tenant,
+                                              span)
         finally:
             # The governor holds admitted requests, not slots: a zombie
             # slot awaiting a late completion keeps its slot, never its
@@ -254,7 +369,7 @@ class FrontendServer(HttpProtocol):
             governor.release(tenant)
 
     async def _score_admitted(self, records: list[dict], request_id: str,
-                              deadline: float | None, slo: int, tenant: int):
+                              deadline: float | None, slo: int, tenant: int, span=None):
         """Slot admission before encode (a shed costs nothing), encode
         into the slab with the tenant's preprocessor, then the slot's round
         trip. The deadline budget rides the slot header, so the engine
@@ -282,6 +397,8 @@ class FrontendServer(HttpProtocol):
                 self.metrics.count_deadline_expired()
                 return deadline_response()
             ds = self.preprocessors[tenant].encode(records_to_columns(records))
+            if span is not None:
+                span.stamp("encode")
             future = self.client.submit(slot, ds.cat_ids, ds.numeric, deadline=deadline)
             submitted = True
             timeout = self.config.request_timeout_s or None
@@ -316,6 +433,8 @@ class FrontendServer(HttpProtocol):
                 if status == RESP_EXPIRED:
                     return deadline_response()
                 return 500, {"detail": "prediction failed"}, "application/json"
+            if span is not None:
+                self._stitch_engine_half(span, slot)
             # The encode reads every float, so the slab is free after it.
             response = encode_response(*self.client.response_arrays(slot))
             self.client.release(slot)
@@ -351,19 +470,23 @@ class FrontendServer(HttpProtocol):
 
 # --------------------------------------------------------------- children
 def _frontend_main(worker_id: int, config: ServeConfig, ring: RequestRing,
-                   preprocess_paths: list[str], tenancy: TenancyConfig | None) -> None:
+                   preprocess_paths: list[str], tenancy: TenancyConfig | None,
+                   trace: Any = None, slo: Any = None) -> None:
     """A front-end process (forked; everything arrives by inheritance).
     It never imports torch and never touches the device."""
     from mlops_tpu_torch.data.encode import Preprocessor
 
     preprocessors = [Preprocessor.load(path) for path in preprocess_paths]
     with contextlib.suppress(KeyboardInterrupt):
-        asyncio.run(_run_frontend(worker_id, config, ring, preprocessors, tenancy))
+        asyncio.run(_run_frontend(worker_id, config, ring, preprocessors, tenancy,
+                                  trace, slo))
 
 
 async def _run_frontend(worker_id: int, config: ServeConfig, ring: RequestRing,
-                        preprocessors: list, tenancy: TenancyConfig | None) -> None:
-    server = FrontendServer(config, ring, worker_id, preprocessors, tenancy)
+                        preprocessors: list, tenancy: TenancyConfig | None,
+                        trace: Any = None, slo: Any = None) -> None:
+    server = FrontendServer(config, ring, worker_id, preprocessors, tenancy,
+                            trace=trace, slo=slo)
     srv = await server.start()
     logger.info("frontend %d serving %s on %s:%s (pid %d)", worker_id,
                 config.service_name, config.host, config.port, os.getpid())
@@ -378,12 +501,43 @@ async def _run_frontend(worker_id: int, config: ServeConfig, ring: RequestRing,
         loop.add_signal_handler(sig, _drain)
     parent = os.getppid()
 
+    def _alert_flags() -> dict:
+        from mlops_tpu_torch.slo.engine import ENGINE_ALERTS
+
+        return {(alert, tenant): bool(ring.alert_vals[t, a])
+                for a, alert in enumerate(ENGINE_ALERTS)
+                for t, tenant in enumerate(ring.tenant_names)}
+
+    def _watch_anomalies(state: dict) -> None:
+        # The flight recorder's triggers this worker sees only in shared
+        # memory: a respawn the supervisor counted, an alert flag turning
+        # on. Edge-detected against the previous pass, so a sustained
+        # alert dumps once (and the recorder's cooldown bounds the rest).
+        from mlops_tpu_torch.slo.engine import ALERT_SEVERITY
+
+        respawns = int(ring.eng_vals[:, ENG_RESPAWNS].sum())
+        if respawns > state["respawns"]:
+            server.flightrec.trigger("engine_respawn")
+        state["respawns"] = respawns
+        flags = _alert_flags()
+        for (alert, tenant), active in flags.items():
+            if active and not state["alerts"].get((alert, tenant)):
+                server.flightrec.note_alert(alert, tenant, ALERT_SEVERITY[alert])
+        state["alerts"] = flags
+
     async def _watch() -> None:
         # Besides SIGTERM: the ring's drain flag, or a dead supervisor
         # (nobody could respawn this worker). Engine death is no reason to
         # drain: the supervisor respawns it and requests park meanwhile.
+        # The anomaly state starts from the present: a worker (re)spawned
+        # mid-incident never dumps for history it did not see.
+        anomalies = {"respawns": int(ring.eng_vals[:, ENG_RESPAWNS].sum()),
+                     "alerts": _alert_flags() if ring.slo_armed else {}}
         while not draining.is_set():
             await asyncio.sleep(0.5)
+            if server.flightrec is not None:
+                # A triggered dump writes a file: off the event loop.
+                await loop.run_in_executor(None, _watch_anomalies, anomalies)
             if ring.draining or os.getppid() != parent:
                 logger.info("frontend %d: %s; draining", worker_id,
                             "ring drain flag set" if ring.draining else "supervisor gone")
@@ -401,6 +555,13 @@ async def _run_frontend(worker_id: int, config: ServeConfig, ring: RequestRing,
     watchdog.cancel()
     with contextlib.suppress(asyncio.TimeoutError):
         await asyncio.wait_for(srv.wait_closed(), timeout=5)
+    # After the exchanges finished: every span is recorded, and the final
+    # flush writes whole lines only.
+    await loop.run_in_executor(None, server.close_tracer)
+    if server.flightrec is not None:
+        # A clean drain writes nothing; one during an incident keeps the
+        # evidence.
+        await loop.run_in_executor(None, server.flightrec.dump_if_evidence, "sigterm")
     logger.info("frontend %d drained; exiting", worker_id)
 
 
@@ -457,6 +618,27 @@ def _engine_main(config: Config, ring: RequestRing, tenancy: TenancyConfig,
     scoped = _replica_config(config, replica, ring.replicas)
     registry = TenantRegistry(tenancy, make_engine=lambda path: make_engine(scoped, path))
     engines = registry.engines
+    if ring.tracing:
+        from mlops_tpu_torch.trace import ShapeStats
+
+        # One ShapeStats for the fleet: entries key by compiled shape,
+        # which every tenant's engine warms alike.
+        stats = ShapeStats()
+        for engine in engines:
+            engine.set_shape_stats(stats)
+    slo_cfg = config.slo
+    ledger = None
+    if slo_cfg.ledger_dir:
+        from mlops_tpu_torch.slo import CostLedger
+
+        # One per replica process, a file each on a replica set, so
+        # concurrent flushes never clobber a sibling's totals; a respawn
+        # continues from its file.
+        ledger = CostLedger(slo_cfg.ledger_dir, flush_interval_s=slo_cfg.ledger_flush_s,
+                            shard=f"r{replica}" if ring.replicas > 1 else "")
+        for engine in engines:
+            engine.set_cost_ledger(ledger)
+        logger.info("cost ledger armed -> %s", ledger.path)
     t_build = time.monotonic()
     warm_report = registry.warmup()
     service = RingService(
@@ -467,6 +649,32 @@ def _engine_main(config: Config, ring: RequestRing, tenancy: TenancyConfig,
         kernel_launches=lambda: quant_kernel_launches.value,
         engines=engines, replica=replica,
     )
+    service.cost_ledger = ledger
+    if ring.slo_armed and replica == 0:
+        from mlops_tpu_torch.serve.metrics import LIFE_BREAKER_OPEN
+        from mlops_tpu_torch.slo import SLOEngine
+        from mlops_tpu_torch.slo.engine import SLO_NAMES, read_slo_view
+
+        # The lead replica evaluates the fleet's SLOs from the ring's
+        # counters, seeded with a dead predecessor's published totals so
+        # the exported counters never go back.
+        prev = read_slo_view(ring.slo_vals, ring.alert_vals, ring.tenant_names,
+                             tuple(float(x) for x in ring.slo_meta[:4]))
+        prior = {name: tuple(prev[name]["slos"][slo][field]
+                             for slo in SLO_NAMES for field in ("good", "total"))
+                 for name in ring.tenant_names}
+        service.slo = SLOEngine(
+            slo_cfg, ring.tenant_names,
+            source=lambda: ring.slo_counts(slo_cfg.latency_threshold_ms),
+            breaker_source=lambda: {name: bool(ring.life_vals[t, LIFE_BREAKER_OPEN])
+                                    for t, name in enumerate(ring.tenant_names)},
+            prior_counts=prior,
+        )
+        logger.info("SLO engine armed (lead replica)")
+    if serve_cfg.profile_dir and replica == 0:
+        from mlops_tpu_torch.serve.server import TorchProfiler
+
+        service.profiler = TorchProfiler(serve_cfg.profile_dir).control
     # Warmup -> re-attach -> serve: the busy slots routed to this replica
     # are answered by the replay before its ready flag flips.
     attach = service.reattach()
@@ -514,7 +722,11 @@ def _engine_main(config: Config, ring: RequestRing, tenancy: TenancyConfig,
         # ends finish their in-flight slots first, which needs this
         # process; the supervisor stops it after they have exited.
         while not stop:
-            time.sleep(0.5)
+            # A 0.5 s tick, during which this thread runs the profile
+            # requests the collector hands it (replica 0).
+            tick = time.monotonic() + 0.5
+            while not stop and (left := tick - time.monotonic()) > 0:
+                service.serve_profile(left)
             # Fault point: kill = the engine's death in process (the
             # supervisor respawns it); raise = a main-loop failure, the
             # same recovery.
@@ -527,6 +739,8 @@ def _engine_main(config: Config, ring: RequestRing, tenancy: TenancyConfig,
         for controller in controllers:
             controller.stop()
         service.stop()
+        if ledger is not None:
+            ledger.close()  # the final atomic flush
         logger.info("engine replica %d drained; exiting", replica)
 
 
@@ -548,9 +762,11 @@ def _fork(target: Callable, args: tuple, name: str) -> multiprocessing.Process:
 
 
 def _respawn(config: ServeConfig, ring: RequestRing, preprocess_paths: list[str],
-             worker_id: int, tenancy: TenancyConfig) -> multiprocessing.Process:
+             worker_id: int, tenancy: TenancyConfig, trace: Any = None,
+             slo: Any = None) -> multiprocessing.Process:
     """Fork the front end of one slot partition (first boot or respawn)."""
-    proc = _fork(_frontend_main, (worker_id, config, ring, preprocess_paths, tenancy),
+    proc = _fork(_frontend_main,
+                 (worker_id, config, ring, preprocess_paths, tenancy, trace, slo),
                  f"mlops-tpu-torch-frontend-{worker_id}")
     logger.info("frontend %d started (pid %d)", worker_id, proc.pid)
     return proc
@@ -605,19 +821,28 @@ def serve_multi_worker(config: Config, bundle_dir: str,
         if not path.is_file():
             raise SystemExit(f"no preprocessor at {path} (tenant {spec.name!r})")
         preprocess_paths.append(str(path))
-    if serve_cfg.profile_dir:
-        logger.warning("serve.profile_dir is not forwarded over the ring "
-                       "(ROADMAP A4): /debug/profile answers 404")
     # The request cap never exceeds the largest warmed bucket; the front
     # ends' 413 gate enforces the clamped cap, sized into the slabs.
     max_batch = min(serve_cfg.max_batch, max(serve_cfg.warmup_batch_sizes))
     ring = RequestRing(workers=serve_cfg.workers, slots_small=serve_cfg.ring_slots_small,
                        slots_large=serve_cfg.ring_slots_large, large_rows=max_batch,
                        tenant_names=tenancy.names, replicas=replicas)
+    trace_cfg = slo_cfg = None
+    if config.trace.enabled:
+        # Before any fork: the children write into the directory, and the
+        # engines stamp slots once the word is set.
+        trace_cfg = config.trace.validate()
+        Path(trace_cfg.dir).mkdir(parents=True, exist_ok=True)
+        ring.set_tracing(True)
+    if config.slo.enabled or config.slo.ledger_dir:
+        slo_cfg = config.slo.validate()
+        if slo_cfg.enabled:
+            ring.arm_slo(slo_cfg)
     placeholder = reuseport_socket(serve_cfg.host, serve_cfg.port)
     child_cfg = dataclasses.replace(serve_cfg, port=placeholder.getsockname()[1],
                                     max_batch=max_batch)
-    procs = [_respawn(child_cfg, ring, preprocess_paths, w, tenancy)
+    fe_args = (tenancy, trace_cfg, slo_cfg)
+    procs = [_respawn(child_cfg, ring, preprocess_paths, w, *fe_args)
              for w in range(serve_cfg.workers)]
     # Replica 0 first; the others fork once it is ready, so on a cold
     # kernel cache one replica runs nvcc and the rest load its libraries.
@@ -641,7 +866,7 @@ def serve_multi_worker(config: Config, bundle_dir: str,
                 if not proc.is_alive() and not stopping:
                     logger.error("frontend %d (pid %d) died with exit code %s; respawning",
                                  i, proc.pid, proc.exitcode)
-                    procs[i] = _respawn(child_cfg, ring, preprocess_paths, i, tenancy)
+                    procs[i] = _respawn(child_cfg, ring, preprocess_paths, i, *fe_args)
             if engines[-1] is None and ring.rep_ready[0]:
                 for r in range(1, replicas):
                     engines[r] = _spawn_engine(config, ring, tenancy, make_engine, r)

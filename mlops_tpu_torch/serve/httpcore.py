@@ -19,6 +19,15 @@ The ``x-tenant`` header picks the tenant of a multi-tenant plane
 (``tenancy/``): resolved before validation, an untagged request rides the
 default tenant and an unknown name answers 404 with the JAX package's
 body; its metrics bill the default tenant's row.
+
+Observability, as in the JAX protocol: with a ``TraceRecorder`` installed
+(``self.tracer``, tracing armed) every ``POST /predict`` carries a
+``trace.Span`` whose trace id is the request id, stamped ``admission``
+once validated and ``respond`` once the response is written, and
+recorded; with a ``FlightRecorder`` (``self.flightrec``, SLOs armed)
+every request is noted in its evidence ring. ``GET /healthz`` answers the
+SLO verdict (``slo.health_verdict``) from ``_slo_view`` and
+``_engine_down``. Disarmed, each costs one ``is None`` check.
 """
 
 from __future__ import annotations
@@ -37,7 +46,9 @@ from mlops_tpu_torch.schema.validate import validate_records
 from mlops_tpu_torch.serve.openapi import SWAGGER_HTML, build_openapi
 from mlops_tpu_torch.serve.tierroute import SLO_DEFAULT, resolve_slo_class
 from mlops_tpu_torch.serve.wire import deadline_response
+from mlops_tpu_torch.slo.engine import health_verdict
 from mlops_tpu_torch.tenancy.router import TenantRouter
+from mlops_tpu_torch.trace.span import Span
 
 logger = logging.getLogger("mlops_tpu_torch.serve")
 
@@ -88,25 +99,14 @@ class _LazyJson:
         )
 
 
-def health_verdict(ready: bool) -> tuple[int, dict[str, Any], str]:
-    """The ``/healthz`` answer of the JAX package's servers with their SLO
-    engine disarmed (``slo/engine.py::health_verdict`` with no view):
-    "ok" once ready, else "down" with a 503."""
-    verdict, status = ("ok", 200) if ready else ("down", 503)
-    return (
-        status,
-        {"verdict": verdict, "ready": bool(ready), "alerts": []},
-        "application/json",
-    )
-
-
 class HttpProtocol:
     """Connection handling, head parsing, response writing, request ids,
     the docs / health routes, the ``POST /predict`` shell and the drain
     bookkeeping. Subclasses set ``self.metrics`` (anything with
     ``observe_request(route, status, latency_ms)`` and
     ``count_deadline_expired()``) and ``self.max_batch``, and implement
-    ``_score``, ``_ready``, ``_metrics_endpoint`` and ``_profile``.
+    ``_score``, ``_ready``, ``_metrics_endpoint`` and ``_profile``; a
+    plane with SLOs armed overrides ``_slo_view`` (and ``_engine_down``).
 
     Every mutable field is event-loop confined: touched only from
     coroutines on the one asyncio thread, so none carries a lock."""
@@ -126,17 +126,34 @@ class HttpProtocol:
         # The ``x-tenant`` resolution: a subclass serving a fleet installs
         # its own; this is the one-tenant ("default") fleet.
         self.tenants = TenantRouter(())
+        # Observability, installed by the plane's runner when armed: a
+        # ``TraceRecorder`` and the span labels, and a ``FlightRecorder``.
+        self.tracer: Any = None
+        self.trace_plane = "single"
+        self.trace_worker = 0
+        self.flightrec: Any = None
 
     # ------------------------------------------------------ subclass hooks
     async def _score(self, records: list[dict], request_id: str,
-                     deadline: float | None, slo: int, tenant: int = 0):
+                     deadline: float | None, slo: int, tenant: int = 0, span=None):
         """The response dict or its wire bytes, or a ``(status, payload,
         content_type[, headers])`` tuple for an error answer; ``tenant``
-        is the request's tenant index."""
+        is the request's tenant index, ``span`` its trace span (None when
+        tracing is disarmed)."""
         raise NotImplementedError
 
     def _ready(self) -> bool:
         raise NotImplementedError
+
+    def _slo_view(self):
+        """The SLO view ``/healthz`` judges by (``slo.engine`` view shape);
+        None with SLOs disarmed: the verdict follows readiness alone."""
+        return None
+
+    def _engine_down(self) -> bool:
+        """A full engine outage (the ring plane's); never on the
+        single-process plane, whose engine is this process."""
+        return False
 
     async def _metrics_endpoint(self):
         raise NotImplementedError
@@ -146,10 +163,12 @@ class HttpProtocol:
 
     # ------------------------------------------------------------- scoring
     async def _predict(self, body: bytes, request_id: str,
-                       deadline: float | None, slo: int, tenant_raw: str = ""):
+                       deadline: float | None, slo: int, tenant_raw: str = "",
+                       span=None):
         """Resolve the tenant (404), validate (422), cap the batch (413),
         shed an expired budget (504), log ``InferenceData``, score, log
-        ``ModelOutput``."""
+        ``ModelOutput``. ``span`` gets the ``admission`` stamp once the
+        gates are behind."""
         tenant = self.tenants.resolve(tenant_raw)
         if tenant is None:
             return 404, {"detail": f"unknown tenant {tenant_raw[:64]!r}"}
@@ -165,6 +184,9 @@ class HttpProtocol:
             # Expired at admission: no encode, no dispatch.
             self.metrics.count_deadline_expired()
             return deadline_response()
+        if span is not None:
+            span.rows = len(records)
+            span.stamp("admission")
         name = self.config.service_name
         rate = self.config.log_sample_rate
         sampled = rate >= 1.0 or random.random() < rate
@@ -174,7 +196,7 @@ class HttpProtocol:
         }
         if sampled:
             logger.info("%s", _LazyJson(request_event))
-        response = await self._score(records, request_id, deadline, slo, tenant)
+        response = await self._score(records, request_id, deadline, slo, tenant, span)
         if isinstance(response, tuple):
             # An error answer: an unsampled request logs its evidence now.
             if not sampled:
@@ -217,11 +239,11 @@ class HttpProtocol:
         )
 
     async def _route(self, method: str, path: str, body: bytes,
-                     request_id: str, headers: dict[str, str]):
+                     request_id: str, headers: dict[str, str], span=None):
         if path == "/predict" and method == "POST":
             return await self._predict(
                 body, request_id, self._request_deadline(headers),
-                self._request_slo(headers), headers.get("x-tenant", ""),
+                self._request_slo(headers), headers.get("x-tenant", ""), span,
             )
         if path.startswith("/debug/profile/") and method == "POST":
             return await self._profile(path.removeprefix("/debug/profile/"))
@@ -236,7 +258,8 @@ class HttpProtocol:
                     self._openapi = build_openapi(title)
                 return 200, self._openapi
             if path == "/healthz":
-                return health_verdict(self._ready())
+                return health_verdict(self._slo_view(), self._ready(),
+                                      engine_down=self._engine_down())
             if path == "/healthz/live":
                 return 200, {"status": "alive"}
             if path == "/healthz/ready":
@@ -257,6 +280,9 @@ class HttpProtocol:
                 request_line = await reader.readline()
                 if not request_line:
                     break
+                # The span's clock zero: the request head is in hand. One
+                # clock read per request, only when tracing is armed.
+                t_recv = time.monotonic() if self.tracer is not None else 0.0
                 try:
                     method, path, _ = request_line.decode("latin1").split(" ", 2)
                 except ValueError:
@@ -317,19 +343,42 @@ class HttpProtocol:
                 self._busy.add(writer)
                 try:
                     start = time.perf_counter()
+                    tenant_raw = headers.get("x-tenant", "")
+                    tenant_bill = self.tenants.bill_label(tenant_raw)
+                    span = None
+                    if self.tracer is not None and route == "/predict" and method == "POST":
+                        # The request id is the trace id: one identifier
+                        # joins the two log events, the span record and
+                        # the client's retry.
+                        span = Span(trace_id=request_id, plane=self.trace_plane,
+                                    worker=self.trace_worker, route=route, t0=t_recv,
+                                    tenant=self.tenants.label(tenant_raw))
                     status, payload, *rest = await self._route(
-                        method, route, body, request_id, headers
+                        method, route, body, request_id, headers, span
                     )
-                    self.metrics.observe_request(
-                        route, status, (time.perf_counter() - start) * 1e3,
-                        tenant=self.tenants.bill_label(headers.get("x-tenant", "")),
-                    )
+                    latency_ms = (time.perf_counter() - start) * 1e3
+                    self.metrics.observe_request(route, status, latency_ms,
+                                                 tenant=tenant_bill)
+                    if self.flightrec is not None:
+                        self.flightrec.observe_request(route, status, latency_ms,
+                                                       tenant=tenant_bill,
+                                                       request_id=request_id)
                     keep_alive = keep_alive and not self.draining
                     await self._write(
                         writer, status, payload, keep_alive, request_id,
                         rest[0] if rest else "application/json",
                         rest[1] if len(rest) > 1 else None,
                     )
+                    if span is not None and not span.abandoned:
+                        # Respond ends once the bytes are drained to the
+                        # socket. An abandoned span (an engine call that
+                        # outlived its deadline may still stamp it) is
+                        # never finished.
+                        span.stamp("respond")
+                        record = span.finish(status)
+                        self.tracer.record(record)
+                        if self.flightrec is not None:
+                            self.flightrec.note_span(record)
                 finally:
                     self._busy.discard(writer)
                 if not keep_alive:

@@ -73,6 +73,18 @@ locks are leaves. In ``RingService``: ``_inflight`` (the dispatch bound,
 taken by the collector and released by the pool thread that finishes the
 job) is outermost, ``_mon_lock`` a leaf.
 
+Observability (``trace/``, ``slo/``), the JAX ring's: ``ctl[2]`` arms
+tracing (the engine then stamps each slot's engine half into
+``resp_trace``: collected, job started, dispatched, fetched, and the
+entry's kind and geometry, which the owning front end stitches into its
+span); ``ctl[3]`` arms the SLO block (``slo_meta`` carries its windows;
+the lead replica mirrors its ``SLOEngine`` into ``slo_vals`` and
+``alert_vals``). Each replica mirrors its shape histograms and cost ledger
+into its own table rows. ``/debug/profile`` crosses the ring as two
+single-word messages (``prof_ctl``: the request ``seq << 8 | action``,
+the answer ``seq << 16 | status``) under a claim lease (``prof_claim``),
+answered by replica 0 off its collector thread.
+
 Nothing here imports torch: front ends import this module, and the
 engine side reaches the device only through the engines it is given.
 """
@@ -84,6 +96,7 @@ import logging
 import mmap
 import multiprocessing
 import os
+import queue
 import select
 import threading
 import time
@@ -94,6 +107,7 @@ import numpy as np
 from mlops_tpu_torch import faults
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.serve.metrics import (
+    ENG_DEGRADED,
     ENG_EXPIRED,
     ENG_INCARNATION,
     ENG_REPLAYED,
@@ -117,8 +131,13 @@ from mlops_tpu_torch.serve.metrics import (
     MON_ROWS,
     RING_STATUSES,
     ROUTES,
+    SLO_BAD_STATUSES,
+    latency_good_buckets,
 )
 from mlops_tpu_torch.serve.tierroute import TIERS
+from mlops_tpu_torch.slo import ledger as _ledger
+from mlops_tpu_torch.slo.engine import N_ENGINE_ALERTS, SLO_FIELDS
+from mlops_tpu_torch.trace import shapes as _shapes
 from mlops_tpu_torch.serve.wire import (
     GROUP_ROW_BUCKET,
     GROUP_SLOT_BUCKETS,
@@ -138,8 +157,10 @@ _TIER_IDX = {t: i for i, t in enumerate(TIERS)}
 DISPATCH_ROWS = 128
 DISPATCH_KEY_BYTES = 32
 # Control words: [0] reserved (readiness is per replica, rep_ready),
-# [1] draining.
-CTL_DRAINING = 1
+# [1] draining, [2] tracing armed, [3] SLOs armed.
+CTL_DRAINING, CTL_TRACING, CTL_SLO = 1, 2, 3
+# /debug/profile actions on the request word.
+PROFILE_ACTIONS = {"start": 1, "stop": 2}
 
 
 class Doorbell:
@@ -226,6 +247,13 @@ class RequestRing:
         u64, u32, f64 = np.dtype(np.uint64), np.dtype(np.uint32), np.dtype(np.float64)
         plan: list[tuple[str, np.dtype, tuple[int, ...]]] = [
             ("ctl", u64, (4,)),
+            # /debug/profile: [0] the request word (seq << 8 | action), [1]
+            # the answer (seq << 16 | http status); each one u64 store, so
+            # neither tears. prof_claim is the channel's lease (its
+            # monotonic expiry; 0 = free): a front end killed mid-wait
+            # frees it by expiry.
+            ("prof_ctl", u64, (2,)),
+            ("prof_claim", f64, (1,)),
             # Per-replica readiness: replica r's engine flips its own word
             # at attach, the supervisor clears it when r dies. The plane
             # is ready while any replica is.
@@ -265,6 +293,15 @@ class RequestRing:
             ("resp_gen", u32, (self.n_slots,)),
             ("resp_status", u32, (self.n_slots,)),
             ("resp_incarnation", u32, (self.n_slots,)),
+            # The engine half of a traced slot's span: [collected, job
+            # started, dispatched, fetched] CLOCK_MONOTONIC stamps and
+            # [kind, geometry] of the entry that served (kind 1: bucket of
+            # geometry rows; 2: group, geometry slots * 100000 + rows).
+            # Written before the completion push, read by the owner before
+            # release (the response slab's ownership window); zeroed at
+            # submit, so a slot a dead incarnation left half-stamped is
+            # stitched whole or not at all.
+            ("resp_trace", f64, (self.n_slots, 6)),
             # Request slabs (front end writes, engine reads).
             ("small_cat", np.dtype(np.int32), (self.n_small, small_rows, C)),
             ("small_num", np.dtype(np.float32), (self.n_small, small_rows, N)),
@@ -281,6 +318,9 @@ class RequestRing:
             ("lat_counts", u64, (workers, T, len(LATENCY_BUCKETS))),
             ("lat_sum_ms", f64, (workers, T)),
             ("lat_n", u64, (workers, T)),
+            # The latency SLO's scope: /predict requests only.
+            ("pred_lat_counts", u64, (workers, T, len(LATENCY_BUCKETS))),
+            ("pred_lat_n", u64, (workers, T)),
             ("shed", u64, (workers, T, 2)),
             ("inflight", u64, (workers, T, 2)),
             # Admissions refused by the tenant's own weighted max-min
@@ -294,6 +334,10 @@ class RequestRing:
             ("brownout_shed", u64, (workers,)),
             ("tier_demote", u64, (workers,)),
             ("brownout_demote", u64, (workers,)),
+            # Spans each front end's recorder dropped and flight-recorder
+            # dumps it landed (single writer: that worker).
+            ("trace_dropped", u64, (workers,)),
+            ("flight_dumps", u64, (workers,)),
             # Engine-process writers, one row per replica (under that
             # replica's RingService._mon_lock); the render sums them.
             ("tier_counts", f64, (R, len(TIERS))),
@@ -318,6 +362,27 @@ class RequestRing:
             # serve/metrics.py LIFE_*), so any front end renders them.
             ("life_vals", f64, (T, 8)),
             ("life_promos", f64, (T, len(LIFE_OUTCOMES))),
+            # Each replica's shape histograms (trace/shapes.py): its
+            # telemetry thread writes the table, shape_meta[r] is the
+            # stats' armed-at clock (0: tracing off), shape_evicted[r] the
+            # entries its table could not hold.
+            ("shape_meta", f64, (R,)),
+            ("shape_keys", np.dtype(np.uint8),
+             (R, _shapes.TABLE_ROWS, _shapes.TABLE_KEY_BYTES)),
+            ("shape_vals", f64, (R, _shapes.TABLE_ROWS, _shapes.TABLE_VALS)),
+            ("shape_evicted", f64, (R,)),
+            # The SLO block: its geometry (four windows, two targets, the
+            # latency threshold; the supervisor's, before the fork) and the
+            # per-tenant rows the lead replica mirrors every tick.
+            ("slo_meta", f64, (8,)),
+            ("slo_vals", f64, (T, SLO_FIELDS)),
+            ("alert_vals", f64, (T, N_ENGINE_ALERTS)),
+            # Each replica's cost ledger (slo/ledger.py); ledger_meta[r] >
+            # 0 once replica r mirrored one.
+            ("ledger_meta", f64, (R,)),
+            ("ledger_keys", np.dtype(np.uint8),
+             (R, _ledger.TABLE_ROWS, _ledger.TABLE_KEY_BYTES)),
+            ("ledger_vals", f64, (R, _ledger.TABLE_ROWS, _ledger.TABLE_VALS)),
         ]
         offset, offsets = 0, {}
         for name, dtype, shape in plan:
@@ -330,6 +395,9 @@ class RequestRing:
                                  offset=offsets[name]).reshape(shape)
             setattr(self, name, view)
         ctx = multiprocessing.get_context("fork")
+        # Serializes the profile channel's word updates (never held across
+        # the wait for an answer: the lease is the ownership).
+        self._profile_lock = ctx.Lock()
         self._submit_locks = [ctx.Lock() for _ in range(R)]  # front ends only
         self._complete_locks = [ctx.Lock() for _ in range(R)]  # replica r only
         self.engine_doorbells = [Doorbell() for _ in range(R)]
@@ -371,6 +439,98 @@ class RequestRing:
 
     def set_draining(self) -> None:
         self.ctl[CTL_DRAINING] = 1
+
+    @property
+    def tracing(self) -> bool:
+        return bool(self.ctl[CTL_TRACING])
+
+    def set_tracing(self, armed: bool) -> None:
+        self.ctl[CTL_TRACING] = 1 if armed else 0
+
+    @property
+    def slo_armed(self) -> bool:
+        return bool(self.ctl[CTL_SLO])
+
+    def arm_slo(self, slo_config) -> None:
+        """The supervisor, before any fork: publish the SLO geometry (every
+        front end labels the windows from it) and flip the flag that gates
+        the block."""
+        for i, value in enumerate((
+            slo_config.fast_short_s, slo_config.fast_long_s,
+            slo_config.slow_short_s, slo_config.slow_long_s,
+            slo_config.availability_target, slo_config.latency_target,
+            slo_config.latency_threshold_ms,
+        )):
+            self.slo_meta[i] = float(value)
+        self.ctl[CTL_SLO] = 1
+
+    def slo_counts(self, latency_threshold_ms: float) -> dict[str, tuple[int, int, int, int]]:
+        """The SLO engine's counter source on the ring: per tenant, the
+        cumulative ``(avail_good, avail_total, lat_good, lat_total)`` of
+        ``/predict`` over every worker's rows (lock-free reads of monotone
+        counters; a racing increment lands in the next tick)."""
+        route = _ROUTE_IDX["/predict"]
+        bad = [_STATUS_IDX[s] for s in SLO_BAD_STATUSES]
+        k = latency_good_buckets(latency_threshold_ms)
+        out = {}
+        for t, tenant in enumerate(self.tenant_names):
+            counts = self.req_counts[:, t, route, :]
+            total = int(counts.sum())
+            out[tenant] = (total - int(counts[:, bad].sum()), total,
+                           int(self.pred_lat_counts[:, t, :k].sum()),
+                           int(self.pred_lat_n[:, t].sum()))
+        return out
+
+    # ---------------------------------------------------- profile channel
+    # The lease outlives a front end's wait for the answer (10 s), so a
+    # live waiter is never usurped; a dead one frees by expiry.
+    PROFILE_LEASE_S = 15.0
+
+    def try_claim_profile(self) -> float | None:
+        """Claim the channel without waiting (busy: None, the caller
+        answers 409). Returns the lease token: releasing and cancelling
+        need it, so a claimant stalled past its expiry cannot clobber a
+        successor."""
+        if not self._profile_lock.acquire(timeout=0.2):
+            return None
+        try:
+            now = time.monotonic()
+            if float(self.prof_claim[0]) > now:
+                return None
+            token = now + self.PROFILE_LEASE_S
+            self.prof_claim[0] = token
+            return token
+        finally:
+            self._profile_lock.release()
+
+    def release_profile(self, token: float) -> None:
+        with self._profile_lock:
+            if float(self.prof_claim[0]) == token:
+                self.prof_claim[0] = 0.0
+
+    def post_profile_request(self, action_code: int) -> int:
+        """Publish the next request word (the caller holds the lease); the
+        seq its answer echoes. No doorbell: that count is the submission
+        queue's credit, and the collector reads this word on every pass
+        (at least once a second)."""
+        with self._profile_lock:
+            seq = ((int(self.prof_ctl[0]) >> 8) + 1) & 0xFFFFFFFF
+            seq = seq or 1  # 0 reads as "no request"
+            self.prof_ctl[0] = (seq << 8) | (action_code & 0xFF)
+        return seq
+
+    def read_profile_ack(self, seq: int) -> int | None:
+        """The engine's HTTP status for ``seq``, None while pending."""
+        resp = int(self.prof_ctl[1])
+        return resp & 0xFFFF if (resp >> 16) == seq else None
+
+    def cancel_profile_request(self, seq: int, token: float) -> None:
+        """A timed-out wait: overwrite a request not yet read with a no-op
+        at the same seq (the engine answers it 404 instead of running a
+        start or stop the client was told failed)."""
+        with self._profile_lock:
+            if float(self.prof_claim[0]) == token:
+                self.prof_ctl[0] = (int(seq) << 8) | 0
 
     # ----------------------------------------------------- slot geometry
     def worker_slots(self, worker: int) -> tuple[range, range]:
@@ -555,7 +715,11 @@ class ShmWorkerMetrics:
         for i, edge in enumerate(LATENCY_BUCKETS):
             if latency_ms <= edge:
                 ring.lat_counts[w, t, i] += 1
+                if route == "/predict":  # the latency SLO's scope
+                    ring.pred_lat_counts[w, t, i] += 1
                 break
+        if route == "/predict":
+            ring.pred_lat_n[w, t] += 1
 
     def count_deadline_expired(self) -> None:
         """A request answered 504 before its slot was submitted."""
@@ -676,6 +840,8 @@ class RingClient:
         slab_num[:n] = num
         ring.slot_n[slot] = n
         ring.slot_deadline[slot] = deadline if deadline is not None else 0.0
+        if ring.tracing:
+            ring.resp_trace[slot] = 0.0
         # The replica tag before busy, busy before the descriptor: a
         # worker dying anywhere past here leaves the slot, tagged with its
         # replica, to the next incarnation's quarantine and that replica's
@@ -777,7 +943,13 @@ class RingService:
     never waits on front-end state. ``engines[t]`` serves tenant ``t``
     (one engine is the one-tenant fleet). With lifecycle controllers
     attached (``attach_lifecycle``), its telemetry thread also mirrors
-    each tenant's gauges into its lifecycle row."""
+    each tenant's gauges into its lifecycle row. Observability attaches
+    after construction, before ``start``: ``slo`` (an ``SLOEngine``, the
+    lead replica's, ticked on the telemetry thread against the ring's
+    counters and mirrored into the SLO rows), ``cost_ledger`` (mirrored
+    into this replica's ledger table) and ``profiler`` (the engine side of
+    ``/debug/profile``: ``TorchProfiler.control``, replica 0 only). The
+    shape histograms are the engines' ``shape_stats``."""
 
     def __init__(self, engine: Any, ring: RequestRing, max_group: int = 64,
                  max_inflight: int = 4, threads: int = 8,
@@ -824,6 +996,14 @@ class RingService:
         self.lifecycle: Any = None
         self.lifecycles: list[Any] | None = None
         self._requests_since_fetch = 0  # collector-thread writer
+        self._degraded_base = 0.0  # a dead incarnation's degraded count
+        self.slo: Any = None
+        self.cost_ledger: Any = None
+        self.profiler: Callable[[str], tuple[int, Any]] | None = None
+        self._slo_last = 0.0  # telemetry-thread private
+        self._prof_handled = 0  # collector-thread private
+        # Profile requests the collector took, for ``serve_profile``.
+        self._profile_jobs: queue.Queue = queue.Queue()
 
     # ----------------------------------------------------------- lifecycle
     def start(self) -> None:
@@ -831,8 +1011,18 @@ class RingService:
                                            daemon=True)
         self._collector.start()
         monitor = any(self._accumulating) and self._mon_period > 0
-        if monitor or self._tenant_lifecycles():
+        if monitor or self._tenant_lifecycles() or self._observed():
             self._start_telemetry()
+
+    def _observed(self) -> bool:
+        """Any observability mirror armed: the telemetry thread must tick
+        for it even with the monitor cadence off."""
+        return (self.slo is not None or self.cost_ledger is not None
+                or self._shape_stats() is not None)
+
+    def _shape_stats(self):
+        """The engines' shared shape histograms (None: tracing off)."""
+        return getattr(self.engine, "shape_stats", None)
 
     def _start_telemetry(self) -> None:
         self._telemetry = threading.Thread(target=self._telemetry_loop,
@@ -871,6 +1061,7 @@ class RingService:
         self._pool.shutdown(wait=True)
         self._write_monitors()
         self._write_lifecycle()
+        self._write_observability(force=True)
 
     # ------------------------------------------------------------ collect
     def _collect(self) -> None:
@@ -880,11 +1071,20 @@ class RingService:
         # dropped, never banked.
         credit = int(ring.sub_head[rep]) - int(ring.sub_tail[rep])
         while not self._stop.is_set():
+            if rep == 0:
+                # /debug/profile: one trace at a time, one seq space, so the
+                # lead replica answers it.
+                self._handle_profile()
             descs = ring.pop_submissions(limit=credit, replica=rep) if credit else []
             credit = 0
             if not descs:
                 credit = ring.engine_doorbells[rep].wait(timeout_s=1.0)
                 continue
+            if ring.tracing:
+                # Stamp 0: the batch left the ring (ring_wait ends).
+                now = time.monotonic()
+                for slot, _ in descs:
+                    ring.resp_trace[slot, 0] = now
             self._requests_since_fetch += len(descs)
             for job in self._make_jobs(descs):
                 # Backpressure: the dispatch bound blocks the collector,
@@ -956,6 +1156,13 @@ class RingService:
                 }
         counts = ring.dispatch_counts(rep)
         self._dispatch_base = {k: float(v) for k, v in counts.items()}
+        self._degraded_base = float(eng[ENG_DEGRADED])
+        stats = self._shape_stats()
+        if stats is not None and float(ring.shape_meta[rep]) > 0:
+            # The dead incarnation's histograms, so the exported counters
+            # continue instead of resetting.
+            stats.seed(_shapes.read_table(ring.shape_keys[rep], ring.shape_vals[rep]),
+                       t0=float(ring.shape_meta[rep]))
         self._dispatch_rows = {k: i for i, k in enumerate(counts)}
         self._launch_base = float(ring.kernel_launches[rep])
         for t, engine in enumerate(self.engines):
@@ -1020,6 +1227,11 @@ class RingService:
     def _run_job(self, job: list[tuple[int, int]]) -> None:
         ring, rep = self.ring, self.replica
         try:
+            if ring.tracing:
+                # Stamp 1: a pool thread owns the job (engine_queue ends).
+                now = time.monotonic()
+                for slot, _ in job:
+                    ring.resp_trace[slot, 1] = now
             # Dead-work shedding: a descriptor whose deadline ran out while
             # it queued completes RESP_EXPIRED without a dispatch.
             now = time.monotonic()
@@ -1089,13 +1301,24 @@ class RingService:
             n = int(ring.slot_n[slot])
             cat, num = ring.request_views(slot)
             parts.append((cat[:n], num[:n]))
+        tracing = ring.tracing
         if len(parts) >= 2:
             handle = engine.dispatch_group_arrays(parts, **kwargs)
+            if tracing:
+                self._stamp_dispatched(job, handle, kind=2)
             sizes, preds, outs, drifts = engine.fetch_group_raw(handle)
             raws = [(preds[i, :n], outs[i, :n], drifts[i]) for i, n in enumerate(sizes)]
         else:
             handle = engine.dispatch_arrays(*parts[0], **kwargs)
+            if tracing:
+                self._stamp_dispatched(job, handle, kind=1)
             raws = [engine.fetch_arrays_raw(handle)]
+        if tracing:
+            # Stamp 3: the pinned host buffer is complete (device_fetch
+            # ends; the rest is the doorbell and the front end's format).
+            now = time.monotonic()
+            for slot, _ in job:
+                ring.resp_trace[slot, 3] = now
         # Counted under the tier that served: the engine resolves it under
         # its lock, so a job routed to the quant tier just before a
         # promotion to a bundle without one counts on the default tier.
@@ -1106,6 +1329,61 @@ class RingService:
                 ring.tier_counts[self.replica, _TIER_IDX[label]] += len(job)
             self._mirror_counts()
         return raws
+
+    def _stamp_dispatched(self, job: list[tuple[int, int]], handle: Any, kind: int) -> None:
+        """Stamp 2 (the replay and the copy to the host enqueued) and the
+        entry that served, from the geometry the handle carries (a
+        degraded fallback's included)."""
+        rows = int(getattr(handle, "rows", 0))
+        geom = int(getattr(handle, "slots", 0)) * 100000 + rows if kind == 2 else rows
+        now, trace = time.monotonic(), self.ring.resp_trace
+        for slot, _ in job:
+            trace[slot, 2] = now
+            trace[slot, 4] = float(kind)
+            trace[slot, 5] = float(geom)
+
+    # ------------------------------------------------------ /debug/profile
+    def _handle_profile(self) -> None:
+        """Take a pending profile request word (collector thread). The
+        profiler runs on the thread that calls ``serve_profile`` (the
+        engine process's main thread, where its CUDA context was made:
+        CUPTI starts there), never here: starting ``torch.profiler`` on the
+        collector would stall every dispatch behind it."""
+        req = int(self.ring.prof_ctl[0])
+        seq = req >> 8
+        if not seq or seq == self._prof_handled:
+            return
+        self._prof_handled = seq
+        action = {v: k for k, v in PROFILE_ACTIONS.items()}.get(req & 0xFF)
+        if self.profiler is None or action is None:
+            self._ack_profile(seq, 404)
+        else:
+            self._profile_jobs.put((seq, action))
+
+    def serve_profile(self, timeout_s: float) -> None:
+        """Run one pending ``/debug/profile`` request on the calling thread,
+        waiting up to ``timeout_s`` for one."""
+        try:
+            seq, action = self._profile_jobs.get(timeout=max(timeout_s, 0.0))
+        except queue.Empty:
+            return
+        self._run_profile(seq, action)
+
+    def _run_profile(self, seq: int, action: str) -> None:
+        try:
+            status = int(self.profiler(action)[0])
+        # The profiler logs and answers its own failures with 500; this
+        # catches a failure around it, answered 500 too, never a lost ack.
+        except Exception:
+            logger.exception("ring profile %s failed", action)
+            status = 500
+        self._ack_profile(seq, status)
+
+    def _ack_profile(self, seq: int, status: int) -> None:
+        # Never regress the answer word: a late answer to an abandoned seq
+        # must not mask a newer one.
+        if seq >= int(self.ring.prof_ctl[1]) >> 16:
+            self.ring.prof_ctl[1] = (seq << 16) | (status & 0xFFFF)
 
     def _mirror_counts(self) -> None:
         """Publish this replica's dispatches per program, summed over its
@@ -1141,6 +1419,7 @@ class RingService:
         last = time.monotonic()
         while not self._stop.wait(tick):
             self._write_lifecycle()
+            self._write_observability()
             if not monitor:
                 continue
             never = any(self._accumulating[t] and not self.ring.mon_vals[self.replica, t, MON_HAS]
@@ -1156,6 +1435,38 @@ class RingService:
             self._requests_since_fetch = 0
             last = time.monotonic()
             self._write_monitors()
+
+    def _write_observability(self, force: bool = False) -> None:
+        """Mirror the degraded count, the shape histograms and the cost
+        ledger into this replica's rows, and on the lead replica tick the
+        SLO engine (at its own cadence; ``force`` on drain) into the SLO
+        rows: host reads and f64 stores, no device work."""
+        ring, rep = self.ring, self.replica
+        degraded = sum(getattr(e, "degraded_dispatch_total", 0) for e in self.engines)
+        with self._mon_lock:
+            ring.eng_vals[rep, ENG_DEGRADED] = self._degraded_base + float(degraded)
+        stats = self._shape_stats()
+        if stats is not None:
+            stats.write_table(ring.shape_keys[rep], ring.shape_vals[rep])
+            ring.shape_meta[rep] = stats.t0
+            # max(): a respawned incarnation's fresh count never regresses it.
+            ring.shape_evicted[rep] = max(float(ring.shape_evicted[rep]),
+                                          float(stats.evicted_total))
+        if self.cost_ledger is not None:
+            self.cost_ledger.write_table(ring.ledger_keys[rep], ring.ledger_vals[rep])
+            ring.ledger_meta[rep] = 1.0
+        slo = self.slo
+        if slo is not None and rep == 0:
+            now = time.monotonic()
+            if force or now - self._slo_last >= float(slo.config.tick_s):
+                self._slo_last = now
+                try:
+                    slo.tick()
+                    slo.write_rows(ring.slo_vals, ring.alert_vals)
+                # An evaluator failure costs one tick of freshness, logged,
+                # never the telemetry thread.
+                except Exception:
+                    logger.exception("slo tick failed; alert gauges stale")
 
     def _write_monitors(self) -> None:
         """Each accumulating tenant engine's snapshot into its row; one

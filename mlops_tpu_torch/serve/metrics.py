@@ -35,8 +35,17 @@ single-process server renders one block per tenant under
 ``lifecycle.enabled=true``; on the ring plane the engine process's
 telemetry loop writes each controller's snapshot into its tenant's row
 (``RequestRing.write_lifecycle``) and every front end renders it from
-there, as the JAX ring render does. Tracing, the SLO engine, the cost
-ledger and the autotuner are not ported (ROADMAP A4), nor their series.
+there, as the JAX ring render does.
+
+Observability (``trace/``, ``slo/``), on both planes under the JAX
+series names: ``robustness_lines`` (dead-work sheds, degraded dispatches,
+dropped spans, flight-recorder dumps) always; with tracing armed the
+shape histograms each replica's telemetry thread mirrors
+(``shape_keys``/``shape_vals``), merged by entry; with SLOs armed the
+SLO and alert block the lead replica mirrors (``slo_vals``/
+``alert_vals``), ``engine_down`` computed by whoever renders; with
+``slo.ledger_dir`` the cost ledger's ``mlops_tpu_entry_*`` series, merged
+by entry. The autotuner is not ported (ROADMAP A4), nor its series.
 """
 
 from __future__ import annotations
@@ -45,6 +54,9 @@ import time
 
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.serve.tierroute import TIERS
+from mlops_tpu_torch.slo import ledger as _ledger
+from mlops_tpu_torch.slo.engine import read_slo_view, render_slo_lines
+from mlops_tpu_torch.trace import shapes as _shapes
 
 LATENCY_BUCKETS = (0.5, 1, 2, 5, 10, 25, 50, 100, 250, 1000, float("inf"))
 # Known routes only: arbitrary request paths must not become unbounded
@@ -57,6 +69,8 @@ ROUTES = KNOWN_ROUTES + ("<other>",)
 # a catch-all column rendered as status="other".
 RING_STATUSES = (200, 400, 404, 409, 413, 422, 500, 503, 504)
 RING_CLASSES = ("small", "large")
+# Statuses that spend the availability SLO's budget (any 5xx does).
+SLO_BAD_STATUSES = (500, 503, 504)
 DEFAULT_TENANT_LABEL = "default"
 # Promotion outcomes, in the JAX package's order.
 LIFE_OUTCOMES = ("promoted", "rejected", "rolled_back")
@@ -76,8 +90,8 @@ LIFE_OUTCOMES = ("promoted", "rejected", "rolled_back")
 # Fields of the monitor-aggregate row (engine-process single writer).
 MON_ROWS, MON_OUTLIERS, MON_BATCHES, MON_FETCHES, MON_FETCHED_AT, MON_HAS = range(6)
 # Fields of the engine-supervision row. The engine process writes
-# INCARNATION, REPLAYED, ROWS_LOST, ROWS_DISPATCHED and EXPIRED; the
-# supervisor DOWN_SINCE (cleared by the engine at ready) and RESPAWNS.
+# INCARNATION, REPLAYED, ROWS_LOST, ROWS_DISPATCHED, EXPIRED and DEGRADED;
+# the supervisor DOWN_SINCE (cleared by the engine at ready) and RESPAWNS.
 (
     ENG_INCARNATION,
     ENG_DOWN_SINCE,
@@ -86,11 +100,62 @@ MON_ROWS, MON_OUTLIERS, MON_BATCHES, MON_FETCHES, MON_FETCHED_AT, MON_HAS = rang
     ENG_ROWS_LOST,
     ENG_ROWS_DISPATCHED,
     ENG_EXPIRED,
-) = range(7)
+    ENG_DEGRADED,
+) = range(8)
 
 
 def _counter(name: str, value) -> list[str]:
     return [f"# TYPE {name} counter", f"{name} {value}"]
+
+
+def latency_good_buckets(threshold_ms: float) -> int:
+    """How many latency buckets count as good for the latency SLO: the
+    smallest edge at or above the threshold is the effective one."""
+    for i, edge in enumerate(LATENCY_BUCKETS):
+        if edge >= threshold_ms:
+            return i + 1
+    return len(LATENCY_BUCKETS)
+
+
+def robustness_lines(deadline_expired: int, degraded: int, trace_dropped: int = 0,
+                     flight_dumps: int = 0) -> list[str]:
+    """The JAX ``ServingMetrics.robustness_lines``: one block, both
+    planes, always emitted (a zero baseline keeps the counters'
+    monotonicity checkable)."""
+    return [
+        *_counter("mlops_tpu_deadline_expired_total", int(deadline_expired)),
+        *_counter("mlops_tpu_degraded_dispatch_total", int(degraded)),
+        *_counter("mlops_tpu_trace_dropped_total", int(trace_dropped)),
+        *_counter("mlops_tpu_flightrec_dumps_total", int(flight_dumps)),
+    ]
+
+
+def observability_lines(ring) -> list[str]:
+    """The ring's shape histograms, SLO block and ledger series, each only
+    once armed (the JAX ring render's blocks, from the same rows)."""
+    lines: list[str] = []
+    R = ring.replicas
+    armed = [r for r in range(R) if float(ring.shape_meta[r]) > 0]
+    if armed:
+        # Replicas warm identical entries: merged by key, the rate base is
+        # the oldest armed clock, the evictions sum.
+        entries = _shapes.merge_entries(
+            [_shapes.read_table(ring.shape_keys[r], ring.shape_vals[r]) for r in armed])
+        elapsed = time.monotonic() - min(float(ring.shape_meta[r]) for r in armed)
+        evicted = int(sum(float(ring.shape_evicted[r]) for r in armed))
+        lines += _shapes.render_entries_lines(entries, elapsed, evicted=evicted)
+    if ring.slo_armed:
+        # engine_down is computed here: a dead engine cannot raise it.
+        engine_down = not ring.engine_ready and bool(
+            (ring.eng_vals[:, ENG_DOWN_SINCE] > 0).any())
+        view = read_slo_view(ring.slo_vals, ring.alert_vals, ring.tenant_names,
+                             tuple(float(x) for x in ring.slo_meta[:4]))
+        lines += render_slo_lines(view, engine_down=engine_down)
+    led = [r for r in range(R) if float(ring.ledger_meta[r]) > 0]
+    if led:
+        lines += _ledger.render_entry_lines(_ledger.merge_entries(
+            [_ledger.read_table(ring.ledger_keys[r], ring.ledger_vals[r]) for r in led]))
+    return lines
 
 
 def lifecycle_lines(snapshot: dict | None, tenant: str = DEFAULT_TENANT_LABEL) -> list[str]:
@@ -266,9 +331,11 @@ def render_ring_metrics(ring) -> str:
                 f"{time.monotonic() - min(fetched):.3f}",
             ]
     eng = ring.eng_vals
-    lines += _counter(
-        "mlops_tpu_deadline_expired_total",
+    lines += robustness_lines(
         int(ring.expired.sum()) + int(eng[:, ENG_EXPIRED].sum()),
+        int(eng[:, ENG_DEGRADED].sum()),
+        int(ring.trace_dropped.sum()),
+        int(ring.flight_dumps.sum()),
     )
     lines += _counter("mlops_tpu_engine_respawn_total", int(eng[:, ENG_RESPAWNS].sum()))
     lines += _counter("mlops_tpu_replayed_slots_total", int(eng[:, ENG_REPLAYED].sum()))
@@ -322,6 +389,7 @@ def render_ring_metrics(ring) -> str:
         'mlops_tpu_kernel_launches_total{kernel="quant_fused"} '
         f"{int(ring.kernel_launches.sum())}",
     ]
+    lines += observability_lines(ring)
     for t, tenant in enumerate(tenants):
         if ring.life_vals[t, LIFE_HAS]:
             # The engine process's loop state per tenant.

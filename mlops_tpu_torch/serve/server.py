@@ -2,8 +2,15 @@
 or both with SLO tier routing): the single-process plane.
 
 The JAX package's single-process plane (``serve/server.py`` over
-``serve/httpcore.py``), without tracing spans or the SLO engine (ROADMAP
-A4); with ``lifecycle=`` it runs the closed lifecycle loop's controller
+``serve/httpcore.py``); with ``trace=`` (enabled) every ``/predict``
+records a span to ``<trace.dir>/spans.jsonl`` (the batcher stamps
+``queue``, the engine ``encode`` / ``dispatch`` / ``device_fetch``) and
+the engines feed one ``ShapeStats``; with ``slo=`` (enabled) an
+``SLOEngine`` ticks every ``slo.tick_s`` over this server's counters, a
+``FlightRecorder`` dumps on an alert, a 5xx spike, a fatal error or a
+SIGTERM with evidence, and ``/healthz`` answers the verdict; with
+``slo.ledger_dir`` a ``CostLedger`` bills every dispatch. With
+``lifecycle=`` it runs the closed lifecycle loop's controller
 (``lifecycle/controller.py``): started once warmup is done, its gauges on
 ``/metrics``, drained on SIGTERM. With ``registry=`` (a
 ``tenancy.TenantRegistry``) it serves a tenant fleet: one engine and one
@@ -39,7 +46,8 @@ process:
   block (``serve/metrics.py lifecycle_lines``) when a loop runs,
   dispatches per program and the kernel launch count;
 - ``POST /debug/profile/{start,stop}`` — a ``torch.profiler`` trace of
-  live traffic into ``serve.profile_dir`` (404 when it is unset).
+  live traffic into ``serve.profile_dir`` (404 when it is unset); the
+  ring plane's front ends forward it to engine replica 0.
 
 The socket binds first and warmup runs behind it, so probes answer while
 the engine warms. SIGTERM drains: no new connections, idle ones closed,
@@ -55,6 +63,7 @@ import logging
 import os
 import signal
 import threading
+from pathlib import Path
 from typing import Any
 
 from mlops_tpu_torch.config import ServeConfig
@@ -62,7 +71,14 @@ from mlops_tpu_torch.ops.quant_kernel import quant_kernel_launches
 from mlops_tpu_torch.serve.batcher import MicroBatcher
 from mlops_tpu_torch.serve.engine import InferenceEngine
 from mlops_tpu_torch.serve.httpcore import HttpProtocol, _LazyJson
-from mlops_tpu_torch.serve.metrics import lifecycle_lines
+from mlops_tpu_torch.serve.metrics import (
+    KNOWN_ROUTES,
+    LATENCY_BUCKETS,
+    SLO_BAD_STATUSES,
+    latency_good_buckets,
+    lifecycle_lines,
+    robustness_lines,
+)
 from mlops_tpu_torch.serve.tierroute import TIERS, BrownoutGovernor
 from mlops_tpu_torch.serve.wire import (
     DeadlineExceeded,
@@ -80,7 +96,10 @@ class TorchProfiler:
     ``profile_dir``, 409 for a start while tracing or a stop while not,
     500 (logged) when the profiler fails. ``stop`` writes the trace into
     the directory (TensorBoard's format). The lock serializes calls; it
-    blocks only the next profile call, never a request."""
+    blocks only the next profile call, never a request. Start and stop
+    run on one thread, the one CUPTI's tracer was started from (the
+    single-process server keeps a thread for them; the ring's replica 0
+    runs them on its main thread, where its CUDA context was made)."""
 
     def __init__(self, profile_dir: str) -> None:
         self.profile_dir = profile_dir
@@ -135,6 +154,12 @@ class Metrics:
     def __init__(self, tenants: tuple[str, ...] = ("default",)) -> None:
         self._lock = threading.Lock()
         self.requests: dict[tuple[str, int, str], int] = {}
+        # The latency SLO's source: /predict latencies per tenant in the
+        # JAX histogram's buckets (not rendered: the SLO block is).
+        self.predict_latency: dict[str, list[int]] = {}
+        self.degraded = 0
+        self.trace_dropped = 0
+        self.flight_dumps = 0
         self.monitor: dict[str, dict[str, Any]] = {
             tenant: {"rows": 0.0, "outliers": 0.0, "batches": 0.0,
                      "drift_last": {}, "drift_mean": {}}
@@ -149,9 +174,48 @@ class Metrics:
 
     def observe_request(self, route: str, status: int, latency_ms: float = 0.0,
                         tenant: str = "default") -> None:
+        if route not in KNOWN_ROUTES:
+            route = "<other>"  # arbitrary paths never become label values
         with self._lock:
             key = (route, status, tenant)
             self.requests[key] = self.requests.get(key, 0) + 1
+            if route == "/predict":
+                counts = self.predict_latency.setdefault(
+                    tenant, [0] * len(LATENCY_BUCKETS))
+                for i, edge in enumerate(LATENCY_BUCKETS):
+                    if latency_ms <= edge:
+                        counts[i] += 1
+                        break
+
+    def slo_counts(self, latency_threshold_ms: float,
+                   tenants: tuple[str, ...]) -> dict[str, tuple[int, int, int, int]]:
+        """The SLO engine's counter source (the JAX
+        ``ServingMetrics.slo_counts``): per tenant, the cumulative
+        ``(avail_good, avail_total, lat_good, lat_total)`` of
+        ``/predict``; any 5xx spends availability."""
+        k = latency_good_buckets(latency_threshold_ms)
+        out = {}
+        with self._lock:
+            for tenant in tenants:
+                total = bad = 0
+                for (route, status, t), count in self.requests.items():
+                    if route == "/predict" and t == tenant:
+                        total += count
+                        if status in SLO_BAD_STATUSES or status >= 500:
+                            bad += count
+                counts = self.predict_latency.get(tenant)
+                out[tenant] = (total - bad, total, sum(counts[:k]) if counts else 0,
+                               sum(counts) if counts else 0)
+        return out
+
+    def set_observability(self, degraded: int, trace_dropped: int,
+                          flight_dumps: int) -> None:
+        """Mirror the engines' degraded dispatches, the span recorder's
+        drops and the flight recorder's landed dumps (absolute totals)."""
+        with self._lock:
+            self.degraded = int(degraded)
+            self.trace_dropped = int(trace_dropped)
+            self.flight_dumps = int(flight_dumps)
 
     def set_monitor_aggregate(self, snapshot: dict[str, Any],
                               tenant: str = "default") -> None:
@@ -208,11 +272,9 @@ class Metrics:
                 for t in tenants:
                     for feature, score in self.monitor[t][field].items():
                         lines.append(f'{name}{{feature="{feature}",tenant="{t}"}} {score}')
-            lines += [
-                "# TYPE mlops_tpu_deadline_expired_total counter",
-                f"mlops_tpu_deadline_expired_total {self.deadline_expired}",
-                "# TYPE mlops_tpu_tier_requests_total counter",
-            ]
+            lines += robustness_lines(self.deadline_expired, self.degraded,
+                                      self.trace_dropped, self.flight_dumps)
+            lines.append("# TYPE mlops_tpu_tier_requests_total counter")
             for tier in TIERS:
                 lines.append(
                     f'mlops_tpu_tier_requests_total{{tier="{tier}"}} '
@@ -261,6 +323,15 @@ class HttpServer(HttpProtocol):
             max_workers=config.max_workers, thread_name_prefix="predict"
         )
         self._profiler = TorchProfiler(config.profile_dir)
+        # The profiler's one thread (``TorchProfiler``'s contract).
+        self._profile_thread = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="profile"
+        )
+        # Armed by ``serve``: the SLO engine (ticked by its own timer task
+        # and on scrapes) and the cost ledger (rendered on scrapes).
+        self.slo_engine = None
+        self.cost_ledger = None
+        self._slo_task: asyncio.Task | None = None
         # One batcher per tenant over the one executor: validate()
         # guarantees the dispatch bound, the fetch ring (>= 1) and one
         # thread of headroom (the solo fast path, monitor fetches) fit the
@@ -313,26 +384,46 @@ class HttpServer(HttpProtocol):
             self._monitor_timer_task = asyncio.get_running_loop().create_task(
                 self._monitor_timer()
             )
+        if self.slo_engine is not None:
+            self._slo_task = asyncio.get_running_loop().create_task(self._slo_timer())
         return await asyncio.start_server(
             self.handle_connection, self.config.host, self.config.port
         )
 
+    async def _slo_timer(self) -> None:
+        """The SLO engine's cadence: burn rates and alert edges (the flight
+        recorder's trigger) advance when nobody scrapes too."""
+        while True:
+            await asyncio.sleep(self.slo_engine.config.tick_s)
+            try:
+                self.slo_engine.tick()
+            # An evaluator failure costs one tick of freshness, logged; the
+            # next tick retries.
+            except Exception:
+                logger.exception("slo tick failed; alert gauges stale")
+
+    def _slo_view(self):
+        return None if self.slo_engine is None else self.slo_engine.view()
+
     def stop_telemetry(self) -> None:
-        """Cancel the monitor timer and any fetch in flight."""
-        for task in (self._monitor_timer_task, self._monitor_task):
+        """Cancel the monitor and SLO timers and any fetch in flight."""
+        for task in (self._monitor_timer_task, self._monitor_task, self._slo_task):
             if task is not None and not task.done():
                 task.cancel()
 
     def close(self) -> None:
         self._executor.shutdown(wait=True)
+        self._profile_thread.shutdown(wait=True)
 
     # ------------------------------------------------------------- scoring
     async def _score(self, records: list[dict], request_id: str,
-                     deadline: float | None, slo: int, tenant: int = 0):
+                     deadline: float | None, slo: int, tenant: int = 0, span=None):
         """The tenant's micro-batcher -> its engine, with the deadline and
         failure contracts (tenants share the pool, never a dispatch).
         ``slo`` maps to a tier of that engine, through the brownout
-        governor first."""
+        governor first. ``span`` rides into the batcher and the engine
+        for their stamps; one an engine call may still stamp after this
+        request gave up on it is marked abandoned and never recorded."""
         engine = self.engines[tenant]
         tier: str | None = None
         if self._brownout is not None:
@@ -342,6 +433,8 @@ class HttpServer(HttpProtocol):
             self.metrics.count_tier(tier or engine.default_tier)
             if demoted:
                 self.metrics.count_demotion(brownout=True)
+            if span is not None:
+                span.tier = tier or engine.default_tier
         self._score_inflight += 1
         try:
             # The timeout exists for a stalled device; a client's deadline
@@ -351,7 +444,11 @@ class HttpServer(HttpProtocol):
             if deadline is not None:
                 remaining = deadline - asyncio.get_running_loop().time()
                 timeout = min(timeout or remaining, remaining)
-            call = self.batchers[tenant].predict(records, deadline=deadline, tier=tier)
+            # The span rides only when tracing is armed: the disarmed call
+            # keeps the batcher's call shape.
+            traced = {} if span is None else {"span": span}
+            call = self.batchers[tenant].predict(records, deadline=deadline, tier=tier,
+                                                 **traced)
             if timeout is not None:
                 response = await asyncio.wait_for(call, max(timeout, 0.0))
             else:
@@ -364,6 +461,8 @@ class HttpServer(HttpProtocol):
                 "prediction deadline (%.1fs) exceeded request_id=%s — "
                 "device stall?", timeout, request_id,
             )
+            if span is not None:
+                span.abandoned = True  # the engine call may still stamp it
             return deadline_response(
                 f"prediction exceeded the {timeout:g}s deadline"
             )
@@ -371,6 +470,8 @@ class HttpServer(HttpProtocol):
         # becomes a logged 500, never a dropped connection.
         except Exception:
             logger.exception("prediction failed request_id=%s", request_id)
+            if span is not None:
+                span.abandoned = True  # a grouped dispatch may outlive us
             return 500, {"detail": "prediction failed"}, "application/json"
         finally:
             self._score_inflight -= 1
@@ -448,7 +549,23 @@ class HttpServer(HttpProtocol):
         for engine in self.engines:
             for entry, count in engine.dispatch_counts().items():
                 dispatches[entry] = dispatches.get(entry, 0) + count
-        text = self.metrics.render(dispatches)
+        self.metrics.set_observability(
+            sum(engine.degraded_dispatch_total for engine in self.engines),
+            self.tracer.dropped if self.tracer is not None else 0,
+            self.flightrec.landed if self.flightrec is not None else 0,
+        )
+        lines = [self.metrics.render(dispatches)]
+        stats = self.engine.shape_stats
+        if stats is not None:
+            lines += stats.render_lines()
+        if self.slo_engine is not None:
+            # A fresh tick per scrape (cheap host arithmetic); engine_down
+            # cannot hold here: the engine is this process.
+            self.slo_engine.tick()
+            lines += self.slo_engine.render_lines()
+        if self.cost_ledger is not None:
+            lines += self.cost_ledger.render_lines()
+        text = lines[0] + "".join(line + "\n" for line in lines[1:])
         return 200, text, "text/plain; version=0.0.4"
 
     def _tenant_lifecycles(self) -> list[tuple[str, Any]]:
@@ -465,7 +582,7 @@ class HttpServer(HttpProtocol):
         if action not in ("start", "stop"):
             return 404, {"detail": "not found"}, "application/json"
         status, err = await asyncio.get_running_loop().run_in_executor(
-            self._executor, self._profiler.control, action
+            self._profile_thread, self._profiler.control, action
         )
         return profile_payload(status, action, self.config.profile_dir, err)
 
@@ -474,16 +591,84 @@ class HttpServer(HttpProtocol):
         return all(bool(eng.ready) for eng in self.engines) and not self.draining
 
 
+def arm_observability(server: HttpServer, trace=None, slo=None):
+    """Install what the ``trace`` and ``slo`` sections arm on ``server``
+    and its engines (the JAX ``_serve``'s wiring); returns the tracer and
+    the ledger, for the drain to close. Disarmed sections leave every hook
+    at None."""
+    tracer = ledger = None
+    if slo is not None and (slo.enabled or slo.ledger_dir):
+        slo.validate()
+        if slo.enabled:
+            from mlops_tpu_torch.slo import FlightRecorder, SLOEngine
+
+            tenant_names = tuple(server.tenants.names)
+            if slo.flightrec_enabled:
+                server.flightrec = FlightRecorder(
+                    slo.flightrec_dir, capacity=slo.flightrec_capacity,
+                    cooldown_s=slo.flightrec_cooldown_s, keep=slo.flightrec_keep,
+                    source="single", spike_errors=slo.flightrec_spike_errors,
+                    spike_window_s=slo.flightrec_spike_window_s,
+                )
+
+            def _breakers() -> dict:
+                # The lifecycle breaker pages through the same channel as
+                # a burn; a failed probe is logged and reads as closed.
+                out = {}
+                for name, controller in server._tenant_lifecycles():
+                    try:
+                        out[name] = bool(controller.metrics_snapshot().get("breaker_open"))
+                    except Exception:
+                        logger.exception("breaker probe failed (tenant %r)", name)
+                return out
+
+            server.slo_engine = SLOEngine(
+                slo, tenant_names,
+                source=lambda: server.metrics.slo_counts(slo.latency_threshold_ms,
+                                                         tenant_names),
+                breaker_source=_breakers,
+                on_alert=server.flightrec.note_alert if server.flightrec else None,
+            )
+            logger.info("SLO engine armed (availability %.4f, latency %.4f @ %gms)",
+                        slo.availability_target, slo.latency_target,
+                        slo.latency_threshold_ms)
+        if slo.ledger_dir:
+            from mlops_tpu_torch.slo import CostLedger
+
+            ledger = CostLedger(slo.ledger_dir, flush_interval_s=slo.ledger_flush_s)
+            server.cost_ledger = ledger
+            for eng in server.engines:
+                eng.set_cost_ledger(ledger)
+            logger.info("cost ledger armed -> %s", ledger.path)
+    if trace is not None and trace.enabled:
+        from mlops_tpu_torch.trace import ShapeStats, TraceRecorder
+
+        trace.validate()
+        tracer = TraceRecorder(Path(trace.dir) / "spans.jsonl",
+                               capacity=trace.ring_capacity,
+                               flush_interval_s=trace.flush_interval_s)
+        server.tracer = tracer
+        # One ShapeStats for the fleet: entries key by compiled shape.
+        stats = ShapeStats()
+        for eng in server.engines:
+            eng.set_shape_stats(stats)
+        logger.info("tracing armed; spans -> %s", tracer.path)
+    return tracer, ledger
+
+
 async def serve(engine: InferenceEngine, config: ServeConfig,
-                lifecycle=None, registry=None) -> None:
+                lifecycle=None, registry=None, trace=None, slo=None) -> None:
     """Bind, warm up behind the socket, serve until SIGTERM, then drain.
     ``registry`` (a ``TenantRegistry``) serves its fleet, warmed tenant by
     tenant. ``lifecycle`` (a ``LifecycleController``, or one per tenant)
     starts once warmup is done and stops (its thread joined, the engine
-    tee cleared, the reservoir saved) while the server drains."""
+    tee cleared, the reservoir saved) while the server drains. ``trace``
+    and ``slo`` are the config sections (``arm_observability``)."""
     server = HttpServer(engine, config, lifecycle=lifecycle, registry=registry)
     engine = server.engine
     controllers = [c for _, c in server._tenant_lifecycles()]
+    tracer, ledger = arm_observability(server, trace, slo)
+    flightrec = server.flightrec
     srv = await server.start()
     logger.info(
         "serving %s on %s:%s (tier=%s, tiers=%s, device=%s)",
@@ -519,6 +704,10 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
     def _drain() -> None:
         logger.info("SIGTERM: draining (no new connections)")
         server.begin_drain(srv)
+        if flightrec is not None:
+            # A clean drain writes nothing; one during an incident keeps
+            # the evidence. Off the loop: busy exchanges are finishing.
+            loop.run_in_executor(None, flightrec.dump_if_evidence, "sigterm")
 
     try:
         loop.add_signal_handler(signal.SIGTERM, _drain)
@@ -529,6 +718,10 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
         await srv.serve_forever()
     except asyncio.CancelledError:
         pass
+    except BaseException:
+        if flightrec is not None:
+            flightrec.dump("fatal")  # the post-mortem, unconditionally
+        raise
     finally:
         srv.close()
         server.stop_telemetry()
@@ -542,12 +735,19 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
         for w in list(server._connections):
             w.close()
         await loop.run_in_executor(None, server.close)
+        # After the exchanges finished: every span is recorded; both
+        # closes join a writer thread, so off the loop.
+        if tracer is not None:
+            await loop.run_in_executor(None, tracer.close)
+        if ledger is not None:
+            await loop.run_in_executor(None, ledger.close)
         logger.info("drained; exiting")
     if warmup_error:
         raise SystemExit(f"warmup failed: {warmup_error[0]}")
 
 
 def serve_forever(engine: InferenceEngine, config: ServeConfig,
-                  lifecycle=None, registry=None) -> None:
+                  lifecycle=None, registry=None, trace=None, slo=None) -> None:
     """Blocking entry point."""
-    asyncio.run(serve(engine, config, lifecycle=lifecycle, registry=registry))
+    asyncio.run(serve(engine, config, lifecycle=lifecycle, registry=registry,
+                      trace=trace, slo=slo))

@@ -20,6 +20,7 @@ import torch
 
 from mlops_tpu.ops import attention as jax_attention
 from mlops_tpu_torch.ops import attention
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 SHAPES = [  # (B, S_q, S_kv, H, D)
     (2, 128, 128, 4, 32),

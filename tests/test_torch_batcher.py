@@ -289,11 +289,11 @@ def test_abandoned_requests_are_purged_at_claim_time(engine, sample_record):
         for _ in range(5):
             dead = loop.create_future()
             dead.cancel()
-            batcher._pending.append(([sample_record], dead, None, None))
+            batcher._pending.append(([sample_record], dead, None, None, None))
         live = asyncio.create_task(batcher.predict([sample_record]))
         response = await asyncio.wait_for(live, timeout=30)
         assert 0.0 <= response["predictions"][0] <= 1.0
-        assert all(not f.cancelled() for _, f, _, _ in batcher._pending)
+        assert all(not f.cancelled() for _, f, _, _, _ in batcher._pending)
         executor.shutdown(wait=False)
 
     asyncio.run(run())

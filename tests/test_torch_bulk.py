@@ -36,6 +36,7 @@ from mlops_tpu_torch.parallel import bulk
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.train.long_context import build_doc_model
 from torch_students import DRIFT_ATOL, PRED_TOL, assert_flags_match, train_jax_bundle
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 ROWS = 10_000
 CHUNK = 4_096

@@ -11,8 +11,8 @@ TOML or a CLI override sets it. The thirteen keys of the ring plane, its
 engine replica set, the tenant fleet and the warm start (``serve.workers``
 and its geometry, ``serve.engine_replicas``,
 ``serve.replica_affinity_slack``, ``serve.tenants_path``, ``cache.dir``,
-``cache.warmup_workers``) are ported: off their defaults, each layer gives
-the JAX loader's value."""
+``cache.warmup_workers``) are ported, and so are the ``trace`` and ``slo``
+sections: off their defaults, each layer gives the JAX loader's value."""
 
 import dataclasses
 import warnings
@@ -66,7 +66,7 @@ def test_the_unported_keys_are_the_jax_keys_the_port_lacks():
     assert set(PORT_FIELDS) - set(JAX_FIELDS) == {"serve.device", "train.device"}
     for key in JAX_ONLY:
         assert PORT_FIELDS[key][1] == JAX_FIELDS[key][1], key  # the JAX default
-    assert {k.split(".")[0] for k in JAX_ONLY} == {"serve", "trace", "slo", "autotune"}
+    assert {k.split(".")[0] for k in JAX_ONLY} == {"serve", "autotune"}
     assert not [k for k, item in ITEM.items() if item == "A3"]
     assert sum(k.startswith("serve.") for k in JAX_ONLY) == 2
     assert {k for k, item in ITEM.items() if item == "A12"} == {
@@ -142,9 +142,12 @@ RING_AND_WARM_START = [
     "serve.log_sample_rate", "cache.dir", "cache.warmup_workers",
     "serve.engine_replicas", "serve.replica_affinity_slack", "serve.tenants_path",
 ]
+# The observability layer: every key of the JAX ``trace`` and ``slo``
+# sections.
+OBSERVABILITY = sorted(k for k in JAX_FIELDS if k.split(".")[0] in ("trace", "slo"))
 
 
-@pytest.mark.parametrize("key", RING_AND_WARM_START)
+@pytest.mark.parametrize("key", RING_AND_WARM_START + OBSERVABILITY)
 def test_a_ported_key_matches_jax_off_its_default(key, tmp_path):
     assert key in PORTED
     section, field = key.split(".")
@@ -168,12 +171,13 @@ def test_workers_zero_and_one_are_the_single_process_server(workers):
 
 
 def test_the_cli_exits_naming_the_item(monkeypatch):
-    monkeypatch.setenv("MLOPS_TPU_SLO_ENABLED", "true")
-    with pytest.raises(SystemExit, match="slo.enabled=True refused: .*ROADMAP A4"):
+    assert len(OBSERVABILITY) == 27
+    monkeypatch.setenv("MLOPS_TPU_AUTOTUNE_ENABLED", "true")
+    with pytest.raises(SystemExit, match="autotune.enabled=True refused: .*ROADMAP A4"):
         main(["serve", "serve.device=cpu"])
-    monkeypatch.delenv("MLOPS_TPU_SLO_ENABLED")
-    monkeypatch.setenv("MLOPS_TPU_TRACE_ENABLED", "true")
-    with pytest.raises(SystemExit, match="trace.enabled=True refused: .*ROADMAP A4"):
+    monkeypatch.delenv("MLOPS_TPU_AUTOTUNE_ENABLED")
+    monkeypatch.setenv("MLOPS_TPU_AUTOTUNE_PLAN_DIR", "elsewhere")
+    with pytest.raises(SystemExit, match="autotune.plan_dir='elsewhere' refused: .*ROADMAP A4"):
         main(["versions"])
 
 

@@ -22,11 +22,9 @@ held by its fidelity: the port's and the JAX package's ``roc_auc_delta``
 within 0.01 for both students on the same split and teacher, and each
 ``mean_abs_prob_delta`` at most 0.05.
 
-Bundles cross: a port-written bundle with both students is read by the
-JAX ``load_bundle`` and scored by the JAX ``score_dataset`` on the
-distilled and quant paths within the bulk tolerances
-(``test_torch_bulk.py``); ``run_training`` writes the ``bulk`` block for
-an ensemble and a small FT-Transformer at the default ``distill_bulk``.
+Port-trained bundles crossing to the JAX package are
+``test_torch_distill_port.py``'s (a file of their own, so the parallel
+run spreads the two fixtures' training).
 """
 
 import dataclasses
@@ -46,7 +44,6 @@ from mlops_tpu.data import generate_synthetic as jax_synthetic
 from mlops_tpu.data.encode import EncodedDataset as JaxEncodedDataset
 from mlops_tpu.lifecycle import promote as jpromote
 from mlops_tpu.ops import quant as jquant
-from mlops_tpu.parallel import bulk as jbulk
 from mlops_tpu.train import calibrate as jcalibrate
 from mlops_tpu.train import distill as jdistill
 from mlops_tpu.train.pipeline import split_dataset as jax_split
@@ -55,25 +52,17 @@ from mlops_tpu_torch.config import (
     LifecycleConfig,
     LifecycleConfigError,
     ModelConfig,
-    load_config,
 )
 from mlops_tpu_torch.data import Preprocessor, generate_synthetic
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.lifecycle import promote
 from mlops_tpu_torch.ops import quant
-from mlops_tpu_torch.parallel import bulk
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.train import calibrate, distill
-from mlops_tpu_torch.train.pipeline import run_training, split_dataset
+from mlops_tpu_torch.train.pipeline import split_dataset
 from mlops_tpu_torch.weights import bulk_student_from_numpy, quant_master_from_numpy
-from torch_students import (
-    DRIFT_ATOL,
-    PRED_TOL,
-    assert_flags_match,
-    jax_config,
-    rows,
-    train_jax_bundle,
-)
+from torch_students import PRED_TOL, jax_config, rows, train_jax_bundle
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 AUC_DELTA_GAP = 0.01
 MAX_MEAN_PROB_DELTA = 0.05
@@ -276,86 +265,3 @@ def test_both_fits_reach_the_jax_fidelity(jax_run):
     assert quant_fit.temperature == calibrate.fit_temperature(
         distill._quant_logits_chunked(quant_fit.qparams, valid, "cpu").numpy(),
         np.asarray(valid.labels, np.float32))
-
-
-# ----------------------------------------------------------- bundles cross
-@pytest.fixture(scope="module")
-def port_bundle(tmp_path_factory):
-    """The same small ensemble trained by the port's ``run_training``
-    with the default ``distill_bulk`` and ``distill_quant=true``."""
-    root = tmp_path_factory.mktemp("port_students")
-    config = load_config([
-        "train.device=cpu", "data.rows=4000", "model.hidden_dims=32,32",
-        "model.embed_dim=4", "model.ensemble_size=4", "train.steps=150",
-        "train.eval_every=150", "train.batch_size=256", "train.distill_quant=true",
-        f"registry.root={root / 'registry'}", f"registry.run_root={root / 'runs'}",
-    ])
-    return run_training(config, register=False).bundle_dir
-
-
-def test_a_port_bundle_with_both_students_reads_in_jax(port_bundle):
-    manifest = json.loads((port_bundle / "manifest.json").read_text())
-    assert set(manifest["bulk"]) == {"model_config", "fidelity"}
-    assert set(manifest["quant"]) == {"format", "fidelity", "temperature", "gates"}
-    assert manifest["quant"]["gates"]["passed"] is True
-    jb, tb = jax_load_bundle(port_bundle), load_bundle(port_bundle)
-    assert jb.has_bulk and tb.has_bulk and jb.has_quant and tb.has_quant
-    assert jb.bulk_fidelity == tb.bulk_fidelity
-    assert jb.quant_gates_passed and tb.quant_gates_passed
-    flat = tb.bulk_variables
-    for name, leaf in jax.tree_util.tree_flatten_with_path(jb.bulk_variables["params"])[0]:
-        key = ".".join(p.key for p in name)
-        np.testing.assert_array_equal(np.asarray(leaf), flat[key].numpy())
-    columns, _ = generate_synthetic(9000, seed=12)
-    ds = tb.preprocessor.encode(columns)
-    jds = JaxEncodedDataset(ds.cat_ids, ds.numeric)
-    for kw, tol in ((dict(exact=False), PRED_TOL["bf16"]),
-                    (dict(tier="quant"), PRED_TOL["f32"])):
-        want = jbulk.score_dataset(jb, jds, chunk_rows=4096, **kw)
-        got = bulk.score_dataset(tb, ds, chunk_rows=4096, device="cpu", **kw)
-        assert got.path == want.path
-        np.testing.assert_allclose(got.predictions, want.predictions, rtol=0, atol=tol)
-        assert_flags_match(got.outliers, want.outliers, ds.numeric, tb.monitor.to_arrays())
-        for k, v in want.feature_drift.items():
-            assert abs(got.feature_drift[k] - v) <= DRIFT_ATOL, k
-
-
-def test_run_training_distills_a_transformer_family(tmp_path):
-    config = load_config([
-        "train.device=cpu", "data.rows=1500", "model.family=ft_transformer",
-        "model.depth=1", "model.token_dim=16", "model.heads=2", "train.steps=20",
-        "train.eval_every=20", "train.batch_size=128",
-        f"registry.root={tmp_path / 'registry'}", f"registry.run_root={tmp_path / 'runs'}",
-    ])
-    assert config.train.distill_bulk is True
-    result = run_training(config, register=False)
-    manifest = json.loads((result.bundle_dir / "manifest.json").read_text())
-    assert manifest["bulk"]["model_config"]["family"] == "mlp"
-    assert manifest["bulk"]["model_config"]["hidden_dims"] == [64, 64]
-    assert "quant" not in manifest
-    assert (result.bundle_dir / "bulk_params.msgpack").exists()
-    assert jax_load_bundle(result.bundle_dir).has_bulk
-    assert load_bundle(result.bundle_dir).has_bulk
-
-
-@pytest.mark.parametrize(
-    "overrides,match",
-    [
-        (["model.family=moe"], "A9"),
-        (["model.family=gbm"], "A8"),
-        (["train.init_params=pretrained.msgpack"], "A9"),
-    ],
-)
-def test_the_other_refusals_stay(tmp_path, overrides, match):
-    config = load_config(["train.device=cpu", f"registry.run_root={tmp_path / 'runs'}",
-                          *overrides])
-    with pytest.raises(ValueError, match=match):
-        run_training(config)
-    assert not (tmp_path / "runs").exists()
-
-
-def test_score_and_lifecycle_tables_load():
-    config = load_config(["score.chunk_rows=4096", "score.streaming=true",
-                          "lifecycle.max_ece=0.2"])
-    assert config.score.chunk_rows == 4096 and config.score.streaming is True
-    assert config.lifecycle.max_ece == 0.2

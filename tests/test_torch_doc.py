@@ -49,6 +49,7 @@ from mlops_tpu_torch.ops.quant import init_quant_master, quantize_student
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.train.long_context import build_doc_model
 from mlops_tpu_torch.weights import doc_params_from_numpy, load_params
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 LOGIT_TOL = {"f32": 1e-5, "bf16": 1.2e-2}
 PRED_TOL = {"f32": 2e-6, "bf16": 1.2e-2}

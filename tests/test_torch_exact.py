@@ -63,6 +63,7 @@ from mlops_tpu_torch.serve.server import HttpServer
 from mlops_tpu_torch.serve.wire import GROUP_ROW_BUCKETS, GROUP_SLOT_BUCKETS
 from mlops_tpu_torch.train.long_context import build_doc_model, check_doc_attention
 from mlops_tpu_torch.weights import exact_params_from_numpy, load_params, monitor_from_numpy
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 PRED_TOL = {"f32": 1e-5, "bf16": 1.6e-2}
 KS_P_ATOL = 1e-6

@@ -72,6 +72,7 @@ from mlops_tpu_torch.serve.engine import InferenceEngine
 from mlops_tpu_torch.train import loop
 from mlops_tpu_torch.train.pipeline import run_training
 from mlops_tpu_torch.weights import exact_params_from_numpy, flatten_tree, load_params
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 ROOT = Path(__file__).resolve().parent.parent
 JOB = ROOT / "configs" / "train_register_job.toml"

@@ -1202,7 +1202,7 @@ def test_the_deployed_job_on_a_bucket_tunes_and_serves_on_the_card():
     assert out["requests_answered"] == 4
     assert out["max_pred_gap_to_cpu"] <= chip_smoke.EXACT_PRED_ATOL + 1e-6
     assert out["ring_max_pred_gap_to_cpu"] <= chip_smoke.EXACT_PRED_ATOL + 1e-6
-    assert set(out["refusals"]) == {"MLOPS_TPU_SLO_ENABLED"}
+    assert set(out["refusals"]) == {"MLOPS_TPU_AUTOTUNE_ENABLED"}
 
 
 # ------------------------------------------------------------ the ring plane
@@ -1450,3 +1450,120 @@ def test_each_replica_counts_its_own_launches_and_the_ring_sums_them(fleet_dirs,
             proc.kill()
             proc.wait(timeout=30)
         log.close()
+
+
+# ------------------------------------------------- the observability layer
+@pytest.mark.gpu
+def test_a_traced_ring_request_sums_its_stages_on_the_card(fleet_dirs, tmp_path):
+    """``serve --workers 2`` on the card with tracing armed: every span
+    carries the JAX ring's stages, the engine half stitched from the slot,
+    and its stages sum to its wall clock (1e-3 ms a stage: the 4-place
+    rounding)."""
+    import json
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    import chip_smoke
+    from mlops_tpu_torch.trace import load_spans
+    from mlops_tpu_torch.trace.span import STAGES
+
+    port = chip_smoke._free_port()
+    log = open(tmp_path / "plane.log", "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "mlops_tpu_torch", "serve", "--workers", "2",
+         "serve.tier_routing=true", f"serve.model_directory={fleet_dirs[0]}",
+         f"serve.port={port}", "serve.host=127.0.0.1", "serve.warmup_batch_sizes=1,8,64",
+         "trace.enabled=true", f"trace.dir={tmp_path / 'traces'}"],
+        cwd=chip_smoke.ROOT, stdout=log, stderr=subprocess.STDOUT,
+        env=dict(os.environ, PYTHONPATH=str(chip_smoke.ROOT),
+                 MLOPS_TPU_CACHE_DIR=str(tmp_path / "cache")))
+    try:
+        chip_smoke._wait_ready(port, proc, "traced plane", timeout=300)
+        columns, _ = generate_synthetic(24, seed=9)
+        recs = [{k: columns[k][i] for k in columns} for i in range(24)]
+        for i in range(12):
+            body = json.dumps(recs[i:i + 1 + i % 3]).encode()
+            assert chip_smoke._http(port, "POST", "/predict", body)[0] == 200
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=120) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
+    spans = load_spans(tmp_path / "traces")
+    assert len(spans) == 12
+    for span in spans:
+        assert tuple(span["stages"]) == tuple(s for s in STAGES if s != "queue")
+        assert abs(sum(span["stages"].values()) - span["wall_ms"]) <= 7e-3
+        assert span["entry"] in ("bucket_1", "bucket_8")
+
+
+@pytest.mark.gpu
+def test_the_degraded_fallback_on_the_card_is_the_warmed_answer(card_state, fleet_dirs):
+    """A quant bucket and a group geometry whose graphs are gone, their
+    captures failing at ``serve.engine.compile``: the dispatches replay the
+    next larger graphs, bitwise the warmed shapes' answers on the same
+    rows, and ``degraded_dispatch_total`` counts each."""
+    from mlops_tpu_torch import faults
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    _, _, ds, _ = card_state
+    engine = InferenceEngine(load_bundle(fleet_dirs[0]), buckets=(1, 8, 64),
+                             serve_tier="quant")
+    engine.warmup()
+    solo = (ds.cat_ids[:3], ds.numeric[:3])
+    parts = [(ds.cat_ids[i:i + 1], ds.numeric[i:i + 1]) for i in range(3, 5)]
+    want = (engine.fetch_arrays_raw(engine.dispatch_arrays(*solo)),
+            engine.fetch_group_raw(engine.dispatch_group_arrays(parts)))
+    engine._gen.graphs.pop(("quant", (8,)))
+    engine._gen.graphs.pop(("quant", (2, 1)))
+    faults.arm(faults.FaultPlan.from_rules([{"point": "serve.engine.compile", "mode": "raise"}]))
+    try:
+        solo_handle = engine.dispatch_arrays(*solo)
+        group_handle = engine.dispatch_group_arrays(parts)
+        got = (engine.fetch_arrays_raw(solo_handle), engine.fetch_group_raw(group_handle))
+    finally:
+        faults.disarm()
+    assert (solo_handle.rows, group_handle.slots, group_handle.rows) == (64, 4, 1)
+    assert engine.degraded_dispatch_total == 2
+    for a, b in zip(want[0], got[0]):
+        assert np.array_equal(_bits(a), _bits(b))
+    sizes, preds, outs, drifts = got[1]
+    w_sizes, w_preds, w_outs, w_drifts = want[1]
+    assert sizes == w_sizes
+    for i, n in enumerate(sizes):
+        for w, g in ((w_preds[i, :n], preds[i, :n]), (w_outs[i, :n], outs[i, :n]),
+                     (w_drifts[i], drifts[i])):
+            assert np.array_equal(_bits(w), _bits(g))
+
+
+@pytest.mark.gpu
+def test_the_profile_trace_names_quant_fused_or_its_graph(fleet_dirs, tmp_path):
+    """``TorchProfiler`` around quant-tier graph replays writes a trace
+    that names the kernel (its events inside the replays) or, where
+    CUPTI reports only the launch, the graph launch."""
+    import json
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+    from mlops_tpu_torch.serve.server import TorchProfiler
+
+    engine = InferenceEngine(load_bundle(fleet_dirs[0]), buckets=(1, 8), serve_tier="quant")
+    engine.warmup()
+    columns, _ = generate_synthetic(4, seed=3)
+    recs = [{k: columns[k][i] for k in columns} for i in range(4)]
+    profiler = TorchProfiler(str(tmp_path / "prof"))
+    assert profiler.control("start") == (200, None)
+    for _ in range(5):
+        engine.predict_records(recs)
+    torch.cuda.synchronize()
+    assert profiler.control("stop") == (200, None)
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    names = [e.get("name", "") for e in json.loads(trace.read_text())["traceEvents"]]
+    kernels = sum("quant_fused_kernel" in n for n in names)
+    launches = sum(n == "cudaGraphLaunch" for n in names)
+    assert kernels >= 5 or launches >= 5, (kernels, launches)

@@ -43,6 +43,7 @@ from mlops_tpu.train import hpo as jax_hpo
 from mlops_tpu_torch.config import HPOConfig, ModelConfig, TrainConfig, load_config
 from mlops_tpu_torch.train import hpo
 from torch_hpo_seams import hpo_configs, jax_seams, model_configs, split
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 ROOT = Path(__file__).resolve().parent.parent
 TRIALS, STEPS, BATCH = 3, 8, 32

@@ -47,7 +47,9 @@ def test_importing_every_submodule_loads_no_jax_and_no_reference_package():
     for name in ("data.pipeline_exec", "data.stream", "parallel.bulk",
                  "train.distill", "lifecycle.promote", "train.hpo",
                  "replicaset.router", "tenancy.config", "tenancy.quota",
-                 "tenancy.router", "tenancy.registry"):
+                 "tenancy.router", "tenancy.registry", "trace.span", "trace.recorder",
+                 "trace.shapes", "trace.report", "slo.engine", "slo.ledger",
+                 "slo.flightrec"):
         assert f"mlops_tpu_torch.{name}" in names
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -63,6 +65,23 @@ def test_the_replica_router_and_the_tenancy_front_half_load_no_torch():
         "from mlops_tpu_torch.tenancy import TenantRouter, QuotaGovernor, load_tenants_toml\n"
         "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] == 'torch'"
         " or m == 'mlops_tpu_torch.tenancy.registry')))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_trace_and_slo_load_no_torch():
+    """The observability layer is torch-free like the JAX package's
+    jax-free ``trace/`` and ``slo/``: the supervisor and the front ends
+    import it (the front end's whole request path with it)."""
+    code = (
+        "import json, sys\n"
+        "import mlops_tpu_torch.trace, mlops_tpu_torch.slo\n"
+        "import mlops_tpu_torch.trace.report, mlops_tpu_torch.slo.flightrec\n"
+        "import mlops_tpu_torch.serve.frontend, mlops_tpu_torch.serve.metrics\n"
+        "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[0] == 'torch')))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)

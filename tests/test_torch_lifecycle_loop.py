@@ -40,6 +40,7 @@ from torch_lifecycle import (  # noqa: F401
     scenery,
     traffic,
 )
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 ROOT = Path(__file__).resolve().parent.parent
 

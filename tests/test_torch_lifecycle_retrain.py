@@ -35,6 +35,7 @@ from torch_lifecycle import (  # noqa: F401
     port_config,
     scenery,
 )
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 AUC_EPS = 0.01
 

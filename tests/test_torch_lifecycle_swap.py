@@ -28,6 +28,7 @@ from mlops_tpu_torch.lifecycle.shadow import ShadowEngine
 from mlops_tpu_torch.ops.quant import init_quant_master, quantize_student
 from mlops_tpu_torch.serve.engine import InferenceEngine
 from torch_lifecycle import budget, feed, port_config, scenery  # noqa: F401
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 PRED_ATOL = 1.6e-2 + 1e-6
 

@@ -34,6 +34,7 @@ from mlops_tpu_torch.ops import quant_kernel as tkernel
 from mlops_tpu_torch.ops.predict import packed_layout
 from mlops_tpu_torch.serve.wire import GROUP_ROW_BUCKETS, GROUP_SLOT_BUCKETS
 from mlops_tpu_torch.weights import monitor_from_numpy, quant_params_from_numpy
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 PRED_ATOL = 1e-6
 DRIFT_ATOL = 1e-5

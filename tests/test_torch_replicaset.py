@@ -369,28 +369,32 @@ def _burst(port, bodies, threads=8):
 
 def test_a_two_replica_plane_agrees_with_jax_and_survives_a_replica_kill(
         bundle_dir, tmp_path):
-    jb = jax_load_bundle(bundle_dir)
-    jax_engine = JaxEngine(jb, buckets=(1, 8, 64), tier_routing=True)
+    # The plane boots while the JAX engine compiles the answers it is held
+    # against.
     plane = Plane(bundle_dir, tmp_path / "replicas.log",
-                  ("serve.workers=2", "serve.engine_replicas=2", "serve.tier_routing=true"))
+                  ("serve.workers=2", "serve.engine_replicas=2", "serve.tier_routing=true"),
+                  wait=False)
     try:
-        deadline = time.monotonic() + 60
-        while _metrics(plane.port).get('mlops_tpu_replica_ready{replica="1"}') != 1.0:
-            assert time.monotonic() < deadline, "replica 1 never became ready"
-            time.sleep(0.1)
-        pids = plane.pids()
-        assert pids["engine 0"] != pids["engine 1"]
+        jax_engine = JaxEngine(jax_load_bundle(bundle_dir), buckets=(1, 8, 64), tier_routing=True)
         rng = np.random.default_rng(5)
         pool = records(400, seed=5, drift=0.3)
         sizes = [1] * 48 + list(rng.integers(1, 9, size=32))
         bounds = np.cumsum([0, *sizes])
         bodies = [(pool[lo:hi], {"x-slo-class": "cheap"} if i % 4 == 0 else None)
                   for i, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:]))]
+        wants = [jax_engine.predict_records(recs, tier="quant" if headers else None)
+                 for recs, headers in bodies]
+        plane.wait_ready()
+        deadline = time.monotonic() + 60
+        while _metrics(plane.port).get('mlops_tpu_replica_ready{replica="1"}') != 1.0:
+            assert time.monotonic() < deadline, "replica 1 never became ready"
+            time.sleep(0.1)
+        pids = plane.pids()
+        assert pids["engine 0"] != pids["engine 1"]
         answers = _burst(plane.port, bodies)
-        for (recs, headers), (status, _, body) in zip(bodies, answers):
+        for (recs, headers), (status, _, body), want in zip(bodies, answers, wants):
             assert status == 200
             got, cheap = json.loads(body), headers is not None
-            want = jax_engine.predict_records(recs, tier="quant" if cheap else None)
             np.testing.assert_allclose(got["predictions"], want["predictions"], rtol=0,
                                        atol=QUANT_PRED_ATOL if cheap else EXACT_PRED_ATOL)
             np.testing.assert_allclose(list(got["feature_drift_batch"].values()),

@@ -54,6 +54,7 @@ from torch_lifecycle import (  # noqa: F401
     traffic,
 )
 from torch_ring import ROOT, Plane, exchange, records
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 SNAPSHOTS = {
     "full": {

@@ -32,6 +32,7 @@ from mlops_tpu_torch.data import generate_synthetic
 from mlops_tpu_torch.schema.validate import records_to_columns, validate_records
 from mlops_tpu_torch.serve.engine import InferenceEngine
 from mlops_tpu_torch.serve.server import HttpServer
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 PRED_ATOL = 1e-6
 DRIFT_ATOL = 1e-5

@@ -53,6 +53,7 @@ from mlops_tpu_torch.serve.engine import InferenceEngine
 from mlops_tpu_torch.serve.server import HttpServer
 from mlops_tpu_torch.serve.wire import DeadlineExceeded
 from mlops_tpu_torch.weights import exact_params_from_numpy, load_params, monitor_from_numpy
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 EXACT_PRED_ATOL = 1.6e-2 + 1e-6
 QUANT_PRED_ATOL = 1e-6

@@ -18,6 +18,7 @@ from mlops_tpu_torch.config import TrainConfig
 from mlops_tpu_torch.train import hpo
 from test_torch_hpo import BATCH, assert_sweeps_agree, jax_train_config
 from torch_hpo_seams import hpo_configs, jax_seams, model_configs, split
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 SHA = dict(trials=3, steps=8, strategy="sha", eta=3, sha_rungs=2)
 

@@ -8,6 +8,7 @@ import torch
 
 from test_torch_sha import check_sha_against_jax
 from torch_hpo_seams import split
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -26,6 +26,7 @@ from mlops_tpu_torch.data import generate_synthetic, write_csv_columns
 from mlops_tpu_torch.data import stream
 from mlops_tpu_torch.data.ingest import load_csv_columns
 from torch_students import PRED_TOL, assert_flags_match, train_jax_bundle
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 ROWS = 6_000
 CHUNK = 2_048

@@ -442,24 +442,52 @@ def _expected(fleet):
 
 
 def test_a_tenant_fleet_answers_as_its_jax_engines_on_both_planes(fleet, tmp_path):
-    jax = _expected(fleet)
-    bodies = _tenant_bodies()
+    # Both planes boot while the JAX engines compile the answers they are
+    # held against; each plane is then driven in turn.
+    planes = {plane_name: Plane(fleet["dirs"][0], tmp_path / f"{plane_name}.log",
+                                (f"serve.tenants_path={fleet['toml']}",
+                                 "serve.tier_routing=true", *overrides), wait=False)
+              for plane_name, overrides in (
+                  ("single", ("serve.workers=0",)),
+                  ("ring", ("serve.workers=2", "serve.engine_replicas=2")))}
+    try:
+        jax = _expected(fleet)
+        bodies = _tenant_bodies()
+        wants = {}
+        for name in NAMES:
+            engine, has_quant = jax[name]
+            for i, recs in enumerate(bodies):
+                cheap = i % 3 == 0 and has_quant
+                wants[name, i] = (engine.predict_records(recs, tier="quant" if cheap else None),
+                                  cheap)
+        for plane in planes.values():
+            plane.wait_ready()
+    except BaseException:
+        for plane in planes.values():
+            plane.stop()
+        raise
     answers = {}
-    for plane_name, overrides in (
-        ("single", ("serve.workers=0",)),
-        ("ring", ("serve.workers=2", "serve.engine_replicas=2")),
-    ):
-        plane = Plane(fleet["dirs"][0], tmp_path / f"{plane_name}.log",
-                      (f"serve.tenants_path={fleet['toml']}", "serve.tier_routing=true",
-                       *overrides))
+    try:
+        _drive_both_planes(planes, bodies, wants, jax, answers)
+    finally:
+        for plane in planes.values():
+            plane.stop()  # a no-op for a plane already stopped
+    for name in NAMES:
+        assert answers["ring", name] == answers["single", name], name
+    # The twins from two seeds answer differently: the check above tells
+    # the tenants apart.
+    a, b = (json.loads(answers["single", n][1])["predictions"] for n in ("emea", "apac"))
+    assert np.max(np.abs(np.subtract(a, b))) > 10 * EXACT_PRED_ATOL
+
+
+def _drive_both_planes(planes, bodies, wants, jax, answers):
+    for plane_name, plane in planes.items():
         try:
             for name in NAMES:
                 got = _answers(plane.port, bodies, name)
-                engine, has_quant = jax[name]
-                for i, (recs, (status, _, body)) in enumerate(zip(bodies, got)):
+                for i, (status, _, body) in enumerate(got):
                     assert status == 200, (plane_name, name)
-                    cheap = i % 3 == 0 and has_quant
-                    want = engine.predict_records(recs, tier="quant" if cheap else None)
+                    want, cheap = wants[name, i]
                     _check_tenant(json.loads(body), want, cheap)
                 answers[plane_name, name] = [a[2] for a in got]
             # Untagged traffic is the default tenant's (emea).
@@ -486,12 +514,6 @@ def test_a_tenant_fleet_answers_as_its_jax_engines_on_both_planes(fleet, tmp_pat
                     assert metrics[key] == len(bodies) * (2 if name == "emea" else 1)
         finally:
             assert plane.stop() == 0
-    for name in NAMES:
-        assert answers["ring", name] == answers["single", name], name
-    # The twins from two seeds answer differently: the check above tells
-    # the tenants apart.
-    a, b = (json.loads(answers["single", n][1])["predictions"] for n in ("emea", "apac"))
-    assert np.max(np.abs(np.subtract(a, b))) > 10 * EXACT_PRED_ATOL
 
 
 def _kill_a_replica_under_every_tenant(plane, bodies, jax):

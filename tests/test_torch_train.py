@@ -60,6 +60,7 @@ from mlops_tpu_torch.train.loop import debias_ema, packaged_or_raw, sigmoid_bce
 from mlops_tpu_torch.train.loop import batch_indices
 from mlops_tpu_torch.train.pipeline import run_layout_training
 from mlops_tpu_torch.weights import doc_params_from_numpy, flatten_tree, load_params
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 ROOT = Path(__file__).resolve().parent.parent
 KW = dict(family="bert", doc_records=3, token_dim=32, depth=2, heads=4, precision="f32")

@@ -50,6 +50,7 @@ from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.schema.validate import records_to_columns
 from mlops_tpu_torch.serve.engine import InferenceEngine
 from mlops_tpu_torch.weights import exact_params_from_numpy, load_params
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 FAMILIES = ("ft_transformer", "bert")
 PRED_TOL = {"f32": 1e-5, "bf16": 1.6e-2}

@@ -38,6 +38,7 @@ from mlops_tpu_torch.serve.engine import InferenceEngine
 from mlops_tpu_torch.train import hpo
 from mlops_tpu_torch.train.pipeline import run_tuning
 from torch_hpo_seams import group_seams, split
+from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
 AUC_GAP = 0.02
 PRED_TOL = 1e-5

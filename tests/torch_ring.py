@@ -108,7 +108,7 @@ class Plane:
     ``tests/torch_ring_stub.py``. Stopped with SIGTERM (then SIGKILL)."""
 
     def __init__(self, bundle: Path, log: Path, overrides=(), env=None, stub=False,
-                 timeout: float = 90, config: Path | None = None) -> None:
+                 timeout: float = 90, config: Path | None = None, wait: bool = True) -> None:
         self.port = free_port()
         self.log = log
         args = [f"serve.model_directory={bundle}", f"serve.port={self.port}",
@@ -122,7 +122,8 @@ class Plane:
             cmd, cwd=ROOT, stdout=self._out, stderr=subprocess.STDOUT,
             env=dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2", **(env or {})),
         )
-        self.wait_ready(timeout)
+        if wait:  # else the caller overlaps the boot with its own work
+            self.wait_ready(timeout)
 
     def wait_ready(self, timeout: float = 90) -> None:
         deadline = time.monotonic() + timeout
