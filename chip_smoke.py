@@ -143,7 +143,7 @@ Phases, each of which fails the run loudly:
     (token_dim 64, depth 3, 8 heads; BERT reads 48 tokens) and linear at
     the config's widths, bf16, dropout 0, one seeded init on both: one
     step's gradients leaf by leaf (cosine >= 0.98, norm ratio within
-    5 %), then 25 steps each way on the same batches of 256 rows (loss
+    5 %), then 25 steps each way on the same batches of 64 rows (loss
     curves within 0.05, 0.02 on average);
 19. the exact tier's training main path: ``python -m mlops_tpu_torch
     train --config configs/train_register_job.toml`` in a subprocess at
@@ -247,8 +247,8 @@ Phases, each of which fails the run loudly:
     route on the bundle the registry downloads (1.6e-2), and at once the
     same ``serve`` with ``MLOPS_TPU_SERVE_WORKERS=2`` and
     ``MLOPS_TPU_CACHE_DIR`` set (the ring plane, answering the same); the
-    same ``serve`` with ``MLOPS_TPU_AUTOTUNE_ENABLED=true`` (a non-zero
-    exit naming A4), a
+    same ``serve`` with ``MLOPS_TPU_SERVE_LOOP_LAG_MONITOR=true`` (a
+    non-zero exit naming A12), a
     ``train`` at 50 steps with ``train.tensorboard_dir`` (event files, or
     the JAX warning where ``torch.utils.tensorboard`` is unusable), and
     where pyarrow imports ``score-batch`` on ``gs://.../rows.parquet``
@@ -263,7 +263,7 @@ Phases, each of which fails the run loudly:
     ring plane: two front ends over the shared-memory ring to one engine
     process, which builds no kernel and is the plane's only process
     holding the card), beside the same with ``MLOPS_TPU_SERVE_WORKERS=0``;
-    phase 22's bursts at 1,000 requests to both in turns (the first 250 of
+    phase 22's bursts at 400 requests to both in turns (the first 250 of
     each at one connection), every answer against the CPU route,
     /metrics rows equal to the records sent, ``quant_fused`` launches (read
     from the ring's /metrics, counted in the engine process) equal to the
@@ -348,7 +348,7 @@ Phases, each of which fails the run loudly:
     cold tenants never; kill -9 of replica 1 under every tenant's traffic,
     each answer its own tenant's; then the per-tenant loops (``--config
     configs/lifecycle_serve.toml --tenants ... --replicas 1``, phase 30's
-    clocks, window and paced clients, the retrain cut to 60 steps):
+    clocks, window and paced clients, the retrain cut to 40 steps):
     drifted traffic to
     latam-ab-arm alone promotes it alone to generation 2, every front end
     rendering each tenant's lifecycle block;
@@ -359,7 +359,7 @@ Phases, each of which fails the run loudly:
     seeded fault plan, beside the same plane disarmed: the plan's failed
     grouped dispatches page (``mlops_tpu_alert_active`` 1, ``/healthz``
     degraded, a dump ``flightrec`` renders); phase 29's single-record
-    burst at 16 and 64 connections on both planes in two turns (every
+    burst at 16 and 64 connections on both planes in one turn (every
     answer against the CPU route, requests/s armed against disarmed,
     ``quant_fused`` launches equal to quant-tier dispatches);
     ``trace-report`` per entry and per replica (every 200's span
@@ -368,10 +368,34 @@ Phases, each of which fails the run loudly:
     and graph-launch events); kill -9 of replica 0 at rest with the cost
     ledger's counts carried by the respawn and ``trace-report --ledger``;
     in process, the degraded-bucket fallback on the quant tier bitwise
-    the warmed answers and counted; SIGTERM, every child exiting 0.
+    the warmed answers and counted; SIGTERM, every child exiting 0;
+36. the traffic-shape autotuner on the ring plane as the image starts it
+    (``--workers 2 --replicas 2``, phase 22's bundle on its quant tier,
+    phase 29's cache, the shipped grid 1, 8, 64, 256) armed through
+    ``MLOPS_TPU_TRACE_*``, ``MLOPS_TPU_SLO_LEDGER_DIR`` and
+    ``MLOPS_TPU_AUTOTUNE_*`` (interval 2 s, cooldown 30 s, 200
+    dispatches, gain floor 0): skewed traffic (85 % of requests 2-3
+    records) at 16 connections until the lead replica applies a plan and
+    the sibling adopts it, every answer against the CPU route; the plan
+    keeps 256, ``mlops_tpu_grid_generation`` 2, a 3-record probe the same
+    bytes before and after, dispatched through a bucket the plan added
+    with one ``quant_fused`` launch each; each replica's regrid record,
+    the predicted and measured gains, requests/s per round before and
+    after; ``autotune`` on the flushed ledger and spans; a kill at
+    ``autotune.regrid.midswap`` in a subprocess, then a fresh process on
+    the same bundle and cache: the old grid, the regrid and its rollback,
+    the probe bitwise each time.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
+
+Phases 1-15 run alone, so every kernel time of the kernels line is taken
+on an otherwise idle card. Once the bundles of phases 16 and 22 are
+written, phases 29-36 (the serving planes) run in a second process of
+this script (``--ring-phases``) beside phases 16-28 in this one: each
+side counts its kernel launches in its own process, and the two share
+the card and the host's cores, which their requests/s and step times
+show.
 
 The line before the last is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -483,6 +507,13 @@ def phase_card():
         f"device {torch.cuda.get_device_name(0)} capability {cap}"
     )
     check(cap == (9, 0), f"need compute capability 9.0, got {cap}")
+    _no_tf32()
+
+
+def _no_tf32() -> None:
+    """f32 products in f32 in this process, for the card-vs-CPU checks."""
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2717,7 +2748,7 @@ def phase_dispatch_routes(bundle_dir: Path, dirs: dict) -> list[dict]:
 
 
 # ----------------------------------------------------------------- phase 22
-BURST_REQUESTS = 1000  # phases 29, 33 and 35 (cut from 2,000)
+BURST_REQUESTS = 400  # phases 29, 33 and 35 (cut from 2,000)
 BURST_SERVER_REQUESTS = 600  # phase 22 (cut from 2,000 to keep the run in its time limit)
 BURST_CONCURRENCY = (1, 16, 64)
 BURST_CHEAP_EVERY = 4  # every 4th request asks for x-slo-class: cheap
@@ -3812,8 +3843,8 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
     route on the bundle the registry resolves, and at once the same
     ``serve`` as the serving image starts it, ``MLOPS_TPU_SERVE_WORKERS=2``
     (the ring plane) with ``MLOPS_TPU_CACHE_DIR`` set, answering the same;
-    the same ``serve`` with ``MLOPS_TPU_AUTOTUNE_ENABLED=true`` exits
-    non-zero naming A4; a ``train`` of the job config with
+    the same ``serve`` with ``MLOPS_TPU_SERVE_LOOP_LAG_MONITOR=true`` exits
+    non-zero naming A12; a ``train`` of the job config with
     the steps cut to 50 and ``train.tensorboard_dir`` set writes event
     files (or, where ``torch.utils.tensorboard`` cannot be built, warns as
     the JAX package does); where pyarrow imports, ``score-batch`` on the
@@ -3881,7 +3912,7 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
     # score-batch on the Parquet twin and the CSV (their resolves of
     # production race the servers' downloads into the one registry cache:
     # a rename decides).
-    refused = {"MLOPS_TPU_AUTOTUNE_ENABLED": ("true", "A4")}
+    refused = {"MLOPS_TPU_SERVE_LOOP_LAG_MONITOR": ("true", "A12")}
     procs = {key: _start(_cli(serve_args, bucket_root), {**env, key: value}, root / key)
              for key, (value, _) in refused.items()}
     tb_dir = root / "tensorboard"
@@ -5702,9 +5733,9 @@ TENANT_NAMES = ("emea", "apac", "latam-ab-arm")
 TENANT_PROBE_REQUESTS = 32  # per tenant, one at a time, on each plane
 TENANT_HOT_CONNECTIONS = 80  # apac: 10x the cold tenants' rate
 TENANT_COLD_CONNECTIONS = 8
-TENANT_QUOTA_S = 5.0
+TENANT_QUOTA_S = 3.0  # cut from 5 s
 TENANT_KILL_REQUESTS = 300  # cut from 600
-TENANT_RETRAIN_STEPS = 60  # of configs/lifecycle_serve.toml's 300
+TENANT_RETRAIN_STEPS = 40  # of configs/lifecycle_serve.toml's 300
 
 
 def phase_tenant_bundles(burst_dir: Path, dirs: dict) -> dict:
@@ -6083,9 +6114,9 @@ def _tenant_loop(toml: Path, burst_dir: Path, cache: Path, workers: int, device:
 
 
 # ----------------------------------------------------------------- phase 35
-OBS_REQUESTS = 500  # single-record requests of phase 29's burst, per burst
+OBS_REQUESTS = 300  # single-record requests of phase 29's burst, per burst
 OBS_CONCURRENCY = (16, 64)
-OBS_TURNS = 2  # armed and disarmed take turns, this many times each
+OBS_TURNS = 1  # armed and disarmed take turns, this many times each
 OBS_FAULT_FIRES = 12  # grouped dispatches that raise in each replica process
 OBS_FAULT_REQUESTS = 400  # the burst's last requests, at 16 connections, under the plan
 OBS_PROFILE_REQUESTS = 200
@@ -6234,8 +6265,13 @@ def phase_observability(bundle_dir: Path, device: str = "cuda") -> dict:
         summary = json.loads(rendered.stdout)
         check(any(d["reason"] == "alert-availability_fast_burn" for d in summary),
               f"flightrec dumps: {summary}")
-        for _ in range(5):  # the plan's fires run out: a clean pass
-            if set(_statuses(port, _sub_burst(single, list(range(200))), 16)) == {200}:
+        for _ in range(10):
+            # The plan's fires run out in both replicas (each logs its
+            # injections; a clean burst alone may have missed one replica's
+            # grouped dispatches), then a clean pass.
+            spent = (log_path.read_text(errors="replace").count("fault injected: raise")
+                     >= 2 * OBS_FAULT_FIRES)
+            if set(_statuses(port, _sub_burst(single, list(range(200))), 16)) == {200} and spent:
                 break
         else:
             raise SmokeFailure("the fault plan's grouped dispatches never stopped raising")
@@ -6315,8 +6351,14 @@ def phase_observability(bundle_dir: Path, device: str = "cuda") -> dict:
                                 16)[0], "observability profiled burst")
         answers += [_http(port, "POST", "/debug/profile/stop")[0],
                     _http(port, "POST", "/debug/profile/stop")[0]]
-        check(answers == [200, 409, 200, 409], f"the profile protocol: {answers}")
+        if answers != [200, 409, 200, 409]:
+            failed = [line for line in log_path.read_text(errors="replace").splitlines()
+                      if "profile" in line or "profiler" in line or "Error" in line][-20:]
+            raise SmokeFailure(f"the profile protocol: {answers}; the plane's log: {failed}")
         result["profile"] = _profile_counts(root / "profile")
+        primed = [line for line in log_path.read_text(errors="replace").splitlines()
+                  if line.startswith("profiler primed in ")]
+        result["profile"]["prime_s"] = [float(line.split()[3]) for line in primed]
         if device == "cuda":
             check(result["profile"]["quant_fused_kernel"] + result["profile"]["graph_launches"]
                   > 0, f"the profile names neither the kernel nor a graph: {result['profile']}")
@@ -6426,6 +6468,333 @@ def _degraded_fallback(bundle_dir: Path, device: str) -> dict:
     return out
 
 
+AUTO_GRID = (1, 8, 64, 256)  # serve.warmup_batch_sizes as shipped
+AUTO_CONNECTIONS = 16
+AUTO_ROUND = 400  # requests per traffic round at AUTO_CONNECTIONS
+AUTO_POOL = 300  # distinct request bodies the rounds cycle through
+AUTO_AFTER_S = 2.0  # traffic kept up once the sibling adopted
+AUTO_AFTER_ROUNDS = 3  # at least this many rounds on the regridded plane
+AUTO_DEADLINE_S = 120
+AUTO_PROBE_REPEATS = 8  # the probe, one at a time, after the regrid
+AUTO_FRESH = """
+import json, sys
+from mlops_tpu_torch import faults
+from mlops_tpu_torch.autotune import apply_plan
+from mlops_tpu_torch.bundle import load_bundle
+from mlops_tpu_torch.ops import cuda_build
+from mlops_tpu_torch.ops.quant_kernel import quant_kernel_launches
+from mlops_tpu_torch.serve.engine import InferenceEngine
+cuda_build.set_cache_dir({cache!r})
+engine = InferenceEngine(load_bundle({bundle!r}), buckets={grid!r}, serve_tier="quant",
+                         device={device!r})
+engine.warmup()
+probe = json.loads({probe!r})
+if {kill!r}:
+    faults.arm(faults.FaultPlan.from_rules(
+        [{{"point": "autotune.regrid.midswap", "mode": "kill"}}]))
+    apply_plan(engine, {plan!r})
+    raise SystemExit("the kill fault did not fire")
+def served():
+    before = (engine.dispatch_counts(), quant_kernel_launches.value)
+    body = engine.predict_records_wire(probe).decode()
+    counts = engine.dispatch_counts()
+    entry = [k for k in counts if counts[k] != before[0].get(k, 0)]
+    return {{"body": body, "entries": entry,
+            "launches": quant_kernel_launches.value - before[1]}}
+out = {{"old_grid": served(), "grid_generations": [engine.grid_generation]}}
+out["regrid_generation"] = apply_plan(engine, {plan!r})
+out["swap_stats"] = engine.swap_stats
+out["new_grid"] = served()
+out["buckets"] = list(engine.buckets)
+engine.rollback()
+out["rollback_stats"] = engine.swap_stats
+out["grid_generations"].append(engine.grid_generation)
+out["rolled_back"] = served()
+out["rolled_back_buckets"] = list(engine.buckets)
+print(json.dumps(out))
+"""
+
+
+def _auto_env(root: Path) -> dict:
+    """The autotuner armed through the environment layer on the quant
+    tier alone: tracing (the demand input), the cost ledger (the cost
+    input) and the controller with its clocks cut (interval 60 -> 2 s,
+    cooldown 300 -> 30 s) and its gain floor at 0 (the card's flat cost
+    per dispatch must not hold the phase's one regrid back)."""
+    return {
+        "MLOPS_TPU_SERVE_SERVE_TIER": "quant", "MLOPS_TPU_SERVE_TIER_ROUTING": "false",
+        "MLOPS_TPU_SERVE_WARMUP_BATCH_SIZES": ",".join(map(str, AUTO_GRID)),
+        "MLOPS_TPU_TRACE_ENABLED": "true", "MLOPS_TPU_TRACE_DIR": str(root / "traces"),
+        "MLOPS_TPU_SLO_LEDGER_DIR": str(root / "ledger"),
+        "MLOPS_TPU_AUTOTUNE_ENABLED": "true", "MLOPS_TPU_AUTOTUNE_INTERVAL_S": "2",
+        "MLOPS_TPU_AUTOTUNE_MIN_DISPATCHES": "200", "MLOPS_TPU_AUTOTUNE_COOLDOWN_S": "30",
+        "MLOPS_TPU_AUTOTUNE_MIN_GAIN_PCT": "0",
+        "MLOPS_TPU_AUTOTUNE_PLAN_DIR": str(root / "autotune"),
+    }
+
+
+def _skewed_set(bundle, cpu, seed: int) -> dict:
+    """AUTO_POOL requests shaped so the shipped grid pads badly (85 %
+    carry 2-3 records, 10 % one, 5 % 30-40), with the CPU route's quant
+    answers, in ``_burst_set``'s form."""
+    import numpy as np
+    import torch
+
+    from mlops_tpu_torch.schema.validate import records_to_columns
+
+    rng = np.random.default_rng(seed)
+    u = rng.random(AUTO_POOL)
+    sizes = np.where(u < 0.10, 1, np.where(u < 0.95, rng.integers(2, 4, AUTO_POOL),
+                                           rng.integers(30, 41, AUTO_POOL)))
+    pool = _records(int(sizes.sum()), seed, drift=0.3)
+    bounds = np.cumsum([0, *sizes])
+    requests = [pool[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+    wants = [cpu.predict_records(r) for r in requests]
+    ds = bundle.preprocessor.encode(records_to_columns(pool))
+    near = _near_threshold(bundle.monitor, torch.from_numpy(ds.numeric),
+                           torch.ones(len(pool), dtype=torch.bool)).numpy()
+    return {
+        "kind": "skewed",
+        "bodies": [json.dumps(r).encode() for r in requests],
+        "headers": [""] * AUTO_POOL,
+        "rows": int(sizes.sum()),
+        "want": [(np.asarray(w["predictions"]),
+                  np.asarray(list(w["feature_drift_batch"].values())),
+                  np.asarray(w["outliers"])) for w in wants],
+        "off_band": [~near[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])],
+        "tol": [(PRED_ATOL, DRIFT_ATOL)] * AUTO_POOL,
+        "sizes": sizes.tolist(),
+    }
+
+
+def _auto_script(bundle_dir: Path, cache: Path, device: str, probe: bytes, plan,
+                 kill: bool) -> subprocess.Popen:
+    script = AUTO_FRESH.format(cache=str(cache), bundle=str(bundle_dir), grid=AUTO_GRID,
+                               device=device, probe=probe.decode(), plan=tuple(plan),
+                               kill=kill)
+    return subprocess.Popen([sys.executable, "-c", script], cwd=ROOT, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            env=dict(os.environ, PYTHONPATH=str(ROOT)))
+
+
+def _probe(port: int, body: bytes) -> bytes:
+    status, answer = _http(port, "POST", "/predict", body)
+    check(status == 200, f"the probe answered {status}: {answer[:200]}")
+    return answer
+
+
+def phase_autotune(bundle_dir: Path, device: str = "cuda") -> dict:
+    """Phase 36: the traffic-shape autotuner on the ring plane as the
+    image starts it (``--workers 2 --replicas 2``), phase 22's bundle on
+    its quant tier, phase 29's warmed cache, the grid (1, 8, 64, 256) as
+    shipped; armed through ``MLOPS_TPU_*`` (``_auto_env``). Skewed traffic
+    at 16 connections, every answer against the CPU route, until the
+    lead replica applies a plan and the sibling adopts it, then a few
+    seconds more: (1) the lead's plan differs from the shipped grid and
+    keeps 256, ``plan.json`` says applied; (2) ``mlops_tpu_grid_generation``
+    reads 2 (the MIN over the replicas) and the applied plans count; (3)
+    every request answers 200 and a 3-record probe answers the same bytes
+    before and after the regrid; (4) the probe, one at a time after it,
+    dispatches through a bucket the plan added, each a ``quant_fused``
+    launch from that bucket's graph. After the drain (5) ``autotune`` on
+    the plane's flushed ledger and spans prints one plan, exit 0 or 3;
+    (6) a subprocess armed with a kill at ``autotune.regrid.midswap``
+    dies by SIGKILL inside ``apply_plan``, and a fresh one on the same
+    bundle and cache answers the probe on the old grid, regrids to the
+    lead's plan and rolls it back, the same answer each time. Each
+    replica's regrid record (graphs captured, capture s, pool bytes, the
+    exchange's critical µs), the predicted and measured gains and
+    requests/s per round before and after the regrid are logged."""
+    import numpy as np
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    root = WORK / "autotune"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cache = WORK / "ring" / "cache"
+    _warm_cache(bundle_dir, cache, device)
+    bundle = load_bundle(bundle_dir)
+    cpu = InferenceEngine(bundle, device="cpu", serve_tier="quant")
+    pool = _skewed_set(bundle, cpu, seed=36)
+    probe_body = json.dumps(_records(3, seed=360)).encode()
+    # The mid-regrid kill overlaps the plane's boot: it needs no plan of
+    # the lead's, only one that adds buckets.
+    killed = _auto_script(bundle_dir, cache, device, probe_body, (1, 2, 3, 40, 256),
+                          kill=True)
+    port = _free_port()
+    log_path = root / "plane.log"
+    out_file = open(log_path, "wb")
+    env = {**os.environ, "PYTHONPATH": str(ROOT),
+           **_image_env(bundle_dir, cache, port, RING_WORKERS, device), **_auto_env(root)}
+    proc = subprocess.Popen(_cli(["serve", "--workers", str(RING_WORKERS), "--replicas", "2"]),
+                            cwd=ROOT, stdout=out_file, stderr=subprocess.STDOUT, env=env)
+    result: dict = {}
+    fresh = None
+    try:
+        _wait_ready(port, proc, "the autotune plane")
+        _wait_replicas(port, proc, 2, "the autotune plane")
+        # Both controllers armed before the traffic: the render's MIN folds
+        # the armed replicas only.
+        deadline = time.monotonic() + 60
+        while (text := log_path.read_text(errors="replace")).count(
+                "autotune controller started") < 2:
+            check(time.monotonic() < deadline, "the plane's autotune controllers")
+            time.sleep(0.05)
+        check("(replica 1, adopt mode)" in text, "replica 1's controller is not in adopt mode")
+        probes = [_probe(port, probe_body) for _ in range(4)]
+        check(len(set(probes)) == 1, "the probe's answers differ before the regrid")
+        plan_path = root / "autotune" / "plan.json"
+        rng = np.random.default_rng(36)
+        rounds = []
+        launches = dispatches = 0.0
+        t0 = time.monotonic()
+        applied_at = adopted_at = None
+        while True:
+            idx = rng.integers(0, AUTO_POOL, AUTO_ROUND).tolist()
+            burst = _sub_burst(pool, idx)
+            before = _scrape(port)
+            grid_before = _series(port).get("mlops_tpu_grid_generation", 0.0)
+            out, lat, wall = _run_burst(port, burst, AUTO_CONNECTIONS)
+            worst = _check_burst(burst, out, f"autotune round {len(rounds)}")
+            after = _scrape(port)
+            series = _series(port)
+            grid = series.get("mlops_tpu_grid_generation", 0.0)
+            launches += after["launches"] - before["launches"]
+            dispatches += after["dispatches"] - before["dispatches"]
+            if applied_at is None and plan_path.is_file():
+                applied_at = time.monotonic()
+            if adopted_at is None and grid >= 2:
+                adopted_at = time.monotonic()
+            rounds.append({
+                "round": len(rounds), "t_s": round(time.monotonic() - t0, 3),
+                "window": ("after" if grid_before >= 2 else
+                           "before" if applied_at is None else "between"),
+                "requests_per_s": len(idx) / wall,
+                "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+                "dispatches_per_request": (after["dispatches"] - before["dispatches"]) / len(idx),
+                "max_pred_err": worst["pred"], "grid_generation": grid})
+            log_timing("autotune round", rounds[-1])
+            # The measured gain needs the lead's next tick after the apply;
+            # the traffic waits a while for it, never forever.
+            if (adopted_at is not None
+                    and sum(r["window"] == "after" for r in rounds) >= AUTO_AFTER_ROUNDS
+                    and time.monotonic() - adopted_at >= AUTO_AFTER_S
+                    and ("mlops_tpu_autotune_measured_gain_pct" in series
+                         or time.monotonic() - adopted_at >= 3 * AUTO_AFTER_S)):
+                break
+            check(time.monotonic() - t0 < AUTO_DEADLINE_S,
+                  f"no regrid on both replicas within {AUTO_DEADLINE_S} s "
+                  f"(grid_generation {grid}, plan {plan_path.is_file()})")
+        plan = json.loads(plan_path.read_text())
+        buckets = tuple(plan["buckets"])
+        check(plan["applied"] and plan["replica"] == 0 and buckets != AUTO_GRID
+              and buckets[-1] == AUTO_GRID[-1], f"the lead's plan: {plan}")
+        # The fresh process (6) needs only the lead's plan: it starts while
+        # this plane answers the probes and drains.
+        fresh = _auto_script(bundle_dir, cache, device, probe_body, buckets, kill=False)
+        series = _series(port)
+        check(series["mlops_tpu_grid_generation"] == 2
+              and series['mlops_tpu_autotune_plans_total{outcome="applied"}'] >= 1,
+              "grid generation and applied plans on /metrics")
+        # (3) + (4): the probe on the regridded plane, one at a time.
+        target = min(b for b in buckets if b >= 3)
+        entry = f'mlops_tpu_dispatches_total{{entry="bucket_{target}"}}'
+        before, entry_before = _scrape(port), _series(port).get(entry, 0.0)
+        after_probes = [_probe(port, probe_body) for _ in range(AUTO_PROBE_REPEATS)]
+        after, entry_after = _scrape(port), _series(port).get(entry, 0.0)
+        bitwise = set(after_probes) == {probes[0]}
+        check(bitwise or device != "cuda", "the probe answers differently after the regrid")
+        check(target not in AUTO_GRID, f"the probe's bucket {target} is not a new one")
+        # Every dispatch of the probes, and each through the new bucket.
+        check(after["dispatches"] - before["dispatches"] == AUTO_PROBE_REPEATS
+              and entry_after - entry_before == AUTO_PROBE_REPEATS,
+              f"the probe did not dispatch through bucket_{target}: "
+              f"{entry_after - entry_before} of {AUTO_PROBE_REPEATS}")
+        if device == "cuda":
+            check(after["launches"] - before["launches"] == AUTO_PROBE_REPEATS,
+                  "quant_fused launches of the probe through the new bucket's graph")
+        regrids = [json.loads(line.split(": ", 1)[1])
+                   for line in log_path.read_text(errors="replace").splitlines()
+                   if line.startswith("autotune regrid ")]
+        check(sorted(r["replica"] for r in regrids) == [0, 1], f"regrid records: {regrids}")
+        if device == "cuda":
+            # One launch per dispatch, and one per capture: each new graph's
+            # eager pass before it is captured.
+            captured = sum(r["graphs"] for r in regrids)
+            check(launches == dispatches + captured, f"{launches} quant_fused launches for "
+                  f"{dispatches} quant-tier dispatches and {captured} captures")
+        windows = {w: [r["requests_per_s"] for r in rounds if r["window"] == w]
+                   for w in ("before", "after")}
+        result.update({
+            "plan": {k: plan[k] for k in ("buckets", "baseline_buckets", "predicted_gain_pct",
+                                          "predicted_waste_pct", "baseline_waste_pct",
+                                          "cost_model", "demand_dispatches")},
+            "regrids": regrids,
+            "predicted_gain_pct": series.get("mlops_tpu_autotune_predicted_gain_pct"),
+            "measured_gain_pct": series.get("mlops_tpu_autotune_measured_gain_pct"),
+            "requests_per_s": {w: {"rounds": v, "median": float(np.median(v)) if v else None,
+                                   "spread": [min(v), max(v)] if v else None}
+                               for w, v in windows.items()},
+            "rounds": len(rounds), "requests": len(rounds) * AUTO_ROUND,
+            "apply_after_s": None if applied_at is None else applied_at - t0,
+            "adopt_after_s": adopted_at - t0, "probe_bucket": target,
+            "probe_bitwise": bitwise, "launches": launches, "dispatches": dispatches,
+        })
+        log_timing("autotune regrid", {k: result[k] for k in (
+            "plan", "regrids", "predicted_gain_pct", "measured_gain_pct", "requests_per_s",
+            "apply_after_s", "adopt_after_s", "probe_bucket", "probe_bitwise")})
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=180) == 0, "the autotune plane did not exit 0")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        out_file.close()
+        for sub in (killed, fresh):
+            if sub is not None and sub.poll() is None and not result:
+                sub.kill()
+    # (6) the kill, then a fresh process; (5) the offline command beside it.
+    _, err = killed.communicate(timeout=300)
+    check(killed.returncode == -signal.SIGKILL,
+          f"the mid-regrid kill: exit {killed.returncode}\n{err[-2000:]}")
+    offline = subprocess.run(_cli(["autotune", f"slo.ledger_dir={root / 'ledger'}",
+                                   f"trace.dir={root / 'traces'}"]),
+                             cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                             capture_output=True, text=True, timeout=120)
+    lines = offline.stdout.strip().splitlines()
+    check(offline.returncode in (0, 3) and len(lines) == 1,
+          f"autotune: exit {offline.returncode} {offline.stdout[-500:]} {offline.stderr[-2000:]}")
+    doc = json.loads(lines[0])
+    check(doc["buckets"][-1] == AUTO_GRID[-1], f"the offline plan: {doc}")
+    result["offline"] = {"exit": offline.returncode, "buckets": doc["buckets"],
+                         "predicted_gain_pct": doc["predicted_gain_pct"],
+                         "regrid_warranted": doc["regrid_warranted"]}
+    stdout, err = fresh.communicate(timeout=300)
+    check(fresh.returncode == 0, f"the fresh process: {fresh.returncode}\n{err[-3000:]}")
+    report = json.loads(stdout.strip().splitlines()[-1])
+    answers = [report[k]["body"] for k in ("old_grid", "new_grid", "rolled_back")]
+    same = all(json.loads(a) == json.loads(probes[0]) for a in answers)
+    check(same or device != "cuda", "the fresh process's probe answers differ")
+    check(report["old_grid"]["entries"] == ["bucket_8"]
+          and report["new_grid"]["entries"] == [f"bucket_{target}"]
+          and report["rolled_back"]["entries"] == ["bucket_8"]
+          and report["grid_generations"] == [1, 3] and report["regrid_generation"] == 2
+          and report["rolled_back_buckets"] == list(AUTO_GRID),
+          f"the fresh process's regrid: {report}")
+    if device == "cuda":
+        check(report["new_grid"]["launches"] == 1, "quant_fused in the new bucket's graph")
+    result["fresh"] = {"swap_stats": report["swap_stats"],
+                       "rollback_stats": report["rollback_stats"],
+                       "entries": [report[k]["entries"][0]
+                                   for k in ("old_grid", "new_grid", "rolled_back")],
+                       "bitwise": same, "killed": "SIGKILL"}
+    log_timing("autotune offline and fresh process", {"offline": result["offline"],
+                                                      "fresh": result["fresh"]})
+    return result
+
+
 def _pyarrow_version() -> str | None:
     """pyarrow's version where it imports (the optional dependency the JAX
     package gates too), else None."""
@@ -6436,11 +6805,10 @@ def _pyarrow_version() -> str | None:
     return pyarrow.__version__
 
 
-def main() -> int:
-    if not (ROOT / "mlops_tpu_torch").is_dir():
-        print("chip_smoke.py must run from a checkout of the repository "
-              "(mlops_tpu_torch/ not found beside it)", file=sys.stderr)
-        return 2
+RING_PHASES_FLAG = "--ring-phases"
+
+
+def _setup() -> None:
     sys.path.insert(0, str(ROOT))
     WORK.mkdir(parents=True, exist_ok=True)
     # Bytecode goes to a cache in the work directory, for this process and
@@ -6449,7 +6817,97 @@ def main() -> int:
     # modules anew (about 7 s), and the CLI walls would time that.
     sys.pycache_prefix = str(WORK / "pycache")
     os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
+
+
+def _ring_phases(burst_dir: Path, exact_dirs: dict) -> dict:
+    """Phases 29-36, in order: each needs only the bundles of phases 16
+    and 22 and the card, and writes under its own work directory."""
+    return {
+        "ring": timed(phase_ring, burst_dir),
+        "lifecycle": timed(phase_lifecycle, burst_dir),
+        "ring_lifecycle": timed(phase_ring_lifecycle, burst_dir),
+        "chaos": timed(phase_chaos, burst_dir),
+        "replicas": timed(phase_replicas, burst_dir),
+        "tenants": timed(phase_tenants, burst_dir, exact_dirs),
+        "observability": timed(phase_observability, burst_dir),
+        "autotune": timed(phase_autotune, burst_dir),
+    }
+
+
+def _stop_on_sigterm(signum, frame):
+    raise SmokeFailure("stopped by SIGTERM")
+
+
+def ring_phases_main(spec_path: str, out_path: str) -> int:
+    """The second process: phases 29-36 on the bundles ``spec_path``
+    names; their results go to ``out_path`` as JSON. SIGTERM fails the
+    phase under way, so its planes are stopped on the way out."""
+    signal.signal(signal.SIGTERM, _stop_on_sigterm)
+    _setup()
+    _no_tf32()
+    spec = json.loads(Path(spec_path).read_text())
+    try:
+        results = _ring_phases(Path(spec["burst_dir"]),
+                               {k: Path(v) for k, v in spec["exact_dirs"].items()})
+    except SmokeFailure as err:
+        print(f"chip_smoke FAILED (phases 29-36): {err}", file=sys.stderr, flush=True)
+        return 1
+    Path(out_path).write_text(json.dumps(results, default=str))
+    return 0
+
+
+class _RingSide:
+    """Phases 29-36 in a second process of this script, started beside
+    phases 16-28; ``join`` returns their results, ``check`` fails the run
+    as soon as that process failed, ``stop`` ends it and its planes."""
+
+    def __init__(self, burst_dir: Path, exact_dirs: dict) -> None:
+        spec = WORK / "ring_phases_spec.json"
+        self.out = WORK / "ring_phases.json"
+        self.out.unlink(missing_ok=True)
+        spec.write_text(json.dumps({"burst_dir": str(burst_dir),
+                                    "exact_dirs": {k: str(v) for k, v in exact_dirs.items()}}))
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), RING_PHASES_FLAG,
+             str(spec), str(self.out)], cwd=ROOT)
+        log(f"phases 29-36 started in process {self.proc.pid}")
+
+    def check(self) -> None:
+        code = self.proc.poll()
+        check(code in (None, 0), f"phases 29-36 failed (exit {code}; see above)")
+
+    def join(self) -> dict:
+        t0 = time.perf_counter()
+        code = self.proc.wait()
+        log(f"waited {time.perf_counter() - t0:.1f} s for phases 29-36")
+        check(code == 0, f"phases 29-36 failed (exit {code}; see above)")
+        return json.loads(self.out.read_text())
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+
+
+def main() -> int:
+    if not (ROOT / "mlops_tpu_torch").is_dir():
+        print("chip_smoke.py must run from a checkout of the repository "
+              "(mlops_tpu_torch/ not found beside it)", file=sys.stderr)
+        return 2
+    _setup()
     t0 = time.perf_counter()
+    side = None
+
+    def beside(phase, *args):
+        """A phase of 16-28, then a look at the second process."""
+        out = timed(phase, *args)
+        side.check()
+        return out
+
     try:
         timed(phase_card)
         timed(phase_build)
@@ -6469,33 +6927,34 @@ def main() -> int:
         c1_timing = timed(phase_c1_timing)
         c2 = timed(phase_c2, bundle_dir)
         exact_dirs = timed(phase_exact_bundles)
-        exact_parity = timed(phase_exact_parity, exact_dirs)
-        exact = timed(phase_exact_serve, exact_dirs)
-        exact_timing = timed(phase_exact_timing, exact_dirs)
-        exact_train_parity = timed(phase_exact_train_parity)
-        exact_train = timed(phase_exact_train_path)
-        exact_train_timing = timed(
+        burst_dir = timed(phase_burst_bundle, exact_dirs)
+        side = _RingSide(burst_dir, exact_dirs)
+        exact_parity = beside(phase_exact_parity, exact_dirs)
+        exact = beside(phase_exact_serve, exact_dirs)
+        exact_timing = beside(phase_exact_timing, exact_dirs)
+        exact_train_parity = beside(phase_exact_train_parity)
+        exact_train = beside(phase_exact_train_path)
+        exact_train_timing = beside(
             phase_exact_train_timing,
             {name: row["wall_s"] for name, row in exact_train["cli"].items()})
-        routes = timed(phase_dispatch_routes, bundle_dir, exact_dirs)
-        burst_dir = timed(phase_burst_bundle, exact_dirs)
-        burst = timed(phase_burst, burst_dir)
-        students = timed(phase_students)
-        bulk_rows = timed(phase_bulk, students)
-        streamed = timed(phase_stream, students)
-        tune_job = timed(phase_tune_job)
-        tune_arch = timed(phase_tune_arch)
-        deployed = timed(phase_deployed_job, tune_job["cli"])
-        ring = timed(phase_ring, burst_dir)
-        lifecycle = timed(phase_lifecycle, burst_dir)
-        ring_lifecycle = timed(phase_ring_lifecycle, burst_dir)
-        chaos = timed(phase_chaos, burst_dir)
-        replicas = timed(phase_replicas, burst_dir)
-        tenants = timed(phase_tenants, burst_dir, exact_dirs)
-        observability = timed(phase_observability, burst_dir)
+        routes = beside(phase_dispatch_routes, bundle_dir, exact_dirs)
+        burst = beside(phase_burst, burst_dir)
+        students = beside(phase_students)
+        bulk_rows = beside(phase_bulk, students)
+        streamed = beside(phase_stream, students)
+        tune_job = beside(phase_tune_job)
+        tune_arch = beside(phase_tune_arch)
+        deployed = beside(phase_deployed_job, tune_job["cli"])
+        ring_side = side.join()
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
         return 1
+    finally:
+        if side is not None:
+            side.stop()
+    ring, lifecycle, ring_lifecycle, chaos, replicas, tenants, observability, autotune = (
+        ring_side[k] for k in ("ring", "lifecycle", "ring_lifecycle", "chaos", "replicas",
+                               "tenants", "observability", "autotune"))
     import torch
 
     from mlops_tpu_torch.ops import attention
@@ -6548,6 +7007,7 @@ def main() -> int:
                 "ring_probe": tenants["ring_probe_launches"],
                 "ring_quota": tenants["quota_launches"]},
             "observability_launches": observability["launches"],
+            "autotune_launches": autotune["launches"],
         }, {
             "name": "flash_attention",
             "route": "cuda",
@@ -6606,6 +7066,7 @@ def main() -> int:
         "replica_set": replicas,
         "tenant_fleet": tenants,
         "observability": {k: v for k, v in observability.items() if k != "launches"},
+        "autotune": {k: v for k, v in autotune.items() if k != "launches"},
         "students": {"records": students["records"], "fit": students["fit"],
                      "served_quant_bundle": students["quant_bundle"]},
         "bulk": bulk_rows,
@@ -6637,4 +7098,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == RING_PHASES_FLAG:
+        sys.exit(ring_phases_main(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -51,13 +51,25 @@
   stderr, the JSON on stdout; exit 2 without spans); ``--ledger
   slo.ledger_dir=<dir>`` ranks the cost ledger's entries by cost per row;
 - ``flightrec <dump.json>...``: render flight-recorder dumps as
-  timelines (stderr) and one JSON summary line (exit 2 when none reads).
+  timelines (stderr) and one JSON summary line (exit 2 when none reads);
+- ``autotune slo.ledger_dir=<dir> [trace.dir=<dir>]``: the one-shot
+  offline autotuner pass (torch-free): fit the per-entry cost model from
+  the ledger shards, search bucket grids against the span history's
+  requested rows (the ledger's mean rows per dispatch without spans) and
+  print the plan as one JSON line; exit 0 when a regrid is warranted, 3
+  when the grid of ``serve.warmup_batch_sizes`` already wins.
 
 Tracing and the SLO layer are armed from the config on both planes:
 ``trace.enabled=true`` (``MLOPS_TPU_TRACE_ENABLED``; spans into
 ``trace.dir``), ``slo.enabled=true`` (the SLO engine, the alert gauges,
 the ``/healthz`` verdict and the flight recorder into
 ``slo.flightrec_dir``) and ``slo.ledger_dir=<dir>`` (the cost ledger).
+With both tracing and the ledger armed, ``autotune.enabled=true`` runs
+the traffic-shape autotuner on either plane: it fits the cost model,
+searches the bucket grid every ``autotune.interval_s`` and hot-regrids
+the engine (new CUDA graphs captured off the request path, then one
+exchange), writing ``<autotune.plan_dir>/plan.json``; on the ring plane
+engine replica 0 plans and the other replicas adopt its plan.
 
 ``serve --workers N`` (``serve.workers``, ``MLOPS_TPU_SERVE_WORKERS``)
 with N >= 2 serves from N ``SO_REUSEPORT`` front-end processes over a
@@ -73,8 +85,8 @@ Every command takes ``--config <toml>``, ``MLOPS_TPU_<SECTION>_<FIELD>``
 environment overrides and positional ``section.field=value`` overrides,
 as the JAX package's CLI does (``serve.model_directory=<bundle>
 serve.port=5001 serve.device=cpu``); a key the port has not ported, set
-away from its JAX default (``MLOPS_TPU_AUTOTUNE_ENABLED=true``), exits
-non-zero naming its ROADMAP item. A
+away from its JAX default (``MLOPS_TPU_SERVE_LOOP_LAG_MONITOR=true``),
+exits non-zero naming its ROADMAP item. A
 ``gs://`` ``data.train_path`` or ``registry.root`` is read and written
 through ``utils/storage.py``, as in the JAX package.
 Every command runs on the card unless ``serve.device=cpu`` (serve,
@@ -156,6 +168,13 @@ def build_parser() -> argparse.ArgumentParser:
             "(trace.dir), or the cost ledger ranked (--ledger)",
             "trace.dir=traces",
         ),
+        "autotune": (
+            "one-shot offline autotuner pass: fit the per-entry dispatch cost model "
+            "from the device-time ledger (slo.ledger_dir), search bucket grids "
+            "against the observed traffic shape, and print the winning plan "
+            "(exit 3 when the current grid already wins)",
+            "slo.ledger_dir=<dir> trace.dir=<dir>",
+        ),
     }
     for name, (help_text, example) in commands.items():
         cmd = sub.add_parser(name, help=help_text)
@@ -226,6 +245,27 @@ def _serve(config) -> int:
     model_dir = os.environ.get("MODEL_DIRECTORY", cfg.model_directory)
     cfg.validate()
     config.lifecycle.validate()
+    config.autotune.validate()
+    if config.autotune.enabled:
+        # The JAX cross-section contract, on both planes, before anything
+        # warms: the autotuner's demand input is the shape histograms and
+        # its cost input the cost ledger, and one tunable grid per plane.
+        if not config.trace.enabled:
+            raise SystemExit(
+                "autotune.enabled requires trace.enabled (the shape "
+                "histograms are the demand input)"
+            )
+        if not config.slo.ledger_dir:
+            raise SystemExit(
+                "autotune.enabled requires slo.ledger_dir (the cost "
+                "ledger is the cost-model input)"
+            )
+        if cfg.tenants_path:
+            raise SystemExit(
+                "autotune.enabled supports single-tenant planes only "
+                "(the shared shape table cannot attribute demand per "
+                "tenant grid)"
+            )
     # A tenants file names every bundle itself: the model directory is not
     # resolved on either plane.
     bundle_dir = "" if cfg.tenants_path else str(resolve_bundle(config, model_dir))
@@ -264,6 +304,12 @@ def _serve(config) -> int:
             tier_routing=cfg.tier_routing,
         )
     fleet = {} if registry is None else {"registry": registry}
+    if config.autotune.enabled:
+        # The periodic fit -> search -> hot regrid on the live engine (a
+        # single-tenant plane: refused above with a tenants file).
+        from mlops_tpu_torch.autotune import AutotuneController
+
+        fleet["autotune"] = AutotuneController(engine, config.autotune)
     # The observability sections ride only when armed.
     if config.trace.enabled:
         fleet["trace"] = config.trace
@@ -410,6 +456,58 @@ def _trace_report(config) -> int:
     return 0 if spans else 2
 
 
+def _autotune(config) -> int:
+    """The JAX ``autotune``: persisted ledger shards and optional span
+    history in, one plan JSON line out. Exit 0 = a regrid is warranted, 3
+    = the searched grid does not clear ``autotune.min_gain_pct`` (the plan
+    is printed all the same), ``SystemExit`` when the telemetry yields no
+    model. Torch-free end to end."""
+    from mlops_tpu_torch.autotune.costmodel import demand_from_spans, fit_cost_model
+    from mlops_tpu_torch.autotune.search import search_plan
+    from mlops_tpu_torch.slo.ledger import ledger_report
+
+    config.autotune.validate()
+    if not config.slo.ledger_dir:
+        raise SystemExit(
+            "autotune needs slo.ledger_dir (the directory a served "
+            "plane's cost ledger flushed into)"
+        )
+    rows = ledger_report(config.slo.ledger_dir).get("entries", [])
+    model = fit_cost_model(rows)
+    if model is None:
+        raise SystemExit(
+            "autotune: no solo bucket_N entries in the ledger — serve "
+            "traffic with slo.ledger_dir armed first"
+        )
+    # Demand: the span history's exact requested rows when the trace dir
+    # has it, else the ledger's mean rows per dispatch of each bucket.
+    demand = []
+    if config.trace.dir:
+        from mlops_tpu_torch.trace import load_spans
+
+        try:
+            demand = demand_from_spans(load_spans(config.trace.dir))
+        except OSError:
+            demand = []
+    if not demand:
+        demand = [
+            (max(1, int(round(r["rows"] / r["dispatches"]))), float(r["dispatches"]))
+            for r in rows
+            if str(r.get("entry", "")).startswith("bucket_")
+            and float(r.get("dispatches", 0)) > 0
+        ]
+    if not demand:
+        raise SystemExit("autotune: no demand observations")
+    plan = search_plan(demand, model, tuple(config.serve.warmup_batch_sizes),
+                       config.autotune.max_entries)
+    doc = plan.as_dict()
+    warranted = (plan.buckets != plan.baseline_buckets
+                 and plan.predicted_gain_pct >= config.autotune.min_gain_pct)
+    doc["regrid_warranted"] = warranted
+    print(json.dumps(doc), flush=True)
+    return 0 if warranted else 3
+
+
 def _flightrec(paths: list[str]) -> int:
     """The JAX ``flightrec``: each dump's timeline on stderr, one JSON
     summary line on stdout; exit 2 when no dump reads."""
@@ -453,6 +551,7 @@ def main(argv: list[str] | None = None) -> int:
         "validate": _validate,
         "warmup": _warmup,
         "trace-report": _trace_report,
+        "autotune": _autotune,
     }
     if args.command not in handlers:
         build_parser().print_help()

@@ -8,8 +8,8 @@ field for field with their defaults, so a bundle manifest's
 ``serve`` the keys of the JAX package's ``ServeConfig`` that its
 single-process server reads (``ServeConfig.validate`` with the same
 messages). ``hpo`` (the ``tune`` sweep), ``score`` (bulk scoring) and
-``lifecycle`` (whose gate bounds grade the quant student; the controller
-itself is not ported) are the JAX package's, field for field. Two port-only knobs,
+``lifecycle`` (the closed loop, whose gate bounds also grade the quant
+student) are the JAX package's, field for field. Two port-only knobs,
 ``serve.device`` and ``train.device``, say where the entry points run:
 the card unless the caller writes ``cpu``.
 
@@ -20,10 +20,11 @@ the tenant fleet (``serve.tenants_path``: ``tenancy/``), and ``cache``
 the warm start (``cache.dir``: the kernel libraries' cache,
 ``compilecache/``).
 
-Every other key of the JAX tree is here too, declared with ``unported``:
-the two keys of the JAX ``ServeConfig`` for the event-loop lag sanitizer
-(ROADMAP A12) and the ``autotune`` section (ROADMAP A4). Such a key is accepted at its JAX
-default, where it changes nothing; any other value is refused with a
+``autotune`` is the JAX package's section, field for field with its
+``validate`` (the traffic-shape autotuner, ``autotune/``). The two keys
+of the JAX ``ServeConfig`` for the event-loop lag sanitizer (ROADMAP A12)
+are here too, declared with ``unported``: such a key is accepted at its
+JAX default, where it changes nothing; any other value is refused with a
 ``ValueError`` naming the item, whichever layer sets it.
 
 ``load_config`` builds the tree as the JAX package's does: defaults <-
@@ -48,7 +49,6 @@ from typing import Any
 
 # What each item the refusals name still has to port.
 _ITEMS = {
-    "A4": "the serving plane's rest: the traffic-shape autotuner",
     "A12": "tooling: the event-loop lag sanitizer and the analysis commands",
 }
 
@@ -760,19 +760,79 @@ class SLOConfig:
         return self
 
 
+class AutotuneConfigError(ValueError):
+    """An inconsistent autotuner geometry, named at startup (the
+    ``ServeConfigError`` discipline applied to the gridtuner knobs)."""
+
+
 @dataclasses.dataclass
 class AutotuneConfig:
-    """The JAX package's ``AutotuneConfig`` (``mlops_tpu/config.py:942``):
-    the traffic-shape autotuner, not ported (ROADMAP A4)."""
+    """The JAX package's ``AutotuneConfig`` (``mlops_tpu/config.py:942``),
+    field for field with its defaults and ``validate``: the traffic-shape
+    autotuner (``autotune/``) fits a measured per-entry cost model from
+    the device-time ledger, searches bucket grids against the observed
+    shape histogram and hot-regrids the engine with the winner. Disabled
+    by default; the one-shot offline pass is ``python -m mlops_tpu_torch
+    autotune``."""
 
-    enabled: bool = unported(False, "A4")
-    interval_s: float = unported(60.0, "A4")
-    min_dispatches: int = unported(512, "A4")
-    max_entries: int = unported(16, "A4")
-    min_gain_pct: float = unported(5.0, "A4")
-    apply: bool = unported(True, "A4")
-    plan_dir: str = unported("autotune", "A4")
-    cooldown_s: float = unported(300.0, "A4")
+    enabled: bool = False
+    interval_s: float = 60.0  # periodic evaluation cadence (its own
+    # thread, off the request path — the LifecycleController discipline)
+    min_dispatches: int = 512  # observed dispatches required before a
+    # plan is even considered: a near-empty shape histogram is noise,
+    # and regridding on noise churns the graph pool for nothing
+    max_entries: int = 16  # capture budget: the most solo-bucket entries
+    # a plan may carry (each is one CUDA graph per tier at warm time; group
+    # geometries stay the full fixed grid and don't count against this)
+    min_gain_pct: float = 5.0  # predicted useful_rows_per_s gain below
+    # which a plan is rejected (outcome="rejected"): swapping grids for
+    # sub-noise gains invalidates warm telemetry for nothing
+    apply: bool = True  # False = dry-run: plans are computed, exported,
+    # and persisted, but never hot-applied (the human-in-the-loop mode —
+    # read the plan, then `serve autotune.apply=true`)
+    plan_dir: str = "autotune"  # plan root: the controller (and the
+    # offline CLI) writes plan.json here atomically; on the ring plane
+    # sibling replicas ADOPT the lead's applied plan from this file,
+    # capturing their own graphs (the kernel cache is shared) instead of
+    # re-searching
+    cooldown_s: float = 300.0  # dead time after any apply/rollback
+    # before the next evaluation: measured-gain audit needs a full
+    # observation window on the new grid before anyone moves again
+
+    def validate(self) -> "AutotuneConfig":
+        problems: list[str] = []
+        if self.interval_s <= 0:
+            problems.append(
+                f"autotune.interval_s={self.interval_s} must be > 0 (a "
+                "zero interval busy-loops the controller thread)"
+            )
+        if self.min_dispatches < 1:
+            problems.append(
+                f"autotune.min_dispatches={self.min_dispatches} must be "
+                ">= 1 (0 would regrid on an empty histogram)"
+            )
+        if self.max_entries < 2:
+            problems.append(
+                f"autotune.max_entries={self.max_entries} must be >= 2 "
+                "(every grid needs at least a batch-1 bucket and a tail "
+                "bucket)"
+            )
+        if self.min_gain_pct < 0:
+            problems.append(
+                f"autotune.min_gain_pct={self.min_gain_pct} must be >= 0"
+            )
+        if self.cooldown_s < 0:
+            problems.append(
+                f"autotune.cooldown_s={self.cooldown_s} must be >= 0"
+            )
+        if self.enabled and not self.plan_dir:
+            problems.append(
+                "autotune.enabled=true requires autotune.plan_dir (the "
+                "plan root sibling replicas adopt from)"
+            )
+        if problems:
+            raise AutotuneConfigError("; ".join(problems))
+        return self
 
 
 @dataclasses.dataclass

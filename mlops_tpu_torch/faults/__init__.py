@@ -5,9 +5,9 @@ the port's copy of the JAX package's ``faults/``.
     faults.fire("serve.engine.dispatch")
 
 ``injector.py`` has the plan format and semantics. ``POINTS`` lists every
-point compiled into the port, with the modes that make sense there;
-``UNPORTED_POINTS`` names each JAX point the port lacks and the ROADMAP
-item that will bring it with its code path.
+point compiled into the port, with the modes that make sense there: every
+point of the JAX package. ``UNPORTED_POINTS`` would name a JAX point the
+port lacked and the ROADMAP item bringing it; it is empty.
 """
 
 from mlops_tpu_torch.faults.injector import (  # noqa: F401
@@ -53,10 +53,12 @@ POINTS: dict[str, str] = {
     "repeated retrain failure -> circuit breaker)",
     "lifecycle.shadow.evaluate": "entry of the shadow gate evaluation (raise = "
     "repeated evaluation failure -> circuit breaker)",
+    "autotune.regrid.midswap": "between a regrid's warm phase and its bucket-set "
+    "swap (kill = crashed apply at maximum in-flight state: the generation keeps "
+    "only valid captured graphs, serving continues on the old grid, and a "
+    "restarted plane re-plans cleanly)",
 }
 
 # JAX points whose code path the port does not have yet, and the ROADMAP
-# item that brings each with it.
-UNPORTED_POINTS: dict[str, str] = {
-    "autotune.regrid.midswap": "A4 (the traffic-shape autotuner)",
-}
+# item that brings each with it: none.
+UNPORTED_POINTS: dict[str, str] = {}

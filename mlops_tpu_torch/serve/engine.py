@@ -34,6 +34,13 @@ tiers:
   hot-promotes a candidate engine's bundle (its programs captured again
   over this engine's accumulator before one reference exchange under the
   lock) and ``rollback`` exchanges back;
+- grid turnover for the autotuner (``autotune/``): ``warm_grid`` readies
+  a plan's missing buckets on every tier of the serving generation, one
+  capture per lock hold, and ``regrid`` exchanges in a generation that
+  differs only in its bucket list and shares the graphs (or the eager
+  route's ready set) by reference, so a dispatch that picked its bucket
+  from the old grid still replays a graph that exists; ``grid_generation``
+  counts the swaps and rollbacks that changed the bucket list;
 - observability (``trace/``, ``slo/``): with tracing armed a request's
   span gets the engine-side stamps (``encode``, ``dispatch`` when the
   replay and the copy to the host are enqueued, ``device_fetch`` when the
@@ -241,6 +248,10 @@ class InferenceEngine:
         # rollback restores; ``_tee`` is the lifecycle observation hook
         # (``set_lifecycle_tee``).
         self.bundle_generation = 1
+        # Grid turnover (``autotune/``): counts the swaps and rollbacks
+        # whose generations differ in their bucket lists, from 1; a plain
+        # promotion on the same grid leaves it.
+        self.grid_generation = 1
         self._retired: _Generation | None = None
         self._tee: Callable[[np.ndarray, np.ndarray], None] | None = None
         self.swap_stats: dict[str, Any] = {}
@@ -420,20 +431,8 @@ class InferenceEngine:
         the card each is also captured into its CUDA graph (after one such
         eager pass on the engine's stream); a capture that fails raises."""
         t0 = time.perf_counter()
-        gen = self._gen
-        keys = self._warm_keys(gen)
-        if self._use_graphs:
-            for key in keys:
-                with self._acc_lock:
-                    if key not in gen.graphs:
-                        self._capture(gen, *key)
-        else:
-            with self._acc_lock, self._on_stream():
-                scratch = init_accumulator(self.device)
-                for tier, lead in keys:
-                    self._warm_pass(gen, tier, lead, scratch)
-                    gen.warmed.add((tier, lead))
-                scratch.rows.cpu()  # waits for every warmup launch to finish
+        keys = self._warm_keys(self._gen)
+        self._ready_keys(self._gen, keys)
         self.warmup_stats = {
             "warmup_s": round(time.perf_counter() - t0, 3),
             "programs": len(keys),
@@ -448,6 +447,33 @@ class InferenceEngine:
                 graph_pool_bytes=self._pool_bytes,
             )
         self.ready = True
+
+    def _ready_keys(self, gen: _Generation, keys) -> int:
+        """Ready each ``(tier, lead)`` of ``keys`` that ``gen`` lacks, one
+        per lock hold, so dispatches go on between them: on the card its
+        capture into ``gen``'s graphs (``_capture``), on the eager route
+        one run on zeros against a scratch accumulator. Returns how many
+        were readied."""
+        ready = gen.graphs if self._use_graphs else gen.warmed
+        scratch = None
+        if not self._use_graphs:
+            with self._on_stream():
+                scratch = init_accumulator(self.device)
+        readied = 0
+        for tier, lead in keys:
+            with self._acc_lock:
+                if (tier, lead) in ready:
+                    continue
+                if self._use_graphs:
+                    self._capture(gen, tier, lead)
+                else:
+                    with self._on_stream():
+                        self._warm_pass(gen, tier, lead, scratch)
+                    gen.warmed.add((tier, lead))
+                readied += 1
+        if scratch is not None:
+            scratch.rows.cpu()  # waits for every warm launch to finish
+        return readied
 
     def _warm_pass(self, gen: _Generation, tier: str, lead: tuple[int, ...],
                    scratch) -> None:
@@ -945,12 +971,7 @@ class InferenceEngine:
                 "candidate engine lacks the grouped path the live engine "
                 "serves — build it with enable_grouping=True"
             )
-        if candidate.max_bucket < self.max_bucket:
-            raise ValueError(
-                f"candidate max_bucket {candidate.max_bucket} < live "
-                f"{self.max_bucket}: a swap may never shrink shape "
-                "coverage below the admission ceiling"
-            )
+        self._check_ceiling(candidate.buckets)
         source = candidate._gen
         staged = _Generation(
             bundle=source.bundle,
@@ -973,27 +994,10 @@ class InferenceEngine:
         t0 = time.perf_counter()
         pool_before = self._pool_bytes
         if self._use_graphs:
-            for key in self._warm_keys(staged):
-                with self._acc_lock:
-                    self._capture(staged, *key)
-        capture_s = time.perf_counter() - t0
-        with self._acc_lock:
-            t1 = time.perf_counter()
-            self._retired, self._gen = self._gen, staged
-            self.bundle_generation += 1
-            critical = time.perf_counter() - t1
-        if self.cost_ledger is not None:
-            # Bill the promoted architecture from here on (outside the
-            # lock; a dispatch already in flight bills the outgoing tag).
-            self._cost_tag = model_tag(self.bundle.model_config)
-        self.swap_stats = {
-            "op": "swap",
-            "generation": self.bundle_generation,
-            "graphs": len(staged.graphs),
-            "capture_s": round(capture_s, 6),
-            "graph_pool_bytes": self._pool_bytes - pool_before,
-            "critical_us": round(critical * 1e6, 3),
-        }
+            self._ready_keys(staged, self._warm_keys(staged))
+        self._exchange(staged, "swap", graphs=len(staged.graphs),
+                       capture_s=round(time.perf_counter() - t0, 6),
+                       graph_pool_bytes=self._pool_bytes - pool_before)
         return self.bundle_generation
 
     def rollback(self) -> int:
@@ -1003,19 +1007,108 @@ class InferenceEngine:
         Raises if no swap ever happened."""
         if self._retired is None:
             raise ValueError("no retired bundle to roll back to")
+        self._exchange(None, "rollback")
+        return self.bundle_generation
+
+    def _exchange(self, staged: _Generation | None, op: str,
+                  expect: _Generation | None = None, **stats) -> None:
+        """Serve ``staged`` (None: the retired generation) from now on, in
+        one reference exchange under the lock with no capture and no
+        transfer; the outgoing generation is kept for ``rollback``. Every
+        dispatch reads its generation under the same lock, so each runs
+        exactly one. ``bundle_generation`` moves, and ``grid_generation``
+        when the bucket lists differ. With ``expect``, refuses when another
+        exchange came after ``expect`` was read. ``swap_stats`` records
+        ``op``, ``stats`` and the exchange's time under the lock."""
         with self._acc_lock:
             t1 = time.perf_counter()
-            self._gen, self._retired = self._retired, self._gen
+            if expect is not None and self._gen is not expect:
+                raise ValueError("the serving generation changed during the regrid")
+            incoming = self._retired if staged is None else staged
+            regrid = incoming.buckets != self._gen.buckets
+            self._retired, self._gen = self._gen, incoming
             self.bundle_generation += 1
+            if regrid:
+                self.grid_generation += 1
             critical = time.perf_counter() - t1
         if self.cost_ledger is not None:
+            # Bill the serving architecture from here on (outside the lock;
+            # a dispatch already in flight bills the outgoing tag).
             self._cost_tag = model_tag(self.bundle.model_config)
         self.swap_stats = {
-            "op": "rollback",
+            "op": op,
             "generation": self.bundle_generation,
+            "grid_generation": self.grid_generation,
+            **stats,
             "critical_us": round(critical * 1e6, 3),
         }
-        return self.bundle_generation
+
+    # ------------------------------------------------------- grid turnover
+    def _check_ceiling(self, buckets: list[int]) -> None:
+        """The JAX engine's floor: the front ends clamp requests at the
+        largest bucket at start, so a grid may never lower it."""
+        if buckets[-1] < self.max_bucket:
+            raise ValueError(
+                f"candidate max_bucket {buckets[-1]} < live "
+                f"{self.max_bucket}: a swap may never shrink shape "
+                "coverage below the admission ceiling"
+            )
+
+    @staticmethod
+    def _grid_keys(gen: _Generation, buckets: list[int]) -> list[tuple]:
+        """Every (tier, (bucket,)) a generation serving ``buckets``
+        dispatches solo: each bucket on each tier ``gen`` holds."""
+        return [(tier, (b,)) for tier in gen.tiers for b in buckets]
+
+    def warm_grid(self, buckets) -> dict[str, Any]:
+        """Ready the solo programs a grid of ``buckets`` needs and the
+        serving generation lacks, on every tier it holds, off the request
+        path (``_ready_keys``: on the card one capture into the
+        generation's pool per lock hold while the other graphs keep
+        replaying). A crash midway leaves only extra ready shapes behind.
+        Returns what ``regrid`` records: ``graphs`` readied (0: the
+        generation already covers the grid), ``capture_s`` and
+        ``graph_pool_bytes``. Refuses a grid whose largest bucket is below
+        the live one."""
+        buckets = sorted({int(b) for b in buckets})
+        self._check_ceiling(buckets)
+        gen = self._gen
+        t0 = time.perf_counter()
+        pool_before = self._pool_bytes
+        readied = self._ready_keys(gen, self._grid_keys(gen, buckets))
+        return {
+            "graphs": readied,
+            "capture_s": round(time.perf_counter() - t0, 6),
+            "graph_pool_bytes": self._pool_bytes - pool_before,
+        }
+
+    def regrid(self, buckets, warm: dict[str, Any] | None = None) -> int:
+        """Serve ``buckets`` from now on; returns the new
+        ``grid_generation``. The incoming generation keeps the serving
+        one's bundle, tiers (params by reference), monitor and pool and
+        shares its graphs dict (on the eager route its ready set) by
+        reference, so it holds every shape the outgoing one did: a
+        dispatch that chose its bucket from the old grid just before the
+        exchange replays an existing graph, never a capture, and a
+        rollback is warm. The exchange is ``_exchange``'s; ``warm`` is
+        ``warm_grid``'s record of the captures, kept in ``swap_stats``, and
+        ``bundle_generation`` moves too, as a JAX regrid is a swap. Raises
+        when the grid lowers the ceiling or ``warm_grid`` has not readied
+        every shape it needs (then nothing is exchanged)."""
+        buckets = sorted({int(b) for b in buckets})
+        self._check_ceiling(buckets)
+        # Built outside the lock: a generation's ready shapes only grow, so
+        # what is ready now is ready at the exchange, and the exchange
+        # checks that no other swap came between.
+        live = self._gen
+        ready = live.graphs if self._use_graphs else live.warmed
+        missing = [k for k in self._grid_keys(live, buckets) if k not in ready]
+        if missing:
+            raise ValueError(f"regrid to {buckets}: {missing} not ready; warm_grid first")
+        self._exchange(dataclasses.replace(live, buckets=buckets), "regrid", expect=live,
+                       buckets=buckets, **{"graphs": 0, "capture_s": 0.0,
+                                           "graph_pool_bytes": 0, **(warm or {})})
+        return self.grid_generation
 
     # ------------------------------------------------------------ monitor
     def monitor_snapshot(self) -> dict[str, Any]:

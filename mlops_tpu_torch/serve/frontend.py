@@ -73,7 +73,16 @@ engine replica feeds one ``ShapeStats`` (tracing) and one ``CostLedger``
 (``slo.ledger_dir``, ``ledger-r<k>.json`` per replica of a set); replica 0
 runs the ``SLOEngine`` over the ring's counters and answers
 ``/debug/profile`` (with ``serve.profile_dir``), which the front ends
-forward over the ring. Not ported (ROADMAP A4): the autotuner.
+forward over the ring.
+
+The autotuner (``autotune.enabled``, which needs tracing and the ledger):
+every engine replica starts an ``AutotuneController`` after its warmup.
+Replica 0 fits, searches, regrids and persists the plan
+(``<autotune.plan_dir>/plan.json``); every other replica adopts it on a
+later tick, capturing its own graphs (CUDA graphs do not cross processes;
+the kernel cache does). Each replica mirrors its controller into its
+autotune row, and ``mlops_tpu_grid_generation`` renders the MIN over the
+replicas.
 """
 
 from __future__ import annotations
@@ -671,10 +680,12 @@ def _engine_main(config: Config, ring: RequestRing, tenancy: TenancyConfig,
             prior_counts=prior,
         )
         logger.info("SLO engine armed (lead replica)")
+    profiler = None
     if serve_cfg.profile_dir and replica == 0:
         from mlops_tpu_torch.serve.server import TorchProfiler
 
-        service.profiler = TorchProfiler(serve_cfg.profile_dir).control
+        profiler = TorchProfiler(serve_cfg.profile_dir)
+        service.profiler = profiler.control
     # Warmup -> re-attach -> serve: the busy slots routed to this replica
     # are answered by the replay before its ready flag flips.
     attach = service.reattach()
@@ -716,6 +727,23 @@ def _engine_main(config: Config, ring: RequestRing, tenancy: TenancyConfig,
         logger.info("lifecycle controller started (engine process %d, generation %d, "
                     "%d tenant(s))", os.getpid(), engines[0].bundle_generation,
                     len(controllers))
+    autotune = None
+    if config.autotune.enabled:
+        from mlops_tpu_torch.autotune import AutotuneController
+
+        # Started after warmup: it measures the warmed grid. The lead
+        # replica plans and persists; its siblings adopt.
+        autotune = AutotuneController(engines[0], config.autotune,
+                                      adopt=replica != 0, replica=replica)
+        service.attach_autotune(autotune)
+        autotune.start()
+        logger.info("autotune controller started (replica %d, %s mode)", replica,
+                    "adopt" if replica != 0 else "plan")
+    if profiler is not None:
+        # CUPTI's first start, here on the main thread that runs the
+        # profile requests, before any request waits on it (the collector
+        # queues one that comes meanwhile).
+        logger.info("profiler primed in %.3f s (replica %d)", profiler.prime(), replica)
     supervisor = os.getppid()
     try:
         # Not stopped by the ring's drain flag: during a drain the front
@@ -738,6 +766,8 @@ def _engine_main(config: Config, ring: RequestRing, tenancy: TenancyConfig,
         ring.set_ready(False, replica)
         for controller in controllers:
             controller.stop()
+        if autotune is not None:
+            autotune.stop()
         service.stop()
         if ledger is not None:
             ledger.close()  # the final atomic flush

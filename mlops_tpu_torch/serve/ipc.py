@@ -83,7 +83,9 @@ the lead replica mirrors its ``SLOEngine`` into ``slo_vals`` and
 into its own table rows. ``/debug/profile`` crosses the ring as two
 single-word messages (``prof_ctl``: the request ``seq << 8 | action``,
 the answer ``seq << 16 | status``) under a claim lease (``prof_claim``),
-answered by replica 0 off its collector thread.
+answered by replica 0 off its collector thread. The autotuner
+(``autotune/``): each replica's telemetry loop mirrors its controller's
+gauges into its own ``auto_vals`` / ``auto_plans`` rows.
 
 Nothing here imports torch: front ends import this module, and the
 engine side reaches the device only through the engines it is given.
@@ -107,6 +109,13 @@ import numpy as np
 from mlops_tpu_torch import faults
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.serve.metrics import (
+    AUTO_GRID_GEN,
+    AUTO_HAS,
+    AUTO_HAS_MEAS,
+    AUTO_HAS_PRED,
+    AUTO_MEAS_GAIN,
+    AUTO_PRED_GAIN,
+    AUTOTUNE_OUTCOMES,
     ENG_DEGRADED,
     ENG_EXPIRED,
     ENG_INCARNATION,
@@ -383,6 +392,11 @@ class RequestRing:
             ("ledger_keys", np.dtype(np.uint8),
              (R, _ledger.TABLE_ROWS, _ledger.TABLE_KEY_BYTES)),
             ("ledger_vals", f64, (R, _ledger.TABLE_ROWS, _ledger.TABLE_VALS)),
+            # Each replica's autotune controller (serve/metrics.py AUTO_*):
+            # its grid generation and gain audit, and its plans by outcome
+            # (single writer: that replica's telemetry loop).
+            ("auto_vals", f64, (R, 6)),
+            ("auto_plans", f64, (R, len(AUTOTUNE_OUTCOMES))),
         ]
         offset, offsets = 0, {}
         for name, dtype, shape in plan:
@@ -673,6 +687,25 @@ class RequestRing:
         for i, outcome in enumerate(LIFE_OUTCOMES):
             self.life_promos[tenant, i] = float(promotions.get(outcome, 0))
         row[LIFE_HAS] = 1.0
+
+    def write_autotune(self, snapshot: dict[str, Any], replica: int = 0) -> None:
+        """Install one replica's autotune controller ``metrics_snapshot``
+        for the front ends' renders (the same tearing contract as
+        ``write_monitor``)."""
+        if not snapshot:
+            return
+        row = self.auto_vals[replica]
+        row[AUTO_GRID_GEN] = float(snapshot["grid_generation"])
+        predicted = snapshot.get("predicted_gain_pct")
+        row[AUTO_PRED_GAIN] = 0.0 if predicted is None else float(predicted)
+        row[AUTO_HAS_PRED] = 0.0 if predicted is None else 1.0
+        measured = snapshot.get("measured_gain_pct")
+        row[AUTO_MEAS_GAIN] = 0.0 if measured is None else float(measured)
+        row[AUTO_HAS_MEAS] = 0.0 if measured is None else 1.0
+        plans = snapshot.get("plans", {})
+        for i, outcome in enumerate(AUTOTUNE_OUTCOMES):
+            self.auto_plans[replica, i] = float(plans.get(outcome, 0))
+        row[AUTO_HAS] = 1.0
 
     def dispatch_counts(self, replica: int | None = None) -> dict[str, int]:
         """Mirrored dispatches per program label: one replica's, or with
@@ -999,6 +1032,9 @@ class RingService:
         self._degraded_base = 0.0  # a dead incarnation's degraded count
         self.slo: Any = None
         self.cost_ledger: Any = None
+        # This replica's ``AutotuneController`` (the lead plans, siblings
+        # adopt; ``attach_autotune``), mirrored on every telemetry tick.
+        self.autotune: Any = None
         self.profiler: Callable[[str], tuple[int, Any]] | None = None
         self._slo_last = 0.0  # telemetry-thread private
         self._prof_handled = 0  # collector-thread private
@@ -1043,6 +1079,15 @@ class RingService:
         if self._telemetry is None and self._collector is not None:
             self._start_telemetry()
 
+    def attach_autotune(self, controller: Any) -> None:
+        """Mirror the autotune controller's gauges into this replica's row
+        now (the render's MIN fold counts the replica from here on) and on
+        every telemetry tick and on ``stop``."""
+        self.autotune = controller
+        self._write_autotune()
+        if self._telemetry is None and self._collector is not None:
+            self._start_telemetry()
+
     def _tenant_lifecycles(self) -> list[tuple[int, Any]]:
         """(tenant index, controller) pairs: the per-tenant list when the
         fleet attached one, else the single controller on tenant row 0."""
@@ -1062,6 +1107,7 @@ class RingService:
         self._write_monitors()
         self._write_lifecycle()
         self._write_observability(force=True)
+        self._write_autotune()
 
     # ------------------------------------------------------------ collect
     def _collect(self) -> None:
@@ -1420,6 +1466,7 @@ class RingService:
         while not self._stop.wait(tick):
             self._write_lifecycle()
             self._write_observability()
+            self._write_autotune()
             if not monitor:
                 continue
             never = any(self._accumulating[t] and not self.ring.mon_vals[self.replica, t, MON_HAS]
@@ -1467,6 +1514,19 @@ class RingService:
                 # never the telemetry thread.
                 except Exception:
                     logger.exception("slo tick failed; alert gauges stale")
+
+    def _write_autotune(self) -> None:
+        """Mirror the attached autotune controller's snapshot into this
+        replica's row (host reads and f64 stores, no device work)."""
+        controller = self.autotune
+        if controller is None:
+            return
+        try:
+            self.ring.write_autotune(controller.metrics_snapshot(), self.replica)
+        # A controller mid-regrid costs one gauge refresh, never the
+        # telemetry thread.
+        except Exception:
+            logger.exception("ring autotune write failed; gauges stale")
 
     def _write_monitors(self) -> None:
         """Each accumulating tenant engine's snapshot into its row; one

@@ -45,7 +45,17 @@ shape histograms each replica's telemetry thread mirrors
 SLO and alert block the lead replica mirrors (``slo_vals``/
 ``alert_vals``), ``engine_down`` computed by whoever renders; with
 ``slo.ledger_dir`` the cost ledger's ``mlops_tpu_entry_*`` series, merged
-by entry. The autotuner is not ported (ROADMAP A4), nor its series.
+by entry.
+
+``autotune_lines`` is the JAX ``ServingMetrics.autotune_lines``: the
+autotuner's plane-level block (``mlops_tpu_grid_generation``, plans by
+outcome, the predicted and measured gains), byte for byte the JAX render
+of the same snapshot. On the ring plane each replica's telemetry loop
+writes its controller's snapshot into its row (``auto_vals`` /
+``auto_plans``) and the render folds the rows as the JAX ring render
+does: the grid generation is the MIN over armed replicas (it moves once
+every sibling adopted the lead's plan), plans sum, the gains are the
+lead's.
 """
 
 from __future__ import annotations
@@ -87,6 +97,22 @@ LIFE_OUTCOMES = ("promoted", "rejected", "rolled_back")
     LIFE_BREAKER_OPEN,
     LIFE_BREAKER_TRIPS,
 ) = range(8)
+# Autotune plan outcomes, in the JAX package's order: applied = a regrid
+# landed; planned = a dry-run winner persisted, not applied; rejected =
+# below min_gain_pct or already optimal; rolled_back = the operator's
+# bail-out; failed = a tick error or a promotion that raced the warm.
+AUTOTUNE_OUTCOMES = ("applied", "planned", "rejected", "rolled_back", "failed")
+# Fields of the ring's per-replica autotune row (that replica's telemetry
+# loop writes it; see RequestRing.write_autotune). Gains ride value and
+# has-flag pairs: 0.0 is a gain, not "no audit yet".
+(
+    AUTO_GRID_GEN,
+    AUTO_PRED_GAIN,
+    AUTO_HAS_PRED,
+    AUTO_MEAS_GAIN,
+    AUTO_HAS_MEAS,
+    AUTO_HAS,
+) = range(6)
 # Fields of the monitor-aggregate row (engine-process single writer).
 MON_ROWS, MON_OUTLIERS, MON_BATCHES, MON_FETCHES, MON_FETCHED_AT, MON_HAS = range(6)
 # Fields of the engine-supervision row. The engine process writes
@@ -197,6 +223,52 @@ def lifecycle_lines(snapshot: dict | None, tenant: str = DEFAULT_TENANT_LABEL) -
             f"{int(snapshot.get('breaker_trips', 0))}"
         )
     return lines
+
+
+def autotune_lines(snapshot: dict | None) -> list[str]:
+    """The autotuner's gauge block (``AutotuneController.metrics_snapshot``),
+    plane-level (no tenant label); empty until a controller runs."""
+    if not snapshot:
+        return []
+    lines = [
+        "# TYPE mlops_tpu_grid_generation gauge",
+        f"mlops_tpu_grid_generation {int(snapshot['grid_generation'])}",
+        "# TYPE mlops_tpu_autotune_plans_total counter",
+    ]
+    plans = snapshot.get("plans", {})
+    for outcome in AUTOTUNE_OUTCOMES:
+        lines.append(
+            f'mlops_tpu_autotune_plans_total{{outcome="{outcome}"}} '
+            f"{int(plans.get(outcome, 0))}"
+        )
+    # The audit pair: what the cost model promised for the last searched
+    # plan against what the post-apply ledger window measured.
+    for key, name in (("predicted_gain_pct", "mlops_tpu_autotune_predicted_gain_pct"),
+                      ("measured_gain_pct", "mlops_tpu_autotune_measured_gain_pct")):
+        value = snapshot.get(key)
+        if value is not None:
+            lines.append(f"# TYPE {name} gauge")
+            lines.append(f"{name} {float(value):.3f}")
+    return lines
+
+
+def _autotune_fold(ring) -> dict | None:
+    """The armed replicas' autotune rows folded into one snapshot, as the
+    JAX ring render folds them; None while no replica runs a controller."""
+    vals = ring.auto_vals
+    armed = [r for r in range(ring.replicas) if float(vals[r, AUTO_HAS])]
+    if not armed:
+        return None
+    lead = armed[0]  # the lowest armed replica: the one that searched
+    return {
+        "grid_generation": int(min(vals[r, AUTO_GRID_GEN] for r in armed)),
+        "plans": {outcome: int(sum(ring.auto_plans[r, i] for r in armed))
+                  for i, outcome in enumerate(AUTOTUNE_OUTCOMES)},
+        "predicted_gain_pct": (float(vals[lead, AUTO_PRED_GAIN])
+                               if vals[lead, AUTO_HAS_PRED] else None),
+        "measured_gain_pct": (float(vals[lead, AUTO_MEAS_GAIN])
+                              if vals[lead, AUTO_HAS_MEAS] else None),
+    }
 
 
 def _lifecycle_row(ring, t: int) -> dict:
@@ -390,6 +462,7 @@ def render_ring_metrics(ring) -> str:
         f"{int(ring.kernel_launches.sum())}",
     ]
     lines += observability_lines(ring)
+    lines += autotune_lines(_autotune_fold(ring))
     for t, tenant in enumerate(tenants):
         if ring.life_vals[t, LIFE_HAS]:
             # The engine process's loop state per tenant.

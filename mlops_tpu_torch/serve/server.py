@@ -12,7 +12,11 @@ SIGTERM with evidence, and ``/healthz`` answers the verdict; with
 ``slo.ledger_dir`` a ``CostLedger`` bills every dispatch. With
 ``lifecycle=`` it runs the closed lifecycle loop's controller
 (``lifecycle/controller.py``): started once warmup is done, its gauges on
-``/metrics``, drained on SIGTERM. With ``registry=`` (a
+``/metrics``, drained on SIGTERM. With ``autotune=`` (an
+``AutotuneController``, ``autotune/``) the traffic-shape autotuner runs
+beside it: started after warmup, its gauges on ``/metrics``
+(``mlops_tpu_grid_generation``, plans by outcome), stopped on drain.
+With ``registry=`` (a
 ``tenancy.TenantRegistry``) it serves a tenant fleet: one engine and one
 micro-batcher per tenant over the one executor, the dispatch and fetch
 bounds divided by the tenant count (each tenant's slice of the pool is
@@ -63,6 +67,7 @@ import logging
 import os
 import signal
 import threading
+import time
 from pathlib import Path
 from typing import Any
 
@@ -75,6 +80,7 @@ from mlops_tpu_torch.serve.metrics import (
     KNOWN_ROUTES,
     LATENCY_BUCKETS,
     SLO_BAD_STATUSES,
+    autotune_lines,
     latency_good_buckets,
     lifecycle_lines,
     robustness_lines,
@@ -105,6 +111,27 @@ class TorchProfiler:
         self.profile_dir = profile_dir
         self._prof = None
         self._lock = threading.Lock()
+
+    def prime(self) -> float:
+        """Start and stop one throwaway profile on the calling thread, no
+        trace written; returns its seconds. A process's first start
+        initializes CUPTI, which takes seconds on the card (the ring's
+        replica 0 logs them; ``chip_smoke.py`` phase 35 reports them): inside
+        a ``/debug/profile/start`` it can outlast the ring front end's 10 s
+        wait for the engine's answer, which then reads 500 while the trace
+        runs. Without a card or a ``profile_dir`` there is nothing to
+        initialize."""
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        if not self.profile_dir or not torch.cuda.is_available():
+            return 0.0
+        t0 = time.perf_counter()
+        with self._lock:
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.start()
+            prof.stop()
+        return time.perf_counter() - t0
 
     def control(self, action: str) -> tuple[int, str | None]:
         if action not in ("start", "stop") or not self.profile_dir:
@@ -171,6 +198,7 @@ class Metrics:
         self.tier_demotions = 0
         self.brownout_demotions = 0
         self.lifecycle: dict[str, dict[str, Any]] = {}
+        self.autotune: dict[str, Any] | None = None
 
     def observe_request(self, route: str, status: int, latency_ms: float = 0.0,
                         tenant: str = "default") -> None:
@@ -235,6 +263,12 @@ class Metrics:
             with self._lock:
                 self.lifecycle[tenant] = dict(snapshot)
 
+    def set_autotune(self, snapshot: dict[str, Any] | None) -> None:
+        """Install the autotune controller's snapshot for the next render."""
+        if snapshot:
+            with self._lock:
+                self.autotune = dict(snapshot)
+
     def count_tier(self, tier: str) -> None:
         with self._lock:
             self.tier_requests[tier] += 1
@@ -288,6 +322,7 @@ class Metrics:
             ]
             for tenant in sorted(self.lifecycle):
                 lines += lifecycle_lines(self.lifecycle[tenant], tenant)
+            lines += autotune_lines(self.autotune)
         lines.append("# TYPE mlops_tpu_dispatches_total counter")
         for entry, count in sorted(dispatches.items()):
             lines.append(f'mlops_tpu_dispatches_total{{entry="{entry}"}} {count}')
@@ -315,6 +350,9 @@ class HttpServer(HttpProtocol):
         # loop runs, one per tenant (a bare one is the one-tenant form):
         # ``serve`` starts them after warmup and stops them on drain.
         self.lifecycle = lifecycle
+        # The autotune controller, when armed (``serve`` starts it after
+        # warmup and stops it on drain).
+        self.autotune = None
         self.metrics = Metrics(self.tenants.names)
         # The request cap never exceeds the largest warmed bucket.
         self.max_batch = min(config.max_batch, min(e.max_bucket for e in self.engines))
@@ -545,6 +583,8 @@ class HttpServer(HttpProtocol):
         for name, controller in self._tenant_lifecycles():
             # A host dict read under the controller's leaf lock.
             self.metrics.set_lifecycle(controller.metrics_snapshot(), tenant=name)
+        if self.autotune is not None:
+            self.metrics.set_autotune(self.autotune.metrics_snapshot())
         dispatches: dict[str, int] = {}
         for engine in self.engines:
             for entry, count in engine.dispatch_counts().items():
@@ -657,14 +697,18 @@ def arm_observability(server: HttpServer, trace=None, slo=None):
 
 
 async def serve(engine: InferenceEngine, config: ServeConfig,
-                lifecycle=None, registry=None, trace=None, slo=None) -> None:
+                lifecycle=None, registry=None, trace=None, slo=None,
+                autotune=None) -> None:
     """Bind, warm up behind the socket, serve until SIGTERM, then drain.
     ``registry`` (a ``TenantRegistry``) serves its fleet, warmed tenant by
     tenant. ``lifecycle`` (a ``LifecycleController``, or one per tenant)
     starts once warmup is done and stops (its thread joined, the engine
     tee cleared, the reservoir saved) while the server drains. ``trace``
-    and ``slo`` are the config sections (``arm_observability``)."""
+    and ``slo`` are the config sections (``arm_observability``).
+    ``autotune`` (an ``AutotuneController``) starts after warmup too, and
+    stops on drain."""
     server = HttpServer(engine, config, lifecycle=lifecycle, registry=registry)
+    server.autotune = autotune
     engine = server.engine
     controllers = [c for _, c in server._tenant_lifecycles()]
     tracer, ledger = arm_observability(server, trace, slo)
@@ -693,6 +737,10 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
             if controllers:
                 logger.info("lifecycle controller started (%d tenant(s))",
                             len(controllers))
+            if autotune is not None:
+                # It measures, and regrids, the warmed grid.
+                autotune.start()
+                logger.info("autotune controller started")
         # A failed warmup (kernel build, launch, graph capture, OOM) stops
         # the server: the error is re-raised below, never left as a
         # forever-503.
@@ -728,6 +776,8 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
         for controller in controllers:
             # stop() joins the controller thread: never on the event loop.
             await loop.run_in_executor(None, controller.stop)
+        if autotune is not None:
+            await loop.run_in_executor(None, autotune.stop)
         await warm_task
         deadline = loop.time() + config.drain_deadline_s
         while server._busy and loop.time() < deadline:
@@ -747,7 +797,8 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
 
 
 def serve_forever(engine: InferenceEngine, config: ServeConfig,
-                  lifecycle=None, registry=None, trace=None, slo=None) -> None:
+                  lifecycle=None, registry=None, trace=None, slo=None,
+                  autotune=None) -> None:
     """Blocking entry point."""
     asyncio.run(serve(engine, config, lifecycle=lifecycle, registry=registry,
-                      trace=trace, slo=slo))
+                      trace=trace, slo=slo, autotune=autotune))

@@ -6,7 +6,7 @@ request up to the bucket's rows; ``group_16x1`` entries scatter a
 coalesced job into a slots x rows grid. The ratio requested/padded is
 the entry's OCCUPANCY — 1.0 means zero padding waste, and the histogram
 over it is exactly the live traffic-shape evidence the bucket/geometry
-autotuner (ROADMAP A4) needs (the learned-cost-model line,
+autotuner (``autotune/``) reads (the learned-cost-model line,
 PAPERS.md arXiv 2008.01040; goodput accounting, arXiv 2502.06982).
 
 Exported two ways:

@@ -5,14 +5,15 @@ Both loaders get one environment dict. Shared keys come out equal,
 tuples included; a malformed or unknown ``MLOPS_TPU_*`` key warns in both
 with the same text. Every key of the JAX config tree that the port has not
 ported (the JAX dataclass fields minus the port's ported ones, enumerated
-here from the two trees) is accepted at its JAX default and refused,
-naming its ROADMAP item, at any other value, whether the environment, the
-TOML or a CLI override sets it. The thirteen keys of the ring plane, its
-engine replica set, the tenant fleet and the warm start (``serve.workers``
-and its geometry, ``serve.engine_replicas``,
-``serve.replica_affinity_slack``, ``serve.tenants_path``, ``cache.dir``,
-``cache.warmup_workers``) are ported, and so are the ``trace`` and ``slo``
-sections: off their defaults, each layer gives the JAX loader's value."""
+here from the two trees: the event-loop lag sanitizer's two ``serve``
+keys) is accepted at its JAX default and refused, naming its ROADMAP
+item, at any other value, whether the environment, the TOML or a CLI
+override sets it. The thirteen keys of the ring plane, its engine replica
+set, the tenant fleet and the warm start (``serve.workers`` and its
+geometry, ``serve.engine_replicas``, ``serve.replica_affinity_slack``,
+``serve.tenants_path``, ``cache.dir``, ``cache.warmup_workers``) are
+ported, and so are the ``trace``, ``slo`` and ``autotune`` sections: off
+their defaults, each layer gives the JAX loader's value."""
 
 import dataclasses
 import warnings
@@ -66,10 +67,10 @@ def test_the_unported_keys_are_the_jax_keys_the_port_lacks():
     assert set(PORT_FIELDS) - set(JAX_FIELDS) == {"serve.device", "train.device"}
     for key in JAX_ONLY:
         assert PORT_FIELDS[key][1] == JAX_FIELDS[key][1], key  # the JAX default
-    assert {k.split(".")[0] for k in JAX_ONLY} == {"serve", "autotune"}
-    assert not [k for k, item in ITEM.items() if item == "A3"]
+    assert {k.split(".")[0] for k in JAX_ONLY} == {"serve"}
+    assert not [k for k, item in ITEM.items() if item in ("A3", "A4")]
     assert sum(k.startswith("serve.") for k in JAX_ONLY) == 2
-    assert {k for k, item in ITEM.items() if item == "A12"} == {
+    assert {k for k, item in ITEM.items() if item == "A12"} == set(JAX_ONLY) == {
         "serve.loop_lag_monitor", "serve.loop_lag_slow_ms"}
 
 
@@ -145,9 +146,11 @@ RING_AND_WARM_START = [
 # The observability layer: every key of the JAX ``trace`` and ``slo``
 # sections.
 OBSERVABILITY = sorted(k for k in JAX_FIELDS if k.split(".")[0] in ("trace", "slo"))
+# The traffic-shape autotuner: every key of the JAX ``autotune`` section.
+AUTOTUNE = sorted(k for k in JAX_FIELDS if k.split(".")[0] == "autotune")
 
 
-@pytest.mark.parametrize("key", RING_AND_WARM_START + OBSERVABILITY)
+@pytest.mark.parametrize("key", RING_AND_WARM_START + OBSERVABILITY + AUTOTUNE)
 def test_a_ported_key_matches_jax_off_its_default(key, tmp_path):
     assert key in PORTED
     section, field = key.split(".")
@@ -171,14 +174,19 @@ def test_workers_zero_and_one_are_the_single_process_server(workers):
 
 
 def test_the_cli_exits_naming_the_item(monkeypatch):
-    assert len(OBSERVABILITY) == 27
-    monkeypatch.setenv("MLOPS_TPU_AUTOTUNE_ENABLED", "true")
-    with pytest.raises(SystemExit, match="autotune.enabled=True refused: .*ROADMAP A4"):
+    """The one section left unported is A12's: its keys exit naming the
+    item. The ``autotune`` section is ported: ``serve`` takes it and stops
+    only at the JAX cross-section contract, with the JAX message."""
+    assert len(OBSERVABILITY) == 27 and len(AUTOTUNE) == 8
+    monkeypatch.setenv("MLOPS_TPU_SERVE_LOOP_LAG_MONITOR", "true")
+    with pytest.raises(SystemExit, match="serve.loop_lag_monitor=True refused: .*ROADMAP A12"):
         main(["serve", "serve.device=cpu"])
-    monkeypatch.delenv("MLOPS_TPU_AUTOTUNE_ENABLED")
+    monkeypatch.delenv("MLOPS_TPU_SERVE_LOOP_LAG_MONITOR")
+    monkeypatch.setenv("MLOPS_TPU_AUTOTUNE_ENABLED", "true")
     monkeypatch.setenv("MLOPS_TPU_AUTOTUNE_PLAN_DIR", "elsewhere")
-    with pytest.raises(SystemExit, match="autotune.plan_dir='elsewhere' refused: .*ROADMAP A4"):
-        main(["versions"])
+    with pytest.raises(SystemExit, match="^autotune.enabled requires trace.enabled"):
+        main(["serve", "serve.device=cpu"])
+    assert load_config().autotune.plan_dir == jax_load_config().autotune.plan_dir == "elsewhere"
 
 
 def test_the_environment_reaches_the_port_by_default(monkeypatch):

@@ -7,8 +7,8 @@ package's, on the CPU:
   subprocess of either package with the same trace, and a broken plan
   fails loudly in both; disarmed, a point is a no-op;
 - by AST scan, every point in the port's ``POINTS`` is compiled in, and
-  every JAX point is either ported or named in ``UNPORTED_POINTS`` with
-  its ROADMAP item;
+  every JAX point is ported (``UNPORTED_POINTS`` is empty) and
+  ``autotune.regrid.midswap`` fires in the port's ``apply_plan``;
 - the engine's dispatch points count hits as the JAX engine's do;
 - torn writes: a kill at ``lifecycle.reservoir.midwrite``,
   ``io.atomic_write.midwrite`` or ``compilecache.persist.midwrite`` in a
@@ -219,10 +219,11 @@ def test_every_listed_point_is_compiled_into_the_port():
 @pytest.mark.parametrize("point", sorted(JAX_POINTS))
 def test_every_jax_point_is_ported_or_queued(point):
     assert point in _compiled_points(ROOT / "mlops_tpu")
-    assert (point in POINTS) != (point in UNPORTED_POINTS)
-    if point in UNPORTED_POINTS:
-        assert "A4" in UNPORTED_POINTS[point]
-        assert point not in _compiled_points(ROOT / "mlops_tpu_torch")
+    assert point in POINTS and UNPORTED_POINTS == {}
+    assert point in _compiled_points(ROOT / "mlops_tpu_torch")
+    if point == "autotune.regrid.midswap":
+        assert _compiled_points(ROOT / "mlops_tpu_torch")[point] == {
+            "mlops_tpu_torch/autotune/apply.py"}
 
 
 def test_the_port_adds_no_point_of_its_own():

@@ -1202,7 +1202,7 @@ def test_the_deployed_job_on_a_bucket_tunes_and_serves_on_the_card():
     assert out["requests_answered"] == 4
     assert out["max_pred_gap_to_cpu"] <= chip_smoke.EXACT_PRED_ATOL + 1e-6
     assert out["ring_max_pred_gap_to_cpu"] <= chip_smoke.EXACT_PRED_ATOL + 1e-6
-    assert set(out["refusals"]) == {"MLOPS_TPU_AUTOTUNE_ENABLED"}
+    assert set(out["refusals"]) == {"MLOPS_TPU_SERVE_LOOP_LAG_MONITOR"}
 
 
 # ------------------------------------------------------------ the ring plane
@@ -1567,3 +1567,71 @@ def test_the_profile_trace_names_quant_fused_or_its_graph(fleet_dirs, tmp_path):
     kernels = sum("quant_fused_kernel" in n for n in names)
     launches = sum(n == "cudaGraphLaunch" for n in names)
     assert kernels >= 5 or launches >= 5, (kernels, launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tier_routing", [False, True])
+def test_a_regrid_on_the_card_captures_only_the_new_buckets(card_state, fleet_dirs,
+                                                            monkeypatch, tier_routing):
+    """A hot regrid (1, 4, 8, 64) -> (1, 2, 3, 8, 64) on the quant tier (and
+    the exact tier beside it with routing): the warm captures one graph
+    per new bucket and tier, nothing is captured at a dispatch, a request
+    whose bucket came from the old grid replays its old graph after the
+    exchange, every quant answer is bitwise the pre-regrid one, and the
+    rollback captures nothing."""
+    from mlops_tpu_torch.autotune import apply_plan
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    _, _, ds, _ = card_state
+    engine = InferenceEngine(load_bundle(fleet_dirs[0]), buckets=(1, 4, 8, 64),
+                             serve_tier="quant", tier_routing=tier_routing)
+    engine.warmup()
+    captures = []
+    capture = engine._capture
+    monkeypatch.setattr(engine, "_capture", lambda *a: captures.append(a[1:]) or capture(*a))
+    requests = [(ds.cat_ids[i:i + n], ds.numeric[i:i + n]) for i, n in
+                ((0, 2), (10, 3), (20, 4), (30, 40))]
+    want = [engine.fetch_arrays_raw(engine.dispatch_arrays(*r)) for r in requests]
+    assert apply_plan(engine, (1, 2, 3, 8, 64)) == 2
+    tiers = engine.available_tiers
+    assert sorted(captures) == sorted((t, (b,)) for t in tiers for b in (2, 3))
+    assert engine.swap_stats["graphs"] == 2 * len(tiers)
+    assert engine.swap_stats["graph_pool_bytes"] >= 0
+    captures.clear()
+    got = [engine.fetch_arrays_raw(engine.dispatch_arrays(*r)) for r in requests]
+    handle = engine.dispatch_arrays(*requests[1])
+    assert handle.rows == 3
+    engine.fetch_arrays_raw(handle)
+    engine._bucket_for = lambda n: 4  # a stale read of the old grid
+    raced = engine.fetch_arrays_raw(engine.dispatch_arrays(*requests[1]))
+    del engine._bucket_for
+    engine.rollback()
+    rolled = [engine.fetch_arrays_raw(engine.dispatch_arrays(*r)) for r in requests]
+    assert captures == [] and engine.grid_generation == 3
+    for answers in (got, rolled):
+        for w, g in zip(want, answers):
+            for a, b in zip(w, g):
+                assert np.array_equal(_bits(a), _bits(b))
+    for a, b in zip(want[1], raced):
+        assert np.array_equal(_bits(a), _bits(b))
+    counts = engine.dispatch_counts()
+    assert counts["bucket_2"] == 1 and counts["bucket_3"] == 2 and counts["bucket_4"] == 7
+
+
+@pytest.mark.gpu
+def test_a_primed_profiler_starts_at_once(card_state, tmp_path):
+    """After ``prime`` (CUPTI initialized on this thread) a start answers in
+    well under the ring front end's 10 s wait, and the trace lands on stop."""
+    import time
+
+    from mlops_tpu_torch.serve.server import TorchProfiler
+
+    profiler = TorchProfiler(str(tmp_path))
+    assert profiler.prime() > 0.0
+    t0 = time.perf_counter()
+    assert profiler.control("start") == (200, None)
+    assert time.perf_counter() - t0 < 1.0
+    torch.ones(8, device="cuda").sum().item()
+    assert profiler.control("stop") == (200, None)
+    assert list(tmp_path.glob("*.pt.trace.json"))

@@ -49,7 +49,8 @@ def test_importing_every_submodule_loads_no_jax_and_no_reference_package():
                  "replicaset.router", "tenancy.config", "tenancy.quota",
                  "tenancy.router", "tenancy.registry", "trace.span", "trace.recorder",
                  "trace.shapes", "trace.report", "slo.engine", "slo.ledger",
-                 "slo.flightrec"):
+                 "slo.flightrec", "autotune", "autotune.costmodel", "autotune.search",
+                 "autotune.apply"):
         assert f"mlops_tpu_torch.{name}" in names
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -87,6 +88,31 @@ def test_trace_and_slo_load_no_torch():
                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_autotuner_and_its_command_load_no_torch(tmp_path):
+    """``costmodel.py`` and ``search.py`` are torch-free like ``slo/`` and
+    ``trace/``, and so is the offline ``autotune`` command end to end
+    (the ledger in, a plan out)."""
+    code = (
+        "import json, sys\n"
+        "import mlops_tpu_torch.autotune.costmodel, mlops_tpu_torch.autotune.search\n"
+        "import mlops_tpu_torch.autotune\n"
+        "from mlops_tpu_torch.slo import CostLedger\n"
+        "from mlops_tpu_torch.cli import main\n"
+        f"ledger = CostLedger({str(tmp_path)!r})\n"
+        "ledger.observe('bucket_8', 'abc', 3, 8, 0.002)\n"
+        "ledger.close()\n"
+        f"rc = main(['autotune', 'slo.ledger_dir={tmp_path}'])\n"
+        "print(json.dumps([rc, sorted(m for m in sys.modules if m.split('.')[0] == 'torch')]))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)
+    assert out.returncode == 0, out.stderr
+    plan = json.loads(out.stdout.strip().splitlines()[-2])
+    rc, loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rc in (0, 3) and plan["buckets"][-1] == 256
+    assert loaded == []
 
 
 @pytest.mark.parametrize(

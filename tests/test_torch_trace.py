@@ -381,3 +381,17 @@ def test_the_ring_plane_stitches_every_span(bundle_dir, tmp_path):
     assert "mlops_tpu_trace_dropped_total 0" in text
     assert 'mlops_tpu_shape_occupancy_bucket{entry="bucket_1",le="+Inf"}' in text
     assert requested == rows
+
+
+def test_priming_the_profiler_needs_a_card_and_a_dir(tmp_path):
+    """``TorchProfiler.prime`` initializes CUPTI ahead of the first
+    ``/debug/profile/start`` on the card; without a card or a profile
+    directory it does nothing and writes nothing."""
+    import torch
+
+    from mlops_tpu_torch.serve.server import TorchProfiler
+
+    assert TorchProfiler("").prime() == 0.0
+    if not torch.cuda.is_available():
+        assert TorchProfiler(str(tmp_path / "profile")).prime() == 0.0
+        assert not (tmp_path / "profile").exists()
