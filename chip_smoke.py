@@ -385,13 +385,35 @@ Phases, each of which fails the run loudly:
     ``autotune.regrid.midswap`` in a subprocess, then a fresh process on
     the same bundle and cache: the old grid, the regrid and its rollback,
     the probe bitwise each time.
+37. the gbm tier (the sklearn floor's HistGBM ensemble as a tensor
+    program) at the job's full width: the trees of
+    ``tests/fixtures/torch_gbm/job_gbm.npz`` (``configs/train_register_job.toml``
+    with ``model.family=gbm``: 75 trees of 61 nodes, depth 8, written by
+    ``scripts/torch_gbm_fixture.py``) in a bundle built here with the
+    preprocessor and monitor the port fits from its synthetic data at the
+    job's seed, without scikit-learn or joblib (``sys.modules`` holds
+    neither at the end). The engine on the card (f64 tree tensors and
+    temperature, one CUDA graph per bucket and group geometry) on the
+    fixture's 2,048 validation rows at buckets 1, 8, 64, 256 and groups
+    64x1 and 64x8: predictions bitwise equal to scikit-learn's recorded
+    tempered probabilities, flags exact and drift within 1e-5 of the
+    port's CPU route, counts and K-S exact, the accumulators' counters
+    exact; every dispatch a graph replay (``gbm_graph_replays`` set to 0
+    before, equal to the dispatches after). Device us per replay by CUDA
+    events and kernels per replay by ``torch.profiler`` at 1x1, 1x256,
+    64x1 and 64x8, dispatch -> fetch p50, tree-tensor and graph-pool
+    bytes; then ``serve`` on the bundle with the image's environment,
+    single-process and on the ring plane (``MLOPS_TPU_SERVE_WORKERS=2``):
+    single-record requests at 16 and 64 connections, every answer 200 and
+    equal to the engine's (predictions and flags bitwise, drift within
+    1e-5), requests/s; SIGTERM, both planes exit 0.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
 
 Phases 1-15 run alone, so every kernel time of the kernels line is taken
 on an otherwise idle card. Once the bundles of phases 16 and 22 are
-written, phases 29-36 (the serving planes) run in a second process of
+written, phases 29-37 (the serving planes) run in a second process of
 this script (``--ring-phases``) beside phases 16-28 in this one: each
 side counts its kernel launches in its own process, and the two share
 the card and the host's cores, which their requests/s and step times
@@ -6805,6 +6827,237 @@ def _pyarrow_version() -> str | None:
     return pyarrow.__version__
 
 
+# ----------------------------------------------------------------- phase 37
+GBM_SOLO = (1, 8, 64, 256)  # buckets; each request fills 3/4 of its bucket (1 row at 1)
+GBM_SOLO_ROWS = {1: 256, 8: 768}  # fixture rows sent at the small buckets (else all)
+GBM_GROUPS = ((64, 1), (64, 8))
+GBM_TIMED = ((1, 1), (1, 256), (64, 1), (64, 8))
+GBM_REPLAYS = 200  # graph replays between two events, per timed geometry
+GBM_PROFILED = 20  # replays under torch.profiler, per timed geometry
+GBM_REQUESTS = 300  # single-record requests per plane and concurrency
+GBM_CONCURRENCY = (16, 64)
+
+
+def _gbm_fixture_module():
+    """``scripts/torch_gbm_fixture.py`` as a module (the fixture's reader
+    and bundle builder; numpy and the port only)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_gbm_fixture", ROOT / "scripts" / "torch_gbm_fixture.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _gbm_drive(engine, s: int, b: int, cat, num):
+    """The fixture rows through ``engine`` at one geometry: solo requests
+    of 3/4 of bucket ``b`` (one row at 1), or groups of ``s`` requests of
+    ``b`` rows. Returns the predictions in row order and each request's
+    (outliers, drift)."""
+    import numpy as np
+
+    preds, monitors = [], []
+    if s == 1:
+        step = max(1, b - b // 4)
+        for lo in range(0, len(cat), step):
+            p, o, d = engine.fetch_arrays_raw(
+                engine.dispatch_arrays(cat[lo:lo + step], num[lo:lo + step]))
+            preds.append(p)
+            monitors.append((o, d))
+    else:
+        for lo in range(0, len(cat), s * b):
+            parts = [(cat[i:i + b], num[i:i + b])
+                     for i in range(lo, min(lo + s * b, len(cat)), b)]
+            sizes, p, o, d = engine.fetch_group_raw(engine.dispatch_group_arrays(parts))
+            for i, n in enumerate(sizes):
+                preds.append(p[i, :n])
+                monitors.append((o[i, :n], d[i]))
+    return np.concatenate(preds), monitors
+
+
+def _gbm_plane_burst(port: int, bodies: list, wants: list, concurrency: int,
+                     what: str) -> dict:
+    """``bodies`` at ``concurrency`` connections: every answer 200 and the
+    engine's (predictions and flags bitwise, drift within 1e-5);
+    requests/s and latency percentiles."""
+    import numpy as np
+
+    out, lat, wall = _run_burst(port, {"bodies": bodies, "headers": [""] * len(bodies)},
+                                concurrency)
+    drift_bitwise = 0
+    for i, (status, payload) in enumerate(out):
+        check(status == 200, f"{what}: request {i} answered {status}: {payload[:200]}")
+        got, want = json.loads(payload), wants[i]
+        check(got["predictions"] == want["predictions"] and got["outliers"] == want["outliers"],
+              f"{what}: request {i} differs from the engine: {got} vs {want}")
+        err = max(abs(got["feature_drift_batch"][k] - v)
+                  for k, v in want["feature_drift_batch"].items())
+        check(err <= DRIFT_ATOL + 1e-6, f"{what}: request {i} drift off by {err:.3g}")
+        drift_bitwise += got["feature_drift_batch"] == want["feature_drift_batch"]
+    return {"requests": len(bodies), "concurrency": concurrency,
+            "requests_per_s": len(bodies) / wall,
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "drift_bitwise": drift_bitwise}
+
+
+def phase_gbm(device: str = "cuda") -> dict:
+    """Phase 37: the gbm tier on the card at the job's full width (see the
+    module docstring)."""
+    import numpy as np
+    import torch
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.monitor.state import init_accumulator
+    from mlops_tpu_torch.ops.gbm_tensor import gbm_graph_replays, gbm_tensor_bytes
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    fixture_module = _gbm_fixture_module()
+    root = WORK / "gbm"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    bundle_dir = fixture_module.fixture_bundle(root / "bundle")
+    fixture = fixture_module.read_fixture()
+    bundle = load_bundle(bundle_dir)
+    check(bundle.estimator is None and bundle.gbm_tensor is not None,
+          "the fixture bundle must serve from its tree file alone")
+    geometry = bundle.gbm_tensor[1]
+    card = InferenceEngine(bundle, device=device)
+    card.warmup()
+    cpu = InferenceEngine(load_bundle(bundle_dir), device="cpu")
+    cpu.warmup()
+    tier = card._tiers["gbm"]
+    graphs = device == "cuda"  # the CPU route (a dry run off the card) runs eagerly
+    check(all(t.device.type == device for t in tier.params.values())
+          and tier.params["value"].dtype == tier.params["threshold"].dtype == torch.float64
+          and tier.temperature.dtype == torch.float64,
+          f"the gbm tier's tree tensors and temperature must be f64 on {device}")
+    check(card.warmup_stats["programs"] == 16 and (
+        not graphs or card.warmup_stats["route"] == "cuda_graphs" and len(card._graphs) == 16),
+        f"gbm warmup: {card.warmup_stats}")
+    build_s = time.perf_counter() - t0
+    log_timing("gbm bundle and warmup", {"s": build_s, **card.warmup_stats,
+                                         "geometry": dataclasses.asdict(geometry),
+                                         "temperature": bundle.temperature})
+
+    cat, num, probs = fixture["cat_ids"], fixture["numeric"], fixture["probs"]
+    gbm_graph_replays.reset()
+    before = sum(card.dispatch_counts().values())
+    parity = []
+    for s, b in [(1, b) for b in GBM_SOLO] + list(GBM_GROUPS):
+        rows = GBM_SOLO_ROWS.get(b, len(cat)) if s == 1 else len(cat)
+        got, got_mon = _gbm_drive(card, s, b, cat[:rows], num[:rows])
+        want, want_mon = _gbm_drive(cpu, s, b, cat[:rows], num[:rows])
+        mismatched = int((got.astype(np.float32) != probs[:rows]).sum())
+        cpu_mismatched = int((want.astype(np.float32) != probs[:rows]).sum())
+        flag_diff = sum(int((o1 != o2).sum()) for (o1, _), (o2, _) in zip(got_mon, want_mon))
+        drift_err = max(float(np.abs(d1 - d2).max()) for (_, d1), (_, d2) in zip(got_mon, want_mon))
+        inputs = _inputs(bundle.preprocessor, s, b, 3700 + s + b, "cpu")
+        if s == 1:
+            inputs = tuple(t[0] for t in inputs)
+        stats = [_monitor_statistics(mon, *(t.to(mon.out_mean.device) for t in inputs))
+                 for mon in (card._monitor, cpu._monitor)]
+        stats_exact = all(torch.equal(x.cpu(), y) for x, y in zip(*stats))
+        row = {"geometry": f"{s}x{b}", "rows": rows, "requests": len(got_mon),
+               "pred_mismatches": mismatched, "cpu_pred_mismatches": cpu_mismatched,
+               "flag_mismatches": flag_diff, "drift_err": drift_err,
+               "counts_ks_exact": stats_exact}
+        log_timing("gbm parity", row)
+        check(mismatched == 0 and cpu_mismatched == 0,
+              f"gbm {s}x{b}: {mismatched} card / {cpu_mismatched} CPU predictions differ "
+              "from scikit-learn's recorded probabilities")
+        check(flag_diff == 0 and drift_err <= DRIFT_ATOL and stats_exact,
+              f"gbm {s}x{b}: the card's monitors disagree with the CPU route: {row}")
+        parity.append(row)
+    dispatches = sum(card.dispatch_counts().values()) - before
+    replays = gbm_graph_replays.value
+    check(dispatches > 0 and replays == (dispatches if graphs else 0),
+          f"gbm: {replays} graph replays for {dispatches} dispatches")
+    snap_card, snap_cpu = card.monitor_snapshot(), cpu.monitor_snapshot()
+    check(all(snap_card[k] == snap_cpu[k] for k in ("rows", "outliers", "batches"))
+          and np.abs(np.asarray(snap_card["drift_sum"]) - snap_cpu["drift_sum"]).max()
+          <= DRIFT_ATOL * snap_card["batches"],
+          f"gbm accumulators: card {snap_card} vs CPU {snap_cpu}")
+    log(f"gbm: {dispatches} dispatches, {replays} graph replays, accumulators agree "
+        f"({snap_card['rows']:.0f} rows, {snap_card['batches']:.0f} batches)")
+
+    timing = []
+    for s, b in GBM_TIMED if graphs else ():
+        graph = card._graphs["gbm", (b,) if s == 1 else (s, b)]
+        with torch.cuda.stream(card._stream):
+            us = _event_ms(graph.replay, GBM_REPLAYS) * 1e3
+            profile = _route_profile(graph.replay, GBM_PROFILED)
+        row = {"geometry": f"{s}x{b}", "device_us_per_replay": us,
+               "kernels_per_replay": profile["device_ops"],
+               "device_busy_share": profile["device_busy_share"],
+               "dispatch_fetch_ms_p50": _dispatch_fetch_p50(
+                   card, bundle.preprocessor, s, b, 3800 + s + b)}
+        log_timing("gbm timing", row)
+        timing.append(row)
+    card.monitor_snapshot()  # the timed replays' folds, off the record
+
+    # The planes: the image's environment, single-process and ring.
+    records = _records(GBM_REQUESTS, 3900, drift=0.3)
+    bodies = [json.dumps([r]).encode() for r in records]
+    wants = [card.predict_records([r]) for r in records]
+    base_env = dict(os.environ, PYTHONPATH=str(ROOT))
+    planes, served = {}, []
+    try:
+        for mode, workers in (("ring", RING_WORKERS), ("single", 0)):
+            port = _free_port()
+            log_path = root / f"serve_{mode}.log"
+            out = open(log_path, "wb")
+            planes[mode] = (port, out, subprocess.Popen(
+                _cli(["serve"]), cwd=ROOT, stdout=out, stderr=subprocess.STDOUT,
+                env={**base_env, **_image_env(bundle_dir, root / "cache", port, workers,
+                                              device)}), log_path)
+        for mode, (port, _, proc, log_path) in planes.items():
+            _wait_ready(port, proc, f"gbm {mode} plane")
+            before = _scrape(port)
+            for concurrency in GBM_CONCURRENCY:
+                row = {"plane": mode, **_gbm_plane_burst(
+                    port, bodies, wants, concurrency, f"gbm {mode} plane")}
+                log_timing("gbm serve", row)
+                served.append(row)
+            _await_rows(port, before, len(bodies) * len(GBM_CONCURRENCY), f"gbm {mode} plane")
+        check("tiers=gbm" in planes["ring"][3].read_text(errors="replace"),
+              "the ring engine does not serve the gbm tier")
+    finally:
+        for mode, (port, out, proc, log_path) in planes.items():
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                code = proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                code = proc.wait(timeout=30)
+            out.close()
+            check(code == 0, f"gbm {mode} plane exited {code}: "
+                  f"{log_path.read_text(errors='replace')[-2000:]}")
+    loaded = sorted(m for m, mod in sys.modules.items()
+                    if m.split(".")[0] in ("sklearn", "joblib") and mod is not None)
+    check(not loaded, f"phase 37 loaded {loaded}")
+    result = {
+        "fixture": {"n_trees": geometry.n_trees, "max_nodes": geometry.max_nodes,
+                    "depth": geometry.depth, "rows": int(len(probs)),
+                    "sklearn_version": str(fixture["sklearn_version"]),
+                    "temperature": bundle.temperature},
+        "parity": parity,
+        "dispatches": dispatches,
+        "replays": replays,
+        "timing": timing,
+        "serve": served,
+        "tree_tensor_bytes": gbm_tensor_bytes(tier.params),
+        "graph_pool_bytes": card.warmup_stats.get("graph_pool_bytes"),
+        "capture_s": card.warmup_stats.get("capture_s"),
+        "sklearn_loaded": loaded,
+    }
+    log_timing("gbm bytes", {k: result[k] for k in ("tree_tensor_bytes", "graph_pool_bytes",
+                                                    "capture_s")})
+    return result
+
+
 RING_PHASES_FLAG = "--ring-phases"
 
 
@@ -6820,8 +7073,9 @@ def _setup() -> None:
 
 
 def _ring_phases(burst_dir: Path, exact_dirs: dict) -> dict:
-    """Phases 29-36, in order: each needs only the bundles of phases 16
-    and 22 and the card, and writes under its own work directory."""
+    """Phases 29-37, in order: each needs only the bundles of phases 16
+    and 22 (phase 37 its fixture) and the card, and writes under its own
+    work directory."""
     return {
         "ring": timed(phase_ring, burst_dir),
         "lifecycle": timed(phase_lifecycle, burst_dir),
@@ -6831,6 +7085,7 @@ def _ring_phases(burst_dir: Path, exact_dirs: dict) -> dict:
         "tenants": timed(phase_tenants, burst_dir, exact_dirs),
         "observability": timed(phase_observability, burst_dir),
         "autotune": timed(phase_autotune, burst_dir),
+        "gbm": timed(phase_gbm),
     }
 
 
@@ -6839,7 +7094,7 @@ def _stop_on_sigterm(signum, frame):
 
 
 def ring_phases_main(spec_path: str, out_path: str) -> int:
-    """The second process: phases 29-36 on the bundles ``spec_path``
+    """The second process: phases 29-37 on the bundles ``spec_path``
     names; their results go to ``out_path`` as JSON. SIGTERM fails the
     phase under way, so its planes are stopped on the way out."""
     signal.signal(signal.SIGTERM, _stop_on_sigterm)
@@ -6850,14 +7105,14 @@ def ring_phases_main(spec_path: str, out_path: str) -> int:
         results = _ring_phases(Path(spec["burst_dir"]),
                                {k: Path(v) for k, v in spec["exact_dirs"].items()})
     except SmokeFailure as err:
-        print(f"chip_smoke FAILED (phases 29-36): {err}", file=sys.stderr, flush=True)
+        print(f"chip_smoke FAILED (phases 29-37): {err}", file=sys.stderr, flush=True)
         return 1
     Path(out_path).write_text(json.dumps(results, default=str))
     return 0
 
 
 class _RingSide:
-    """Phases 29-36 in a second process of this script, started beside
+    """Phases 29-37 in a second process of this script, started beside
     phases 16-28; ``join`` returns their results, ``check`` fails the run
     as soon as that process failed, ``stop`` ends it and its planes."""
 
@@ -6870,17 +7125,17 @@ class _RingSide:
         self.proc = subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), RING_PHASES_FLAG,
              str(spec), str(self.out)], cwd=ROOT)
-        log(f"phases 29-36 started in process {self.proc.pid}")
+        log(f"phases 29-37 started in process {self.proc.pid}")
 
     def check(self) -> None:
         code = self.proc.poll()
-        check(code in (None, 0), f"phases 29-36 failed (exit {code}; see above)")
+        check(code in (None, 0), f"phases 29-37 failed (exit {code}; see above)")
 
     def join(self) -> dict:
         t0 = time.perf_counter()
         code = self.proc.wait()
-        log(f"waited {time.perf_counter() - t0:.1f} s for phases 29-36")
-        check(code == 0, f"phases 29-36 failed (exit {code}; see above)")
+        log(f"waited {time.perf_counter() - t0:.1f} s for phases 29-37")
+        check(code == 0, f"phases 29-37 failed (exit {code}; see above)")
         return json.loads(self.out.read_text())
 
     def stop(self) -> None:
@@ -6952,9 +7207,9 @@ def main() -> int:
     finally:
         if side is not None:
             side.stop()
-    ring, lifecycle, ring_lifecycle, chaos, replicas, tenants, observability, autotune = (
+    ring, lifecycle, ring_lifecycle, chaos, replicas, tenants, observability, autotune, gbm = (
         ring_side[k] for k in ("ring", "lifecycle", "ring_lifecycle", "chaos", "replicas",
-                               "tenants", "observability", "autotune"))
+                               "tenants", "observability", "autotune", "gbm"))
     import torch
 
     from mlops_tpu_torch.ops import attention
@@ -7058,6 +7313,10 @@ def main() -> int:
                                   for d, row in c1_train.items()},
             **bwd_common,
         }],
+        # The gbm tier runs no hand-written kernel (its JAX program is jnp):
+        # its count is the graph replays of its dispatches in phase 37.
+        "gbm_graph_replays": gbm["replays"],
+        "gbm_tier": {k: v for k, v in gbm.items() if k != "replays"},
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
         "serving": {"dispatch_routes": routes, "burst": burst, "ring": ring},
         "lifecycle": {k: v for k, v in lifecycle.items() if k != "launches"},

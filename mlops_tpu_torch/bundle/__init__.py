@@ -1,5 +1,5 @@
-"""Bundle directories (the exact and quant tiers of the flax flavor, and
-the doc flavor).
+"""Bundle directories (the exact and quant tiers of the flax flavor, the
+doc flavor and the sklearn flavor).
 
 The loaders import torch, so they load on first use: the ring plane's
 supervisor and front ends resolve a bundle through ``bundle.registry``
@@ -11,6 +11,7 @@ __all__ = [
     "save_doc_bundle",
     "save_exact_bundle",
     "save_quant_bundle",
+    "save_sklearn_bundle",
 ]
 
 

@@ -19,7 +19,14 @@ A bundle is one directory: ``manifest.json``, ``preprocess.npz``,
   ``train.distill_quant=true`` carries it beside the exact tier;
 - the ``doc`` flavor (the long-context document model): ``params.msgpack``
   and the manifest's ``model_config``, from which the dense doc model is
-  built.
+  built;
+- the ``sklearn`` flavor (the gbm and rf tree-ensemble floor): the JAX
+  package's ``estimator.joblib`` and, for a HistGBM ensemble, the port's
+  tree file ``gbm_tensor.npz`` (``ops/gbm_tensor.py``), which numpy alone
+  reads. The JAX loader ignores the extra file, so these bundles cross in
+  both directions; a gbm bundle without the tree file (a JAX-written one)
+  is extracted from its estimator at load. Where scikit-learn or joblib
+  does not import (the card's machine) the tree file serves alone.
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from mlops_tpu_torch.ops.quant import (
 from mlops_tpu_torch.schema.features import SCHEMA
 
 MANIFEST_NAME = "manifest.json"
+ESTIMATOR_NAME = "estimator.joblib"
+GBM_TENSOR_NAME = "gbm_tensor.npz"
 PARAMS_NAME = "params.msgpack"
 BULK_PARAMS_NAME = "bulk_params.msgpack"
 QUANT_PARAMS_NAME = "quant_params.npz"
@@ -66,6 +75,12 @@ class Bundle:
     model: torch.nn.Module | None = None
     exact_refusal: str = ""  # why a flax bundle loaded without its exact tier
     bulk_model: torch.nn.Module | None = None  # the distilled bulk student
+    # sklearn flavor: the fitted ensemble (``models.gbm.SklearnBaseline``;
+    # None where scikit-learn does not import) and, for a HistGBM one, its
+    # tree arrays and geometry (``ops/gbm_tensor.py``), which the gbm tier
+    # serves.
+    estimator: Any = None
+    gbm_tensor: tuple[dict[str, np.ndarray], Any] | None = None
 
     @property
     def has_bulk(self) -> bool:
@@ -185,6 +200,48 @@ def _load_exact_model(
     return _load_weights(model, directory, PARAMS_NAME, config.family), ""
 
 
+def _sklearn_imports() -> bool:
+    """scikit-learn and joblib both import here."""
+    try:
+        import joblib  # noqa: F401
+        import sklearn  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def _load_sklearn(directory: Path) -> tuple[Any, Any]:
+    """An sklearn bundle's ``(estimator, gbm_tensor)``: the estimator where
+    scikit-learn and joblib import, the tree file where the bundle has one
+    (else extracted from a tensorizable estimator). Raises when neither
+    can be had."""
+    from mlops_tpu_torch.models.gbm import SklearnBaseline
+    from mlops_tpu_torch.ops.gbm_tensor import (
+        extract_gbm,
+        load_gbm_tensor,
+        supports_gbm_tensorization,
+    )
+
+    estimator = None
+    if (directory / ESTIMATOR_NAME).exists() and _sklearn_imports():
+        estimator = SklearnBaseline.load(directory / ESTIMATOR_NAME)
+    if (directory / GBM_TENSOR_NAME).exists():
+        return estimator, load_gbm_tensor(directory / GBM_TENSOR_NAME)
+    if estimator is not None:
+        tensor = extract_gbm(estimator) if supports_gbm_tensorization(estimator) else None
+        return estimator, tensor
+    if (directory / ESTIMATOR_NAME).exists():
+        raise ValueError(
+            f"bundle {directory} is an sklearn bundle without {GBM_TENSOR_NAME}: "
+            f"its {ESTIMATOR_NAME} needs scikit-learn and joblib, which do not "
+            "import here"
+        )
+    raise ValueError(
+        f"bundle {directory} is an sklearn bundle with neither {ESTIMATOR_NAME} "
+        f"nor {GBM_TENSOR_NAME}"
+    )
+
+
 def load_bundle(directory: str | Path) -> Bundle:
     """Load a bundle directory. Refuses a schema fingerprint other than
     this package's, a quant blob in a foreign packing format and a param
@@ -200,7 +257,10 @@ def load_bundle(directory: str | Path) -> Bundle:
     preprocessor = Preprocessor.load(directory / PREPROCESS_NAME)
     monitor = MonitorState.load(directory / MONITOR_NAME)
     model, exact_refusal = None, ""
-    if manifest.get("flavor") == "doc":
+    estimator = gbm_tensor = None
+    if manifest.get("flavor") == "sklearn":
+        estimator, gbm_tensor = _load_sklearn(directory)
+    elif manifest.get("flavor") == "doc":
         model = _load_doc_model(directory, manifest)
     elif manifest.get("flavor", "flax") == "flax":
         model, exact_refusal = _load_exact_model(directory, manifest)
@@ -233,15 +293,29 @@ def load_bundle(directory: str | Path) -> Bundle:
         model=model,
         exact_refusal=exact_refusal,
         bulk_model=bulk_model,
+        estimator=estimator,
+        gbm_tensor=gbm_tensor,
     )
 
 
-def _framework() -> dict[str, str]:
-    return {
+def _framework(flavor: str = "flax") -> dict[str, str]:
+    """The runtime versions the bundle's behaviour depends on; an sklearn
+    bundle pins scikit-learn and joblib too, as the JAX package does,
+    where they are installed."""
+    import importlib.metadata
+
+    pins = {
         "mlops_tpu_torch": __version__,
         "torch": torch.__version__,
         "numpy": np.__version__,
     }
+    if flavor == "sklearn":
+        for package in ("scikit-learn", "joblib"):
+            try:
+                pins[package] = importlib.metadata.version(package)
+            except importlib.metadata.PackageNotFoundError:
+                pass  # not installed here: nothing to pin
+    return pins
 
 
 def save_quant_bundle(
@@ -378,6 +452,56 @@ def save_doc_bundle(
     }
     params = {k: v.detach().cpu().float() for k, v in model.state_dict().items()}
     (directory / PARAMS_NAME).write_bytes(msgpack.packb(unflatten_tree(params)))
+    preprocessor.save(directory / PREPROCESS_NAME)
+    monitor.save(directory / MONITOR_NAME)
+    (directory / MANIFEST_NAME).write_text(json.dumps(manifest, indent=2))
+    return directory
+
+
+def save_sklearn_bundle(
+    directory: str | Path,
+    model_config: ModelConfig,
+    preprocessor: Preprocessor,
+    monitor: MonitorState,
+    estimator: Any = None,
+    gbm_tensor: tuple[dict[str, np.ndarray], Any] | None = None,
+    calibration: dict[str, float] | None = None,
+    tags: dict[str, str] | None = None,
+    metrics: dict[str, float] | None = None,
+) -> Path:
+    """Write an ``sklearn`` bundle: the manifest (the JAX ``save_bundle``'s
+    keys), ``estimator.joblib`` as the JAX package writes it when
+    ``estimator`` (a ``SklearnBaseline``) is given, the tree file for a
+    HistGBM ensemble (``gbm_tensor``, else extracted from a tensorizable
+    estimator) and the two npz files. A bundle with the tree file alone
+    serves the gbm tier without scikit-learn; only the port loads it."""
+    from mlops_tpu_torch.ops.gbm_tensor import (
+        extract_gbm,
+        save_gbm_tensor,
+        supports_gbm_tensorization,
+    )
+
+    if estimator is None and gbm_tensor is None:
+        raise ValueError("an sklearn bundle needs an estimator or gbm tree arrays")
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    manifest = {
+        "format_version": 1,
+        "flavor": "sklearn",
+        "framework": _framework("sklearn"),
+        "created_at": datetime.datetime.now(datetime.timezone.utc).isoformat(),
+        "schema_fingerprint": SCHEMA.fingerprint(),
+        "model_config": dataclasses.asdict(model_config),
+        "metrics": metrics or {},
+        "tags": tags or {},
+        "calibration": calibration or {},
+    }
+    if estimator is not None:
+        estimator.save(directory / ESTIMATOR_NAME)
+        if gbm_tensor is None and supports_gbm_tensorization(estimator):
+            gbm_tensor = extract_gbm(estimator)
+    if gbm_tensor is not None:
+        save_gbm_tensor(directory / GBM_TENSOR_NAME, *gbm_tensor)
     preprocessor.save(directory / PREPROCESS_NAME)
     monitor.save(directory / MONITOR_NAME)
     (directory / MANIFEST_NAME).write_text(json.dumps(manifest, indent=2))

@@ -1,5 +1,5 @@
 """Offline subcommands: ``train``, ``tune``, ``predict-file`` on a
-``flax`` (exact tier) or ``doc`` bundle, ``score-batch``, ``warmup``, the
+``flax`` (exact tier), ``sklearn`` or ``doc`` bundle, ``score-batch``, ``warmup``, the
 registry's ``register`` / ``promote`` / ``versions`` / ``gc``, ``synth``
 and ``validate``.
 
@@ -16,7 +16,8 @@ else ``run_training`` (the exact tier's dense trainer), on
 package's ``_predict_file`` / ``_predict_documents``
 (``mlops_tpu/commands.py:315-384``). On a ``flax`` bundle it is one
 exact-tier engine dispatch over the whole file (``buckets=(max_batch,)``,
-``predict_arrays``), printing the response JSON. On a ``doc`` bundle,
+``predict_arrays``), printing the response JSON; an ``sklearn`` bundle
+runs the same dispatch on its gbm tier, or on the rf host hybrid. On a ``doc`` bundle,
 consecutive rows of a record-history
 CSV group into ``doc_records``-length documents (the prediction targets
 the last record's default), documents stream through the doc model in
@@ -148,7 +149,12 @@ def warmup(config: Config) -> dict:
     import os
     import sys
 
-    from mlops_tpu_torch.compilecache import bundle_libraries, libraries, warm_kernels
+    from mlops_tpu_torch.compilecache import (
+        bundle_libraries,
+        gbm_serve_entries,
+        libraries,
+        warm_kernels,
+    )
     from mlops_tpu_torch.ops import cuda_build
 
     if not config.cache.dir:
@@ -163,13 +169,21 @@ def warmup(config: Config) -> dict:
         print(f"warmup: no bundle at {model_dir!r} ({err}); building every "
               f"kernel library ({', '.join(libraries())})", file=sys.stderr)
         bundle_dir = None
+    bundle = None
     if bundle_dir is None:
         names = list(libraries())
     else:
         # A bundle that resolves but does not load fails the build.
-        names = bundle_libraries(load_bundle(bundle_dir), config.serve.serve_tier,
+        bundle = load_bundle(bundle_dir)
+        names = bundle_libraries(bundle, config.serve.serve_tier,
                                  config.serve.tier_routing)
     report = warm_kernels(names, config.cache.warmup_workers)
+    gbm = gbm_serve_entries(bundle, tuple(config.serve.warmup_batch_sizes),
+                            grouping=config.serve.batch_window_ms > 0)
+    if gbm is not None:
+        # No library serves the gbm tier: its programs are captured into
+        # graphs at each engine's warmup, listed here as the JAX report does.
+        report["gbm_entries"] = gbm
     return {"bundle": None if bundle_dir is None else str(bundle_dir), **report}
 
 
@@ -268,7 +282,8 @@ def validate(config: Config) -> dict:
 
 def predict_file(config: Config) -> dict:
     """``predict-file data.train_path=<csv> serve.model_directory=<bundle>``:
-    the JSON the JAX package prints for a flax or a doc bundle."""
+    the JSON the JAX package prints for a flax, an sklearn (the gbm tier,
+    or the rf host hybrid) or a doc bundle."""
     from mlops_tpu_torch.serve.engine import InferenceEngine
 
     device = resolve_device(config.serve.device)
@@ -276,12 +291,6 @@ def predict_file(config: Config) -> dict:
     if not source:
         raise SystemExit("pass the input csv via data.train_path=<csv>")
     bundle = load_bundle(resolve_bundle(config))
-    if bundle.flavor == "sklearn":
-        raise SystemExit(
-            "predict-file on a 'sklearn' bundle needs the sklearn "
-            "tree-ensemble floor (ROADMAP A8), which this package has not "
-            "ported yet"
-        )
     columns, _ = load_csv_columns(source)
     ds = bundle.preprocessor.encode(columns)
     if bundle.flavor == "doc":

@@ -15,7 +15,9 @@ image can bake the cache at build time.
 
 CUDA graphs cannot be persisted: each engine process captures its
 serving graphs at warmup (a fraction of a second for the 16 to 32
-programs a bundle serves), after its kernels are loaded.
+programs a bundle serves), after its kernels are loaded. The gbm tier
+builds no library; the report names its serving programs
+(``gbm_serve_entries``), as the JAX warmup enumerates them.
 """
 
 from __future__ import annotations
@@ -45,6 +47,28 @@ def bundle_libraries(bundle, serve_tier: str, tier_routing: bool) -> list[str]:
         return ["flash_attention"]
     gated = bundle.has_quant and bundle.quant_gates_passed
     return ["quant_fused"] if gated and (serve_tier != "exact" or tier_routing) else []
+
+
+def gbm_serve_entries(bundle, buckets: tuple[int, ...],
+                      grouping: bool = True) -> list[str] | None:
+    """The gbm tier's serving programs a deployment of ``bundle`` runs,
+    labelled as the JAX package's ``serve_gbm_jobs`` and
+    ``serve_gbm_group_jobs`` label their cache entries (one per warmup
+    bucket, and per group geometry when the micro-batcher groups), or
+    None when it never dispatches them (no bundle, another flavor, or an
+    rf ensemble, which keeps the host hybrid). As there, they exist only
+    for a fitted ensemble: the traversal's depth is a fact of the trees.
+    No kernel library serves them (the tier is plain PyTorch): each engine
+    captures them into CUDA graphs at its own warmup."""
+    from mlops_tpu_torch.serve.wire import GROUP_ROW_BUCKETS, GROUP_SLOT_BUCKETS
+
+    if bundle is None or bundle.flavor != "sklearn" or bundle.gbm_tensor is None:
+        return None
+    entries = [f"serve-predict-gbm-packed/b{b}" for b in buckets]
+    if grouping:
+        entries += [f"serve-predict-gbm-group-packed/g{s}x{r}"
+                    for r in GROUP_ROW_BUCKETS for s in GROUP_SLOT_BUCKETS]
+    return entries
 
 
 def warm_kernels(names: list[str], workers: int = 0) -> dict[str, Any]:

@@ -279,11 +279,14 @@ def score_csv_stream(
     # bundle carries one; the stats' "path" says which ran.
     scorer = make_chunk_scorer(bundle, exact=exact, device=device)
     source = (columns for columns, _ in iter_table_chunks(in_path, chunk_rows))
-    transfer = make_chunk_transfer(device, chunk_rows, pipeline_depth)
-    fetch = ChunkFetch(device, chunk_rows)
+    # An sklearn bundle's chunks stay on the host with int32 ids
+    # (``parallel/bulk.py SklearnChunkScorer``).
+    transfer = make_chunk_transfer(scorer.stage_device, chunk_rows, pipeline_depth)
+    fetch = ChunkFetch(scorer.stage_device, chunk_rows)
+    ids = scorer.ids_dtype
     # Warm the chunk program before the streamed (and timed) run.
     fetch([scorer(transfer(
-        np.zeros((chunk_rows, SCHEMA.num_categorical), np.int8),
+        np.zeros((chunk_rows, SCHEMA.num_categorical), ids),
         np.zeros((chunk_rows, SCHEMA.num_numeric), np.float32),
         np.arange(chunk_rows) < 1,
     ))])
@@ -295,9 +298,10 @@ def score_csv_stream(
     def encode_chunk(columns):
         ds = prep.encode(columns)
         n = ds.n
-        # The ids travel as int8 (the largest vocabulary is 12); pad to
-        # the fixed chunk shape (only the tail chunk is short).
-        cat = ds.cat_ids.astype(np.int8)
+        # The ids travel as int8 (the largest vocabulary is 12; an sklearn
+        # bundle's as int32); pad to the fixed chunk shape (only the tail
+        # chunk is short).
+        cat = ds.cat_ids.astype(ids)
         pad = chunk_rows - n
         if pad:
             cat = np.pad(cat, ((0, pad), (0, 0)))

@@ -1,10 +1,11 @@
 """Model zoo (ported: the exact tier's linear, mlp, deep ensemble,
-FT-Transformer and single-record BERT, and the long-context document
-BERT).
+FT-Transformer and single-record BERT, the long-context document BERT,
+and the sklearn tree-ensemble floor in ``models/gbm.py``).
 
 ``build_model`` is the JAX package's (``mlops_tpu/models/__init__.py``)
-for the families the exact tier serves; the others are refused with the
-ROADMAP item that ports them. Every model maps ``(cat_ids int32 [N, C],
+for the families the exact tier serves; the sklearn families are refused
+with the JAX package's message (they have no module), the others with
+the ROADMAP item that ports them. Every model maps ``(cat_ids int32 [N, C],
 numeric f32 [N, M], train=False, generator=None) -> logits f32 [N]``
 (a deep ensemble in training: ``[K, N]``); ``generator`` is the
 trainer's dropout stream, None in eval. ``init_params`` starts a model
@@ -24,6 +25,7 @@ from mlops_tpu_torch.config import ModelConfig
 from mlops_tpu_torch.models.bert import BertEncoder
 from mlops_tpu_torch.models.ensemble import DeepEnsemble
 from mlops_tpu_torch.models.ft_transformer import FTTransformer
+from mlops_tpu_torch.models.gbm import SKLEARN_FAMILIES
 from mlops_tpu_torch.models.layers import Dense, Embed, LayerNorm
 from mlops_tpu_torch.models.mlp import MLP, LinearModel
 from mlops_tpu_torch.schema.features import SCHEMA
@@ -34,8 +36,6 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 # Families the exact tier does not serve yet, with what ports them.
 _UNPORTED = {
     "moe": "the MoE transformer is ROADMAP A9",
-    "gbm": "the sklearn tree-ensemble floor is ROADMAP A8",
-    "rf": "the sklearn tree-ensemble floor is ROADMAP A8",
 }
 _TRANSFORMERS = ("ft_transformer", "bert")
 
@@ -60,6 +60,12 @@ def build_model(config: ModelConfig, members: int = 0) -> nn.Module:
         single = dataclasses.replace(config, ensemble_size=1)
         size = config.ensemble_size
         return DeepEnsemble(build_model(single, members=size), size)
+    if config.family in SKLEARN_FAMILIES:
+        raise ValueError(
+            f"family {config.family!r} is the CPU sklearn baseline (BASELINE "
+            "config 1) — it has no Flax module; train it via `run_training` / "
+            "the `train` CLI, which packages it as a sklearn-flavor bundle"
+        )
     if config.family not in FAMILIES:
         raise ValueError(f"unknown model family {config.family!r}; one of {FAMILIES}")
     if config.precision not in DTYPES:

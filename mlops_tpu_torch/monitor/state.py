@@ -256,7 +256,12 @@ def drift_scores(
     a mask the K-S sorts the whole batch; with one, batches of up to 64
     rows take the dense comparisons and larger ones the masked sort."""
     k = state.cat_ref_counts.shape[1]
-    one_hot = torch.nn.functional.one_hot(cat_ids.long(), k).float()  # [..., N, C, K]
+    # ``jax.nn.one_hot``'s semantics: an id outside [0, K) (an unknown
+    # category the gbm tier still scores) is a row of zeros, counted in
+    # no bin. ``F.one_hot`` would raise on it instead.
+    one_hot = (
+        cat_ids.long()[..., None] == torch.arange(k, device=cat_ids.device)
+    ).float()  # [..., N, C, K]
     if mask is not None:
         one_hot = one_hot * mask.float()[..., None, None]
     batch_counts = one_hot.sum(dim=-3)  # [..., C, K]

@@ -1,5 +1,6 @@
-"""The exact tier's packed programs and the packed layout shared by the
-engine and the tests.
+"""The exact tier's packed programs, the sklearn flavor's host hybrid
+(``make_hybrid_predict_fn``) and the packed layout shared by the engine
+and the tests.
 
 Port of the JAX package's ``make_packed_predict_base`` and
 ``make_packed_grouped_base`` (``mlops_tpu/ops/predict.py:110,154``): one
@@ -18,8 +19,9 @@ with ``torch.func.functional_call``, the counterpart of flax's
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -83,6 +85,43 @@ def make_packed_grouped_base(model: torch.nn.Module) -> Callable:
         return packed, fold_accumulator_grouped(acc, flags, drift, mask)
 
     return grouped
+
+
+def make_hybrid_predict_fn(
+    estimator, monitor: MonitorState, temperature: float = 1.0
+) -> Callable[[np.ndarray, np.ndarray, np.ndarray], dict[str, Any]]:
+    """The sklearn flavor's predict where the ensemble does not tensorize
+    (the rf floor; the JAX ``make_hybrid_predict_fn``): the trees score
+    on the host while the drift and outlier monitors run on the monitor's
+    device, with the response contract and the padding-mask semantics of
+    the packed programs. Takes padded host arrays; returns a dict of
+    ``predictions`` (host f32, padding 0), ``outliers`` and
+    ``feature_drift_batch`` (device tensors). No accumulator: the server
+    folds this flavor's monitor totals on the host."""
+    from mlops_tpu_torch.train.calibrate import apply_temperature
+
+    device = monitor.cat_ref_counts.device
+
+    def predict(cat_ids: np.ndarray, numeric: np.ndarray, mask: np.ndarray):
+        cat_t, num_t, mask_t = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (cat_ids, numeric, mask)
+        )
+        with torch.inference_mode():
+            out = {
+                "outliers": outlier_flags(monitor, num_t, mask_t),
+                "feature_drift_batch": drift_scores(monitor, cat_t, num_t, mask_t),
+            }
+        # Only the valid rows reach the trees; the output keeps the
+        # bucket's length.
+        valid = np.asarray(mask, bool)
+        probs = np.zeros(valid.shape[0], np.float32)
+        p = estimator.predict_proba(np.asarray(cat_ids)[valid], np.asarray(numeric)[valid])
+        probs[valid] = apply_temperature(p, temperature)
+        out["predictions"] = probs
+        return out
+
+    return predict
 
 
 def packed_layout(rows: int) -> tuple[slice, slice, slice]:

@@ -28,10 +28,14 @@ CPU (``device="cpu"``) the same stages run on host tensors.
 Paths: ``exact`` (the serving-identical model), ``distilled`` (the bundle's
 bulk student, ``train/distill.py``) and ``quant`` (the int8/bf16 student,
 its composite forward: the JAX bulk body does not call the fused serving
-kernel either). Predictions are ``sigmoid(logit / T)`` with the tier's
-temperature; flags are exact per row; drift is a dataset-level statistic
-on a uniform sample of ``drift_sample`` rows, the serving monitor's
-semantics at bounded cost.
+kernel either). An ``sklearn`` bundle (gbm or rf) scores as the JAX
+package scores it: the estimator on the host (``SklearnChunkScorer``),
+the outlier flags on the device, the slice, transfer and fetch stages on
+host arrays with the original int32 ids. Predictions are ``sigmoid(logit
+/ T)`` with the tier's temperature (the estimator's tempered
+probabilities); flags are exact per row; drift is a dataset-level
+statistic on a uniform sample of ``drift_sample`` rows, the serving
+monitor's semantics at bounded cost.
 """
 
 from __future__ import annotations
@@ -62,10 +66,6 @@ DOC_REFUSAL = (
     "doc bundles score record histories via "
     "`predict-file data.train_path=<history csv>`; the bulk "
     "scorer's per-record contract does not apply"
-)
-SKLEARN_REFUSAL = (
-    "bulk scoring of a 'sklearn' bundle needs the sklearn tree-ensemble "
-    "floor, which this package has not ported (ROADMAP A8)"
 )
 
 
@@ -268,9 +268,13 @@ class ChunkScorer:
     its copy's event. ``score`` runs the program on tensors of the
     current stream (the reference route of the checks)."""
 
+    ids_dtype = np.int8  # the ids travel as int8 (the largest vocabulary is 12)
+    warm_rows = None  # the warm-up chunk: every row valid
+
     def __init__(self, bundle: Bundle, path: str, device: torch.device) -> None:
         self.path = path
         self.device = device
+        self.stage_device = device  # where the transfer stage puts chunks
         if path == "quant":
             self._fused = make_bulk_quant_fused()
             params = {k: v.to(device) for k, v in bundle.quant_params.items()}
@@ -315,6 +319,47 @@ class ChunkScorer:
         return DeviceChunk((out,), out, ready)
 
 
+class SklearnChunkScorer:
+    """The compute stage of an ``sklearn`` bundle, the JAX package's
+    sklearn ``score_chunk``: the fitted estimator's tempered probabilities
+    for the valid rows on the host (padding 0), the outlier flags on
+    ``device``. Its chunks stay on the host (``stage_device``) with int32
+    ids, and its warm-up scores one row (nothing compiles)."""
+
+    path = "exact"
+    stage_device = torch.device("cpu")
+    ids_dtype = np.int32
+    warm_rows = 1
+
+    def __init__(self, bundle: Bundle, device: torch.device) -> None:
+        from mlops_tpu_torch.bundle.bundle import ESTIMATOR_NAME
+
+        if bundle.estimator is None:
+            raise ValueError(
+                f"bulk scoring of an sklearn bundle runs its {ESTIMATOR_NAME} "
+                "on the host, which needs scikit-learn and joblib"
+            )
+        self.device = device
+        self.monitor = bundle.monitor.to(device)
+        self._estimator = bundle.estimator
+        self._temperature = bundle.temperature
+
+    @torch.inference_mode()
+    def score(self, cat, num, mask) -> tuple[torch.Tensor, torch.Tensor]:
+        from mlops_tpu_torch.train.calibrate import apply_temperature
+
+        valid = mask.cpu().numpy()
+        probs = np.zeros(valid.shape[0], np.float32)
+        p = self._estimator.predict_proba(cat.cpu().numpy()[valid], num.cpu().numpy()[valid])
+        probs[valid] = apply_temperature(p, self._temperature)
+        flags = outlier_flags(self.monitor, num.to(self.device), mask.to(self.device))
+        return torch.from_numpy(probs), flags.cpu()
+
+    def __call__(self, chunk: DeviceChunk) -> DeviceChunk:
+        out = torch.stack(self.score(*chunk.tensors))
+        return DeviceChunk((out,), out)
+
+
 class ChunkFetch:
     """The fetch stage: a wave of up to ``wave`` computed chunks -> one
     ``[2, R]`` f32 numpy array each. On the card each copies into its own
@@ -349,8 +394,6 @@ class ChunkFetch:
 def _refuse_flavor(bundle: Bundle) -> None:
     if bundle.flavor == "doc":
         raise ValueError(DOC_REFUSAL)
-    if bundle.flavor == "sklearn":
-        raise ValueError(SKLEARN_REFUSAL)
 
 
 def make_chunk_scorer(
@@ -358,13 +401,16 @@ def make_chunk_scorer(
     exact: bool | None = None,
     tier: str = "exact",
     device: str | torch.device | None = None,
-) -> ChunkScorer:
+) -> ChunkScorer | SklearnChunkScorer:
     """The chunk program of the routed path (``bulk_path``) on ``device``
-    (the card unless "cpu"). Refuses the ``sklearn`` and ``doc``
-    flavors."""
+    (the card unless "cpu"); an ``sklearn`` bundle's host scorer. Refuses
+    the ``doc`` flavor."""
     _refuse_flavor(bundle)
     device = resolve_device(device)
-    return ChunkScorer(bundle, bulk_path(bundle, exact, tier, device), device)
+    path = bulk_path(bundle, exact, tier, device)  # a refused quant demand raises
+    if bundle.flavor == "sklearn":
+        return SklearnChunkScorer(bundle, device)
+    return ChunkScorer(bundle, path, device)
 
 
 def make_chunk_transfer(
@@ -413,15 +459,16 @@ def score_dataset(
         )
     scorer = make_chunk_scorer(bundle, exact, tier, device)
     chunk = mesh_chunk_rows(chunk_rows)
-    transfer = make_chunk_transfer(device, chunk, pipeline_depth)
-    fetch = ChunkFetch(device, chunk)
+    transfer = make_chunk_transfer(scorer.stage_device, chunk, pipeline_depth)
+    fetch = ChunkFetch(scorer.stage_device, chunk)
+    ids = scorer.ids_dtype
 
     # One chunk through every stage before the timed sweep: the library
     # handles, the allocator's pools and the pinned rings come up here.
     zeros = (
-        np.zeros((chunk, _C), np.int8),
+        np.zeros((chunk, _C), ids),
         np.zeros((chunk, _M), np.float32),
-        np.arange(chunk) < chunk,
+        np.arange(chunk) < (scorer.warm_rows or chunk),
     )
     fetch([scorer(transfer(*zeros))])
 
@@ -433,7 +480,7 @@ def score_dataset(
     def slice_chunk(span):
         start, stop = span
         size = stop - start
-        cat = ds.cat_ids[start:stop].astype(np.int8)
+        cat = ds.cat_ids[start:stop].astype(ids)
         num = ds.numeric[start:stop]
         if size < chunk:
             cat = np.pad(cat, ((0, chunk - size), (0, 0)))

@@ -1,5 +1,6 @@
 """Inference engine: bundle -> warmed, bucketed, fused predict, on the
-exact or the quant tier, or on both with per-request tier routing.
+exact, the quant or the gbm tier, or on exact and quant with per-request
+tier routing, or on the host hybrid of the sklearn floor.
 
 Port of the JAX package's ``serve/engine.py`` for its single-device
 tiers:
@@ -10,6 +11,14 @@ tiers:
   exact, logging why. With ``tier_routing`` the engine also holds the
   bundle's other gated tier (``_extra_tier``), and each dispatch names the
   tier it runs (``route_tier`` maps an SLO class to one);
+- an ``sklearn`` bundle serves its HistGBM ensemble on the gbm tier
+  (``ops/gbm_tensor.py``: f64 tree tensors and a f64 temperature on the
+  device, the packed contract, grouping, the accumulator and the CUDA
+  graphs of every tier; one tier, so every SLO class routes to it), and
+  an ensemble that does not tensorize (rf) on the host hybrid
+  (``ops/predict.py make_hybrid_predict_fn``): the trees on the host, the
+  monitors on the device, no grouping, no graphs and no accumulator (the
+  server folds its monitor totals on the host), refused by hot swaps;
 - requests pad up to the nearest row bucket (1, 8, 64, 256 by default)
   with a validity mask, so drift and outlier statistics ignore padding;
   concurrent small requests group into one ``[slots, rows]`` dispatch
@@ -80,7 +89,13 @@ from mlops_tpu_torch.monitor.state import (
     MonitorState,
     init_accumulator,
 )
+from mlops_tpu_torch.ops.gbm_tensor import (
+    gbm_graph_replays,
+    make_gbm_grouped_base,
+    make_gbm_packed_base,
+)
 from mlops_tpu_torch.ops.predict import (
+    make_hybrid_predict_fn,
     make_packed_grouped_base,
     make_packed_predict_base,
     model_params,
@@ -104,6 +119,7 @@ from mlops_tpu_torch.serve.wire import (
     format_response,
 )
 from mlops_tpu_torch.slo.ledger import model_tag
+from mlops_tpu_torch.weights import gbm_variables_from_numpy
 
 logger = logging.getLogger(__name__)
 TIER_NAMES = ("exact", "quant", "auto")
@@ -120,7 +136,9 @@ def _entry_name(base: str, tier: str, gen: "_Generation") -> str:
 @dataclasses.dataclass(frozen=True)
 class _Tier:
     """One servable tier: its committed params and temperature on the
-    device, and its solo and grouped packed programs."""
+    device (the gbm tier's tree tensors and f64 temperature), and its solo
+    and grouped packed programs (the host hybrid: its predict function
+    and no grouped program)."""
 
     params: dict[str, torch.Tensor]
     temperature: torch.Tensor
@@ -204,6 +222,9 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.serve_tier = self._resolve_tier(serve_tier, bundle)
         self.tier_routing = bool(tier_routing)
+        # The sklearn floor that does not tensorize (rf): its "exact" tier
+        # is the host hybrid, which folds no accumulator and has no graphs.
+        self._hybrid = bundle.flavor == "sklearn" and self.serve_tier == "exact"
         # Committed once: each tier's params and temperature are
         # arguments of every dispatch and stay on the device.
         tiers = {self.serve_tier: self._build_tier(self.serve_tier, bundle)}
@@ -219,7 +240,7 @@ class InferenceEngine:
         # replay, download) on the engine's one stream. The hold is an
         # enqueue, never a wait.
         self._cuda = self.device.type == "cuda"
-        self._use_graphs = self._cuda and cuda_graphs
+        self._use_graphs = self._cuda and cuda_graphs and not self._hybrid
         # No other holder's streams (``device.held_stream``): another engine
         # in the process (the lifecycle's shadow engines) never shares them.
         self._stream = held_stream(self, self.device) if self._cuda else None
@@ -303,13 +324,13 @@ class InferenceEngine:
             if serve_tier == "quant":
                 raise ValueError(f"serve_tier='quant' refused: {why}")
             logger.info("serve_tier='auto' falling back to exact tier: %s", why)
-        why = ""
         if bundle.flavor == "sklearn":
-            why = (
-                "sklearn bundles score on the host tree ensemble, which is "
-                "not ported (ROADMAP A8)"
-            )
-        elif bundle.flavor != "flax":
+            # The JAX engine's sklearn branches: a tensorizable HistGBM
+            # ensemble serves the gbm tier, any other the host hybrid
+            # (whose one tier is named exact, as there).
+            return "gbm" if bundle.gbm_tensor is not None else "exact"
+        why = ""
+        if bundle.flavor != "flax":
             why = f"a {bundle.flavor!r} bundle is scored by predict-file, not served"
         elif bundle.model is None:
             why = bundle.exact_refusal or "bundle carries no exact model"
@@ -336,6 +357,8 @@ class InferenceEngine:
         exact-default engine adds its gated quant student, when the bundle
         has one; a quant-default engine always keeps its exact teacher,
         and a bundle without one is refused."""
+        if bundle.flavor == "sklearn":
+            return None  # the gbm tier and the host hybrid stand alone
         if self.serve_tier == "exact":
             return None if self._quant_refusal(bundle) else "quant"
         return self._resolve_tier("exact", bundle)
@@ -346,6 +369,22 @@ class InferenceEngine:
         if tier == "quant":
             params = {k: v.to(self.device) for k, v in bundle.quant_params.items()}
             temperature = bundle.quant_temperature
+        elif tier == "gbm":
+            # f64 tree tensors, and a f64 temperature, unlike every other
+            # tier's f32: the host hybrid divides logits by the full Python
+            # float, and an f32 rounding of T moves about a third of the
+            # tempered probabilities by one ulp.
+            params = gbm_variables_from_numpy(bundle.gbm_tensor[0], self.device)
+            return dataclasses.replace(
+                self._build_programs(tier, bundle), params=params,
+                temperature=self._scalar(bundle.temperature, torch.float64),
+            )
+        elif bundle.flavor == "sklearn":
+            # The host hybrid: the estimator and the Python temperature on
+            # the host, the monitor on the device.
+            return _Tier({}, None, make_hybrid_predict_fn(
+                bundle.estimator, bundle.monitor.to(self.device), bundle.temperature
+            ), None)
         else:
             params = {
                 k: v.to(self.device)
@@ -366,17 +405,27 @@ class InferenceEngine:
         bundle out of the swap."""
         if tier == "quant":
             return _Tier({}, None, make_quant_packed_base(), make_quant_grouped_base())
+        if tier == "gbm":
+            depth = bundle.gbm_tensor[1].depth
+            return _Tier({}, None, make_gbm_packed_base(depth), make_gbm_grouped_base(depth))
         model = copy.deepcopy(bundle.model).eval()
         return _Tier(
             {}, None, make_packed_predict_base(model), make_packed_grouped_base(model)
         )
 
-    def _scalar(self, value: float) -> torch.Tensor:
-        return torch.tensor(value, dtype=torch.float32, device=self.device)
+    def _scalar(self, value: float, dtype=torch.float32) -> torch.Tensor:
+        return torch.tensor(value, dtype=dtype, device=self.device)
 
     @property
     def supports_grouping(self) -> bool:
-        return True
+        """The grouped path exists on every tier but the host hybrid."""
+        return not self._hybrid
+
+    @property
+    def gbm_geometry(self):
+        """The serving gbm tier's ``GbmGeometry`` (None on other tiers)."""
+        gen = self._gen
+        return gen.bundle.gbm_tensor[1] if gen.default_tier == "gbm" else None
 
     @property
     def available_tiers(self) -> tuple[str, ...]:
@@ -392,10 +441,11 @@ class InferenceEngine:
 
     @property
     def monitor_accumulating(self) -> bool:
-        """Every program of this engine folds its monitor statistics into
-        the device accumulator (the JAX engine's host-hybrid flavor, which
-        does not, is not ported): what a hot swap needs on both sides."""
-        return True
+        """The programs fold their monitor statistics into the device
+        accumulator (every tier but the host hybrid, whose monitor totals
+        the server folds on the host): what a hot swap needs on both
+        sides."""
+        return not self._hybrid
 
     def _normalize_tier(self, tier: str | None) -> str | None:
         """None and the default tier both mean the default tier (None);
@@ -431,6 +481,9 @@ class InferenceEngine:
         the card each is also captured into its CUDA graph (after one such
         eager pass on the engine's stream); a capture that fails raises."""
         t0 = time.perf_counter()
+        if self._hybrid:
+            self._warm_hybrid(t0)
+            return
         keys = self._warm_keys(self._gen)
         self._ready_keys(self._gen, keys)
         self.warmup_stats = {
@@ -446,6 +499,23 @@ class InferenceEngine:
                 capture_s=round(self._capture_s, 3),
                 graph_pool_bytes=self._pool_bytes,
             )
+        self.ready = True
+
+    def _warm_hybrid(self, t0: float) -> None:
+        """The host hybrid's warmup, as the JAX engine's: each bucket runs
+        once on zeros (its monitors' first kernels and allocations); there
+        is nothing to capture."""
+        predict = self._gen.tiers[self.serve_tier].solo
+        for bucket in self.buckets:
+            predict(*_host_batch((bucket,))[:2], np.ones(bucket, bool))
+        self.warmup_stats = {
+            "warmup_s": round(time.perf_counter() - t0, 3),
+            "programs": len(self.buckets),
+            "device": str(self.device),
+            "tier": self.serve_tier,
+            "tiers": list(self.available_tiers),
+            "route": "host_hybrid",
+        }
         self.ready = True
 
     def _ready_keys(self, gen: _Generation, keys) -> int:
@@ -506,7 +576,8 @@ class InferenceEngine:
             with torch.cuda.stream(side):
                 self._warm_pass(gen, tier, lead, init_accumulator(self.device))
             graph, seconds, grown = graphs.capture(
-                run, lead, self.device, side, gen.pool
+                run, lead, self.device, side, gen.pool,
+                replays=gbm_graph_replays if tier == "gbm" else None,
             )
         finally:
             # Also after a failed capture: whatever the side stream ran
@@ -735,9 +806,31 @@ class InferenceEngine:
             num[:n] = numeric
             mask[:n] = True
 
+        if self._hybrid:
+            return self._dispatch_hybrid(n, rows, fill)
         host, event, served, lead, entry, t0 = self._dispatch(
             tier, (rows,), n, (n,), fill)
         return _Handle(host, event, n=n, rows=lead[0], tier=served, entry=entry, t0=t0)
+
+    def _dispatch_hybrid(self, n: int, rows: int, fill) -> _Handle:
+        """The host hybrid's dispatch (the JAX engine's dict route): the
+        padded batch through ``make_hybrid_predict_fn``, its outputs laid
+        out as the packed buffer so the fetch side is every tier's. No
+        lock: nothing here is shared state."""
+        batch = _host_batch((rows,))
+        fill(*batch)
+        out = self._gen.tiers[self.serve_tier].solo(*batch)
+        host = torch.from_numpy(np.concatenate([
+            out["predictions"],
+            out["outliers"].float().cpu().numpy(),
+            out["feature_drift_batch"].float().cpu().numpy(),
+        ]))
+        label = f"bucket_{rows}"
+        self._count(label)
+        stats = self.shape_stats
+        if stats is not None:
+            stats.observe(label, n, rows)
+        return _Handle(host, None, n=n, rows=rows, tier=self.serve_tier, entry=label)
 
     def fetch_arrays_raw(
         self, handle: _Handle
@@ -850,6 +943,8 @@ class InferenceEngine:
         slots pad to a slot bucket, rows to 1 (all batch-1) or 8, and
         every slot's drift is computed over its own rows. The whole group
         runs one tier."""
+        if self._hybrid:
+            raise ValueError("the host-hybrid flavor (rf) has no grouped path")
         tier = self._normalize_tier(tier)
         sizes = [cat.shape[0] for cat, _ in parts]
         tee = self._tee
@@ -1071,6 +1166,9 @@ class InferenceEngine:
         ``graph_pool_bytes``. Refuses a grid whose largest bucket is below
         the live one."""
         buckets = sorted({int(b) for b in buckets})
+        if self._hybrid:
+            raise ValueError("the host-hybrid flavor (rf) has no compiled "
+                             "programs to regrid")
         self._check_ceiling(buckets)
         gen = self._gen
         t0 = time.perf_counter()
@@ -1117,7 +1215,10 @@ class InferenceEngine:
         accumulator is cloned and zeroed in place, and the fetched window
         folds into exact f64 host totals, so the f32 device counters never
         approach 2^24. A window whose fetch fails folds back into the live
-        accumulator: the counts are delayed, never dropped."""
+        accumulator: the counts are delayed, never dropped. The host hybrid
+        has no accumulator: ``{}``, as the JAX engine returns."""
+        if self._hybrid:
+            return {}
         with self._acc_lock, self._on_stream():
             window = self._acc_flat.clone()
             self._acc_flat.zero_()

@@ -27,7 +27,13 @@ the lock and two stream waits.
 Host-side work that a capture skips is accounted for here: a kernel
 wrapper's launch counter counts a launch recorded into a graph under
 ``captured`` (``ops/cuda_build.LaunchCounter``), and ``ServingGraph.replay``
-adds the captured count to the counter at every replay.
+adds the captured count to the counter at every replay. The gbm tier
+launches no hand-written kernel; its graphs count their replays
+(``ops/gbm_tensor.gbm_graph_replays``).
+
+Nothing here depends on a tier's temperature or parameter dtypes: they
+are the tier's own tensors, read by the captured program (the gbm tier's
+f64 trees and temperature among them); only the batch is staged.
 """
 
 from __future__ import annotations
@@ -79,20 +85,23 @@ class ServingGraph:
     static output, and the kernel launches one replay makes per launch
     counter."""
 
-    __slots__ = ("graph", "inputs", "out", "launches")
+    __slots__ = ("graph", "inputs", "out", "launches", "replays")
 
-    def __init__(self, graph, inputs, out, launches):
+    def __init__(self, graph, inputs, out, launches, replays=None):
         self.graph = graph
         self.inputs = inputs
         self.out = out
         self.launches = launches
+        self.replays = replays  # a counter of this graph's replays, or None
 
     def replay(self) -> None:
         """Launch the graph on the current stream and count the kernels
-        it launches."""
+        it launches (and the replay, where the graph has a counter)."""
         self.graph.replay()
         for counter, n in self.launches:
             counter.add(n)
+        if self.replays is not None:
+            self.replays.add()
 
 
 def capture(
@@ -101,6 +110,7 @@ def capture(
     device: torch.device,
     stream: torch.cuda.Stream,
     pool,
+    replays=None,
 ) -> tuple[ServingGraph, float, int]:
     """Capture ``run(cat_ids, numeric, mask) -> packed output`` over a new
     static input buffer of ``lead`` rows on ``stream`` into ``pool``.
@@ -117,7 +127,8 @@ def capture(
     device synchronize and cache emptying: emptying the pinned-memory
     cache races those other threads. Returns the graph, the capture's
     seconds and the bytes the pool grew by; raises whatever the capture
-    raised."""
+    raised. ``replays``, a ``LaunchCounter``, counts each replay of the
+    graph (the gbm tier's, which launches no hand-written kernel)."""
     before = [(c, c.captured) for c in LAUNCH_COUNTERS]
     graph = torch.cuda.CUDAGraph()
     t0 = time.perf_counter()
@@ -135,4 +146,4 @@ def capture(
     launches = tuple(
         (c, c.captured - n) for c, n in before if c.captured != n
     )
-    return ServingGraph(graph, inputs, out, launches), seconds, grown
+    return ServingGraph(graph, inputs, out, launches, replays), seconds, grown

@@ -1011,7 +1011,9 @@ class RingService:
         self._telemetry: threading.Thread | None = None
         self._mon_period = monitor_fetch_every_s
         self._mon_every = monitor_fetch_every_requests
-        self._accumulating = [hasattr(eng, "monitor_snapshot") for eng in self.engines]
+        self._accumulating = [
+            bool(getattr(eng, "monitor_accumulating", hasattr(eng, "monitor_snapshot")))
+            for eng in self.engines]
         self._kernel_launches = kernel_launches
         # Respawn bases of the mirrored counters (set by ``reattach``): a
         # respawned replica's counts restart at zero, and its dead
@@ -1374,7 +1376,25 @@ class RingService:
             if label in _TIER_IDX:
                 ring.tier_counts[self.replica, _TIER_IDX[label]] += len(job)
             self._mirror_counts()
+        if not self._accumulating[tenant]:
+            self._fold_host_monitor(raws, tenant)
         return raws
+
+    def _fold_host_monitor(self, raws: list[tuple[np.ndarray, ...]], tenant: int = 0) -> None:
+        """The host-side monitor fold of engines without a device
+        accumulator (the sklearn host hybrid), into the tenant's shared
+        row, as the JAX ring service folds it. The reductions run outside
+        the lock."""
+        rows = sum(len(pred) for pred, _, _ in raws)
+        outliers = float(sum(float(out.sum()) for _, out, _ in raws))
+        last = raws[-1][2]
+        ring, rep = self.ring, self.replica
+        with self._mon_lock:
+            ring.mon_vals[rep, tenant, MON_ROWS] += rows
+            ring.mon_vals[rep, tenant, MON_OUTLIERS] += outliers
+            ring.mon_vals[rep, tenant, MON_BATCHES] += len(raws)
+            ring.mon_drift_last[rep, tenant, :] = last
+            ring.mon_vals[rep, tenant, MON_HAS] = 1.0
 
     def _stamp_dispatched(self, job: list[tuple[int, int]], handle: Any, kind: int) -> None:
         """Stamp 2 (the replay and the copy to the host enqueued) and the

@@ -245,6 +245,17 @@ class Metrics:
             self.trace_dropped = int(trace_dropped)
             self.flight_dumps = int(flight_dumps)
 
+    def observe_prediction(self, response: dict[str, Any],
+                           tenant: str = "default") -> None:
+        """The host-side per-response fold of the JAX package, for engines
+        without a device accumulator (the sklearn host hybrid): rows,
+        outliers and the last drift."""
+        with self._lock:
+            block = self.monitor[tenant]
+            block["rows"] += len(response["predictions"])
+            block["outliers"] += int(sum(response["outliers"]))
+            block["drift_last"] = dict(response["feature_drift_batch"])
+
     def set_monitor_aggregate(self, snapshot: dict[str, Any],
                               tenant: str = "default") -> None:
         with self._lock:
@@ -389,10 +400,15 @@ class HttpServer(HttpProtocol):
                 fetch_inflight=max(1, fetch_inflight // n_tenants),
                 batch_mode=config.batch_mode,
                 admit_fraction=config.batch_admit_fraction,
-                wire_responses=True,
+                # Accumulating engines fold their monitor totals on the
+                # device, so they take the wire path (responses encoded in
+                # the executor). The host hybrid (rf) keeps dicts: the
+                # server folds its totals from each response.
+                wire_responses=eng.monitor_accumulating,
             )
             for eng in self.engines
         ]
+        self._accumulating = [eng.monitor_accumulating for eng in self.engines]
         self.batcher = self.batchers[self.tenants.default_index]
         # SLO tier routing and brownout: armed only when asked for and an
         # engine holds a second tier. Pressure is the in-flight predict
@@ -418,7 +434,7 @@ class HttpServer(HttpProtocol):
         self._monitor_timer_task: asyncio.Task | None = None
 
     async def start(self) -> asyncio.AbstractServer:
-        if self.config.monitor_fetch_every_s > 0:
+        if any(self._accumulating) and self.config.monitor_fetch_every_s > 0:
             self._monitor_timer_task = asyncio.get_running_loop().create_task(
                 self._monitor_timer()
             )
@@ -513,8 +529,13 @@ class HttpServer(HttpProtocol):
             return 500, {"detail": "prediction failed"}, "application/json"
         finally:
             self._score_inflight -= 1
-        self._monitor_requests += 1
-        self._maybe_fetch_monitor()
+        if self._accumulating[tenant]:
+            # Folded on the device: the request path only counts toward
+            # the K-request fetch trigger.
+            self._monitor_requests += 1
+            self._maybe_fetch_monitor()
+        else:
+            self.metrics.observe_prediction(response, tenant=self.tenants.names[tenant])
         return response
 
     # ------------------------------------------------- monitor telemetry
@@ -551,7 +572,10 @@ class HttpServer(HttpProtocol):
         loop = asyncio.get_running_loop()
         self._monitor_requests = 0
         failed = None
-        for name, engine in zip(self.tenants.names, self.engines):
+        for name, engine, accumulating in zip(self.tenants.names, self.engines,
+                                              self._accumulating):
+            if not accumulating:
+                continue  # the host hybrid's totals are folded per response
             try:
                 snapshot = await loop.run_in_executor(self._executor,
                                                       engine.monitor_snapshot)

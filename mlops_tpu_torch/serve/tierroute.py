@@ -28,8 +28,9 @@ SLO_DEFAULT, SLO_CHEAP, SLO_ACCURATE = 0, 1, 2
 _CLASS_BY_NAME = {name: i for i, name in enumerate(SLO_CLASSES)}
 
 # Every serving tier an engine can hold, cheapest -> most accurate: the
-# quant student, the gbm tensorization (not ported, ROADMAP A8), the
-# exact teacher. A closed set, so the ``tier`` metric label is bounded.
+# quant student, the gbm tensorization (the sklearn floor's exact bits, a
+# gbm bundle's only tier), the exact teacher. A closed set, so the
+# ``tier`` metric label is bounded.
 TIERS = ("quant", "gbm", "exact")
 
 

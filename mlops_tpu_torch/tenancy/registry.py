@@ -105,6 +105,8 @@ class TenantRegistry:
         for name, engine in zip(self.names, self.engines):
             engine.warmup()
             report[name] = {"mode": "warmed", **getattr(engine, "warmup_stats", {})}
+            if not getattr(engine, "monitor_accumulating", True):
+                continue  # the sklearn host hybrid: a host estimator, no twin
             donor = donors.setdefault(_arch_key(engine), name)
             if donor != name:
                 report[name]["arch_twin_of"] = donor

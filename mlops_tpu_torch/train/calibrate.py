@@ -1,5 +1,6 @@
 """Temperature scaling: a numpy copy of the JAX package's
-``train/calibrate.py`` fit. Every bundle carries a temperature fitted on
+``train/calibrate.py`` (the fit, and the probability-space rescale the
+sklearn flavor serves with). Every bundle carries a temperature fitted on
 the held-out split; serving divides the logit by it before the sigmoid,
 which leaves rankings unchanged and makes the probabilities honest
 (minimum validation NLL). With ``s = 1/T`` the NLL is convex in ``s``,
@@ -12,6 +13,24 @@ import math
 import numpy as np
 
 _PHI = (math.sqrt(5.0) - 1.0) / 2.0  # golden ratio step
+
+# The one clip epsilon shared by calibration fitting and every serving
+# path that rebuilds logits from probabilities (the sklearn flavor), so
+# fit-time and serve-time transforms are exact inverses.
+PROB_EPS = 1e-7
+
+
+def probs_to_logits(probs: np.ndarray) -> np.ndarray:
+    """Inverse sigmoid with the shared clip (tree ensembles emit exact 0/1)."""
+    p = np.clip(np.asarray(probs, np.float64), PROB_EPS, 1.0 - PROB_EPS)
+    return np.log(p) - np.log1p(-p)
+
+
+def apply_temperature(probs: np.ndarray, temperature: float) -> np.ndarray:
+    """Re-scale probabilities through logit space: sigmoid(logit(p) / T)."""
+    if temperature == 1.0:
+        return np.asarray(probs)
+    return 1.0 / (1.0 + np.exp(-probs_to_logits(probs) / temperature))
 
 
 def binary_nll(logits: np.ndarray, labels: np.ndarray) -> float:

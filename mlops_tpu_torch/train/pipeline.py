@@ -22,10 +22,13 @@ The same config and data give the same batches in the same order on the
 CPU and the card; each run writes ``metrics.jsonl`` (and TensorBoard
 events with ``train.tensorboard_dir``), checkpoints, a bundle and a
 registry version. ``data.train_path`` may be a CSV or a Parquet file and
-it and ``registry.root`` may be ``gs://`` URIs, as in the JAX package. What the JAX ``train`` command accepts and
-the port does not train yet (pipeline- and tensor-parallel training, the
-sequence-parallel ring, pretrained trunks, the MoE and tree families) is
-refused before any work, naming its ROADMAP item.
+it and ``registry.root`` may be ``gs://`` URIs, as in the JAX package.
+The sklearn tree-ensemble floor (gbm, rf) trains on the host through
+scikit-learn, as in the JAX package, into an ``sklearn`` bundle. What the
+JAX ``train`` command accepts and the port does not train yet (pipeline-
+and tensor-parallel training, the sequence-parallel ring, pretrained
+trunks, the MoE family) is refused before any work, naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -40,15 +43,21 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mlops_tpu_torch.bundle import msgpack, save_doc_bundle, save_exact_bundle
+from mlops_tpu_torch.bundle import (
+    msgpack,
+    save_doc_bundle,
+    save_exact_bundle,
+    save_sklearn_bundle,
+)
 from mlops_tpu_torch.bundle.registry import ModelRegistry
 from mlops_tpu_torch.config import Config, ModelConfig
 from mlops_tpu_torch.data import Preprocessor, generate_synthetic, load_table_columns
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.device import resolve_device
 from mlops_tpu_torch.models import build_model
+from mlops_tpu_torch.models.gbm import SKLEARN_FAMILIES, SklearnBaseline
 from mlops_tpu_torch.monitor.state import fit_monitor
-from mlops_tpu_torch.train.calibrate import calibration_record
+from mlops_tpu_torch.train.calibrate import calibration_record, probs_to_logits
 from mlops_tpu_torch.train.checkpoint import (
     restore_train_state,
     save_checkpoint,
@@ -171,8 +180,9 @@ def _package_and_register(
 ) -> tuple[Path, str | None]:
     """The packaging tail: fit the monitors on the training split, write
     the bundle of ``model_config`` (``config.model`` when None; ``doc``
-    for a doc model, else ``flax`` with the ``students`` keywords of
-    ``save_exact_bundle``), register it."""
+    for a doc model, ``sklearn`` for a tree ensemble, whose ``model`` is
+    the ``SklearnBaseline``, else ``flax`` with the ``students`` keywords
+    of ``save_exact_bundle``), register it."""
     model_config = model_config or config.model
     bundle_dir = run_dir / "bundle"
     monitor = fit_monitor(
@@ -181,12 +191,18 @@ def _package_and_register(
         seed=config.data.seed,
         outlier_quantile=config.monitor.outlier_quantile,
     )
-    save = save_doc_bundle if model_config.doc_records > 1 else save_exact_bundle
-    save(
-        bundle_dir, model_config, model, preprocessor, monitor,
-        calibration=calibration, tags=bundle_tags, metrics=metrics,
-        **(students or {}),
-    )
+    if model_config.family in SKLEARN_FAMILIES:
+        save_sklearn_bundle(
+            bundle_dir, model_config, preprocessor, monitor, estimator=model,
+            calibration=calibration, tags=bundle_tags, metrics=metrics,
+        )
+    else:
+        save = save_doc_bundle if model_config.doc_records > 1 else save_exact_bundle
+        save(
+            bundle_dir, model_config, model, preprocessor, monitor,
+            calibration=calibration, tags=bundle_tags, metrics=metrics,
+            **(students or {}),
+        )
     model_uri = None
     if register:
         model_uri = ModelRegistry(config.registry.root).register(
@@ -277,11 +293,6 @@ def _refuse_unported_dense(config: Config) -> None:
             "training layouts have dedicated trainers (model.doc_records -> "
             "run_layout_training, which the `train` CLI dispatches to)"
         )
-    if model.family in ("gbm", "rf"):
-        raise ValueError(
-            f"model.family={model.family!r} is the sklearn tree-ensemble floor, "
-            "which is not ported (ROADMAP.md A8)"
-        )
     if model.family == "moe":
         raise ValueError("model.family='moe' is not ported (ROADMAP.md A9)")
     if config.train.init_params:
@@ -300,8 +311,11 @@ def run_training(
     temperature fitted on the packaged params' validation logits, the
     bulk and quant students (``_maybe_distill``, ``_maybe_distill_quant``)
     distilled from the packaged params, the monitors, the bundle, the
-    registry."""
+    registry. The sklearn families (gbm, rf) take the JAX package's
+    branch (``_run_sklearn_training``)."""
     _refuse_unported_dense(config)
+    if config.model.family in SKLEARN_FAMILIES:
+        return _run_sklearn_training(config, register, run_name)
     device = resolve_device(config.train.device)
     model = build_model(config.model)  # refuses what the zoo does not port
     run_name = run_name or time.strftime("%Y%m%d-%H%M%S")
@@ -349,6 +363,53 @@ def run_training(
         register=register,
         calibration=calibration,
         students=students,
+    )
+    return PipelineResult(
+        bundle_dir=bundle_dir, model_uri=model_uri, train_result=result, run_dir=run_dir
+    )
+
+
+def _run_sklearn_training(
+    config: Config, register: bool, run_name: str | None
+) -> PipelineResult:
+    """The JAX ``run_training``'s sklearn branch (BASELINE config 1, the
+    tree-ensemble floor) on the host: the same data, preprocessor and
+    split, ``SklearnBaseline.train``, its validation metrics, a
+    temperature fitted on the logits of its clipped validation
+    probabilities, no students (the floor is what they are measured
+    against), and an ``sklearn`` bundle: the estimator and, for a HistGBM
+    ensemble, the tree file the gbm tier serves. Needs scikit-learn."""
+    run_name = run_name or time.strftime("%Y%m%d-%H%M%S")
+    run_dir = new_run_dir(config, run_name)
+    columns, labels = load_training_data(config)
+    preprocessor = Preprocessor.fit(columns)
+    ds = preprocessor.encode(columns, labels)
+    train_ds, valid_ds = split_dataset(ds, config.data.valid_fraction)
+    baseline = SklearnBaseline.train(config.model, config.train, train_ds)
+    result = TrainResult(
+        params=baseline,
+        metrics=baseline.evaluate(valid_ds),
+        history=[],
+        steps=config.model.n_estimators,
+    )
+    calibration = calibration_record(
+        probs_to_logits(baseline.predict_proba(valid_ds.cat_ids, valid_ds.numeric)),
+        valid_ds.labels,
+    )
+    bundle_dir, model_uri = _package_and_register(
+        config,
+        run_dir,
+        baseline,
+        preprocessor,
+        train_ds,
+        metrics=result.metrics,
+        bundle_tags={"run_name": run_name, "experiment": config.registry.experiment_name},
+        registry_tags={
+            "run_name": run_name,
+            **{k: f"{v:.6f}" for k, v in result.metrics.items()},
+        },
+        register=register,
+        calibration=calibration,
     )
     return PipelineResult(
         bundle_dir=bundle_dir, model_uri=model_uri, train_result=result, run_dir=run_dir

@@ -2,8 +2,8 @@
 
 The tests feed both packages identical state: they take the JAX package's
 quant params and the quant student's f32 master, monitor arrays and flax
-param trees (the exact tier's model and the distilled bulk student) as
-numpy (``np.asarray`` of its leaves, or the arrays its npz files hold)
+param trees (the exact tier's model and the distilled bulk student) and
+the gbm tier's tree arrays as numpy (``np.asarray`` of its leaves, or the arrays its npz files hold)
 and hand them to these functions, which return the port's tensors on
 ``device``. bf16 leaves
 arrive either as the f32 image the npz holds or as an ml_dtypes bfloat16
@@ -69,6 +69,24 @@ def monitor_from_numpy(
     return MonitorState.from_arrays(
         {k: np.asarray(v) for k, v in arrays.items()}
     ).to(device)
+
+
+def gbm_variables_from_numpy(
+    arrays: dict[str, np.ndarray], device: torch.device | str
+) -> dict[str, torch.Tensor]:
+    """``extract_gbm``'s tree arrays (either package's, or the tree file's)
+    -> the gbm tier's tensors on ``device``: f64 values, thresholds and
+    baseline, int64 indices, bool flags and table (``GBM_FIELDS``)."""
+    from mlops_tpu_torch.ops.gbm_tensor import GBM_FIELDS
+
+    if set(arrays) != set(GBM_FIELDS):
+        raise KeyError(
+            f"gbm trees must hold {sorted(GBM_FIELDS)}, got {sorted(arrays)}"
+        )
+    return {
+        k: torch.from_numpy(np.array(arrays[k], copy=True)).to(device=device, dtype=dtype)
+        for k, dtype in GBM_FIELDS.items()
+    }
 
 
 def flatten_tree(tree: dict[str, Any], prefix: str = "") -> dict[str, Any]:

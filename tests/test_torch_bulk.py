@@ -169,9 +169,12 @@ def test_sklearn_and_doc_bundles_are_refused(bundle_dir, datasets, tmp_path):
     def sklearn(m):
         m["flavor"] = "sklearn"
 
-    sk = load_bundle(_edited_copy(bundle_dir, tmp_path / "sk", sklearn))
-    with pytest.raises(ValueError, match="ROADMAP A8"):
-        bulk.score_dataset(sk, ds, device="cpu")
+    # The sklearn flavor is scored (tests/test_torch_gbm.py); a manifest
+    # that says sklearn over a directory with neither its estimator nor
+    # its tree file is refused at load, naming the estimator's file.
+    with pytest.raises(ValueError, match="estimator.joblib"):
+        bulk.score_dataset(load_bundle(_edited_copy(bundle_dir, tmp_path / "sk", sklearn)),
+                           ds, device="cpu")
     kw = dict(family="bert", doc_records=3, token_dim=16, heads=2, depth=1, precision="f32")
     columns, _ = generate_synthetic(300, seed=0)
     prep = Preprocessor.fit(columns)

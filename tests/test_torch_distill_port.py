@@ -23,7 +23,7 @@ from mlops_tpu_torch.bundle import load_bundle
 from mlops_tpu_torch.config import load_config
 from mlops_tpu_torch.data import generate_synthetic
 from mlops_tpu_torch.parallel import bulk
-from mlops_tpu_torch.train.pipeline import run_training
+from mlops_tpu_torch.train.pipeline import run_training, run_tuning
 from torch_students import DRIFT_ATOL, PRED_TOL, assert_flags_match
 from torch_threads import torch_threads  # noqa: F401  (2 intra-op threads)
 
@@ -92,15 +92,17 @@ def test_run_training_distills_a_transformer_family(tmp_path):
     "overrides,match",
     [
         (["model.family=moe"], "A9"),
-        (["model.family=gbm"], "A8"),
+        # gbm trains now; `tune` still refuses it, with the JAX message.
+        pytest.param(["model.family=gbm"], "sklearn baseline families", id="overrides1-A8"),
         (["train.init_params=pretrained.msgpack"], "A9"),
     ],
 )
 def test_the_other_refusals_stay(tmp_path, overrides, match):
     config = load_config(["train.device=cpu", f"registry.run_root={tmp_path / 'runs'}",
                           *overrides])
+    run = run_tuning if config.model.family == "gbm" else run_training
     with pytest.raises(ValueError, match=match):
-        run_training(config)
+        run(config)
     assert not (tmp_path / "runs").exists()
 
 

@@ -146,15 +146,22 @@ def test_the_ensemble_holds_its_members_on_a_leading_axis():
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(family="rf"), "A8"),
+        # The tree families have no module: refused with the JAX message.
+        pytest.param(dict(family="rf"), "CPU sklearn baseline", id="kw0-A8"),
         (dict(family="moe", ensemble_size=2), "A9"),
         (dict(family="moe"), "A9"),
-        (dict(family="gbm"), "A8"),
+        pytest.param(dict(family="gbm"), "CPU sklearn baseline", id="kw3-A8"),
     ],
 )
 def test_build_model_refuses_the_families_it_does_not_port(kw, item):
     with pytest.raises(ValueError, match=item):
         build_model(ModelConfig(**kw))
+    if kw["family"] in ("gbm", "rf"):
+        with pytest.raises(ValueError) as jax_err:
+            jax_build_model(JaxModelConfig(**kw))
+        with pytest.raises(ValueError) as port_err:
+            build_model(ModelConfig(**kw))
+        assert str(port_err.value) == str(jax_err.value)
 
 
 def test_a_param_tree_that_does_not_match_is_refused():
@@ -486,9 +493,11 @@ def test_the_tier_table(exact_bundles, tmp_path, caplog):
     assert moe.model is None and "A9" in moe.exact_refusal
     with pytest.raises(ValueError, match="A9"):
         InferenceEngine(moe, device="cpu")
+    # An sklearn manifest over a directory with neither the estimator nor
+    # the tree file: refused at load, naming the files.
     manifest["flavor"] = "sklearn"
     (tmp_path / "moe" / "manifest.json").write_text(json.dumps(manifest))
-    with pytest.raises(ValueError, match="A8"):
+    with pytest.raises(ValueError, match="estimator.joblib"):
         InferenceEngine(load_bundle(tmp_path / "moe"), device="cpu")
 
 

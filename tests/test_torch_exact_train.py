@@ -487,15 +487,27 @@ def test_run_training_trains_the_transformer_families(tmp_path, family):
         (["model.family=moe", "train.distill_bulk=false"], "A9"),
         (["model.family=ft_transformer", "model.ensemble_size=2",
           "train.distill_bulk=false"], "A9"),
-        (["model.family=gbm"], "A8"),
-        (["model.family=rf"], "A8"),
+        # The tree families are ported: they train (on a cut of the job's
+        # rows) into an sklearn bundle the JAX package loads.
+        pytest.param(["model.family=gbm", "data.rows=1500", "model.n_estimators=10"],
+                     None, id="overrides3-A8"),
+        pytest.param(["model.family=rf", "data.rows=1500", "model.n_estimators=10"],
+                     None, id="overrides4-A8"),
         (["model.doc_records=3", "model.family=bert"], "run_layout_training"),
     ],
 )
 def test_run_training_refuses_what_is_not_ported_before_any_work(tmp_path, overrides, match):
     config = load_config(
-        ["train.device=cpu", f"registry.run_root={tmp_path / 'runs'}", *overrides], JOB
+        ["train.device=cpu", f"registry.run_root={tmp_path / 'runs'}",
+         f"registry.root={tmp_path / 'registry'}", *overrides], JOB
     )
+    if match is None:
+        result = run_training(config, register=False)
+        manifest = json.loads((result.bundle_dir / "manifest.json").read_text())
+        assert manifest["flavor"] == "sklearn"
+        assert jax_load_bundle(result.bundle_dir).model_config.family == config.model.family
+        assert load_bundle(result.bundle_dir).estimator.family == config.model.family
+        return
     with pytest.raises(ValueError, match=match):
         run_training(config)
     assert not (tmp_path / "runs").exists()

@@ -1635,3 +1635,80 @@ def test_a_primed_profiler_starts_at_once(card_state, tmp_path):
     torch.ones(8, device="cuda").sum().item()
     assert profiler.control("stop") == (200, None)
     assert list(tmp_path.glob("*.pt.trace.json"))
+
+
+# ------------------------------------------------------------ the gbm tier
+@pytest.fixture(scope="module")
+def gbm_engines(tmp_path_factory):
+    """The committed fixture's gbm bundle (``scripts/torch_gbm_fixture.py``:
+    the job's 75 trees, built without scikit-learn), served by an engine
+    on the card (CUDA graphs) and one on the CPU route."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import importlib.util
+    from pathlib import Path
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    script = Path(__file__).resolve().parent.parent / "scripts" / "torch_gbm_fixture.py"
+    spec = importlib.util.spec_from_file_location("torch_gbm_fixture", script)
+    fixture = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fixture)
+    bundle_dir = fixture.fixture_bundle(tmp_path_factory.mktemp("gbm") / "bundle")
+    card = InferenceEngine(load_bundle(bundle_dir), device="cuda")
+    cpu = InferenceEngine(load_bundle(bundle_dir), device="cpu")
+    card.warmup()
+    cpu.warmup()
+    return card, cpu, fixture.read_fixture()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,b", SHAPES)
+def test_the_gbm_tier_on_the_card_matches_its_cpu_route(gbm_engines, s, b):
+    """Each bucket and group geometry's graph on the fixture's rows (3/4 of
+    a bucket solo, ragged slots grouped): predictions bitwise equal to the
+    CPU route and to scikit-learn's recorded probabilities, flags exact,
+    drift within 1e-5."""
+    card, cpu, data = gbm_engines
+    rng = np.random.default_rng(s * 1000 + b)
+    if s == 1:
+        n = max(1, b - b // 4)
+        lo = int(rng.integers(0, len(data["probs"]) - n))
+        rows = np.arange(lo, lo + n)
+        got, want = (e.fetch_arrays_raw(e.dispatch_arrays(data["cat_ids"][rows],
+                                                          data["numeric"][rows]))
+                     for e in (card, cpu))
+        pairs = [(got, want, rows)]
+    else:
+        sizes = rng.integers(1, b + 1, size=s)
+        starts = np.cumsum([0, *sizes[:-1]])
+        parts = [(data["cat_ids"][o:o + n], data["numeric"][o:o + n])
+                 for o, n in zip(starts, sizes)]
+        got, want = (e.fetch_group_raw(e.dispatch_group_arrays(parts)) for e in (card, cpu))
+        pairs = [((got[1][i, :n], got[2][i, :n], got[3][i]),
+                  (want[1][i, :n], want[2][i, :n], want[3][i]), np.arange(o, o + n))
+                 for i, (o, n) in enumerate(zip(starts, sizes))]
+    for g, w, rows in pairs:
+        np.testing.assert_array_equal(g[0], w[0])
+        np.testing.assert_array_equal(g[0].astype(np.float32), data["probs"][rows])
+        np.testing.assert_array_equal(g[1], w[1])
+        np.testing.assert_allclose(g[2], w[2], rtol=0, atol=1e-5 + 1e-6)
+
+
+@pytest.mark.gpu
+def test_every_gbm_dispatch_on_the_card_is_a_graph_replay(gbm_engines):
+    from mlops_tpu_torch.ops.gbm_tensor import gbm_graph_replays
+
+    card, _, data = gbm_engines
+    tier = card._tiers["gbm"]
+    assert all(t.is_cuda for t in tier.params.values())
+    assert tier.params["value"].dtype == tier.temperature.dtype == torch.float64
+    assert len(card._graphs) == card.warmup_stats["programs"] == 16
+    gbm_graph_replays.reset()
+    before = sum(card.dispatch_counts().values())
+    for n in (1, 5, 64, 200):
+        card.fetch_arrays_raw(card.dispatch_arrays(data["cat_ids"][:n], data["numeric"][:n]))
+    parts = [(data["cat_ids"][i:i + 2], data["numeric"][i:i + 2]) for i in range(0, 20, 2)]
+    card.fetch_group_raw(card.dispatch_group_arrays(parts))
+    assert gbm_graph_replays.value == sum(card.dispatch_counts().values()) - before == 5

@@ -50,9 +50,27 @@ def test_importing_every_submodule_loads_no_jax_and_no_reference_package():
                  "tenancy.router", "tenancy.registry", "trace.span", "trace.recorder",
                  "trace.shapes", "trace.report", "slo.engine", "slo.ledger",
                  "slo.flightrec", "autotune", "autotune.costmodel", "autotune.search",
-                 "autotune.apply"):
+                 "autotune.apply", "models.gbm", "ops.gbm_tensor"):
         assert f"mlops_tpu_torch.{name}" in names
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_the_gbm_tier_loads_no_sklearn():
+    """The card's machine has neither scikit-learn nor joblib: the gbm
+    tier's modules, the engine and the bundle loader import neither (they
+    import them inside the functions that need them)."""
+    code = (
+        "import json, sys\n"
+        "import mlops_tpu_torch.ops.gbm_tensor, mlops_tpu_torch.models.gbm\n"
+        "import mlops_tpu_torch.serve.engine, mlops_tpu_torch.bundle.bundle\n"
+        "import mlops_tpu_torch.parallel.bulk, mlops_tpu_torch.train.pipeline\n"
+        "print(json.dumps(sorted(m for m in sys.modules"
+        " if m.split('.')[0] in ('sklearn', 'joblib'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
 def test_the_replica_router_and_the_tenancy_front_half_load_no_torch():
