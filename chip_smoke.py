@@ -26,7 +26,10 @@ shadow, gated hot swap, rollback), in one process and on the ring plane,
 also under a seeded fault plan, and the serving plane scaled out and
 shared: an engine replica set behind one ring (``serve --replicas 2``)
 and a tenant fleet (``serve --tenants configs/tenants.toml``) with its
-quotas and per-tenant loops.
+quotas and per-tenant loops; and the rest of the transformer families:
+the moe family trained and served, masked-feature ``pretrain`` then a
+``train.init_params`` fine-tune at BERT-base width, and an ensemble of
+transformer members served.
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -406,7 +409,28 @@ Phases, each of which fails the run loudly:
     single-process and on the ring plane (``MLOPS_TPU_SERVE_WORKERS=2``):
     single-record requests at 16 and 64 connections, every answer 200 and
     equal to the engine's (predictions and flags bitwise, drift within
-    1e-5), requests/s; SIGTERM, both planes exit 0.
+    1e-5), requests/s; SIGTERM, both planes exit 0;
+38. the rest of the transformer families (after phase 28, beside phases
+    29-37): ``train --config configs/train_register_job.toml
+    model.family=moe`` (the ModelConfig defaults: token_dim 64, depth 3,
+    8 heads, 8 experts; 200 steps, with its bulk student) and ``pretrain
+    --config configs/train_register_job.toml`` at BERT-base (hidden 768,
+    depth 12, 12 heads; 40 steps at lr 3e-4, the loss curve falling)
+    start at once; meanwhile the moe at full width on the card against
+    the CPU (eval probabilities 1.6e-2, the auxiliary 1e-3 relative,
+    gradients leaf by leaf at cosine 0.98 / norm 5 %, block 0's routes
+    exact off near-ties), one stacked ``tune`` step of it at T = 2 card
+    against CPU, and a seeded 4-member FT-Transformer ensemble bundle;
+    then ``train ... train.init_params=<pretrained.msgpack>`` at
+    BERT-base (40 steps), the grafted trunk bitwise the file's and
+    ``pooler``/``head`` the fresh init's; the moe, BERT-base and ensemble
+    bundles on the card against the CPU route at 1x1, 1x256, 64x1 and
+    64x8 and served over HTTP (the golden request; the moe's and the
+    ensemble's while the fine-tune trains); the pretrain and
+    fine-tune steps timed (step ms, kernels per step, busy share, peak
+    device memory) and each bundle's warmup (graphs, capture seconds,
+    graph pool bytes) and dispatch -> fetch p50. None of the four
+    kernels runs on these paths: their counts read 0.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
@@ -2071,8 +2095,9 @@ def phase_exact_parity(dirs: dict, device: str = "cuda", geometries=None) -> dic
     worst = {}
     for name, path in dirs.items():
         card = _exact_programs(load_bundle(path), device)
-        cpu = _exact_programs(load_bundle(path), "cpu")
-        prep = load_bundle(path).preprocessor
+        cpu_bundle = load_bundle(path)
+        cpu = _exact_programs(cpu_bundle, "cpu")
+        prep = cpu_bundle.preprocessor
         mon_cpu = cpu[2][1]
         worst[name] = 0.0
         for k, (s, b) in enumerate(geometries or _geometries()):
@@ -2391,14 +2416,15 @@ def phase_exact_train_parity(families=None, extra: tuple[str, ...] = (),
 
 
 # ----------------------------------------------------------------- phase 19
-def _start_train_cli(name: str, extra, root: Path, device: str):
-    """``python -m mlops_tpu_torch train --config <job>`` in a subprocess,
-    started; ``_finish_train_cli`` waits for it."""
+def _start_train_cli(name: str, extra, root: Path, device: str, command: str = "train"):
+    """``python -m mlops_tpu_torch train --config <job>`` (or another
+    ``command`` of the job's config) in a subprocess, started;
+    ``_finish_train_cli`` waits for it."""
     log_path = root / f"{name}.log"
     root.mkdir(parents=True, exist_ok=True)
     out = open(log_path, "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "mlops_tpu_torch", "train", "--config", EXACT_JOB_TOML,
+        [sys.executable, "-m", "mlops_tpu_torch", command, "--config", EXACT_JOB_TOML,
          *extra, f"registry.root={root / 'registry'}", f"registry.run_root={root / 'runs'}",
          f"registry.run_name={name}", f"train.device={device}"],
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
@@ -3474,20 +3500,21 @@ def _stack_timing(model_config, train_config, trials: int, data, horizon: int,
     return row
 
 
-def _stack_parity(model_config, train_config, train_ds, valid_ds, device: str) -> dict:
+def _stack_parity(model_config, train_config, train_ds, valid_ds, device: str,
+                  trials: int = TUNE_PARITY_TRIALS, steps: int = TUNE_PARITY_STEPS) -> dict:
     """The stacked trainer on the card against its CPU route: the same
     trials (init, rows and dropout masks are functions of the trial's
     key), one step's per-trial gradient cosine (>= 0.98), then
-    ``TUNE_PARITY_STEPS`` steps' per-trial loss curves (within 0.05)."""
+    ``steps`` steps' per-trial loss curves (within 0.05)."""
     import torch
 
     from mlops_tpu_torch.config import HPOConfig
     from mlops_tpu_torch.train import hpo
 
-    hp = hpo.sample_hyperparams(HPOConfig(trials=TUNE_PARITY_TRIALS))
-    seeds = hpo.trial_seeds(2024, TUNE_PARITY_TRIALS)
+    hp = hpo.sample_hyperparams(HPOConfig(trials=trials))
+    seeds = hpo.trial_seeds(2024, trials)
     stacks = {
-        dev: hpo.TrialStack(model_config, train_config, hp, seeds, TUNE_PARITY_STEPS,
+        dev: hpo.TrialStack(model_config, train_config, hp, seeds, steps,
                             hpo.SweepData.put(train_ds, valid_ds, dev), torch.device(dev))
         for dev in (device, "cpu")
     }
@@ -3496,11 +3523,12 @@ def _stack_parity(model_config, train_config, train_ds, valid_ds, device: str) -
         loss, grad = stack.loss_and_grad()
         grads[dev] = grad.float().cpu()
         stack.apply(grad)
-        curves[dev] = torch.cat([loss[None], stack.run(TUNE_PARITY_STEPS - 1)]).float().cpu()
+        rest = [stack.run(steps - 1)] if steps > 1 else []
+        curves[dev] = torch.cat([loss[None], *rest]).float().cpu()
     cos = torch.nn.functional.cosine_similarity(grads[device], grads["cpu"], dim=1)
     gap = (curves[device] - curves["cpu"]).abs()
     row = {
-        "trials": TUNE_PARITY_TRIALS, "steps": TUNE_PARITY_STEPS,
+        "trials": trials, "steps": steps,
         "per_trial_grad_cosine": cos.tolist(),
         "per_trial_max_gap": gap.max(dim=0).values.tolist(),
         "first_loss": curves[device][0].tolist(), "last_loss": curves[device][-1].tolist(),
@@ -7058,6 +7086,425 @@ def phase_gbm(device: str = "cuda") -> dict:
     return result
 
 
+# ----------------------------------------------------------------- phase 38
+# The rest of the transformer families at full width. The moe family at
+# its only definition, the ModelConfig defaults (token_dim 64, depth 3,
+# 8 heads, 8 experts of F = 256: 853,785 parameters), trained as phase 19
+# trains the other families (steps cut) with its bulk student; BERT-base
+# (hidden 768, depth 12, 12 heads) pretrained with the masked-feature
+# objective, then fine-tuned from that file (steps cut, no bulk student:
+# phase 23 covers the students); a 4-member FT-Transformer ensemble at
+# the config's widths, seeded, on the exact tier.
+A9_MOE = ("model.family=moe",)
+A9_MOE_STEPS = 200  # of the job's 2,000, as phase 19 cuts the other families
+A9_MOE_EVAL_EVERY = 100
+BERT_BASE = ("model.family=bert", "model.token_dim=768", "model.depth=12", "model.heads=12")
+# pretrain_bert's own default rate: the job's 3e-3 is the classifier's
+# warmed-up peak, and the pretraining optimizer has no warmup
+A9_PRETRAIN = ("train.steps=40", "train.learning_rate=3e-4")  # of the job's 2,000
+A9_FINETUNE = ("train.steps=40", "train.eval_every=20", "train.distill_bulk=false")
+A9_ENSEMBLE = ("model.family=ft_transformer", "model.ensemble_size=4")
+A9_TIE_GAP = 1e-6  # a token whose 2nd and 3rd gates are this close may route apart
+A9_AUX_RTOL = 1e-3
+A9_TUNE_TRIALS = 2
+A9_TIMED_WINDOWS = 3
+A9_TIMED_STEPS = 5
+A9_PROFILED_STEPS = 3
+A9_P50_DISPATCHES = 50
+
+
+def _finish_pretrain_cli(started) -> tuple[dict, float]:
+    """The started ``pretrain`` run's JSON line: the file, its row count
+    and a loss curve of 10 finite buckets that falls."""
+    proc, err, log_path, t0 = started
+    try:
+        stdout, _ = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        err.close()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"pretrain exited {proc.returncode}: {log_path.read_text()[-3000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    log(f"pretrain: {wall:.1f} s: {json.dumps(out)}")
+    curve = out["loss_curve"]
+    check(set(out) == {"pretrained", "rows", "loss_curve"}, f"pretrain printed {sorted(out)}")
+    check(len(curve) == 10 and all(math.isfinite(v) for v in curve),
+          f"pretrain loss curve {curve}")
+    check(curve[-1] < curve[0], f"the pretraining loss did not fall: {curve}")
+    check(Path(out["pretrained"]).name == "pretrained.msgpack" and Path(out["pretrained"]).exists(),
+          f"pretrain wrote {out['pretrained']}")
+    return out, wall
+
+
+def _a9_moe_parity(extra, device: str, train_ds) -> dict:
+    """The moe at full width, dropout 0, one seeded init on the card and
+    on the CPU, one batch of the job's: the eval probabilities, the
+    training forward's auxiliary and ``training_loss``'s gradients leaf by
+    leaf; block 0's routing masks on the same tokens, exact but for
+    near-ties (counted)."""
+    import torch
+
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.train import loop
+
+    config = _job_config([*A9_MOE, "model.dropout=0.0", *extra], device)
+    host = _tensors(train_ds, "cpu")
+    idx = torch.from_numpy(loop.batch_indices(host[0].shape[0], config.train.batch_size, 0, 1))
+    batch = tuple(t[idx] for t in host)
+    seen = {}
+    probs, aux, grads, routes = {}, {}, {}, {}
+    for dev in (device, "cpu"):
+        model = init_params(build_model(config.model), 0).to(dev)
+        ffn = model.block_0.MoEFeedForward_0
+        if dev == "cpu":
+            hook = ffn.register_forward_pre_hook(lambda m, args: seen.update(x=args[0]))
+        cat, num, lab = (t.to(dev) for t in batch)
+        with torch.no_grad():
+            probs[dev] = torch.sigmoid(model(cat, num)).float().cpu()
+        out = model(cat, num, train=True)
+        aux[dev] = out[1].detach().float().cpu()
+        loop.loss_of(out, lab, config.train.pos_weight).backward()
+        grads[dev] = {k: p.grad.float().cpu().flatten() for k, p in model.named_parameters()}
+        if dev == "cpu":
+            hook.remove()
+        routes[dev] = model
+    tokens = seen["x"].detach().reshape(-1, seen["x"].shape[-1])
+    with torch.no_grad():
+        masks = {}
+        for dev, model in routes.items():
+            gates, mask, _ = model.block_0.MoEFeedForward_0.route(tokens.to(dev))
+            masks[dev] = mask.cpu()
+            if dev == "cpu":
+                ordered = gates.sort(dim=-1, descending=True).values
+                ties = (ordered[:, 1] - ordered[:, 2]) < A9_TIE_GAP
+    apart = ((masks[device] != masks["cpu"]).any(-1) & ~ties).sum().item()
+    stats = []
+    for k, want in grads["cpu"].items():
+        got = grads[device][k]
+        cos = torch.nn.functional.cosine_similarity(got, want, dim=0).item()
+        ratio = (got.norm() / want.norm().clamp_min(1e-30)).item()
+        stats.append((k, cos, ratio))
+        check(cos >= GRAD_COSINE_MIN and abs(ratio - 1) <= GRAD_NORM_RTOL,
+              f"moe {k}: card vs CPU gradient cosine {cos:.5f}, norm ratio {ratio:.5f}")
+    row = {
+        "params": sum(g.numel() for g in grads["cpu"].values()),
+        "batch": config.train.batch_size,
+        "max_prob_err": (probs[device] - probs["cpu"]).abs().max().item(),
+        "aux_card": aux[device].tolist(), "aux_cpu": aux["cpu"].tolist(),
+        "worst_cosine": min(s[1] for s in stats),
+        "worst_norm_ratio": max((s[2] for s in stats), key=lambda r: abs(r - 1)),
+        "route_tokens": int(tokens.shape[0]), "route_near_ties": int(ties.sum()),
+        "routes_apart_off_ties": int(apart),
+    }
+    log(f"moe card vs cpu {json.dumps(row)}")
+    check(row["max_prob_err"] <= EXACT_PRED_ATOL, f"moe probabilities part: {row}")
+    check(torch.allclose(aux[device], aux["cpu"], rtol=A9_AUX_RTOL, atol=0),
+          f"moe auxiliaries part: {row}")
+    check(apart == 0, f"moe routes part off the near-ties: {row}")
+    return row
+
+
+def _a9_ensemble_bundle(extra) -> Path:
+    """A 4-member FT-Transformer ensemble bundle at the config's widths,
+    seeded (flax's initializers), over phase 16's synthetic preprocessor
+    and monitor."""
+    from mlops_tpu_torch.bundle import save_exact_bundle
+    from mlops_tpu_torch.data import Preprocessor, generate_synthetic
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.monitor.state import fit_monitor
+
+    config = _job_config([*A9_ENSEMBLE, *extra], "cpu").model
+    columns, _ = generate_synthetic(20000, seed=0)
+    prep = Preprocessor.fit(columns)
+    monitor = fit_monitor(prep.encode(columns), drift_ref_size=2048)
+    model = init_params(build_model(config), 38)
+    directory = WORK / "a9" / "ft_ens4"
+    shutil.rmtree(directory, ignore_errors=True)
+    save_exact_bundle(directory, config, model, prep, monitor,
+                      calibration={"temperature": 1.2},
+                      tags={"source": "chip_smoke.py", "note": "seeded weights, not trained"})
+    log(f"ensemble bundle ft_ens4: {directory} "
+        f"({sum(p.numel() for p in model.parameters())} params)")
+    return directory
+
+
+def _a9_graft_check(ft_args, path: str, device: str) -> dict:
+    """The fine-tune's initial state: the trunk bit for bit from the
+    file, ``pooler`` and ``head`` absent from it and from the fresh init
+    of ``train.seed``."""
+    import torch
+
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.train.pipeline import load_init_state
+    from mlops_tpu_torch.train.pretrain import load_pretrained
+
+    config = _job_config(ft_args, device)
+    state = load_init_state(config)
+    saved = load_pretrained(path, config.model)
+    fresh = init_params(build_model(config.model), config.train.seed).state_dict()
+    heads = ("pooler", "head")
+    grafted = [k for k in state if k.split(".")[0] not in heads]
+    kept = [k for k in state if k.split(".")[0] in heads]
+    check(all(torch.equal(state[k], saved[k]) for k in grafted),
+          "the grafted trunk differs from pretrained.msgpack")
+    check(kept and all(k not in saved and torch.equal(state[k], fresh[k]) for k in kept),
+          "pooler/head came from the pretrained file, not the fresh init")
+    row = {"grafted_leaves": len(grafted), "kept_leaves": len(kept),
+           "file_leaves": len(saved), "params": sum(v.numel() for v in state.values())}
+    log(f"fine-tune graft {json.dumps(row)}")
+    return row
+
+
+def _a9_steps(step, label: str, rows: int) -> dict:
+    """A training step on the card: step ms (CUDA events around each of
+    ``A9_TIMED_WINDOWS`` windows after 2 warm-up steps; the median and the
+    extremes), rows per second, the device's kernels per step and busy
+    share under ``torch.profiler`` with the kernels that hold it longest,
+    and the peak device memory the steps reached."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(2):
+        step()
+    windows, walls = [], []
+    for _ in range(A9_TIMED_WINDOWS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(A9_TIMED_STEPS):
+            step()
+        end.record()
+        end.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / A9_TIMED_STEPS)
+        windows.append(start.elapsed_time(end) / A9_TIMED_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(A9_PROFILED_STEPS):
+            step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(float(getattr(e, "self_device_time_total", 0.0)) for e in device) / 1e3
+    busy_ms /= A9_PROFILED_STEPS
+    top = sorted(device, key=lambda e: -float(getattr(e, "self_device_time_total", 0.0)))
+    step_ms, wall_ms = float(np.median(windows)), float(np.median(walls))
+    row = {
+        "step": label, "batch": rows, "step_ms": step_ms, "step_ms_min": min(windows),
+        "step_ms_max": max(windows), "rows_per_s": rows / step_ms * 1e3,
+        "wall_ms_per_step_unprofiled": wall_ms,
+        "device_kernels_per_step": sum(e.count for e in device) / A9_PROFILED_STEPS,
+        "device_busy_ms_per_step": busy_ms, "device_busy_share": busy_ms / wall_ms,
+        "peak_device_mib": peak / 2**20, "resident_before_mib": base / 2**20,
+        # the kernels that hold the device longest: (name, ms a step, launches a step)
+        "top_kernels": [(e.key[:80], float(e.self_device_time_total) / 1e3 / A9_PROFILED_STEPS,
+                         e.count / A9_PROFILED_STEPS) for e in top[:8]],
+    }
+    log_timing("a9 step timing", row)
+    return row
+
+
+def _a9_step_timing(ft_args, path: str, train_ds) -> list[dict]:
+    """The BERT-base pretraining step (``mlm_step`` at the job's batch,
+    its host-drawn mask uploaded each step) and the fine-tune step
+    (``train_step`` from the grafted state) on the card."""
+    import numpy as np
+    import torch
+
+    from mlops_tpu_torch.models import build_model
+    from mlops_tpu_torch.train import loop, pretrain
+    from mlops_tpu_torch.train.pipeline import load_init_state
+    from mlops_tpu_torch.weights import load_params
+
+    config = _job_config(ft_args, "cuda")
+    data = _tensors(train_ds, "cuda")
+    n, batch = data[0].shape[0], config.train.batch_size
+    idx = torch.from_numpy(
+        np.stack([loop.batch_indices(n, batch, 0, s) for s in range(1, 21)])).to("cuda")
+    rows = []
+    mlm = pretrain.build_mlm(config.model)
+    load_params(mlm, pretrain.load_pretrained(path, config.model))
+    mlm = mlm.to("cuda")
+    opt = pretrain.make_adamw(mlm.parameters(), 3e-4)
+    count = [0]
+
+    def mlm_step():
+        count[0] += 1
+        i = idx[count[0] % 20]
+        mask = torch.from_numpy(pretrain.step_mask(0, count[0], batch, mlm)).to("cuda")
+        gen = loop.dropout_generator(0, count[0], torch.device("cuda"))
+        pretrain.mlm_step(mlm, opt, data[0][i], data[1][i], mask, gen)
+
+    rows.append(_a9_steps(mlm_step, "pretrain", batch))
+    del mlm, opt
+    torch.cuda.empty_cache()
+    model = load_params(build_model(config.model), load_init_state(config)).to("cuda")
+    opt = loop.make_optimizer(model, config.train)
+
+    def fine_tune_step():
+        count[0] += 1
+        i = idx[count[0] % 20]
+        loop.train_step(model, opt, config.train, count[0], *(t[i] for t in data))
+
+    rows.append(_a9_steps(fine_tune_step, "fine_tune", batch))
+    del model, opt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _a9_serve_timing(bundles: dict) -> dict:
+    """Each bundle on the card's exact tier: the warmup's graphs, capture
+    seconds and graph pool bytes, and the dispatch -> fetch p50 at the
+    four trained geometries."""
+    import torch
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    out = {}
+    for name, path in bundles.items():
+        bundle = load_bundle(path)
+        engine = InferenceEngine(bundle, device="cuda")
+        engine.warmup()
+        stats = engine.warmup_stats
+        row = {"model": name, "tier": engine.serve_tier, "programs": stats["programs"],
+               "warmup_s": stats["warmup_s"], "capture_s": stats.get("capture_s"),
+               "graph_pool_bytes": stats.get("graph_pool_bytes")}
+        for s, b in EXACT_TRAINED_GEOMETRIES:
+            row[f"dispatch_fetch_ms_p50_{s}x{b}"] = _dispatch_fetch_p50(
+                engine, bundle.preprocessor, s, b, 380 + s + b, n=A9_P50_DISPATCHES)
+        log_timing("a9 serve timing", row)
+        out[name] = row
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def _a9_check_and_serve(bundles: dict, device: str) -> tuple[dict, dict]:
+    """Each bundle on the card against the CPU route at the four trained
+    geometries (in a thread: the CPU route's products release the GIL)
+    while ``serve`` on each answers the golden request; returns both
+    worst prediction errors by name."""
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        parity = pool.submit(phase_exact_parity, bundles, device, EXACT_TRAINED_GEOMETRIES)
+        http = _serve_golden(bundles, device)
+        return parity.result()["max_pred_err"], http
+
+
+def phase_a9(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
+    """Phase 38: the moe family, masked-feature pretraining -> fine-tune
+    at BERT-base width, and an ensemble of transformer members, through
+    the entry points a user calls. ``train --config <job>
+    model.family=moe`` (steps cut, with its bulk student) and ``pretrain
+    --config <job>`` at BERT-base start at once; meanwhile in this
+    process, the counts set to 0 just before, the moe on the card against
+    the CPU (forward, auxiliary, gradients, routes), one stacked tune step
+    of it at T = 2 card against CPU, and the ensemble bundle; then ``train
+    ... train.init_params=<pretrained.msgpack>`` at BERT-base, its graft
+    checked; the three bundles on the card against the CPU route at the
+    four trained geometries and served over HTTP (the golden request),
+    the moe's and the ensemble's while the fine-tune trains; then the
+    pretrain and fine-tune steps and each bundle's dispatches
+    timed on the card. No hand-written kernel runs on these paths: the
+    counts read 0. ``extra`` and ``device="cpu"`` rehearse it small on the
+    CPU."""
+    import torch
+
+    from mlops_tpu_torch.ops import quant_kernel
+
+    root = WORK / "a9"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"a9: {what} at {time.perf_counter() - t0:.1f} s")
+
+    moe_args = [*A9_MOE, f"train.steps={A9_MOE_STEPS}",
+                f"train.eval_every={A9_MOE_EVAL_EVERY}", *extra]
+    pre_args = [*BERT_BASE, *A9_PRETRAIN, *extra]
+    log(f"a9: moe {' '.join(moe_args)}; pretrain {' '.join(pre_args)}; "
+        f"fine-tune {' '.join(A9_FINETUNE)}; ensemble {' '.join(A9_ENSEMBLE)}")
+    started = {"moe": _start_train_cli("moe", moe_args, root, device),
+               "pretrain": _start_train_cli("pretrain", pre_args, root, device, "pretrain")}
+    try:
+        _reset_launch_counts()
+        quant_kernel.quant_kernel_launches.reset()
+        config = _job_config([*A9_MOE, *extra], device)
+        train_ds, valid_ds = _exact_split(config)  # the job's data, as every run here reads it
+        moe_parity = _a9_moe_parity(extra, device, train_ds)
+        tune = _stack_parity(config.model, config.train, train_ds, valid_ds, device,
+                             trials=A9_TUNE_TRIALS, steps=1)
+        bundles = {"ft_ens4": _a9_ensemble_bundle(extra)}
+        mark("moe card vs cpu, the T = 2 step and the ensemble bundle done")
+        pretrained, pretrain_wall = _finish_pretrain_cli(started.pop("pretrain"))
+        path = pretrained["pretrained"]
+        ft_args = [*BERT_BASE, *A9_FINETUNE, f"train.init_params={path}", *extra]
+        started["bert_base"] = _start_train_cli("bert_base", ft_args, root, device)
+        mark("pretrain done, fine-tune started")
+        graft = _a9_graft_check(ft_args, path, device)
+        clis, walls = {}, {"pretrain": pretrain_wall}
+        clis["moe"], walls["moe"] = _finish_train_cli(
+            "moe", moe_args, started.pop("moe"), device)
+        bundles["moe"] = Path(clis["moe"]["bundle"])
+        mark("moe train done")
+        # While the fine-tune trains: the moe and the ensemble bundles.
+        parity, http = _a9_check_and_serve(bundles, device)
+        mark("moe and ensemble bundles checked and served")
+        clis["bert_base"], walls["bert_base"] = _finish_train_cli(
+            "bert_base", ft_args, started.pop("bert_base"), device)
+        mark("fine-tune done")
+    finally:
+        for proc, *_ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    moe_manifest = json.loads((bundles["moe"] / "manifest.json").read_text())
+    check(moe_manifest["model_config"]["family"] == "moe" and "bulk" in moe_manifest,
+          "the moe bundle is not a moe bundle with its bulk student")
+    bundles["bert_base"] = Path(clis["bert_base"]["bundle"])
+    for got, more in zip((parity, http),
+                         _a9_check_and_serve({"bert_base": bundles["bert_base"]}, device)):
+        got.update(more)
+    mark("BERT-base bundle checked and served")
+    steps = serving = None
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        steps = _a9_step_timing(ft_args, path, train_ds)
+        serving = _a9_serve_timing(bundles)
+        mark("timings done")
+    launches = (*_launch_counts(), quant_kernel.quant_kernel_launches.value)
+    log(f"a9: kernel launches flash fwd/dq/dkv/quant_fused {launches}")
+    check(launches == (0, 0, 0, 0), f"phase 38's paths launched kernels {launches}")
+    cli = {name: {"steps": out["steps"], "packaged_step": out["packaged_step"],
+                  "metrics": out["metrics"], "wall_s": walls[name]}
+           for name, out in clis.items()}
+    return {
+        "moe": {"card_vs_cpu": moe_parity, "tune_step_T2": tune, "train": cli["moe"],
+                "bulk_student": moe_manifest["bulk"]["model_config"],
+                "bundle_parity": parity["moe"],
+                "golden_http_max_pred_err": http["moe"],
+                "serve_timing": (serving or {}).get("moe")},
+        "pretrain": {"pretrain": {"rows": pretrained["rows"], "loss_curve": pretrained["loss_curve"],
+                                  "wall_s": pretrain_wall},
+                     "graft": graft, "fine_tune": cli["bert_base"], "step_timing": steps,
+                     "bundle_parity": parity["bert_base"],
+                     "golden_http_max_pred_err": http["bert_base"],
+                     "serve_timing": (serving or {}).get("bert_base")},
+        "transformer_ensemble": {"bundle_parity": parity["ft_ens4"],
+                                 "golden_http_max_pred_err": http["ft_ens4"],
+                                 "serve_timing": (serving or {}).get("ft_ens4")},
+        "launches": launches,
+    }
+
+
 RING_PHASES_FLAG = "--ring-phases"
 
 
@@ -7200,6 +7647,7 @@ def main() -> int:
         tune_job = beside(phase_tune_job)
         tune_arch = beside(phase_tune_arch)
         deployed = beside(phase_deployed_job, tune_job["cli"])
+        a9 = beside(phase_a9)
         ring_side = side.join()
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
@@ -7317,6 +7765,12 @@ def main() -> int:
         # its count is the graph replays of its dispatches in phase 37.
         "gbm_graph_replays": gbm["replays"],
         "gbm_tier": {k: v for k, v in gbm.items() if k != "replays"},
+        # Phase 38's paths run no hand-written kernel (the JAX package runs
+        # them in jnp): their launches of the four kernels read 0.
+        "a9_launches": a9["launches"],
+        "moe": a9["moe"],
+        "pretrain": a9["pretrain"],
+        "transformer_ensemble": a9["transformer_ensemble"],
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
         "serving": {"dispatch_routes": routes, "burst": burst, "ring": ring},
         "lifecycle": {k: v for k, v in lifecycle.items() if k != "launches"},

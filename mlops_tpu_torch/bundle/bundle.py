@@ -6,8 +6,9 @@ A bundle is one directory: ``manifest.json``, ``preprocess.npz``,
 - the exact tier of a ``flax`` bundle: ``params.msgpack`` (flax's
   serialization, read and written by ``bundle.msgpack``) and the
   manifest's ``model_config``, from which ``models.build_model`` builds
-  the linear, mlp or deep-ensemble module; a family the port has not
-  ported yet loads without it (``Bundle.exact_refusal`` says why);
+  the module of any family of the zoo or a deep ensemble of it; a family
+  the port does not build loads without it (``Bundle.exact_refusal``
+  says why);
 - the bulk tier (the distilled student of an ensemble or a transformer
   family, ``train/distill.py distill_for_bulk``): ``bulk_params.msgpack``
   plus the manifest's ``bulk`` block (the student's ``model_config`` and
@@ -187,7 +188,7 @@ def _load_exact_model(
 ) -> tuple[torch.nn.Module | None, str]:
     """The exact tier's module of a ``flax`` bundle with its weights from
     ``params.msgpack``, or ``(None, why)`` when the bundle has no exact
-    params or its family is not ported yet."""
+    params or its family is not one the port builds."""
     from mlops_tpu_torch.models import build_model
 
     if not (directory / PARAMS_NAME).exists() or not manifest.get("model_config"):

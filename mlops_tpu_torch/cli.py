@@ -17,14 +17,20 @@
   one JSON line (``data.train_path=<csv> serve.model_directory=<bundle>
   [serve.max_batch=N]``);
 - ``train``: train an exact-tier model into a ``flax`` bundle
-  (``--config configs/train_register_job.toml``; linear, mlp, deep
-  ensembles, ``ft_transformer`` and single-record ``bert``, with the
+  (``--config configs/train_register_job.toml``; linear, mlp,
+  ``ft_transformer``, ``moe``, single-record ``bert`` and deep ensembles
+  of any of them, a bert fine-tune from a pretrained trunk with
+  ``train.init_params=<pretrained.msgpack>``, with the
   distilled bulk student of an ensemble or a transformer family unless
   ``train.distill_bulk=false``, and the gated quant tier with
   ``train.distill_quant=true``) or the long-context doc model into a
   ``doc`` bundle (``--config configs/long_context_job.toml
   model.seq_parallel=false``), and print one JSON line
   (``registry.root=<dir> registry.run_root=<dir>``);
+- ``pretrain``: masked-feature pretraining of the bert trunk on
+  unlabeled rows (``model.family=bert``) into
+  ``<run_dir>/pretrained.msgpack``, one JSON line (pretrained, rows,
+  loss_curve);
 - ``score-batch``: bulk-score ``data.rows`` synthetic rows or a CSV
   (``data.train_path``) with a ``flax`` bundle and print one JSON line
   (``serve.model_directory=<bundle> [score.output_path=<npz>]``); with
@@ -90,7 +96,8 @@ exits non-zero naming its ROADMAP item. A
 ``gs://`` ``data.train_path`` or ``registry.root`` is read and written
 through ``utils/storage.py``, as in the JAX package.
 Every command runs on the card unless ``serve.device=cpu`` (serve,
-predict-file, score-batch) or ``train.device=cpu`` (train, tune). For
+predict-file, score-batch) or ``train.device=cpu`` (train, pretrain,
+tune). For
 ``serve``, ``MODEL_DIRECTORY`` and ``SERVICE_NAME`` in the environment
 take precedence over the config, as in the reference; a model directory
 that is not a directory is a registry version, stage or ``latest``
@@ -132,6 +139,10 @@ def build_parser() -> argparse.ArgumentParser:
         "train": (
             "train an exact-tier model or the long-context doc model into a bundle",
             "train.steps=200 registry.root=<dir>",
+        ),
+        "pretrain": (
+            "masked-feature pretraining on unlabeled rows (bert)",
+            "model.family=bert train.steps=1000",
         ),
         "score-batch": (
             "bulk-score a dataset (in memory or streamed) with a flax bundle",
@@ -363,6 +374,13 @@ def _train(config) -> int:
     return 0
 
 
+def _pretrain(config) -> int:
+    from mlops_tpu_torch.commands import pretrain
+
+    print(json.dumps(pretrain(config)), flush=True)
+    return 0
+
+
 def _score_batch(config) -> int:
     from mlops_tpu_torch.commands import score_batch
 
@@ -541,6 +559,7 @@ def main(argv: list[str] | None = None) -> int:
         "lifecycle": _lifecycle,
         "predict-file": _predict_file,
         "train": _train,
+        "pretrain": _pretrain,
         "score-batch": _score_batch,
         "tune": _tune,
         "register": _register,

@@ -1,4 +1,4 @@
-"""Offline subcommands: ``train``, ``tune``, ``predict-file`` on a
+"""Offline subcommands: ``train``, ``pretrain``, ``tune``, ``predict-file`` on a
 ``flax`` (exact tier), ``sklearn`` or ``doc`` bundle, ``score-batch``, ``warmup``, the
 registry's ``register`` / ``promote`` / ``versions`` / ``gc``, ``synth``
 and ``validate``.
@@ -11,8 +11,13 @@ library when no bundle resolves (said on stderr), and returns the report.
 
 ``train`` is the JAX package's ``_train`` (``mlops_tpu/commands.py:96``):
 ``run_layout_training`` for a layout config (the long-context doc model),
-else ``run_training`` (the exact tier's dense trainer), on
-``train.device`` (the card unless ``cpu``), then the same JSON line. ``predict-file`` is the JAX
+else ``run_training`` (the exact tier's dense trainer; a bert fine-tune
+from a pretrained trunk with ``train.init_params``), on
+``train.device`` (the card unless ``cpu``), then the same JSON line.
+``pretrain`` is the JAX package's ``_pretrain``
+(``mlops_tpu/commands.py:123``): masked-feature pretraining of the bert
+trunk on unlabeled rows (``train/pretrain.py``), written to
+``<run_dir>/pretrained.msgpack``. ``predict-file`` is the JAX
 package's ``_predict_file`` / ``_predict_documents``
 (``mlops_tpu/commands.py:315-384``). On a ``flax`` bundle it is one
 exact-tier engine dispatch over the whole file (``buckets=(max_batch,)``,
@@ -81,6 +86,46 @@ def train(config: Config) -> dict:
         "packaged_step": result.train_result.packaged_step,
         "metrics": result.train_result.metrics,
     }
+
+
+def pretrain(config: Config) -> dict:
+    """``pretrain --config <toml> [overrides]``: masked-feature
+    pretraining on ``train.device`` with the JAX package's checks and data
+    sources (``data.train_path`` or ``data.rows`` synthetic rows; labels
+    are never read); the JSON it prints (pretrained, rows, loss_curve)."""
+    from mlops_tpu_torch.data import Preprocessor, generate_synthetic
+    from mlops_tpu_torch.train.pipeline import new_run_dir
+    from mlops_tpu_torch.train.pretrain import (
+        PRETRAINED_NAME,
+        pretrain_bert,
+        save_pretrained,
+    )
+
+    if config.model.family != "bert":
+        raise SystemExit("pretrain supports model.family=bert")
+    if config.model.uses_layout_trainer:
+        raise SystemExit(
+            "pretrain runs the dense single-record masked-LM; unset the "
+            "layout knobs (model.pipeline_stages / seq_parallel / "
+            "doc_records>1)"
+        )
+    if config.data.train_path:
+        columns, _ = load_table_columns(config.data.train_path)
+    else:
+        columns, _ = generate_synthetic(config.data.rows, seed=config.data.seed)
+    ds = Preprocessor.fit(columns).encode(columns)
+    result = pretrain_bert(
+        config.model,
+        ds,
+        steps=config.train.steps,
+        batch_size=config.train.batch_size,
+        learning_rate=config.train.learning_rate,
+        seed=config.train.seed,
+        device=config.train.device,
+    )
+    out = new_run_dir(config) / PRETRAINED_NAME
+    save_pretrained(result, out)
+    return {"pretrained": str(out), "rows": ds.n, "loss_curve": result.losses}
 
 
 def lifecycle(config: Config) -> tuple[dict, bool]:

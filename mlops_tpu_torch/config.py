@@ -74,9 +74,10 @@ class DataConfig:
 @dataclasses.dataclass
 class ModelConfig:
     """The JAX package's ``ModelConfig`` (``mlops_tpu/config.py:42``),
-    field for field with its defaults. The port builds the exact tier's
-    linear, mlp and deep-ensemble models (``models.build_model``) and the
-    dense doc model (``family="bert"``, ``doc_records > 1``) from it."""
+    field for field with its defaults. The port builds every family of
+    the exact tier and its deep ensembles (``models.build_model``), the
+    masked-LM of pretraining and the dense doc model (``family="bert"``,
+    ``doc_records > 1``) from it."""
 
     family: str = "mlp"  # mlp | ft_transformer | moe | linear | bert | gbm | rf
     hidden_dims: tuple[int, ...] = (256, 256, 128)
@@ -121,7 +122,8 @@ class TrainConfig:
     ensembles and the transformer families) and the quant student
     (``distill_quant``), as the JAX package's does. Every trainer streams
     its metrics to TensorBoard too when ``tensorboard_dir`` is set;
-    ``init_params`` is refused when set (ROADMAP A9)."""
+    ``init_params`` (a ``pretrain`` file) grafts a pretrained bert trunk
+    into the dense trainer's initial params."""
 
     batch_size: int = 1024
     steps: int = 2000

@@ -1,15 +1,18 @@
-"""Model zoo (ported: the exact tier's linear, mlp, deep ensemble,
-FT-Transformer and single-record BERT, the long-context document BERT,
-and the sklearn tree-ensemble floor in ``models/gbm.py``).
+"""Model zoo (ported: every family of the JAX package's zoo, the
+exact tier's linear, mlp, FT-Transformer, mixture-of-experts and
+single-record BERT and deep ensembles of any of them, the BERT
+masked-LM of pretraining, the long-context document BERT, and the
+sklearn tree-ensemble floor in ``models/gbm.py``).
 
-``build_model`` is the JAX package's (``mlops_tpu/models/__init__.py``)
-for the families the exact tier serves; the sklearn families are refused
-with the JAX package's message (they have no module), the others with
-the ROADMAP item that ports them. Every model maps ``(cat_ids int32 [N, C],
-numeric f32 [N, M], train=False, generator=None) -> logits f32 [N]``
-(a deep ensemble in training: ``[K, N]``); ``generator`` is the
-trainer's dropout stream, None in eval. ``init_params`` starts a model
-from flax's default initializers.
+``build_model`` is the JAX package's (``mlops_tpu/models/__init__.py``);
+the sklearn families are refused with the JAX package's message (they
+have no module). Every model maps ``(cat_ids int32 [N, C], numeric f32
+[N, M], train=False, generator=None) -> logits f32 [N]`` (a deep
+ensemble in training: ``[K, N]``); ``generator`` is the trainer's
+dropout stream, None in eval. A family with auxiliary losses (``moe``)
+returns ``(logits, aux [(K,) blocks])`` in training instead
+(``train/loop.py::training_loss`` adds them). ``init_params`` starts a
+model from flax's default initializers.
 """
 
 from __future__ import annotations
@@ -28,16 +31,11 @@ from mlops_tpu_torch.models.ft_transformer import FTTransformer
 from mlops_tpu_torch.models.gbm import SKLEARN_FAMILIES
 from mlops_tpu_torch.models.layers import Dense, Embed, LayerNorm
 from mlops_tpu_torch.models.mlp import MLP, LinearModel
+from mlops_tpu_torch.models.moe import MoETransformer
 from mlops_tpu_torch.schema.features import SCHEMA
 
 FAMILIES = ("linear", "mlp", "ft_transformer", "moe", "bert")
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
-
-# Families the exact tier does not serve yet, with what ports them.
-_UNPORTED = {
-    "moe": "the MoE transformer is ROADMAP A9",
-}
-_TRANSFORMERS = ("ft_transformer", "bert")
 
 
 def build_model(config: ModelConfig, members: int = 0) -> nn.Module:
@@ -45,18 +43,7 @@ def build_model(config: ModelConfig, members: int = 0) -> nn.Module:
     (load a bundle's params or ``init_params`` into it). ``ensemble_size
     > 1`` wraps the family in a ``DeepEnsemble`` whose member carries the
     member axis."""
-    if config.family in _UNPORTED:
-        raise ValueError(
-            f"model family {config.family!r} is not ported to the exact tier: "
-            f"{_UNPORTED[config.family]}"
-        )
     if config.ensemble_size > 1:
-        if config.family in _TRANSFORMERS:
-            raise ValueError(
-                f"a deep ensemble of {config.family!r} members is not ported "
-                "(ROADMAP A9): the port's attention has no member axis; "
-                "ensembles take linear or mlp members"
-            )
         single = dataclasses.replace(config, ensemble_size=1)
         size = config.ensemble_size
         return DeepEnsemble(build_model(single, members=size), size)
@@ -82,6 +69,19 @@ def build_model(config: ModelConfig, members: int = 0) -> nn.Module:
             heads=config.heads,
             dropout=config.dropout,
             dtype=dtype,
+            members=members,
+        )
+    if config.family == "moe":
+        return MoETransformer(
+            SCHEMA.cards,
+            SCHEMA.num_numeric,
+            token_dim=config.token_dim,
+            depth=config.depth,
+            heads=config.heads,
+            num_experts=config.num_experts,
+            dropout=config.dropout,
+            dtype=dtype,
+            members=members,
         )
     if config.family == "bert":
         return BertEncoder(
@@ -92,6 +92,7 @@ def build_model(config: ModelConfig, members: int = 0) -> nn.Module:
             heads=config.heads,
             dropout=config.dropout,
             dtype=dtype,
+            members=members,
         )
     return MLP(
         SCHEMA.cards,
@@ -110,10 +111,14 @@ def build_model(config: ModelConfig, members: int = 0) -> nn.Module:
 _TRUNC_STD = 0.87962566103423978
 
 # Parameters that are not a layer's, by name, with the standard deviation
-# of their flax initializer (0: zeros): the doc and single-record BERT's
-# ``pos_embed``, the FT-Transformer tokenizer's ``num_weight``, ``cls``
-# and ``num_bias``.
-_RAW_PARAM_STD = {"pos_embed": 0.02, "num_weight": 0.02, "cls": 0.02, "num_bias": 0.0}
+# of their flax initializer (0: zeros): the BERT models' ``pos_embed``,
+# the FT-Transformer tokenizer's ``num_weight``, ``cls`` and ``num_bias``,
+# the MoE's stacked experts and their biases.
+_RAW_PARAM_STD = {
+    "pos_embed": 0.02, "num_weight": 0.02, "cls": 0.02, "num_bias": 0.0,
+    "experts_in": 0.02, "experts_out": 0.02,
+    "experts_in_bias": 0.0, "experts_out_bias": 0.0,
+}
 
 
 @torch.no_grad()
@@ -167,6 +172,7 @@ __all__ = [
     "FTTransformer",
     "LinearModel",
     "MLP",
+    "MoETransformer",
     "build_model",
     "init_params",
 ]

@@ -1,6 +1,7 @@
 """The BERT models of the JAX package's ``models/bert.py``: the
 single-record ``BertEncoder`` (48 tokens, the exact tier's ``bert``
-family) and the long-context document ``BertDocEncoder``.
+family), its masked-feature pretraining twin ``BertMaskedLM`` and the
+long-context document ``BertDocEncoder``.
 
 Records render as tokens with pure integer arithmetic (``tokenize``):
 ``[CLS] name_1 value_1 ... name_23 value_23 [SEP]``, categoricals as
@@ -13,7 +14,10 @@ history. Module and parameter names follow the flax tree (``tok_embed``,
 ``head``). The doc model trains with dropout 0, where the training path
 is the eval path under autograd; ``BertEncoder`` takes the zoo's
 ``train``/``generator`` and drops out after the embedding front and in
-its blocks. The masked-LM head is not ported yet.
+its blocks; with ``members=K`` it is the member of a deep ensemble (a
+leading ``[K, ...]`` axis on every parameter, logits ``[K, N]``).
+``BertMaskedLM`` shares the classifier's trunk names, so
+``transfer_encoder_params`` grafts a pretrained trunk into it.
 """
 
 from __future__ import annotations
@@ -158,23 +162,67 @@ def tokenize_documents(
 
 def apply_embed_front(mod: nn.Module, tokens: torch.Tensor) -> torch.Tensor:
     """The shared embedding front: ``ln_embed(tok_embed + pos_embed)``,
-    the sum in the model's type."""
-    x = mod.tok_embed(tokens) + mod.pos_embed.to(mod.dtype)[None]
-    return mod.ln_embed(x)
+    the sum in the model's type (``[(K,) N, S, H]``: a member axis leads
+    the table, the positions and the result)."""
+    pos = mod.pos_embed.to(mod.dtype).unsqueeze(-3)  # [(K,) 1, S, H]
+    return mod.ln_embed(mod.tok_embed(tokens) + pos)
 
 
 def apply_cls_head(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
     """The shared read-out: ``ln_final`` on [CLS], a tanh pooler, the head
     logit. The logit is rounded to the model's type before the cast to
     f32, as in the JAX package (about 0.008 at logits near 1 in bf16)."""
-    cls = mod.ln_final(x[:, 0])
+    cls = mod.ln_final(x[..., 0, :])
     pooled = torch.tanh(mod.pooler(cls))
-    return mod.head(pooled)[:, 0].float()
+    return mod.head(pooled)[..., 0].float()
 
 
-class BertEncoder(nn.Module):
+class _BertTrunk(nn.Module):
+    """The trunk ``BertEncoder`` and ``BertMaskedLM`` share, under the
+    flax names: ``tok_embed``, ``pos_embed``, ``ln_embed``, ``block_i``
+    and ``ln_final``; ``trunk`` runs the embedding front, its dropout and
+    the blocks over token ids."""
+
+    def __init__(
+        self,
+        cards: Sequence[int],
+        num_numeric: int,
+        hidden: int,
+        depth: int,
+        heads: int,
+        dropout: float,
+        num_bins: int,
+        dtype: torch.dtype,
+        members: int = 0,
+    ) -> None:
+        super().__init__()
+        self.layout = TokenLayout(tuple(cards), num_numeric, num_bins)
+        self.depth = depth
+        self.dropout = dropout
+        self.dtype = dtype
+        self.members = members
+        lead = (members,) if members else ()
+        self.tok_embed = Embed(self.layout.vocab_size, hidden, dtype, members)
+        self.pos_embed = nn.Parameter(torch.zeros(lead + (self.layout.seq_len, hidden)))
+        self.ln_embed = LayerNorm(hidden, dtype, members=members)
+        for i in range(depth):
+            self.add_module(
+                f"block_{i}", TransformerBlock(heads, hidden, dtype, dropout, members)
+            )
+        self.ln_final = LayerNorm(hidden, dtype, members=members)
+
+    def trunk(
+        self, tokens: torch.Tensor, generator: torch.Generator | None
+    ) -> torch.Tensor:
+        x = dropout(apply_embed_front(self, tokens), self.dropout, generator)
+        for i in range(self.depth):
+            x = getattr(self, f"block_{i}")(x, generator)
+        return x
+
+
+class BertEncoder(_BertTrunk):
     """Pre-LN BERT over the single-record token rendering:
-    ``(cat_ids, numeric) -> logits f32 [N]`` over 48 tokens, the
+    ``(cat_ids, numeric) -> logits f32 [(K,) N]`` over 48 tokens, the
     classifier reading [CLS] (dense attention: the sequence is far below
     the flash kernels' length)."""
 
@@ -188,22 +236,13 @@ class BertEncoder(nn.Module):
         dropout: float = 0.0,
         num_bins: int = 32,
         dtype: torch.dtype = torch.bfloat16,
+        members: int = 0,
     ) -> None:
-        super().__init__()
-        self.layout = TokenLayout(tuple(cards), num_numeric, num_bins)
-        self.depth = depth
-        self.dropout = dropout
-        self.dtype = dtype
-        self.tok_embed = Embed(self.layout.vocab_size, hidden, dtype)
-        self.pos_embed = nn.Parameter(torch.zeros((self.layout.seq_len, hidden)))
-        self.ln_embed = LayerNorm(hidden, dtype)
-        for i in range(depth):
-            self.add_module(
-                f"block_{i}", TransformerBlock(heads, hidden, dtype, dropout)
-            )
-        self.ln_final = LayerNorm(hidden, dtype)
-        self.pooler = Dense((hidden, hidden), (hidden,), dtype)
-        self.head = Dense((hidden, 1), (1,), dtype)
+        super().__init__(
+            cards, num_numeric, hidden, depth, heads, dropout, num_bins, dtype, members
+        )
+        self.pooler = Dense((hidden, hidden), (hidden,), dtype, members=members)
+        self.head = Dense((hidden, 1), (1,), dtype, members=members)
 
     def forward(
         self,
@@ -213,11 +252,54 @@ class BertEncoder(nn.Module):
         generator: torch.Generator | None = None,
     ) -> torch.Tensor:
         gen = generator if train else None
-        x = apply_embed_front(self, tokenize(cat_ids, numeric, self.layout))
-        x = dropout(x, self.dropout, gen)
-        for i in range(self.depth):
-            x = getattr(self, f"block_{i}")(x, gen)
+        x = self.trunk(tokenize(cat_ids, numeric, self.layout), gen)
         return apply_cls_head(self, x)
+
+
+class BertMaskedLM(_BertTrunk):
+    """Masked-feature pretraining head over the classifier's trunk: value
+    tokens under ``mask`` become ``[MASK]``, and ``mlm_head`` (a Dense to
+    the vocabulary in the model's type, after ``ln_final`` on every
+    position) predicts the original ids. ``forward(cat_ids, numeric,
+    mask bool [N, S], train=True, generator=None) -> (logits f32 [N, S,
+    vocab], targets int64 [N, S])``."""
+
+    def __init__(
+        self,
+        cards: Sequence[int],
+        num_numeric: int,
+        hidden: int = 768,
+        depth: int = 12,
+        heads: int = 12,
+        dropout: float = 0.0,
+        num_bins: int = 32,
+        dtype: torch.dtype = torch.bfloat16,
+    ) -> None:
+        super().__init__(
+            cards, num_numeric, hidden, depth, heads, dropout, num_bins, dtype
+        )
+        vocab = self.layout.vocab_size
+        self.mlm_head = Dense((hidden, vocab), (vocab,), dtype)
+
+    def value_positions(self) -> np.ndarray:
+        """Sequence indices of the value tokens, the maskable positions:
+        every second slot after CLS, ``[2, 4, ..., 2F]``."""
+        return np.arange(2, 2 * self.layout.num_features + 1, 2)
+
+    def forward(
+        self,
+        cat_ids: torch.Tensor,
+        numeric: torch.Tensor,
+        mask: torch.Tensor,
+        train: bool = True,
+        generator: torch.Generator | None = None,
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        targets = tokenize(cat_ids, numeric, self.layout)
+        tokens = torch.where(mask, torch.full_like(targets, MASK_ID), targets)
+        x = self.ln_final(self.trunk(tokens, generator if train else None))
+        n, s, h = x.shape
+        logits = self.mlm_head(x.reshape(n * s, h)).reshape(n, s, -1)
+        return logits.float(), targets
 
 
 class BertDocEncoder(nn.Module):
@@ -264,3 +346,22 @@ class BertDocEncoder(nn.Module):
         for i in range(self.depth):
             x = getattr(self, f"block_{i}")(x)
         return apply_cls_head(self, x)
+
+
+def transfer_encoder_params(
+    pretrained: dict[str, torch.Tensor], target: dict[str, torch.Tensor]
+) -> dict[str, torch.Tensor]:
+    """Graft a pretrained trunk into a classifier's params (both flattened
+    by ``.``, the ``state_dict`` names): every top-level subtree the two
+    share, ``mlm_head`` aside, comes whole from ``pretrained``; the rest
+    (``pooler``, ``head``) keeps ``target``'s values, as the JAX
+    package's graft of same-named subtrees does."""
+    tops = {name.split(".", 1)[0] for name in target}
+    grafted = {
+        name.split(".", 1)[0] for name in pretrained
+    } & tops - {"mlm_head"}
+    merged = {k: v for k, v in target.items() if k.split(".", 1)[0] not in grafted}
+    merged.update(
+        {k: v for k, v in pretrained.items() if k.split(".", 1)[0] in grafted}
+    )
+    return merged

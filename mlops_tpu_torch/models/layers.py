@@ -13,10 +13,12 @@ a product is rounded to it before its bias is added, as flax's
 its statistics in f32 (eps 1e-6, flax's fast variance) and returns the
 model's type.
 
-``members=K`` gives Dense, Embed and LayerNorm a leading ``[K, ...]``
-axis on every parameter, the layout of the JAX package's ``nn.vmap``
-deep ensemble: one batched product per layer over the K members, the
-input shared (``[N, F]``) or per member (``[K, N, F]``).
+``members=K`` gives every layer here a leading ``[K, ...]`` axis on
+every parameter, the layout of the JAX package's ``nn.vmap`` deep
+ensemble: one batched product per layer over the K members, the input
+shared (``[N, F]``) or per member (``[K, N, F]``; LayerNorm takes any
+``[K, ..., F]``). Self-attention folds the members into the batch before
+``attend``.
 """
 
 from __future__ import annotations
@@ -98,8 +100,9 @@ class LayerNorm(nn.Module):
         mean = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
         scale, bias = self.scale, self.bias
-        if self.lead:  # [K, F] -> [K, 1, F] over the members' rows
-            scale, bias = scale.unsqueeze(-2), bias.unsqueeze(-2)
+        if self.lead:  # [K, F] -> [K, 1, ..., F] over the members' rows
+            shape = self.lead + (1,) * (x.dim() - 2) + scale.shape[-1:]
+            scale, bias = scale.reshape(shape), bias.reshape(shape)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * scale) + bias
         return y.to(self.dtype)
 
@@ -141,7 +144,9 @@ class MultiHeadSelfAttention(nn.Module):
     times the scale, a softmax, dropout on the probabilities, which are
     cast to v's type for ``einsum(p, v)``. The ring (``attend_fn``) and
     padding masks belong to the sequence-parallel path and the masked
-    dense path, which are not ported, and are refused."""
+    dense path, which are not ported, and are refused. With ``members=K``
+    the input is ``[K, N, S, dim]`` and the K members' sequences are one
+    batch of ``K * N`` for the attention itself."""
 
     def __init__(
         self,
@@ -151,6 +156,7 @@ class MultiHeadSelfAttention(nn.Module):
         use_flash: bool | None = None,
         attend_fn: Callable | None = None,
         dropout: float = 0.0,
+        members: int = 0,
     ) -> None:
         super().__init__()
         if attend_fn is not None:
@@ -165,11 +171,12 @@ class MultiHeadSelfAttention(nn.Module):
         self.use_flash = use_flash  # None = dispatch on device and length
         self.dropout = dropout
         self.qkv = Dense(
-            (dim, 3, heads, self.head_dim), (3, heads, self.head_dim), dtype
+            (dim, 3, heads, self.head_dim), (3, heads, self.head_dim), dtype,
+            members=members,
         )
         self.out = Dense(
             (heads, self.head_dim, dim), (dim,), dtype,
-            in_features=heads * self.head_dim,
+            in_features=heads * self.head_dim, members=members,
         )
 
     def forward(
@@ -183,9 +190,10 @@ class MultiHeadSelfAttention(nn.Module):
                 "padding masks are not ported: they need the masked dense "
                 "attention path"
             )
-        n, s, dim = x.shape
-        qkv = self.qkv(x.reshape(n * s, dim)).reshape(
-            n, s, 3, self.heads, self.head_dim
+        lead = x.shape[:-3]  # (K,) with members
+        n, s, dim = x.shape[-3:]
+        qkv = self.qkv(x.reshape(*lead, n * s, dim)).reshape(
+            -1, s, 3, self.heads, self.head_dim
         )
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         if self.dropout > 0.0 and generator is not None:
@@ -196,4 +204,4 @@ class MultiHeadSelfAttention(nn.Module):
             out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
         else:
             out = attend(q, k, v, use_flash=self.use_flash)
-        return self.out(out.reshape(n * s, dim)).reshape(n, s, dim)
+        return self.out(out.reshape(*lead, n * s, dim)).reshape(*lead, n, s, dim)

@@ -53,7 +53,7 @@ from mlops_tpu_torch.config import HPOConfig, ModelConfig, TrainConfig
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.device import resolve_device
 from mlops_tpu_torch.models import FAMILIES, build_model, init_params
-from mlops_tpu_torch.train.loop import EVAL_CHUNK_ROWS, sigmoid_bce
+from mlops_tpu_torch.train.loop import EVAL_CHUNK_ROWS, loss_of
 from mlops_tpu_torch.train.metrics import binary_metrics
 from mlops_tpu_torch.utils.io import atomic_write
 
@@ -79,8 +79,7 @@ def parse_architecture_spec(spec: str, base: ModelConfig) -> ModelConfig:
     """One ``hpo.architectures`` entry -> a ModelConfig: comma-separated
     ``field=value`` overrides of any ModelConfig field, tuples joined by
     ``x`` (``hidden_dims=64x64``), values coerced by the field's current
-    type. The JAX package's grammar and errors; a ``moe`` group is
-    refused here too, before any group trains."""
+    type. The JAX package's grammar and errors."""
     overrides: dict[str, Any] = {}
     for pair in spec.split(","):
         pair = pair.strip()
@@ -112,11 +111,6 @@ def parse_architecture_spec(spec: str, base: ModelConfig) -> ModelConfig:
         raise ValueError(
             f"bad architecture spec {spec!r}: family {result.family!r} is "
             f"not vmappable (Flax families: {FAMILIES})"
-        )
-    if result.family == "moe":
-        raise ValueError(
-            f"bad architecture spec {spec!r}: family 'moe' is not ported "
-            "(ROADMAP.md A9)"
         )
     return result
 
@@ -303,11 +297,11 @@ class TrialStack:
         }
 
     def _trial_loss(self, params, cat, num, lab, pos_weight, bases):
-        logits = functional_call(
+        out = functional_call(
             self.model, params, (cat, num),
             {"train": True, "generator": CounterStream(bases)},
         )
-        return sigmoid_bce(logits, lab, pos_weight)
+        return loss_of(out, lab, pos_weight)
 
     def loss_and_grad(self):
         """Every trial's loss ``[T]`` and gradient ``[T, P]`` at the next

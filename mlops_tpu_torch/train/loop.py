@@ -172,10 +172,26 @@ def training_loss(
     generator: torch.Generator | None = None,
     pos_weight: float = 1.0,
 ) -> torch.Tensor:
-    """The JAX ``training_loss`` without auxiliaries (MoE is not ported):
-    weighted BCE of the training forward, over ``[N]`` or an ensemble's
-    ``[K, N]`` member logits (the mean of K independent member losses)."""
-    return sigmoid_bce(model(cat, num, train=True, generator=generator), lab, pos_weight)
+    """The JAX ``training_loss``: weighted BCE of the training forward,
+    over ``[N]`` or an ensemble's ``[K, N]`` member logits (the mean of K
+    independent member losses), plus every auxiliary the model returns
+    (``loss_of``)."""
+    out = model(cat, num, train=True, generator=generator)
+    return loss_of(out, lab, pos_weight)
+
+
+def loss_of(out, lab: torch.Tensor, pos_weight) -> torch.Tensor:
+    """The loss of a training forward's output: BCE of the logits, then
+    for a family with auxiliaries (``(logits, aux [(K,) blocks])``, the
+    MoE's load-balance terms) the mean of each block's auxiliary over the
+    members added in turn, as the JAX loss adds the mean of every sown
+    leaf."""
+    logits, aux = out if isinstance(out, tuple) else (out, None)
+    loss = sigmoid_bce(logits, lab, pos_weight)
+    if aux is not None:
+        for leaf in aux.unbind(-1):
+            loss = loss + leaf.mean()
+    return loss
 
 
 def lr_schedule(config: TrainConfig) -> Callable[[int], float]:

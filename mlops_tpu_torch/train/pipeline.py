@@ -6,7 +6,9 @@ routes with their helpers (run directory, data, split, resume,
 checkpoints, packaging):
 
 - ``run_training``, the dense single-record trainer of the exact tier
-  (linear, mlp, deep ensembles, FT-Transformer, single-record BERT):
+  (linear, mlp, FT-Transformer, mixture-of-experts, single-record BERT
+  and deep ensembles of any of them; with ``train.init_params`` a bert
+  fine-tune from a pretrained masked-LM trunk, ``train/pretrain.py``):
   ``loop.fit``, temperature calibration on the packaged params, the
   distilled students (``train/distill.py``: the bulk student of an
   ensemble or a transformer family unless ``train.distill_bulk`` is off,
@@ -26,9 +28,8 @@ it and ``registry.root`` may be ``gs://`` URIs, as in the JAX package.
 The sklearn tree-ensemble floor (gbm, rf) trains on the host through
 scikit-learn, as in the JAX package, into an ``sklearn`` bundle. What the
 JAX ``train`` command accepts and the port does not train yet (pipeline-
-and tensor-parallel training, the sequence-parallel ring, pretrained
-trunks, the MoE family) is refused before any work, naming its ROADMAP
-item.
+and tensor-parallel training, the sequence-parallel ring) is refused
+before any work, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from mlops_tpu_torch.config import Config, ModelConfig
 from mlops_tpu_torch.data import Preprocessor, generate_synthetic, load_table_columns
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.device import resolve_device
-from mlops_tpu_torch.models import build_model
+from mlops_tpu_torch.models import build_model, init_params
 from mlops_tpu_torch.models.gbm import SKLEARN_FAMILIES, SklearnBaseline
 from mlops_tpu_torch.monitor.state import fit_monitor
 from mlops_tpu_torch.train.calibrate import calibration_record, probs_to_logits
@@ -87,6 +88,7 @@ from mlops_tpu_torch.train.loop import (
     packaged_or_raw,
 )
 from mlops_tpu_torch.train.metrics import binary_metrics
+from mlops_tpu_torch.train.pretrain import load_pretrained_variables
 from mlops_tpu_torch.utils.io import atomic_write
 from mlops_tpu_torch.weights import load_params, unflatten_tree
 
@@ -293,13 +295,19 @@ def _refuse_unported_dense(config: Config) -> None:
             "training layouts have dedicated trainers (model.doc_records -> "
             "run_layout_training, which the `train` CLI dispatches to)"
         )
-    if model.family == "moe":
-        raise ValueError("model.family='moe' is not ported (ROADMAP.md A9)")
-    if config.train.init_params:
-        raise ValueError(
-            "train.init_params (a pretrained masked-LM trunk) is not ported "
-            "(ROADMAP.md A9)"
-        )
+
+
+def load_init_state(config: Config) -> dict[str, torch.Tensor] | None:
+    """``train.init_params``: the pretrained masked-LM trunk grafted into
+    a fresh init of the model from ``train.seed``; None when unset. An
+    ensemble, a family other than bert, a missing file or a tree that
+    does not match raise as in the JAX package."""
+    if not config.train.init_params:
+        return None
+    fresh = init_params(build_model(config.model), config.train.seed)
+    return load_pretrained_variables(
+        config.train.init_params, config.model, fresh.state_dict()
+    )
 
 
 def run_training(
@@ -311,13 +319,17 @@ def run_training(
     temperature fitted on the packaged params' validation logits, the
     bulk and quant students (``_maybe_distill``, ``_maybe_distill_quant``)
     distilled from the packaged params, the monitors, the bundle, the
-    registry. The sklearn families (gbm, rf) take the JAX package's
-    branch (``_run_sklearn_training``)."""
+    registry. With ``train.init_params`` the model starts from a fresh
+    init (``train.seed``) with the pretrained trunk grafted in
+    (``load_init_state``); a checkpoint still wins over it. The sklearn
+    families (gbm, rf) take the JAX package's branch
+    (``_run_sklearn_training``)."""
     _refuse_unported_dense(config)
     if config.model.family in SKLEARN_FAMILIES:
         return _run_sklearn_training(config, register, run_name)
     device = resolve_device(config.train.device)
     model = build_model(config.model)  # refuses what the zoo does not port
+    init_state = load_init_state(config)  # before any work: a bad file raises
     run_name = run_name or time.strftime("%Y%m%d-%H%M%S")
     run_dir = new_run_dir(config, run_name)
     columns, labels = load_training_data(config)
@@ -326,6 +338,7 @@ def run_training(
     train_ds, valid_ds = split_dataset(ds, config.data.valid_fraction)
     result = fit(
         model, train_ds, valid_ds, config.train,
+        init_state=init_state,
         metrics_path=run_dir / "metrics.jsonl",
         checkpoint_dir=run_dir / "checkpoints",
         device=device,
@@ -564,8 +577,6 @@ def run_tuning(
             "(model.pipeline_stages / seq_parallel / doc_records>1) train "
             "via `train` -> run_layout_training"
         )
-    if model.family == "moe":
-        raise ValueError("model.family='moe' is not ported (ROADMAP.md A9)")
     device = resolve_device(config.train.device)
     run_name = run_name or time.strftime("%Y%m%d-%H%M%S") + "-tune"
     run_dir = new_run_dir(config, run_name)

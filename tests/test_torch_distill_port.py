@@ -7,7 +7,9 @@ JAX ``load_bundle`` and scored by the JAX ``score_dataset`` on the
 distilled and quant paths within the bulk tolerances
 (``test_torch_bulk.py``); ``run_training`` writes the ``bulk`` block for
 an ensemble and a small FT-Transformer at the default ``distill_bulk``;
-the refusals of the families and options the port lacks stay.
+the refusals stay: gbm in ``tune``, and a ``train.init_params`` that
+cannot graft (a moe model, a missing file) with the JAX package's
+errors.
 """
 
 import json
@@ -91,19 +93,40 @@ def test_run_training_distills_a_transformer_family(tmp_path):
 @pytest.mark.parametrize(
     "overrides,match",
     [
-        (["model.family=moe"], "A9"),
+        # moe trains now (A9); a pretrained trunk cannot graft into it,
+        # refused with the JAX package's message before any work.
+        pytest.param(["model.family=moe", "train.init_params={tmp}/pretrained.msgpack"],
+                     "shares no trunk", id="overrides0-A9"),
         # gbm trains now; `tune` still refuses it, with the JAX message.
         pytest.param(["model.family=gbm"], "sklearn baseline families", id="overrides1-A8"),
-        (["train.init_params=pretrained.msgpack"], "A9"),
+        # train.init_params is ported (A9): a missing file is reported as
+        # the JAX package reports it, before any work.
+        pytest.param(["model.family=bert", "model.token_dim=16", "model.depth=1",
+                      "model.heads=2", "train.init_params={tmp}/missing.msgpack"],
+                     "No such file or directory", id="overrides2-A9"),
     ],
 )
 def test_the_other_refusals_stay(tmp_path, overrides, match):
+    overrides = [o.format(tmp=tmp_path) for o in overrides]
     config = load_config(["train.device=cpu", f"registry.run_root={tmp_path / 'runs'}",
                           *overrides])
     run = run_tuning if config.model.family == "gbm" else run_training
-    with pytest.raises(ValueError, match=match):
+    error = FileNotFoundError if "missing" in config.train.init_params else ValueError
+    with pytest.raises(error, match=match) as got:
         run(config)
     assert not (tmp_path / "runs").exists()
+    if config.train.init_params:
+        from mlops_tpu.config import load_config as jax_load_config
+        from mlops_tpu.models import build_model as jax_build_model
+        from mlops_tpu.models import init_params as jax_init_params
+        from mlops_tpu.train.pretrain import load_pretrained_variables
+
+        jcfg = jax_load_config(None, overrides)
+        jmodel = jax_build_model(jcfg.model)
+        fresh = jax.jit(lambda key: jax_init_params(jmodel, key))(jax.random.PRNGKey(0))
+        with pytest.raises(error) as want:
+            load_pretrained_variables(jcfg.train.init_params, jcfg.model, fresh)
+        assert str(got.value) == str(want.value)
 
 
 def test_score_and_lifecycle_tables_load():

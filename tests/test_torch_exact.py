@@ -148,12 +148,24 @@ def test_the_ensemble_holds_its_members_on_a_leading_axis():
     [
         # The tree families have no module: refused with the JAX message.
         pytest.param(dict(family="rf"), "CPU sklearn baseline", id="kw0-A8"),
-        (dict(family="moe", ensemble_size=2), "A9"),
-        (dict(family="moe"), "A9"),
+        # The moe family and its ensembles are ported: they build, and the
+        # flax param tree loads into them name for name, shape for shape.
+        pytest.param(dict(family="moe", ensemble_size=2), None, id="kw1-A9"),
+        pytest.param(dict(family="moe"), None, id="kw2-A9"),
         pytest.param(dict(family="gbm"), "CPU sklearn baseline", id="kw3-A8"),
     ],
 )
 def test_build_model_refuses_the_families_it_does_not_port(kw, item):
+    if item is None:
+        kw = dict(kw, token_dim=16, depth=1, heads=2, num_experts=4)
+        _, params = _jax_params(kw)
+        model = _port_model(kw, params)  # load_params refuses any mismatch
+        leaves = jax.tree_util.tree_leaves(params)
+        assert len(model.state_dict()) == len(leaves)
+        lead = (kw["ensemble_size"],) if "ensemble_size" in kw else ()
+        name = ("member." if lead else "") + "block_0.MoEFeedForward_0.experts_out"
+        assert model.state_dict()[name].shape == lead + (4, 64, 16)
+        return
     with pytest.raises(ValueError, match=item):
         build_model(ModelConfig(**kw))
     if kw["family"] in ("gbm", "rf"):
@@ -482,19 +494,27 @@ def test_the_tier_table(exact_bundles, tmp_path, caplog):
         InferenceEngine(mlp, serve_tier="int8", device="cpu")
     with pytest.raises(ValueError, match="ROADMAP A11"):
         load_config(["serve.model_shards=4"])
-    # A bundle of a family the exact tier does not port loads without it.
-    manifest = json.loads((exact_bundles["linear"] / "manifest.json").read_text())
-    manifest["model_config"]["family"] = "moe"
-    import shutil
-
-    shutil.copytree(exact_bundles["linear"], tmp_path / "moe")
-    (tmp_path / "moe" / "manifest.json").write_text(json.dumps(manifest))
+    # A moe bundle (the family is ported) loads with its exact tier and
+    # serves on it, answering as the JAX engine does on the same bundle.
+    kw = dict(family="moe", token_dim=16, depth=1, heads=2, num_experts=4,
+              precision="bf16")
+    _, params = _jax_params(kw, seed=7)
+    linear = load_bundle(exact_bundles["linear"])
+    save_exact_bundle(tmp_path / "moe", ModelConfig(**kw), _port_model(kw, params),
+                      linear.preprocessor, linear.monitor,
+                      calibration={"temperature": TEMPERATURE})
     moe = load_bundle(tmp_path / "moe")
-    assert moe.model is None and "A9" in moe.exact_refusal
-    with pytest.raises(ValueError, match="A9"):
-        InferenceEngine(moe, device="cpu")
+    assert moe.model is not None and moe.exact_refusal == ""
+    engine = InferenceEngine(moe, buckets=(1, 8), device="cpu")
+    assert engine.serve_tier == "exact"
+    records = _records(5, seed=5, drift=0.3)
+    jb = jax_load_bundle(tmp_path / "moe")
+    _assert_response(engine.predict_records(records),
+                     JaxEngine(jb, buckets=(1, 8)).predict_records(records),
+                     jb, records, PRED_TOL["bf16"] + 1e-6)
     # An sklearn manifest over a directory with neither the estimator nor
     # the tree file: refused at load, naming the files.
+    manifest = json.loads((tmp_path / "moe" / "manifest.json").read_text())
     manifest["flavor"] = "sklearn"
     (tmp_path / "moe" / "manifest.json").write_text(json.dumps(manifest))
     with pytest.raises(ValueError, match="estimator.joblib"):

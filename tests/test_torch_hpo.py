@@ -110,8 +110,14 @@ def test_bad_architecture_specs_raise_the_jax_errors(spec):
 
 
 def test_a_moe_group_is_refused_naming_its_roadmap_item():
-    with pytest.raises(ValueError, match="'moe' is not ported .*A9"):
-        hpo.parse_architecture_spec("family=moe,depth=2", ModelConfig())
+    """The moe family is ported (A9): its group parses as the JAX loader
+    parses it, where it was refused."""
+    from mlops_tpu.config import ModelConfig as JaxModelConfig
+
+    want = jax_hpo.parse_architecture_spec("family=moe,depth=2", JaxModelConfig())
+    got = hpo.parse_architecture_spec("family=moe,depth=2", ModelConfig())
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.family == "moe" and got.depth == 2
 
 
 @pytest.mark.parametrize("raw", [

@@ -13,7 +13,9 @@ sweep's per-group initial params and indices (``tests/torch_hpo_seams.py``):
 merged trial records, surfaced structural hyperparams, the winner's
 config and index as the JAX package's (metrics 1e-4). Resume restores
 finished groups without a training step; a changed dataset recomputes.
-The refusals name the JAX package's reasons or their ROADMAP item."""
+The refusals name the JAX package's reasons or their ROADMAP item; a
+moe config and a moe group, refused until the family was ported, tune
+into a moe bundle both packages load."""
 
 import dataclasses
 import json
@@ -250,13 +252,21 @@ def test_an_ensemble_winner_ships_its_bulk_student_and_never_a_quant_one(tmp_pat
 
 
 # ------------------------------------------------------------- refusals
+# The moe family is ported (A9): a moe config and a moe group tune (at
+# token_dim 16, depth 1, 4 experts) into a moe bundle both packages load.
+_SMALL_MOE = ["model.token_dim=16", "model.depth=1", "model.heads=2",
+              "model.num_experts=4", "train.distill_bulk=false"]
+
+
 @pytest.mark.parametrize("overrides,match", [
     (["model.family=gbm"], "sklearn baseline families"),
     (["model.family=rf"], "sklearn baseline families"),
     (["model.doc_records=3"], "layout knobs"),
     (["model.pipeline_stages=2"], "layout knobs"),
-    (["model.family=moe"], "'moe' is not ported .*A9"),
-    (["hpo.architectures=family=moe"], "'moe' is not ported .*A9"),
+    pytest.param(["model.family=moe", *_SMALL_MOE], None,
+                 id="overrides4-'moe' is not ported .*A9"),
+    pytest.param(["hpo.architectures=family=moe", *_SMALL_MOE], None,
+                 id="overrides5-'moe' is not ported .*A9"),
     (["hpo.architectures=family=gbm"], "not vmappable"),
     (["hpo.strategy=tpe"], "hpo.strategy must be 'random' or 'sha'"),
 ])
@@ -266,6 +276,12 @@ def test_tune_refuses_what_it_cannot_sweep(tmp_path, overrides, match):
         f"registry.root={tmp_path / 'reg'}", f"registry.run_root={tmp_path / 'runs'}",
         *overrides,
     ])
+    if match is None:
+        result, hpo_result = run_tuning(config, register=False)
+        assert len(hpo_result.trials) == 2
+        assert jax_load_bundle(result.bundle_dir).model_config.family == "moe"
+        assert load_bundle(result.bundle_dir).model_config.family == "moe"
+        return
     with pytest.raises(ValueError, match=match):
         run_tuning(config)
 
