@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments:
 It needs one CUDA card of compute capability 9.0 and exits non-zero,
 printing no result, without one (or when run from a directory that holds
 this script and nothing else of the repository). It imports torch and the
-port (``mlops_tpu_torch``), never JAX or the JAX package. Eleven main
+port (``mlops_tpu_torch``), never JAX or the JAX package. Twelve main
 paths: quant-tier serving (``POST /predict`` with
 ``serve.serve_tier=quant``), long-context doc scoring (``predict-file`` on
 a ``doc`` bundle), doc-model training (``train --config
@@ -29,7 +29,9 @@ and a tenant fleet (``serve --tenants configs/tenants.toml``) with its
 quotas and per-tenant loops; and the rest of the transformer families:
 the moe family trained and served, masked-feature ``pretrain`` then a
 ``train.init_params`` fine-tune at BERT-base width, and an ensemble of
-transformer members served.
+transformer members served; and the multi-rank layouts at world size 1
+over NCCL (tensor- and pipeline-parallel ``train``, ``tune`` and
+``score-batch`` under ``torch.distributed.run``).
 Phases, each of which fails the run loudly:
 
 1. the card: ``nvidia-smi`` name and power limit, torch/CUDA versions,
@@ -430,15 +432,39 @@ Phases, each of which fails the run loudly:
     fine-tune steps timed (step ms, kernels per step, busy share, peak
     device memory) and each bundle's warmup (graphs, capture seconds,
     graph pool bytes) and dispatch -> fetch p50. None of the four
-    kernels runs on these paths: their counts read 0.
+    kernels runs on these paths: their counts read 0;
+39. multi-rank training and scoring at world size 1 over NCCL (in the
+    second process, after phase 37; the script needs one H100, and NCCL
+    refuses two ranks on one device): under ``python -m torch.distributed.run --standalone
+    --nproc-per-node 1``, ``train --config configs/train_register_job.toml
+    model.tensor_parallel=1`` (the mlp job, 200 of 2,000 steps), bert and
+    ft_transformer with ``model.pipeline_stages=1 model.dropout=0`` (50
+    steps, 8 microbatches) and ``tune`` beside a plain ``tune``; in this
+    process (a one-rank NCCL group from a local store): the TP step of
+    mlp, ft_transformer, bert and moe (the ModelConfig defaults) held bit
+    for bit against the dense trainer over 50 steps, losses and every
+    parameter, each trained through ``run_layout_training``; GPipe held
+    against the dense trainer (one step's gradients at cosine 0.98 / norm
+    5 %, 50-step curves within 0.05) and the same GPipe run on the CPU
+    (a gloo mesh beside the NCCL world) against the card (5 steps' losses
+    within 0.05, validation AUC within 0.01); every TP and PP bundle
+    served over HTTP on the exact tier (the golden request) while
+    ``score-batch`` runs under the launcher beside a plain one (equal
+    predictions and flags, ``devices`` 1, ``mesh`` [1]); last, one TP step
+    under ``torch.profiler``: its NCCL calls (the ``nccl:*`` host records:
+    one all-reduce per gradient leaf at least) and the device kernels and
+    copies they ran, and the TP and dense steps' ms. None of the four
+    kernels runs here: their counts read 0. ``chip_smoke.py --a11`` runs
+    phases 1 and 39 alone.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
 
 Phases 1-15 run alone, so every kernel time of the kernels line is taken
 on an otherwise idle card. Once the bundles of phases 16 and 22 are
-written, phases 29-37 (the serving planes) run in a second process of
-this script (``--ring-phases``) beside phases 16-28 in this one: each
+written, phases 29-37 (the serving planes) and 39 run in a second process
+of this script (``--ring-phases``) beside phases 16-28 and 38 in this
+one: each
 side counts its kernel launches in its own process, and the two share
 the card and the host's cores, which their requests/s and step times
 show.
@@ -7505,6 +7531,491 @@ def phase_a9(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
     }
 
 
+# Multi-rank training and scoring (ROADMAP A11a) at world size 1 over
+# NCCL: the script runs on one H100, and NCCL refuses two ranks on one
+# device. The mlp job (its 50,000 rows and batch 1,024) with
+# model.tensor_parallel=1, steps cut; ft_transformer, bert and moe at the
+# ModelConfig defaults (token_dim 64, depth 3, 8 heads: the only widths the
+# repo defines); bert and ft_transformer with model.pipeline_stages=1,
+# dropout 0 and the job's 8 microbatches.
+A11_TP = ("model.tensor_parallel=1",)
+A11_TP_STEPS = 200  # of the job's 2,000
+A11_TP_EVAL_EVERY = 100
+A11_CHECK_STEPS = 50  # held against the dense trainer, step by step
+A11_FAMILIES = ("ft_transformer", "bert", "moe")
+A11_PP_FAMILIES = ("bert", "ft_transformer")
+A11_PP = ("model.pipeline_stages=1", "model.dropout=0", "train.distill_bulk=false")
+A11_PP_STEPS = 50
+A11_PP_EVAL_EVERY = 10
+A11_CPU_STEPS = 5  # the same GPipe run on the CPU, held against the card's first
+A11_TUNE = ("hpo.trials=2", "hpo.steps=30", "data.rows=10000")
+A11_SCORE_ROWS = 100_000
+A11_MESH_CHUNK = 65_536  # the in-process data-mesh sweeps: one full chunk and a tail
+A11_TIMED_STEPS = 20
+A11_AUC_TOL = 0.01  # card vs CPU validation AUC, PERF.md §2
+
+
+def _launcher(args: list[str]) -> list[str]:
+    """``python -m torch.distributed.run --standalone --nproc-per-node 1
+    -m mlops_tpu_torch <args>``: one rank, the launcher's environment."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", "-m", "mlops_tpu_torch", *args]
+
+
+def _a11_start(name: str, cmd: list[str], root: Path):
+    root.mkdir(parents=True, exist_ok=True)
+    log_path = root / f"{name}.log"
+    err = open(log_path, "w")
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                            stdout=subprocess.PIPE, stderr=err, text=True)
+    return proc, err, log_path, time.perf_counter()
+
+
+def _a11_finish(name: str, started) -> tuple[dict, float]:
+    proc, err, log_path, t0 = started
+    try:
+        stdout, _ = proc.communicate(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        err.close()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"a11 {name} exited {proc.returncode}: {log_path.read_text()[-3000:]}")
+    lines = [line for line in stdout.strip().splitlines() if line.startswith("{")]
+    check(bool(lines), f"a11 {name} printed no JSON: {stdout[-2000:]}")
+    out = json.loads(lines[-1])
+    log(f"a11 {name}: {wall:.1f} s")
+    return out, wall
+
+
+def _a11_train_args(name: str, root: Path, args, device: str) -> list[str]:
+    return ["train", "--config", EXACT_JOB_TOML, *args, f"registry.root={root / 'registry'}",
+            f"registry.run_root={root / 'runs'}", f"registry.run_name={name}",
+            f"train.device={device}"]
+
+
+def _a11_layout_run(name: str, out: dict, steps: int, every: int, trained_with: str) -> list[dict]:
+    """A layout trainer's JSON line against its metrics.jsonl: a row per
+    window with a finite loss, the final step packaged, the bundle a
+    calibrated flax bundle tagged with its layout."""
+    check(set(out) == {"bundle", "model_uri", "run_dir", "steps", "packaged_step", "metrics"},
+          f"a11 {name} printed keys {sorted(out)}")
+    check(out["steps"] == steps and out["packaged_step"] == steps,
+          f"a11 {name}: steps {out['steps']}, packaged {out['packaged_step']}")
+    rows = [json.loads(line) for line in (Path(out["run_dir"]) / "metrics.jsonl").open()]
+    check([r["step"] for r in rows] == list(range(every, steps + 1, every)),
+          f"a11 {name} metrics.jsonl steps {[r['step'] for r in rows]}")
+    check(all(math.isfinite(r["loss"]) for r in rows), f"a11 {name} losses {rows}")
+    manifest = json.loads((Path(out["bundle"]) / "manifest.json").read_text())
+    check(manifest["flavor"] == "flax" and manifest["calibration"]["temperature"] > 0
+          and manifest["tags"]["trained_with"] == trained_with,
+          f"a11 {name}: bundle {manifest['flavor']} tagged {manifest['tags']}")
+    return rows
+
+
+def _a11_tp_against_dense(config, train_ds, steps: int, device: str) -> dict:
+    """The TP trainer (one rank, 'model' axis 1) and the dense trainer from
+    the same init on the same batches and dropout streams: every loss and,
+    after ``steps`` steps, every parameter, bit for bit."""
+    import torch
+
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.train.loop import batch_indices, make_optimizer, train_step
+    from mlops_tpu_torch.train.tensor_parallel import make_tp_trainer
+
+    tcfg = config.train
+    dense_cfg = dataclasses.replace(config.model, tensor_parallel=0)
+    dense = init_params(build_model(dense_cfg), tcfg.seed).to(device)
+    opt = make_optimizer(dense, tcfg)
+    tp = make_tp_trainer(config, device=device)
+    cat, num, lab = _tensors(train_ds, device)
+    losses_d, losses_t = [], []
+    for step in range(1, steps + 1):
+        idx = torch.from_numpy(batch_indices(train_ds.n, tcfg.batch_size, tcfg.seed, step)).to(device)
+        losses_d.append(train_step(dense, opt, tcfg, step, cat[idx], num[idx], lab[idx]))
+        losses_t.append(tp.step.step(step, cat[idx], num[idx], lab[idx]))
+    ld, lt = torch.stack(losses_d).cpu(), torch.stack(losses_t).cpu()
+    got = tp.step.gather(tp.step.params())
+    want = {k: v.detach() for k, v in dense.named_parameters()}
+    differ = sorted(k for k in want if not torch.equal(got[k], want[k]))
+    param_err = max(float((got[k] - want[k]).abs().max()) for k in want)
+    return {
+        "family": dense_cfg.family, "steps": steps,
+        "losses_bitwise": bool(torch.equal(ld, lt)),
+        "max_loss_err": float((ld - lt).abs().max()),
+        "params_bitwise": not differ, "params_differing": differ[:8],
+        "max_param_err": param_err, "first_loss": float(ld[0]), "last_loss": float(ld[-1]),
+    }
+
+
+def _a11_pp_run(config, train_ds, valid_ds, steps: int, device: str, mesh, init,
+                snapshot: int) -> dict:
+    """The GPipe trainer (one stage, the job's microbatches) from ``init``
+    on the job's batches: step 1's merged gradients, ``steps`` losses, and
+    the validation AUC of the merged params after ``snapshot`` steps."""
+    import torch
+
+    from mlops_tpu_torch.models import build_model
+    from mlops_tpu_torch.train.loop import batch_indices, evaluate, training_loss
+    from mlops_tpu_torch.train.pipeline_parallel import make_pp_train_step
+
+    tcfg = config.train
+    dense_cfg = dataclasses.replace(config.model, pipeline_stages=0)
+    pp = make_pp_train_step(config.model, tcfg, mesh, seed=tcfg.seed, init_state=init,
+                            device=device)
+    cat, num, lab = _tensors(train_ds, device)
+    vcat, vnum, vlab = _tensors(valid_ds, device)
+    idx = torch.from_numpy(batch_indices(train_ds.n, tcfg.batch_size, tcfg.seed, 1)).to(device)
+    rows = pp.local_rows(tcfg.batch_size)
+    training_loss(pp.model, cat[idx][rows], num[idx][rows], lab[idx][rows], None,
+                  tcfg.pos_weight).backward()
+    grads = pp.dense_params({n: p.grad for n, p in pp.model.named_parameters()})
+    pp.optimizer.zero_grad()
+    losses, auc = [], None
+    for step in range(1, steps + 1):
+        idx = torch.from_numpy(batch_indices(train_ds.n, tcfg.batch_size, tcfg.seed, step)).to(device)
+        losses.append(float(pp.step(step, cat[idx], num[idx], lab[idx])))
+        if step == snapshot:
+            auc = evaluate(build_model(dense_cfg).to(device), pp.dense_params(),
+                           vcat, vnum, vlab)["validation_roc_auc_score"]
+    return {"grads": grads, "losses": losses, "auc": auc}
+
+
+def _a11_pp_against_dense(config, train_ds, valid_ds, steps: int, device: str) -> dict:
+    """GPipe at one stage against the dense trainer from one init on the
+    card (one step's gradients parameter by parameter: cosine and norm
+    ratio; ``steps`` steps' loss curves), and the same GPipe run on the
+    CPU (a gloo mesh beside the card's NCCL world) against the card's: its
+    first ``A11_CPU_STEPS`` losses and the validation AUC there."""
+    import torch
+
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.parallel.mesh import make_nd_mesh
+    from mlops_tpu_torch.train.loop import (
+        batch_indices, make_optimizer, train_step, training_loss)
+    from mlops_tpu_torch.weights import load_params
+
+    tcfg = config.train
+    dense_cfg = dataclasses.replace(config.model, pipeline_stages=0)
+    init = {k: v.clone() for k, v in init_params(build_model(dense_cfg), tcfg.seed).state_dict().items()}
+    card = _a11_pp_run(config, train_ds, valid_ds, steps, device,
+                       make_nd_mesh({"data": 1, "stage": 1}), init, A11_CPU_STEPS)
+    cpu_cfg = dataclasses.replace(config, train=dataclasses.replace(tcfg, device="cpu"))
+    cpu = _a11_pp_run(cpu_cfg, train_ds, valid_ds, A11_CPU_STEPS, "cpu",
+                      make_nd_mesh({"data": 1, "stage": 1}, backend="gloo"), init, A11_CPU_STEPS)
+    dense = load_params(build_model(dense_cfg), init).to(device)
+    cat, num, lab = _tensors(train_ds, device)
+    idx = torch.from_numpy(batch_indices(train_ds.n, tcfg.batch_size, tcfg.seed, 1)).to(device)
+    training_loss(dense, cat[idx], num[idx], lab[idx], None, tcfg.pos_weight).backward()
+    cos_min, ratio_worst = 1.0, 0.0
+    for name, p in dense.named_parameters():
+        a, b = p.grad.double().flatten(), card["grads"][name].double().flatten().to(device)
+        if float(a.norm()) == 0.0 and float(b.norm()) == 0.0:
+            continue
+        cos_min = min(cos_min, float(a @ b / (a.norm() * b.norm())))
+        ratio_worst = max(ratio_worst, abs(float(b.norm() / a.norm()) - 1.0))
+    check(cos_min >= GRAD_COSINE_MIN and ratio_worst <= GRAD_NORM_RTOL,
+          f"a11 pp {dense_cfg.family}: gradient cosine {cos_min:.4f}, norm gap {ratio_worst:.4f}")
+    dense.zero_grad(set_to_none=True)
+    opt = make_optimizer(dense, tcfg)
+    ld = []
+    for step in range(1, steps + 1):
+        idx = torch.from_numpy(batch_indices(train_ds.n, tcfg.batch_size, tcfg.seed, step)).to(device)
+        ld.append(float(train_step(dense, opt, tcfg, step, cat[idx], num[idx], lab[idx])))
+    lp = card["losses"]
+    gaps = [abs(a - b) for a, b in zip(ld, lp)]
+    check(max(gaps) <= CURVE_MAX_GAP and sum(gaps) / len(gaps) <= CURVE_MEAN_GAP,
+          f"a11 pp {dense_cfg.family}: curves apart by {max(gaps):.4f} max")
+    if steps >= 40:
+        check(sum(lp[-10:]) < sum(lp[:10]), f"a11 pp {dense_cfg.family}: loss did not fall {lp}")
+    cpu_gaps = [abs(a - b) for a, b in zip(cpu["losses"], lp)]
+    auc_gap = abs(cpu["auc"] - card["auc"])
+    check(max(cpu_gaps) <= CURVE_MAX_GAP and auc_gap <= A11_AUC_TOL,
+          f"a11 pp {dense_cfg.family}: CPU vs card losses {max(cpu_gaps):.4f} apart, AUC {auc_gap:.4f}")
+    return {"family": dense_cfg.family, "grad_cosine_min": cos_min,
+            "grad_norm_gap_max": ratio_worst, "curve_max_gap": max(gaps),
+            "curve_mean_gap": sum(gaps) / len(gaps), "first_loss": lp[0], "last_loss": lp[-1],
+            "cpu_vs_card": {"steps": len(cpu_gaps), "loss_gap_max": max(cpu_gaps),
+                            "auc_card": card["auc"], "auc_cpu": cpu["auc"], "auc_gap": auc_gap}}
+
+
+def _a11_data_mesh(bundle_dir: Path, device: str, root: Path) -> dict:
+    """The data-mesh path of ``score-batch`` and the streamed scorer in
+    this process, over the one-rank NCCL world: ``score_dataset`` and
+    ``score_csv_stream`` with ``make_mesh()`` (each rank copies and scores
+    its block of every chunk, the blocks gathered over 'data') against
+    ``mesh=None`` on the same ``A11_SCORE_ROWS`` rows, bit for bit. The
+    commands build a mesh only past one rank, as the JAX command does, so
+    the launched runs take ``mesh=None``."""
+    import numpy as np
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.data import generate_synthetic, write_csv_columns
+    from mlops_tpu_torch.data.stream import score_csv_stream
+    from mlops_tpu_torch.parallel import bulk
+    from mlops_tpu_torch.parallel.mesh import make_mesh
+
+    bundle = load_bundle(bundle_dir)
+    columns, labels = generate_synthetic(A11_SCORE_ROWS, seed=11)
+    ds = bundle.preprocessor.encode(columns)
+    source = root / "mesh_rows.csv"
+    write_csv_columns(source, columns, labels)
+    mesh = make_mesh()
+    # none, mesh, mesh, none: each side runs once first and once last.
+    order = ("none", "mesh", "mesh", "none")
+    sweeps, streams = [], []
+    for i, name in enumerate(order):
+        m = mesh if name == "mesh" else None
+        sweeps.append(bulk.score_dataset(bundle, ds, chunk_rows=A11_MESH_CHUNK, device=device,
+                                         mesh=m))
+        streams.append(score_csv_stream(bundle, source, root / f"mesh_{i}.csv",
+                                        chunk_rows=A11_MESH_CHUNK, device=device, mesh=m))
+    want = sweeps[0]
+    check(all(np.array_equal(got.predictions, want.predictions)
+              and np.array_equal(got.outliers, want.outliers)
+              and got.feature_drift == want.feature_drift for got in sweeps),
+          "a11: score_dataset on a one-rank data mesh differs from mesh=None")
+    scored = {(root / f"mesh_{i}.csv").read_bytes() for i in range(len(order))}
+    check(len(scored) == 1 and all(st["rows"] == A11_SCORE_ROWS for st in streams),
+          f"a11: score_csv_stream on a one-rank data mesh differs from mesh=None: {streams}")
+    return {"rows": A11_SCORE_ROWS, "mesh": mesh.describe(), "path": want.path, "order": order,
+            "sweep_rows_per_s": [r.rows_per_s for r in sweeps],
+            "stream_rows_per_s": [st["rows_per_s"] for st in streams]}
+
+
+def _a11_nccl_profile(config, train_ds, device: str) -> dict:
+    """One TP step of the mlp job under ``torch.profiler``: the NCCL calls
+    it made (the ``nccl:*`` host records ProcessGroupNCCL writes, all-reduces
+    among them), the device kernels NCCL ran and the device-to-device
+    copies (NCCL with one rank copies instead of launching a kernel);
+    then step ms (CUDA events, the median of ``A11_TIMED_STEPS`` after
+    warm-up) of the TP and the dense trainer."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.train.loop import batch_indices, make_optimizer, train_step
+    from mlops_tpu_torch.train.tensor_parallel import make_tp_trainer
+
+    tcfg = config.train
+    tp = make_tp_trainer(config, device=device)
+    dense_cfg = dataclasses.replace(config.model, tensor_parallel=0)
+    dense = init_params(build_model(dense_cfg), tcfg.seed).to(device)
+    opt = make_optimizer(dense, tcfg)
+    cat, num, lab = _tensors(train_ds, device)
+
+    def batch(step):
+        idx = torch.from_numpy(batch_indices(train_ds.n, tcfg.batch_size, tcfg.seed, step)).to(device)
+        return cat[idx], num[idx], lab[idx]
+
+    for step in range(1, 4):  # warm-up: allocator, cuBLAS handles, NCCL's communicator
+        tp.step.step(step, *batch(step))
+        train_step(dense, opt, tcfg, step, *batch(step))
+    torch.cuda.synchronize()
+    args = batch(4)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tp.step.step(4, *args)
+        torch.cuda.synchronize()
+    calls, nccl_kernels, copies = {}, {}, 0
+    kernels = 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels += 1
+            if "nccl" in evt.name.lower():
+                nccl_kernels[evt.name] = nccl_kernels.get(evt.name, 0) + 1
+            if "dtod" in evt.name.lower().replace(" ", ""):
+                copies += 1
+        elif evt.name.startswith("nccl:"):
+            calls[evt.name] = calls.get(evt.name, 0) + 1
+    all_reduce = sum(n for name, n in calls.items() if "all_reduce" in name)
+
+    def step_ms(fn) -> float:
+        times = []
+        for step in range(5, 5 + A11_TIMED_STEPS):
+            b = batch(step)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(step, b)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    tp_ms = step_ms(lambda step, b: tp.step.step(step, *b))
+    dense_ms = step_ms(lambda step, b: train_step(dense, opt, tcfg, step, *b))
+    n_params = len(list(dense.parameters()))
+    row = {"kernels_per_step": kernels, "nccl_calls": sum(calls.values()),
+           "all_reduces_per_step": all_reduce, "nccl_calls_by_name": calls,
+           "nccl_kernels": sum(nccl_kernels.values()), "nccl_kernels_by_name": nccl_kernels,
+           "device_to_device_copies": copies, "leaves": n_params,
+           "tp_step_ms": tp_ms, "dense_step_ms": dense_ms}
+    log_timing("a11 tp step", row)
+    # The gradients were meaned over 'data' through NCCL: at least one
+    # all-reduce ran, and every leaf came out of the step with a finite
+    # gradient (however the means are bucketed).
+    grads = [p.grad for p in tp.step.model.parameters()]
+    check(all_reduce >= 1 and all(g is not None and bool(torch.isfinite(g).all()) for g in grads),
+          f"a11: {all_reduce} NCCL all-reduces in a TP step; "
+          f"{sum(g is None for g in grads)} of {n_params} leaves without a gradient")
+    return row
+
+
+def phase_a11(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
+    """Phase 39: multi-rank training and scoring at world size 1 over NCCL
+    (ROADMAP A11a), through the entry points a user calls. Under
+    ``torch.distributed.run --nproc-per-node 1``: ``train`` of the mlp job
+    with ``model.tensor_parallel=1`` (steps cut), bert and ft_transformer
+    with ``model.pipeline_stages=1``, and ``tune`` beside a plain
+    ``tune``. Meanwhile in this process (a one-rank NCCL group from a
+    local store, as a plain ``python -m mlops_tpu_torch`` makes), the
+    counts set to 0 just before: the TP step of mlp, ft_transformer, bert
+    and moe held bit for bit against the dense trainer over 50 steps and
+    each trained through ``run_layout_training``; GPipe held against the
+    dense trainer (gradients, curves) and the same GPipe run on the CPU
+    against the card. Then every bundle served over HTTP (the golden
+    request, the exact tier) while ``score-batch`` runs under the
+    launcher beside a plain one, and in this process the data mesh of
+    ``score_dataset`` and ``score_csv_stream`` (``make_mesh()`` over the
+    one rank) held bit for bit against ``mesh=None``; last, one TP step
+    profiled (its NCCL calls) and timed beside the dense step. No
+    hand-written kernel runs here: the counts read 0."""
+    import numpy as np
+
+    from mlops_tpu_torch.ops import quant_kernel
+    from mlops_tpu_torch.train.pipeline import run_layout_training
+
+    root = WORK / "a11"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"a11: {what} at {time.perf_counter() - t0:.1f} s")
+
+    tp_args = [*A11_TP, f"train.steps={A11_TP_STEPS}", f"train.eval_every={A11_TP_EVAL_EVERY}",
+               *extra]
+    started = {"tp_mlp": _a11_start(
+        "tp_mlp", _launcher(_a11_train_args("tp_mlp", root, tp_args, device)), root)}
+    for fam in A11_PP_FAMILIES:
+        card = [f"model.family={fam}", *A11_PP, f"train.steps={A11_PP_STEPS}",
+                f"train.eval_every={A11_PP_EVAL_EVERY}", *extra]
+        started[f"pp_{fam}"] = _a11_start(
+            f"pp_{fam}", _launcher(_a11_train_args(f"pp_{fam}", root, card, device)), root)
+    tune_args = ["tune", "--config", EXACT_JOB_TOML, *A11_TUNE, *extra,
+                 f"train.device={device}"]
+    for name, wrap in (("tune_launcher", _launcher), ("tune_plain", _cli)):
+        started[name] = _a11_start(name, wrap([*tune_args, f"registry.root={root / name / 'reg'}",
+                                               f"registry.run_root={root / name / 'runs'}"]), root)
+    score_started = {}
+    try:
+        _reset_launch_counts()
+        quant_kernel.quant_kernel_launches.reset()
+        config = _job_config([*A11_TP, *extra], device)
+        train_ds, valid_ds = _exact_split(config)
+        families, bundles = {}, {}
+        for fam in ("mlp", *A11_FAMILIES):
+            cfg = _job_config([*A11_TP, f"model.family={fam}", *extra], device)
+            families[fam] = _a11_tp_against_dense(cfg, train_ds, A11_CHECK_STEPS, device)
+            log(f"a11 tp {fam} vs dense: {json.dumps(families[fam])}")
+            check(families[fam]["losses_bitwise"] and families[fam]["params_bitwise"],
+                  f"a11: the {fam} TP step is not the dense step bit for bit")
+            if fam == "mlp":
+                continue  # its bundle comes from the launched job
+            run_cfg = _job_config(
+                [*A11_TP, f"model.family={fam}", f"train.steps={A11_CHECK_STEPS}",
+                 f"train.eval_every={A11_CHECK_STEPS}", "train.distill_bulk=false",
+                 f"registry.root={root / 'registry'}", f"registry.run_root={root / 'runs'}",
+                 *extra], device)
+            bundles[f"tp_{fam}"] = run_layout_training(run_cfg, run_name=f"tp_{fam}").bundle_dir
+        mark("TP of every family against the dense trainer done")
+        pp = {}
+        for fam in A11_PP_FAMILIES:
+            cfg = _job_config([f"model.family={fam}", *A11_PP, *extra], device)
+            pp[fam] = _a11_pp_against_dense(cfg, train_ds, valid_ds, A11_PP_STEPS, device)
+            log(f"a11 pp {fam} vs dense: {json.dumps(pp[fam])}")
+        mark("PP against the dense trainer and card against CPU done")
+        outs, walls = {}, {}
+        outs["tp_mlp"], walls["tp_mlp"] = _a11_finish("tp_mlp", started.pop("tp_mlp"))
+        bundles["tp_mlp"] = Path(outs["tp_mlp"]["bundle"])
+        for name, wrap in (("launcher", _launcher), ("plain", _cli)):
+            score_started[name] = _a11_start(f"score_{name}", wrap([
+                "score-batch", f"serve.model_directory={bundles['tp_mlp']}",
+                f"data.rows={A11_SCORE_ROWS}", f"score.output_path={root / f'score_{name}.npz'}",
+                f"serve.device={device}", *extra]), root)
+        for name in list(started):
+            outs[name], walls[name] = _a11_finish(name, started.pop(name))
+        mark("the launched trainings done")
+        for fam in A11_PP_FAMILIES:
+            bundles[f"pp_{fam}"] = Path(outs[f"pp_{fam}"]["bundle"])
+        http = _serve_golden(bundles, device)
+        mark("bundles served")
+        data_mesh = _a11_data_mesh(bundles["tp_mlp"], device, root)
+        log(f"a11 data mesh: {json.dumps(data_mesh)}")
+        mark("the one-rank data mesh against mesh=None done")
+        score = {name: _a11_finish(f"score_{name}", score_started.pop(name))[0]
+                 for name in ("launcher", "plain")}
+    finally:
+        for proc, err, *_ in (*started.values(), *score_started.values()):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+            err.close()
+    tp_rows = _a11_layout_run("tp_mlp", outs["tp_mlp"], A11_TP_STEPS, A11_TP_EVAL_EVERY,
+                              "tensor_parallel dp1xtp1")
+    for fam in A11_PP_FAMILIES:
+        _a11_layout_run(f"pp_{fam}", outs[f"pp_{fam}"], A11_PP_STEPS, A11_PP_EVAL_EVERY,
+                        "pipeline_parallel dp1xpp1")
+    tune = {k: outs[f"tune_{k}"] for k in ("launcher", "plain")}
+    keys = ("best_trial", "best_hyperparams", "metrics", "trials")
+    check(all(tune["launcher"][k] == tune["plain"][k] for k in keys),
+          f"a11: tune under the launcher {tune['launcher']} != plain {tune['plain']}")
+    got, want = (np.load(root / f"score_{n}.npz") for n in ("launcher", "plain"))
+    check(np.array_equal(got["predictions"], want["predictions"])
+          and np.array_equal(got["outliers"], want["outliers"])
+          and score["launcher"]["devices"] == score["plain"]["devices"] == 1
+          and score["launcher"]["mesh"] == score["plain"]["mesh"] == [1],
+          f"a11: score-batch under the launcher differs from plain: {score}")
+    profile = _a11_nccl_profile(config, train_ds, device) if device == "cuda" else None
+    launches = (*_launch_counts(), quant_kernel.quant_kernel_launches.value)
+    log(f"a11: kernel launches flash fwd/dq/dkv/quant_fused {launches}")
+    check(launches == (0, 0, 0, 0), f"phase 39's paths launched kernels {launches}")
+    mark("done")
+    return {
+        "tp_vs_dense": families,
+        "pp_vs_dense": pp,
+        "nccl_step": profile,
+        "tp_mlp_train": {"metrics": outs["tp_mlp"]["metrics"], "wall_s": walls["tp_mlp"],
+                         "losses": [r["loss"] for r in tp_rows]},
+        "pp_train": {fam: {"metrics": outs[f"pp_{fam}"]["metrics"], "wall_s": walls[f"pp_{fam}"]}
+                     for fam in A11_PP_FAMILIES},
+        "tune_walls": {k: walls[f"tune_{k}"] for k in ("launcher", "plain")},
+        "score_rows_per_s": {k: v["rows_per_s"] for k, v in score.items()},
+        "data_mesh": data_mesh,
+        "golden_http_max_pred_err": http,
+        "launches": launches,
+        "wall_s": time.perf_counter() - t0,
+    }
+
+
+def a11_main() -> int:
+    """``chip_smoke.py --a11``: phases 1 and 39 alone (a quick look at
+    the multi-rank paths on the card)."""
+    _setup()
+    try:
+        timed(phase_card)
+        out = timed(phase_a11)
+    except SmokeFailure as err:
+        print(f"chip_smoke FAILED: {err}", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    print(json.dumps(out, default=str), flush=True)
+    return 0
+
+
 RING_PHASES_FLAG = "--ring-phases"
 
 
@@ -7520,9 +8031,9 @@ def _setup() -> None:
 
 
 def _ring_phases(burst_dir: Path, exact_dirs: dict) -> dict:
-    """Phases 29-37, in order: each needs only the bundles of phases 16
-    and 22 (phase 37 its fixture) and the card, and writes under its own
-    work directory."""
+    """Phases 29-37 and 39, in order: each needs only the bundles of
+    phases 16 and 22 (phase 37 its fixture, phase 39 nothing) and the
+    card, and writes under its own work directory."""
     return {
         "ring": timed(phase_ring, burst_dir),
         "lifecycle": timed(phase_lifecycle, burst_dir),
@@ -7533,6 +8044,7 @@ def _ring_phases(burst_dir: Path, exact_dirs: dict) -> dict:
         "observability": timed(phase_observability, burst_dir),
         "autotune": timed(phase_autotune, burst_dir),
         "gbm": timed(phase_gbm),
+        "a11": timed(phase_a11),
     }
 
 
@@ -7541,7 +8053,7 @@ def _stop_on_sigterm(signum, frame):
 
 
 def ring_phases_main(spec_path: str, out_path: str) -> int:
-    """The second process: phases 29-37 on the bundles ``spec_path``
+    """The second process: phases 29-37 and 39 on the bundles ``spec_path``
     names; their results go to ``out_path`` as JSON. SIGTERM fails the
     phase under way, so its planes are stopped on the way out."""
     signal.signal(signal.SIGTERM, _stop_on_sigterm)
@@ -7552,14 +8064,14 @@ def ring_phases_main(spec_path: str, out_path: str) -> int:
         results = _ring_phases(Path(spec["burst_dir"]),
                                {k: Path(v) for k, v in spec["exact_dirs"].items()})
     except SmokeFailure as err:
-        print(f"chip_smoke FAILED (phases 29-37): {err}", file=sys.stderr, flush=True)
+        print(f"chip_smoke FAILED (phases 29-37, 39): {err}", file=sys.stderr, flush=True)
         return 1
     Path(out_path).write_text(json.dumps(results, default=str))
     return 0
 
 
 class _RingSide:
-    """Phases 29-37 in a second process of this script, started beside
+    """Phases 29-37 and 39 in a second process of this script, started beside
     phases 16-28; ``join`` returns their results, ``check`` fails the run
     as soon as that process failed, ``stop`` ends it and its planes."""
 
@@ -7572,17 +8084,17 @@ class _RingSide:
         self.proc = subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), RING_PHASES_FLAG,
              str(spec), str(self.out)], cwd=ROOT)
-        log(f"phases 29-37 started in process {self.proc.pid}")
+        log(f"phases 29-37 and 39 started in process {self.proc.pid}")
 
     def check(self) -> None:
         code = self.proc.poll()
-        check(code in (None, 0), f"phases 29-37 failed (exit {code}; see above)")
+        check(code in (None, 0), f"phases 29-37, 39 failed (exit {code}; see above)")
 
     def join(self) -> dict:
         t0 = time.perf_counter()
         code = self.proc.wait()
-        log(f"waited {time.perf_counter() - t0:.1f} s for phases 29-37")
-        check(code == 0, f"phases 29-37 failed (exit {code}; see above)")
+        log(f"waited {time.perf_counter() - t0:.1f} s for phases 29-37 and 39")
+        check(code == 0, f"phases 29-37, 39 failed (exit {code}; see above)")
         return json.loads(self.out.read_text())
 
     def stop(self) -> None:
@@ -7655,9 +8167,9 @@ def main() -> int:
     finally:
         if side is not None:
             side.stop()
-    ring, lifecycle, ring_lifecycle, chaos, replicas, tenants, observability, autotune, gbm = (
+    ring, lifecycle, ring_lifecycle, chaos, replicas, tenants, observability, autotune, gbm, a11 = (
         ring_side[k] for k in ("ring", "lifecycle", "ring_lifecycle", "chaos", "replicas",
-                               "tenants", "observability", "autotune", "gbm"))
+                               "tenants", "observability", "autotune", "gbm", "a11"))
     import torch
 
     from mlops_tpu_torch.ops import attention
@@ -7771,6 +8283,10 @@ def main() -> int:
         "moe": a9["moe"],
         "pretrain": a9["pretrain"],
         "transformer_ensemble": a9["transformer_ensemble"],
+        # Phase 39's paths (multi-rank training and scoring at world size
+        # 1 over NCCL) run no hand-written kernel either.
+        "a11_launches": a11["launches"],
+        "a11": {k: v for k, v in a11.items() if k != "launches"},
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
         "serving": {"dispatch_routes": routes, "burst": burst, "ring": ring},
         "lifecycle": {k: v for k, v in lifecycle.items() if k != "launches"},
@@ -7813,4 +8329,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 4 and sys.argv[1] == RING_PHASES_FLAG:
         sys.exit(ring_phases_main(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:] == ["--a11"]:
+        sys.exit(a11_main())
     sys.exit(main())

@@ -20,7 +20,10 @@
   (``--config configs/train_register_job.toml``; linear, mlp,
   ``ft_transformer``, ``moe``, single-record ``bert`` and deep ensembles
   of any of them, a bert fine-tune from a pretrained trunk with
-  ``train.init_params=<pretrained.msgpack>``, with the
+  ``train.init_params=<pretrained.msgpack>``; over N ranks with
+  ``python -m torch.distributed.run --nproc-per-node N -m mlops_tpu_torch
+  train ... model.tensor_parallel=K`` or ``model.pipeline_stages=S``, and
+  the doc model with ``model.seq_parallel=true``), with the
   distilled bulk student of an ensemble or a transformer family unless
   ``train.distill_bulk=false``, and the gated quant tier with
   ``train.distill_quant=true``) or the long-context doc model into a

@@ -10,7 +10,8 @@ bundle's serving programs launch into ``<cache.dir>/kernels/``, or every
 library when no bundle resolves (said on stderr), and returns the report.
 
 ``train`` is the JAX package's ``_train`` (``mlops_tpu/commands.py:96``):
-``run_layout_training`` for a layout config (the long-context doc model),
+``run_layout_training`` for a layout config (tensor- or pipeline-
+parallel training, the long-context doc model with or without the ring),
 else ``run_training`` (the exact tier's dense trainer; a bert fine-tune
 from a pretrained trunk with ``train.init_params``), on
 ``train.device`` (the card unless ``cpu``), then the same JSON line.
@@ -29,7 +30,7 @@ the last record's default), documents stream through the doc model in
 ``serve.max_batch`` chunks (the tail chunk padded to the same shape), and
 one calibrated probability ``sigmoid(logit / T)`` comes back per
 document, with the grouping accounted for. ``score-batch`` is the JAX
-package's ``_score_batch`` (``mlops_tpu/commands.py:387``) on one device:
+package's ``_score_batch`` (``mlops_tpu/commands.py:387``):
 ``parallel/bulk.py score_dataset`` over ``data.train_path`` (a CSV or a
 Parquet file) or ``data.rows`` synthetic rows, or with
 ``score.streaming=true`` ``data/stream.py score_csv_stream`` from the
@@ -50,8 +51,12 @@ the incumbent bundle (``serve.model_directory``) and the labeled window
 ``serve.device`` -> the AUC and calibration gates (no mirrored traffic
 offline, so the latency gate passes) -> registered when they pass.
 
-``tune`` is the JAX package's ``_tune`` (``mlops_tpu/commands.py:151``)
-on one device: ``train/pipeline.py run_tuning`` and the same JSON line.
+``tune`` is the JAX package's ``_tune`` (``mlops_tpu/commands.py:151``):
+``train/pipeline.py run_tuning`` and the same JSON line; with more than
+one rank (``torch.distributed.run``, ``parallel/distributed.py``) the
+trials split over a data mesh of the world, as the JAX command shards
+them over every chip, and ``score-batch`` and the streamed scorer split
+each chunk's rows the same way (``devices``, ``mesh`` in the JSON).
 The registry commands, ``synth`` and ``validate`` are the JAX package's
 (``mlops_tpu/commands.py:86,174-312``), with its outputs and exit codes.
 """
@@ -177,7 +182,10 @@ def tune(config: Config) -> dict:
     trials)."""
     from mlops_tpu_torch.train.pipeline import run_tuning
 
-    result, hpo_result = run_tuning(config, run_name=config.registry.run_name or None)
+    result, hpo_result = run_tuning(
+        config, run_name=config.registry.run_name or None,
+        mesh=_data_mesh(config.train.device),
+    )
     return {
         "bundle": str(result.bundle_dir),
         "model_uri": result.model_uri,
@@ -186,6 +194,19 @@ def tune(config: Config) -> dict:
         "metrics": hpo_result.best_metrics,
         "trials": len(hpo_result.trials),
     }
+
+
+def _data_mesh(device: str):
+    """A data mesh over the world's ranks when there is more than one (the
+    group joined here over the device's backend), else None: the JAX
+    command's ``make_mesh(device_count) if device_count > 1``."""
+    from mlops_tpu_torch.parallel.distributed import initialize, world_size
+    from mlops_tpu_torch.parallel.mesh import make_mesh
+
+    if world_size() < 2:
+        return None
+    initialize(device)
+    return make_mesh()
 
 
 def warmup(config: Config) -> dict:
@@ -395,14 +416,21 @@ def predict_documents(
 def score_batch(config: Config) -> dict:
     """``score-batch serve.model_directory=<bundle> [data.rows=N |
     data.train_path=<csv|parquet>] [score.*]``: the JSON the JAX package
-    prints on one device (``devices`` 1, ``mesh`` [1]); ``score.output_path``
-    writes the predictions and outliers as an ``.npz``. With
+    prints (``devices`` the world size, ``mesh`` the data mesh's shape,
+    ``[1]`` on one rank); ``score.output_path`` writes the predictions and
+    outliers as an ``.npz`` (the coordinator). With
     ``score.streaming=true`` the file streams to ``score.output_path`` (a
     CSV) and the stream's stats are printed."""
     from mlops_tpu_torch.data import generate_synthetic
     from mlops_tpu_torch.parallel.bulk import DOC_REFUSAL, score_dataset
+    from mlops_tpu_torch.parallel.distributed import (
+        is_coordinator,
+        rank_device,
+        world_size,
+    )
 
-    device = resolve_device(config.serve.device)
+    device = rank_device(config.serve.device)
+    mesh = _data_mesh(config.serve.device)
     bundle = load_bundle(resolve_bundle(config))
     if bundle.flavor == "doc":
         raise SystemExit(DOC_REFUSAL)
@@ -420,6 +448,7 @@ def score_batch(config: Config) -> dict:
             exact=exact,
             pipeline_depth=config.score.pipeline_depth,
             device=device,
+            mesh=mesh,
         )
     if config.data.train_path:
         # Both formats encode through the Python pipeline (the JAX package
@@ -437,11 +466,16 @@ def score_batch(config: Config) -> dict:
         exact=exact,
         pipeline_depth=config.score.pipeline_depth,
         device=device,
+        mesh=mesh,
     )
-    if config.score.output_path:
+    if config.score.output_path and is_coordinator():
         np.savez(
             config.score.output_path,
             predictions=result.predictions,
             outliers=result.outliers,
         )
-    return {"devices": 1, "mesh": [1], **result.summary()}
+    return {
+        "devices": world_size(),
+        "mesh": mesh.describe() if mesh is not None else [1],
+        **result.summary(),
+    }

@@ -952,7 +952,7 @@ def load_config(
         _apply(config, section, field, raw)
     if config.serve.model_shards != 1:
         raise ValueError(
-            f"serve.model_shards={config.serve.model_shards} refused: sharding "
-            "the exact params over several cards is not ported (ROADMAP A11)"
+            f"serve.model_shards={config.serve.model_shards} refused: one "
+            "engine spanning several cards is not ported (ROADMAP A11b)"
         )
     return config

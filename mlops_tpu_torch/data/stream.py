@@ -250,9 +250,12 @@ def score_csv_stream(
     exact: bool | None = None,
     pipeline_depth: int = 2,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> dict[str, float]:
     """Stream-score a CSV or Parquet file through the bundle's bulk chunk program on
-    ``device`` (the card unless "cpu").
+    ``device`` (the card unless "cpu"); on a data ``mesh`` each rank
+    scores its block of every chunk and only the coordinator writes
+    ``out_path``.
 
     Stages (``data/pipeline_exec.py``): read and parse -> encode and pad
     -> transfer -> compute -> batched fetch -> append ``prediction,
@@ -273,40 +276,50 @@ def score_csv_stream(
         mesh_chunk_rows,
     )
 
+    from mlops_tpu_torch.parallel.distributed import is_coordinator
+
     device = resolve_device(device)
-    chunk_rows = mesh_chunk_rows(chunk_rows)
+    chunk_rows = mesh_chunk_rows(chunk_rows, mesh)
+    if not is_coordinator():
+        out_path = None
     # exact=None routes through the distilled student on the CPU when the
     # bundle carries one; the stats' "path" says which ran.
-    scorer = make_chunk_scorer(bundle, exact=exact, device=device)
+    scorer = make_chunk_scorer(bundle, exact=exact, device=device, mesh=mesh)
     source = (columns for columns, _ in iter_table_chunks(in_path, chunk_rows))
     # An sklearn bundle's chunks stay on the host with int32 ids
-    # (``parallel/bulk.py SklearnChunkScorer``).
-    transfer = make_chunk_transfer(scorer.stage_device, chunk_rows, pipeline_depth)
+    # (``parallel/bulk.py SklearnChunkScorer``). On a mesh this rank
+    # encodes, copies and scores only its block of every chunk; the scorer
+    # gathers the whole chunk's results.
+    block = scorer.block(chunk_rows)
+    block_rows = block.stop - block.start
+    transfer = make_chunk_transfer(scorer.stage_device, block_rows, pipeline_depth)
     fetch = ChunkFetch(scorer.stage_device, chunk_rows)
     ids = scorer.ids_dtype
     # Warm the chunk program before the streamed (and timed) run.
     fetch([scorer(transfer(
-        np.zeros((chunk_rows, SCHEMA.num_categorical), ids),
-        np.zeros((chunk_rows, SCHEMA.num_numeric), np.float32),
-        np.arange(chunk_rows) < 1,
+        np.zeros((block_rows, SCHEMA.num_categorical), ids),
+        np.zeros((block_rows, SCHEMA.num_numeric), np.float32),
+        np.arange(block_rows) < 1,
     ))])
 
     prep = bundle.preprocessor
-    base_index = np.arange(chunk_rows)
-    full_mask = np.ones(chunk_rows, bool)
+    base_index = np.arange(block_rows)
+    full_mask = np.ones(block_rows, bool)
 
     def encode_chunk(columns):
+        n = len(next(iter(columns.values())))  # the chunk's rows, every rank's
+        if block_rows < chunk_rows:
+            columns = {k: v[block] for k, v in columns.items()}
         ds = prep.encode(columns)
-        n = ds.n
         # The ids travel as int8 (the largest vocabulary is 12; an sklearn
-        # bundle's as int32); pad to the fixed chunk shape (only the tail
+        # bundle's as int32); pad to the fixed block shape (only the tail
         # chunk is short).
         cat = ds.cat_ids.astype(ids)
-        pad = chunk_rows - n
+        pad = block_rows - ds.n
         if pad:
             cat = np.pad(cat, ((0, pad), (0, 0)))
             num = np.pad(ds.numeric, ((0, pad), (0, 0)))
-            mask = base_index < n
+            mask = base_index < ds.n
         else:
             num = ds.numeric
             mask = full_mask

@@ -38,6 +38,7 @@ from mlops_tpu_torch.models.layers import (
     LayerNorm,
     dropout,
 )
+from mlops_tpu_torch.parallel.collectives import gather
 
 PAD_ID, CLS_ID, SEP_ID, MASK_ID = 0, 1, 2, 3
 _SPECIAL = 4
@@ -214,7 +215,7 @@ class _BertTrunk(nn.Module):
     def trunk(
         self, tokens: torch.Tensor, generator: torch.Generator | None
     ) -> torch.Tensor:
-        x = dropout(apply_embed_front(self, tokens), self.dropout, generator)
+        x = dropout(apply_embed_front(self, tokens), self.dropout, generator, rows=-3)
         for i in range(self.depth):
             x = getattr(self, f"block_{i}")(x, generator)
         return x
@@ -303,12 +304,16 @@ class BertMaskedLM(_BertTrunk):
 
 
 class BertDocEncoder(nn.Module):
-    """Long-context BERT over record histories (dense attention).
+    """Long-context BERT over record histories.
 
     ``forward(cat[N,R,C], numeric[N,R,M]) -> logits f32[N]``. Attention
     runs through ``ops.attention.attend``: the flash kernel on the card at
     ``2 + 46R >= 128`` tokens (R >= 3), the dense reference below that
-    and on the CPU.
+    and on the CPU. ``shard_sequence`` (the sequence-parallel layout,
+    ``train/long_context.py``) makes each rank of a 'seq' axis hold its
+    block of the tokens through the trunk, its attention the ring of
+    ``parallel/ring_attention.py`` (the ``attend_fn`` seam); the [CLS]
+    token, on the axis's first rank, is gathered for the read-out.
     """
 
     def __init__(
@@ -335,16 +340,39 @@ class BertDocEncoder(nn.Module):
         self.ln_final = LayerNorm(hidden, dtype)
         self.pooler = Dense((hidden, hidden), (hidden,), dtype)
         self.head = Dense((hidden, 1), (1,), dtype)
+        self.seq = None  # (mesh, axis) under the sequence-parallel layout
 
     @property
     def doc_seq_len(self) -> int:
         return 2 + 2 * self.layout.num_features * self.doc_records
 
+    def shard_sequence(self, mesh, axis: str, attend_fn) -> None:
+        """Lay the model out over ``mesh[axis]``: token blocks through the
+        trunk, ``attend_fn`` (the ring) as every block's attention."""
+        if self.doc_seq_len % mesh.size(axis):
+            raise ValueError(
+                f"sequence {self.doc_seq_len} does not divide over '{axis}' "
+                f"axis {mesh.size(axis)}"
+            )
+        self.seq = (mesh, axis)
+        for i in range(self.depth):
+            getattr(self, f"block_{i}").MultiHeadSelfAttention_0.attend_fn = attend_fn
+
     def forward(self, cat_ids: torch.Tensor, numeric: torch.Tensor) -> torch.Tensor:
         tokens = tokenize_documents(cat_ids, numeric, self.layout)  # [N, S]
-        x = apply_embed_front(self, tokens)
+        if self.seq is None:
+            x = apply_embed_front(self, tokens)
+        else:
+            mesh, axis = self.seq
+            chunk = tokens.shape[1] // mesh.size(axis)
+            lo = mesh.index(axis) * chunk
+            pos = self.pos_embed[lo: lo + chunk].to(self.dtype).unsqueeze(-3)
+            x = self.ln_embed(self.tok_embed(tokens[:, lo: lo + chunk]) + pos)
         for i in range(self.depth):
             x = getattr(self, f"block_{i}")(x)
+        if self.seq is not None:
+            mesh, axis = self.seq
+            x = gather(x[:, :1], 1, mesh.group(axis))  # [N, n, H]: each block's first
         return apply_cls_head(self, x)
 
 

@@ -99,11 +99,12 @@ class TransformerBlock(nn.Module):
         self, x: torch.Tensor, generator: torch.Generator | None = None
     ) -> torch.Tensor:
         h = self.MultiHeadSelfAttention_0(self.LayerNorm_0(x), generator=generator)
-        x = x + dropout(h, self.dropout, generator)
+        x = x + dropout(h, self.dropout, generator, rows=-3)
         h = self.LayerNorm_1(x)
         *lead, n, s, d = h.shape
         h = F.gelu(self.Dense_0(h.reshape(*lead, n * s, d)), approximate="tanh")
-        h = self.Dense_1(dropout(h, self.dropout, generator))
+        split = -1 if self.Dense_0.tp is not None else None
+        h = self.Dense_1(dropout(h, self.dropout, generator, rows=-2, split=split))
         return x + h.reshape(x.shape)
 
 

@@ -19,10 +19,19 @@ ensemble: one batched product per layer over the K members, the input
 shared (``[N, F]``) or per member (``[K, N, F]``; LayerNorm takes any
 ``[K, ..., F]``). Self-attention folds the members into the batch before
 ``attend``.
+
+Tensor parallelism (``parallel/steps.py::shard_model``) sets a layer's
+``tp``: a column-split Dense holds its kernel's output slice and takes
+its bias's (the input enters through ``copy_to``), a row-split Dense
+holds its input slice and all-reduces its product before the bias, and
+self-attention runs this rank's heads. Unset, every layer is the plain
+one. ``dropout`` takes the axes a layout stream needs to draw the whole
+logical mask and keep this rank's block of it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable
 
@@ -30,6 +39,21 @@ import torch
 from torch import nn
 
 from mlops_tpu_torch.ops.attention import attend
+from mlops_tpu_torch.parallel.collectives import copy_to, reduce_from, take_shard
+
+
+@dataclasses.dataclass(frozen=True)
+class TPSplit:
+    """How a layer is split over the mesh's 'model' axis: ``kind``
+    "column" (output features; ``bias_dim``: the bias dimension split
+    with them), "row" (input features) or "heads"; ``group`` the axis's
+    process group, ``size`` and ``index`` this rank's place on it."""
+
+    kind: str
+    group: object
+    size: int
+    index: int
+    bias_dim: int = -1
 
 
 class Dense(nn.Module):
@@ -52,11 +76,21 @@ class Dense(nn.Module):
         self.lead = (members,) if members else ()
         self.kernel = nn.Parameter(torch.zeros(self.lead + tuple(kernel_shape)))
         self.bias = nn.Parameter(torch.zeros(self.lead + tuple(bias_shape)))
+        self.tp: TPSplit | None = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        tp = self.tp
+        if tp is not None and tp.kind == "column":
+            x = copy_to(x, tp.group)
         kernel = self.kernel.to(self.dtype).reshape(*self.lead, self.in_features, -1)
         y = torch.matmul(x.to(self.dtype), kernel)
-        bias = self.bias.to(self.dtype)
+        bias = self.bias
+        if tp is not None:
+            if tp.kind == "column":
+                bias = take_shard(bias, tp.bias_dim, tp.group)
+            else:
+                y = reduce_from(y, tp.group)
+        bias = bias.to(self.dtype)
         return y + (bias.reshape(*self.lead, 1, -1) if self.lead else bias.reshape(-1))
 
 
@@ -108,16 +142,24 @@ class LayerNorm(nn.Module):
 
 
 def dropout(
-    x: torch.Tensor, rate: float, generator: torch.Generator | None
+    x: torch.Tensor,
+    rate: float,
+    generator: torch.Generator | None,
+    rows: int = 0,
+    split: int | None = None,
 ) -> torch.Tensor:
     """flax ``nn.Dropout``: with a generator (training), keep each element
     with probability ``1 - rate`` and divide the kept ones by ``1 - rate``
     in the tensor's own type; without one (eval), or at rate 0, ``x`` as it
     is. One draw covers the whole tensor, so the members of an ensemble
     (a leading ``[K, ...]`` axis) draw masks of their own. ``generator``
-    is a ``torch.Generator`` or a counter-based stream with
-    ``uniform(shape, device)`` (``train/hpo.py``'s ``CounterStream``,
-    which runs under ``torch.func.vmap``, where a generator cannot)."""
+    is a ``torch.Generator`` or a stream with ``uniform(shape, device,
+    rows, split)``: ``train/hpo.py``'s ``CounterStream``, which runs under
+    ``torch.func.vmap``, where a generator cannot, or a layout's
+    ``ShardedStream`` (``parallel/steps.py``), which draws the mask of the
+    whole logical activation and keeps this rank's block: the rows of
+    axis ``rows`` it holds under data parallelism, the features of axis
+    ``split`` under tensor parallelism."""
     if generator is None or rate == 0.0:
         return x
     if rate >= 1.0:
@@ -126,7 +168,7 @@ def dropout(
     if isinstance(generator, torch.Generator):
         u = torch.rand(x.shape, generator=generator, device=x.device)
     else:
-        u = generator.uniform(x.shape, x.device)
+        u = generator.uniform(x.shape, x.device, rows, split)
     return torch.where(u < keep, x / keep, torch.zeros_like(x))
 
 
@@ -142,11 +184,14 @@ class MultiHeadSelfAttention(nn.Module):
     0`` and a generator) the scores are materialized instead, as the JAX
     module does, on the CPU and the card alike: ``einsum(q, k)`` in f32
     times the scale, a softmax, dropout on the probabilities, which are
-    cast to v's type for ``einsum(p, v)``. The ring (``attend_fn``) and
-    padding masks belong to the sequence-parallel path and the masked
-    dense path, which are not ported, and are refused. With ``members=K``
-    the input is ``[K, N, S, dim]`` and the K members' sequences are one
-    batch of ``K * N`` for the attention itself."""
+    cast to v's type for ``einsum(p, v)``. ``attend_fn(q, k, v)``
+    replaces ``attend`` (the ring of ``parallel/ring_attention.py`` on a
+    sequence-parallel mesh; it never materializes the scores, so it
+    takes no attention-weight dropout). Padding masks belong to the
+    masked dense path, which is not ported, and are refused. With
+    ``members=K`` the input is ``[K, N, S, dim]`` and the K members'
+    sequences are one batch of ``K * N`` for the attention itself. Split
+    by heads (``tp``), ``heads`` counts this rank's."""
 
     def __init__(
         self,
@@ -159,17 +204,14 @@ class MultiHeadSelfAttention(nn.Module):
         members: int = 0,
     ) -> None:
         super().__init__()
-        if attend_fn is not None:
-            raise ValueError(
-                "attend_fn (ring attention) is not ported: the port's "
-                "attention is the dense dispatcher only"
-            )
         if dim % heads:
             raise ValueError(f"dim {dim} not divisible by heads {heads}")
         self.heads = heads
         self.head_dim = dim // heads
         self.use_flash = use_flash  # None = dispatch on device and length
+        self.attend_fn = attend_fn
         self.dropout = dropout
+        self.tp: TPSplit | None = None
         self.qkv = Dense(
             (dim, 3, heads, self.head_dim), (3, heads, self.head_dim), dtype,
             members=members,
@@ -200,8 +242,15 @@ class MultiHeadSelfAttention(nn.Module):
             scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (
                 1.0 / math.sqrt(self.head_dim)
             )
-            probs = dropout(torch.softmax(scores, dim=-1), self.dropout, generator)
+            probs = torch.softmax(scores, dim=-1)
+            # [*lead, n, heads, s, s]: the rows and this rank's heads.
+            probs = dropout(
+                probs.reshape(*lead, n, *probs.shape[1:]), self.dropout, generator,
+                rows=-4, split=-3 if self.tp is not None else None,
+            ).reshape(probs.shape)
             out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+        elif self.attend_fn is not None:
+            out = self.attend_fn(q, k, v)
         else:
             out = attend(q, k, v, use_flash=self.use_flash)
-        return self.out(out.reshape(*lead, n * s, dim)).reshape(*lead, n, s, dim)
+        return self.out(out.reshape(*lead, n * s, -1)).reshape(*lead, n, s, dim)

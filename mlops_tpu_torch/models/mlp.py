@@ -137,7 +137,9 @@ class MLP(nn.Module):
         x = self.stem(x)
         for i in range(self.depth):
             h = getattr(self, f"ln_{i}")(x)
-            h = F.gelu(getattr(self, f"dense_{i}a")(h), approximate="tanh")
-            h = dropout(h, self.dropout, gen)
+            dense_a = getattr(self, f"dense_{i}a")
+            h = F.gelu(dense_a(h), approximate="tanh")
+            h = dropout(h, self.dropout, gen, rows=-2,
+                        split=-1 if dense_a.tp is not None else None)
             x = x + getattr(self, f"dense_{i}b")(h)
         return self.head(self.ln_out(x))[..., 0].float()

@@ -45,13 +45,22 @@ from mlops_tpu_torch.models.layers import (
     Dense,
     LayerNorm,
     MultiHeadSelfAttention,
+    TPSplit,
     dropout,
 )
+from mlops_tpu_torch.parallel.collectives import copy_to, pmean, reduce_from, take_shard
 
 
 class MoEFeedForward(nn.Module):
     """Top-k gated expert FFN with dense dispatch: ``x [(K,) N, S, D] ->
-    (out [(K,) N, S, D], aux [(K,)] in training, else None)``."""
+    (out [(K,) N, S, D], aux [(K,)] in training, else None)``.
+
+    Split over 'model' (``tp``, ``parallel/steps.py``) the rank holds
+    E/ep experts: the router and its gates stay replicated, the dispatch
+    products run this rank's experts and the combine is all-reduced.
+    Under data parallelism (``data_group``) the auxiliary's importance
+    and load are means over the whole logical batch, as the JAX step
+    computes them."""
 
     def __init__(
         self,
@@ -75,6 +84,8 @@ class MoEFeedForward(nn.Module):
         self.experts_in_bias = nn.Parameter(torch.zeros(lead + (e, f)))
         self.experts_out = nn.Parameter(torch.zeros(lead + (e, f, d)))
         self.experts_out_bias = nn.Parameter(torch.zeros(lead + (e, d)))
+        self.tp: TPSplit | None = None
+        self.data_group = None
 
     def route(
         self, tokens: torch.Tensor
@@ -101,15 +112,24 @@ class MoEFeedForward(nn.Module):
         if train:
             importance = gates.mean(dim=-2)  # [(K,) E] mean router prob
             load = (mask / k).mean(dim=-2)  # [(K,) E] fraction routed
+            if self.data_group is not None:
+                importance = pmean(importance, self.data_group, terms=True)
+                load = pmean(load, self.data_group, terms=True)
             aux = self.aux_weight * (e * torch.sum(importance * load, dim=-1))
 
         dt = self.dtype
         xb = tokens.to(dt)
+        tp = self.tp
+        if tp is not None:
+            xb = copy_to(xb, tp.group)
+            weights = take_shard(weights, -1, tp.group)
         h = torch.einsum("...td,...edf->...tef", xb, self.experts_in.to(dt))
         h = F.gelu(h + self.experts_in_bias.to(dt).unsqueeze(-3), approximate="tanh")
         y = torch.einsum("...tef,...efd->...ted", h, self.experts_out.to(dt))
         y = y + self.experts_out_bias.to(dt).unsqueeze(-3)
         out = torch.einsum("...te,...ted->...td", weights.to(dt), y)
+        if tp is not None:
+            out = reduce_from(out, tp.group)
         return out.reshape(x.shape), aux
 
 
@@ -142,9 +162,9 @@ class MoEBlock(nn.Module):
         self, x: torch.Tensor, train: bool, generator: torch.Generator | None = None
     ) -> tuple[torch.Tensor, torch.Tensor | None]:
         h = self.MultiHeadSelfAttention_0(self.LayerNorm_0(x), generator=generator)
-        x = x + dropout(h, self.dropout, generator)
+        x = x + dropout(h, self.dropout, generator, rows=-3)
         h, aux = self.MoEFeedForward_0(self.LayerNorm_1(x), train)
-        return x + dropout(h, self.dropout, generator), aux
+        return x + dropout(h, self.dropout, generator, rows=-3), aux
 
 
 class MoETransformer(nn.Module):

@@ -1,9 +1,15 @@
-"""Bulk scoring on one device: stream an encoded dataset through one
-chunk program (classifier probabilities and outlier flags), then compute
-dataset-level drift on a bounded row sample.
+"""Bulk scoring: stream an encoded dataset through one chunk program
+(classifier probabilities and outlier flags), then compute dataset-level
+drift on a bounded row sample.
 
-Port of the JAX package's ``parallel/bulk.py`` for one card (a data mesh
-is ROADMAP A11). A sweep runs on the staged executor
+Port of the JAX package's ``parallel/bulk.py``. On a data mesh (``mesh``:
+the world's ranks, one card each) a chunk's rows round up to the 'data'
+axis (``mesh_chunk_rows``), each rank slices, copies to its card and
+scores only its block of every chunk (``sharding.row_block``) with the
+whole (replicated) params, and the blocks are gathered over the axis, so
+every rank holds every result (the coordinator writes the output). An
+``sklearn`` bundle scores on each rank's host whole. A sweep
+runs on the staged executor
 (``data/pipeline_exec.py``): slice and pad a chunk on the host, copy it
 to the device, compute, fetch the results in waves, store. On the card:
 
@@ -53,6 +59,7 @@ from mlops_tpu_torch.device import resolve_device
 from mlops_tpu_torch.monitor.state import drift_scores, outlier_flags
 from mlops_tpu_torch.ops.predict import model_params
 from mlops_tpu_torch.ops.quant import quant_student_logits
+from mlops_tpu_torch.parallel.sharding import gather_tensor, row_block
 from mlops_tpu_torch.schema.features import SCHEMA
 
 # Chunks one fetch drains at once, and how far the compute stage may run
@@ -70,12 +77,12 @@ DOC_REFUSAL = (
 
 
 def mesh_chunk_rows(chunk_rows: int, mesh: Any = None) -> int:
-    """The chunk-size rule of the JAX package; this package scores on one
-    device, its single-device branch (a data mesh is ROADMAP A11)."""
-    if mesh is not None:
-        raise ValueError("a data mesh is not ported (ROADMAP A11): bulk scoring "
-                         "runs on one device")
-    return max(1, chunk_rows)
+    """The one chunk-size rule over a data mesh (the JAX package's): round
+    up to the 'data' axis, at least one row per rank."""
+    if mesh is None:
+        return max(1, chunk_rows)
+    axis = int(mesh.shape["data"])
+    return max(axis, ((chunk_rows + axis - 1) // axis) * axis)
 
 
 @dataclasses.dataclass
@@ -266,13 +273,18 @@ class ChunkScorer:
     ``DeviceChunk`` and returns one holding ``[2, R]`` f32 (probabilities,
     flags); on the card every chunk runs on the scorer's one stream after
     its copy's event. ``score`` runs the program on tensors of the
-    current stream (the reference route of the checks)."""
+    current stream (the reference route of the checks). On a data
+    ``mesh`` the chunk it takes is this rank's block (``block``) and the
+    ``[2, R]`` it returns is the whole chunk's, gathered over 'data'."""
 
     ids_dtype = np.int8  # the ids travel as int8 (the largest vocabulary is 12)
     warm_rows = None  # the warm-up chunk: every row valid
 
-    def __init__(self, bundle: Bundle, path: str, device: torch.device) -> None:
+    def __init__(
+        self, bundle: Bundle, path: str, device: torch.device, mesh: Any = None
+    ) -> None:
         self.path = path
+        self.mesh = mesh
         self.device = device
         self.stage_device = device  # where the transfer stage puts chunks
         if path == "quant":
@@ -306,14 +318,24 @@ class ChunkScorer:
     def score(self, cat, num, mask) -> tuple[torch.Tensor, torch.Tensor]:
         return self._fused(*self._args, cat, num, mask)
 
+    def block(self, rows: int) -> slice:
+        """This rank's rows of a chunk of ``rows``: all of them off a mesh."""
+        return row_block(rows, self.mesh)
+
+    def _scored(self, tensors: tuple[torch.Tensor, ...]) -> torch.Tensor:
+        """``[2, R]`` (probabilities, flags) of a chunk: of this rank's
+        block, gathered over 'data' on a mesh."""
+        out = torch.stack(self.score(*tensors))
+        return out if self.mesh is None else gather_tensor(out, (None, "data"), self.mesh)
+
     def __call__(self, chunk: DeviceChunk) -> DeviceChunk:
         if self.stream is None:
-            out = torch.stack(self.score(*chunk.tensors))
+            out = self._scored(chunk.tensors)
             return DeviceChunk((out,), out)
         with torch.cuda.stream(self.stream):
             self.stream.wait_event(chunk.ready)
             chunk.owner.record_stream(self.stream)
-            out = torch.stack(self.score(*chunk.tensors))
+            out = self._scored(chunk.tensors)
             ready = torch.cuda.Event()
             ready.record(self.stream)
         return DeviceChunk((out,), out, ready)
@@ -330,6 +352,11 @@ class SklearnChunkScorer:
     stage_device = torch.device("cpu")
     ids_dtype = np.int32
     warm_rows = 1
+
+    @staticmethod
+    def block(rows: int) -> slice:
+        """Every rank scores the whole chunk."""
+        return slice(0, rows)
 
     def __init__(self, bundle: Bundle, device: torch.device) -> None:
         from mlops_tpu_torch.bundle.bundle import ESTIMATOR_NAME
@@ -401,16 +428,18 @@ def make_chunk_scorer(
     exact: bool | None = None,
     tier: str = "exact",
     device: str | torch.device | None = None,
+    mesh: Any = None,
 ) -> ChunkScorer | SklearnChunkScorer:
     """The chunk program of the routed path (``bulk_path``) on ``device``
-    (the card unless "cpu"); an ``sklearn`` bundle's host scorer. Refuses
-    the ``doc`` flavor."""
+    (the card unless "cpu"), row-split over ``mesh``'s 'data' axis when
+    given; an ``sklearn`` bundle's host scorer (whole on every rank).
+    Refuses the ``doc`` flavor."""
     _refuse_flavor(bundle)
     device = resolve_device(device)
     path = bulk_path(bundle, exact, tier, device)  # a refused quant demand raises
     if bundle.flavor == "sklearn":
         return SklearnChunkScorer(bundle, device)
-    return ChunkScorer(bundle, path, device)
+    return ChunkScorer(bundle, path, device, mesh)
 
 
 def make_chunk_transfer(
@@ -431,9 +460,11 @@ def score_dataset(
     pipeline_depth: int = 2,
     tier: str = "exact",
     device: str | torch.device | None = None,
+    mesh: Any = None,
 ) -> BulkScoreResult:
     """Stream ``ds`` through the chunk program on ``device`` (the card
-    unless "cpu"); aggregate the monitors.
+    unless "cpu"), on a data ``mesh`` each rank scoring its block of
+    every chunk; aggregate the monitors.
 
     Stages (``data/pipeline_exec.py``): slice (and pad the tail), transfer,
     compute, fetch (batched, ``FETCH_WAVE`` chunks deep), store. Depth 1 is
@@ -457,34 +488,37 @@ def score_dataset(
             rows=0,
             elapsed_s=0.0,
         )
-    scorer = make_chunk_scorer(bundle, exact, tier, device)
-    chunk = mesh_chunk_rows(chunk_rows)
-    transfer = make_chunk_transfer(scorer.stage_device, chunk, pipeline_depth)
+    scorer = make_chunk_scorer(bundle, exact, tier, device, mesh)
+    chunk = mesh_chunk_rows(chunk_rows, mesh)
+    block = scorer.block(chunk)  # the rows of every chunk this rank copies and scores
+    rows = block.stop - block.start
+    transfer = make_chunk_transfer(scorer.stage_device, rows, pipeline_depth)
     fetch = ChunkFetch(scorer.stage_device, chunk)
     ids = scorer.ids_dtype
 
     # One chunk through every stage before the timed sweep: the library
     # handles, the allocator's pools and the pinned rings come up here.
     zeros = (
-        np.zeros((chunk, _C), ids),
-        np.zeros((chunk, _M), np.float32),
-        np.arange(chunk) < (scorer.warm_rows or chunk),
+        np.zeros((rows, _C), ids),
+        np.zeros((rows, _M), np.float32),
+        np.arange(rows) < (scorer.warm_rows or rows),
     )
     fetch([scorer(transfer(*zeros))])
 
     predictions = np.empty(n, np.float32)
     outliers = np.empty(n, np.float32)
-    base_index = np.arange(chunk)
-    full_mask = np.ones(chunk, bool)
+    base_index = np.arange(rows)
+    full_mask = np.ones(rows, bool)
 
     def slice_chunk(span):
         start, stop = span
-        size = stop - start
-        cat = ds.cat_ids[start:stop].astype(ids)
-        num = ds.numeric[start:stop]
-        if size < chunk:
-            cat = np.pad(cat, ((0, chunk - size), (0, 0)))
-            num = np.pad(num, ((0, chunk - size), (0, 0)))
+        lo, hi = min(start + block.start, stop), min(start + block.stop, stop)
+        size = hi - lo
+        cat = ds.cat_ids[lo:hi].astype(ids)
+        num = ds.numeric[lo:hi]
+        if size < rows:
+            cat = np.pad(cat, ((0, rows - size), (0, 0)))
+            num = np.pad(num, ((0, rows - size), (0, 0)))
             mask = base_index < size
         else:
             mask = full_mask

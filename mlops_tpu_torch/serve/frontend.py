@@ -592,7 +592,7 @@ def _replica_config(config: Config, replica: int, replicas: int) -> Config:
     visible card (or too few for one each) every replica shares
     ``serve.device``; replica r takes card r only when the process sees a
     card per replica, as the JAX plane takes a device slice per replica.
-    Spanning cards with one replica is not ported (ROADMAP A11)."""
+    Spanning cards with one replica is not ported (ROADMAP A11b)."""
     if replicas < 2 or config.serve.device != "cuda":
         return config
     import torch

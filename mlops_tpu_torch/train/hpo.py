@@ -30,7 +30,13 @@ leading ``[T, ...]`` axis, trained by ``TrialStack``:
 
 ``run_hpo`` (random search), ``run_sha`` (successive halving) and
 ``run_architecture_hpo`` (groups of architectures, resumable per group)
-select exactly as the JAX package does. jax.random's bits cannot be
+select exactly as the JAX package does. On a mesh (``mesh=``, the
+``tune`` command's data mesh over the world's ranks) the trial axis
+splits over 'data' as the JAX package shards it: the trials pad up to a
+multiple of the axis (random search: the leading hyperparameters cycled
+with seeds of their own, SHA: each rung's survivors cycled whole), each
+rank trains its block of the stack, and the metrics, a rung's survivors'
+state and the winner's params are exchanged over the axis. jax.random's bits cannot be
 reproduced, so initial params and batch indices can be injected (``init``,
 ``index_source``): the tests feed the JAX sweep's own.
 """
@@ -53,6 +59,8 @@ from mlops_tpu_torch.config import HPOConfig, ModelConfig, TrainConfig
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.device import resolve_device
 from mlops_tpu_torch.models import FAMILIES, build_model, init_params
+from mlops_tpu_torch.parallel.distributed import is_coordinator
+from mlops_tpu_torch.parallel.sharding import gather_tensor, row_block
 from mlops_tpu_torch.train.loop import EVAL_CHUNK_ROWS, loss_of
 from mlops_tpu_torch.train.metrics import binary_metrics
 from mlops_tpu_torch.utils.io import atomic_write
@@ -179,7 +187,10 @@ class CounterStream:
     def __init__(self, bases: torch.Tensor) -> None:
         self.bases, self.site = bases, 0
 
-    def uniform(self, shape: Sequence[int], device: torch.device) -> torch.Tensor:
+    def uniform(
+        self, shape: Sequence[int], device: torch.device, rows: int = 0,
+        split: int | None = None,
+    ) -> torch.Tensor:
         self.site += 1
         bits = _counters(self.bases[self.site], math.prod(shape)) >> 8
         return (bits.to(torch.float32) * 2.0**-24).reshape(tuple(shape))
@@ -241,6 +252,7 @@ class TrialStack:
         device: torch.device,
         init: Sequence[dict[str, torch.Tensor]] | None = None,
         index_source: IndexSource | None = None,
+        trial_ids: np.ndarray | None = None,
     ) -> None:
         self.model = build_model(model_config).to(device)
         self.names, self.shapes, self.sizes = [], [], []
@@ -270,7 +282,8 @@ class TrialStack:
         self.wd = torch.as_tensor(np.asarray(hp["weight_decay"], np.float32), **f32)
         self.pw = torch.as_tensor(np.asarray(hp["pos_weight"], np.float32), **f32)
         self.keys = torch.as_tensor(seeds[:, 1], dtype=torch.int64, device=device)
-        self.trial_ids = np.arange(t)  # original trial of each live row
+        # The original trial of each live row.
+        self.trial_ids = np.arange(t) if trial_ids is None else np.asarray(trial_ids)
         self.horizon = horizon
         self.batch = train_config.batch_size
         self.data = data
@@ -389,6 +402,26 @@ class TrialStack:
         }
 
     @torch.no_grad()
+    def gather_trials(self, group) -> None:
+        """Every rank's block of the stack, concatenated over ``group`` in
+        rank order (the data axis of a mesh): then every rank holds the
+        whole padded stack, ready for ``keep``."""
+        from mlops_tpu_torch.parallel.collectives import all_gather_cat
+
+        def cat(t):
+            return all_gather_cat(t, 0, group)
+
+        self.flat = cat(self.flat.detach()).requires_grad_(True)
+        self.mu, self.nu = cat(self.mu), cat(self.nu)
+        if self.ema is not None:
+            self.ema = cat(self.ema)
+        self.lr, self.wd, self.pw, self.keys = (
+            cat(self.lr), cat(self.wd), cat(self.pw), cat(self.keys)
+        )
+        ids = torch.as_tensor(self.trial_ids, dtype=torch.int64, device=self.device)
+        self.trial_ids = cat(ids).cpu().numpy()
+
+    @torch.no_grad()
     def keep(self, rows: np.ndarray) -> None:
         """Continue only the trials at ``rows`` (local indices, in that
         order), their optimizer state and EMA with them: one gather per
@@ -437,13 +470,18 @@ def run_hpo(
     device: str | torch.device | None = None,
     init: Sequence[dict[str, torch.Tensor]] | None = None,
     index_source: IndexSource | None = None,
+    mesh=None,
 ) -> HPOResult:
     """Train all trials stacked for ``hpo.steps`` steps and pick the
-    objective winner; ``hpo.strategy="sha"`` routes to ``run_sha``."""
+    objective winner; ``hpo.strategy="sha"`` routes to ``run_sha``. On a
+    ``mesh`` the trials pad up to a multiple of its 'data' axis (the
+    hyperparameters cycled, the seeds each trial's own; ``init`` then
+    covers the padded count) and each rank trains its block; the padded
+    trials are dropped before selection."""
     if hpo_config.strategy == "sha":
         return run_sha(
             model_config, train_config, hpo_config, train_ds, valid_ds,
-            device=device, init=init, index_source=index_source,
+            device=device, init=init, index_source=index_source, mesh=mesh,
         )
     if hpo_config.strategy != "random":
         raise ValueError(
@@ -453,23 +491,63 @@ def run_hpo(
     device = resolve_device(device if device is not None else train_config.device)
     t = hpo_config.trials
     hp = sample_hyperparams(hpo_config)
+    axis = _data_axis(mesh)
+    t_run = ((t + axis - 1) // axis) * axis
+    # np.resize cycles the leading trials, even past the trial count.
+    hp_run = {k: np.resize(v, t_run) for k, v in hp.items()}
+    local = np.arange(t_run)[row_block(t_run, mesh)]
     stack = TrialStack(
-        model_config, train_config, hp, trial_seeds(hpo_config.seed, t),
+        model_config, train_config, {k: v[local] for k, v in hp_run.items()},
+        trial_seeds(hpo_config.seed, t_run)[local],
         hpo_config.steps, SweepData.put(train_ds, valid_ds, device), device,
-        init=init, index_source=index_source,
+        init=None if init is None else [init[i] for i in local],
+        index_source=index_source, trial_ids=local,
     )
     stack.run(hpo_config.steps)
     final = stack.eval_params()
-    metrics = stack.metrics(final)
+    metrics = {k: v[:t] for k, v in _gather_metrics(stack.metrics(final), mesh, device).items()}
     best = select_best(metrics[hpo_config.objective], hpo_config.objective)
     trials = _records(hp, metrics, range(t), range(t))
     return HPOResult(
         best_index=best,
         best_hyperparams=trials[best]["hyperparams"],
-        best_params=stack.params_of(final, best),
+        best_params=_owner_params(stack, final, best, len(local), mesh),
         best_metrics=trials[best]["metrics"],
         trials=trials,
     )
+
+
+def _data_axis(mesh) -> int:
+    return mesh.size("data") if mesh is not None else 1
+
+
+def _gather_metrics(metrics: dict[str, np.ndarray], mesh, device) -> dict[str, np.ndarray]:
+    """Every rank's trials' metrics, concatenated over 'data'."""
+    if mesh is None:
+        return metrics
+    return {
+        k: gather_tensor(torch.as_tensor(v, device=device), ("data",), mesh).cpu().numpy()
+        for k, v in metrics.items()
+    }
+
+
+def _owner_params(stack: TrialStack, flat: torch.Tensor, row: int, block: int,
+                  mesh) -> dict[str, torch.Tensor]:
+    """The params of padded row ``row``, on every rank: broadcast from the
+    rank of 'data' that trains it (each holds ``block`` rows)."""
+    if mesh is None:
+        return stack.params_of(flat, row)
+    import torch.distributed as dist
+
+    owner, local = divmod(row, block)
+    params = stack.params_of(flat, local if owner == mesh.index("data") else 0)
+    src = mesh.axis_ranks["data"][owner]
+    out = {}
+    for name, value in params.items():
+        value = value.to(stack.device)
+        dist.broadcast(value, src=src, group=mesh.group("data"))
+        out[name] = value.cpu()
+    return out
 
 
 def sha_plan(hpo_config: HPOConfig) -> tuple[list[int], int, int]:
@@ -493,30 +571,44 @@ def run_sha(
     device: str | torch.device | None = None,
     init: Sequence[dict[str, torch.Tensor]] | None = None,
     index_source: IndexSource | None = None,
+    mesh=None,
 ) -> HPOResult:
     """Successive halving at random search's step budget: train every
     candidate one rung stacked, keep the top ``1/eta`` by the objective,
     continue only the survivors (optimizer state, EMA and all) on the
     schedule spanned over the whole horizon. Trials eliminated at rung r
     are recorded with the metrics, rung and steps they died with. On one
-    card no survivor set is padded (the JAX ``pad_to_axis`` is a no-op)."""
+    device no survivor set is padded; on a ``mesh`` each rung's set pads
+    up to a multiple of the 'data' axis with cycled duplicates (the JAX
+    ``pad_to_axis``: they train whole rungs and are dropped at
+    selection), each rank trains its block, and after a rung the stack is
+    gathered over the axis before the survivors are taken."""
     device = resolve_device(device if device is not None else train_config.device)
     n0 = hpo_config.trials
     eta = max(2, hpo_config.eta)
     counts, rung_steps, horizon = sha_plan(hpo_config)
     rungs = len(counts)
     hp = sample_hyperparams(hpo_config)
+    axis = _data_axis(mesh)
+
+    def pad_to_axis(idx: np.ndarray) -> np.ndarray:
+        return np.resize(idx, ((len(idx) + axis - 1) // axis) * axis)
+
+    live = pad_to_axis(np.arange(n0))  # indices into the original trials
+    local = live[row_block(len(live), mesh)]
+    seeds = trial_seeds(hpo_config.seed, n0)
     stack = TrialStack(
-        model_config, train_config, hp, trial_seeds(hpo_config.seed, n0), horizon,
-        SweepData.put(train_ds, valid_ds, device), device,
-        init=init, index_source=index_source,
+        model_config, train_config, {k: v[local] for k, v in hp.items()}, seeds[local],
+        horizon, SweepData.put(train_ds, valid_ds, device), device,
+        init=None if init is None else [init[i] for i in local],
+        index_source=index_source, trial_ids=local,
     )
     trials: list[dict[str, Any]] = [None] * n0  # filled at elimination
+    valid_k = n0
     for r in range(rungs):
         stack.run(rung_steps)
         eval_flat = stack.eval_params()
-        metrics = stack.metrics(eval_flat)
-        valid_k = stack.trials
+        metrics = _gather_metrics(stack.metrics(eval_flat), mesh, device)
         objective = metrics[hpo_config.objective][:valid_k]
         finite = np.isfinite(objective)
         if not finite.any():
@@ -529,20 +621,27 @@ def run_sha(
         # Every live trial's record as of THIS rung (survivors get
         # overwritten at later rungs with fresher numbers).
         for local_i, record in enumerate(
-            _records(hp, metrics, range(valid_k), stack.trial_ids)
+            _records(hp, metrics, range(valid_k), live)
         ):
-            trials[int(stack.trial_ids[local_i])] = {
+            trials[int(live[local_i])] = {
                 **record, "rung": r, "steps": stack.steps_done,
             }
         if r == rungs - 1:
             best_local = int(ranked[0])
             break
-        stack.keep(ranked[:keep])
-    best = int(stack.trial_ids[best_local])
+        survivors = ranked[:keep]
+        if mesh is not None:
+            stack.gather_trials(mesh.group("data"))
+        # np.resize cycles the survivors exactly as pad_to_axis cycles live.
+        rows = np.resize(survivors, len(pad_to_axis(survivors)))
+        live = live[rows]
+        stack.keep(rows[row_block(len(rows), mesh)])
+        valid_k = keep
+    best = int(live[best_local])
     return HPOResult(
         best_index=best,
         best_hyperparams=trials[best]["hyperparams"],
-        best_params=stack.params_of(eval_flat, best_local),
+        best_params=_owner_params(stack, eval_flat, best_local, stack.trials, mesh),
         best_metrics=trials[best]["metrics"],
         trials=trials,
     )
@@ -645,6 +744,7 @@ def run_architecture_hpo(
     device: str | torch.device | None = None,
     resume_dir: str | Path | None = None,
     seams: Callable[[int, ModelConfig], dict[str, Any]] | None = None,
+    mesh=None,
 ) -> tuple[ModelConfig, HPOResult]:
     """Loop architecture groups, stack trials within each. Each
     ``hpo.architectures`` spec is one group of ``hpo.trials`` trials,
@@ -656,12 +756,13 @@ def run_architecture_hpo(
     and the best index is offset into the merged list. With
     ``resume_dir`` a finished group persists and a rerun restores it
     without training. ``seams(g, cfg)`` may give a group its
-    ``init``/``index_source`` (tests)."""
+    ``init``/``index_source`` (tests). ``mesh`` splits every group's
+    trials over its 'data' axis; only the coordinator persists groups."""
     seams = seams or (lambda g, cfg: {})
     if not hpo_config.architectures:
         return model_config, run_hpo(
             model_config, train_config, hpo_config, train_ds, valid_ds,
-            device=device, **seams(0, model_config),
+            device=device, mesh=mesh, **seams(0, model_config),
         )
     groups: list[tuple[ModelConfig, dict[str, Any]]] = []
     for spec in hpo_config.architectures:
@@ -686,9 +787,9 @@ def run_architecture_hpo(
         if res is None:
             res = run_hpo(
                 cfg, train_config, group_hpo, train_ds, valid_ds, device=device,
-                **seams(g, cfg),
+                mesh=mesh, **seams(g, cfg),
             )
-            if resume_dir is not None:
+            if resume_dir is not None and is_coordinator():
                 _save_group_result(resume_dir, g, fingerprint, res)
         results.append(res)
         for trial in res.trials:

@@ -159,7 +159,11 @@ def batch_indices(n_rows: int, batch: int, seed: int, step: int) -> np.ndarray:
 
 def dropout_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
     """The dropout stream of one step on ``device``, seeded from (seed,
-    step): the counterpart of the JAX loop's ``fold_in(rng, step)``."""
+    step): the counterpart of the JAX loop's ``fold_in(rng, step)``. A
+    layout trainer gives every rank the same generator and draws each
+    mask whole before keeping the rank's block of it
+    (``parallel/steps.py::ShardedStream``), so K ranks apply the masks one
+    rank applies."""
     state = np.random.SeedSequence((seed, step, 1)).generate_state(1, np.uint64)
     return torch.Generator(device=device).manual_seed(int(state[0]))
 
@@ -230,10 +234,25 @@ class ClippedAdamW:
     - the learning rate of an update is the schedule at the count before
       it (optax evaluates it before its increment): the first update uses
       ``lr(0) = 0``.
+
+    Under tensor parallelism (``parallel/steps.py``) a rank holds only its
+    block of the parameters split over 'model' (``sharded[i]``): their
+    norms are completed over ``group`` (the squares all-reduced, then the
+    root), the replicated leaves counted once, so every rank clips by the
+    norm optax takes over the logical arrays. On an axis of one rank the
+    completed norm is the leaf's own (``sqrt(n * n) == n`` in IEEE f32).
     """
 
-    def __init__(self, params: list[nn.Parameter], config: TrainConfig) -> None:
+    def __init__(
+        self,
+        params: list[nn.Parameter],
+        config: TrainConfig,
+        sharded: list[bool] | None = None,
+        group=None,
+    ) -> None:
         self.params = list(params)
+        self.sharded = [i for i, s in enumerate(sharded or []) if s]
+        self.group = group
         self.schedule = lr_schedule(config)
         self.adamw = torch.optim.AdamW(
             self.params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
@@ -247,7 +266,16 @@ class ClippedAdamW:
     @torch.no_grad()
     def step(self) -> None:
         grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norms = list(torch._foreach_norm(grads))
+        if self.group is not None and self.sharded:
+            import torch.distributed as dist
+
+            part = torch.stack([norms[i] for i in self.sharded])
+            squares = part * part
+            dist.all_reduce(squares, group=self.group)
+            for i, full in zip(self.sharded, torch.sqrt(squares).unbind()):
+                norms[i] = full
+        norm = torch.linalg.vector_norm(torch.stack(norms))
         torch._foreach_div_(grads, torch.where(norm < 1.0, torch.ones_like(norm), norm))
         for group in self.adamw.param_groups:
             group["lr"] = self.schedule(self.count)
@@ -360,7 +388,13 @@ def fit(
     None: the card unless "cpu") on an encoded dataset; resume from the
     checkpoints in ``checkpoint_dir`` if any (a checkpoint wins over
     ``init_state``). The optimizer starts fresh either way. The result's
-    params are the packaged ones on the CPU, by ``state_dict`` name."""
+    params are the packaged ones on the CPU, by ``state_dict`` name.
+
+    Under a launcher every rank trains the same model and reads the same
+    checkpoints; only the coordinator writes checkpoints, metrics and
+    event files, after every rank has read."""
+    from mlops_tpu_torch.parallel.distributed import barrier, is_coordinator
+
     dev = resolve_device(device if device is not None else config.device)
     if init_state is None:
         model = init_params(model, config.seed)
@@ -389,10 +423,15 @@ def fit(
             best_params, best_record = restored
             best_auc = best_record["validation_roc_auc_score"]
     journal_floor = journal_max_step(Path(metrics_path)) if metrics_path else 0
+    barrier()  # no rank reads a checkpoint the coordinator is writing
+    writer = is_coordinator()
+    save_dir = checkpoint_dir if writer else None
+    if not writer:
+        metrics_path = None
 
     history: list[dict[str, float]] = []
     step = last_ckpt = start_step
-    with metric_writers(metrics_path, config.tensorboard_dir) as emit:
+    with metric_writers(metrics_path, config.tensorboard_dir if writer else "") as emit:
         while step < config.steps:
             window = min(base_window, config.steps - step)
             steps = range(step + 1, step + window + 1)
@@ -413,18 +452,16 @@ def fit(
                 best_auc = record["validation_roc_auc_score"]
                 best_params = {k: v.detach().cpu().clone() for k, v in eval_params.items()}
                 best_record = record
-                if checkpoint_dir is not None:
-                    ckpt.save_best(checkpoint_dir, best_params, best_record)
+                if save_dir is not None:
+                    ckpt.save_best(save_dir, best_params, best_record)
             history.append(record)
             if step > journal_floor:  # no duplicate rows on resume
                 emit(record)
-            if checkpoint_dir is not None and step - last_ckpt >= config.checkpoint_every:
-                ckpt.save_checkpoint(
-                    checkpoint_dir, ckpt.train_state(model, optimizer, ema), step
-                )
+            if save_dir is not None and step - last_ckpt >= config.checkpoint_every:
+                ckpt.save_checkpoint(save_dir, ckpt.train_state(model, optimizer, ema), step)
                 last_ckpt = step
-        if checkpoint_dir is not None and step > last_ckpt:
-            ckpt.save_checkpoint(checkpoint_dir, ckpt.train_state(model, optimizer, ema), step)
+        if save_dir is not None and step > last_ckpt:
+            ckpt.save_checkpoint(save_dir, ckpt.train_state(model, optimizer, ema), step)
 
     serving = packaged_or_raw(ema, params, decay, step)
     if best_params is not None:

@@ -14,8 +14,16 @@ checkpoints, packaging):
   ensemble or a transformer family unless ``train.distill_bulk`` is off,
   the quant tier with ``train.distill_quant``), a ``flax`` bundle both
   packages load;
-- ``run_layout_training`` and ``_run_doc_training``, the long-context
-  doc model: a ``doc`` bundle and ``doc_params.msgpack``;
+- ``run_layout_training``, the multi-rank layouts of the JAX package's
+  ``run_layout_training``: ``model.tensor_parallel=K`` (DP x TP,
+  ``train/tensor_parallel.py``) and ``model.pipeline_stages=S`` (DP x
+  PP, ``train/pipeline_parallel.py``) into a ``flax`` bundle of the dense
+  family, and the long-context doc model (``_run_doc_training``, DP x SP
+  with ``model.seq_parallel``) into a ``doc`` bundle and
+  ``doc_params.msgpack``; one rank per card under ``torch.distributed``
+  (``parallel/distributed.py``), where only the coordinator (rank 0)
+  writes the run directory, metrics, checkpoints, bundle and registry
+  entry, and every rank returns the same result;
 - ``run_tuning``, the ``tune`` sweep (``train/hpo.py``): every trial of
   every architecture group stacked, the winner calibrated, its bulk
   student distilled when its family takes one, packaged and registered.
@@ -26,10 +34,10 @@ events with ``train.tensorboard_dir``), checkpoints, a bundle and a
 registry version. ``data.train_path`` may be a CSV or a Parquet file and
 it and ``registry.root`` may be ``gs://`` URIs, as in the JAX package.
 The sklearn tree-ensemble floor (gbm, rf) trains on the host through
-scikit-learn, as in the JAX package, into an ``sklearn`` bundle. What the
-JAX ``train`` command accepts and the port does not train yet (pipeline-
-and tensor-parallel training, the sequence-parallel ring) is refused
-before any work, naming its ROADMAP item.
+scikit-learn, as in the JAX package, into an ``sklearn`` bundle. The
+world size takes the place of the JAX package's device count wherever a
+mesh is sized, and its refusals (knobs that cannot combine, a count the
+layout does not divide) are its messages.
 """
 
 from __future__ import annotations
@@ -58,8 +66,18 @@ from mlops_tpu_torch.device import resolve_device
 from mlops_tpu_torch.models import build_model, init_params
 from mlops_tpu_torch.models.gbm import SKLEARN_FAMILIES, SklearnBaseline
 from mlops_tpu_torch.monitor.state import fit_monitor
+from mlops_tpu_torch.parallel.distributed import (
+    broadcast_object,
+    initialize,
+    is_coordinator,
+    rank_device,
+    world_size,
+)
+from mlops_tpu_torch.parallel.mesh import make_nd_mesh
 from mlops_tpu_torch.train.calibrate import calibration_record, probs_to_logits
 from mlops_tpu_torch.train.checkpoint import (
+    has_checkpoints,
+    load_checkpoint,
     restore_train_state,
     save_checkpoint,
     train_state,
@@ -84,6 +102,7 @@ from mlops_tpu_torch.train.loop import (
     eval_logits,
     fit,
     journal_max_step,
+    evaluate,
     metric_writers,
     packaged_or_raw,
 )
@@ -115,6 +134,15 @@ def new_run_dir(config: Config, run_name: str | None = None) -> Path:
     return run_dir
 
 
+def _shared_run_dir(config: Config, run_name: str | None) -> tuple[str, Path]:
+    """The coordinator's run name on every rank (a timestamp when None)
+    and its run directory, which only the coordinator creates."""
+    run_name = broadcast_object(run_name or time.strftime("%Y%m%d-%H%M%S"))
+    if is_coordinator():
+        return run_name, new_run_dir(config, run_name)
+    return run_name, Path(config.registry.run_root) / run_name
+
+
 def load_training_data(config: Config) -> tuple[dict[str, list], np.ndarray]:
     """A labelled CSV or Parquet file (local or ``gs://``) if
     ``data.train_path`` is set, else ``data.rows`` synthetic rows from
@@ -143,27 +171,41 @@ def _final_validation_metrics(
     return fallback()
 
 
-def _layout_run_setup(tcfg, run_dir: Path, trainer: DocTrainStep):
+def _layout_run_setup(tcfg, run_dir: Path, trainer):
     """Eval and checkpoint cadences (``checkpoint_every=0`` falls back to
     the eval window), the state restored from the newest checkpoint, and
-    the journal floor that suppresses duplicate metric rows on resume."""
+    the journal floor that suppresses duplicate metric rows on resume.
+    ``trainer`` is the doc model's ``DocTrainStep`` or a laid-out step
+    (``ShardedTrainStep``: every rank takes its blocks of the whole
+    checkpointed state)."""
     eval_every = max(1, min(tcfg.eval_every, tcfg.steps))
     ckpt_every = max(1, tcfg.checkpoint_every or eval_every)
     ckpt_dir = run_dir / "checkpoints"
-    start_step = restore_train_state(
-        ckpt_dir, trainer.model, trainer.optimizer, trainer.ema
-    )
+    if isinstance(trainer, DocTrainStep):
+        start_step = restore_train_state(
+            ckpt_dir, trainer.model, trainer.optimizer, trainer.ema
+        )
+    else:
+        start_step = (
+            load_checkpoint(ckpt_dir, trainer.load_full_state) or 0
+            if has_checkpoints(ckpt_dir) else 0
+        )
     journal_floor = journal_max_step(run_dir / "metrics.jsonl")
     return eval_every, ckpt_every, ckpt_dir, start_step, journal_floor
 
 
 def _maybe_checkpoint(
-    ckpt_dir: Path, trainer: DocTrainStep, step: int, ckpt_every: int, steps: int
+    ckpt_dir: Path, trainer, step: int, ckpt_every: int, steps: int
 ) -> None:
+    """Every ``ckpt_every`` steps and at the end: the whole state (a
+    laid-out step gathers it on every rank), written by the coordinator."""
     if step % ckpt_every == 0 or step == steps:
-        save_checkpoint(
-            ckpt_dir, train_state(trainer.model, trainer.optimizer, trainer.ema), step
-        )
+        if isinstance(trainer, DocTrainStep):
+            state = train_state(trainer.model, trainer.optimizer, trainer.ema)
+        else:
+            state = trainer.full_state()
+        if is_coordinator():
+            save_checkpoint(ckpt_dir, state, step)
 
 
 def _package_and_register(
@@ -184,9 +226,13 @@ def _package_and_register(
     the bundle of ``model_config`` (``config.model`` when None; ``doc``
     for a doc model, ``sklearn`` for a tree ensemble, whose ``model`` is
     the ``SklearnBaseline``, else ``flax`` with the ``students`` keywords
-    of ``save_exact_bundle``), register it."""
+    of ``save_exact_bundle``), register it. In a multi-rank run only the
+    coordinator writes; the other ranks return the bundle path and no
+    URI (the caller hands them the coordinator's)."""
     model_config = model_config or config.model
     bundle_dir = run_dir / "bundle"
+    if not is_coordinator():
+        return bundle_dir, None
     monitor = fit_monitor(
         train_ds,
         drift_ref_size=config.monitor.drift_ref_size,
@@ -213,35 +259,22 @@ def _package_and_register(
     return bundle_dir, model_uri
 
 
-def _refuse_unported(config: Config) -> None:
-    """What the JAX ``train`` command accepts and this package does not
-    train yet, refused before any work, each with its reason."""
-    model = config.model
-    if not model.uses_layout_trainer:
-        # The JAX package's guard: a dense config routed here would train
-        # a one-record "document" model.
+def _check_layout_knobs(config: Config) -> None:
+    """Refuse layout knobs that have no trainer together (the JAX
+    package's check): each knob selects its own trainer, and the dispatch
+    order would otherwise train only one of them."""
+    knobs = {
+        "pipeline_stages": bool(config.model.pipeline_stages),
+        "tensor_parallel": bool(config.model.tensor_parallel),
+        "doc_records>1/seq_parallel": (
+            config.model.doc_records > 1 or config.model.seq_parallel
+        ),
+    }
+    active = [name for name, on in knobs.items() if on]
+    if len(active) > 1:
         raise ValueError(
-            "run_layout_training needs a layout knob set "
-            "(model.pipeline_stages / seq_parallel / doc_records>1); "
-            "dense configs train via run_training"
-        )
-    if model.pipeline_stages or model.tensor_parallel:
-        raise ValueError(
-            "pipeline-parallel (model.pipeline_stages) and tensor-parallel "
-            "(model.tensor_parallel) training are not ported (ROADMAP.md "
-            "A11); this package trains the dense doc model on one card"
-        )
-    if model.seq_parallel:
-        raise ValueError(
-            "model.seq_parallel=true (ring attention over a multi-device "
-            "'seq' axis) is not ported (ROADMAP.md A11); on one card pass "
-            "model.seq_parallel=false, the dense path"
-        )
-    if config.train.init_params:
-        raise ValueError(
-            "train.init_params is not supported for document training: the "
-            "pretrained pos_embed covers one 48-token record, not a 2+46R "
-            "document sequence"
+            f"layout knobs {active} cannot combine: each selects its own "
+            "trainer (PP / DP×TP / DP×SP documents); set exactly one"
         )
 
 
@@ -323,15 +356,23 @@ def run_training(
     init (``train.seed``) with the pretrained trunk grafted in
     (``load_init_state``); a checkpoint still wins over it. The sklearn
     families (gbm, rf) take the JAX package's branch
-    (``_run_sklearn_training``)."""
+    (``_run_sklearn_training``).
+
+    Under a launcher (world size > 1) every rank joins its group and
+    trains the same model on its own card (``cuda:LOCAL_RANK``), as every
+    JAX process computes the same; only the coordinator writes the run
+    directory, its metrics and checkpoints, the bundle and the registry
+    entry, and every rank returns its URI."""
     _refuse_unported_dense(config)
+    device = (
+        initialize(config.train.device).device if world_size() > 1
+        else resolve_device(config.train.device)
+    )
     if config.model.family in SKLEARN_FAMILIES:
         return _run_sklearn_training(config, register, run_name)
-    device = resolve_device(config.train.device)
     model = build_model(config.model)  # refuses what the zoo does not port
     init_state = load_init_state(config)  # before any work: a bad file raises
-    run_name = run_name or time.strftime("%Y%m%d-%H%M%S")
-    run_dir = new_run_dir(config, run_name)
+    run_name, run_dir = _shared_run_dir(config, run_name)
     columns, labels = load_training_data(config)
     preprocessor = Preprocessor.fit(columns)
     ds = preprocessor.encode(columns, labels)
@@ -378,7 +419,8 @@ def run_training(
         students=students,
     )
     return PipelineResult(
-        bundle_dir=bundle_dir, model_uri=model_uri, train_result=result, run_dir=run_dir
+        bundle_dir=bundle_dir, model_uri=broadcast_object(model_uri),
+        train_result=result, run_dir=run_dir,
     )
 
 
@@ -392,8 +434,7 @@ def _run_sklearn_training(
     probabilities, no students (the floor is what they are measured
     against), and an ``sklearn`` bundle: the estimator and, for a HistGBM
     ensemble, the tree file the gbm tier serves. Needs scikit-learn."""
-    run_name = run_name or time.strftime("%Y%m%d-%H%M%S")
-    run_dir = new_run_dir(config, run_name)
+    run_name, run_dir = _shared_run_dir(config, run_name)
     columns, labels = load_training_data(config)
     preprocessor = Preprocessor.fit(columns)
     ds = preprocessor.encode(columns, labels)
@@ -425,29 +466,279 @@ def _run_sklearn_training(
         calibration=calibration,
     )
     return PipelineResult(
-        bundle_dir=bundle_dir, model_uri=model_uri, train_result=result, run_dir=run_dir
+        bundle_dir=bundle_dir, model_uri=broadcast_object(model_uri),
+        train_result=result, run_dir=run_dir,
     )
 
 
 def run_layout_training(
     config: Config, register: bool = True, run_name: str | None = None
 ) -> PipelineResult:
-    """Train the long-context doc model per config (``model.doc_records
-    > 1``, dense attention) on ``train.device`` (the card unless "cpu"),
-    and package and register it as a ``doc`` bundle."""
-    _refuse_unported(config)
-    device = resolve_device(config.train.device)
-    check_doc_attention(config.model, device)
-    run_name = run_name or time.strftime("%Y%m%d-%H%M%S")
-    run_dir = new_run_dir(config, run_name)
+    """The multi-rank layouts (the JAX package's ``run_layout_training``;
+    the ``train`` CLI dispatches here for a layout knob):
+
+    - ``model.pipeline_stages=S``: GPipe on a ``('data', 'stage')`` mesh
+      of the world's ranks; the stages merge back into the dense tree,
+      which is calibrated, distilled, packaged and registered like any
+      bundle of its family;
+    - ``model.tensor_parallel=K``: DP x TP on ``('data', 'model')``, the
+      same tail;
+    - ``model.doc_records>1``: the doc model, on a ``('data', 'seq')``
+      ring mesh with ``seq_parallel``, into a ``doc`` bundle.
+
+    Each rank trains on ``train.device`` (the card ``cuda:LOCAL_RANK``
+    unless "cpu"), joined to its group over NCCL or gloo; a plain run is
+    a world of one. A mesh the world size does not fit is refused with
+    the JAX package's message."""
+    model = config.model
+    if not model.uses_layout_trainer:
+        # The mirror of run_training's guard: a dense config routed here
+        # would train a one-record "document" model.
+        raise ValueError(
+            "run_layout_training needs a layout knob set "
+            "(model.pipeline_stages / seq_parallel / doc_records>1); "
+            "dense configs train via run_training"
+        )
+    _check_layout_knobs(config)
+    if config.train.init_params:
+        # Before the run dir and the data: an incompatible graft leaves
+        # no orphan run directory.
+        if not (model.pipeline_stages or model.tensor_parallel):
+            raise ValueError(
+                "train.init_params is not supported for document training: "
+                "the pretrained pos_embed covers one 48-token record, not "
+                "a 2+46R document sequence"
+            )
+        if model.family != "bert":
+            raise ValueError(
+                "train.init_params grafts a bert masked-LM trunk; "
+                f"family {model.family!r} shares no trunk with it"
+            )
+    meshed = bool(model.pipeline_stages or model.tensor_parallel or model.seq_parallel)
+    if meshed or world_size() > 1:
+        device = initialize(config.train.device).device
+    else:
+        device = rank_device(config.train.device)
+    if not (model.pipeline_stages or model.tensor_parallel):
+        check_doc_attention(model, device)
+    run_name, run_dir = _shared_run_dir(config, run_name)
     columns, labels = load_training_data(config)
     preprocessor = Preprocessor.fit(columns)
     ds = preprocessor.encode(columns, labels)
     train_ds, valid_ds = split_dataset(ds, config.data.valid_fraction)
-    return _run_doc_training(
-        config, run_dir, run_name, preprocessor, train_ds, valid_ds, register,
-        device,
+    run = (
+        _run_pp_training if model.pipeline_stages
+        else _run_tp_training if model.tensor_parallel
+        else _run_doc_training
     )
+    result = run(
+        config, run_dir, run_name, preprocessor, train_ds, valid_ds, register, device
+    )
+    # The coordinator's URI on every rank, once its bundle is written.
+    result.model_uri = broadcast_object(result.model_uri)
+    return result
+
+
+def _layout_metrics_path(run_dir: Path) -> Path | None:
+    return run_dir / "metrics.jsonl" if is_coordinator() else None
+
+
+def _package_dense(
+    config: Config,
+    run_dir: Path,
+    run_name: str,
+    packaged: dict[str, torch.Tensor],
+    preprocessor: Preprocessor,
+    train_ds: EncodedDataset,
+    valid_ds: EncodedDataset,
+    final: dict[str, float],
+    register: bool,
+    device: torch.device,
+    trained_with: str,
+) -> tuple[Path, str | None]:
+    """The PP and TP tail on the coordinator: the dense family's module
+    with the packaged params, a temperature fitted on its validation
+    logits, the bulk student of a transformer family, the bundle (its
+    ``trained_with`` tag naming the layout) and the registry."""
+    if not is_coordinator():
+        return run_dir / "bundle", None
+    dense_cfg = dataclasses.replace(config.model, pipeline_stages=0, tensor_parallel=0)
+    module = load_params(build_model(dense_cfg), packaged).to(device)
+    logits = eval_logits(
+        module,
+        dict(module.named_parameters()),
+        torch.from_numpy(valid_ds.cat_ids).to(device),
+        torch.from_numpy(valid_ds.numeric).to(device),
+    )
+    calibration = calibration_record(logits.cpu().numpy(), valid_ds.labels)
+    bulk = _maybe_distill(config, module, train_ds, valid_ds, device, model_config=dense_cfg)
+    return _package_and_register(
+        config,
+        run_dir,
+        module.cpu(),
+        preprocessor,
+        train_ds,
+        metrics=final,
+        bundle_tags={
+            "run_name": run_name,
+            "experiment": config.registry.experiment_name,
+            "trained_with": trained_with,
+        },
+        registry_tags={
+            "run_name": run_name,
+            **{k: f"{v:.6f}" for k, v in final.items()},
+        },
+        register=register,
+        calibration=calibration,
+        students={"bulk": bulk},
+    )
+
+
+def _run_sharded_loop(
+    config: Config,
+    run_dir: Path,
+    trainer,
+    train_ds: EncodedDataset,
+    valid_ds: EncodedDataset,
+    device: torch.device,
+    dense_model: torch.nn.Module,
+    packaged_params: Callable[[int], dict[str, torch.Tensor]],
+) -> tuple[list[dict], dict[str, float], dict[str, torch.Tensor]]:
+    """The PP / TP loop (the JAX package's): seeded batches, an eval of
+    the packaged params (the debiased EMA when enabled) every
+    ``eval_every`` steps and at the end, checkpoints, resume. Returns the
+    history, the final validation metrics and the packaged params (whole,
+    on the CPU)."""
+    tcfg = config.train
+    eval_every, ckpt_every, ckpt_dir, start_step, journal_floor = (
+        _layout_run_setup(tcfg, run_dir, trainer)
+    )
+    cat, num = (torch.from_numpy(a).to(device) for a in (train_ds.cat_ids, train_ds.numeric))
+    lab = torch.from_numpy(np.asarray(train_ds.labels, np.float32)).to(device)
+    vcat, vnum = (torch.from_numpy(a).to(device) for a in (valid_ds.cat_ids, valid_ds.numeric))
+    vlab = torch.from_numpy(np.asarray(valid_ds.labels, np.float32)).to(device)
+    history: list[dict] = []
+    packaged = None
+    with metric_writers(_layout_metrics_path(run_dir), tcfg.tensorboard_dir
+                        if is_coordinator() else "") as emit:
+        for step in range(start_step + 1, tcfg.steps + 1):
+            idx = torch.from_numpy(
+                batch_indices(train_ds.n, tcfg.batch_size, tcfg.seed, step)
+            ).to(device)
+            loss = trainer.step(step, cat[idx], num[idx], lab[idx])
+            if step % eval_every == 0 or step == tcfg.steps:
+                packaged = packaged_params(step)
+                record = {
+                    "step": step,
+                    "loss": round(float(loss), 6),
+                    **evaluate(dense_model, packaged, vcat, vnum, vlab),
+                }
+                if step > journal_floor:  # no duplicate rows on resume
+                    emit(record)
+                history.append(record)
+            _maybe_checkpoint(ckpt_dir, trainer, step, ckpt_every, tcfg.steps)
+
+    def fresh_eval():
+        nonlocal packaged
+        packaged = packaged_params(start_step)
+        return evaluate(dense_model, packaged, vcat, vnum, vlab)
+
+    final = _final_validation_metrics(history, tcfg.steps, fresh_eval)
+    return history, final, {k: v.detach().float().cpu() for k, v in packaged.items()}
+
+
+def _run_tp_training(
+    config, run_dir, run_name, preprocessor, train_ds, valid_ds, register, device
+) -> PipelineResult:
+    """DP x TP (``model.tensor_parallel=K``): the Megatron layout's step,
+    then the dense tail. The params are the dense family's tree (TP is a
+    layout), so the bundle serves on the exact tier unchanged."""
+    from mlops_tpu_torch.train.tensor_parallel import make_tp_trainer
+
+    trainer = make_tp_trainer(config, init_state=load_init_state(config), device=device)
+    step = trainer.step
+    tcfg = config.train
+
+    def packaged_params(count: int) -> dict[str, torch.Tensor]:
+        return step.gather(packaged_or_raw(step.ema, step.params(), tcfg.ema_decay, count))
+
+    history, final, packaged = _run_sharded_loop(
+        config, run_dir, step, train_ds, valid_ds, device, trainer.model, packaged_params
+    )
+    mesh = trainer.mesh
+    bundle_dir, model_uri = _package_dense(
+        config, run_dir, run_name, packaged, preprocessor, train_ds, valid_ds, final,
+        register, device,
+        f"tensor_parallel dp{mesh.size('data')}xtp{mesh.size('model')}",
+    )
+    result = TrainResult(
+        params=packaged, metrics=final, history=history, steps=tcfg.steps,
+        packaged_step=tcfg.steps,
+    )
+    return PipelineResult(bundle_dir, model_uri, result, run_dir)
+
+
+def _run_pp_training(
+    config, run_dir, run_name, preprocessor, train_ds, valid_ds, register, device
+) -> PipelineResult:
+    """DP x PP (``model.pipeline_stages=S``) on a ``('data', 'stage')``
+    mesh of the world's ranks; the stages merge into the dense tree for
+    the evals and the dense tail."""
+    from mlops_tpu_torch.train.pipeline_parallel import make_pp_train_step
+
+    stages = config.model.pipeline_stages
+    n_dev = world_size()
+    if n_dev % stages:
+        raise ValueError(
+            f"model.pipeline_stages={stages} needs the device count to be a "
+            f"multiple of it; have {n_dev} (launch a multiple of {stages} "
+            "ranks: python -m torch.distributed.run --nproc-per-node N)"
+        )
+    mesh = make_nd_mesh({"data": n_dev // stages, "stage": stages})
+    dense_model = build_model(dataclasses.replace(config.model, pipeline_stages=0)).to(device)
+    trainer = make_pp_train_step(
+        config.model, config.train, mesh, seed=config.train.seed,
+        init_state=load_init_state(config), device=device,
+    )
+    tcfg = config.train
+
+    def packaged_params(count: int) -> dict[str, torch.Tensor]:
+        return trainer.dense_params(
+            packaged_or_raw(trainer.ema, trainer.params(), tcfg.ema_decay, count)
+        )
+
+    history, final, packaged = _run_sharded_loop(
+        config, run_dir, trainer, train_ds, valid_ds, device, dense_model, packaged_params
+    )
+    bundle_dir, model_uri = _package_dense(
+        config, run_dir, run_name, packaged, preprocessor, train_ds, valid_ds, final,
+        register, device, f"pipeline_parallel dp{mesh.size('data')}xpp{stages}",
+    )
+    result = TrainResult(
+        params=packaged, metrics=final, history=history, steps=tcfg.steps,
+        packaged_step=tcfg.steps,
+    )
+    return PipelineResult(bundle_dir, model_uri, result, run_dir)
+
+
+def _doc_mesh(config: Config):
+    """The doc trainer's ``('data', 'seq')`` mesh under ``seq_parallel``
+    (None without): 'seq' is the largest divisor of the world size that
+    divides the document length, refused at 1 as in the JAX package."""
+    if not config.model.seq_parallel:
+        return None
+    n_dev = world_size()
+    seq = build_doc_model(dataclasses.replace(config.model, seq_parallel=False)).doc_seq_len
+    sp = max(
+        (d for d in range(1, n_dev + 1) if n_dev % d == 0 and seq % d == 0), default=1
+    )
+    if sp == 1:
+        raise ValueError(
+            f"seq_parallel needs the document length (2 + 46*doc_records "
+            f"= {seq}) to share a factor with the device count {n_dev}; "
+            f"pick doc_records accordingly (11 -> 508 works on 2/4-way)"
+        )
+    return make_nd_mesh({"data": n_dev // sp, "seq": sp})
 
 
 def _run_doc_training(
@@ -462,16 +753,21 @@ def _run_doc_training(
 ) -> PipelineResult:
     tcfg = config.train
     r = config.model.doc_records
-    trainer = make_doc_train_step(config.model, tcfg, seed=tcfg.seed, device=device)
+    mesh = _doc_mesh(config)
+    dp = mesh.size("data") if mesh is not None else 1
+    # The global batch splits evenly over 'data' (the JAX trainer's rule).
+    batch = max(dp, tcfg.batch_size - tcfg.batch_size % dp)
+    trainer = make_doc_train_step(
+        config.model, tcfg, mesh=mesh, seed=tcfg.seed, device=device
+    )
     dcat, dnum, dlab = (
         torch.from_numpy(a).to(device) for a in make_documents(train_ds, r)
     )
     vcat, vnum, vlab = make_documents(valid_ds, r)
     vcat_d, vnum_d = torch.from_numpy(vcat).to(device), torch.from_numpy(vnum).to(device)
-    model = trainer.model
 
     def valid_doc_logits(params: dict[str, torch.Tensor]) -> torch.Tensor:
-        return eval_logits(model, params, vcat_d, vnum_d, EVAL_CHUNK)
+        return trainer.eval_logits(params, vcat_d, vnum_d, EVAL_CHUNK)
 
     def doc_eval(params: dict[str, torch.Tensor]) -> dict[str, float]:
         metrics = binary_metrics(
@@ -488,10 +784,11 @@ def _run_doc_training(
         return packaged_or_raw(trainer.ema, trainer.params(), tcfg.ema_decay, step)
 
     history: list[dict] = []
-    with metric_writers(run_dir / "metrics.jsonl", tcfg.tensorboard_dir) as emit:
+    with metric_writers(_layout_metrics_path(run_dir), tcfg.tensorboard_dir
+                        if is_coordinator() else "") as emit:
         for step in range(start_step + 1, tcfg.steps + 1):
             idx = torch.from_numpy(
-                batch_indices(dcat.shape[0], tcfg.batch_size, tcfg.seed, step)
+                batch_indices(dcat.shape[0], batch, tcfg.seed, step)
             ).to(device)
             loss = trainer.step(dcat[idx], dnum[idx], dlab[idx])
             if step % eval_every == 0 or step == tcfg.steps:
@@ -507,9 +804,10 @@ def _run_doc_training(
 
     final_params = packaged_doc_params(max(start_step, tcfg.steps))
     params_host = {k: v.detach().float().cpu() for k, v in final_params.items()}
-    atomic_write(
-        run_dir / "doc_params.msgpack", msgpack.packb(unflatten_tree(params_host))
-    )
+    if is_coordinator():
+        atomic_write(
+            run_dir / "doc_params.msgpack", msgpack.packb(unflatten_tree(params_host))
+        )
     final = _final_validation_metrics(
         history, tcfg.steps, lambda: doc_eval(final_params)
     )
@@ -523,17 +821,21 @@ def _run_doc_training(
     calibration = calibration_record(
         valid_doc_logits(final_params).cpu().numpy(), vlab
     )
+    dense_cfg = dataclasses.replace(config.model, seq_parallel=False)
     bundle_dir, model_uri = _package_and_register(
         config,
         run_dir,
-        load_params(build_doc_model(config.model), params_host),
+        load_params(build_doc_model(dense_cfg), params_host),
         preprocessor,
         train_ds,
         metrics=final,
         bundle_tags={
             "run_name": run_name or run_dir.name,
             "experiment": config.registry.experiment_name,
-            "trained_with": "long_context dense",
+            "trained_with": (
+                f"long_context dp{dp}xsp{mesh.size('seq')}" if mesh is not None
+                else "long_context dense"
+            ),
         },
         registry_tags={
             "run_name": run_name or run_dir.name,
@@ -551,7 +853,7 @@ def _run_doc_training(
 
 
 def run_tuning(
-    config: Config, register: bool = True, run_name: str | None = None
+    config: Config, register: bool = True, run_name: str | None = None, mesh=None
 ) -> tuple[PipelineResult, HPOResult]:
     """The ``tune`` sweep on ``train.device`` (the card unless "cpu"),
     then the winner packaged: the JAX package's ``run_tuning``. Every
@@ -564,7 +866,10 @@ def run_tuning(
     calibrated on the validation split, distills its bulk student when
     its family takes one (never a quant student), and is packaged and
     registered. ``train.steps``, ``keep_best`` and the eval windows are
-    not read, as in the JAX package."""
+    not read, as in the JAX package. With ``mesh`` (the ``tune`` command's
+    data mesh when the world has more than one rank) the trials split
+    over its 'data' axis; the coordinator writes the run directory, the
+    records and the bundle, and every rank returns the same result."""
     model = config.model
     if model.family in ("gbm", "rf"):
         raise ValueError(
@@ -577,9 +882,13 @@ def run_tuning(
             "(model.pipeline_stages / seq_parallel / doc_records>1) train "
             "via `train` -> run_layout_training"
         )
-    device = resolve_device(config.train.device)
-    run_name = run_name or time.strftime("%Y%m%d-%H%M%S") + "-tune"
-    run_dir = new_run_dir(config, run_name)
+    device = rank_device(config.train.device)
+    run_name = broadcast_object(run_name or time.strftime("%Y%m%d-%H%M%S") + "-tune")
+    coord = is_coordinator()
+    run_dir = (
+        new_run_dir(config, run_name) if coord
+        else Path(config.registry.run_root) / run_name
+    )
     columns, labels = load_training_data(config)
     preprocessor = Preprocessor.fit(columns)
     ds = preprocessor.encode(columns, labels)
@@ -587,12 +896,26 @@ def run_tuning(
     t0 = time.perf_counter()
     win_model, hpo_result = run_architecture_hpo(
         model, config.train, config.hpo, train_ds, valid_ds,
-        device=device, resume_dir=run_dir,
+        device=device, resume_dir=run_dir, mesh=mesh,
     )
     logging.getLogger(__name__).info(
         "tune: %d trials swept in %.3f s on %s",
         len(hpo_result.trials), time.perf_counter() - t0, device,
     )
+    result = PipelineResult(
+        bundle_dir=run_dir / "bundle",
+        model_uri=None,
+        train_result=TrainResult(
+            params=hpo_result.best_params,
+            metrics=hpo_result.best_metrics,
+            history=[],
+            steps=config.hpo.steps,
+        ),
+        run_dir=run_dir,
+    )
+    if not coord:
+        result.model_uri = broadcast_object(None)
+        return result, hpo_result
     # A full rewrite, not an append: the records cover every trial,
     # restored groups included, so a retried run duplicates nothing.
     atomic_write(
@@ -647,15 +970,6 @@ def run_tuning(
         students={"bulk": bulk},
         model_config=win_model,
     )
-    result = PipelineResult(
-        bundle_dir=bundle_dir,
-        model_uri=model_uri,
-        train_result=TrainResult(
-            params=hpo_result.best_params,
-            metrics=hpo_result.best_metrics,
-            history=[],
-            steps=config.hpo.steps,
-        ),
-        run_dir=run_dir,
-    )
+    result.bundle_dir = bundle_dir
+    result.model_uri = broadcast_object(model_uri)
     return result, hpo_result

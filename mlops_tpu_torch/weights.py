@@ -145,6 +145,19 @@ def exact_params_from_numpy(
     return doc_params_from_numpy(tree, device)
 
 
+def pp_params_from_numpy(
+    tree: dict[str, Any], device: torch.device | str
+) -> dict[str, torch.Tensor]:
+    """The JAX package's stage layout (``split_trunk_params``'s ``{"embed":
+    ..., "stages": [S, L, ...] blocks, "head": ...}``) -> the port's
+    ``PipelineModel`` names (``embed.*``, ``stages.*``, ``head.*``), whole
+    (every stage) on ``device``; ``parallel.sharding.shard_tensor`` takes
+    a rank's ``[1, L, ...]`` block of ``stages.*``."""
+    if set(tree) != {"embed", "stages", "head"}:
+        raise KeyError(f"a stage layout holds embed, stages and head, got {sorted(tree)}")
+    return doc_params_from_numpy(tree, device)
+
+
 def bulk_student_from_numpy(
     config: Any, tree: dict[str, Any], device: torch.device | str
 ) -> nn.Module:

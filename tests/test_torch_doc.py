@@ -314,8 +314,14 @@ def test_predict_file_refuses_a_bundle_that_is_not_doc_flavor(tmp_path, history_
 def test_the_doc_model_refuses_what_is_not_on_its_path():
     with pytest.raises(ValueError, match="seq_parallel"):
         build_doc_model(ModelConfig(**_config(3, "f32"), seq_parallel=True))
-    with pytest.raises(ValueError, match="ring"):
-        MultiHeadSelfAttention(16, 2, torch.float32, attend_fn=lambda q, k, v: q)
+    # The attend seam takes the ring (parallel/ring_attention.py): the
+    # function given replaces the dense dispatcher.
+    seen = []
+    ring = MultiHeadSelfAttention(
+        16, 2, torch.float32, attend_fn=lambda q, k, v: seen.append(q.shape) or v
+    )
+    ring(torch.zeros(1, 4, 16))
+    assert seen == [(1, 4, 2, 8)]
     layer = MultiHeadSelfAttention(16, 2, torch.float32)
     with pytest.raises(ValueError, match="masks"):
         layer(torch.zeros(1, 4, 16), mask=torch.ones(1, 4, dtype=torch.bool))

@@ -1890,3 +1890,149 @@ def test_the_masked_lm_on_the_card_matches_the_cpu(precision):
     tol = (2e-2, 1e-2) if precision == "bf16" else (1e-4, 1e-5)
     assert (gl - wl).abs().max().item() <= tol[0] * wl.abs().max().item()
     assert abs(gloss - wloss) <= tol[1] * abs(wloss)
+
+
+# ------------------------------------------- multi-rank layouts at world 1
+# The TP, PP and SP trainers on the card as one rank of an NCCL group
+# (the one-rank group a plain run makes from a local store): the TP step
+# equals the dense step bit for bit; GPipe and the ring agree with the
+# dense trainer within the card-vs-CPU curve tolerance (0.05) and the
+# gradients' cosine (>= 0.98), PERF.md §2.
+A11_KW = dict(token_dim=16, depth=2, heads=2, num_experts=4)
+A11_ROWS = 512
+
+
+def _a11_batch(rows, seed, device):
+    from mlops_tpu_torch.schema.features import SCHEMA
+
+    rng = np.random.default_rng(seed)
+    cat = np.stack([rng.integers(0, c, rows) for c in SCHEMA.cards], axis=1).astype(np.int32)
+    num = rng.normal(size=(rows, SCHEMA.num_numeric)).astype(np.float32)
+    lab = (rng.random(rows) < 0.3).astype(np.float32)
+    return (torch.from_numpy(cat).to(device), torch.from_numpy(num).to(device),
+            torch.from_numpy(lab).to(device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["mlp", "ft_transformer", "bert", "moe"])
+def test_a11_tp_step_is_the_dense_step_over_nccl(family):
+    from mlops_tpu_torch.config import Config, ModelConfig, TrainConfig
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.train.loop import make_optimizer, train_step
+    from mlops_tpu_torch.train.tensor_parallel import make_tp_trainer
+
+    dev = _card()
+    config = Config()
+    kw = dict(hidden_dims=(64, 64), embed_dim=8) if family == "mlp" else A11_KW
+    config.model = ModelConfig(family=family, dropout=0.1, tensor_parallel=1, **kw)
+    config.train = TrainConfig(batch_size=64, steps=100, warmup_steps=2)
+    dense = init_params(build_model(ModelConfig(family=family, dropout=0.1, **kw)), 0).to(dev)
+    opt = make_optimizer(dense, config.train)
+    tp = make_tp_trainer(config, device=dev)
+    cat, num, lab = _a11_batch(64, 1, dev)
+    for step in range(1, 6):
+        want = train_step(dense, opt, config.train, step, cat, num, lab)
+        got = tp.step.step(step, cat, num, lab)
+        assert torch.equal(got, want), step
+    params = tp.step.gather(tp.step.params())
+    for name, p in dense.named_parameters():
+        assert torch.equal(params[name], p.detach()), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["bert", "ft_transformer"])
+def test_a11_pp_step_follows_the_dense_trainer_over_nccl(family):
+    from mlops_tpu_torch.config import ModelConfig, TrainConfig
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.parallel.distributed import initialize
+    from mlops_tpu_torch.parallel.mesh import make_nd_mesh
+    from mlops_tpu_torch.train.loop import make_optimizer, train_step
+    from mlops_tpu_torch.train.pipeline_parallel import make_pp_train_step
+    from mlops_tpu_torch.weights import load_params
+
+    dev = _card()
+    initialize(dev)
+    mcfg = ModelConfig(family=family, dropout=0.0, pipeline_stages=1, **A11_KW)
+    tcfg = TrainConfig(batch_size=64, steps=100, warmup_steps=2, pipeline_microbatches=4)
+    dense_cfg = ModelConfig(family=family, dropout=0.0, **A11_KW)
+    init = init_params(build_model(dense_cfg), 0).state_dict()
+    dense = load_params(build_model(dense_cfg), init).to(dev)
+    opt = make_optimizer(dense, tcfg)
+    pp = make_pp_train_step(mcfg, tcfg, make_nd_mesh({"data": 1, "stage": 1}), init_state=init,
+                            device=dev)
+    cat, num, lab = _a11_batch(64, 2, dev)
+    for step in range(1, 6):
+        want = train_step(dense, opt, tcfg, step, cat, num, lab)
+        got = pp.step(step, cat, num, lab)
+        assert abs(got.item() - want.item()) <= 0.05, step
+    merged = pp.dense_params()
+    g = torch.cat([merged[k].flatten() for k, _ in dense.named_parameters()])
+    w = torch.cat([p.detach().flatten() for p in dense.parameters()])
+    assert torch.nn.functional.cosine_similarity(g - torch.cat(
+        [v.flatten().to(dev) for v in init.values()]), w - torch.cat(
+        [v.flatten().to(dev) for v in init.values()]), dim=0).item() >= 0.98
+
+
+@pytest.mark.gpu
+def test_a11_ring_on_one_rank_is_dense_attention_over_nccl():
+    from mlops_tpu_torch.parallel.distributed import initialize
+    from mlops_tpu_torch.parallel.mesh import make_nd_mesh
+    from mlops_tpu_torch.parallel.ring_attention import make_ring_attention
+
+    dev = _card()
+    initialize(dev)
+    ring = make_ring_attention(make_nd_mesh({"data": 1, "seq": 1}), "seq")
+    q, k, v = (torch.randn(2, 64, 2, 16, device=dev, generator=torch.Generator(dev).manual_seed(i))
+               for i in range(3))
+    want = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) / 4.0, dim=-1)
+    want = torch.einsum("bhqk,bkhd->bqhd", want, v)
+    torch.testing.assert_close(ring(q, k, v), want, rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_a11_tune_and_score_over_a_one_rank_data_mesh_equal_no_mesh(tmp_path):
+    """The data mesh of ``tune``, ``score-batch`` and the streamed scorer
+    as one NCCL rank (``make_mesh()`` given explicitly; the commands build
+    one only past a rank, as the JAX command does) against ``mesh=None``:
+    the same sweep, bit for bit the same scores."""
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.config import Config, HPOConfig, ModelConfig, TrainConfig
+    from mlops_tpu_torch.data import write_csv_columns
+    from mlops_tpu_torch.data.stream import score_csv_stream
+    from mlops_tpu_torch.parallel.bulk import score_dataset
+    from mlops_tpu_torch.parallel.distributed import initialize
+    from mlops_tpu_torch.parallel.mesh import make_mesh
+    from mlops_tpu_torch.train.pipeline import run_tuning
+
+    dev = _card()
+    initialize(dev)
+    mesh = make_mesh()
+    runs = {}
+    for name, m in (("mesh", mesh), ("none", None)):
+        config = Config()
+        config.model = ModelConfig(family="mlp", hidden_dims=(32, 32), embed_dim=4)
+        config.train = TrainConfig(batch_size=128)
+        config.hpo = HPOConfig(trials=3, steps=20)
+        config.data.rows = 3000
+        config.registry.root = str(tmp_path / name / "reg")
+        config.registry.run_root = str(tmp_path / name / "runs")
+        runs[name] = run_tuning(config, run_name="t", mesh=m)
+    (res_m, hpo_m), (res_n, hpo_n) = runs["mesh"], runs["none"]
+    assert hpo_m.best_index == hpo_n.best_index
+    assert hpo_m.trials == hpo_n.trials
+    for k, v in hpo_n.best_params.items():
+        assert torch.equal(hpo_m.best_params[k], v), k
+    bundle = load_bundle(res_n.bundle_dir)
+    columns, labels = generate_synthetic(5000, seed=3)
+    ds = bundle.preprocessor.encode(columns)
+    got, want = (score_dataset(bundle, ds, chunk_rows=1024, device=dev, mesh=m)
+                 for m in (mesh, None))
+    np.testing.assert_array_equal(got.predictions, want.predictions)
+    np.testing.assert_array_equal(got.outliers, want.outliers)
+    assert got.feature_drift == want.feature_drift
+    source = tmp_path / "rows.csv"
+    write_csv_columns(source, columns, labels)
+    for name, m in (("mesh", mesh), ("none", None)):
+        score_csv_stream(bundle, source, tmp_path / f"{name}.csv", chunk_rows=1024, device=dev,
+                         mesh=m)
+    assert (tmp_path / "mesh.csv").read_bytes() == (tmp_path / "none.csv").read_bytes()

@@ -386,8 +386,8 @@ def test_a_rerun_with_the_same_run_name_resumes(tmp_path, capsys):
     "overrides,match",
     [
         (["model.seq_parallel=true"], "seq_parallel"),
-        (["model.pipeline_stages=2"], "pipeline-parallel"),
-        (["model.tensor_parallel=2"], "tensor-parallel"),
+        (["model.pipeline_stages=2"], "cannot combine"),
+        (["model.tensor_parallel=2"], "cannot combine"),
         (["model.doc_records=1", "model.family=mlp"], "run_training"),
         (["train.init_params=pretrained.msgpack"], "init_params"),
     ],
@@ -398,8 +398,8 @@ def test_train_refuses_what_is_not_ported(tmp_path, overrides, match):
     )
     with pytest.raises(ValueError, match=match):
         run_layout_training(config)
-    with pytest.raises(ValueError, match="mesh"):
-        make_doc_train_step(ModelConfig(**KW), TrainConfig(device="cpu"), mesh=object())
+    with pytest.raises(ValueError, match="needs a mesh with a 'seq' axis"):
+        make_doc_train_step(ModelConfig(**KW, seq_parallel=True), TrainConfig(device="cpu"))
 
 
 @pytest.mark.parametrize("case", ["gs_registry", "tensorboard"])
