@@ -810,9 +810,27 @@ def _cli(args: list[str], bucket: Path | None = None) -> list[str]:
 
 
 def _free_port() -> int:
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        return sock.getsockname()[1]
+    """A free port below the kernel's ephemeral range. A port the kernel
+    hands out (bind to 0) comes from that range, from which every outgoing
+    connection also takes its local port: the bursts' clients open
+    thousands, and one can take the port between this pick and the
+    server's bind."""
+    import random
+
+    try:
+        low = int(Path("/proc/sys/net/ipv4/ip_local_port_range").read_text().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()  # seeded from the OS: the two sides pick apart
+    for _ in range(1000):
+        port = rng.randrange(max(1024, low - 12000), low)
+        with socket.socket() as sock:
+            try:
+                sock.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+    raise SmokeFailure(f"no free port below {low}")
 
 
 def _http(port: int, method: str, path: str, body: bytes | None = None):
@@ -7528,6 +7546,7 @@ def phase_a9(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
                                  "golden_http_max_pred_err": http["ft_ens4"],
                                  "serve_timing": (serving or {}).get("ft_ens4")},
         "launches": launches,
+        "bundles": {name: str(path) for name, path in bundles.items()},
     }
 
 
@@ -8001,6 +8020,303 @@ def phase_a11(extra: tuple[str, ...] = (), device: str = "cuda") -> dict:
     }
 
 
+# Sharded serving (ROADMAP A11b, serve.model_shards) at S = 1 over NCCL: the
+# script runs on one H100, and NCCL refuses two ranks on one device, so the
+# sharded engine runs as a one-rank ('model',) mesh, its path and its
+# collectives whole. Phase 38's BERT-base and moe bundles.
+A11B_GEOMETRIES = ((1, 1), (1, 8), (1, 64), (1, 256), (64, 8))  # bitwise, sharded vs not
+A11B_TIMED = ((1, 1), (1, 256), (64, 8))
+A11B_REPLAYS = 20  # replays between two events, per timed geometry and turn
+A11B_HTTP_REQUESTS = (1, 5, 40)  # records per POST /predict
+
+
+class _ThreadPlane:
+    """The single-process plane's ``HttpServer`` on ``engine`` (warmed),
+    its event loop in a thread on a free port."""
+
+    def __init__(self, engine) -> None:
+        import asyncio
+
+        from mlops_tpu_torch.config import ServeConfig
+        from mlops_tpu_torch.serve.server import HttpServer
+
+        self.port = _free_port()
+        self.loop = asyncio.new_event_loop()
+        server = HttpServer(engine, ServeConfig(host="127.0.0.1", port=self.port))
+        self.srv = self.loop.run_until_complete(server.start())
+        self.thread = threading.Thread(target=self.loop.run_forever, daemon=True)
+        self.thread.start()
+
+    def stop(self) -> None:
+        import asyncio
+
+        def shutdown():
+            self.srv.close()
+            self.loop.stop()
+
+        self.loop.call_soon_threadsafe(shutdown)
+        self.thread.join(timeout=30)
+        pending = asyncio.all_tasks(self.loop)
+        for task in pending:
+            task.cancel()
+        self.loop.run_until_complete(asyncio.gather(*pending, return_exceptions=True))
+        self.loop.close()
+
+
+def _row_cuts(bundle, mesh) -> int:
+    """The collectives one forward of the bundle's model runs over
+    ``mesh``, counted from its layout: one all-reduce per row-split Dense
+    (a FFN's narrowing product, attention's out projection) and per split
+    mixture of experts."""
+    import copy
+
+    from mlops_tpu_torch.models.layers import Dense
+    from mlops_tpu_torch.models.moe import MoEFeedForward
+    from mlops_tpu_torch.parallel.steps import shard_model
+
+    model = copy.deepcopy(bundle.model)
+    shard_model(model, mesh)
+    return sum(1 for m in model.modules()
+               if (isinstance(m, Dense) and m.tp is not None and m.tp.kind == "row")
+               or (isinstance(m, MoEFeedForward) and m.tp is not None))
+
+
+def _a11b_http(port: int, bodies: list[bytes]) -> list[bytes]:
+    out = []
+    for body in bodies:
+        status, answer = _http(port, "POST", "/predict", body)
+        check(status == 200, f"/predict answered {status}: {answer[:200]}")
+        out.append(answer)
+    return out
+
+
+def _a11b_replay_ms(engine, key: tuple) -> float:
+    """Device ms per replay of ``engine``'s graph at ``key`` (its inputs as
+    the last dispatch left them), between two events on its stream."""
+    import torch
+
+    graph = engine._graphs[key]
+    with torch.cuda.stream(engine._stream):
+        for _ in range(5):
+            graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(A11B_REPLAYS):
+            graph.replay()
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / A11B_REPLAYS
+
+
+def _a11b_profile(sharded) -> dict:
+    """``torch.profiler`` on the sharded BERT-base engine: the host's NCCL
+    records while one new bucket is captured (a replay makes its NCCL
+    calls without the host), and the device ops of one replay."""
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        sharded.warm_grid((1, 3, 8, 64, 256))
+    nccl = sum(e.count for e in prof.key_averages() if "nccl:all_reduce" in e.key)
+    captured = sharded._graphs[("exact", (3,))].collectives
+    check(nccl >= captured, f"the capture recorded {nccl} nccl:all_reduce calls, "
+          f"the graph holds {captured}")
+    with torch.profiler.profile(activities=activities) as prof:
+        _dispatch_call(sharded, sharded.bundle.preprocessor, 1, 8, 7)()
+        torch.cuda.synchronize()
+    device_ops = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return {"capture_nccl_records": nccl, "capture_graph_collectives": captured,
+            "replay_device_ops": sum(e.count for e in device_ops),
+            "replay_nccl_kernels": sum(e.count for e in device_ops if "nccl" in e.key.lower())}
+
+
+def phase_a11b(bundles: dict, device: str = "cuda") -> dict:
+    """Phase 40: sharded serving (``serve.model_shards``) of phase 38's
+    BERT-base and moe bundles over a one-rank ('model',) mesh over NCCL
+    (``serve_mesh(1)``): the engine lays its params out by the partition
+    rules and captures every program, NCCL calls inside, into its CUDA
+    graphs. The counts set to 0 just before: each bundle's sharded engine
+    against the unsharded engine bitwise at buckets 1, 8, 64, 256 and the
+    64 x 8 group, every graph holding the collectives its layout implies
+    and each replay counted with them, ``torch.profiler``'s host NCCL
+    records at a capture; ``POST /predict`` to ``serve
+    serve.model_shards=1`` in a subprocess and to the single-process
+    plane's server on the sharded engine in process, byte for byte; then
+    the sharded replay's device time against the unsharded graph's, in
+    turns. No hand-written kernel runs here (BERT's tokens are below
+    FLASH_MIN_SEQ): the four counts read 0."""
+    import numpy as np
+    import torch
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.ops import quant_kernel
+    from mlops_tpu_torch.parallel import distributed
+    from mlops_tpu_torch.parallel.collectives import COLLECTIVE_CALLS
+    from mlops_tpu_torch.parallel.sharding import serve_mesh, sharded_axes
+    from mlops_tpu_torch.parallel.steps import layout_specs
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    t0 = time.perf_counter()
+    world = distributed.initialize(device)
+    check(world.size == 1 and (device != "cuda" or world.backend == "nccl"),
+          f"phase 40 needs a one-rank NCCL world, got {world}")
+    mesh = serve_mesh(1, 0, device)
+    bodies = [json.dumps(_records(n, 400 + n, drift=0.3)).encode() for n in A11B_HTTP_REQUESTS]
+    port = _free_port()
+    log_path = WORK / "a11b_server.log"
+    server_log = open(log_path, "wb")
+    cmd, _ = _serve_cmd(bundles["bert_base"], port, device)
+    server = subprocess.Popen([*cmd, "serve.model_shards=1"], cwd=ROOT,
+                              env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                              stdout=server_log, stderr=subprocess.STDOUT)
+    out: dict = {"card": card_line() if device == "cuda" else "cpu", "families": {}}
+    engines = {}
+    try:
+        _reset_launch_counts()
+        quant_kernel.quant_kernel_launches.reset()
+        COLLECTIVE_CALLS.reset()
+        for name in ("bert_base", "moe"):
+            bundle = load_bundle(bundles[name])
+            prep = bundle.preprocessor
+            sharded = InferenceEngine(bundle, device=device, mesh=mesh)
+            sharded.warmup()
+            # The unsharded engine captures the shapes it is asked for.
+            plain = InferenceEngine(bundle, device=device)
+            engines[name] = (plain, sharded)
+            cuts = _row_cuts(bundle, mesh)
+            per_graph = {f"{t}:{'x'.join(map(str, k))}": g.collectives
+                         for (t, k), g in sharded._graphs.items()}
+            check(cuts > 0 and (device != "cuda" or set(per_graph.values()) == {cuts}),
+                  f"{name}: graphs hold {set(per_graph.values())} collectives, the layout {cuts}")
+            before = COLLECTIVE_CALLS.value
+            replays = 0
+            for s, b in A11B_GEOMETRIES:
+                got = _dispatch_call(sharded, prep, s, b, 410 + s + b)()
+                want = _dispatch_call(plain, prep, s, b, 410 + s + b)()
+                replays += 1
+                for g, w in zip(got, want):
+                    # An all-padding slot's drift is NaN on both sides.
+                    check(np.array_equal(np.asarray(g), np.asarray(w), equal_nan=True),
+                          f"{name}: sharded {s}x{b} is not bitwise the unsharded engine")
+            check(COLLECTIVE_CALLS.value - before == replays * cuts,
+                  f"{name}: {COLLECTIVE_CALLS.value - before} NCCL calls over {replays} replays")
+            check(sharded.monitor_snapshot() == plain.monitor_snapshot(),
+                  f"{name}: the sharded engine's monitor aggregate differs")
+            # The memory sharding buys, computed from the specs (not
+            # measured): each card's blocks of the committed params.
+            params = sharded._tiers["exact"].params
+            bytes_per_card = {}
+            for shards in (1, 2, 4):
+                specs = layout_specs(bundle.model, {"model": shards})
+                bytes_per_card[shards] = sum(
+                    p.numel() * p.element_size() // shards ** len(sharded_axes(specs[k]))
+                    for k, p in params.items())
+            out["families"][name] = {
+                "nccl_calls_per_replay": cuts, "graphs": len(per_graph),
+                "split_params": sum(1 for v in sharded._tiers["exact"].specs.values() if any(v)),
+                "param_bytes_per_card_computed": bytes_per_card,
+                "warmup": sharded.warmup_stats,
+            }
+            log(f"a11b: {name} sharded at S = 1 bitwise at {A11B_GEOMETRIES}; "
+                f"{len(per_graph)} graphs x {cuts} NCCL calls")
+        sharded = engines["bert_base"][1]
+        if device == "cuda":
+            out.update(_a11b_profile(sharded))
+        # HTTP: serve serve.model_shards=1 (no mesh) and the sharded engine
+        # behind the single-process plane's server, the same bytes.
+        deadline = time.monotonic() + 300
+        while True:
+            check(server.poll() is None, f"serve exited early: {log_path.read_text()[-2000:]}")
+            try:
+                if _http(port, "GET", "/healthz/ready")[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(time.monotonic() < deadline, "serve serve.model_shards=1 never became ready")
+            time.sleep(0.5)
+        unsharded_http = _a11b_http(port, bodies)
+        plane = _ThreadPlane(sharded)
+        try:
+            sharded_http = _a11b_http(plane.port, bodies)
+        finally:
+            plane.stop()
+        check(sharded_http == unsharded_http,
+              "the sharded engine's /predict bytes differ from serve serve.model_shards=1's")
+        server.send_signal(signal.SIGTERM)
+        check(server.wait(timeout=120) == 0, "serve did not exit 0 after SIGTERM")
+        launches = (*_launch_counts(), quant_kernel.quant_kernel_launches.value)
+        check(launches == (0, 0, 0, 0), f"phase 40's paths launched kernels {launches}")
+        out["http_requests"] = len(bodies)
+        out["launches"] = launches
+        if device == "cuda":
+            timing = {}
+            for name, (plain, sharded) in engines.items():
+                for s, b in A11B_TIMED:
+                    key = ("exact", (b,) if s == 1 else (s, b))
+                    turns = [_a11b_replay_ms(e, key) for e in (plain, sharded, sharded, plain)]
+                    row = {"model": name, "shape": f"{s}x{b}",
+                           "unsharded_ms": (turns[0] + turns[3]) / 2,
+                           "sharded_ms": (turns[1] + turns[2]) / 2, "turns_ms": turns}
+                    log_timing("a11b replay", row)
+                    timing[f"{name} {s}x{b}"] = row
+            out["replay_timing"] = timing
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait(timeout=30)
+        server_log.close()
+        engines.clear()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def _a11b_seeded_bundles(seed: int = 0, extra: tuple[str, ...] = ()) -> dict:
+    """Phase 38's two bundles' architectures (the job's config at
+    BERT-base and ``model.family=moe``) at seeded weights, for phase 40
+    alone (``--a11b``): the preprocessor and monitor fitted on 20,000
+    synthetic rows."""
+    from mlops_tpu_torch.bundle import save_exact_bundle
+    from mlops_tpu_torch.data import Preprocessor, generate_synthetic
+    from mlops_tpu_torch.models import build_model
+    from mlops_tpu_torch.monitor.state import fit_monitor
+
+    columns, _ = generate_synthetic(20000, seed=seed)
+    prep = Preprocessor.fit(columns)
+    monitor = fit_monitor(prep.encode(columns), drift_ref_size=2048)
+    out = {}
+    for k, (name, args) in enumerate((("bert_base", BERT_BASE), ("moe", A9_MOE))):
+        config = _job_config([*args, *extra], "cpu").model
+        model = build_model(config)
+        _seeded_exact_params(model, seed + k)
+        directory = WORK / f"a11b_{name}"
+        shutil.rmtree(directory, ignore_errors=True)
+        save_exact_bundle(directory, config, model.eval(), prep, monitor,
+                          calibration={"temperature": 1.2},
+                          tags={"source": "chip_smoke.py", "note": "seeded weights, not trained"})
+        out[name] = directory
+    return out
+
+
+def a11b_main() -> int:
+    """``chip_smoke.py --a11b``: phases 1 and 40 alone, on seeded bundles
+    of phase 38's architectures (a quick look at sharded serving on the
+    card)."""
+    _setup()
+    _no_tf32()
+    try:
+        timed(phase_card)
+        out = timed(phase_a11b, timed(_a11b_seeded_bundles))
+    except SmokeFailure as err:
+        print(f"chip_smoke FAILED: {err}", file=sys.stderr)
+        return 1
+    print(card_line(), flush=True)
+    print(json.dumps(out, default=str), flush=True)
+    return 0
+
+
 def a11_main() -> int:
     """``chip_smoke.py --a11``: phases 1 and 39 alone (a quick look at
     the multi-rank paths on the card)."""
@@ -8160,6 +8476,7 @@ def main() -> int:
         tune_arch = beside(phase_tune_arch)
         deployed = beside(phase_deployed_job, tune_job["cli"])
         a9 = beside(phase_a9)
+        a11b = beside(phase_a11b, a9["bundles"])
         ring_side = side.join()
     except SmokeFailure as err:
         print(f"chip_smoke FAILED: {err}", file=sys.stderr)
@@ -8287,6 +8604,10 @@ def main() -> int:
         # 1 over NCCL) run no hand-written kernel either.
         "a11_launches": a11["launches"],
         "a11": {k: v for k, v in a11.items() if k != "launches"},
+        # Phase 40's paths (sharded serving over a one-rank NCCL mesh) run
+        # no hand-written kernel either: NCCL calls in its graphs instead.
+        "a11b_launches": a11b["launches"],
+        "a11b": {k: v for k, v in a11b.items() if k != "launches"},
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
         "serving": {"dispatch_routes": routes, "burst": burst, "ring": ring},
         "lifecycle": {k: v for k, v in lifecycle.items() if k != "launches"},
@@ -8331,4 +8652,6 @@ if __name__ == "__main__":
         sys.exit(ring_phases_main(sys.argv[2], sys.argv[3]))
     if sys.argv[1:] == ["--a11"]:
         sys.exit(a11_main())
+    if sys.argv[1:] == ["--a11b"]:
+        sys.exit(a11b_main())
     sys.exit(main())

@@ -88,7 +88,10 @@ are the single-process server. ``serve --replicas E``
 ring. ``serve --tenants <file>`` (``serve.tenants_path``) serves the
 tenant fleet a tenants.toml declares (``configs/tenants.toml``) on either
 plane, routed by the ``x-tenant`` header; ``serve.model_directory`` is
-then not resolved.
+then not resolved. ``serve.model_shards=S`` splits each engine's params
+over S ranks, one card each (gloo ranks with ``serve.device=cpu``): the
+serving process, or each ring replica's engine process, is rank 0 and
+starts the other S - 1 itself (``serve/shards.py``).
 
 Every command takes ``--config <toml>``, ``MLOPS_TPU_<SECTION>_<FIELD>``
 environment overrides and positional ``section.field=value`` overrides,
@@ -289,12 +292,34 @@ def _serve(config) -> int:
         from mlops_tpu_torch.serve.frontend import serve_multi_worker
 
         return serve_multi_worker(config, bundle_dir)
-    from mlops_tpu_torch.bundle import load_bundle
     from mlops_tpu_torch.ops import cuda_build
+
+    cuda_build.set_cache_dir(config.cache.dir)
+    mesh = followers = None
+    device = cfg.device
+    if cfg.model_shards > 1:
+        # One engine over S ranks, one card each: this process is rank 0,
+        # the lead; it starts the S - 1 followers, which build every
+        # tenant's engine as the lead announces it.
+        from mlops_tpu_torch.serve.shards import start_followers
+
+        mesh, followers, world = start_followers(cfg.model_shards, cfg.device)
+        device = world.device
+    try:
+        return _serve_engines(config, bundle_dir, device, mesh)
+    finally:
+        if followers is not None:
+            followers.stop(mesh)
+
+
+def _serve_engines(config, bundle_dir: str, device, mesh) -> int:
+    """The single-process plane's engines (over ``mesh`` when sharded) and
+    its server."""
+    from mlops_tpu_torch.bundle import load_bundle
     from mlops_tpu_torch.serve.engine import InferenceEngine
     from mlops_tpu_torch.serve.server import serve_forever
 
-    cuda_build.set_cache_dir(config.cache.dir)
+    cfg = config.serve
     registry = None
     if cfg.tenants_path:
         # The fleet on the single-process plane: one engine per tenant
@@ -306,16 +331,17 @@ def _serve(config) -> int:
         except ValueError as err:
             raise SystemExit(str(err)) from err
         registry = TenantRegistry(tenancy, buckets=tuple(cfg.warmup_batch_sizes),
-                                  serve_tier=cfg.serve_tier, device=cfg.device,
-                                  tier_routing=cfg.tier_routing)
+                                  serve_tier=cfg.serve_tier, device=device,
+                                  tier_routing=cfg.tier_routing, mesh=mesh)
         engine = registry.default_engine
     else:
         engine = InferenceEngine(
             load_bundle(bundle_dir),
             buckets=tuple(cfg.warmup_batch_sizes),
             serve_tier=cfg.serve_tier,
-            device=cfg.device,
+            device=device,
             tier_routing=cfg.tier_routing,
+            mesh=mesh,
         )
     fleet = {} if registry is None else {"registry": registry}
     if config.autotune.enabled:

@@ -212,6 +212,21 @@ def _data_mesh(device: str):
 def warmup(config: Config) -> dict:
     """``warmup --cache-dir <dir>``: the kernel libraries into the cache,
     ``cache.warmup_workers`` nvcc builds at a time; needs nvcc, no card."""
+    from mlops_tpu_torch.ops import cuda_build
+
+    if not config.cache.dir:
+        raise SystemExit("pass --cache-dir <dir> (or cache.dir=<dir>)")
+    # The cache directory is the process's; a caller in process (a test,
+    # a notebook) gets its own back on return.
+    previous = cuda_build.cache_dir()
+    cuda_build.set_cache_dir(config.cache.dir)
+    try:
+        return _warm_cache(config)
+    finally:
+        cuda_build.set_cache_dir(previous)
+
+
+def _warm_cache(config: Config) -> dict:
     import os
     import sys
 
@@ -221,11 +236,7 @@ def warmup(config: Config) -> dict:
         libraries,
         warm_kernels,
     )
-    from mlops_tpu_torch.ops import cuda_build
 
-    if not config.cache.dir:
-        raise SystemExit("pass --cache-dir <dir> (or cache.dir=<dir>)")
-    cuda_build.set_cache_dir(config.cache.dir)
     model_dir = os.environ.get("MODEL_DIRECTORY", config.serve.model_directory)
     try:
         bundle_dir = resolve_bundle(config, model_dir)

@@ -223,7 +223,7 @@ class ServeConfig:
     brownout_demote_depth: float = 0.75  # in-flight depth fraction past
     # which default-class requests demote to the cheaper tier
     brownout_restore_depth: float = 0.5  # and under which they stop
-    model_shards: int = 1  # as in the JAX package; load_config refuses >1
+    model_shards: int = 1  # ranks (one card each) one engine's params split over
     device: str = "cuda"  # "cpu" runs on the CPU (plain torch route)
     drain_deadline_s: float = 30.0  # SIGTERM: how long busy exchanges may
     # take to finish their response before connections are force-closed
@@ -950,9 +950,10 @@ def load_config(
         if not sep:
             raise KeyError(f"unknown config override {item!r}")
         _apply(config, section, field, raw)
-    if config.serve.model_shards != 1:
+    if config.serve.model_shards > 1 and config.lifecycle.enabled:
         raise ValueError(
-            f"serve.model_shards={config.serve.model_shards} refused: one "
-            "engine spanning several cards is not ported (ROADMAP A11b)"
+            f"serve.model_shards={config.serve.model_shards} with "
+            "lifecycle.enabled refused: the closed loop's candidate engines "
+            "over a sharded mesh are not ported (ROADMAP A11c)"
         )
     return config

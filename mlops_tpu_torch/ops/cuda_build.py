@@ -56,6 +56,11 @@ def set_cache_dir(cache_dir: str | Path | None) -> None:
     _cache_dir = Path(cache_dir) if cache_dir else None
 
 
+def cache_dir() -> Path | None:
+    """The directory ``set_cache_dir`` gave (None: ``build/kernels/``)."""
+    return _cache_dir
+
+
 def kernel_dir() -> Path:
     return _cache_dir / "kernels" if _cache_dir is not None else BUILD_DIR
 

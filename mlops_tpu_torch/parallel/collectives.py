@@ -26,6 +26,12 @@ consumers compute the same) or sharded (each rank holds its piece):
 Reductions of bf16 and f16 values run in f32 and round once. Every one
 runs on gloo (CPU tensors) and NCCL (card tensors) alike; on an axis of
 size 1 each is still one call of the backend (a copy).
+
+``COLLECTIVE_CALLS`` counts the all-reduces and all-gathers this process
+hands its backend. It is a kernel wrapper's launch counter: a call made
+while the stream is captured into a CUDA graph counts with the graph,
+and every replay of that graph adds it (``serve/graphs.py``), so on a
+sharded serving engine it counts the NCCL calls its replays make.
 """
 
 from __future__ import annotations
@@ -33,7 +39,10 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from mlops_tpu_torch.ops.cuda_build import LaunchCounter
 from mlops_tpu_torch.parallel.mesh import Mesh
+
+COLLECTIVE_CALLS = LaunchCounter()
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -44,6 +53,7 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group`` (no autograd), in f32 for half types."""
     y = _wide(x).contiguous()
     dist.all_reduce(y, group=group)
+    COLLECTIVE_CALLS.add()
     return y.to(x.dtype)
 
 
@@ -53,6 +63,7 @@ def all_gather_cat(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     n = dist.get_world_size(group)
     pieces = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(n)]
     dist.all_gather(pieces, x.contiguous(), group=group)
+    COLLECTIVE_CALLS.add()
     return torch.cat(pieces, dim=dim)
 
 

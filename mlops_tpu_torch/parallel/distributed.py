@@ -11,7 +11,11 @@ process to its group, idempotently:
   (``host:port``) / ``MLOPS_TPU_PROCESS_ID`` / ``MLOPS_TPU_NUM_PROCESSES``,
   which fails fast when the coordinator is set with fewer than 2
   processes, as the JAX package does;
-- otherwise as a world of one, from a store in this process.
+- otherwise as a world of one, from a store in this process;
+- or from an explicit ``launch`` (``rank``, ``world_size``,
+  ``local_rank`` and a rendezvous ``store``), which is how a sharded
+  serving process starts its follower ranks (``serve/shards.py``)
+  without putting a launcher's variables into its own environment.
 
 The backend follows the device: NCCL when the rank's device is the card
 (``cuda:LOCAL_RANK``), gloo when the caller asked for the CPU. Neither
@@ -104,13 +108,16 @@ def rank() -> int:
     return env["rank"] if env else 0
 
 
-def rank_device(device: str | torch.device | None = None) -> torch.device:
+def rank_device(
+    device: str | torch.device | None = None, launch: dict | None = None
+) -> torch.device:
     """This rank's device: ``cuda:LOCAL_RANK`` for the card (raising
-    without one), the CPU when asked for."""
+    without one; ``launch``'s local rank when given), the CPU when asked
+    for."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         return dev
-    env = multihost_env()
+    env = launch if launch is not None else multihost_env()
     local = env["local_rank"] if env else 0
     if local >= torch.cuda.device_count():
         raise RuntimeError(
@@ -121,15 +128,18 @@ def rank_device(device: str | torch.device | None = None) -> torch.device:
 
 
 def initialize(
-    device: str | torch.device | None = None, timeout_s: float = DEFAULT_TIMEOUT_S
+    device: str | torch.device | None = None,
+    timeout_s: float = DEFAULT_TIMEOUT_S,
+    launch: dict | None = None,
 ) -> World:
     """Join this process's group (idempotent) and return its ``World``.
 
     The device decides the backend: NCCL for the card, gloo for the CPU.
     A second call with another backend's device raises: one process runs
-    one group."""
+    one group. ``launch`` (``store``, ``rank``, ``world_size``,
+    ``local_rank``) takes the place of the environment's launch."""
     global _WORLD
-    dev = rank_device(device)
+    dev = rank_device(device, launch)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     if _WORLD is not None:
         if _WORLD.backend != backend:
@@ -142,7 +152,7 @@ def initialize(
         raise RuntimeError(
             "the card needs the NCCL backend, which this torch build lacks"
         )
-    env = multihost_env()
+    env = dict(launch, coordinator=False) if launch is not None else multihost_env()
     timeout = datetime.timedelta(seconds=timeout_s)
     if env is not None and env["coordinator"] and env["world_size"] <= 1:
         # A coordinator with <2 processes is an inconsistent launch
@@ -156,9 +166,11 @@ def initialize(
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
-        if env is None:
+        if env is None or "store" in env:
+            store = dist.HashStore() if env is None else env["store"]
             dist.init_process_group(
-                backend, store=dist.HashStore(), rank=0, world_size=1, timeout=timeout
+                backend, store=store, rank=env["rank"] if env else 0,
+                world_size=env["world_size"] if env else 1, timeout=timeout,
             )
         else:
             dist.init_process_group(

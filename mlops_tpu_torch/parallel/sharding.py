@@ -15,19 +15,30 @@ port's ``.`` (``weights.flatten_tree``: a flax path ``a/b/c`` is the
 semantics: the first rule that matches wins, the default replicates,
 extra leading axes (an ensemble's members, a sweep's trials) replicate,
 a spec is cut to the parameter's rank from the right, and an axis that
-does not divide its dimension is dropped. The serving-side helpers of
-the JAX module (``serve_mesh``, ``sharded_avals``, ``replicated_avals``)
-belong to ``serve.model_shards``, ROADMAP A11b.
+does not divide its dimension is dropped.
+
+The serving side (``serve.model_shards = S``): ``serve_mesh`` is the
+('model',) mesh of one engine over S ranks, one card each, and the
+group's control channel. Params are split by the rules above; the
+batch, the temperature, the monitor and the accumulator are replicated
+(the rule the JAX ``sharded_avals`` / ``replicated_avals`` pin on avals
+for its AOT warmup, which the port, lowering nothing ahead of time,
+does not need).
 """
 
 from __future__ import annotations
 
+import datetime
+import queue
 import re
+import threading
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from mlops_tpu_torch.parallel.collectives import all_gather_cat
+from mlops_tpu_torch.parallel.mesh import Mesh
 
 Spec = tuple
 
@@ -139,3 +150,128 @@ def gather_tensor(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     for dim, axis in reversed(axes):
         out = all_gather_cat(out, dim, mesh.group(axis))
     return out
+
+
+# ------------------------------------------------------------- serving
+class MeshOutOfStep(RuntimeError):
+    """The ranks of a mesh issued different numbers of collectives: the
+    next ones would pair the wrong partial sums. The engine cannot serve
+    again; its replica restarts (a follower exits, which ends the lead)."""
+
+
+class ServeMesh(Mesh):
+    """The ('model',) mesh of one sharded serving engine: ranks ``0..S-1``
+    of the world, one card each, and what the engines on it share.
+
+    Rank 0 is the lead: it owns dispatch and fetch, and every operation
+    of an engine on the mesh that runs the model's collectives (a
+    dispatch, a warm pass or capture, a hot swap, regrid or rollback, a
+    monitor read) is announced to the other ranks, the followers, over
+    ``control`` (a gloo group of the same ranks, whatever the model
+    group's backend) before the lead runs it; each follower runs the same
+    operation on its blocks (``serve/shards.py::follow``). ``lock``
+    orders those operations across every engine on the mesh (it is each
+    engine's accumulator lock), so the collectives, and on the card the
+    graph replays holding them, run in one order on every rank.
+    ``streams`` are the card streams the mesh's engines share.
+
+    The mesh holds no engine: an engine takes the number ``built`` as its
+    name on every rank, and when the lead's engine is collected its
+    number goes to the followers with the next announcement (``dropped``),
+    so a follower's twin lives as long as the lead's engine."""
+
+    def __init__(self, shards: int) -> None:
+        super().__init__({"model": shards}, list(range(shards)))
+        # A follower waits on the control group for as long as the server
+        # is idle: its timeout is not a collective's.
+        self.control = (
+            dist.new_group(list(range(shards)), backend="gloo",
+                           timeout=datetime.timedelta(days=365))
+            if shards > 1 else None
+        )
+        self.lock = threading.Lock()
+        self.built = 0
+        # Put from a finalizer, on whichever thread collects the engine.
+        self.dropped: queue.SimpleQueue = queue.SimpleQueue()
+        self.streams: tuple | None = None
+        self.broken: str | None = None
+
+    @property
+    def lead(self) -> bool:
+        return self.index("model") == 0
+
+    @property
+    def followers(self) -> int:
+        return self.size("model") - 1
+
+    def announce(self, message: tuple) -> None:
+        """The lead's side of one operation: ``message``, with the numbers
+        of the engines dropped since the last one, to every follower
+        (caller holds ``lock``; nothing with no followers). Raises once
+        the mesh is out of step."""
+        if self.broken is not None:
+            raise MeshOutOfStep(self.broken)
+        if self.followers:
+            dropped = []
+            while not self.dropped.empty():
+                dropped.append(self.dropped.get_nowait())
+            dist.broadcast_object_list([(dropped, message)], src=0, group=self.control)
+
+    def receive(self) -> tuple[list[int], tuple]:
+        """A follower's side: the engines the lead dropped since its last
+        message, and the message (blocks)."""
+        box = [None]
+        dist.broadcast_object_list(box, src=0, group=self.control)
+        return box[0]
+
+    def agree(self, ok: bool, issued: int) -> bool:
+        """Every rank's outcome of one operation that may fail on some
+        ranks only (readying a shape; caller holds ``lock``): whether it
+        succeeded on all of them. ``issued`` is how many collectives this
+        rank ran meanwhile; when the ranks differ, the mesh is out of step
+        and this raises ``MeshOutOfStep`` on every rank."""
+        if not self.followers:
+            return ok
+        votes = torch.tensor([int(not ok), issued, -issued], dtype=torch.int64)
+        dist.all_reduce(votes, op=dist.ReduceOp.MAX, group=self.control)
+        failed, most, least = votes[0].item(), votes[1].item(), -votes[2].item()
+        if most != least:
+            self.broken = (
+                f"the mesh's ranks ran between {least} and {most} collectives "
+                "readying one shape; the sharded engine must restart"
+            )
+            raise MeshOutOfStep(self.broken)
+        return not failed
+
+    def stop(self) -> None:
+        """End the followers' loops (the lead, at shutdown)."""
+        with self.lock:
+            self.announce(("stop", -1))
+
+
+def serve_mesh(shards: int, offset: int = 0, device: Any = "cuda") -> ServeMesh:
+    """The ('model',)-only mesh of ``serve.model_shards = shards`` over the
+    first ``shards`` ranks of this process's group (built collectively,
+    every rank calling it alike): params split by ``PARAM_RULES``, the
+    batch, the monitor and the accumulator replicated. Rank k drives card
+    ``offset + k``; ``offset`` is how replica r of the ring plane takes
+    its cards ``[r*S, (r+1)*S)``. On the card, raises as the JAX
+    ``serve_mesh`` does when this process sees fewer than ``offset +
+    shards`` cards."""
+    if shards < 1:
+        raise ValueError(f"serve.model_shards={shards} must be >= 1")
+    if torch.device(device).type == "cuda":
+        visible = torch.cuda.device_count()
+        if offset + shards > visible:
+            raise ValueError(
+                f"serve.model_shards={shards} at device offset {offset} "
+                f"exceeds the {visible} visible devices in this engine "
+                "process"
+            )
+    world = dist.get_world_size()
+    if shards > world:
+        raise ValueError(
+            f"serve.model_shards={shards} needs {shards} ranks; this process's "
+            f"group has {world}"
+        )
+    return ServeMesh(shards)

@@ -63,7 +63,27 @@ tiers:
   fails, the dispatch serves through the smallest larger ready shape of
   the same tier, padding masked (the answer is bitwise the target
   shape's), and ``degraded_dispatch_total`` counts it. With no larger
-  ready shape the failure raises.
+  ready shape the failure raises;
+- sharded serving (``serve.model_shards = S``, the JAX engine's
+  ``model_shards`` branch): given a ('model',) ``ServeMesh`` over S ranks,
+  one card each (``parallel/sharding.serve_mesh``), the exact tier's
+  params are laid out by ``PARAM_RULES`` (``parallel/steps.py
+  layout_specs`` / ``shard_model``: Megatron column and row cuts,
+  attention heads, MoE experts) and each rank commits only its blocks;
+  the monitor, the accumulator, the temperature and the batch are
+  replicated, and every rank folds the same values. The layers' row cuts
+  all-reduce over the mesh (NCCL on the card, inside each CUDA graph;
+  gloo on the CPU). Rank 0, the lead, owns dispatch and fetch; before it
+  runs any operation that holds collectives it announces it on the
+  mesh, under the mesh's one lock, and every follower rank runs the same
+  operation on its own engine (``follow_op``, driven by
+  ``serve/shards.py::follow``): dispatches, warm passes and captures,
+  swaps, regrids, rollbacks and monitor reads, so the collectives, and
+  the graph replays holding them, match across ranks; a shape counts as
+  ready once every rank has readied it (``ServeMesh.agree``). Under
+  S > 1 the quant tier is refused (``auto`` falls back to exact); the gbm
+  tier and the host hybrid ignore the mesh, as the JAX engine ignores the
+  knob for sklearn bundles.
 """
 
 from __future__ import annotations
@@ -76,6 +96,7 @@ import json
 import logging
 import threading
 import time
+import weakref
 from typing import Any, Callable
 
 import numpy as np
@@ -105,6 +126,8 @@ from mlops_tpu_torch.ops.quant_kernel import (
     make_quant_grouped_base,
     make_quant_packed_base,
 )
+from mlops_tpu_torch.parallel.collectives import COLLECTIVE_CALLS
+from mlops_tpu_torch.parallel.sharding import MeshOutOfStep, sharded_axes
 from mlops_tpu_torch.schema.features import SCHEMA
 from mlops_tpu_torch.schema.validate import records_to_columns
 from mlops_tpu_torch.serve import graphs
@@ -144,6 +167,8 @@ class _Tier:
     temperature: torch.Tensor
     solo: Callable
     group: Callable
+    # Each param's spec over the engine's mesh (empty without one).
+    specs: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -164,6 +189,9 @@ class _Generation:
     # (tier, lead) programs run once off the card-graph route (the CPU,
     # or eager on the card): the shapes this generation has ready there.
     warmed: set = dataclasses.field(default_factory=set)
+    # The engine's number for this generation, the same on every rank of
+    # a mesh: how an announced operation names it.
+    seq: int = 0
 
     def tier(self, requested: str | None) -> str:
         """The tier a dispatch asking for ``requested`` runs: the default
@@ -215,11 +243,26 @@ class InferenceEngine:
         device: str | torch.device | None = None,
         tier_routing: bool = False,
         cuda_graphs: bool = True,
+        mesh=None,
     ):
         """``cuda_graphs=False`` runs the programs eagerly on the card, for
         holding the graphs against them; nothing in ``serve`` or the CLI
-        sets it."""
+        sets it. ``mesh``, a ``parallel.sharding.ServeMesh``, shards the
+        engine over its ranks (``device`` is this rank's: NCCL on the
+        card, gloo on the CPU); every rank builds its engines in the same
+        order, the lead's announced to the followers."""
         self.device = resolve_device(device)
+        # The gbm tier and the host hybrid have no partition rules: they
+        # ignore the mesh, as the JAX engine ignores model_shards there.
+        self._mesh = mesh if bundle.flavor != "sklearn" else None
+        self.model_shards = mesh.size("model") if self._mesh is not None else 1
+        if (self._mesh is not None and self.device.type == "cuda"
+                and dist_backend(self._mesh) != "nccl"):
+            raise ValueError(
+                "a sharded engine on the card runs its collectives over NCCL; "
+                f"this mesh's group runs {dist_backend(self._mesh)}"
+            )
+        self._seq = 0
         self.serve_tier = self._resolve_tier(serve_tier, bundle)
         self.tier_routing = bool(tier_routing)
         # The sklearn floor that does not tensorize (rf): its "exact" tier
@@ -243,18 +286,25 @@ class InferenceEngine:
         self._use_graphs = self._cuda and cuda_graphs and not self._hybrid
         # No other holder's streams (``device.held_stream``): another engine
         # in the process (the lifecycle's shadow engines) never shares them.
-        self._stream = held_stream(self, self.device) if self._cuda else None
         # Captures (and the eager pass before each) run on a stream of their
         # own; the lock and two stream waits order them with the replays on
-        # ``_stream`` (``_capture``).
-        self._capture_stream = (
-            held_stream(self, self.device, capture=True) if self._use_graphs else None
-        )
+        # ``_stream`` (``_capture``). The engines of a mesh share both, as
+        # they share its lock: their replays run in the announced order.
+        self._stream = self._capture_stream = None
+        if self._cuda and self._mesh is not None:
+            if self._mesh.streams is None:
+                self._mesh.streams = (held_stream(self._mesh, self.device),
+                                      held_stream(self._mesh, self.device, capture=True))
+            self._stream, self._capture_stream = self._mesh.streams
+        elif self._cuda:
+            self._stream = held_stream(self, self.device)
+            if self._use_graphs:
+                self._capture_stream = held_stream(self, self.device, capture=True)
         with self._on_stream():
             self._acc_flat = torch.zeros(3 + 2 * _D, dtype=torch.float32,
                                          device=self.device)
         self._acc = _acc_views(self._acc_flat)
-        self._acc_lock = threading.Lock()
+        self._acc_lock = self._mesh.lock if self._mesh is not None else threading.Lock()
         self._gen = _Generation(
             bundle=bundle,
             tiers=tiers,
@@ -297,6 +347,24 @@ class InferenceEngine:
         self._pool_bytes = 0
         self.warmup_stats: dict[str, Any] = {}
         self.ready = False
+        # A follower's generations by number (the live, the retired and a
+        # swap's staged one), its scratch accumulator and its unread
+        # monitor window (``follow_op``).
+        self._gens = {0: self._gen} if mesh is not None and not mesh.lead else {}
+        self._scratch = None
+        self._window = None
+        self._sid = -1
+        if self._mesh is not None:
+            with self._acc_lock:
+                self._sid = self._mesh.built
+                self._mesh.built += 1
+                self._tell("build", bundle, {
+                    "buckets": tuple(buckets), "serve_tier": serve_tier,
+                    "tier_routing": tier_routing, "cuda_graphs": cuda_graphs,
+                })
+            if self._mesh.lead and self._mesh.followers:
+                # The followers drop their twin once this engine is gone.
+                weakref.finalize(self, self._mesh.dropped.put, self._sid)
 
     # The serving generation's state, read as the engine's own.
     bundle = property(lambda self: self._gen.bundle)
@@ -338,9 +406,9 @@ class InferenceEngine:
             raise ValueError(f"serve_tier={serve_tier!r} refused: {why}")
         return "exact"
 
-    @staticmethod
-    def _quant_refusal(bundle: Bundle) -> str:
-        """Why the bundle's quant tier may not serve ("" when it may)."""
+    def _quant_refusal(self, bundle: Bundle) -> str:
+        """Why the bundle's quant tier may not serve here ("" when it
+        may)."""
         if bundle.flavor == "sklearn":
             return "sklearn bundles have no quant tier"
         if not bundle.has_quant:
@@ -349,6 +417,11 @@ class InferenceEngine:
             return (
                 "quant tier failed (or was never graded by) the promotion "
                 "gates"
+            )
+        if self.model_shards > 1:
+            return (
+                "quant tier is single-device; model_shards > 1 shards the "
+                "exact params only"
             )
         return ""
 
@@ -386,31 +459,47 @@ class InferenceEngine:
                 bundle.estimator, bundle.monitor.to(self.device), bundle.temperature
             ), None)
         else:
-            params = {
-                k: v.to(self.device)
-                for k, v in model_params(bundle.model).items()
-            }
-            temperature = bundle.temperature
+            programs = self._build_programs(tier, bundle)
+            params = model_params(bundle.model)
+            if self._mesh is not None:
+                # This rank's blocks only: each is narrowed on the host
+                # before it is committed.
+                from mlops_tpu_torch.parallel.sharding import shard_tensor
+
+                params = {k: shard_tensor(v, programs.specs[k], self._mesh)
+                          for k, v in params.items()}
+            return dataclasses.replace(
+                programs, params={k: v.to(self.device) for k, v in params.items()},
+                temperature=self._scalar(bundle.temperature),
+            )
         return dataclasses.replace(
             self._build_programs(tier, bundle),
             params=params, temperature=self._scalar(temperature),
         )
 
-    @staticmethod
-    def _build_programs(tier: str, bundle: Bundle) -> _Tier:
+    def _build_programs(self, tier: str, bundle: Bundle) -> _Tier:
         """``tier``'s solo and grouped programs, params not yet set. The
         exact tier's apply its params to a module (which has no buffers)
         by swapping them in for the call, under the engine lock; the
         engine's own copy of the module keeps another engine over the same
-        bundle out of the swap."""
+        bundle out of the swap. Over a mesh, the copy is laid out for this
+        rank (``shard_model``: its layers' splits and collectives), and
+        the tier records each param's spec."""
         if tier == "quant":
             return _Tier({}, None, make_quant_packed_base(), make_quant_grouped_base())
         if tier == "gbm":
             depth = bundle.gbm_tensor[1].depth
             return _Tier({}, None, make_gbm_packed_base(depth), make_gbm_grouped_base(depth))
         model = copy.deepcopy(bundle.model).eval()
+        specs = {}
+        if self._mesh is not None:
+            from mlops_tpu_torch.parallel.steps import layout_specs, shard_model
+
+            specs = layout_specs(model, self._mesh)
+            shard_model(model, self._mesh, specs)
         return _Tier(
-            {}, None, make_packed_predict_base(model), make_packed_grouped_base(model)
+            {}, None, make_packed_predict_base(model), make_packed_grouped_base(model),
+            specs,
         )
 
     def _scalar(self, value: float, dtype=torch.float32) -> torch.Tensor:
@@ -534,16 +623,53 @@ class InferenceEngine:
             with self._acc_lock:
                 if (tier, lead) in ready:
                     continue
-                if self._use_graphs:
-                    self._capture(gen, tier, lead)
-                else:
-                    with self._on_stream():
-                        self._warm_pass(gen, tier, lead, scratch)
-                    gen.warmed.add((tier, lead))
+                self._tell("ready", gen.seq, tier, lead, True)
+                self._ready_one(gen, tier, lead, scratch)
                 readied += 1
         if scratch is not None:
             scratch.rows.cpu()  # waits for every warm launch to finish
         return readied
+
+    def _ready_one(self, gen: _Generation, tier: str, lead: tuple[int, ...],
+                   scratch, run: bool = True) -> None:
+        """Ready one shape of ``gen`` (caller holds the lock): its capture
+        on the card; on the eager route one run on zeros against
+        ``scratch`` (with ``run``), or none (its first run is a dispatch).
+        Raises what failed, and stores nothing then.
+
+        On a mesh with followers every rank readies the shape, and the
+        ranks agree on the outcome before it counts as ready on any
+        (``ServeMesh.agree``): a shape that failed on one rank is ready on
+        none, and the lead raises. Ranks that ran different numbers of
+        eager collectives meanwhile (one failed between two of the warm
+        pass's) leave the mesh out of step: that raises ``MeshOutOfStep``
+        on every rank. A rank still waiting in a collective its peer never
+        joins is ended by the group's timeout; either way the followers
+        exit and the replica restarts (``serve/shards.py``)."""
+        issued = COLLECTIVE_CALLS.value
+        failed = captured = None
+        try:
+            if self._use_graphs:
+                captured = self._capture(gen, tier, lead)
+            elif run:
+                with self._on_stream():
+                    self._warm_pass(gen, tier, lead, scratch)
+        except Exception as err:
+            failed = err
+        if self._mesh is not None:
+            issued = COLLECTIVE_CALLS.value - issued
+            if not self._mesh.agree(failed is None, issued) and failed is None:
+                failed = RuntimeError(
+                    f"readying {tier} {lead} failed on another rank of the mesh")
+        if failed is not None:
+            raise failed
+        if captured is None:
+            gen.warmed.add((tier, lead))
+            return
+        graph, seconds, grown = captured
+        self._capture_s += seconds
+        self._pool_bytes += grown
+        gen.graphs[(tier, lead)] = graph
 
     def _warm_pass(self, gen: _Generation, tier: str, lead: tuple[int, ...],
                    scratch) -> None:
@@ -556,12 +682,12 @@ class InferenceEngine:
         mask = torch.ones(lead, dtype=torch.bool, device=self.device)
         self._run(gen, tier, lead, scratch, cat, num, mask)
 
-    def _capture(self, gen: _Generation, tier: str,
-                 lead: tuple[int, ...]) -> graphs.ServingGraph:
+    def _capture(self, gen: _Generation, tier: str, lead: tuple[int, ...]):
         """One eager pass of ``gen``'s program against a scratch
         accumulator, then its capture over the engine's accumulator into
         ``gen``'s pool, both on the capture stream (caller holds the
-        lock). The capture stream first waits for every replay already
+        lock); returns the graph, the capture's seconds and the bytes the
+        pool grew by, for ``_ready_one`` to store. The capture stream first waits for every replay already
         enqueued, and later replays wait for the eager pass: the two never
         overlap on the device, so they may share cuBLAS's workspace."""
         side = self._capture_stream
@@ -583,10 +709,14 @@ class InferenceEngine:
             # Also after a failed capture: whatever the side stream ran
             # is ordered before the next replay, and no graph is stored.
             self._stream.wait_stream(side)
-        self._capture_s += seconds
-        self._pool_bytes += grown
-        gen.graphs[(tier, lead)] = graph
-        return graph
+        if (self._mesh is not None and graph.collectives == 0
+                and any(sharded_axes(spec) for spec in gen.tiers[tier].specs.values())):
+            # No fallback: a sharded program whose collectives did not reach
+            # the graph would answer with one rank's partial sums.
+            raise RuntimeError(
+                f"the {tier} graph at {lead} captured no collective over the mesh"
+            )
+        return graph, seconds, grown
 
     # ----------------------------------------------------------- dispatch
     def _on_stream(self):
@@ -646,11 +776,9 @@ class InferenceEngine:
                 if served != lead:
                     batch = _host_batch(served)
                     fill(*batch)
-                out, new_acc = self._run(
-                    gen, tier, served, self._acc, *map(torch.from_numpy, batch)
-                )
-                self._store(new_acc)
-            host, event = out, None
+                self._tell("run", gen.seq, tier, served, batch)
+                host = self._launch(gen, tier, served, batch)
+            event = None
         else:
             staged = torch.zeros(graphs.input_nbytes(lead), dtype=torch.uint8,
                                  pin_memory=True)
@@ -663,18 +791,8 @@ class InferenceEngine:
                     staged = torch.zeros(graphs.input_nbytes(served),
                                          dtype=torch.uint8, pin_memory=True)
                     fill(*graphs.split_host(staged.numpy(), served))
-                if self._use_graphs:
-                    graph = gen.graphs[(tier, served)]
-                    graph.inputs.copy_(staged, non_blocking=True)
-                    graph.replay()
-                    out = graph.out
-                else:
-                    inputs = staged.to(self.device, non_blocking=True)
-                    out, new_acc = self._run(
-                        gen, tier, served, self._acc,
-                        *graphs.split_inputs(inputs, served)
-                    )
-                    self._store(new_acc)
+                self._tell("run", gen.seq, tier, served, staged.numpy())
+                out = self._launch(gen, tier, served, staged)
                 host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
                 host.copy_(out, non_blocking=True)
                 event = torch.cuda.Event()
@@ -689,6 +807,29 @@ class InferenceEngine:
             # histogram describes the compute paid, not the compute meant.
             stats.observe(label, requested, int(np.prod(served)))
         return host, event, tier, served, label, t0
+
+    def _launch(self, gen: _Generation, tier: str, served: tuple[int, ...], batch):
+        """The device work of one dispatch of ``served`` rows (caller holds
+        the lock; on the card, on the engine's stream): on the CPU
+        ``batch`` is the host arrays, run and folded; on the card it is
+        the pinned packed buffer, uploaded into the graph's static inputs
+        with one copy and replayed (eagerly: uploaded and run). Returns
+        the packed output on the device."""
+        if not self._cuda:
+            out, new_acc = self._run(gen, tier, served, self._acc,
+                                     *map(torch.from_numpy, batch))
+            self._store(new_acc)
+            return out
+        if self._use_graphs:
+            graph = gen.graphs[(tier, served)]
+            graph.inputs.copy_(batch, non_blocking=True)
+            graph.replay()
+            return graph.out
+        inputs = batch.to(self.device, non_blocking=True)
+        out, new_acc = self._run(gen, tier, served, self._acc,
+                                 *graphs.split_inputs(inputs, served))
+        self._store(new_acc)
+        return out
 
     def _ready_shape(self, gen: _Generation, tier: str, lead: tuple[int, ...],
                      need: tuple[int, ...]) -> tuple[int, ...]:
@@ -710,10 +851,8 @@ class InferenceEngine:
             # Fault point (raise = a failed capture of a shape warmup did
             # not cover -> the degraded fallback below).
             faults.fire("serve.engine.compile")
-            if self._use_graphs:
-                self._capture(gen, tier, lead)
-            else:
-                gen.warmed.add(key)
+            self._tell("ready", gen.seq, tier, lead, False)
+            self._ready_one(gen, tier, lead, None, run=False)
             return lead
         except Exception:
             fits = [
@@ -1053,7 +1192,9 @@ class InferenceEngine:
 
         Refused as the JAX engine refuses: engines that do not both
         accumulate, a candidate without the grouped path, and one whose
-        largest bucket is smaller (the server caps requests at it)."""
+        largest bucket is smaller (the server caps requests at it). A
+        sharded engine takes a candidate built over its own mesh (its
+        params are this rank's blocks, and every rank holds its twin)."""
         if not self.monitor_accumulating or not getattr(
             candidate, "monitor_accumulating", False
         ):
@@ -1067,8 +1208,33 @@ class InferenceEngine:
                 "serves — build it with enable_grouping=True"
             )
         self._check_ceiling(candidate.buckets)
+        if getattr(candidate, "_mesh", None) is not self._mesh:
+            raise ValueError(
+                "a sharded engine swaps in a candidate built over the same "
+                "mesh (and an unsharded one an unsharded candidate)"
+            )
+        staged = self._stage(candidate)
+        with self._acc_lock:
+            self._tell("stage", candidate._sid, staged.seq)
+        t0 = time.perf_counter()
+        pool_before = self._pool_bytes
+        if self._use_graphs:
+            self._ready_keys(staged, self._warm_keys(staged))
+        self._exchange(staged, "swap", graphs=len(staged.graphs),
+                       capture_s=round(time.perf_counter() - t0, 6),
+                       graph_pool_bytes=self._pool_bytes - pool_before)
+        return self.bundle_generation
+
+    def _stage(self, candidate: "InferenceEngine", seq: int | None = None) -> _Generation:
+        """A generation serving the candidate's bundle with its committed
+        params, under this engine's programs, graphs to be captured (a
+        follower builds the same from its twin of the candidate, under the
+        lead's number ``seq``)."""
+        if seq is None:
+            seq = self._next_seq()
+        self._seq = seq
         source = candidate._gen
-        staged = _Generation(
+        return _Generation(
             bundle=source.bundle,
             tiers={
                 name: dataclasses.replace(
@@ -1085,15 +1251,12 @@ class InferenceEngine:
             # The eager route runs the candidate's programs as they are:
             # the shapes it readied stay ready.
             warmed=set(source.warmed),
+            seq=seq,
         )
-        t0 = time.perf_counter()
-        pool_before = self._pool_bytes
-        if self._use_graphs:
-            self._ready_keys(staged, self._warm_keys(staged))
-        self._exchange(staged, "swap", graphs=len(staged.graphs),
-                       capture_s=round(time.perf_counter() - t0, 6),
-                       graph_pool_bytes=self._pool_bytes - pool_before)
-        return self.bundle_generation
+
+    def _next_seq(self) -> int:
+        self._seq += 1
+        return self._seq
 
     def rollback(self) -> int:
         """Restore the retired generation in one exchange under the lock
@@ -1119,6 +1282,8 @@ class InferenceEngine:
             t1 = time.perf_counter()
             if expect is not None and self._gen is not expect:
                 raise ValueError("the serving generation changed during the regrid")
+            self._tell("exchange", None if staged is None else staged.seq, op,
+                       staged.buckets if op == "regrid" else None)
             incoming = self._retired if staged is None else staged
             regrid = incoming.buckets != self._gen.buckets
             self._retired, self._gen = self._gen, incoming
@@ -1203,7 +1368,8 @@ class InferenceEngine:
         missing = [k for k in self._grid_keys(live, buckets) if k not in ready]
         if missing:
             raise ValueError(f"regrid to {buckets}: {missing} not ready; warm_grid first")
-        self._exchange(dataclasses.replace(live, buckets=buckets), "regrid", expect=live,
+        self._exchange(dataclasses.replace(live, buckets=buckets, seq=self._next_seq()),
+                       "regrid", expect=live,
                        buckets=buckets, **{"graphs": 0, "capture_s": 0.0,
                                            "graph_pool_bytes": 0, **(warm or {})})
         return self.grid_generation
@@ -1220,6 +1386,7 @@ class InferenceEngine:
         if self._hybrid:
             return {}
         with self._acc_lock, self._on_stream():
+            self._tell("snapshot")
             window = self._acc_flat.clone()
             self._acc_flat.zero_()
             if self._cuda:
@@ -1236,6 +1403,7 @@ class InferenceEngine:
             flat = host.double().numpy()
         except Exception:
             with self._acc_lock, self._on_stream():
+                self._tell("fold_back")
                 self._fold_back(window)
             raise
         rows, outliers, window_batches = (float(x) for x in flat[:3])
@@ -1286,6 +1454,72 @@ class InferenceEngine:
             torch.where(live.batches > 0, live.drift_last, older.drift_last)
         )
         self._acc_flat[: 3 + _D].add_(window[: 3 + _D])
+
+
+    # ------------------------------------------------------ sharded serving
+    def _tell(self, op: str, *args) -> None:
+        """On the lead of a mesh with followers, announce one operation of
+        this engine (caller holds the mesh's lock); nothing elsewhere."""
+        mesh = self._mesh
+        if mesh is not None and mesh.lead and mesh.followers:
+            mesh.announce((op, self._sid, *args))
+
+    def follow_op(self, op: str, *args) -> None:
+        """A follower's side of one operation the lead announced for this
+        engine (``serve/shards.py::follow`` calls it, in the lead's lock
+        order): the same device work on this rank's blocks, so every
+        collective meets its peers. The lead fetches; a follower copies
+        nothing to the host."""
+        if op == "run":
+            seq, tier, served, batch = args
+            with self._acc_lock, self._on_stream():
+                if self._cuda:
+                    batch = torch.from_numpy(batch).pin_memory()
+                self._launch(self._gens[seq], tier, served, batch)
+        elif op == "ready":
+            seq, tier, lead, run = args
+            gen = self._gens[seq]
+            with self._acc_lock:
+                if self._scratch is None and run and not self._use_graphs:
+                    with self._on_stream():
+                        self._scratch = init_accumulator(self.device)
+                try:
+                    self._ready_one(gen, tier, lead, self._scratch, run)
+                except MeshOutOfStep:
+                    raise
+                except Exception:
+                    # Every rank agreed the shape is not ready: the lead
+                    # raises or degrades, and announces what it runs instead.
+                    logger.warning("follower: readying %s %s failed", tier, lead,
+                                   exc_info=True)
+        elif op == "stage":
+            candidate, seq = args  # this rank's twin of the lead's candidate
+            self._gens[seq] = self._stage(candidate, seq)
+        elif op == "exchange":
+            seq, kind, buckets = args
+            if kind == "regrid":
+                self._seq = seq
+                staged = dataclasses.replace(self._gen, buckets=buckets, seq=seq)
+            else:
+                staged = None if seq is None else self._gens[seq]
+            self._exchange(staged, kind)
+            self._gens = {g.seq: g for g in (self._gen, self._retired) if g is not None}
+        elif op == "snapshot":
+            with self._acc_lock, self._on_stream():
+                self._window = self._acc_flat.clone()
+                self._acc_flat.zero_()
+        elif op == "fold_back":
+            with self._acc_lock, self._on_stream():
+                self._fold_back(self._window)
+        else:
+            raise ValueError(f"unknown sharded-serving operation {op!r}")
+
+
+def dist_backend(mesh) -> str:
+    """The backend of a mesh's 'model' group (``nccl`` or ``gloo``)."""
+    import torch.distributed as dist
+
+    return str(dist.get_backend(mesh.group("model")))
 
 
 def _host_batch(lead: tuple[int, ...]) -> tuple[np.ndarray, ...]:

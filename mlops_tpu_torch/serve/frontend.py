@@ -574,30 +574,48 @@ async def _run_frontend(worker_id: int, config: ServeConfig, ring: RequestRing,
     logger.info("frontend %d drained; exiting", worker_id)
 
 
-def build_engine(config: Config, bundle_dir: str):
+def build_engine(config: Config, bundle_dir: str, mesh=None):
     """One tenant's engine in a replica process: the bundle on
     ``serve.device`` (the card unless ``cpu``), as the single-process
-    ``serve`` builds it."""
+    ``serve`` builds it, over the replica's ('model',) ``mesh`` when
+    ``serve.model_shards > 1``."""
     from mlops_tpu_torch.bundle import load_bundle
     from mlops_tpu_torch.serve.engine import InferenceEngine
 
     cfg = config.serve
     return InferenceEngine(load_bundle(bundle_dir), buckets=tuple(cfg.warmup_batch_sizes),
                            serve_tier=cfg.serve_tier, device=cfg.device,
-                           tier_routing=cfg.tier_routing)
+                           tier_routing=cfg.tier_routing, mesh=mesh)
 
 
 def _replica_config(config: Config, replica: int, replicas: int) -> Config:
-    """The config a replica process builds its engines with: on one
+    """The config a replica process builds its engines with. Sharded
+    (``serve.model_shards = S > 1``), replica r is S ranks on cards
+    ``[r*S, (r+1)*S)`` (its lead on card ``r*S``), as the JAX plane takes
+    a device slice per replica, and a process that sees fewer than
+    ``replicas * S`` cards is refused, naming the count. Unsharded, on one
     visible card (or too few for one each) every replica shares
     ``serve.device``; replica r takes card r only when the process sees a
-    card per replica, as the JAX plane takes a device slice per replica.
-    Spanning cards with one replica is not ported (ROADMAP A11b)."""
-    if replicas < 2 or config.serve.device != "cuda":
+    card per replica."""
+    if config.serve.device != "cuda":
         return config
     import torch
 
-    if torch.cuda.device_count() < replicas:
+    visible = torch.cuda.device_count()
+    shards = config.serve.model_shards
+    if shards > 1:
+        if visible < replicas * shards:
+            raise ValueError(
+                f"serve.model_shards={shards} with {replicas} engine replica(s) "
+                f"needs {replicas * shards} cards (replica r on cards [r*S, (r+1)*S)); "
+                f"this process sees {visible}"
+            )
+        first = replica * shards
+        logger.info("engine replica %d pinned to cards [%d, %d)", replica, first,
+                    first + shards)
+        return dataclasses.replace(
+            config, serve=dataclasses.replace(config.serve, device=f"cuda:{first}"))
+    if replicas < 2 or visible < replicas:
         return config
     logger.info("engine replica %d pinned to cuda:%d", replica, replica)
     return dataclasses.replace(
@@ -625,7 +643,23 @@ def _engine_main(config: Config, ring: RequestRing, tenancy: TenancyConfig,
     cuda_build.set_cache_dir(config.cache.dir)
     serve_cfg = config.serve
     scoped = _replica_config(config, replica, ring.replicas)
-    registry = TenantRegistry(tenancy, make_engine=lambda path: make_engine(scoped, path))
+    mesh = followers = None
+    if serve_cfg.model_shards > 1:
+        # This process is the replica's lead, rank 0 of its S ranks; the
+        # followers build each engine as it announces it. A follower's
+        # death ends this process, and the supervisor respawns the replica.
+        import torch
+
+        from mlops_tpu_torch.serve.shards import start_followers
+
+        lead = torch.device(scoped.serve.device)
+        mesh, followers, _ = start_followers(serve_cfg.model_shards, lead.type,
+                                             offset=lead.index or 0)
+        registry = TenantRegistry(
+            tenancy, make_engine=lambda path: make_engine(scoped, path, mesh=mesh))
+    else:
+        registry = TenantRegistry(tenancy,
+                                  make_engine=lambda path: make_engine(scoped, path))
     engines = registry.engines
     if ring.tracing:
         from mlops_tpu_torch.trace import ShapeStats
@@ -771,6 +805,8 @@ def _engine_main(config: Config, ring: RequestRing, tenancy: TenancyConfig,
         service.stop()
         if ledger is not None:
             ledger.close()  # the final atomic flush
+        if followers is not None:
+            followers.stop(mesh)
         logger.info("engine replica %d drained; exiting", replica)
 
 

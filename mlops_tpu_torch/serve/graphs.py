@@ -29,7 +29,9 @@ wrapper's launch counter counts a launch recorded into a graph under
 ``captured`` (``ops/cuda_build.LaunchCounter``), and ``ServingGraph.replay``
 adds the captured count to the counter at every replay. The gbm tier
 launches no hand-written kernel; its graphs count their replays
-(``ops/gbm_tensor.gbm_graph_replays``).
+(``ops/gbm_tensor.gbm_graph_replays``). A sharded engine's graphs hold
+the NCCL calls of its layers' collectives, counted the same way
+(``parallel/collectives.COLLECTIVE_CALLS``; ``ServingGraph.collectives``).
 
 Nothing here depends on a tier's temperature or parameter dtypes: they
 are the tier's own tensors, read by the captured program (the gbm tier's
@@ -93,6 +95,14 @@ class ServingGraph:
         self.out = out
         self.launches = launches
         self.replays = replays  # a counter of this graph's replays, or None
+
+    @property
+    def collectives(self) -> int:
+        """The collective (NCCL) calls captured into the graph: each
+        replay makes them."""
+        from mlops_tpu_torch.parallel.collectives import COLLECTIVE_CALLS
+
+        return dict(self.launches).get(COLLECTIVE_CALLS, 0)
 
     def replay(self) -> None:
         """Launch the graph on the current stream and count the kernels

@@ -60,9 +60,13 @@ class TenantRegistry:
         device: str = "cuda",
         tier_routing: bool = False,
         make_engine: Callable[[str], Any] | None = None,
+        mesh: Any = None,
     ) -> None:
         """``make_engine(bundle_dir)``, when given, builds each tenant's
-        engine instead (the ring plane's replica processes pass theirs)."""
+        engine instead (the ring plane's replica processes pass theirs).
+        ``mesh`` (``serve.model_shards``, fleet-wide as in the JAX
+        package) lays every tenant's params out over the same
+        ('model',) mesh."""
         self.tenancy = tenancy.validate()
         self.names: tuple[str, ...] = self.tenancy.names
         self.default_index = self.tenancy.default_index
@@ -76,7 +80,7 @@ class TenantRegistry:
             def make_engine(bundle_dir: str) -> Any:
                 return InferenceEngine(load_bundle(bundle_dir), buckets=buckets,
                                        serve_tier=serve_tier, device=device,
-                                       tier_routing=tier_routing)
+                                       tier_routing=tier_routing, mesh=mesh)
         self.engines = [make_engine(spec.bundle_dir) for spec in self.tenancy.tenants]
         # Tenants served through another tenant's programs: none here (a
         # CUDA graph holds its own engine's addresses).

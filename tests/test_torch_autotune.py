@@ -886,7 +886,13 @@ def test_the_lead_regrids_and_the_sibling_adopts(bundle_dir, tmp_path, plane_kin
             grid = next((float(line.split()[1]) for line in text.splitlines()
                          if line.startswith("mlops_tpu_grid_generation ")), 0.0)
             assert time.monotonic() < deadline, plane.text()[-3000:]
-        plan = json.loads((tmp_path / "autotune" / "plan.json").read_text())
+        # The controller writes the plan after ``apply_plan`` returns, so
+        # the grid generation can show before the file does.
+        plan_path = tmp_path / "autotune" / "plan.json"
+        while not plan_path.exists():
+            assert time.monotonic() < deadline, plane.text()[-3000:]
+            time.sleep(0.05)
+        plan = json.loads(plan_path.read_text())
         assert plan["applied"] and plan["replica"] == 0 and plan["buckets"][-1] == 64
         assert 'mlops_tpu_autotune_plans_total{outcome="applied"}' in text
         log = plane.text()

@@ -479,6 +479,17 @@ def test_jax_bundles_load_in_the_port(tmp_path, fitted):
     assert (np.abs(_np(got) - want) <= _logit_tol(want, "f32")).all()
 
 
+class _Shards:
+    """A stand-in for a ('model',) mesh of ``n`` ranks: all the tier table
+    reads of one."""
+
+    def __init__(self, n):
+        self.n = n
+
+    def size(self, axis):
+        return self.n
+
+
 def test_the_tier_table(exact_bundles, tmp_path, caplog):
     mlp = load_bundle(exact_bundles["mlp"])
     ens = load_bundle(exact_bundles["mlp-ens8"])
@@ -492,8 +503,17 @@ def test_the_tier_table(exact_bundles, tmp_path, caplog):
     assert "falling back to exact tier: bundle carries no quant params" in caplog.text
     with pytest.raises(ValueError, match="serve_tier must be"):
         InferenceEngine(mlp, serve_tier="int8", device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP A11"):
-        load_config(["serve.model_shards=4"])
+    # serve.model_shards loads; over more than one rank the quant tier is
+    # refused with the JAX engine's message (the tier table reads only the
+    # mesh's size).
+    assert load_config(["serve.model_shards=4"]).serve.model_shards == 4
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jax_load_bundle(exact_bundles["mlp"]), buckets=(1,), serve_tier="quant",
+                  model_shards=4)
+    with pytest.raises(ValueError) as got:
+        InferenceEngine(mlp, serve_tier="quant", device="cpu", mesh=_Shards(4))
+    assert str(got.value) == str(want.value)
+    assert "quant tier is single-device; model_shards > 1" in str(got.value)
     # A moe bundle (the family is ported) loads with its exact tier and
     # serves on it, answering as the JAX engine does on the same bundle.
     kw = dict(family="moe", token_dim=16, depth=1, heads=2, num_experts=4,

@@ -62,6 +62,7 @@ from mlops_tpu_torch.config import Config, ModelConfig, TrainConfig
 from mlops_tpu_torch.data import stream
 from mlops_tpu_torch.data.encode import EncodedDataset
 from mlops_tpu_torch.monitor.state import init_accumulator
+from mlops_tpu_torch.ops import cuda_build
 from mlops_tpu_torch.ops import gbm_tensor as tgbm
 from mlops_tpu_torch.parallel import bulk
 from mlops_tpu_torch.schema.features import SCHEMA
@@ -730,8 +731,13 @@ def test_the_warmup_command_lists_the_gbm_entries(dirs, tmp_path, capsys):
     from mlops_tpu_torch.compilecache import gbm_serve_entries
 
     capsys.readouterr()
-    assert main(["warmup", "--cache-dir", str(tmp_path / "cache"),
-                 f"serve.model_directory={dirs['port', 'gbm']}"]) == 0
+    try:
+        assert main(["warmup", "--cache-dir", str(tmp_path / "cache"),
+                     f"serve.model_directory={dirs['port', 'gbm']}"]) == 0
+        # ``warmup`` gives the process its cache directory back on return.
+        assert cuda_build.cache_dir() is None
+    finally:
+        cuda_build.set_cache_dir(None)
     report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert report["libraries"] == [] and report["nvcc_calls"] == 0
     assert report["gbm_entries"][:4] == [f"serve-predict-gbm-packed/b{b}" for b in BUCKETS]

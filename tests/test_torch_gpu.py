@@ -2036,3 +2036,48 @@ def test_a11_tune_and_score_over_a_one_rank_data_mesh_equal_no_mesh(tmp_path):
         score_csv_stream(bundle, source, tmp_path / f"{name}.csv", chunk_rows=1024, device=dev,
                          mesh=m)
     assert (tmp_path / "mesh.csv").read_bytes() == (tmp_path / "none.csv").read_bytes()
+
+
+# ------------------------------------------- sharded serving at world 1
+# serve.model_shards over a one-rank ('model',) mesh of an NCCL group:
+# every captured graph holds the NCCL calls its layout implies (one per
+# row cut and per split mixture of experts), each replay makes them, and
+# the answers equal the unsharded engine's bit for bit.
+A11B_KW = {"mlp": dict(hidden_dims=(64, 64), embed_dim=8),
+           "bert": dict(token_dim=16, depth=2, heads=2),
+           "moe": dict(token_dim=16, depth=1, heads=2, num_experts=4)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", sorted(A11B_KW))
+def test_a11b_one_rank_sharded_graphs_hold_nccl_and_equal_the_unsharded_engine(
+        card_state, tmp_path, family):
+    from mlops_tpu_torch.bundle import load_bundle, save_exact_bundle
+    from mlops_tpu_torch.config import ModelConfig
+    from mlops_tpu_torch.models import build_model, init_params
+    from mlops_tpu_torch.parallel.collectives import COLLECTIVE_CALLS
+    from mlops_tpu_torch.parallel.distributed import initialize
+    from mlops_tpu_torch.parallel.sharding import serve_mesh
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    _, mon, ds, dev = card_state
+    initialize(dev)
+    columns, _ = generate_synthetic(5000, seed=0)
+    config = ModelConfig(family=family, precision="bf16", **A11B_KW[family])
+    save_exact_bundle(tmp_path, config, init_params(build_model(config), 3),
+                      Preprocessor.fit(columns), mon.to("cpu"),
+                      calibration={"temperature": 1.2})
+    bundle = load_bundle(tmp_path)
+    sharded = InferenceEngine(bundle, mesh=serve_mesh(1, 0, "cuda"))
+    plain = InferenceEngine(bundle)
+    sharded.warmup()
+    per_graph = {g.collectives for g in sharded._graphs.values()}
+    assert len(per_graph) == 1 and per_graph.pop() > 0
+    for seed, key in enumerate([(1,), (8,), (64,), (256,), (16, 8), (64, 1)]):
+        graph = sharded._graphs[("exact", key)]
+        before = COLLECTIVE_CALLS.value
+        got = _dispatch(sharded, ds, key, seed, None)
+        assert COLLECTIVE_CALLS.value - before == graph.collectives
+        want = _dispatch(plain, ds, key, seed, None)
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert np.array_equal(_acc_bits(sharded), _acc_bits(plain))

@@ -343,7 +343,10 @@ def test_the_jax_layout_knob_refusal_is_the_jax_text(tmp_path):
 
 
 def test_model_shards_is_refused_naming_a11b():
+    """The knob loads (sharded serving is ported); only the closed loop
+    over a sharded engine is refused, naming A11c."""
     from mlops_tpu_torch.config import load_config
 
-    with pytest.raises(ValueError, match=r"ROADMAP A11b"):
-        load_config(["serve.model_shards=2"])
+    assert load_config(["serve.model_shards=2"]).serve.model_shards == 2
+    with pytest.raises(ValueError, match=r"ROADMAP A11c"):
+        load_config(["serve.model_shards=2", "lifecycle.enabled=true"])

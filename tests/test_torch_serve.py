@@ -169,13 +169,24 @@ def engines(bundles):
 def test_engine_refuses_ungraded_or_unported_tiers(bundles, tmp_path):
     """The exact tier is the default; a bundle without exact params
     refuses it, an ungraded quant tier refuses quant, an unknown tier is
-    refused, and the config refuses sharded params (ROADMAP A11)."""
-    _, tb = bundles
+    refused, and sharded params (``serve.model_shards``, which loads)
+    refuse the quant tier with the JAX engine's message."""
+    jb, tb = bundles
     assert InferenceEngine(tb, device="cpu").serve_tier == "exact"
     with pytest.raises(ValueError, match="serve_tier"):
         InferenceEngine(tb, serve_tier="int4", device="cpu")
-    with pytest.raises(ValueError, match="A11"):
-        load_config(["serve.model_shards=2"])
+    assert load_config(["serve.model_shards=2"]).serve.model_shards == 2
+
+    class two_shards:  # a ('model',) mesh of 2 ranks, as the tier table reads it
+        @staticmethod
+        def size(axis):
+            return 2
+
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jb, buckets=(1,), serve_tier="quant", model_shards=2)
+    with pytest.raises(ValueError) as got:
+        InferenceEngine(tb, serve_tier="quant", device="cpu", mesh=two_shards)
+    assert str(got.value) == str(want.value)
     save_quant_bundle(tmp_path, tb.preprocessor, tb.monitor, tb.quant_params)
     with pytest.raises(ValueError, match="promotion gates"):
         InferenceEngine(load_bundle(tmp_path), serve_tier="quant", device="cpu")

@@ -216,9 +216,21 @@ def _launch(nproc: int, root: Path, tp: int | None) -> dict:
     out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
                          timeout=DEADLINE_S)
     assert out.returncode == 0, out.stderr[-3000:]
-    lines = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    lines = [obj for line in out.stdout.splitlines() if line.startswith("{")
+             for obj in _objects(line)]
     assert len(lines) == nproc and all(line == lines[0] for line in lines)
     return lines[0]
+
+
+def _objects(line: str) -> list:
+    """The JSON objects printed on one stdout line: the ranks share the
+    pipe, and two ranks' results printed at once can land on one line."""
+    decoder, out, i = json.JSONDecoder(), [], 0
+    line = line.rstrip()
+    while i < len(line):
+        obj, i = decoder.raw_decode(line, i)
+        out.append(obj)
+    return out
 
 
 def test_train_tensor_parallel_2_under_the_launcher_equals_one_rank(tmp_path):

@@ -431,3 +431,206 @@ def sp_train(inputs: dict, workdir: Path) -> dict:
     result = run_layout_training(config, run_name="sp")
     return {"bundle": str(result.bundle_dir), "model_uri": result.model_uri,
             "history": result.train_result.history}
+
+
+# -------------------------------------------------------- sharded serving
+def _serve_answers(engine, inputs: dict) -> dict:
+    """``engine``'s responses to the inputs' solo requests (one per
+    bucket) and grouped requests, as dicts and as raw arrays, then its
+    monitor snapshot."""
+    solo, raw = [], []
+    for cat, num in inputs["solo"]:
+        handle = engine.dispatch_arrays(cat, num)
+        arrays = engine.fetch_arrays_raw(handle)
+        raw.append(arrays)
+        solo.append(_formatted(arrays))
+    group, group_raw = [], []
+    for parts in inputs["groups"]:
+        arrays = engine.fetch_group_raw(engine.dispatch_group_arrays(parts))
+        group_raw.append(arrays)
+        sizes, preds, outs, drifts = arrays
+        group.append([_formatted((preds[i, :n], outs[i, :n], drifts[i]))
+                      for i, n in enumerate(sizes)])
+    return {"solo": solo, "group": group, "raw": raw, "group_raw": group_raw,
+            "snapshot": engine.monitor_snapshot(),
+            "dispatches": engine.dispatch_counts()}
+
+
+def _formatted(arrays) -> dict:
+    from mlops_tpu_torch.serve.wire import format_response
+
+    return format_response(*arrays)
+
+
+def _follower_state(engines: dict, out_of_step: bool, workdir: Path) -> None:
+    """What a follower rank holds once the lead stopped it, for the test to
+    hold against the lead: each live engine's number, generations,
+    buckets, ready solo shapes and last monitor window."""
+    import json
+
+    state = {sid: {"bundle_generation": e.bundle_generation,
+                   "grid_generation": e.grid_generation,
+                   "buckets": list(e.buckets), "shards": e.model_shards,
+                   "warmed_solo": _warmed_solo(e),
+                   "window": None if e._window is None else e._window.tolist()}
+             for sid, e in engines.items()}
+    rank = torch.distributed.get_rank()
+    (workdir / f"follower{rank}.json").write_text(
+        json.dumps({"engines": state, "out_of_step": out_of_step}))
+
+
+def _warmed_solo(engine) -> list[int]:
+    return sorted(lead[0] for _, lead in engine._gen.warmed if len(lead) == 1)
+
+
+def _fail_after_warm_pass(rows: int) -> None:
+    """Make this process's warm pass of a ``rows`` solo shape fail after
+    its collectives ran."""
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    warm = InferenceEngine._warm_pass
+
+    def failing(self, gen, tier, lead, scratch):
+        warm(self, gen, tier, lead, scratch)
+        if tuple(lead) == (rows,):
+            raise RuntimeError(f"injected failure readying {lead}")
+
+    InferenceEngine._warm_pass = failing
+
+
+def _out_of_step(mesh) -> bool:
+    """Every rank reports another count of collectives: whether ``agree``
+    refused the mesh here."""
+    from mlops_tpu_torch.parallel.sharding import MeshOutOfStep
+
+    try:
+        mesh.agree(True, torch.distributed.get_rank())
+    except MeshOutOfStep:
+        return True
+    return False
+
+
+@job
+def model_shards(inputs: dict, workdir: Path) -> dict:
+    """Sharded serving over the whole world as one ('model',) mesh: rank 0
+    serves each bundle through the sharded engine (warmup, the buckets,
+    a group), then a swap and a rollback, a regrid, the quant refusal
+    and ``auto``'s fallback, and a gbm bundle that ignores the mesh; every
+    other rank follows. With ``one_rank``, rank 0 also serves each bundle
+    over a one-rank mesh beside the unsharded engine. The lead runs with
+    the cyclic collector off: an engine it drops is freed at once, and
+    the followers drop their twins."""
+    import gc
+
+    from mlops_tpu_torch.parallel.sharding import serve_mesh
+    from mlops_tpu_torch.serve.shards import follow
+
+    world = torch.distributed.get_world_size()
+    mesh = serve_mesh(world, device="cpu")
+    one = serve_mesh(1, device="cpu") if inputs["one_rank"] else None
+    if not mesh.lead:
+        # Bucket 2 fails here after its warm pass's collectives: the lead
+        # hears of it, and no rank counts the shape ready.
+        _fail_after_warm_pass(2)
+        engines = follow(mesh, "cpu")
+        _follower_state(engines, _out_of_step(mesh), workdir)
+        return {}
+    gc.disable()
+    try:
+        return _lead_model_shards(inputs, mesh, one)
+    finally:
+        gc.enable()
+
+
+def _lead_model_shards(inputs: dict, mesh, one) -> dict:
+    import weakref
+
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.parallel.sharding import MeshOutOfStep, sharded_axes
+    from mlops_tpu_torch.serve.engine import InferenceEngine
+
+    buckets = tuple(inputs["buckets"])
+    out = {"families": {}, "one_rank": {}}
+
+    def engine_on(path, m, warm=False):
+        # Warmed or not, a shape runs the same program; on the CPU an unwarmed
+        # one is readied at its first dispatch, announced as warmup's are.
+        engine = InferenceEngine(load_bundle(path), buckets=buckets, device="cpu", mesh=m)
+        if warm:
+            engine.warmup()
+        return engine
+
+    refs = []
+    for family, path in inputs["bundles"].items():
+        engine = engine_on(path, mesh, warm=True)
+        refs.append(weakref.ref(engine))
+        tier = engine._tiers["exact"]
+        full = load_bundle(path).model.state_dict()
+        out["families"][family] = {
+            "shards": engine.model_shards,
+            "split": sorted(k for k, v in tier.specs.items() if sharded_axes(v)),
+            "specs": tier.specs,
+            "blocks": {k: [list(v.shape), list(full[k].shape)]
+                       for k, v in tier.params.items()},
+            **_serve_answers(engine, inputs),
+        }
+        if one is not None:
+            plain = engine_on(path, None)
+            sharded = engine_on(path, one)
+            out["one_rank"][family] = {"plain": _serve_answers(plain, inputs),
+                                       "sharded": _serve_answers(sharded, inputs)}
+    # A swap and a rollback in step: the live engine serves the mlp, the
+    # candidate (built over the same mesh) the bert.
+    live = engine_on(inputs["bundles"]["mlp"], mesh, warm=True)
+    candidate = engine_on(inputs["bundles"]["bert"], mesh)
+    cat, num = inputs["solo"][1]
+    turns = {"before": live.fetch_arrays_raw(live.dispatch_arrays(cat, num))}
+    turns["swap_generation"] = live.swap_bundle(candidate)
+    turns["swapped"] = live.fetch_arrays_raw(live.dispatch_arrays(cat, num))
+    turns["rollback_generation"] = live.rollback()
+    turns["rolled_back"] = live.fetch_arrays_raw(live.dispatch_arrays(cat, num))
+    # A regrid in step: bucket 3 warmed, the grid exchanged, 3 rows served.
+    turns["warm"] = live.warm_grid((1, 3, *buckets))
+    turns["grid_generation"] = live.regrid((1, 3, *buckets))
+    turns["regridded"] = live.fetch_arrays_raw(live.dispatch_arrays(cat[:3], num[:3]))
+    turns["dispatches"] = live.dispatch_counts()
+    turns["snapshot"] = live.monitor_snapshot()
+    # A shape that fails on a follower only: ready on no rank, and the mesh
+    # serves on in step.
+    try:
+        live.warm_grid((1, 2, 3, *buckets))
+        turns["failed_ready"] = None
+    except RuntimeError as err:
+        turns["failed_ready"] = str(err)
+    turns["warmed_solo"] = _warmed_solo(live)
+    turns["after_failure"] = live.fetch_arrays_raw(live.dispatch_arrays(cat[:3], num[:3]))
+    out["turnover"] = turns
+    # The quant tier under S > 1, demanded and preferred; a gbm bundle.
+    try:
+        InferenceEngine(load_bundle(inputs["quant_bundle"]), serve_tier="quant",
+                        device="cpu", mesh=mesh)
+        out["quant"] = None
+    except ValueError as err:
+        out["quant"] = str(err)
+    auto = InferenceEngine(load_bundle(inputs["quant_bundle"]), serve_tier="auto",
+                           device="cpu", mesh=mesh, tier_routing=True)
+    out["auto"] = {"tier": auto.serve_tier, "tiers": list(auto.available_tiers)}
+    built = mesh.built
+    gbm = engine_on(inputs["gbm_bundle"], mesh)
+    out["gbm"] = {"shards": gbm.model_shards, "tier": gbm.serve_tier,
+                  "built": mesh.built - built, **_serve_answers(gbm, inputs)}
+    # The engines the lead dropped are gone without a collection; those it
+    # holds at the stop are the ones the followers must hold.
+    out["freed"] = [ref() is None for ref in refs[:-1]]
+    out["live_sid"] = live._sid
+    out["held"] = sorted(e._sid for e in (engine, live, candidate, auto))
+    mesh.stop()
+    # Ranks that ran different numbers of collectives: refused on every
+    # rank, and the lead announces nothing more.
+    out["out_of_step"] = _out_of_step(mesh)
+    try:
+        mesh.announce(("stop", -1))
+        out["announce_refused"] = False
+    except MeshOutOfStep:
+        out["announce_refused"] = True
+    return out
