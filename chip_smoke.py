@@ -252,8 +252,8 @@ Phases, each of which fails the run loudly:
     route on the bundle the registry downloads (1.6e-2), and at once the
     same ``serve`` with ``MLOPS_TPU_SERVE_WORKERS=2`` and
     ``MLOPS_TPU_CACHE_DIR`` set (the ring plane, answering the same); the
-    same ``serve`` with ``MLOPS_TPU_SERVE_LOOP_LAG_MONITOR=true`` (a
-    non-zero exit naming A12), a
+    same ``serve`` with ``MLOPS_TPU_SERVE_LOOP_LAG_SLOW_MS=0`` (a
+    non-zero exit with the JAX package's validation message), a
     ``train`` at 50 steps with ``train.tensorboard_dir`` (event files, or
     the JAX warning where ``torch.utils.tensorboard`` is unusable), and
     where pyarrow imports ``score-batch`` on ``gs://.../rows.parquet``
@@ -367,6 +367,10 @@ Phases, each of which fails the run loudly:
     burst at 16 and 64 connections on both planes in one turn (every
     answer against the CPU route, requests/s armed against disarmed,
     ``quant_fused`` launches equal to quant-tier dispatches);
+    the loop-lag sanitizer armed on the armed plane's front ends
+    (``MLOPS_TPU_SERVE_LOOP_LAG_MONITOR=true``): after every burst each
+    front end's ``mlops_tpu_event_loop_lag_ms`` finite and >= 0, the
+    disarmed plane's 0.0, ``quant_fused`` launched over the armed bursts;
     ``trace-report`` per entry and per replica (every 200's span
     stitched, drops read from ``/metrics``); ``/debug/profile`` through a
     front end (200 / 409 / 200 / 409, the trace's ``quant_fused`` kernel
@@ -456,13 +460,25 @@ Phases, each of which fails the run loudly:
     copies they ran, and the TP and dense steps' ms. None of the four
     kernels runs here: their counts read 0. ``chip_smoke.py --a11`` runs
     phases 1 and 39 alone.
+41. the tooling (in the second process, after phase 39): ``analyze
+    --strict --concurrency --contracts --async --fail-stale --no-trace
+    mlops_tpu_torch/`` timed in a subprocess (exit 0), then Layer 2 with
+    every registered program traced on fake CUDA tensors (no finding; the
+    launch counters unchanged across it); ``utils/debug.checked`` around
+    the quant and exact packed programs of phase 22's bundle at 1x1,
+    1x256 and 64x8 (outputs bitwise the unchecked call's, ``quant_fused``
+    launched inside it, a NaN planted in one numeric raising an error
+    that names the op, the ms ``checked`` adds); ``utils/flops``:
+    ``peak_flops`` for the card's name, the measured bf16 GEMM rate as a
+    share of it, the ``FlopCounterMode`` count of the mlp-ens8 forward
+    (256 rows) equal to its analytic 2*M*N*K.
 
 Every serving engine on the card dispatches through CUDA graphs, so the
 kernel's launches on the main path (phase 5) are counted at graph replay.
 
 Phases 1-15 run alone, so every kernel time of the kernels line is taken
 on an otherwise idle card. Once the bundles of phases 16 and 22 are
-written, phases 29-37 (the serving planes) and 39 run in a second process
+written, phases 29-37 (the serving planes), 39 and 41 run in a second process
 of this script (``--ring-phases``) beside phases 16-28 and 38 in this
 one: each
 side counts its kernel launches in its own process, and the two share
@@ -492,17 +508,16 @@ import time
 import urllib.parse
 from pathlib import Path
 
+from mlops_tpu_torch.utils.flops import BF16_TC_FLOPS, F32_OPS_PER_S, HBM_BYTES_PER_S
+
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32
-# outside the tensor cores (132 SMs x 128 lanes x 2 x 1.98 GHz), dense
-# bf16 on the tensor cores. Exponentials: 16 per SM per clock on the
-# special-function units, at the same 1.98 GHz maximum boost clock as
-# the f32 peak.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
-BF16_TC_FLOPS = 989e12
+# The published H100 SXM peaks come from mlops_tpu_torch/utils/flops.py's
+# table (NVIDIA data sheet): HBM bandwidth, f32 outside the tensor cores
+# (132 SMs x 128 lanes x 2 x 1.98 GHz), dense bf16 on the tensor cores.
+# Exponentials: 16 per SM per clock on the special-function units, at the
+# same 1.98 GHz maximum boost clock as the f32 peak.
 EXP_OPS_PER_S = 16 * 132 * 1.98e9
 
 FLASH_TOL = {"float32": (2e-5, 1e-5), "bfloat16": (2e-2, 1e-3)}
@@ -3937,8 +3952,9 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
     route on the bundle the registry resolves, and at once the same
     ``serve`` as the serving image starts it, ``MLOPS_TPU_SERVE_WORKERS=2``
     (the ring plane) with ``MLOPS_TPU_CACHE_DIR`` set, answering the same;
-    the same ``serve`` with ``MLOPS_TPU_SERVE_LOOP_LAG_MONITOR=true`` exits
-    non-zero naming A12; a ``train`` of the job config with
+    the same ``serve`` with ``MLOPS_TPU_SERVE_LOOP_LAG_SLOW_MS=0`` exits
+    non-zero with the JAX package's validation message; a ``train`` of the
+    job config with
     the steps cut to 50 and ``train.tensorboard_dir`` set writes event
     files (or, where ``torch.utils.tensorboard`` cannot be built, warns as
     the JAX package does); where pyarrow imports, ``score-batch`` on the
@@ -4001,12 +4017,12 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
 
     # The rest runs while the production stage serves (on the
     # single-process server and, as the serving image starts it, on the
-    # two-worker ring plane with the kernel cache): the refusal of a key
-    # the port lacks, the TensorBoard run and, where pyarrow imports,
+    # two-worker ring plane with the kernel cache): the refusal of an
+    # invalid serve key, the TensorBoard run and, where pyarrow imports,
     # score-batch on the Parquet twin and the CSV (their resolves of
     # production race the servers' downloads into the one registry cache:
     # a rename decides).
-    refused = {"MLOPS_TPU_SERVE_LOOP_LAG_MONITOR": ("true", "A12")}
+    refused = {"MLOPS_TPU_SERVE_LOOP_LAG_SLOW_MS": ("0", "serve.loop_lag_slow_ms=0.0 must be > 0")}
     procs = {key: _start(_cli(serve_args, bucket_root), {**env, key: value}, root / key)
              for key, (value, _) in refused.items()}
     tb_dir = root / "tensorboard"
@@ -4038,9 +4054,9 @@ def phase_deployed_job(local: dict | None = None, extra: tuple[str, ...] = (),
         done = _finish(procs)
 
     refusals = {}
-    for key, (value, item) in refused.items():
+    for key, (value, message) in refused.items():
         code, _, stderr = done[key]
-        check(code != 0 and f"ROADMAP {item}" in stderr,
+        check(code != 0 and message in stderr,
               f"serve with {key}={value} exited {code}: {stderr[-2000:]}")
         refusals[key] = stderr.strip().splitlines()[-1]
         log(f"deployed job: {key}={value} refused: {refusals[key]}")
@@ -6224,6 +6240,18 @@ max_fires = {OBS_FAULT_FIRES}
 """
 
 
+def _loop_lags(port: int) -> dict[int, float]:
+    """Each front end's ``mlops_tpu_event_loop_lag_ms`` from one scrape;
+    fails unless every one of the plane's workers has its series."""
+    text = _http(port, "GET", "/metrics")[1].decode()
+    lags = {}
+    for line in text.splitlines():
+        if line.startswith('mlops_tpu_event_loop_lag_ms{worker="'):
+            lags[int(line.split('"')[1])] = float(line.rsplit(" ", 1)[1])
+    check(sorted(lags) == list(range(RING_WORKERS)), f"loop-lag series {lags}")
+    return lags
+
+
 def _obs_env(root: Path) -> dict:
     """The observability layer armed through the environment layer, with
     short SLO windows (2 / 5 / 8 / 12 s) so a burst can page, the flight
@@ -6319,7 +6347,8 @@ def phase_observability(bundle_dir: Path, device: str = "cuda") -> dict:
         log_path = root / f"plane_{name}.log"
         out = open(log_path, "wb")
         env = {**base_env, **_image_env(bundle_dir, cache, port, RING_WORKERS, device),
-               **(_obs_env(root) if name == "armed" else {})}
+               **(_obs_env(root) | {"MLOPS_TPU_SERVE_LOOP_LAG_MONITOR": "true"}
+                  if name == "armed" else {})}
         planes[name] = (port, out, subprocess.Popen(
             _cli(["serve", "--workers", str(RING_WORKERS), "--replicas", "2"]),
             cwd=ROOT, stdout=out, stderr=subprocess.STDOUT, env=env), log_path)
@@ -6331,7 +6360,9 @@ def phase_observability(bundle_dir: Path, device: str = "cuda") -> dict:
         port, _, proc, log_path = planes["armed"]
         text = log_path.read_text(errors="replace")
         check("fault injection ARMED" in text and "SLO engine armed" in text
-              and text.count("cost ledger armed") == 2, "the armed plane's log")
+              and text.count("cost ledger armed") == 2
+              and text.count("loop-lag sanitizer armed") == RING_WORKERS,
+              "the armed plane's log")
         # (d) the fault plan pages.
         t0 = time.monotonic()
         n = len(single["bodies"])
@@ -6379,6 +6410,7 @@ def phase_observability(bundle_dir: Path, device: str = "cuda") -> dict:
         # (a) + (b): the bursts, armed and disarmed in turns.
         rows = []
         launches = quant = 0.0
+        lags = {name: {w: [] for w in range(RING_WORKERS)} for name in planes}
         for turn in range(OBS_TURNS):
             for concurrency in OBS_CONCURRENCY:
                 for name in ("armed", "disarmed"):
@@ -6397,6 +6429,9 @@ def phase_observability(bundle_dir: Path, device: str = "cuda") -> dict:
                     if name == "armed":
                         launches += d["launches"]
                         quant += d["quant_dispatches"]
+                    lag = _loop_lags(port)
+                    for w in range(RING_WORKERS):
+                        lags[name][w].append(lag[w])
                     row = {"plane": name, "turn": turn, "concurrency": concurrency,
                            "requests_per_s": len(burst["bodies"]) / wall,
                            "p50_ms": float(np.percentile(lat, 50)),
@@ -6416,6 +6451,22 @@ def phase_observability(bundle_dir: Path, device: str = "cuda") -> dict:
                         "armed_over_disarmed": [a / b for a, b in zip(armed, disarmed)]}
         result["armed_vs_disarmed"] = ratio
         log_timing("observability armed vs disarmed", ratio)
+        # The loop sanitizer's gauges, read after every burst: each front
+        # end's on the armed plane finite and >= 0, and above 0 after at
+        # least one burst (a sanitizer that never publishes reads 0.0);
+        # the disarmed plane's the always-emitted 0.0.
+        check(all(v >= 0.0 and math.isfinite(v) for v in sum(lags["armed"].values(), [])),
+              f"armed loop-lag gauges {lags['armed']}")
+        check(all(max(per) > 0.0 for per in lags["armed"].values()),
+              f"an armed front end never published a loop lag: {lags['armed']}")
+        check(all(v == 0.0 for v in sum(lags["disarmed"].values(), [])),
+              f"disarmed loop-lag gauges {lags['disarmed']}")
+        if device == "cuda":
+            check(launches > 0, "quant_fused never launched over the armed bursts")
+        result["loop_lag_ms"] = {name: {str(w): v for w, v in per.items()}
+                                 for name, per in lags.items()}
+        log_timing("observability loop lag ms per worker (after each burst)",
+                   result["loop_lag_ms"])
         port = planes["armed"][0]
         time.sleep(1.0)  # the span writers' 0.5 s flush
         from mlops_tpu_torch.trace import load_spans
@@ -8346,8 +8397,201 @@ def _setup() -> None:
     os.environ["PYTHONPYCACHEPREFIX"] = sys.pycache_prefix
 
 
+# Phase 41: the tooling. Geometries (slots x rows) ``checked`` runs the
+# packed programs at; the NaN is planted at one of them.
+TOOLING_GEOMETRIES = ((1, 1), (1, 256), (64, 8))
+TOOLING_REPS = 5  # timed calls per program and geometry, each way
+TOOLING_FLOP_ROWS = 256  # the mlp-ens8 forward FlopCounterMode counts
+
+
+def phase_tooling(bundle_dir: Path, device: str = "cuda") -> dict:
+    """Phase 41: the port's tooling on the card. (a) ``analyze --strict
+    --concurrency --contracts --async --fail-stale --no-trace`` over the
+    package in a subprocess (exit 0, timed), then Layer 2 in this process
+    with every entry on fake ``device`` tensors: no finding, and every
+    launch counter unchanged across the trace run; ``analyze --numeric``
+    in a subprocess, whose audit must run clean on the card. (b) ``utils/
+    debug.checked`` around the quant and exact tiers' packed programs of
+    phase 22's bundle at 1x1, 1x256 and 64x8: outputs bitwise the
+    unchecked call's, ``quant_fused`` launched inside the checked call, a
+    NaN planted in one numeric raising an error naming the op or kernel
+    (and, unchecked, coming out of ``quant_fused`` as NaN where its plain
+    version's does), and the ms ``checked`` adds. (c) ``utils/flops``: ``peak_flops`` for the
+    card's name, ``measured_gemm_peak`` (bf16) as a share of it, and the
+    ``FlopCounterMode`` count of the mlp-ens8 forward against its analytic
+    2*M*N*K."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    import mlops_tpu_torch.ops.attention  # noqa: F401  (every launch counter exists
+    import mlops_tpu_torch.ops.gbm_tensor  # noqa: F401   before the trace run)
+    import mlops_tpu_torch.parallel.collectives  # noqa: F401
+    from mlops_tpu_torch.analysis.traces import run_trace_checks
+    from mlops_tpu_torch.bundle import load_bundle
+    from mlops_tpu_torch.data import generate_synthetic
+    from mlops_tpu_torch.monitor.state import init_accumulator
+    from mlops_tpu_torch.ops.cuda_build import LAUNCH_COUNTERS
+    from mlops_tpu_torch.ops.predict import (
+        make_packed_grouped_base,
+        make_packed_predict_base,
+        model_params,
+    )
+    from mlops_tpu_torch.ops.quant_kernel import (
+        fused_core_cuda,
+        fused_core_reference,
+        make_quant_grouped_base,
+        make_quant_packed_base,
+        quant_kernel_launches,
+    )
+    from mlops_tpu_torch.utils import flops
+    from mlops_tpu_torch.utils.debug import NumericCheckError, checked
+
+    result: dict = {}
+    # (a) the gate on this machine, then Layer 2 on the card's fakes.
+    t0 = time.perf_counter()
+    gate = subprocess.run(
+        _cli(["analyze", "--strict", "--concurrency", "--contracts", "--async",
+              "--fail-stale", "--no-trace", "mlops_tpu_torch/"]),
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=600)
+    gate_s = time.perf_counter() - t0
+    check(gate.returncode == 0, f"analyze exited {gate.returncode}: {gate.stdout[-3000:]}")
+    before = {c.name: c.value for c in LAUNCH_COUNTERS}
+    t0 = time.perf_counter()
+    findings, notes = run_trace_checks(device=device)
+    layer2_s = time.perf_counter() - t0
+    after = {c.name: c.value for c in LAUNCH_COUNTERS}
+    check(not findings, "Layer 2 on the card: " + "; ".join(f.format() for f in findings))
+    check(after == before, f"launch counters moved across Layer 2: {before} -> {after}")
+    # The numeric audit as a user runs it: the CLI picks the card itself.
+    t0 = time.perf_counter()
+    audit = subprocess.run(
+        _cli(["analyze", "--strict", "--no-trace", "--numeric",
+              "mlops_tpu_torch/analysis/entrypoints.py"]),
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), capture_output=True,
+        text=True, timeout=600)
+    audit_s = time.perf_counter() - t0
+    audit_notes = [line for line in audit.stdout.splitlines()
+                   if line.startswith("tpulint: numeric audit")]
+    check(audit.returncode == 0 and len(audit_notes) == 2 and all(
+        f"numeric audit on {device}:" in line and "clean" in line for line in audit_notes),
+        f"analyze --numeric exited {audit.returncode}: {audit.stdout[-3000:]}")
+    result["analyze"] = {"gate_no_trace_s": gate_s, "gate_summary": gate.stdout.strip().splitlines()[-1],
+                         "layer2_s": layer2_s, "layer2_device": device,
+                         "traced": [n for n in notes if n.startswith(("traced", "skipped"))],
+                         "launch_counters": before, "numeric_audit_s": audit_s,
+                         "numeric_audit": audit_notes}
+    log_timing("tooling analyze", result["analyze"])
+
+    # (b) checked around the packed programs.
+    bundle = load_bundle(bundle_dir)
+    dev = torch.device(device)
+    columns, _ = generate_synthetic(max(s * r for s, r in TOOLING_GEOMETRIES), seed=41)
+    ds = bundle.preprocessor.encode(columns)
+    monitor = bundle.monitor.to(dev)
+    temp = torch.ones((), dtype=torch.float32, device=dev)
+    model = bundle.model.eval()
+    tiers = {
+        "quant": ({k: v.to(dev) for k, v in bundle.quant_params.items()},
+                  make_quant_packed_base(), make_quant_grouped_base()),
+        "exact": ({k: v.to(dev) for k, v in model_params(model).items()},
+                  make_packed_predict_base(model), make_packed_grouped_base(model)),
+    }
+
+    def inputs(s, r):
+        cat = torch.from_numpy(ds.cat_ids[: s * r].astype(np.int32)).to(dev)
+        num = torch.from_numpy(ds.numeric[: s * r].astype(np.float32)).to(dev)
+        mask = torch.ones((s, r), dtype=torch.bool, device=dev)
+        if s == 1:
+            return cat, num, mask[0]
+        return cat.reshape(s, r, -1), num.reshape(s, r, -1), mask
+
+    def timed_ms(fn, args):
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda d: None)
+        walls = []
+        for _ in range(TOOLING_REPS):
+            sync(dev)
+            t0 = time.perf_counter()
+            fn(*args)
+            sync(dev)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    rows = []
+    for tier, (params, solo, grouped) in tiers.items():
+        for s, r in TOOLING_GEOMETRIES:
+            program = solo if s == 1 else grouped
+            cat, num, mask = inputs(s, r)
+            args = (params, monitor, init_accumulator(dev), temp, cat, num, mask)
+            plain_out = program(*args)
+            launches = quant_kernel_launches.value
+            checked_out = checked(program)(*args)
+            launched = quant_kernel_launches.value - launches
+            check(torch.equal(plain_out[0], checked_out[0]) and all(
+                torch.equal(getattr(plain_out[1], f), getattr(checked_out[1], f))
+                for f in ("rows", "outliers", "batches", "drift_sum", "drift_last")),
+                f"checked {tier} {s}x{r}: not bitwise the unchecked output")
+            if tier == "quant" and device == "cuda":
+                check(launched >= 1, f"checked quant {s}x{r}: quant_fused did not launch")
+            bad = num.clone()
+            bad.view(-1)[3] = float("nan")
+            try:
+                checked(program)(params, monitor, init_accumulator(dev), temp, cat, bad, mask)
+            except NumericCheckError as err:
+                named = err.op
+            else:
+                raise SmokeFailure(f"checked {tier} {s}x{r}: a planted NaN raised nothing")
+            if tier == "quant" and device == "cuda":
+                # Unchecked, the kernel keeps the NaN as its plain version
+                # does: NaN in the same predictions, the rest equal.
+                core = (params["embed"], params["w1_q"], params["w1_s"], params["b1"],
+                        params["w2_q"], params["w2_s"], params["b2"],
+                        monitor.num_ref_sorted, monitor.num_ref_cdf, monitor.out_mean,
+                        monitor.out_precision, monitor.out_threshold, temp,
+                        cat.reshape(s, r, -1), bad.reshape(s, r, -1), mask.reshape(s, r))
+                kp, _, kc, kk = fused_core_cuda(*core)
+                rp, _, rc, rk = fused_core_reference(*core)
+                check(bool(kp[0, 0].isnan()) and torch.equal(kp.isnan(), rp.isnan())
+                      and torch.equal(kc, rc) and torch.equal(kk.nan_to_num(), rk.nan_to_num())
+                      and float((kp - rp).nan_to_num().abs().max()) <= 1e-6,
+                      f"quant_fused {s}x{r} on a planted NaN: {kp[0, :4].tolist()} "
+                      f"against the plain version's {rp[0, :4].tolist()}")
+            plain_ms = timed_ms(program, args)
+            checked_ms = timed_ms(checked(program), args)
+            row = {"tier": tier, "geometry": f"{s}x{r}", "bitwise": True,
+                   "quant_fused_launches": launched, "nan_named": named,
+                   "unchecked_ms": plain_ms, "checked_ms": checked_ms,
+                   "checked_adds_ms": checked_ms - plain_ms}
+            log_timing("tooling checked", row)
+            rows.append(row)
+    result["checked"] = rows
+
+    # (c) the card's peaks and a FLOP count.
+    name = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    peaks = {dt: flops.peak_flops(name, dt) for dt in ("bf16", "tf32", "f32", "fp8")}
+    gemm = flops.measured_gemm_peak(dtype="bf16") if device == "cuda" else None
+    cat, num, _ = inputs(1, TOOLING_FLOP_ROWS)
+    counted = flops.compiled_flops(
+        lambda c, n: torch.func.functional_call(model, tiers["exact"][0], (c, n)), cat, num)
+    analytic = sum(2 * TOOLING_FLOP_ROWS * math.prod(p.shape)
+                   for k, p in model.named_parameters() if k.endswith("kernel"))
+    check(counted == analytic, f"FlopCounterMode {counted} != analytic {analytic}")
+    result["flops"] = {
+        "device_name": name, "part": flops.h100_part(name), "peak_flops": peaks,
+        "hbm_bytes_per_s": flops.peak_bytes_per_s(name),
+        "measured_gemm_bf16_flops": gemm,
+        "gemm_share_of_peak": gemm / peaks["bf16"] if gemm and peaks["bf16"] else None,
+        "mlp_ens8_forward_rows": TOOLING_FLOP_ROWS, "flop_counter": counted,
+        "analytic_2mnk": analytic,
+    }
+    log_timing("tooling flops", result["flops"])
+    return result
+
+
 def _ring_phases(burst_dir: Path, exact_dirs: dict) -> dict:
-    """Phases 29-37 and 39, in order: each needs only the bundles of
+    """Phases 29-37, 39 and 41, in order: each needs only the bundles of
     phases 16 and 22 (phase 37 its fixture, phase 39 nothing) and the
     card, and writes under its own work directory."""
     return {
@@ -8361,6 +8605,7 @@ def _ring_phases(burst_dir: Path, exact_dirs: dict) -> dict:
         "autotune": timed(phase_autotune, burst_dir),
         "gbm": timed(phase_gbm),
         "a11": timed(phase_a11),
+        "tooling": timed(phase_tooling, burst_dir),
     }
 
 
@@ -8369,7 +8614,7 @@ def _stop_on_sigterm(signum, frame):
 
 
 def ring_phases_main(spec_path: str, out_path: str) -> int:
-    """The second process: phases 29-37 and 39 on the bundles ``spec_path``
+    """The second process: phases 29-37, 39 and 41 on the bundles ``spec_path``
     names; their results go to ``out_path`` as JSON. SIGTERM fails the
     phase under way, so its planes are stopped on the way out."""
     signal.signal(signal.SIGTERM, _stop_on_sigterm)
@@ -8380,14 +8625,14 @@ def ring_phases_main(spec_path: str, out_path: str) -> int:
         results = _ring_phases(Path(spec["burst_dir"]),
                                {k: Path(v) for k, v in spec["exact_dirs"].items()})
     except SmokeFailure as err:
-        print(f"chip_smoke FAILED (phases 29-37, 39): {err}", file=sys.stderr, flush=True)
+        print(f"chip_smoke FAILED (phases 29-37, 39, 41): {err}", file=sys.stderr, flush=True)
         return 1
     Path(out_path).write_text(json.dumps(results, default=str))
     return 0
 
 
 class _RingSide:
-    """Phases 29-37 and 39 in a second process of this script, started beside
+    """Phases 29-37, 39 and 41 in a second process of this script, started beside
     phases 16-28; ``join`` returns their results, ``check`` fails the run
     as soon as that process failed, ``stop`` ends it and its planes."""
 
@@ -8400,17 +8645,17 @@ class _RingSide:
         self.proc = subprocess.Popen(
             [sys.executable, str(Path(__file__).resolve()), RING_PHASES_FLAG,
              str(spec), str(self.out)], cwd=ROOT)
-        log(f"phases 29-37 and 39 started in process {self.proc.pid}")
+        log(f"phases 29-37, 39 and 41 started in process {self.proc.pid}")
 
     def check(self) -> None:
         code = self.proc.poll()
-        check(code in (None, 0), f"phases 29-37, 39 failed (exit {code}; see above)")
+        check(code in (None, 0), f"phases 29-37, 39, 41 failed (exit {code}; see above)")
 
     def join(self) -> dict:
         t0 = time.perf_counter()
         code = self.proc.wait()
-        log(f"waited {time.perf_counter() - t0:.1f} s for phases 29-37 and 39")
-        check(code == 0, f"phases 29-37, 39 failed (exit {code}; see above)")
+        log(f"waited {time.perf_counter() - t0:.1f} s for phases 29-37, 39 and 41")
+        check(code == 0, f"phases 29-37, 39, 41 failed (exit {code}; see above)")
         return json.loads(self.out.read_text())
 
     def stop(self) -> None:
@@ -8484,9 +8729,11 @@ def main() -> int:
     finally:
         if side is not None:
             side.stop()
-    ring, lifecycle, ring_lifecycle, chaos, replicas, tenants, observability, autotune, gbm, a11 = (
+    (ring, lifecycle, ring_lifecycle, chaos, replicas, tenants, observability, autotune, gbm,
+     a11, tooling) = (
         ring_side[k] for k in ("ring", "lifecycle", "ring_lifecycle", "chaos", "replicas",
-                               "tenants", "observability", "autotune", "gbm", "a11"))
+                               "tenants", "observability", "autotune", "gbm", "a11",
+                               "tooling"))
     import torch
 
     from mlops_tpu_torch.ops import attention
@@ -8540,6 +8787,9 @@ def main() -> int:
                 "ring_quota": tenants["quota_launches"]},
             "observability_launches": observability["launches"],
             "autotune_launches": autotune["launches"],
+            # Phase 41: launches inside utils/debug.checked calls.
+            "tooling_checked_launches": sum(
+                row["quant_fused_launches"] for row in tooling["checked"]),
         }, {
             "name": "flash_attention",
             "route": "cuda",
@@ -8608,6 +8858,8 @@ def main() -> int:
         # no hand-written kernel either: NCCL calls in its graphs instead.
         "a11b_launches": a11b["launches"],
         "a11b": {k: v for k, v in a11b.items() if k != "launches"},
+        # Phase 41: the analyzer, checked and the card's peaks.
+        "tooling": tooling,
         "exact": {"parity": exact_parity, "serve": exact, "timing": exact_timing},
         "serving": {"dispatch_routes": routes, "burst": burst, "ring": ring},
         "lifecycle": {k: v for k, v in lifecycle.items() if k != "launches"},

@@ -100,6 +100,10 @@ def apply_plan(engine, buckets) -> int:
         )
     return engine.regrid(buckets, warmed)
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the controller's one leaf lock guards its snapshot and plan state.
+TPULINT_LOCK_ORDER = {"AutotuneController": ("_lock",)}
+
 
 class AutotuneController:
     """The periodic gridtuner loop — one per engine process, started
@@ -157,7 +161,7 @@ class AutotuneController:
         while not self._stop.wait(self.config.interval_s):
             try:
                 self.run_once()
-            except Exception:
+            except Exception:  # tpulint: disable=TPU201
                 # The LifecycleController contract: a failed tick (bad
                 # telemetry, a failed capture mid-warm, a promotion race)
                 # is counted and logged — the controller can never take

@@ -61,6 +61,12 @@
   slo.ledger_dir=<dir>`` ranks the cost ledger's entries by cost per row;
 - ``flightrec <dump.json>...``: render flight-recorder dumps as
   timelines (stderr) and one JSON summary line (exit 2 when none reads);
+- ``analyze [--strict] [--no-trace] [--numeric] [--concurrency]
+  [--contracts] [--async] [--list-suppressions] [--fail-stale]
+  [paths ...]``: tpulint over the port (``analysis/``; the JAX package's
+  flags and exit codes 0 / 1 / 2); handled before any config loading,
+  and with ``--no-trace`` without importing torch. Layer 2's fake
+  tensors and ``--numeric`` live on the card wherever there is one;
 - ``autotune slo.ledger_dir=<dir> [trace.dir=<dir>]``: the one-shot
   offline autotuner pass (torch-free): fit the per-entry cost model from
   the ledger shards, search bucket grids against the span history's
@@ -96,9 +102,8 @@ starts the other S - 1 itself (``serve/shards.py``).
 Every command takes ``--config <toml>``, ``MLOPS_TPU_<SECTION>_<FIELD>``
 environment overrides and positional ``section.field=value`` overrides,
 as the JAX package's CLI does (``serve.model_directory=<bundle>
-serve.port=5001 serve.device=cpu``); a key the port has not ported, set
-away from its JAX default (``MLOPS_TPU_SERVE_LOOP_LAG_MONITOR=true``),
-exits non-zero naming its ROADMAP item. A
+serve.port=5001 serve.device=cpu``); ``serve.loop_lag_monitor=true``
+arms the event-loop lag sanitizer on either plane. A
 ``gs://`` ``data.train_path`` or ``registry.root`` is read and written
 through ``utils/storage.py``, as in the JAX package.
 Every command runs on the card unless ``serve.device=cpu`` (serve,
@@ -250,6 +255,33 @@ def build_parser() -> argparse.ArgumentParser:
         help="render flight-recorder dumps (flightrec-*.json) as timelines",
     )
     flightrec.add_argument("paths", nargs="+", help="dump files to render")
+    # `analyze` takes paths and flags, not config overrides: static
+    # analysis runs identically with zero configuration.
+    analyze = sub.add_parser(
+        "analyze",
+        help="tpulint: static lint of the port (AST rules, fake-tensor "
+        "traces of the registered programs, concurrency, contracts, async)",
+    )
+    for flag, dest, text in (
+        ("--strict", None, "warnings gate the exit code too (the CI mode)"),
+        ("--no-trace", None, "skip the Layer-2 trace checks (no torch import)"),
+        ("--concurrency", None, "also run the Layer-3 concurrency rules (TPU401-404)"),
+        ("--contracts", None, "also run the Layer-4 cross-process contract rules "
+         "(TPU501-504)"),
+        ("--async", "async_rules", "also run the Layer-5 event-loop discipline "
+         "rules (TPU601-604)"),
+        ("--list-suppressions", None, "report every `# tpulint: disable` with its "
+         "live/stale status, then exit"),
+        ("--fail-stale", None, "stale suppressions become gating TPU400 findings"),
+        ("--numeric", None, "also run the numeric audit of the exact tier's packed "
+         "programs under utils/debug.checked (executes, on the card if there is one)"),
+    ):
+        analyze.add_argument(flag, action="store_true", help=text,
+                             **({"dest": dest} if dest else {}))
+    analyze.add_argument(
+        "paths", nargs="*",
+        help="files/directories to lint (default: the mlops_tpu_torch package)",
+    )
     return parser
 
 
@@ -581,6 +613,11 @@ def main(argv: list[str] | None = None) -> int:
     from mlops_tpu_torch.config import load_config
 
     args = build_parser().parse_args(argv)
+    if args.command == "analyze":
+        # Static analysis before any config loading or torch import.
+        from mlops_tpu_torch.analysis.cli import run_analyze
+
+        return run_analyze(args)
     if args.command == "flightrec":
         return _flightrec(args.paths)
     handlers = {
@@ -621,7 +658,7 @@ def main(argv: list[str] | None = None) -> int:
         overrides.append(f"trace.replica={args.replica}")
     try:
         config = load_config(overrides, args.config)
-    except ValueError as err:  # a refused key: its message, no traceback
+    except ValueError as err:  # a malformed value: its message, no traceback
         raise SystemExit(str(err)) from err
     return handlers[args.command](config)
 

@@ -242,7 +242,7 @@ def _warm_cache(config: Config) -> dict:
         bundle_dir = resolve_bundle(config, model_dir)
     # No bundle anywhere (an image built before training): every library
     # is built, and said so, as the JAX package's config-mode warmup does.
-    except Exception as err:
+    except Exception as err:  # tpulint: disable=TPU201
         print(f"warmup: no bundle at {model_dir!r} ({err}); building every "
               f"kernel library ({', '.join(libraries())})", file=sys.stderr)
         bundle_dir = None

@@ -1,5 +1,4 @@
-"""Configuration: the JAX package's config tree, with what the port
-has not ported held at its JAX default.
+"""Configuration: the JAX package's config tree.
 
 ``ModelConfig`` and ``TrainConfig`` are copies of the JAX dataclasses,
 field for field with their defaults, so a bundle manifest's
@@ -21,11 +20,9 @@ the warm start (``cache.dir``: the kernel libraries' cache,
 ``compilecache/``).
 
 ``autotune`` is the JAX package's section, field for field with its
-``validate`` (the traffic-shape autotuner, ``autotune/``). The two keys
-of the JAX ``ServeConfig`` for the event-loop lag sanitizer (ROADMAP A12)
-are here too, declared with ``unported``: such a key is accepted at its
-JAX default, where it changes nothing; any other value is refused with a
-``ValueError`` naming the item, whichever layer sets it.
+``validate`` (the traffic-shape autotuner, ``autotune/``).
+``serve.loop_lag_monitor`` arms the event-loop lag sanitizer
+(``analysis/loopcheck.py``) on either serving plane.
 
 ``load_config`` builds the tree as the JAX package's does: defaults <-
 TOML (``--config <file>``) <- ``MLOPS_TPU_<SECTION>_<FIELD>``
@@ -47,19 +44,9 @@ from pathlib import Path
 from typing import Any
 
 
-# What each item the refusals name still has to port.
-_ITEMS = {
-    "A12": "tooling: the event-loop lag sanitizer and the analysis commands",
-}
-
-
-def unported(default: Any, item: str, accept: tuple = ()) -> Any:
-    """A field the JAX package has and this package has not ported:
-    accepted at ``default`` (and at any value in ``accept``), refused at
-    any other value naming ROADMAP ``item``."""
-    return dataclasses.field(
-        default=default, metadata={"unported": item, "accept": (default, *accept)}
-    )
+# tpulint Layer-4 manifest (analysis/contracts.py TPU503): every
+# ``*Config`` field here must be read outside this module.
+TPULINT_CONFIG_MODULE = True
 
 
 @dataclasses.dataclass
@@ -249,8 +236,11 @@ class ServeConfig:
     # moves that tenant's small requests
     tenants_path: str = ""  # a tenants.toml (serve --tenants): N tenants
     # served from one plane, routed by the x-tenant header
-    loop_lag_monitor: bool = unported(False, "A12")
-    loop_lag_slow_ms: float = unported(100.0, "A12")
+    loop_lag_monitor: bool = False  # arm the LoopLagSanitizer
+    # (analysis/loopcheck.py) on every serving event loop: per-callback
+    # wall time, drained into the mlops_tpu_event_loop_lag_ms gauge
+    loop_lag_slow_ms: float = 100.0  # callbacks at or above this are
+    # kept for the slow-callback report; read with loop_lag_monitor=true
 
     def validate(self) -> "ServeConfig":
         """Reject an inconsistent geometry with the JAX package's messages,
@@ -379,6 +369,12 @@ class ServeConfig:
                 f"serve.log_sample_rate={self.log_sample_rate} must be in "
                 "(0, 1] (0 would silence even the always-logged errors' "
                 "InferenceData events; sample DOWN, never off)"
+            )
+        if self.loop_lag_slow_ms <= 0:
+            problems.append(
+                f"serve.loop_lag_slow_ms={self.loop_lag_slow_ms} must be "
+                "> 0 (0 would record every callback as slow, unbounded "
+                "attribution overhead)"
             )
         if problems:
             raise ServeConfigError("; ".join(problems))
@@ -885,18 +881,6 @@ def _coerce(owner: type, field: str, current: Any, raw: str) -> Any:
     return raw
 
 
-def _refuse_unported(owner: type, section: str, field: str, value: Any) -> None:
-    meta = next(f.metadata for f in dataclasses.fields(owner) if f.name == field)
-    if "unported" in meta and value not in meta["accept"]:
-        item = meta["unported"]
-        accepted = " or ".join(repr(v) for v in meta["accept"])
-        raise ValueError(
-            f"{section}.{field}={value!r} refused: this package has not ported "
-            f"it (ROADMAP {item}: {_ITEMS[item]}); it accepts {accepted}, the "
-            "JAX package's value that changes nothing"
-        )
-
-
 def _apply(config: Config, section: str, field: str, value: Any) -> None:
     sub = getattr(config, section, None)
     if sub is None or not hasattr(sub, field):
@@ -908,9 +892,6 @@ def _apply(config: Config, section: str, field: str, value: Any) -> None:
         value = tuple(value)
     elif isinstance(current, float) and isinstance(value, int):
         value = float(value)
-    # Not a KeyError: the environment layer turns those into warnings,
-    # and a refusal must stop the run whichever layer set the key.
-    _refuse_unported(type(sub), section, field, value)
     setattr(sub, field, value)
 
 
@@ -922,8 +903,7 @@ def load_config(
     """Defaults <- TOML (``toml_path``) <- ``MLOPS_TPU_<SECTION>_<FIELD>``
     in ``env`` (``os.environ`` when None) <- ``section.field=value``
     overrides. An unknown key raises, except in the environment, where
-    it warns as in the JAX package; an unported key at a value other
-    than its default raises ``ValueError``."""
+    it warns as in the JAX package."""
     config = Config()
     if toml_path:
         with open(toml_path, "rb") as f:

@@ -200,7 +200,10 @@ __device__ void student_row(
   float proj = 0.f;
 #pragma unroll
   for (int k = 0; k < M; ++k) proj = fmaf(cen[k], pc[k], proj);
-  const float logit = warp_sum(fmaxf(acc, 0.f) * w2) + b2[0];
+  // ReLU that keeps a NaN, as the reference's maximum(h, 0) does (fmaxf
+  // alone returns 0 for it and would hide a non-finite record).
+  const float hid = isnan(acc) ? acc : fmaxf(acc, 0.f);
+  const float logit = warp_sum(hid * w2) + b2[0];
   const float d2 = warp_sum(lane < M ? proj * cen[lane] : 0.f);
   if (lane == 0) {
     preds[row] = 1.0f / (1.0f + expf(-(logit / temperature[0])));

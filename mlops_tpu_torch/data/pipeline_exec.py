@@ -37,58 +37,18 @@ state rides the internally locked queues and one ``threading.Event``.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import queue
 import threading
 import time
 from typing import Any, Callable, Iterable
 
+from mlops_tpu_torch.utils.timing import StageClock
+
 # How long the caller waits for workers to drain after the last sentinel
 # before declaring the executor wedged. Drain is bounded by the in-flight
 # item count, not the dataset.
 _JOIN_TIMEOUT_S = 60.0
-
-
-class StageClock:
-    """Per-stage busy-time accumulator. Each worker wraps its unit of work
-    in ``with clock.stage(name): ...``; ``report(wall_s)`` returns
-    ``{stage: {busy_s, items, occupancy}}``, ``occupancy`` being the
-    fraction of the pipeline's wall clock the stage spent busy.
-    ``sink(name, start_perf_counter, elapsed_s, items)``, when given, is
-    called outside the lock for every completed stage execution."""
-
-    def __init__(self, sink: Callable | None = None) -> None:
-        self._lock = threading.Lock()
-        self._busy: dict[str, float] = {}
-        self._items: dict[str, int] = {}
-        self._sink = sink
-
-    @contextlib.contextmanager
-    def stage(self, name: str, items: int = 1):
-        start = time.perf_counter()
-        try:
-            yield
-        finally:
-            elapsed = time.perf_counter() - start
-            with self._lock:
-                self._busy[name] = self._busy.get(name, 0.0) + elapsed
-                self._items[name] = self._items.get(name, 0) + items
-            if self._sink is not None:
-                self._sink(name, start, elapsed, items)
-
-    def report(self, wall_s: float) -> dict[str, dict[str, float]]:
-        with self._lock:
-            return {
-                name: {
-                    "busy_s": round(busy, 4),
-                    "items": self._items[name],
-                    "occupancy": (
-                        round(busy / wall_s, 4) if wall_s > 0 else 0.0
-                    ),
-                }
-                for name, busy in self._busy.items()
-            }
 
 
 @dataclasses.dataclass(frozen=True)
@@ -237,7 +197,7 @@ def _run_threaded(
                     sink(item)
                 count += 1
             # Captured, forwarded, and re-raised after the drain.
-            except BaseException as exc:
+            except BaseException as exc:  # tpulint: disable=TPU201
                 stop.set()
                 failures.append(_Failure(sink_name, exc))
     finally:
@@ -264,7 +224,7 @@ def _pump_source(source, out, stop, clock, name) -> None:
                 break
             out.put(item)
     # Captured as a _Failure and re-raised by the caller.
-    except BaseException as exc:
+    except BaseException as exc:  # tpulint: disable=TPU201
         stop.set()
         out.put(_Failure(name, exc))
     finally:
@@ -294,7 +254,7 @@ def _run_stage(stage: Stage, inq, outq, stop, clock) -> None:
                         out = stage.fn(item)
                     outq.put(out)
             # Captured as a _Failure and re-raised by the caller.
-            except BaseException as exc:
+            except BaseException as exc:  # tpulint: disable=TPU201
                 stop.set()
                 outq.put(_Failure(stage.name, exc))
                 draining = True
@@ -327,7 +287,7 @@ def _run_batch(stage: Stage, first, inq, outq, stop, clock) -> bool:
         with clock.stage(stage.name, items=len(batch)):
             outs = stage.fn(batch)
     # Captured as a _Failure and re-raised by the caller.
-    except BaseException as exc:
+    except BaseException as exc:  # tpulint: disable=TPU201
         stop.set()
         outq.put(_Failure(stage.name, exc))
         outs = []

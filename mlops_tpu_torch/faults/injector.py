@@ -119,6 +119,10 @@ def _decision_hash(seed: int, rule_point: str, point: str, hit: int) -> int:
     digest = blake2b(f"{seed}:{rule_point}:{point}:{hit}".encode(), digest_size=8).digest()
     return int.from_bytes(digest, "little")
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the plan's one leaf lock guards its hit counters and seeded draws.
+TPULINT_LOCK_ORDER = {"FaultPlan": ("_lock",)}
+
 
 class FaultPlan:
     """Rules, the per-point hit counters and the recorded trace. One leaf

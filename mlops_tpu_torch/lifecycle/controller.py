@@ -58,6 +58,10 @@ logger = logging.getLogger("mlops_tpu_torch.lifecycle")
 
 _TEE_QUEUE_SLOTS = 256  # bounded hot-path -> controller handoff
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the controller's one leaf lock guards its state machine's snapshot.
+TPULINT_LOCK_ORDER = {"LifecycleController": ("_lock",)}
+
 
 class LifecycleController:
     def __init__(
@@ -127,7 +131,7 @@ class LifecycleController:
         except queue.Full:
             with self._lock:
                 self._tee_drops += 1
-        except Exception:
+        except Exception:  # tpulint: disable=TPU201
             # Defensive breadth IS the contract at this boundary: any
             # unexpected failure (shutdown race, dtype surprise) must
             # cost one observation, never a request.
@@ -165,7 +169,7 @@ class LifecycleController:
             # (where run_once would no-op forever and the loop silently
             # dies) — and keep serving; the controller can never take the
             # engine down with it.
-            except Exception as err:
+            except Exception as err:  # tpulint: disable=TPU201
                 logger.exception("lifecycle tick failed")
                 with self._lock:
                     self._last_error = f"{type(err).__name__}: {err}"
@@ -210,7 +214,7 @@ class LifecycleController:
                     shadow.mirror(cat, num)
                 # A mirror failure is shadow evidence lost, never an
                 # outage: count it and keep draining.
-                except Exception:
+                except Exception:  # tpulint: disable=TPU201
                     logger.exception("shadow mirror dispatch failed")
                     shadow.note_drop()
 
@@ -314,7 +318,7 @@ class LifecycleController:
         # dir, a compile failure) must log + cool down + return to idle,
         # never strand the state machine in 'retraining' while the
         # server keeps serving.
-        except Exception as err:
+        except Exception as err:  # tpulint: disable=TPU201
             logger.exception("retrain/shadow-warm failed; cooling down")
             with self._lock:
                 self._state = "idle"
@@ -363,7 +367,7 @@ class LifecycleController:
         # An evaluation that cannot complete (device error mid-holdout)
         # would otherwise retry-fail every tick forever: discard the
         # candidate, cool down, return to idle.
-        except Exception as err:
+        except Exception as err:  # tpulint: disable=TPU201
             logger.exception("shadow evaluation failed; candidate dropped")
             with self._lock:
                 self._last_error = f"{type(err).__name__}: {err}"

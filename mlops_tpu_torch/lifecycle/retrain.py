@@ -49,6 +49,10 @@ class LifecycleError(RuntimeError):
     small, flavor mismatch) — named so the controller can log-and-cool
     instead of crashing the serve process."""
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the reservoir's one leaf lock guards its rows and counters.
+TPULINT_LOCK_ORDER = {"SampleReservoir": ("_lock",)}
+
 
 class SampleReservoir:
     """Bounded uniform sample of encoded serving rows (algorithm R).

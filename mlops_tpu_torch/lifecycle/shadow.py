@@ -40,6 +40,7 @@ from typing import Any
 import numpy as np
 
 from mlops_tpu_torch.serve.engine import InferenceEngine
+from mlops_tpu_torch.utils.timing import interpolated_percentile
 
 _LATENCY_WINDOW = 512  # mirrored-latency samples retained per side
 
@@ -63,6 +64,10 @@ class ShadowReport:
     holdout_rows: int
     warm_mode: str
     warm_s: float
+
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the shadow's one leaf lock guards its running comparison stats.
+TPULINT_LOCK_ORDER = {"ShadowEngine": ("_stats_lock",)}
 
 
 class ShadowEngine:
@@ -195,10 +200,10 @@ class ShadowEngine:
             auc_delta=auc_c - auc_i,
             ece_candidate=expected_calibration_error(cand, labels),
             ece_incumbent=expected_calibration_error(inc, labels),
-            p99_candidate_ms=_percentile(mirror_cand, 99),
-            p99_incumbent_ms=_percentile(mirror_inc, 99),
-            p50_candidate_ms=_percentile(mirror_cand, 50),
-            p50_incumbent_ms=_percentile(mirror_inc, 50),
+            p99_candidate_ms=interpolated_percentile(mirror_cand, 99),
+            p99_incumbent_ms=interpolated_percentile(mirror_inc, 99),
+            p50_candidate_ms=interpolated_percentile(mirror_cand, 50),
+            p50_incumbent_ms=interpolated_percentile(mirror_inc, 50),
             mirrors=mirrors,
             mirror_drops=drops,
             mean_abs_pred_delta=(
@@ -208,9 +213,3 @@ class ShadowEngine:
             warm_mode=self.warm_mode,
             warm_s=self.warm_s,
         )
-
-
-def _percentile(samples, q: float) -> float:
-    if not samples:
-        return 0.0
-    return float(np.percentile(np.asarray(samples, np.float64), q))

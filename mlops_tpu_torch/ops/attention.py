@@ -51,9 +51,9 @@ FLASH_MIN_SEQ = 128
 KERNEL_HEAD_DIMS = (8, 16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-flash_kernel_launches = LaunchCounter()
-flash_bwd_dq_launches = LaunchCounter()
-flash_bwd_dkv_launches = LaunchCounter()
+flash_kernel_launches = LaunchCounter("flash_attention")
+flash_bwd_dq_launches = LaunchCounter("flash_attention_bwd_dq")
+flash_bwd_dkv_launches = LaunchCounter("flash_attention_bwd_dkv")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -278,7 +278,7 @@ def launch(
         )
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: cudaError {err}")
-    flash_kernel_launches.add()
+    flash_kernel_launches.add(outputs=(out, lse), inputs=(q, k, v))
 
 
 def flash_bwd_dq_cuda(
@@ -343,7 +343,7 @@ def launch_dq(q, k, v, do, lse, delta, dq, scale: float | None = None) -> None:
         )
     if err != 0:
         raise RuntimeError(f"flash backward dq kernel launch failed: cudaError {err}")
-    flash_bwd_dq_launches.add()
+    flash_bwd_dq_launches.add(outputs=(dq,), inputs=(q, k, v, do, lse, delta))
 
 
 def launch_dkv(q, k, v, do, lse, delta, dk, dv, scale: float | None = None) -> None:
@@ -358,7 +358,7 @@ def launch_dkv(q, k, v, do, lse, delta, dk, dv, scale: float | None = None) -> N
         )
     if err != 0:
         raise RuntimeError(f"flash backward dk/dv kernel launch failed: cudaError {err}")
-    flash_bwd_dkv_launches.add()
+    flash_bwd_dkv_launches.add(outputs=(dk, dv), inputs=(q, k, v, do, lse, delta))
 
 
 def flash_backward_cuda(

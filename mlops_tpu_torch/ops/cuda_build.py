@@ -17,11 +17,13 @@ rename) drive both paths. Nothing here builds at import time.
 Beside ``build_shared_library``: ``KernelLibrary`` (one source's
 library, built and bound at first use) and ``LaunchCounter`` (the count
 each kernel wrapper bumps where it launches; ``LAUNCH_COUNTERS`` lists
-them all).
+them all). ``kernel_output_observer`` hands each launch's outputs to a
+checker on the launching thread (``utils/debug.checked``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import hashlib
@@ -165,6 +167,10 @@ def build_shared_library(source: Path, name: str) -> BuildResult:
 # them (what ``warmup`` builds without a bundle).
 KERNEL_LIBRARIES: list["KernelLibrary"] = []
 
+# tpulint Layer-3 manifest: each library's lock guards its one build
+# and load; each counter's guards its integer. Both are leaves.
+TPULINT_LOCK_ORDER = {"KernelLibrary": ("_lock",), "LaunchCounter": ("_lock",)}
+
 
 class KernelLibrary:
     """One kernel source's shared library: built (first use only), loaded
@@ -198,6 +204,22 @@ class KernelLibrary:
 # kernels (the CUDA graphs of ``serve/graphs.py``).
 LAUNCH_COUNTERS: list["LaunchCounter"] = []
 
+# The launching thread's observer of kernel outputs, if any.
+_OBSERVER = threading.local()
+
+
+@contextlib.contextmanager
+def kernel_output_observer(observe: Callable[[str, tuple, tuple], None]):
+    """Within the block, each kernel launch this thread makes outside a
+    graph capture calls ``observe(kernel name, output tensors, operand
+    tensors)`` after it was enqueued."""
+    previous = getattr(_OBSERVER, "fn", None)
+    _OBSERVER.fn = observe
+    try:
+        yield
+    finally:
+        _OBSERVER.fn = previous
+
 
 class LaunchCounter:
     """How many times a kernel was launched: a plain integer the wrapper
@@ -208,7 +230,8 @@ class LaunchCounter:
     ``captured`` instead, and each replay of the graph adds it
     (``serve/graphs.py``)."""
 
-    def __init__(self) -> None:
+    def __init__(self, name: str = "") -> None:
+        self.name = name
         self._lock = threading.Lock()
         self._local = threading.local()
         self.value = 0
@@ -219,7 +242,10 @@ class LaunchCounter:
         """Launches this thread has recorded into CUDA graphs."""
         return getattr(self._local, "captured", 0)
 
-    def add(self, n: int = 1) -> None:
+    def add(self, n: int = 1, outputs: tuple = (), inputs: tuple = ()) -> None:
+        """Count ``n`` launches; ``outputs``, the tensors the launch
+        writes, and ``inputs``, those it reads, go to the thread's
+        ``kernel_output_observer``."""
         import torch
 
         if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
@@ -227,6 +253,9 @@ class LaunchCounter:
             return
         with self._lock:
             self.value += n
+        observe = getattr(_OBSERVER, "fn", None)
+        if observe is not None and outputs:
+            observe(self.name, outputs, inputs)
 
     def reset(self) -> None:
         with self._lock:

@@ -63,7 +63,7 @@ GBM_FORMAT = "gbm-gather-v1"
 
 # Replays of the gbm tier's CUDA graphs (``serve/graphs.py``): the count
 # that shows a dispatch on the card ran a captured tree program.
-gbm_graph_replays = LaunchCounter()
+gbm_graph_replays = LaunchCounter("gbm_graph")
 
 # Raw category ids the table covers: HistGBM bins categories into
 # [0, 255], so any raw value outside it is unknown -> the missing side.

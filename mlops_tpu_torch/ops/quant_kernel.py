@@ -71,7 +71,7 @@ _GROUP_EXTRA = _K + 1
 _SORT_CHUNK = 4096
 
 
-quant_kernel_launches = LaunchCounter()
+quant_kernel_launches = LaunchCounter("quant_fused")
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -245,7 +245,9 @@ def fused_core_cuda(
     )
     if err != 0:
         raise RuntimeError(f"quant_fused kernel launch failed: cudaError {err}")
-    quant_kernel_launches.add()
+    quant_kernel_launches.add(outputs=(preds, flags, counts, ks), inputs=(
+        embed, w1_s, b1, w2_s, b2, ref_sorted, ref_cdf, mean, precision, threshold,
+        temperature, numeric))
     return preds, flags, counts, ks
 
 

@@ -42,7 +42,7 @@ import torch.distributed as dist
 from mlops_tpu_torch.ops.cuda_build import LaunchCounter
 from mlops_tpu_torch.parallel.mesh import Mesh
 
-COLLECTIVE_CALLS = LaunchCounter()
+COLLECTIVE_CALLS = LaunchCounter("nccl_collective")
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:

@@ -158,6 +158,11 @@ class MeshOutOfStep(RuntimeError):
     next ones would pair the wrong partial sums. The engine cannot serve
     again; its replica restarts (a follower exits, which ends the lead)."""
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the mesh's ``lock`` orders every announced operation across the
+# engines on the mesh (it is each engine's ``_acc_lock``); a leaf here.
+TPULINT_LOCK_ORDER = {"ServeMesh": ("lock",)}
+
 
 class ServeMesh(Mesh):
     """The ('model',) mesh of one sharded serving engine: ranks ``0..S-1``

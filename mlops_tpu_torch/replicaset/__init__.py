@@ -6,7 +6,8 @@ the transport half is the per-replica queues, doorbells and stats rows of
 ``serve/ipc.py``; the process half is the supervisor forking E engine
 children in ``serve/frontend.py``. The JAX package's in-process
 simulation harness (``replicaset/sim.py``, its bench's scaling stage) is
-not ported (ROADMAP A12).
+not ported: it belongs with the JAX ``bench``, to the port's benchmark,
+which is not written yet (ROADMAP A).
 
 Torch-free: front ends import the router; nothing here touches a device.
 """

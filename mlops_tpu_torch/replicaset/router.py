@@ -34,6 +34,10 @@ from typing import Any
 # imports it.
 _SMALL = 0
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# ReplicaRouter is lockless (event-loop confined or immutable after build).
+TPULINT_LOCK_ORDER: dict[str, tuple[str, ...]] = {"ReplicaRouter": ()}
+
 
 class ReplicaRouter:
     def __init__(self, ring: Any, affinity_slack: int = 4) -> None:

@@ -36,6 +36,13 @@ from mlops_tpu_torch.serve.wire import (
 # None, trace span or None, routed tier or None).
 _Entry = tuple[list[dict], asyncio.Future, "float | None", Any, "str | None"]
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# ``_inflight`` (the dispatch bound) may be held while a fetch-ring
+# permit is taken, never the reverse; ``_inflight`` is acquired by the
+# dispatching coroutine and released by the fetch's completion.
+TPULINT_LOCK_ORDER = {"MicroBatcher": ("_inflight", "_fetch_ring")}
+TPULINT_CROSS_METHOD_SEMAPHORES = {"MicroBatcher": ("_inflight",)}
+
 
 class MicroBatcher:
     """One drain loop and overlapped dispatches. One background task owns
@@ -328,7 +335,7 @@ class MicroBatcher:
                     span.stamp("device_fetch")
         # Whatever the dispatch raised (device error, encode bug) goes to
         # every waiter's future, where the handler answers 500.
-        except Exception as err:
+        except Exception as err:  # tpulint: disable=TPU201
             for _, future, _, _, _ in batch:
                 if not future.done():
                     future.set_exception(err)

@@ -156,6 +156,16 @@ def _entry_name(base: str, tier: str, gen: "_Generation") -> str:
     return base if tier == gen.default_tier else f"{base}@{tier}"
 
 
+
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source;
+# analysis/lockcheck.py asserts it on live schedules in the tests).
+# ``_acc_lock`` (the device lock: uploads, replays, captures, swaps; a
+# sharded engine's is its mesh's) may be held while ``_totals_lock`` is
+# taken, never the reverse: the host totals' lock is a leaf, so no
+# device work ever waits behind a totals read.
+TPULINT_LOCK_ORDER = {"InferenceEngine": ("_acc_lock", "_totals_lock")}
+
+
 @dataclasses.dataclass(frozen=True)
 class _Tier:
     """One servable tier: its committed params and temperature on the
@@ -654,7 +664,9 @@ class InferenceEngine:
             elif run:
                 with self._on_stream():
                     self._warm_pass(gen, tier, lead, scratch)
-        except Exception as err:
+        # Held until every rank of a mesh agreed on the outcome, then
+        # re-raised below (a capture or warm failure of any kind).
+        except Exception as err:  # tpulint: disable=TPU201,TPU405
             failed = err
         if self._mesh is not None:
             issued = COLLECTIVE_CALLS.value - issued
@@ -1436,11 +1448,12 @@ class InferenceEngine:
         """Start the host totals from a predecessor's last published
         aggregate (the ring plane's respawned engine process), so the
         exported counters stay monotone across engine processes."""
+        drift_sum = np.array(drift_sum, np.float64)
+        drift_last = np.array(drift_last, np.float64)
         with self._totals_lock:
             self._totals.update(
                 rows=float(rows), outliers=float(outliers), batches=float(batches),
-                drift_sum=np.asarray(drift_sum, np.float64).copy(),
-                drift_last=np.asarray(drift_last, np.float64).copy(),
+                drift_sum=drift_sum, drift_last=drift_last,
             )
 
     def _fold_back(self, window: torch.Tensor) -> None:
@@ -1487,7 +1500,7 @@ class InferenceEngine:
                     self._ready_one(gen, tier, lead, self._scratch, run)
                 except MeshOutOfStep:
                     raise
-                except Exception:
+                except Exception:  # tpulint: disable=TPU201,TPU405
                     # Every rank agreed the shape is not ready: the lead
                     # raises or degrades, and announces what it runs instead.
                     logger.warning("follower: readying %s %s failed", tier, lead,

@@ -147,6 +147,13 @@ _SUPERVISE_TICK_S = 0.25
 _PROFILE_ACK_S = 10.0
 
 
+# tpulint Layer-5 manifest: each front-end process is one asyncio loop;
+# FrontendServer's mutable state and the ring client's doorbell path are
+# EVENT-LOOP CONFINED: blocking work (encode, flight-recorder dumps,
+# anomaly scans) goes through run_in_executor, never the loop thread.
+TPULINT_LOOP_CONFINED = ("FrontendServer", "RingClient.on_doorbell")
+
+
 def reuseport_socket(host: str, port: int) -> socket.socket:
     """A bound (not listening) TCP socket with ``SO_REUSEPORT``: every
     front end binds its own and the kernel spreads connections over the
@@ -451,7 +458,7 @@ class FrontendServer(HttpProtocol):
             return response
         # Request boundary: any failure is a logged 500, never a dropped
         # connection or a leaked slot.
-        except Exception:
+        except Exception:  # tpulint: disable=TPU201
             logger.exception("prediction failed request_id=%s", request_id)
             if slot is not None:
                 (self.client.abandon if submitted else self.client.release)(slot)
@@ -500,6 +507,16 @@ async def _run_frontend(worker_id: int, config: ServeConfig, ring: RequestRing,
     logger.info("frontend %d serving %s on %s:%s (pid %d)", worker_id,
                 config.service_name, config.host, config.port, os.getpid())
     loop = asyncio.get_running_loop()
+    if config.loop_lag_monitor:
+        # The runtime half of the Layer-5 discipline, per worker: the
+        # watchdog drains each window max into this worker's shm cell, so
+        # any worker's scrape renders every front end's lag.
+        from mlops_tpu_torch.analysis.loopcheck import LoopLagSanitizer
+
+        server.loop_monitor = LoopLagSanitizer(slow_ms=config.loop_lag_slow_ms)
+        server.loop_monitor.attach(loop)
+        logger.info("frontend %d: loop-lag sanitizer armed (slow_ms=%g)",
+                    worker_id, config.loop_lag_slow_ms)
     draining = asyncio.Event()
 
     def _drain() -> None:
@@ -544,6 +561,10 @@ async def _run_frontend(worker_id: int, config: ServeConfig, ring: RequestRing,
                      "alerts": _alert_flags() if ring.slo_armed else {}}
         while not draining.is_set():
             await asyncio.sleep(0.5)
+            if server.loop_monitor is not None:
+                # This worker's worst callback over the last watchdog
+                # window, into its own cell (0.0: the loop stayed smooth).
+                server.metrics.set_loop_lag(server.loop_monitor.snapshot_ms())
             if server.flightrec is not None:
                 # A triggered dump writes a file: off the event loop.
                 await loop.run_in_executor(None, _watch_anomalies, anomalies)
@@ -571,6 +592,9 @@ async def _run_frontend(worker_id: int, config: ServeConfig, ring: RequestRing,
         # A clean drain writes nothing; one during an incident keeps the
         # evidence.
         await loop.run_in_executor(None, server.flightrec.dump_if_evidence, "sigterm")
+    if server.loop_monitor is not None:
+        server.loop_monitor.detach()
+        server.loop_monitor = None
     logger.info("frontend %d drained; exiting", worker_id)
 
 

@@ -53,6 +53,24 @@ from mlops_tpu_torch.schema.features import SCHEMA
 _C = SCHEMA.num_categorical
 _M = SCHEMA.num_numeric
 
+# tpulint (analysis/astrules.py), read from this source and never
+# imported. The factories whose returned programs run inside a capture
+# (``capture`` here, the engine's warmup): Layer 1's captured scope.
+TPULINT_CAPTURED = (
+    "ops/predict.py::make_packed_predict_base",
+    "ops/predict.py::make_packed_grouped_base",
+    "ops/quant_kernel.py::make_quant_packed_base",
+    "ops/quant_kernel.py::make_quant_grouped_base",
+    "ops/gbm_tensor.py::make_gbm_packed_base",
+    "ops/gbm_tensor.py::make_gbm_grouped_base",
+    "parallel/bulk.py::make_bulk_fused",
+    "parallel/bulk.py::make_bulk_quant_fused",
+)
+# The factories under serve/ and parallel/ whose program sites go through
+# this module and ops/cuda_build.py (TPU203's routing): the bulk chunk
+# scorer dispatches the programs above.
+TPULINT_ROUTED_FACTORIES = ("make_chunk_scorer",)
+
 
 def input_nbytes(lead: tuple[int, ...]) -> int:
     """Bytes of one packed batch of ``lead`` rows (``(B,)`` solo, ``(S,

@@ -132,6 +132,11 @@ class HttpProtocol:
         self.trace_plane = "single"
         self.trace_worker = 0
         self.flightrec: Any = None
+        # The loop-lag sanitizer (``analysis/loopcheck.py``), armed by the
+        # plane's runner when ``serve.loop_lag_monitor`` is on, else None;
+        # its window max is drained into mlops_tpu_event_loop_lag_ms on
+        # each scrape (single plane) or watchdog pass (ring plane).
+        self.loop_monitor: Any = None
 
     # ------------------------------------------------------ subclass hooks
     async def _score(self, records: list[dict], request_id: str,

@@ -172,6 +172,196 @@ CTL_DRAINING, CTL_TRACING, CTL_SLO = 1, 2, 3
 PROFILE_ACTIONS = {"start": 1, "stop": 2}
 
 
+# Declared lock order, OUTERMOST FIRST — the single source of truth for
+# both halves of tpulint Layer 3 (static: analysis/concurrency.py TPU401;
+# runtime: analysis/lockcheck.py in the perturbed stress tests).
+#
+# RequestRing._submit_locks[r] and ._complete_locks[r] are the
+# cross-process locks (one per descriptor queue's head index, PER ENGINE
+# REPLICA r). Beyond mutual exclusion they order the producers' stores:
+# plain numpy stores alone would only be ordered under x86 TSO, and a
+# weakly-ordered CPU (aarch64) could otherwise observe a head bump
+# before the slab bytes it advertises. BOTH consumers are LOCK-FREE and
+# credit-fenced instead (`Doorbell.ring(count)` / credit-limited
+# `pop_submissions` / `pop_completions`): only front ends ever acquire
+# a ``_submit_locks`` entry and only replica r's engine threads ever
+# acquire ``_complete_locks[r]``, so a kill -9 on either side can never
+# orphan a lock any OTHER process needs (engine-replica
+# death must be a 1/E brownout, not a wedge; the one residual case, a
+# dead replica's own completion lock, is recovered by its serialized
+# successor in `recover_engine_locks` — the supervisor runs at most one
+# incarnation of each replica, and no replica ever takes another
+# replica's lock). All queue locks are leaves — nothing is ever
+# acquired under them, and none is held across slab writes, doorbells,
+# or blocking work. (The per-replica lists are invisible to the static
+# TPU401 walk — subscripted locks have no lexical attribute name — so
+# the runtime sanitizer in tests/test_torch_tooling.py wraps each list
+# entry explicitly under the names declared here.)
+#
+# RingService: ``_inflight`` is the dispatch bound, acquired by the
+# collector thread and released by the pool thread that finishes the job
+# — a cross-method/cross-thread pair exactly like the micro-batcher's
+# (declared below for TPU404). ``_mon_lock`` guards the host-side monitor
+# fold for engines without a device accumulator; a leaf. The only nesting
+# anywhere is (conceptually) holding an ``_inflight`` permit while taking
+# a leaf, which the declared order permits.
+TPULINT_LOCK_ORDER = {
+    # _profile_lock: serializes the /debug/profile claim-LEASE word's
+    # read-check-write only (front ends only — never an engine, never
+    # the request hot path, never held across the ack poll: channel
+    # ownership itself is the shm lease, which expires if its claimant
+    # dies); a leaf like the queue locks (nothing is ever acquired under
+    # it, and it is never taken while a queue lock is held).
+    # _submit_locks/_complete_locks are PER-REPLICA lists; every entry
+    # carries its list's name for order purposes (all leaves anyway).
+    "RequestRing": ("_submit_locks", "_complete_locks", "_profile_lock"),
+    "RingService": ("_inflight", "_mon_lock"),
+}
+TPULINT_CROSS_METHOD_SEMAPHORES = {"RingService": ("_inflight",)}
+
+# ---------------------------------------------------------------------------
+# Layer-4 shm ownership manifest (tpulint TPU501, `analysis/contracts.py`).
+#
+# Every field of the plan below has exactly one writer ROLE — that is the
+# whole crash-survivability argument: a reader never needs a lock against
+# a writer it doesn't share a process with, and a dead process can only
+# have torn state the ownership map says it was allowed to tear. The
+# analyzer classifies every cell-write (`...ring.field[i] = / +=`) by the
+# enclosing class/method's role and gates CI on writes from anyone else.
+# A tuple value is a DECLARED handoff: each listed role writes the field
+# at a distinct protocol phase (e.g. `ctl`: the supervisor arms draining
+# and SLO words, front ends stamp trace arming), which is single-writer
+# per word even though the block is shared.
+TPULINT_SHM_OWNERSHIP = {
+    # control + profile lease
+    "ctl": ("supervisor", "frontend-worker"),
+    "prof_ctl": ("frontend-worker", "engine-replica"),
+    "prof_claim": "frontend-worker",
+    # replica liveness (replica stamps ready/incarnation; the supervisor
+    # clears it when respawning a corpse)
+    "rep_ready": ("engine-replica", "supervisor"),
+    "rep_inflight": "frontend-worker",
+    # submission ring: producer head/entries, consumer tail
+    "sub_entries": "frontend-worker",
+    "sub_head": "frontend-worker",
+    "sub_tail": "engine-replica",
+    # completion rings: producer head/entries, consumer tail
+    "comp_entries": "engine-replica",
+    "comp_head": "engine-replica",
+    "comp_tail": "frontend-worker",
+    # request slots: the front end owns the request half...
+    "slot_gen": "frontend-worker",
+    "slot_n": "frontend-worker",
+    "slot_busy": "frontend-worker",
+    "slot_tenant": "frontend-worker",
+    "slot_replica": "frontend-worker",
+    "slot_deadline": "frontend-worker",
+    "slot_slo": "frontend-worker",
+    # ...the engine owns the response half
+    "resp_gen": "engine-replica",
+    "resp_status": "engine-replica",
+    "resp_incarnation": "engine-replica",
+    "resp_trace": ("engine-replica", "frontend-worker"),
+    # slabs: requests in, responses out
+    "small_cat": "frontend-worker",
+    "small_num": "frontend-worker",
+    "large_cat": "frontend-worker",
+    "large_num": "frontend-worker",
+    "small_resp": "engine-replica",
+    "large_resp": "engine-replica",
+    # per-worker metrics blocks (each worker writes only its own row)
+    "req_counts": "frontend-worker",
+    "lat_counts": "frontend-worker",
+    "lat_sum_ms": "frontend-worker",
+    "lat_n": "frontend-worker",
+    "pred_lat_counts": "frontend-worker",
+    "pred_lat_n": "frontend-worker",
+    "shed": "frontend-worker",
+    "inflight": "frontend-worker",
+    "quota_shed": "frontend-worker",
+    "expired": "frontend-worker",
+    "parked": "frontend-worker",
+    "brownout_shed": "frontend-worker",
+    "tier_demote": "frontend-worker",
+    "brownout_demote": "frontend-worker",
+    "trace_dropped": "frontend-worker",
+    "flight_dumps": "frontend-worker",
+    "loop_lag_ms": "frontend-worker",
+    # engine telemetry blocks (the engine's telemetry loop publishes;
+    # reattach/recovery paths on the replica rebuild them)
+    "shape_meta": "telemetry-loop",
+    "shape_keys": "telemetry-loop",
+    "shape_vals": "telemetry-loop",
+    "tier_counts": "engine-replica",
+    "mon_vals": ("engine-replica", "telemetry-loop"),
+    "mon_drift_last": ("engine-replica", "telemetry-loop"),
+    "mon_drift_mean": ("engine-replica", "telemetry-loop"),
+    "mon_drift_sum": ("engine-replica", "telemetry-loop"),
+    # per column: the replica its incarnation and replay counts, the
+    # supervisor the down clock, the telemetry loop the degraded count
+    "eng_vals": ("engine-replica", "supervisor", "telemetry-loop"),
+    "eng_rows_tenant": "engine-replica",
+    # the port's dispatch and kernel-launch mirrors (the telemetry loop
+    # publishes; a respawned replica rebuilds its bases in reattach)
+    "disp_keys": "telemetry-loop",
+    "disp_vals": "telemetry-loop",
+    "kernel_launches": ("engine-replica", "telemetry-loop"),
+    # sloscope plane: the supervisor arms, the telemetry loop publishes
+    "slo_meta": ("supervisor", "frontend-worker"),
+    "slo_vals": "telemetry-loop",
+    "alert_vals": "telemetry-loop",
+    "ledger_meta": "telemetry-loop",
+    "ledger_keys": "telemetry-loop",
+    "ledger_vals": "telemetry-loop",
+    "life_vals": "telemetry-loop",
+    "life_promos": "telemetry-loop",
+    # the autotuner (autotune/): per-replica controller state +
+    # the shape-mirror overflow marker, published per telemetry tick
+    "auto_vals": "telemetry-loop",
+    "auto_plans": "telemetry-loop",
+    "shape_evicted": "telemetry-loop",
+}
+
+# Which process role a lexical context runs as. Most specific wins:
+# "Class.method" over "Class"; bare names are module-level functions.
+# RequestRing is the shared library both sides import, so it gets NO
+# class-wide role — each mutating method is pinned to the role that is
+# allowed to call it (calling `submit` from an engine would be flagged
+# exactly because the method's role, not the caller's import, decides).
+TPULINT_SHM_ROLES = {
+    "FrontendServer": "frontend-worker",
+    "ShmWorkerMetrics": "frontend-worker",
+    "RingClient": "frontend-worker",
+    "RingService": "engine-replica",
+    "RingService._telemetry_loop": "telemetry-loop",
+    "RingService._write_autotune": "telemetry-loop",
+    "RingService._write_observability": "telemetry-loop",
+    "RingService._write_monitors": "telemetry-loop",
+    "RingService._write_lifecycle": "telemetry-loop",
+    "RingService._mirror_counts": "telemetry-loop",
+    # RequestRing methods, by protocol side:
+    "RequestRing.submit": "frontend-worker",
+    "RequestRing.pop_completions": "frontend-worker",
+    "RequestRing.set_tracing": "frontend-worker",
+    "RequestRing.try_claim_profile": "frontend-worker",
+    "RequestRing.release_profile": "frontend-worker",
+    "RequestRing.post_profile_request": "frontend-worker",
+    "RequestRing.cancel_profile_request": "frontend-worker",
+    "RequestRing.pop_submissions": "engine-replica",
+    "RequestRing.push_completion": "engine-replica",
+    "RequestRing.set_ready": "engine-replica",
+    "RequestRing.recover_engine_locks": "engine-replica",
+    "RequestRing.set_draining": "supervisor",
+    "RequestRing.arm_slo": "supervisor",
+    "RequestRing.write_monitor": "telemetry-loop",
+    "RequestRing.write_lifecycle": "telemetry-loop",
+    "RequestRing.write_autotune": "telemetry-loop",
+    # module-level process mains
+    "_engine_main": "engine-replica",
+    "serve_multi_worker": "supervisor",
+}
+
+
 class Doorbell:
     """A cross-process wakeup on ``os.eventfd``, made before fork and
     shared by inheritance. The value is a count: ``ring(n)`` publishes n
@@ -347,6 +537,9 @@ class RequestRing:
             # dumps it landed (single writer: that worker).
             ("trace_dropped", u64, (workers,)),
             ("flight_dumps", u64, (workers,)),
+            # Each front end's event-loop lag window max in ms (the loop
+            # sanitizer's, single writer: that worker; 0.0 when off).
+            ("loop_lag_ms", f64, (workers,)),
             # Engine-process writers, one row per replica (under that
             # replica's RingService._mon_lock); the render sums them.
             ("tier_counts", f64, (R, len(TIERS))),
@@ -512,7 +705,8 @@ class RequestRing:
             if float(self.prof_claim[0]) > now:
                 return None
             token = now + self.PROFILE_LEASE_S
-            self.prof_claim[0] = token
+            # Held: acquired with a timeout above, released in the finally.
+            self.prof_claim[0] = token  # tpulint: disable=TPU402
             return token
         finally:
             self._profile_lock.release()
@@ -757,6 +951,11 @@ class ShmWorkerMetrics:
     def count_deadline_expired(self) -> None:
         """A request answered 504 before its slot was submitted."""
         self._ring.expired[self._worker] += 1
+
+    def set_loop_lag(self, lag_ms: float) -> None:
+        """Publish this worker's event-loop lag window max (the loop
+        sanitizer's ``snapshot_ms``) into its own cell."""
+        self._ring.loop_lag_ms[self._worker] = lag_ms
 
 
 class RingClient:
@@ -1295,7 +1494,7 @@ class RingService:
                 # Any scoring failure becomes an error completion on every
                 # waiting slot: a dropped descriptor would strand its
                 # front end's future until the deadline.
-                except Exception:
+                except Exception:  # tpulint: disable=TPU201
                     logger.exception("ring dispatch failed (%d slots)", len(live))
                     status = RESP_ERROR
             incarnation = int(ring.eng_vals[rep, ENG_INCARNATION])
@@ -1440,7 +1639,7 @@ class RingService:
             status = int(self.profiler(action)[0])
         # The profiler logs and answers its own failures with 500; this
         # catches a failure around it, answered 500 too, never a lost ack.
-        except Exception:
+        except Exception:  # tpulint: disable=TPU201
             logger.exception("ring profile %s failed", action)
             status = 500
         self._ack_profile(seq, status)
@@ -1532,7 +1731,7 @@ class RingService:
                     slo.write_rows(ring.slo_vals, ring.alert_vals)
                 # An evaluator failure costs one tick of freshness, logged,
                 # never the telemetry thread.
-                except Exception:
+                except Exception:  # tpulint: disable=TPU201
                     logger.exception("slo tick failed; alert gauges stale")
 
     def _write_autotune(self) -> None:
@@ -1545,7 +1744,7 @@ class RingService:
             self.ring.write_autotune(controller.metrics_snapshot(), self.replica)
         # A controller mid-regrid costs one gauge refresh, never the
         # telemetry thread.
-        except Exception:
+        except Exception:  # tpulint: disable=TPU201
             logger.exception("ring autotune write failed; gauges stale")
 
     def _write_monitors(self) -> None:
@@ -1557,7 +1756,7 @@ class RingService:
                 continue
             try:
                 self.ring.write_monitor(engine.monitor_snapshot(), t, self.replica)
-            except Exception:
+            except Exception:  # tpulint: disable=TPU201
                 logger.exception("ring monitor fetch failed (tenant %d); gauges stale", t)
 
     def _write_lifecycle(self) -> None:
@@ -1579,6 +1778,6 @@ class RingService:
                 self.ring.write_lifecycle(snapshot, tenant)
             # A controller mid-transition costs one gauge refresh, never
             # the telemetry thread.
-            except Exception:
+            except Exception:  # tpulint: disable=TPU201
                 logger.exception("ring lifecycle write failed (tenant %d); gauges stale",
                                  tenant)

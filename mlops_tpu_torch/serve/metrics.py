@@ -68,6 +68,51 @@ from mlops_tpu_torch.slo import ledger as _ledger
 from mlops_tpu_torch.slo.engine import read_slo_view, render_slo_lines
 from mlops_tpu_torch.trace import shapes as _shapes
 
+# tpulint Layer-4 series-contract manifests (analysis/seriesreg.py, read
+# from source): the two scrape roots must emit one series surface, save
+# the declared single-plane series; formatted label values only under the
+# closed-set keys below.
+TPULINT_SERIES_PLANES = {
+    "single": ("HttpServer._metrics_endpoint",),
+    "ring": ("FrontendServer._metrics_endpoint",),
+}
+# The ring plane's extras are its fleet anatomy (per-worker depth, shed
+# and quota; per-replica liveness; the supervisor's down-since clock):
+# physical structure the single-process plane does not have.
+TPULINT_PLANE_ONLY_SERIES = {
+    "ring": (
+        "mlops_tpu_ring_depth",
+        "mlops_tpu_shed_total",
+        "mlops_tpu_tenant_quota_shed_total",
+        "mlops_tpu_engine_down_since",
+        "mlops_tpu_replica_ready",
+        "mlops_tpu_replica_ring_depth",
+        "mlops_tpu_replica_incarnation",
+        "mlops_tpu_replica_respawn_total",
+        "mlops_tpu_replica_replayed_slots_total",
+        "mlops_tpu_replica_rows_scored_total",
+    ),
+}
+TPULINT_BOUNDED_LABELS = (
+    "alert",
+    "class",
+    "entry",
+    "feature",
+    "kernel",
+    "le",
+    "model",
+    "outcome",
+    "replica",
+    "route",
+    "severity",
+    "slo",
+    "status",
+    "tenant",
+    "tier",
+    "window",
+    "worker",
+)
+
 LATENCY_BUCKETS = (0.5, 1, 2, 5, 10, 25, 50, 100, 250, 1000, float("inf"))
 # Known routes only: arbitrary request paths must not become unbounded
 # label values; anything else counts as "<other>".
@@ -153,6 +198,37 @@ def robustness_lines(deadline_expired: int, degraded: int, trace_dropped: int = 
         *_counter("mlops_tpu_degraded_dispatch_total", int(degraded)),
         *_counter("mlops_tpu_trace_dropped_total", int(trace_dropped)),
         *_counter("mlops_tpu_flightrec_dumps_total", int(flight_dumps)),
+    ]
+
+
+def loop_lag_lines(lag_by_worker: list[tuple[str, float]]) -> list[str]:
+    """The JAX ``ServingMetrics.loop_lag_lines``: the event-loop lag block,
+    one cell per serving event loop, shared by both planes. Always
+    emitted, at 0.0 with the monitor off: an absent series would read
+    like a dead worker, and 0.0 is a true reading (no callback held the
+    loop since the last drain)."""
+    lines = ["# TYPE mlops_tpu_event_loop_lag_ms gauge"]
+    for worker, lag_ms in lag_by_worker:
+        lines.append(
+            f'mlops_tpu_event_loop_lag_ms{{worker="{worker}"}} {float(lag_ms):.3f}'
+        )
+    return lines
+
+
+def survivability_lines(respawns: int, replayed: int, rows_lost: float, parked: int,
+                        brownout: int, incarnation: int = 0) -> list[str]:
+    """The JAX ``ServingMetrics.survivability_lines``: the engine
+    survivability block, one definition for both planes; on the
+    single-process plane every value is structurally 0."""
+    return [
+        *_counter("mlops_tpu_engine_respawn_total", int(respawns)),
+        *_counter("mlops_tpu_replayed_slots_total", int(replayed)),
+        *_counter("mlops_tpu_monitor_rows_lost_total", int(rows_lost)),
+        "# TYPE mlops_tpu_parked_requests gauge",
+        f"mlops_tpu_parked_requests {int(parked)}",
+        *_counter("mlops_tpu_brownout_shed_total", int(brownout)),
+        "# TYPE mlops_tpu_engine_incarnation gauge",
+        f"mlops_tpu_engine_incarnation {int(incarnation)}",
     ]
 
 
@@ -409,21 +485,18 @@ def render_ring_metrics(ring) -> str:
         int(ring.trace_dropped.sum()),
         int(ring.flight_dumps.sum()),
     )
-    lines += _counter("mlops_tpu_engine_respawn_total", int(eng[:, ENG_RESPAWNS].sum()))
-    lines += _counter("mlops_tpu_replayed_slots_total", int(eng[:, ENG_REPLAYED].sum()))
-    lines += _counter("mlops_tpu_monitor_rows_lost_total", int(eng[:, ENG_ROWS_LOST].sum()))
-    lines += [
-        "# TYPE mlops_tpu_parked_requests gauge",
-        f"mlops_tpu_parked_requests {int(ring.parked.sum())}",
-    ]
-    lines += _counter("mlops_tpu_brownout_shed_total", int(ring.brownout_shed.sum()))
+    # One cell per front end, each written by its own worker.
+    lines += loop_lag_lines([(str(w), float(lag)) for w, lag in enumerate(ring.loop_lag_ms)])
+    lines += survivability_lines(
+        int(eng[:, ENG_RESPAWNS].sum()), int(eng[:, ENG_REPLAYED].sum()),
+        int(eng[:, ENG_ROWS_LOST].sum()), int(ring.parked.sum()),
+        int(ring.brownout_shed.sum()), int(eng[:, ENG_INCARNATION].sum()),
+    )
     down = [float(v) for v in eng[:, ENG_DOWN_SINCE] if v > 0]
     lines += [
-        "# TYPE mlops_tpu_engine_incarnation gauge",
-        f"mlops_tpu_engine_incarnation {int(eng[:, ENG_INCARNATION].sum())}",
         # The monotonic time the supervisor saw the earliest replica still
         # down die; 0 while every replica is up.
-        "# TYPE mlops_tpu_engine_down_since gauge",
+        "# TYPE mlops_tpu_engine_down_since gauge",  # tpulint: disable=TPU502 — port-only
         f"mlops_tpu_engine_down_since {min(down) if down else 0.0}",
         "# TYPE mlops_tpu_tier_requests_total counter",
     ]
@@ -453,11 +526,11 @@ def render_ring_metrics(ring) -> str:
     ):
         lines.append(f"# TYPE {name} {kind}")
         lines += [f'{name}{{replica="{r}"}} {v}' for r, v in enumerate(values)]
-    lines.append("# TYPE mlops_tpu_dispatches_total counter")
+    lines.append("# TYPE mlops_tpu_dispatches_total counter")  # tpulint: disable=TPU502 — port-only
     for entry, count in sorted(ring.dispatch_counts().items()):
         lines.append(f'mlops_tpu_dispatches_total{{entry="{entry}"}} {count}')
     lines += [
-        "# TYPE mlops_tpu_kernel_launches_total counter",
+        "# TYPE mlops_tpu_kernel_launches_total counter",  # tpulint: disable=TPU502 — port-only
         'mlops_tpu_kernel_launches_total{kernel="quant_fused"} '
         f"{int(ring.kernel_launches.sum())}",
     ]

@@ -83,7 +83,9 @@ from mlops_tpu_torch.serve.metrics import (
     autotune_lines,
     latency_good_buckets,
     lifecycle_lines,
+    loop_lag_lines,
     robustness_lines,
+    survivability_lines,
 )
 from mlops_tpu_torch.serve.tierroute import TIERS, BrownoutGovernor
 from mlops_tpu_torch.serve.wire import (
@@ -94,6 +96,16 @@ from mlops_tpu_torch.serve.wire import (
 from mlops_tpu_torch.tenancy.router import TenantRouter
 
 logger = logging.getLogger("mlops_tpu_torch.serve")
+
+# tpulint Layer-3 manifest: TorchProfiler's one leaf lock serializes
+# control() calls (debug-endpoint cadence, never a request path); the
+# Metrics lock is a leaf around host counters.
+TPULINT_LOCK_ORDER = {"TorchProfiler": ("_lock",), "Metrics": ("_lock",)}
+
+# tpulint Layer-5 manifest: HttpServer's mutable state is EVENT-LOOP
+# CONFINED: every method runs on the one asyncio thread, so none may make
+# a blocking call; device and file work goes through an executor.
+TPULINT_LOOP_CONFINED = ("HttpServer",)
 
 
 class TorchProfiler:
@@ -162,7 +174,7 @@ class TorchProfiler:
                 return 200, None
             # An unwritable directory or a profiler error: logged and
             # answered 500, never a dropped connection.
-            except Exception as err:
+            except Exception as err:  # tpulint: disable=TPU201
                 logger.exception("profiler %s failed", action)
                 self._prof = None
                 return 500, str(err)
@@ -184,15 +196,24 @@ class Metrics:
         # The latency SLO's source: /predict latencies per tenant in the
         # JAX histogram's buckets (not rendered: the SLO block is).
         self.predict_latency: dict[str, list[int]] = {}
+        # Every route's latencies per tenant, the histogram both planes
+        # render.
+        self.latency: dict[str, list[int]] = {}
+        self.latency_sum_ms: dict[str, float] = {}
+        self.latency_n: dict[str, int] = {}
         self.degraded = 0
         self.trace_dropped = 0
         self.flight_dumps = 0
+        # The loop sanitizer's window max, mirrored per scrape; 0.0 (and
+        # still rendered) with serve.loop_lag_monitor off.
+        self.loop_lag_ms = 0.0
         self.monitor: dict[str, dict[str, Any]] = {
             tenant: {"rows": 0.0, "outliers": 0.0, "batches": 0.0,
                      "drift_last": {}, "drift_mean": {}}
             for tenant in tenants
         }
         self.monitor_fetches = 0
+        self.monitor_fetched_at: dict[str, float] = {}
         self.deadline_expired = 0
         self.tier_requests: dict[str, int] = dict.fromkeys(TIERS, 0)
         self.tier_demotions = 0
@@ -207,6 +228,10 @@ class Metrics:
         with self._lock:
             key = (route, status, tenant)
             self.requests[key] = self.requests.get(key, 0) + 1
+            hist = self.latency.setdefault(tenant, [0] * len(LATENCY_BUCKETS))
+            hist[next(i for i, edge in enumerate(LATENCY_BUCKETS) if latency_ms <= edge)] += 1
+            self.latency_sum_ms[tenant] = self.latency_sum_ms.get(tenant, 0.0) + latency_ms
+            self.latency_n[tenant] = self.latency_n.get(tenant, 0) + 1
             if route == "/predict":
                 counts = self.predict_latency.setdefault(
                     tenant, [0] * len(LATENCY_BUCKETS))
@@ -245,6 +270,12 @@ class Metrics:
             self.trace_dropped = int(trace_dropped)
             self.flight_dumps = int(flight_dumps)
 
+    def set_loop_lag(self, lag_ms: float) -> None:
+        """Mirror the loop sanitizer's window max (0.0 when the monitor
+        is off or the loop stayed smooth since the last scrape)."""
+        with self._lock:
+            self.loop_lag_ms = float(lag_ms)
+
     def observe_prediction(self, response: dict[str, Any],
                            tenant: str = "default") -> None:
         """The host-side per-response fold of the JAX package, for engines
@@ -261,6 +292,7 @@ class Metrics:
         with self._lock:
             self.monitor[tenant] = snapshot
             self.monitor_fetches += 1
+            self.monitor_fetched_at[tenant] = time.monotonic()
 
     def count_deadline_expired(self) -> None:
         """One request answered 504 without its work dispatching."""
@@ -300,6 +332,18 @@ class Metrics:
                     f'mlops_tpu_requests_total{{route="{route}",'
                     f'status="{status}",tenant="{tenant}"}} {count}'
                 )
+            lines.append("# TYPE mlops_tpu_request_latency_ms histogram")
+            for tenant in sorted(self.latency):
+                cumulative = 0
+                for edge, count in zip(LATENCY_BUCKETS, self.latency[tenant]):
+                    cumulative += count
+                    label = "+Inf" if edge == float("inf") else str(edge)
+                    lines.append(f'mlops_tpu_request_latency_ms_bucket{{le="{label}",'
+                                 f'tenant="{tenant}"}} {cumulative}')
+                lines.append(f'mlops_tpu_request_latency_ms_sum{{tenant="{tenant}"}} '
+                             f"{self.latency_sum_ms[tenant]}")
+                lines.append(f'mlops_tpu_request_latency_ms_count{{tenant="{tenant}"}} '
+                             f"{self.latency_n[tenant]}")
             tenants = sorted(self.monitor)
             for name, field in (("mlops_tpu_rows_scored_total", "rows"),
                                 ("mlops_tpu_outliers_total", "outliers"),
@@ -311,6 +355,12 @@ class Metrics:
                 "# TYPE mlops_tpu_monitor_fetches_total counter",
                 f"mlops_tpu_monitor_fetches_total {self.monitor_fetches}",
             ]
+            if self.monitor_fetched_at:
+                # The oldest tenant's gauges' age: one stuck tenant never
+                # hides behind another's fresh fetch.
+                age = time.monotonic() - min(self.monitor_fetched_at.values())
+                lines += ["# TYPE mlops_tpu_monitor_fetch_age_seconds gauge",
+                          f"mlops_tpu_monitor_fetch_age_seconds {age:.3f}"]
             for name, field in (("mlops_tpu_feature_drift_score", "drift_last"),
                                 ("mlops_tpu_feature_drift_mean", "drift_mean")):
                 lines.append(f"# TYPE {name} gauge")
@@ -319,6 +369,12 @@ class Metrics:
                         lines.append(f'{name}{{feature="{feature}",tenant="{t}"}} {score}')
             lines += robustness_lines(self.deadline_expired, self.degraded,
                                       self.trace_dropped, self.flight_dumps)
+            # One event loop on this plane: one worker="0" cell.
+            lines += loop_lag_lines([("0", self.loop_lag_ms)])
+            # The engine lives in this process: no respawn, replay or
+            # parking, so the block is structurally zero, rendered all the
+            # same (one series set on both planes).
+            lines += survivability_lines(0, 0, 0, 0, 0)
             lines.append("# TYPE mlops_tpu_tier_requests_total counter")
             for tier in TIERS:
                 lines.append(
@@ -453,7 +509,7 @@ class HttpServer(HttpProtocol):
                 self.slo_engine.tick()
             # An evaluator failure costs one tick of freshness, logged; the
             # next tick retries.
-            except Exception:
+            except Exception:  # tpulint: disable=TPU201
                 logger.exception("slo tick failed; alert gauges stale")
 
     def _slo_view(self):
@@ -522,7 +578,7 @@ class HttpServer(HttpProtocol):
             )
         # Request boundary: any scoring failure (device error included)
         # becomes a logged 500, never a dropped connection.
-        except Exception:
+        except Exception:  # tpulint: disable=TPU201
             logger.exception("prediction failed request_id=%s", request_id)
             if span is not None:
                 span.abandoned = True  # a grouped dispatch may outlive us
@@ -580,7 +636,7 @@ class HttpServer(HttpProtocol):
                 snapshot = await loop.run_in_executor(self._executor,
                                                       engine.monitor_snapshot)
                 self.metrics.set_monitor_aggregate(snapshot, tenant=name)
-            except Exception as err:
+            except Exception as err:  # tpulint: disable=TPU201
                 logger.error("monitor fetch failed for tenant %r", name, exc_info=True)
                 failed = err
         if failed is not None and len(self.engines) == 1:
@@ -618,6 +674,10 @@ class HttpServer(HttpProtocol):
             self.tracer.dropped if self.tracer is not None else 0,
             self.flightrec.landed if self.flightrec is not None else 0,
         )
+        if self.loop_monitor is not None:
+            # The worst callback since the previous scrape (the window
+            # resets on read).
+            self.metrics.set_loop_lag(self.loop_monitor.snapshot_ms())
         lines = [self.metrics.render(dispatches)]
         stats = self.engine.shape_stats
         if stats is not None:
@@ -682,7 +742,7 @@ def arm_observability(server: HttpServer, trace=None, slo=None):
                 for name, controller in server._tenant_lifecycles():
                     try:
                         out[name] = bool(controller.metrics_snapshot().get("breaker_open"))
-                    except Exception:
+                    except Exception:  # tpulint: disable=TPU201
                         logger.exception("breaker probe failed (tenant %r)", name)
                 return out
 
@@ -744,6 +804,14 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
         ",".join(engine.available_tiers), engine.device,
     )
     loop = asyncio.get_running_loop()
+    if config.loop_lag_monitor:
+        # The runtime half of the Layer-5 discipline: time every callback
+        # on this loop, drained into the lag gauge on each scrape.
+        from mlops_tpu_torch.analysis.loopcheck import LoopLagSanitizer
+
+        server.loop_monitor = LoopLagSanitizer(slow_ms=config.loop_lag_slow_ms)
+        server.loop_monitor.attach(loop)
+        logger.info("loop-lag sanitizer armed (slow_ms=%g)", config.loop_lag_slow_ms)
     warmup_error: list[BaseException] = []
 
     async def _warm() -> None:
@@ -768,7 +836,7 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
         # A failed warmup (kernel build, launch, graph capture, OOM) stops
         # the server: the error is re-raised below, never left as a
         # forever-503.
-        except Exception as err:
+        except Exception as err:  # tpulint: disable=TPU201
             warmup_error.append(err)
             logger.exception("warmup failed, shutting down")
             srv.close()
@@ -796,6 +864,9 @@ async def serve(engine: InferenceEngine, config: ServeConfig,
         raise
     finally:
         srv.close()
+        if server.loop_monitor is not None:
+            server.loop_monitor.detach()
+            server.loop_monitor = None
         server.stop_telemetry()
         for controller in controllers:
             # stop() joins the controller thread: never on the event loop.

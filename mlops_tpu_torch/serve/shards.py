@@ -82,6 +82,11 @@ def _launch(store, rank: int, shards: int, offset: int) -> dict:
     return {"store": store, "rank": rank, "world_size": shards,
             "local_rank": offset + rank}
 
+# tpulint Layer-3 manifest: the follower watch holds no lock (an event
+# and a poll); a follower runs the lead's operations in the order the
+# mesh lock (parallel/sharding.py ServeMesh.lock) gave them.
+TPULINT_LOCK_ORDER: dict[str, tuple[str, ...]] = {"Followers": ()}
+
 
 class Followers:
     """The follower processes of one sharded engine, watched from the
@@ -110,7 +115,7 @@ class Followers:
         self._stopping.set()
         try:
             mesh.stop()
-        except Exception:  # a follower already gone: kill the rest below
+        except Exception:  # tpulint: disable=TPU201,TPU405 — a follower already gone: kill the rest below
             logger.warning("sharded engine: stopping the followers failed", exc_info=True)
         end = time.monotonic() + timeout_s
         for proc in self.procs:

@@ -120,6 +120,10 @@ def zero_view(
         for tenant in tenants
     }
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the engine's one leaf lock guards its windows and alert states.
+TPULINT_LOCK_ORDER = {"SLOEngine": ("_lock",)}
+
 
 class SLOEngine:
     """Windowed SLO evaluation over cumulative good/total counters.

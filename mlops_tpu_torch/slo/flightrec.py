@@ -37,6 +37,9 @@ from mlops_tpu_torch.utils.io import atomic_write
 
 logger = logging.getLogger("mlops_tpu_torch.slo")
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the recorder's one leaf lock guards its event ring and dump state.
+TPULINT_LOCK_ORDER = {"FlightRecorder": ("_lock",)}
 
 
 class FlightRecorder:

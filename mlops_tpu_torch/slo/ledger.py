@@ -82,6 +82,10 @@ TABLE_ROWS = 32
 TABLE_KEY_BYTES = 28
 TABLE_VALS = 4
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the ledger's one leaf lock guards its per-entry accumulators.
+TPULINT_LOCK_ORDER = {"CostLedger": ("_lock",)}
+
 
 class CostLedger:
     def __init__(

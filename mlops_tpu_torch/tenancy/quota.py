@@ -25,6 +25,10 @@ Single-owner state, confined to one front end's event loop: no locks.
 
 from __future__ import annotations
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# QuotaGovernor is lockless (event-loop confined or immutable after build).
+TPULINT_LOCK_ORDER: dict[str, tuple[str, ...]] = {"QuotaGovernor": ()}
+
 
 class QuotaGovernor:
     """Admission counters of one capacity pool (one slot class)."""

@@ -45,6 +45,10 @@ def _arch_key(engine: Any) -> str:
     config = dataclasses.asdict(bundle.model_config) if bundle.model is not None else {}
     return json.dumps({"model_config": config, "params": shapes}, sort_keys=True)
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# TenantRegistry is lockless (event-loop confined or immutable after build).
+TPULINT_LOCK_ORDER: dict[str, tuple[str, ...]] = {"TenantRegistry": ()}
+
 
 class TenantRegistry:
     """Load every tenant's bundle, build one engine per tenant with the

@@ -13,6 +13,10 @@ from mlops_tpu_torch.tenancy.config import DEFAULT_TENANT, TenancyConfig
 # arbitrary header text never becomes a label value.
 UNKNOWN_TENANT_LABEL = "<unknown>"
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# TenantRouter is lockless (event-loop confined or immutable after build).
+TPULINT_LOCK_ORDER: dict[str, tuple[str, ...]] = {"TenantRouter": ()}
+
 
 class TenantRouter:
     """Name <-> index resolution for one plane's tenant fleet."""

@@ -31,6 +31,10 @@ logger = logging.getLogger("mlops_tpu_torch.trace")
 # and performs the json.dumps + os.write OUTSIDE it — file I/O under a
 # hot-path lock is what this layout avoids.
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the recorder's one leaf lock guards its buffer and drop count.
+TPULINT_LOCK_ORDER = {"TraceRecorder": ("_lock",)}
+
 
 class TraceRecorder:
     """One process's span sink -> one JSONL file."""

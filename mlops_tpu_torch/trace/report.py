@@ -14,21 +14,11 @@ workflow, for the question its per-request logs could never answer —
 from __future__ import annotations
 
 import json
-import math
 from pathlib import Path
 from typing import Any
 
 from mlops_tpu_torch.trace.span import STAGES
-
-
-def percentile(sorted_values: list[float], q: float) -> float:
-    """Nearest-rank percentile of an ascending-sorted list (the JAX
-    package's ``utils/timing.percentile``)."""
-    if not sorted_values:
-        return float("nan")
-    n = len(sorted_values)
-    rank = min(n - 1, max(0, math.ceil(q / 100.0 * n) - 1))
-    return sorted_values[rank]
+from mlops_tpu_torch.utils.timing import percentile
 
 
 def load_spans(path: str | Path) -> list[dict[str, Any]]:

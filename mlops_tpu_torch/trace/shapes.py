@@ -49,6 +49,10 @@ TABLE_ROWS = 32
 TABLE_KEY_BYTES = 24
 TABLE_VALS = 3 + len(OCCUPANCY_BUCKETS)  # dispatches, requested, padded, hist
 
+# tpulint Layer-3 manifest (analysis/concurrency.py, read from source):
+# the stats' one leaf lock guards the shape table.
+TPULINT_LOCK_ORDER = {"ShapeStats": ("_lock",)}
+
 
 class ShapeStats:
     def __init__(self) -> None:

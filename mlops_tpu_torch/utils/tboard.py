@@ -22,7 +22,7 @@ class TensorBoardWriter:
             self._writer = SummaryWriter(log_dir=str(logdir))
         # Any import/init failure (torch absent, incompatible protobuf,
         # unwritable logdir) -> warn-and-no-op; metrics still reach jsonl.
-        except Exception as err:
+        except Exception as err:  # tpulint: disable=TPU201
             warnings.warn(
                 f"tensorboard writer unavailable ({err}); metrics go to "
                 "metrics.jsonl only",

@@ -204,75 +204,49 @@ def test_overlapped_dispatch_stress_matches_solo(engine, sample_record):
         _assert_close(got, want)
 
 
-class _CountingLock:
-    """The engine lock with a count of its acquisitions."""
-
-    def __init__(self, lock):
-        self._lock = lock
-        self.acquired = 0
-
-    def __enter__(self):
-        self._lock.acquire()
-        self.acquired += 1
-        return self
-
-    def __exit__(self, *exc):
-        self._lock.release()
-
-
 @pytest.mark.parametrize("seeds", [(0, 1, 2)])
 def test_burst_stress_perturbed_schedules_bit_identical(engine, sample_record,
                                                         monkeypatch, seeds):
-    """Seeded random delays around the engine's dispatch and fetch shift
-    the interleaving of overlapped dispatches; responses stay bit-identical
+    """The seeded schedule-perturbation harness (``analysis/lockcheck.py``,
+    Layer 3's runtime half): seeded delays around the engine's dispatch
+    and fetch shift the interleaving of overlapped dispatches while the
+    engine's locks are instrumented against its declared
+    ``TPULINT_LOCK_ORDER``. No order violation; responses bit-identical
     across seeds (group composition is fixed: every co-traveler enqueues
     inside the window), and the hot path ran under the engine lock."""
+    from mlops_tpu_torch.analysis.lockcheck import SchedulePerturber, instrument_engine
+
     requests = []
     for i in range(20):
         rec = dict(sample_record)
         rec["age"] = float(21 + i)
         rec["credit_limit"] = 500.0 * (i + 1)
         requests.append([rec] * ((i % 3) + 1))
-    real_dispatch, real_fetch = engine.dispatch_group, engine.fetch_group
 
     def drive(seed):
-        rng = np.random.default_rng(seed)
-        jitter = threading.Lock()
-
-        def delay():
-            with jitter:
-                s = float(rng.uniform(0, 0.001))
-            time.sleep(s)
-
-        def dispatch(reqs, **kw):
-            delay()
-            return real_dispatch(reqs, **kw)
-
-        def fetch(handle):
-            delay()
-            return real_fetch(handle)
-
-        lock = _CountingLock(engine._acc_lock)
+        perturber = SchedulePerturber(seed, max_delay_s=0.001)
         with monkeypatch.context() as patch:
-            patch.setattr(engine, "dispatch_group", dispatch)
-            patch.setattr(engine, "fetch_group", fetch)
-            patch.setattr(engine, "_acc_lock", lock)
+            patch.setattr(engine, "dispatch_group", perturber.wrap(engine.dispatch_group))
+            patch.setattr(engine, "fetch_group", perturber.wrap(engine.fetch_group))
+            with instrument_engine(engine, perturb_seed=seed, max_perturb_s=0.001) as san:
 
-            async def run():
-                executor = concurrent.futures.ThreadPoolExecutor(max_workers=8)
-                batcher = MicroBatcher(engine, executor, window_ms=20.0,
-                                       max_inflight=4)
-                try:
-                    return await asyncio.gather(*[batcher.predict(r) for r in requests])
-                finally:
-                    executor.shutdown(wait=True)
+                async def run():
+                    executor = concurrent.futures.ThreadPoolExecutor(max_workers=8)
+                    batcher = MicroBatcher(engine, executor, window_ms=20.0,
+                                           max_inflight=4)
+                    try:
+                        return await asyncio.gather(*[batcher.predict(r) for r in requests])
+                    finally:
+                        executor.shutdown(wait=True)
 
-            return asyncio.run(run()), lock.acquired
+                responses = asyncio.run(run())
+            return responses, list(san.violations), dict(san.acquired)
 
     baseline = None
     for seed in seeds:
-        responses, acquired = drive(seed)
-        assert acquired >= 1
+        responses, violations, acquired = drive(seed)
+        assert violations == [], [str(v) for v in violations]
+        assert acquired.get("_acc_lock", 0) >= 1
         assert len(responses) == len(requests)
         if baseline is None:
             baseline = responses

@@ -1,19 +1,18 @@
-"""The port's environment layer (ROADMAP C5) and its refusal of the keys it
-has not ported, against the JAX package's ``load_config``, on the CPU.
+"""The port's environment layer (ROADMAP C5) against the JAX package's
+``load_config``, on the CPU.
 
 Both loaders get one environment dict. Shared keys come out equal,
 tuples included; a malformed or unknown ``MLOPS_TPU_*`` key warns in both
-with the same text. Every key of the JAX config tree that the port has not
-ported (the JAX dataclass fields minus the port's ported ones, enumerated
-here from the two trees: the event-loop lag sanitizer's two ``serve``
-keys) is accepted at its JAX default and refused, naming its ROADMAP
-item, at any other value, whether the environment, the TOML or a CLI
-override sets it. The thirteen keys of the ring plane, its engine replica
-set, the tenant fleet and the warm start (``serve.workers`` and its
-geometry, ``serve.engine_replicas``, ``serve.replica_affinity_slack``,
-``serve.tenants_path``, ``cache.dir``, ``cache.warmup_workers``) are
-ported, and so are the ``trace``, ``slo`` and ``autotune`` sections: off
-their defaults, each layer gives the JAX loader's value."""
+with the same text. Every key of the JAX config tree is ported (the
+port's tree is the JAX tree plus ``serve.device`` and ``train.device``):
+the thirteen keys of the ring plane, its engine replica set, the tenant
+fleet and the warm start (``serve.workers`` and its geometry,
+``serve.engine_replicas``, ``serve.replica_affinity_slack``,
+``serve.tenants_path``, ``cache.dir``, ``cache.warmup_workers``), the
+``trace``, ``slo`` and ``autotune`` sections and the event-loop lag
+sanitizer's two ``serve`` keys: off their defaults, each layer gives the
+JAX loader's value, and the sanitizer's keys arm it and validate with
+the JAX messages."""
 
 import dataclasses
 import warnings
@@ -36,9 +35,10 @@ def _fields(config) -> dict:
 
 JAX_FIELDS = _fields(JaxConfig())
 PORT_FIELDS = _fields(Config())
-PORTED = {k for k, (f, _) in PORT_FIELDS.items() if "unported" not in f.metadata}
-JAX_ONLY = sorted(set(JAX_FIELDS) - PORTED)
-ITEM = {k: f.metadata["unported"] for k, (f, _) in PORT_FIELDS.items() if k not in PORTED}
+JAX_ONLY = sorted(set(JAX_FIELDS) - set(PORT_FIELDS))
+# The event-loop lag sanitizer's keys (ROADMAP A12, the last JAX keys the
+# port refused).
+LOOP_LAG = ["serve.loop_lag_monitor", "serve.loop_lag_slow_ms"]
 
 
 def _other_value(default):
@@ -62,16 +62,12 @@ def _both(env: dict, overrides=()):
     return jax, port, sorted(str(w.message) for w in caught)
 
 
-def test_the_unported_keys_are_the_jax_keys_the_port_lacks():
-    assert sorted(ITEM) == JAX_ONLY
+def test_every_jax_key_is_ported():
+    assert JAX_ONLY == []
     assert set(PORT_FIELDS) - set(JAX_FIELDS) == {"serve.device", "train.device"}
-    for key in JAX_ONLY:
+    assert not [k for k, (f, _) in PORT_FIELDS.items() if f.metadata]
+    for key in LOOP_LAG:
         assert PORT_FIELDS[key][1] == JAX_FIELDS[key][1], key  # the JAX default
-    assert {k.split(".")[0] for k in JAX_ONLY} == {"serve"}
-    assert not [k for k, item in ITEM.items() if item in ("A3", "A4")]
-    assert sum(k.startswith("serve.") for k in JAX_ONLY) == 2
-    assert {k for k, item in ITEM.items() if item == "A12"} == set(JAX_ONLY) == {
-        "serve.loop_lag_monitor", "serve.loop_lag_slow_ms"}
 
 
 def test_shared_keys_come_out_equal():
@@ -92,7 +88,7 @@ def test_shared_keys_come_out_equal():
     assert warned == []
     assert port.train.steps == jax.train.steps == 7
     assert port.serve.warmup_batch_sizes == jax.serve.warmup_batch_sizes == (1, 8)
-    for key in PORTED & set(JAX_FIELDS):
+    for key in set(PORT_FIELDS) & set(JAX_FIELDS):
         section, field = key.split(".")
         assert (getattr(getattr(port, section), field)
                 == getattr(getattr(jax, section), field)), key
@@ -113,27 +109,36 @@ def test_malformed_and_unknown_keys_warn_in_both(key, kind):
     assert port.train.steps == jax.train.steps == 3
 
 
-@pytest.mark.parametrize("key", JAX_ONLY)
-def test_a_key_the_port_lacks_is_refused_off_its_default(key, tmp_path):
+@pytest.mark.parametrize("key", LOOP_LAG)
+def test_the_loop_lag_keys_arm_and_validate_from_every_layer(key, tmp_path):
+    """Each layer sets the key as the JAX loader does; the monitor key
+    arms, and a slow threshold at 0 loads, then fails ``validate`` with
+    the JAX message."""
+    from mlops_tpu.config import ServeConfigError as JaxServeConfigError
+
+    from mlops_tpu_torch.config import ServeConfigError
+
     section, field = key.split(".")
-    default = JAX_FIELDS[key][1]
-    item = ITEM[key]
-    other = _other_value(default)
-    jax_config = jax_load_config(overrides=[f"{key}={other}"], env={})
-    assert getattr(getattr(jax_config, section), field) != default  # JAX takes it
+    value = "true" if field == "loop_lag_monitor" else "0"
     toml = tmp_path / "c.toml"
-    toml.write_text(f'[{section}]\n{field} = {other if not isinstance(default, str) else repr(other)}\n')
-    for layer in (
-        lambda: load_config(env={_env_key(key): other}),
-        lambda: load_config([f"{key}={other}"], env={}),
-        lambda: load_config(toml_path=toml, env={}),
-    ):
-        with pytest.raises(ValueError, match=rf"{key}=.* refused: .*ROADMAP {item}"):
-            layer()
-    # At its default it changes nothing, from every layer.
-    raw = str(default).lower() if isinstance(default, bool) else str(default)
-    config = load_config([f"{key}={raw}"], env={_env_key(key): raw})
-    assert getattr(getattr(config, section), field) == default
+    # A float literal in the TOML: the port stores a TOML integer in a
+    # float field as a float, where the JAX loader keeps the int (and its
+    # message then reads "=0").
+    toml.write_text(f"[{section}]\n{field} = {value if value == 'true' else '0.0'}\n")
+    for kwargs in (dict(env={_env_key(key): value}), dict(overrides=[f"{key}={value}"], env={}),
+                   dict(toml_path=toml, env={})):
+        jax, port = jax_load_config(**kwargs), load_config(**kwargs)
+        got = getattr(port.serve, field)
+        assert got == getattr(jax.serve, field) != JAX_FIELDS[key][1], kwargs
+        if field == "loop_lag_monitor":
+            assert port.serve.validate().loop_lag_monitor is True
+            continue
+        with pytest.raises(JaxServeConfigError) as want:
+            jax.serve.validate()
+        with pytest.raises(ServeConfigError) as err:
+            port.serve.validate()
+        assert str(err.value) == str(want.value)
+        assert "serve.loop_lag_slow_ms=0.0 must be > 0" in str(err.value)
 
 
 RING_AND_WARM_START = [
@@ -150,9 +155,9 @@ OBSERVABILITY = sorted(k for k in JAX_FIELDS if k.split(".")[0] in ("trace", "sl
 AUTOTUNE = sorted(k for k in JAX_FIELDS if k.split(".")[0] == "autotune")
 
 
-@pytest.mark.parametrize("key", RING_AND_WARM_START + OBSERVABILITY + AUTOTUNE)
+@pytest.mark.parametrize("key", RING_AND_WARM_START + OBSERVABILITY + AUTOTUNE + LOOP_LAG)
 def test_a_ported_key_matches_jax_off_its_default(key, tmp_path):
-    assert key in PORTED
+    assert key in PORT_FIELDS
     section, field = key.split(".")
     default = JAX_FIELDS[key][1]
     assert PORT_FIELDS[key][1] == default
@@ -173,15 +178,20 @@ def test_workers_zero_and_one_are_the_single_process_server(workers):
     assert port.serve.workers == jax.serve.workers == int(workers)
 
 
-def test_the_cli_exits_naming_the_item(monkeypatch):
-    """The one section left unported is A12's: its keys exit naming the
-    item. The ``autotune`` section is ported: ``serve`` takes it and stops
-    only at the JAX cross-section contract, with the JAX message."""
+def test_the_cli_takes_the_loop_lag_keys_and_stops_at_validation(monkeypatch):
+    """``serve`` takes the sanitizer's keys from the environment and stops
+    at the JAX validation message before any work; the ``autotune``
+    section stops only at the JAX cross-section contract."""
+    from mlops_tpu_torch.config import ServeConfigError
+
     assert len(OBSERVABILITY) == 27 and len(AUTOTUNE) == 8
     monkeypatch.setenv("MLOPS_TPU_SERVE_LOOP_LAG_MONITOR", "true")
-    with pytest.raises(SystemExit, match="serve.loop_lag_monitor=True refused: .*ROADMAP A12"):
+    monkeypatch.setenv("MLOPS_TPU_SERVE_LOOP_LAG_SLOW_MS", "0")
+    with pytest.raises(ServeConfigError, match=r"^serve.loop_lag_slow_ms=0.0 must be > 0"):
         main(["serve", "serve.device=cpu"])
+    assert load_config().serve.loop_lag_monitor is jax_load_config().serve.loop_lag_monitor
     monkeypatch.delenv("MLOPS_TPU_SERVE_LOOP_LAG_MONITOR")
+    monkeypatch.delenv("MLOPS_TPU_SERVE_LOOP_LAG_SLOW_MS")
     monkeypatch.setenv("MLOPS_TPU_AUTOTUNE_ENABLED", "true")
     monkeypatch.setenv("MLOPS_TPU_AUTOTUNE_PLAN_DIR", "elsewhere")
     with pytest.raises(SystemExit, match="^autotune.enabled requires trace.enabled"):

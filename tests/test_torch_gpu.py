@@ -453,6 +453,35 @@ def test_kernel_ks_is_exact_on_inputs_that_break_a_merge(card_state, s, b):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("value", [float("nan"), float("inf"), float("-inf")],
+                         ids=["nan", "inf", "-inf"])
+@pytest.mark.parametrize("s,b", [(1, 8), (1, 256), (64, 8)])
+def test_kernel_keeps_non_finite_numerics_as_its_plain_version(card_state, s, b, value):
+    """A NaN or an infinity in one valid row's numeric: that row's
+    prediction is NaN from the kernel as from the plain version (whose
+    ReLU keeps a NaN, as the reference's maximum does); every other
+    output as in the finite case, with NaN where the plain version has
+    NaN."""
+    _, mon, ds, _ = card_state
+    cat, num, mask = _ks_edge_batch(ds, mon.num_ref_sorted, s, b, seed=11)
+    mask[0, 0] = True
+    num = num.copy()
+    num[0, 0, 1] = value
+    args = _quant_args(card_state, cat, num, mask)
+    kp, kf, kc, kk = quant_kernel.fused_core_cuda(*args)
+    torch.cuda.synchronize()
+    rp, rf, rc, rk = quant_kernel.fused_core_reference(*args)
+    assert torch.isnan(kp[0, 0]) and torch.isnan(rp[0, 0])
+    assert torch.equal(kp.isnan(), rp.isnan())
+    assert torch.equal(kc, rc) and torch.equal(kk.isnan(), rk.isnan())
+    assert torch.equal(kk.nan_to_num(), rk.nan_to_num())
+    assert (kp - rp).nan_to_num().abs().max().item() <= PRED_ATOL
+    d2 = mahalanobis_sq(args[14], mon.out_mean, mon.out_precision)
+    thr = mon.out_threshold
+    off = ((d2 - thr).abs() > FLAG_BAND * thr.abs()) | d2.isnan()
+    assert torch.equal(kf[off], rf[off])
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("s,b", [(64, 1), (64, 8)])
 def test_grouped_launches_are_bitwise_equal(card_state, s, b):
     """Every output element has one owner (a warp per row, a slot group

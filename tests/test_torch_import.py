@@ -50,7 +50,12 @@ def test_importing_every_submodule_loads_no_jax_and_no_reference_package():
                  "tenancy.router", "tenancy.registry", "trace.span", "trace.recorder",
                  "trace.shapes", "trace.report", "slo.engine", "slo.ledger",
                  "slo.flightrec", "autotune", "autotune.costmodel", "autotune.search",
-                 "autotune.apply", "models.gbm", "ops.gbm_tensor"):
+                 "autotune.apply", "models.gbm", "ops.gbm_tensor",
+                 "analysis", "analysis.astrules", "analysis.traces", "analysis.entrypoints",
+                 "analysis.concurrency", "analysis.contracts", "analysis.seriesreg",
+                 "analysis.asyncdiscipline", "analysis.lockcheck", "analysis.loopcheck",
+                 "analysis.suppressions", "analysis.cli", "utils.flops", "utils.debug",
+                 "utils.timing"):
         assert f"mlops_tpu_torch.{name}" in names
     assert [m for m in loaded if _forbidden(m)] == []
 

@@ -22,6 +22,7 @@ import pytest
 from mlops_tpu.bundle import load_bundle as jax_load_bundle
 from mlops_tpu.lifecycle.shadow import ShadowEngine as JaxShadow
 from mlops_tpu.serve.engine import InferenceEngine as JaxEngine
+from mlops_tpu_torch.analysis.lockcheck import instrument_locks
 from mlops_tpu_torch.bundle import load_bundle, save_exact_bundle
 from mlops_tpu_torch.lifecycle.retrain import run_retrain
 from mlops_tpu_torch.lifecycle.shadow import ShadowEngine
@@ -144,15 +145,20 @@ def test_concurrent_dispatches_across_a_swap_each_run_one_generation(scenery, ca
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-5)  # interleave the threads as finely as it can
     try:
-        for t in threads:
-            t.start()
-        start.wait()
-        live.swap_bundle(cand)
-        for t in threads:
-            t.join(timeout=60)
+        # The engine's locks instrumented against its declared order, the
+        # schedule perturbed (the JAX suite's seed 7).
+        with instrument_locks(live, perturb_seed=7) as sanitizer:
+            for t in threads:
+                t.start()
+            start.wait()
+            live.swap_bundle(cand)
+            for t in threads:
+                t.join(timeout=60)
     finally:
         sys.setswitchinterval(interval)
     assert not errors and not any(t.is_alive() for t in threads)
+    assert not sanitizer.violations, [str(v) for v in sanitizer.violations]
+    assert sanitizer.acquired.get("_acc_lock", 0) >= 90
     matched = [sum(r == e for r in responses) for e in expected]
     assert sum(matched) == len(responses) == 90 and matched[1] > 0
     assert live.monitor_snapshot()["rows"] - base == 90 * 8

@@ -10,6 +10,7 @@ import time
 import pytest
 
 from mlops_tpu.data import pipeline_exec as jexec
+from mlops_tpu_torch.analysis.lockcheck import SchedulePerturber
 from mlops_tpu_torch.data import pipeline_exec as texec
 
 DEPTHS = (1, 2, 3)
@@ -93,15 +94,21 @@ def test_an_error_in_any_stage_comes_back_out(where, depth):
             raise Boom("sink")
 
     for mod in (texec, jexec):
-        before = threading.active_count()
-        with pytest.raises(Boom, match=where):
-            mod.run_pipeline(
-                src(),
-                [mod.Stage("mid", mid), mod.Stage("batch", batch, batch_max=4)],
-                sink,
-                depth=depth,
-            )
-        assert threading.active_count() == before  # every worker joined
+        # Under the JAX suite's seeded schedule perturbation
+        # (analysis/lockcheck.py): each seed shifts which stages are
+        # mid-flight when the failure lands.
+        for seed in (0, 1, 2):
+            perturber = SchedulePerturber(seed, max_delay_s=0.0005)
+            before = threading.active_count()
+            with pytest.raises(Boom, match=where):
+                mod.run_pipeline(
+                    src(),
+                    [mod.Stage("mid", perturber.wrap(mid)),
+                     mod.Stage("batch", perturber.wrap(batch), batch_max=4)],
+                    perturber.wrap(sink),
+                    depth=depth,
+                )
+            assert threading.active_count() == before  # every worker joined
 
 
 def test_backpressure_bounds_the_items_in_flight():
@@ -136,3 +143,21 @@ def test_stage_sink_sees_every_stage_execution():
     )
     assert sorted(seen).count(("x", 1)) == 5
     assert ("write", 1) in seen and ("read", 1) in seen
+
+
+def test_perturbed_schedules_give_the_serial_output_bit_for_bit():
+    """Three seeded schedules (the port's ``SchedulePerturber``), one
+    answer: per-stage delays shift the interleavings and the batch
+    gathers, and FIFO order keeps the output the serial loop's."""
+    expected = [-(x * x) for x in range(150)]
+    for seed in (0, 1, 2):
+        perturber = SchedulePerturber(seed, max_delay_s=0.0005)
+        out = []
+        stats = texec.run_pipeline(
+            range(150),
+            [texec.Stage("sq", perturber.wrap(lambda x: x * x)),
+             texec.Stage("neg", perturber.wrap(lambda xs: [-x for x in xs]), batch_max=4)],
+            out.append, depth=3,
+        )
+        assert out == expected, f"seed {seed} diverged"
+        assert stats.stages["sq"]["items"] == 150

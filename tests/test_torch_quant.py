@@ -169,6 +169,63 @@ def test_fused_core_matches_reference_body(state, s, b):
         )
 
 
+
+NON_FINITE = {"nan": np.nan, "inf": np.inf, "-inf": -np.inf}
+
+
+def _plant_non_finite(num, mask, value):
+    """One non-finite numeric in a valid row, and one in a padding row
+    where the batch has one."""
+    num = num.copy()
+    num[0, 2, 1] = value
+    pad = np.argwhere(~mask)
+    if len(pad):
+        num[tuple(pad[0])][3] = value
+    return num
+
+
+@pytest.mark.parametrize("value", sorted(NON_FINITE))
+@pytest.mark.parametrize("s,b", [(1, 8), (4, 8)])
+def test_fused_core_keeps_non_finite_numerics_as_the_jax_body(state, s, b, value):
+    """A NaN or an infinity in a numeric reaches the prediction as NaN
+    (the hidden ReLU keeps it, as ``jnp.maximum`` does); flags, counts
+    and K-S statistics equal the JAX ``_fused_core``'s, NaN for NaN."""
+    qparams, monitor, port, ds = state
+    cat, num, mask = _batch(ds, s, b, seed=5)
+    num = _plant_non_finite(num, mask, NON_FINITE[value])
+    tq, tm, temp = port
+    preds, flags, counts, ks = tkernel.fused_core(
+        tq["embed"], tq["w1_q"], tq["w1_s"], tq["b1"], tq["w2_q"],
+        tq["w2_s"], tq["b2"], tm.num_ref_sorted, tm.num_ref_cdf,
+        tm.out_mean, tm.out_precision, tm.out_threshold, temp,
+        _t(cat), _t(num), _t(mask),
+    )
+    assert torch.isnan(preds[0, 2])
+    core = jax.jit(_fused_core)
+    for i in range(s):
+        jp, jf, jc, jk = core(
+            qparams["embed"], qparams["w1_q"], qparams["w1_s"][None, :],
+            qparams["b1"][None, :], qparams["w2_q"][:, None],
+            qparams["w2_s"].reshape(1, 1), qparams["b2"].reshape(1, 1),
+            monitor.num_ref_sorted, monitor.num_ref_cdf,
+            monitor.out_mean[None, :], monitor.out_precision,
+            monitor.out_threshold.reshape(1, 1),
+            jnp.asarray(TEMPERATURE).reshape(1, 1),
+            cat[i], num[i], mask[i].astype(np.float32)[None, :],
+        )
+        np.testing.assert_array_equal(counts[i].numpy(), np.asarray(jc))
+        np.testing.assert_array_equal(ks[i].numpy(), np.asarray(jk)[0])
+        np.testing.assert_array_equal(
+            np.isnan(preds[i].numpy()), np.isnan(np.asarray(jp)[0])
+        )
+        np.testing.assert_allclose(
+            preds[i].numpy(), np.asarray(jp)[0], atol=PRED_ATOL, rtol=0
+        )
+        off = ~_near(monitor, num[i])
+        np.testing.assert_array_equal(
+            flags[i].numpy()[off], np.asarray(jf)[0][off]
+        )
+
 def _assert_acc(t_acc, j_acc):
     for key in ("rows", "outliers", "batches"):
         assert float(getattr(t_acc, key)) == float(getattr(j_acc, key)), key

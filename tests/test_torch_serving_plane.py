@@ -370,13 +370,16 @@ def test_a_scrape_reads_fresh_only_after_traffic(serving):
 
 # ------------------------------------------------------- tier routing
 def test_slo_classes_answer_as_the_jax_engine_per_tier(serving, bundle_dir, jax_engine):
-    s = serving(_engine(bundle_dir, tier_routing=True), tier_routing=True)
+    # The deadline case routes by the budget alone: a budget far above
+    # any request's time on a loaded host, under the cheap tier's bound.
+    s = serving(_engine(bundle_dir, tier_routing=True), tier_routing=True,
+                slo_cheap_deadline_ms=5000.0)
     assert s.server.slo_routing
     jb = jax_load_bundle(bundle_dir)
     cases = [({"x-slo-class": "cheap"}, "quant", QUANT_PRED_ATOL),
              ({"x-slo-class": "accurate"}, None, EXACT_PRED_ATOL),
              ({}, None, EXACT_PRED_ATOL),
-             ({"x-request-deadline-ms": "40"}, "quant", QUANT_PRED_ATOL),
+             ({"x-request-deadline-ms": "4000"}, "quant", QUANT_PRED_ATOL),
              ({"x-slo-class": "warp9"}, None, EXACT_PRED_ATOL)]
     for k, (headers, tier, atol) in enumerate(cases):
         for n in (1, 5):
